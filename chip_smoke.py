@@ -6,19 +6,34 @@ Phases, in order; any failure exits non-zero and nothing falls back:
 
 1. The card: its name, compute capability (must be 9.0) and power limit.
 2. The build: nvcc builds the counter-table kernels from
-   limitador_tpu_torch/csrc/ for sm_90a; prints seconds and ptxas lines.
+   limitador_tpu_torch/csrc/ for sm_90a, and g++ builds the C++ host lane
+   (csrc/hostpath.cc), both started together; prints seconds and ptxas
+   lines.
 3. Each kernel against its plain PyTorch version on the card, over a
    1<<20-counter table with numpy-seeded Zipf-0.99 batches: bit-exact
    outputs and final table, then median times (CUDA events), the plain
    version's time, the bytes bound at 3.35 TB/s and, where one PyTorch
-   call computes the same function, that call's time.
+   call computes the same function, that call's time. The lease credit
+   (B4c) runs with its edge rows, the heavy-hitter drain (B5) with ties,
+   fewer live slots than k, and k up to C.
 4. The main path: the port's gRPC server on the card (capacity 1<<20)
    answers Envoy ShouldRateLimit and Kuadrant CheckRateLimit/Report over a
    real channel, with a hot reload and an epoch rebase; every answer is
    held against the port's InMemoryStorage on the same sequence, and every
-   kernel must have launched during the run.
+   kernel of that path must have launched during the run.
 5. A short drive: 8192-hit batches through TorchStorage.check_many over
    1M Zipf-0.99 keys; decisions per second beside the card's name.
+6. The native main path: the same step list against the server with
+   --pipeline native --native-hot-lane on --lease-mode off --usage-topk 64
+   (ShouldRateLimit through the C++ host lane and begin_check_columnar,
+   the usage observatory draining through B5), held against the oracle.
+7. The native drive: NativeRlsPipeline.decide_many at capacity 1<<20,
+   8192-blob batches over 1M Zipf-0.99 users, one limit of 100 per hour:
+   (a) leases off, every row against serial order, then the usage
+   observatory's top-64 against a host tally; (b) leases on, the
+   over-admission bound and token conservation after every refresh, then
+   a forced settle through B4c and every user's device value against its
+   admitted count.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -43,10 +58,14 @@ C = 1 << 20
 NEVER = (1 << 31) - 1
 HS = (8, 1024, 8192, 32768)
 READ_NS = (8, 1024, 32768)
-# Host staging on the card's machine takes ~0.4 s per 8192-hit batch
-# (PERF.md): 250 batches keep the drive near 100 s, the whole run well
-# inside half its 1200 s limit.
-DRIVE_BATCHES = 250
+CREDIT_HS = (8, 1024, 4096)
+DRAIN_KS = (64, 1, 1000)
+# Host staging on the H100's machine takes about 0.35 s per 8192-hit batch
+# on the standard path (NVIDIA H100 80GB HBM3, 700 W; PERF.md): 100
+# batches keep that drive near 40 s, so the two native drives fit and the
+# run stays well inside half its 1200 s limit.
+DRIVE_BATCHES = 100
+NATIVE_BATCHES = 100
 KERNEL_SOURCE = "limitador_tpu_torch/csrc/counter_table.cu"
 REPLACES = {
     "check_and_update": "limitador_tpu/ops/kernel.py:153",
@@ -54,12 +73,22 @@ REPLACES = {
     "read_slots": "limitador_tpu/ops/kernel.py:651",
     "clear_slots": "limitador_tpu/ops/kernel.py:662",
     "rebase_epoch": "limitador_tpu/ops/kernel.py:688",
+    "credit": "limitador_tpu/ops/kernel.py:580",
+    "drain_top_hits": "limitador_tpu/ops/kernel.py:673",
 }
-# the shape each kernel sees on the main path, for the JSON line
+# the shape each kernel sees on the main path, for the JSON line (B4c:
+# rows of a lease settle; B5: k of the default --usage-topk)
 MAIN_SHAPE = {
     "check_and_update": 8192, "update": 8, "read_slots": 8,
-    "clear_slots": 8, "rebase_epoch": C + 1,
+    "clear_slots": 8, "rebase_epoch": C + 1, "credit": 1024,
+    "drain_top_hits": 64,
 }
+# kernels each main-path phase must launch
+PHASE4_KERNELS = ("check_and_update", "update", "read_slots",
+                  "clear_slots", "rebase_epoch")
+PHASE6_KERNELS = PHASE4_KERNELS + ("drain_top_hits",)
+PHASE7_KERNELS = ("check_and_update", "read_slots", "credit",
+                  "drain_top_hits")
 
 
 def fail(msg: str) -> None:
@@ -105,14 +134,27 @@ def phase_card():
 
 
 def phase_build():
+    """nvcc (the CUDA kernels) and g++ (the host lane) run together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from limitador_tpu_torch import native
+    from limitador_tpu_torch.native import build as host_build
     from limitador_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    build.library()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(build.library), pool.submit(host_build.library)]
+        for job in jobs:
+            job.result()
     info = build.build_info
+    host = host_build.build_info
     print(f"build: {time.perf_counter() - t0:.2f}s "
-          f"(nvcc {info['seconds']:.2f}s, built={info['built']}) "
-          f"-> {os.path.relpath(info['path'])}")
+          f"(nvcc {info['seconds']:.2f}s, built={info['built']}; "
+          f"g++ {host['seconds']:.2f}s, built={host['built']}) "
+          f"-> {os.path.relpath(info['path'])}, "
+          f"{os.path.relpath(host['path'])}")
+    if not (native.lane_available() and native.lease_available()):
+        fail("the host lane lacks its hot-lane or lease exports")
     for line in info["ptxas"]:
         if "registers" in line or "smem" in line or "spill" in line:
             print(f"  {line}")
@@ -169,6 +211,82 @@ def _batch(rng, H, lanes):
         np.asarray(col + [fill] * pad, dt)
         for col, fill, dt in zip(cols, fills, dtypes)
     )
+
+
+def _credit_rows(rng, H, now_ms, base):
+    """An H-row lease-credit batch over the 1<<20 table ``base`` (numpy
+    columns, changed in place): unique slots from the Zipf head and tail,
+    live buckets a few intervals ahead, padding rows at the scratch row,
+    and the edge rows: an expired window, an expired bucket, a covering
+    credit, credit * interval beyond int32 (the wrap guard); the scratch
+    row starts non-zero."""
+    values, expiry, _hits = base
+    values[C], expiry[C] = 77, 12345
+    n_real = max(H - max(H // 8, 1), 1)
+    slots = np.unique(zipf_keys(C, 4 * n_real, 0.99, rng))
+    slots = rng.permutation(slots)[:n_real]
+    if slots.size < n_real:
+        extra = np.setdiff1d(rng.choice(C, 2 * n_real, replace=False),
+                             slots)[: n_real - slots.size]
+        slots = np.concatenate([slots, extra])
+    slots = slots.astype(np.int32)
+    credits = rng.integers(0, 300, n_real).astype(np.int32)
+    windows = rng.integers(1, 5000, n_real).astype(np.int32)
+    bucket = rng.random(n_real) < 0.5
+    ahead = rng.integers(0, 400, n_real) * windows
+    expiry[slots] = np.where(bucket, now_ms + ahead, expiry[slots])
+    edges = [
+        (False, now_ms - 5, 50, 60_000),        # expired window
+        (True, now_ms - 1, 3, 100),             # expired bucket
+        (True, now_ms + 1000, 10, 100),         # credit covers exactly
+        (True, now_ms + 1001, 9, 100),          # one short: retreats
+        (True, NEVER, 1 << 30, 1 << 20),        # credit * I beyond int32
+        (False, now_ms + 1, 1 << 30, 1000),     # floored at 0
+    ]
+    for i, (is_bucket, e, c, w) in enumerate(edges[:n_real]):
+        bucket[i], expiry[slots[i]], credits[i], windows[i] = (
+            is_bucket, e, c, w)
+    pad = H - n_real
+    return (
+        np.concatenate([slots, np.full(pad, C, np.int32)]),
+        np.concatenate([credits, rng.integers(0, 9, pad)]).astype(np.int32),
+        np.concatenate([windows, np.zeros(pad, np.int32)]),
+        np.concatenate([bucket, np.zeros(pad, bool)]),
+    )
+
+
+def _credit_bytes(start, rows, after, now_ms):
+    """The bytes B4c must move for this batch, counted per row from its
+    inputs and result (numpy): every row's 4-byte slot; a real row's
+    bucket flag, credit and its cell's expiry; a live window's value
+    read, and written where it changes; a live bucket's interval read,
+    and its expiry written where it changes; the scratch cells' reset."""
+    values, expiry = start[0], start[1]
+    slots, _credits, _windows, bucket = rows
+    real = slots != C
+    e = expiry[slots]
+    live_window = real & ~bucket & (now_ms < e)
+    live_bucket = real & bucket & (e > now_ms)
+    new_v = after[0][slots] != values[slots]
+    new_e = after[1][slots] != e
+    return int(
+        4 * slots.size + 9 * real.sum()
+        + 4 * live_window.sum() + 4 * (live_window & new_v).sum()
+        + 4 * live_bucket.sum() + 4 * (live_bucket & new_e).sum()
+        + 8
+    )
+
+
+def _hit_column(rng, kind):
+    """int32[C+1] hit columns for B5: Zipf-0.99 traffic (ties among the
+    cold slots), fewer live slots than k with tied counts, all zero."""
+    hits = np.zeros(C + 1, np.int32)
+    if kind == "zipf":
+        np.add.at(hits, zipf_keys(C, 4 * 8192, 0.99, rng), 1)
+    elif kind == "sparse":
+        hits[rng.choice(C, 10, replace=False)] = rng.choice([1, 2, 2, 5], 10)
+    hits[C] = 3  # scratch garbage: zeroed, never reported
+    return hits
 
 
 def _median_ms(fn, setup=None, reps=30, warmup=3):
@@ -344,6 +462,68 @@ def phase_kernels(dev):
                      "rebase_expiry_kernel")
     record("rebase_epoch", C + 1, _max_abs_err(errs), ms, plain_ms,
            8 * (C + 1), device_ms=dms)
+    # B4c: the lease credit, edge rows included
+    for H in CREDIT_HS:
+        cols = [t.cpu().numpy().copy() for t in base]
+        rows = _credit_rows(rng, H, now_ms, cols)
+        start = K.CounterTableState(*(torch.from_numpy(c).to(dev)
+                                      for c in cols))
+        args = tuple(torch.from_numpy(a).to(dev) for a in rows)
+
+        def fresh_start():
+            return (K.CounterTableState(*(t.clone() for t in start)),)
+
+        (ta,), (tb,) = fresh_start(), fresh_start()
+        K.credit_batch(ta, *args, now_ms, check_unique=True)
+        K.credit_plain(tb, *args, now_ms)
+        torch.cuda.synchronize()
+        err = _max_abs_err(list(zip(ta, tb)))
+        if int(ta.values[C]) or int(ta.expiry_ms[C]):
+            err = max(err, 1)
+        ms = _median_ms(lambda t: K.credit_batch(t, *args, now_ms),
+                        fresh_start)
+        plain_ms = _median_ms(lambda t: K.credit_plain(t, *args, now_ms),
+                              fresh_start, reps=10, warmup=1)
+        dms = _device_ms(lambda t: K.credit_batch(t, *args, now_ms),
+                         fresh_start, "credit_kernel")
+        nbytes = _credit_bytes(cols, rows, [t.cpu().numpy() for t in tb],
+                               now_ms)
+        record("credit", H, err, ms, plain_ms, nbytes, device_ms=dms)
+    # B5: the heavy-hitter drain; the timed column is Zipf traffic
+    zipf_col = torch.from_numpy(_hit_column(rng, "zipf")).to(dev)
+    for k in DRAIN_KS:
+        errs = []
+        for kind in ("zipf", "sparse", "zero"):
+            col = zipf_col if kind == "zipf" else torch.from_numpy(
+                _hit_column(rng, kind)).to(dev)
+            ha, hb = col.clone(), col.clone()
+            got = K.drain_top_hits(ha, k)
+            want = K.drain_top_hits_plain(hb, k)
+            errs.extend(zip(got, want))
+        err = _max_abs_err(errs)
+
+        def column():
+            return (zipf_col.clone(),)
+
+        ms = _median_ms(lambda h: K.drain_top_hits(h, k), column)
+        plain_ms = _median_ms(lambda h: K.drain_top_hits_plain(h, k),
+                              column)
+        lib_ms = _median_ms(
+            lambda h: (torch.topk(h[:-1], k), h.zero_()), column)
+        dms = _device_ms(lambda h: K.drain_top_hits(h, k), column, "topk_")
+        record("drain_top_hits", k, err, ms, plain_ms, 8 * (C + 1) + 8 * k,
+               lib_ms, dms)
+    # B5 past the shared-memory path (k > 1024) up to k = C: right, untimed
+    big_errs = []
+    for k in (1025, 4096, C):
+        for kind in ("zipf", "sparse"):
+            col = torch.from_numpy(_hit_column(rng, kind)).to(dev)
+            ha, hb = col.clone(), col.clone()
+            big_errs.extend(zip(K.drain_top_hits(ha, k),
+                                K.drain_top_hits_plain(hb, k)))
+    err = _max_abs_err(big_errs)
+    print(f"  drain_top_hits    k in (1025, 4096, C) err={err}")
+    exact = exact and err == 0
     if not exact:
         fail("a kernel disagrees with its plain version")
     return out
@@ -477,30 +657,79 @@ def _same_answer(rls_pb2, got: bytes, want: bytes) -> bool:
     return True
 
 
-async def _main_path(tmpdir, dev):
+# Phase 6 serves the phase-4 limits plus a namespace whose limits all
+# vectorize, so single-descriptor ShouldRateLimit rides the native lanes
+# (the api namespace's descriptors[1] variable sends it to the exact path).
+NATIVE_NS_YAML = """\
+- namespace: nat
+  max_value: 5
+  seconds: 60
+  conditions: ["descriptors[0].method == 'GET'"]
+  variables: ["descriptors[0].user"]
+  name: nat-per-user
+- namespace: nat
+  max_value: 400
+  seconds: 600
+  name: nat-total
+"""
+
+
+def _native_steps(rls_pb2):
+    """Phase 4's steps, with single-descriptor nat requests past their
+    per-user limit before and after them."""
+    envoy = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+    nat = [(envoy, _rls_request(rls_pb2, "nat", [
+        {"method": "GET", "user": f"n{i % 3}"}], i % 3), 0.0, False)
+        for i in range(24)]
+    return nat + _main_path_steps(rls_pb2) + nat
+
+
+def _lat_blob(rls_pb2, i, native):
+    if native:
+        return _rls_request(rls_pb2, "nat", [
+            {"method": "GET", "user": f"lat{i % 50}"}])
+    return _rls_request(rls_pb2, "api", [
+        {"method": "GET", "user": f"lat{i % 50}"}, {"tenant": "t1"}])
+
+
+async def _main_path(tmpdir, dev, native=False):
+    """Phase 4 (standard pipeline, draft-03 headers) or, with ``native``,
+    phase 6 (the native pipeline; headers off, as the native handler
+    serves only then)."""
     import grpc
 
     from limitador_tpu_torch.ops import kernel as K
     from limitador_tpu_torch.server import __main__ as server
     from limitador_tpu_torch.server.proto import rls_pb2
 
+    label = "native main path" if native else "main path"
+    extra_yaml = NATIVE_NS_YAML if native else ""
     limits = os.path.join(tmpdir, "limits.yaml")
     with open(limits, "w") as f:
-        f.write(LIMITS_YAML)
+        f.write(LIMITS_YAML + extra_yaml)
     clock = ManualClock()
     ports = []
     for _ in range(2):
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             ports.append(s.getsockname()[1])
-    options = ["--rls-host", "127.0.0.1",
-               "--rate-limit-headers", "DRAFT_VERSION_03"]
+    options = ["--rls-host", "127.0.0.1", "--rate-limit-headers",
+               "NONE" if native else "DRAFT_VERSION_03"]
+    device_options = ["--device", dev.type]
+    if native:
+        device_options += [
+            "--pipeline", "native", "--native-hot-lane", "on",
+            "--lease-mode", "off", "--usage-topk", "64",
+            "--usage-drain-interval", "0.25",
+        ]
     parse = server.build_parser().parse_args
     K.reset_launches()
     t0 = time.perf_counter()
+    tier_failures = []  # a usage drain or lease refresh that raised
     gpu = await server.start(parse(
-        [limits, "torch", *options, "--device", dev.type,
-         "--rls-port", str(ports[0])]), clock=clock)
+        [limits, "torch", *options, *device_options,
+         "--rls-port", str(ports[0])]), clock=clock,
+        on_failure=tier_failures.append)
     oracle = await server.start(parse(
         [limits, "memory", *options, "--rls-port", str(ports[1])]),
         clock=clock)
@@ -508,12 +737,13 @@ async def _main_path(tmpdir, dev):
     try:
         async with grpc.aio.insecure_channel(f"127.0.0.1:{ports[0]}") as gc, \
                 grpc.aio.insecure_channel(f"127.0.0.1:{ports[1]}") as oc:
-            for i, (rpc, blob, advance, reload) in enumerate(
-                    _main_path_steps(rls_pb2)):
+            steps = (_native_steps(rls_pb2) if native
+                     else _main_path_steps(rls_pb2))
+            for i, (rpc, blob, advance, reload) in enumerate(steps):
                 clock.now += advance
                 if reload:
                     with open(limits, "w") as f:
-                        f.write(RELOADED_YAML)
+                        f.write(RELOADED_YAML + extra_yaml)
                     st = os.stat(limits)
                     os.utime(limits, ns=(st.st_atime_ns,
                                          st.st_mtime_ns + 10**9))
@@ -541,9 +771,7 @@ async def _main_path(tmpdir, dev):
                 "ShouldRateLimit"
             lat = []
             for i in range(400):
-                blob = _rls_request(rls_pb2, "api", [
-                    {"method": "GET", "user": f"lat{i % 50}"},
-                    {"tenant": "t1"}])
+                blob = _lat_blob(rls_pb2, i, native)
                 t1 = time.perf_counter()
                 got = await gc.unary_unary(envoy)(blob, timeout=60)
                 lat.append(time.perf_counter() - t1)
@@ -551,13 +779,26 @@ async def _main_path(tmpdir, dev):
                 answers += 1
                 mismatches += not _same_answer(rls_pb2, got, want)
             lat_ms = np.asarray(lat) * 1e3
-            print(f"served latency (sequential gRPC, {dev.type}): p50 "
+            print(f"{label} served latency (sequential gRPC, {dev.type}): "
+                  f"p50 "
                   f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
                   f"{np.percentile(lat_ms, 99):.3f} ms over {lat_ms.size}")
+            if native:
+                # the observatory drains every 0.25 s; wait for one more
+                drains = gpu.observatory.tenant_usage()["drains"]
+                deadline = time.monotonic() + 10
+                while gpu.observatory.tenant_usage()["drains"] <= drains:
+                    if time.monotonic() > deadline:
+                        fail("the usage observatory did not drain")
+                    await asyncio.sleep(0.05)
+                print(f"{label} usage top-3: "
+                      f"{[(r['namespace'], r['key'], r['hits']) for r in gpu.observatory.top(3)]}")
+                print(f"{label} hot lane: "
+                      f"{json.dumps(gpu.native_pipeline.lane_stats())}")
             final = {}
             for name, srv in (("gpu", gpu), ("oracle", oracle)):
                 got = {}
-                for ns in ("api", "tb"):
+                for ns in ("api", "tb", "nat"):
                     counters = srv.limiter.get_counters(ns)
                     if asyncio.iscoroutine(counters):
                         counters = await counters
@@ -575,15 +816,19 @@ async def _main_path(tmpdir, dev):
         final["gpu"][k][0] == final["oracle"][k][0]
         and abs(final["gpu"][k][1] - final["oracle"][k][1]) <= 0.002
         for k in final["gpu"])
-    print(f"main path: {answers} gRPC answers in {seconds:.2f}s, "
+    print(f"{label}: {answers} gRPC answers in {seconds:.2f}s, "
           f"{mismatches} differ from the in-memory oracle; final counters "
           f"{'agree' if same_final else 'DIFFER'} ({len(final['gpu'])} live)")
-    print(f"main path launches: {json.dumps(launches)}")
+    print(f"{label} launches: {json.dumps(launches)}")
     if mismatches or not same_final:
-        fail("the main path disagrees with the in-memory oracle")
-    missing = [name for name, n in launches.items() if n == 0]
+        fail(f"the {label} disagrees with the in-memory oracle")
+    if tier_failures:
+        fail(f"a background tier of the {label} failed: "
+             f"{tier_failures[0]!r}")
+    required = PHASE6_KERNELS if native else PHASE4_KERNELS
+    missing = [name for name in required if launches[name] == 0]
     if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+        fail(f"kernels not launched on the {label}: {missing}")
     return launches
 
 
@@ -651,6 +896,201 @@ def phase_drive(dev, card, batches, hits=8192, max_value=100):
     return rate
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+
+def _drive_blob(user: int) -> bytes:
+    """The serialized RateLimitRequest {domain: "drive", descriptors:
+    [{u: user}]}, built by hand (checked against protobuf below)."""
+    v = str(user).encode()
+    entry = b"\n\x01u\x12" + bytes([len(v)]) + v
+    desc = b"\n" + bytes([len(entry)]) + entry
+    return b"\n\x05drive\x12" + bytes([len(desc)]) + desc
+
+
+def _timed(obj, name, spent, key):
+    """Wrap obj.name so its calls add their host seconds to spent[key]."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent[key] += time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+
+
+def phase_native_drive(dev, card, batches, leases, hits=8192,
+                       max_value=100, capacity=C):
+    """NativeRlsPipeline.decide_many over Zipf-0.99 users from 1<<20, one
+    one-descriptor blob per request, one limit of max_value per hour per
+    user, the storage clock frozen. Without leases every row must follow
+    serial order (each user's first max_value admitted) and the usage
+    observatory's top-64 must equal a host tally of hits per user. With
+    leases (LeaseConfig defaults, refreshed between batches) no user may
+    be admitted more than max_value times, every refresh must conserve
+    tokens, and a forced settle (reload bump, clock past ttl_s) must
+    leave every user's device value equal to its admitted count."""
+    from limitador_tpu_torch import Limit
+    from limitador_tpu_torch.device import AsyncTorchStorage, TorchStorage
+    from limitador_tpu_torch.device.native_pipeline import NativeRlsPipeline
+    from limitador_tpu_torch.device.pipeline import CompiledTorchLimiter
+    from limitador_tpu_torch.lease import LeaseConfig
+    from limitador_tpu_torch.observability.usage import (
+        TenantUsageObservatory,
+    )
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "native drive (leases on)" if leases else "native drive"
+    want_blob = rls_pb2.RateLimitRequest(domain="drive")
+    want_blob.descriptors.add().entries.add(key="u", value="123456")
+    if _drive_blob(123456) != want_blob.SerializeToString():
+        fail("hand-built drive blob differs from protobuf's")
+    clock = ManualClock()
+    storage = TorchStorage(capacity=capacity, clock=clock, device=dev)
+    limiter = CompiledTorchLimiter(AsyncTorchStorage(storage))
+    limiter.add_limit(Limit("drive", max_value, 3600, [],
+                            ["descriptors[0].u"], name="per-user"))
+    pipeline = NativeRlsPipeline(limiter, max_batch=hits, hot_lane=True)
+    broker = None
+    if leases:
+        broker = pipeline.attach_lease(LeaseConfig(), autostart=False)
+        broker._clock = clock
+    rng = np.random.default_rng(77 if leases else 99)
+    keys = zipf_keys(capacity, batches * hits, 0.99, rng)
+    blob_of = {}
+    spent = {"lane": 0.0, "begin": 0.0, "finish": 0.0, "refresh": 0.0}
+    _timed(pipeline._hot_lane, "begin", spent, "lane")
+    _timed(storage, "begin_check_columnar", spent, "begin")
+    _timed(storage, "finish_check_columnar", spent, "finish")
+    credit_rows = []
+    credit = storage.credit_columnar
+
+    def counted_credit(slots, *args):
+        credit_rows.append(int(slots.shape[0]))
+        return credit(slots, *args)
+
+    storage.credit_columnar = counted_credit
+    ok = pipeline.OK_BLOB
+    admitted = np.zeros(batches * hits, bool)
+    violations = 0
+    t0 = time.perf_counter()
+    for b in range(batches):
+        part = keys[b * hits:(b + 1) * hits].tolist()
+        blobs = []
+        for k in part:
+            blob = blob_of.get(k)
+            if blob is None:
+                blob = blob_of[k] = _drive_blob(k)
+            blobs.append(blob)
+        out = pipeline.decide_many(blobs, chunk=hits)
+        if None in out:
+            fail(f"{label}: rows left to the exact path")
+        admitted[b * hits:(b + 1) * hits] = [r == ok for r in out]
+        if broker is not None:
+            t1 = time.perf_counter()
+            broker.refresh()
+            spent["refresh"] += time.perf_counter() - t1
+            st = broker.stats()
+            if st["lease_granted_tokens"] != (
+                st["lease_admissions"] + st["lease_returned_tokens"]
+                + st["lease_outstanding_tokens"]
+            ):
+                violations += 1
+    seconds = time.perf_counter() - t0
+    rate = admitted.size / seconds
+    n = admitted.size
+    print(f"{label}: {batches} batches x {hits} blobs over 1M Zipf-0.99 "
+          f"users in {seconds:.2f}s = {rate:.0f} decisions/s "
+          f"({n - int(admitted.sum())} limited; {card})")
+    other = seconds - sum(spent.values())
+    print(f"{label} host time: " + ", ".join(
+        f"{k} {v / batches * 1e3:.2f} ms/batch"
+        for k, v in list(spent.items()) + [("other", other)]))
+    print(f"{label} hot lane: {json.dumps(pipeline.lane_stats())}")
+    per_user = np.bincount(keys, weights=admitted, minlength=capacity)
+    if not leases:
+        order = np.argsort(keys, kind="stable")
+        sk = keys[order]
+        starts = np.r_[0, np.flatnonzero(sk[1:] != sk[:-1]) + 1]
+        rank = np.empty_like(order)
+        rank[order] = np.arange(sk.size) - np.repeat(
+            starts, np.diff(np.r_[starts, sk.size]))
+        want = rank < max_value
+        if not np.array_equal(admitted, want):
+            fail(f"{label}: decisions differ from serial order at row "
+                 f"{int(np.flatnonzero(admitted != want)[0])}")
+        # usage observatory: one drain of everything the drive counted
+        observatory = TenantUsageObservatory(storage, pipeline=pipeline,
+                                             top_k=64)
+        observatory.drain()
+        got = [(int(r["key"]["descriptors[0].u"]), r["hits"])
+               for r in observatory.top()]
+        tally = np.bincount(keys, minlength=capacity)
+        users, first = np.unique(keys, return_index=True)
+        # ties to the lowest slot = the earliest first appearance
+        top = np.lexsort((first, -tally[users]))[:64]
+        expected = [(int(users[i]), int(tally[users[i]])) for i in top]
+        if got != expected:
+            fail(f"{label}: observatory top-64 differs from the host "
+                 f"tally: {got[:5]} vs {expected[:5]}")
+        print(f"{label} usage top-64 equals the host tally "
+              f"(top: user {got[0][0]} with {got[0][1]} hits)")
+        return rate, spent, seconds
+    if per_user.max() > max_value:
+        fail(f"{label}: a user was admitted {int(per_user.max())} times, "
+             f"over the limit of {max_value}")
+    if violations:
+        fail(f"{label}: token conservation broke after {violations} "
+             "refreshes")
+    stats = broker.stats()
+    # forced settle: the reload bump strands every live balance, one begin
+    # syncs the mirror's epoch, the clock passes ttl_s, one refresh credits
+    pipeline.invalidate()
+    settle_user = capacity + 1
+    if pipeline.decide_many([_drive_blob(settle_user)]) != [ok]:
+        fail(f"{label}: the settle probe was not admitted")
+    clock.now += LeaseConfig().ttl_s + 1.0
+    credits_before = K.launches["credit"]
+    broker.refresh()
+    spent_credit = K.launches["credit"] - credits_before
+    settled = broker.stats()
+    if settled["lease_outstanding_tokens"] != 0 or settled[
+            "lease_granted_tokens"] != (settled["lease_admissions"]
+                                        + settled["lease_returned_tokens"]):
+        fail(f"{label}: the settle left tokens outstanding: {settled}")
+    values = storage._state.values.cpu().numpy()
+    device = {}
+    for slot, (_key, counter) in storage._table.info.items():
+        device[int(counter.set_variables["descriptors[0].u"])] = int(
+            values[slot])
+    touched = np.flatnonzero(np.bincount(keys, minlength=capacity))
+    bad = [u for u in touched.tolist()
+           if device.get(u, 0) != int(per_user[u])]
+    if device.get(settle_user) != 1:
+        bad.append(settle_user)
+    if bad:
+        fail(f"{label}: {len(bad)} users' device values differ from their "
+             f"admitted counts after the settle (first: user {bad[0]}: "
+             f"{device.get(bad[0])} vs {int(per_user[bad[0]])})")
+    exact = bool(np.array_equal(per_user, np.minimum(
+        np.bincount(keys, minlength=capacity), max_value)))
+    print(f"{label}: max admitted per user {int(per_user.max())}; "
+          f"granted {stats['lease_granted_tokens']} = admissions "
+          f"{stats['lease_admissions']} + returned "
+          f"{stats['lease_returned_tokens']} + outstanding "
+          f"{stats['lease_outstanding_tokens']} after every refresh; "
+          f"credit rows per settle {credit_rows}; "
+          f"settle: {spent_credit} credit launch(es), outstanding 0, "
+          f"{touched.size} users' device values = admitted counts; "
+          f"per-user admissions {'equal' if exact else 'DIFFER from'} "
+          f"min(requests, {max_value})")
+    return rate, spent, seconds
+
+
 def main() -> int:
     name, card = phase_card()
     import torch
@@ -661,6 +1101,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         launches = asyncio.run(_main_path(tmpdir, dev))
     rate = phase_drive(dev, card, DRIVE_BATCHES)
+    from limitador_tpu_torch.ops import kernel as K
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        native_launches = asyncio.run(_main_path(tmpdir, dev, native=True))
+    K.reset_launches()
+    native = phase_native_drive(dev, card, NATIVE_BATCHES, leases=False)
+    leased = phase_native_drive(dev, card, NATIVE_BATCHES, leases=True)
+    drive_launches = dict(K.launches)
+    print(f"native drive launches: {json.dumps(drive_launches)}")
+    missing = [name for name in PHASE7_KERNELS if drive_launches[name] == 0]
+    if missing:
+        fail(f"kernels not launched on the native drive: {missing}")
+    # launches on the main paths: phases 4, 6 and 7
+    launches = {name: launches[name] + native_launches[name]
+                + drive_launches[name] for name in launches}
     kernels = []
     for kname, by_shape in results.items():
         rec = by_shape[MAIN_SHAPE[kname]]
@@ -677,8 +1132,15 @@ def main() -> int:
         })
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": results, "launches": launches,
-                   "drive_decisions_per_s": rate}, f, indent=1)
+        json.dump({
+            "card": card, "kernels": results, "launches": launches,
+            "drive_decisions_per_s": rate,
+            "native_drive": {"decisions_per_s": native[0],
+                             "host_s": native[1], "seconds": native[2]},
+            "native_drive_leases": {"decisions_per_s": leased[0],
+                                    "host_s": leased[1],
+                                    "seconds": leased[2]},
+        }, f, indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,9 @@ as any object with a ``to_dict()`` method; they are rebuilt as the port's
 own ``Counter`` and ``Limit``. Slot keys are tuples of strings and ints
 and carry over as they are. The host-path cells of limits beyond the
 device's caps (``TpuStorage._big``) are not carried: they start empty.
+The native path's per-slot keys (``native_keys``) are not carried either:
+they start empty, and a native pipeline built over the new storage
+re-derives its plans and slot-map entries from the carried key space.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 
 from .core.counter import Counter
 from .core.limit import Limit
-from .device.storage import TorchStorage, _SlotTable
+from .device.storage import TorchStorage
 from .ops import kernel as K
 
 __all__ = ["table_from_numpy", "storage_from_state"]
@@ -68,7 +71,7 @@ def storage_from_state(
     storage = TorchStorage(
         capacity=capacity, cache_size=cache_size, clock=clock, device=device
     )
-    table = _SlotTable(capacity)
+    table = storage._replace_table()
     table.load({
         "simple": {tuple(k): int(s) for k, s in slot_dump["simple"].items()},
         "qualified": [(tuple(k), int(s)) for k, s in slot_dump["qualified"]],
@@ -77,7 +80,6 @@ def storage_from_state(
             for s, (key, counter) in slot_dump["info"].items()
         },
     }, 0, capacity)
-    storage._table = table
     with storage._on_device():
         storage._state = table_from_numpy(values, expiry_ms, hits,
                                           storage.device)

@@ -510,6 +510,253 @@ __global__ void rebase_expiry_kernel(int32_t* __restrict__ expiry, int n,
   }
 }
 
+// ---------------------------------------------------------------------------
+// B4c: the lease credit (credit_batch, ops/kernel.py:579-622).
+//
+// One thread per credit row. Callers pass unique slots (the lease broker
+// aggregates per slot), so rows never race; padding rows point at the
+// scratch row and are skipped, and global thread 0 zeroes the scratch
+// row's value and expiry, which no other thread writes. That is the JAX
+// program's end state (its scatters land, then row C is reset) even when
+// the scratch row held garbage. Bound: bytes (13 bytes of row in, two
+// cells gathered and written back: about 29 bytes per row), 0.04 us at
+// H = 4096; the launch costs more than the work.
+
+__global__ void credit_kernel(int32_t* __restrict__ values,
+                              int32_t* __restrict__ expiry,
+                              const int32_t* __restrict__ slots,
+                              const int32_t* __restrict__ credits,
+                              const int32_t* __restrict__ windows,
+                              const uint8_t* __restrict__ bucket, int H,
+                              int scratch, int32_t now) {
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  if (first == 0) {
+    values[scratch] = 0;
+    expiry[scratch] = 0;
+  }
+  for (int i = first; i < H; i += gridDim.x * blockDim.x) {
+    const int s = slots[i];
+    if (s == scratch) continue;
+    const int32_t e = expiry[s], c = credits[i];
+    if (bucket[i]) {
+      if (e > now) {
+        // The TAT retreats by credit * interval, floored at now. The
+        // product is formed only when the credit covers fewer intervals
+        // than lie ahead, where it cannot wrap for a credit >= 0; XLA
+        // forms it on every row and discards it. wmul keeps even a
+        // negative credit's product equal to XLA's wrapping one.
+        const int32_t ival = imax(windows[i], 1);
+        const int32_t ahead = imax(wsub(e, now), 0);
+        expiry[s] = c >= ahead / ival ? now : wsub(e, wmul(c, ival));
+      }
+    } else if (now < e) {
+      values[s] = imax(wsub(values[s], c), 0);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B5: the heavy-hitter drain (drain_top_hits, ops/kernel.py:672-685).
+//
+// Returns lax.top_k(hits[:C], k) and zeroes all C + 1 cells. Each slot
+// becomes one unique 64-bit key, (count with its sign bit flipped) << 32 |
+// (0xffffffff - index): descending keys are counts descending, ties to
+// the lowest index, which is top_k's order. Key 0 (count INT_MIN at index
+// 0xffffffff) cannot be a slot's key and pads every list.
+//
+// k <= 1024, two launches. Pass 1: B blocks of 1024 threads each walk a
+// contiguous chunk of the column in tiles of 1024 slots, zeroing each
+// cell as it is read. A block keeps its running top-K (K = k rounded up
+// to a power of two) sorted in shared memory; a tile whose largest key
+// is below the K-th best is skipped, else it is bitonic-sorted and merged
+// in (the elementwise max of best[i] and tile[K-1-i] is bitonic and holds
+// the top K of both; one bitonic merge sorts it). Pass 2: one block runs
+// the same walk over the B * K candidates and writes the first k.
+// k > 1024: a bitonic sort of every key in device memory, one launch per
+// stage, then the first k are decoded: slower, for any k up to C.
+// Bound: bytes, the column read and zeroed once: 8 (C + 1) bytes, 2.5 us
+// at C = 1 << 20. The sorts are the cost; the skip keeps them rare once
+// the running top-K fills with the hot slots.
+
+constexpr int kTopkThreads = 1024;
+constexpr int kTopkMaxSmall = 1024;  // largest K of the two-pass path
+constexpr int kTopkMaxBlocks = 264;  // two waves of 132 SMs
+
+__device__ __forceinline__ uint64_t topk_key(int32_t count, uint32_t index) {
+  return ((uint64_t)((uint32_t)count ^ 0x80000000u) << 32) |
+         (uint64_t)(0xffffffffu - index);
+}
+
+__device__ __forceinline__ void topk_decode(uint64_t key, int32_t* count,
+                                            int32_t* slot) {
+  *count = (int32_t)((uint32_t)(key >> 32) ^ 0x80000000u);
+  *slot = (int32_t)(0xffffffffu - (uint32_t)(key & 0xffffffffull));
+}
+
+// Bitonic sort of n (a power of two <= blockDim) shared keys, descending.
+__device__ void bitonic_sort_desc(uint64_t* a, int n) {
+  const int i = threadIdx.x;
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int ixj = i ^ j;
+      if (i < n && ixj > i) {
+        const uint64_t x = a[i], y = a[ixj];
+        if ((x < y) == ((i & k) == 0)) {
+          a[i] = y;
+          a[ixj] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Sort a bitonic sequence of n shared keys descending.
+__device__ void bitonic_merge_desc(uint64_t* a, int n) {
+  const int i = threadIdx.x;
+  for (int j = n >> 1; j > 0; j >>= 1) {
+    const int ixj = i ^ j;
+    if (i < n && ixj > i) {
+      const uint64_t x = a[i], y = a[ixj];
+      if (x < y) {
+        a[i] = y;
+        a[ixj] = x;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One block's running top-K over [lo, hi) of either the hit column
+// (zeroed as it is read; keys only below n_keys) or a candidate list.
+// Writes the block's K best to cand_out[blockIdx.x * K ...], or, with
+// out_counts set, the first k decoded.
+template <bool kFromHits>
+__global__ void __launch_bounds__(kTopkThreads) topk_blocks_kernel(
+    int32_t* __restrict__ hits, const uint64_t* __restrict__ cand_in,
+    int n, int n_keys, int chunk, int K, uint64_t* __restrict__ cand_out,
+    int k, int32_t* __restrict__ out_counts,
+    int32_t* __restrict__ out_slots) {
+  __shared__ uint64_t best[kTopkMaxSmall];
+  __shared__ uint64_t tile[kTopkThreads];
+  __shared__ uint64_t warp_max[kTopkThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < K) best[tid] = 0;
+  const long long lo = (long long)blockIdx.x * chunk;
+  const long long hi = lo + chunk < n ? lo + chunk : n;
+  __syncthreads();
+  for (long long base = lo; base < hi; base += kTopkThreads) {
+    const long long i = base + tid;
+    uint64_t key = 0;
+    if (i < hi) {
+      if (kFromHits) {
+        const int32_t c = hits[i];
+        hits[i] = 0;
+        if (i < n_keys) key = topk_key(c, (uint32_t)i);
+      } else {
+        key = cand_in[i];
+      }
+    }
+    tile[tid] = key;
+    uint64_t m = key;
+    for (int o = 16; o > 0; o >>= 1) {
+      const uint64_t y = __shfl_xor_sync(kFull, m, o);
+      m = y > m ? y : m;
+    }
+    if (lane == 0) warp_max[warp] = m;
+    __syncthreads();
+    if (warp == 0) {
+      m = warp_max[lane];
+      for (int o = 16; o > 0; o >>= 1) {
+        const uint64_t y = __shfl_xor_sync(kFull, m, o);
+        m = y > m ? y : m;
+      }
+      if (lane == 0) warp_max[0] = m;
+    }
+    __syncthreads();
+    const bool skip = warp_max[0] <= best[K - 1];
+    __syncthreads();
+    if (skip) continue;
+    bitonic_sort_desc(tile, kTopkThreads);
+    if (tid < K) {
+      const uint64_t a = best[tid], b = tile[K - 1 - tid];
+      best[tid] = a > b ? a : b;
+    }
+    __syncthreads();
+    bitonic_merge_desc(best, K);
+  }
+  if (out_counts != nullptr) {
+    if (tid < k) topk_decode(best[tid], &out_counts[tid], &out_slots[tid]);
+  } else if (tid < K) {
+    cand_out[(size_t)blockIdx.x * K + tid] = best[tid];
+  }
+}
+
+__global__ void topk_keys_kernel(int32_t* __restrict__ hits, int n,
+                                 int n_keys, long long P,
+                                 uint64_t* __restrict__ keys) {
+  const long long total = P > n ? P : n;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    uint64_t key = 0;
+    if (i < n) {
+      const int32_t c = hits[i];
+      hits[i] = 0;
+      if (i < n_keys) key = topk_key(c, (uint32_t)i);
+    }
+    if (i < P) keys[i] = key;
+  }
+}
+
+__global__ void topk_sort_step_kernel(uint64_t* __restrict__ keys,
+                                      long long P, long long k,
+                                      long long j) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < P; i += (long long)gridDim.x * blockDim.x) {
+    const long long ixj = i ^ j;
+    if (ixj > i) {
+      const uint64_t x = keys[i], y = keys[ixj];
+      if ((x < y) == ((i & k) == 0)) {
+        keys[i] = y;
+        keys[ixj] = x;
+      }
+    }
+  }
+}
+
+__global__ void topk_emit_kernel(const uint64_t* __restrict__ keys, int k,
+                                 int32_t* __restrict__ out_counts,
+                                 int32_t* __restrict__ out_slots) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < k;
+       i += gridDim.x * blockDim.x) {
+    topk_decode(keys[i], &out_counts[i], &out_slots[i]);
+  }
+}
+
+// Launch geometry of the two-pass path: K, blocks and slots per block.
+struct TopkPlan {
+  int K, blocks, chunk;
+};
+
+TopkPlan topk_plan(int n, int k) {
+  TopkPlan p;
+  p.K = next_pow2(k);
+  const int tiles = (n + kTopkThreads - 1) / kTopkThreads;
+  int blocks = 32 * kTopkThreads / p.K;
+  if (blocks > kTopkMaxBlocks) blocks = kTopkMaxBlocks;
+  if (blocks > tiles) blocks = tiles;
+  if (blocks < 1) blocks = 1;
+  p.blocks = blocks;
+  p.chunk = ((tiles + blocks - 1) / blocks) * kTopkThreads;
+  return p;
+}
+
+long long topk_sort_len(int n_keys) {
+  long long P = 1;
+  while (P < n_keys) P <<= 1;
+  return P;
+}
+
 int grid_for(int n) {
   int blocks = (n + 255) / 256;
   return blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16;
@@ -591,6 +838,57 @@ const char* ct_error_string(int code) {
 int ct_rebase_expiry(void* expiry, int n, int step, void* stream) {
   rebase_expiry_kernel<<<grid_for(n), 256, 0, (cudaStream_t)stream>>>(
       (int32_t*)expiry, n, (int32_t)step);
+  return (int)cudaGetLastError();
+}
+
+int ct_credit(void* values, void* expiry, const void* slots,
+              const void* credits, const void* windows, const void* bucket,
+              int H, int scratch, int now_ms, void* stream) {
+  credit_kernel<<<grid_for(H), 256, 0, (cudaStream_t)stream>>>(
+      (int32_t*)values, (int32_t*)expiry, (const int32_t*)slots,
+      (const int32_t*)credits, (const int32_t*)windows,
+      (const uint8_t*)bucket, H, scratch, (int32_t)now_ms);
+  return (int)cudaGetLastError();
+}
+
+// Device workspace for ct_drain_top_hits over n = C + 1 cells.
+long long ct_topk_workspace_bytes(int n, int k) {
+  if (k <= kTopkMaxSmall) {
+    const TopkPlan p = topk_plan(n, k);
+    return (long long)p.blocks * p.K * 8;
+  }
+  return topk_sort_len(n - 1) * 8;
+}
+
+int ct_drain_top_hits(void* hits, int n, int k, void* workspace,
+                      void* out_counts, void* out_slots, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_keys = n - 1;
+  uint64_t* ws = (uint64_t*)workspace;
+  if (k <= kTopkMaxSmall) {
+    const TopkPlan p = topk_plan(n, k);
+    topk_blocks_kernel<true><<<p.blocks, kTopkThreads, 0, st>>>(
+        (int32_t*)hits, nullptr, n, n_keys, p.chunk, p.K, ws, 0, nullptr,
+        nullptr);
+    const int m = p.blocks * p.K;
+    topk_blocks_kernel<false><<<1, kTopkThreads, 0, st>>>(
+        nullptr, ws, m, m, m, p.K, nullptr, k, (int32_t*)out_counts,
+        (int32_t*)out_slots);
+    return (int)cudaGetLastError();
+  }
+  const long long P = topk_sort_len(n_keys);
+  const int grid = 132 * 16;
+  topk_keys_kernel<<<grid, 256, 0, st>>>((int32_t*)hits, n, n_keys, P, ws);
+  int rc = (int)cudaGetLastError();
+  for (long long kk = 2; kk <= P && rc == 0; kk <<= 1) {
+    for (long long j = kk >> 1; j > 0 && rc == 0; j >>= 1) {
+      topk_sort_step_kernel<<<grid, 256, 0, st>>>(ws, P, kk, j);
+      rc = (int)cudaGetLastError();
+    }
+  }
+  if (rc != 0) return rc;
+  topk_emit_kernel<<<grid_for(k), 256, 0, st>>>(ws, k, (int32_t*)out_counts,
+                                                 (int32_t*)out_slots);
   return (int)cudaGetLastError();
 }
 

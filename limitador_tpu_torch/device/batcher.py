@@ -19,9 +19,15 @@ counter (one ``update_counter`` each; the JAX package's vectorized
 enqueue order and the kernel decides them exactly as if serially; the
 hit-building and decoding live in ``TorchStorage.check_many``.
 
-Left out of the port for now (``ROADMAP.md``): the JAX package's chunked
-dispatch (``ChunkPlanner``; every flush here is one launch), the
-device-plane recorder, the metrics-layer hooks and the admission hooks.
+``ChunkPlanner`` sizes pipelined sub-batches for the native pipeline
+(``device/native_pipeline.py``): a flush is cut into chunks that ride the
+in-flight window, so chunk i+1's staging and upload overlap chunk i's
+device time. The ``MicroBatcher`` here still dispatches each flush as one
+launch.
+
+Left out of the port for now (``ROADMAP.md``): the device-plane recorder,
+the metrics-layer hooks and the admission hooks (``chunk_queue_wait``
+takes ``admission=None`` until admission is ported).
 """
 
 from __future__ import annotations
@@ -38,9 +44,100 @@ from ..storage.base import (
     Authorization,
     require_nonnegative_delta,
 )
-from .storage import TorchStorage, _Request
+from .storage import TorchStorage, _Request, _bucket
 
-__all__ = ["MicroBatcher", "UpdateBatcher", "AsyncTorchStorage"]
+__all__ = [
+    "ChunkPlanner",
+    "chunk_queue_wait",
+    "MicroBatcher",
+    "UpdateBatcher",
+    "AsyncTorchStorage",
+]
+
+
+class ChunkPlanner:
+    """Sizes pipelined sub-batches for one dispatch lane.
+
+    ``dispatch_chunk``: ``None`` = auto, ``0`` = monolithic (never
+    split), ``> 0`` = fixed hits per chunk. Auto mode sizes chunks so ONE
+    sub-batch's device time tracks ``target_s`` (default 2 ms, the p99
+    budget), from an EWMA of observed device seconds per hit. Once the
+    queue wait alone has eaten the budget, the device slice tightens to
+    half the budget so decisions start flowing sooner. The EWMA update
+    races across collect threads benignly (floats, last write wins)."""
+
+    MIN_CHUNK = 512
+    MAX_SPLITS = 16
+
+    def __init__(self, dispatch_chunk: Optional[int] = None,
+                 target_s: float = 0.002):
+        self.dispatch_chunk = dispatch_chunk
+        self.target_s = float(target_s)
+        self._per_hit_s = 0.0  # EWMA device_sync seconds per hit
+
+    def observe(self, device_s: float, hits: int) -> None:
+        """Feed one finished launch's device_sync time."""
+        if hits <= 0 or device_s <= 0.0:
+            return
+        per = device_s / hits
+        self._per_hit_s = (
+            per if self._per_hit_s == 0.0
+            else 0.8 * self._per_hit_s + 0.2 * per
+        )
+
+    def chunk_hits(self, queue_wait_s: float = 0.0) -> int:
+        """Target hits per chunk; 0 = dispatch monolithically."""
+        fixed = self.dispatch_chunk
+        if fixed is not None:
+            return max(int(fixed), 0)
+        per = self._per_hit_s
+        if per <= 0.0:
+            return 0  # no device-time signal yet: stay monolithic
+        target = self.target_s
+        if queue_wait_s > target:
+            target = target / 2
+        # Quantized to the kernel's power-of-two hit buckets.
+        return _bucket(max(int(target / per), self.MIN_CHUNK))
+
+    def split(self, sizes, queue_wait_s: float = 0.0):
+        """Partition a flush into chunk index ranges. ``sizes`` holds
+        per-item hit counts in flush order; returns ``[(lo, hi), ...]``
+        covering every item. A flush under 2 chunks' worth of hits stays
+        monolithic, and a flush never splits past MAX_SPLITS launches."""
+        n_items = len(sizes)
+        chunk = self.chunk_hits(queue_wait_s)
+        total = sum(sizes)
+        if chunk <= 0 or total < 2 * chunk or n_items < 2:
+            return [(0, n_items)]
+        chunk = max(chunk, (total + self.MAX_SPLITS - 1) // self.MAX_SPLITS)
+        ranges = []
+        lo = 0
+        acc = 0
+        for i, size in enumerate(sizes):
+            acc += size
+            if acc >= chunk and i + 1 < n_items:
+                ranges.append((lo, i + 1))
+                lo, acc = i + 1, 0
+        ranges.append((lo, n_items))
+        if len(ranges) > 1 and acc < min(self.MIN_CHUNK, chunk):
+            # A tail launch under MIN_CHUNK costs more than it hides:
+            # fold it into the previous chunk.
+            (lo2, _hi2), (lo1, hi1) = ranges[-2], ranges[-1]
+            ranges[-2:] = [(lo2, hi1)]
+        return ranges
+
+
+def chunk_queue_wait(admission, oldest_enqueue: float,
+                     t_flush: float) -> float:
+    """Queue-wait signal feeding a ChunkPlanner: the admission plane's
+    estimate when one is attached, else this flush's oldest wait. The
+    port has no admission plane yet, so callers pass None."""
+    if admission is not None:
+        try:
+            return admission.overload.queue_wait_estimate()
+        except Exception:
+            pass
+    return t_flush - oldest_enqueue
 
 
 class MicroBatcher:

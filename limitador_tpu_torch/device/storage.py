@@ -27,6 +27,16 @@ thread's current stream is its own, so only an explicit stream keeps the
 program order the begin/finish pipelining relies on. ``jax.device_get``
 becomes a non-blocking copy into pinned host memory and a CUDA event
 that ``finish_check_many`` waits on.
+
+The native serving path (``device/native_pipeline.py``) stages its own
+kernel columns and enters through ``begin_check_columnar`` /
+``finish_check_columnar``; the lease broker returns quota through
+``credit_columnar`` (the B4c kernel), and the usage observatory drains the
+hit column through ``drain_hot_slots`` (B5 + B3a). The slot table fires
+``on_native_release`` / ``on_slot_release`` on every slot release (LRU
+eviction, delete) and ``on_clear`` on a wholesale table swap, exactly
+where the JAX table does, so the native slot map and the plan caches
+never keep a recycled slot.
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ from ..storage.gcra import (
     spent_tokens,
 )
 
-__all__ = ["TorchStorage", "resolve_device"]
+__all__ = ["TorchStorage", "resolve_device", "hot_attribution"]
 
 _INT32_MAX = np.int32(np.iinfo(np.int32).max)
 
@@ -105,6 +115,34 @@ def _staged(values, H: int, fill, dtype) -> np.ndarray:
     return arr
 
 
+def hot_attribution(counter: Counter, value: int, ttl_ms: int) -> dict:
+    """Tenant-usage attribution fields for one drained heavy-hitter slot:
+    the slot's counter identity plus the utilization sample read at drain
+    time. ``value`` is the raw values-lane read; bucket counters derive
+    spent tokens from the ttl lane instead (their values lane is
+    unspecified)."""
+    limit = counter.limit
+    if limit.policy == "token_bucket":
+        value = spent_tokens(
+            counter.max_value, counter.window_seconds, ttl_ms
+        )
+    max_value = int(counter.max_value)
+    util = value / max_value if max_value > 0 else 0.0
+    return {
+        "namespace": str(counter.namespace),
+        "limit_name": limit.name,
+        "policy": limit.policy,
+        "max_value": max_value,
+        "seconds": counter.window_seconds,
+        "key": dict(counter.set_variables),
+        "value": int(value),
+        # Unclamped on purpose: >1.0 is real signal (Report-role
+        # unconditional updates can push past max_value).
+        "utilization": round(util, 4),
+        "ttl_s": round(ttl_ms / 1000.0, 3),
+    }
+
+
 def _hit_lane(counter: Counter) -> Tuple[int, bool]:
     """Per-hit (windows_ms lane, bucket flag) for a device-eligible
     counter: the window for fixed windows, the GCRA emission interval
@@ -126,6 +164,15 @@ class _SlotTable:
         self.qualified: "OrderedDict[tuple, int]" = OrderedDict()
         # slot -> (key, Counter identity object) for introspection
         self.info: Dict[int, Tuple[tuple, Counter]] = {}
+        # slot -> native composite key + its removal hook (native path)
+        self.native_keys: Dict[int, object] = {}
+        self.on_native_release = None
+        # Plan-cache coherence (device/plan_cache.py): every slot release
+        # fires on_slot_release(slot) so cached plans pinning the slot are
+        # dropped before it can be recycled; a wholesale table swap
+        # (clear) fires on_clear instead.
+        self.on_slot_release = None
+        self.on_clear = None
 
     def lookup(self, key: tuple, qualified: bool) -> Optional[int]:
         if qualified:
@@ -158,6 +205,13 @@ class _SlotTable:
         else:
             self.simple.pop(key, None)
         self.free.append(slot)
+        # A recycled slot must not stay reachable under its old native
+        # key, nor through a cached plan.
+        native_key = self.native_keys.pop(slot, None)
+        if native_key is not None and self.on_native_release is not None:
+            self.on_native_release(native_key)
+        if self.on_slot_release is not None:
+            self.on_slot_release(slot)
 
 
 class _BigLimitMixin:
@@ -312,6 +366,21 @@ class _Request:
         self.load = load
 
 
+class _ColumnarHandle:
+    """In-flight columnar launch: the decision columns on their way to
+    host memory (pinned on the card), the event recorded after the
+    copies, and the per-hit remaining/ttl still on the device (downloaded
+    only when the finish asks for them)."""
+
+    __slots__ = ("host", "ready", "remaining", "ttl_ms")
+
+    def __init__(self, host, ready, remaining, ttl_ms):
+        self.host = host
+        self.ready = ready
+        self.remaining = remaining
+        self.ttl_ms = ttl_ms
+
+
 class _CheckHandle:
     """In-flight batch: kernel launched, results not yet on the host.
     Produced by ``begin_check_many``, consumed by ``finish_check_many`` —
@@ -460,6 +529,73 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
             self._table.simple[key] = slot
         self._table.info[slot] = (key, counter.key())
         return slot, True
+
+    def drain_hot_slots(self, k: int = 64) -> List[dict]:
+        """Heavy-hitter drain (the tenant usage observatory): read and
+        reset the per-slot hit accumulator and attribute the K hottest
+        slots through the slot table: namespace, limit, key values, hit
+        count, plus a value/max_value utilization sample and ttl read at
+        drain time. One top-k launch (B5) and one ``read_slots`` launch
+        (B3a), off the check path. A slot recycled within one drain
+        interval attributes its counts to the current occupant (or drops
+        them when the slot is free)."""
+        if k <= 0:
+            return []
+        with self._lock:
+            now_ms = self._now_ms()
+            with self._on_device():
+                _, counts, slots = K.drain_top_hits(
+                    self._state.hits, min(int(k), self._capacity)
+                )
+                counts, slots = self._download(counts, slots)
+            live = counts > 0
+            if not live.any():
+                return []
+            slots = slots[live].astype(np.int32)
+            counts = counts[live]
+            values, ttls = self._read(slots, now_ms)
+            out: List[dict] = []
+            info = self._table.info
+            for i, slot in enumerate(slots.tolist()):
+                record = {"slot": int(slot), "count": int(counts[i])}
+                entry = info.get(slot)
+                if entry is not None:
+                    record.update(hot_attribution(
+                        entry[1], int(values[i]), int(ttls[i])
+                    ))
+                out.append(record)
+            return out
+
+    def attribute_slots(self, slot_counts: Dict[int, int]) -> List[dict]:
+        """Attribution records for slot traffic counted elsewhere: the
+        native lane's leased admissions never reach the device
+        accumulator, so the observatory counts them C-side and resolves
+        them here, in ``drain_hot_slots``'s record shape with the
+        caller's counts. Slots released since the counts were taken are
+        dropped (their debit died with the cell)."""
+        if not slot_counts:
+            return []
+        with self._lock:
+            now_ms = self._now_ms()
+            info = self._table.info
+            items = [
+                (slot, count) for slot, count in slot_counts.items()
+                if slot in info
+            ]
+            if not items:
+                return []
+            values, ttls = self._read([s for s, _ in items], now_ms)
+            out: List[dict] = []
+            for i, (slot, count) in enumerate(items):
+                record = {
+                    "slot": int(slot), "count": int(count),
+                    "source": "lease",
+                }
+                record.update(hot_attribution(
+                    info[slot][1], int(values[i]), int(ttls[i])
+                ))
+                out.append(record)
+            return out
 
     # -- the shared batched check path -------------------------------------
 
@@ -668,6 +804,107 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         launch, in list order (== serial order for exactness)."""
         return self.finish_check_many(self.begin_check_many(requests))
 
+    # -- columnar entry point (native serving path) ------------------------
+
+    def check_columnar(self, slots, deltas, maxes, windows_ms, req_ids,
+                       fresh, bucket=None):
+        """One kernel over pre-built, request-ordered hit arrays (no
+        per-hit Python objects). Caller pads to a bucket (``pad_hits``);
+        returns host arrays (admitted, hit_ok, remaining, ttl_ms)."""
+        return self.finish_check_columnar(
+            self.begin_check_columnar(
+                slots, deltas, maxes, windows_ms, req_ids, fresh, bucket
+            )
+        )
+
+    def begin_check_columnar(self, slots, deltas, maxes, windows_ms,
+                             req_ids, fresh, bucket=None) -> _ColumnarHandle:
+        """Launch B1 over staged columns and return without waiting;
+        ``finish_check_columnar`` collects. Launches are ordered by the
+        storage lock and the storage stream, so a later begin is correct
+        while earlier results are still in flight.
+
+        The columns may be views of a staging buffer their owner reuses
+        at its next begin (the C hot lane's scratch): they are copied
+        into one fresh host array here, inside the lock, before anything
+        is uploaded. ``bucket`` marks GCRA hits (``windows_ms`` then
+        carries the emission interval); None means all fixed-window."""
+        if bucket is None:
+            bucket = np.zeros(slots.shape, bool)
+        ints = np.stack([slots, deltas, maxes, windows_ms, req_ids]).astype(
+            np.int32, copy=False
+        )
+        flags = np.stack([fresh, bucket]).astype(bool, copy=False)
+        with self._lock:
+            now_ms = self._now_ms()
+            with self._on_device():
+                d_ints, d_flags = self._upload(ints, flags)
+                _, result = K.check_and_update_batch(
+                    self._state, *d_ints, *d_flags, now_ms,
+                )
+                host, ready = self._start_download(
+                    result.admitted, result.hit_ok
+                )
+        return _ColumnarHandle(host, ready, result.remaining, result.ttl_ms)
+
+    def finish_check_columnar(self, handle: _ColumnarHandle,
+                              with_remaining: bool = True):
+        """Wait for a ``begin_check_columnar`` launch; returns host arrays
+        (admitted, hit_ok, remaining, ttl_ms). ``with_remaining=False``
+        downloads only the decision columns (remaining and ttl come back
+        as None)."""
+        if handle.ready is not None:
+            handle.ready.synchronize()
+        admitted, hit_ok = (t.numpy() for t in handle.host)
+        if not with_remaining:
+            return admitted, hit_ok, None, None
+        with self._on_device():
+            remaining, ttl_ms = self._download(
+                handle.remaining, handle.ttl_ms
+            )
+        return admitted, hit_ok, remaining, ttl_ms
+
+    def credit_columnar(self, slots, credits, windows_ms, bucket) -> None:
+        """Return unused leased quota to the table (the lease broker's
+        credit lane): one B4c launch, floored so a credit never creates
+        more headroom than a fresh cell. ``slots`` must be unique and
+        LIVE: the caller verifies slot->counter identity under this same
+        lock, because a recycled slot's credit would land on another
+        counter. Rows are padded to a pow2 bucket with inert scratch
+        rows."""
+        n = int(slots.shape[0])
+        if n == 0:
+            return
+        H = _bucket(n)
+        ints = np.stack([
+            _staged(slots, H, self._scratch, np.int32),
+            _staged(credits, H, 0, np.int32),
+            _staged(windows_ms, H, 0, np.int32),
+        ])
+        flags = _staged(bucket, H, False, bool)
+        with self._lock:
+            now_ms = self._now_ms()
+            with self._on_device():
+                d_ints, d_bucket = self._upload(ints, flags)
+                K.credit_batch(self._state, *d_ints, d_bucket, now_ms)
+
+    def pad_hits(self, arrays: Tuple[np.ndarray, ...], nhits: int):
+        """Pad (slots, deltas, maxes, windows, req_ids, fresh[, bucket])
+        to the next bucket with inert scratch hits."""
+        H = _bucket(max(nhits, 1))
+        slots, deltas, maxes, windows, req, fresh = arrays[:6]
+        padded = (
+            _staged(slots, H, self._scratch, np.int32),
+            _staged(deltas, H, 0, np.int32),
+            _staged(maxes, H, int(_INT32_MAX), np.int32),
+            _staged(windows, H, 0, np.int32),
+            _staged(req, H, H - 1, np.int32),
+            _staged(fresh, H, False, bool),
+        )
+        if len(arrays) > 6:
+            padded += (_staged(arrays[6], H, False, bool),)
+        return padded
+
     # -- CounterStorage ----------------------------------------------------
 
     def _read(self, slots: Sequence[int], now_ms: int):
@@ -797,9 +1034,22 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
                 self._clear(doomed)
             self._delete_big(limits)
 
+    def _replace_table(self) -> _SlotTable:
+        """Swap in a fresh slot table, carrying the coherence hooks over
+        and firing the wholesale invalidation (every slot index issued
+        before is dead). Caller holds the lock."""
+        old = self._table
+        self._table = _SlotTable(self._capacity)
+        self._table.on_native_release = old.on_native_release
+        self._table.on_slot_release = old.on_slot_release
+        self._table.on_clear = old.on_clear
+        if old.on_clear is not None:
+            old.on_clear()
+        return self._table
+
     def clear(self) -> None:
         with self._lock:
-            self._table = _SlotTable(self._capacity)
+            self._replace_table()
             with self._on_device():
                 self._state = K.make_table(self._capacity, self._device)
             self._watched_slots.clear()

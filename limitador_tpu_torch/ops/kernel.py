@@ -15,7 +15,8 @@ Each kernel has three parts here:
   device. It is what a CPU tensor gets, and what ``chip_smoke.py`` holds
   the CUDA kernel against on the card.
 - the wrapper (``check_and_update_batch``, ``update_batch``,
-  ``read_slots``, ``clear_slots``, ``rebase_epoch_chunked``): on a CUDA
+  ``read_slots``, ``clear_slots``, ``rebase_epoch_chunked``,
+  ``credit_batch``, ``drain_top_hits``): on a CUDA
   table it launches the hand-written kernel of
   ``limitador_tpu_torch/csrc/counter_table.cu`` and raises if that fails;
   on a CPU table it runs the plain version. No other device is accepted.
@@ -53,6 +54,10 @@ __all__ = [
     "clear_slots_plain",
     "rebase_epoch_chunked",
     "rebase_expiry_plain",
+    "credit_batch",
+    "credit_plain",
+    "drain_top_hits",
+    "drain_top_hits_plain",
     "launches",
     "reset_launches",
     "MAX_VALUE_CAP",
@@ -75,6 +80,8 @@ launches = {
     "read_slots": 0,
     "clear_slots": 0,
     "rebase_epoch": 0,
+    "credit": 0,
+    "drain_top_hits": 0,
 }
 
 
@@ -543,3 +550,129 @@ def rebase_epoch_chunked(expiry_ms: torch.Tensor, shift: int) -> torch.Tensor:
             rebase_expiry_plain(expiry_ms, step)
         shift -= step
     return expiry_ms
+
+
+# -- B4c: lease credit -------------------------------------------------------
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with XLA's two's-complement wrap."""
+    return (((x + (1 << 31)) % (1 << 32)) - (1 << 31)).to(_I32)
+
+
+def credit_plain(
+    state: CounterTableState, slots, credits, windows_ms, bucket, now_ms,
+) -> CounterTableState:
+    """Plain PyTorch twin of ``credit_batch``, in place. Arithmetic runs
+    in int64 and wraps back to int32 where XLA's int32 would wrap."""
+    values, expiry, _hits = state
+    now = _now(now_ms)
+    idx = slots.long()
+    v = values[idx].long()
+    e = expiry[idx].long()
+    c = credits.long()
+    live_window = ~bucket & (now < e)
+    new_v = torch.where(live_window, torch.clamp_min(_wrap32(v - c), 0), v)
+    ival = torch.clamp_min(windows_ms.long(), 1)
+    ahead = torch.clamp_min(_wrap32(e - now).long(), 0)
+    covers = c >= torch.div(ahead, ival, rounding_mode="floor")
+    bucket_live = bucket & (e > now)
+    retreat = _wrap32(e - _wrap32(c * ival).long()).long()
+    new_e = torch.where(
+        bucket_live, torch.where(covers, torch.full_like(e, now), retreat), e
+    )
+    values[idx] = new_v.to(_I32)
+    expiry[idx] = new_e.to(_I32)
+    scratch = values.shape[0] - 1
+    values[scratch] = 0
+    expiry[scratch] = 0
+    return state
+
+
+def credit_batch(
+    state: CounterTableState,
+    slots: torch.Tensor,       # int32[H] slot per credit (C for padding)
+    credits: torch.Tensor,     # int32[H] tokens*delta to return, >= 0
+    windows_ms: torch.Tensor,  # int32[H] emission interval I of bucket rows
+    bucket: torch.Tensor,      # bool[H]
+    now_ms: int,
+    check_unique: bool = False,
+) -> CounterTableState:
+    """Return unused leased quota (the JAX ``credit_batch``): a floored
+    subtract on live fixed windows, a TAT retreat floored at now on live
+    buckets, the hits column untouched, the scratch row reset. Callers
+    pass unique non-scratch slots (the lease broker aggregates per slot);
+    ``check_unique`` verifies that, for tests, at the cost of a sync. In
+    place."""
+    if check_unique:
+        real = slots[slots != state.values.shape[0] - 1]
+        if torch.unique(real).numel() != real.numel():
+            raise ValueError("credit_batch: duplicate slots")
+    if not _on_cuda(state.values):
+        return credit_plain(state, slots, credits, windows_ms, bucket, now_ms)
+    from . import build
+
+    H = slots.shape[0]
+    dev = state.values.device
+    _require_table(state)
+    for name, t in (("slots", slots), ("credits", credits),
+                    ("windows_ms", windows_ms)):
+        _require(t, name, _I32, H, dev)
+    _require(bucket, "bucket", torch.bool, H, dev)
+    if H < 1:
+        raise ValueError("credit_batch needs at least one row")
+    build.check(build.library().ct_credit(
+        state.values.data_ptr(), state.expiry_ms.data_ptr(),
+        *(t.data_ptr() for t in (slots, credits, windows_ms, bucket)),
+        H, state.values.shape[0] - 1, _now(now_ms),
+        torch.cuda.current_stream(dev).cuda_stream,
+    ), "ct_credit")
+    launches["credit"] += 1
+    return state
+
+
+# -- B5: heavy-hitter drain --------------------------------------------------
+
+
+def drain_top_hits_plain(hits: torch.Tensor, k: int):
+    """Plain PyTorch twin of ``drain_top_hits``: a stable descending sort
+    of ``hits[:-1]`` (ties keep the lowest index first, as ``lax.top_k``
+    does; ``torch.topk`` orders ties otherwise on the CPU), its first
+    ``k``, then the column zeroed in place."""
+    counts, order = torch.sort(hits[:-1], descending=True, stable=True)
+    counts = counts[:k].clone()
+    slots = order[:k].to(_I32)
+    hits.zero_()
+    return hits, counts, slots
+
+
+def drain_top_hits(
+    hits: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Read-and-reset the per-slot hit accumulator (the JAX
+    ``drain_top_hits``): returns (the zeroed column, counts[k] descending,
+    slots[k]), ties to the lowest slot; rows with count 0 are filler.
+    The scratch row is zeroed and never reported. ``1 <= k <= C``. The
+    column is zeroed in place."""
+    n = hits.shape[0]
+    k = int(k)
+    if not 1 <= k <= n - 1:
+        raise ValueError(f"drain_top_hits: k={k} outside [1, {n - 1}]")
+    if not _on_cuda(hits):
+        return drain_top_hits_plain(hits, k)
+    from . import build
+
+    dev = hits.device
+    _require(hits, "hits", _I32, n, dev)
+    lib = build.library()
+    workspace = torch.empty(
+        lib.ct_topk_workspace_bytes(n, k), dtype=torch.uint8, device=dev
+    )
+    counts = torch.empty(k, dtype=_I32, device=dev)
+    slots = torch.empty(k, dtype=_I32, device=dev)
+    build.check(lib.ct_drain_top_hits(
+        hits.data_ptr(), n, k, workspace.data_ptr(), counts.data_ptr(),
+        slots.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    ), "ct_drain_top_hits")
+    launches["drain_top_hits"] += 1
+    return hits, counts, slots

@@ -1,11 +1,15 @@
 """The port's server binary: Envoy RLS v3 + Kuadrant v1 over gRPC.
 
-Counterpart of ``limitador_tpu/server/__main__.py``, cut to the standard
-pipeline:
+Counterpart of ``limitador_tpu/server/__main__.py``, cut to the gRPC
+services and the options of the slices ported so far:
 
     python -m limitador_tpu_torch.server LIMITS_FILE [torch|memory] \\
         [--rls-port P] [--device cuda|cpu] [--capacity N] \\
-        [--batch-delay-us U] [--rate-limit-headers NONE|DRAFT_VERSION_03]
+        [--batch-delay-us U] [--rate-limit-headers NONE|DRAFT_VERSION_03] \\
+        [--pipeline standard|compiled|native] [--native-hot-lane on|off] \\
+        [--plan-cache-size N] [--lease-mode on|off] [--lease-max-tokens N] \\
+        [--usage-topk K] [--usage-drain-interval S] \\
+        [--usage-near-threshold F]
 
 Storages: ``torch`` (default) keeps the counter table on the card
 (``--device cuda``, the default) or, for tests, on the CPU
@@ -13,9 +17,23 @@ Storages: ``torch`` (default) keeps the counter table on the card
 limits file is watched and hot-reloaded through ``configure_with``
 (counters of surviving limits are kept).
 
-Not in the port yet (``ROADMAP.md``): the HTTP API, the compiled and
-native pipelines, observability, admission, leases, tiers,
-snapshots, replication and the sharded/pod topologies.
+Pipelines (torch storage): ``standard`` decides per request through the
+micro-batcher; ``compiled`` batch-compiles CEL (``device/pipeline.py``);
+``native`` adds the C++ columnar host lane for ShouldRateLimit
+(``device/native_pipeline.py``). ``--lease-mode on`` (native only) adds
+the quota-lease tier, whose credits run the B4c kernel. With
+``--usage-topk`` > 0 (default 64) the tenant usage observatory drains the
+hit column through the B5 kernel every ``--usage-drain-interval`` seconds,
+on every torch-storage server, as the JAX server does on tpu storage.
+Nothing falls back: a native pipeline or lease tier that cannot come up
+(the host lane does not build, the hot lane is unavailable, the storage
+is not torch, rate-limit headers are asked for) stops the server with an
+error (exit 2), and a lease refresh or usage drain that fails while
+serving stops it too (exit 1).
+
+Not in the port yet (``ROADMAP.md``): the HTTP API, observability,
+admission, tiers, snapshots, replication, the native ingress and the
+sharded/pod topologies.
 """
 
 from __future__ import annotations
@@ -30,6 +48,7 @@ import time
 
 from ..core.cel import CelError
 from ..core.limiter import AsyncRateLimiter, RateLimiter
+from ..ops.build import BuildError
 from ..storage.base import StorageError
 from ..storage.in_memory import InMemoryStorage
 from .limits_file import LimitsFileError, LimitsFileWatcher, load_limits_file
@@ -73,44 +92,167 @@ def build_parser() -> argparse.ArgumentParser:
         "--rate-limit-headers", default=RATE_LIMIT_HEADERS_NONE,
         choices=[RATE_LIMIT_HEADERS_NONE, RATE_LIMIT_HEADERS_DRAFT03],
     )
+    p.add_argument(
+        "--pipeline", choices=["standard", "compiled", "native"],
+        default="standard",
+        help="torch request path: per-request CEL (standard), "
+        "batch-compiled vectorized masks (compiled), or the C++ columnar "
+        "host lane for ShouldRateLimit (native)",
+    )
+    p.add_argument(
+        "--plan-cache-size", type=int, default=1 << 16,
+        help="hot-descriptor decision-plan cache entries per pipeline "
+        "(0 disables; the native hot lane needs it)",
+    )
+    p.add_argument(
+        "--native-hot-lane", choices=["on", "off"], default="on",
+        help="zero-Python hot lane for the native pipeline (C-side mirror "
+        "of the decision-plan cache); 'off' serves the pure-Python cached "
+        "lane, byte-identical decisions",
+    )
+    p.add_argument(
+        "--lease-mode", choices=["on", "off"], default="off",
+        help="quota-leasing edge tier (needs --pipeline native with the "
+        "hot lane); credits settle through the B4c kernel",
+    )
+    p.add_argument(
+        "--lease-max-tokens", type=int, default=1024,
+        help="per-lease token cap",
+    )
+    p.add_argument(
+        "--usage-topk", type=int, default=64,
+        help="heavy-hitter slots drained per pass by the tenant usage "
+        "observatory (torch storage; 0 disables it)",
+    )
+    p.add_argument(
+        "--usage-drain-interval", type=float, default=1.0,
+        help="seconds between heavy-hitter accumulator drains",
+    )
+    p.add_argument(
+        "--usage-near-threshold", type=float, default=0.9,
+        help="value/max_value utilization at which a sampled counter "
+        "counts as near exhaustion",
+    )
     return p
 
 
 def build_limiter(args, clock=time.time):
     """The limiter the server decides with."""
     if args.storage == "memory":
+        if args.pipeline != "standard":
+            raise ValueError(
+                f"--pipeline {args.pipeline} needs torch storage"
+            )
         return RateLimiter(InMemoryStorage(clock=clock))
     from ..device import AsyncTorchStorage, TorchStorage
 
     storage = TorchStorage(
         capacity=args.capacity, clock=clock, device=args.device
     )
-    return AsyncRateLimiter(
-        AsyncTorchStorage(storage, max_delay=args.batch_delay_us / 1e6)
+    async_storage = AsyncTorchStorage(
+        storage, max_delay=args.batch_delay_us / 1e6
     )
+    if args.pipeline in ("compiled", "native"):
+        from ..device.pipeline import CompiledTorchLimiter
+
+        return CompiledTorchLimiter(
+            async_storage, plan_cache_size=args.plan_cache_size
+        )
+    return AsyncRateLimiter(async_storage)
+
+
+def build_native(args, limiter):
+    """The native pipeline (with its lease tier) when asked for, else
+    None. Raises when what was asked for cannot come up."""
+    if args.lease_mode == "on" and (
+        args.pipeline != "native" or args.native_hot_lane != "on"
+    ):
+        raise ValueError(
+            "--lease-mode on needs --pipeline native --native-hot-lane on"
+        )
+    if args.pipeline != "native":
+        return None
+    if args.rate_limit_headers != RATE_LIMIT_HEADERS_NONE:
+        raise ValueError(
+            "--pipeline native answers ShouldRateLimit without headers: "
+            "it needs --rate-limit-headers NONE"
+        )
+    if args.native_hot_lane == "on" and args.plan_cache_size <= 0:
+        raise ValueError(
+            "--native-hot-lane on mirrors the plan cache: "
+            "--plan-cache-size must be > 0"
+        )
+    from ..device.native_pipeline import NativeRlsPipeline
+
+    pipeline = NativeRlsPipeline(
+        limiter, max_delay=args.batch_delay_us / 1e6,
+        plan_cache_size=args.plan_cache_size,
+        hot_lane=args.native_hot_lane == "on",
+    )
+    if args.lease_mode == "on":
+        from ..lease import LeaseConfig
+
+        pipeline.attach_lease(
+            LeaseConfig(max_tokens=args.lease_max_tokens), autostart=False
+        )
+    return pipeline
 
 
 class RunningServer:
-    """A started server: its limiter, gRPC server and limits watcher."""
+    """A started server: its limiter, gRPC server and limits watcher,
+    and the native pipeline and usage observatory when they run."""
 
-    def __init__(self, limiter, rls_server, watcher, status):
+    def __init__(self, limiter, rls_server, watcher, status,
+                 native_pipeline=None, observatory=None):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
         #: limits_file_version / limits_file_errors
         self.status = status
+        self.native_pipeline = native_pipeline
+        self.observatory = observatory
 
     async def stop(self) -> None:
         self.watcher.stop()
         await self.rls_server.stop(grace=1.0)
-        if isinstance(self.limiter, AsyncRateLimiter):
-            await self.limiter.storage.counters.close()
+        await _close(self.limiter, self.native_pipeline, self.observatory)
 
 
-async def start(args, clock=time.time) -> RunningServer:
-    """Build the limiter, load the limits file, start watching it and
-    start serving gRPC on ``--rls-host:--rls-port``."""
+async def _close(limiter, native_pipeline, observatory) -> None:
+    if observatory is not None:
+        observatory.close()
+    if native_pipeline is not None:
+        await native_pipeline.close()
+    if isinstance(limiter, AsyncRateLimiter):
+        close = getattr(limiter, "close", None)
+        if close is not None:
+            await close()
+        await limiter.storage.counters.close()
+
+
+async def start(args, clock=time.time, on_failure=None) -> RunningServer:
+    """Build the limiter (and the native pipeline, lease tier and usage
+    observatory the options ask for), load the limits file, start
+    watching it and start serving gRPC on ``--rls-host:--rls-port``.
+    A lease refresh or usage drain that fails stops its thread, which
+    then calls ``on_failure(exc)``."""
     limiter = build_limiter(args, clock)
+    native_pipeline = observatory = None
+    try:
+        native_pipeline = build_native(args, limiter)
+        if args.storage == "torch" and args.usage_topk > 0:
+            from ..observability.usage import TenantUsageObservatory
+
+            observatory = TenantUsageObservatory(
+                limiter.storage.counters.inner,
+                pipeline=native_pipeline,
+                top_k=args.usage_topk,
+                interval_s=args.usage_drain_interval,
+                near_threshold=args.usage_near_threshold,
+            )
+    except BaseException:
+        await _close(limiter, native_pipeline, observatory)
+        raise
     loop = asyncio.get_running_loop()
     status = {"limits_file_version": 0, "limits_file_errors": 0}
 
@@ -118,6 +260,8 @@ async def start(args, clock=time.time) -> RunningServer:
         applied = limiter.configure_with(limits)
         if inspect.isawaitable(applied):
             await applied
+        if native_pipeline is not None:
+            native_pipeline.invalidate()
 
     def on_change(limits):
         status["limits_file_version"] += 1
@@ -139,30 +283,50 @@ async def start(args, clock=time.time) -> RunningServer:
     # The watcher captures its baseline stamp BEFORE the initial load, so
     # a file replaced between load and watch still triggers a reload.
     watcher = LimitsFileWatcher(args.limits_file, on_change, on_error)
-    await apply_limits(load_limits_file(args.limits_file))
-    status["limits_file_version"] = 1
-    watcher.start()
     try:
+        await apply_limits(load_limits_file(args.limits_file))
+        status["limits_file_version"] = 1
+        watcher.start()
         rls_server = await serve_rls(
             limiter, f"{args.rls_host}:{args.rls_port}",
-            args.rate_limit_headers,
+            args.rate_limit_headers, native_pipeline=native_pipeline,
         )
     except BaseException:
         watcher.stop()
+        await _close(limiter, native_pipeline, observatory)
         raise
-    return RunningServer(limiter, rls_server, watcher, status)
+    broker = getattr(native_pipeline, "lease_broker", None)
+    for tier in (broker, observatory):
+        if tier is not None:
+            tier.on_error = on_failure
+            tier.start()
+    return RunningServer(limiter, rls_server, watcher, status,
+                         native_pipeline, observatory)
 
 
 async def _amain(args) -> int:
-    server = await start(args)
-    log.info(f"serving RLS gRPC on {args.rls_host}:{args.rls_port} "
-             f"({args.storage} storage)")
-    stop = asyncio.Event()
     loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    failures = []
+
+    def on_failure(exc):
+        failures.append(exc)
+        loop.call_soon_threadsafe(stop.set)
+
+    server = await start(args, on_failure=on_failure)
+    log.info(f"serving RLS gRPC on {args.rls_host}:{args.rls_port} "
+             f"({args.storage} storage, {args.pipeline} pipeline"
+             + (", quota leases on" if args.lease_mode == "on" else "")
+             + (f", usage top-{args.usage_topk}"
+                if server.observatory is not None else "")
+             + ")")
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
     await stop.wait()
     await server.stop()
+    if failures:
+        log.error(f"stopped: a background tier failed: {failures[0]!r}")
+        return 1
     return 0
 
 
@@ -176,7 +340,8 @@ def main(argv=None) -> int:
         return asyncio.run(_amain(args))
     except KeyboardInterrupt:
         return 0
-    except (ValueError, LimitsFileError, CelError, StorageError) as exc:
+    except (ValueError, LimitsFileError, CelError, StorageError,
+            BuildError) as exc:
         log.error(f"configuration error: {exc}")
         return 2
 

@@ -13,9 +13,14 @@ handlers (the service surface is just method paths + message
 - optional draft-03 ratelimit response headers;
 - Kuadrant split: CheckRateLimit is read-only, Report only updates.
 
+With a native pipeline (``device/native_pipeline.py``) and headers off,
+``ShouldRateLimit`` takes RAW request bytes (identity deserializers) and
+answers with the pipeline's prebuilt response blobs; the Kuadrant service
+keeps the standard handlers.
+
 Left out of the port for now (``ROADMAP.md``): metrics, admission
-control, the native handlers, server reflection and the request-id
-middleware.
+control, the native ingress's method table, server reflection and the
+request-id middleware.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ __all__ = [
     "RATE_LIMIT_HEADERS_DRAFT03",
     "RlsService",
     "make_rls_handlers",
+    "make_native_should_rate_limit_handler",
     "serve_rls",
 ]
 
@@ -202,16 +208,59 @@ def make_rls_handlers(service: RlsService):
     return [envoy, kuadrant]
 
 
+def make_native_should_rate_limit_handler(native_pipeline):
+    """ShouldRateLimit over RAW request bytes: identity (de)serializers keep
+    Python protobuf off the hot path; the native pipeline parses the wire
+    bytes in C++ and answers with prebuilt response blobs. Storage errors
+    answer UNAVAILABLE."""
+
+    async def handler(blob: bytes, context) -> bytes:
+        try:
+            return await native_pipeline.submit(blob)
+        except StorageError as exc:
+            await context.abort(
+                grpc.StatusCode.UNAVAILABLE, f"Service unavailable: {exc}"
+            )
+
+    return grpc.method_handlers_generic_handler(
+        _ENVOY_SERVICE,
+        {
+            "ShouldRateLimit": grpc.unary_unary_rpc_method_handler(
+                handler,
+                request_deserializer=None,   # raw bytes in
+                response_serializer=None,    # raw bytes out
+            )
+        },
+    )
+
+
 async def serve_rls(
     limiter,
     address: str = "0.0.0.0:8081",
     rate_limit_headers: str = RATE_LIMIT_HEADERS_NONE,
+    native_pipeline=None,
 ) -> grpc.aio.Server:
-    """Start the gRPC server (returns it started; caller owns shutdown)."""
+    """Start the gRPC server (returns it started; caller owns shutdown).
+
+    With ``native_pipeline`` set, ShouldRateLimit runs the native
+    columnar path, which answers without headers; the Kuadrant service
+    keeps the standard handlers."""
+    if (
+        native_pipeline is not None
+        and rate_limit_headers != RATE_LIMIT_HEADERS_NONE
+    ):
+        raise ValueError(
+            "the native pipeline answers ShouldRateLimit without headers"
+        )
     server = grpc.aio.server()
     service = RlsService(limiter, rate_limit_headers)
-    for handler in make_rls_handlers(service):
-        server.add_generic_rpc_handlers((handler,))
+    envoy_handler, kuadrant_handler = make_rls_handlers(service)
+    if native_pipeline is not None:
+        envoy_handler = make_native_should_rate_limit_handler(
+            native_pipeline
+        )
+    server.add_generic_rpc_handlers((envoy_handler,))
+    server.add_generic_rpc_handlers((kuadrant_handler,))
     if server.add_insecure_port(address) == 0:
         raise RuntimeError(f"could not bind RLS gRPC server to {address}")
     await server.start()

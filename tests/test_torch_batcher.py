@@ -9,6 +9,7 @@ import asyncio
 import sys
 import threading
 
+import numpy as np
 import pytest
 
 from limitador_tpu_torch import AsyncRateLimiter, Context, Limit
@@ -208,3 +209,24 @@ def test_threaded_begin_finish_interleaving_stays_exact():
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
     assert len(admitted) == 200 and sum(admitted) == 50
+
+
+@pytest.mark.parametrize("dispatch_chunk", [None, 0, 512, 3000])
+@pytest.mark.parametrize("queue_wait_s", [0.0, 0.01])
+def test_chunk_planner_splits_like_jax(dispatch_chunk, queue_wait_s):
+    """The port's ChunkPlanner cuts the same flushes into the same chunk
+    ranges as the JAX package's, after the same device-time feedback."""
+    from limitador_tpu.tpu.batcher import ChunkPlanner as JaxPlanner
+    from limitador_tpu_torch.device.batcher import ChunkPlanner
+
+    rng = np.random.default_rng(17)
+    planners = (JaxPlanner(dispatch_chunk), ChunkPlanner(dispatch_chunk))
+    for _round in range(6):
+        sizes = rng.integers(1, 4, int(rng.integers(1, 9000))).tolist()
+        got = [p.split(sizes, queue_wait_s) for p in planners]
+        assert got[0] == got[1]
+        flat = [i for lo, hi in got[1] for i in range(lo, hi)]
+        assert flat == list(range(len(sizes)))
+        device_s = float(rng.uniform(1e-5, 5e-3))
+        for p in planners:
+            p.observe(device_s, sum(sizes))

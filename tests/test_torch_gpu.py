@@ -19,7 +19,8 @@ from limitador_tpu_torch import Context, Limit, RateLimiter
 from limitador_tpu_torch.device.storage import TorchStorage
 from limitador_tpu_torch.ops import kernel as K
 
-from .torch_batches import batch, lanes, table
+from .torch_batches import batch, credit_batch, hits_column, lanes, table
+from .torch_native_corpus import FROZEN_NOW, corpus, limits
 
 pytestmark = pytest.mark.gpu
 
@@ -139,3 +140,85 @@ def test_storage_on_the_card_decides_like_the_cpu(cuda):
         assert sorted((c.remaining, c.expires_in) for c in got[0].counters) \
             == sorted((c.remaining, c.expires_in) for c in got[1].counters)
         clock.now += float(rng.choice([0.0, 0.1, 0.5]))
+
+
+@pytest.mark.parametrize("H", [8, 1024, 4096])
+def test_credit_kernel_matches_plain(cuda, H):
+    rng = np.random.default_rng(200 + H)
+    now_ms = 5_000_000
+    tab, rows = credit_batch(rng, H, now_ms)
+    ka, pb = _state(tab, cuda), _state(tab, cuda)
+    args = tuple(torch.from_numpy(a).to(cuda) for a in rows)
+    before = K.launches["credit"]
+    K.credit_batch(ka, *args, now_ms, check_unique=True)
+    assert K.launches["credit"] == before + 1
+    K.credit_plain(pb, *args, now_ms)
+    _equal(ka, pb)
+    assert int(ka.values[-1]) == int(ka.expiry_ms[-1]) == 0
+
+
+@pytest.mark.parametrize("k", [1, 4, 64, 1000, 1024, 1025, 4096])
+@pytest.mark.parametrize("kind", ["zipf", "sparse", "zero", "wide"])
+def test_drain_top_hits_kernel_matches_plain(cuda, kind, k):
+    hits = torch.from_numpy(hits_column(np.random.default_rng(k), kind))
+    a, b = hits.to(cuda), hits.to(cuda)
+    before = K.launches["drain_top_hits"]
+    got = K.drain_top_hits(a, k)
+    assert K.launches["drain_top_hits"] == before + 1
+    want = K.drain_top_hits_plain(b, k)
+    _equal(got, want)
+    assert not a.any()
+
+
+def _native(dev, hot):
+    from limitador_tpu_torch.device import AsyncTorchStorage
+    from limitador_tpu_torch.device.native_pipeline import NativeRlsPipeline
+    from limitador_tpu_torch.device.pipeline import CompiledTorchLimiter
+
+    limiter = CompiledTorchLimiter(AsyncTorchStorage(TorchStorage(
+        capacity=1 << 12, clock=lambda: FROZEN_NOW, device=dev)))
+    for limit in limits(Limit):
+        limiter.add_limit(limit)
+    return NativeRlsPipeline(limiter, hot_lane=hot), limiter
+
+
+@pytest.mark.parametrize("hot", [True, False], ids=["lane-on", "lane-off"])
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_native_pipeline_on_the_card_decides_like_the_cpu(cuda, seed, hot):
+    """The fuzz corpus through the native pipeline over the card's table
+    (B1 on the card) and over the CPU's (B1's plain version): every row,
+    with several chunks in flight, and the final tables."""
+    (gpu, _gl), (cpu, _cl) = _native(cuda, hot), _native("cpu", hot)
+    blobs = corpus(seed)
+    before = K.launches["check_and_update"]
+    for _pass in range(2):
+        for ofs in range(0, len(blobs), 100):
+            part = blobs[ofs:ofs + 100]
+            assert gpu.decide_many(part, chunk=25, inflight=4) == \
+                cpu.decide_many(part, chunk=25, inflight=4)
+    assert K.launches["check_and_update"] > before
+    _equal(gpu.storage._state, cpu.storage._state)
+    assert gpu.storage.drain_hot_slots(64) == cpu.storage.drain_hot_slots(64)
+
+
+def test_begin_check_columnar_owns_its_inputs_on_the_card(cuda):
+    """Staging buffers overwritten right after begin (what the hot lane's
+    next begin does) do not reach the launched batch on the card."""
+    H = 8192
+    rng = np.random.default_rng(5)
+    cols = (rng.integers(0, 4000, H).astype(np.int32),
+            np.ones(H, np.int32), np.full(H, 3, np.int32),
+            np.full(H, 60_000, np.int32), np.arange(H, dtype=np.int32),
+            np.zeros(H, bool), np.zeros(H, bool))
+    results = []
+    for overwrite in (False, True):
+        storage = TorchStorage(capacity=4096, clock=lambda: FROZEN_NOW,
+                               device=cuda)
+        staged = tuple(c.copy() for c in cols)
+        handle = storage.begin_check_columnar(*staged)
+        if overwrite:
+            for c in staged:
+                c[...] = 0
+        results.append(storage.finish_check_columnar(handle))
+    for a, b in zip(*results):
+        np.testing.assert_array_equal(a, b)

@@ -107,3 +107,26 @@ def test_proto_classes_are_the_ports_own_beside_the_jax_package():
     services = kuadrant_rls_pb2.DESCRIPTOR.services_by_name
     assert set(services["RateLimitService"].methods_by_name) == {
         "CheckRateLimit", "Report"}
+
+
+def test_importing_the_port_builds_nothing():
+    """Every module imports without compiling the CUDA kernels or the C++
+    host lane: both build at first use."""
+    code = (
+        "import importlib, pkgutil, limitador_tpu_torch\n"
+        "for m in pkgutil.walk_packages(limitador_tpu_torch.__path__,\n"
+        "                               'limitador_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from limitador_tpu_torch.native import build as nb\n"
+        "from limitador_tpu_torch.ops import build as ob\n"
+        "assert nb._lib is None and ob._lib is None\n"
+        "assert not nb.build_info and not ob.build_info\n"
+        "print('nothing built')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "nothing built" in proc.stdout

@@ -1,8 +1,8 @@
 """The port's counter-table kernels against the JAX package's, on the CPU.
 
-For each of the five kernels on the serving path (the fused check, the
-unconditional update, ``read_slots``, ``clear_slots`` and the epoch
-rebase) the same numpy-seeded inputs go through the jitted JAX function
+For each of the seven kernels on the serving path (the fused check, the
+unconditional update, ``read_slots``, ``clear_slots``, the epoch rebase,
+the lease credit and the heavy-hitter drain) the same numpy-seeded inputs go through the jitted JAX function
 and through the port's wrapper on CPU tensors, which runs the kernel's
 plain PyTorch version. Every output is an integer array, so the tolerance
 is exact equality: every output and the final ``values``, ``expiry_ms``
@@ -17,7 +17,7 @@ import torch
 from limitador_tpu.ops import kernel as JK
 from limitador_tpu_torch.ops import kernel as TK
 
-from .torch_batches import C, NEVER
+from .torch_batches import C, NEVER, credit_batch, hits_column
 from .torch_batches import batch as _batch
 from .torch_batches import lanes as _lanes
 from .torch_batches import table as _tables
@@ -244,3 +244,51 @@ def test_hand_check_multi_hit_requests_couple():
         req_ids=[0, 0, 1, 1, 2, 3],
     )
     assert ts.values[:2].tolist() == [1, 2]
+
+
+# -- B4c: lease credit, B5: heavy-hitter drain --------------------------------
+
+
+@pytest.mark.parametrize("H", [8, 64, 1024, 4096])
+@pytest.mark.parametrize("seed", range(2))
+def test_credit_matches_jax(H, seed):
+    rng = np.random.default_rng(9000 + 100 * seed + H)
+    now_ms = 5_000_000
+    table, rows = credit_batch(rng, H, now_ms)
+    jstate = JK.credit_batch(_jax_state(*table), *rows, np.int32(now_ms))
+    tstate = TK.credit_batch(
+        _torch_state(*table), *(torch.from_numpy(a) for a in rows), now_ms,
+        check_unique=True,
+    )
+    _assert_tables(jstate, tstate)
+    assert int(tstate.values[C]) == int(tstate.expiry_ms[C]) == 0
+
+
+def test_credit_refuses_duplicate_slots_when_checking():
+    z = np.zeros(C + 1, np.int32)
+    rows = (np.array([3, 3], np.int32), np.array([1, 1], np.int32),
+            np.array([10, 10], np.int32), np.zeros(2, bool))
+    with pytest.raises(ValueError, match="duplicate"):
+        TK.credit_batch(_torch_state(z, z, z),
+                        *(torch.from_numpy(a) for a in rows), 0,
+                        check_unique=True)
+
+
+@pytest.mark.parametrize("k", [1, 4, 64, C])
+@pytest.mark.parametrize("kind", ["zipf", "sparse", "zero", "wide"])
+def test_drain_top_hits_matches_jax(kind, k):
+    rng = np.random.default_rng(k)
+    hits = hits_column(rng, kind)
+    jh, jc, js = JK.drain_top_hits(jnp.asarray(hits), k)
+    th, tc, ts = TK.drain_top_hits(torch.from_numpy(hits.copy()), k)
+    for name, j, t in (("hits", jh, th), ("counts", jc, tc),
+                       ("slots", js, ts)):
+        np.testing.assert_array_equal(np.asarray(j), t.numpy(), err_msg=name)
+    assert not th.any()
+
+
+def test_drain_top_hits_refuses_k_out_of_range():
+    hits = torch.zeros(C + 1, dtype=torch.int32)
+    for k in (0, C + 1):
+        with pytest.raises(ValueError):
+            TK.drain_top_hits(hits, k)

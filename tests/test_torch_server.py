@@ -261,3 +261,164 @@ def test_cli_refuses_the_card_without_cuda(tmp_path):
     )
     assert proc.returncode == 2
     assert "CUDA" in proc.stderr
+
+
+# -- the native pipeline (C++ host lane) --------------------------------------
+
+
+NATIVE_LIMITS = LIMITS + """\
+- namespace: nat
+  max_value: 5
+  seconds: 60
+  conditions: ["descriptors[0].method == 'GET'"]
+  variables: ["descriptors[0].user"]
+  name: nat-per-user
+- namespace: nat
+  max_value: 12
+  seconds: 600
+  name: nat-total
+"""
+
+
+def _native_sequence():
+    """ShouldRateLimit steps the native lanes take (one descriptor on a
+    vectorizable namespace: the hot lane and the miss lane), steps they
+    hand to the exact path (two descriptors, or a namespace with a
+    ``descriptors[1]`` variable), and Kuadrant steps, which stay on the
+    standard handlers."""
+    steps = []
+    for i in range(8):
+        for user in ("n1", "n2"):
+            steps.append(("ShouldRateLimit", _request(
+                "nat", [{"method": "GET", "user": user}]), 0.0))
+    steps.extend(_sequence())
+    for i in range(6):
+        steps.append(("ShouldRateLimit",
+                      _request("tb", [{"user": "v"}], 1 + i % 2), 0.3))
+    return steps
+
+
+async def _native_vs_oracle(tmp_path, extra):
+    clock = FakeClock()
+    limits_path = tmp_path / "limits.yaml"
+    limits_path.write_text(NATIVE_LIMITS)
+    ports = (_free_port(), _free_port())
+    parse = port_main.build_parser().parse_args
+    common = ["--rls-host", "127.0.0.1"]
+    native = await port_main.start(parse(
+        [str(limits_path), "torch", "--device", "cpu", "--capacity", "1024",
+         "--pipeline", "native", "--rls-port", str(ports[0]), *common,
+         *extra]), clock=clock)
+    oracle = await port_main.start(parse(
+        [str(limits_path), "memory", "--rls-port", str(ports[1]), *common]),
+        clock=clock)
+    try:
+        assert native.native_pipeline is not None
+        assert native.native_pipeline.hot_lane_active
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{ports[0]}") as nc, \
+                grpc.aio.insecure_channel(f"127.0.0.1:{ports[1]}") as oc:
+            for i, (method, blob, advance) in enumerate(_native_sequence()):
+                clock.now += advance
+                got = await _call(nc, method, blob)
+                want = await _call(oc, method, blob)
+                assert got == want, (i, method)
+        namespaces = ("api", "tb", "nat")
+        got = await _counters(native.limiter, namespaces)
+        want = {}
+        for ns in namespaces:
+            for c in oracle.limiter.get_counters(ns):
+                want[(ns, c.limit.name, tuple(c.set_variables.items()))] = (
+                    c.remaining, c.expires_in)
+        assert got.keys() == want.keys()
+        for key in got:
+            assert got[key][0] == want[key][0], key
+            assert abs(got[key][1] - want[key][1]) <= 0.002, key
+        assert native.native_pipeline.lane_stats()["hits"] > 0
+        return native
+    finally:
+        await native.stop()
+        await oracle.stop()
+
+
+def test_native_pipeline_server_answers_like_the_oracle(tmp_path):
+    server = asyncio.run(_native_vs_oracle(
+        tmp_path, ["--usage-topk", "64", "--usage-drain-interval", "0.05"]))
+    assert server.observatory is not None
+    assert server.native_pipeline.lease_broker is None
+
+
+def test_native_pipeline_server_with_leases_answers_like_the_oracle(tmp_path):
+    """The server comes up with its lease broker running and answers
+    exactly: a grant is pre-debited, so within a window leased answers
+    equal the oracle's (the grants themselves are driven by
+    test_torch_lease.py)."""
+    server = asyncio.run(_native_vs_oracle(
+        tmp_path, ["--lease-mode", "on", "--native-hot-lane", "on"]))
+    assert server.native_pipeline.lease_broker is not None
+
+
+def test_native_pipeline_with_a_broken_host_lane_exits(tmp_path,
+                                                       monkeypatch):
+    """A host lane that does not build stops the server: it does not
+    serve the compiled pipeline instead."""
+    from limitador_tpu_torch.native import build
+
+    broken = tmp_path / "hostpath.cc"
+    broken.write_text("not C++\n")
+    monkeypatch.setattr(build, "SOURCE", broken)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_lib", None)
+    limits_path = tmp_path / "limits.yaml"
+    limits_path.write_text(LIMITS)
+    argv = [str(limits_path), "torch", "--device", "cpu", "--capacity",
+            "1024", "--pipeline", "native", "--rls-host", "127.0.0.1",
+            "--rls-port", str(_free_port())]
+    with pytest.raises(build.BuildError):
+        asyncio.run(port_main.start(port_main.build_parser().parse_args(
+            argv)))
+    assert port_main.main(argv) == 2
+
+
+@pytest.mark.parametrize("argv", [
+    ["torch", "--device", "cpu", "--lease-mode", "on"],
+    ["torch", "--device", "cpu", "--pipeline", "native", "--lease-mode",
+     "on", "--native-hot-lane", "off"],
+    ["torch", "--device", "cpu", "--pipeline", "native",
+     "--plan-cache-size", "0"],
+    ["memory", "--pipeline", "native"],
+    ["memory", "--pipeline", "compiled"],
+    ["torch", "--device", "cpu", "--pipeline", "native",
+     "--rate-limit-headers", "DRAFT_VERSION_03"],
+])
+def test_modes_that_cannot_come_up_exit(tmp_path, argv):
+    limits_path = tmp_path / "limits.yaml"
+    limits_path.write_text(LIMITS)
+    assert port_main.main([str(limits_path), *argv, "--rls-host",
+                           "127.0.0.1", "--rls-port",
+                           str(_free_port())]) == 2
+
+
+@pytest.mark.parametrize("tier", ["usage", "lease"])
+def test_a_failing_background_tier_stops_the_server(tmp_path, monkeypatch,
+                                                    tier):
+    """A usage drain or lease refresh that fails while serving stops the
+    server with exit code 1 instead of serving on without it."""
+    from limitador_tpu_torch.device.storage import TorchStorage
+    from limitador_tpu_torch.lease.broker import LeaseBroker
+
+    def broken(*_args, **_kwargs):
+        raise RuntimeError("kernel failed to launch")
+
+    limits_path = tmp_path / "limits.yaml"
+    limits_path.write_text(LIMITS)
+    argv = [str(limits_path), "torch", "--device", "cpu", "--capacity",
+            "1024", "--pipeline", "native", "--rls-host", "127.0.0.1",
+            "--rls-port", str(_free_port())]
+    if tier == "usage":
+        monkeypatch.setattr(TorchStorage, "drain_hot_slots", broken)
+        argv += ["--usage-drain-interval", "0.05"]
+    else:
+        monkeypatch.setattr(LeaseBroker, "refresh", broken)
+        argv += ["--lease-mode", "on", "--usage-topk", "0"]
+    args = port_main.build_parser().parse_args(argv)
+    assert asyncio.run(asyncio.wait_for(port_main._amain(args), 30)) == 1

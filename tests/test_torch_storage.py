@@ -258,6 +258,48 @@ def test_batched_check_many_parity(seed):
             np.asarray(getattr(ref._state, name)), err_msg=name)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_check_columnar_parity(seed):
+    """Request-ordered hit columns (padded by ``pad_hits``) through
+    ``check_columnar``, fixed windows and buckets, fresh flags and
+    contended slots: the same four result columns as the JAX storage,
+    and the same table afterwards (exact)."""
+    rng = np.random.default_rng(seed)
+    clock = FakeClock()
+    port = TorchStorage(capacity=1 << 8, clock=clock, device="cpu")
+    ref = TpuStorage(capacity=1 << 8, clock=clock)
+    lanes = {int(s): (bool(rng.random() < 0.3), int(rng.integers(1, 20)),
+                      int(rng.choice([1000, 5000, 60_000])))
+             for s in range(1 << 8)}
+    for _round in range(6):
+        nreq = int(rng.integers(1, 120))
+        cols = [[] for _ in range(7)]
+        for r in range(nreq):
+            for s in rng.choice(1 << 8, int(rng.integers(1, 3)),
+                                replace=False):
+                bucket, maxv, win = lanes[int(s)]
+                for col, v in zip(cols, (
+                    int(s), int(rng.choice([0, 1, 1, 2, 7])), maxv,
+                    win // maxv if bucket else win, r,
+                    bool(rng.random() < 0.05), bucket,
+                )):
+                    col.append(v)
+        nhits = len(cols[0])
+        arrays = tuple(np.asarray(c, t) for c, t in zip(
+            cols, (np.int32,) * 5 + (bool,) * 2))
+        got = port.check_columnar(*port.pad_hits(arrays, nhits))
+        want = ref.check_columnar(*ref.pad_hits(arrays, nhits))
+        for name, a, b in zip(("admitted", "hit_ok", "remaining", "ttl_ms"),
+                              got, want):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                          err_msg=name)
+        clock.advance(float(rng.choice([0.0, 0.7, 6.0])))
+    for name in ("values", "expiry_ms", "hits"):
+        np.testing.assert_array_equal(
+            getattr(port._state, name).numpy(),
+            np.asarray(getattr(ref._state, name)), err_msg=name)
+
+
 def test_convert_continues_from_a_mid_stream_jax_table():
     """Drive the JAX storage alone, carry its table, slot map and epoch
     into a TorchStorage, then drive both on: they decide alike."""

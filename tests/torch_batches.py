@@ -76,3 +76,70 @@ def batch(rng, H, lanes, n_slots, zipf=True):
         np.asarray(bucket + [False] * pad, bool),
     )
     return arrays
+
+
+def credit_batch(rng, H, now_ms, n_slots=C):
+    """A table and an H-row credit batch (unique slots, padding rows at
+    the scratch row) with the edge rows of the lease credit: an expired
+    window, an expired bucket, a covering credit, a credit whose
+    credit * interval exceeds int32 (the wrap guard), negative credits,
+    and a scratch row that starts non-zero."""
+    values = rng.integers(0, 200, C + 1).astype(np.int32)
+    expiry = rng.integers(0, 2 * now_ms, C + 1).astype(np.int32)
+    hits = rng.integers(0, 1000, C + 1).astype(np.int32)
+    values[C], expiry[C], hits[C] = 77, 12345, 9  # garbage in scratch
+    n_real = max(H - max(H // 8, 1), 1)
+    slots = rng.choice(n_slots, n_real, replace=False).astype(np.int32)
+    credits = rng.integers(0, 300, n_real).astype(np.int32)
+    windows = rng.integers(1, 5000, n_real).astype(np.int32)
+    bucket = rng.random(n_real) < 0.5
+    # live buckets: TAT a few intervals ahead of now
+    ahead = rng.integers(0, 400, n_real) * windows
+    expiry[slots] = np.where(
+        bucket, np.minimum(now_ms + ahead, NEVER), expiry[slots]
+    ).astype(np.int32)
+    edges = [
+        # (bucket, expiry, credit, window)
+        (False, now_ms - 5, 50, 60_000),        # expired window
+        (True, now_ms - 1, 3, 100),             # expired bucket (full)
+        (True, now_ms + 10 * 100, 10, 100),     # credit covers exactly
+        (True, now_ms + 10 * 100 + 1, 9, 100),  # one short: retreats 900
+        (True, NEVER, 1 << 30, 1 << 20),        # wrap guard: covers
+        (True, now_ms + (1 << 29), 1 << 20, 1 << 12),  # 2**32 ms: covers
+        (False, now_ms + 1, 1 << 30, 1000),     # floored at 0
+        (True, now_ms + 5_000, -3, 1 << 30),    # negative credit wraps
+        (False, now_ms + 1, -7, 1000),          # negative credit adds
+    ]
+    for i, (is_bucket, e, c, w) in enumerate(edges[: n_real]):
+        bucket[i] = is_bucket
+        expiry[slots[i]] = e
+        credits[i] = c
+        windows[i] = w
+    pad = H - n_real
+    return (
+        (values, expiry, hits),
+        (
+            np.concatenate([slots, np.full(pad, C, np.int32)]),
+            np.concatenate([credits, rng.integers(0, 9, pad)]).astype(
+                np.int32),
+            np.concatenate([windows, np.zeros(pad, np.int32)]),
+            np.concatenate([bucket, np.zeros(pad, bool)]),
+        ),
+    )
+
+
+def hits_column(rng, kind):
+    """An int32[C+1] hit column: "zipf" (hot slots, many ties), "sparse"
+    (fewer live slots than most k, tied counts), "zero", or "wide"
+    (large counts)."""
+    hits = np.zeros(C + 1, np.int32)
+    if kind == "zipf":
+        keys = np.minimum(rng.zipf(1.3, 20 * C) - 1, C - 1)
+        np.add.at(hits, keys, 1)
+    elif kind == "sparse":
+        live = rng.choice(C, 10, replace=False)
+        hits[live] = rng.choice([1, 2, 2, 5], 10)
+    elif kind == "wide":
+        hits[:C] = rng.integers(0, NEVER, C)
+    hits[C] = 3  # scratch garbage: zeroed, never reported
+    return hits
