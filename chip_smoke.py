@@ -15,7 +15,10 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    version's time, the bytes bound at 3.35 TB/s and, where one PyTorch
    call computes the same function, that call's time. The lease credit
    (B4c) runs with its edge rows, the heavy-hitter drain (B5) with ties,
-   fewer live slots than k, and k up to C.
+   fewer live slots than k, and k up to C; the replicated check (B6a)
+   and update (B6b) over remote lanes with live and expired sums, bucket
+   floors and sums past 2^31 (and B6a with zero lanes against B1), the
+   remote-sum scatter (B6c) over unique slots.
 4. The main path: the port's gRPC server on the card (capacity 1<<20)
    answers Envoy ShouldRateLimit and Kuadrant CheckRateLimit/Report over a
    real channel, with a hot reload and an epoch rebase; every answer is
@@ -34,6 +37,16 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    over-admission bound and token conservation after every refresh, then
    a forced settle through B4c and every user's device value against its
    admitted count.
+8. The replicated topology: (a) three TorchReplicatedStorage nodes on the
+   card (capacity 1<<20 each, frozen clock) take 8192-hit batches in turn
+   over 1M Zipf-0.99 users, a loopback broker completing the gossip
+   between batches: every row against serial order, and the whole drive
+   against the same drive on three CPU nodes (rows and all five arrays);
+   (b) three nodes built by the server's own code with real gossip
+   brokers on localhost answer 2,000 sequential calls round-robin: every
+   node's view exact after five gossip periods, spent users refused on
+   every node, over-admission and per-node latency recorded. A replicated
+   node must launch B6a/B6b/B6c and never B1/B2.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -60,12 +73,19 @@ HS = (8, 1024, 8192, 32768)
 READ_NS = (8, 1024, 32768)
 CREDIT_HS = (8, 1024, 4096)
 DRAIN_KS = (64, 1, 1000)
+# B6c's n: phase 8a's flushes gather two other nodes' batches, about
+# 12,288 dirty slots (PERF.md), the shape its JSON row reports
+REMOTE_NS = (8, 1024, 8192, 12288, 65536)
 # Host staging on the H100's machine takes about 0.35 s per 8192-hit batch
 # on the standard path (NVIDIA H100 80GB HBM3, 700 W; PERF.md): 100
 # batches keep that drive near 40 s, so the two native drives fit and the
 # run stays well inside half its 1200 s limit.
 DRIVE_BATCHES = 100
 NATIVE_BATCHES = 100
+# Phase 8a runs its drive twice, on the card and replayed on the CPU, with
+# Python gossip merges between batches: 30 batches (245,760 decisions)
+# keep it inside the script's time limit (PERF.md).
+REPLICATION_BATCHES = 30
 KERNEL_SOURCE = "limitador_tpu_torch/csrc/counter_table.cu"
 REPLACES = {
     "check_and_update": "limitador_tpu/ops/kernel.py:153",
@@ -75,13 +95,18 @@ REPLACES = {
     "rebase_epoch": "limitador_tpu/ops/kernel.py:688",
     "credit": "limitador_tpu/ops/kernel.py:580",
     "drain_top_hits": "limitador_tpu/ops/kernel.py:673",
+    "replicated_check": "limitador_tpu/tpu/replicated.py:55",
+    "replicated_update": "limitador_tpu/tpu/replicated.py:96",
+    "apply_remote": "limitador_tpu/tpu/replicated.py:120",
 }
 # the shape each kernel sees on the main path, for the JSON line (B4c:
-# rows of a lease settle; B5: k of the default --usage-topk)
+# rows of a lease settle; B5: k of the default --usage-topk; B6c: rows of
+# a phase-8a flush)
 MAIN_SHAPE = {
     "check_and_update": 8192, "update": 8, "read_slots": 8,
     "clear_slots": 8, "rebase_epoch": C + 1, "credit": 1024,
-    "drain_top_hits": 64,
+    "drain_top_hits": 64, "replicated_check": 8192,
+    "replicated_update": 8, "apply_remote": 12288,
 }
 # kernels each main-path phase must launch
 PHASE4_KERNELS = ("check_and_update", "update", "read_slots",
@@ -89,6 +114,12 @@ PHASE4_KERNELS = ("check_and_update", "update", "read_slots",
 PHASE6_KERNELS = PHASE4_KERNELS + ("drain_top_hits",)
 PHASE7_KERNELS = ("check_and_update", "read_slots", "credit",
                   "drain_top_hits")
+# a replicated node checks through B6a and updates through B6b, never B1/B2
+PHASE8A_KERNELS = ("replicated_check", "apply_remote", "read_slots",
+                   "clear_slots")
+PHASE8B_KERNELS = ("replicated_check", "replicated_update", "apply_remote",
+                   "read_slots")
+PLAIN_KERNELS = ("check_and_update", "update")
 
 
 def fail(msg: str) -> None:
@@ -277,6 +308,83 @@ def _credit_bytes(start, rows, after, now_ms):
     )
 
 
+def _remote_lanes(rng, now_ms, lanes, values):
+    """Remote lanes (int32[C+1] each) for the lanes' slots: live and
+    expired window sums up to 2^30, bucket TATs ahead of and behind now,
+    empty slots; ``values`` (the table's column, changed in place) gets
+    live local counts near 2^31 under a live remote 2^30, so that local +
+    remote crosses 2^31."""
+    rv = np.zeros(C + 1, np.int32)
+    re = np.zeros(C + 1, np.int32)
+    for slot, (is_bucket, maxv, win) in lanes.items():
+        kind = rng.random()
+        if is_bucket:
+            if kind < 0.4:
+                re[slot] = min(now_ms + int(rng.integers(0, maxv + 3)) * win,
+                               NEVER)
+            elif kind < 0.7:
+                re[slot] = max(now_ms - int(rng.integers(0, 5000)), 0)
+        elif kind < 0.45:
+            rv[slot] = int(rng.choice([1, 2, 5, 40, (1 << 30) - 1, 1 << 30]))
+            re[slot] = now_ms + int(rng.integers(1, 60_000))
+        elif kind < 0.65:
+            rv[slot] = int(rng.integers(1, 100))
+            re[slot] = now_ms - int(rng.integers(0, 3))
+        elif kind < 0.75:
+            values[slot] = NEVER - int(rng.integers(0, 50))
+            rv[slot] = 1 << 30
+            re[slot] = now_ms + 60_000
+    return rv, re
+
+
+def _cell_bytes(slots, fresh, bucket, before, after, now_ms):
+    """The table bytes a check or update must move, counted per distinct
+    slot from its inputs (numpy) and the plain version's result: each
+    real slot's expiry read; its value read where it is a live window
+    (not fresh, not expired); its hits read unless the slot is fresh;
+    each cell (scratch row included) written only where it changed."""
+    distinct, first = np.unique(slots, return_index=True)
+    d = distinct[distinct != C]
+    b = bucket[first][distinct != C]
+    f = np.isin(d, slots[fresh])
+    live_window = ~b & ~f & (before[1][d] > now_ms)
+    changed = sum(int((after[k][distinct] != before[k][distinct]).sum())
+                  for k in range(3))
+    return int(4 * d.size + 4 * live_window.sum() + 4 * (~f).sum()
+               + 4 * changed)
+
+
+def _check_bytes(arrays, before, after, now_ms, remote=None):
+    """The bytes B1 (``remote`` None) or B6a must move for this batch:
+    22 B of hit row in and 10 B of outputs out per row, the table cells
+    (``_cell_bytes``) and, with the remote lanes, each real slot's
+    remote_exp and, for a window slot whose remote lane is live, its
+    remote_vals."""
+    slots, bucket = arrays[0], arrays[6]
+    nbytes = 32 * slots.size + _cell_bytes(
+        slots, arrays[5], bucket, before, after, now_ms)
+    if remote is not None:
+        rv, re = remote
+        distinct, first = np.unique(slots, return_index=True)
+        real = distinct != C
+        window_live = ~bucket[first] & (re[distinct] > now_ms) & real
+        nbytes += 4 * int(real.sum()) + 4 * int(window_live.sum())
+    return nbytes
+
+
+def _update_bytes(upd, before, after, now_ms, remote_exp=None):
+    """The bytes B2 or (with ``remote_exp``) B6b must move: 14 B of row in,
+    the table cells (``_cell_bytes``) and each real bucket slot's
+    remote_exp."""
+    slots, _deltas, _windows, fresh, bucket = upd
+    nbytes = 14 * slots.size + _cell_bytes(
+        slots, fresh, bucket, before, after, now_ms)
+    if remote_exp is not None:
+        distinct, first = np.unique(slots, return_index=True)
+        nbytes += 4 * int((bucket[first] & (distinct != C)).sum())
+    return nbytes
+
+
 def _hit_column(rng, kind):
     """int32[C+1] hit columns for B5: Zipf-0.99 traffic (ties among the
     cold slots), fewer live slots than k with tied counts, all zero."""
@@ -329,6 +437,10 @@ def _device_ms(fn, setup, kernel, reps=10):
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
+def _host(state):
+    return [t.cpu().numpy() for t in state]
+
+
 def _max_abs_err(pairs):
     err = 0
     for a, b in pairs:
@@ -351,11 +463,18 @@ def phase_kernels(dev):
     # (its cells then hold random expiries, read as TATs by bucket lanes)
     for s in range(4096):
         lanes[s] = _lane(rng)
-    base = K.CounterTableState(*(
-        torch.from_numpy(a).to(dev) for a in _table(rng, now_ms, lanes)))
+    base_np = _table(rng, now_ms, lanes)
+    base = K.CounterTableState(*(torch.from_numpy(a).to(dev)
+                                 for a in base_np))
 
     def tables():
         return K.CounterTableState(*(t.clone() for t in base))
+    # the replicated node's table: the same cells but some live local
+    # counts near 2^31, and its two remote lanes
+    rbase_np = [a.copy() for a in base_np]
+    remote_np = _remote_lanes(rng, now_ms, lanes, rbase_np[0])
+    rbase = K.CounterTableState(*(torch.from_numpy(a).to(dev)
+                                  for a in rbase_np))
     out = {name: {} for name in REPLACES}
     exact = True
 
@@ -372,13 +491,12 @@ def phase_kernels(dev):
         dev_t = "not measured" if device_ms is None else f"{device_ms:.4f}ms"
         print(f"  {name:17s} n={shape:<7d} err={err} call {ms:.4f}ms "
               f"(kernel alone {dev_t}) plain {plain_ms:.4f}ms "
-              f"bound {bound:.5f}ms{lib}")
+              f"bound {bound:.7f}ms ({nbytes} B){lib}")
 
     print("kernels vs plain versions (C = 1<<20):")
     for H in HS:
         arrays = _batch(rng, H, lanes)
         dev_arrays = tuple(torch.from_numpy(a).to(dev) for a in arrays)
-        distinct = int(np.unique(arrays[0]).size)
         # B1: the fused check
         ta, tb = tables(), tables()
         _, ra = K.check_and_update_batch(ta, *dev_arrays, now_ms)
@@ -395,12 +513,14 @@ def phase_kernels(dev):
             lambda t: K.check_and_update_batch(t, *dev_arrays, now_ms),
             lambda: (tables(),), "check_kernel")
         record("check_and_update", H, err, ms, plain_ms,
-               22 * H + 10 * H + 24 * distinct, device_ms=dms)
+               _check_bytes(arrays, base_np, _host(tb), now_ms),
+               device_ms=dms)
         # B2: unconditional update (large deltas included)
         deltas = np.where(rng.random(H) < 0.1,
                           rng.integers(-5, 1 << 30, H), arrays[1])
-        upd = (dev_arrays[0], torch.from_numpy(deltas.astype(np.int32)).to(
-            dev), dev_arrays[3], dev_arrays[5], dev_arrays[6])
+        upd_np = (arrays[0], deltas.astype(np.int32), arrays[3], arrays[5],
+                  arrays[6])
+        upd = tuple(torch.from_numpy(a).to(dev) for a in upd_np)
         ta, tb = tables(), tables()
         K.update_batch(ta, *upd, now_ms)
         K.update_plain(tb, *upd, now_ms)
@@ -412,7 +532,58 @@ def phase_kernels(dev):
                               lambda: (tables(),), reps=5, warmup=1)
         dms = _device_ms(lambda t: K.update_batch(t, *upd, now_ms),
                          lambda: (tables(),), "update_kernel")
-        record("update", H, err, ms, plain_ms, 14 * H + 24 * distinct,
+        record("update", H, err, ms, plain_ms,
+               _update_bytes(upd_np, base_np, _host(tb), now_ms),
+               device_ms=dms)
+        # B6a: the check over live/expired remote sums and bucket floors,
+        # local + remote past 2^31; with zero lanes it must equal B1
+        rv, re = remote_np
+        remote = (torch.from_numpy(rv).to(dev), torch.from_numpy(re).to(dev))
+        zeros = tuple(torch.zeros_like(t) for t in remote)
+
+        def rtables():
+            return K.CounterTableState(*(t.clone() for t in rbase))
+        ta, tb = rtables(), rtables()
+        _, ra = K.replicated_check_batch(ta, *remote, *dev_arrays, now_ms)
+        rb = K.replicated_check_plain(tb, *remote, *dev_arrays, now_ms)
+        za, zb = tables(), tables()
+        _, zra = K.replicated_check_batch(za, *zeros, *dev_arrays, now_ms)
+        _, zrb = K.check_and_update_batch(zb, *dev_arrays, now_ms)
+        torch.cuda.synchronize()
+        err = _max_abs_err(list(zip(ra, rb)) + list(zip(ta, tb))
+                           + list(zip(zra, zrb)) + list(zip(za, zb)))
+        ms = _median_ms(
+            lambda t: K.replicated_check_batch(t, *remote, *dev_arrays,
+                                               now_ms),
+            lambda: (rtables(),))
+        plain_ms = _median_ms(
+            lambda t: K.replicated_check_plain(t, *remote, *dev_arrays,
+                                               now_ms),
+            lambda: (rtables(),), reps=5, warmup=1)
+        dms = _device_ms(
+            lambda t: K.replicated_check_batch(t, *remote, *dev_arrays,
+                                               now_ms),
+            lambda: (rtables(),), "check_kernel")
+        record("replicated_check", H, err, ms, plain_ms,
+               _check_bytes(arrays, rbase_np, _host(tb), now_ms, (rv, re)),
+               device_ms=dms)
+        # B6b: the update with the remote TAT floor
+        ta, tb = rtables(), rtables()
+        K.replicated_update_batch(ta, remote[1], *upd, now_ms)
+        K.replicated_update_plain(tb, remote[1], *upd, now_ms)
+        torch.cuda.synchronize()
+        err = _max_abs_err(list(zip(ta, tb)))
+        ms = _median_ms(
+            lambda t: K.replicated_update_batch(t, remote[1], *upd, now_ms),
+            lambda: (rtables(),))
+        plain_ms = _median_ms(
+            lambda t: K.replicated_update_plain(t, remote[1], *upd, now_ms),
+            lambda: (rtables(),), reps=5, warmup=1)
+        dms = _device_ms(
+            lambda t: K.replicated_update_batch(t, remote[1], *upd, now_ms),
+            lambda: (rtables(),), "update_kernel")
+        record("replicated_update", H, err, ms, plain_ms,
+               _update_bytes(upd_np, rbase_np, _host(tb), now_ms, re),
                device_ms=dms)
 
     table = tables()
@@ -524,6 +695,36 @@ def phase_kernels(dev):
     err = _max_abs_err(big_errs)
     print(f"  drain_top_hits    k in (1025, 4096, C) err={err}")
     exact = exact and err == 0
+    # B6c: the remote-sum scatter over unique slots
+    lanes_base = tuple(torch.from_numpy(a).to(dev) for a in remote_np)
+    for n in REMOTE_NS:
+        slots = np.unique(zipf_keys(C, 4 * n, 0.99, rng))
+        if slots.size < n:
+            slots = np.union1d(slots, rng.choice(C, 2 * n, replace=False))
+        slots = rng.permutation(slots)[:n].astype(np.int32)
+        rows = tuple(torch.from_numpy(a).to(dev) for a in (
+            slots, rng.integers(0, (1 << 30) + 1, n).astype(np.int32),
+            rng.integers(0, NEVER, n).astype(np.int32)))
+
+        def fresh_lanes():
+            return tuple(t.clone() for t in lanes_base)
+        la, lb = fresh_lanes(), fresh_lanes()
+        K.apply_remote(*la, *rows)
+        K.apply_remote_plain(*lb, *rows)
+        torch.cuda.synchronize()
+        err = _max_abs_err(list(zip(la, lb)))
+        ms = _median_ms(lambda a, b: K.apply_remote(a, b, *rows),
+                        fresh_lanes)
+        plain_ms = _median_ms(lambda a, b: K.apply_remote_plain(a, b, *rows),
+                              fresh_lanes)
+        stacked = torch.stack(lanes_base)
+        idx = rows[0].long()
+        new_rows = torch.stack(rows[1:])
+        lib_ms = _median_ms(lambda t: t.index_copy_(1, idx, new_rows),
+                            lambda: (stacked.clone(),))
+        dms = _device_ms(lambda a, b: K.apply_remote(a, b, *rows),
+                         fresh_lanes, "apply_remote_kernel")
+        record("apply_remote", n, err, ms, plain_ms, 20 * n, lib_ms, dms)
     if not exact:
         fail("a kernel disagrees with its plain version")
     return out
@@ -1091,6 +1292,306 @@ def phase_native_drive(dev, card, batches, leases, hits=8192,
     return rate, spent, seconds
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+
+class Loopback:
+    """Stands in for the gossip broker of a replicated node: ``publish``
+    hands the update to the other nodes' ``_on_remote_update`` at once;
+    ``stop`` (``close`` calls it) has nothing to stop."""
+
+    def __init__(self, peers):
+        self.peers = peers
+
+    def publish(self, key, values, expires_at):
+        for peer in self.peers:
+            peer._on_remote_update(key, dict(values), expires_at)
+
+    def stop(self):
+        pass
+
+
+def _replication_drive(dev, clock, keys, to_bucket, batches, hits):
+    """Three TorchReplicatedStorage nodes (capacity C) on ``dev`` with
+    loopback gossip: batch b goes to node b mod 3 through check_many, then
+    every node publishes what it touched. Returns (limited per row, the
+    nodes' final arrays, host seconds per stage)."""
+    from limitador_tpu_torch import Counter, Limit, RateLimiter
+    from limitador_tpu_torch.device.replicated import TorchReplicatedStorage
+    from limitador_tpu_torch.device.storage import _Request
+
+    nodes = [TorchReplicatedStorage(name, capacity=C, clock=clock,
+                                    device=dev) for name in "abc"]
+    window = Limit("drive", 100, 3600, [], ["u"], name="per-user")
+    bucket = Limit("drive-tb", 20, 60, [], ["u"], name="per-user-tb",
+                   policy="token_bucket")
+    for i, node in enumerate(nodes):
+        limiter = RateLimiter(node)  # wires the limits provider
+        limiter.add_limit(window)
+        limiter.add_limit(bucket)
+        node.broker = Loopback([n for j, n in enumerate(nodes) if j != i])
+    spent = {"check": 0.0, "gossip": 0.0, "flush": 0.0}
+    flush_rows = []  # dirty slots per B6c flush
+    for node in nodes:
+        flush = node._flush_dirty_remote
+
+        def timed_flush(node=node, flush=flush):
+            if node._dirty_remote:
+                flush_rows.append(len(node._dirty_remote))
+            t0 = time.perf_counter()
+            try:
+                return flush()
+            finally:
+                spent["flush"] += time.perf_counter() - t0
+        node._flush_dirty_remote = timed_flush
+    names = {}
+    limited = []
+    t0 = time.perf_counter()
+    for b in range(batches):
+        node = nodes[b % 3]
+        part = keys[b * hits:(b + 1) * hits].tolist()
+        tb = to_bucket[b * hits:(b + 1) * hits].tolist()
+        requests = []
+        for k, is_tb in zip(part, tb):
+            name = names.get(k)
+            if name is None:
+                name = names[k] = str(k)
+            requests.append(_Request([Counter(bucket if is_tb else window,
+                                              {"u": name})], 1, False))
+        flush0 = spent["flush"]
+        t1 = time.perf_counter()
+        limited.extend(a.limited for a in node.check_many(requests))
+        t2 = time.perf_counter()
+        for n in nodes:
+            n._publish_touched()
+        t3 = time.perf_counter()
+        spent["check"] += (t2 - t1) - (spent["flush"] - flush0)
+        spent["gossip"] += t3 - t2
+    for n in nodes:
+        with n._lock:
+            n._flush_dirty_remote()
+        n.close()
+    seconds = time.perf_counter() - t0
+    arrays = [
+        {"values": n._state.values.cpu().numpy(),
+         "expiry_ms": n._state.expiry_ms.cpu().numpy(),
+         "hits": n._state.hits.cpu().numpy(),
+         "remote_vals": n._remote_vals.cpu().numpy(),
+         "remote_exp": n._remote_exp.cpu().numpy()}
+        for n in nodes
+    ]
+    return np.asarray(limited), arrays, spent, seconds, flush_rows
+
+
+def phase_replication_drive(dev, card, batches, hits=8192):
+    """Phase 8a: the replicated topology on the card, gossip complete
+    between batches (a loopback broker), so admission is globally exact:
+    every row must follow serial order against one table, and the same
+    sequence on three CPU nodes (the kernels' plain versions) must give
+    the same rows and the same final five arrays on every node."""
+    import torch
+
+    from limitador_tpu_torch.ops import kernel as K
+
+    rng = np.random.default_rng(88)
+    keys = zipf_keys(C, batches * hits, 0.99, rng)
+    to_bucket = rng.random(batches * hits) < 0.2
+    clock = ManualClock()
+    K.reset_launches()
+    limited, arrays, spent, seconds, flush_rows = _replication_drive(
+        dev, clock, keys, to_bucket, batches, hits)
+    launches = dict(K.launches)
+    rate = limited.size / seconds
+    print(f"replication drive: 3 nodes x capacity {C}, {batches} batches x "
+          f"{hits} hits over {C} Zipf-0.99 users (20% to a token bucket) in "
+          f"{seconds:.2f}s = {rate:.0f} decisions/s ({int(limited.sum())} "
+          f"limited; {card})")
+    print("replication drive host time: " + ", ".join(
+        f"{k} {v / batches * 1e3:.2f} ms/batch" for k, v in spent.items())
+        + f"; B6c rows per flush: mean {np.mean(flush_rows):.0f}, max "
+        f"{max(flush_rows)} over {len(flush_rows)} flushes")
+    print(f"replication drive launches: {json.dumps(launches)}")
+    missing = [k for k in PHASE8A_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels not launched on the replication drive: {missing}")
+    if any(launches[k] for k in PLAIN_KERNELS):
+        fail("a replicated node launched the plain check or update")
+    # serial order against one table: the first max of each (limit, user)
+    composite = keys.astype(np.int64) * 2 + to_bucket
+    order = np.argsort(composite, kind="stable")
+    sk = composite[order]
+    starts = np.r_[0, np.flatnonzero(sk[1:] != sk[:-1]) + 1]
+    rank = np.empty_like(order)
+    rank[order] = np.arange(sk.size) - np.repeat(
+        starts, np.diff(np.r_[starts, sk.size]))
+    want = rank >= np.where(to_bucket, 20, 100)
+    if not np.array_equal(limited, want):
+        fail(f"replication drive rows differ from serial order at "
+             f"{int(np.flatnonzero(limited != want)[0])}")
+    t0 = time.perf_counter()
+    cpu_limited, cpu_arrays, _spent, _s, _rows = _replication_drive(
+        torch.device("cpu"), clock, keys, to_bucket, batches, hits)
+    if not np.array_equal(cpu_limited, limited):
+        fail("the CPU replay's rows differ from the card's")
+    for i, (a, b) in enumerate(zip(arrays, cpu_arrays)):
+        for name in a:
+            if not np.array_equal(a[name], b[name]):
+                fail(f"node {i} {name} differs between card and CPU replay")
+    print(f"replication drive: rows equal serial order and the CPU replay "
+          f"(rows and all five arrays of all three nodes; replay "
+          f"{time.perf_counter() - t0:.2f}s)")
+    return launches, {"decisions_per_s": rate, "seconds": seconds,
+                      "host_s": spent, "batches": batches, "hits": hits,
+                      "flush_rows": flush_rows}
+
+
+REPLICATED_YAML = """\
+- namespace: rep
+  max_value: {max_value}
+  seconds: 3600
+  variables: ["descriptors[0].user"]
+  name: per-user
+"""
+
+
+async def _served_replication(tmpdir, dev, card, calls=2000, users=50,
+                              max_value=20):
+    """Phase 8b: three replicated nodes built by the server's own
+    construction code (``server.start`` with --node-id, --listen-address
+    and --peer), gossiping over real gRPC brokers on localhost, standard
+    pipeline. ShouldRateLimit calls go round-robin over the nodes; every
+    tenth call is a Kuadrant Report of one hit instead. After five gossip
+    periods every node's view must be exact and a further call for a
+    spent user must be refused everywhere."""
+    import grpc
+
+    from limitador_tpu_torch.device.replicated import DEFAULT_GOSSIP_PERIOD
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    limits = os.path.join(tmpdir, "replicated.yaml")
+    with open(limits, "w") as f:
+        f.write(REPLICATED_YAML.format(max_value=max_value))
+    ports = []
+    for _ in range(6):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    gossip = [f"127.0.0.1:{p}" for p in ports[3:]]
+    parse = server.build_parser().parse_args
+    K.reset_launches()
+    nodes = []
+    try:
+        for i in range(3):
+            peers = [a for j, a in enumerate(gossip) if j != i]
+            nodes.append(await server.start(parse([
+                limits, "torch", "--device", dev.type, "--rls-host",
+                "127.0.0.1", "--rls-port", str(ports[i]), "--node-id",
+                f"node{i}", "--listen-address", gossip[i], "--peer",
+                peers[0], "--peer", peers[1]])))
+        envoy = "/envoy.service.ratelimit.v3.RateLimitService/" \
+            "ShouldRateLimit"
+        report = "/kuadrant.service.ratelimit.v1.RateLimitService/Report"
+        ok = rls_pb2.RateLimitResponse.OK
+        over = rls_pb2.RateLimitResponse.OVER_LIMIT
+        spent = np.zeros(users, np.int64)
+        # OK answers given while the user's global spend (the calls are
+        # sequential, so it is exact) had already reached the limit
+        over_adm = np.zeros(users, np.int64)
+        lat = [[], [], []]
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{ports[0]}") as c0, \
+                grpc.aio.insecure_channel(f"127.0.0.1:{ports[1]}") as c1, \
+                grpc.aio.insecure_channel(f"127.0.0.1:{ports[2]}") as c2:
+            chans = (c0, c1, c2)
+            # the mesh forms before the drive: every broker has 2 sessions
+            deadline = time.monotonic() + 30
+            while any(len(n.storage.broker.sessions) < 2 for n in nodes):
+                if time.monotonic() > deadline:
+                    fail("the replication mesh did not form within 30 s")
+                await asyncio.sleep(0.05)
+            t0 = time.perf_counter()
+            for i in range(calls):
+                node = i % 3
+                user = (i // 3) % users
+                if i % 10 == 9:
+                    await chans[node].unary_unary(report)(_rls_request(
+                        rls_pb2, "rep", [{"user": f"r{user}"}], 1),
+                        timeout=60)
+                    spent[user] += 1
+                    continue
+                blob = _rls_request(rls_pb2, "rep", [{"user": f"r{user}"}])
+                t1 = time.perf_counter()
+                got = await chans[node].unary_unary(envoy)(blob, timeout=60)
+                lat[node].append(time.perf_counter() - t1)
+                if rls_pb2.RateLimitResponse.FromString(
+                        got).overall_code == ok:
+                    over_adm[user] += spent[user] >= max_value
+                    spent[user] += 1
+            seconds = time.perf_counter() - t0
+            await asyncio.sleep(5 * DEFAULT_GOSSIP_PERIOD)
+            want = {f"r{u}": max(0, max_value - int(spent[u]))
+                    for u in range(users)}
+            t_wait = time.perf_counter()
+            while True:
+                views = []
+                for n in nodes:
+                    counters = await n.limiter.get_counters("rep")
+                    views.append({c.set_variables["descriptors[0].user"]:
+                                  max(0, c.remaining) for c in counters})
+                # a spent user's counter is listed with 0 remaining
+                if all(v == want for v in views):
+                    break
+                if time.perf_counter() - t_wait > 10:
+                    bad = [(u, [v.get(u) for v in views], w)
+                           for u, w in want.items()
+                           if any(v.get(u) != w for v in views)]
+                    fail(f"served replication did not converge: {bad[:5]}")
+                await asyncio.sleep(DEFAULT_GOSSIP_PERIOD)
+            settle = time.perf_counter() - t_wait + 5 * DEFAULT_GOSSIP_PERIOD
+            refused = 0
+            for u in range(users):
+                if spent[u] < max_value:
+                    continue
+                blob = _rls_request(rls_pb2, "rep", [{"user": f"r{u}"}])
+                for chan in chans:
+                    got = await chan.unary_unary(envoy)(blob, timeout=60)
+                    if rls_pb2.RateLimitResponse.FromString(
+                            got).overall_code != over:
+                        fail(f"user r{u} (spent {int(spent[u])}) was "
+                             "admitted after convergence")
+                    refused += 1
+    finally:
+        for n in nodes:
+            await n.stop()
+    launches = dict(K.launches)
+    lat_ms = [np.asarray(x) * 1e3 for x in lat]
+    print(f"served replication: 3 nodes, {calls} calls ({calls // 10} "
+          f"Reports) over {users} users, limit {max_value}/h, in "
+          f"{seconds:.2f}s; views exact after {settle:.2f}s; "
+          f"{refused} further calls refused; over-admission per user max "
+          f"{int(over_adm.max())}, mean {over_adm.mean():.2f}, "
+          f"{int((over_adm > 0).sum())} of {users} users over ({card})")
+    for i, x in enumerate(lat_ms):
+        print(f"served replication node{i} latency (sequential gRPC, "
+              f"{dev.type}): p50 {np.percentile(x, 50):.3f} ms, p99 "
+              f"{np.percentile(x, 99):.3f} ms over {x.size}")
+    print(f"served replication launches: {json.dumps(launches)}")
+    missing = [k for k in PHASE8B_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels not launched on the served replication: {missing}")
+    if any(launches[k] for k in PLAIN_KERNELS):
+        fail("a replicated node launched the plain check or update")
+    return launches, {
+        "seconds": seconds, "settle_s": settle,
+        "over_admission_max": int(over_adm.max()),
+        "over_admission_mean": float(over_adm.mean()),
+        "users_over": int((over_adm > 0).sum()),
+        "p50_ms": [float(np.percentile(x, 50)) for x in lat_ms],
+        "p99_ms": [float(np.percentile(x, 99)) for x in lat_ms],
+    }
+
+
 def main() -> int:
     name, card = phase_card()
     import torch
@@ -1113,9 +1614,15 @@ def main() -> int:
     missing = [name for name in PHASE7_KERNELS if drive_launches[name] == 0]
     if missing:
         fail(f"kernels not launched on the native drive: {missing}")
-    # launches on the main paths: phases 4, 6 and 7
+    repl_launches, repl = phase_replication_drive(dev, card,
+                                                  REPLICATION_BATCHES)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        served_launches, served = asyncio.run(
+            _served_replication(tmpdir, dev, card))
+    # launches on the main paths: phases 4, 6, 7, 8a and 8b
     launches = {name: launches[name] + native_launches[name]
-                + drive_launches[name] for name in launches}
+                + drive_launches[name] + repl_launches[name]
+                + served_launches[name] for name in launches}
     kernels = []
     for kname, by_shape in results.items():
         rec = by_shape[MAIN_SHAPE[kname]]
@@ -1140,6 +1647,8 @@ def main() -> int:
             "native_drive_leases": {"decisions_per_s": leased[0],
                                     "host_s": leased[1],
                                     "seconds": leased[2]},
+            "replication_drive": repl,
+            "served_replication": served,
         }, f, indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -45,6 +45,13 @@
 // (rebase_epoch_chunked, :688-696) are grid-stride loops over their
 // indices; they are bound by bytes and are a few lines each.
 //
+// The replicated topology (limitador_tpu/tpu/replicated.py:55-125) reuses
+// the check and the update as templates on kRemote: B6a is the check with
+// the gossip hooks of check_and_update_core (base_hook adds the live
+// remote window sum, tat_floor_hook floors bucket TATs at the remote TAT,
+// read and write base alike), B6b the update with the TAT floor, and B6c
+// a grid-stride scatter of both remote lanes.
+//
 // Every entry point launches on the stream it is given and returns
 // cudaGetLastError() as an int; it allocates nothing.
 
@@ -221,9 +228,11 @@ constexpr int kPending = kMark;
 // kFlags bits per sorted hit: 1 fresh, 2 bucket, 4 h_fresh, 8 expired.
 // kSegFlags bits per segment start: 1 any fresh, 2 any admitted hit.
 
+template <bool kRemote>
 __global__ void __launch_bounds__(kThreads, 1) check_kernel(
     int32_t* __restrict__ values, int32_t* __restrict__ expiry,
-    int32_t* __restrict__ hits, const int32_t* __restrict__ slots,
+    int32_t* __restrict__ hits, const int32_t* __restrict__ remote_vals,
+    const int32_t* __restrict__ remote_exp, const int32_t* __restrict__ slots,
     const int32_t* __restrict__ deltas, const int32_t* __restrict__ maxes,
     const int32_t* __restrict__ windows, const int32_t* __restrict__ req_ids,
     const uint8_t* __restrict__ fresh, const uint8_t* __restrict__ bucket,
@@ -270,13 +279,26 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
     const int32_t e_eff = h_fresh ? wadd(win, now) : e_raw;
     const bool expired = e_eff <= now;
     const int32_t v_window = (expired || h_fresh) ? 0 : v_raw;
-    const int32_t local_tat = h_fresh ? 0 : e_raw;
-    const int32_t base_rel = imax(wsub(local_tat, now), 0);
+    int32_t tat_eff = h_fresh ? 0 : e_raw;
+    int32_t remote_add = 0;
+    if (kRemote) {
+      // B6a's hooks: bucket lanes floor their TAT at the remote TAT; window
+      // lanes add the live remote sum (now < remote_exp, strict), fresh
+      // slots included. The sum wraps as XLA's int32 does.
+      const int s = a[kSlot][i];
+      const int32_t r_exp = remote_exp[s];
+      if (is_bucket) {
+        tat_eff = imax(tat_eff, r_exp);
+      } else if (now < r_exp) {
+        remote_add = remote_vals[s];
+      }
+    }
+    const int32_t base_rel = imax(wsub(tat_eff, now), 0);
     const int32_t ival = imax(win, 1);
     const int32_t tau = wmul(wsub(maxv, 1), is_bucket ? win : 0);
     const int32_t spent =
         wsub(maxv, wadd(floordiv(wsub(tau, base_rel), ival), 1));
-    a[kVeff][i] = is_bucket ? spent : v_window;
+    a[kVeff][i] = is_bucket ? spent : wadd(v_window, remote_add);
     a[kBase][i] = base_rel;
     a[kFlags][i] |= (h_fresh ? 4 : 0) | (expired ? 8 : 0);
   }
@@ -366,8 +388,11 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
     const bool reset = is_bucket ? (h_adm || h_fresh)
                                  : ((h_adm && starts_fresh) || h_fresh);
     if (reset) {
-      const int32_t local_tat = h_fresh ? 0 : e_raw;
-      const int32_t tat_base = imax(local_tat, now);
+      int32_t tat_eff = h_fresh ? 0 : e_raw;
+      // B6a: the write base is the floored TAT, so the local cell
+      // persists the join of local and remote state.
+      if (kRemote && is_bucket) tat_eff = imax(tat_eff, remote_exp[s]);
+      const int32_t tat_base = imax(tat_eff, now);
       expiry[s] = is_bucket ? wadd(tat_base, wmul(h_total, win))
                             : wadd(a[kSegWin][start], now);
     }
@@ -390,9 +415,11 @@ enum UpdateArray {
   uSegFresh, uSegWin
 };
 
+template <bool kRemote>
 __global__ void __launch_bounds__(kThreads, 1) update_kernel(
     int32_t* __restrict__ values, int32_t* __restrict__ expiry,
-    int32_t* __restrict__ hits, const int32_t* __restrict__ slots,
+    int32_t* __restrict__ hits, const int32_t* __restrict__ remote_exp,
+    const int32_t* __restrict__ slots,
     const int32_t* __restrict__ deltas, const int32_t* __restrict__ windows,
     const uint8_t* __restrict__ fresh, const uint8_t* __restrict__ bucket,
     int H, int scratch, int32_t now, void* workspace) {
@@ -454,7 +481,9 @@ __global__ void __launch_bounds__(kThreads, 1) update_kernel(
     values[s] = is_bucket ? 0 : wadd(base_c, imin(seg_add, headroom));
     if (cell_expired || is_bucket) {
       const int32_t ival = imax(win, 1);
-      const int32_t local_tat = h_fresh ? 0 : e_raw;
+      int32_t local_tat = h_fresh ? 0 : e_raw;
+      // B6b: the remote TAT floors a bucket's start before the advance.
+      if (kRemote && is_bucket) local_tat = imax(local_tat, remote_exp[s]);
       const int32_t tat_base = imax(local_tat, now);
       const int32_t max_adv = floordiv(wsub(kNever, tat_base), ival);
       const int32_t adv = imin(seg_add, max_adv);
@@ -507,6 +536,25 @@ __global__ void rebase_expiry_kernel(int32_t* __restrict__ expiry, int n,
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
     expiry[i] = imax(wsub(expiry[i], step), 0);
+  }
+}
+
+// B6c: the remote-sum scatter (_apply_remote, tpu/replicated.py:120-125).
+// One thread per row writes both lanes. The slots are the keys of the
+// replicated storage's dirty map, unique by construction, so no two rows
+// write one cell and the order of writes does not matter. Bound: bytes,
+// 12 bytes of row read and 8 written per row.
+__global__ void apply_remote_kernel(int32_t* __restrict__ remote_vals,
+                                    int32_t* __restrict__ remote_exp,
+                                    const int32_t* __restrict__ slots,
+                                    const int32_t* __restrict__ sums,
+                                    const int32_t* __restrict__ expiries,
+                                    int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int s = slots[i];
+    remote_vals[s] = sums[i];
+    remote_exp[s] = expiries[i];
   }
 }
 
@@ -767,6 +815,48 @@ int smem_for(int H) {
   return P <= kSmemKeys ? P * 8 : 0;
 }
 
+// kRemote = false is B1 (the remote pointers are null and never read);
+// true is B6a. One template, so B1's code is what it was.
+template <bool kRemote>
+int launch_check(void* values, void* expiry, void* hits,
+                 const void* remote_vals, const void* remote_exp,
+                 const void* slots, const void* deltas, const void* maxes,
+                 const void* windows, const void* req_ids, const void* fresh,
+                 const void* bucket, int H, int scratch, int now_ms,
+                 void* workspace, void* out_admitted, void* out_ok,
+                 void* out_remaining, void* out_ttl, void* stream) {
+  cudaFuncSetAttribute(check_kernel<kRemote>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemKeys * 8);
+  check_kernel<kRemote><<<1, kThreads, smem_for(H), (cudaStream_t)stream>>>(
+      (int32_t*)values, (int32_t*)expiry, (int32_t*)hits,
+      (const int32_t*)remote_vals, (const int32_t*)remote_exp,
+      (const int32_t*)slots, (const int32_t*)deltas, (const int32_t*)maxes,
+      (const int32_t*)windows, (const int32_t*)req_ids,
+      (const uint8_t*)fresh, (const uint8_t*)bucket, H, scratch,
+      (int32_t)now_ms, workspace, (uint8_t*)out_admitted, (uint8_t*)out_ok,
+      (int32_t*)out_remaining, (int32_t*)out_ttl);
+  return (int)cudaGetLastError();
+}
+
+// kRemote = false is B2; true is B6b.
+template <bool kRemote>
+int launch_update(void* values, void* expiry, void* hits,
+                  const void* remote_exp, const void* slots,
+                  const void* deltas, const void* windows, const void* fresh,
+                  const void* bucket, int H, int scratch, int now_ms,
+                  void* workspace, void* stream) {
+  cudaFuncSetAttribute(update_kernel<kRemote>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemKeys * 8);
+  update_kernel<kRemote><<<1, kThreads, smem_for(H), (cudaStream_t)stream>>>(
+      (int32_t*)values, (int32_t*)expiry, (int32_t*)hits,
+      (const int32_t*)remote_exp, (const int32_t*)slots,
+      (const int32_t*)deltas, (const int32_t*)windows, (const uint8_t*)fresh,
+      (const uint8_t*)bucket, H, scratch, (int32_t)now_ms, workspace);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -786,31 +876,56 @@ int ct_check_and_update(void* values, void* expiry, void* hits,
                         const void* bucket, int H, int scratch, int now_ms,
                         void* workspace, void* out_admitted, void* out_ok,
                         void* out_remaining, void* out_ttl, void* stream) {
-  cudaFuncSetAttribute(check_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemKeys * 8);
-  check_kernel<<<1, kThreads, smem_for(H), (cudaStream_t)stream>>>(
-      (int32_t*)values, (int32_t*)expiry, (int32_t*)hits,
-      (const int32_t*)slots, (const int32_t*)deltas, (const int32_t*)maxes,
-      (const int32_t*)windows, (const int32_t*)req_ids,
-      (const uint8_t*)fresh, (const uint8_t*)bucket, H, scratch,
-      (int32_t)now_ms, workspace, (uint8_t*)out_admitted, (uint8_t*)out_ok,
-      (int32_t*)out_remaining, (int32_t*)out_ttl);
-  return (int)cudaGetLastError();
+  return launch_check<false>(values, expiry, hits, nullptr, nullptr, slots,
+                             deltas, maxes, windows, req_ids, fresh, bucket,
+                             H, scratch, now_ms, workspace, out_admitted,
+                             out_ok, out_remaining, out_ttl, stream);
+}
+
+// B6a (_replicated_check, tpu/replicated.py:55-93): B1 over the merged
+// admission base, the remote lanes int32[C+1] each, only read.
+int ct_check_and_update_replicated(
+    void* values, void* expiry, void* hits, const void* remote_vals,
+    const void* remote_exp, const void* slots, const void* deltas,
+    const void* maxes, const void* windows, const void* req_ids,
+    const void* fresh, const void* bucket, int H, int scratch, int now_ms,
+    void* workspace, void* out_admitted, void* out_ok, void* out_remaining,
+    void* out_ttl, void* stream) {
+  return launch_check<true>(values, expiry, hits, remote_vals, remote_exp,
+                            slots, deltas, maxes, windows, req_ids, fresh,
+                            bucket, H, scratch, now_ms, workspace,
+                            out_admitted, out_ok, out_remaining, out_ttl,
+                            stream);
 }
 
 int ct_update(void* values, void* expiry, void* hits, const void* slots,
               const void* deltas, const void* windows, const void* fresh,
               const void* bucket, int H, int scratch, int now_ms,
               void* workspace, void* stream) {
-  cudaFuncSetAttribute(update_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemKeys * 8);
-  update_kernel<<<1, kThreads, smem_for(H), (cudaStream_t)stream>>>(
-      (int32_t*)values, (int32_t*)expiry, (int32_t*)hits,
-      (const int32_t*)slots, (const int32_t*)deltas,
-      (const int32_t*)windows, (const uint8_t*)fresh, (const uint8_t*)bucket,
-      H, scratch, (int32_t)now_ms, workspace);
+  return launch_update<false>(values, expiry, hits, nullptr, slots, deltas,
+                              windows, fresh, bucket, H, scratch, now_ms,
+                              workspace, stream);
+}
+
+// B6b (_replicated_update, tpu/replicated.py:96-117): B2 with the remote
+// TAT floor on bucket lanes.
+int ct_update_replicated(void* values, void* expiry, void* hits,
+                         const void* remote_exp, const void* slots,
+                         const void* deltas, const void* windows,
+                         const void* fresh, const void* bucket, int H,
+                         int scratch, int now_ms, void* workspace,
+                         void* stream) {
+  return launch_update<true>(values, expiry, hits, remote_exp, slots, deltas,
+                             windows, fresh, bucket, H, scratch, now_ms,
+                             workspace, stream);
+}
+
+int ct_apply_remote(void* remote_vals, void* remote_exp, const void* slots,
+                    const void* sums, const void* expiries, int n,
+                    void* stream) {
+  apply_remote_kernel<<<grid_for(n), 256, 0, (cudaStream_t)stream>>>(
+      (int32_t*)remote_vals, (int32_t*)remote_exp, (const int32_t*)slots,
+      (const int32_t*)sums, (const int32_t*)expiries, n);
   return (int)cudaGetLastError();
 }
 

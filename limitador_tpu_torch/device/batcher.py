@@ -13,9 +13,9 @@ flushes when the batch is full or the oldest request has waited
   ``finish_check_many`` split, batch N+1 is launched while batch N's
   results are still coming back; up to ``max_inflight`` overlap.
 
-``UpdateBatcher`` coalesces the unconditional Report/update path per
-counter (one ``update_counter`` each; the JAX package's vectorized
-``apply_deltas`` is not ported yet). Within a batch, requests keep their
+``UpdateBatcher`` coalesces the unconditional Report/update path: deltas
+sum per counter, and each flush is one ``apply_deltas`` call (one B2 or,
+on a replicated node, B6b launch). Within a batch, requests keep their
 enqueue order and the kernel decides them exactly as if serially; the
 hit-building and decoding live in ``TorchStorage.check_many``.
 
@@ -274,8 +274,9 @@ class MicroBatcher:
 
 class UpdateBatcher:
     """Coalesces unconditional increments (the Kuadrant Report path /
-    ``update_counter``): deltas sum per counter identity, one executor
-    hop per flush instead of one per request."""
+    ``update_counter``) into vectorized ``apply_deltas`` launches: deltas
+    sum per counter identity, one device call per flush instead of one
+    per request."""
 
     def __init__(self, storage, max_batch: int = 4096,
                  max_delay: float = 0.0005):
@@ -306,8 +307,7 @@ class UpdateBatcher:
         await future
 
     def _apply(self, items: List[Tuple[Counter, int]]) -> None:
-        for counter, delta in items:
-            self.storage.update_counter(counter, delta)
+        self.storage.apply_deltas(items)
 
     @staticmethod
     def _settle(waiters, exc) -> None:
@@ -441,6 +441,12 @@ class AsyncTorchStorage(AsyncCounterStorage):
             return Authorization.OK
         batcher, _ub = self._batchers_for_loop()
         return await batcher.submit(counters, delta, load_counters)
+
+    def set_limits_provider(self, provider) -> None:
+        """Forwarded so the facade's registry reaches a replicated inner
+        storage (it decodes gossiped wire keys against the limits)."""
+        if hasattr(self.inner, "set_limits_provider"):
+            self.inner.set_limits_provider(provider)
 
     async def is_within_limits(self, counter: Counter, delta: int) -> bool:
         return self.inner.is_within_limits(counter, delta)

@@ -37,6 +37,12 @@ hit column through ``drain_hot_slots`` (B5 + B3a). The slot table fires
 eviction, delete) and ``on_clear`` on a wholesale table swap, exactly
 where the JAX table does, so the native slot map and the plan caches
 never keep a recycled slot.
+
+Every check launches through ``_kernel_check`` and every unconditional
+update (``update_counter``, the batched Report path ``apply_deltas``)
+through ``_kernel_update``, the dispatch points the replicated subclass
+(``device/replicated.py``) overrides. ``snapshot``, ``load_snapshot`` and
+``restore`` checkpoint the table and key space in the port's own format.
 """
 
 from __future__ import annotations
@@ -65,12 +71,18 @@ from ..storage.gcra import (
     cell_for_limit,
     device_eligible,
     emission_interval_ms,
+    restore_cell,
     spent_tokens,
 )
 
 __all__ = ["TorchStorage", "resolve_device", "hot_attribution"]
 
 _INT32_MAX = np.int32(np.iinfo(np.int32).max)
+# top-level modules a snapshot may name (read_snapshot)
+_SNAPSHOT_MODULES = frozenset(
+    ("limitador_tpu_torch", "numpy", "collections", "builtins", "copyreg",
+     "_codecs")
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -182,9 +194,18 @@ class _SlotTable:
             return slot
         return self.simple.get(key)
 
+    def dump(self) -> dict:
+        """Checkpoint form, the JAX table's: the free list is not kept
+        (it would be O(capacity)); ``load`` derives it."""
+        return {
+            "simple": dict(self.simple),
+            "qualified": list(self.qualified.items()),
+            "info": dict(self.info),
+        }
+
     def load(self, data: dict, lo: int, hi: int) -> None:
-        """Restore from the JAX package's ``_SlotTable.dump()`` form
-        (``convert.py``); slots of this table live in [lo, hi). The free
+        """Restore from ``dump``'s form (the JAX package's too, through
+        ``convert.py``); slots of this table live in [lo, hi). The free
         list derives from the occupied set."""
         self.simple = dict(data["simple"])
         self.qualified.update(data["qualified"])
@@ -282,6 +303,16 @@ class _BigLimitMixin:
                 break
         return cell
 
+    def _big_remote_sum(self, key: tuple, now: float) -> int:
+        """Live remote contribution to a big cell's admission base: 0
+        here; the replicated topology overrides it with the gossiped
+        per-actor sum (device/replicated.py)."""
+        return 0
+
+    def _on_big_write(self, key: tuple) -> None:
+        """Hook: a big cell was locally incremented (caller holds the
+        lock). The replicated topology queues it for gossip."""
+
     def _eval_big_hits(self, ordered, raw_delta: int, now: float):
         """First pass of a request: decide its big hits host-side.
         Returns (bigs, failed, projected) where each big is
@@ -295,7 +326,11 @@ class _BigLimitMixin:
                 continue
             key = self._key_of(c)
             cell = self._big_cell(c, key)
-            value = cell.value_at(now) + self._big_inflight.get(key, 0)
+            value = (
+                cell.value_at(now)
+                + self._big_inflight.get(key, 0)
+                + self._big_remote_sum(key, now)
+            )
             ok = value + raw_delta <= c.max_value
             remaining = max(c.max_value - (value + raw_delta), 0)
             if isinstance(cell, GcraValue):
@@ -329,6 +364,7 @@ class _BigLimitMixin:
             entry = self._big.get(key)
             if entry is not None:
                 entry[0].update(delta, window, now)
+                self._on_big_write(key)
 
     def _emit_big_counters(self, limits, namespaces, now: float, out) -> None:
         for _key, (cell, counter) in self._big.items():
@@ -599,6 +635,29 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
 
     # -- the shared batched check path -------------------------------------
 
+    def _kernel_check(self, ints: np.ndarray, flags: np.ndarray,
+                      now_ms: int) -> "K.BatchResult":
+        """Kernel dispatch point of the check: uploads the staged hit
+        columns (int32[5, H] slots, deltas, maxes, windows, request ids;
+        bool[2, H] fresh, bucket) and launches B1. The replicated subclass
+        swaps in B6a, which folds the gossiped remote counts into the
+        admission base. Caller holds the lock, inside ``_on_device``."""
+        d_ints, d_flags = self._upload(ints, flags)
+        _, result = K.check_and_update_batch(
+            self._state, *d_ints, *d_flags, now_ms,
+        )
+        return result
+
+    def _kernel_update(self, ints: np.ndarray, flags: np.ndarray,
+                       now_ms: int) -> None:
+        """Unconditional-update dispatch point (``update_counter``,
+        ``apply_deltas``): uploads int32[3, H] slots, deltas, windows and
+        bool[2, H] fresh, bucket and launches B2. The replicated subclass
+        swaps in B6b, which folds the gossiped remote TAT floor into
+        bucket advances. Caller holds the lock, inside ``_on_device``."""
+        d_ints, d_flags = self._upload(ints, flags)
+        K.update_batch(self._state, *d_ints, *d_flags, now_ms)
+
     def begin_check_many(self, requests: List[_Request]) -> _CheckHandle:
         """Build hit arrays and launch the kernel WITHOUT waiting for its
         results. Table mutations are serialized under the lock in call
@@ -685,10 +744,7 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
                 _staged(bucket_l, H, False, bool),
             ])
             with self._on_device():
-                d_ints, d_flags = self._upload(ints, flags)
-                _, result = K.check_and_update_batch(
-                    self._state, *d_ints, *d_flags, now_ms,
-                )
+                result = self._kernel_check(ints, flags, now_ms)
                 host, ready = self._start_download(
                     result.hit_ok, result.remaining, result.ttl_ms
                 )
@@ -924,7 +980,7 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
                 value = (
                     entry[0].value_at(self._clock())
                     if entry is not None else 0
-                )
+                ) + self._big_remote_sum(key, self._clock())
                 return value + delta <= counter.max_value
             slot, _ = self._slot_for(counter, create=False)
             if slot is None:
@@ -971,6 +1027,7 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
                 key = self._key_of(counter)
                 cell = self._big_cell(counter, key)
                 cell.update(int(delta), counter.window_seconds, self._clock())
+                self._on_big_write(key)
                 return
             slot, is_fresh = self._slot_for(counter, create=True)
             H = _bucket(1)
@@ -981,8 +1038,7 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
             ints[:, 0] = (slot, min(int(delta), K.MAX_DELTA_CAP), win)
             flags[:, 0] = (is_fresh, is_bucket)
             with self._on_device():
-                d_ints, d_flags = self._upload(ints, flags)
-                K.update_batch(self._state, *d_ints, *d_flags, now_ms)
+                self._kernel_update(ints, flags, now_ms)
 
     def check_and_update(
         self, counters: List[Counter], delta: int, load_counters: bool
@@ -1054,6 +1110,198 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
                 self._state = K.make_table(self._capacity, self._device)
             self._watched_slots.clear()
             self._clear_big()
+
+    def apply_deltas(self, items):
+        """Batched unconditional increments (the Report path through the
+        ``UpdateBatcher``, and write-behind authorities): one B2 launch
+        through ``_kernel_update`` and one ``read_slots`` for every device
+        counter; beyond-cap counters update their host cells. Returns
+        (value, ttl_s) per item, in order."""
+        for _counter, delta in items:
+            require_nonnegative_delta(delta)
+        with self._lock:
+            now_ms = self._now_ms()
+            now = self._clock()
+            dev_items: List[Tuple[int, Counter, int]] = []
+            results: List[Optional[Tuple[int, float]]] = [None] * len(items)
+            for i, (counter, delta) in enumerate(items):
+                if self._is_big(counter):
+                    key = self._key_of(counter)
+                    cell = self._big_cell(counter, key)
+                    value = cell.update(
+                        int(delta), counter.window_seconds, now
+                    )
+                    self._on_big_write(key)
+                    results[i] = (value, cell.ttl(now))
+                else:
+                    dev_items.append((i, counter, delta))
+            if dev_items:
+                n = len(dev_items)
+                H = _bucket(n)
+                ints = np.zeros((3, H), np.int32)
+                flags = np.zeros((2, H), bool)
+                ints[0, :] = self._scratch
+                for k, (_i, counter, delta) in enumerate(dev_items):
+                    slot, is_fresh = self._slot_for(counter, create=True)
+                    win, is_bucket = self._lane_of(counter)
+                    ints[:, k] = (slot, min(int(delta), K.MAX_DELTA_CAP), win)
+                    flags[:, k] = (is_fresh, is_bucket)
+                with self._on_device():
+                    self._kernel_update(ints, flags, now_ms)
+                values, ttls = self._read(ints[0, :n], now_ms)
+                for k, (i, counter, _delta) in enumerate(dev_items):
+                    if flags[1, k]:
+                        value = spent_tokens(
+                            counter.max_value, counter.window_seconds,
+                            int(ttls[k]),
+                        )
+                    else:
+                        value = int(values[k])
+                    results[i] = (value, float(ttls[k]) / 1000.0)
+        return results
+
+    # -- checkpoint / resume ---------------------------------------------
+
+    SNAPSHOT_FORMAT = "limitador_tpu_torch/1"
+
+    def snapshot(self, path: str) -> None:
+        """Persist the counter state (device cells of the occupied slots
+        and the host key space) so that a restart resumes counting, as
+        the JAX package's ``TpuStorage.snapshot`` does. Sparse: O(live
+        counters), not O(capacity).
+
+        The file is this package's own pickle (``SNAPSHOT_FORMAT``): it
+        holds the port's ``Counter`` and ``Limit`` objects, so a JAX
+        checkpoint, which pickles ``limitador_tpu`` classes, does not load
+        here, nor does this one there. The hit accumulator is telemetry
+        and is not kept."""
+        import pickle
+
+        with self._lock:
+            occupied = np.asarray(sorted(self._table.info), np.int32)
+            if occupied.size:
+                with self._on_device():
+                    (idx,) = self._upload(occupied)
+                    idx = idx.long()
+                    values, expiry = self._download(
+                        self._state.values[idx], self._state.expiry_ms[idx]
+                    )
+            else:
+                values = np.zeros(0, np.int32)
+                expiry = np.zeros(0, np.int32)
+            table = {
+                "capacity": self._capacity,
+                "cache_size": self._cache_size,
+                "epoch": self._epoch,
+                **self._table.dump(),
+                "big": {
+                    key: (
+                        (cell.tat, cell.scale, counter)
+                        if isinstance(cell, GcraValue)
+                        else (cell.value_raw, cell.expiry, counter)
+                    )
+                    for key, (cell, counter) in self._big.items()
+                },
+            }
+        with open(path, "wb") as f:
+            pickle.dump(
+                {
+                    "format": self.SNAPSHOT_FORMAT,
+                    "slots": occupied,
+                    "values": values,
+                    "expiry": expiry,
+                    "table": table,
+                },
+                f,
+            )
+
+    @classmethod
+    def read_snapshot(cls, path: str) -> dict:
+        """The contents of a ``snapshot`` file. Unpickling resolves only
+        this package's classes, numpy's and the standard library's: a
+        checkpoint of another package (the JAX package's pickles
+        ``limitador_tpu`` classes) raises ``StorageError`` instead of
+        importing that package."""
+        import pickle
+
+        class _Unpickler(pickle.Unpickler):
+            def find_class(self, module, name):
+                if module.split(".")[0] not in _SNAPSHOT_MODULES:
+                    raise pickle.UnpicklingError(
+                        f"{module}.{name} is not a class of this package"
+                    )
+                return super().find_class(module, name)
+
+        try:
+            with open(path, "rb") as f:
+                data = _Unpickler(f).load()
+        except pickle.UnpicklingError as exc:
+            raise StorageError(f"{path}: {exc}") from exc
+        if not isinstance(data, dict) or data.get("format") != \
+                cls.SNAPSHOT_FORMAT:
+            raise StorageError(
+                f"{path} is not a {cls.SNAPSHOT_FORMAT} checkpoint"
+            )
+        return data
+
+    def _apply_snapshot(self, data: dict) -> None:
+        """Load checkpoint contents into this storage (capacities already
+        verified to match). The saved cells scatter back by a plain index
+        assignment, as the JAX package's ``.at[].set`` does."""
+        table = data["table"]
+        with self._lock:
+            # The saved epoch keeps absolute expiries right; _now_ms
+            # rebases on its own schedule afterwards.
+            self._epoch = table["epoch"]
+            slots = np.asarray(data["slots"], np.int32)
+            if slots.size:
+                with self._on_device():
+                    idx, values, expiry = self._upload(
+                        slots, np.asarray(data["values"], np.int32),
+                        np.asarray(data["expiry"], np.int32),
+                    )
+                    idx = idx.long()
+                    self._state.values[idx] = values
+                    self._state.expiry_ms[idx] = expiry
+            self._replace_table()
+            self._table.load(table, 0, self._capacity)
+            for key, (a, b, counter) in table.get("big", {}).items():
+                self._big[key] = (restore_cell(counter.limit, a, b), counter)
+
+    def load_snapshot(self, path: str) -> None:
+        """Restore a checkpoint into an already-built storage (the
+        replicated subclass restores this way: its constructor owns the
+        broker wiring, then the state loads in)."""
+        data = self.read_snapshot(path)
+        capacity = data["table"]["capacity"]
+        if capacity != self._capacity:
+            raise StorageError(
+                f"snapshot capacity {capacity} != storage capacity "
+                f"{self._capacity} (slot indices would shift)"
+            )
+        self._apply_snapshot(data)
+
+    @classmethod
+    def restore(cls, path: str, cache_size=None, clock=time.time,
+                device=None) -> "TorchStorage":
+        """A storage built from a checkpoint. ``cache_size`` may be
+        overridden; the capacity is the checkpoint's (slot indices would
+        shift otherwise)."""
+        return cls.from_snapshot(cls.read_snapshot(path), cache_size,
+                                 clock, device)
+
+    @classmethod
+    def from_snapshot(cls, data: dict, cache_size=None, clock=time.time,
+                      device=None) -> "TorchStorage":
+        """``restore`` from ``read_snapshot``'s contents."""
+        table = data["table"]
+        self = cls(
+            capacity=table["capacity"],
+            cache_size=cache_size or table["cache_size"],
+            clock=clock, device=device,
+        )
+        self._apply_snapshot(data)
+        return self
 
     def close(self) -> None:
         """Wait for every launch on the storage stream."""

@@ -44,6 +44,11 @@ _SIGNATURES = {
         _I, [_P] * 10 + [_I, _I, _I] + [_P] * 6,
     ),
     "ct_update": (_I, [_P] * 8 + [_I, _I, _I] + [_P] * 2),
+    "ct_check_and_update_replicated": (
+        _I, [_P] * 12 + [_I, _I, _I] + [_P] * 6,
+    ),
+    "ct_update_replicated": (_I, [_P] * 9 + [_I, _I, _I] + [_P] * 2),
+    "ct_apply_remote": (_I, [_P] * 5 + [_I, _P]),
     "ct_read_slots": (_I, [_P, _P, _P, _I, _I, _P, _P, _P]),
     "ct_clear_slots": (_I, [_P, _P, _P, _P, _I, _P]),
     "ct_rebase_expiry": (_I, [_P, _I, _I, _P]),

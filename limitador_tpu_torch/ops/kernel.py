@@ -16,7 +16,8 @@ Each kernel has three parts here:
   the CUDA kernel against on the card.
 - the wrapper (``check_and_update_batch``, ``update_batch``,
   ``read_slots``, ``clear_slots``, ``rebase_epoch_chunked``,
-  ``credit_batch``, ``drain_top_hits``): on a CUDA
+  ``credit_batch``, ``drain_top_hits``, ``replicated_check_batch``,
+  ``replicated_update_batch``, ``apply_remote``): on a CUDA
   table it launches the hand-written kernel of
   ``limitador_tpu_torch/csrc/counter_table.cu`` and raises if that fails;
   on a CPU table it runs the plain version. No other device is accepted.
@@ -58,6 +59,12 @@ __all__ = [
     "credit_plain",
     "drain_top_hits",
     "drain_top_hits_plain",
+    "replicated_check_batch",
+    "replicated_check_plain",
+    "replicated_update_batch",
+    "replicated_update_plain",
+    "apply_remote",
+    "apply_remote_plain",
     "launches",
     "reset_launches",
     "MAX_VALUE_CAP",
@@ -82,6 +89,9 @@ launches = {
     "rebase_epoch": 0,
     "credit": 0,
     "drain_top_hits": 0,
+    "replicated_check": 0,
+    "replicated_update": 0,
+    "apply_remote": 0,
 }
 
 
@@ -193,10 +203,14 @@ def _floordiv(a, b):
 def check_and_update_plain(
     state: CounterTableState,
     slots, deltas, maxes, windows_ms, req_ids, fresh, bucket, now_ms,
+    base_hook=None, tat_floor_hook=None,
 ) -> BatchResult:
-    """Plain PyTorch twin of ``check_and_update_core`` (single chip, no
-    hooks). Updates ``state`` in place; returns the per-request and
-    per-hit outputs."""
+    """Plain PyTorch twin of ``check_and_update_core`` on one chip.
+    Updates ``state`` in place; returns the per-request and per-hit
+    outputs. The hooks are the core's: ``base_hook(v_local, s_slot)``
+    gives the effective base per sorted hit, ``tat_floor_hook(s_slot)``
+    a floor max-merged into the bucket lanes' TAT (read and write base
+    alike); None leaves B1 as it is."""
     values, expiry, hits = state
     now = _now(now_ms)
     H = slots.shape[0]
@@ -219,11 +233,16 @@ def check_and_update_plain(
     expired = e_eff <= now
     v_window = torch.where(expired | h_fresh, 0, v_raw)
     local_tat = torch.where(h_fresh, 0, e_raw)
-    base_rel = torch.clamp_min(local_tat - now, 0)
+    tat_eff = (
+        local_tat if tat_floor_hook is None
+        else torch.maximum(local_tat, tat_floor_hook(s_slot_l))
+    )
+    base_rel = torch.clamp_min(tat_eff - now, 0)
     s_ival = torch.clamp_min(s_win, 1)
     tau = (s_max - 1) * torch.where(s_bucket, s_win, 0)
     spent = s_max - (_floordiv(tau - base_rel, s_ival) + 1)
-    v_eff = torch.where(s_bucket, spent, v_window)
+    v_local = torch.where(s_bucket, spent, v_window)
+    v_eff = v_local if base_hook is None else base_hook(v_local, s_slot_l)
 
     idx = torch.arange(H, dtype=_I32, device=slots.device)
     seg_start_idx = torch.cummax(
@@ -276,7 +295,7 @@ def check_and_update_plain(
     write_val = is_end & (h_adm | h_fresh)
     reset_window = (h_adm & starts_fresh) | h_fresh
     reset = is_end & torch.where(s_bucket, h_adm | h_fresh, reset_window)
-    tat_base = torch.clamp_min(local_tat, now)
+    tat_base = torch.clamp_min(tat_eff, now)
     exp_new = torch.where(s_bucket, tat_base + h_total * s_win, h_win + now)
     seg_count = _seg_sum(torch.ones_like(s_slot), seg_id)[seg_id]
     base_hits = torch.where(h_fresh, 0, hits[s_slot_l])
@@ -353,8 +372,10 @@ def check_and_update_batch(
 
 def update_plain(
     state: CounterTableState, slots, deltas, windows_ms, fresh, bucket, now_ms,
+    tat_floor_hook=None,
 ) -> CounterTableState:
-    """Plain PyTorch twin of ``update_core`` (no TAT floor hook)."""
+    """Plain PyTorch twin of ``update_core``; ``tat_floor_hook(s_slot)``
+    is its floor on the bucket lanes' starting TAT (None: no floor)."""
     values, expiry, hits = state
     now = _now(now_ms)
     scratch = values.shape[0] - 1
@@ -392,6 +413,8 @@ def update_plain(
     # Bucket TAT advance, clamped so max(TAT, now) + adv*I fits int32.
     s_ival = torch.clamp_min(s_win, 1)
     local_tat = torch.where(h_fresh, 0, e_raw)
+    if tat_floor_hook is not None:
+        local_tat = torch.maximum(local_tat, tat_floor_hook(s_slot_l))
     tat_base = torch.clamp_min(local_tat, now)
     max_adv = _floordiv(_NEVER - tat_base, s_ival)
     adv = torch.minimum(seg_add, max_adv)
@@ -676,3 +699,209 @@ def drain_top_hits(
     ), "ct_drain_top_hits")
     launches["drain_top_hits"] += 1
     return hits, counts, slots
+
+
+# -- B6: the replicated topology --------------------------------------------
+#
+# A replicated node (device/replicated.py) keeps two more int32[C+1] lanes
+# beside its table: remote_vals, the live sum of peers' window counts per
+# slot, and remote_exp, their latest expiry (windows) or the max-merged
+# remote TAT (buckets), both relative to the table's epoch.
+
+
+def _remote_hooks(remote_vals, remote_exp, slots, bucket, now):
+    """The JAX ``_replicated_check``'s hooks (tpu/replicated.py:55-93),
+    over hits sorted as the core sorts them: window lanes add the live
+    remote sum (``now < remote_exp``, strict) to their base, bucket lanes
+    take ``remote_exp`` as a floor on their TAT (``_replicated_update``
+    uses this one alone)."""
+    order = torch.sort(slots, stable=True).indices
+    s_bucket = bucket[order]
+
+    def base_hook(v_local, s_slot):
+        live = now < remote_exp[s_slot]
+        return v_local + torch.where(s_bucket | ~live, 0,
+                                     remote_vals[s_slot])
+
+    def tat_floor_hook(s_slot):
+        return torch.where(s_bucket, remote_exp[s_slot], 0)
+
+    return base_hook, tat_floor_hook
+
+
+def replicated_check_plain(
+    state: CounterTableState, remote_vals, remote_exp,
+    slots, deltas, maxes, windows_ms, req_ids, fresh, bucket, now_ms,
+) -> BatchResult:
+    """Plain PyTorch twin of ``_replicated_check``: B1 over the merged
+    admission base; only the local cells are written. In place."""
+    base_hook, tat_floor_hook = _remote_hooks(
+        remote_vals, remote_exp, slots, bucket, _now(now_ms)
+    )
+    return check_and_update_plain(
+        state, slots, deltas, maxes, windows_ms, req_ids, fresh, bucket,
+        now_ms, base_hook=base_hook, tat_floor_hook=tat_floor_hook,
+    )
+
+
+def replicated_check_batch(
+    state: CounterTableState,
+    remote_vals: torch.Tensor,  # int32[C+1] live remote window sums
+    remote_exp: torch.Tensor,   # int32[C+1] remote expiry / bucket TAT
+    slots: torch.Tensor,
+    deltas: torch.Tensor,
+    maxes: torch.Tensor,
+    windows_ms: torch.Tensor,
+    req_ids: torch.Tensor,
+    fresh: torch.Tensor,
+    bucket: torch.Tensor,
+    now_ms: int,
+) -> Tuple[CounterTableState, BatchResult]:
+    """B1 with the gossip hooks (the JAX ``_replicated_check``): window
+    lanes read their base as local + live remote sum, bucket lanes read
+    and write from max(local TAT, remote TAT). The remote lanes are only
+    read. Updates ``state`` in place."""
+    if not _on_cuda(state.values):
+        return state, replicated_check_plain(
+            state, remote_vals, remote_exp, slots, deltas, maxes,
+            windows_ms, req_ids, fresh, bucket, now_ms,
+        )
+    from . import build
+
+    H = slots.shape[0]
+    dev = state.values.device
+    _require_table(state)
+    n = state.values.shape[0]
+    _require(remote_vals, "remote_vals", _I32, n, dev)
+    _require(remote_exp, "remote_exp", _I32, n, dev)
+    for name, t in (("slots", slots), ("deltas", deltas), ("maxes", maxes),
+                    ("windows_ms", windows_ms), ("req_ids", req_ids)):
+        _require(t, name, _I32, H, dev)
+    _require(fresh, "fresh", torch.bool, H, dev)
+    _require(bucket, "bucket", torch.bool, H, dev)
+    if H < 1:
+        raise ValueError("replicated_check_batch needs at least one hit")
+    lib = build.library()
+    workspace = torch.empty(
+        lib.ct_check_workspace_bytes(H), dtype=torch.uint8, device=dev
+    )
+    result = BatchResult(
+        torch.empty(H, dtype=torch.bool, device=dev),
+        torch.empty(H, dtype=torch.bool, device=dev),
+        torch.empty(H, dtype=_I32, device=dev),
+        torch.empty(H, dtype=_I32, device=dev),
+    )
+    build.check(lib.ct_check_and_update_replicated(
+        *(t.data_ptr() for t in state),
+        remote_vals.data_ptr(), remote_exp.data_ptr(),
+        *(t.data_ptr() for t in (slots, deltas, maxes, windows_ms, req_ids,
+                                 fresh, bucket)),
+        H, n - 1, _now(now_ms), workspace.data_ptr(),
+        *(t.data_ptr() for t in result),
+        torch.cuda.current_stream(dev).cuda_stream,
+    ), "ct_check_and_update_replicated")
+    launches["replicated_check"] += 1
+    return state, result
+
+
+def replicated_update_plain(
+    state: CounterTableState, remote_exp, slots, deltas, windows_ms, fresh,
+    bucket, now_ms,
+) -> CounterTableState:
+    """Plain PyTorch twin of ``_replicated_update``: B2 with the remote
+    TAT as a floor on bucket lanes before the advance. In place."""
+    _, tat_floor_hook = _remote_hooks(None, remote_exp, slots, bucket,
+                                      _now(now_ms))
+    return update_plain(
+        state, slots, deltas, windows_ms, fresh, bucket, now_ms,
+        tat_floor_hook=tat_floor_hook,
+    )
+
+
+def replicated_update_batch(
+    state: CounterTableState,
+    remote_exp: torch.Tensor,  # int32[C+1] remote expiry / bucket TAT
+    slots: torch.Tensor,
+    deltas: torch.Tensor,
+    windows_ms: torch.Tensor,
+    fresh: torch.Tensor,
+    bucket: torch.Tensor,
+    now_ms: int,
+) -> CounterTableState:
+    """B2 with the gossiped TAT floor folded into bucket lanes (the JAX
+    ``_replicated_update``); window lanes are B2's. In place."""
+    if not _on_cuda(state.values):
+        return replicated_update_plain(
+            state, remote_exp, slots, deltas, windows_ms, fresh, bucket,
+            now_ms,
+        )
+    from . import build
+
+    H = slots.shape[0]
+    dev = state.values.device
+    _require_table(state)
+    n = state.values.shape[0]
+    _require(remote_exp, "remote_exp", _I32, n, dev)
+    for name, t in (("slots", slots), ("deltas", deltas),
+                    ("windows_ms", windows_ms)):
+        _require(t, name, _I32, H, dev)
+    _require(fresh, "fresh", torch.bool, H, dev)
+    _require(bucket, "bucket", torch.bool, H, dev)
+    if H < 1:
+        raise ValueError("replicated_update_batch needs at least one hit")
+    lib = build.library()
+    workspace = torch.empty(
+        lib.ct_update_workspace_bytes(H), dtype=torch.uint8, device=dev
+    )
+    build.check(lib.ct_update_replicated(
+        *(t.data_ptr() for t in state), remote_exp.data_ptr(),
+        *(t.data_ptr() for t in (slots, deltas, windows_ms, fresh, bucket)),
+        H, n - 1, _now(now_ms), workspace.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    ), "ct_update_replicated")
+    launches["replicated_update"] += 1
+    return state
+
+
+def apply_remote_plain(remote_vals, remote_exp, slots, sums, expiries):
+    """Plain PyTorch twin of ``_apply_remote``: an index assignment of
+    both lanes. In place."""
+    idx = slots.long()
+    remote_vals[idx] = sums
+    remote_exp[idx] = expiries
+    return remote_vals, remote_exp
+
+
+def apply_remote(
+    remote_vals: torch.Tensor,  # int32[C+1]
+    remote_exp: torch.Tensor,   # int32[C+1]
+    slots: torch.Tensor,        # int32[n] unique slots
+    sums: torch.Tensor,         # int32[n]
+    expiries: torch.Tensor,     # int32[n]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter refreshed remote shares into the remote lanes (the JAX
+    ``_apply_remote``): ``remote_vals[slots] = sums``, ``remote_exp[slots]
+    = expiries``. ``slots`` must be unique (the replicated storage's dirty
+    map is keyed by slot). ``n`` is not bucketed. In place."""
+    if not _on_cuda(remote_vals):
+        return apply_remote_plain(remote_vals, remote_exp, slots, sums,
+                                  expiries)
+    from . import build
+
+    n = slots.shape[0]
+    dev = remote_vals.device
+    c1 = remote_vals.shape[0]
+    _require(remote_vals, "remote_vals", _I32, c1, dev)
+    _require(remote_exp, "remote_exp", _I32, c1, dev)
+    for name, t in (("slots", slots), ("sums", sums),
+                    ("expiries", expiries)):
+        _require(t, name, _I32, n, dev)
+    if n == 0:
+        return remote_vals, remote_exp
+    build.check(build.library().ct_apply_remote(
+        remote_vals.data_ptr(), remote_exp.data_ptr(), slots.data_ptr(),
+        sums.data_ptr(), expiries.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ), "ct_apply_remote")
+    launches["apply_remote"] += 1
+    return remote_vals, remote_exp

@@ -9,7 +9,10 @@ services and the options of the slices ported so far:
         [--pipeline standard|compiled|native] [--native-hot-lane on|off] \\
         [--plan-cache-size N] [--lease-mode on|off] [--lease-max-tokens N] \\
         [--usage-topk K] [--usage-drain-interval S] \\
-        [--usage-near-threshold F]
+        [--usage-near-threshold F] \\
+        [--node-id ID --listen-address HOST:PORT --peer HOST:PORT ... \\
+         --advertise-address HOST:PORT] \\
+        [--snapshot-path FILE --snapshot-period S]
 
 Storages: ``torch`` (default) keeps the counter table on the card
 (``--device cuda``, the default) or, for tests, on the CPU
@@ -25,6 +28,24 @@ the quota-lease tier, whose credits run the B4c kernel. With
 ``--usage-topk`` > 0 (default 64) the tenant usage observatory drains the
 hit column through the B5 kernel every ``--usage-drain-interval`` seconds,
 on every torch-storage server, as the JAX server does on tpu storage.
+Replication (torch storage): ``--peer`` (repeatable) or
+``--listen-address`` makes the node a member of the replicated topology
+(``device/replicated.py``): its own counts stay in its device table, a
+CRDT gossip broker on ``--listen-address`` (default 0.0.0.0:5001)
+replicates per-actor counts with its peers, and every check folds the
+gossiped remote share into the kernel's base (B6a; Report through B6b).
+The wire is the JAX package's, so port and JAX nodes mix in one cluster.
+The native pipeline and quota leases launch the plain check kernel and
+are refused on a replicated node (exit 2).
+
+Snapshots (torch storage): with ``--snapshot-path`` the counter table is
+checkpointed every ``--snapshot-period`` seconds and at shutdown, and
+restored at start: into the replicated storage on a replicated node
+(``load_snapshot``, before its broker starts), else as a new table
+(``TorchStorage.restore``, whose capacity is the checkpoint's). An
+unreadable checkpoint is moved aside to ``FILE.rejected`` and the server
+starts with a fresh table.
+
 Nothing falls back: a native pipeline or lease tier that cannot come up
 (the host lane does not build, the hot lane is unavailable, the storage
 is not torch, rate-limit headers are asked for) stops the server with an
@@ -32,8 +53,8 @@ error (exit 2), and a lease refresh or usage drain that fails while
 serving stops it too (exit 1).
 
 Not in the port yet (``ROADMAP.md``): the HTTP API, observability,
-admission, tiers, snapshots, replication, the native ingress and the
-sharded/pod topologies.
+admission, tiers, the host-memory ``distributed`` storage, the native
+ingress and the sharded/pod topologies.
 """
 
 from __future__ import annotations
@@ -42,8 +63,10 @@ import argparse
 import asyncio
 import inspect
 import logging
+import os
 import signal
 import sys
+import threading
 import time
 
 from ..core.cel import CelError
@@ -58,9 +81,13 @@ from .rls import (
     serve_rls,
 )
 
-__all__ = ["main", "build_parser", "start", "RunningServer"]
+__all__ = ["main", "build_parser", "build_storage", "start", "RunningServer"]
 
 log = logging.getLogger("limitador_tpu_torch")
+
+
+def _env(name, default=None):
+    return os.environ.get(name, default)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -133,7 +160,113 @@ def build_parser() -> argparse.ArgumentParser:
         help="value/max_value utilization at which a sampled counter "
         "counts as near exhaustion",
     )
+    p.add_argument(
+        "--snapshot-path", default=_env("TPU_SNAPSHOT_PATH"),
+        help="torch: periodically checkpoint the counter table here and "
+        "restore from it on startup",
+    )
+    p.add_argument(
+        "--snapshot-period", type=float,
+        default=float(_env("TPU_SNAPSHOT_PERIOD", "30")),
+        help="torch: seconds between counter-table checkpoints",
+    )
+    p.add_argument(
+        "--peer", action="append", default=None,
+        help="torch: peer replication address (repeatable); enables the "
+        "replicated device-table topology",
+    )
+    p.add_argument("--node-id", default=_env("NODE_ID"))
+    p.add_argument(
+        "--listen-address", default=_env("LISTEN_ADDRESS"),
+        help="torch: replication listen address (enables the replicated "
+        "topology; default 0.0.0.0:5001 when only --peer is given)",
+    )
+    p.add_argument(
+        "--advertise-address", default=_env("ADVERTISE_ADDRESS"),
+        help="address advertised to peers in gossip Hello/Membership "
+        "packets (defaults to --listen-address; set it when binding "
+        "0.0.0.0 so that peers learn a dialable URL)",
+    )
     return p
+
+
+def _replicated(args) -> bool:
+    return bool(args.peer or args.listen_address)
+
+
+def _preserve_rejected_snapshot(path: str) -> None:
+    """A checkpoint that could not be restored is moved aside, not left
+    in place: the fresh table's periodic snapshot would overwrite it."""
+    rejected = path + ".rejected"
+    try:
+        os.replace(path, rejected)
+        log.warning(f"preserved rejected snapshot as {rejected}")
+    except OSError as exc:
+        log.warning(f"could not preserve rejected snapshot: {exc}")
+
+
+def build_storage(args, clock=time.time):
+    """The torch counter storage the options ask for: a replicated node
+    (``--peer``/``--listen-address``, with a snapshot loaded into it
+    before its broker starts), a table restored from ``--snapshot-path``,
+    or a fresh ``TorchStorage``. Refuses the native pipeline and leases
+    on a replicated node before anything starts."""
+    from ..device import TorchStorage
+
+    if _replicated(args):
+        if args.pipeline == "native" or args.lease_mode == "on":
+            raise ValueError(
+                "--pipeline native and --lease-mode on launch the plain "
+                "check kernel, which does not fold the gossiped remote "
+                "counts into admission: they cannot run on a replicated "
+                "node (--peer/--listen-address)"
+            )
+        from ..device.replicated import TorchReplicatedStorage
+
+        # The constructor owns the broker wiring, so the checkpoint loads
+        # into the instance (restoring a plain TorchStorage would drop the
+        # node out of the gossip mesh), and before the broker starts, so
+        # that peers' re-syncs merge into the loaded slot table.
+        storage = TorchReplicatedStorage(
+            node_id=args.node_id or "node",
+            listen_address=args.listen_address or "0.0.0.0:5001",
+            advertise_address=args.advertise_address,
+            peers=args.peer or [],
+            capacity=args.capacity,
+            clock=clock,
+            device=args.device,
+            start=False,
+        )
+        path = args.snapshot_path
+        if path and os.path.exists(path):
+            try:
+                storage.load_snapshot(path)
+            except Exception as exc:
+                log.warning(f"snapshot {path} unreadable ({exc}); starting "
+                            f"with a fresh replicated table")
+                _preserve_rejected_snapshot(path)
+            else:
+                log.info(f"restored replicated counter table from {path}")
+        storage.start()
+        return storage
+    path = args.snapshot_path
+    if path and os.path.exists(path):
+        try:
+            data = TorchStorage.read_snapshot(path)
+        except Exception as exc:
+            log.warning(f"snapshot {path} unreadable ({exc}); starting with "
+                        f"a fresh counter table")
+            _preserve_rejected_snapshot(path)
+        else:
+            storage = TorchStorage.from_snapshot(data, clock=clock,
+                                                 device=args.device)
+            log.info(f"restored counter table from {path}")
+            if storage._capacity != args.capacity:
+                log.warning(f"snapshot capacity {storage._capacity} "
+                            f"overrides --capacity {args.capacity}")
+            return storage
+    return TorchStorage(capacity=args.capacity, clock=clock,
+                        device=args.device)
 
 
 def build_limiter(args, clock=time.time):
@@ -143,12 +276,15 @@ def build_limiter(args, clock=time.time):
             raise ValueError(
                 f"--pipeline {args.pipeline} needs torch storage"
             )
+        if _replicated(args) or args.snapshot_path:
+            raise ValueError(
+                "--peer, --listen-address and --snapshot-path need torch "
+                "storage"
+            )
         return RateLimiter(InMemoryStorage(clock=clock))
-    from ..device import AsyncTorchStorage, TorchStorage
+    from ..device import AsyncTorchStorage
 
-    storage = TorchStorage(
-        capacity=args.capacity, clock=clock, device=args.device
-    )
+    storage = build_storage(args, clock)
     async_storage = AsyncTorchStorage(
         storage, max_delay=args.batch_delay_us / 1e6
     )
@@ -198,12 +334,60 @@ def build_native(args, limiter):
     return pipeline
 
 
+class Checkpointer:
+    """Periodic counter-table checkpoints (``--snapshot-path``): every
+    ``period`` seconds on an executor thread, and once more at shutdown.
+    Each write goes to ``path + ".tmp"`` and replaces ``path``; a mutex
+    keeps a periodic and the final write from sharing the tmp file. A
+    failed checkpoint is logged and the next period tries again."""
+
+    def __init__(self, storage, path: str, period: float):
+        self.storage = storage
+        self.path = path
+        self.period = period
+        self._mutex = threading.Lock()
+        self._task = None
+
+    def take(self) -> None:
+        with self._mutex:
+            tmp = self.path + ".tmp"
+            self.storage.snapshot(tmp)
+            os.replace(tmp, self.path)
+
+    async def _loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            await asyncio.sleep(self.period)
+            try:
+                await loop.run_in_executor(None, self.take)
+            except Exception as exc:
+                log.warning(f"snapshot failed: {exc}")
+
+    def start(self) -> None:
+        self._task = asyncio.get_running_loop().create_task(self._loop())
+
+    async def stop(self) -> None:
+        """Cancel the loop, wait out an in-flight write, take the final
+        checkpoint."""
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+        try:
+            await asyncio.get_running_loop().run_in_executor(None, self.take)
+        except Exception as exc:
+            log.warning(f"final snapshot failed: {exc}")
+
+
 class RunningServer:
     """A started server: its limiter, gRPC server and limits watcher,
-    and the native pipeline and usage observatory when they run."""
+    and the native pipeline, usage observatory and checkpointer when they
+    run."""
 
     def __init__(self, limiter, rls_server, watcher, status,
-                 native_pipeline=None, observatory=None):
+                 native_pipeline=None, observatory=None, checkpointer=None):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
@@ -211,10 +395,20 @@ class RunningServer:
         self.status = status
         self.native_pipeline = native_pipeline
         self.observatory = observatory
+        self.checkpointer = checkpointer
+
+    @property
+    def storage(self):
+        """The torch counter storage (``TorchStorage`` or
+        ``TorchReplicatedStorage``), or None on memory storage."""
+        counters = self.limiter.storage.counters
+        return getattr(counters, "inner", None)
 
     async def stop(self) -> None:
         self.watcher.stop()
         await self.rls_server.stop(grace=1.0)
+        if self.checkpointer is not None:
+            await self.checkpointer.stop()
         await _close(self.limiter, self.native_pipeline, self.observatory)
 
 
@@ -300,8 +494,13 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         if tier is not None:
             tier.on_error = on_failure
             tier.start()
+    checkpointer = None
+    if args.storage == "torch" and args.snapshot_path:
+        checkpointer = Checkpointer(limiter.storage.counters.inner,
+                                    args.snapshot_path, args.snapshot_period)
+        checkpointer.start()
     return RunningServer(limiter, rls_server, watcher, status,
-                         native_pipeline, observatory)
+                         native_pipeline, observatory, checkpointer)
 
 
 async def _amain(args) -> int:
@@ -316,6 +515,9 @@ async def _amain(args) -> int:
     server = await start(args, on_failure=on_failure)
     log.info(f"serving RLS gRPC on {args.rls_host}:{args.rls_port} "
              f"({args.storage} storage, {args.pipeline} pipeline"
+             + (f", replicated node {args.node_id or 'node'} gossiping on "
+                f"{args.listen_address or '0.0.0.0:5001'}"
+                if args.storage == "torch" and _replicated(args) else "")
              + (", quota leases on" if args.lease_mode == "on" else "")
              + (f", usage top-{args.usage_topk}"
                 if server.observatory is not None else "")

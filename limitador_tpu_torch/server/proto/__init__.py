@@ -1,4 +1,5 @@
-"""Generated protobuf bindings: Envoy RLS v3 and Kuadrant v1.
+"""Generated protobuf bindings: Envoy RLS v3, Kuadrant v1 and the
+replication protocol (``limitador.service.distributed.v1``).
 
 Counterpart of ``limitador_tpu/server/proto/``. The ``*_pb2`` modules are
 copies of the JAX package's generated files with two changes: they import
@@ -8,6 +9,15 @@ on ``sys.path``), and they register in the port's own descriptor pool
 both packages are imported in one process.
 """
 
-from . import base_pb2, kuadrant_rls_pb2, ratelimit_pb2, rls_pb2
+from . import (
+    base_pb2,
+    distributed_pb2,
+    kuadrant_rls_pb2,
+    ratelimit_pb2,
+    rls_pb2,
+)
 
-__all__ = ["base_pb2", "kuadrant_rls_pb2", "ratelimit_pb2", "rls_pb2"]
+__all__ = [
+    "base_pb2", "distributed_pb2", "kuadrant_rls_pb2", "ratelimit_pb2",
+    "rls_pb2",
+]

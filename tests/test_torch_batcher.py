@@ -124,13 +124,17 @@ def test_batcher_exception_reaches_every_waiter():
 
 def test_update_batcher_coalesces_the_report_path():
     """Concurrent Report updates sum per counter before they reach the
-    storage: far fewer update_counter calls than requests."""
+    storage, and each flush is one apply_deltas call: far fewer storage
+    calls than requests."""
     calls = []
 
     class CountingStorage(TorchStorage):
         def update_counter(self, counter, delta):
-            calls.append(delta)
-            super().update_counter(counter, delta)
+            raise AssertionError("the batcher applies through apply_deltas")
+
+        def apply_deltas(self, items):
+            calls.append(sum(delta for _c, delta in items))
+            return super().apply_deltas(items)
 
     async def main():
         storage = AsyncTorchStorage(

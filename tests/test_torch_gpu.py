@@ -19,7 +19,15 @@ from limitador_tpu_torch import Context, Limit, RateLimiter
 from limitador_tpu_torch.device.storage import TorchStorage
 from limitador_tpu_torch.ops import kernel as K
 
-from .torch_batches import batch, credit_batch, hits_column, lanes, table
+from .torch_batches import (
+    batch,
+    credit_batch,
+    hits_column,
+    lanes,
+    remote_lanes,
+    remote_rows,
+    table,
+)
 from .torch_native_corpus import FROZEN_NOW, corpus, limits
 
 pytestmark = pytest.mark.gpu
@@ -222,3 +230,153 @@ def test_begin_check_columnar_owns_its_inputs_on_the_card(cuda):
         results.append(storage.finish_check_columnar(handle))
     for a, b in zip(*results):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("H", [1, 8, 64, 1024, 20000])
+def test_replicated_check_kernel_matches_plain(cuda, H):
+    """B6a against its plain version over remote lanes with live and
+    expired window sums, bucket TATs ahead of and behind now, and
+    local + remote sums past 2**31; and, with both lanes zero, against
+    B1."""
+    rng = np.random.default_rng(300 + H)
+    now_ms = 5_000_000
+    n_slots = min(max(H // 2, 4), 4000)
+    slot_lanes = lanes(rng, n_slots)
+    values, expiry, hits = table(rng, now_ms, slot_lanes)
+    rv, re = remote_lanes(rng, now_ms, slot_lanes, values, n_slots)
+    tab = (values, expiry, hits)
+    ka, pb = _state(tab, cuda), _state(tab, cuda)
+    zero_a, zero_b = _state(tab, cuda), _state(tab, cuda)
+    remote = (torch.from_numpy(rv).to(cuda), torch.from_numpy(re).to(cuda))
+    zeros = tuple(torch.zeros_like(t) for t in remote)
+    for _round in range(3):
+        arrays = tuple(torch.from_numpy(a).to(cuda)
+                       for a in batch(rng, H, slot_lanes, n_slots))
+        before = K.launches["replicated_check"]
+        _, got = K.replicated_check_batch(ka, *remote, *arrays, now_ms)
+        assert K.launches["replicated_check"] == before + 1
+        want = K.replicated_check_plain(pb, *remote, *arrays, now_ms)
+        _equal(got, want)
+        _equal(ka, pb)
+        _, got = K.replicated_check_batch(zero_a, *zeros, *arrays, now_ms)
+        _, want = K.check_and_update_batch(zero_b, *arrays, now_ms)
+        _equal(got, want)
+        _equal(zero_a, zero_b)
+        now_ms += 700
+
+
+@pytest.mark.parametrize("H", [8, 1024, 20000])
+def test_replicated_update_kernel_matches_plain(cuda, H):
+    rng = np.random.default_rng(400 + H)
+    now_ms = 5_000_000
+    n_slots = min(max(H // 2, 4), 4000)
+    slot_lanes = lanes(rng, n_slots)
+    values, expiry, hits = table(rng, now_ms, slot_lanes)
+    _rv, re = remote_lanes(rng, now_ms, slot_lanes, values, n_slots)
+    tab = (values, expiry, hits)
+    ka, pb = _state(tab, cuda), _state(tab, cuda)
+    slots, deltas, _m, wins, _r, fresh, bucket = batch(
+        rng, H, slot_lanes, n_slots)
+    deltas = np.where(rng.random(H) < 0.1, rng.integers(-5, 1 << 30, H),
+                      deltas).astype(np.int32)
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in (slots, deltas, wins, fresh, bucket))
+    remote_exp = torch.from_numpy(re).to(cuda)
+    before = K.launches["replicated_update"]
+    K.replicated_update_batch(ka, remote_exp, *args, now_ms)
+    assert K.launches["replicated_update"] == before + 1
+    K.replicated_update_plain(pb, remote_exp, *args, now_ms)
+    _equal(ka, pb)
+
+
+@pytest.mark.parametrize("n", [1, 8, 1024, 4000])
+def test_apply_remote_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(500 + n)
+    lanes_a = tuple(torch.from_numpy(
+        rng.integers(0, 1000, 4097).astype(np.int32)).to(cuda)
+        for _ in range(2))
+    lanes_b = tuple(t.clone() for t in lanes_a)
+    rows = tuple(torch.from_numpy(a).to(cuda) for a in remote_rows(rng, n))
+    before = K.launches["apply_remote"]
+    K.apply_remote(*lanes_a, *rows)
+    assert K.launches["apply_remote"] == before + 1
+    K.apply_remote_plain(*lanes_b, *rows)
+    _equal(lanes_a, lanes_b)
+
+
+def test_replicated_node_on_the_card_decides_like_the_cpu(cuda):
+    """One TorchReplicatedStorage on the card and one on the CPU take the
+    same checks, Report-path updates and peer updates (windows and a
+    shared bucket): same answers, same merged views, same five arrays."""
+    from limitador_tpu_torch.core.counter import Counter
+    from limitador_tpu_torch.device.replicated import TorchReplicatedStorage
+    from limitador_tpu_torch.storage.keys import key_for_counter
+
+    class Clock:
+        now = 1_700_000_000.0
+
+        def __call__(self):
+            return self.now
+
+    clock = Clock()
+    nodes = [TorchReplicatedStorage("me", capacity=256, cache_size=64,
+                                    clock=clock, device=dev)
+             for dev in (cuda, "cpu")]
+    limiters = [RateLimiter(n) for n in nodes]
+    specs = [
+        dict(namespace="ns", max_value=6, seconds=10,
+             variables=["descriptors[0].u"], name="win"),
+        dict(namespace="ns", max_value=4, seconds=2,
+             variables=["descriptors[0].u"], policy="token_bucket",
+             name="tb"),
+    ]
+    limits = [Limit(**spec) for spec in specs]
+    for lim in limiters:
+        for limit in limits:
+            lim.add_limit(limit)
+    rng = np.random.default_rng(11)
+    before = dict(K.launches)
+    for step in range(400):
+        user = str(rng.integers(0, 90))
+        ctx = Context()
+        ctx.list_binding("descriptors", [{"u": user}])
+        r = rng.random()
+        if r < 0.2:
+            limit = limits[int(rng.integers(0, 2))]
+            counter = Counter(limit, {"descriptors[0].u": user})
+            now_ms = int(clock.now * 1000)
+            if limit.policy == "token_bucket":
+                tat = now_ms + int(rng.integers(-500, 3000))
+                args = (key_for_counter(counter), {"peer": tat}, tat)
+            else:
+                args = (key_for_counter(counter),
+                        {"peer": int(rng.integers(0, 6))},
+                        now_ms + int(rng.integers(-100, 10_000)))
+            for node in nodes:
+                node._on_remote_update(*args)
+            continue
+        delta = int(rng.integers(1, 3))
+        if r < 0.35:
+            for lim in limiters:
+                lim.update_counters("ns", ctx, delta)
+            continue
+        got = [lim.check_rate_limited_and_update("ns", ctx, delta, True)
+               for lim in limiters]
+        assert got[0].limited == got[1].limited, step
+        assert sorted((c.remaining, c.expires_in) for c in got[0].counters) \
+            == sorted((c.remaining, c.expires_in) for c in got[1].counters)
+        clock.now += float(rng.choice([0.0, 0.05, 0.3]))
+    views = [sorted((c.limit.name, c.set_variables["descriptors[0].u"],
+                     c.remaining, c.expires_in)
+                    for c in lim.get_counters("ns")) for lim in limiters]
+    assert views[0] == views[1]
+    for name in ("replicated_check", "replicated_update", "apply_remote"):
+        assert K.launches[name] > before[name], name
+    for name in ("check_and_update", "update"):
+        assert K.launches[name] == before[name], name
+    card, cpu = nodes
+    _equal(card._state, cpu._state)
+    _equal((card._remote_vals, card._remote_exp),
+           (cpu._remote_vals, cpu._remote_exp))
+    for node in nodes:
+        node.close()

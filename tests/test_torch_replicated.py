@@ -1,0 +1,796 @@
+"""The replicated topology of the port against the JAX package's.
+
+- The kernels: ``replicated_check_plain``, ``replicated_update_plain`` and
+  ``apply_remote_plain`` (what the B6a/B6b/B6c wrappers run on CPU
+  tensors) against the jitted ``_replicated_check``, ``_replicated_update``
+  and ``_apply_remote`` of ``limitador_tpu/tpu/replicated.py``, on
+  numpy-seeded inputs: window and bucket lanes, live, expired and fresh
+  remote lanes, local + remote sums past 2**31.
+- The storage: a JAX ``TpuReplicatedStorage`` pair and a port
+  ``TorchReplicatedStorage(device="cpu")`` pair, each pair joined by a
+  loopback broker, on frozen clocks, take one script of check batches,
+  ``update_counter``, ``apply_deltas``, ``is_within_limits``, gossip
+  ticks and injected peer updates, with wire keys parked before their
+  limit exists, recycled slots, beyond-cap limits, buckets and an epoch
+  rebase. Answers, loaded counters, ``get_counters``,
+  ``_snapshot_for_peer()`` and all five device arrays must be equal.
+- The port alone: the behaviours ``tests/test_tpu_replicated.py`` pins
+  for the JAX package (convergence over real brokers, late-joiner
+  re-sync, window reset, pruning, snapshots, the Report-path TAT floor,
+  randomized gossip convergence).
+- A mixed cluster: one JAX node and one port node gossiping over real
+  gRPC brokers on localhost.
+
+Every output compared is an integer or a count of integer milliseconds,
+so the tolerance is exact equality.
+"""
+
+import random
+import socket
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import limitador_tpu as J
+import limitador_tpu_torch as T
+from limitador_tpu.core.counter import Counter as JCounter
+from limitador_tpu.ops import kernel as JK
+from limitador_tpu.storage.keys import key_for_counter as j_key
+from limitador_tpu.tpu import replicated as JR
+from limitador_tpu.tpu.storage import _Request as JRequest
+from limitador_tpu_torch.core.counter import Counter as TCounter
+from limitador_tpu_torch.device.replicated import TorchReplicatedStorage
+from limitador_tpu_torch.device.storage import _Request as TRequest
+from limitador_tpu_torch.ops import kernel as TK
+from limitador_tpu_torch.storage.base import StorageError
+from limitador_tpu_torch.storage.keys import key_for_counter as t_key
+
+from .torch_batches import batch, lanes, remote_lanes, remote_rows, table
+
+# -- the kernels -------------------------------------------------------------
+
+
+def _states(values, expiry, hits):
+    return (
+        JK.CounterTableState(*(jnp.asarray(a) for a in (values, expiry,
+                                                         hits))),
+        TK.CounterTableState(*(torch.from_numpy(a.copy())
+                               for a in (values, expiry, hits))),
+    )
+
+
+def _same_table(jstate, tstate):
+    for name, j, t in zip(TK.CounterTableState._fields, jstate, tstate):
+        np.testing.assert_array_equal(np.asarray(j), t.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("H", [8, 64, 1024])
+@pytest.mark.parametrize("seed", range(3))
+def test_replicated_kernels_match_jax(H, seed):
+    rng = np.random.default_rng(7000 + 100 * seed + H)
+    now_ms = 5_000_000
+    n_slots = 600
+    slot_lanes = lanes(rng, n_slots)
+    values, expiry, hits = table(rng, now_ms, slot_lanes)
+    rv, re = remote_lanes(rng, now_ms, slot_lanes, values, n_slots)
+    # the generator must reach every case the hooks distinguish
+    window = np.asarray([not slot_lanes[s][0] for s in range(n_slots)])
+    assert (window & (re[:n_slots] > now_ms) & (rv[:n_slots] > 0)).any()
+    assert (window & (re[:n_slots] <= now_ms) & (rv[:n_slots] > 0)).any()
+    assert (~window & (re[:n_slots] > now_ms)).any()
+    assert (~window & (re[:n_slots] > 0) & (re[:n_slots] <= now_ms)).any()
+    live_big = (values[:n_slots].astype(np.int64) + rv[:n_slots]) >= 1 << 31
+    assert (window & live_big).any()
+    jstate, tstate = _states(values, expiry, hits)
+    jrem = (jnp.asarray(rv), jnp.asarray(re))
+    trem = (torch.from_numpy(rv.copy()), torch.from_numpy(re.copy()))
+    seen_fresh = seen_bucket = False
+    for _round in range(3):
+        arrays = batch(rng, H, slot_lanes, n_slots)
+        seen_fresh |= bool(arrays[5].any())
+        seen_bucket |= bool(arrays[6].any())
+        jstate, jres = JR._replicated_check(
+            jstate, *jrem, *arrays, np.int32(now_ms))
+        tstate, tres = TK.replicated_check_batch(
+            tstate, *trem, *(torch.from_numpy(a) for a in arrays), now_ms)
+        for name, j, t in zip(TK.BatchResult._fields, jres, tres):
+            np.testing.assert_array_equal(np.asarray(j), t.numpy(),
+                                          err_msg=name)
+        _same_table(jstate, tstate)
+        slots, deltas, _m, wins, _r, fresh, bucket = batch(
+            rng, H, slot_lanes, n_slots)
+        deltas = np.where(rng.random(H) < 0.1, rng.integers(-5, 1 << 30, H),
+                          deltas).astype(np.int32)
+        upd = (slots, deltas, wins, fresh, bucket)
+        jstate = JR._replicated_update(jstate, jrem[1], *upd,
+                                       np.int32(now_ms))
+        tstate = TK.replicated_update_batch(
+            tstate, trem[1], *(torch.from_numpy(a) for a in upd), now_ms)
+        _same_table(jstate, tstate)
+        rows = remote_rows(rng, min(H, n_slots), n_slots)
+        jrem = JR._apply_remote(*jrem, *rows)
+        trem = TK.apply_remote(*trem, *(torch.from_numpy(a) for a in rows))
+        for j, t in zip(jrem, trem):
+            np.testing.assert_array_equal(np.asarray(j), t.numpy())
+        now_ms += 900
+    assert seen_bucket and (seen_fresh or H == 8)
+
+
+def test_replicated_check_with_empty_remote_lanes_is_b1():
+    rng = np.random.default_rng(5)
+    now_ms = 5_000_000
+    slot_lanes = lanes(rng, 300)
+    tab = table(rng, now_ms, slot_lanes)
+    a = TK.CounterTableState(*(torch.from_numpy(x.copy()) for x in tab))
+    b = TK.CounterTableState(*(torch.from_numpy(x.copy()) for x in tab))
+    zeros = torch.zeros(tab[0].shape[0], dtype=torch.int32)
+    for _round in range(3):
+        arrays = [torch.from_numpy(x) for x in batch(rng, 256, slot_lanes,
+                                                     300)]
+        _, ra = TK.replicated_check_batch(a, zeros, zeros, *arrays, now_ms)
+        _, rb = TK.check_and_update_batch(b, *arrays, now_ms)
+        for x, y in zip(list(ra) + list(a), list(rb) + list(b)):
+            assert torch.equal(x, y)
+
+
+# -- the storage, JAX against the port ---------------------------------------
+
+
+class FakeClock:
+    def __init__(self, now=1_700_000_000.0):
+        self.now = now
+
+    def __call__(self):
+        return self.now
+
+
+class Loopback:
+    """Stands in for a broker: ``publish`` delivers to the other nodes'
+    ``_on_remote_update`` at once; ``stop`` (called by ``close``) does
+    nothing. Records every publish."""
+
+    def __init__(self, peers):
+        self.peers = peers
+        self.sent = []
+
+    def publish(self, key, values, expires_at):
+        self.sent.append((bytes(key), dict(values), int(expires_at)))
+        for peer in self.peers:
+            peer._on_remote_update(key, dict(values), expires_at)
+
+    def stop(self):
+        pass
+
+
+U = "descriptors[0].u"
+SPECS = {
+    "win": dict(namespace="w", max_value=8, seconds=60, variables=[U]),
+    "total": dict(namespace="w", max_value=300, seconds=3600),
+    "tb": dict(namespace="tb", max_value=6, seconds=60, variables=[U],
+               policy="token_bucket"),
+    "fast": dict(namespace="tb", max_value=5000, seconds=1, variables=[U],
+                 policy="token_bucket"),
+    "big": dict(namespace="big", max_value=3 << 30, seconds=60,
+                variables=[U]),
+    "late": dict(namespace="late", max_value=5, seconds=60, variables=[U]),
+}
+EARLY = ("win", "total", "tb", "fast", "big")
+
+
+class Side:
+    """One package's two replicated nodes, limiters and limits."""
+
+    def __init__(self, pkg, make_storage, counter_cls, request_cls, key_fn,
+                 clock, capacity, cache_size):
+        self.pkg = pkg
+        self.counter_cls = counter_cls
+        self.request_cls = request_cls
+        self.key_fn = key_fn
+        self.nodes = [make_storage(name, capacity=capacity,
+                                   cache_size=cache_size, clock=clock)
+                      for name in "AB"]
+        self.limiters = [pkg.RateLimiter(n) for n in self.nodes]
+        self.limits = {name: pkg.Limit(name=name, **spec)
+                       for name, spec in SPECS.items()}
+        for name in EARLY:
+            self.add_limit(name)
+        self.nodes[0].broker = Loopback([self.nodes[1]])
+        self.nodes[1].broker = Loopback([self.nodes[0]])
+
+    def add_limit(self, name):
+        for limiter in self.limiters:
+            limiter.add_limit(self.limits[name])
+
+    def counter(self, name, user):
+        limit = self.limits[name]
+        return self.counter_cls(limit, {U: user} if limit.variables else {})
+
+    def close(self):
+        for node in self.nodes:
+            node.close()
+
+
+def _sides(capacity, cache_size):
+    jclock, tclock = FakeClock(), FakeClock()
+    jside = Side(
+        J, lambda name, **kw: JR.TpuReplicatedStorage(name, **kw),
+        JCounter, JRequest, j_key, jclock, capacity, cache_size)
+    tside = Side(
+        T, lambda name, **kw: TorchReplicatedStorage(name, device="cpu",
+                                                     **kw),
+        TCounter, TRequest, t_key, tclock, capacity, cache_size)
+    return (jclock, jside), (tclock, tside)
+
+
+def _auth(a):
+    return (a.limited, a.limit_name)
+
+
+def _loaded(counters):
+    return [(c.limit.name, dict(c.set_variables), c.remaining, c.expires_in)
+            for c in counters]
+
+
+def _view(counters):
+    return sorted(
+        (c.limit.name, tuple(sorted(c.set_variables.items())), c.remaining,
+         c.expires_in)
+        for c in counters
+    )
+
+
+def _assert_nodes_equal(jside, tside, where):
+    for jn, tn, jl, tl in zip(jside.nodes, tside.nodes, jside.limiters,
+                              tside.limiters):
+        for ns in ("w", "tb", "big", "late"):
+            assert _view(jl.get_counters(ns)) == _view(tl.get_counters(ns)), \
+                (where, jn.node_id, ns)
+        assert jn._snapshot_for_peer() == tn._snapshot_for_peer(), where
+        arrays = [("values", jn._state.values, tn._state.values),
+                  ("expiry_ms", jn._state.expiry_ms, tn._state.expiry_ms),
+                  ("hits", jn._state.hits, tn._state.hits),
+                  ("remote_vals", jn._remote_vals, tn._remote_vals),
+                  ("remote_exp", jn._remote_exp, tn._remote_exp)]
+        for name, j, t in arrays:
+            np.testing.assert_array_equal(
+                np.asarray(j), t.numpy(), err_msg=f"{where} {name}")
+        assert jn._epoch == tn._epoch
+
+
+def _script(seed, steps=260):
+    """The op script: a list of (op, args) built from one rng, in terms of
+    limit names and user strings only."""
+    rng = random.Random(seed)
+    users = [f"u{i}" for i in range(14)]
+    ops = []
+    for step in range(steps):
+        if step == 90:
+            ops.append(("add_limit", "late"))
+        if step == 180:
+            ops.append(("advance", 13 * 86400.0))  # the epoch rebases
+        r = rng.random()
+        node = rng.randrange(2)
+        if r < 0.45:
+            reqs = []
+            for _ in range(rng.randint(1, 10)):
+                ns = rng.choice(["w", "w", "tb", "big", "late"])
+                names = {"w": ["win", "total"], "tb": ["tb", "fast"],
+                         "big": ["big"], "late": ["late"]}[ns]
+                if ns == "tb" and rng.random() < 0.5:
+                    names = ["tb"]
+                reqs.append((names, rng.choice(users), rng.randint(0, 3),
+                             rng.random() < 0.5))
+            ops.append(("check", node, reqs))
+        elif r < 0.53:
+            ops.append(("update", node, rng.choice(
+                ["win", "tb", "big", "fast", "total"]),
+                rng.choice(users), rng.randint(0, 4)))
+        elif r < 0.60:
+            ops.append(("apply", node, [
+                (rng.choice(["win", "tb", "big", "total"]),
+                 rng.choice(users), rng.randint(0, 3))
+                for _ in range(rng.randint(1, 5))]))
+        elif r < 0.66:
+            ops.append(("within", node, rng.choice(
+                ["win", "tb", "big", "late", "fast"]), rng.choice(users),
+                rng.randint(0, 9)))
+        elif r < 0.80:
+            name = rng.choice(["win", "tb", "big", "late", "late", "fast"])
+            # a peer's count; beyond-cap limits get counts near their max
+            count = rng.randint(0, 30) if name != "big" else \
+                (3 << 30) - rng.randint(0, 40)
+            ops.append(("inject", node, name, rng.choice(users), count,
+                        rng.randint(-2000, 90_000)))
+        elif r < 0.92:
+            ops.append(("publish", node))
+        else:
+            ops.append(("advance", rng.choice([0.001, 0.25, 1.0, 7.0, 61.0])))
+    return ops
+
+
+def _run(side, clock, op):
+    kind = op[0]
+    if kind == "add_limit":
+        side.add_limit(op[1])
+        return None
+    if kind == "advance":
+        clock.now += op[1]
+        return None
+    node = side.nodes[op[1]]
+    if kind == "check":
+        requests = [side.request_cls([side.counter(n, user) for n in names],
+                                     delta, load)
+                    for names, user, delta, load in op[2]]
+        auths = node.check_many(requests)
+        return ([_auth(a) for a in auths],
+                [_loaded(r.ordered) if r.load else None for r in requests])
+    if kind == "update":
+        node.update_counter(side.counter(op[2], op[3]), op[4])
+        return None
+    if kind == "apply":
+        return node.apply_deltas([(side.counter(n, u), d)
+                                  for n, u, d in op[2]])
+    if kind == "within":
+        return node.is_within_limits(side.counter(op[2], op[3]), op[4])
+    if kind == "inject":
+        _kind, _node, name, user, count, ahead_ms = op
+        counter = side.counter(name, user)
+        now_abs = int(clock.now * 1000)
+        limit = side.limits[name]
+        if limit.policy == "token_bucket":
+            tat = now_abs + ahead_ms // 20
+            node._on_remote_update(side.key_fn(counter), {"Z": tat}, tat)
+        else:
+            node._on_remote_update(side.key_fn(counter), {"Z": count},
+                                   now_abs + ahead_ms)
+        return None
+    if kind == "publish":
+        node._publish_touched()
+        return None
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("capacity,cache_size", [(64, 20), (1024, None)],
+                         ids=["recycling", "roomy"])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_replicated_storage_matches_jax(seed, capacity, cache_size):
+    (jclock, jside), (tclock, tside) = _sides(capacity, cache_size)
+    try:
+        rebased = False
+        for i, op in enumerate(_script(seed)):
+            epoch = tside.nodes[0]._epoch
+            assert _run(jside, jclock, op) == _run(tside, tclock, op), (i, op)
+            rebased = rebased or tside.nodes[0]._epoch != epoch
+            if i % 40 == 39:
+                _assert_nodes_equal(jside, tside, i)
+        for node in (0, 1):
+            _run(jside, jclock, ("publish", node))
+            _run(tside, tclock, ("publish", node))
+        _assert_nodes_equal(jside, tside, "end")
+        for jn, tn in zip(jside.nodes, tside.nodes):
+            assert jn.broker.sent == tn.broker.sent
+        assert rebased
+        # the script reached what it is meant to exercise
+        t0, t1 = tside.nodes
+        assert any(n.broker.sent for n in (t0, t1))
+        assert not t0._parked_wires and not t1._parked_wires
+    finally:
+        jside.close()
+        tside.close()
+
+
+def test_parked_wire_keys_are_adopted_once_the_limit_exists():
+    (jclock, jside), (tclock, tside) = _sides(256, None)
+    try:
+        for side, clock in ((jside, jclock), (tside, tclock)):
+            _run(side, clock, ("inject", 0, "late", "p", 3, 60_000))
+        assert tside.nodes[0]._parked_wires == {
+            t_key(tside.counter("late", "p"))}
+        for side, clock in ((jside, jclock), (tside, tclock)):
+            _run(side, clock, ("add_limit", "late"))
+        ops = [("check", 0, [(["late"], "p", 1, True)])] * 3
+        got = [[_run(side, clock, op) for op in ops]
+               for side, clock in ((jside, jclock), (tside, tclock))]
+        assert got[0] == got[1]
+        assert [a for (auths, _l) in got[1] for a in auths] == [
+            (False, None), (False, None), (True, "late")]
+        _assert_nodes_equal(jside, tside, "adopted")
+    finally:
+        jside.close()
+        tside.close()
+
+
+# -- the port alone: the JAX package's replication behaviours ----------------
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def eventually(cond, timeout=10.0, tick=0.05):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if cond():
+            return True
+        time.sleep(tick)
+    return False
+
+
+TB = dict(conditions=[], variables=["u"], policy="token_bucket")
+
+
+def _node(name, listen=None, peers=(), **kw):
+    return TorchReplicatedStorage(
+        name, listen_address=listen, peers=list(peers), capacity=256,
+        gossip_period=kw.pop("gossip_period", 0.02), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("policy", ["window", "bucket", "big"])
+def test_two_nodes_converge_over_brokers(policy):
+    p0, p1 = free_port(), free_port()
+    a = _node("A", f"127.0.0.1:{p0}", [f"127.0.0.1:{p1}"])
+    b = _node("B", f"127.0.0.1:{p1}", [f"127.0.0.1:{p0}"])
+    try:
+        if policy == "window":
+            limit = T.Limit("ns", 3, 60, ["m == 'GET'"], ["u"])
+        elif policy == "bucket":
+            limit = T.Limit("ns", 3, 600, **TB)  # I = 200 s: no refill
+        else:
+            limit = T.Limit("ns", (1 << 40) + 3, 60, [], ["u"])
+        la, lb = T.RateLimiter(a), T.RateLimiter(b)
+        la.add_limit(limit)
+        lb.add_limit(limit)
+        ctx = T.Context({"m": "GET", "u": "app"})
+        if policy == "big":
+            la.update_counters("ns", ctx, 1 << 40)
+        # alternate hits across the nodes; each sees the other's spend
+        for i in range(3):
+            lim, other = ((la, lb), (lb, la))[i % 2]
+            assert not lim.check_rate_limited_and_update(
+                "ns", ctx, 1).limited, i
+            assert eventually(lambda: other.is_rate_limited(
+                "ns", ctx, 3 - i).limited), i
+        assert eventually(lambda: la.is_rate_limited("ns", ctx, 1).limited)
+        assert eventually(lambda: lb.is_rate_limited("ns", ctx, 1).limited)
+        assert eventually(lambda: {c.remaining for c in la.get_counters(
+            "ns")} == {0} and {c.remaining for c in lb.get_counters("ns")}
+            == {0})
+    finally:
+        a.close()
+        b.close()
+
+
+@pytest.mark.parametrize("policy", ["window", "bucket", "big"])
+def test_late_joiner_resyncs(policy):
+    p0, p1 = free_port(), free_port()
+    a = _node("A", f"127.0.0.1:{p0}", gossip_period=0.03)
+    try:
+        if policy == "window":
+            limit, spend, left = T.Limit("ns", 10, 60, [], ["u"]), 7, 3
+        elif policy == "bucket":
+            limit, spend, left = T.Limit("ns", 5, 600, **TB), 4, 1
+        else:
+            limit, spend, left = T.Limit("ns", 1 << 40, 60, [], ["u"]), \
+                (1 << 40) - 5, 5
+        la = T.RateLimiter(a)
+        la.add_limit(limit)
+        ctx = T.Context({"u": "x"})
+        if policy == "bucket":
+            for _ in range(spend):
+                la.check_rate_limited_and_update("ns", ctx, 1)
+        else:
+            la.update_counters("ns", ctx, spend)
+        b = _node("B", f"127.0.0.1:{p1}", [f"127.0.0.1:{p0}"],
+                  gossip_period=0.03)
+        try:
+            lb = T.RateLimiter(b)
+            lb.add_limit(limit)
+            assert eventually(
+                lambda: not lb.is_rate_limited("ns", ctx, left).limited
+                and lb.is_rate_limited("ns", ctx, left + 1).limited
+            ), "the late joiner never absorbed A's counts"
+        finally:
+            b.close()
+    finally:
+        a.close()
+
+
+def test_local_exactness_on_a_remote_base():
+    clock = FakeClock()
+    node = _node("me", clock=clock)
+    try:
+        limiter = T.RateLimiter(node)
+        limit = T.Limit("ns", 5, 60, [], ["u"])
+        limiter.add_limit(limit)
+        key = t_key(TCounter(limit, {"u": "k"}))
+        node._on_remote_update(key, {"peer": 3},
+                               int(clock.now * 1000) + 60_000)
+        ctx = T.Context({"u": "k"})
+        outs = [limiter.check_rate_limited_and_update("ns", ctx, 1).limited
+                for _ in range(3)]
+        assert outs == [False, False, True]  # 5 - 3 remote
+    finally:
+        node.close()
+
+
+def test_remote_actor_window_reset_and_pruning():
+    clock = FakeClock()
+    node = _node("me", clock=clock)
+    try:
+        limiter = T.RateLimiter(node)
+        limit = T.Limit("ns", 10, 60, [], ["u"])
+        limiter.add_limit(limit)
+        key = t_key(TCounter(limit, {"u": "x"}))
+        node._on_remote_update(key, {"peer": 100},
+                               int(clock.now * 1000 + 60_000))
+        assert node._remote_actors[key]["peer"][0] == 100
+        clock.now += 61  # the window rolls: a fresh small count resets
+        node._on_remote_update(key, {"peer": 1},
+                               int(clock.now * 1000 + 60_000))
+        assert node._remote_actors[key]["peer"][0] == 1
+        ctx = T.Context({"u": "x"})
+        outs = [limiter.check_rate_limited_and_update("ns", ctx, 1).limited
+                for _ in range(10)]
+        assert outs == [False] * 9 + [True]
+        for i in range(20):
+            node._on_remote_update(t_key(TCounter(limit, {"u": str(i)})),
+                                   {"peer": 1},
+                                   int(clock.now * 1000 + 60_000))
+        assert len(node._remote_actors) == 21
+        clock.now += 120
+        node._prune_remote_actors()
+        assert node._remote_actors == {}
+    finally:
+        node.close()
+
+
+@pytest.mark.parametrize("path", ["update_counter", "apply_deltas"])
+def test_report_path_folds_the_remote_tat_floor(path):
+    clock = FakeClock()
+    now_ms = int(clock.now * 1000)
+    limit = T.Limit("tb", 5, 60, **TB)  # I = 12 s
+    node = _node("me", clock=clock)
+    try:
+        limiter = T.RateLimiter(node)
+        limiter.add_limit(limit)
+        counter = TCounter(limit, {"u": "x"})
+        tat = now_ms + 3 * 12_000  # a peer spent 3 of 5
+        node._on_remote_update(t_key(counter), {"A": tat}, tat)
+        launches = TK.launches["replicated_update"]
+        if path == "update_counter":
+            node.update_counter(counter, 1)
+        else:
+            node.apply_deltas([(counter, 1)])
+        assert TK.launches["replicated_update"] == launches  # CPU: plain
+        assert node._touched  # the Report-path write gossips
+        ctx = T.Context({"u": "x"})
+        outs = [limiter.check_rate_limited_and_update("tb", ctx, 1).limited
+                for _ in range(2)]
+        assert outs == [False, True]  # exactly 1 of 5 remained
+        assert {c.remaining for c in limiter.get_counters("tb")} == {0}
+    finally:
+        node.close()
+
+
+def test_snapshot_loads_into_a_replicated_node(tmp_path):
+    path = str(tmp_path / "node.ckpt")
+    a = _node("n1")
+    try:
+        limiter = T.RateLimiter(a)
+        limiter.add_limit(T.Limit("ns", 10, 600, [], ["u"]))
+        for _ in range(4):
+            limiter.check_rate_limited_and_update("ns", T.Context(
+                {"u": "snap"}), 1)
+        a.snapshot(path)
+    finally:
+        a.close()
+    b = _node("n1")
+    try:
+        b.load_snapshot(path)
+        limiter = T.RateLimiter(b)
+        limiter.add_limit(T.Limit("ns", 10, 600, [], ["u"]))
+        assert {c.remaining for c in limiter.get_counters("ns")} == {6}
+        assert not limiter.check_rate_limited_and_update(
+            "ns", T.Context({"u": "snap"}), 6).limited
+        assert limiter.check_rate_limited_and_update(
+            "ns", T.Context({"u": "snap"}), 1).limited
+    finally:
+        b.close()
+    c = TorchReplicatedStorage("n1", capacity=512, device="cpu")
+    try:
+        with pytest.raises(StorageError):
+            c.load_snapshot(path)
+    finally:
+        c.close()
+
+
+@pytest.mark.parametrize("flushed", [False, True],
+                         ids=["queued", "scattered"])
+def test_gossip_merged_before_a_snapshot_load_keeps_its_key(tmp_path,
+                                                          flushed):
+    """A peer's re-sync merges before the checkpoint loads and takes the
+    slot that the checkpoint gives another counter. The loaded counter
+    must not admit against the peer's share, and the peer's key must
+    keep it, whether the share was still queued or already on the
+    remote lanes."""
+    clock = FakeClock()
+    limit = T.Limit("ns", 10, 600, [], ["u"])
+    path = str(tmp_path / "node.ckpt")
+    a = _node("n1", clock=clock)
+    try:
+        limiter = T.RateLimiter(a)
+        limiter.add_limit(limit)
+        for _ in range(4):
+            limiter.check_rate_limited_and_update(
+                "ns", T.Context({"u": "snap"}), 1)
+        a.snapshot(path)
+        (snap_slot,) = a._table.info
+    finally:
+        a.close()
+    b = _node("n1", clock=clock)
+    try:
+        limiter = T.RateLimiter(b)
+        limiter.add_limit(limit)
+        peer = TCounter(limit, {"u": "peer"})
+        b._on_remote_update(t_key(peer), {"p": 7},
+                            int(clock.now * 1000) + 60_000)
+        assert b._slot_for(peer, create=False)[0] == snap_slot
+        if flushed:
+            with b._lock:
+                b._flush_dirty_remote()
+        b.load_snapshot(path)
+        snap, other = T.Context({"u": "snap"}), T.Context({"u": "peer"})
+        assert limiter.is_rate_limited("ns", other, 4).limited
+        assert not limiter.is_rate_limited("ns", other, 3).limited
+        assert not limiter.check_rate_limited_and_update(
+            "ns", snap, 6).limited
+        assert limiter.check_rate_limited_and_update("ns", snap, 1).limited
+        assert sorted((c.set_variables["u"], c.remaining)
+                      for c in limiter.get_counters("ns")) == [
+            ("peer", 3), ("snap", 0)]
+    finally:
+        b.close()
+
+
+def test_a_jax_checkpoint_is_refused_without_importing_it(tmp_path):
+    path = str(tmp_path / "jax.ckpt")
+    j = J.tpu.TpuStorage(capacity=256)
+    limiter = J.RateLimiter(j)
+    limiter.add_limit(J.Limit("ns", 3, 60, [], ["u"]))
+    limiter.check_rate_limited_and_update("ns", J.Context({"u": "a"}), 1)
+    j.snapshot(path)
+    node = _node("n1")
+    try:
+        with pytest.raises(StorageError, match="not a class of this"):
+            node.load_snapshot(path)
+    finally:
+        node.close()
+
+
+def test_the_columnar_path_and_leases_are_refused():
+    node = _node("n1")
+    try:
+        H = 8
+        cols = (np.zeros(H, np.int32), np.ones(H, np.int32),
+                np.full(H, 3, np.int32), np.full(H, 1000, np.int32),
+                np.arange(H, dtype=np.int32), np.zeros(H, bool))
+        launches = dict(TK.launches)
+        with pytest.raises(StorageError, match="remote counts"):
+            node.begin_check_columnar(*cols)
+        with pytest.raises(StorageError, match="remote counts"):
+            node.check_columnar(*cols)
+        with pytest.raises(StorageError, match="leases"):
+            node.credit_columnar(cols[0], cols[1], cols[3], cols[5])
+        assert dict(TK.launches) == launches
+        assert not node._state.values.any()
+    finally:
+        node.close()
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_randomized_gossip_convergence(seed):
+    """Three nodes take random local traffic (both policies) while
+    snapshots go between random pairs, duplicated and reordered; after a
+    full exchange every view is the same and nothing is re-minted."""
+    rng = random.Random(seed)
+    clock = FakeClock()
+    nodes = [_node(n, clock=clock) for n in "ABC"]
+    limiters = [T.RateLimiter(s) for s in nodes]
+    window = T.Limit("w", 40, 600, [], ["u"])
+    bucket = T.Limit("tb", 30, 600, **TB)
+    for lim in limiters:
+        lim.add_limit(window)
+        lim.add_limit(bucket)
+
+    def deliver(src, dst):
+        for key, values, expires_at in src._snapshot_for_peer():
+            dst._on_remote_update(key, dict(values), expires_at)
+
+    def view(lim, ns):
+        return {tuple(sorted(c.set_variables.items())): c.remaining
+                for c in lim.get_counters(ns)}
+
+    try:
+        admitted = 0
+        for _step in range(120):
+            node = rng.randrange(3)
+            if rng.random() < 0.7:
+                ns = "w" if rng.random() < 0.5 else "tb"
+                ctx = T.Context({"u": rng.choice(["u1", "u2"])})
+                if not limiters[node].check_rate_limited_and_update(
+                        ns, ctx, 1).limited:
+                    admitted += 1
+            else:
+                dst = rng.randrange(3)
+                if dst != node:
+                    deliver(nodes[node], nodes[dst])
+                    if rng.random() < 0.3:
+                        deliver(nodes[node], nodes[dst])
+            if rng.random() < 0.1:
+                clock.now += rng.random()
+        pairs = [(i, j) for i in range(3) for j in range(3) if i != j]
+        for _ in range(2):
+            rng.shuffle(pairs)
+            for i, j in pairs:
+                deliver(nodes[i], nodes[j])
+        for ns in ("w", "tb"):
+            views = [view(lim, ns) for lim in limiters]
+            assert views[0] == views[1] == views[2], (seed, ns, views)
+        spent = sum(window.max_value - r
+                    for r in view(limiters[0], "w").values()) + sum(
+            bucket.max_value - r for r in view(limiters[0], "tb").values())
+        assert spent <= admitted
+    finally:
+        for s in nodes:
+            s.close()
+
+
+# -- a mixed cluster: one JAX node, one port node ----------------------------
+
+
+@pytest.mark.parametrize("policy", ["window", "bucket"])
+def test_mixed_jax_and_port_nodes_converge(policy):
+    pj, pt = free_port(), free_port()
+    jnode = JR.TpuReplicatedStorage(
+        "jax", f"127.0.0.1:{pj}", [f"127.0.0.1:{pt}"], capacity=256,
+        gossip_period=0.02)
+    tnode = _node("port", f"127.0.0.1:{pt}", [f"127.0.0.1:{pj}"])
+    try:
+        if policy == "window":
+            spec = dict(namespace="ns", max_value=6, seconds=60,
+                        variables=["u"])
+        else:
+            spec = dict(namespace="ns", max_value=6, seconds=600,
+                        variables=["u"], policy="token_bucket")
+        lj, lt = J.RateLimiter(jnode), T.RateLimiter(tnode)
+        lj.add_limit(J.Limit(**spec))
+        lt.add_limit(T.Limit(**spec))
+        jctx, tctx = J.Context({"u": "m"}), T.Context({"u": "m"})
+        # the JAX node spends 2, the port node sees them
+        for _ in range(2):
+            assert not lj.check_rate_limited_and_update("ns", jctx,
+                                                        1).limited
+        assert eventually(
+            lambda: lt.is_rate_limited("ns", tctx, 5).limited
+            and not lt.is_rate_limited("ns", tctx, 4).limited)
+        # the port node spends 3, the JAX node sees 5 spent in all
+        for _ in range(3):
+            assert not lt.check_rate_limited_and_update("ns", tctx,
+                                                        1).limited
+        assert eventually(
+            lambda: lj.is_rate_limited("ns", jctx, 2).limited
+            and not lj.is_rate_limited("ns", jctx, 1).limited)
+        assert eventually(lambda: {c.remaining for c in lj.get_counters(
+            "ns")} == {1} and {c.remaining for c in lt.get_counters("ns")}
+            == {1})
+        assert not lt.check_rate_limited_and_update("ns", tctx, 1).limited
+        assert lt.check_rate_limited_and_update("ns", tctx, 1).limited
+        assert eventually(lambda: lj.is_rate_limited("ns", jctx, 1).limited)
+    finally:
+        jnode.close()
+        tnode.close()

@@ -389,6 +389,15 @@ def test_native_pipeline_with_a_broken_host_lane_exits(tmp_path,
     ["memory", "--pipeline", "compiled"],
     ["torch", "--device", "cpu", "--pipeline", "native",
      "--rate-limit-headers", "DRAFT_VERSION_03"],
+    # a replicated node refuses the paths that launch the plain check
+    ["torch", "--device", "cpu", "--pipeline", "native", "--peer",
+     "127.0.0.1:9"],
+    ["torch", "--device", "cpu", "--pipeline", "native",
+     "--listen-address", "127.0.0.1:0"],
+    ["torch", "--device", "cpu", "--pipeline", "native", "--lease-mode",
+     "on", "--listen-address", "127.0.0.1:0"],
+    ["memory", "--peer", "127.0.0.1:9"],
+    ["memory", "--snapshot-path", "never-written.ckpt"],
 ])
 def test_modes_that_cannot_come_up_exit(tmp_path, argv):
     limits_path = tmp_path / "limits.yaml"
@@ -422,3 +431,237 @@ def test_a_failing_background_tier_stops_the_server(tmp_path, monkeypatch,
         argv += ["--lease-mode", "on", "--usage-topk", "0"]
     args = port_main.build_parser().parse_args(argv)
     assert asyncio.run(asyncio.wait_for(port_main._amain(args), 30)) == 1
+
+
+# -- replication and snapshots -------------------------------------------------
+
+REPLICATED_LIMITS = """\
+- namespace: rep
+  max_value: 4
+  seconds: 3600
+  variables: ["descriptors[0].user"]
+  name: per-user
+"""
+
+
+def _response_code(blob):
+    return rls_pb2.RateLimitResponse.FromString(blob).overall_code
+
+
+async def _replicated_pair(tmp_path, extra=()):
+    limits_path = tmp_path / "limits.yaml"
+    limits_path.write_text(REPLICATED_LIMITS)
+    gossip = [_free_port(), _free_port()]
+    servers = []
+    for i, name in enumerate("ab"):
+        argv = [str(limits_path), "torch", "--device", "cpu", "--capacity",
+                "1024", "--rls-host", "127.0.0.1", "--rls-port",
+                str(_free_port()), "--node-id", name, "--listen-address",
+                f"127.0.0.1:{gossip[i]}", "--peer",
+                f"127.0.0.1:{gossip[1 - i]}", *extra]
+        servers.append((await port_main.start(
+            port_main.build_parser().parse_args(argv)), argv))
+    return servers
+
+
+def _serve_a_converging_pair(tmp_path, limiter_type, extra=()):
+    """Hits and a Kuadrant Report served by either node of a replicated
+    pair reach the other through the gossip broker."""
+    from limitador_tpu_torch.device.replicated import TorchReplicatedStorage
+
+    async def drive():
+        servers = await _replicated_pair(tmp_path, extra)
+        try:
+            for server, _argv in servers:
+                assert isinstance(server.limiter, limiter_type)
+                assert isinstance(server.storage, TorchReplicatedStorage)
+                assert server.storage.broker is not None
+            ports = [argv[argv.index("--rls-port") + 1]
+                     for _s, argv in servers]
+            chans = [grpc.aio.insecure_channel(f"127.0.0.1:{p}")
+                     for p in ports]
+            hit = _request("rep", [{"user": "u"}])
+            report = _request("rep", [{"user": "u"}], 1)
+            ok = rls_pb2.RateLimitResponse.OK
+            over = rls_pb2.RateLimitResponse.OVER_LIMIT
+            assert _response_code(await _call(chans[0], "ShouldRateLimit",
+                                              hit)) == ok
+            await _call(chans[1], KUADRANT + "Report", report)
+            # 2 of 4 spent across the nodes: both views say 2 remain
+            deadline = time.monotonic() + 10
+            while True:
+                counters = [await _counters(s.limiter, ["rep"])
+                            for s, _a in servers]
+                if all(c and next(iter(c.values()))[0] == 2
+                       for c in counters):
+                    break
+                assert time.monotonic() < deadline, counters
+                await asyncio.sleep(0.05)
+            assert _response_code(await _call(chans[1], "ShouldRateLimit",
+                                              hit)) == ok
+            assert _response_code(await _call(chans[0], "ShouldRateLimit",
+                                              hit)) == ok
+            deadline = time.monotonic() + 10
+            while True:
+                codes = [_response_code(await _call(
+                    c, KUADRANT + "CheckRateLimit", hit)) for c in chans]
+                if codes == [over, over]:
+                    break
+                assert time.monotonic() < deadline, codes
+                await asyncio.sleep(0.05)
+            for chan in chans:
+                await chan.close()
+        finally:
+            for server, _argv in servers:
+                await server.stop()
+
+    asyncio.run(drive())
+
+
+def test_peer_options_build_a_replicated_node_that_converges(tmp_path):
+    """--listen-address/--peer build TorchReplicatedStorage behind the
+    standard pipeline; the nodes converge."""
+    from limitador_tpu_torch.core.limiter import AsyncRateLimiter
+
+    _serve_a_converging_pair(tmp_path, AsyncRateLimiter)
+
+
+def test_the_compiled_pipeline_serves_a_replicated_node(tmp_path):
+    """--pipeline compiled launches through the storage's check dispatch,
+    so on a replicated node it admits against the remote share and its
+    admitted counters gossip: the pair converges as on the standard
+    pipeline."""
+    from limitador_tpu_torch.device.pipeline import CompiledTorchLimiter
+
+    _serve_a_converging_pair(tmp_path, CompiledTorchLimiter,
+                             ["--pipeline", "compiled"])
+
+
+@pytest.mark.parametrize("replicated", [False, True],
+                         ids=["table", "replicated"])
+def test_snapshot_restores_the_counters_after_a_restart(tmp_path,
+                                                        replicated):
+    limits_path = tmp_path / "limits.yaml"
+    limits_path.write_text(REPLICATED_LIMITS)
+    path = tmp_path / "counters.ckpt"
+    argv = [str(limits_path), "torch", "--device", "cpu", "--capacity",
+            "1024", "--rls-host", "127.0.0.1", "--snapshot-path", str(path),
+            "--snapshot-period", "0.05"]
+    if replicated:
+        argv += ["--node-id", "a", "--listen-address",
+                 f"127.0.0.1:{_free_port()}"]
+
+    async def serve(hits):
+        rls_port = _free_port()
+        server = await port_main.start(port_main.build_parser().parse_args(
+            argv + ["--rls-port", str(rls_port)]))
+        try:
+            async with grpc.aio.insecure_channel(
+                    f"127.0.0.1:{rls_port}") as chan:
+                for _ in range(hits):
+                    await _call(chan, "ShouldRateLimit",
+                                _request("rep", [{"user": "s"}]))
+                await asyncio.sleep(0.2)  # a periodic checkpoint or two
+                assert path.exists()
+            return await _counters(server.limiter, ["rep"])
+        finally:
+            await server.stop()
+
+    first = asyncio.run(serve(3))
+    assert [v[0] for v in first.values()] == [1]
+    again = asyncio.run(serve(0))
+    assert [v[0] for v in again.values()] == [1]
+
+
+def test_a_restarted_node_loads_its_snapshot_before_it_gossips(
+        tmp_path, monkeypatch):
+    """On a restart with --snapshot-path and a live peer, the checkpoint
+    loads before the broker starts, so the peer's re-sync merges into
+    the loaded slot table: both nodes count the restored hits and the
+    peer's."""
+    from limitador_tpu_torch.device.replicated import TorchReplicatedStorage
+
+    limits_path = tmp_path / "limits.yaml"
+    limits_path.write_text(REPLICATED_LIMITS)
+    path = tmp_path / "a.ckpt"
+    gossip = [_free_port(), _free_port()]
+
+    def argv(i, *extra):
+        return [str(limits_path), "torch", "--device", "cpu", "--capacity",
+                "1024", "--rls-host", "127.0.0.1", "--rls-port",
+                str(_free_port()), "--node-id", "ab"[i], "--listen-address",
+                f"127.0.0.1:{gossip[i]}", *extra]
+
+    async def boot(args):
+        server = await port_main.start(port_main.build_parser().parse_args(
+            args))
+        return server, args[args.index("--rls-port") + 1]
+
+    async def hit(port, user, n):
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as chan:
+            for _ in range(n):
+                await _call(chan, "ShouldRateLimit",
+                            _request("rep", [{"user": user}]))
+
+    def remaining(counters):
+        return {k[2][0][1]: v[0] for k, v in counters.items()}
+
+    loaded_before_start = []
+    load = TorchReplicatedStorage.load_snapshot
+
+    def spy(self, snapshot_path):
+        loaded_before_start.append(self._gossip_thread is None)
+        return load(self, snapshot_path)
+
+    monkeypatch.setattr(TorchReplicatedStorage, "load_snapshot", spy)
+
+    async def drive():
+        snap = ["--snapshot-path", str(path), "--snapshot-period", "0.05"]
+        a, a_port = await boot(argv(0, *snap))
+        try:
+            await hit(a_port, "s", 3)
+        finally:
+            await a.stop()
+        assert path.exists() and loaded_before_start == []
+        b, b_port = await boot(argv(1))
+        a = None
+        try:
+            await hit(b_port, "p", 2)
+            a, _ = await boot(argv(0, *snap, "--peer",
+                                    f"127.0.0.1:{gossip[1]}"))
+            assert loaded_before_start == [True]
+            want = {"s": 1, "p": 2}
+            deadline = time.monotonic() + 10
+            while True:
+                views = [remaining(await _counters(n.limiter, ["rep"]))
+                         for n in (a, b)]
+                if views == [want, want]:
+                    break
+                assert time.monotonic() < deadline, views
+                await asyncio.sleep(0.05)
+        finally:
+            if a is not None:
+                await a.stop()
+            await b.stop()
+
+    asyncio.run(drive())
+
+
+def test_an_unreadable_snapshot_is_moved_aside(tmp_path):
+    limits_path = tmp_path / "limits.yaml"
+    limits_path.write_text(REPLICATED_LIMITS)
+    path = tmp_path / "counters.ckpt"
+    path.write_bytes(b"not a checkpoint")
+    args = port_main.build_parser().parse_args([
+        str(limits_path), "torch", "--device", "cpu", "--capacity", "1024",
+        "--rls-host", "127.0.0.1", "--rls-port", str(_free_port()),
+        "--snapshot-path", str(path)])
+
+    async def boot():
+        server = await port_main.start(args)
+        await server.stop()
+
+    asyncio.run(boot())
+    assert (tmp_path / "counters.ckpt.rejected").read_bytes() == \
+        b"not a checkpoint"
+    assert path.exists()  # the final checkpoint of the fresh table

@@ -359,3 +359,50 @@ def test_default_device_is_the_card():
         with pytest.raises(T.StorageError, match="CUDA"):
             TorchStorage(capacity=8)
     assert TorchStorage(capacity=8, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("cache_size", [None, 8], ids=["roomy", "evicting"])
+def test_snapshot_and_restore_parity(tmp_path, cache_size):
+    """Each package snapshots mid-stream (its own format) and restores
+    into a new storage, with table, key space and big cells intact: the
+    restored storages equal each other in every array and go on deciding
+    alike, and the Report path's batched apply_deltas returns the same
+    (value, ttl) rows."""
+    clock = FakeClock()
+    limiters = _limiters(clock, capacity=64, cache_size=cache_size)
+    limiters.pop("mem", None)
+    _add_limits(limiters, LIMITS)
+    rng = random.Random(5)
+    users = [str(i) for i in range(12)]
+    _drive(limiters, clock, rng, 150, users, ["ns", "tb"])
+    restored = {}
+    for name, cls in (("torch", TorchStorage), ("tpu", TpuStorage)):
+        pkg, lim = limiters[name]
+        path = str(tmp_path / f"{name}.ckpt")
+        lim.storage.counters.snapshot(path)
+        if name == "torch":
+            storage = cls.restore(path, clock=clock, device="cpu")
+        else:
+            storage = cls.restore(path, clock=clock)
+        assert storage._capacity == 64
+        restored[name] = (pkg, pkg.RateLimiter(storage))
+    _add_limits(restored, LIMITS)
+    t, j = (restored[n][1].storage.counters for n in ("torch", "tpu"))
+    # the hit accumulator is telemetry: both restore it as zeros
+    for name, a, b in zip(("values", "expiry_ms", "hits"), t._state,
+                          j._state):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), name)
+    assert t._table.info.keys() == j._table.info.keys()
+    assert t._epoch == j._epoch
+    assert sorted(map(str, t._big)) == sorted(map(str, j._big))
+    _assert_final(restored, ["ns", "tb"])
+    spec = {s.get("name"): s for s in LIMITS}
+    items = {
+        name: [(pkg.Counter(pkg.Limit(**spec[n]), {"descriptors[0].u": u}), d)
+               for n, u, d in (("l12", "1", 2), ("tb7", "2", 1),
+                               ("big", "3", 5), ("l12", "1", 1))]
+        for name, (pkg, _lim) in restored.items()
+    }
+    assert t.apply_deltas(items["torch"]) == j.apply_deltas(items["tpu"])
+    _drive(restored, clock, rng, 100, users, ["ns", "tb"])
+    _assert_final(restored, ["ns", "tb"])

@@ -143,3 +143,47 @@ def hits_column(rng, kind):
         hits[:C] = rng.integers(0, NEVER, C)
     hits[C] = 3  # scratch garbage: zeroed, never reported
     return hits
+
+
+MAX_VALUE_CAP = 1 << 30
+
+
+def remote_lanes(rng, now_ms, lanes, values, n_slots=C):
+    """The replicated node's remote lanes (int32[C+1] each) for ``lanes``:
+    window slots with live and expired remote sums up to MAX_VALUE_CAP,
+    bucket slots with a remote TAT ahead of and behind ``now_ms``, empty
+    slots, and the scratch row left 0. ``values`` (the table's values
+    column) is changed in place so that some live local counts sit near
+    2**31 and local + remote crosses it, where int32 wraps."""
+    remote_vals = np.zeros(C + 1, np.int32)
+    remote_exp = np.zeros(C + 1, np.int32)
+    for slot in range(n_slots):
+        is_bucket, maxv, win = lanes[slot]
+        kind = rng.random()
+        if is_bucket:
+            if kind < 0.4:  # remote TAT ahead: a peer spent tokens
+                ahead = int(rng.integers(0, maxv + 3)) * win
+                remote_exp[slot] = min(now_ms + ahead, NEVER)
+            elif kind < 0.7:  # behind now: the bucket refilled
+                remote_exp[slot] = max(now_ms - int(rng.integers(0, 5000)),
+                                       0)
+        elif kind < 0.45:  # live remote window sum
+            remote_vals[slot] = int(rng.choice(
+                [1, 2, 5, 40, MAX_VALUE_CAP - 1, MAX_VALUE_CAP]))
+            remote_exp[slot] = now_ms + int(rng.integers(1, 60_000))
+        elif kind < 0.65:  # expired (and exactly at now: not live)
+            remote_vals[slot] = int(rng.integers(1, 100))
+            remote_exp[slot] = now_ms - int(rng.integers(0, 3))
+        elif kind < 0.75:  # local count near 2**31
+            values[slot] = NEVER - int(rng.integers(0, 50))
+            remote_vals[slot] = MAX_VALUE_CAP
+            remote_exp[slot] = now_ms + 60_000
+    return remote_vals, remote_exp
+
+
+def remote_rows(rng, n, n_slots=C):
+    """n unique slots with (sum, expiry) rows: the dirty-remote flush."""
+    slots = rng.choice(n_slots, n, replace=False).astype(np.int32)
+    sums = rng.integers(0, MAX_VALUE_CAP + 1, n).astype(np.int32)
+    exps = rng.integers(0, NEVER, n).astype(np.int32)
+    return slots, sums, exps
