@@ -18,7 +18,10 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    fewer live slots than k, and k up to C; the replicated check (B6a)
    and update (B6b) over remote lanes with live and expired sums, bucket
    floors and sums past 2^31 (and B6a with zero lanes against B1), the
-   remote-sum scatter (B6c) over unique slots.
+   remote-sum scatter (B6c) over unique slots, the tier promotion seed
+   (B4d) at the promotion path's n = 1 and at larger batches with padding
+   and a nonzero scratch row, the device-scalar epoch rebase (B4b) with
+   shifts 0, 1, 999,000 and 2^31 - 1.
 4. The main path: the port's gRPC server on the card (capacity 1<<20)
    answers Envoy ShouldRateLimit and Kuadrant CheckRateLimit/Report over a
    real channel, with a hot reload and an epoch rebase; every answer is
@@ -47,6 +50,20 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    node's view exact after five gossip periods, spent users refused on
    every node, over-admission and per-node latency recorded. A replicated
    node must launch B6a/B6b/B6c and never B1/B2.
+9. Tiers: (a) TieredStorage (capacity 1<<20, hot set 1<<16) on the card,
+   frozen clock, 40 batches of 8192 one-hit requests through check_many
+   over 1<<22 Zipf-0.99 users (20% to a token bucket), a TierManager
+   round (batch 1024) after every fourth batch, one round killed between
+   its phases, and a lull of rounds without traffic half-way until one
+   promotes: every row against an InMemoryStorage fed the same requests,
+   the final counters against its get_counters, B4d and B3a launched;
+   (b) a server built by server.start with --tier-mode on --pipeline
+   native --cache-size 256 --tier-migrate-interval 0.2 answers 2,000
+   sequential calls over 600 users, leases off (every answer equal to a
+   memory server's), on with the usage observatory off (no user over
+   the limit, token conservation, reclaim_slots settled tokens), and on
+   with the default observatory (--usage-topk 64: no user over the limit,
+   token conservation), with no tier failure.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -86,6 +103,10 @@ NATIVE_BATCHES = 100
 # Python gossip merges between batches: 30 batches (245,760 decisions)
 # keep it inside the script's time limit (PERF.md).
 REPLICATION_BATCHES = 30
+# Phase 9a: 40 batches of 8192 hits (327,680 decisions) reach about 124k
+# distinct users over 1<<22, about twice the 1<<16 hot set.
+TIER_BATCHES = 40
+SEED_NS = (1, 5, 1000)
 KERNEL_SOURCE = "limitador_tpu_torch/csrc/counter_table.cu"
 REPLACES = {
     "check_and_update": "limitador_tpu/ops/kernel.py:153",
@@ -93,7 +114,9 @@ REPLACES = {
     "read_slots": "limitador_tpu/ops/kernel.py:651",
     "clear_slots": "limitador_tpu/ops/kernel.py:662",
     "rebase_epoch": "limitador_tpu/ops/kernel.py:688",
+    "rebase_epoch_device": "limitador_tpu/ops/kernel.py:700",
     "credit": "limitador_tpu/ops/kernel.py:580",
+    "seed_slots": "limitador_tpu/ops/kernel.py:626",
     "drain_top_hits": "limitador_tpu/ops/kernel.py:673",
     "replicated_check": "limitador_tpu/tpu/replicated.py:55",
     "replicated_update": "limitador_tpu/tpu/replicated.py:96",
@@ -101,12 +124,13 @@ REPLACES = {
 }
 # the shape each kernel sees on the main path, for the JSON line (B4c:
 # rows of a lease settle; B5: k of the default --usage-topk; B6c: rows of
-# a phase-8a flush)
+# a phase-8a flush; B4d: one promoted key; B4b: no caller, the whole
+# column as B4a)
 MAIN_SHAPE = {
     "check_and_update": 8192, "update": 8, "read_slots": 8,
-    "clear_slots": 8, "rebase_epoch": C + 1, "credit": 1024,
-    "drain_top_hits": 64, "replicated_check": 8192,
-    "replicated_update": 8, "apply_remote": 12288,
+    "clear_slots": 8, "rebase_epoch": C + 1, "rebase_epoch_device": C + 1,
+    "credit": 1024, "seed_slots": 1, "drain_top_hits": 64,
+    "replicated_check": 8192, "replicated_update": 8, "apply_remote": 12288,
 }
 # kernels each main-path phase must launch
 PHASE4_KERNELS = ("check_and_update", "update", "read_slots",
@@ -120,6 +144,12 @@ PHASE8A_KERNELS = ("replicated_check", "apply_remote", "read_slots",
 PHASE8B_KERNELS = ("replicated_check", "replicated_update", "apply_remote",
                    "read_slots")
 PLAIN_KERNELS = ("check_and_update", "update")
+# tiers: evictions and demotions peek through B3a, promotions seed
+# through B4d; with leases, demotions settle through B4c
+PHASE9A_KERNELS = ("check_and_update", "read_slots", "seed_slots")
+PHASE9B_KERNELS = PHASE9A_KERNELS
+PHASE9B_LEASE_KERNELS = PHASE9A_KERNELS + ("credit",)
+PHASE9B_SERVED_KERNELS = PHASE9A_KERNELS + ("drain_top_hits",)
 
 
 def fail(msg: str) -> None:
@@ -242,6 +272,23 @@ def _batch(rng, H, lanes):
         np.asarray(col + [fill] * pad, dt)
         for col, fill, dt in zip(cols, fills, dtypes)
     )
+
+
+def _seed_rows(rng, H, n, now_ms):
+    """A B4d batch: n unique real slots with absolute values and
+    expiries (0, INT32_MAX, window ends, bucket TATs with value 0), padded
+    to H with scratch rows."""
+    slots = rng.choice(C, n, replace=False).astype(np.int32)
+    values = rng.integers(0, 1 << 30, n).astype(np.int32)
+    expiry = rng.integers(0, 2 * now_ms, n).astype(np.int32)
+    edge = rng.random(n)
+    expiry[edge < 0.1] = 0
+    expiry[(edge >= 0.1) & (edge < 0.2)] = NEVER
+    values[(edge >= 0.2) & (edge < 0.4)] = 0
+    pad = H - n
+    return (np.concatenate([slots, np.full(pad, C, np.int32)]),
+            np.concatenate([values, np.zeros(pad, np.int32)]),
+            np.concatenate([expiry, np.zeros(pad, np.int32)]))
 
 
 def _credit_rows(rng, H, now_ms, base):
@@ -633,6 +680,58 @@ def phase_kernels(dev):
                      "rebase_expiry_kernel")
     record("rebase_epoch", C + 1, _max_abs_err(errs), ms, plain_ms,
            8 * (C + 1), device_ms=dms)
+    # B4b: the rebase by a device scalar, no host sync
+    errs = []
+    for shift in (0, 1, 999_000, NEVER):
+        d_shift = torch.tensor([shift], dtype=torch.int32, device=dev)
+        ta, tb = tables(), tables()
+        K.rebase_epoch(ta, d_shift)
+        K.rebase_epoch_plain(tb, d_shift)
+        errs.extend(zip(ta, tb))
+    torch.cuda.synchronize()
+    d_shift = torch.tensor([1000], dtype=torch.int32, device=dev)
+    t = tables()
+    ms = _median_ms(lambda: K.rebase_epoch(t, d_shift))
+    plain_ms = _median_ms(lambda: K.rebase_epoch_plain(t, d_shift))
+    dms = _device_ms(lambda: K.rebase_epoch(t, d_shift), None,
+                     "rebase_epoch_kernel")
+    record("rebase_epoch_device", C + 1, _max_abs_err(errs), ms, plain_ms,
+           8 * (C + 1) + 4, device_ms=dms)
+    # B4d: the promotion seed; n = 1 is the promotion path's size
+    for n in SEED_NS:
+        H = 8 if n <= 8 else 1024
+        errs = []
+        for dirty in (False, True):
+            start_np = [a.copy() for a in base_np]
+            if dirty:
+                for a in start_np:
+                    a[C] = int(rng.integers(1, 1000))
+            rows = _seed_rows(rng, H, n, now_ms)
+            args = tuple(torch.from_numpy(a).to(dev) for a in rows)
+            start = [torch.from_numpy(a).to(dev) for a in start_np]
+            ta = K.CounterTableState(*(x.clone() for x in start))
+            tb = K.CounterTableState(*(x.clone() for x in start))
+            K.seed_slots(ta, *args)
+            K.seed_slots_plain(tb, *args)
+            errs.extend(zip(ta, tb))
+            if int(ta.values[C]) or int(ta.expiry_ms[C]):
+                errs.append((torch.ones(1), torch.zeros(1)))
+        torch.cuda.synchronize()
+        err = _max_abs_err(errs)
+        idx = args[0][:n].long()
+        stacked = torch.stack(list(base))
+        new_rows = torch.stack([args[1][:n], args[2][:n],
+                                torch.zeros_like(args[1][:n])])
+        ms = _median_ms(lambda t: K.seed_slots(t, *args), lambda: (tables(),))
+        plain_ms = _median_ms(lambda t: K.seed_slots_plain(t, *args),
+                              lambda: (tables(),))
+        lib_ms = _median_ms(lambda t: t.index_copy_(1, idx, new_rows),
+                            lambda: (stacked.clone(),))
+        dms = _device_ms(lambda t: K.seed_slots(t, *args),
+                         lambda: (tables(),), "seed_slots_kernel")
+        pad = H - n
+        record("seed_slots", n, err, ms, plain_ms,
+               24 * n + 4 * pad + 8 + (4 if pad else 0), lib_ms, dms)
     # B4c: the lease credit, edge rows included
     for H in CREDIT_HS:
         cols = [t.cpu().numpy().copy() for t in base]
@@ -1592,6 +1691,320 @@ async def _served_replication(tmpdir, dev, card, calls=2000, users=50,
     }
 
 
+# -- phase 9 ----------------------------------------------------------------
+
+
+def phase_tiered_drive(dev, card, batches=TIER_BATCHES, hits=8192,
+                       users=1 << 22, cache_size=1 << 16, capacity=C,
+                       round_every=4, manager_batch=1024):
+    """Phase 9a: TieredStorage(capacity, cache_size) on ``dev``, frozen
+    clock advanced 50 ms per batch, one-hit requests through check_many:
+    80% under the phase-5 limit (100 per hour), 20% under a token bucket
+    of 20 per minute on a second namespace, users Zipf-0.99 over
+    ``users``. A TierManager round runs after every ``round_every``-th
+    batch, one of them killed between its phases. Once half the batches
+    have run, the drive pauses: manager rounds with no traffic, until one
+    promotes (while traffic runs, demand evictions hold the hot set at
+    its cap and the manager's headroom rule promotes nothing). Every row
+    must equal serial order on an InMemoryStorage fed the same requests
+    on the same clock, the final get_counters must agree, and the drive
+    must have launched B4d (promotions) and B3a (demotion peeks)."""
+    from limitador_tpu_torch import Counter, InMemoryStorage, Limit
+    from limitador_tpu_torch.device.storage import _Request
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.tier import TieredStorage, TierManager
+
+    clock = ManualClock()
+    storage = TieredStorage(capacity=capacity, cache_size=cache_size,
+                            clock=clock, device=dev)
+    oracle = InMemoryStorage(cache_size=1 << 30, clock=clock)
+    window = Limit("tier", 100, 3600, [], ["u"], name="per-user")
+    bucket = Limit("tier-tb", 20, 60, [], ["u"], name="per-user-tb",
+                   policy="token_bucket")
+    manager = TierManager(storage, batch=manager_batch)
+    rng = np.random.default_rng(55)
+    keys = zipf_keys(users, batches * hits, 0.99, rng)
+    to_bucket = rng.random(batches * hits) < 0.2
+    spent = {"check": 0.0, "peeks": 0.0, "rounds": 0.0, "oracle": 0.0}
+    peek = storage.peek_slots
+    peeks = [0]
+    in_check = [False]
+
+    def timed_peek(slots):
+        if not in_check[0]:
+            return peek(slots)
+        peeks[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return peek(slots)
+        finally:
+            spent["peeks"] += time.perf_counter() - t0
+
+    storage.peek_slots = timed_peek
+    K.reset_launches()
+    rounds, lull_rounds, killed = [], 0, False
+    limited = np.zeros(batches * hits, bool)
+    want = np.zeros(batches * hits, bool)
+    names = {}
+
+    def run_round(kill=False):
+        def die():
+            raise RuntimeError("phase 9a: killed between phase A and B")
+
+        manager.kill_hook = die if kill else None
+        t0 = time.perf_counter()
+        out = manager.run_once()
+        manager.kill_hook = None
+        spent["rounds"] += time.perf_counter() - t0
+        rounds.append(out)
+        return out
+
+    t_start = time.perf_counter()
+    for b in range(batches):
+        lo, hi = b * hits, (b + 1) * hits
+        counters = []
+        for k, is_tb in zip(keys[lo:hi].tolist(), to_bucket[lo:hi].tolist()):
+            name = names.get(k)
+            if name is None:
+                name = names[k] = str(k)
+            counters.append(Counter(bucket if is_tb else window, {"u": name}))
+        peeks0, t0 = spent["peeks"], time.perf_counter()
+        in_check[0] = True
+        auths = storage.check_many([_Request([c], 1, False)
+                                    for c in counters])
+        in_check[0] = False
+        spent["check"] += time.perf_counter() - t0 - (spent["peeks"] - peeks0)
+        limited[lo:hi] = [a.limited for a in auths]
+        t0 = time.perf_counter()
+        want[lo:hi] = [oracle.check_and_update([Counter(c.limit,
+                                                        c.set_variables)],
+                                               1, False).limited
+                       for c in counters]
+        spent["oracle"] += time.perf_counter() - t0
+        clock.now += 0.05
+        if (b + 1) % round_every == 0:
+            kill = not killed and b + 1 == 3 * round_every
+            out = run_round(kill)
+            killed = killed or out["aborted"]
+        if b + 1 == batches // 2:
+            # the lull: rounds with no traffic until one promotes
+            while lull_rounds < 32:
+                lull_rounds += 1
+                if run_round()["promoted"]:
+                    break
+    seconds = time.perf_counter() - t_start - spent["oracle"]
+    launches = dict(K.launches)
+    stats = storage.tier_stats()
+    n = limited.size
+    cold_share = stats["cold"]["decisions"] / n
+    rate = n / seconds
+    print(f"tiered drive: capacity {capacity}, hot set {cache_size}, "
+          f"{batches} batches x {hits} hits over {users} Zipf-0.99 users "
+          f"(20% to a token bucket; {len(names)} distinct) in "
+          f"{seconds:.2f}s = {rate:.0f} decisions/s "
+          f"({int(limited.sum())} limited; {card})")
+    print("tiered drive host time: " + ", ".join(
+        f"{k} {v / batches * 1e3:.2f} ms/batch"
+        for k, v in spent.items() if k != "oracle")
+        + f" (check excludes its {peeks[0]} eviction peeks; rounds include "
+        f"their own peeks)")
+    print(f"tiered drive: cold share of decisions {cold_share:.4f} "
+          f"({stats['cold']['decisions']} of {n}); resident device "
+          f"{stats['device_resident']}, cold {stats['cold']['resident']}; "
+          f"demotions {stats['cold']['demotions']}, promotions "
+          f"{stats['cold']['promotions']}; {len(rounds)} rounds "
+          f"({lull_rounds} in the lull, {manager.aborted} killed): "
+          f"{json.dumps(manager.stats())}")
+    print(f"tiered drive launches: {json.dumps(launches)}")
+    if not killed:
+        fail("tiered drive: the killed round did not abort")
+    if not np.array_equal(limited, want):
+        fail(f"tiered drive rows differ from serial order at "
+             f"{int(np.flatnonzero(limited != want)[0])}")
+    got = {(c.limit.name, c.set_variables["u"]): (c.remaining, c.expires_in)
+           for c in storage.get_counters({window, bucket})}
+    exp = {(c.limit.name, c.set_variables["u"]): (c.remaining, c.expires_in)
+           for c in oracle.get_counters({window, bucket})}
+    if got.keys() != exp.keys():
+        fail(f"tiered drive: get_counters lists {len(got)} counters, the "
+             f"oracle {len(exp)}")
+    # the device keeps expiries in whole ms: ttls agree within 2 ms
+    bad = [k for k in got if got[k][0] != exp[k][0]
+           or abs(got[k][1] - exp[k][1]) > 0.002]
+    if bad:
+        fail(f"tiered drive: {len(bad)} counters differ from the oracle "
+             f"(first {bad[0]}: {got[bad[0]]} vs {exp[bad[0]]})")
+    missing = [k for k in PHASE9A_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels not launched on the tiered drive: {missing}")
+    print(f"tiered drive: {n} rows equal serial order; get_counters equals "
+          f"the oracle's ({len(got)} counters); B4d launched "
+          f"{launches['seed_slots']} times, B3a {launches['read_slots']}")
+    storage.close()
+    return launches, {
+        "decisions_per_s": rate, "seconds": seconds,
+        "host_ms_per_batch": {k: v / batches * 1e3
+                              for k, v in spent.items()},
+        "eviction_peeks": peeks[0], "cold_share": cold_share,
+        "device_resident": stats["device_resident"],
+        "cold_resident": stats["cold"]["resident"],
+        "demotions": stats["cold"]["demotions"],
+        "promotions": stats["cold"]["promotions"],
+        "rounds": len(rounds), "lull_rounds": lull_rounds,
+        "distinct_users": len(names),
+    }
+
+
+TIERED_YAML = """\
+- namespace: tier
+  max_value: {max_value}
+  seconds: 3600
+  variables: ["descriptors[0].user"]
+  name: per-user
+"""
+
+
+async def _served_tiers(tmpdir, dev, card, leases, calls=2000, users=600,
+                        max_value=20, extra=(), label=None,
+                        need_reclaim=True):
+    """Phase 9b: a server built by ``server.start`` with ``torch
+    --tier-mode on --pipeline native --cache-size 256
+    --tier-migrate-interval 0.2`` (and ``--lease-mode on``), 2,000
+    sequential ShouldRateLimit calls over 600 Zipf-0.99 users under 20 per
+    hour, the storage clock frozen. Leases off: every answer equals a
+    memory-storage server's on the same clock. Leases on: no user is
+    admitted more than 20 times, granted = admissions + returned +
+    outstanding at the end, and (with ``need_reclaim``) ``reclaim_slots``
+    settled tokens. Either way the manager ran rounds, demoted and
+    promoted, and recorded no failure."""
+    import grpc
+
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = label or ("served tiers (leases on)" if leases
+                      else "served tiers")
+    limits = os.path.join(tmpdir, "tiered.yaml")
+    with open(limits, "w") as f:
+        f.write(TIERED_YAML.format(max_value=max_value))
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    parse = server.build_parser().parse_args
+    clock = ManualClock()
+    failures = []
+    argv = [limits, "torch", "--device", dev.type, "--rls-host", "127.0.0.1",
+            "--rls-port", str(ports[0]), "--tier-mode", "on", "--pipeline",
+            "native", "--cache-size", "256", "--tier-migrate-interval", "0.2"]
+    if leases:
+        argv += ["--lease-mode", "on"]
+    argv += list(extra)
+    rng = np.random.default_rng(66 if leases else 65)
+    who = zipf_keys(users, calls, 0.99, rng)
+    K.reset_launches()
+    tiered = await server.start(parse(argv), clock=clock,
+                                on_failure=failures.append)
+    oracle = None
+    if not leases:
+        oracle = await server.start(parse(
+            [limits, "memory", "--rls-host", "127.0.0.1", "--rls-port",
+             str(ports[1])]), clock=clock)
+    reclaimed = [0]
+    broker = tiered.native_pipeline.lease_broker
+    if broker is not None:
+        reclaim = broker.reclaim_slots
+
+        def counted_reclaim(slots):
+            got = reclaim(slots)
+            reclaimed[0] += got
+            return got
+
+        broker.reclaim_slots = counted_reclaim
+    envoy = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+    ok = rls_pb2.RateLimitResponse.OK
+    admitted = np.zeros(users, np.int64)
+    lat = []
+    mismatches = 0
+    try:
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{ports[0]}") as tc:
+            oc = (grpc.aio.insecure_channel(f"127.0.0.1:{ports[1]}")
+                  if oracle is not None else None)
+            t0 = time.perf_counter()
+            for i, u in enumerate(who.tolist()):
+                blob = _rls_request(rls_pb2, "tier", [{"user": f"t{u}"}])
+                t1 = time.perf_counter()
+                got = await tc.unary_unary(envoy)(blob, timeout=60)
+                lat.append(time.perf_counter() - t1)
+                if rls_pb2.RateLimitResponse.FromString(
+                        got).overall_code == ok:
+                    admitted[u] += 1
+                if oc is not None:
+                    want = await oc.unary_unary(envoy)(blob, timeout=60)
+                    mismatches += got != want
+            seconds = time.perf_counter() - t0
+            if oc is not None:
+                await oc.close()
+        # let a last round run after the drive
+        await asyncio.sleep(0.5)
+        manager = tiered.tier_manager
+        mstats = manager.stats()
+        tstats = tiered.storage.tier_stats()
+        lstats = broker.stats() if broker is not None else None
+    finally:
+        await tiered.stop()
+        if oracle is not None:
+            await oracle.stop()
+    launches = dict(K.launches)
+    lat_ms = np.asarray(lat) * 1e3
+    print(f"{label}: {calls} calls over {users} users, limit "
+          f"{max_value}/h, hot set 256, in {seconds:.2f}s; p50 "
+          f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
+          f"{np.percentile(lat_ms, 99):.3f} ms ({dev.type}; {card})")
+    print(f"{label}: manager {json.dumps(mstats)}; resident device "
+          f"{tstats['device_resident']}, cold {tstats['cold']['resident']}, "
+          f"demotions {tstats['cold']['demotions']}, promotions "
+          f"{tstats['cold']['promotions']}, cold decisions "
+          f"{tstats['cold']['decisions']}")
+    print(f"{label} launches: {json.dumps(launches)}")
+    if failures or manager.error is not None:
+        fail(f"{label}: a background tier failed: {failures!r}")
+    if mstats["rounds"] == 0 or tstats["cold"]["demotions"] == 0 \
+            or tstats["cold"]["promotions"] == 0:
+        fail(f"{label}: the tiers did not move counters")
+    out = {"seconds": seconds, "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)), "manager": mstats,
+           "demotions": tstats["cold"]["demotions"],
+           "promotions": tstats["cold"]["promotions"]}
+    if not leases:
+        if mismatches:
+            fail(f"{label}: {mismatches} answers differ from the oracle's")
+        print(f"{label}: every answer equals the memory oracle's")
+        return launches, out
+    conserved = lstats["lease_granted_tokens"] == (
+        lstats["lease_admissions"] + lstats["lease_returned_tokens"]
+        + lstats["lease_outstanding_tokens"])
+    if not conserved:
+        fail(f"{label}: token conservation broke: {lstats}")
+    if admitted.max() > max_value:
+        fail(f"{label}: a user was admitted {int(admitted.max())} times, "
+             f"over the limit of {max_value}")
+    if need_reclaim and reclaimed[0] <= 0:
+        fail(f"{label}: reclaim_slots settled no tokens ({lstats})")
+    print(f"{label}: max admitted per user {int(admitted.max())} <= "
+          f"{max_value}; granted {lstats['lease_granted_tokens']} = "
+          f"admissions {lstats['lease_admissions']} + returned "
+          f"{lstats['lease_returned_tokens']} + outstanding "
+          f"{lstats['lease_outstanding_tokens']}; reclaim_slots settled "
+          f"{reclaimed[0]} tokens")
+    out.update(reclaimed_tokens=reclaimed[0], lease=lstats,
+               max_admitted=int(admitted.max()))
+    return launches, out
+
+
 def main() -> int:
     name, card = phase_card()
     import torch
@@ -1619,10 +2032,38 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         served_launches, served = asyncio.run(
             _served_replication(tmpdir, dev, card))
-    # launches on the main paths: phases 4, 6, 7, 8a and 8b
-    launches = {name: launches[name] + native_launches[name]
-                + drive_launches[name] + repl_launches[name]
-                + served_launches[name] for name in launches}
+    tier_launches, tiered = phase_tiered_drive(dev, card)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        served_tier_launches, served_tiers = asyncio.run(
+            _served_tiers(tmpdir, dev, card, leases=False))
+    # Leases on, the observatory off: its veto keeps the hottest counters
+    # resident, and those are the ones that hold leases, so with it on a
+    # demotion meets a live lease only when the veto falls short.
+    with tempfile.TemporaryDirectory() as tmpdir:
+        leased_tier_launches, leased_tiers = asyncio.run(
+            _served_tiers(tmpdir, dev, card, leases=True,
+                          extra=("--usage-topk", "0")))
+    # Leases on and the default observatory, as a server runs by default:
+    # the same checks but reclaim, which the veto may leave idle.
+    with tempfile.TemporaryDirectory() as tmpdir:
+        served_default_launches, served_default = asyncio.run(
+            _served_tiers(tmpdir, dev, card, leases=True,
+                          label="served tiers (leases on, observatory on)",
+                          need_reclaim=False))
+    for label, got, want in (
+            ("served tiers", served_tier_launches, PHASE9B_KERNELS),
+            ("served tiers (leases on)", leased_tier_launches,
+             PHASE9B_LEASE_KERNELS),
+            ("served tiers (leases on, observatory on)",
+             served_default_launches, PHASE9B_SERVED_KERNELS)):
+        missing = [k for k in want if got[k] == 0]
+        if missing:
+            fail(f"kernels not launched on {label}: {missing}")
+    # launches on the main paths: phases 4, 6, 7, 8a, 8b, 9a and 9b
+    runs = (launches, native_launches, drive_launches, repl_launches,
+            served_launches, tier_launches, served_tier_launches,
+            leased_tier_launches, served_default_launches)
+    launches = {name: sum(run[name] for run in runs) for name in launches}
     kernels = []
     for kname, by_shape in results.items():
         rec = by_shape[MAIN_SHAPE[kname]]
@@ -1649,6 +2090,10 @@ def main() -> int:
                                     "seconds": leased[2]},
             "replication_drive": repl,
             "served_replication": served,
+            "tiered_drive": tiered,
+            "served_tiers": served_tiers,
+            "served_tiers_leases": leased_tiers,
+            "served_tiers_default": served_default,
         }, f, indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -41,9 +41,11 @@
 //   4. Outputs scatter back to input order through the sort permutation;
 //      each segment's last hit writes its cell.
 //
-// read_slots (:651-659), clear_slots (:662-669) and the epoch rebase
-// (rebase_epoch_chunked, :688-696) are grid-stride loops over their
-// indices; they are bound by bytes and are a few lines each.
+// read_slots (:651-659), clear_slots (:662-669) and the two epoch
+// rebases (rebase_epoch_chunked, :688-696, and rebase_epoch, :699-707)
+// are grid-stride loops over their indices; they are bound by bytes and
+// are a few lines each. So is the tier promotion seed (seed_slots,
+// :625-648).
 //
 // The replicated topology (limitador_tpu/tpu/replicated.py:55-125) reuses
 // the check and the update as templates on kRemote: B6a is the check with
@@ -502,7 +504,7 @@ __global__ void __launch_bounds__(kThreads, 1) update_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// B3a, B3b, B4a: grid-stride loops.
+// B3a, B3b, B4a, B4b, B4d: grid-stride loops.
 
 __global__ void read_slots_kernel(const int32_t* __restrict__ values,
                                   const int32_t* __restrict__ expiry,
@@ -531,12 +533,71 @@ __global__ void clear_slots_kernel(int32_t* __restrict__ values,
   }
 }
 
+// One expiry moved back by `shift`, clamped at 0 (B4a and B4b).
+__device__ __forceinline__ int32_t rebased(int32_t e, int32_t shift) {
+  return imax(wsub(e, shift), 0);
+}
+
 __global__ void rebase_expiry_kernel(int32_t* __restrict__ expiry, int n,
                                      int32_t step) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
-    expiry[i] = imax(wsub(expiry[i], step), 0);
+    expiry[i] = rebased(expiry[i], step);
   }
+}
+
+// B4b: the epoch rebase by a device scalar (rebase_epoch,
+// ops/kernel.py:699-707). The same grid-stride loop as B4a, but the
+// shift is read from device memory, as the JAX program takes a device
+// array, so the launch needs no host sync. Each thread reads the scalar
+// once. Bound: bytes, the column read and written once: 8 (C + 1) bytes,
+// 2.5 us at C = 1 << 20.
+__global__ void rebase_epoch_kernel(int32_t* __restrict__ expiry, int n,
+                                    const int32_t* __restrict__ shift_ms) {
+  const int32_t shift = *shift_ms;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    expiry[i] = rebased(expiry[i], shift);
+  }
+}
+
+// B4d: the tier promotion seed (seed_slots, ops/kernel.py:625-648).
+// One thread per row writes value and expiry verbatim and zeroes hits.
+// Real slots are unique by the callers' construction (a promotion seeds
+// one slot per promoted key; the slot was just allocated), so no two
+// rows write one cell and the order of writes does not matter. Padding
+// rows (slot C) write nothing. The JAX program's end state of the
+// scratch row: its value and expiry reset to 0 always, its hits zeroed
+// only when some row is padding (the hits scatter lands there). Global
+// thread 0 resets value and expiry; each block ORs "a row of mine is
+// padding" and its thread 0 then zeroes the scratch hits; no row write
+// races either (real rows never touch row C). Bound: bytes, 12 bytes of
+// row read and 12 written per real row: 24 bytes. At n = 1, the
+// promotion path's size, it is launch-bound.
+__global__ void seed_slots_kernel(int32_t* __restrict__ values,
+                                  int32_t* __restrict__ expiry,
+                                  int32_t* __restrict__ hits,
+                                  const int32_t* __restrict__ slots,
+                                  const int32_t* __restrict__ seed_v,
+                                  const int32_t* __restrict__ seed_e, int H,
+                                  int scratch) {
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  if (first == 0) {
+    values[scratch] = 0;
+    expiry[scratch] = 0;
+  }
+  int padding = 0;
+  for (int i = first; i < H; i += gridDim.x * blockDim.x) {
+    const int s = slots[i];
+    if (s == scratch) {
+      padding = 1;
+      continue;
+    }
+    values[s] = seed_v[i];
+    expiry[s] = seed_e[i];
+    hits[s] = 0;
+  }
+  if (__syncthreads_or(padding) && threadIdx.x == 0) hits[scratch] = 0;
 }
 
 // B6c: the remote-sum scatter (_apply_remote, tpu/replicated.py:120-125).
@@ -956,6 +1017,21 @@ int ct_rebase_expiry(void* expiry, int n, int step, void* stream) {
   return (int)cudaGetLastError();
 }
 
+int ct_rebase_epoch(void* expiry, int n, const void* shift_ms,
+                    void* stream) {
+  rebase_epoch_kernel<<<grid_for(n), 256, 0, (cudaStream_t)stream>>>(
+      (int32_t*)expiry, n, (const int32_t*)shift_ms);
+  return (int)cudaGetLastError();
+}
+int ct_seed_slots(void* values, void* expiry, void* hits, const void* slots,
+                  const void* seed_v, const void* seed_e, int H,
+                  int scratch, void* stream) {
+  seed_slots_kernel<<<grid_for(H), 256, 0, (cudaStream_t)stream>>>(
+      (int32_t*)values, (int32_t*)expiry, (int32_t*)hits,
+      (const int32_t*)slots, (const int32_t*)seed_v, (const int32_t*)seed_e,
+      H, scratch);
+  return (int)cudaGetLastError();
+}
 int ct_credit(void* values, void* expiry, const void* slots,
               const void* credits, const void* windows, const void* bucket,
               int H, int scratch, int now_ms, void* stream) {

@@ -899,8 +899,9 @@ class NativeRlsPipeline:
 
         # Lookup -> (alloc misses) -> kernel under the storage lock, so a
         # concurrent LRU eviction cannot recycle a looked-up slot between
-        # lookup and kernel.
-        with self.storage._lock:
+        # lookup and kernel; every slot staged is pinned until the launch,
+        # so this batch's own allocations cannot recycle one either.
+        with self.storage._lock, self.storage.pinning() as pinned:
             # Phase 1: evaluate + resolve slots for EVERY limit before
             # building hit arrays: a late allocation failure must void the
             # failed request's deltas on earlier limits too.
@@ -921,9 +922,11 @@ class NativeRlsPipeline:
                     keys[:, 2 + j] = vc[idx]
                 slots = self.hp.slots_lookup(keys)
                 fresh = slots < 0
+                pinned.update(slots[~fresh].tolist())
                 if fresh.any():
                     self._allocate_missing(
-                        limit, var_cols, idx, keys, slots, fresh, failed_reqs
+                        limit, var_cols, idx, keys, slots, fresh, failed_reqs,
+                        pinned,
                     )
                     # failed allocations leave slot -1: point them at the
                     # inert scratch cell with delta 0
@@ -1093,13 +1096,15 @@ class NativeRlsPipeline:
             results[rows_list[local]] = _STORAGE_ERROR
 
     def _allocate_missing(
-        self, limit, var_cols, idx, keys, slots, fresh_mask, failed_reqs
+        self, limit, var_cols, idx, keys, slots, fresh_mask, failed_reqs,
+        pinned,
     ) -> None:
         """Slot-map misses: allocate through the storage's key space (so
-        LRU/eviction bookkeeping stays authoritative) and mirror into the
-        native map. A per-counter StorageError fails only its own request
-        (recorded in ``failed_reqs``), never the batch. Caller holds the
-        storage lock."""
+        LRU/eviction bookkeeping stays authoritative), pin the slot for
+        this launch and mirror it into the native map. A per-counter
+        StorageError fails only its own request (recorded in
+        ``failed_reqs``), never the batch. Caller holds the storage
+        lock."""
         var_sources = [v.source for v in limit.variables]
         storage = self.storage
         for pos in np.nonzero(fresh_mask)[0]:
@@ -1113,9 +1118,11 @@ class NativeRlsPipeline:
             except StorageError:
                 failed_reqs.add(int(idx[pos]))
                 continue
+            pinned.add(slot)
             # The key may already live in the Python key space (counter
-            # created via the per-request path): then the cell is LIVE
-            # and must not be reset by the fresh flag.
+            # created via the per-request path, or a cold key promoted on
+            # the way in): then the cell is LIVE and must not be reset by
+            # the fresh flag.
             fresh_mask[pos] = is_fresh
             key = keys[pos].copy()
             self.hp.slots_insert(key, slot)

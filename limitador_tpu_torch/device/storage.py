@@ -127,6 +127,20 @@ def _staged(values, H: int, fill, dtype) -> np.ndarray:
     return arr
 
 
+def cell_rows(cells) -> dict:
+    """Checkpoint form of a host cell map (key -> (cell, counter)): key ->
+    (a, b, counter), the cell's two scalars as ``restore_cell`` takes
+    them, (tat, scale) for buckets and (value, expiry) for windows."""
+    return {
+        key: (
+            (cell.tat, cell.scale, counter)
+            if isinstance(cell, GcraValue)
+            else (cell.value_raw, cell.expiry, counter)
+        )
+        for key, (cell, counter) in cells.items()
+    }
+
+
 def hot_attribution(counter: Counter, value: int, ttl_ms: int) -> dict:
     """Tenant-usage attribution fields for one drained heavy-hitter slot:
     the slot's counter identity plus the utilization sample read at drain
@@ -483,6 +497,9 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         # slots watched for deferred release (see finish_check_many).
         self._seq = 0
         self._watched_slots: Dict[int, int] = {}
+        # Slots a native begin has staged for the launch it is building
+        # (device/native_pipeline.py); _lru_victim skips them.
+        self._pinned: Optional[Set[int]] = None
         self._init_big(self._cache_size)
 
     @property
@@ -535,13 +552,36 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
     def _key_of(counter: Counter) -> tuple:
         return counter._key()
 
+    @contextlib.contextmanager
+    def pinning(self):
+        """Pin the slots a launch under construction stages (add them to
+        the yielded set) until the block ends: ``_lru_victim`` skips them.
+        Caller holds the lock for the whole block."""
+        pinned = self._pinned = set()
+        try:
+            yield pinned
+        finally:
+            self._pinned = None
+
+    def _lru_victim(self) -> Tuple[tuple, int]:
+        """The least-recently-used qualified (key, slot) that is not
+        pinned. The native lanes find their hits in the C slot map without
+        touching this LRU, so a slot one of their batches has staged can
+        sit at its front; recycling it before that batch launches puts two
+        counters in one cell. Outside a native begin nothing is pinned and
+        this is the LRU front, as in the JAX package (whose native pipeline
+        has that fault: ROADMAP Queue C)."""
+        pinned = self._pinned
+        for key, slot in self._table.qualified.items():
+            if not pinned or slot not in pinned:
+                return key, slot
+        raise StorageError("device counter table full (no evictable slots)")
+
     def _evict_one(self) -> None:
-        """Free the least-recently-used qualified slot. Pure host
+        """Free the least-recently-used unpinned qualified slot. Pure host
         bookkeeping: the recycled slot's stale cell is overridden by the
         kernel's ``fresh`` flag on next allocation."""
-        if not self._table.qualified:
-            raise StorageError("device counter table full (no evictable slots)")
-        key, slot = next(iter(self._table.qualified.items()))
+        key, slot = self._lru_victim()
         self._table.release(slot, key, qualified=True)
 
     def _slot_for(self, counter: Counter, create: bool) -> Tuple[Optional[int], bool]:
@@ -961,6 +1001,41 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
             padded += (_staged(arrays[6], H, False, bool),)
         return padded
 
+    # -- tier migration primitives (tier/storage.py) -----------------------
+
+    def peek_slots(self, slots) -> Tuple[np.ndarray, np.ndarray]:
+        """(value, ttl_ms) host arrays for ``slots`` at the current clock,
+        the read half of an exact demotion: one B3a launch, padded to the
+        pow2 bucket with the scratch slot. Caller holds the lock: the read
+        must be atomic with the residency change it feeds."""
+        n = len(slots)
+        H = _bucket(n)
+        now_ms = self._now_ms()
+        values, ttls = self._read(
+            _staged(np.asarray(slots, np.int32), H, self._scratch, np.int32),
+            now_ms,
+        )
+        return values[:n], ttls[:n]
+
+    def seed_slot_values(self, slots, values, expiry_rel_ms) -> None:
+        """Absolute cell write for ``slots`` (tier promotion): value and
+        epoch-relative expiry land verbatim through one B4d launch, so the
+        counter keeps its exact remaining window (the update lane's
+        ``fresh`` flag would restart it). Caller holds the lock; rows are
+        padded to the pow2 bucket with inert scratch rows."""
+        n = len(slots)
+        if n == 0:
+            return
+        H = _bucket(n)
+        with self._on_device():
+            d_slots, d_values, d_expiry = self._upload(
+                _staged(np.asarray(slots, np.int32), H, self._scratch,
+                        np.int32),
+                _staged(np.asarray(values, np.int32), H, 0, np.int32),
+                _staged(np.asarray(expiry_rel_ms, np.int32), H, 0, np.int32),
+            )
+            K.seed_slots(self._state, d_slots, d_values, d_expiry)
+
     # -- CounterStorage ----------------------------------------------------
 
     def _read(self, slots: Sequence[int], now_ms: int):
@@ -1174,7 +1249,8 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         holds the port's ``Counter`` and ``Limit`` objects, so a JAX
         checkpoint, which pickles ``limitador_tpu`` classes, does not load
         here, nor does this one there. The hit accumulator is telemetry
-        and is not kept."""
+        and is not kept. Host cells ride in the table: the big-limit map
+        here, the cold tier too in ``TieredStorage``."""
         import pickle
 
         with self._lock:
@@ -1189,20 +1265,7 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
             else:
                 values = np.zeros(0, np.int32)
                 expiry = np.zeros(0, np.int32)
-            table = {
-                "capacity": self._capacity,
-                "cache_size": self._cache_size,
-                "epoch": self._epoch,
-                **self._table.dump(),
-                "big": {
-                    key: (
-                        (cell.tat, cell.scale, counter)
-                        if isinstance(cell, GcraValue)
-                        else (cell.value_raw, cell.expiry, counter)
-                    )
-                    for key, (cell, counter) in self._big.items()
-                },
-            }
+            table = self._snapshot_table()
         with open(path, "wb") as f:
             pickle.dump(
                 {
@@ -1213,6 +1276,27 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
                     "table": table,
                 },
                 f,
+            )
+
+    def _snapshot_table(self) -> dict:
+        """The key space and host cells of a checkpoint. Caller holds the
+        lock."""
+        return {
+            "capacity": self._capacity,
+            "cache_size": self._cache_size,
+            "epoch": self._epoch,
+            **self._table.dump(),
+            "big": cell_rows(self._big),
+        }
+
+    def _load_cold(self, rows: dict) -> None:
+        """A checkpoint's cold-tier cells: only ``TieredStorage`` holds
+        them. Loading one here would drop those counters' spent quota, so
+        a tiered checkpoint is refused."""
+        if rows:
+            raise StorageError(
+                f"the checkpoint holds {len(rows)} cold-tier counters; "
+                "restore it into TieredStorage (--tier-mode on)"
             )
 
     @classmethod
@@ -1249,6 +1333,7 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         verified to match). The saved cells scatter back by a plain index
         assignment, as the JAX package's ``.at[].set`` does."""
         table = data["table"]
+        self._load_cold(table.get("cold", {}))
         with self._lock:
             # The saved epoch keeps absolute expiries right; _now_ms
             # rebases on its own schedule afterwards.
@@ -1283,22 +1368,23 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
 
     @classmethod
     def restore(cls, path: str, cache_size=None, clock=time.time,
-                device=None) -> "TorchStorage":
+                device=None, **kwargs) -> "TorchStorage":
         """A storage built from a checkpoint. ``cache_size`` may be
         overridden; the capacity is the checkpoint's (slot indices would
-        shift otherwise)."""
+        shift otherwise). ``kwargs`` go to the constructor (a tiered
+        storage's ``spill_path``)."""
         return cls.from_snapshot(cls.read_snapshot(path), cache_size,
-                                 clock, device)
+                                 clock, device, **kwargs)
 
     @classmethod
     def from_snapshot(cls, data: dict, cache_size=None, clock=time.time,
-                      device=None) -> "TorchStorage":
+                      device=None, **kwargs) -> "TorchStorage":
         """``restore`` from ``read_snapshot``'s contents."""
         table = data["table"]
         self = cls(
             capacity=table["capacity"],
             cache_size=cache_size or table["cache_size"],
-            clock=clock, device=device,
+            clock=clock, device=device, **kwargs,
         )
         self._apply_snapshot(data)
         return self

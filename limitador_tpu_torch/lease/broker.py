@@ -32,9 +32,12 @@ mirror mutation, the storage lock spans plan-fetch -> launch (slot
 liveness) and every credit's identity check. The broker never holds
 both in the inverted order.
 
+The tier demotion pre-pass (``reclaim_slots``) revokes every lease
+touching the slots a TierManager round is about to demote and settles
+them through the same credit lane.
+
 Left out of the port for now (``ROADMAP.md``): the capacity controller's
-``grant_scale`` knob, the flight-recorder phase of the refresh pass and
-the tier demotion pre-pass (``reclaim_slots``).
+``grant_scale`` knob and the flight-recorder phase of the refresh pass.
 """
 
 from __future__ import annotations
@@ -469,6 +472,33 @@ class LeaseBroker:
                 for slot, _key, d, _win, _bucket in lease.hits:
                     out[slot] = out.get(slot, 0) + tokens * d
         return out
+
+    def reclaim_slots(self, slots) -> int:
+        """Revoke every lease touching ``slots`` and credit the
+        unconsumed tokens back through the floor-guarded columnar lane
+        (B4c): the tier demotion pre-pass (tier/manager.py). Settling
+        while the slot identity still matches means a demoted counter
+        strands no quota and its slot's next tenant pays no dead debit.
+        Returns the tokens settled. Lock order broker -> native ->
+        storage, as in refresh."""
+        doomed = set(slots)
+        pipeline = self.pipeline
+        with self._lock:
+            returns: List[Tuple[int, int]] = []
+            with pipeline._native_lock:
+                lane = pipeline._hot_lane
+                if lane is None:
+                    return 0
+                for lease_id, lease in list(self._leases.items()):
+                    if not any(h[0] in doomed for h in lease.hits):
+                        continue
+                    remaining = lane.lease_revoke(lease.blob, lease_id)
+                    if remaining > 0:
+                        returns.append((lease_id, remaining))
+                    else:
+                        # consumed to zero or settled by a racing drain
+                        self._leases.pop(lease_id, None)
+            return self._settle(returns)
 
     def stats(self) -> dict:
         """Cumulative lease-tier stats: C consume counters (carried

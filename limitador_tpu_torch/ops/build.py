@@ -52,6 +52,8 @@ _SIGNATURES = {
     "ct_read_slots": (_I, [_P, _P, _P, _I, _I, _P, _P, _P]),
     "ct_clear_slots": (_I, [_P, _P, _P, _P, _I, _P]),
     "ct_rebase_expiry": (_I, [_P, _I, _I, _P]),
+    "ct_rebase_epoch": (_I, [_P, _I, _P, _P]),
+    "ct_seed_slots": (_I, [_P] * 6 + [_I, _I, _P]),
     "ct_credit": (_I, [_P] * 6 + [_I, _I, _I, _P]),
     "ct_topk_workspace_bytes": (ctypes.c_longlong, [_I, _I]),
     "ct_drain_top_hits": (_I, [_P, _I, _I, _P, _P, _P, _P]),

@@ -16,7 +16,8 @@ Each kernel has three parts here:
   the CUDA kernel against on the card.
 - the wrapper (``check_and_update_batch``, ``update_batch``,
   ``read_slots``, ``clear_slots``, ``rebase_epoch_chunked``,
-  ``credit_batch``, ``drain_top_hits``, ``replicated_check_batch``,
+  ``rebase_epoch``, ``credit_batch``, ``seed_slots``,
+  ``drain_top_hits``, ``replicated_check_batch``,
   ``replicated_update_batch``, ``apply_remote``): on a CUDA
   table it launches the hand-written kernel of
   ``limitador_tpu_torch/csrc/counter_table.cu`` and raises if that fails;
@@ -55,8 +56,12 @@ __all__ = [
     "clear_slots_plain",
     "rebase_epoch_chunked",
     "rebase_expiry_plain",
+    "rebase_epoch",
+    "rebase_epoch_plain",
     "credit_batch",
     "credit_plain",
+    "seed_slots",
+    "seed_slots_plain",
     "drain_top_hits",
     "drain_top_hits_plain",
     "replicated_check_batch",
@@ -86,8 +91,10 @@ launches = {
     "update": 0,
     "read_slots": 0,
     "clear_slots": 0,
-    "rebase_epoch": 0,
+    "rebase_epoch": 0,  # B4a, rebase_epoch_chunked
+    "rebase_epoch_device": 0,  # B4b, rebase_epoch
     "credit": 0,
+    "seed_slots": 0,
     "drain_top_hits": 0,
     "replicated_check": 0,
     "replicated_update": 0,
@@ -575,6 +582,44 @@ def rebase_epoch_chunked(expiry_ms: torch.Tensor, shift: int) -> torch.Tensor:
     return expiry_ms
 
 
+# -- B4b: epoch rebase by a device scalar ------------------------------------
+
+
+def rebase_epoch_plain(
+    state: CounterTableState, shift_ms: torch.Tensor
+) -> CounterTableState:
+    """Plain PyTorch twin of ``rebase_epoch``, in place:
+    expiry = max(expiry - shift_ms, 0), the shift a one-element int32
+    tensor on the table's device (no host read)."""
+    state.expiry_ms.sub_(shift_ms.reshape(())).clamp_min_(0)
+    return state
+
+
+def rebase_epoch(
+    state: CounterTableState, shift_ms: torch.Tensor
+) -> CounterTableState:
+    """Shift every expiry back by ``shift_ms`` (the JAX ``rebase_epoch``):
+    already-expired cells clamp at 0 and stay expired. ``shift_ms`` is a
+    one-element int32 tensor on the table's device, read by the kernel,
+    so the launch needs no host sync. In place. ``TorchStorage`` rebases
+    through ``rebase_epoch_chunked`` (its shift is a host int that may
+    exceed int32), as the JAX storage does; nothing on the serving paths
+    calls this one."""
+    if not _on_cuda(state.values):
+        return rebase_epoch_plain(state, shift_ms)
+    from . import build
+
+    dev = state.values.device
+    _require_table(state)
+    _require(shift_ms.reshape(1), "shift_ms", _I32, 1, dev)
+    build.check(build.library().ct_rebase_epoch(
+        state.expiry_ms.data_ptr(), state.expiry_ms.shape[0],
+        shift_ms.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    ), "ct_rebase_epoch")
+    launches["rebase_epoch_device"] += 1
+    return state
+
+
 # -- B4c: lease credit -------------------------------------------------------
 
 
@@ -651,6 +696,58 @@ def credit_batch(
         torch.cuda.current_stream(dev).cuda_stream,
     ), "ct_credit")
     launches["credit"] += 1
+    return state
+
+
+# -- B4d: tier promotion seed ------------------------------------------------
+
+
+def seed_slots_plain(
+    state: CounterTableState, slots, values, expiry_ms
+) -> CounterTableState:
+    """Plain PyTorch twin of ``seed_slots``, in place: the JAX program's
+    three scatters (padding rows included, so a padding row zeroes the
+    scratch row's hits), then the scratch row's value and expiry reset."""
+    idx = slots.long()
+    state.values[idx] = values
+    state.expiry_ms[idx] = expiry_ms
+    state.hits[idx] = 0
+    scratch = state.values.shape[0] - 1
+    state.values[scratch] = 0
+    state.expiry_ms[scratch] = 0
+    return state
+
+
+def seed_slots(
+    state: CounterTableState,
+    slots: torch.Tensor,      # int32[H] slot per seed (C for padding)
+    values: torch.Tensor,     # int32[H] absolute value to write
+    expiry_ms: torch.Tensor,  # int32[H] absolute (epoch-relative) expiry
+) -> CounterTableState:
+    """Absolute cell seed for tier promotion (the JAX ``seed_slots``):
+    each slot's value and expiry land verbatim and its hits restart at 0,
+    so a counter promoted from the host cold tier keeps its exact count
+    and remaining window. Callers pass unique real slots and pad with the
+    scratch slot. In place."""
+    if not _on_cuda(state.values):
+        return seed_slots_plain(state, slots, values, expiry_ms)
+    from . import build
+
+    H = slots.shape[0]
+    dev = state.values.device
+    _require_table(state)
+    for name, t in (("slots", slots), ("values", values),
+                    ("expiry_ms", expiry_ms)):
+        _require(t, name, _I32, H, dev)
+    if H < 1:
+        raise ValueError("seed_slots needs at least one row")
+    build.check(build.library().ct_seed_slots(
+        *(t.data_ptr() for t in state),
+        *(t.data_ptr() for t in (slots, values, expiry_ms)),
+        H, state.values.shape[0] - 1,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ), "ct_seed_slots")
+    launches["seed_slots"] += 1
     return state
 
 

@@ -9,7 +9,8 @@ services and the options of the slices ported so far:
         [--pipeline standard|compiled|native] [--native-hot-lane on|off] \\
         [--plan-cache-size N] [--lease-mode on|off] [--lease-max-tokens N] \\
         [--usage-topk K] [--usage-drain-interval S] \\
-        [--usage-near-threshold F] \\
+        [--usage-near-threshold F] [--cache-size N] \\
+        [--tier-mode on|off [--tier-cold FILE] [--tier-migrate-interval S]] \\
         [--node-id ID --listen-address HOST:PORT --peer HOST:PORT ... \\
          --advertise-address HOST:PORT] \\
         [--snapshot-path FILE --snapshot-period S]
@@ -38,23 +39,38 @@ The wire is the JAX package's, so port and JAX nodes mix in one cluster.
 The native pipeline and quota leases launch the plain check kernel and
 are refused on a replicated node (exit 2).
 
+Tiers (torch storage, ``--tier-mode on``): the storage is a
+``TieredStorage`` (``tier/``): the device table holds the hot set,
+capped at ``--cache-size`` qualified counters, and an LRU eviction
+demotes the counter's exact cell to a host cold tier (one B3a peek)
+instead of dropping it. Cold keys decide exactly on the host big-limit
+lane; a TierManager thread every ``--tier-migrate-interval`` seconds
+promotes hot cold keys (B4d seeds) and demotes above the watermark,
+settling the native pipeline's leases on the demoted slots first
+(``reclaim_slots``, B4c), and spills the cold write journal to
+``--tier-cold`` (JSON lines). ``--tier-mode on`` with memory storage or
+on a replicated node exits 2 (the JAX server warns and serves
+single-tier there).
+
 Snapshots (torch storage): with ``--snapshot-path`` the counter table is
 checkpointed every ``--snapshot-period`` seconds and at shutdown, and
 restored at start: into the replicated storage on a replicated node
 (``load_snapshot``, before its broker starts), else as a new table
-(``TorchStorage.restore``, whose capacity is the checkpoint's). An
-unreadable checkpoint is moved aside to ``FILE.rejected`` and the server
-starts with a fresh table.
+(``TorchStorage.restore``, whose capacity is the checkpoint's; a tiered
+storage's checkpoint carries its cold cells, and the restore arms
+``--tier-cold`` again). A checkpoint that cannot be restored (unreadable,
+or tiered while ``--tier-mode`` is off) is moved aside to
+``FILE.rejected`` and the server starts with a fresh table.
 
 Nothing falls back: a native pipeline or lease tier that cannot come up
 (the host lane does not build, the hot lane is unavailable, the storage
 is not torch, rate-limit headers are asked for) stops the server with an
-error (exit 2), and a lease refresh or usage drain that fails while
-serving stops it too (exit 1).
+error (exit 2), and a lease refresh, usage drain or tier migration round
+that fails while serving stops it too (exit 1).
 
 Not in the port yet (``ROADMAP.md``): the HTTP API, observability,
-admission, tiers, the host-memory ``distributed`` storage, the native
-ingress and the sharded/pod topologies.
+admission, the host-memory ``distributed`` storage, the native ingress
+and the sharded/pod topologies.
 """
 
 from __future__ import annotations
@@ -68,12 +84,13 @@ import signal
 import sys
 import threading
 import time
+from typing import Optional
 
 from ..core.cel import CelError
 from ..core.limiter import AsyncRateLimiter, RateLimiter
 from ..ops.build import BuildError
 from ..storage.base import StorageError
-from ..storage.in_memory import InMemoryStorage
+from ..storage.in_memory import DEFAULT_CACHE_SIZE, InMemoryStorage
 from .limits_file import LimitsFileError, LimitsFileWatcher, load_limits_file
 from .rls import (
     RATE_LIMIT_HEADERS_DRAFT03,
@@ -161,6 +178,31 @@ def build_parser() -> argparse.ArgumentParser:
         "counts as near exhaustion",
     )
     p.add_argument(
+        "--cache-size", type=int, default=None,
+        help="qualified-counter cache cap (memory and torch; with "
+        "--tier-mode on, the device hot set's size)",
+    )
+    p.add_argument(
+        "--tier-mode", choices=["on", "off"],
+        default=_env("TPU_TIER_MODE", "off"),
+        help="torch: on = tiered counter storage: the device table "
+        "serves the resident hot set, LRU evictions demote their exact "
+        "cell to a host cold tier, cold keys decide exactly on the host, "
+        "and a TierManager thread migrates counters on observed heat. "
+        "off (default) = single-tier",
+    )
+    p.add_argument(
+        "--tier-cold", default=_env("TPU_TIER_COLD", ""),
+        help="tiered: path of the cold tier's append-log disk spill "
+        "(JSON lines, absolute cell state, last-row-wins; empty = no "
+        "disk spill)",
+    )
+    p.add_argument(
+        "--tier-migrate-interval", type=float,
+        default=float(_env("TPU_TIER_MIGRATE_INTERVAL", "2.0")),
+        help="tiered: seconds between TierManager migration rounds",
+    )
+    p.add_argument(
         "--snapshot-path", default=_env("TPU_SNAPSHOT_PATH"),
         help="torch: periodically checkpoint the counter table here and "
         "restore from it on startup",
@@ -205,15 +247,43 @@ def _preserve_rejected_snapshot(path: str) -> None:
         log.warning(f"could not preserve rejected snapshot: {exc}")
 
 
+def _read_checkpoint(cls, path: str, tiers: bool) -> Optional[dict]:
+    """The checkpoint at ``path``, or None when it cannot be read (then
+    it is moved aside and the server starts with a fresh table). A tiered
+    checkpoint without ``--tier-mode on`` raises ValueError and stays
+    where it is: loading it would drop its cold counters' spent quota."""
+    try:
+        data = cls.read_snapshot(path)
+    except Exception as exc:
+        log.warning(f"snapshot {path} unreadable ({exc}); starting with a "
+                    f"fresh counter table")
+        _preserve_rejected_snapshot(path)
+        return None
+    cold = data.get("table", {}).get("cold")
+    if cold and not tiers:
+        raise ValueError(
+            f"snapshot {path} holds {len(cold)} cold-tier counters: "
+            "restore it with --tier-mode on on a single node (the file "
+            "is left in place)"
+        )
+    return data
+
+
 def build_storage(args, clock=time.time):
     """The torch counter storage the options ask for: a replicated node
     (``--peer``/``--listen-address``, with a snapshot loaded into it
     before its broker starts), a table restored from ``--snapshot-path``,
-    or a fresh ``TorchStorage``. Refuses the native pipeline and leases
-    on a replicated node before anything starts."""
+    or a fresh ``TorchStorage`` (a ``TieredStorage`` with ``--tier-mode
+    on``). Refuses the native pipeline, leases and tiers on a replicated
+    node before anything starts."""
     from ..device import TorchStorage
 
     if _replicated(args):
+        if args.tier_mode == "on":
+            raise ValueError(
+                "--tier-mode on needs a single-node torch storage: a "
+                "replicated node (--peer/--listen-address) has no cold tier"
+            )
         if args.pipeline == "native" or args.lease_mode == "on":
             raise ValueError(
                 "--pipeline native and --lease-mode on launch the plain "
@@ -233,40 +303,45 @@ def build_storage(args, clock=time.time):
             advertise_address=args.advertise_address,
             peers=args.peer or [],
             capacity=args.capacity,
+            cache_size=args.cache_size,
             clock=clock,
             device=args.device,
             start=False,
         )
         path = args.snapshot_path
-        if path and os.path.exists(path):
+        if path and os.path.exists(path) and \
+                _read_checkpoint(TorchStorage, path, tiers=False) is not None:
             try:
                 storage.load_snapshot(path)
-            except Exception as exc:
-                log.warning(f"snapshot {path} unreadable ({exc}); starting "
-                            f"with a fresh replicated table")
+            except StorageError as exc:
+                log.warning(f"snapshot {path} not restored ({exc}); "
+                            f"starting with a fresh replicated table")
                 _preserve_rejected_snapshot(path)
             else:
                 log.info(f"restored replicated counter table from {path}")
         storage.start()
         return storage
+    cls, extra = TorchStorage, {}
+    if args.tier_mode == "on":
+        from ..tier import TieredStorage
+
+        cls, extra = TieredStorage, {"spill_path": args.tier_cold or None}
     path = args.snapshot_path
+    data = None
     if path and os.path.exists(path):
-        try:
-            data = TorchStorage.read_snapshot(path)
-        except Exception as exc:
-            log.warning(f"snapshot {path} unreadable ({exc}); starting with "
-                        f"a fresh counter table")
-            _preserve_rejected_snapshot(path)
-        else:
-            storage = TorchStorage.from_snapshot(data, clock=clock,
-                                                 device=args.device)
-            log.info(f"restored counter table from {path}")
-            if storage._capacity != args.capacity:
-                log.warning(f"snapshot capacity {storage._capacity} "
-                            f"overrides --capacity {args.capacity}")
-            return storage
-    return TorchStorage(capacity=args.capacity, clock=clock,
-                        device=args.device)
+        data = _read_checkpoint(cls, path, tiers=args.tier_mode == "on")
+    if data is not None:
+        # Outside the reader's guard: a device that fails while the
+        # checkpoint loads stops the server instead of dropping the counts.
+        storage = cls.from_snapshot(data, cache_size=args.cache_size,
+                                    clock=clock, device=args.device, **extra)
+        log.info(f"restored counter table from {path}")
+        if storage._capacity != args.capacity:
+            log.warning(f"snapshot capacity {storage._capacity} "
+                        f"overrides --capacity {args.capacity}")
+        return storage
+    return cls(capacity=args.capacity, cache_size=args.cache_size,
+               clock=clock, device=args.device, **extra)
 
 
 def build_limiter(args, clock=time.time):
@@ -281,7 +356,10 @@ def build_limiter(args, clock=time.time):
                 "--peer, --listen-address and --snapshot-path need torch "
                 "storage"
             )
-        return RateLimiter(InMemoryStorage(clock=clock))
+        if args.tier_mode == "on":
+            raise ValueError("--tier-mode on needs torch storage")
+        return RateLimiter(InMemoryStorage(
+            args.cache_size or DEFAULT_CACHE_SIZE, clock=clock))
     from ..device import AsyncTorchStorage
 
     storage = build_storage(args, clock)
@@ -383,11 +461,12 @@ class Checkpointer:
 
 class RunningServer:
     """A started server: its limiter, gRPC server and limits watcher,
-    and the native pipeline, usage observatory and checkpointer when they
-    run."""
+    and the native pipeline, usage observatory, tier manager and
+    checkpointer when they run."""
 
     def __init__(self, limiter, rls_server, watcher, status,
-                 native_pipeline=None, observatory=None, checkpointer=None):
+                 native_pipeline=None, observatory=None, checkpointer=None,
+                 tier_manager=None):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
@@ -396,6 +475,7 @@ class RunningServer:
         self.native_pipeline = native_pipeline
         self.observatory = observatory
         self.checkpointer = checkpointer
+        self.tier_manager = tier_manager
 
     @property
     def storage(self):
@@ -406,6 +486,8 @@ class RunningServer:
 
     async def stop(self) -> None:
         self.watcher.stop()
+        if self.tier_manager is not None:
+            self.tier_manager.close()
         await self.rls_server.stop(grace=1.0)
         if self.checkpointer is not None:
             await self.checkpointer.stop()
@@ -425,11 +507,12 @@ async def _close(limiter, native_pipeline, observatory) -> None:
 
 
 async def start(args, clock=time.time, on_failure=None) -> RunningServer:
-    """Build the limiter (and the native pipeline, lease tier and usage
-    observatory the options ask for), load the limits file, start
-    watching it and start serving gRPC on ``--rls-host:--rls-port``.
-    A lease refresh or usage drain that fails stops its thread, which
-    then calls ``on_failure(exc)``."""
+    """Build the limiter (and the native pipeline, lease tier, usage
+    observatory and tier manager the options ask for), load the limits
+    file, start watching it and start serving gRPC on
+    ``--rls-host:--rls-port``. A lease refresh, usage drain or migration
+    round that fails stops its thread, which then calls
+    ``on_failure(exc)``."""
     limiter = build_limiter(args, clock)
     native_pipeline = observatory = None
     try:
@@ -490,7 +573,19 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         await _close(limiter, native_pipeline, observatory)
         raise
     broker = getattr(native_pipeline, "lease_broker", None)
-    for tier in (broker, observatory):
+    tier_manager = None
+    if args.storage == "torch" and args.tier_mode == "on":
+        from ..tier import TierManager
+
+        # Wired late so that it sees the lease broker (demotions settle
+        # outstanding tokens first) and the observatory (the demotion
+        # veto of live slots).
+        tier_manager = TierManager(
+            limiter.storage.counters.inner, broker=broker,
+            observatory=observatory,
+            interval_s=args.tier_migrate_interval,
+        )
+    for tier in (broker, observatory, tier_manager):
         if tier is not None:
             tier.on_error = on_failure
             tier.start()
@@ -500,7 +595,8 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
                                     args.snapshot_path, args.snapshot_period)
         checkpointer.start()
     return RunningServer(limiter, rls_server, watcher, status,
-                         native_pipeline, observatory, checkpointer)
+                         native_pipeline, observatory, checkpointer,
+                         tier_manager)
 
 
 async def _amain(args) -> int:
@@ -519,6 +615,9 @@ async def _amain(args) -> int:
                 f"{args.listen_address or '0.0.0.0:5001'}"
                 if args.storage == "torch" and _replicated(args) else "")
              + (", quota leases on" if args.lease_mode == "on" else "")
+             + (f", tiered: device hot set over an exact host cold tier, "
+                f"migration every {args.tier_migrate_interval:g}s"
+                if server.tier_manager is not None else "")
              + (f", usage top-{args.usage_topk}"
                 if server.observatory is not None else "")
              + ")")

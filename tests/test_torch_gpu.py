@@ -20,12 +20,16 @@ from limitador_tpu_torch.device.storage import TorchStorage
 from limitador_tpu_torch.ops import kernel as K
 
 from .torch_batches import (
+    C,
+    NEVER,
     batch,
     credit_batch,
+    dirty_scratch,
     hits_column,
     lanes,
     remote_lanes,
     remote_rows,
+    seed_rows,
     table,
 )
 from .torch_native_corpus import FROZEN_NOW, corpus, limits
@@ -380,3 +384,90 @@ def test_replicated_node_on_the_card_decides_like_the_cpu(cuda):
            (cpu._remote_vals, cpu._remote_exp))
     for node in nodes:
         node.close()
+
+
+# -- slice 4: B4d, B4b and the tiered storage ----------------------------------
+
+
+@pytest.mark.parametrize("scratch", ["clean", "dirty"])
+@pytest.mark.parametrize("n_real", [1, 5, 8, 1000, 1024])
+def test_seed_slots_kernel_matches_plain(cuda, n_real, scratch):
+    rng = np.random.default_rng(300 + n_real)
+    now_ms = 5_000_000
+    tab = table(rng, now_ms, {})
+    if scratch == "dirty":
+        tab = dirty_scratch(tab, rng)
+    H = 8 if n_real <= 8 else 1024
+    rows = tuple(torch.from_numpy(a).to(cuda)
+                 for a in seed_rows(rng, H, n_real, now_ms))
+    ka, pb = _state(tab, cuda), _state(tab, cuda)
+    before = K.launches["seed_slots"]
+    K.seed_slots(ka, *rows)
+    assert K.launches["seed_slots"] == before + 1
+    K.seed_slots_plain(pb, *rows)
+    _equal(ka, pb)
+    assert int(ka.values[C]) == int(ka.expiry_ms[C]) == 0
+
+
+@pytest.mark.parametrize("shift", [0, 1, 999_000, NEVER])
+def test_rebase_epoch_kernel_matches_plain(cuda, shift):
+    rng = np.random.default_rng(shift % 991)
+    tab = table(rng, 5_000_000, {})
+    tab[1][1:40:2] = NEVER
+    ka, pb = _state(tab, cuda), _state(tab, cuda)
+    d_shift = torch.tensor([shift], dtype=torch.int32, device=cuda)
+    before = K.launches["rebase_epoch_device"]
+    K.rebase_epoch(ka, d_shift)
+    assert K.launches["rebase_epoch_device"] == before + 1
+    K.rebase_epoch_plain(pb, d_shift)
+    _equal(ka, pb)
+
+
+def test_tiered_storage_on_the_card_matches_the_cpu(cuda):
+    """One op stream through TieredStorage on the card and on the CPU
+    (plain versions), with manager rounds: the same answers, round
+    results, cold cells and arrays, and the card launched B4d
+    (promotions) and B3a (demotion peeks)."""
+    from limitador_tpu_torch.tier import TieredStorage, TierManager
+
+    class Clock:
+        now = FROZEN_NOW
+
+        def __call__(self):
+            return self.now
+
+    clock = Clock()
+    stores = [TieredStorage(capacity=64, cache_size=8, clock=clock,
+                            device=dev) for dev in (cuda, "cpu")]
+    limiters = [RateLimiter(st) for st in stores]
+    managers = [TierManager(st, interval_s=3600.0) for st in stores]
+    specs = [Limit("ns", 9, 60, [], ["u"], name="w9"),
+             Limit("ns", 15, 30, [], ["u"], name="b15",
+                   policy="token_bucket")]
+    for lim in limiters:
+        for limit in specs:
+            lim.add_limit(limit)
+    rng = np.random.default_rng(5)
+    before = dict(K.launches)
+    for step in range(600):
+        ctx = Context({"u": str(rng.integers(0, 30))})
+        delta = int(rng.integers(1, 3))
+        got = [lim.check_rate_limited_and_update("ns", ctx, delta).limited
+               for lim in limiters]
+        assert got[0] == got[1], step
+        if step % 20 == 19:
+            # three rounds without traffic: the first demotes below the
+            # watermark, the next ones promote the hottest cold keys
+            for _round in range(3):
+                assert managers[0].run_once() == managers[1].run_once()
+        clock.now += float(rng.choice([0.0, 0.2, 2.0]))
+    assert K.launches["seed_slots"] > before["seed_slots"]
+    assert K.launches["read_slots"] > before["read_slots"]
+    card, cpu = stores
+    _equal(card._state, cpu._state)
+    assert [(k, c.value_raw if hasattr(c, "value_raw") else c.tat)
+            for k, (c, _) in card._cold.cells.items()] == [
+        (k, c.value_raw if hasattr(c, "value_raw") else c.tat)
+        for k, (c, _) in cpu._cold.cells.items()]
+    for st in stores:
+        st.close()

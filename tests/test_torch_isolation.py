@@ -2,7 +2,8 @@
 
 - A subprocess that refuses to import ``jax`` and ``limitador_tpu``
   imports every module of ``limitador_tpu_torch``, builds a
-  ``TorchStorage(device="cpu")`` and decides a request.
+  ``TorchStorage(device="cpu")`` and decides a request, and decides a
+  cold counter through ``tier.TieredStorage``.
 - An AST scan of the port's sources finds no such import.
 - The port's protobuf message classes are its own even when both
   packages are loaded in one process (the JAX package registers the same
@@ -47,6 +48,20 @@ ctx.list_binding("descriptors", [{"u": "x"}])
 first = limiter.check_rate_limited_and_update("ns", ctx, 1)
 second = limiter.check_rate_limited_and_update("ns", ctx, 1)
 assert not first.limited and second.limited
+
+# the tiers too: a cold counter keeps deciding exactly
+from limitador_tpu_torch.tier import TieredStorage
+
+tiered = RateLimiter(TieredStorage(capacity=64, cache_size=2, device="cpu"))
+tiered.add_limit(Limit("ns", 2, 60, [], ["u"]))
+tiered.update_counters("ns", Context({"u": "cold"}), 1)
+for u in range(4):
+    tiered.update_counters("ns", Context({"u": str(u)}), 1)
+assert tiered.storage.counters._cold.cells
+assert not tiered.check_rate_limited_and_update(
+    "ns", Context({"u": "cold"}), 1).limited
+assert tiered.check_rate_limited_and_update(
+    "ns", Context({"u": "cold"}), 1).limited
 assert not any(m.split(".")[0] in ("jax", "limitador_tpu")
                for m in sys.modules)
 print("imported", len(names), "modules")

@@ -216,16 +216,76 @@ def test_mid_flight_reload_matches_jax():
 @pytest.mark.parametrize("capacity", [16, 48])
 @pytest.mark.parametrize("hot", [True, False], ids=["lane-on", "lane-off"])
 def test_lru_eviction_matches_jax(capacity, hot):
-    """A table small enough to evict (and, at 16, to run out of evictable
-    slots): slot releases drop the mirrored plans and native keys of the
-    recycled slots in both packages alike."""
+    """A table small enough to evict on almost every chunk: slot releases
+    drop the mirrored plans and native keys of the recycled slots in both
+    packages alike. One row per call: a row staged beside others can sit
+    at the LRU front when another row's miss evicts, and there the JAX
+    package recycles the staged slot and the port evicts another (see the
+    next test), so the slot layouts part."""
     jax_pair = jax_pipeline(hot, capacity=capacity)
     port_pair = port_pipeline(hot, capacity=capacity)
-    drive_both(jax_pair[0], port_pair[0], corpus(5))
+    drive_both(jax_pair[0], port_pair[0], corpus(5), batch=1)
     assert_same_state(jax_pair, port_pair)
     if hot:
         assert port_pair[0].lane_stats()["invalidations"] > 0
         assert_same_lane_stats(port_pair[0], jax_pair[0])
+
+
+def _post_blob(u, unknown_field=False):
+    req = rls_pb2.RateLimitRequest(domain="api")
+    d = req.descriptors.add()
+    d.entries.add(key="m", value="POST")
+    d.entries.add(key="u", value=u)
+    blob = req.SerializeToString()
+    # an unknown field makes a new blob (a plan miss) for the same counter
+    return blob + b"\x78\x2a" if unknown_field else blob
+
+
+_A, _B, _C = _post_blob("a"), _post_blob("b"), _post_blob("c")
+_A2, _B2 = _post_blob("a", True), _post_blob("b", True)
+
+
+@pytest.mark.parametrize("hot", [True, False], ids=["lane-on", "lane-off"])
+@pytest.mark.parametrize("chunks,evicted,jax_admits", [
+    # c's miss evicts: the LRU front is a, which the chunk has staged
+    ([[_A], [_B], [_A2, _C]] + [[_A]] * 7 + [[_C]] * 7, "b", 16),
+    # every qualified slot is staged: c cannot be seated
+    ([[_A], [_B], [_A2, _B2, _C]] + [[_A]] * 6 + [[_B]] * 6, "c", 17),
+], ids=["recycles-an-unstaged-slot", "fails-the-row-it-cannot-seat"])
+def test_a_chunk_never_evicts_a_slot_it_has_staged(chunks, evicted,
+                                                   jax_admits, hot):
+    """``per-user`` (7 per 120 s) over ``TorchStorage(cache_size=2)``,
+    where a chunk's miss evicts while the chunk has a slot staged that the
+    C slot map found without touching the LRU. The port evicts around the
+    staged slots, or fails the one row it cannot seat, and so answers
+    every other row, and keeps every counter it holds, like a table that
+    never evicts. The JAX package's pipeline recycles the staged slot, two
+    counters share one cell in one launch, and it admits more than 7 for
+    one user (ROADMAP Queue C)."""
+    def small(package):
+        if package == "jax":
+            return jax_pipeline(hot, storage=TpuStorage(
+                capacity=64, cache_size=2, clock=lambda: FROZEN_NOW))
+        return port_pipeline(hot, storage=TorchStorage(
+            capacity=64, cache_size=2, clock=lambda: FROZEN_NOW,
+            device="cpu"))
+
+    (rp, rl), (tp, tl), (jp, _jl) = jax_pipeline(hot), small("port"), \
+        small("jax")
+    want = [decide_cached(rp, chunk) for chunk in chunks]
+    got = [decide_cached(tp, chunk) for chunk in chunks]
+    if evicted == "c":  # the row that found every slot staged
+        assert got[2][2] == "STORAGE_ERROR" and want[2][2] == tp.OK_BLOB
+        got[2][2] = want[2][2]
+    assert got == want
+    assert counter_state(tl) == {
+        c for c in counter_state(rl)
+        if c[2] != (("descriptors[0].u", evicted),)}
+    jax_answers = [decide_cached(jp, chunk) for chunk in chunks]
+    assert sum(r == jp.OK_BLOB for chunk in jax_answers
+               for r in chunk) == jax_admits
+    assert sum(r == tp.OK_BLOB for chunk in want
+               for r in chunk) < jax_admits
 
 
 def _one_blob(u):

@@ -1,9 +1,9 @@
 """Numpy-seeded counter tables and hit batches for the port's tests.
 
-Shared by ``test_torch_kernel.py`` (the port against the JAX package on
-the CPU) and ``test_torch_gpu.py`` (the CUDA kernels against their plain
-versions on the card); imports numpy only, so the card's machine, which
-has no JAX, can import it.
+Shared by ``test_torch_kernel.py`` and ``test_torch_tier.py`` (the port
+against the JAX package on the CPU) and ``test_torch_gpu.py`` (the CUDA
+kernels against their plain versions on the card); imports numpy only,
+so the card's machine, which has no JAX, can import it.
 """
 
 import numpy as np
@@ -187,3 +187,32 @@ def remote_rows(rng, n, n_slots=C):
     sums = rng.integers(0, MAX_VALUE_CAP + 1, n).astype(np.int32)
     exps = rng.integers(0, NEVER, n).astype(np.int32)
     return slots, sums, exps
+
+
+def seed_rows(rng, H, n_real, now_ms):
+    """A B4d promotion batch: ``n_real`` unique real slots seeded with
+    absolute values and expiries (0, INT32_MAX, live window ends and
+    bucket TATs in the expiry lane), padded to H with scratch rows
+    (value 0, expiry 0), as ``TorchStorage.seed_slot_values`` pads."""
+    slots = rng.choice(C, n_real, replace=False).astype(np.int32)
+    values = rng.integers(0, 1 << 30, n_real).astype(np.int32)
+    expiry = rng.integers(0, 2 * now_ms, n_real).astype(np.int32)
+    edge = rng.random(n_real)
+    expiry[edge < 0.1] = 0
+    expiry[(edge >= 0.1) & (edge < 0.2)] = NEVER
+    values[(edge >= 0.2) & (edge < 0.4)] = 0  # bucket rows: TAT only
+    pad = H - n_real
+    return (
+        np.concatenate([slots, np.full(pad, C, np.int32)]),
+        np.concatenate([values, np.zeros(pad, np.int32)]),
+        np.concatenate([expiry, np.zeros(pad, np.int32)]),
+    )
+
+
+def dirty_scratch(table_arrays, rng):
+    """The same table with a nonzero scratch row (values, expiry, hits):
+    the seed must leave it as the JAX program does."""
+    out = tuple(a.copy() for a in table_arrays)
+    for a in out:
+        a[C] = int(rng.integers(1, 1000))
+    return out
