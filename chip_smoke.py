@@ -64,6 +64,22 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    the limit, token conservation, reclaim_slots settled tokens), and on
    with the default observatory (--usage-topk 64: no user over the limit,
    token conservation), with no tier failure.
+10. The sharded table: (a) TorchShardedStorage(n_shards=8,
+   local_capacity=1<<17, global_namespaces=["tenants"], global_region=1024)
+   on the card, frozen clock stepped past one window half way, 8 batches
+   of 8192 requests of each kind through check_many: lean (100 per hour
+   per user over 1M Zipf-0.99 users), coupled (per user and per (user,
+   route of 16)), global (1000 per minute per tenant over 4096 Zipf
+   tenants, more than the region holds) and mixed; the lean and coupled
+   answers and counters against an InMemoryStorage, the whole drive (every
+   answer, a B7d drain and all three [8, L+1] arrays after a
+   delete_counters) against the same drive on the CPU, and the global
+   over-admission per batch within (n - 1) x the budget left;
+   (b) the server with sharded --global-namespaces tenants --pipeline
+   compiled (one row on one card) answers 2,000 sequential
+   ShouldRateLimit, CheckRateLimit and Report calls with a hot reload that
+   drops a limit, each answer equal to a memory server's, p50 and p99
+   recorded. B7a in all four variants, B7b, B7c and B7d must launch there.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -94,18 +110,21 @@ DRAIN_KS = (64, 1, 1000)
 # 12,288 dirty slots (PERF.md), the shape its JSON row reports
 REMOTE_NS = (8, 1024, 8192, 12288, 65536)
 # Host staging on the H100's machine takes about 0.35 s per 8192-hit batch
-# on the standard path (NVIDIA H100 80GB HBM3, 700 W; PERF.md): 100
-# batches keep that drive near 40 s, so the two native drives fit and the
-# run stays well inside half its 1200 s limit.
-DRIVE_BATCHES = 100
-NATIVE_BATCHES = 100
+# on the standard path (NVIDIA H100 80GB HBM3, 700 W; PERF.md). Phases 5,
+# 7 and 8a were cut (from 100, 100 and 30 batches) when phase 10 came in,
+# so that the whole run stays near 260 s, well inside half its 1200 s
+# limit: 50 batches of the standard drive and of each native drive.
+DRIVE_BATCHES = 50
+NATIVE_BATCHES = 50
 # Phase 8a runs its drive twice, on the card and replayed on the CPU, with
-# Python gossip merges between batches: 30 batches (245,760 decisions)
-# keep it inside the script's time limit (PERF.md).
-REPLICATION_BATCHES = 30
+# Python gossip merges between batches: 16 batches (131,072 decisions).
+REPLICATION_BATCHES = 16
 # Phase 9a: 40 batches of 8192 hits (327,680 decisions) reach about 124k
 # distinct users over 1<<22, about twice the 1<<16 hot set.
 TIER_BATCHES = 40
+# Phase 10a: 8 batches of 8192 requests of each of the four kinds (262,144
+# decisions), run on the card and replayed on the CPU.
+SHARDED_BATCHES = 8
 SEED_NS = (1, 5, 1000)
 KERNEL_SOURCE = "limitador_tpu_torch/csrc/counter_table.cu"
 REPLACES = {
@@ -121,6 +140,10 @@ REPLACES = {
     "replicated_check": "limitador_tpu/tpu/replicated.py:55",
     "replicated_update": "limitador_tpu/tpu/replicated.py:96",
     "apply_remote": "limitador_tpu/tpu/replicated.py:120",
+    "sharded_check_and_update": "limitador_tpu/parallel/mesh.py:399",
+    "sharded_clear_cells": "limitador_tpu/parallel/mesh.py:507",
+    "sharded_update": "limitador_tpu/parallel/mesh.py:552",
+    "sharded_drain_top_hits": "limitador_tpu/parallel/mesh.py:589",
 }
 # the shape each kernel sees on the main path, for the JSON line (B4c:
 # rows of a lease settle; B5: k of the default --usage-topk; B6c: rows of
@@ -131,7 +154,19 @@ MAIN_SHAPE = {
     "clear_slots": 8, "rebase_epoch": C + 1, "rebase_epoch_device": C + 1,
     "credit": 1024, "seed_slots": 1, "drain_top_hits": 64,
     "replicated_check": 8192, "replicated_update": 8, "apply_remote": 12288,
+    # B7 over the phase-10a table, 8 rows of 1<<17 cells: B7a at 1024 hits
+    # a row in its coupled + global variant (the mixed batches), B7b at 64
+    # slots a row, B7c at 8 hits a row, B7d at k = 64
+    "sharded_check_and_update": "coupled+global/1024",
+    "sharded_clear_cells": 64, "sharded_update": 8,
+    "sharded_drain_top_hits": 64,
 }
+# B7: the phase-10a table and the shapes held against the plain versions
+SHARDS = 8
+LOCAL_CAP = 1 << 17
+GLOBAL_REGION = 1024
+SHARDED_HS = (8, 1024)
+B7A_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
 # kernels each main-path phase must launch
 PHASE4_KERNELS = ("check_and_update", "update", "read_slots",
                   "clear_slots", "rebase_epoch")
@@ -150,6 +185,9 @@ PHASE9A_KERNELS = ("check_and_update", "read_slots", "seed_slots")
 PHASE9B_KERNELS = PHASE9A_KERNELS
 PHASE9B_LEASE_KERNELS = PHASE9A_KERNELS + ("credit",)
 PHASE9B_SERVED_KERNELS = PHASE9A_KERNELS + ("drain_top_hits",)
+# the sharded paths: 10a and 10b together must launch all four
+SHARDED_KERNELS = ("sharded_check_and_update", "sharded_clear_cells",
+                   "sharded_update", "sharded_drain_top_hits")
 
 
 def fail(msg: str) -> None:
@@ -384,15 +422,15 @@ def _remote_lanes(rng, now_ms, lanes, values):
     return rv, re
 
 
-def _cell_bytes(slots, fresh, bucket, before, after, now_ms):
+def _cell_bytes(slots, fresh, bucket, before, after, now_ms, scratch=C):
     """The table bytes a check or update must move, counted per distinct
     slot from its inputs (numpy) and the plain version's result: each
     real slot's expiry read; its value read where it is a live window
     (not fresh, not expired); its hits read unless the slot is fresh;
     each cell (scratch row included) written only where it changed."""
     distinct, first = np.unique(slots, return_index=True)
-    d = distinct[distinct != C]
-    b = bucket[first][distinct != C]
+    d = distinct[distinct != scratch]
+    b = bucket[first][distinct != scratch]
     f = np.isin(d, slots[fresh])
     live_window = ~b & ~f & (before[1][d] > now_ms)
     changed = sum(int((after[k][distinct] != before[k][distinct]).sum())
@@ -401,7 +439,7 @@ def _cell_bytes(slots, fresh, bucket, before, after, now_ms):
                + 4 * changed)
 
 
-def _check_bytes(arrays, before, after, now_ms, remote=None):
+def _check_bytes(arrays, before, after, now_ms, remote=None, scratch=C):
     """The bytes B1 (``remote`` None) or B6a must move for this batch:
     22 B of hit row in and 10 B of outputs out per row, the table cells
     (``_cell_bytes``) and, with the remote lanes, each real slot's
@@ -409,7 +447,7 @@ def _check_bytes(arrays, before, after, now_ms, remote=None):
     remote_vals."""
     slots, bucket = arrays[0], arrays[6]
     nbytes = 32 * slots.size + _cell_bytes(
-        slots, arrays[5], bucket, before, after, now_ms)
+        slots, arrays[5], bucket, before, after, now_ms, scratch)
     if remote is not None:
         rv, re = remote
         distinct, first = np.unique(slots, return_index=True)
@@ -419,13 +457,13 @@ def _check_bytes(arrays, before, after, now_ms, remote=None):
     return nbytes
 
 
-def _update_bytes(upd, before, after, now_ms, remote_exp=None):
+def _update_bytes(upd, before, after, now_ms, remote_exp=None, scratch=C):
     """The bytes B2 or (with ``remote_exp``) B6b must move: 14 B of row in,
     the table cells (``_cell_bytes``) and each real bucket slot's
     remote_exp."""
     slots, _deltas, _windows, fresh, bucket = upd
     nbytes = 14 * slots.size + _cell_bytes(
-        slots, fresh, bucket, before, after, now_ms)
+        slots, fresh, bucket, before, after, now_ms, scratch)
     if remote_exp is not None:
         distinct, first = np.unique(slots, return_index=True)
         nbytes += 4 * int((bucket[first] & (distinct != C)).sum())
@@ -464,9 +502,10 @@ def _median_ms(fn, setup=None, reps=30, warmup=3):
 
 
 def _device_ms(fn, setup, kernel, reps=10):
-    """Mean device time of the CUDA kernel whose name contains ``kernel``
-    per fn() call, from torch.profiler; None when the profiler records
-    no device time for it."""
+    """Mean device time per fn() call of the CUDA kernels whose names
+    contain ``kernel`` (a string, or a tuple of them), from
+    torch.profiler; None when the profiler records no device time for
+    them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -476,9 +515,10 @@ def _device_ms(fn, setup, kernel, reps=10):
             args = setup() if setup is not None else ()
             fn(*args)
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     total_us = 0.0
     for evt in prof.key_averages():
-        if kernel in evt.key:
+        if any(name in evt.key for name in names):
             total_us += getattr(evt, "device_time_total",
                                 getattr(evt, "cuda_time_total", 0.0))
     return total_us / reps / 1e3 if total_us > 0 else None
@@ -536,7 +576,7 @@ def phase_kernels(dev):
         exact = exact and err == 0
         lib = "" if library_ms is None else f" library {library_ms:.4f}ms"
         dev_t = "not measured" if device_ms is None else f"{device_ms:.4f}ms"
-        print(f"  {name:17s} n={shape:<7d} err={err} call {ms:.4f}ms "
+        print(f"  {name:17s} n={shape!s:<7} err={err} call {ms:.4f}ms "
               f"(kernel alone {dev_t}) plain {plain_ms:.4f}ms "
               f"bound {bound:.7f}ms ({nbytes} B){lib}")
 
@@ -824,9 +864,213 @@ def phase_kernels(dev):
         dms = _device_ms(lambda a, b: K.apply_remote(a, b, *rows),
                          fresh_lanes, "apply_remote_kernel")
         record("apply_remote", n, err, ms, plain_ms, 20 * n, lib_ms, dms)
+    _sharded_kernels(dev, rng, record)
     if not exact:
         fail("a kernel disagrees with its plain version")
     return out
+
+
+def _sharded_table(rng, now_ms, lanes, n=SHARDS, L=LOCAL_CAP,
+                   G=GLOBAL_REGION):
+    """int32[n, L+1] x3 mid-stream: live and expired windows, bucket
+    TATs, hit counts, and global-region partials some near 2^30 so that
+    their sum over the rows passes 2^31."""
+    values = rng.integers(0, 60, (n, L + 1)).astype(np.int32)
+    expiry = rng.integers(0, 2 * now_ms, (n, L + 1)).astype(np.int32)
+    hits = rng.integers(0, 1000, (n, L + 1)).astype(np.int32)
+    for slot, (is_bucket, maxv, win) in lanes.items():
+        if is_bucket and slot >= G:
+            expiry[:, slot] = np.maximum(
+                now_ms + rng.integers(-3, maxv + 4, n) * win, 0)
+    big = rng.random((n, G)) < 0.2
+    values[:, :G] = np.where(big, (1 << 30) + rng.integers(0, 1 << 29,
+                                                          (n, G)),
+                             values[:, :G])
+    values[:, L] = expiry[:, L] = hits[:, L] = 0
+    return values, expiry, hits
+
+
+def _sharded_batch(rng, H, lanes, coupled, with_global, n=SHARDS,
+                   L=LOCAL_CAP, G=GLOBAL_REGION):
+    """[n, H] request-ordered hit columns over Zipf-0.99 local slots: lean
+    (each request on one row, row-local ids) or coupled (requests over
+    up to three rows, ids < n*H); global hits on global slots with
+    ``with_global``. Returns (slots, deltas, maxes, windows, req_ids,
+    fresh, bucket, is_global), rows padded with slot L."""
+    cols = [[[] for _ in range(n)] for _ in range(8)]
+    R = n * H if coupled else H
+    local = [0] * n
+    seen = set()
+    keys = zipf_keys(L - G, 3 * n * H, 0.99, rng) + G
+    ki = r = 0
+    while r < R - 1 and ki < keys.size - 3:
+        home = int(rng.integers(0, n))
+        k = int(rng.integers(1, 4))
+        rows = [home] + ([int(x) for x in rng.integers(0, n, k - 1)]
+                         if coupled else [home] * (k - 1))
+        if any(len(cols[0][x]) + rows.count(x) > H - 1 for x in rows):
+            break
+        rid = r if coupled else local[home]
+        for x in rows:
+            glob = with_global and rng.random() < 0.3
+            slot = int(rng.integers(0, G)) if glob else int(keys[ki])
+            ki += 1
+            if slot not in lanes:
+                lanes[slot] = _lane(rng)
+            is_bucket, maxv, win = lanes[slot]
+            if glob:
+                is_bucket, maxv = False, int(rng.choice([1 << 30, 100]))
+            vals = (slot, int(rng.choice([0, 1, 1, 1, 2, 5, 7])), maxv, win,
+                    rid, (x, slot) not in seen and rng.random() < 0.15,
+                    is_bucket, glob)
+            for c, v in zip(cols, vals):
+                c[x].append(v)
+            seen.add((x, slot))
+        if coupled:
+            r += 1
+        else:
+            local[home] += 1
+            r = max(local)
+    fills = (L, 0, NEVER, 0, R - 1, False, False, False)
+    dtypes = (np.int32,) * 5 + (bool,) * 3
+    out = []
+    for c, fill, dt in zip(cols, fills, dtypes):
+        arr = np.full((n, H), fill, dt)
+        for x in range(n):
+            arr[x, :len(c[x])] = c[x]
+        out.append(arr)
+    return tuple(out)
+
+
+def _sharded_kernels(dev, rng, record):
+    """B7a-B7d against their plain versions on the card over the
+    phase-10a table ([8, 1<<17 + 1]): B7a in its four variants at 8 and
+    1024 hits a row, B7b at 64 slots a row, B7c at 8 hits a row, B7d at
+    k = 64; times, bounds and library times as the other kernels'."""
+    import torch
+
+    from limitador_tpu_torch.parallel import mesh as M
+
+    now_ms = 5_000_000
+    n, L, G = SHARDS, LOCAL_CAP, GLOBAL_REGION
+    lanes = {}
+    base_np = _sharded_table(rng, now_ms, lanes)
+    base = M.ShardedCounterState(*(torch.from_numpy(a).to(dev)
+                                   for a in base_np))
+
+    def tables():
+        return (M.ShardedCounterState(*(t.clone() for t in base)),)
+
+    def rows_bytes(fn_bytes, cols, after):
+        return sum(fn_bytes(tuple(c[x] for c in cols),
+                            [a[x] for a in base_np], [a[x] for a in after],
+                            now_ms) for x in range(n))
+
+    for H in SHARDED_HS:
+        for coupled, has_global in B7A_VARIANTS:
+            cols_np = _sharded_batch(rng, H, lanes, coupled, has_global)
+            cols = tuple(torch.from_numpy(a).to(dev) for a in cols_np)
+            kw = dict(global_region=G, coupled=coupled,
+                      has_global=has_global)
+            (ta,), (tb,) = tables(), tables()
+            _, ra = M.sharded_check_and_update(ta, *cols, now_ms, **kw)
+            rb = M.sharded_check_and_update_plain(tb, *cols, now_ms, G,
+                                                  coupled, has_global)
+            torch.cuda.synchronize()
+            err = _max_abs_err(list(zip(ra, rb)) + list(zip(ta, tb)))
+            ms = _median_ms(
+                lambda t: M.sharded_check_and_update(t, *cols, now_ms, **kw),
+                tables)
+            plain_ms = _median_ms(
+                lambda t: M.sharded_check_and_update_plain(
+                    t, *cols, now_ms, G, coupled, has_global),
+                tables, reps=3, warmup=1)
+            dms = _device_ms(
+                lambda t: M.sharded_check_and_update(t, *cols, now_ms, **kw),
+                tables, ("check_kernel", "global_sum_kernel"))
+            after = _host(tb)
+            nbytes = rows_bytes(
+                lambda c, before, aft, now: _check_bytes(
+                    c[:7], before, aft, now, scratch=L), cols_np, after)
+            if has_global:
+                nbytes += n * H + 2 * n * G * 4
+            variant = ("coupled" if coupled else "lean") + (
+                "+global" if has_global else "")
+            record("sharded_check_and_update", f"{variant}/{H}", err, ms,
+                   plain_ms, nbytes, device_ms=dms)
+    # B7c: per-row update, large deltas included
+    H = 8
+    slots, deltas, _m, wins, _r, fresh, bucket, _g = _sharded_batch(
+        rng, H, lanes, False, True)
+    deltas = np.where(rng.random((n, H)) < 0.1,
+                      rng.integers(-5, 1 << 30, (n, H)),
+                      deltas).astype(np.int32)
+    upd_np = (slots, deltas, wins, fresh, bucket)
+    upd = tuple(torch.from_numpy(a).to(dev) for a in upd_np)
+    (ta,), (tb,) = tables(), tables()
+    M.sharded_update(ta, *upd, now_ms)
+    M.sharded_update_plain(tb, *upd, now_ms)
+    torch.cuda.synchronize()
+    err = _max_abs_err(list(zip(ta, tb)))
+    ms = _median_ms(lambda t: M.sharded_update(t, *upd, now_ms), tables)
+    plain_ms = _median_ms(lambda t: M.sharded_update_plain(t, *upd, now_ms),
+                          tables, reps=5, warmup=1)
+    dms = _device_ms(lambda t: M.sharded_update(t, *upd, now_ms), tables,
+                     "update_kernel")
+    record("sharded_update", H, err, ms, plain_ms,
+           rows_bytes(lambda u, before, aft, now: _update_bytes(
+               u, before, aft, now, scratch=L), upd_np, _host(tb)),
+           device_ms=dms)
+    # B7b: per-row clears, padding and duplicates included
+    K_ = 64
+    rows_np = rng.integers(G, L, (n, K_)).astype(np.int32)
+    rows_np[:, :4] = rng.integers(0, G, 4)  # global slots on every row
+    rows_np[rng.random((n, K_)) < 0.2] = L
+    rows = torch.from_numpy(rows_np).to(dev)
+    (ta,), (tb,) = tables(), tables()
+    M.sharded_clear_cells(ta, rows)
+    M.sharded_clear_cells_plain(tb, rows)
+    torch.cuda.synchronize()
+    err = _max_abs_err(list(zip(ta, tb)))
+    flat = (torch.arange(n, device=dev)[:, None] * (L + 1)
+            + rows.long()).reshape(-1)
+    stacked = torch.stack([t.reshape(-1) for t in base])
+    ms = _median_ms(lambda t: M.sharded_clear_cells(t, rows), tables)
+    plain_ms = _median_ms(lambda t: M.sharded_clear_cells_plain(t, rows),
+                          tables)
+    lib_ms = _median_ms(lambda t: t.index_fill_(1, flat, 0),
+                        lambda: (stacked.clone(),))
+    dms = _device_ms(lambda t: M.sharded_clear_cells(t, rows), tables,
+                     "sharded_clear_kernel")
+    distinct = sum(np.unique(rows_np[x]).size for x in range(n))
+    record("sharded_clear_cells", K_, err, ms, plain_ms,
+           4 * n * K_ + 12 * distinct, lib_ms, dms)
+    # B7d: per-row top-k drain over Zipf traffic with ties
+    hits_np = np.zeros((n, L + 1), np.int32)
+    for x in range(n):
+        np.add.at(hits_np[x], zipf_keys(L, 4 * 1024, 0.99, rng), 1)
+    hits_np[:, L] = 3
+    col = torch.from_numpy(hits_np).to(dev)
+    k = 64
+    errs = []
+    for h in (col, torch.zeros_like(col)):
+        ha, hb = h.clone(), h.clone()
+        errs.extend(zip(M.sharded_drain_top_hits(ha, k),
+                        M.sharded_drain_top_hits_plain(hb, k)))
+    err = _max_abs_err(errs)
+
+    def column():
+        return (col.clone(),)
+
+    ms = _median_ms(lambda h: M.sharded_drain_top_hits(h, k), column)
+    plain_ms = _median_ms(lambda h: M.sharded_drain_top_hits_plain(h, k),
+                          column, reps=10, warmup=1)
+    lib_ms = _median_ms(
+        lambda h: (torch.topk(h[:, :-1], k, dim=1), h.zero_()), column)
+    dms = _device_ms(lambda h: M.sharded_drain_top_hits(h, k), column,
+                     "topk_")
+    record("sharded_drain_top_hits", k, err, ms, plain_ms,
+           8 * n * (L + 1) + 8 * n * k, lib_ms, dms)
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -2005,6 +2249,444 @@ async def _served_tiers(tmpdir, dev, card, leases, calls=2000, users=600,
     return launches, out
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+
+def _sharded_stream(rng, batches, hits):
+    """Phase 10a's requests: ``batches`` batches of each kind in turn
+    (lean, coupled, global, mixed), each request a tuple ("u", user),
+    ("p", user, route) or ("t", tenant); users Zipf-0.99 over 1<<20,
+    tenants Zipf-0.99 over 4096, routes uniform over 16."""
+    out = []
+    for _b in range(batches):
+        for kind in ("lean", "coupled", "global", "mixed"):
+            users = zipf_keys(C, hits, 0.99, rng).tolist()
+            tenants = zipf_keys(4096, hits, 0.99, rng).tolist()
+            routes = rng.integers(0, 16, hits).tolist()
+            pick = {"lean": np.zeros(hits, int), "coupled": np.ones(hits, int),
+                    "global": np.full(hits, 2),
+                    "mixed": rng.integers(0, 3, hits)}[kind].tolist()
+            batch = []
+            for i in range(hits):
+                if pick[i] == 0:
+                    batch.append(("u", users[i]))
+                elif pick[i] == 1:
+                    batch.append(("p", users[i], routes[i]))
+                else:
+                    batch.append(("t", tenants[i]))
+            out.append((kind, batch))
+    return out
+
+
+def _sharded_drive(storage, stream, limits, clock, step_at, timed=None):
+    """Run the phase-10a stream through ``storage`` (check_many, batch
+    N+1 begun before N is finished); the clock steps 61 s before batch
+    ``step_at``. Returns the answers ((limited, limit name) per request,
+    in order) and the per-batch host times."""
+    from limitador_tpu_torch import Counter
+    from limitador_tpu_torch.device.storage import _Request
+
+    lean, per_user, per_route, tenant = limits
+    cache = {}
+
+    def counters(spec):
+        got = cache.get(spec)
+        if got is None:
+            if spec[0] == "u":
+                got = [Counter(lean, {"u": str(spec[1])})]
+            elif spec[0] == "p":
+                got = [Counter(per_user, {"u": str(spec[1])}),
+                       Counter(per_route, {"u": str(spec[1]),
+                                           "r": str(spec[2])})]
+            else:
+                got = [Counter(tenant, {"t": str(spec[1])})]
+            cache[spec] = got
+        return got
+
+    answers = []
+    spent = {"requests": 0.0, "begin": 0.0, "finish": 0.0}
+    inflight = None
+    for b, (_kind, batch) in enumerate(stream):
+        if b == step_at:
+            if inflight is not None:
+                answers.extend(storage.finish_check_many(inflight))
+                inflight = None
+            clock.now += 61.0
+        t1 = time.perf_counter()
+        requests = [_Request(counters(spec), 1, False) for spec in batch]
+        t2 = time.perf_counter()
+        handle = storage.begin_check_many(requests)
+        t3 = time.perf_counter()
+        if inflight is not None:
+            answers.extend(storage.finish_check_many(inflight))
+        inflight = handle
+        t4 = time.perf_counter()
+        spent["requests"] += t2 - t1
+        spent["begin"] += t3 - t2
+        spent["finish"] += t4 - t3
+    answers.extend(storage.finish_check_many(inflight))
+    return [(a.limited, a.limit_name) for a in answers], spent
+
+
+def phase_sharded_drive(dev, card, batches=SHARDED_BATCHES, hits=8192):
+    """Phase 10a: TorchShardedStorage(n_shards=8, local_capacity=1<<17,
+    global_namespaces=["tenants"], global_region=1024) on the card, frozen
+    clock stepped past one window half way, ``batches`` batches of
+    ``hits`` one-request-a-hit-or-two requests of each kind: lean (the
+    phase-5 limit, 100 per hour per user), coupled (per user and per
+    (user, route of 16): most requests span rows), global (1000 per
+    minute per tenant over 4096 Zipf tenants, more than the region holds:
+    evictions zero global slots through B7b) and mixed (all three in one
+    batch). Then get_counters, a drain of the hit accumulator (B7d) and
+    a delete_counters (B7b). Checks: the lean and coupled answers and
+    counters against an InMemoryStorage on the same clock; the whole
+    drive against the same drive on TorchShardedStorage(device="cpu")
+    (every answer, the drain's records and the three [8, L+1] arrays);
+    the global namespace's over-admission per batch within the JAX
+    contract, (n - 1) x the budget left before the batch."""
+    import torch
+
+    from limitador_tpu_torch import Counter, InMemoryStorage, Limit
+    from limitador_tpu_torch.device.sharded import TorchShardedStorage
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.parallel import mesh as M
+
+    lean = Limit("drive", 100, 3600, [], ["u"])
+    per_user = Limit("pair", 50, 3600, [], ["u"], name="per-user")
+    per_route = Limit("pair", 10, 3600, [], ["u", "r"], name="per-route")
+    tenant = Limit("tenants", 1000, 60, [], ["t"], name="per-tenant")
+    limits = (lean, per_user, per_route, tenant)
+    stream = _sharded_stream(np.random.default_rng(77), batches, hits)
+    step_at = len(stream) // 2
+    start = float(int(time.time()))
+    n = SHARDS
+
+    def build(device, clock):
+        return TorchShardedStorage(
+            n_shards=n, local_capacity=LOCAL_CAP,
+            global_namespaces=["tenants"], global_region=GLOBAL_REGION,
+            clock=clock, device=device)
+
+    # the card: launches counted, the launch wrapper timed, evictions of
+    # global slots recorded per window
+    clock = ManualClock()
+    clock.now = start
+    storage = build(dev, clock)
+    evicted = set()
+    release = storage._gtable.release
+    window = [0]
+
+    def tracked_release(slot, key, qualified):
+        evicted.add((window[0], key[1][0][1]))
+        return release(slot, key, qualified)
+
+    storage._gtable.release = tracked_release
+    launch = M.sharded_check_and_update
+    launch_s = [0.0]
+
+    def timed_launch(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return launch(*args, **kwargs)
+        finally:
+            launch_s[0] += time.perf_counter() - t0
+
+    M.sharded_check_and_update = timed_launch
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        answers, spent = _sharded_drive(storage, stream, limits, clock,
+                                        step_at)
+        storage.close()
+    finally:
+        M.sharded_check_and_update = launch
+    seconds = time.perf_counter() - t0
+    variants = storage.launch_stats()["sharded_launches"]
+    got_counters = {
+        (c.limit.name, tuple(c.set_variables.items())): (c.remaining,
+                                                         c.expires_in)
+        for c in storage.get_counters({lean, per_user, per_route})}
+    drained = storage.drain_hot_slots(64)
+    storage.delete_counters({tenant, per_route})
+    storage.close()
+    launches = dict(K.launches)
+    card_arrays = [t.cpu().numpy() for t in storage._state]
+
+    # the same drive on the CPU (plain versions)
+    cpu_clock = ManualClock()
+    cpu_clock.now = start
+    cpu = build("cpu", cpu_clock)
+    cpu_answers, _ = _sharded_drive(cpu, stream, limits, cpu_clock, step_at)
+    cpu_drained = cpu.drain_hot_slots(64)
+    cpu.delete_counters({tenant, per_route})
+    same = cpu_answers == answers and cpu_drained == drained and all(
+        np.array_equal(a, t.numpy()) for a, t in zip(card_arrays, cpu._state))
+
+    # the lean and coupled namespaces against the in-memory oracle, fed
+    # the same requests in the same order on the same clock
+    oracle_clock = ManualClock()
+    oracle_clock.now = start
+    oracle = InMemoryStorage(cache_size=1 << 30, clock=oracle_clock)
+    flat = [spec for _kind, batch in stream for spec in batch]
+    per_batch = [len(batch) for _kind, batch in stream]
+    mismatches = 0
+    i = 0
+    for b, size in enumerate(per_batch):
+        if b == step_at:
+            oracle_clock.now += 61.0
+        for j in range(i, i + size):
+            spec = flat[j]
+            if spec[0] == "t":
+                continue
+            if spec[0] == "u":
+                cs = [Counter(lean, {"u": str(spec[1])})]
+            else:
+                cs = [Counter(per_user, {"u": str(spec[1])}),
+                      Counter(per_route, {"u": str(spec[1]),
+                                          "r": str(spec[2])})]
+            a = oracle.check_and_update(cs, 1, False)
+            mismatches += (a.limited, a.limit_name) != answers[j]
+        i += size
+    want_counters = {
+        (c.limit.name, tuple(c.set_variables.items())): (c.remaining,
+                                                         c.expires_in)
+        for c in oracle.get_counters({lean, per_user, per_route})}
+    bad_counters = [k for k in want_counters
+                    if k not in got_counters
+                    or got_counters[k][0] != want_counters[k][0]
+                    or abs(got_counters[k][1] - want_counters[k][1]) > 0.002]
+    # Beyond the oracle's, the storage may list counters with nothing
+    # spent: a fresh slot that a limited request of a batch allocated past
+    # its first limited hit and another request of the same batch shares
+    # stays allocated (the JAX storage's release rule, finish_check_many).
+    full = {limit.name: limit.max_value for limit in limits}
+    bad_counters += [k for k in got_counters if k not in want_counters
+                     and got_counters[k][0] != full[k[0]]]
+
+    # the global namespace: over-admission per batch within the contract
+    admitted = {}
+    over_total = 0
+    violations = 0
+    checked = 0
+    i = 0
+    for b, size in enumerate(per_batch):
+        w = int(b >= step_at)
+        in_batch = {}
+        for j in range(i, i + size):
+            spec = flat[j]
+            if spec[0] == "t" and not answers[j][0]:
+                in_batch[spec[1]] = in_batch.get(spec[1], 0) + 1
+        for t, got in in_batch.items():
+            before = admitted.get((w, t), 0)
+            after = before + got
+            admitted[(w, t)] = after
+            excess = max(after - 1000, 0) - max(before - 1000, 0)
+            over_total += excess
+            if (w, str(t)) in evicted:
+                continue  # its count restarted: LRU eviction, not the psum
+            checked += 1
+            if excess > (n - 1) * max(1000 - before, 0):
+                violations += 1
+        i += size
+    decided = len(answers)
+    rate = decided / seconds
+    local_n = sum(1 for spec in flat if spec[0] != "t")
+    print(f"sharded drive: {n} shards x {LOCAL_CAP} cells, "
+          f"{len(stream)} batches x {hits} requests (lean, coupled, global, "
+          f"mixed) in {seconds:.2f}s = {rate:.0f} decisions/s "
+          f"({sum(a[0] for a in answers)} limited; {card})")
+    print("sharded drive host time: " + ", ".join(
+        f"{k} {v / len(stream) * 1e3:.2f} ms/batch" for k, v in
+        (("requests", spent["requests"]),
+         ("staging", spent["begin"] - launch_s[0]),
+         ("launch", launch_s[0]), ("finish", spent["finish"]))))
+    print(f"sharded drive launches per variant: {json.dumps(variants)}; "
+          f"kernels: {json.dumps(launches)}")
+    print(f"sharded drive: {local_n} lean+coupled answers vs the "
+          f"in-memory oracle: {mismatches} differ, {len(bad_counters)} "
+          f"counters differ of {len(want_counters)}; card vs CPU: "
+          f"{'equal' if same else 'DIFFERENT'} (answers, drain, arrays); "
+          f"global over-admission {over_total} over "
+          f"{len({k for k in admitted})} (window, tenant) pairs, "
+          f"{violations} of {checked} batch checks past (n-1) x budget; "
+          f"{storage._gtable.evictions} global evictions")
+    if mismatches or bad_counters:
+        k = bad_counters[0] if bad_counters else None
+        fail(f"sharded drive: lean/coupled answers or counters differ from "
+             f"the in-memory oracle (first counter {k}: "
+             f"{got_counters.get(k)} vs {want_counters.get(k)})")
+    if not same:
+        fail("sharded drive: the card and the CPU differ")
+    if violations:
+        fail("sharded drive: global over-admission past the bound")
+    if min(variants.values()) == 0:
+        fail(f"sharded drive: a launch variant never ran: {variants}")
+    missing = [k for k in ("sharded_check_and_update", "sharded_clear_cells",
+                           "sharded_drain_top_hits") if launches[k] == 0]
+    if missing:
+        fail(f"kernels not launched on the sharded drive: {missing}")
+    return launches, {
+        "decisions_per_s": rate, "seconds": seconds,
+        "host_ms_per_batch": {
+            "requests": spent["requests"] / len(stream) * 1e3,
+            "staging": (spent["begin"] - launch_s[0]) / len(stream) * 1e3,
+            "launch": launch_s[0] / len(stream) * 1e3,
+            "finish": spent["finish"] / len(stream) * 1e3},
+        "variants": variants, "global_over_admission": over_total,
+        "global_evictions": storage._gtable.evictions,
+        "bound_checks": checked,
+    }
+
+
+SHARDED_YAML = """\
+- namespace: shop
+  max_value: 20
+  seconds: 3600
+  variables: ["descriptors[0].user"]
+  name: per-user
+- namespace: shop
+  max_value: 6
+  seconds: 3600
+  variables: ["descriptors[0].user", "descriptors[0].item"]
+  name: per-item
+- namespace: tenants
+  max_value: 40
+  seconds: 60
+  variables: ["descriptors[0].tenant"]
+  name: per-tenant
+"""
+
+SHARDED_RELOADED_YAML = """\
+- namespace: shop
+  max_value: 20
+  seconds: 3600
+  variables: ["descriptors[0].user"]
+  name: per-user
+- namespace: tenants
+  max_value: 40
+  seconds: 60
+  variables: ["descriptors[0].tenant"]
+  name: per-tenant
+"""
+
+
+async def _served_sharded(tmpdir, dev, card, calls=2000, users=300):
+    """Phase 10b: ``server.start`` with ``sharded --global-namespaces
+    tenants --pipeline compiled`` on the card (one row: one card) and a
+    memory server on one frozen clock; 2,000 sequential calls in turn:
+    ShouldRateLimit and Kuadrant CheckRateLimit on shop (two limits,
+    per user and per (user, item)), Kuadrant Report on shop (B7c), and
+    ShouldRateLimit on the global tenants namespace; half way a hot
+    reload drops per-item, whose live counters go through B7b; the
+    default observatory drains through B7d. Every answer must equal the
+    memory server's."""
+    import grpc
+
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    limits = os.path.join(tmpdir, "sharded.yaml")
+    with open(limits, "w") as f:
+        f.write(SHARDED_YAML)
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    parse = server.build_parser().parse_args
+    clock = ManualClock()
+    failures = []
+    K.reset_launches()
+    sharded = await server.start(parse(
+        [limits, "sharded", "--device", dev.type, "--global-namespaces",
+         "tenants", "--pipeline", "compiled", "--usage-drain-interval",
+         "0.25", "--rls-host", "127.0.0.1", "--rls-port", str(ports[0])]),
+        clock=clock, on_failure=failures.append)
+    oracle = await server.start(parse(
+        [limits, "memory", "--rls-host", "127.0.0.1", "--rls-port",
+         str(ports[1])]), clock=clock)
+    rng = np.random.default_rng(88)
+    who = zipf_keys(users, calls, 0.99, rng).tolist()
+    items = rng.integers(0, 8, calls).tolist()
+    tenants = zipf_keys(64, calls, 0.99, rng).tolist()
+    envoy = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+    kuadrant = "/kuadrant.service.ratelimit.v1.RateLimitService/"
+    lat = []
+    mismatches = global_mismatches = 0
+    try:
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{ports[0]}") as sc, grpc.aio.insecure_channel(
+                f"127.0.0.1:{ports[1]}") as oc:
+            t0 = time.perf_counter()
+            for i in range(calls):
+                if i == calls // 2:
+                    with open(limits, "w") as f:
+                        f.write(SHARDED_RELOADED_YAML)
+                    st = os.stat(limits)
+                    os.utime(limits, ns=(st.st_atime_ns,
+                                         st.st_mtime_ns + 10**9))
+                    deadline = time.monotonic() + 20
+                    while (len(sharded.limiter.get_limits("shop")) != 1
+                           or len(oracle.limiter.get_limits("shop")) != 1):
+                        if time.monotonic() > deadline:
+                            fail("sharded server: reload not applied")
+                        await asyncio.sleep(0.05)
+                kind = i % 4
+                if kind == 3:
+                    rpc, blob = envoy, _rls_request(
+                        rls_pb2, "tenants", [{"tenant": f"t{tenants[i]}"}])
+                else:
+                    desc = [{"user": f"u{who[i]}", "item": f"i{items[i]}"}]
+                    rpc = (envoy, kuadrant + "CheckRateLimit",
+                           kuadrant + "Report")[kind]
+                    blob = _rls_request(rls_pb2, "shop", desc,
+                                        2 if kind == 2 else 0)
+                t1 = time.perf_counter()
+                got = await sc.unary_unary(rpc)(blob, timeout=60)
+                lat.append(time.perf_counter() - t1)
+                want = await oc.unary_unary(rpc)(blob, timeout=60)
+                if got != want:
+                    if kind == 3:
+                        global_mismatches += 1
+                    else:
+                        mismatches += 1
+            seconds = time.perf_counter() - t0
+        drains = sharded.observatory.tenant_usage()["drains"]
+        deadline = time.monotonic() + 10
+        while sharded.observatory.tenant_usage()["drains"] <= drains:
+            if time.monotonic() > deadline:
+                fail("sharded server: the usage observatory did not drain")
+            await asyncio.sleep(0.05)
+        top = sharded.observatory.top(3)
+        variants = sharded.storage.launch_stats()["sharded_launches"]
+    finally:
+        await sharded.stop()
+        await oracle.stop()
+    launches = dict(K.launches)
+    lat_ms = np.asarray(lat) * 1e3
+    print(f"served sharded: {calls} sequential calls in {seconds:.2f}s; "
+          f"p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
+          f"{np.percentile(lat_ms, 99):.3f} ms ({dev.type}; {card}); "
+          f"{mismatches} non-global and {global_mismatches} global answers "
+          f"differ from the memory server's")
+    print(f"served sharded: variants {json.dumps(variants)}; usage top-3 "
+          f"{[(r['namespace'], r['key'], r['hits']) for r in top]}")
+    print(f"served sharded launches: {json.dumps(launches)}")
+    if failures:
+        fail(f"served sharded: a background tier failed: {failures!r}")
+    if mismatches:
+        fail("served sharded: answers differ from the memory server's")
+    missing = [k for k in SHARDED_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels not launched on the served sharded path: {missing}")
+    return launches, {
+        "seconds": seconds, "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "global_mismatches": global_mismatches, "variants": variants,
+    }
+
+
 def main() -> int:
     name, card = phase_card()
     import torch
@@ -2050,6 +2732,14 @@ def main() -> int:
             _served_tiers(tmpdir, dev, card, leases=True,
                           label="served tiers (leases on, observatory on)",
                           need_reclaim=False))
+    sharded_launches, sharded = phase_sharded_drive(dev, card)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        served_sharded_launches, served_sharded = asyncio.run(
+            _served_sharded(tmpdir, dev, card))
+    missing = [k for k in SHARDED_KERNELS
+               if sharded_launches[k] + served_sharded_launches[k] == 0]
+    if missing:
+        fail(f"kernels not launched on the sharded paths: {missing}")
     for label, got, want in (
             ("served tiers", served_tier_launches, PHASE9B_KERNELS),
             ("served tiers (leases on)", leased_tier_launches,
@@ -2059,10 +2749,11 @@ def main() -> int:
         missing = [k for k in want if got[k] == 0]
         if missing:
             fail(f"kernels not launched on {label}: {missing}")
-    # launches on the main paths: phases 4, 6, 7, 8a, 8b, 9a and 9b
+    # launches on the main paths: phases 4, 6, 7, 8a, 8b, 9a, 9b, 10a, 10b
     runs = (launches, native_launches, drive_launches, repl_launches,
             served_launches, tier_launches, served_tier_launches,
-            leased_tier_launches, served_default_launches)
+            leased_tier_launches, served_default_launches, sharded_launches,
+            served_sharded_launches)
     launches = {name: sum(run[name] for run in runs) for name in launches}
     kernels = []
     for kname, by_shape in results.items():
@@ -2094,6 +2785,8 @@ def main() -> int:
             "served_tiers": served_tiers,
             "served_tiers_leases": leased_tiers,
             "served_tiers_default": served_default,
+            "sharded_drive": sharded,
+            "served_sharded": served_sharded,
         }, f, indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

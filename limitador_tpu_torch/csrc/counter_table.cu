@@ -54,9 +54,20 @@
 // read and write base alike), B6b the update with the TAT floor, and B6c
 // a grid-stride scatter of both remote lanes.
 //
+// The sharded table (limitador_tpu/parallel/mesh.py:399-612) is n rows of
+// L + 1 cells, one shard a row. Its four programs reuse these kernels a
+// row per block: B7a is the check with kRows (plus kGlobal, the psum base,
+// and kCoupled, the pmin of the votes across rows, with grid barriers
+// under a cooperative launch), B7c the update with kRows, B7d the top-k
+// with a row index in the grid, and B7b a grid-stride clear of per-row
+// slot lists. Their bounds are the row kernels' bounds summed over the
+// rows, plus, for B7a's global variants, the pre-pass's 8 bytes per row
+// and global slot; latency, not bytes, keeps them above it, as for B1.
+//
 // Every entry point launches on the stream it is given and returns
 // cudaGetLastError() as an int; it allocates nothing.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -227,10 +238,51 @@ enum CheckArray {
 // The start marks are dead once the segment starts are scanned: the
 // final pending sums reuse their array.
 constexpr int kPending = kMark;
-// kFlags bits per sorted hit: 1 fresh, 2 bucket, 4 h_fresh, 8 expired.
-// kSegFlags bits per segment start: 1 any fresh, 2 any admitted hit.
+// kFlags bits per sorted hit: 1 fresh, 2 bucket, 4 h_fresh, 8 expired,
+// 16 global (B7a). kSegFlags bits per segment start: 1 any fresh, 2 any
+// admitted hit.
 
-template <bool kRemote>
+// The sharded table of B7 (limitador_tpu/parallel/mesh.py:399-612) is one
+// int32[n, L+1] tensor per column; shard s is row s, column L its scratch.
+// With kRows, block b runs on row b: its slice of the three columns, of
+// the [n, H] hit and output columns, and of the workspace (ws_row bytes
+// a row). B1, B2, B6a and B6b run one block on the whole table, and their
+// template instances compile without any of it.
+struct Rows {
+  size_t ws_row;          // workspace bytes per row
+  const int32_t* gvals;   // kGlobal: live partial sums, int32[G]
+  int global_region;      // G
+  int32_t* coupled;       // kCoupled: admitted[n*H], vote[n*H], flags[2]
+};
+
+// B7a is check_kernel<false, true, kGlobal, kCoupled>:
+// - lean (kCoupled false): request ids are row-local (< H) and each block
+//   runs its own fixpoint with __syncthreads_or, capped at H sweeps, as
+//   each device's while_loop does under shard_map. No block waits on
+//   another.
+// - kGlobal: a hit flagged global (its slot < G, one slot on every row)
+//   takes as its base the wrapping sum over rows of the live partials,
+//   global_vals[min(slot, G - 1)], in place of its own cell's base (the
+//   psum base_hook). global_sum_kernel computes the sums in a launch of
+//   its own before this one, so that no row has written the table yet.
+// - kCoupled: request ids are global (< n*H) and a request's verdict is
+//   the AND of every row's vote (the pmin vote_combine). The admitted and
+//   vote vectors live in device memory, shared by all blocks, and each
+//   sweep has two grid-wide barriers: after the votes (every row has
+//   voted before any verdict is read), and after the commit, where each
+//   thread of the grid takes its share of request ids, compares vote with
+//   admitted, copies the vote over and resets it to 1 for the next sweep,
+//   and the grid ORs "changed" into flags[it & 1] (the other flag, read
+//   in the previous sweep by every block before the first barrier, is
+//   zeroed here). The cap is n*H sweeps, as the JAX loop's num_req. The
+//   barriers are cooperative_groups' grid sync under a cooperative
+//   launch, not a thread-block cluster: a cluster's blocks share at most
+//   8 SMs (16 with a non-portable size), and a block here holds up to
+//   128 KB of shared memory and 1024 threads, one block to an SM, so a
+//   cluster would cap n at 8; the grid barrier takes n up to the SM count
+//   (132), which the launcher checks before it launches.
+template <bool kRemote, bool kRows = false, bool kGlobal = false,
+          bool kCoupled = false>
 __global__ void __launch_bounds__(kThreads, 1) check_kernel(
     int32_t* __restrict__ values, int32_t* __restrict__ expiry,
     int32_t* __restrict__ hits, const int32_t* __restrict__ remote_vals,
@@ -240,13 +292,42 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
     const uint8_t* __restrict__ fresh, const uint8_t* __restrict__ bucket,
     int H, int scratch, int32_t now, void* workspace,
     uint8_t* __restrict__ out_admitted, uint8_t* __restrict__ out_ok,
-    int32_t* __restrict__ out_remaining, int32_t* __restrict__ out_ttl) {
+    int32_t* __restrict__ out_remaining, int32_t* __restrict__ out_ttl,
+    const uint8_t* __restrict__ is_global, Rows rows) {
   extern __shared__ uint64_t smem_keys[];
   __shared__ uint32_t sh[kWarps];
+  if constexpr (kRows) {
+    const size_t cell = (size_t)blockIdx.x * (scratch + 1);
+    const size_t hit = (size_t)blockIdx.x * H;
+    values += cell;
+    expiry += cell;
+    hits += cell;
+    slots += hit;
+    deltas += hit;
+    maxes += hit;
+    windows += hit;
+    req_ids += hit;
+    fresh += hit;
+    bucket += hit;
+    is_global += hit;
+    out_ok += hit;
+    out_remaining += hit;
+    out_ttl += hit;
+    if (!kCoupled) out_admitted += hit;
+    workspace = static_cast<char*>(workspace) + blockIdx.x * rows.ws_row;
+  }
   const int P = next_pow2(H);
   const Work a(workspace, H, P);
   uint64_t* keys = P <= kSmemKeys ? smem_keys : a.keys;
   const int tid = threadIdx.x;
+  // Request-id space, verdicts and votes: the block's own (< H) unless
+  // coupled, where they are the grid's (< n*H).
+  const int num_req = kCoupled ? (int)gridDim.x * H : H;
+  int32_t* adm = kCoupled ? rows.coupled : a[kAdmitted];
+  int32_t* vote = kCoupled ? rows.coupled + num_req : a[kVote];
+  int32_t* changed_flags = kCoupled ? rows.coupled + 2 * num_req : nullptr;
+  const int gtid = blockIdx.x * kThreads + tid;
+  const int gstride = gridDim.x * kThreads;
 
   sort_by_slot(keys, slots, H, P);
   segments(keys, H, a[kOrder], a[kSlot], a[kMark], a[kStart], sh);
@@ -259,12 +340,21 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
     a[kMaxv][i] = maxes[h];
     a[kWin][i] = windows[h];
     a[kReq][i] = req_ids[h];
-    a[kFlags][i] = (fresh[h] ? 1 : 0) | (bucket[h] ? 2 : 0);
+    a[kFlags][i] = (fresh[h] ? 1 : 0) | (bucket[h] ? 2 : 0) |
+                   (kGlobal && is_global[h] ? 16 : 0);
     a[kVraw][i] = values[s];
     a[kEraw][i] = expiry[s];
     a[kSegFlags][i] = 0;
     a[kSegWin][i] = kIntMin;
-    a[kAdmitted][i] = 1;
+    if (!kCoupled) a[kAdmitted][i] = 1;
+  }
+  if constexpr (kCoupled) {
+    for (int r = gtid; r < num_req; r += gstride) {
+      adm[r] = 1;
+      vote[r] = 1;
+    }
+    if (gtid == 0) changed_flags[0] = changed_flags[1] = 0;
+    cooperative_groups::this_grid().sync();
   }
   __syncthreads();
   for (int i = tid; i < H; i += kThreads) {
@@ -300,7 +390,11 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
     const int32_t tau = wmul(wsub(maxv, 1), is_bucket ? win : 0);
     const int32_t spent =
         wsub(maxv, wadd(floordiv(wsub(tau, base_rel), ival), 1));
-    a[kVeff][i] = is_bucket ? spent : wadd(v_window, remote_add);
+    int32_t v_eff = is_bucket ? spent : wadd(v_window, remote_add);
+    if (kGlobal && (a[kFlags][i] & 16)) {
+      v_eff = rows.gvals[imin(a[kSlot][i], rows.global_region - 1)];
+    }
+    a[kVeff][i] = v_eff;
     a[kBase][i] = base_rel;
     a[kFlags][i] |= (h_fresh ? 4 : 0) | (expired ? 8 : 0);
   }
@@ -312,8 +406,8 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
   bool changed;
   do {
     for (int i = tid; i < H; i += kThreads) {
-      a[kContrib][i] = a[kAdmitted][a[kReq][i]] ? a[kDelta][i] : 0;
-      a[kVote][i] = 1;
+      a[kContrib][i] = adm[a[kReq][i]] ? a[kDelta][i] : 0;
+      if (!kCoupled) vote[i] = 1;
     }
     __syncthreads();
     block_scan<false>(a[kContrib], a[kPre], H, false, sh);
@@ -322,21 +416,39 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
       const bool ok =
           wadd(wadd(a[kVeff][i], pending), a[kDelta][i]) <= a[kMaxv][i];
       a[kOk][i] = ok;
-      if (!ok) a[kVote][a[kReq][i]] = 0;
+      if (!ok) vote[a[kReq][i]] = 0;
     }
-    __syncthreads();
-    int local = 0;
-    for (int r = tid; r < H; r += kThreads) {
-      if (a[kVote][r] != a[kAdmitted][r]) local = 1;
-      a[kAdmitted][r] = a[kVote][r];
+    if constexpr (kCoupled) {
+      cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+      grid.sync();
+      int local = 0;
+      for (int r = gtid; r < num_req; r += gstride) {
+        if (vote[r] != adm[r]) local = 1;
+        adm[r] = vote[r];
+        vote[r] = 1;
+      }
+      if (gtid == 0) changed_flags[(it + 1) & 1] = 0;
+      if (__syncthreads_or(local) && tid == 0) {
+        atomicOr(&changed_flags[it & 1], 1);
+      }
+      grid.sync();
+      changed = *reinterpret_cast<volatile int32_t*>(
+                    &changed_flags[it & 1]) != 0;
+    } else {
+      __syncthreads();
+      int local = 0;
+      for (int r = tid; r < H; r += kThreads) {
+        if (vote[r] != adm[r]) local = 1;
+        adm[r] = vote[r];
+      }
+      changed = __syncthreads_or(local);
     }
-    changed = __syncthreads_or(local);
     ++it;
-  } while (changed && it < H);
+  } while (changed && it < num_req);
 
   // Final pending sums under the final decisions.
   for (int i = tid; i < H; i += kThreads) {
-    a[kContrib][i] = a[kAdmitted][a[kReq][i]] ? a[kDelta][i] : 0;
+    a[kContrib][i] = adm[a[kReq][i]] ? a[kDelta][i] : 0;
   }
   __syncthreads();
   block_scan<false>(a[kContrib], a[kPre], H, false, sh);
@@ -359,13 +471,19 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
                                    : imax(wsub(a[kEraw][i], now), 0);
     out_ttl[h] =
         is_bucket ? wadd(a[kBase][i], wmul(pending, win)) : ttl_window;
-    const bool adm_hit = a[kAdmitted][a[kReq][i]];
+    const bool adm_hit = adm[a[kReq][i]];
     const int start = a[kStart][i];
     if (adm_hit) atomicOr(&a[kSegFlags][start], 2);
     atomicMax(&a[kSegWin][start], (adm_hit || (flags & 1)) ? win : 0);
   }
-  for (int r = tid; r < H; r += kThreads) {
-    out_admitted[r] = (uint8_t)a[kAdmitted][r];
+  if constexpr (kCoupled) {
+    for (int r = gtid; r < num_req; r += gstride) {
+      out_admitted[r] = (uint8_t)adm[r];
+    }
+  } else {
+    for (int r = tid; r < H; r += kThreads) {
+      out_admitted[r] = (uint8_t)adm[r];
+    }
   }
   __syncthreads();
 
@@ -417,16 +535,32 @@ enum UpdateArray {
   uSegFresh, uSegWin
 };
 
-template <bool kRemote>
+// B7c (sharded_update, parallel/mesh.py:552-586) is
+// update_kernel<false, true>: block b runs B2 on row b of the sharded
+// table (the Rows layout of B7a), with no coupling between rows.
+template <bool kRemote, bool kRows = false>
 __global__ void __launch_bounds__(kThreads, 1) update_kernel(
     int32_t* __restrict__ values, int32_t* __restrict__ expiry,
     int32_t* __restrict__ hits, const int32_t* __restrict__ remote_exp,
     const int32_t* __restrict__ slots,
     const int32_t* __restrict__ deltas, const int32_t* __restrict__ windows,
     const uint8_t* __restrict__ fresh, const uint8_t* __restrict__ bucket,
-    int H, int scratch, int32_t now, void* workspace) {
+    int H, int scratch, int32_t now, void* workspace, size_t ws_row) {
   extern __shared__ uint64_t smem_keys[];
   __shared__ uint32_t sh[kWarps];
+  if constexpr (kRows) {
+    const size_t cell = (size_t)blockIdx.x * (scratch + 1);
+    const size_t hit = (size_t)blockIdx.x * H;
+    values += cell;
+    expiry += cell;
+    hits += cell;
+    slots += hit;
+    deltas += hit;
+    windows += hit;
+    fresh += hit;
+    bucket += hit;
+    workspace = static_cast<char*>(workspace) + blockIdx.x * ws_row;
+  }
   const int P = next_pow2(H);
   const Work a(workspace, H, P);
   uint64_t* keys = P <= kSmemKeys ? smem_keys : a.keys;
@@ -530,6 +664,46 @@ __global__ void clear_slots_kernel(int32_t* __restrict__ values,
     values[s] = 0;
     expiry[s] = 0;
     hits[s] = 0;
+  }
+}
+
+// B7b: zero value, expiry and hits at per-row slot lists
+// (sharded_clear_cells, parallel/mesh.py:507-549): entry i of the
+// int32[n, K] list is row i / K's slot. A grid-stride loop over n*K
+// entries, as B3b's over its slots; padding entries point at column L,
+// which stays 0. Duplicates write the same zeros. Bound: bytes, 4 B of
+// list read per entry and 12 B written per distinct cell.
+__global__ void sharded_clear_kernel(int32_t* __restrict__ values,
+                                     int32_t* __restrict__ expiry,
+                                     int32_t* __restrict__ hits,
+                                     const int32_t* __restrict__ slots,
+                                     int n_entries, int K, int row_len) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_entries;
+       i += gridDim.x * blockDim.x) {
+    const size_t cell = (size_t)(i / K) * row_len + slots[i];
+    values[cell] = 0;
+    expiry[cell] = 0;
+    hits[cell] = 0;
+  }
+}
+
+// B7a's pre-pass: for each global slot g < G, the wrapping int32 sum over
+// the n rows of the live partials (now < expiry), as XLA's psum of
+// int32 wraps. Runs before the check launch, so it reads the table as
+// the batch found it. Bound: bytes, 8 B read per row and slot plus 4 B
+// written per slot.
+__global__ void global_sum_kernel(const int32_t* __restrict__ values,
+                                  const int32_t* __restrict__ expiry,
+                                  int n, int row_len, int G, int32_t now,
+                                  int32_t* __restrict__ out) {
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < G;
+       g += gridDim.x * blockDim.x) {
+    uint32_t sum = 0;
+    for (int r = 0; r < n; ++r) {
+      const size_t cell = (size_t)r * row_len + g;
+      if (now < expiry[cell]) sum += (uint32_t)values[cell];
+    }
+    out[g] = (int32_t)sum;
   }
 }
 
@@ -739,7 +913,10 @@ __device__ void bitonic_merge_desc(uint64_t* a, int n) {
 // One block's running top-K over [lo, hi) of either the hit column
 // (zeroed as it is read; keys only below n_keys) or a candidate list.
 // Writes the block's K best to cand_out[blockIdx.x * K ...], or, with
-// out_counts set, the first k decoded.
+// out_counts set, the first k decoded. blockIdx.y is the row: B5 runs
+// one (row 0, the whole column), B7d one per row of the sharded hits
+// (sharded_drain_top_hits, parallel/mesh.py:589-612), each row n cells
+// of hits, n candidates in and gridDim.x * K out, k results.
 template <bool kFromHits>
 __global__ void __launch_bounds__(kTopkThreads) topk_blocks_kernel(
     int32_t* __restrict__ hits, const uint64_t* __restrict__ cand_in,
@@ -750,6 +927,17 @@ __global__ void __launch_bounds__(kTopkThreads) topk_blocks_kernel(
   __shared__ uint64_t tile[kTopkThreads];
   __shared__ uint64_t warp_max[kTopkThreads / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row = blockIdx.y;
+  if (kFromHits) {
+    hits += row * n;
+  } else {
+    cand_in += row * n;
+  }
+  if (cand_out != nullptr) cand_out += row * gridDim.x * K;
+  if (out_counts != nullptr) {
+    out_counts += row * k;
+    out_slots += row * k;
+  }
   if (tid < K) best[tid] = 0;
   const long long lo = (long long)blockIdx.x * chunk;
   const long long hi = lo + chunk < n ? lo + chunk : n;
@@ -896,8 +1084,93 @@ int launch_check(void* values, void* expiry, void* hits,
       (const int32_t*)windows, (const int32_t*)req_ids,
       (const uint8_t*)fresh, (const uint8_t*)bucket, H, scratch,
       (int32_t)now_ms, workspace, (uint8_t*)out_admitted, (uint8_t*)out_ok,
-      (int32_t*)out_remaining, (int32_t*)out_ttl);
+      (int32_t*)out_remaining, (int32_t*)out_ttl, nullptr, Rows{});
   return (int)cudaGetLastError();
+}
+
+// B7a's workspace: n rows of B1's workspace, then global_vals[G], then
+// the coupled admitted[n*H], vote[n*H] and two changed flags.
+size_t sharded_ws_row(int H) { return workspace_bytes(H, kCheckArrays); }
+
+size_t sharded_check_ws(int n, int H, int G) {
+  return (size_t)n * sharded_ws_row(H) +
+         4 * ((size_t)G + 2 * (size_t)n * H + 2);
+}
+
+// Blocks of the coupled instance that fit on the card at once: the
+// cooperative launch needs every row's block resident.
+template <bool kGlobal>
+int coupled_capacity(int H) {
+  auto kernel = check_kernel<false, true, kGlobal, true>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemKeys * 8);
+  int per_sm = 0, device = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kThreads, smem_for(H)) != cudaSuccess ||
+      cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess) {
+    return -1;
+  }
+  return per_sm * sms;
+}
+
+template <bool kGlobal, bool kCoupled>
+int launch_sharded_check(void* values, void* expiry, void* hits,
+                         const void* slots, const void* deltas,
+                         const void* maxes, const void* windows,
+                         const void* req_ids, const void* fresh,
+                         const void* bucket, const void* is_global, int n,
+                         int H, int L, int now_ms, int G, void* workspace,
+                         void* out_admitted, void* out_ok,
+                         void* out_remaining, void* out_ttl, void* stream) {
+  auto kernel = check_kernel<false, true, kGlobal, kCoupled>;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemKeys * 8);
+  const size_t ws_row = sharded_ws_row(H);
+  int32_t* tail = reinterpret_cast<int32_t*>(
+      static_cast<char*>(workspace) + (size_t)n * ws_row);
+  Rows rows{ws_row, tail, G, tail + G};
+  if (kGlobal) {
+    global_sum_kernel<<<grid_for(G), 256, 0, st>>>(
+        (const int32_t*)values, (const int32_t*)expiry, n, L + 1, G,
+        (int32_t)now_ms, tail);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  int32_t* v = (int32_t*)values;
+  int32_t* e = (int32_t*)expiry;
+  int32_t* h = (int32_t*)hits;
+  const int32_t* no_remote = nullptr;
+  const int32_t* sl = (const int32_t*)slots;
+  const int32_t* de = (const int32_t*)deltas;
+  const int32_t* mx = (const int32_t*)maxes;
+  const int32_t* wi = (const int32_t*)windows;
+  const int32_t* rq = (const int32_t*)req_ids;
+  const uint8_t* fr = (const uint8_t*)fresh;
+  const uint8_t* bu = (const uint8_t*)bucket;
+  const uint8_t* gl = (const uint8_t*)is_global;
+  int32_t now = (int32_t)now_ms;
+  int scratch = L;
+  uint8_t* oa = (uint8_t*)out_admitted;
+  uint8_t* ok = (uint8_t*)out_ok;
+  int32_t* orem = (int32_t*)out_remaining;
+  int32_t* ottl = (int32_t*)out_ttl;
+  const int smem = smem_for(H);
+  if (!kCoupled) {
+    kernel<<<n, kThreads, smem, st>>>(v, e, h, no_remote, no_remote, sl, de,
+                                      mx, wi, rq, fr, bu, H, scratch, now,
+                                      workspace, oa, ok, orem, ottl, gl,
+                                      rows);
+    return (int)cudaGetLastError();
+  }
+  void* args[] = {&v,  &e,  &h,  &no_remote, &no_remote, &sl,  &de,
+                  &mx, &wi, &rq, &fr,        &bu,        &H,   &scratch,
+                  &now, &workspace, &oa,    &ok,        &orem, &ottl,
+                  &gl, &rows};
+  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(n),
+                                          dim3(kThreads), args, smem, st);
 }
 
 // kRemote = false is B2; true is B6b.
@@ -914,7 +1187,7 @@ int launch_update(void* values, void* expiry, void* hits,
       (int32_t*)values, (int32_t*)expiry, (int32_t*)hits,
       (const int32_t*)remote_exp, (const int32_t*)slots,
       (const int32_t*)deltas, (const int32_t*)windows, (const uint8_t*)fresh,
-      (const uint8_t*)bucket, H, scratch, (int32_t)now_ms, workspace);
+      (const uint8_t*)bucket, H, scratch, (int32_t)now_ms, workspace, 0);
   return (int)cudaGetLastError();
 }
 
@@ -1081,6 +1354,108 @@ int ct_drain_top_hits(void* hits, int n, int k, void* workspace,
   topk_emit_kernel<<<grid_for(k), 256, 0, st>>>(ws, k, (int32_t*)out_counts,
                                                  (int32_t*)out_slots);
   return (int)cudaGetLastError();
+}
+
+// B7a (_local_step + sharded_check_and_update, parallel/mesh.py:399-504):
+// B1 on each row of the int32[n, L+1] table, one block per row, in one
+// launch (two with has_global: the live-partial sums first). The bool
+// columns are uint8. admitted is uint8[n*H] when coupled and
+// uint8[n, H] when lean; ok, remaining and ttl_ms are [n, H].
+long long ct_sharded_check_workspace_bytes(int n, int H, int G) {
+  return (long long)sharded_check_ws(n, H, G);
+}
+
+int ct_sharded_coupled_capacity(int H, int has_global) {
+  return has_global ? coupled_capacity<true>(H) : coupled_capacity<false>(H);
+}
+
+int ct_sharded_check_and_update(
+    void* values, void* expiry, void* hits, const void* slots,
+    const void* deltas, const void* maxes, const void* windows,
+    const void* req_ids, const void* fresh, const void* bucket,
+    const void* is_global, int n, int H, int L, int now_ms, int G,
+    int has_global, int coupled, void* workspace, void* out_admitted,
+    void* out_ok, void* out_remaining, void* out_ttl, void* stream) {
+  auto go = [&](auto launch) {
+    return launch(values, expiry, hits, slots, deltas, maxes, windows,
+                  req_ids, fresh, bucket, is_global, n, H, L, now_ms, G,
+                  workspace, out_admitted, out_ok, out_remaining, out_ttl,
+                  stream);
+  };
+  if (coupled) {
+    return has_global ? go(launch_sharded_check<true, true>)
+                      : go(launch_sharded_check<false, true>);
+  }
+  return has_global ? go(launch_sharded_check<true, false>)
+                    : go(launch_sharded_check<false, false>);
+}
+
+// B7c: B2 on each row, one block per row, one launch.
+long long ct_sharded_update_workspace_bytes(int n, int H) {
+  return (long long)n * workspace_bytes(H, kUpdateArrays);
+}
+
+int ct_sharded_update(void* values, void* expiry, void* hits,
+                      const void* slots, const void* deltas,
+                      const void* windows, const void* fresh,
+                      const void* bucket, int n, int H, int L, int now_ms,
+                      void* workspace, void* stream) {
+  auto kernel = update_kernel<false, true>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemKeys * 8);
+  kernel<<<n, kThreads, smem_for(H), (cudaStream_t)stream>>>(
+      (int32_t*)values, (int32_t*)expiry, (int32_t*)hits, nullptr,
+      (const int32_t*)slots, (const int32_t*)deltas,
+      (const int32_t*)windows, (const uint8_t*)fresh, (const uint8_t*)bucket,
+      H, L, (int32_t)now_ms, workspace, workspace_bytes(H, kUpdateArrays));
+  return (int)cudaGetLastError();
+}
+
+// B7b over an int32[n, K] slot list.
+int ct_sharded_clear(void* values, void* expiry, void* hits,
+                     const void* slots, int n, int K, int L, void* stream) {
+  const int entries = n * K;
+  sharded_clear_kernel<<<grid_for(entries), 256, 0, (cudaStream_t)stream>>>(
+      (int32_t*)values, (int32_t*)expiry, (int32_t*)hits,
+      (const int32_t*)slots, entries, K, L + 1);
+  return (int)cudaGetLastError();
+}
+
+// B7d: B5 on each of the n rows of L + 1 cells; k <= 1024 runs B5's two
+// passes with a row index in the grid (two launches for all rows), a
+// larger k B5's full sort row after row.
+long long ct_sharded_topk_workspace_bytes(int rows, int n, int k) {
+  if (k <= kTopkMaxSmall) {
+    const TopkPlan p = topk_plan(n, k);
+    return (long long)rows * p.blocks * p.K * 8;
+  }
+  return topk_sort_len(n - 1) * 8;
+}
+
+int ct_sharded_drain_top_hits(void* hits, int rows, int n, int k,
+                              void* workspace, void* out_counts,
+                              void* out_slots, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  uint64_t* ws = (uint64_t*)workspace;
+  if (k <= kTopkMaxSmall) {
+    const TopkPlan p = topk_plan(n, k);
+    topk_blocks_kernel<true><<<dim3(p.blocks, rows), kTopkThreads, 0, st>>>(
+        (int32_t*)hits, nullptr, n, n - 1, p.chunk, p.K, ws, 0, nullptr,
+        nullptr);
+    const int m = p.blocks * p.K;
+    topk_blocks_kernel<false><<<dim3(1, rows), kTopkThreads, 0, st>>>(
+        nullptr, ws, m, m, m, p.K, nullptr, k, (int32_t*)out_counts,
+        (int32_t*)out_slots);
+    return (int)cudaGetLastError();
+  }
+  for (int r = 0; r < rows; ++r) {
+    const int rc = ct_drain_top_hits(
+        (int32_t*)hits + (size_t)r * n, n, k, workspace,
+        (int32_t*)out_counts + (size_t)r * k,
+        (int32_t*)out_slots + (size_t)r * k, stream);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -14,10 +14,14 @@ flushes when the batch is full or the oldest request has waited
   results are still coming back; up to ``max_inflight`` overlap.
 
 ``UpdateBatcher`` coalesces the unconditional Report/update path: deltas
-sum per counter, and each flush is one ``apply_deltas`` call (one B2 or,
-on a replicated node, B6b launch). Within a batch, requests keep their
-enqueue order and the kernel decides them exactly as if serially; the
-hit-building and decoding live in ``TorchStorage.check_many``.
+sum per counter, and each flush is one ``apply_deltas`` call (one B2,
+on a replicated node B6b, on the sharded table B7c launch). Within a
+batch, requests keep their enqueue order and the kernel decides them
+exactly as if serially; the hit-building and decoding live in the
+storage's ``check_many``. The storage is a ``TorchStorage`` (or one of
+its subclasses) or a ``TorchShardedStorage``: the batchers call only
+``begin_check_many``, ``finish_check_many``, ``check_many`` and
+``apply_deltas``.
 
 ``ChunkPlanner`` sizes pipelined sub-batches for the native pipeline
 (``device/native_pipeline.py``): a flush is cut into chunks that ride the
@@ -369,7 +373,8 @@ class UpdateBatcher:
 
 
 class AsyncTorchStorage(AsyncCounterStorage):
-    """AsyncCounterStorage over TorchStorage + MicroBatcher: the hot
+    """AsyncCounterStorage over a device storage (``TorchStorage``, by
+    default, or ``TorchShardedStorage``) + MicroBatcher: the hot
     check_and_update path batches, the Report/update path batches through
     ``UpdateBatcher``; admin operations delegate inline.
 

@@ -127,6 +127,48 @@ def _staged(values, H: int, fill, dtype) -> np.ndarray:
     return arr
 
 
+def _partition_positions(
+    group_ids: np.ndarray, n_groups: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorized grouped cumcount: for flat staged rows labeled with a
+    group (a shard, a request's home shard), ``(counts[n_groups], pos)``
+    where ``pos[i]`` is row i's index within its group, counted in input
+    order. The JAX package's ``_partition_positions``
+    (``limitador_tpu/tpu/storage.py:99``) hands batches of 2048 rows and
+    more to a C pass of its host library (``hp_partition_positions``),
+    which the port's ``csrc/hostpath.cc`` leaves out; this is the numpy
+    route of that function for every size, one argsort and two cumsums,
+    and its outputs are identical to the C pass's."""
+    m = group_ids.shape[0]
+    counts = np.bincount(group_ids, minlength=n_groups)
+    order = np.argsort(group_ids, kind="stable")
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    pos = np.empty(m, np.int64)
+    pos[order] = np.arange(m, dtype=np.int64) - np.repeat(starts, counts)
+    return counts, pos
+
+
+def _scatter_rows(
+    shard_ids: np.ndarray,
+    pos: np.ndarray,
+    n: int,
+    H: int,
+    columns: Sequence[Tuple[Sequence, object, type]],
+) -> List[np.ndarray]:
+    """Scatter flat hit columns into per-shard ``[n, H]`` staging arrays
+    (``(values, fill, dtype)`` per column): one fancy-index store per
+    column over pad rows pre-filled with the inert default. Flat order is
+    request order and ``pos`` counts per shard in flat order, so each
+    shard's rows stay in request order (the kernels' nondecreasing
+    request-id contract)."""
+    out = []
+    for values, fill, dtype in columns:
+        arr = np.full((n, H), fill, dtype)
+        arr[shard_ids, pos] = values
+        out.append(arr)
+    return out
+
+
 def cell_rows(cells) -> dict:
     """Checkpoint form of a host cell map (key -> (cell, counter)): key ->
     (a, b, counter), the cell's two scalars as ``restore_cell`` takes
@@ -199,6 +241,12 @@ class _SlotTable:
         # (clear) fires on_clear instead.
         self.on_slot_release = None
         self.on_clear = None
+        # Device-plane telemetry (the sharded storage's device_stats):
+        # LRU evictions, and fresh allocations that recycled a released
+        # slot. Host bookkeeping only, never reset by dump/load.
+        self.evictions = 0
+        self.collisions = 0
+        self._recycled: Set[int] = set()
 
     def lookup(self, key: tuple, qualified: bool) -> Optional[int]:
         if qualified:
@@ -230,8 +278,13 @@ class _SlotTable:
         ]
 
     def alloc(self) -> int:
-        """Pop a free slot. Callers guarantee ``free`` is non-empty."""
-        return self.free.pop()
+        """Pop a free slot, counting a recycled one as a collision.
+        Callers guarantee ``free`` is non-empty."""
+        slot = self.free.pop()
+        if slot in self._recycled:
+            self._recycled.discard(slot)
+            self.collisions += 1
+        return slot
 
     def release(self, slot: int, key: tuple, qualified: bool) -> None:
         self.info.pop(slot, None)
@@ -240,6 +293,7 @@ class _SlotTable:
         else:
             self.simple.pop(key, None)
         self.free.append(slot)
+        self._recycled.add(slot)
         # A recycled slot must not stay reachable under its old native
         # key, nor through a cached plan.
         native_key = self.native_keys.pop(slot, None)

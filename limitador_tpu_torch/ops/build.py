@@ -58,6 +58,16 @@ _SIGNATURES = {
     "ct_topk_workspace_bytes": (ctypes.c_longlong, [_I, _I]),
     "ct_drain_top_hits": (_I, [_P, _I, _I, _P, _P, _P, _P]),
     "ct_error_string": (ctypes.c_char_p, [_I]),
+    "ct_sharded_check_workspace_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    "ct_sharded_coupled_capacity": (_I, [_I, _I]),
+    "ct_sharded_check_and_update": (
+        _I, [_P] * 11 + [_I] * 7 + [_P] * 6,
+    ),
+    "ct_sharded_update_workspace_bytes": (ctypes.c_longlong, [_I, _I]),
+    "ct_sharded_update": (_I, [_P] * 8 + [_I] * 4 + [_P] * 2),
+    "ct_sharded_clear": (_I, [_P] * 4 + [_I] * 3 + [_P]),
+    "ct_sharded_topk_workspace_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    "ct_sharded_drain_top_hits": (_I, [_P, _I, _I, _I] + [_P] * 4),
 }
 
 #: what the last build or load did: path, seconds, ptxas resource lines

@@ -99,6 +99,11 @@ launches = {
     "replicated_check": 0,
     "replicated_update": 0,
     "apply_remote": 0,
+    # B7a-d, the sharded table (parallel/mesh.py)
+    "sharded_check_and_update": 0,
+    "sharded_clear_cells": 0,
+    "sharded_update": 0,
+    "sharded_drain_top_hits": 0,
 }
 
 
@@ -207,30 +212,46 @@ def _floordiv(a, b):
 # -- B1: the fused exact admission -------------------------------------------
 
 
-def check_and_update_plain(
-    state: CounterTableState,
-    slots, deltas, maxes, windows_ms, req_ids, fresh, bucket, now_ms,
-    base_hook=None, tat_floor_hook=None,
-) -> BatchResult:
-    """Plain PyTorch twin of ``check_and_update_core`` on one chip.
-    Updates ``state`` in place; returns the per-request and per-hit
-    outputs. The hooks are the core's: ``base_hook(v_local, s_slot)``
-    gives the effective base per sorted hit, ``tat_floor_hook(s_slot)``
-    a floor max-merged into the bucket lanes' TAT (read and write base
-    alike); None leaves B1 as it is."""
-    values, expiry, hits = state
+class _CheckPlan(NamedTuple):
+    """One table's batch, sorted and read, ready for the admission
+    fixpoint: what ``check_and_update_core`` computes before its
+    ``while_loop`` (``_check_prepare``), what each sweep needs
+    (``_check_sweep``) and what the writes need (``_check_finish``)."""
+
+    state: CounterTableState
+    now: int
+    order: torch.Tensor
+    s_slot: torch.Tensor
+    is_end: torch.Tensor
+    seg_id: torch.Tensor
+    seg_start_idx: torch.Tensor
+    s_delta: torch.Tensor
+    s_max: torch.Tensor
+    s_req: torch.Tensor
+    s_win: torch.Tensor
+    s_fresh: torch.Tensor
+    s_bucket: torch.Tensor
+    v_raw: torch.Tensor
+    e_raw: torch.Tensor
+    h_fresh: torch.Tensor
+    expired: torch.Tensor
+    tat_eff: torch.Tensor
+    base_rel: torch.Tensor
+    v_eff: torch.Tensor
+
+
+def _check_prepare(state, slots, deltas, maxes, windows_ms, req_ids, fresh,
+                   bucket, now_ms, base_hook=None,
+                   tat_floor_hook=None) -> _CheckPlan:
+    values, expiry, _hits = state
     now = _now(now_ms)
     H = slots.shape[0]
-    num_req = H
     order, s_slot, is_start, is_end, seg_id = _sort_segments(slots)
     s_slot_l = s_slot.long()
-    s_delta = deltas[order]
-    s_max = maxes[order]
-    s_req = req_ids[order].long()
     s_win = windows_ms[order]
-    s_fresh = fresh[order]
+    s_max = maxes[order]
     s_bucket = bucket[order]
-
+    s_fresh = fresh[order]
     v_raw = values[s_slot_l]
     e_raw = expiry[s_slot_l]
     # Freshness is a segment property for reads: every hit of a recycled
@@ -250,62 +271,88 @@ def check_and_update_plain(
     spent = s_max - (_floordiv(tau - base_rel, s_ival) + 1)
     v_local = torch.where(s_bucket, spent, v_window)
     v_eff = v_local if base_hook is None else base_hook(v_local, s_slot_l)
-
     idx = torch.arange(H, dtype=_I32, device=slots.device)
     seg_start_idx = torch.cummax(
         torch.where(is_start, idx, 0), 0
     ).values.long()
+    return _CheckPlan(
+        state, now, order, s_slot, is_end, seg_id, seg_start_idx,
+        deltas[order], s_max, req_ids[order].long(), s_win, s_fresh,
+        s_bucket, v_raw, e_raw, h_fresh, expired, tat_eff, base_rel, v_eff,
+    )
 
-    def sweep(admitted):
-        contrib = torch.where(admitted[s_req], s_delta, 0)
-        pending = _seg_exclusive_prefix(contrib, seg_start_idx)
-        ok = v_eff + pending + s_delta <= s_max
-        vote = torch.ones(num_req, dtype=_I32, device=slots.device)
-        vote.scatter_reduce_(0, s_req, ok.to(_I32), "amin", include_self=True)
-        return vote.bool(), ok
 
-    admitted0 = torch.ones(num_req, dtype=torch.bool, device=slots.device)
-    admitted, ok_sorted = sweep(admitted0)
+def _check_sweep(plan: _CheckPlan, admitted, num_req: int):
+    """One sweep of the fixpoint over one table: each hit's ``ok`` under
+    ``admitted`` and the table's vote per request id (True where the
+    request has no hit here, as ``segment_min``'s identity is)."""
+    contrib = torch.where(admitted[plan.s_req], plan.s_delta, 0)
+    pending = _seg_exclusive_prefix(contrib, plan.seg_start_idx)
+    ok = plan.v_eff + pending + plan.s_delta <= plan.s_max
+    vote = torch.ones(num_req, dtype=_I32, device=ok.device)
+    vote.scatter_reduce_(0, plan.s_req, ok.to(_I32), "amin",
+                         include_self=True)
+    return vote.bool(), ok
+
+
+def _fixpoint(sweep, num_req: int, device):
+    """The JAX ``while_loop``: sweep from all-admitted until no vote
+    changes, at most ``num_req`` sweeps. ``sweep(admitted)`` returns the
+    new votes and what the last sweep computed besides."""
+    admitted0 = torch.ones(num_req, dtype=torch.bool, device=device)
+    admitted, extra = sweep(admitted0)
     changed = bool((admitted != admitted0).any())
     it = 1
     while changed and it < num_req:
-        admitted_new, ok_sorted = sweep(admitted)
+        admitted_new, extra = sweep(admitted)
         changed = bool((admitted_new != admitted).any())
         admitted = admitted_new
         it += 1
+    return admitted, extra
 
-    # Per-hit observability at the hit's turn.
-    is_admitted_hit = admitted[s_req]
+
+def _check_finish(plan: _CheckPlan, admitted, ok_sorted) -> BatchResult:
+    """Per-hit outputs at the hit's turn and one write per segment, at
+    its last hit, under the final ``admitted``. In place."""
+    values, expiry, hits = plan.state
+    now = plan.now
+    s_slot, seg_id, s_delta, s_max, s_win = (
+        plan.s_slot, plan.seg_id, plan.s_delta, plan.s_max, plan.s_win)
+    s_bucket, h_fresh, e_raw = plan.s_bucket, plan.h_fresh, plan.e_raw
+    H = s_slot.shape[0]
+    is_admitted_hit = admitted[plan.s_req]
     contrib_final = torch.where(is_admitted_hit, s_delta, 0)
-    pending_final = _seg_exclusive_prefix(contrib_final, seg_start_idx)
-    remaining = torch.clamp_min(s_max - (v_eff + pending_final + s_delta), 0)
-    reset_before = expired & (pending_final > 0)
+    pending_final = _seg_exclusive_prefix(contrib_final, plan.seg_start_idx)
+    remaining = torch.clamp_min(
+        s_max - (plan.v_eff + pending_final + s_delta), 0)
+    reset_before = plan.expired & (pending_final > 0)
     ttl_window = torch.where(
         reset_before | h_fresh, s_win, torch.clamp_min(e_raw - now, 0)
     )
     ttl_ms = torch.where(
-        s_bucket, base_rel + pending_final * s_win, ttl_window
+        s_bucket, plan.base_rel + pending_final * s_win, ttl_window
     )
 
-    # One write per segment, at its last hit.
     scratch = values.shape[0] - 1
     h_total = _seg_sum(contrib_final, seg_id)[seg_id]
     h_adm = _seg_max(is_admitted_hit.to(_I32), seg_id).bool()[seg_id]
     h_win = _seg_max(
-        torch.where(is_admitted_hit | s_fresh, s_win, 0), seg_id
+        torch.where(is_admitted_hit | plan.s_fresh, s_win, 0), seg_id
     )[seg_id]
     starts_fresh = (e_raw <= now) | h_fresh
     val_new = torch.where(
         s_bucket, 0,
-        torch.clamp_max(torch.where(starts_fresh, 0, v_raw) + h_total, _NEVER),
+        torch.clamp_max(torch.where(starts_fresh, 0, plan.v_raw) + h_total,
+                        _NEVER),
     )
+    is_end = plan.is_end
     write_val = is_end & (h_adm | h_fresh)
     reset_window = (h_adm & starts_fresh) | h_fresh
     reset = is_end & torch.where(s_bucket, h_adm | h_fresh, reset_window)
-    tat_base = torch.clamp_min(tat_eff, now)
+    tat_base = torch.clamp_min(plan.tat_eff, now)
     exp_new = torch.where(s_bucket, tat_base + h_total * s_win, h_win + now)
     seg_count = _seg_sum(torch.ones_like(s_slot), seg_id)[seg_id]
-    base_hits = torch.where(h_fresh, 0, hits[s_slot_l])
+    base_hits = torch.where(h_fresh, 0, hits[s_slot.long()])
     hit_count = torch.clamp_max(base_hits + seg_count, _NEVER)
 
     scratch_t = torch.full_like(s_slot, scratch)
@@ -316,9 +363,28 @@ def check_and_update_plain(
     expiry[scratch] = 0
     hits[scratch] = 0
 
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(H, device=slots.device)
+    inv = torch.empty_like(plan.order)
+    inv[plan.order] = torch.arange(H, device=s_slot.device)
     return BatchResult(admitted, ok_sorted[inv], remaining[inv], ttl_ms[inv])
+
+
+def check_and_update_plain(
+    state: CounterTableState,
+    slots, deltas, maxes, windows_ms, req_ids, fresh, bucket, now_ms,
+    base_hook=None, tat_floor_hook=None,
+) -> BatchResult:
+    """Plain PyTorch twin of ``check_and_update_core`` on one chip.
+    Updates ``state`` in place; returns the per-request and per-hit
+    outputs. The hooks are the core's: ``base_hook(v_local, s_slot)``
+    gives the effective base per sorted hit, ``tat_floor_hook(s_slot)``
+    a floor max-merged into the bucket lanes' TAT (read and write base
+    alike); None leaves B1 as it is."""
+    plan = _check_prepare(state, slots, deltas, maxes, windows_ms, req_ids,
+                          fresh, bucket, now_ms, base_hook, tat_floor_hook)
+    H = slots.shape[0]
+    admitted, ok_sorted = _fixpoint(
+        lambda adm: _check_sweep(plan, adm, H), H, slots.device)
+    return _check_finish(plan, admitted, ok_sorted)
 
 
 def check_and_update_batch(

@@ -3,8 +3,9 @@
 Counterpart of ``limitador_tpu/server/__main__.py``, cut to the gRPC
 services and the options of the slices ported so far:
 
-    python -m limitador_tpu_torch.server LIMITS_FILE [torch|memory] \\
+    python -m limitador_tpu_torch.server LIMITS_FILE [torch|sharded|memory] \\
         [--rls-port P] [--device cuda|cpu] [--capacity N] \\
+        [--global-namespaces NS,NS --global-region N] \\
         [--batch-delay-us U] [--rate-limit-headers NONE|DRAFT_VERSION_03] \\
         [--pipeline standard|compiled|native] [--native-hot-lane on|off] \\
         [--plan-cache-size N] [--lease-mode on|off] [--lease-max-tokens N] \\
@@ -17,18 +18,25 @@ services and the options of the slices ported so far:
 
 Storages: ``torch`` (default) keeps the counter table on the card
 (``--device cuda``, the default) or, for tests, on the CPU
-(``--device cpu``); ``memory`` is the exact host-side reference. The
-limits file is watched and hot-reloaded through ``configure_with``
-(counters of surviving limits are kept).
+(``--device cpu``); ``sharded`` keeps a sharded table
+(``device/sharded.py``): one row of ``--capacity`` cells per visible
+card (``torch.cuda.device_count()``; 1 with ``--device cpu``), counters
+routed to their owner row by key hash, and the namespaces of
+``--global-namespaces`` counted as per-row partials in the first
+``--global-region`` slots of every row; ``memory`` is the exact
+host-side reference. The limits file is watched and hot-reloaded through
+``configure_with`` (counters of surviving limits are kept).
 
-Pipelines (torch storage): ``standard`` decides per request through the
-micro-batcher; ``compiled`` batch-compiles CEL (``device/pipeline.py``);
+Pipelines (torch and sharded storage): ``standard`` decides per request
+through the micro-batcher; ``compiled`` batch-compiles CEL
+(``device/pipeline.py``); torch storage only:
 ``native`` adds the C++ columnar host lane for ShouldRateLimit
 (``device/native_pipeline.py``). ``--lease-mode on`` (native only) adds
 the quota-lease tier, whose credits run the B4c kernel. With
 ``--usage-topk`` > 0 (default 64) the tenant usage observatory drains the
-hit column through the B5 kernel every ``--usage-drain-interval`` seconds,
-on every torch-storage server, as the JAX server does on tpu storage.
+hit column through the B5 kernel (B7d on sharded storage) every
+``--usage-drain-interval`` seconds, on every torch and sharded server, as
+the JAX server does on tpu and sharded storage.
 Replication (torch storage): ``--peer`` (repeatable) or
 ``--listen-address`` makes the node a member of the replicated topology
 (``device/replicated.py``): its own counts stay in its device table, a
@@ -52,14 +60,21 @@ settling the native pipeline's leases on the demoted slots first
 on a replicated node exits 2 (the JAX server warns and serves
 single-tier there).
 
-Snapshots (torch storage): with ``--snapshot-path`` the counter table is
-checkpointed every ``--snapshot-period`` seconds and at shutdown, and
-restored at start: into the replicated storage on a replicated node
-(``load_snapshot``, before its broker starts), else as a new table
-(``TorchStorage.restore``, whose capacity is the checkpoint's; a tiered
-storage's checkpoint carries its cold cells, and the restore arms
-``--tier-cold`` again). A checkpoint that cannot be restored (unreadable,
-or tiered while ``--tier-mode`` is off) is moved aside to
+Sharded storage refuses what the JAX server degrades there (exit 2):
+``--pipeline native`` (the JAX server serves compiled), ``--tier-mode
+on`` (it serves single-tier), ``--lease-mode on``, and ``--peer`` or
+``--listen-address``. A sharded checkpoint's capacity, region and
+namespaces override the command line's, with a warning (they govern
+key routing).
+
+Snapshots (torch and sharded storage): with ``--snapshot-path`` the
+counter table is checkpointed every ``--snapshot-period`` seconds and at
+shutdown, and restored at start: into the replicated storage on a
+replicated node (``load_snapshot``, before its broker starts), else as a
+new table (``TorchStorage.restore``, whose capacity is the checkpoint's;
+a tiered storage's checkpoint carries its cold cells, and the restore
+arms ``--tier-cold`` again). A checkpoint that cannot be restored
+(unreadable, or tiered while ``--tier-mode`` is off) is moved aside to
 ``FILE.rejected`` and the server starts with a fresh table.
 
 Nothing falls back: a native pipeline or lease tier that cannot come up
@@ -70,7 +85,7 @@ that fails while serving stops it too (exit 1).
 
 Not in the port yet (``ROADMAP.md``): the HTTP API, observability,
 admission, the host-memory ``distributed`` storage, the native ingress
-and the sharded/pod topologies.
+and the multi-process pod.
 """
 
 from __future__ import annotations
@@ -115,8 +130,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("limits_file", help="YAML limits file (hot-reloaded)")
     p.add_argument(
-        "storage", nargs="?", default="torch", choices=["torch", "memory"],
-        help="counter storage: torch (device table, default) or memory",
+        "storage", nargs="?", default="torch",
+        choices=["torch", "sharded", "memory"],
+        help="counter storage: torch (device table, default), sharded "
+        "(one table row per visible card) or memory",
     )
     p.add_argument("--rls-host", default="0.0.0.0")
     p.add_argument("--rls-port", type=int, default=8081)
@@ -126,7 +143,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--capacity", type=int, default=1 << 20,
-        help="device counter-table capacity (torch)",
+        help="device counter-table capacity (torch; sharded: per shard)",
+    )
+    p.add_argument(
+        "--global-namespaces", default=_env("GLOBAL_NAMESPACES"),
+        help="sharded: comma-separated namespaces whose counters are "
+        "counted as per-shard partials read as their sum (one budget "
+        "over all shards)",
+    )
+    p.add_argument(
+        "--global-region", type=int,
+        default=int(_env("GLOBAL_REGION", "1024")),
+        help="sharded: per-shard slots reserved for global counters",
     )
     p.add_argument(
         "--batch-delay-us", type=int, default=500,
@@ -344,6 +372,61 @@ def build_storage(args, clock=time.time):
                clock=clock, device=args.device, **extra)
 
 
+def _sharded_refusals(args) -> None:
+    """What sharded storage cannot run: the JAX server warns and serves
+    something else for each of these; the port exits 2."""
+    if args.pipeline == "native":
+        raise ValueError(
+            "--pipeline native needs torch storage: the C++ hot lane stages "
+            "one table, not the sharded rows (use --pipeline compiled)")
+    if args.tier_mode == "on":
+        raise ValueError("--tier-mode on needs torch storage: the sharded "
+                         "table has no cold tier")
+    if args.lease_mode == "on":
+        raise ValueError("--lease-mode on needs torch storage with "
+                         "--pipeline native")
+    if _replicated(args):
+        raise ValueError("--peer and --listen-address need torch storage: "
+                         "a sharded table is not a replicated node")
+
+
+def build_sharded_storage(args, clock=time.time):
+    """The ``TorchShardedStorage`` the options ask for: one row per
+    visible card (one on the CPU), restored from ``--snapshot-path``
+    when a checkpoint is there (its capacity, region and namespaces
+    override the command line's, with a warning)."""
+    import torch
+
+    from ..device.sharded import TorchShardedStorage
+
+    n_shards = torch.cuda.device_count() if args.device == "cuda" else 1
+    cli_ns = {ns for ns in (args.global_namespaces or "").split(",") if ns}
+    path = args.snapshot_path
+    data = None
+    if path and os.path.exists(path):
+        data = _read_checkpoint(TorchShardedStorage, path, tiers=False)
+    if data is None:
+        return TorchShardedStorage(
+            n_shards=n_shards, local_capacity=args.capacity,
+            cache_size=args.cache_size, global_namespaces=sorted(cli_ns),
+            global_region=args.global_region, clock=clock,
+            device=args.device,
+        )
+    storage = TorchShardedStorage.from_snapshot(
+        data, n_shards=n_shards, cache_size=args.cache_size, clock=clock,
+        device=args.device)
+    log.info(f"restored sharded counter table from {path}")
+    for name, cli, snap in (
+            ("--capacity", args.capacity, storage._local_capacity),
+            ("--global-region", args.global_region, storage._global_region),
+            ("--global-namespaces", cli_ns, storage._global_ns)):
+        if cli != snap:
+            log.warning(f"warning: snapshot {name}={snap!r} overrides the "
+                        f"command line's {cli!r} (key routing must match "
+                        "the checkpoint)")
+    return storage
+
+
 def build_limiter(args, clock=time.time):
     """The limiter the server decides with."""
     if args.storage == "memory":
@@ -362,7 +445,11 @@ def build_limiter(args, clock=time.time):
             args.cache_size or DEFAULT_CACHE_SIZE, clock=clock))
     from ..device import AsyncTorchStorage
 
-    storage = build_storage(args, clock)
+    if args.storage == "sharded":
+        _sharded_refusals(args)
+        storage = build_sharded_storage(args, clock)
+    else:
+        storage = build_storage(args, clock)
     async_storage = AsyncTorchStorage(
         storage, max_delay=args.batch_delay_us / 1e6
     )
@@ -479,8 +566,9 @@ class RunningServer:
 
     @property
     def storage(self):
-        """The torch counter storage (``TorchStorage`` or
-        ``TorchReplicatedStorage``), or None on memory storage."""
+        """The device counter storage (``TorchStorage``,
+        ``TorchReplicatedStorage`` or ``TorchShardedStorage``), or None on
+        memory storage."""
         counters = self.limiter.storage.counters
         return getattr(counters, "inner", None)
 
@@ -517,7 +605,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     native_pipeline = observatory = None
     try:
         native_pipeline = build_native(args, limiter)
-        if args.storage == "torch" and args.usage_topk > 0:
+        if args.storage != "memory" and args.usage_topk > 0:
             from ..observability.usage import TenantUsageObservatory
 
             observatory = TenantUsageObservatory(
@@ -590,7 +678,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             tier.on_error = on_failure
             tier.start()
     checkpointer = None
-    if args.storage == "torch" and args.snapshot_path:
+    if args.storage != "memory" and args.snapshot_path:
         checkpointer = Checkpointer(limiter.storage.counters.inner,
                                     args.snapshot_path, args.snapshot_period)
         checkpointer.start()

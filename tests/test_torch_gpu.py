@@ -18,6 +18,7 @@ import torch
 from limitador_tpu_torch import Context, Limit, RateLimiter
 from limitador_tpu_torch.device.storage import TorchStorage
 from limitador_tpu_torch.ops import kernel as K
+from limitador_tpu_torch.parallel import mesh as M
 
 from .torch_batches import (
     C,
@@ -30,6 +31,9 @@ from .torch_batches import (
     remote_lanes,
     remote_rows,
     seed_rows,
+    sharded_batch,
+    sharded_lanes,
+    sharded_table,
     table,
 )
 from .torch_native_corpus import FROZEN_NOW, corpus, limits
@@ -471,3 +475,140 @@ def test_tiered_storage_on_the_card_matches_the_cpu(cuda):
         for k, (c, _) in cpu._cold.cells.items()]
     for st in stores:
         st.close()
+
+
+# -- B7: the sharded table ----------------------------------------------------
+
+
+def _sharded(arrays, dev):
+    return M.ShardedCounterState(*(torch.from_numpy(a.copy()).to(dev)
+                                   for a in arrays))
+
+
+@pytest.mark.parametrize("coupled", [False, True], ids=["lean", "coupled"])
+@pytest.mark.parametrize("has_global", [False, True],
+                         ids=["local", "global"])
+@pytest.mark.parametrize("n, H, L", [(8, 8, 512), (8, 1024, 1 << 14),
+                                     (3, 64, 4096)])
+def test_sharded_check_kernel_matches_plain(cuda, coupled, has_global, n,
+                                            H, L):
+    rng = np.random.default_rng(n * H + 2 * coupled + has_global)
+    now_ms = 5_000_000
+    G = 64
+    n_slots = min(L, 4096)
+    slot_lanes = sharded_lanes(rng, n_slots, G)
+    tab = sharded_table(rng, n, L, now_ms, slot_lanes, G)
+    ka, pb = _sharded(tab, cuda), _sharded(tab, cuda)
+    for _round in range(3):
+        cols = tuple(torch.from_numpy(a).to(cuda) for a in sharded_batch(
+            rng, n, H, slot_lanes, L, G, coupled, has_global, n_slots))
+        before = K.launches["sharded_check_and_update"]
+        _, got = M.sharded_check_and_update(
+            ka, *cols, now_ms, global_region=G, coupled=coupled,
+            has_global=has_global)
+        assert K.launches["sharded_check_and_update"] == before + 1
+        want = M.sharded_check_and_update_plain(
+            pb, *cols, now_ms, G, coupled, has_global)
+        _equal(got, want)
+        _equal(ka, pb)
+        now_ms += 700
+
+
+@pytest.mark.parametrize("coupled", [False, True], ids=["lean", "coupled"])
+def test_sharded_check_kernel_takes_a_region_past_the_row(cuda, coupled):
+    """global_region beyond L + 1 covers the whole row (the JAX default
+    of 1024 over short rows): the kernel equals the plain version."""
+    rng = np.random.default_rng(5)
+    n, H, L = 8, 8, 40
+    tab = [rng.integers(0, 50, (n, L + 1)).astype(np.int32),
+           rng.integers(0, 2000, (n, L + 1)).astype(np.int32),
+           np.zeros((n, L + 1), np.int32)]
+    for t in tab:
+        t[:, L] = 0
+    ka, pb = _sharded(tab, cuda), _sharded(tab, cuda)
+    R = n * H if coupled else H
+    cols = [np.full((n, H), f, dt) for f, dt in (
+        (L, np.int32), (0, np.int32), (NEVER, np.int32), (0, np.int32),
+        (R - 1, np.int32), (False, bool), (False, bool), (False, bool))]
+    for row in range(n):
+        for j in range(4):
+            cols[0][row, j] = int(rng.integers(0, L))
+            cols[1][row, j], cols[2][row, j] = 1, 400
+            cols[3][row, j] = 60_000
+            cols[4][row, j] = row * H + j if coupled else j
+            cols[7][row, j] = j % 2 == 0
+    d = [torch.from_numpy(c).to(cuda) for c in cols]
+    _, got = M.sharded_check_and_update(ka, *d, 1000, global_region=1024,
+                                        coupled=coupled, has_global=True)
+    want = M.sharded_check_and_update_plain(pb, *d, 1000, 1024, coupled,
+                                            True)
+    _equal(got, want)
+    _equal(ka, pb)
+
+
+def test_coupled_launch_refuses_rows_the_card_cannot_hold(cuda):
+    fits = M.coupled_row_capacity(8, False, cuda)
+    n = fits + 1
+    tab = [np.zeros((n, 65), np.int32) for _ in range(3)]
+    state = _sharded(tab, cuda)
+    cols = [torch.full((n, 8), f, dtype=dt, device=cuda) for f, dt in (
+        (64, torch.int32), (0, torch.int32), (NEVER, torch.int32),
+        (0, torch.int32), (n * 8 - 1, torch.int32), (False, torch.bool),
+        (False, torch.bool), (False, torch.bool))]
+    with pytest.raises(RuntimeError, match="resident"):
+        M.sharded_check_and_update(state, *cols, 1000, global_region=8,
+                                   coupled=True, has_global=False)
+
+
+@pytest.mark.parametrize("K_", [1, 64, 300])
+def test_sharded_clear_kernel_matches_plain(cuda, K_):
+    rng = np.random.default_rng(K_)
+    L = 4096
+    tab = sharded_table(rng, 8, L, 1_000_000, {}, 16)
+    ka, pb = _sharded(tab, cuda), _sharded(tab, cuda)
+    rows = rng.integers(0, L, (8, K_)).astype(np.int32)
+    rows[rng.random((8, K_)) < 0.3] = L
+    d_rows = torch.from_numpy(rows).to(cuda)
+    M.sharded_clear_cells(ka, d_rows)
+    M.sharded_clear_cells_plain(pb, d_rows)
+    _equal(ka, pb)
+
+
+@pytest.mark.parametrize("H", [8, 1024])
+def test_sharded_update_kernel_matches_plain(cuda, H):
+    rng = np.random.default_rng(300 + H)
+    now_ms = 5_000_000
+    L = 4096
+    slot_lanes = sharded_lanes(rng, L, 16)
+    tab = sharded_table(rng, 8, L, now_ms, slot_lanes, 16)
+    ka, pb = _sharded(tab, cuda), _sharded(tab, cuda)
+    slots, deltas, _m, wins, _r, fresh, bucket, _g = sharded_batch(
+        rng, 8, H, slot_lanes, L, 16, False, True)
+    deltas = np.where(rng.random((8, H)) < 0.1,
+                      rng.integers(-5, 1 << 30, (8, H)),
+                      deltas).astype(np.int32)
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in (slots, deltas, wins, fresh, bucket))
+    M.sharded_update(ka, *args, now_ms)
+    M.sharded_update_plain(pb, *args, now_ms)
+    _equal(ka, pb)
+
+
+@pytest.mark.parametrize("k", [1, 64, 1024, 1025])
+@pytest.mark.parametrize("kind", ["zipf", "ties", "zero"])
+def test_sharded_drain_kernel_matches_plain(cuda, kind, k):
+    rng = np.random.default_rng(k)
+    L = 1 << 14
+    hits = np.zeros((8, L + 1), np.int32)
+    if kind == "zipf":
+        for s in range(8):
+            np.add.at(hits[s], np.minimum(rng.zipf(1.3, 4 * L) - 1, L - 1),
+                      1)
+    elif kind == "ties":
+        hits[:, :L] = rng.choice([0, 1, 2, 2], (8, L))
+    hits[:, L] = 3
+    ha = torch.from_numpy(hits.copy()).to(cuda)
+    hb = ha.clone()
+    _equal(M.sharded_drain_top_hits(ha, k),
+           M.sharded_drain_top_hits_plain(hb, k))
+    assert not ha.any()

@@ -2,8 +2,9 @@
 
 - A subprocess that refuses to import ``jax`` and ``limitador_tpu``
   imports every module of ``limitador_tpu_torch``, builds a
-  ``TorchStorage(device="cpu")`` and decides a request, and decides a
-  cold counter through ``tier.TieredStorage``.
+  ``TorchStorage(device="cpu")`` and decides a request, decides a
+  cold counter through ``tier.TieredStorage``, and decides a request
+  whose counters span rows of ``TorchShardedStorage(n_shards=4)``.
 - An AST scan of the port's sources finds no such import.
 - The port's protobuf message classes are its own even when both
   packages are loaded in one process (the JAX package registers the same
@@ -62,6 +63,29 @@ assert not tiered.check_rate_limited_and_update(
     "ns", Context({"u": "cold"}), 1).limited
 assert tiered.check_rate_limited_and_update(
     "ns", Context({"u": "cold"}), 1).limited
+
+# the sharded table: a request whose two counters sit on different rows
+# is decided by the coupled launch, all or nothing
+from limitador_tpu_torch.device.sharded import TorchShardedStorage
+
+sharded = TorchShardedStorage(n_shards=4, local_capacity=64,
+                              global_region=8, device="cpu")
+spanning = RateLimiter(sharded)
+spanning.add_limit(Limit("sp", 1, 60, [], ["u"], name="tight"))
+spanning.add_limit(Limit("sp", 5, 3600, [], ["u"], name="loose"))
+for i in range(64):
+    ctx = Context({"u": f"u{i}"})
+    before = sharded.launch_stats()["sharded_launches"]["coupled"]
+    assert not spanning.check_rate_limited_and_update("sp", ctx, 1).limited
+    if sharded.launch_stats()["sharded_launches"]["coupled"] > before:
+        break
+else:
+    raise AssertionError("no user's counters span rows")
+again = spanning.check_rate_limited_and_update("sp", ctx, 1)
+assert again.limited and again.limit_name == "tight"
+loose = {c.limit.name: c.remaining for c in spanning.get_counters("sp")
+         if c.set_variables == {"u": f"u{i}"}}
+assert loose["loose"] == 4, loose
 assert not any(m.split(".")[0] in ("jax", "limitador_tpu")
                for m in sys.modules)
 print("imported", len(names), "modules")

@@ -398,6 +398,12 @@ def test_native_pipeline_with_a_broken_host_lane_exits(tmp_path,
      "on", "--listen-address", "127.0.0.1:0"],
     ["memory", "--peer", "127.0.0.1:9"],
     ["memory", "--snapshot-path", "never-written.ckpt"],
+    # sharded storage refuses what the JAX server degrades there
+    ["sharded", "--device", "cpu", "--pipeline", "native"],
+    ["sharded", "--device", "cpu", "--tier-mode", "on"],
+    ["sharded", "--device", "cpu", "--lease-mode", "on"],
+    ["sharded", "--device", "cpu", "--peer", "127.0.0.1:9"],
+    ["sharded", "--device", "cpu", "--listen-address", "127.0.0.1:0"],
 ])
 def test_modes_that_cannot_come_up_exit(tmp_path, argv):
     limits_path = tmp_path / "limits.yaml"
@@ -665,3 +671,107 @@ def test_an_unreadable_snapshot_is_moved_aside(tmp_path):
     assert (tmp_path / "counters.ckpt.rejected").read_bytes() == \
         b"not a checkpoint"
     assert path.exists()  # the final checkpoint of the fresh table
+
+
+# -- sharded storage ----------------------------------------------------------
+
+
+async def _sharded_vs_memory(tmp_path, extra):
+    """A ``sharded --device cpu`` server (one row on the CPU, ``api`` a
+    global namespace) and a memory server on one clock: the same
+    sequence, a hot reload and the reloaded sequence give byte-identical
+    answers and the same counters."""
+    clock = FakeClock()
+    limits_path = tmp_path / "limits.yaml"
+    limits_path.write_text(LIMITS)
+    ports = (_free_port(), _free_port())
+    parse = port_main.build_parser().parse_args
+    common = ["--rls-host", "127.0.0.1"]
+    sharded = await port_main.start(parse(
+        [str(limits_path), "sharded", "--device", "cpu", "--capacity",
+         "1024", "--global-namespaces", "api", "--global-region", "64",
+         "--usage-drain-interval", "0.05", "--rls-port", str(ports[0]),
+         *common, *extra]), clock=clock)
+    oracle = await port_main.start(parse(
+        [str(limits_path), "memory", "--rls-port", str(ports[1]), *common]),
+        clock=clock)
+    try:
+        storage = sharded.storage
+        assert type(storage).__name__ == "TorchShardedStorage"
+        assert storage.n_shards == 1
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{ports[0]}") as sc, \
+                grpc.aio.insecure_channel(f"127.0.0.1:{ports[1]}") as oc:
+            for phase in ("before", "after"):
+                for i, (method, blob, advance) in enumerate(_sequence()):
+                    clock.now += advance
+                    got = await _call(sc, method, blob)
+                    want = await _call(oc, method, blob)
+                    assert got == want, (phase, i, method)
+                if phase == "before":
+                    limits_path.write_text(RELOADED)
+                    st = limits_path.stat()
+                    os.utime(limits_path, ns=(st.st_atime_ns,
+                                              st.st_mtime_ns + 10**9))
+                    await _wait_for(
+                        lambda: sharded.status["limits_file_version"] == 2
+                        and oracle.status["limits_file_version"] == 2)
+        namespaces = ("api", "tb")
+        got = await _counters(sharded.limiter, namespaces)
+        want = {}
+        for ns in namespaces:
+            for c in oracle.limiter.get_counters(ns):
+                want[(ns, c.limit.name, tuple(c.set_variables.items()))] = (
+                    c.remaining, c.expires_in)
+        assert got.keys() == want.keys()
+        for key in got:
+            assert got[key][0] == want[key][0], key
+            assert abs(got[key][1] - want[key][1]) <= 0.002, key
+        launches = storage.launch_stats()["sharded_launches"]
+        assert launches["global"] > 0
+        await _wait_for(lambda: sharded.observatory.tenant_usage()["drains"]
+                        > 0)
+        return sharded
+    finally:
+        await sharded.stop()
+        await oracle.stop()
+
+
+@pytest.mark.parametrize("pipeline", ["standard", "compiled"])
+def test_sharded_server_answers_like_a_memory_server(tmp_path, pipeline):
+    server = asyncio.run(_sharded_vs_memory(tmp_path,
+                                            ["--pipeline", pipeline]))
+    assert server.observatory is not None
+    assert server.native_pipeline is None
+
+
+def test_a_sharded_snapshot_overrides_the_command_line_with_warnings(
+        tmp_path, caplog):
+    from limitador_tpu_torch import Context, Limit, RateLimiter
+    from limitador_tpu_torch.device.sharded import TorchShardedStorage
+
+    clock = FakeClock()
+    path = str(tmp_path / "sharded.ckpt")
+    saved = TorchShardedStorage(n_shards=1, local_capacity=512,
+                                global_region=16, global_namespaces=["g"],
+                                clock=clock, device="cpu")
+    limiter = RateLimiter(saved)
+    limiter.add_limit(Limit("g", 5, 60, [], ["u"]))
+    for _ in range(3):
+        limiter.check_rate_limited_and_update("g", Context({"u": "a"}), 1)
+    saved.snapshot(path)
+    args = port_main.build_parser().parse_args([
+        str(tmp_path / "limits.yaml"), "sharded", "--device", "cpu",
+        "--capacity", "1024", "--global-region", "32",
+        "--global-namespaces", "h", "--snapshot-path", path])
+    with caplog.at_level("WARNING", logger="limitador_tpu_torch"):
+        storage = port_main.build_sharded_storage(args, clock)
+    warned = [r.getMessage() for r in caplog.records
+              if "overrides the command line" in r.getMessage()]
+    assert len(warned) == 3, warned
+    for flag in ("--capacity", "--global-region", "--global-namespaces"):
+        assert any(flag in w for w in warned), flag
+    assert (storage._local_capacity, storage._global_region,
+            storage._global_ns) == (512, 16, {"g"})
+    restored = RateLimiter(storage)
+    restored.add_limit(Limit("g", 5, 60, [], ["u"]))
+    assert [c.remaining for c in restored.get_counters("g")] == [2]

@@ -216,3 +216,88 @@ def dirty_scratch(table_arrays, rng):
     for a in out:
         a[C] = int(rng.integers(1, 1000))
     return out
+
+
+def sharded_table(rng, n, L, now_ms, lanes, G):
+    """A mid-stream int32[n, L+1] sharded table (row s shard s, column L
+    its scratch): live and expired windows, bucket TATs, hit counts, and
+    in the global region (slots < G) per-row partials, live and expired,
+    some near 2**31 so that their sum over the rows passes it."""
+    values = rng.integers(0, 60, (n, L + 1)).astype(np.int32)
+    expiry = rng.integers(0, 2 * now_ms, (n, L + 1)).astype(np.int32)
+    hits = rng.integers(0, 1000, (n, L + 1)).astype(np.int32)
+    for slot, (is_bucket, maxv, win) in lanes.items():
+        if is_bucket and slot >= G:
+            ahead = rng.integers(-3, maxv + 4, n) * win
+            expiry[:, slot] = np.maximum(now_ms + ahead, 0)
+    big = rng.random((n, G)) < 0.2
+    values[:, :G] = np.where(big, (1 << 30) + rng.integers(0, 1 << 29,
+                                                          (n, G)),
+                             values[:, :G])
+    values[:, L] = expiry[:, L] = hits[:, L] = 0
+    return values, expiry, hits
+
+
+def sharded_lanes(rng, L, G):
+    """Per-slot (bucket?, max, window-or-interval) of a sharded table:
+    global slots are fixed windows with large maxes (their base is the
+    sum over the rows), local slots as ``lanes``."""
+    out = lanes(rng, L)
+    for slot in range(G):
+        out[slot] = (False, int(rng.choice([1 << 30, 5 << 28, 100])),
+                     int(rng.choice([1000, 60_000])))
+    return out
+
+
+def sharded_batch(rng, n, H, lanes_, L, G, coupled, with_global,
+                  n_slots=None):
+    """Request-ordered [n, H] hit columns of a sharded batch, padded per
+    row with slot L: lean (every request's hits on one row, row-local
+    request ids < H) or coupled (requests spanning rows, ids < n*H),
+    with global hits (a global slot, any row) when ``with_global``; local
+    hits fall on Zipf slots in [G, n_slots) (default L). Returns (slots,
+    deltas, maxes, windows, req_ids, fresh, bucket, is_global)."""
+    top = (n_slots or L) - 1
+    cols = [[[] for _ in range(n)] for _ in range(8)]
+    seen = set()
+    R = n * H if coupled else H
+    local_r = [0] * n
+    r = 0
+    while r < R - 1:
+        home = int(rng.integers(0, n))
+        k = int(rng.integers(1, 4))
+        rows = [home] + ([int(x) for x in rng.integers(0, n, k - 1)]
+                         if coupled else [home] * (k - 1))
+        if any(len(cols[0][s]) + rows.count(s) > H - 1 for s in rows):
+            break
+        rid = r if coupled else local_r[home]
+        for s in rows:
+            glob = with_global and G > 0 and rng.random() < 0.3
+            if glob:
+                slot = int(rng.integers(0, G))
+            else:
+                slot = int(min(G + rng.zipf(1.3) - 1, top))
+            is_bucket, maxv, win = lanes_[slot]
+            key = (s, slot)
+            vals = (slot, int(rng.choice([0, 1, 1, 1, 2, 5, 7])), maxv, win,
+                    rid, key not in seen and rng.random() < 0.15,
+                    is_bucket and not glob, glob)
+            for c, v in zip(cols, vals):
+                c[s].append(v)
+            seen.add(key)
+        if coupled:
+            r += 1
+        else:
+            local_r[home] += 1
+            if local_r[home] >= H - 1:
+                break
+            r = max(local_r)
+    fills = (L, 0, NEVER, 0, R - 1, False, False, False)
+    dtypes = (np.int32,) * 5 + (bool,) * 3
+    out = []
+    for c, fill, dt in zip(cols, fills, dtypes):
+        arr = np.full((n, H), fill, dt)
+        for s in range(n):
+            arr[s, :len(c[s])] = c[s]
+        out.append(arr)
+    return tuple(out)
