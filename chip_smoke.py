@@ -21,7 +21,10 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    remote-sum scatter (B6c) over unique slots, the tier promotion seed
    (B4d) at the promotion path's n = 1 and at larger batches with padding
    and a nonzero scratch row, the device-scalar epoch rebase (B4b) with
-   shifts 0, 1, 999,000 and 2^31 - 1.
+   shifts 0, 1, 999,000 and 2^31 - 1. B4d and B7b also in their host
+   forms (the storage's numpy lists in the kernel's parameter block),
+   each call timed from the list to the launched kernel beside the
+   parent tree's path for the same list (pad, pinned upload, launch).
 4. The main path: the port's gRPC server on the card (capacity 1<<20)
    answers Envoy ShouldRateLimit and Kuadrant CheckRateLimit/Report over a
    real channel, with a hot reload and an epoch rebase; every answer is
@@ -74,7 +77,9 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    answers and counters against an InMemoryStorage, the whole drive (every
    answer, a B7d drain and all three [8, L+1] arrays after a
    delete_counters) against the same drive on the CPU, and the global
-   over-admission per batch within (n - 1) x the budget left;
+   over-admission per batch within (n - 1) x the budget left, and at
+   most one B7b flush a staging pass and one a finish (staging split
+   into the clears and the rest, global evictions beside B7b launches);
    (b) the server with sharded --global-namespaces tenants --pipeline
    compiled (one row on one card) answers 2,000 sequential
    ShouldRateLimit, CheckRateLimit and Report calls with a hot reload that
@@ -247,6 +252,11 @@ def phase_build():
             job.result()
     info = build.build_info
     host = host_build.build_info
+    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()
+    print(f"nvcc: {nvcc[-1] if nvcc else 'unknown'}; a host list carries "
+          f"{build.library().ct_host_list_capacity(0)} int32 in one "
+          f"kernel parameter block")
     print(f"build: {time.perf_counter() - t0:.2f}s "
           f"(nvcc {info['seconds']:.2f}s, built={info['built']}; "
           f"g++ {host['seconds']:.2f}s, built={host['built']}) "
@@ -566,19 +576,23 @@ def phase_kernels(dev):
     exact = True
 
     def record(name, shape, err, ms, plain_ms, nbytes, library_ms=None,
-               device_ms=None):
+               device_ms=None, parent_ms=None):
         nonlocal exact
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         out[name][shape] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             library_ms=library_ms, bytes=nbytes, device_ms=device_ms,
+            parent_path_ms=parent_ms,
         )
         exact = exact and err == 0
         lib = "" if library_ms is None else f" library {library_ms:.4f}ms"
+        par = ("" if parent_ms is None
+               else f" parent's path {parent_ms:.4f}ms")
         dev_t = "not measured" if device_ms is None else f"{device_ms:.4f}ms"
         print(f"  {name:17s} n={shape!s:<7} err={err} call {ms:.4f}ms "
               f"(kernel alone {dev_t}) plain {plain_ms:.4f}ms "
-              f"bound {bound:.7f}ms ({nbytes} B){lib}")
+              f"bound {bound:.7f}ms ({nbytes} B){lib}{par}")
+        return out[name][shape]
 
     print("kernels vs plain versions (C = 1<<20):")
     for H in HS:
@@ -772,6 +786,7 @@ def phase_kernels(dev):
         pad = H - n
         record("seed_slots", n, err, ms, plain_ms,
                24 * n + 4 * pad + 8 + (4 if pad else 0), lib_ms, dms)
+        _seed_host_form(dev, record, tables, base_np, rows, n, H, lib_ms)
     # B4c: the lease credit, edge rows included
     for H in CREDIT_HS:
         cols = [t.cpu().numpy().copy() for t in base]
@@ -868,6 +883,208 @@ def phase_kernels(dev):
     if not exact:
         fail("a kernel disagrees with its plain version")
     return out
+
+
+def _bound_ctx(table):
+    """A host-list launch context on the current stream (the one the
+    CUDA events time), as a storage binds its own stream."""
+    import torch
+
+    from limitador_tpu_torch.ops import kernel as K
+
+    return K.TableContext(table, torch.cuda.current_stream())
+
+
+def _pinned(dev, *arrays):
+    """The parent tree's upload of host lists: pinned, non-blocking."""
+    import torch
+
+    return [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+            for a in arrays]
+
+
+def _host_breakdown(label, steps, reps=2000):
+    """Median host time (``time.perf_counter_ns``) of each step of a
+    host-form call, each step run alone ``reps`` times (a sync every
+    100, so that no queue of launches builds up)."""
+    import torch
+
+    out = {}
+    for name, step in steps.items():
+        times = []
+        for k in range(reps):
+            if k % 100 == 0:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            step()
+            times.append(time.perf_counter_ns() - t0)
+        out[name] = float(np.median(times)) / 1e3
+    torch.cuda.synchronize()
+    print(f"  host time of the {label} (median us): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def _seed_host_form(dev, record, tables, start_np, rows, n, H, lib_ms):
+    """B4d's host form on the storage's numpy lists (``seed_slots_host``,
+    the lists in the kernel's parameter block) against its plain version,
+    clean and dirty scratch; timed from the lists to the launched kernel
+    beside the parent's path for the same promotion (pad to the bucket,
+    three pinned uploads, the device-tensor launch)."""
+    import torch
+
+    from limitador_tpu_torch.ops import kernel as K
+
+    lists = tuple(a[:n].copy() for a in rows)
+    padded = H > n
+    errs = []
+    for dirty in (False, True):
+        begin = [a.copy() for a in start_np]
+        if dirty:
+            for a in begin:
+                a[C] = 7
+        ta, tb = (K.CounterTableState(*(torch.from_numpy(a).to(dev)
+                                        for a in begin)) for _ in range(2))
+        K.seed_slots_host(_bound_ctx(ta), *lists, padded)
+        K.seed_slots_host_plain(tb, *lists, padded)
+        errs.extend(zip(ta, tb))
+    torch.cuda.synchronize()
+
+    def bound():
+        return (_bound_ctx(tables()),)
+
+    def parent(t):
+        fills = (C, 0, 0)
+        staged = [np.concatenate([a, np.full(H - n, f, np.int32)])
+                  for a, f in zip(lists, fills)]
+        K.seed_slots(t, *_pinned(dev, *staged))
+
+    ms = _median_ms(lambda c: K.seed_slots_host(c, *lists, padded), bound)
+    plain_ms = _median_ms(
+        lambda t: K.seed_slots_host_plain(t, *lists, padded),
+        lambda: (tables(),))
+    parent_ms = _median_ms(parent, lambda: (tables(),))
+    dms = _device_ms(lambda c: K.seed_slots_host(c, *lists, padded), bound,
+                     "seed_list_kernel")
+    row = record("seed_slots", f"host/{n}", _max_abs_err(errs), ms,
+                 plain_ms, 24 * n + 8 + (4 if padded else 0), lib_ms, dms,
+                 parent_ms)
+    if n == 1:
+        ctx = _bound_ctx(tables())
+        ptrs = [a.tobytes() for a in lists]
+        idx = torch.from_numpy(lists[0]).to(dev).long()
+        stacked = torch.stack(list(tables()))
+        new_rows = torch.stack([torch.from_numpy(a).to(dev)
+                                for a in (lists[1], lists[2], lists[2])])
+        row["host_breakdown_us"] = _host_breakdown("B4d host form, n=1", {
+            "lists (the storage's np.asarray x3)": lambda: [
+                np.asarray(a, np.int32) for a in ([5], [3], [77])],
+            "checks (x3)": lambda: [K._require_host(a, "a", n)
+                                    for a in lists],
+            "lists as bytes (x3)": lambda: [a.tobytes() for a in lists],
+            "C call (list into the parameter block, launch)":
+                lambda: ctx.seed_fn(ctx.handle, *ptrs, n, 1),
+            "the whole wrapper": lambda: K.seed_slots_host(ctx, *lists, True),
+            "library call (index_copy_)":
+                lambda: stacked.index_copy_(1, idx, new_rows),
+        })
+
+
+def _clear_host_forms(dev, rng, record, base, rows_np, device_form, lib_ms):
+    """B7b's host form on host lists (``sharded_clear_cells_host``, the
+    list in the kernel's parameter block) against its plain version:
+    the [8, 64] list of the device-tensor row as (row, slot) pairs (also
+    held against that row's result), one evicted global slot on every
+    row (the parent's per-eviction call), and a staging pass's flush of
+    1024 global slots. Timed from the list to the launched kernel, beside
+    the parent's path for the same list where it had one (pad to the
+    bucket, a pinned upload, the device-tensor launch)."""
+    import torch
+
+    from limitador_tpu_torch.parallel import mesh as M
+
+    n, L = SHARDS, LOCAL_CAP
+    stacked = torch.stack([t.reshape(-1) for t in base])
+
+    def tables():
+        return (M.ShardedCounterState(*(t.clone() for t in base)),)
+
+    def bound():
+        return (_bound_ctx(tables()[0]),)
+
+    def parent(rows):
+        def launch(t):
+            k = max(8, 1 << (rows.shape[1] - 1).bit_length())
+            padded = np.full((n, k), L, np.int32)
+            padded[:, :rows.shape[1]] = rows
+            M.sharded_clear_cells(t, *_pinned(dev, padded))
+        return launch
+
+    row_ids = np.repeat(np.arange(n, dtype=np.int32), rows_np.shape[1])
+    pairs = np.stack([row_ids, rows_np.reshape(-1)], axis=1)
+    one = np.asarray([int(rng.integers(0, GLOBAL_REGION))], np.int32)
+    flush = np.arange(GLOBAL_REGION, dtype=np.int32)
+    for shape, entries, all_rows, par_rows in (
+            (f"host-pairs/{rows_np.shape[1]}", pairs, False, rows_np),
+            ("host-all/1", one, True, np.broadcast_to(one, (n, 1))),
+            (f"host-all/{GLOBAL_REGION}", flush, True, None)):
+        (ta,), (tb,) = tables(), tables()
+        M.sharded_clear_cells_host(_bound_ctx(ta), entries, all_rows)
+        M.sharded_clear_cells_host_plain(tb, entries, all_rows)
+        torch.cuda.synchronize()
+        compared = list(zip(ta, tb))
+        if not all_rows:
+            compared += list(zip(ta, device_form))
+        err = _max_abs_err(compared)
+        ms = _median_ms(
+            lambda c: M.sharded_clear_cells_host(c, entries, all_rows), bound)
+        plain_ms = _median_ms(
+            lambda t: M.sharded_clear_cells_host_plain(t, entries, all_rows),
+            tables)
+        parent_ms = (None if par_rows is None
+                     else _median_ms(parent(par_rows), tables))
+        if all_rows:
+            cells = (np.arange(n)[:, None] * (L + 1)
+                     + entries[None, :]).reshape(-1)
+            flat = torch.from_numpy(cells).to(dev)
+            lib = _median_ms(lambda t: t.index_fill_(1, flat, 0),
+                             lambda: (stacked.clone(),))
+            distinct = n * np.unique(entries).size
+        else:
+            lib = lib_ms
+            distinct = np.unique(pairs, axis=0).shape[0]
+        dms = _device_ms(
+            lambda c: M.sharded_clear_cells_host(c, entries, all_rows), bound,
+            "clear_list_kernel")
+        row = record("sharded_clear_cells", shape, err, ms, plain_ms,
+                     4 * entries.size + 12 * distinct, lib, dms, parent_ms)
+        if shape == "host-all/1":
+            ctx = _bound_ctx(tables()[0])
+            ptr = entries.tobytes()
+            flat_t = stacked.clone()
+            # the C call by block size: 1 slot (a 256-byte list), 1000
+            # (4,000 bytes, all parameters within the classic 4 KB),
+            # 1024 and 8000 (the 32,000-byte block)
+            lists = {k: np.arange(k, dtype=np.int32).tobytes()
+                     for k in (1000, 1024, 8000)}
+            row["host_breakdown_us"] = _host_breakdown(
+                "B7b host form, one global slot on every row", {
+                    "checks": lambda: (entries.dtype != np.int32
+                                       or entries.ndim != 1),
+                    "list as bytes": lambda: entries.tobytes(),
+                    "C call (list into the parameter block, launch)":
+                        lambda: ctx.clear_fn(ctx.handle, ptr, 1, 1),
+                    "the whole wrapper": lambda: M.sharded_clear_cells_host(
+                        ctx, entries, True),
+                    "library call (index_fill_)":
+                        lambda: flat_t.index_fill_(1, flat, 0),
+                    "C call, 1000 slots": lambda: ctx.clear_fn(
+                        ctx.handle, lists[1000], 1000, 1),
+                    "C call, 1024 slots": lambda: ctx.clear_fn(
+                        ctx.handle, lists[1024], 1024, 1),
+                    "C call, 8000 slots": lambda: ctx.clear_fn(
+                        ctx.handle, lists[8000], 8000, 1),
+                })
 
 
 def _sharded_table(rng, now_ms, lanes, n=SHARDS, L=LOCAL_CAP,
@@ -1045,6 +1262,7 @@ def _sharded_kernels(dev, rng, record):
     distinct = sum(np.unique(rows_np[x]).size for x in range(n))
     record("sharded_clear_cells", K_, err, ms, plain_ms,
            4 * n * K_ + 12 * distinct, lib_ms, dms)
+    _clear_host_forms(dev, rng, record, base, rows_np, ta, lib_ms)
     # B7d: per-row top-k drain over Zipf traffic with ties
     hits_np = np.zeros((n, L + 1), np.int32)
     for x in range(n):
@@ -2278,11 +2496,14 @@ def _sharded_stream(rng, batches, hits):
     return out
 
 
-def _sharded_drive(storage, stream, limits, clock, step_at, timed=None):
+def _sharded_drive(storage, stream, limits, clock, step_at, clears=None):
     """Run the phase-10a stream through ``storage`` (check_many, batch
     N+1 begun before N is finished); the clock steps 61 s before batch
     ``step_at``. Returns the answers ((limited, limit name) per request,
-    in order) and the per-batch host times."""
+    in order) and the per-batch host times. ``clears`` is the [B7b
+    flushes, seconds] pair that the caller's wrappers of the storage's
+    clears keep: it splits the clears out of begin and records the most
+    flushes one begin and one finish made."""
     from limitador_tpu_torch import Counter
     from limitador_tpu_torch.device.storage import _Request
 
@@ -2304,27 +2525,40 @@ def _sharded_drive(storage, stream, limits, clock, step_at, timed=None):
         return got
 
     answers = []
-    spent = {"requests": 0.0, "begin": 0.0, "finish": 0.0}
+    spent = {"requests": 0.0, "begin": 0.0, "finish": 0.0, "clears": 0.0,
+             "most_flushes_begin": 0, "most_flushes_finish": 0}
+    clears = clears if clears is not None else [0, 0.0]
+
+    def finish(handle):
+        flushes = clears[0]
+        answers.extend(storage.finish_check_many(handle))
+        spent["most_flushes_finish"] = max(spent["most_flushes_finish"],
+                                           clears[0] - flushes)
+
     inflight = None
     for b, (_kind, batch) in enumerate(stream):
         if b == step_at:
             if inflight is not None:
-                answers.extend(storage.finish_check_many(inflight))
+                finish(inflight)
                 inflight = None
             clock.now += 61.0
         t1 = time.perf_counter()
         requests = [_Request(counters(spec), 1, False) for spec in batch]
         t2 = time.perf_counter()
+        flushes, clear_s = clears
         handle = storage.begin_check_many(requests)
         t3 = time.perf_counter()
+        spent["clears"] += clears[1] - clear_s
+        spent["most_flushes_begin"] = max(spent["most_flushes_begin"],
+                                          clears[0] - flushes)
         if inflight is not None:
-            answers.extend(storage.finish_check_many(inflight))
+            finish(inflight)
         inflight = handle
         t4 = time.perf_counter()
         spent["requests"] += t2 - t1
         spent["begin"] += t3 - t2
         spent["finish"] += t4 - t3
-    answers.extend(storage.finish_check_many(inflight))
+    finish(inflight)
     return [(a.limited, a.limit_name) for a in answers], spent
 
 
@@ -2392,15 +2626,37 @@ def phase_sharded_drive(dev, card, batches=SHARDED_BATCHES, hits=8192):
             launch_s[0] += time.perf_counter() - t0
 
     M.sharded_check_and_update = timed_launch
+    # the clears: B7b flushes counted, their time and the list building
+    # (staging evicted global slots) timed
+    clears = [0, 0.0]
+    flush, zero = storage._flush_clears, storage._zero_global_slots
+
+    def timed_flush():
+        clears[0] += bool(storage._clear_pairs or storage._clear_all)
+        t0 = time.perf_counter()
+        try:
+            flush()
+        finally:
+            clears[1] += time.perf_counter() - t0
+
+    def timed_zero(slots):
+        t0 = time.perf_counter()
+        try:
+            zero(slots)
+        finally:
+            clears[1] += time.perf_counter() - t0
+
+    storage._flush_clears, storage._zero_global_slots = timed_flush, timed_zero
     K.reset_launches()
     t0 = time.perf_counter()
     try:
         answers, spent = _sharded_drive(storage, stream, limits, clock,
-                                        step_at)
+                                        step_at, clears)
         storage.close()
     finally:
         M.sharded_check_and_update = launch
     seconds = time.perf_counter() - t0
+    drive_clears, drive_flushes = K.launches["sharded_clear_cells"], clears[0]
     variants = storage.launch_stats()["sharded_launches"]
     got_counters = {
         (c.limit.name, tuple(c.set_variables.items())): (c.remaining,
@@ -2499,7 +2755,15 @@ def phase_sharded_drive(dev, card, batches=SHARDED_BATCHES, hits=8192):
         f"{k} {v / len(stream) * 1e3:.2f} ms/batch" for k, v in
         (("requests", spent["requests"]),
          ("staging", spent["begin"] - launch_s[0]),
+         ("of which clears", spent["clears"]),
          ("launch", launch_s[0]), ("finish", spent["finish"]))))
+    print(f"sharded drive clears: {storage._gtable.evictions} global "
+          f"evictions, {drive_clears} B7b launches in {drive_flushes} flushes "
+          f"over {len(stream)} staging passes (at most "
+          f"{spent['most_flushes_begin']} a staging pass, "
+          f"{spent['most_flushes_finish']} a finish); "
+          f"{launches['sharded_clear_cells'] - drive_clears} more for the "
+          f"reads, drain and delete after it")
     print(f"sharded drive launches per variant: {json.dumps(variants)}; "
           f"kernels: {json.dumps(launches)}")
     print(f"sharded drive: {local_n} lean+coupled answers vs the "
@@ -2521,6 +2785,9 @@ def phase_sharded_drive(dev, card, batches=SHARDED_BATCHES, hits=8192):
         fail("sharded drive: global over-admission past the bound")
     if min(variants.values()) == 0:
         fail(f"sharded drive: a launch variant never ran: {variants}")
+    if spent["most_flushes_begin"] > 1 or spent["most_flushes_finish"] > 1:
+        fail("sharded drive: more than one B7b flush in a staging pass or "
+             "a finish")
     missing = [k for k in ("sharded_check_and_update", "sharded_clear_cells",
                            "sharded_drain_top_hits") if launches[k] == 0]
     if missing:
@@ -2530,10 +2797,13 @@ def phase_sharded_drive(dev, card, batches=SHARDED_BATCHES, hits=8192):
         "host_ms_per_batch": {
             "requests": spent["requests"] / len(stream) * 1e3,
             "staging": (spent["begin"] - launch_s[0]) / len(stream) * 1e3,
+            "staging_clears": spent["clears"] / len(stream) * 1e3,
             "launch": launch_s[0] / len(stream) * 1e3,
             "finish": spent["finish"] / len(stream) * 1e3},
         "variants": variants, "global_over_admission": over_total,
         "global_evictions": storage._gtable.evictions,
+        "b7b_launches_drive": drive_clears,
+        "b7b_flushes_drive": drive_flushes,
         "bound_checks": checked,
     }
 
@@ -2758,7 +3028,7 @@ def main() -> int:
     kernels = []
     for kname, by_shape in results.items():
         rec = by_shape[MAIN_SHAPE[kname]]
-        kernels.append({
+        row = {
             "name": kname, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[kname], "launches": launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in by_shape.values()),
@@ -2768,7 +3038,17 @@ def main() -> int:
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": "bytes",
             "library_ms": rec["library_ms"],
-        })
+        }
+        # B4d and B7b from host lists (the main paths' form): each call
+        # timed from the list, beside the parent's path for it
+        host = {shape: {k: r[k] for k in ("ms", "device_ms", "plain_ms",
+                                          "parent_path_ms", "library_ms",
+                                          "bound_ms")}
+                for shape, r in by_shape.items()
+                if str(shape).startswith("host")}
+        if host:
+            row["host_forms"] = host
+        kernels.append(row)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({

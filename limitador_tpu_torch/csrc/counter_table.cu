@@ -64,12 +64,18 @@
 // rows, plus, for B7a's global variants, the pre-pass's 8 bytes per row
 // and global slot; latency, not bytes, keeps them above it, as for B1.
 //
-// Every entry point launches on the stream it is given and returns
-// cudaGetLastError() as an int; it allocates nothing.
+// B7b and B4d also take host lists by value (ct_sharded_clear_host,
+// ct_seed_slots_host, below): the storages' own slot lists ride in the
+// kernel's parameter block, through a context bound once per table.
+//
+// Every entry point launches on the stream it is given (or its context's)
+// and returns cudaGetLastError() as an int; it allocates no device memory.
 
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
+#include <new>
 
 namespace {
 
@@ -1191,6 +1197,159 @@ int launch_update(void* values, void* expiry, void* hits,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Host lists by value: B7b and B4d from the storages' own lists.
+//
+// The storages decide clears and promotion seeds on the host, a few cells
+// at a time. Staged as device tensors (a pinned buffer, an H2D copy and
+// tensor checks per array), such a list cost 50-80 us of host time around
+// a kernel of 1-2 us. Here the list travels in the kernel's parameter
+// block instead: the entry point copies it into a struct passed as a
+// const __grid_constant__ parameter, which the launch itself carries to
+// the card's constant bank, so a call allocates nothing and issues no
+// copy. Since CUDA 12.1 a kernel takes 32,764 bytes of parameters (4,096
+// before); a longer list launches in chunks of one block, in order, on
+// the same stream. Each kernel comes in three block sizes, so that the
+// launch of a short list does not carry a full block: a few entries, up
+// to 4,096 bytes of parameters in all (the classic limit), and the most
+// that fits.
+//
+// A context (ct_ctx_create) binds the table's three columns, its shape
+// and the storage's stream once; a call passes the handle and the list.
+// Bound: bytes, 12 B written per distinct cell; a call is launch-bound.
+
+#if __CUDACC_VER_MAJOR__ > 12 || \
+    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
+constexpr int kListInts = 8000;  // 32,000 B of the 32,764
+#else
+constexpr int kListInts = 960;   // 3,840 B of the 4,096
+#endif
+
+struct Ctx {
+  int32_t* values;
+  int32_t* expiry;
+  int32_t* hits;
+  int rows;
+  int row_len;
+  int device;
+  cudaStream_t stream;
+};
+
+// The context's card is current for the launch (the calling thread's own
+// current device is restored after it).
+struct DeviceGuard {
+  int prev = -1;
+  explicit DeviceGuard(int device) {
+    int cur;
+    if (cudaGetDevice(&cur) == cudaSuccess && cur != device) {
+      prev = cur;
+      cudaSetDevice(device);
+    }
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
+template <int N>
+struct ClearList {
+  int32_t e[N];
+};
+
+template <int N>
+struct SeedList {
+  int32_t slot[N];
+  int32_t value[N];
+  int32_t expiry[N];
+};
+
+// B7b's host form: `count` entries, either (row, slot) pairs or, with
+// all_rows, slots cleared on every row (the global region's evictions:
+// one list, not n copies of it). In the all-rows form neighbouring
+// threads take the rows of one slot, so a warp reads few distinct words
+// of the list (the constant cache serves one word per access).
+template <int N>
+__global__ void clear_list_kernel(int32_t* __restrict__ values,
+                                  int32_t* __restrict__ expiry,
+                                  int32_t* __restrict__ hits, int count,
+                                  int all_rows, int rows, int row_len,
+                                  const __grid_constant__ ClearList<N> list) {
+  const int total = all_rows ? count * rows : count;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += gridDim.x * blockDim.x) {
+    int row, slot;
+    if (all_rows) {
+      const int j = i / rows;
+      row = i - j * rows;
+      slot = list.e[j];
+    } else {
+      row = list.e[2 * i];
+      slot = list.e[2 * i + 1];
+    }
+    const size_t cell = (size_t)row * row_len + slot;
+    values[cell] = 0;
+    expiry[cell] = 0;
+    hits[cell] = 0;
+  }
+}
+
+// B4d's host form: seed_slots_kernel's writes from a list in one block.
+// The JAX program pads to a pow2 bucket; `padded` says its list had a
+// padding row, whose hits scatter zeroes the scratch cell's hits. A slot
+// equal to the scratch slot counts as padding, as in seed_slots_kernel.
+template <int N>
+__global__ void seed_list_kernel(int32_t* __restrict__ values,
+                                 int32_t* __restrict__ expiry,
+                                 int32_t* __restrict__ hits, int n,
+                                 int scratch, int padded,
+                                 const __grid_constant__ SeedList<N> list) {
+  int pad = padded;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int s = list.slot[i];
+    if (s == scratch) {
+      pad = 1;
+      continue;
+    }
+    values[s] = list.value[i];
+    expiry[s] = list.expiry[i];
+    hits[s] = 0;
+  }
+  if (__syncthreads_or(pad) && threadIdx.x == 0) hits[scratch] = 0;
+  if (threadIdx.x == 0) {
+    values[scratch] = 0;
+    expiry[scratch] = 0;
+  }
+}
+
+template <int N>
+int launch_clear_list(const Ctx& c, const int32_t* entries, int count,
+                      int all_rows) {
+  ClearList<N> list;
+  if (count) {
+    memcpy(list.e, entries, sizeof(int32_t) * (all_rows ? 1 : 2) * count);
+  }
+  const int total = all_rows ? count * c.rows : count;
+  clear_list_kernel<N><<<grid_for(total), 256, 0, c.stream>>>(
+      c.values, c.expiry, c.hits, count, all_rows, c.rows, c.row_len, list);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_seed_list(const Ctx& c, const int32_t* slots,
+                     const int32_t* values, const int32_t* expiry, int n,
+                     int padded) {
+  SeedList<N> list;
+  if (n) {
+    memcpy(list.slot, slots, sizeof(int32_t) * n);
+    memcpy(list.value, values, sizeof(int32_t) * n);
+    memcpy(list.expiry, expiry, sizeof(int32_t) * n);
+  }
+  const int threads = n <= 32 ? 32 : (n < 256 ? (n + 31) / 32 * 32 : 256);
+  seed_list_kernel<N><<<1, threads, 0, c.stream>>>(
+      c.values, c.expiry, c.hits, n, c.row_len - 1, padded, list);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1455,6 +1614,81 @@ int ct_sharded_drain_top_hits(void* hits, int rows, int n, int k,
         (int32_t*)out_slots + (size_t)r * k, stream);
     if (rc != 0) return rc;
   }
+  return 0;
+}
+
+
+// The launch context of one table: int32 columns of rows x row_len cells
+// on one card (rows = 1 for a single table of C + 1 cells), and the
+// stream every host-list launch of this table goes on. Null when the
+// columns are not device memory.
+void* ct_ctx_create(void* values, void* expiry, void* hits, int rows,
+                    int row_len, void* stream) {
+  cudaPointerAttributes attr;
+  if (cudaPointerGetAttributes(&attr, values) != cudaSuccess ||
+      attr.type != cudaMemoryTypeDevice) {
+    cudaGetLastError();
+    return nullptr;
+  }
+  return new (std::nothrow) Ctx{(int32_t*)values, (int32_t*)expiry,
+                                (int32_t*)hits,   rows,
+                                row_len,          attr.device,
+                                (cudaStream_t)stream};
+}
+
+void ct_ctx_destroy(void* ctx) { delete (Ctx*)ctx; }
+
+// Entries one launch carries: 0 all-rows slots, 1 (row, slot) pairs,
+// 2 seed rows.
+int ct_host_list_capacity(int kind) {
+  return kind == 0 ? kListInts : (kind == 1 ? kListInts / 2 : kListInts / 3);
+}
+
+// B7b from a host list: `count` (row, slot) pairs, or with all_rows
+// `count` slots cleared on every row; chunks of one parameter block.
+int ct_sharded_clear_host(void* ctx, const int32_t* entries, int count,
+                          int all_rows) {
+  const Ctx& c = *(const Ctx*)ctx;
+  DeviceGuard guard(c.device);
+  const int width = all_rows ? 1 : 2;
+  const int per = kListInts / width;
+  for (int off = 0; off < count; off += per) {
+    const int m = count - off < per ? count - off : per;
+    const int32_t* src = entries + (size_t)off * width;
+    const int ints = m * width;
+    const int rc =
+        ints <= 64     ? launch_clear_list<64>(c, src, m, all_rows)
+        : ints <= 1000 ? launch_clear_list<1000>(c, src, m, all_rows)
+                       : launch_clear_list<kListInts>(c, src, m, all_rows);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// B4d from host lists of n rows (unpadded; `padded` says the JAX call's
+// bucket had padding rows); chunks of one parameter block. A single
+// table only.
+int ct_seed_slots_host(void* ctx, const int32_t* slots,
+                       const int32_t* values, const int32_t* expiry, int n,
+                       int padded) {
+  const Ctx& c = *(const Ctx*)ctx;
+  if (c.rows != 1) return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(c.device);
+  constexpr int per = kListInts / 3;
+  int off = 0;
+  do {
+    const int m = n - off < per ? n - off : per;
+    const int rc =
+        m <= 8 ? launch_seed_list<8>(c, slots + off, values + off,
+                                     expiry + off, m, padded)
+        : m <= 256
+            ? launch_seed_list<256>(c, slots + off, values + off,
+                                    expiry + off, m, padded)
+            : launch_seed_list<per>(c, slots + off, values + off,
+                                    expiry + off, m, padded);
+    if (rc != 0) return rc;
+    off += per;
+  } while (off < n);
   return 0;
 }
 

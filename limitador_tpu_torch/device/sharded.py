@@ -20,9 +20,18 @@ shards are the rows of one int32[n, L+1] tensor per column on one card
   *coupled* (some request spans rows: a grid-wide AND of the rows' votes
   in every sweep), and either with the global pre-pass when a global hit
   is in the batch (counted as ``global``). ``launch_stats`` counts them.
-- Reports and ``apply_deltas`` are one B7c launch, slot releases one B7b
-  launch, and the usage observatory's ``drain_hot_slots`` one B7d launch
-  plus cell reads.
+- Reports and ``apply_deltas`` are one B7c launch, and the usage
+  observatory's ``drain_hot_slots`` one B7d launch plus cell reads.
+- Cell clears (a recycled or deleted local cell, an evicted or released
+  global slot on every row) are decided in the JAX storage's order but
+  staged, and launched as one B7b from the host list (the kernel's
+  parameter block, through the table's bound context) before anything
+  next touches the table: every device access enters ``_on_device``,
+  which launches them first, and every public call ends by launching
+  what it staged (``_ClearingLock``). A staging pass that evicts a
+  thousand global slots makes one B7b, where the JAX storage makes a
+  thousand; clears commute and are idempotent, so every launch and read
+  sees the table the JAX storage's order leaves.
 
 Host reads of single cells and of the global columns (``get_counters``,
 ``is_within_limits``, the drain's attribution) are plain tensor
@@ -125,14 +134,41 @@ class _ShardedHandle:
         self.watch_touches = watch_touches
 
 
+class _ClearingLock:
+    """The storage's re-entrant lock. Leaving its outermost hold launches
+    the clears the call staged (``owner._flush_clears``), so that every
+    public call leaves the table as the JAX storage's calls leave
+    theirs."""
+
+    __slots__ = ("_lock", "_depth", "_owner")
+
+    def __init__(self, owner):
+        self._lock = threading.RLock()
+        self._depth = 0
+        self._owner = owner
+
+    def __enter__(self):
+        self._lock.acquire()
+        self._depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if self._depth == 1:
+                self._owner._flush_clears()
+        finally:
+            self._depth -= 1
+            self._lock.release()
+
+
 class TorchShardedStorage(_BigLimitMixin, CounterStorage):
     supports_token_bucket = True  # device bucket lane / exact host path
 
     SNAPSHOT_FORMAT = "limitador_tpu_torch/sharded/1"
 
-    # The storage stream discipline and the checkpoint reader are
-    # TorchStorage's.
-    _on_device = TorchStorage._on_device
+    # The storage stream discipline, the bound table and the checkpoint
+    # reader are TorchStorage's.
+    _state = TorchStorage._state
     _upload = TorchStorage._upload
     _download = TorchStorage._download
     _start_download = TorchStorage._start_download
@@ -175,7 +211,11 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
             raise ValueError("n_shards must be >= 1")
         if global_region >= local_capacity:
             raise ValueError("global_region must be < local_capacity")
-        self._lock = threading.RLock()
+        self._lock = _ClearingLock(self)
+        # Clears decided and not launched yet (insertion-ordered sets):
+        # (row, slot) pairs, and slots of every row.
+        self._clear_pairs: Dict[Tuple[int, int], None] = {}
+        self._clear_all: Dict[int, None] = {}
         self._clock = clock
         self._local_capacity = int(local_capacity)
         self._global_region = int(global_region)
@@ -238,6 +278,32 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
 
     # -- device access (caller holds the lock) ------------------------------
 
+    def _on_device(self):
+        """TorchStorage's device context, entered after the staged clears
+        are launched: every device access of this storage comes here
+        first, so no launch or read sees a cell a clear is owed to."""
+        self._flush_clears()
+        return TorchStorage._on_device(self)
+
+    def _flush_clears(self) -> None:
+        """Launch the staged clears as one B7b from the host list (more
+        launches only past one parameter block): the all-rows form when
+        only global slots are staged, (row, slot) pairs otherwise."""
+        if not (self._clear_pairs or self._clear_all):
+            return
+        if self._clear_pairs:
+            pairs = list(self._clear_pairs)
+            pairs += [(r, s) for s in self._clear_all for r in range(self._n)]
+            entries = np.asarray(pairs, np.int32).reshape(-1)
+            all_rows = False
+        else:
+            entries = np.fromiter(self._clear_all, np.int32,
+                                  len(self._clear_all))
+            all_rows = True
+        M.sharded_clear_cells_host(self._ctx, entries, all_rows)
+        self._clear_pairs.clear()
+        self._clear_all.clear()
+
     def _read_cells(self, shards, slots) -> Tuple[np.ndarray, np.ndarray]:
         """(values, expiry) host arrays of the cells (shards[i],
         slots[i])."""
@@ -262,21 +328,11 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
     def _is_global(self, counter: Counter) -> bool:
         return counter.namespace in self._global_ns
 
-    def _clear_rows(self, rows: np.ndarray) -> None:
-        """Zero per-row cell lists (``rows`` is [n, k], scratch-padded):
-        one B7b launch."""
-        k = _bucket(rows.shape[1])
-        padded = np.full((self._n, k), self._scratch, np.int32)
-        padded[:, : rows.shape[1]] = rows
-        with self._on_device():
-            (d_rows,) = self._upload(padded)
-            M.sharded_clear_cells(self._state, d_rows)
-
     def _zero_global_slots(self, slots: List[int]) -> None:
         """A recycled global slot must not inherit stale partials on any
-        row (the pre-pass sums the whole global region)."""
-        idx = np.asarray(slots, np.int32)
-        self._clear_rows(np.broadcast_to(idx, (self._n, idx.shape[0])))
+        row (the pre-pass sums the whole global region): staged for the
+        next B7b."""
+        self._clear_all.update(dict.fromkeys(slots))
 
     def _evict_local(self, table: _SlotTable) -> None:
         if not table.qualified:
@@ -789,10 +845,8 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
                     )
                     if fresh and not is_g:
                         # No batch follows: clear a recycled local cell
-                        # now (global slots are zeroed at release).
-                        rows = np.full((self._n, 1), self._scratch, np.int32)
-                        rows[shard, 0] = slot
-                        self._clear_rows(rows)
+                        # (global slots are zeroed at release).
+                        self._clear_pairs[(shard, slot)] = None
 
     def update_counter(self, counter: Counter, delta: int) -> None:
         self.apply_deltas([(counter, delta)])
@@ -950,25 +1004,12 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
                 if counter.limit in limits:
                     self._gtable.release(slot, key, counter.is_qualified())
                     doomed_global.append(slot)
-            shard_idx: List[int] = []
-            slot_idx: List[int] = []
             for shard, table in enumerate(self._tables):
                 for slot, (key, counter) in list(table.info.items()):
                     if counter.limit in limits:
                         table.release(slot, key, counter.is_qualified())
-                        shard_idx.append(shard)
-                        slot_idx.append(slot)
-            if doomed_global:
-                self._zero_global_slots(doomed_global)
-            if shard_idx:
-                si = np.asarray(shard_idx, np.int32)
-                li = np.asarray(slot_idx, np.int32)
-                counts, pos = _partition_positions(si, self._n)
-                (rows,) = _scatter_rows(
-                    si, pos, self._n, max(int(counts.max(initial=0)), 1),
-                    ((li, self._scratch, np.int32),),
-                )
-                self._clear_rows(rows)
+                        self._clear_pairs[(shard, slot)] = None
+            self._zero_global_slots(doomed_global)
             self._delete_big(limits)
 
     def clear(self) -> None:
@@ -976,6 +1017,9 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
             self._reset_tables()
             self._clear_big()
             self._watched.clear()
+            # staged clears of the table this one replaces
+            self._clear_pairs.clear()
+            self._clear_all.clear()
             with self._on_device():
                 self._state = M.make_sharded_table(
                     self._n, self._local_capacity, self._device)

@@ -560,6 +560,21 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
     def device(self) -> torch.device:
         return self._device
 
+    @property
+    def _state(self):
+        """The table. Every assignment of it, whoever makes it, binds a
+        new launch context (``_ctx``: the columns and the storage stream,
+        checked once) and closes the old one, so a host-list launch can
+        never reach a table the storage has let go."""
+        return self._ctx.state
+
+    @_state.setter
+    def _state(self, state) -> None:
+        old = self.__dict__.get("_ctx")
+        self._ctx = K.TableContext(state, self._stream)
+        if old is not None:
+            old.close()
+
     def _on_device(self):
         """Context for every device operation: the storage's device and
         stream on the card, nothing on the CPU."""
@@ -1075,20 +1090,17 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         """Absolute cell write for ``slots`` (tier promotion): value and
         epoch-relative expiry land verbatim through one B4d launch, so the
         counter keeps its exact remaining window (the update lane's
-        ``fresh`` flag would restart it). Caller holds the lock; rows are
-        padded to the pow2 bucket with inert scratch rows."""
+        ``fresh`` flag would restart it). Caller holds the lock. The
+        lists go by value through the bound context; the JAX storage's
+        padding to the pow2 bucket is the ``padded`` flag."""
         n = len(slots)
         if n == 0:
             return
-        H = _bucket(n)
-        with self._on_device():
-            d_slots, d_values, d_expiry = self._upload(
-                _staged(np.asarray(slots, np.int32), H, self._scratch,
-                        np.int32),
-                _staged(np.asarray(values, np.int32), H, 0, np.int32),
-                _staged(np.asarray(expiry_rel_ms, np.int32), H, 0, np.int32),
-            )
-            K.seed_slots(self._state, d_slots, d_values, d_expiry)
+        K.seed_slots_host(
+            self._ctx, np.asarray(slots, np.int32),
+            np.asarray(values, np.int32),
+            np.asarray(expiry_rel_ms, np.int32), _bucket(n) > n,
+        )
 
     # -- CounterStorage ----------------------------------------------------
 

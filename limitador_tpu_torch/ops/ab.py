@@ -1,15 +1,28 @@
-"""Time the fused check (B1) and the replicated check (B6a) of two trees.
+"""Time kernels of two trees on one card, in alternating turns.
 
     python -m limitador_tpu_torch.ops.ab OTHER_CHECKOUT [--rounds 2]
 
 Runs on one card. Each turn is a subprocess in one tree (the two trees'
-libraries and modules share names) that builds its kernels, checks B1
-and B6a against their plain versions, and prints the median device time
-(CUDA events, 50 launches after 5 of warm-up) of each at H = 8192 hits
-over a 1<<20-counter table, the inputs made from one numpy seed. The
-turns go other, this, this, other for each round, so that a drift of the
-card over the call shows as a difference between the two turns of one
-tree. Prints one JSON line per turn and the card's name and power limit.
+libraries and modules share names) that builds its kernels, checks them
+against their plain versions, and prints median times (CUDA events, 50
+calls after 5 of warm-up), the inputs made from one numpy seed:
+
+- B1 and B6a at H = 8192 hits over a 1<<20-counter table (the call);
+- B7b over an [8, 1<<17 + 1] table: the device-tensor call at [8, 64]
+  (``b7b_call_ms``), the same list from a numpy array to the launched
+  kernel (``b7b_path_ms``) and one evicted global slot on every row
+  from a numpy list (``b7b_evict_ms``);
+- B4d at one promoted key (a bucket of 8): the device-tensor call
+  (``b4d_call_ms``) and the numpy lists to the launched kernel
+  (``b4d_path_ms``).
+
+A "path" time is the tree's own main path from the host list: the host
+form (the list in the kernel's parameter block) where the tree has it,
+else a pad to the bucket, pinned uploads and the device-tensor call.
+The turns go other, this, this, other for each round, so that a drift
+of the card over the call shows as a difference between the two turns
+of one tree. Prints one JSON line per turn and the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ import json, sys
 import numpy as np
 import torch
 from limitador_tpu_torch.ops import kernel as K
+from limitador_tpu_torch.parallel import mesh as M
 
 C, H, now = 1 << 20, 8192, 5_000_000
 rng = np.random.default_rng(6)
@@ -50,10 +64,10 @@ def table():
     return K.CounterTableState(*(t.clone() for t in base))
 
 
-def median_ms(fn):
+def median_ms(fn, setup=table):
     times = []
     for k in range(55):
-        t = table()
+        t = setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -63,6 +77,11 @@ def median_ms(fn):
         if k >= 5:
             times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def pinned(*arrays):
+    return [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+            for a in arrays]
 
 
 b1 = lambda t: K.check_and_update_batch(t, *args, now)
@@ -77,8 +96,85 @@ _, ra = K.replicated_check_batch(ta, *remote, *args, now)
 rb = K.replicated_check_plain(tb, *remote, *args, now)
 exact = exact and all(torch.equal(x, y) for x, y in zip(
     list(ra) + list(ta), list(rb) + list(tb)))
-print(json.dumps({"tree": sys.argv[1], "exact": exact,
-                  "b1_ms": median_ms(b1), "b6a_ms": median_ms(b6a)}))
+
+# B7b and B4d: the device-tensor call, and the tree's path from host lists
+host = hasattr(K, "TableContext")
+n, L, k = 8, 1 << 17, 64
+sbase = [torch.from_numpy(a).to(dev) for a in (
+    rng.integers(0, 60, (n, L + 1)).astype(np.int32),
+    rng.integers(0, 2 * now, (n, L + 1)).astype(np.int32),
+    rng.integers(0, 1000, (n, L + 1)).astype(np.int32))]
+rows = rng.integers(0, L, (n, k)).astype(np.int32)
+rows[rng.random((n, k)) < 0.2] = L
+pairs = np.stack([np.repeat(np.arange(n, dtype=np.int32), k),
+                  rows.reshape(-1)], axis=1)
+evicted = np.asarray([5], np.int32)
+seed = (np.asarray([77], np.int32), np.asarray([3], np.int32),
+        np.asarray([now + 60_000], np.int32))
+
+
+def stable():
+    return M.ShardedCounterState(*(t.clone() for t in sbase))
+
+
+def bound(make):
+    return lambda: K.TableContext(make(), torch.cuda.current_stream())
+
+
+def parent_clear(r):
+    def launch(t):
+        b = max(8, 1 << (r.shape[1] - 1).bit_length())
+        padded = np.full((n, b), L, np.int32)
+        padded[:, :r.shape[1]] = r
+        M.sharded_clear_cells(t, *pinned(padded))
+    return launch
+
+
+def parent_seed(t):
+    fills = (C, 0, 0)
+    K.seed_slots(t, *pinned(*(np.concatenate([a, np.full(7, f, np.int32)])
+                              for a, f in zip(seed, fills))))
+
+
+d_rows = torch.from_numpy(rows).to(dev)
+d_seed = pinned(*(np.concatenate([a, np.full(7, f, np.int32)])
+                  for a, f in zip(seed, (C, 0, 0))))
+times = {"b1_ms": median_ms(b1), "b6a_ms": median_ms(b6a),
+         "b7b_call_ms": median_ms(lambda t: M.sharded_clear_cells(t, d_rows),
+                                  stable),
+         "b4d_call_ms": median_ms(lambda t: K.seed_slots(t, *d_seed))}
+if host:
+    times.update(
+        b7b_path_ms=median_ms(
+            lambda c: M.sharded_clear_cells_host(c, pairs, False),
+            bound(stable)),
+        b7b_evict_ms=median_ms(
+            lambda c: M.sharded_clear_cells_host(c, evicted, True),
+            bound(stable)),
+        b4d_path_ms=median_ms(lambda c: K.seed_slots_host(c, *seed, True),
+                              bound(table)))
+    for run, plain, make in (
+            (lambda c: M.sharded_clear_cells_host(c, pairs, False),
+             lambda t: M.sharded_clear_cells_host_plain(t, pairs, False),
+             stable),
+            (lambda c: M.sharded_clear_cells_host(c, evicted, True),
+             lambda t: M.sharded_clear_cells_host_plain(t, evicted, True),
+             stable),
+            (lambda c: K.seed_slots_host(c, *seed, True),
+             lambda t: K.seed_slots_host_plain(t, *seed, True), table)):
+        ctx, tb = bound(make)(), make()
+        run(ctx)
+        plain(tb)
+        exact = exact and all(torch.equal(x, y)
+                              for x, y in zip(ctx.state, tb))
+else:
+    times.update(
+        b7b_path_ms=median_ms(parent_clear(rows), stable),
+        b7b_evict_ms=median_ms(
+            parent_clear(np.broadcast_to(evicted, (n, 1))), stable),
+        b4d_path_ms=median_ms(parent_seed))
+print(json.dumps({"tree": sys.argv[1], "host_forms": host, "exact": exact,
+                  **times}))
 '''
 
 

@@ -68,6 +68,12 @@ _SIGNATURES = {
     "ct_sharded_clear": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "ct_sharded_topk_workspace_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "ct_sharded_drain_top_hits": (_I, [_P, _I, _I, _I] + [_P] * 4),
+    # host lists by value through a context bound once per table
+    "ct_ctx_create": (_P, [_P, _P, _P, _I, _I, _P]),
+    "ct_ctx_destroy": (None, [_P]),
+    "ct_host_list_capacity": (_I, [_I]),
+    "ct_sharded_clear_host": (_I, [_P, _P, _I, _I]),
+    "ct_seed_slots_host": (_I, [_P] * 4 + [_I, _I]),
 }
 
 #: what the last build or load did: path, seconds, ptxas resource lines
@@ -135,8 +141,11 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded kernel library, built at first use (later calls take no
+    lock)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

@@ -40,7 +40,10 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
+
+from . import build
 
 __all__ = [
     "CounterTableState",
@@ -62,6 +65,9 @@ __all__ = [
     "credit_plain",
     "seed_slots",
     "seed_slots_plain",
+    "seed_slots_host",
+    "seed_slots_host_plain",
+    "TableContext",
     "drain_top_hits",
     "drain_top_hits_plain",
     "replicated_check_batch",
@@ -164,6 +170,67 @@ def _require_table(state: CounterTableState) -> None:
     n = state.values.shape[0]
     for name, t in zip(CounterTableState._fields, state):
         _require(t, name, _I32, n, state.values.device)
+
+
+def _require_host(a: np.ndarray, name: str, n: int) -> None:
+    if a.dtype != np.int32 or a.ndim != 1 or a.shape[0] != n:
+        raise ValueError(f"{name}: expected a numpy int32[{n}]")
+
+
+class TableContext:
+    """A table bound once for the host-list launches (the host forms of
+    B4d, ``seed_slots_host``, and of B7b, ``sharded_clear_cells_host``).
+
+    On the card the three columns are checked here, once, and bound with
+    the stream (the storage's own) in a C context, ``ct_ctx_create``; a
+    launch through it passes the handle and numpy lists and makes no
+    torch call. On the CPU it holds the table, and the host forms run
+    their plain versions on it. A storage makes one whenever it takes or
+    replaces its table, and closes the one it replaces: a context must
+    never outlive the table it points at, so it keeps the table."""
+
+    __slots__ = ("state", "cuda", "handle", "capacity", "clear_fn",
+                 "seed_fn", "_destroy")
+
+    def __init__(self, state, stream=None):
+        self.handle = None
+        self.state = state
+        self.cuda = _on_cuda(state.values)
+        if not self.cuda:
+            return
+        values = state.values
+        if values.dim() not in (1, 2):
+            raise ValueError("a table is int32[C+1] or int32[n, L+1]")
+        for name, t in zip(state._fields, state):
+            if (t.dtype != _I32 or t.shape != values.shape
+                    or t.device != values.device or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name}: expected a contiguous int32"
+                    f"{list(values.shape)} on {values.device}")
+        rows, row_len = ((1, values.shape[0]) if values.dim() == 1
+                         else tuple(values.shape))
+        if stream is None:
+            stream = torch.cuda.current_stream(values.device)
+        lib = build.library()
+        handle = lib.ct_ctx_create(
+            *(t.data_ptr() for t in state), rows, row_len,
+            stream.cuda_stream)
+        if not handle:
+            raise RuntimeError("ct_ctx_create: the table is not on a card")
+        self.handle = handle
+        self._destroy = lib.ct_ctx_destroy
+        self.clear_fn = lib.ct_sharded_clear_host
+        self.seed_fn = lib.ct_seed_slots_host
+        #: entries one launch carries: all-rows slots, pairs, seed rows
+        self.capacity = tuple(lib.ct_host_list_capacity(k) for k in range(3))
+
+    def close(self) -> None:
+        handle, self.handle = self.handle, None
+        if handle:
+            self._destroy(handle)
+
+    def __del__(self):
+        self.close()
 
 
 def _now(now_ms) -> int:
@@ -406,8 +473,6 @@ def check_and_update_batch(
             state, slots, deltas, maxes, windows_ms, req_ids, fresh, bucket,
             now_ms,
         )
-    from . import build
-
     H = slots.shape[0]
     dev = state.values.device
     _require_table(state)
@@ -524,8 +589,6 @@ def update_batch(
         return update_plain(
             state, slots, deltas, windows_ms, fresh, bucket, now_ms
         )
-    from . import build
-
     H = slots.shape[0]
     dev = state.values.device
     _require_table(state)
@@ -567,8 +630,6 @@ def read_slots(
     """Effective (window-aware) value and ttl_ms for a batch of slots."""
     if not _on_cuda(state.values):
         return read_slots_plain(state, slots, now_ms)
-    from . import build
-
     n = slots.shape[0]
     dev = state.values.device
     _require_table(state)
@@ -599,8 +660,6 @@ def clear_slots(
     """Zero value, expiry and hits at ``slots`` (in place)."""
     if not _on_cuda(state.values):
         return clear_slots_plain(state, slots)
-    from . import build
-
     n = slots.shape[0]
     dev = state.values.device
     _require_table(state)
@@ -629,8 +688,6 @@ def rebase_epoch_chunked(expiry_ms: torch.Tensor, shift: int) -> torch.Tensor:
     In place; one launch per step on the card."""
     cuda = _on_cuda(expiry_ms)
     if cuda:
-        from . import build
-
         _require(expiry_ms, "expiry_ms", _I32, expiry_ms.shape[0],
                  expiry_ms.device)
         lib = build.library()
@@ -673,8 +730,6 @@ def rebase_epoch(
     calls this one."""
     if not _on_cuda(state.values):
         return rebase_epoch_plain(state, shift_ms)
-    from . import build
-
     dev = state.values.device
     _require_table(state)
     _require(shift_ms.reshape(1), "shift_ms", _I32, 1, dev)
@@ -744,8 +799,6 @@ def credit_batch(
             raise ValueError("credit_batch: duplicate slots")
     if not _on_cuda(state.values):
         return credit_plain(state, slots, credits, windows_ms, bucket, now_ms)
-    from . import build
-
     H = slots.shape[0]
     dev = state.values.device
     _require_table(state)
@@ -797,8 +850,6 @@ def seed_slots(
     scratch slot. In place."""
     if not _on_cuda(state.values):
         return seed_slots_plain(state, slots, values, expiry_ms)
-    from . import build
-
     H = slots.shape[0]
     dev = state.values.device
     _require_table(state)
@@ -815,6 +866,45 @@ def seed_slots(
     ), "ct_seed_slots")
     launches["seed_slots"] += 1
     return state
+
+
+def seed_slots_host_plain(state: CounterTableState, slots: np.ndarray,
+                          values: np.ndarray, expiry_ms: np.ndarray,
+                          padded: bool) -> CounterTableState:
+    """Plain twin of ``seed_slots_host``: ``seed_slots_plain`` on the
+    unpadded lists, then the scratch hits a padding row would zero."""
+    dev = state.values.device
+    seed_slots_plain(state, *(torch.from_numpy(a).to(dev)
+                              for a in (slots, values, expiry_ms)))
+    if padded:
+        state.hits[-1] = 0
+    return state
+
+
+def seed_slots_host(ctx: TableContext, slots: np.ndarray,
+                    values: np.ndarray, expiry_ms: np.ndarray,
+                    padded: bool) -> CounterTableState:
+    """``seed_slots`` from host lists (numpy int32[n], unpadded) on
+    ``ctx.state``, in place. The JAX call pads to a pow2 bucket with
+    scratch rows; ``padded`` says it did, so the scratch hits zero as
+    there. On the card the lists ride in the kernel's parameter block
+    (``ct_seed_slots_host``): no pinned buffer, no device copy, no
+    tensor; a list longer than one block launches in chunks. The lists
+    reach C as ``bytes`` (a copy of 4 bytes a row, cheaper than
+    ``ndarray.ctypes``)."""
+    if not ctx.cuda:
+        return seed_slots_host_plain(ctx.state, slots, values, expiry_ms,
+                                     padded)
+    n = slots.shape[0]
+    _require_host(slots, "slots", n)
+    _require_host(values, "values", n)
+    _require_host(expiry_ms, "expiry_ms", n)
+    rc = ctx.seed_fn(ctx.handle, slots.tobytes(), values.tobytes(),
+                     expiry_ms.tobytes(), n, int(padded))
+    if rc:
+        build.check(rc, "ct_seed_slots_host")
+    launches["seed_slots"] += max(-(-n // ctx.capacity[2]), 1)
+    return ctx.state
 
 
 # -- B5: heavy-hitter drain --------------------------------------------------
@@ -846,8 +936,6 @@ def drain_top_hits(
         raise ValueError(f"drain_top_hits: k={k} outside [1, {n - 1}]")
     if not _on_cuda(hits):
         return drain_top_hits_plain(hits, k)
-    from . import build
-
     dev = hits.device
     _require(hits, "hits", _I32, n, dev)
     lib = build.library()
@@ -929,8 +1017,6 @@ def replicated_check_batch(
             state, remote_vals, remote_exp, slots, deltas, maxes,
             windows_ms, req_ids, fresh, bucket, now_ms,
         )
-    from . import build
-
     H = slots.shape[0]
     dev = state.values.device
     _require_table(state)
@@ -998,8 +1084,6 @@ def replicated_update_batch(
             state, remote_exp, slots, deltas, windows_ms, fresh, bucket,
             now_ms,
         )
-    from . import build
-
     H = slots.shape[0]
     dev = state.values.device
     _require_table(state)
@@ -1049,8 +1133,6 @@ def apply_remote(
     if not _on_cuda(remote_vals):
         return apply_remote_plain(remote_vals, remote_exp, slots, sums,
                                   expiries)
-    from . import build
-
     n = slots.shape[0]
     dev = remote_vals.device
     c1 = remote_vals.shape[0]

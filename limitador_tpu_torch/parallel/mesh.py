@@ -36,8 +36,10 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
+from ..ops import build
 from ..ops import kernel as K
 
 __all__ = [
@@ -48,6 +50,8 @@ __all__ = [
     "sharded_check_and_update_plain",
     "sharded_clear_cells",
     "sharded_clear_cells_plain",
+    "sharded_clear_cells_host",
+    "sharded_clear_cells_host_plain",
     "sharded_update",
     "sharded_update_plain",
     "sharded_drain_top_hits",
@@ -92,7 +96,7 @@ def _row(state: ShardedCounterState, s: int) -> K.CounterTableState:
 
 
 def _require2(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+    if t.dtype != dtype or t.shape != shape:
         raise ValueError(
             f"{name}: expected {dtype}{list(shape)}, got "
             f"{t.dtype}{list(t.shape)}"
@@ -102,11 +106,11 @@ def _require2(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _require_state(state: ShardedCounterState) -> None:
-    shape = state.values.shape
-    if state.values.dim() != 2:
+    values = state.values
+    if values.dim() != 2:
         raise ValueError("the sharded table is int32[n, L+1]")
     for name, t in zip(ShardedCounterState._fields, state):
-        _require2(t, name, _I32, shape, state.values.device)
+        _require2(t, name, _I32, values.shape, values.device)
 
 
 def _stream(dev) -> int:
@@ -193,8 +197,6 @@ def coupled_row_capacity(H: int, has_global: bool, device) -> int:
     """Rows a coupled launch at H hits a row can take on ``device``: its
     blocks (one per row, 1024 threads and up to 128 KB of shared memory
     each) must all be resident at once for the grid barrier."""
-    from ..ops import build
-
     with torch.cuda.device(device):
         got = build.library().ct_sharded_coupled_capacity(H, int(has_global))
     if got < 0:
@@ -230,8 +232,6 @@ def sharded_check_and_update(
             state, slots, deltas, maxes, windows_ms, req_ids, fresh, bucket,
             is_global, now_ms, global_region, coupled, has_global,
         )
-    from ..ops import build
-
     dev = state.values.device
     _require_state(state)
     n, H = slots.shape
@@ -304,21 +304,64 @@ def sharded_clear_cells(
     a global slot everywhere is the same list on every row. In place."""
     if not K._on_cuda(state.values):
         return sharded_clear_cells_plain(state, slots)
-    from ..ops import build
-
-    dev = state.values.device
+    values = state.values
+    dev = values.device
     _require_state(state)
-    n, L1 = state.values.shape
+    n, L1 = values.shape
     k = slots.shape[1] if slots.dim() == 2 else -1
     _require2(slots, "slots", _I32, (n, k), dev)
     if k == 0:
         return state
     build.check(build.library().ct_sharded_clear(
-        *(t.data_ptr() for t in state), slots.data_ptr(), n, k, L1 - 1,
-        _stream(dev),
+        values.data_ptr(), state.expiry_ms.data_ptr(), state.hits.data_ptr(),
+        slots.data_ptr(), n, k, L1 - 1, _stream(dev),
     ), "ct_sharded_clear")
     K.launches["sharded_clear_cells"] += 1
     return state
+
+
+def sharded_clear_cells_host_plain(state: ShardedCounterState,
+                                   entries: np.ndarray,
+                                   all_rows: bool) -> ShardedCounterState:
+    """Plain twin of ``sharded_clear_cells_host``. In place."""
+    e = torch.from_numpy(entries).to(state.values.device).long()
+    if all_rows:
+        n = state.values.shape[0]
+        rows = torch.arange(n, device=e.device)[:, None].expand(n, e.numel())
+        idx = (rows, e.view(1, -1).expand(n, -1))
+    else:
+        pairs = e.view(-1, 2)
+        idx = (pairs[:, 0], pairs[:, 1])
+    for t in state:
+        t[idx] = 0
+    return state
+
+
+def sharded_clear_cells_host(ctx: K.TableContext, entries: np.ndarray,
+                             all_rows: bool) -> ShardedCounterState:
+    """``sharded_clear_cells`` from a host list, on ``ctx.state`` in
+    place: ``entries`` is a numpy int32 list of (row, slot) pairs, or,
+    with ``all_rows``, of slots zeroed on every row (a global slot's
+    clear: k entries where the [n, K] form carries n*K). The JAX call's
+    padding entries are entries of slot L. On the card the list rides in
+    the kernel's parameter block (``ct_sharded_clear_host``): no pinned
+    buffer, no device copy, no tensor; a list longer than one block
+    launches in chunks, in order. The list reaches C as ``bytes``."""
+    if not ctx.cuda:
+        return sharded_clear_cells_host_plain(ctx.state, entries, all_rows)
+    if entries.dtype != np.int32 or (entries.ndim != 1 if all_rows
+                                     else entries.size % 2):
+        raise ValueError("entries: expected a numpy int32 list of slots "
+                         "(all_rows) or of (row, slot) pairs")
+    count = entries.size if all_rows else entries.size >> 1
+    if count == 0:
+        return ctx.state
+    rc = ctx.clear_fn(ctx.handle, entries.tobytes(), count, int(all_rows))
+    if rc:
+        build.check(rc, "ct_sharded_clear_host")
+    K.launches["sharded_clear_cells"] += -(-count // ctx.capacity[
+        0 if all_rows else 1])
+    return ctx.state
 
 
 # -- B7c: per-row unconditional increments -----------------------------------
@@ -350,8 +393,6 @@ def sharded_update(
     if not K._on_cuda(state.values):
         return sharded_update_plain(state, slots, deltas, windows_ms, fresh,
                                     bucket, now_ms)
-    from ..ops import build
-
     dev = state.values.device
     _require_state(state)
     n, H = slots.shape
@@ -410,8 +451,6 @@ def sharded_drain_top_hits(
                          f"[1, {L1 - 1}]")
     if not K._on_cuda(hits):
         return sharded_drain_top_hits_plain(hits, k)
-    from ..ops import build
-
     dev = hits.device
     _require2(hits, "hits", _I32, (n, L1), dev)
     lib = build.library()

@@ -612,3 +612,105 @@ def test_sharded_drain_kernel_matches_plain(cuda, kind, k):
     _equal(M.sharded_drain_top_hits(ha, k),
            M.sharded_drain_top_hits_plain(hb, k))
     assert not ha.any()
+
+
+# -- host lists by value: B7b's and B4d's host forms --------------------------
+
+
+def _bucket(n):
+    return max(8, 1 << (n - 1).bit_length())
+
+
+@pytest.mark.parametrize("count", [1, 64, 3000, 9000])
+@pytest.mark.parametrize("form", ["pairs", "all_rows"])
+def test_sharded_clear_host_form_matches_plain(cuda, form, count):
+    """B7b from a host list against its plain version, dirty column L
+    included; a list longer than one parameter block launches in chunks,
+    each counted."""
+    rng = np.random.default_rng(count + (form == "pairs"))
+    L = 1 << 14
+    tab = sharded_table(rng, 8, L, 1_000_000, {}, 16)
+    for a in tab:
+        a[:, L] = rng.integers(1, 1000, 8)
+    ka, pb = _sharded(tab, cuda), _sharded(tab, cuda)
+    if form == "pairs":
+        entries = np.stack([rng.integers(0, 8, count),
+                            rng.integers(0, L + 1, count)], 1)
+    else:
+        entries = rng.integers(0, L + 1, count)
+    entries = np.ascontiguousarray(entries, np.int32)
+    all_rows = form == "all_rows"
+    ctx = K.TableContext(ka, torch.cuda.current_stream(cuda))
+    chunk = ctx.capacity[0 if all_rows else 1]
+    before = K.launches["sharded_clear_cells"]
+    M.sharded_clear_cells_host(ctx, entries, all_rows)
+    assert K.launches["sharded_clear_cells"] == before + -(-count // chunk)
+    M.sharded_clear_cells_host_plain(pb, entries, all_rows)
+    torch.cuda.synchronize()
+    _equal(ka, pb)
+    ctx.close()
+
+
+@pytest.mark.parametrize("scratch", ["clean", "dirty"])
+@pytest.mark.parametrize("n", [1, 5, 8, 300, 3000])
+def test_seed_slots_host_form_matches_plain(cuda, n, scratch):
+    """B4d from host lists against its plain version, with the padding
+    flag of the storage's bucket; past one parameter block in chunks."""
+    rng = np.random.default_rng(400 + n)
+    now_ms = 5_000_000
+    tab = table(rng, now_ms, {})
+    if scratch == "dirty":
+        tab = dirty_scratch(tab, rng)
+    rows = seed_rows(rng, n, n, now_ms)
+    ka, pb = _state(tab, cuda), _state(tab, cuda)
+    ctx = K.TableContext(ka, torch.cuda.current_stream(cuda))
+    before = K.launches["seed_slots"]
+    K.seed_slots_host(ctx, *rows, _bucket(n) > n)
+    assert K.launches["seed_slots"] == before + -(-n // ctx.capacity[2])
+    K.seed_slots_host_plain(pb, *rows, _bucket(n) > n)
+    torch.cuda.synchronize()
+    _equal(ka, pb)
+    ctx.close()
+
+
+def test_sharded_storage_on_the_card_clears_like_the_cpu(cuda):
+    """One evicting stream through TorchShardedStorage on the card and on
+    the CPU: the same answers and arrays after every call, and one B7b
+    per staging pass plus one per releasing or deleting call."""
+    from limitador_tpu_torch.device.sharded import TorchShardedStorage
+    from limitador_tpu_torch.device.storage import _Request
+    from limitador_tpu_torch.core.counter import Counter
+
+    class Clock:
+        now = FROZEN_NOW
+
+        def __call__(self):
+            return self.now
+
+    clock = Clock()
+    stores = [TorchShardedStorage(n_shards=8, local_capacity=256,
+                                  global_region=8, global_namespaces=["g"],
+                                  clock=clock, device=dev)
+              for dev in (cuda, "cpu")]
+    g = Limit("g", 5, 60, [], ["t"])
+    one = Limit("ns", 1, 60, [], ["u"])
+    rng = np.random.default_rng(9)
+    calls = 0
+    before = K.launches["sharded_clear_cells"]
+    for b in range(6):
+        tenants = rng.integers(0, 40, 32).tolist()
+        for reqs in ([[Counter(g, {"t": str(t)})] for t in tenants],
+                     [[Counter(one, {"u": "a"}),
+                       Counter(g, {"t": f"new{b}"})]]):
+            got = [[a.limited for a in st.check_many(
+                [_Request(cs, 1, False) for cs in reqs])] for st in stores]
+            assert got[0] == got[1]
+            calls += 2
+            _equal(stores[0]._state, stores[1]._state)
+        clock.now += 7.0
+    for st in stores:
+        st.delete_counters({g})
+    calls += 1
+    _equal(stores[0]._state, stores[1]._state)
+    assert 0 < K.launches["sharded_clear_cells"] - before <= calls
+    assert stores[0]._gtable.evictions > calls

@@ -1451,3 +1451,224 @@ def test_convert_continues_from_a_mid_stream_jax_sharded_table():
     for ns in ("ns", "g"):
         assert _counter_rows(jlim.get_counters(ns)) == _counter_rows(
             tlim.get_counters(ns))
+
+
+# -- B7b's host form and the coalesced clears ---------------------------------
+
+
+@pytest.mark.parametrize("K_", [1, 8, 64])
+@pytest.mark.parametrize("form", ["pairs", "all_rows"])
+def test_sharded_clear_host_form_matches_jax(form, K_):
+    """B7b's host form (the list by value) equals the JAX call on the
+    padded [n, K] list, with dirty column-L cells: a padding entry is an
+    entry of slot L and clears that cell, as the JAX scatter does."""
+    rng = np.random.default_rng(40 + K_)
+    mesh = _mesh()
+    lanes = sharded_lanes(rng, L, G)
+    table = sharded_table(rng, N, L, 1_000_000, lanes, G)
+    for a in table:
+        a[:, L] = rng.integers(1, 1000, N)
+    if form == "pairs":
+        rows = rng.integers(0, L, (N, K_)).astype(np.int32)
+        rows[rng.random((N, K_)) < 0.3] = L
+        rows[0, -1] = rows[0, 0]  # a duplicate
+        entries = np.stack([np.repeat(np.arange(N, dtype=np.int32), K_),
+                            rows.reshape(-1)], axis=1)
+    else:
+        entries = np.full(K_, L, np.int32)  # padded to K_ with slot L
+        real = rng.choice(L, max(K_ // 2, 1), replace=False)
+        entries[:real.size] = real
+        rows = np.broadcast_to(entries, (N, K_)).copy()
+    jstate = JM.sharded_clear_cells(mesh, _jax_state(mesh, table), rows)
+    ctx = TK.TableContext(_torch_state(table))
+    before = dict(TK.launches)
+    tstate = TM.sharded_clear_cells_host(ctx, entries, form == "all_rows")
+    assert TK.launches == before  # the CPU runs the plain version
+    assert tstate is ctx.state
+    _assert_tables(jstate, tstate)
+
+
+def _twins(**kw):
+    """The JAX sharded storage and the port's on one frozen clock."""
+    clock = FakeClock()
+    kw = dict(dict(local_capacity=256, global_region=8,
+                   global_namespaces=["g"]), **kw)
+    return (clock, TpuShardedStorage(clock=clock, **kw),
+            TorchShardedStorage(n_shards=N, device="cpu", clock=clock, **kw))
+
+
+def _same_tables(js, ts):
+    for name, j, t in zip(("values", "expiry_ms", "hits"), _arrays(js),
+                          _arrays(ts)):
+        np.testing.assert_array_equal(j, t, err_msg=name)
+
+
+def _both_requests(specs, delta=1, load=False):
+    """One batch for each package: specs are lists of (limit pair,
+    variables) per request."""
+    return tuple(
+        [Req([Ctr(lims[i], dict(v)) for lims, v in spec], delta, load)
+         for spec in specs]
+        for i, (Req, Ctr) in enumerate(((JRequest, JCounter),
+                                        (_Request, Counter))))
+
+
+def _limit_pair(*args, **kw):
+    return JLimit(*args, **kw), Limit(*args, **kw)
+
+
+def _reads(storage, limits, probes):
+    """What a read sees right after a call: get_counters and
+    is_within_limits of each probe counter."""
+    rows = _counter_rows(storage.get_counters(set(limits)))
+    within = [storage.is_within_limits(c, 1) for c in probes]
+    return rows, within
+
+
+def test_coalesced_clears_leave_the_jax_tables_after_every_call():
+    """Global-region evictions, releases at finish, add_counter,
+    apply_deltas and delete_counters, each call's clears launched as one
+    B7b: after every public call the three [n, L+1] arrays equal the JAX
+    storage's, and the reads right after an eviction (get_counters,
+    is_within_limits) see the cleared cells."""
+    clock, js, ts = _twins(cache_size=64)
+    g = _limit_pair("g", 5, 60, [], ["t"], name="per-tenant")
+    one = _limit_pair("ns", 1, 60, [], ["u"], name="one")
+    loose = _limit_pair("ns", 50, 60, [], ["u"], name="loose")
+    bare = _limit_pair("ns", 3, 60, [], [], name="bare")
+    rng = random.Random(17)
+
+    def check(jv, tv):
+        assert jv == tv
+        _same_tables(js, ts)
+        jprobe = [JCounter(g[0], {"t": str(t)}) for t in range(0, 40, 7)]
+        tprobe = [Counter(g[1], {"t": str(t)}) for t in range(0, 40, 7)]
+        assert _reads(js, [g[0], one[0], loose[0]], jprobe) == _reads(
+            ts, [g[1], one[1], loose[1]], tprobe)
+
+    evictions = 0
+    for b in range(6):
+        # 40 tenants over an 8-slot region: every pass evicts
+        specs = [[(g, {"t": str(rng.randrange(40))})] for _ in range(24)]
+        specs += [[(loose, {"u": str(rng.randrange(9))})] for _ in range(8)]
+        # then a limited local hit first and a fresh global one: released
+        # at finish, its global slot zeroed on every row
+        release = [[(one, {"u": "a"}), (g, {"t": f"fresh{b}"})]]
+        for batch in (specs, release):
+            jreq, treq = _both_requests(batch)
+            before = ts._gtable.evictions
+            check([(a.limited, a.limit_name) for a in js.check_many(jreq)],
+                  [(a.limited, a.limit_name) for a in ts.check_many(treq)])
+            evictions += ts._gtable.evictions - before
+        items = [(g, {"t": str(rng.randrange(60))}) for _ in range(12)]
+        check(js.apply_deltas([(JCounter(p[0], dict(v)), 2)
+                               for p, v in items]),
+              ts.apply_deltas([(Counter(p[1], dict(v)), 2)
+                               for p, v in items]))
+        if b == 2:
+            check(js.delete_counters({loose[0], g[0]}),
+                  ts.delete_counters({loose[1], g[1]}))
+            check(js.add_counter(bare[0]), ts.add_counter(bare[1]))
+        clock.advance(7)
+    assert evictions > 50
+
+
+def test_one_clear_launch_per_staging_pass(monkeypatch):
+    """A counting spy on B7b's host form: a staging pass that evicts
+    dozens of global slots launches one B7b (before its B7a) carrying
+    each evicted slot once, and finish at most one more (its releases)."""
+    calls = []
+    launch = TM.sharded_clear_cells_host
+
+    def spy(ctx, entries, all_rows):
+        calls.append((entries.copy(), all_rows))
+        return launch(ctx, entries, all_rows)
+
+    monkeypatch.setattr(TM, "sharded_clear_cells_host", spy)
+    _clock, _js, ts = _twins()
+    g, one = (_limit_pair("g", 5, 60, [], ["t"])[1],
+              _limit_pair("ns", 1, 60, [], ["u"])[1])
+    rng = random.Random(5)
+    released = 0
+    for b in range(8):
+        reqs = [_Request([Counter(g, {"t": str(rng.randrange(40))})], 1,
+                         False) for _ in range(32)]
+        evictions = ts._gtable.evictions
+        n_calls = len(calls)
+        handle = ts.begin_check_many(reqs)
+        evicted = ts._gtable.evictions - evictions
+        assert evicted >= 8
+        assert len(calls) - n_calls == 1
+        entries, all_rows = calls[-1]
+        assert all_rows and entries.size == len(set(entries.tolist()))
+        ts.finish_check_many(handle)
+        assert len(calls) - n_calls <= 2
+        # a limited hit first, then a fresh global one: finish releases
+        # the global slot, zeroed on every row by one B7b
+        n_calls = len(calls)
+        ts.check_many([_Request([Counter(one, {"u": "a"}),
+                                 Counter(g, {"t": f"new{b}"})], 1, False)])
+        assert len(calls) - n_calls <= 2
+        released += len(calls) - n_calls - 1
+    assert released == 7  # every pass but the first, whose hit is admitted
+
+
+def _rebind_cases(tmp_path):
+    """Each way a sharded storage takes a new table: the constructor,
+    clear(), a checkpoint restore and the JAX-state carry-over."""
+    from limitador_tpu_torch.convert import sharded_storage_from_state
+
+    def build():
+        return TorchShardedStorage(n_shards=N, local_capacity=64,
+                                   global_region=8, global_namespaces=["g"],
+                                   device="cpu")
+
+    def cleared():
+        storage = build()
+        old = storage._ctx
+        storage.clear()
+        return storage, old
+
+    def restored():
+        storage = build()
+        path = str(tmp_path / "s.ckpt")
+        storage.snapshot(path)
+        return TorchShardedStorage.restore(path, device="cpu"), None
+
+    def converted():
+        j = TpuShardedStorage(local_capacity=64, global_region=8,
+                              global_namespaces=["g"])
+        state = j._state
+        storage = sharded_storage_from_state(
+            [t.dump() for t in j._tables], j._gtable.dump(),
+            np.asarray(state.values), np.asarray(state.expiry_ms),
+            np.asarray(state.hits), j._epoch, global_namespaces=["g"],
+            global_region=8, device="cpu")
+        return storage, None
+
+    return {"init": lambda: (build(), None), "clear": cleared,
+            "restore": restored, "convert": converted}
+
+
+@pytest.mark.parametrize("case", ["init", "clear", "restore", "convert"])
+def test_every_new_table_rebinds_the_clear_context(case, tmp_path):
+    """After each replacement of the table a staged clear lands in the
+    new table, never in the one it replaced: the replacement bound a new
+    context and left the old one on the old table."""
+    storage, old_ctx = _rebind_cases(tmp_path)[case]()
+    assert storage._ctx.state is storage._state
+    old = None
+    if old_ctx is not None:
+        assert old_ctx is not storage._ctx
+        old = old_ctx.state
+        assert old is not storage._state
+        old.values[:, 3] = 5
+    storage._state.values[:, 3] = 5
+    storage._state.hits[2, 40] = 9
+    with storage._lock:
+        storage._zero_global_slots([3])
+        storage._clear_pairs[(2, 40)] = None
+    assert not storage._state.values[:, 3].any()
+    assert storage._state.hits[2, 40] == 0
+    if old is not None:
+        assert (old.values[:, 3] == 5).all()

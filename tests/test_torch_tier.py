@@ -142,6 +142,94 @@ def test_seed_slots_matches_jax(H, padded, scratch):
     assert int(tstate.hits[C]) == expect_hits
 
 
+@pytest.mark.parametrize("scratch", ["clean", "dirty"])
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+@pytest.mark.parametrize("n", [1, 3, 8, 9])
+def test_seed_slots_host_form_matches_jax(n, padded, scratch):
+    """B4d's host form (the bare lists by value, ``padded`` standing for
+    the JAX call's padding rows) equals ``JK.seed_slots`` on the list
+    padded to the storage's bucket, or on the bare list, with a dirty
+    scratch cell too."""
+    rng = np.random.default_rng(7100 + 10 * n + padded)
+    now_ms = 1_000_000
+    table = _table(rng, now_ms, {})
+    if scratch == "dirty":
+        table = dirty_scratch(table, rng)
+    H = max(8, 1 << (n - 1).bit_length()) if padded else n
+    rows = seed_rows(rng, H, n, now_ms)
+    jstate = JK.seed_slots(_jax_state(*table), *rows)
+    ctx = TK.TableContext(_torch_state(*table))
+    before = dict(TK.launches)
+    tstate = TK.seed_slots_host(ctx, *(a[:n].copy() for a in rows), H > n)
+    assert TK.launches == before  # the CPU runs the plain version
+    assert tstate is ctx.state
+    _assert_tables(jstate, tstate)
+
+
+def _rebind_cases(tmp_path):
+    """Each way a single-table storage takes a table: the constructor,
+    clear(), a checkpoint loaded in place, a restore (plain and tiered)
+    and the JAX-state carry-over."""
+    from limitador_tpu_torch.convert import storage_from_state
+
+    def build(cls=TorchStorage):
+        return cls(capacity=64, device="cpu")
+
+    def cleared():
+        storage = build()
+        old = storage._ctx
+        storage.clear()
+        return storage, old
+
+    def loaded():
+        storage = build()
+        path = str(tmp_path / "t.ckpt")
+        storage.snapshot(path)
+        ctx = storage._ctx
+        storage.load_snapshot(path)  # in place: the same table, bound
+        assert storage._ctx is ctx
+        return storage, None
+
+    def restored(cls):
+        path = str(tmp_path / f"{cls.__name__}.ckpt")
+        build(cls).snapshot(path)
+        return cls.restore(path, device="cpu"), None
+
+    def converted():
+        src = TpuStorage(capacity=64)
+        dump = src._table.dump()
+        dump["info"] = {s: (k, c.to_dict())
+                        for s, (k, c) in dump["info"].items()}
+        return storage_from_state(dump, *(np.asarray(a) for a in src._state),
+                                  src._epoch, device="cpu"), None
+
+    return {"init": lambda: (build(), None), "clear": cleared,
+            "load_snapshot": loaded,
+            "restore": lambda: restored(TorchStorage),
+            "tiered_restore": lambda: restored(TieredStorage),
+            "convert": converted}
+
+
+@pytest.mark.parametrize("case", ["init", "clear", "load_snapshot", "restore",
+                                  "tiered_restore", "convert"])
+def test_every_new_table_rebinds_the_seed_context(case, tmp_path):
+    """After each replacement of the table a promotion seed (B4d's host
+    form through the bound context) lands in the new table, never in the
+    one it replaced: the replacement bound a new context and left the old
+    one on the old table."""
+    storage, old = _rebind_cases(tmp_path)[case]()
+    assert storage._ctx.state is storage._state
+    if old is not None:
+        assert old is not storage._ctx
+        assert old.state is not storage._state
+    with storage._lock:
+        storage.seed_slot_values([3], [7], [1000])
+    assert int(storage._state.values[3]) == 7
+    assert int(storage._state.expiry_ms[3]) == 1000
+    if old is not None:
+        assert int(old.state.values[3]) == 0
+
+
 @pytest.mark.parametrize("shift", [0, 1, 999_000, (1 << 31) - 1])
 def test_rebase_epoch_matches_jax(shift):
     """expiry = max(expiry - shift, 0) from a device scalar, over
