@@ -25,6 +25,18 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    forms (the storage's numpy lists in the kernel's parameter block),
    each call timed from the list to the launched kernel beside the
    parent tree's path for the same list (pad, pinned upload, launch).
+   B3a's host form (the list in the parameter block, the answers stored
+   into the context's mapped host buffer, one wait) at n = 1, 8, 1000,
+   8001 and 32,768, and B6c's (the rows by value within one parameter
+   block, staged past it; both designs alone too) at n = 8, 1024, 12,288
+   and 65,536: bit-exact with their plain versions, each timed by CUDA
+   events, the kernel alone by the profiler, the wrapper's host time
+   (time.perf_counter_ns) split into its steps at the main path's
+   shapes, beside the parent's path from the same host list (B3a: pad,
+   pinned upload, launch, two downloads; B6c: three-pass pack, three
+   pinned uploads, launch) and the library path (B3a: index_select of
+   both columns from an upload, then .cpu(); B6c: index_copy_ of both
+   lanes stacked, from uploads).
 4. The main path: the port's gRPC server on the card (capacity 1<<20)
    answers Envoy ShouldRateLimit and Kuadrant CheckRateLimit/Report over a
    real channel, with a hot reload and an epoch rebase; every answer is
@@ -52,7 +64,9 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    brokers on localhost answer 2,000 sequential calls round-robin: every
    node's view exact after five gossip periods, spent users refused on
    every node, over-admission and per-node latency recorded. A replicated
-   node must launch B6a/B6b/B6c and never B1/B2.
+   node must launch B6a/B6b/B6c and never B1/B2. Phase 8a splits the
+   B6c flush's host time into the pack and the C call, with the B6c
+   launches a flush.
 9. Tiers: (a) TieredStorage (capacity 1<<20, hot set 1<<16) on the card,
    frozen clock, 40 batches of 8192 one-hit requests through check_many
    over 1<<22 Zipf-0.99 users (20% to a token bucket), a TierManager
@@ -66,7 +80,12 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    memory server's), on with the usage observatory off (no user over
    the limit, token conservation, reclaim_slots settled tokens), and on
    with the default observatory (--usage-topk 64: no user over the limit,
-   token conservation), with no tier failure.
+   token conservation), with no tier failure. Phase 9a reports the host
+   time of one eviction peek.
+   Phases 8a, 8b, 9a and 9b fail unless every B3a and B6c of their main
+   path went through its host form (the launch counts' own keys,
+   read_slots_host and apply_remote_host) and none through the
+   device-tensor wrapper.
 10. The sharded table: (a) TorchShardedStorage(n_shards=8,
    local_capacity=1<<17, global_namespaces=["tenants"], global_region=1024)
    on the card, frozen clock stepped past one window half way, 8 batches
@@ -190,6 +209,14 @@ PHASE9A_KERNELS = ("check_and_update", "read_slots", "seed_slots")
 PHASE9B_KERNELS = PHASE9A_KERNELS
 PHASE9B_LEASE_KERNELS = PHASE9A_KERNELS + ("credit",)
 PHASE9B_SERVED_KERNELS = PHASE9A_KERNELS + ("drain_top_hits",)
+# B3a and B6c count their host forms (the storages' path) under keys of
+# their own: a phase launched B3a or B6c when either count moved, and
+# phases 8a, 8b, 9a and 9b must have reached them through the host forms
+# only (_host_forms_only)
+HOST_FORMS = {"read_slots": "read_slots_host",
+              "apply_remote": "apply_remote_host"}
+READ_HOST_NS = (1, 8, 1000, 8001, 32768)
+REMOTE_HOST_NS = (8, 1024, 12288, 65536)
 # the sharded paths: 10a and 10b together must launch all four
 SHARDED_KERNELS = ("sharded_check_and_update", "sharded_clear_cells",
                    "sharded_update", "sharded_drain_top_hits")
@@ -198,6 +225,24 @@ SHARDED_KERNELS = ("sharded_check_and_update", "sharded_clear_cells",
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def _launched(run, name):
+    """Launches of a kernel in one run's counts, its host form's too."""
+    return run[name] + run.get(HOST_FORMS.get(name), 0)
+
+
+def _host_forms_only(run, label, remote):
+    """Fail unless every B3a (and, on a replicated path, every B6c) of
+    the run went through its host form, and the host forms launched."""
+    device = [name for name in HOST_FORMS if run[name]]
+    if device:
+        fail(f"{label}: B3a/B6c launched through the device-tensor "
+             f"wrapper: {device}")
+    need = ("read_slots_host",) + (("apply_remote_host",) if remote else ())
+    missing = [name for name in need if run[name] == 0]
+    if missing:
+        fail(f"{label}: host forms not launched: {missing}")
 
 
 def zipf_keys(n_keys: int, n_samples: int, s: float, rng) -> np.ndarray:
@@ -717,6 +762,7 @@ def phase_kernels(dev):
                          "clear_slots_kernel")
         record("clear_slots", n, err, ms, plain_ms, 4 * n + 12 * distinct,
                lib_ms, dms)
+    _read_host_forms(dev, record, table, rng, now_ms)
     # B4a: one int32 step over the whole expiry column, and a chunked shift
     errs = []
     for shift in (999_000, NEVER, 3 * NEVER + 5):
@@ -879,6 +925,7 @@ def phase_kernels(dev):
         dms = _device_ms(lambda a, b: K.apply_remote(a, b, *rows),
                          fresh_lanes, "apply_remote_kernel")
         record("apply_remote", n, err, ms, plain_ms, 20 * n, lib_ms, dms)
+    _remote_host_forms(dev, record, lanes_base, rng)
     _sharded_kernels(dev, rng, record)
     if not exact:
         fail("a kernel disagrees with its plain version")
@@ -1085,6 +1132,199 @@ def _clear_host_forms(dev, rng, record, base, rows_np, device_form, lib_ms):
                     "C call, 8000 slots": lambda: ctx.clear_fn(
                         ctx.handle, lists[8000], 8000, 1),
                 })
+
+
+def _read_host_forms(dev, record, table, rng, now_ms):
+    """B3a's host form (``read_slots_host``: the storage's numpy list in
+    the kernel's parameter block, the answers stored into the context's
+    mapped host buffer, one wait on the stream) against its plain version
+    at READ_HOST_NS, lists past one parameter block included, the scratch
+    slot in each. Each call timed from the list to the numpy answers,
+    beside the parent tree's path for the same list (pad to the bucket, a
+    pinned upload, the device-tensor launch, two downloads) and the
+    library path (an upload, ``index_select`` of both columns,
+    ``.cpu()``)."""
+    import torch
+
+    from limitador_tpu_torch.ops import kernel as K
+
+    stacked = torch.stack([table.values, table.expiry_ms])
+    ctx = _bound_ctx(table)
+    for n in READ_HOST_NS:
+        slots = zipf_keys(C, n, 0.99, rng)
+        slots[0] = C
+
+        def call():
+            return K.read_slots_host(ctx, slots, now_ms)
+
+        def parent():
+            padded = np.full(max(8, 1 << (n - 1).bit_length()), C, np.int32)
+            padded[:n] = slots
+            values, ttls = K.read_slots(table, *_pinned(dev, padded), now_ms)
+            return values.cpu().numpy()[:n], ttls.cpu().numpy()[:n]
+
+        def library():
+            return torch.index_select(stacked, 1,
+                                      *_pinned(dev, slots)).cpu().numpy()
+
+        want = K.read_slots_host_plain(table, slots, now_ms)
+        err = max(int(np.abs(a.astype(np.int64) - b).max())
+                  for pair in (zip(call(), want), zip(parent(), want))
+                  for a, b in pair)
+        row = record(
+            "read_slots", f"host/{n}", err, _median_ms(call),
+            _median_ms(lambda: K.read_slots_host_plain(table, slots, now_ms)),
+            20 * n, _median_ms(library), _device_ms(call, None,
+                                                   "read_list_kernel"),
+            _median_ms(parent))
+        if n in (1, 8):
+            data, handle = slots.tobytes(), ctx.handle
+            row["host_breakdown_us"] = _host_breakdown(
+                f"B3a host form, n={n}", {
+                    "checks": lambda: K._require_host(slots, "slots", n),
+                    "list as bytes": lambda: slots.tobytes(),
+                    "C call (list into the parameter block, launch, wait)":
+                        lambda: ctx.read_fn(handle, data, n, now_ms),
+                    "answers copied out": lambda: (
+                        ctx.results[:n, 0].copy(), ctx.results[:n, 1].copy()),
+                    "the whole wrapper": call,
+                    "the parent's path": parent,
+                    "library path (upload, index_select, .cpu())": library,
+                })
+    ctx.close()
+
+
+def _remote_host_forms(dev, record, lanes_base, rng):
+    """B6c's host form (``apply_remote_host``: the rows in the kernel's
+    parameter block within one block, the staged design past it) on a
+    context over the remote lanes, against its plain version, at
+    REMOTE_HOST_NS; each C design alone too (a chain of parameter blocks,
+    the staged copy), all bit-exact. Timed from the numpy rows to the
+    launched kernel (the wrapper and each design), and from the dirty map
+    (this tree's one-pass pack and the wrapper; the parent tree's flush:
+    three list passes, three pinned uploads, the device-tensor launch),
+    beside the library path (uploads, ``index_copy_`` of both lanes
+    stacked)."""
+    import itertools
+
+    import torch
+
+    from limitador_tpu_torch.ops import build
+    from limitador_tpu_torch.ops import kernel as K
+
+    stacked = torch.stack(lanes_base)
+    for n in REMOTE_HOST_NS:
+        slots = np.unique(zipf_keys(C, 4 * n, 0.99, rng))
+        if slots.size < n:
+            slots = np.union1d(slots, rng.choice(C, 2 * n, replace=False))
+        rows = (rng.permutation(slots)[:n].astype(np.int32),
+                rng.integers(0, (1 << 30) + 1, n).astype(np.int32),
+                rng.integers(0, NEVER, n).astype(np.int32))
+        dirty = {int(s): (int(v), int(e)) for s, v, e in zip(*rows)}
+
+        def bind():
+            lanes = tuple(t.clone() for t in lanes_base)
+            return lanes, _bound_ctx(K.CounterTableState(*lanes, lanes[1]))
+
+        def design(ctx, fn, name):
+            return lambda: build.check(
+                fn(ctx.handle, *(a.tobytes() for a in rows), n), name)
+
+        want = tuple(t.clone() for t in lanes_base)
+        K.apply_remote_plain(*want, *(torch.from_numpy(a).to(dev)
+                                      for a in rows))
+        compared = []
+        for form in ("wrapper", "param", "staged"):
+            lanes, ctx = bind()
+            if form == "wrapper":
+                K.apply_remote_host(ctx, *rows)
+            else:
+                fn = ctx.remote_fn if form == "param" else ctx.staged_fn
+                design(ctx, fn, form)()
+            torch.cuda.synchronize()
+            compared.extend(zip(lanes, want))
+            ctx.close()
+        lanes, ctx = bind()
+
+        def wrapper():
+            K.apply_remote_host(ctx, *rows)
+
+        def path():
+            keys = np.fromiter(dirty, np.int32, n)
+            shares = np.fromiter(
+                itertools.chain.from_iterable(dirty.values()), np.int32,
+                2 * n)
+            K.apply_remote_host(ctx, keys, shares[0::2], shares[1::2])
+
+        def parent():
+            items = list(dirty.items())
+            packed = (np.asarray([s for s, _ in items], np.int32),
+                      np.asarray([v for _, (v, _e) in items], np.int32),
+                      np.asarray([e for _, (_v, e) in items], np.int32))
+            K.apply_remote(*lanes, *_pinned(dev, *packed))
+
+        def library():
+            up = _pinned(dev, *rows)
+            stacked.index_copy_(1, up[0].long(), torch.stack(up[1:]))
+
+        param = design(ctx, ctx.remote_fn, "ct_apply_remote_host")
+        staged = design(ctx, ctx.staged_fn, "ct_apply_remote_staged")
+        row = record(
+            "apply_remote", f"host/{n}", _max_abs_err(compared),
+            _median_ms(wrapper),
+            _median_ms(lambda: K.apply_remote_host_plain(
+                K.CounterTableState(*lanes, lanes[1]), *rows)),
+            20 * n, _median_ms(library),
+            _device_ms(wrapper, None, ("remote_list_kernel",
+                                       "apply_remote_kernel")),
+            _median_ms(parent))
+        row.update(param_ms=_median_ms(param), staged_ms=_median_ms(staged),
+                   path_ms=_median_ms(path))
+        blocks = -(-n // ctx.capacity[4])
+        print(f"    B6c designs at n={n}: parameter blocks "
+              f"{row['param_ms']:.4f}ms ({blocks} launches), staged "
+              f"{row['staged_ms']:.4f}ms (one copy, one launch); from the "
+              f"dirty map: this tree {row['path_ms']:.4f}ms, the parent's "
+              f"{row['parent_path_ms']:.4f}ms")
+        if n == MAIN_SHAPE["apply_remote"]:
+            blobs = [a.tobytes() for a in rows]
+            handle = ctx.handle
+            items = list(dirty.items())
+            packed = (np.asarray([s for s, _ in items], np.int32),
+                      np.asarray([v for _, (v, _e) in items], np.int32),
+                      np.asarray([e for _, (_v, e) in items], np.int32))
+            pinned = [torch.from_numpy(a).pin_memory() for a in packed]
+            uploaded = [t.to(dev, non_blocking=True) for t in pinned]
+            row["host_breakdown_us"] = _host_breakdown(
+                f"B6c host form, n={n}", {
+                    "checks (x3)": lambda: [K._require_host(a, "a", n)
+                                            for a in rows],
+                    "rows as bytes (x3)": lambda: [a.tobytes()
+                                                   for a in rows],
+                    "C call, staged (pack, copy, launch)":
+                        lambda: ctx.staged_fn(handle, *blobs, n),
+                    "C call, parameter blocks":
+                        lambda: ctx.remote_fn(handle, *blobs, n),
+                    "the whole wrapper": wrapper,
+                    "pack of the dirty map (this tree)": lambda: (
+                        np.fromiter(dirty, np.int32, n),
+                        np.fromiter(itertools.chain.from_iterable(
+                            dirty.values()), np.int32, 2 * n)),
+                    "from the dirty map (this tree)": path,
+                    "the parent's path": parent,
+                    "parent: three-pass pack": lambda: (
+                        np.asarray([s for s, _ in items], np.int32),
+                        np.asarray([v for _, (v, _e) in items], np.int32),
+                        np.asarray([e for _, (_v, e) in items], np.int32)),
+                    "parent: pin_memory (x3)": lambda: [
+                        torch.from_numpy(a).pin_memory() for a in packed],
+                    "parent: copies (x3)": lambda: [
+                        t.to(dev, non_blocking=True) for t in pinned],
+                    "parent: launch": lambda: K.apply_remote(*lanes,
+                                                             *uploaded),
+                    "library path (uploads, index_copy_)": library,
+                }, reps=500)
+        ctx.close()
 
 
 def _sharded_table(rng, now_ms, lanes, n=SHARDS, L=LOCAL_CAP,
@@ -1588,7 +1828,7 @@ async def _main_path(tmpdir, dev, native=False):
         fail(f"a background tier of the {label} failed: "
              f"{tier_failures[0]!r}")
     required = PHASE6_KERNELS if native else PHASE4_KERNELS
-    missing = [name for name in required if launches[name] == 0]
+    missing = [name for name in required if _launched(launches, name) == 0]
     if missing:
         fail(f"kernels not launched on the {label}: {missing}")
     return launches
@@ -1880,6 +2120,7 @@ def _replication_drive(dev, clock, keys, to_bucket, batches, hits):
     from limitador_tpu_torch import Counter, Limit, RateLimiter
     from limitador_tpu_torch.device.replicated import TorchReplicatedStorage
     from limitador_tpu_torch.device.storage import _Request
+    from limitador_tpu_torch.ops import kernel as K
 
     nodes = [TorchReplicatedStorage(name, capacity=C, clock=clock,
                                     device=dev) for name in "abc"]
@@ -1891,8 +2132,10 @@ def _replication_drive(dev, clock, keys, to_bucket, batches, hits):
         limiter.add_limit(window)
         limiter.add_limit(bucket)
         node.broker = Loopback([n for j, n in enumerate(nodes) if j != i])
-    spent = {"check": 0.0, "gossip": 0.0, "flush": 0.0}
+    spent = {"check": 0.0, "gossip": 0.0, "flush": 0.0, "flush_call": 0.0}
     flush_rows = []  # dirty slots per B6c flush
+    host_form = K.apply_remote_host  # the flush's C call, timed apart
+    _timed(K, "apply_remote_host", spent, "flush_call")
     for node in nodes:
         flush = node._flush_dirty_remote
 
@@ -1933,6 +2176,7 @@ def _replication_drive(dev, clock, keys, to_bucket, batches, hits):
             n._flush_dirty_remote()
         n.close()
     seconds = time.perf_counter() - t0
+    K.apply_remote_host = host_form
     arrays = [
         {"values": n._state.values.cpu().numpy(),
          "expiry_ms": n._state.expiry_ms.cpu().numpy(),
@@ -1971,10 +2215,17 @@ def phase_replication_drive(dev, card, batches, hits=8192):
         f"{k} {v / batches * 1e3:.2f} ms/batch" for k, v in spent.items())
         + f"; B6c rows per flush: mean {np.mean(flush_rows):.0f}, max "
         f"{max(flush_rows)} over {len(flush_rows)} flushes")
+    flushes = len(flush_rows)
+    print(f"replication drive B6c flush, host ms per flush: pack "
+          f"{(spent['flush'] - spent['flush_call']) / flushes * 1e3:.3f}, "
+          f"C call {spent['flush_call'] / flushes * 1e3:.3f}; "
+          f"{launches['apply_remote_host'] / flushes:.2f} B6c launches a "
+          f"flush")
     print(f"replication drive launches: {json.dumps(launches)}")
-    missing = [k for k in PHASE8A_KERNELS if launches[k] == 0]
+    missing = [k for k in PHASE8A_KERNELS if _launched(launches, k) == 0]
     if missing:
         fail(f"kernels not launched on the replication drive: {missing}")
+    _host_forms_only(launches, "replication drive", remote=True)
     if any(launches[k] for k in PLAIN_KERNELS):
         fail("a replicated node launched the plain check or update")
     # serial order against one table: the first max of each (limit, user)
@@ -2138,9 +2389,10 @@ async def _served_replication(tmpdir, dev, card, calls=2000, users=50,
               f"{dev.type}): p50 {np.percentile(x, 50):.3f} ms, p99 "
               f"{np.percentile(x, 99):.3f} ms over {x.size}")
     print(f"served replication launches: {json.dumps(launches)}")
-    missing = [k for k in PHASE8B_KERNELS if launches[k] == 0]
+    missing = [k for k in PHASE8B_KERNELS if _launched(launches, k) == 0]
     if missing:
         fail(f"kernels not launched on the served replication: {missing}")
+    _host_forms_only(launches, "served replication", remote=True)
     if any(launches[k] for k in PLAIN_KERNELS):
         fail("a replicated node launched the plain check or update")
     return launches, {
@@ -2268,8 +2520,9 @@ def phase_tiered_drive(dev, card, batches=TIER_BATCHES, hits=8192,
     print("tiered drive host time: " + ", ".join(
         f"{k} {v / batches * 1e3:.2f} ms/batch"
         for k, v in spent.items() if k != "oracle")
-        + f" (check excludes its {peeks[0]} eviction peeks; rounds include "
-        f"their own peeks)")
+        + f" (check excludes its {peeks[0]} eviction peeks, "
+        f"{spent['peeks'] / max(peeks[0], 1) * 1e6:.2f} us each; rounds "
+        f"include their own peeks)")
     print(f"tiered drive: cold share of decisions {cold_share:.4f} "
           f"({stats['cold']['decisions']} of {n}); resident device "
           f"{stats['device_resident']}, cold {stats['cold']['resident']}; "
@@ -2296,18 +2549,21 @@ def phase_tiered_drive(dev, card, batches=TIER_BATCHES, hits=8192,
     if bad:
         fail(f"tiered drive: {len(bad)} counters differ from the oracle "
              f"(first {bad[0]}: {got[bad[0]]} vs {exp[bad[0]]})")
-    missing = [k for k in PHASE9A_KERNELS if launches[k] == 0]
+    missing = [k for k in PHASE9A_KERNELS if _launched(launches, k) == 0]
     if missing:
         fail(f"kernels not launched on the tiered drive: {missing}")
+    _host_forms_only(launches, "tiered drive", remote=False)
     print(f"tiered drive: {n} rows equal serial order; get_counters equals "
           f"the oracle's ({len(got)} counters); B4d launched "
-          f"{launches['seed_slots']} times, B3a {launches['read_slots']}")
+          f"{launches['seed_slots']} times, B3a {launches['read_slots_host']} "
+          f"(host form)")
     storage.close()
     return launches, {
         "decisions_per_s": rate, "seconds": seconds,
         "host_ms_per_batch": {k: v / batches * 1e3
                               for k, v in spent.items()},
         "eviction_peeks": peeks[0], "cold_share": cold_share,
+        "us_per_eviction_peek": spent["peeks"] / max(peeks[0], 1) * 1e6,
         "device_resident": stats["device_resident"],
         "cold_resident": stats["cold"]["resident"],
         "demotions": stats["cold"]["demotions"],
@@ -2976,7 +3232,8 @@ def main() -> int:
     leased = phase_native_drive(dev, card, NATIVE_BATCHES, leases=True)
     drive_launches = dict(K.launches)
     print(f"native drive launches: {json.dumps(drive_launches)}")
-    missing = [name for name in PHASE7_KERNELS if drive_launches[name] == 0]
+    missing = [name for name in PHASE7_KERNELS
+               if _launched(drive_launches, name) == 0]
     if missing:
         fail(f"kernels not launched on the native drive: {missing}")
     repl_launches, repl = phase_replication_drive(dev, card,
@@ -3016,9 +3273,10 @@ def main() -> int:
              PHASE9B_LEASE_KERNELS),
             ("served tiers (leases on, observatory on)",
              served_default_launches, PHASE9B_SERVED_KERNELS)):
-        missing = [k for k in want if got[k] == 0]
+        missing = [k for k in want if _launched(got, k) == 0]
         if missing:
             fail(f"kernels not launched on {label}: {missing}")
+        _host_forms_only(got, label, remote=False)
     # launches on the main paths: phases 4, 6, 7, 8a, 8b, 9a, 9b, 10a, 10b
     runs = (launches, native_launches, drive_launches, repl_launches,
             served_launches, tier_launches, served_tier_launches,
@@ -3030,7 +3288,8 @@ def main() -> int:
         rec = by_shape[MAIN_SHAPE[kname]]
         row = {
             "name": kname, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[kname], "launches": launches[kname],
+            "replaces": REPLACES[kname],
+            "launches": _launched(launches, kname),
             "max_abs_err": max(r["max_abs_err"] for r in by_shape.values()),
             # the kernel alone (profiler) where measured, else the call
             "ms": rec["device_ms"] if rec["device_ms"] is not None
@@ -3039,15 +3298,19 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": "bytes",
             "library_ms": rec["library_ms"],
         }
-        # B4d and B7b from host lists (the main paths' form): each call
-        # timed from the list, beside the parent's path for it
+        # B4d, B7b, B3a and B6c from host lists (the main paths' form):
+        # each call timed from the list, beside the parent's path for it
         host = {shape: {k: r[k] for k in ("ms", "device_ms", "plain_ms",
                                           "parent_path_ms", "library_ms",
-                                          "bound_ms")}
+                                          "bound_ms", "param_ms",
+                                          "staged_ms", "path_ms")
+                        if k in r}
                 for shape, r in by_shape.items()
                 if str(shape).startswith("host")}
         if host:
             row["host_forms"] = host
+        if kname in HOST_FORMS:
+            row["host_form_launches"] = launches[HOST_FORMS[kname]]
         kernels.append(row)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -64,12 +64,16 @@
 // rows, plus, for B7a's global variants, the pre-pass's 8 bytes per row
 // and global slot; latency, not bytes, keeps them above it, as for B1.
 //
-// B7b and B4d also take host lists by value (ct_sharded_clear_host,
-// ct_seed_slots_host, below): the storages' own slot lists ride in the
-// kernel's parameter block, through a context bound once per table.
+// B7b, B4d, B3a and B6c also take host lists by value
+// (ct_sharded_clear_host, ct_seed_slots_host, ct_read_slots_host,
+// ct_apply_remote_host, below): the storages' own slot lists ride in the
+// kernel's parameter block, through a context bound once per table. B3a's
+// host form answers into pinned host memory that the context owns.
 //
 // Every entry point launches on the stream it is given (or its context's)
-// and returns cudaGetLastError() as an int; it allocates no device memory.
+// and returns cudaGetLastError() as an int; it allocates no device memory,
+// except a context's own buffers (ct_ctx_results, the staging rows of
+// ct_apply_remote_staged), which grow on demand and die with it.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -1198,10 +1202,10 @@ int launch_update(void* values, void* expiry, void* hits,
 }
 
 // ---------------------------------------------------------------------------
-// Host lists by value: B7b and B4d from the storages' own lists.
+// Host lists by value: B7b, B4d, B3a and B6c from the storages' own lists.
 //
-// The storages decide clears and promotion seeds on the host, a few cells
-// at a time. Staged as device tensors (a pinned buffer, an H2D copy and
+// The storages decide clears, promotion seeds, reads and remote shares on
+// the host, a few cells at a time. Staged as device tensors (a pinned buffer, an H2D copy and
 // tensor checks per array), such a list cost 50-80 us of host time around
 // a kernel of 1-2 us. Here the list travels in the kernel's parameter
 // block instead: the entry point copies it into a struct passed as a
@@ -1216,7 +1220,15 @@ int launch_update(void* values, void* expiry, void* hits,
 //
 // A context (ct_ctx_create) binds the table's three columns, its shape
 // and the storage's stream once; a call passes the handle and the list.
-// Bound: bytes, 12 B written per distinct cell; a call is launch-bound.
+// Bound: bytes, 12 B written per distinct cell (B3a: 8 B read and 8 B
+// answered per slot; B6c: 12 B of row and 8 B written); a call is
+// launch-bound.
+//
+// B3a's answers must come back to the host, after every launch queued
+// before them on the storage's stream (a tier demotion is exact only so).
+// The kernel stores them straight into pinned host memory that the
+// context owns, mapped into the card's address space, and the call waits
+// on the stream: no device buffer, no copy, no second synchronisation.
 
 #if __CUDACC_VER_MAJOR__ > 12 || \
     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
@@ -1233,6 +1245,17 @@ struct Ctx {
   int row_len;
   int device;
   cudaStream_t stream;
+  // B3a's answers: (value, ttl) pairs in pinned host memory mapped into
+  // the card's address space (result_dev is its device alias).
+  int2* result = nullptr;
+  int2* result_dev = nullptr;
+  int result_cap = 0;
+  // B6c's staged design: pinned [3, n] rows, their device copy, and the
+  // event after the copy that guards the pinned rows' reuse.
+  int32_t* stage = nullptr;
+  int32_t* stage_dev = nullptr;
+  int stage_cap = 0;
+  cudaEvent_t staged = nullptr;
 };
 
 // The context's card is current for the launch (the calling thread's own
@@ -1319,6 +1342,66 @@ __global__ void seed_list_kernel(int32_t* __restrict__ values,
     values[scratch] = 0;
     expiry[scratch] = 0;
   }
+}
+
+template <int N>
+struct SlotList {
+  int32_t slot[N];
+};
+
+// B3a's host form: read_slots_kernel's arithmetic on a list in the
+// parameter block, each row's (value, ttl) one 8-byte store into the
+// context's mapped host buffer (a posted write across the bus; the host
+// reads it after the caller's wait on the stream).
+template <int N>
+__global__ void read_list_kernel(const int32_t* __restrict__ values,
+                                 const int32_t* __restrict__ expiry, int n,
+                                 int32_t now, int2* __restrict__ out,
+                                 const __grid_constant__ SlotList<N> list) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int s = list.slot[i];
+    const int32_t v = values[s], e = expiry[s];
+    out[i] = make_int2(e > now ? v : 0, imax(wsub(e, now), 0));
+  }
+}
+
+// B6c's host form: apply_remote_kernel's scatter from rows in the
+// parameter block. It writes the two lanes and nothing else: on the
+// remote lanes' context `hits` aliases the expiry lane, so a kernel that
+// zeroed hits (seed_list_kernel) would undo the shares it wrote.
+template <int N>
+__global__ void remote_list_kernel(int32_t* __restrict__ remote_vals,
+                                   int32_t* __restrict__ remote_exp, int n,
+                                   const __grid_constant__ SeedList<N> list) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int s = list.slot[i];
+    remote_vals[s] = list.value[i];
+    remote_exp[s] = list.expiry[i];
+  }
+}
+
+template <int N>
+int launch_read_list(const Ctx& c, const int32_t* slots, int n,
+                     int32_t now, int2* out) {
+  SlotList<N> list;
+  memcpy(list.slot, slots, sizeof(int32_t) * n);
+  read_list_kernel<N><<<grid_for(n), 256, 0, c.stream>>>(
+      c.values, c.expiry, n, now, out, list);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_remote_list(const Ctx& c, const int32_t* slots,
+                       const int32_t* sums, const int32_t* expiries, int n) {
+  SeedList<N> list;
+  memcpy(list.slot, slots, sizeof(int32_t) * n);
+  memcpy(list.value, sums, sizeof(int32_t) * n);
+  memcpy(list.expiry, expiries, sizeof(int32_t) * n);
+  remote_list_kernel<N><<<grid_for(n), 256, 0, c.stream>>>(
+      c.values, c.expiry, n, list);
+  return (int)cudaGetLastError();
 }
 
 template <int N>
@@ -1636,12 +1719,167 @@ void* ct_ctx_create(void* values, void* expiry, void* hits, int rows,
                                 (cudaStream_t)stream};
 }
 
-void ct_ctx_destroy(void* ctx) { delete (Ctx*)ctx; }
+// Frees the context and its buffers, after the work still queued on its
+// stream (a staged copy may still read the pinned rows).
+void ct_ctx_destroy(void* ctx) {
+  Ctx* c = (Ctx*)ctx;
+  if (!c) return;
+  if (c->result || c->stage) {
+    DeviceGuard guard(c->device);
+    cudaStreamSynchronize(c->stream);
+    if (c->result) cudaFreeHost(c->result);
+    if (c->stage) cudaFreeHost(c->stage);
+    if (c->stage_dev) cudaFree(c->stage_dev);
+    if (c->staged) cudaEventDestroy(c->staged);
+    cudaGetLastError();
+  }
+  delete c;
+}
 
 // Entries one launch carries: 0 all-rows slots, 1 (row, slot) pairs,
-// 2 seed rows.
+// 2 seed rows, 3 slots read (B3a), 4 remote-share rows (B6c).
 int ct_host_list_capacity(int kind) {
-  return kind == 0 ? kListInts : (kind == 1 ? kListInts / 2 : kListInts / 3);
+  switch (kind) {
+    case 0:
+    case 3:
+      return kListInts;
+    case 1:
+      return kListInts / 2;
+    default:
+      return kListInts / 3;
+  }
+}
+
+// The context's B3a answer buffer, grown to `cap` (value, ttl) pairs if it
+// holds fewer: pinned host memory, mapped for the card. Returns its host
+// address (null if the allocation failed). No read may be in flight: the
+// reads wait for their kernels, so none is between two calls.
+void* ct_ctx_results(void* ctx, int cap) {
+  Ctx* c = (Ctx*)ctx;
+  if (!c || cap <= 0) return nullptr;
+  if (cap <= c->result_cap) return c->result;
+  DeviceGuard guard(c->device);
+  void* host = nullptr;
+  void* dev = nullptr;
+  if (cudaHostAlloc(&host, sizeof(int2) * (size_t)cap,
+                    cudaHostAllocMapped | cudaHostAllocPortable) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return nullptr;
+  }
+  if (cudaHostGetDevicePointer(&dev, host, 0) != cudaSuccess) {
+    cudaGetLastError();
+    cudaFreeHost(host);
+    return nullptr;
+  }
+  if (c->result) cudaFreeHost(c->result);
+  c->result = (int2*)host;
+  c->result_dev = (int2*)dev;
+  c->result_cap = cap;
+  return host;
+}
+
+// B3a from a host list: the n slots' (value, ttl) pairs at now_ms land in
+// the context's answer buffer (ct_ctx_results, at least n pairs), in
+// chunks of one parameter block, in order. Then the call waits on the
+// context's stream, so the answers follow every launch queued there
+// before it, and the host may read them when it returns. ctypes releases
+// the GIL for the wait.
+int ct_read_slots_host(void* ctx, const int32_t* slots, int n, int now_ms) {
+  Ctx* c = (Ctx*)ctx;
+  if (!c || c->rows != 1 || n < 0 || n > c->result_cap) {
+    return (int)cudaErrorInvalidValue;
+  }
+  DeviceGuard guard(c->device);
+  for (int off = 0; off < n; off += kListInts) {
+    const int m = n - off < kListInts ? n - off : kListInts;
+    int2* out = c->result_dev + off;
+    const int rc =
+        m <= 64     ? launch_read_list<64>(*c, slots + off, m, now_ms, out)
+        : m <= 1000 ? launch_read_list<1000>(*c, slots + off, m, now_ms, out)
+                    : launch_read_list<kListInts>(*c, slots + off, m, now_ms,
+                                                  out);
+    if (rc != 0) return rc;
+  }
+  return (int)cudaStreamSynchronize(c->stream);
+}
+
+// B6c from host rows (unique slots, their sums and expiries) on a
+// context bound to the remote lanes (values = remote_vals, expiry =
+// remote_exp); chunks of one parameter block, in order.
+int ct_apply_remote_host(void* ctx, const int32_t* slots, const int32_t* sums,
+                         const int32_t* expiries, int n) {
+  Ctx* c = (Ctx*)ctx;
+  if (!c || c->rows != 1 || n < 0) return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(c->device);
+  constexpr int per = kListInts / 3;
+  for (int off = 0; off < n; off += per) {
+    const int m = n - off < per ? n - off : per;
+    const int rc =
+        m <= 8 ? launch_remote_list<8>(*c, slots + off, sums + off,
+                                       expiries + off, m)
+        : m <= 256
+            ? launch_remote_list<256>(*c, slots + off, sums + off,
+                                      expiries + off, m)
+            : launch_remote_list<per>(*c, slots + off, sums + off,
+                                      expiries + off, m);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// B6c's second design, from the same rows: one copy of the packed [3, n]
+// rows from the context's pinned staging buffer to its device buffer,
+// then one apply_remote_kernel. The event recorded after the copy guards
+// the staging buffer: the next call waits for it before writing there.
+int ct_apply_remote_staged(void* ctx, const int32_t* slots,
+                           const int32_t* sums, const int32_t* expiries,
+                           int n) {
+  Ctx* c = (Ctx*)ctx;
+  if (!c || c->rows != 1 || n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  DeviceGuard guard(c->device);
+  cudaError_t rc;
+  if (c->staged && (rc = cudaEventSynchronize(c->staged)) != cudaSuccess) {
+    return (int)rc;
+  }
+  if (n > c->stage_cap) {
+    int cap = 1024;
+    while (cap < n) cap <<= 1;
+    if (c->stage_dev &&
+        (rc = cudaStreamSynchronize(c->stream)) != cudaSuccess) {
+      return (int)rc;  // the last kernel still reads stage_dev
+    }
+    if (c->stage) cudaFreeHost(c->stage);
+    if (c->stage_dev) cudaFree(c->stage_dev);
+    c->stage = nullptr;
+    c->stage_dev = nullptr;
+    c->stage_cap = 0;
+    const size_t bytes = sizeof(int32_t) * 3 * (size_t)cap;
+    if ((rc = cudaHostAlloc((void**)&c->stage, bytes,
+                            cudaHostAllocPortable)) != cudaSuccess ||
+        (rc = cudaMalloc((void**)&c->stage_dev, bytes)) != cudaSuccess ||
+        (!c->staged && (rc = cudaEventCreateWithFlags(
+                            &c->staged, cudaEventDisableTiming)) !=
+                           cudaSuccess)) {
+      return (int)rc;
+    }
+    c->stage_cap = cap;
+  }
+  memcpy(c->stage, slots, sizeof(int32_t) * n);
+  memcpy(c->stage + n, sums, sizeof(int32_t) * n);
+  memcpy(c->stage + 2 * (size_t)n, expiries, sizeof(int32_t) * n);
+  if ((rc = cudaMemcpyAsync(c->stage_dev, c->stage,
+                            sizeof(int32_t) * 3 * (size_t)n,
+                            cudaMemcpyHostToDevice, c->stream)) !=
+          cudaSuccess ||
+      (rc = cudaEventRecord(c->staged, c->stream)) != cudaSuccess) {
+    return (int)rc;
+  }
+  apply_remote_kernel<<<grid_for(n), 256, 0, c->stream>>>(
+      c->values, c->expiry, c->stage_dev, c->stage_dev + n,
+      c->stage_dev + 2 * (size_t)n, n);
+  return (int)cudaGetLastError();
 }
 
 // B7b from a host list: `count` (row, slot) pairs, or with all_rows

@@ -17,10 +17,14 @@ peers' window counts per slot) and ``remote_exp`` (their latest expiry for
 windows, the max-merged remote TAT for token buckets), both relative to
 the table's epoch. Gossip merges per actor by max on the host (idempotent,
 commutative) and queues the refreshed shares; they scatter to the device
-(B6c, ``apply_remote``) before the next launch or read. Checks launch B6a
-(``replicated_check_batch``: window lanes add the live remote sum, bucket
-lanes floor their TAT at the remote TAT), unconditional updates B6b
-(``replicated_update_batch``: the TAT floor before the advance).
+(B6c's host form, ``apply_remote_host``) before the next launch or read.
+The two lanes are bound in a launch context of their own (``_remote_ctx``,
+as ``CounterTableState(remote_vals, remote_exp, remote_exp)``), through
+which the flushes write and ``_read_remote`` reads (B3a's host form).
+Checks launch B6a (``replicated_check_batch``: window lanes add the live
+remote sum, bucket lanes floor their TAT at the remote TAT),
+unconditional updates B6b (``replicated_update_batch``: the TAT floor
+before the advance).
 
 Consistency contract: local decisions are exact against (own + last
 gossiped remote) counts; cross-node over-admission is bounded by the
@@ -39,6 +43,7 @@ admitted counters would never gossip.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -98,9 +103,9 @@ class TorchReplicatedStorage(TorchStorage):
         self.node_id = node_id
         self.gossip_period = gossip_period
         with self._on_device():
-            self._remote_vals = torch.zeros(
-                capacity + 1, dtype=torch.int32, device=self._device)
-            self._remote_exp = torch.zeros_like(self._remote_vals)
+            self._remote_lanes = tuple(
+                torch.zeros(capacity + 1, dtype=torch.int32,
+                            device=self._device) for _ in range(2))
         # host-side per-actor remote state: key -> {actor: (count, exp_ms)}
         self._remote_actors: Dict[bytes, Dict[str, Tuple[int, int]]] = {}
         self._dirty_remote: Dict[int, Tuple[int, int]] = {}  # slot -> (sum, exp)
@@ -138,6 +143,34 @@ class TorchReplicatedStorage(TorchStorage):
             name=f"torch-gossip-{self.node_id}",
         )
         self._gossip_thread.start()
+
+    # -- the remote lanes and their launch context --------------------------
+
+    @property
+    def _remote_lanes(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(remote_vals, remote_exp). Every assignment binds a new launch
+        context over them (``_remote_ctx``; B3a reads only values and
+        expiry, B6c writes only those, so ``hits`` aliases the expiry
+        lane) and closes the old one, as ``_state`` does for the table."""
+        state = self._remote_ctx.state
+        return state.values, state.expiry_ms
+
+    @_remote_lanes.setter
+    def _remote_lanes(self, lanes) -> None:
+        vals, exp = lanes
+        old = self.__dict__.get("_remote_ctx")
+        self._remote_ctx = K.TableContext(
+            K.CounterTableState(vals, exp, exp), self._stream)
+        if old is not None:
+            old.close()
+
+    @property
+    def _remote_vals(self) -> torch.Tensor:
+        return self._remote_ctx.state.values
+
+    @property
+    def _remote_exp(self) -> torch.Tensor:
+        return self._remote_ctx.state.expiry_ms
 
     # -- kernel dispatch with the remote base ------------------------------
 
@@ -380,34 +413,32 @@ class TorchReplicatedStorage(TorchStorage):
         return now
 
     def _flush_dirty_remote(self) -> None:
-        """Scatter the queued remote shares into the remote lanes: one
-        B6c launch over the dirty slots. Caller holds the lock."""
-        if not self._dirty_remote:
+        """Scatter the queued remote shares into the remote lanes: B6c's
+        host form over the dirty slots, packed in one pass over the map
+        (one C call and one launch on the storage stream). Caller holds
+        the lock."""
+        dirty = self._dirty_remote
+        if not dirty:
             return
-        items = list(self._dirty_remote.items())
         self._dirty_remote = {}
-        slots = np.asarray([s for s, _ in items], np.int32)
-        sums = np.asarray([v for _, (v, _e) in items], np.int32)
-        exps = np.asarray([e for _, (_v, e) in items], np.int32)
-        with self._on_device():
-            K.apply_remote(self._remote_vals, self._remote_exp,
-                           *self._upload(slots, sums, exps))
+        n = len(dirty)
+        slots = np.fromiter(dirty, np.int32, n)
+        shares = np.fromiter(itertools.chain.from_iterable(dirty.values()),
+                             np.int32, 2 * n)
+        K.apply_remote_host(self._remote_ctx, slots, shares[0::2],
+                            shares[1::2])
 
     # -- reads include remote counts ----------------------------------------
 
     def _read_remote(self, slots, now_ms: int):
         """(live remote sum, remote ttl_ms) host arrays for ``slots``, after
-        a flush: one B3a launch over the remote lanes, which stand in for
-        a table's values and expiry (B3a reads no other column). The sum
-        is 0 unless ``now < remote_exp``; ttl is max(remote_exp - now, 0).
-        Caller holds the lock."""
+        a flush: B3a's host form over the remote lanes' context, whose
+        values and expiry stand in for a table's (B3a reads no other
+        column). The sum is 0 unless ``now < remote_exp``; ttl is
+        max(remote_exp - now, 0). Caller holds the lock."""
         self._flush_dirty_remote()
-        lanes = K.CounterTableState(
-            self._remote_vals, self._remote_exp, self._remote_exp
-        )
-        with self._on_device():
-            (d_slots,) = self._upload(np.asarray(slots, np.int32))
-            return self._download(*K.read_slots(lanes, d_slots, now_ms))
+        return K.read_slots_host(self._remote_ctx,
+                                 np.asarray(slots, np.int32), now_ms)
 
     def set_limits_provider(self, provider) -> None:
         """Wired by the Storage facade: lets wire-key decoding see limits
@@ -767,3 +798,4 @@ class TorchReplicatedStorage(TorchStorage):
         if self.broker is not None:
             self.broker.stop()
         super().close()
+        self._remote_ctx.close()

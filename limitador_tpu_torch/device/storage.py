@@ -680,8 +680,8 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         reset the per-slot hit accumulator and attribute the K hottest
         slots through the slot table: namespace, limit, key values, hit
         count, plus a value/max_value utilization sample and ttl read at
-        drain time. One top-k launch (B5) and one ``read_slots`` launch
-        (B3a), off the check path. A slot recycled within one drain
+        drain time. One top-k launch (B5) and one B3a read (``_read``),
+        off the check path. A slot recycled within one drain
         interval attributes its counts to the current occupant (or drops
         them when the slot is free)."""
         if k <= 0:
@@ -1074,17 +1074,14 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
 
     def peek_slots(self, slots) -> Tuple[np.ndarray, np.ndarray]:
         """(value, ttl_ms) host arrays for ``slots`` at the current clock,
-        the read half of an exact demotion: one B3a launch, padded to the
-        pow2 bucket with the scratch slot. Caller holds the lock: the read
-        must be atomic with the residency change it feeds."""
-        n = len(slots)
-        H = _bucket(n)
+        the read half of an exact demotion: one B3a host-form read
+        (``_read``), after every launch before it on the storage stream.
+        The JAX storage pads the list to the pow2 bucket with the scratch
+        slot and drops those rows; a bare list gives the same answers.
+        Caller holds the lock: the read must be atomic with the residency
+        change it feeds."""
         now_ms = self._now_ms()
-        values, ttls = self._read(
-            _staged(np.asarray(slots, np.int32), H, self._scratch, np.int32),
-            now_ms,
-        )
-        return values[:n], ttls[:n]
+        return self._read(slots, now_ms)
 
     def seed_slot_values(self, slots, values, expiry_rel_ms) -> None:
         """Absolute cell write for ``slots`` (tier promotion): value and
@@ -1105,12 +1102,12 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
     # -- CounterStorage ----------------------------------------------------
 
     def _read(self, slots: Sequence[int], now_ms: int):
-        """(values, ttl_ms) host arrays for ``slots``: one read_slots
-        launch. Caller holds the lock."""
-        with self._on_device():
-            (d_slots,) = self._upload(np.asarray(slots, np.int32))
-            values, ttls = K.read_slots(self._state, d_slots, now_ms)
-            return self._download(values, ttls)
+        """(values, ttl_ms) host arrays for ``slots``: B3a's host form
+        through the bound context (one C call, one launch per parameter
+        block, no upload, no tensor), answered after every launch queued
+        before it on the storage stream. Caller holds the lock."""
+        return K.read_slots_host(self._ctx, np.asarray(slots, np.int32),
+                                 now_ms)
 
     def is_within_limits(self, counter: Counter, delta: int) -> bool:
         with self._lock:
@@ -1255,8 +1252,8 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
     def apply_deltas(self, items):
         """Batched unconditional increments (the Report path through the
         ``UpdateBatcher``, and write-behind authorities): one B2 launch
-        through ``_kernel_update`` and one ``read_slots`` for every device
-        counter; beyond-cap counters update their host cells. Returns
+        through ``_kernel_update`` and one B3a read (``_read``) for every
+        device counter; beyond-cap counters update their host cells. Returns
         (value, ttl_s) per item, in order."""
         for _counter, delta in items:
             require_nonnegative_delta(delta)

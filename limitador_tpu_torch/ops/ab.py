@@ -14,7 +14,16 @@ calls after 5 of warm-up), the inputs made from one numpy seed:
   from a numpy list (``b7b_evict_ms``);
 - B4d at one promoted key (a bucket of 8): the device-tensor call
   (``b4d_call_ms``) and the numpy lists to the launched kernel
-  (``b4d_path_ms``).
+  (``b4d_path_ms``);
+- B3a through the tree's own ``TorchStorage._read`` on the card: one
+  slot from a Python list to the numpy answers (``b3a_path_ms``);
+- B6c through the tree's own ``TorchReplicatedStorage._flush_dirty_remote``
+  on the card: a dirty map of 12,288 rows to the launched kernel
+  (``b6c_path_ms``).
+
+The two storage paths are timed on the host clock (``perf_counter_ns``,
+median of 500 and 200 calls, the card idle before each): B3a's path ends
+with the answers on the host, B6c's once the kernel is queued.
 
 A "path" time is the tree's own main path from the host list: the host
 form (the list in the kernel's parameter block) where the tree has it,
@@ -173,6 +182,61 @@ else:
         b7b_evict_ms=median_ms(
             parent_clear(np.broadcast_to(evicted, (n, 1))), stable),
         b4d_path_ms=median_ms(parent_seed))
+
+
+# B3a and B6c through each tree's own storage path
+import time
+from limitador_tpu_torch.device.replicated import TorchReplicatedStorage
+from limitador_tpu_torch.device.storage import TorchStorage
+
+
+def host_ms(fn, setup=None, reps=500, warmup=20):
+    spent = []
+    for k in range(warmup + reps):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        fn()
+        spent.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(spent[warmup:])) / 1e6
+
+
+store = TorchStorage(capacity=C, device=dev)
+store._state = table()
+torch.cuda.synchronize()
+one = [int(slots[0])]
+with store._lock:
+    got = store._read(one, now)
+    want = K.read_slots_plain(store._state, torch.tensor(one, dtype=torch.int32,
+                                                         device=dev), now)
+    exact = exact and all(np.array_equal(g, w.cpu().numpy())
+                          for g, w in zip(got, want))
+    times["b3a_path_ms"] = host_ms(lambda: store._read(one, now))
+node = TorchReplicatedStorage("ab", capacity=C, device=dev)
+rows = 12288
+dirty = dict(zip(rng.choice(C, rows, replace=False).tolist(),
+                 zip(rng.integers(0, 1 << 30, rows).tolist(),
+                     rng.integers(0, 1 << 31, rows).tolist())))
+
+
+def refill():
+    node._dirty_remote = dict(dirty)
+
+
+with node._lock:
+    refill()
+    node._flush_dirty_remote()
+    torch.cuda.synchronize()
+    keys = torch.tensor(list(dirty), dtype=torch.long, device=dev)
+    exact = exact and all(
+        np.array_equal(lane[keys].cpu().numpy(), np.asarray(col, np.int32))
+        for lane, col in zip((node._remote_vals, node._remote_exp),
+                             zip(*dirty.values())))
+    times["b6c_path_ms"] = host_ms(node._flush_dirty_remote, refill, reps=200)
+node.close()
+store.close()
 print(json.dumps({"tree": sys.argv[1], "host_forms": host, "exact": exact,
                   **times}))
 '''

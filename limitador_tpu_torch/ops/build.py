@@ -74,6 +74,10 @@ _SIGNATURES = {
     "ct_host_list_capacity": (_I, [_I]),
     "ct_sharded_clear_host": (_I, [_P, _P, _I, _I]),
     "ct_seed_slots_host": (_I, [_P] * 4 + [_I, _I]),
+    "ct_ctx_results": (_P, [_P, _I]),
+    "ct_read_slots_host": (_I, [_P, _P, _I, _I]),
+    "ct_apply_remote_host": (_I, [_P] * 4 + [_I]),
+    "ct_apply_remote_staged": (_I, [_P] * 4 + [_I]),
 }
 
 #: what the last build or load did: path, seconds, ptxas resource lines

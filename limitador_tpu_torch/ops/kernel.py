@@ -25,6 +25,14 @@ Each kernel has three parts here:
 - ``launches[name]``: a plain integer, incremented by the wrapper each time
   it launches its CUDA kernel (never by the plain version).
 
+Four kernels also take host lists through a ``TableContext`` bound once
+per table (their "host forms", the storages' main path): B4d
+``seed_slots_host``, B7b ``sharded_clear_cells_host`` (in
+``parallel/mesh.py``), B3a ``read_slots_host`` and B6c
+``apply_remote_host``. B3a's and B6c's host forms count their launches
+under keys of their own (``read_slots_host``, ``apply_remote_host``), so a
+run shows which form its path took.
+
 The JAX programs donate the table (``donate_argnums=(0,)``) and return a
 new state. Here every function that writes the table updates its tensors
 in place instead and returns the same ``CounterTableState``; callers that
@@ -38,6 +46,7 @@ int64 and stop wrapping where XLA wraps.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -55,6 +64,8 @@ __all__ = [
     "update_plain",
     "read_slots",
     "read_slots_plain",
+    "read_slots_host",
+    "read_slots_host_plain",
     "clear_slots",
     "clear_slots_plain",
     "rebase_epoch_chunked",
@@ -76,6 +87,8 @@ __all__ = [
     "replicated_update_plain",
     "apply_remote",
     "apply_remote_plain",
+    "apply_remote_host",
+    "apply_remote_host_plain",
     "launches",
     "reset_launches",
     "MAX_VALUE_CAP",
@@ -96,6 +109,7 @@ launches = {
     "check_and_update": 0,
     "update": 0,
     "read_slots": 0,
+    "read_slots_host": 0,  # B3a's host form
     "clear_slots": 0,
     "rebase_epoch": 0,  # B4a, rebase_epoch_chunked
     "rebase_epoch_device": 0,  # B4b, rebase_epoch
@@ -105,6 +119,7 @@ launches = {
     "replicated_check": 0,
     "replicated_update": 0,
     "apply_remote": 0,
+    "apply_remote_host": 0,  # B6c's host form
     # B7a-d, the sharded table (parallel/mesh.py)
     "sharded_check_and_update": 0,
     "sharded_clear_cells": 0,
@@ -179,23 +194,31 @@ def _require_host(a: np.ndarray, name: str, n: int) -> None:
 
 class TableContext:
     """A table bound once for the host-list launches (the host forms of
-    B4d, ``seed_slots_host``, and of B7b, ``sharded_clear_cells_host``).
+    B4d, ``seed_slots_host``, of B7b, ``sharded_clear_cells_host``, of
+    B3a, ``read_slots_host``, and of B6c, ``apply_remote_host``).
 
     On the card the three columns are checked here, once, and bound with
     the stream (the storage's own) in a C context, ``ct_ctx_create``; a
     launch through it passes the handle and numpy lists and makes no
-    torch call. On the CPU it holds the table, and the host forms run
-    their plain versions on it. A storage makes one whenever it takes or
-    replaces its table, and closes the one it replaces: a context must
-    never outlive the table it points at, so it keeps the table."""
+    torch call. The C context also owns B3a's answer buffer (pinned host
+    memory mapped for the card, ``results`` its numpy view), freed with
+    it. On the CPU it holds the table, and the host forms run their plain
+    versions on it. A storage makes one whenever it takes or replaces its
+    table, and closes the one it replaces: a context must never outlive
+    the table it points at, so it keeps the table. Calls through one
+    context are serialised by its owner (the storage's lock): they share
+    the answer buffer."""
 
     __slots__ = ("state", "cuda", "handle", "capacity", "clear_fn",
-                 "seed_fn", "_destroy")
+                 "seed_fn", "read_fn", "remote_fn", "staged_fn", "results",
+                 "_results_fn", "_destroy")
+    _NO_RESULTS = np.zeros((0, 2), np.int32)
 
     def __init__(self, state, stream=None):
         self.handle = None
         self.state = state
         self.cuda = _on_cuda(state.values)
+        self.results = self._NO_RESULTS
         if not self.cuda:
             return
         values = state.values
@@ -221,11 +244,31 @@ class TableContext:
         self._destroy = lib.ct_ctx_destroy
         self.clear_fn = lib.ct_sharded_clear_host
         self.seed_fn = lib.ct_seed_slots_host
-        #: entries one launch carries: all-rows slots, pairs, seed rows
-        self.capacity = tuple(lib.ct_host_list_capacity(k) for k in range(3))
+        self.read_fn = lib.ct_read_slots_host
+        self.remote_fn = lib.ct_apply_remote_host
+        self.staged_fn = lib.ct_apply_remote_staged
+        self._results_fn = lib.ct_ctx_results
+        #: entries one launch carries: all-rows slots, pairs, seed rows,
+        #: slots read (B3a), remote-share rows (B6c)
+        self.capacity = tuple(lib.ct_host_list_capacity(k) for k in range(5))
+
+    def reserve(self, n: int) -> np.ndarray:
+        """Grow B3a's answer buffer to at least ``n`` (value, ttl) pairs
+        (a power of two, 1024 at least) and return ``results``, its
+        numpy view, which every read overwrites."""
+        cap = max(1024, 1 << (n - 1).bit_length())
+        ptr = self._results_fn(self.handle, cap) if self.handle else None
+        if not ptr:
+            raise RuntimeError(
+                f"ct_ctx_results: no answer buffer of {cap} pairs (a closed "
+                f"context, or pinned host memory exhausted)")
+        self.results = np.ctypeslib.as_array(
+            ctypes.cast(ptr, ctypes.POINTER(ctypes.c_int32)), shape=(cap, 2))
+        return self.results
 
     def close(self) -> None:
         handle, self.handle = self.handle, None
+        self.results = self._NO_RESULTS
         if handle:
             self._destroy(handle)
 
@@ -645,6 +688,48 @@ def read_slots(
     ), "ct_read_slots")
     launches["read_slots"] += 1
     return out_v, out_ttl
+
+
+def read_slots_host_plain(state: CounterTableState, slots: np.ndarray,
+                          now_ms) -> Tuple[np.ndarray, np.ndarray]:
+    """Plain twin of ``read_slots_host``: ``read_slots_plain`` on the
+    list, the answers as numpy int32 arrays."""
+    values, ttls = read_slots_plain(
+        state, torch.from_numpy(slots).to(state.values.device), now_ms)
+    return values.cpu().numpy(), ttls.cpu().numpy()
+
+
+def read_slots_host(ctx: TableContext, slots: np.ndarray,
+                    now_ms) -> Tuple[np.ndarray, np.ndarray]:
+    """``read_slots`` from a host list (numpy int32[n], unpadded) on
+    ``ctx.state``: (values, ttl_ms) as numpy int32[n] arrays of their own.
+    The JAX call pads to a pow2 bucket with the scratch slot and drops
+    those rows; a read of the scratch slot changes nothing, so the bare
+    list gives the same answers. On the card the list rides in the
+    kernel's parameter block (``ct_read_slots_host``, in chunks past one
+    block), the kernel stores each answer into the context's mapped host
+    buffer, and the call waits on the context's stream: the answers
+    follow every launch queued there before the call (the storage's
+    checks, updates and seeds), and are copied out of the buffer, which
+    the next read overwrites."""
+    if not ctx.cuda:
+        return read_slots_host_plain(ctx.state, slots, now_ms)
+    n = slots.shape[0]
+    _require_host(slots, "slots", n)
+    now = _now(now_ms)
+    if not ctx.handle:
+        raise RuntimeError("read_slots_host: the launch context is closed")
+    if n == 0:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    results = ctx.results
+    if results.shape[0] < n:
+        results = ctx.reserve(n)
+    rc = ctx.read_fn(ctx.handle, slots.tobytes(), n, now)
+    if rc:
+        build.check(rc, "ct_read_slots_host")
+    launches["read_slots_host"] += -(-n // ctx.capacity[3])
+    pairs = results[:n]
+    return pairs[:, 0].copy(), pairs[:, 1].copy()
 
 
 def clear_slots_plain(state: CounterTableState, slots) -> CounterTableState:
@@ -1150,3 +1235,49 @@ def apply_remote(
     ), "ct_apply_remote")
     launches["apply_remote"] += 1
     return remote_vals, remote_exp
+
+
+def apply_remote_host_plain(state: CounterTableState, slots: np.ndarray,
+                            sums: np.ndarray,
+                            expiries: np.ndarray) -> CounterTableState:
+    """Plain twin of ``apply_remote_host``: ``apply_remote_plain`` on the
+    lanes ``state`` binds (values and expiry_ms), in place."""
+    dev = state.values.device
+    apply_remote_plain(state.values, state.expiry_ms,
+                       *(torch.from_numpy(a).to(dev)
+                         for a in (slots, sums, expiries)))
+    return state
+
+
+def apply_remote_host(ctx: TableContext, slots: np.ndarray, sums: np.ndarray,
+                      expiries: np.ndarray) -> CounterTableState:
+    """``apply_remote`` from host rows (numpy int32[n] each, unique
+    slots) on a context bound to the remote lanes, as
+    ``TableContext(CounterTableState(remote_vals, remote_exp,
+    remote_exp))``: ``remote_vals[slots] = sums``, ``remote_exp[slots] =
+    expiries``, nothing else written. In place; one C call and one launch
+    on the context's stream, no tensor. Rows that fit in one kernel
+    parameter block (2,666 with nvcc 12.1 or later) ride in it
+    (``ct_apply_remote_host``); more take the staged design
+    (``ct_apply_remote_staged``: the C call packs them into the
+    context's pinned buffer, one copy to its device buffer, one
+    ``apply_remote_kernel``), which measured faster than a chain of full
+    parameter blocks from 12,288 rows (PERF.md)."""
+    if not ctx.cuda:
+        return apply_remote_host_plain(ctx.state, slots, sums, expiries)
+    n = slots.shape[0]
+    _require_host(slots, "slots", n)
+    _require_host(sums, "sums", n)
+    _require_host(expiries, "expiries", n)
+    if not ctx.handle:
+        raise RuntimeError("apply_remote_host: the launch context is closed")
+    if n == 0:
+        return ctx.state
+    fn = ctx.remote_fn if n <= ctx.capacity[4] else ctx.staged_fn
+    rc = fn(ctx.handle, slots.tobytes(), sums.tobytes(), expiries.tobytes(),
+            n)
+    if rc:
+        build.check(rc, "ct_apply_remote_host" if fn is ctx.remote_fn
+                    else "ct_apply_remote_staged")
+    launches["apply_remote_host"] += 1
+    return ctx.state

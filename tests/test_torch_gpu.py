@@ -378,7 +378,8 @@ def test_replicated_node_on_the_card_decides_like_the_cpu(cuda):
                      c.remaining, c.expires_in)
                     for c in lim.get_counters("ns")) for lim in limiters]
     assert views[0] == views[1]
-    for name in ("replicated_check", "replicated_update", "apply_remote"):
+    for name in ("replicated_check", "replicated_update",
+                 "apply_remote_host", "read_slots_host"):
         assert K.launches[name] > before[name], name
     for name in ("check_and_update", "update"):
         assert K.launches[name] == before[name], name
@@ -466,7 +467,7 @@ def test_tiered_storage_on_the_card_matches_the_cpu(cuda):
                 assert managers[0].run_once() == managers[1].run_once()
         clock.now += float(rng.choice([0.0, 0.2, 2.0]))
     assert K.launches["seed_slots"] > before["seed_slots"]
-    assert K.launches["read_slots"] > before["read_slots"]
+    assert K.launches["read_slots_host"] > before["read_slots_host"]
     card, cpu = stores
     _equal(card._state, cpu._state)
     assert [(k, c.value_raw if hasattr(c, "value_raw") else c.tat)
@@ -714,3 +715,128 @@ def test_sharded_storage_on_the_card_clears_like_the_cpu(cuda):
     _equal(stores[0]._state, stores[1]._state)
     assert 0 < K.launches["sharded_clear_cells"] - before <= calls
     assert stores[0]._gtable.evictions > calls
+
+
+# -- host forms with answers and remote rows: B3a and B6c ----------------------
+
+
+@pytest.mark.parametrize("n", [1, 8, 1000, 8001, 20000])
+def test_read_slots_host_form_matches_plain(cuda, n):
+    """B3a from a host list (the scratch slot and repeats included)
+    against its plain version, at now and at both int32 edges; a list
+    longer than one parameter block launches in chunks, each counted."""
+    rng = np.random.default_rng(600 + n)
+    now_ms = 5_000_000
+    tab = table(rng, now_ms, lanes(rng, 64))
+    tab[1][:40] = NEVER
+    ka = _state(tab, cuda)
+    ctx = K.TableContext(ka, torch.cuda.current_stream(cuda))
+    slots = rng.integers(0, C + 1, n).astype(np.int32)
+    slots[0] = C
+    for now in (now_ms, -(1 << 31), NEVER):
+        before = K.launches["read_slots_host"]
+        got = K.read_slots_host(ctx, slots, now)
+        assert K.launches["read_slots_host"] == \
+            before + -(-n // ctx.capacity[3])
+        want = K.read_slots_host_plain(ka, slots, now)
+        for g, w in zip(got, want):
+            assert g.dtype == np.int32 and g.flags.owndata
+            np.testing.assert_array_equal(g, w)
+    ctx.close()
+
+
+def test_read_slots_host_form_reuses_its_buffer(cuda):
+    """The answer buffer grows on demand and is reused by reads of
+    growing and shrinking n; every answer is an array of its own, left
+    as it was by the reads after it."""
+    rng = np.random.default_rng(611)
+    now_ms = 5_000_000
+    ka = _state(table(rng, now_ms, {}), cuda)
+    ctx = K.TableContext(ka, torch.cuda.current_stream(cuda))
+    kept, sizes = [], []
+    for n in (5, 3000, 2, 9000, 1, 1024, 1025):
+        slots = rng.integers(0, C, n).astype(np.int32)
+        got = K.read_slots_host(ctx, slots, now_ms)
+        kept.append((slots, [a.copy() for a in got], got))
+        sizes.append(ctx.results.shape[0])
+    assert sizes == sorted(sizes) and sizes[0] == 1024
+    assert sizes[-1] == 16384
+    for slots, copies, got in kept:
+        want = K.read_slots_host_plain(ka, slots, now_ms)
+        for c, g, w in zip(copies, got, want):
+            np.testing.assert_array_equal(c, w)
+            np.testing.assert_array_equal(g, w)
+    ctx.close()
+    with pytest.raises(RuntimeError):
+        K.read_slots_host(ctx, np.zeros(1, np.int32), now_ms)
+
+
+@pytest.mark.parametrize("n", [1, 8, 2666, 2667, 12288, 65536])
+def test_apply_remote_host_form_matches_plain(cuda, n):
+    """B6c from host rows on a context over the remote lanes (hits
+    aliasing the expiry lane) against its plain version, only the two
+    lanes changing: the wrapper (one launch, by value within one
+    parameter block, staged past it), then each C design alone (a chain
+    of parameter blocks, the staged copy), twice, reusing its buffers."""
+    rng = np.random.default_rng(700 + n)
+    L = 1 << 17
+    lanes_a = tuple(torch.from_numpy(
+        rng.integers(0, 1000, L + 1).astype(np.int32)).to(cuda)
+        for _ in range(2))
+    lanes_b = tuple(t.clone() for t in lanes_a)
+    ctx = K.TableContext(K.CounterTableState(*lanes_a, lanes_a[1]),
+                         torch.cuda.current_stream(cuda))
+    rows = remote_rows(rng, n, L)
+    for run in (None, ctx.remote_fn, ctx.remote_fn, ctx.staged_fn,
+                ctx.staged_fn):
+        before = K.launches["apply_remote_host"]
+        if run is None:
+            K.apply_remote_host(ctx, *rows)
+            assert K.launches["apply_remote_host"] == before + 1
+        else:
+            assert run(ctx.handle, *(a.tobytes() for a in rows), n) == 0
+        K.apply_remote_plain(*lanes_b, *(torch.from_numpy(a).to(cuda)
+                                         for a in rows))
+        torch.cuda.synchronize()
+        _equal(lanes_a, lanes_b)
+        rows = (rows[0], rows[1] ^ 5, rows[2] // 2)
+    ctx.close()
+
+
+def test_a_peek_right_after_a_b1_launch_reads_its_result(cuda):
+    """B1 queued on the storage stream (no sync), then at once a peek:
+    the answers are those of the plain read after the same B1, and the
+    peek is one B3a launch with no padding row."""
+
+    class Clock:
+        now = 1000.0
+
+        def __call__(self):
+            return self.now
+
+    clock = Clock()
+    storage = TorchStorage(capacity=C, clock=clock, device=cuda)
+    rng = np.random.default_rng(812)
+    now_ms = 5_000_000
+    slot_lanes = lanes(rng, 4000)
+    tab = table(rng, now_ms, slot_lanes)
+    storage._state = _state(tab, cuda)
+    plain = _state(tab, cuda)
+    clock.now = 1000.0 + now_ms / 1000
+    for _round in range(3):
+        arrays = tuple(torch.from_numpy(a).to(cuda)
+                       for a in batch(rng, 20000, slot_lanes, 4000))
+        slots = arrays[0][:64].cpu().numpy()
+        torch.cuda.synchronize()  # the inputs are in place; B1 is not
+        with storage._lock:
+            with storage._on_device():
+                K.check_and_update_batch(storage._state, *arrays, now_ms)
+            before = K.launches["read_slots_host"]
+            got = storage.peek_slots(slots)
+            assert K.launches["read_slots_host"] == before + 1
+        K.check_and_update_plain(plain, *arrays, now_ms)
+        want = K.read_slots_host_plain(plain, slots, now_ms)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    _equal(storage._state, plain)
+    storage.close()

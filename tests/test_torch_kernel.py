@@ -17,7 +17,7 @@ import torch
 from limitador_tpu.ops import kernel as JK
 from limitador_tpu_torch.ops import kernel as TK
 
-from .torch_batches import C, NEVER, credit_batch, hits_column
+from .torch_batches import C, NEVER, SpyContext, credit_batch, hits_column
 from .torch_batches import batch as _batch
 from .torch_batches import lanes as _lanes
 from .torch_batches import table as _tables
@@ -107,6 +107,81 @@ def test_read_slots_matches_jax(n):
                            now_ms)
     np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
     np.testing.assert_array_equal(np.asarray(jt), tt.numpy())
+
+
+def _bucketed(slots):
+    """The JAX storage's read list: padded to the pow2 bucket (8 at
+    least) with the scratch slot."""
+    H = max(8, 1 << (len(slots) - 1).bit_length())
+    return np.concatenate([slots, np.full(H - len(slots), C, np.int32)])
+
+
+def _wrapped(values):
+    return np.asarray(values, np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("now_ms", [1_000_000, -(1 << 31), -(1 << 31) + 1,
+                                    NEVER - 1, NEVER],
+                         ids=["mid", "min", "min+1", "max-1", "max"])
+@pytest.mark.parametrize("n", [1, 3, 8, 9, 1000])
+def test_read_slots_host_form_matches_jax(n, now_ms):
+    """B3a's host form (the bare list) equals ``JK.read_slots`` on the
+    list padded to the bucket with the scratch slot, those rows dropped:
+    the scratch slot in the list, live and expired cells, cells at the
+    clock and at the int32 edges, where ``e - now`` wraps."""
+    rng = np.random.default_rng(8000 + n)
+    values, expiry, hits = _tables(rng, 1_000_000, {})
+    edges = _wrapped([0, 1, NEVER, NEVER - 1, -(1 << 31), now_ms,
+                      now_ms + 1, now_ms - 1])
+    expiry[:edges.size] = edges
+    values[:edges.size] = rng.integers(1, 60, edges.size)
+    slots = rng.integers(0, C + 1, n).astype(np.int32)
+    k = min(n - 1, edges.size)
+    slots[1:1 + k] = np.arange(k)
+    slots[0] = C
+    jv, jt = JK.read_slots(_jax_state(values, expiry, hits),
+                           _bucketed(slots), np.int32(now_ms))
+    ctx = TK.TableContext(_torch_state(values, expiry, hits))
+    before = dict(TK.launches)
+    tv, tt = TK.read_slots_host(ctx, slots, now_ms)
+    assert TK.launches == before  # the CPU runs the plain version
+    for j, t in ((jv, tv), (jt, tt)):
+        assert t.dtype == np.int32 and t.shape == (n,)
+        np.testing.assert_array_equal(np.asarray(j)[:n], t)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 20, 1025])
+def test_read_slots_host_wrapper_launches_per_block(n):
+    """The card path of B3a's host form, through a context that emulates
+    the C entry point: one call with the whole list as bytes, launches
+    counted per block of 8 slots, the answer buffer grown on demand and
+    the answers copied out of it (a later read leaves them as they
+    were), equal to the JAX read."""
+    rng = np.random.default_rng(8100 + n)
+    now_ms = 1_000_000
+    table = _tables(rng, now_ms, {})
+    ctx = SpyContext(_torch_state(*table), capacity=(8, 4, 3, 8, 3))
+    slots = rng.integers(0, C + 1, n).astype(np.int32)
+    before = TK.launches["read_slots_host"]
+    tv, tt = TK.read_slots_host(ctx, slots, now_ms)
+    assert TK.launches["read_slots_host"] == before + -(-n // 8)
+    assert ctx.calls == [("read", n)]
+    assert ctx.results.shape[0] == max(1024, 1 << (n - 1).bit_length())
+    jv, jt = JK.read_slots(_jax_state(*table), _bucketed(slots),
+                           np.int32(now_ms))
+    TK.read_slots_host(ctx, rng.integers(0, C, n).astype(np.int32),
+                       now_ms + 777)
+    for j, t in ((jv, tv), (jt, tt)):
+        assert t.flags.owndata and t.dtype == np.int32
+        np.testing.assert_array_equal(np.asarray(j)[:n], t)
+    TK.read_slots_host(ctx, np.zeros(0, np.int32), now_ms)
+    assert len(ctx.calls) == 2  # an empty list calls nothing
+    ctx.close()
+    with pytest.raises(RuntimeError):
+        TK.read_slots_host(ctx, slots, now_ms)
+    with pytest.raises(ValueError):
+        TK.read_slots_host(SpyContext(ctx.state), slots.astype(np.int64),
+                           now_ms)
 
 
 @pytest.mark.parametrize("n", [1, 8, 1024])

@@ -48,7 +48,14 @@ from limitador_tpu_torch.ops import kernel as TK
 from limitador_tpu_torch.storage.base import StorageError
 from limitador_tpu_torch.storage.keys import key_for_counter as t_key
 
-from .torch_batches import batch, lanes, remote_lanes, remote_rows, table
+from .torch_batches import (
+    SpyContext,
+    batch,
+    lanes,
+    remote_lanes,
+    remote_rows,
+    table,
+)
 
 # -- the kernels -------------------------------------------------------------
 
@@ -794,3 +801,234 @@ def test_mixed_jax_and_port_nodes_converge(policy):
     finally:
         jnode.close()
         tnode.close()
+
+
+# -- B6c's and B3a's host forms on the remote lanes ----------------------------
+
+
+@pytest.mark.parametrize("path", ["plain", "card"])
+@pytest.mark.parametrize("n", [1, 8, 2666, 2667, 12288])
+def test_apply_remote_host_form_matches_jax(n, path):
+    """B6c from host rows, through a context over the remote lanes (hits
+    aliasing the expiry lane), equals the jitted ``_apply_remote``: both
+    lanes written at the unique slots, nothing else. On the card path
+    (C emulated) the rows go in one call and one launch: in the
+    parameter block up to one block's 2,666 rows, staged past it."""
+    rng = np.random.default_rng(9300 + n)
+    L = 1 << 15
+    rv = rng.integers(0, 1000, L + 1).astype(np.int32)
+    re = rng.integers(0, 1 << 31, L + 1).astype(np.int32)
+    rows = remote_rows(rng, n, L)
+    jrem = JR._apply_remote(jnp.asarray(rv), jnp.asarray(re), *rows)
+    vals, exp = torch.from_numpy(rv.copy()), torch.from_numpy(re.copy())
+    state = TK.CounterTableState(vals, exp, exp)
+    ctx = TK.TableContext(state) if path == "plain" else SpyContext(state)
+    before = dict(TK.launches)
+    assert TK.apply_remote_host(ctx, *rows) is state
+    if path == "plain":
+        assert TK.launches == before
+    else:
+        assert ctx.calls == [("remote" if n <= 2666 else "staged", n)]
+        assert TK.launches["apply_remote_host"] == \
+            before["apply_remote_host"] + 1
+    for j, t in zip(jrem, (vals, exp)):
+        np.testing.assert_array_equal(np.asarray(j), t.numpy())
+
+
+def _flush_recorder(node, record, lanes_of):
+    flush = node._flush_dirty_remote
+
+    def recorded():
+        rows = len(node._dirty_remote)
+        flush()
+        if rows:
+            record.append((node.node_id, rows,
+                           *(np.array(a, copy=True) for a in lanes_of(node))))
+    node._flush_dirty_remote = recorded
+
+
+def _lanes_of_port(node):
+    return node._remote_vals.numpy(), node._remote_exp.numpy()
+
+
+def _lanes_of_jax(node):
+    return np.asarray(node._remote_vals), np.asarray(node._remote_exp)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_three_nodes_keep_the_jax_remote_lanes_after_every_flush(seed):
+    """Three port nodes and three JAX nodes, each trio joined by loopback
+    gossip, take the same batches (windows and a bucket, recycled slots,
+    an epoch rebase half way) with a gossip tick of every node after
+    each batch, and every node's merged view now and then: the same
+    answers and views, the same flushes in the same order with the same
+    rows, and both remote lanes equal after every flush."""
+    rng = np.random.default_rng(seed)
+    packages = []
+    for pkg, make, counter_cls, request_cls, lanes_of in (
+            (J, lambda name, **kw: JR.TpuReplicatedStorage(name, **kw),
+             JCounter, JRequest, _lanes_of_jax),
+            (T, lambda name, **kw: TorchReplicatedStorage(
+                name, device="cpu", **kw), TCounter, TRequest,
+             _lanes_of_port)):
+        clock = FakeClock()
+        nodes = [make(name, capacity=96, cache_size=40, clock=clock)
+                 for name in "abc"]
+        limits = [pkg.Limit("w", 12, 60, [], ["u"], name="win"),
+                  pkg.Limit("w", 5, 30, [], ["u"], name="tb",
+                            policy="token_bucket")]
+        record, limiters = [], []
+        for i, node in enumerate(nodes):
+            limiters.append(pkg.RateLimiter(node))
+            for limit in limits:
+                limiters[-1].add_limit(limit)
+            node.broker = Loopback([n for j, n in enumerate(nodes) if j != i])
+            _flush_recorder(node, record, lanes_of)
+        packages.append((clock, nodes, limits, counter_cls, request_cls,
+                         record, limiters))
+    try:
+        for b in range(24):
+            users = rng.zipf(1.3, 48) % 70
+            bucket = rng.random(48) < 0.3
+            answers = []
+            for clock, nodes, limits, counter_cls, request_cls, _r, lims \
+                    in packages:
+                node = nodes[b % 3]
+                requests = [request_cls([counter_cls(limits[int(tb)],
+                                                     {"u": f"u{u}"})],
+                                        int(1 + u % 2), bool(u % 3 == 0))
+                            for u, tb in zip(users.tolist(), bucket)]
+                got = [(a.limited, a.limit_name)
+                       for a in node.check_many(requests)]
+                for n in nodes:
+                    n._publish_touched()
+                if b % 6 == 5:  # merged views: a flush, then remote reads
+                    got.append([_view(lim.get_counters("w"))
+                                for lim in lims])
+                answers.append(got)
+                clock.now += 13 * 86400.0 if b == 12 else 0.7
+            assert answers[0] == answers[1], b
+        jrec, trec = packages[0][5], packages[1][5]
+        assert len(jrec) == len(trec) >= 24
+        for i, (j, t) in enumerate(zip(jrec, trec)):
+            assert j[:2] == t[:2], i
+            for name, a, b in (("remote_vals", j[2], t[2]),
+                               ("remote_exp", j[3], t[3])):
+                np.testing.assert_array_equal(a, b, err_msg=f"{i} {name}")
+        assert packages[1][1][0]._epoch != 1_700_000_000.0  # rebased
+    finally:
+        for pkg in packages:
+            for node in pkg[1]:
+                node.close()
+
+
+def test_a_flush_and_a_remote_read_are_one_c_call_each():
+    """Through a context that emulates the C entry points: a flush hands
+    all its dirty rows to one call and one launch (staged past a block of
+    3 rows here, by value within one), and a remote read hands its bare
+    list (no padding row) to one call; the lanes and the answers are the
+    plain versions'."""
+    clock = FakeClock()
+    node = _node("me", clock=clock)
+    try:
+        rng = np.random.default_rng(5)
+        spy = SpyContext(node._remote_ctx.state, capacity=(8, 4, 3, 8, 3))
+        node._remote_ctx = spy
+        slots, sums, exps = remote_rows(rng, 10, 256)
+        node._dirty_remote = {int(s): (int(v), int(e))
+                              for s, v, e in zip(slots, sums, exps)}
+        want_v, want_e = (a.numpy().copy() for a in node._remote_lanes)
+        want_v[slots], want_e[slots] = sums, exps
+        before = TK.launches["apply_remote_host"]
+        with node._lock:
+            node._flush_dirty_remote()
+            node._flush_dirty_remote()  # nothing dirty: no call
+        node._dirty_remote = {int(slots[0]): (1, 2)}
+        with node._lock:
+            node._flush_dirty_remote()
+        want_v[slots[0]], want_e[slots[0]] = 1, 2
+        assert spy.calls == [("staged", 10), ("remote", 1)]
+        assert TK.launches["apply_remote_host"] == before + 2
+        np.testing.assert_array_equal(node._remote_vals.numpy(), want_v)
+        np.testing.assert_array_equal(node._remote_exp.numpy(), want_e)
+        now_ms = node._now_ms()
+        before = TK.launches["read_slots_host"]
+        with node._lock:
+            got = node._read_remote(slots[:5], now_ms)
+        assert spy.calls[-1] == ("read", 5)
+        assert TK.launches["read_slots_host"] == before + 1
+        live = want_e[slots[:5]] > now_ms
+        np.testing.assert_array_equal(got[0],
+                                      np.where(live, want_v[slots[:5]], 0))
+    finally:
+        node.close()
+
+
+def test_the_remote_lanes_bind_a_context_and_close_it():
+    """The remote lanes live in a launch context of their own, the hits
+    column aliasing the expiry lane; assigning new lanes binds a new
+    context and closes the old one; ``close`` closes the last."""
+    node = _node("me")
+    ctx = node._remote_ctx
+    assert ctx.state.values is node._remote_vals
+    assert ctx.state.expiry_ms is node._remote_exp
+    assert ctx.state.hits is node._remote_exp
+    spy = SpyContext(ctx.state)
+    node._remote_ctx = spy
+    lanes_ = (torch.ones(257, dtype=torch.int32),
+              torch.full((257,), 7, dtype=torch.int32))
+    node._remote_lanes = lanes_
+    assert spy.handle is None
+    assert node._remote_vals is lanes_[0] and node._remote_exp is lanes_[1]
+    assert node._remote_ctx.state.hits is lanes_[1]
+    last = SpyContext(node._remote_ctx.state)
+    node._remote_ctx = last
+    node.close()
+    assert last.handle is None
+
+
+def test_an_epoch_rebase_leaves_the_remote_context_bound():
+    """The epoch rebase shifts the remote expiry lane in place (B4a), so
+    the context keeps its lanes: a gossiped share read back after the
+    rebase equals the JAX node's."""
+    answers = []
+    for make, pkg, counter_cls in (
+            (lambda clock: JR.TpuReplicatedStorage("me", capacity=64,
+                                                   clock=clock), J,
+             JCounter),
+            (lambda clock: TorchReplicatedStorage("me", capacity=64,
+                                                  clock=clock,
+                                                  device="cpu"), T,
+             TCounter)):
+        clock = FakeClock()
+        node = make(clock)
+        limit = pkg.Limit("ns", 10, 60, [], ["u"])
+        limiter = pkg.RateLimiter(node)
+        limiter.add_limit(limit)
+        counter = counter_cls(limit, {"u": "x"})
+        ctx = getattr(node, "_remote_ctx", None)
+        ptrs = None if ctx is None else (node._remote_vals.data_ptr(),
+                                         node._remote_exp.data_ptr())
+        node._on_remote_update(j_key(counter) if pkg is J else t_key(counter),
+                               {"peer": 4}, int(clock.now * 1000) + 30_000)
+        first = node.is_within_limits(counter, 6)
+        epoch = node._epoch
+        clock.now += 13 * 86400.0
+        node._on_remote_update(j_key(counter) if pkg is J else t_key(counter),
+                               {"peer": 3}, int(clock.now * 1000) + 20_000)
+        second = [node.is_within_limits(counter, d) for d in (7, 8)]
+        assert node._epoch != epoch
+        if ctx is not None:
+            assert node._remote_ctx is ctx
+            assert ptrs == (node._remote_vals.data_ptr(),
+                            node._remote_exp.data_ptr())
+            lanes_ = [a.numpy().copy() for a in node._remote_lanes]
+        else:
+            lanes_ = [np.asarray(a) for a in (node._remote_vals,
+                                               node._remote_exp)]
+        answers.append((first, second, lanes_))
+        node.close()
+    assert answers[0][:2] == answers[1][:2] == (True, [True, False])
+    for j, t in zip(answers[0][2], answers[1][2]):
+        np.testing.assert_array_equal(j, t)
+

@@ -64,7 +64,7 @@ from limitador_tpu_torch.tier import (
     TierManager,
 )
 
-from .torch_batches import C, NEVER, dirty_scratch, seed_rows
+from .torch_batches import C, NEVER, SpyContext, dirty_scratch, seed_rows
 from .torch_batches import table as _table
 from .torch_native_corpus import FROZEN_NOW, NAMESPACES, corpus, limits
 
@@ -1244,3 +1244,92 @@ def test_served_tiers_answer_like_the_oracle_and_restart_from_a_snapshot(
             await restarted.stop()
 
     asyncio.run(asyncio.wait_for(drive(), 120))
+
+
+# -- B3a's host form under the tiers ------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_tiers_keep_the_jax_cells_through_peeks(seed):
+    """A port TieredStorage and the JAX one in lockstep: evicting
+    ``check_many`` batches (each eviction peeks its victim), two-phase
+    demotions of resident keys and promotions of cold ones; answers,
+    arrays, cold cells, ledgers and stats equal after every call."""
+    from limitador_tpu.tpu.storage import _Request as JRequest
+    from limitador_tpu_torch.device.storage import _Request as TRequest
+
+    rng = np.random.default_rng(seed)
+    sides = []
+    for P, request in ((JAX, JRequest), (PORT, TRequest)):
+        clock, storage, limiter = _make(P, capacity=64, cache_size=12)
+        limits = [_limit(P, name="w"),
+                  P.Limit("ns", 5, 30, [], ["u"], name="tb",
+                          policy="token_bucket")]
+        for limit in limits:
+            limiter.add_limit(limit)
+        sides.append((P, request, clock, storage, limits))
+    stores = [side[3] for side in sides]
+
+    def same(where):
+        assert _tier_state(stores[0]) == _tier_state(stores[1]), where
+
+    demoted = promoted = 0
+    for step in range(30):
+        users = rng.integers(0, 40, 16).tolist()
+        bucket = (rng.random(16) < 0.3).tolist()
+        answers = []
+        for P, request, _clock, storage, limits in sides:
+            requests = [request([P.Counter(limits[int(b)], {"u": f"u{u}"})],
+                                int(1 + u % 2), False)
+                        for u, b in zip(users, bucket)]
+            answers.append([a.limited for a in storage.check_many(requests)])
+        assert answers[0] == answers[1], step
+        same(step)
+        if step % 5 == 4:
+            for phase in ("demote", "promote"):
+                got = []
+                for storage in stores:
+                    keys = (list(storage._table.qualified)[:3]
+                            if phase == "demote"
+                            else list(storage._cold.cells)[:3])
+                    begin = getattr(storage, f"{phase}_begin")
+                    finish = getattr(storage, f"{phase}_finish")
+                    rows = begin(keys)
+                    got.append((len(rows), finish(keys)))
+                assert got[0] == got[1], (step, phase)
+                demoted += got[1][1] if phase == "demote" else 0
+                promoted += got[1][1] if phase == "promote" else 0
+                same((step, phase))
+        step_s = float(rng.choice([0.0, 0.5, 3.0]))
+        for side in sides:
+            side[2].advance(step_s)
+    assert demoted and promoted
+    assert stores[1]._cold.cells  # the batches evicted into the cold tier
+
+
+def test_a_peek_and_a_read_are_one_b3a_launch_without_padding():
+    """Through a context that emulates the C entry points: an eviction
+    peeks its one victim, a demotion's first phase its keys, each in one
+    call of the bare list (the JAX storage pads it to a bucket of 8);
+    ``is_within_limits`` and ``get_counters`` read in one call each."""
+    clock, storage, limiter = _make(PORT, cache_size=4)
+    limit = _limit(PORT)
+    limiter.add_limit(limit)
+    spy = SpyContext(storage._state)
+    storage._ctx = spy
+    before = TK.launches["read_slots_host"]
+    for u in range(7):
+        limiter.update_counters("ns", PORT.Context({"u": f"u{u}"}), 1)
+    peeks = [c for c in spy.calls if c[0] == "read"]
+    assert len(peeks) >= 3 and set(peeks) == {("read", 1)}
+    spy.calls.clear()
+    keys = list(storage._table.qualified)[:3]
+    assert len(storage.demote_begin(keys)) == 3
+    assert spy.calls == [("read", 3)]
+    spy.calls.clear()
+    storage.is_within_limits(TCounter(limit, {"u": "u6"}), 1)
+    assert spy.calls == [("read", 1)]
+    counters = limiter.get_counters("ns")
+    assert spy.calls[-1] == ("read", 4) and len(counters) == 7
+    assert TK.launches["read_slots_host"] - before == len(peeks) + 3
+

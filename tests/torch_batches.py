@@ -2,8 +2,9 @@
 
 Shared by ``test_torch_kernel.py`` and ``test_torch_tier.py`` (the port
 against the JAX package on the CPU) and ``test_torch_gpu.py`` (the CUDA
-kernels against their plain versions on the card); imports numpy only,
-so the card's machine, which has no JAX, can import it.
+kernels against their plain versions on the card); imports numpy only
+(``SpyContext`` imports the port when called), so the card's machine,
+which has no JAX, can import it.
 """
 
 import numpy as np
@@ -301,3 +302,74 @@ def sharded_batch(rng, n, H, lanes_, L, G, coupled, with_global,
             arr[s, :len(c[s])] = c[s]
         out.append(arr)
     return tuple(out)
+
+
+class SpyContext:
+    """Stands in for a ``TableContext`` bound on the card, over a CPU
+    table: the host forms take their card path through it (``cuda`` and
+    ``handle`` set), and its C entry points are emulated with the
+    kernels' plain versions on what the wrapper hands to C (the lists as
+    bytes; B3a's answers written into ``results`` as (value, ttl) pairs,
+    as the kernel stores them). Every call is recorded in ``calls`` as
+    (entry point, rows), so a CPU test sees the marshalling, the calls
+    and the per-block launch counts. ``capacity`` is the entries a
+    launch carries, by kind (all-rows slots, pairs, seed rows, slots
+    read, remote rows)."""
+
+    cuda = True
+
+    def __init__(self, state, capacity=(8000, 4000, 2666, 8000, 2666)):
+        self.state = state
+        self.capacity = capacity
+        self.handle = 1
+        self.calls = []
+        self.results = np.zeros((0, 2), np.int32)
+
+    @staticmethod
+    def _rows(*blobs):
+        import torch
+
+        return [torch.from_numpy(np.frombuffer(b, np.int32).copy())
+                for b in blobs]
+
+    def reserve(self, n):
+        cap = max(1024, 1 << (n - 1).bit_length())
+        self.results = np.zeros((cap, 2), np.int32)
+        return self.results
+
+    def read_fn(self, handle, slots, n, now_ms):
+        from limitador_tpu_torch.ops import kernel as K
+
+        (idx,) = self._rows(slots)
+        assert handle and idx.numel() == n <= self.results.shape[0]
+        values, ttls = K.read_slots_plain(self.state, idx, now_ms)
+        self.results[:n, 0] = values.numpy()
+        self.results[:n, 1] = ttls.numpy()
+        self.calls.append(("read", n))
+        return 0
+
+    def remote_fn(self, handle, slots, sums, expiries, n):
+        from limitador_tpu_torch.ops import kernel as K
+
+        rows = self._rows(slots, sums, expiries)
+        assert handle and rows[0].numel() == n
+        K.apply_remote_plain(self.state.values, self.state.expiry_ms, *rows)
+        self.calls.append(("remote", n))
+        return 0
+
+    def staged_fn(self, handle, slots, sums, expiries, n):
+        self.remote_fn(handle, slots, sums, expiries, n)
+        self.calls[-1] = ("staged", n)
+        return 0
+
+    def seed_fn(self, handle, slots, values, expiry, n, padded):
+        from limitador_tpu_torch.ops import kernel as K
+
+        rows = [r.numpy() for r in self._rows(slots, values, expiry)]
+        assert handle and rows[0].size == n
+        K.seed_slots_host_plain(self.state, *rows, bool(padded))
+        self.calls.append(("seed", n))
+        return 0
+
+    def close(self):
+        self.handle = None
