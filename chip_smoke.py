@@ -13,7 +13,15 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    1<<20-counter table with numpy-seeded Zipf-0.99 batches: bit-exact
    outputs and final table, then median times (CUDA events), the plain
    version's time, the bytes bound at 3.35 TB/s and, where one PyTorch
-   call computes the same function, that call's time. The lease credit
+   call computes the same function, that call's time. B1 in both its
+   kernels at H = 8, 64, 128, 256, 512, 1024, 8192 and 16,384 (the
+   thread-block cluster, the route from 1,024 to 16,384 hits, beside the
+   one-block kernel, the route below and above) and at 32,768 (the
+   one-block kernel alone), with the fixpoint's sweep count of each
+   batch. B3b also in its host form (the storage's numpy list in the
+   kernel's parameter block) at n = 1, 8, 6600 and 9100, timed beside
+   the parent's path for the same list (pinned upload, device-tensor
+   launch) and index_fill_. The lease credit
    (B4c) runs with its edge rows, the heavy-hitter drain (B5) with ties,
    fewer live slots than k, and k up to C; the replicated check (B6a)
    and update (B6b) over remote lanes with live and expired sums, bucket
@@ -43,7 +51,11 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    held against the port's InMemoryStorage on the same sequence, and every
    kernel of that path must have launched during the run.
 5. A short drive: 8192-hit batches through TorchStorage.check_many over
-   1M Zipf-0.99 keys; decisions per second beside the card's name.
+   1M Zipf-0.99 keys, then one batch of 32,768 hits (past the cluster's
+   capacity: the one-block B1); decisions per second of the 8192-hit
+   batches beside the card's name, every decision against serial order,
+   and B1's launches by route (the 8192-hit batches must take the
+   cluster, the large one the one-block kernel).
 6. The native main path: the same step list against the server with
    --pipeline native --native-hot-lane on --lease-mode off --usage-topk 64
    (ShouldRateLimit through the C++ host lane and begin_check_columnar,
@@ -66,7 +78,9 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    every node, over-admission and per-node latency recorded. A replicated
    node must launch B6a/B6b/B6c and never B1/B2. Phase 8a splits the
    B6c flush's host time into the pack and the C call, with the B6c
-   launches a flush.
+   launches a flush, and records the B3b launches and the gossip's host
+   ms a batch: the clears of a merge's adoptions are staged and reach
+   the card through B3b's host form only, one launch per flush.
 9. Tiers: (a) TieredStorage (capacity 1<<20, hot set 1<<16) on the card,
    frozen clock, 40 batches of 8192 one-hit requests through check_many
    over 1<<22 Zipf-0.99 users (20% to a token bucket), a TierManager
@@ -82,10 +96,10 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    with the default observatory (--usage-topk 64: no user over the limit,
    token conservation), with no tier failure. Phase 9a reports the host
    time of one eviction peek.
-   Phases 8a, 8b, 9a and 9b fail unless every B3a and B6c of their main
-   path went through its host form (the launch counts' own keys,
-   read_slots_host and apply_remote_host) and none through the
-   device-tensor wrapper.
+   Phases 8a, 8b, 9a and 9b fail unless every B3a, B6c and B3b of their
+   main path went through its host form (the launch counts' own keys,
+   read_slots_host, apply_remote_host and clear_slots_host) and none
+   through the device-tensor wrapper.
 10. The sharded table: (a) TorchShardedStorage(n_shards=8,
    local_capacity=1<<17, global_namespaces=["tenants"], global_region=1024)
    on the card, frozen clock stepped past one window half way, 8 batches
@@ -127,6 +141,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 C = 1 << 20
 NEVER = (1 << 31) - 1
 HS = (8, 1024, 8192, 32768)
+# B1: both kernels up to the cluster's capacity, the one block past it;
+# 64 to 512 place the smallest batch where the cluster route pays
+B1_HS = (8, 64, 128, 256, 512, 1024, 8192, 16384, 32768)
+# B3b's host form: a few slots, and flushes of a merge's adoptions (phase
+# 8a's carry about 6,600 slots on average and up to about 9,100, past one
+# parameter block; PERF.md §6)
+CLEAR_HOST_NS = (1, 8, 6600, 9100)
 READ_NS = (8, 1024, 32768)
 CREDIT_HS = (8, 1024, 4096)
 DRAIN_KS = (64, 1, 1000)
@@ -139,6 +160,8 @@ REMOTE_NS = (8, 1024, 8192, 12288, 65536)
 # so that the whole run stays near 260 s, well inside half its 1200 s
 # limit: 50 batches of the standard drive and of each native drive.
 DRIVE_BATCHES = 50
+# ...then one batch past the cluster's capacity (the one-block B1)
+DRIVE_BIG_HITS = 32768
 NATIVE_BATCHES = 50
 # Phase 8a runs its drive twice, on the card and replayed on the CPU, with
 # Python gossip merges between batches: 16 batches (131,072 decisions).
@@ -153,6 +176,7 @@ SEED_NS = (1, 5, 1000)
 KERNEL_SOURCE = "limitador_tpu_torch/csrc/counter_table.cu"
 REPLACES = {
     "check_and_update": "limitador_tpu/ops/kernel.py:153",
+    "check_and_update_cluster": "limitador_tpu/ops/kernel.py:153",
     "update": "limitador_tpu/ops/kernel.py:433",
     "read_slots": "limitador_tpu/ops/kernel.py:651",
     "clear_slots": "limitador_tpu/ops/kernel.py:662",
@@ -169,13 +193,16 @@ REPLACES = {
     "sharded_update": "limitador_tpu/parallel/mesh.py:552",
     "sharded_drain_top_hits": "limitador_tpu/parallel/mesh.py:589",
 }
-# the shape each kernel sees on the main path, for the JSON line (B4c:
-# rows of a lease settle; B5: k of the default --usage-topk; B6c: rows of
-# a phase-8a flush; B4d: one promoted key; B4b: no caller, the whole
-# column as B4a)
+# the shape each kernel sees on the main path, for the JSON line (B1: the
+# cluster at the drives' 8192 hits, the one block at the served paths'
+# 8 (it also takes phase 5's 32,768-hit batch); B3b: the host
+# form at a phase-8a flush; B4c: rows of a lease settle; B5: k of the
+# default --usage-topk; B6c: rows of a phase-8a flush; B4d: one promoted
+# key; B4b: no caller, the whole column as B4a)
 MAIN_SHAPE = {
-    "check_and_update": 8192, "update": 8, "read_slots": 8,
-    "clear_slots": 8, "rebase_epoch": C + 1, "rebase_epoch_device": C + 1,
+    "check_and_update": 8, "check_and_update_cluster": 8192,
+    "update": 8, "read_slots": 8, "clear_slots": "host/6600",
+    "rebase_epoch": C + 1, "rebase_epoch_device": C + 1,
     "credit": 1024, "seed_slots": 1, "drain_top_hits": 64,
     "replicated_check": 8192, "replicated_update": 8, "apply_remote": 12288,
     # B7 over the phase-10a table, 8 rows of 1<<17 cells: B7a at 1024 hits
@@ -191,30 +218,33 @@ LOCAL_CAP = 1 << 17
 GLOBAL_REGION = 1024
 SHARDED_HS = (8, 1024)
 B7A_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
-# kernels each main-path phase must launch
+# kernels each main-path phase must launch (B1 by the batch's hits: the
+# served phases' small batches take the one-block kernel, the drives'
+# 8192-hit batches the cluster)
 PHASE4_KERNELS = ("check_and_update", "update", "read_slots",
                   "clear_slots", "rebase_epoch")
 PHASE6_KERNELS = PHASE4_KERNELS + ("drain_top_hits",)
-PHASE7_KERNELS = ("check_and_update", "read_slots", "credit",
+PHASE7_KERNELS = ("check_and_update_cluster", "read_slots", "credit",
                   "drain_top_hits")
 # a replicated node checks through B6a and updates through B6b, never B1/B2
 PHASE8A_KERNELS = ("replicated_check", "apply_remote", "read_slots",
                    "clear_slots")
 PHASE8B_KERNELS = ("replicated_check", "replicated_update", "apply_remote",
                    "read_slots")
-PLAIN_KERNELS = ("check_and_update", "update")
+PLAIN_KERNELS = ("check_and_update", "check_and_update_cluster", "update")
 # tiers: evictions and demotions peek through B3a, promotions seed
 # through B4d; with leases, demotions settle through B4c
-PHASE9A_KERNELS = ("check_and_update", "read_slots", "seed_slots")
-PHASE9B_KERNELS = PHASE9A_KERNELS
-PHASE9B_LEASE_KERNELS = PHASE9A_KERNELS + ("credit",)
-PHASE9B_SERVED_KERNELS = PHASE9A_KERNELS + ("drain_top_hits",)
-# B3a and B6c count their host forms (the storages' path) under keys of
-# their own: a phase launched B3a or B6c when either count moved, and
+PHASE9A_KERNELS = ("check_and_update_cluster", "read_slots", "seed_slots")
+PHASE9B_KERNELS = ("check_and_update", "read_slots", "seed_slots")
+PHASE9B_LEASE_KERNELS = PHASE9B_KERNELS + ("credit",)
+PHASE9B_SERVED_KERNELS = PHASE9B_KERNELS + ("drain_top_hits",)
+# B3a, B6c and B3b count their host forms (the storages' path) under
+# keys of their own: a phase launched one when either count moved, and
 # phases 8a, 8b, 9a and 9b must have reached them through the host forms
 # only (_host_forms_only)
 HOST_FORMS = {"read_slots": "read_slots_host",
-              "apply_remote": "apply_remote_host"}
+              "apply_remote": "apply_remote_host",
+              "clear_slots": "clear_slots_host"}
 READ_HOST_NS = (1, 8, 1000, 8001, 32768)
 REMOTE_HOST_NS = (8, 1024, 12288, 65536)
 # the sharded paths: 10a and 10b together must launch all four
@@ -233,8 +263,8 @@ def _launched(run, name):
 
 
 def _host_forms_only(run, label, remote):
-    """Fail unless every B3a (and, on a replicated path, every B6c) of
-    the run went through its host form, and the host forms launched."""
+    """Fail unless every B3a, B6c and B3b of the run went through its
+    host form, and B3a's (on a replicated path B6c's too) launched."""
     device = [name for name in HOST_FORMS if run[name]]
     if device:
         fail(f"{label}: B3a/B6c launched through the device-tensor "
@@ -337,17 +367,25 @@ def _lane(rng):
 
 
 def _batch(rng, H, lanes):
-    """Request-ordered hits over Zipf-0.99 slots, 1-3 hits per request,
-    fresh (recycled) slots, bucket lanes and padding rows."""
+    """Request-ordered hits over Zipf-0.99 slots, 1-3 hits per request
+    on distinct slots (as a storage stages them), fresh (recycled) slots,
+    bucket lanes and padding rows."""
     n_real = int(rng.integers(max(H // 2, 1), H + 1))
     keys = zipf_keys(C, n_real, 0.99, rng)
     cols = [[] for _ in range(7)]
     seen = set()
     r = i = 0
     while i < n_real and r < H - 1:
+        mine = set()
         for _ in range(min(int(rng.integers(1, 4)), n_real - i)):
             s = int(keys[i])
             i += 1
+            if s in mine:
+                # a request's counters are distinct, so are their slots;
+                # two hits of one request on one slot can make the
+                # fixpoint flip that request every sweep, to the cap
+                continue
+            mine.add(s)
             if s not in lanes:
                 lanes[s] = _lane(rng)
             is_bucket, maxv, win = lanes[s]
@@ -572,15 +610,39 @@ def _device_ms(fn, setup, kernel, reps=10):
         torch.cuda.synchronize()
     names = (kernel,) if isinstance(kernel, str) else kernel
     total_us = 0.0
+    seen = []
     for evt in prof.key_averages():
+        dev_us = getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0.0))
         if any(name in evt.key for name in names):
-            total_us += getattr(evt, "device_time_total",
-                                getattr(evt, "cuda_time_total", 0.0))
+            total_us += dev_us
+        elif dev_us > 0:
+            seen.append(evt.key[:60])
+    if total_us <= 0:
+        print(f"    (the profiler recorded no device time for {names}; "
+              f"kernels it saw: {seen[:6]})", file=sys.stderr)
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
 def _host(state):
     return [t.cpu().numpy() for t in state]
+
+
+def _sweeps(state, dev_arrays, now_ms):
+    """Sweeps of B1's fixpoint on this batch and table: the plain
+    version's loop, counted."""
+    from limitador_tpu_torch.ops import kernel as K
+
+    plan = K._check_prepare(state, *dev_arrays, now_ms)
+    H = dev_arrays[0].shape[0]
+    count = [0]
+
+    def sweep(admitted):
+        count[0] += 1
+        return K._check_sweep(plan, admitted, H)
+
+    K._fixpoint(sweep, H, state.values.device)
+    return count[0]
 
 
 def _max_abs_err(pairs):
@@ -640,27 +702,42 @@ def phase_kernels(dev):
         return out[name][shape]
 
     print("kernels vs plain versions (C = 1<<20):")
-    for H in HS:
+    # B1: the fused check, both kernels on one batch per H
+    for H in B1_HS:
         arrays = _batch(rng, H, lanes)
         dev_arrays = tuple(torch.from_numpy(a).to(dev) for a in arrays)
-        # B1: the fused check
-        ta, tb = tables(), tables()
-        _, ra = K.check_and_update_batch(ta, *dev_arrays, now_ms)
+        tb = tables()
         rb = K.check_and_update_plain(tb, *dev_arrays, now_ms)
-        torch.cuda.synchronize()
-        err = _max_abs_err(list(zip(ra, rb)) + list(zip(ta, tb)))
-        ms = _median_ms(
-            lambda t: K.check_and_update_batch(t, *dev_arrays, now_ms),
-            lambda: (tables(),))
         plain_ms = _median_ms(
             lambda t: K.check_and_update_plain(t, *dev_arrays, now_ms),
             lambda: (tables(),), reps=5, warmup=1)
-        dms = _device_ms(
-            lambda t: K.check_and_update_batch(t, *dev_arrays, now_ms),
-            lambda: (tables(),), "check_kernel")
-        record("check_and_update", H, err, ms, plain_ms,
-               _check_bytes(arrays, base_np, _host(tb), now_ms),
-               device_ms=dms)
+        nbytes = _check_bytes(arrays, base_np, _host(tb), now_ms)
+        sweeps = _sweeps(tables(), dev_arrays, now_ms)
+        routes = (("check_and_update_cluster", "cluster",
+                   "check_cluster_kernel"),
+                  ("check_and_update", "block", "check_kernel"))
+        for name, route, kernel in routes:
+            if route == "cluster" and H > K.CLUSTER_MAX_HITS:
+                continue
+            ta = tables()
+            _, ra = K.check_and_update_batch(ta, *dev_arrays, now_ms,
+                                             route=route)
+            torch.cuda.synchronize()
+            err = _max_abs_err(list(zip(ra, rb)) + list(zip(ta, tb)))
+            ms = _median_ms(
+                lambda t: K.check_and_update_batch(t, *dev_arrays, now_ms,
+                                                   route=route),
+                lambda: (tables(),))
+            dms = _device_ms(
+                lambda t: K.check_and_update_batch(t, *dev_arrays, now_ms,
+                                                   route=route),
+                lambda: (tables(),), kernel)
+            record(name, H, err, ms, plain_ms, nbytes,
+                   device_ms=dms)["sweeps"] = sweeps
+        print(f"    B1 at H={H}: the fixpoint ran {sweeps} sweeps")
+    for H in HS:
+        arrays = _batch(rng, H, lanes)
+        dev_arrays = tuple(torch.from_numpy(a).to(dev) for a in arrays)
         # B2: unconditional update (large deltas included)
         deltas = np.where(rng.random(H) < 0.1,
                           rng.integers(-5, 1 << 30, H), arrays[1])
@@ -682,7 +759,8 @@ def phase_kernels(dev):
                _update_bytes(upd_np, base_np, _host(tb), now_ms),
                device_ms=dms)
         # B6a: the check over live/expired remote sums and bucket floors,
-        # local + remote past 2^31; with zero lanes it must equal B1
+        # local + remote past 2^31; with zero lanes it must equal B1 (the
+        # one-block kernel, which B6a instantiates)
         rv, re = remote_np
         remote = (torch.from_numpy(rv).to(dev), torch.from_numpy(re).to(dev))
         zeros = tuple(torch.zeros_like(t) for t in remote)
@@ -694,7 +772,8 @@ def phase_kernels(dev):
         rb = K.replicated_check_plain(tb, *remote, *dev_arrays, now_ms)
         za, zb = tables(), tables()
         _, zra = K.replicated_check_batch(za, *zeros, *dev_arrays, now_ms)
-        _, zrb = K.check_and_update_batch(zb, *dev_arrays, now_ms)
+        _, zrb = K.check_and_update_batch(zb, *dev_arrays, now_ms,
+                                          route="block")
         torch.cuda.synchronize()
         err = _max_abs_err(list(zip(ra, rb)) + list(zip(ta, tb))
                            + list(zip(zra, zrb)) + list(zip(za, zb)))
@@ -763,6 +842,7 @@ def phase_kernels(dev):
         record("clear_slots", n, err, ms, plain_ms, 4 * n + 12 * distinct,
                lib_ms, dms)
     _read_host_forms(dev, record, table, rng, now_ms)
+    _clear_slots_host_forms(dev, record, tables, rng)
     # B4a: one int32 step over the whole expiry column, and a chunked shift
     errs = []
     for shift in (999_000, NEVER, 3 * NEVER + 5):
@@ -1132,6 +1212,60 @@ def _clear_host_forms(dev, rng, record, base, rows_np, device_form, lib_ms):
                     "C call, 8000 slots": lambda: ctx.clear_fn(
                         ctx.handle, lists[8000], 8000, 1),
                 })
+
+
+def _clear_slots_host_forms(dev, record, tables, rng):
+    """B3b's host form (``clear_slots_host``: the storage's numpy list in
+    the kernel's parameter block through the bound context) against its
+    plain version at CLEAR_HOST_NS, duplicates and the scratch slot in
+    each list, the last past one parameter block. Each call timed from
+    the list to the launched kernel, beside the parent tree's path for
+    the same list (a pinned upload and the device-tensor launch, which
+    ``TorchStorage._clear`` made once per adopted counter) and the
+    library call (``index_fill_`` of the three columns stacked, from a
+    device list)."""
+    import torch
+
+    from limitador_tpu_torch.ops import kernel as K
+
+    table = tables()
+    stacked = torch.stack(list(table))
+    ctx = _bound_ctx(table)
+    for n in CLEAR_HOST_NS:
+        slots = zipf_keys(C, n, 0.99, rng)
+        slots[0] = C
+        ta, tb = tables(), tables()
+        K.clear_slots_host(_bound_ctx(ta), slots)
+        K.clear_slots_host_plain(tb, slots)
+        torch.cuda.synchronize()
+        err = _max_abs_err(list(zip(ta, tb)))
+
+        def call():
+            K.clear_slots_host(ctx, slots)
+
+        def parent():
+            K.clear_slots(table, *_pinned(dev, slots))
+
+        d_slots = torch.from_numpy(slots).to(dev).long()
+        distinct = int(np.unique(slots).size)
+        row = record(
+            "clear_slots", f"host/{n}", err, _median_ms(call),
+            _median_ms(lambda: K.clear_slots_host_plain(table, slots)),
+            4 * n + 12 * distinct,
+            _median_ms(lambda: stacked.index_fill_(1, d_slots, 0)),
+            _device_ms(call, None, "clear_list_kernel"), _median_ms(parent))
+        if n == 8:
+            data, handle = slots.tobytes(), ctx.handle
+            row["host_breakdown_us"] = _host_breakdown(
+                f"B3b host form, n={n}", {
+                    "checks": lambda: K._require_host(slots, "slots", n),
+                    "list as bytes": lambda: slots.tobytes(),
+                    "C call (list into the parameter block, launch)":
+                        lambda: ctx.clear_slots_fn(handle, data, n),
+                    "the whole wrapper": call,
+                    "the parent's path (pinned upload, launch)": parent,
+                })
+    ctx.close()
 
 
 def _read_host_forms(dev, record, table, rng, now_ms):
@@ -1837,23 +1971,28 @@ async def _main_path(tmpdir, dev, native=False):
 # -- phase 5 ----------------------------------------------------------------
 
 
-def phase_drive(dev, card, batches, hits=8192, max_value=100):
+def phase_drive(dev, card, batches, hits=8192, max_value=100,
+                big=DRIVE_BIG_HITS):
     """check_many over Zipf-0.99 keys from 1<<20, one hit per request;
     every key's first max_value hits are admitted, the rest rejected
-    (serial exactness within and across batches, checked here)."""
+    (serial exactness within and across batches, checked here). After
+    the timed ``batches``, one batch of ``big`` hits, past the cluster's
+    capacity. Returns (decisions/s of the timed batches, launches)."""
     from limitador_tpu_torch import Counter, Limit
     from limitador_tpu_torch.device.storage import TorchStorage, _Request
+    from limitador_tpu_torch.ops import kernel as K
 
     clock = ManualClock()
     storage = TorchStorage(capacity=C, clock=clock, device=dev)
     limit = Limit("drive", max_value, 3600, [], ["u"])
     rng = np.random.default_rng(99)
-    keys = zipf_keys(C, batches * hits, 0.99, rng)
+    keys = zipf_keys(C, batches * hits + big, 0.99, rng)
     names = [str(k) for k in range(C)]
     # warm-up batch on other keys (first launch, pinned buffers)
     storage.check_many([_Request([Counter(Limit("warm", 1, 60, [], ["u"]),
                                           {"u": "w"})], 1, False)])
     storage.close()  # waits for the storage stream
+    K.reset_launches()
     decided = []
     spent = {"requests": 0.0, "begin": 0.0, "finish": 0.0}
     t0 = time.perf_counter()
@@ -1876,7 +2015,13 @@ def phase_drive(dev, card, batches, hits=8192, max_value=100):
         spent["finish"] += t4 - t3
     decided.extend(a.limited for a in storage.finish_check_many(inflight))
     seconds = time.perf_counter() - t0
+    t_big = time.perf_counter()
+    decided.extend(a.limited for a in storage.check_many(
+        [_Request([Counter(limit, {"u": names[k]})], 1, False)
+         for k in keys[batches * hits:].tolist()]))
+    t_big = time.perf_counter() - t_big
     storage.close()
+    launches = dict(K.launches)
     limited = np.asarray(decided)
     # occurrence rank of each hit within its key, in drive order
     order = np.argsort(keys, kind="stable")
@@ -1886,16 +2031,23 @@ def phase_drive(dev, card, batches, hits=8192, max_value=100):
     rank[order] = np.arange(sk.size) - np.repeat(
         starts, np.diff(np.r_[starts, sk.size]))
     want = rank >= max_value
-    rate = limited.size / seconds
+    rate = batches * hits / seconds
     print(f"drive: {batches} batches x {hits} hits over 1M Zipf-0.99 keys "
           f"in {seconds:.2f}s = {rate:.0f} decisions/s "
-          f"({limited.sum()} limited; {card})")
+          f"({limited[:batches * hits].sum()} limited; {card}); then one "
+          f"batch of {big} hits in {t_big:.2f}s")
     print("drive host time: " + ", ".join(
         f"{k} {v / batches * 1e3:.2f} ms/batch" for k, v in spent.items()))
+    print(f"drive launches: {json.dumps(launches)}")
     if not np.array_equal(limited, want):
         fail(f"drive decisions differ from serial order at "
              f"{int(np.flatnonzero(limited != want)[0])}")
-    return rate
+    if launches["check_and_update_cluster"] < batches or \
+            launches["check_and_update"] != 1:
+        fail(f"drive: B1 by route {launches['check_and_update_cluster']} "
+             f"cluster, {launches['check_and_update']} one-block launches; "
+             f"want {batches} or more and 1")
+    return rate, launches
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -2132,12 +2284,15 @@ def _replication_drive(dev, clock, keys, to_bucket, batches, hits):
         limiter.add_limit(window)
         limiter.add_limit(bucket)
         node.broker = Loopback([n for j, n in enumerate(nodes) if j != i])
-    spent = {"check": 0.0, "gossip": 0.0, "flush": 0.0, "flush_call": 0.0}
+    spent = {"check": 0.0, "gossip": 0.0, "flush": 0.0, "flush_call": 0.0,
+             "clears": 0.0}
     flush_rows = []  # dirty slots per B6c flush
+    clear_rows = []  # staged slots per B3b flush
     host_form = K.apply_remote_host  # the flush's C call, timed apart
     _timed(K, "apply_remote_host", spent, "flush_call")
     for node in nodes:
         flush = node._flush_dirty_remote
+        flush_clears = node._flush_clears
 
         def timed_flush(node=node, flush=flush):
             if node._dirty_remote:
@@ -2147,7 +2302,17 @@ def _replication_drive(dev, clock, keys, to_bucket, batches, hits):
                 return flush()
             finally:
                 spent["flush"] += time.perf_counter() - t0
+
+        def timed_clears(node=node, flush=flush_clears):
+            if node._staged_clears:
+                clear_rows.append(len(node._staged_clears))
+            t0 = time.perf_counter()
+            try:
+                return flush()
+            finally:
+                spent["clears"] += time.perf_counter() - t0
         node._flush_dirty_remote = timed_flush
+        node._flush_clears = timed_clears
     names = {}
     limited = []
     t0 = time.perf_counter()
@@ -2185,7 +2350,7 @@ def _replication_drive(dev, clock, keys, to_bucket, batches, hits):
          "remote_exp": n._remote_exp.cpu().numpy()}
         for n in nodes
     ]
-    return np.asarray(limited), arrays, spent, seconds, flush_rows
+    return np.asarray(limited), arrays, spent, seconds, flush_rows, clear_rows
 
 
 def phase_replication_drive(dev, card, batches, hits=8192):
@@ -2203,8 +2368,8 @@ def phase_replication_drive(dev, card, batches, hits=8192):
     to_bucket = rng.random(batches * hits) < 0.2
     clock = ManualClock()
     K.reset_launches()
-    limited, arrays, spent, seconds, flush_rows = _replication_drive(
-        dev, clock, keys, to_bucket, batches, hits)
+    limited, arrays, spent, seconds, flush_rows, clear_rows = \
+        _replication_drive(dev, clock, keys, to_bucket, batches, hits)
     launches = dict(K.launches)
     rate = limited.size / seconds
     print(f"replication drive: 3 nodes x capacity {C}, {batches} batches x "
@@ -2221,6 +2386,15 @@ def phase_replication_drive(dev, card, batches, hits=8192):
           f"C call {spent['flush_call'] / flushes * 1e3:.3f}; "
           f"{launches['apply_remote_host'] / flushes:.2f} B6c launches a "
           f"flush")
+    print(f"replication drive B3b: {launches['clear_slots_host']} host-form "
+          f"launches ({launches['clear_slots_host'] / batches:.2f} a batch) "
+          f"over {len(clear_rows)} flushes of staged adoptions (mean "
+          f"{np.mean(clear_rows or [0]):.0f} slots, max "
+          f"{max(clear_rows or [0])}); {launches['clear_slots']} "
+          f"device-tensor launches; gossip "
+          f"{spent['gossip'] / batches * 1e3:.2f} ms a batch; the B3b "
+          f"flushes (in check and gossip) "
+          f"{spent['clears'] / batches * 1e3:.3f} ms a batch")
     print(f"replication drive launches: {json.dumps(launches)}")
     missing = [k for k in PHASE8A_KERNELS if _launched(launches, k) == 0]
     if missing:
@@ -2241,7 +2415,7 @@ def phase_replication_drive(dev, card, batches, hits=8192):
         fail(f"replication drive rows differ from serial order at "
              f"{int(np.flatnonzero(limited != want)[0])}")
     t0 = time.perf_counter()
-    cpu_limited, cpu_arrays, _spent, _s, _rows = _replication_drive(
+    cpu_limited, cpu_arrays, _spent, _s, _rows, _c = _replication_drive(
         torch.device("cpu"), clock, keys, to_bucket, batches, hits)
     if not np.array_equal(cpu_limited, limited):
         fail("the CPU replay's rows differ from the card's")
@@ -2254,7 +2428,9 @@ def phase_replication_drive(dev, card, batches, hits=8192):
           f"{time.perf_counter() - t0:.2f}s)")
     return launches, {"decisions_per_s": rate, "seconds": seconds,
                       "host_s": spent, "batches": batches, "hits": hits,
-                      "flush_rows": flush_rows}
+                      "flush_rows": flush_rows, "clear_rows": clear_rows,
+                      "b3b_launches": launches["clear_slots_host"],
+                      "b3b_device_tensor_launches": launches["clear_slots"]}
 
 
 REPLICATED_YAML = """\
@@ -3222,7 +3398,7 @@ def main() -> int:
     results = phase_kernels(dev)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches = asyncio.run(_main_path(tmpdir, dev))
-    rate = phase_drive(dev, card, DRIVE_BATCHES)
+    rate, drive5_launches = phase_drive(dev, card, DRIVE_BATCHES)
     from limitador_tpu_torch.ops import kernel as K
 
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -3277,8 +3453,10 @@ def main() -> int:
         if missing:
             fail(f"kernels not launched on {label}: {missing}")
         _host_forms_only(got, label, remote=False)
-    # launches on the main paths: phases 4, 6, 7, 8a, 8b, 9a, 9b, 10a, 10b
-    runs = (launches, native_launches, drive_launches, repl_launches,
+    # launches on the main paths: phases 4, 5, 6, 7, 8a, 8b, 9a, 9b, 10a,
+    # 10b
+    runs = (launches, drive5_launches, native_launches, drive_launches,
+            repl_launches,
             served_launches, tier_launches, served_tier_launches,
             leased_tier_launches, served_default_launches, sharded_launches,
             served_sharded_launches)

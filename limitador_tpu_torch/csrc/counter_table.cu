@@ -19,16 +19,22 @@
 // bandwidth but latency: the check's admission is a data-dependent
 // fixpoint over a sorted batch, a chain of dependent block-wide phases.
 //
-// Design of the check (ct_check_and_update, replacing
-// check_and_update_core / check_and_update_batch, ops/kernel.py:153-430)
-// and of the update (ct_update, replacing update_core / update_batch,
-// :433-576): ONE thread block of 1024 threads walks the whole batch, with
-// __syncthreads between phases and __syncthreads_or for the fixpoint's
-// "changed" test. One block means no cross-block synchronisation, so the
-// phases can depend on each other freely; the cost is that one SM does
-// all the work. Per-hit intermediates live in a device workspace the
-// wrapper allocates (L1/L2 resident at these sizes); the sort keys live
-// in shared memory up to 16384 hits.
+// Design of the check (replacing check_and_update_core /
+// check_and_update_batch, ops/kernel.py:153-430): batches of 1,024 to
+// 16,384 hits run on a thread-block cluster (ct_check_and_update_cluster,
+// check_cluster_kernel below: one block of up to 1024 threads per 1024
+// hits, every per-hit array in distributed shared memory). Below 1,024
+// hits (where it measured faster) and above the cluster's capacity, and
+// as the base of B6a and B7a, ONE thread block of 1024 threads walks the
+// whole batch
+// (ct_check_and_update, check_kernel), as does the update (ct_update,
+// replacing update_core / update_batch, :433-576), with __syncthreads
+// between phases and __syncthreads_or for the fixpoint's "changed" test.
+// One block means no cross-block synchronisation, so the phases can
+// depend on each other freely; the cost is that one SM does all the
+// work. Its per-hit intermediates live in a device workspace the wrapper
+// allocates (L1/L2 resident at these sizes); the sort keys live in
+// shared memory up to 16384 hits.
 //   1. Stable sort by slot: a bitonic sort of unique 64-bit keys
 //      (slot << 32 | hit index), so equal slots keep input order.
 //   2. Segment structure: segment start per sorted hit by a block-wide
@@ -64,11 +70,13 @@
 // rows, plus, for B7a's global variants, the pre-pass's 8 bytes per row
 // and global slot; latency, not bytes, keeps them above it, as for B1.
 //
-// B7b, B4d, B3a and B6c also take host lists by value
+// B7b, B4d, B3a, B6c and B3b also take host lists by value
 // (ct_sharded_clear_host, ct_seed_slots_host, ct_read_slots_host,
-// ct_apply_remote_host, below): the storages' own slot lists ride in the
-// kernel's parameter block, through a context bound once per table. B3a's
-// host form answers into pinned host memory that the context owns.
+// ct_apply_remote_host, ct_clear_slots_host, below): the storages' own
+// slot lists ride in the kernel's parameter block, through a context
+// bound once per table. B3a's host form answers into pinned host memory
+// that the context owns. The storages stage their B3b clears and launch
+// them as one such call before the table's next access.
 //
 // Every entry point launches on the stream it is given (or its context's)
 // and returns cudaGetLastError() as an int; it allocates no device memory,
@@ -531,6 +539,393 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
   }
   __syncthreads();
   if (tid == 0) {
+    values[scratch] = 0;
+    expiry[scratch] = 0;
+    hits[scratch] = 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B1 on a thread-block cluster: check_cluster_kernel.
+//
+// The same function as check_kernel<false>, bit for bit, spread over one
+// cluster of k = ceil(H / 1024) blocks (up to 16, the H100's non-portable
+// cluster size, so H <= 16,384) on k SMs. Each thread owns one sorted
+// position and one request id: block b owns positions and request ids
+// [b * per, b * per + per), per = ceil(H / k). Everything another thread
+// reads lives in shared memory; another block's arrays are reached
+// through distributed shared memory (cluster.map_shared_rank), and
+// cluster.sync() separates the phases. No device workspace.
+//   1. Stable sort by slot: an LSD radix sort of (slot, index) keys over
+//      the slot's bits (bit length of the scratch slot, in passes of at
+//      most 8 bits: 3 of 7 at C = 1 << 20). Within a block a key's rank
+//      among equal digits comes from __match_any_sync per warp and the
+//      warps' digit counts; across blocks from every block's digit counts
+//      read through DSMEM. Each key is stored into the block that owns
+//      its destination. Starting in index order, each pass stable, the
+//      result is the (slot, index) order of the one-block kernel's
+//      bitonic sort.
+//   2. Segment starts: a block max-scan of start marks, then the maximum
+//      of the earlier blocks' aggregates. Segment flags and window maxima
+//      are atomics (skipped when they would change nothing) on the
+//      segment start's owner, in DSMEM.
+//   3. The fixpoint: each sweep scans the admitted deltas (a block scan,
+//      then the earlier blocks' totals), votes are DSMEM stores to the
+//      request's owner, "changed" is the OR of the blocks' flags. The
+//      admitted vector is double-buffered (decisions and votes swap each
+//      sweep), so a sweep needs two cluster barriers: after the scan
+//      totals (which also publish the previous sweep's flags) and after
+//      the votes. The sweep that finds nothing changed is the final
+//      scan. The cap is H sweeps, as the JAX while_loop's.
+//   4. Outputs as check_kernel's; each segment's last hit writes its
+//      cell; block 0 re-zeroes the scratch cell after the last barrier.
+// Bound: the bytes of check_kernel; the barriers, about 2 per radix pass
+// and per sweep, are the cost.
+
+namespace cg = cooperative_groups;
+
+constexpr int kClusterMaxBlocks = 16;
+constexpr int kClusterMaxHits = kClusterMaxBlocks * kThreads;
+
+struct ClusterPlan {
+  int blocks;   // k: the cluster, which is the whole grid
+  int per;      // positions and request ids a block owns
+  int threads;  // per, rounded up to whole warps
+  int passes;   // radix passes over the slot's bits
+  int width;    // bits a pass
+};
+
+ClusterPlan cluster_plan(int H, int scratch) {
+  ClusterPlan p;
+  p.blocks = (H + kThreads - 1) / kThreads;
+  p.per = (H + p.blocks - 1) / p.blocks;
+  p.threads = (p.per + 31) / 32 * 32;
+  int bits = 1;  // slots lie in [0, scratch]
+  while (bits < 32 && ((uint32_t)scratch >> bits) != 0) ++bits;
+  p.passes = (bits + 7) / 8;
+  p.width = (bits + p.passes - 1) / p.passes;
+  return p;
+}
+
+// Dynamic shared memory of one block: keys[per] (uint64), five int32
+// arrays of per (scan prefixes, segment flags, segment window maxima, two
+// admitted buffers), the warps' digit counts [warps][bins] and three
+// arrays of bins (the block's digit counts, their exclusive scan, the
+// digits' destinations).
+size_t cluster_smem(const ClusterPlan& p) {
+  const int bins = 1 << p.width;
+  return (size_t)p.per * (8 + 5 * 4) +
+         (size_t)(p.threads / 32 * bins + 3 * bins) * 4;
+}
+
+const size_t kClusterSmemMax =
+    cluster_smem(ClusterPlan{kClusterMaxBlocks, kThreads, kThreads, 4, 8});
+
+// Inclusive scan of one value a thread over the block (kMax: running max
+// of values >= 0, else wrapping uint32 sum); *total gets the block's
+// aggregate. Ends with a barrier, so `wsum` may be reused at once.
+template <bool kMax>
+__device__ uint32_t block_scan1(uint32_t v, uint32_t* wsum, uint32_t* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  auto comb = [](uint32_t x, uint32_t y) -> uint32_t {
+    return kMax ? (x > y ? x : y) : x + y;
+  };
+  uint32_t x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x = comb(x, y);
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t w = lane < nw ? wsum[lane] : 0u;
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w = comb(w, y);
+    }
+    wsum[lane] = w;  // inclusive over warps
+  }
+  __syncthreads();
+  const uint32_t out = warp > 0 ? comb(wsum[warp - 1], x) : x;
+  *total = wsum[nw - 1];
+  __syncthreads();
+  return out;
+}
+
+// Exclusive wrapping sum-scan of n int32 in shared memory, in place, over
+// contiguous per-thread chunks. Ends with a barrier.
+__device__ void smem_exscan(int32_t* a, int n, uint32_t* wsum) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int ipt = (n + nt - 1) / nt;
+  const int lo = min(n, tid * ipt), hi = min(n, lo + ipt);
+  uint32_t agg = 0;
+  for (int i = lo; i < hi; ++i) agg += (uint32_t)a[i];
+  uint32_t total;
+  uint32_t run = block_scan1<false>(agg, wsum, &total) - agg;
+  for (int i = lo; i < hi; ++i) {
+    const uint32_t v = (uint32_t)a[i];
+    a[i] = (int32_t)run;
+    run += v;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
+    int32_t* __restrict__ values, int32_t* __restrict__ expiry,
+    int32_t* __restrict__ hits, const int32_t* __restrict__ slots,
+    const int32_t* __restrict__ deltas, const int32_t* __restrict__ maxes,
+    const int32_t* __restrict__ windows, const int32_t* __restrict__ req_ids,
+    const uint8_t* __restrict__ fresh, const uint8_t* __restrict__ bucket,
+    int H, int scratch, int32_t now, ClusterPlan plan,
+    uint8_t* __restrict__ out_admitted, uint8_t* __restrict__ out_ok,
+    int32_t* __restrict__ out_remaining, int32_t* __restrict__ out_ttl) {
+  extern __shared__ uint64_t cl_smem[];
+  __shared__ uint32_t wsum[32];
+  __shared__ uint32_t off[kClusterMaxBlocks];  // earlier blocks' totals
+  // Read by other blocks: sh_agg (the segment-start aggregate), sh_total
+  // (a sweep's contribution total), sh_flag (a sweep's "changed").
+  __shared__ int32_t sh_agg, sh_total, sh_flag[2], sh_carry, sh_any;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.num_blocks();
+  const int b = (int)cluster.block_rank();
+  const int per = plan.per, bins = 1 << plan.width;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int lo = b * per;
+  const int mine = min(per, H - lo);  // every block owns at least one
+  const bool live = tid < mine;
+  uint64_t* keys = cl_smem;
+  int32_t* pre = reinterpret_cast<int32_t*>(keys + per);
+  int32_t* segf = pre + per;  // bits: 1 any fresh, 2 any admitted hit
+  int32_t* segw = segf + per;
+  int32_t* adm = segw + per;  // two buffers of per
+  int32_t* hist = adm + 2 * per;
+  int32_t* cnt = hist + nw * bins;
+  int32_t* tsum = cnt + bins;
+  int32_t* dbase = tsum + bins;
+  auto at = [&](auto* p, int rank) { return cluster.map_shared_rank(p, rank); };
+
+  // 1. The radix sort.
+  uint32_t slot = 0;
+  int idx = 0;
+  if (live) {
+    slot = (uint32_t)slots[lo + tid];
+    idx = lo + tid;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  for (int pass = 0; pass < plan.passes; ++pass) {
+    for (int j = tid; j < nw * bins; j += blockDim.x) hist[j] = 0;
+    __syncthreads();
+    const uint32_t d =
+        live ? (slot >> (pass * plan.width)) & (uint32_t)(bins - 1)
+             : (uint32_t)bins;
+    const unsigned peers = __match_any_sync(kFull, d);
+    const int rank = __popc(peers & below);
+    if (live && rank == 0) hist[warp * bins + d] = __popc(peers);
+    __syncthreads();
+    for (int dd = tid; dd < bins; dd += blockDim.x) {
+      int run = 0;
+      for (int w = 0; w < nw; ++w) {
+        const int c = hist[w * bins + dd];
+        hist[w * bins + dd] = run;
+        run += c;
+      }
+      cnt[dd] = run;
+    }
+    cluster.sync();  // every block's digit counts out, every key read
+    for (int dd = tid; dd < bins; dd += blockDim.x) {
+      int before = 0, total = 0;
+      for (int r = 0; r < k; ++r) {
+        const int c = *at(cnt + dd, r);
+        total += c;
+        if (r < b) before += c;
+      }
+      tsum[dd] = total;
+      dbase[dd] = before;
+    }
+    __syncthreads();
+    smem_exscan(tsum, bins, wsum);
+    for (int dd = tid; dd < bins; dd += blockDim.x) dbase[dd] += tsum[dd];
+    __syncthreads();
+    if (live) {
+      const int dest = dbase[d] + hist[warp * bins + d] + rank;
+      const int owner = dest / per;
+      *at(keys + (dest - owner * per), owner) =
+          ((uint64_t)slot << 32) | (uint32_t)idx;
+    }
+    cluster.sync();  // every key stored
+    if (live) {
+      const uint64_t key = keys[tid];
+      slot = (uint32_t)(key >> 32);
+      idx = (int)(uint32_t)key;
+    }
+  }
+
+  // 2. Segments, and the hit columns gathered in sorted order.
+  const int i = lo + tid;
+  const int32_t s = (int32_t)slot;
+  const int h = idx;
+  int mark = 0;
+  bool is_end = false;
+  if (live) {
+    const uint32_t prev =
+        tid > 0  ? (uint32_t)(keys[tid - 1] >> 32)
+        : b > 0  ? (uint32_t)(*at(keys + per - 1, b - 1) >> 32)
+                 : 0u;
+    mark = (i == 0 || slot != prev) ? i : 0;
+    if (i == H - 1) {
+      is_end = true;
+    } else {
+      const uint64_t next = tid + 1 < mine ? keys[tid + 1] : *at(keys, b + 1);
+      is_end = (uint32_t)(next >> 32) != slot;
+    }
+  }
+  uint32_t agg;
+  const int local_start = (int)block_scan1<true>((uint32_t)mark, wsum, &agg);
+  if (tid == 0) sh_agg = (int32_t)agg;
+  int32_t delta = 0, maxv = 0, win = 0, req = 0, v_raw = 0, e_raw = 0;
+  int flags = 0;  // 1 fresh, 2 bucket, 4 h_fresh, 8 expired
+  if (live) {
+    delta = deltas[h];
+    maxv = maxes[h];
+    win = windows[h];
+    req = req_ids[h];
+    flags = (fresh[h] ? 1 : 0) | (bucket[h] ? 2 : 0);
+    v_raw = values[s];
+    e_raw = expiry[s];
+    segf[tid] = 0;
+    segw[tid] = kIntMin;
+    adm[tid] = 1;
+    adm[per + tid] = 1;
+  }
+  cluster.sync();  // aggregates out, accumulators and verdicts set
+  if (warp == 0) {
+    uint32_t c = lane < b ? (uint32_t)*at(&sh_agg, lane) : 0u;
+    for (int o = 16; o > 0; o >>= 1) {
+      const uint32_t y = __shfl_xor_sync(kFull, c, o);
+      c = c > y ? c : y;
+    }
+    if (lane == 0) sh_carry = (int32_t)c;
+  }
+  __syncthreads();
+  const int start = imax(local_start, sh_carry);
+  const int st_b = start / per, st_l = start - st_b * per;
+  int32_t* st_segf = at(segf + st_l, st_b);
+  int32_t* st_segw = at(segw + st_l, st_b);
+  const int32_t* st_pre = at(pre + st_l, st_b);
+  const int rq_b = req / per;
+  int32_t* rq_adm = at(adm + (req - rq_b * per), rq_b);  // + per: buffer 1
+  if (live && (flags & 1) && !(*st_segf & 1)) atomicOr(st_segf, 1);
+
+  // 3. The fixpoint; sweep 0's first barrier also publishes the fresh
+  // flags, so the effective bases are formed after it.
+  int32_t v_eff = 0, base_rel = 0, ok = 0, contrib = 0;
+  uint32_t pre_local = 0;
+  int sweep = 0;
+  for (;; ++sweep) {
+    const int cur = sweep & 1;
+    contrib = (live && rq_adm[cur * per]) ? delta : 0;
+    uint32_t tot;
+    pre_local = block_scan1<false>((uint32_t)contrib, wsum, &tot) -
+                (uint32_t)contrib;
+    if (live) pre[tid] = (int32_t)pre_local;
+    if (tid == 0) sh_total = (int32_t)tot;
+    cluster.sync();  // totals out; the previous sweep's flags out
+    if (warp == 0) {
+      const uint32_t t = lane < k ? (uint32_t)*at(&sh_total, lane) : 0u;
+      uint32_t x = t;
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      if (lane < k) off[lane] = x - t;
+      const int f = (sweep > 0 && lane < k) ? *at(&sh_flag[cur ^ 1], lane)
+                                            : 0;
+      const bool any = __any_sync(kFull, f != 0);
+      if (lane == 0) sh_any = any;
+    }
+    __syncthreads();
+    if (sweep > 0 && (!sh_any || sweep >= H)) break;
+    if (sweep == 0 && live) {
+      // The effective base per hit: the window value, or the GCRA spent
+      // count.
+      const bool h_fresh = *st_segf & 1;
+      const bool is_bucket = flags & 2;
+      const int32_t e_eff = h_fresh ? wadd(win, now) : e_raw;
+      const bool expired = e_eff <= now;
+      const int32_t v_window = (expired || h_fresh) ? 0 : v_raw;
+      const int32_t tat_eff = h_fresh ? 0 : e_raw;
+      base_rel = imax(wsub(tat_eff, now), 0);
+      const int32_t ival = imax(win, 1);
+      const int32_t tau = wmul(wsub(maxv, 1), is_bucket ? win : 0);
+      const int32_t spent =
+          wsub(maxv, wadd(floordiv(wsub(tau, base_rel), ival), 1));
+      v_eff = is_bucket ? spent : v_window;
+      flags |= (h_fresh ? 4 : 0) | (expired ? 8 : 0);
+    }
+    if (live) {
+      const int32_t pending = wsub((int32_t)(off[b] + pre_local),
+                                   (int32_t)(off[st_b] + (uint32_t)*st_pre));
+      ok = wadd(wadd(v_eff, pending), delta) <= maxv;
+      if (!ok) rq_adm[(cur ^ 1) * per] = 0;
+    }
+    cluster.sync();  // every vote stored
+    int changed = 0;
+    if (live) {
+      changed = adm[(cur ^ 1) * per + tid] != adm[cur * per + tid];
+      adm[cur * per + tid] = 1;  // the next sweep's vote buffer
+    }
+    changed = __syncthreads_or(changed);
+    if (tid == 0) sh_flag[cur] = changed;
+  }
+
+  // 4. Outputs under the final decisions (buffer `fin`), whose scan the
+  // last pass of the loop made.
+  const int fin = sweep & 1;
+  if (live) {
+    const bool is_bucket = flags & 2, h_fresh = flags & 4,
+               expired = flags & 8;
+    const int32_t pending = wsub((int32_t)(off[b] + pre_local),
+                                 (int32_t)(off[st_b] + (uint32_t)*st_pre));
+    pre_local = (uint32_t)pending;  // kept for the segment's write
+    const int32_t used = wadd(wadd(v_eff, pending), delta);
+    out_admitted[i] = (uint8_t)adm[fin * per + tid];
+    out_ok[h] = (uint8_t)ok;
+    out_remaining[h] = imax(wsub(maxv, used), 0);
+    const bool reset_before = expired && pending > 0;
+    const int32_t ttl_window = (reset_before || h_fresh)
+                                   ? win
+                                   : imax(wsub(e_raw, now), 0);
+    out_ttl[h] =
+        is_bucket ? wadd(base_rel, wmul(pending, win)) : ttl_window;
+    const bool adm_hit = rq_adm[fin * per] != 0;
+    if (adm_hit && !(*st_segf & 2)) atomicOr(st_segf, 2);
+    const int32_t w = (adm_hit || (flags & 1)) ? win : 0;
+    if (w > *st_segw) atomicMax(st_segw, w);
+  }
+  cluster.sync();  // segment aggregates complete
+  if (live && is_end && s != scratch) {
+    const bool is_bucket = flags & 2, h_fresh = flags & 4;
+    const int32_t seg_flags = *st_segf;
+    const bool h_adm = seg_flags & 2;
+    const int32_t h_total = wadd((int32_t)pre_local, contrib);
+    const bool starts_fresh = e_raw <= now || h_fresh;
+    if (h_adm || h_fresh) {
+      values[s] = is_bucket ? 0 : wadd(starts_fresh ? 0 : v_raw, h_total);
+    }
+    const bool reset = is_bucket ? (h_adm || h_fresh)
+                                 : ((h_adm && starts_fresh) || h_fresh);
+    if (reset) {
+      const int32_t tat_base = imax(h_fresh ? 0 : e_raw, now);
+      expiry[s] = is_bucket ? wadd(tat_base, wmul(h_total, win))
+                            : wadd(*st_segw, now);
+    }
+    const int32_t base_hits = h_fresh ? 0 : hits[s];
+    hits[s] = wadd(base_hits, i - start + 1);
+  }
+  cluster.sync();  // no block leaves while another reads its memory
+  if (b == 0 && tid == 0) {
     values[scratch] = 0;
     expiry[scratch] = 0;
     hits[scratch] = 0;
@@ -1098,6 +1493,85 @@ int launch_check(void* values, void* expiry, void* hits,
   return (int)cudaGetLastError();
 }
 
+// Whether the card places a cluster of `blocks` blocks of check_cluster_kernel
+// at the largest block it may launch at that size (1024 threads and
+// kClusterSmemMax bytes, one block to an SM): cudaOccupancyMaxActiveClusters,
+// asked once per card and size. 1 yes, 0 no, a negative CUDA error.
+int cluster_room(int blocks) {
+  constexpr int kDevices = 64;
+  static int room[kDevices][kClusterMaxBlocks + 1];  // 0 unknown, 1 yes, 2 no
+  int device = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc != cudaSuccess) return -(int)rc;
+  int* known = device < kDevices ? &room[device][blocks] : nullptr;
+  if (known && *known) return *known == 1;
+  rc = cudaFuncSetAttribute(check_cluster_kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            (int)kClusterSmemMax);
+  if (rc == cudaSuccess) {
+    rc = cudaFuncSetAttribute(check_cluster_kernel,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
+  }
+  if (rc != cudaSuccess) return -(int)rc;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = blocks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kClusterSmemMax;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  rc = cudaOccupancyMaxActiveClusters(&clusters, check_cluster_kernel, &cfg);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)rc;
+  }
+  if (known) *known = clusters > 0 ? 1 : 2;
+  return clusters > 0;
+}
+
+// B1 on a cluster of ceil(H / 1024) blocks, H <= kClusterMaxHits. A cluster
+// the card cannot place is refused (cudaErrorInvalidClusterSize) before
+// any launch; so is one the launch itself refuses.
+int launch_check_cluster(void* values, void* expiry, void* hits,
+                         const void* slots, const void* deltas,
+                         const void* maxes, const void* windows,
+                         const void* req_ids, const void* fresh,
+                         const void* bucket, int H, int scratch, int now_ms,
+                         void* out_admitted, void* out_ok,
+                         void* out_remaining, void* out_ttl, void* stream) {
+  if (H < 1 || H > kClusterMaxHits) return (int)cudaErrorInvalidValue;
+  const ClusterPlan p = cluster_plan(H, scratch);
+  const int room = cluster_room(p.blocks);
+  if (room < 0) return -room;
+  if (room == 0) return (int)cudaErrorInvalidClusterSize;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.blocks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(p.blocks);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = cluster_smem(p);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, check_cluster_kernel, (int32_t*)values, (int32_t*)expiry,
+      (int32_t*)hits, (const int32_t*)slots, (const int32_t*)deltas,
+      (const int32_t*)maxes, (const int32_t*)windows,
+      (const int32_t*)req_ids, (const uint8_t*)fresh, (const uint8_t*)bucket,
+      H, scratch, (int32_t)now_ms, p, (uint8_t*)out_admitted,
+      (uint8_t*)out_ok, (int32_t*)out_remaining, (int32_t*)out_ttl);
+  return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
 // B7a's workspace: n rows of B1's workspace, then global_vals[G], then
 // the coupled admitted[n*H], vote[n*H] and two changed flags.
 size_t sharded_ws_row(int H) { return workspace_bytes(H, kCheckArrays); }
@@ -1202,7 +1676,8 @@ int launch_update(void* values, void* expiry, void* hits,
 }
 
 // ---------------------------------------------------------------------------
-// Host lists by value: B7b, B4d, B3a and B6c from the storages' own lists.
+// Host lists by value: B7b, B4d, B3a, B6c and B3b from the storages' own
+// lists.
 //
 // The storages decide clears, promotion seeds, reads and remote shares on
 // the host, a few cells at a time. Staged as device tensors (a pinned buffer, an H2D copy and
@@ -1456,6 +1931,24 @@ int ct_check_and_update(void* values, void* expiry, void* hits,
                              deltas, maxes, windows, req_ids, fresh, bucket,
                              H, scratch, now_ms, workspace, out_admitted,
                              out_ok, out_remaining, out_ttl, stream);
+}
+
+// B1 on a thread-block cluster (check_cluster_kernel), 1 <= H <=
+// kClusterMaxHits (the wrapper routes 1024 <= H <= 16,384 here): the same
+// arguments as ct_check_and_update but the workspace, which it does not
+// need.
+int ct_check_and_update_cluster(void* values, void* expiry, void* hits,
+                                const void* slots, const void* deltas,
+                                const void* maxes, const void* windows,
+                                const void* req_ids, const void* fresh,
+                                const void* bucket, int H, int scratch,
+                                int now_ms, void* out_admitted, void* out_ok,
+                                void* out_remaining, void* out_ttl,
+                                void* stream) {
+  return launch_check_cluster(values, expiry, hits, slots, deltas, maxes,
+                              windows, req_ids, fresh, bucket, H, scratch,
+                              now_ms, out_admitted, out_ok, out_remaining,
+                              out_ttl, stream);
 }
 
 // B6a (_replicated_check, tpu/replicated.py:55-93): B1 over the merged
@@ -1737,11 +2230,13 @@ void ct_ctx_destroy(void* ctx) {
 }
 
 // Entries one launch carries: 0 all-rows slots, 1 (row, slot) pairs,
-// 2 seed rows, 3 slots read (B3a), 4 remote-share rows (B6c).
+// 2 seed rows, 3 slots read (B3a), 4 remote-share rows (B6c), 5 slots
+// cleared (B3b).
 int ct_host_list_capacity(int kind) {
   switch (kind) {
     case 0:
     case 3:
+    case 5:
       return kListInts;
     case 1:
       return kListInts / 2;
@@ -1901,6 +2396,16 @@ int ct_sharded_clear_host(void* ctx, const int32_t* entries, int count,
     if (rc != 0) return rc;
   }
   return 0;
+}
+
+// B3b from a host list: zero value, expiry and hits at the n slots of a
+// single table (duplicates and the scratch slot write the same zeros),
+// through clear_list_kernel's all-rows form on the one-row context: the
+// writes of clear_slots_kernel; chunks of one parameter block.
+int ct_clear_slots_host(void* ctx, const int32_t* slots, int n) {
+  const Ctx* c = (const Ctx*)ctx;
+  if (!c || c->rows != 1 || n < 0) return (int)cudaErrorInvalidValue;
+  return ct_sharded_clear_host(ctx, slots, n, 1);
 }
 
 // B4d from host lists of n rows (unpadded; `padded` says the JAX call's

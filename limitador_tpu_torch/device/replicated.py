@@ -221,12 +221,15 @@ class TorchReplicatedStorage(TorchStorage):
         return slot, fresh
 
     def _clear_adopted_slot(self, slot: int) -> None:
-        """Zero a freshly allocated slot's local device cell (B3b).
+        """Owe a freshly allocated slot's local device cell a clear (B3b).
         Adoption paths (gossip or re-sync for a counter this node never
         served) allocate without a following kernel batch, so the
-        kernel's fresh-flag override never cleans a recycled slot. Caller
-        holds the lock."""
-        self._clear([slot])
+        kernel's fresh-flag override never cleans a recycled slot. The
+        JAX node clears each at once; here the clear is staged
+        (``_stage_clear``), and a merge that adopts a thousand counters
+        reaches the card as one B3b host-form call before the table's
+        next access. Caller holds the lock."""
+        self._stage_clear(slot)
 
     def _queue_remote_sum(
         self, key: bytes, slot: int, counter: Optional[Counter] = None

@@ -283,7 +283,7 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
         are launched: every device access of this storage comes here
         first, so no launch or read sees a cell a clear is owed to."""
         self._flush_clears()
-        return TorchStorage._on_device(self)
+        return TorchStorage._stream_scope(self)
 
     def _flush_clears(self) -> None:
         """Launch the staged clears as one B7b from the host list (more

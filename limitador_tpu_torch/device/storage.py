@@ -543,6 +543,10 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         self._capacity = int(capacity)
         self._cache_size = int(cache_size) if cache_size else self._capacity
         self._table = _SlotTable(self._capacity)
+        # Cells owed a clear (slot -> None, in staging order), launched as
+        # one B3b host-form call before the table's next access
+        # (_flush_clears).
+        self._staged_clears: Dict[int, None] = {}
         with self._on_device():
             self._state = K.make_table(self._capacity, self._device)
         self._epoch = clock()  # device time 0 in host seconds
@@ -576,8 +580,18 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
             old.close()
 
     def _on_device(self):
-        """Context for every device operation: the storage's device and
-        stream on the card, nothing on the CPU."""
+        """Context for every device access of the table: the storage's
+        device and stream on the card, nothing on the CPU. The staged
+        clears launch first (``_flush_clears``), so that no launch, copy
+        or read inside sees a cell a clear is owed to. Caller holds the
+        lock."""
+        self._flush_clears()
+        return self._stream_scope()
+
+    def _stream_scope(self):
+        """The storage's device and stream on the card, nothing on the
+        CPU; no flush: for work that reads no cell of the table (a
+        launch's results)."""
         if not self._cuda:
             return contextlib.nullcontext()
         stack = contextlib.ExitStack()
@@ -1023,7 +1037,7 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         admitted, hit_ok = (t.numpy() for t in handle.host)
         if not with_remaining:
             return admitted, hit_ok, None, None
-        with self._on_device():
+        with self._stream_scope():
             remaining, ttl_ms = self._download(
                 handle.remaining, handle.ttl_ms
             )
@@ -1093,6 +1107,7 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         n = len(slots)
         if n == 0:
             return
+        self._flush_clears()
         K.seed_slots_host(
             self._ctx, np.asarray(slots, np.int32),
             np.asarray(values, np.int32),
@@ -1104,8 +1119,10 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
     def _read(self, slots: Sequence[int], now_ms: int):
         """(values, ttl_ms) host arrays for ``slots``: B3a's host form
         through the bound context (one C call, one launch per parameter
-        block, no upload, no tensor), answered after every launch queued
-        before it on the storage stream. Caller holds the lock."""
+        block, no upload, no tensor), answered after the staged clears
+        and every launch queued before it on the storage stream. Caller
+        holds the lock."""
+        self._flush_clears()
         return K.read_slots_host(self._ctx, np.asarray(slots, np.int32),
                                  now_ms)
 
@@ -1137,10 +1154,31 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         return value + delta <= counter.max_value
 
     def _clear(self, slots: Sequence[int]) -> None:
-        """One clear_slots launch. Caller holds the lock."""
-        with self._on_device():
-            (d_slots,) = self._upload(np.asarray(slots, np.int32))
-            K.clear_slots(self._state, d_slots)
+        """Zero the cells of ``slots`` now, with any staged clears: one
+        B3b host-form call (``_flush_clears``). Caller holds the lock."""
+        self._staged_clears.update(dict.fromkeys(map(int, slots)))
+        self._flush_clears()
+
+    def _stage_clear(self, slot: int) -> None:
+        """Owe the cell of ``slot`` a clear, launched with every other
+        staged clear before the table's next access: each device access
+        of the table enters ``_on_device``, ``_read`` or
+        ``seed_slot_values``, which flush first. Clears commute and are
+        idempotent, so every launch and read sees the cells that clearing
+        at once would leave, a slot recycled while staged included.
+        Caller holds the lock."""
+        self._staged_clears[slot] = None
+
+    def _flush_clears(self) -> None:
+        """Launch the staged clears: B3b's host form over the list (the
+        kernel's parameter block through the bound context; one launch
+        per 8,000 slots), no upload, no tensor. Caller holds the lock."""
+        staged = self._staged_clears
+        if not staged:
+            return
+        K.clear_slots_host(self._ctx,
+                           np.fromiter(staged, np.int32, len(staged)))
+        self._staged_clears = {}
 
     def add_counter(self, limit: Limit) -> None:
         if not limit.variables:

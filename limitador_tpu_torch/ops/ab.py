@@ -7,7 +7,9 @@ libraries and modules share names) that builds its kernels, checks them
 against their plain versions, and prints median times (CUDA events, 50
 calls after 5 of warm-up), the inputs made from one numpy seed:
 
-- B1 and B6a at H = 8192 hits over a 1<<20-counter table (the call);
+- B1 at H = 8192 and 16,384 hits over a 1<<20-counter table (the call,
+  through each tree's own route: the thread-block cluster where the tree
+  has it, else the one-block kernel) and B6a at 8192;
 - B7b over an [8, 1<<17 + 1] table: the device-tensor call at [8, 64]
   (``b7b_call_ms``), the same list from a numpy array to the launched
   kernel (``b7b_path_ms``) and one evicted global slot on every row
@@ -19,11 +21,16 @@ calls after 5 of warm-up), the inputs made from one numpy seed:
   slot from a Python list to the numpy answers (``b3a_path_ms``);
 - B6c through the tree's own ``TorchReplicatedStorage._flush_dirty_remote``
   on the card: a dirty map of 12,288 rows to the launched kernel
-  (``b6c_path_ms``).
+  (``b6c_path_ms``);
+- B3b through the tree's own ``TorchReplicatedStorage`` on the card: a
+  gossip merge that adopts 1,000 new keys into recycled slots (each
+  adoption's clear launched at once, or staged), then one read of the
+  table, which follows every clear (``b3b_path_ms``).
 
-The two storage paths are timed on the host clock (``perf_counter_ns``,
-median of 500 and 200 calls, the card idle before each): B3a's path ends
-with the answers on the host, B6c's once the kernel is queued.
+The three storage paths are timed on the host clock (``perf_counter_ns``,
+median of 500, 200 and 20 calls, the card idle before each): B3a's path
+ends with the answers on the host, B6c's once the kernel is queued,
+B3b's with the read's answers.
 
 A "path" time is the tree's own main path from the host list: the host
 form (the list in the kernel's parameter block) where the tree has it,
@@ -93,13 +100,23 @@ def pinned(*arrays):
             for a in arrays]
 
 
+H2 = 16384
+slots2 = np.searchsorted(np.cumsum(w), rng.random(H2) * w.sum())
+args2 = [torch.from_numpy(a).to(dev) for a in (
+    slots2.astype(np.int32), rng.integers(0, 3, H2).astype(np.int32),
+    rng.choice([1, 10, 100], H2).astype(np.int32),
+    np.full(H2, 60_000, np.int32), np.arange(H2, dtype=np.int32),
+    rng.random(H2) < 0.1, np.zeros(H2, bool))]
 b1 = lambda t: K.check_and_update_batch(t, *args, now)
+b1_big = lambda t: K.check_and_update_batch(t, *args2, now)
 b6a = lambda t: K.replicated_check_batch(t, *remote, *args, now)
-ta, tb = table(), table()
-_, ra = K.check_and_update_batch(ta, *args, now)
-rb = K.check_and_update_plain(tb, *args, now)
-exact = all(torch.equal(x, y) for x, y in zip(list(ra) + list(ta),
-                                              list(rb) + list(tb)))
+exact = True
+for cols_ in (args, args2):
+    ta, tb = table(), table()
+    _, ra = K.check_and_update_batch(ta, *cols_, now)
+    rb = K.check_and_update_plain(tb, *cols_, now)
+    exact = exact and all(torch.equal(x, y) for x, y in zip(
+        list(ra) + list(ta), list(rb) + list(tb)))
 ta, tb = table(), table()
 _, ra = K.replicated_check_batch(ta, *remote, *args, now)
 rb = K.replicated_check_plain(tb, *remote, *args, now)
@@ -148,7 +165,9 @@ def parent_seed(t):
 d_rows = torch.from_numpy(rows).to(dev)
 d_seed = pinned(*(np.concatenate([a, np.full(7, f, np.int32)])
                   for a, f in zip(seed, (C, 0, 0))))
-times = {"b1_ms": median_ms(b1), "b6a_ms": median_ms(b6a),
+times = {"b1_ms": median_ms(b1), "b1_16384_ms": median_ms(b1_big),
+         "b1_route": getattr(K, "check_route", lambda H: "block")(H),
+         "b6a_ms": median_ms(b6a),
          "b7b_call_ms": median_ms(lambda t: M.sharded_clear_cells(t, d_rows),
                                   stable),
          "b4d_call_ms": median_ms(lambda t: K.seed_slots(t, *d_seed))}
@@ -235,6 +254,29 @@ with node._lock:
         for lane, col in zip((node._remote_vals, node._remote_exp),
                              zip(*dirty.values())))
     times["b6c_path_ms"] = host_ms(node._flush_dirty_remote, refill, reps=200)
+node.close()
+
+# B3b: a merge adopting 1,000 new keys into recycled slots, then a read
+from limitador_tpu_torch import Counter, Limit, RateLimiter
+from limitador_tpu_torch.storage.keys import key_for_counter
+
+node = TorchReplicatedStorage("ab", capacity=C, cache_size=1000, device=dev)
+limit = Limit("ab", 50, 60, [], ["u"])
+RateLimiter(node).add_limit(limit)
+merges = iter(range(1 << 30))
+
+
+def merge():
+    m = next(merges)
+    expires = int(time.time() * 1000) + 60_000
+    for i in range(1000):
+        key = key_for_counter(Counter(limit, {"u": f"{m}-{i}"}))
+        node._on_remote_update(key, {"peer": 3}, expires)
+    with node._lock:
+        node._read([0], node._now_ms())
+
+
+times["b3b_path_ms"] = host_ms(merge, reps=20, warmup=2)
 node.close()
 store.close()
 print(json.dumps({"tree": sys.argv[1], "host_forms": host, "exact": exact,

@@ -43,6 +43,9 @@ _SIGNATURES = {
     "ct_check_and_update": (
         _I, [_P] * 10 + [_I, _I, _I] + [_P] * 6,
     ),
+    "ct_check_and_update_cluster": (
+        _I, [_P] * 10 + [_I, _I, _I] + [_P] * 5,
+    ),
     "ct_update": (_I, [_P] * 8 + [_I, _I, _I] + [_P] * 2),
     "ct_check_and_update_replicated": (
         _I, [_P] * 12 + [_I, _I, _I] + [_P] * 6,
@@ -78,6 +81,7 @@ _SIGNATURES = {
     "ct_read_slots_host": (_I, [_P, _P, _I, _I]),
     "ct_apply_remote_host": (_I, [_P] * 4 + [_I]),
     "ct_apply_remote_staged": (_I, [_P] * 4 + [_I]),
+    "ct_clear_slots_host": (_I, [_P, _P, _I]),
 }
 
 #: what the last build or load did: path, seconds, ptxas resource lines

@@ -25,13 +25,22 @@ Each kernel has three parts here:
 - ``launches[name]``: a plain integer, incremented by the wrapper each time
   it launches its CUDA kernel (never by the plain version).
 
-Four kernels also take host lists through a ``TableContext`` bound once
+Five kernels also take host lists through a ``TableContext`` bound once
 per table (their "host forms", the storages' main path): B4d
 ``seed_slots_host``, B7b ``sharded_clear_cells_host`` (in
-``parallel/mesh.py``), B3a ``read_slots_host`` and B6c
-``apply_remote_host``. B3a's and B6c's host forms count their launches
-under keys of their own (``read_slots_host``, ``apply_remote_host``), so a
-run shows which form its path took.
+``parallel/mesh.py``), B3a ``read_slots_host``, B6c ``apply_remote_host``
+and B3b ``clear_slots_host``. B3a's, B6c's and B3b's host forms count
+their launches under keys of their own (``read_slots_host``,
+``apply_remote_host``, ``clear_slots_host``), so a run shows which form
+its path took.
+
+B1 has two CUDA kernels, chosen by the batch's hit count H alone
+(``check_route``): a thread-block cluster (``check_cluster_kernel``,
+launches counted as ``check_and_update_cluster``) for ``CLUSTER_MIN_HITS
+<= H <= CLUSTER_MAX_HITS`` (1,024 to 16,384: the drives' 8192-hit
+batches), and the one-block ``check_kernel`` (``check_and_update``)
+elsewhere (the served paths' small batches, and batches past the
+cluster's capacity).
 
 The JAX programs donate the table (``donate_argnums=(0,)``) and return a
 new state. Here every function that writes the table updates its tensors
@@ -47,7 +56,7 @@ int64 and stop wrapping where XLA wraps.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +69,9 @@ __all__ = [
     "make_table",
     "check_and_update_batch",
     "check_and_update_plain",
+    "check_route",
+    "CLUSTER_MIN_HITS",
+    "CLUSTER_MAX_HITS",
     "update_batch",
     "update_plain",
     "read_slots",
@@ -68,6 +80,8 @@ __all__ = [
     "read_slots_host_plain",
     "clear_slots",
     "clear_slots_plain",
+    "clear_slots_host",
+    "clear_slots_host_plain",
     "rebase_epoch_chunked",
     "rebase_expiry_plain",
     "rebase_epoch",
@@ -103,14 +117,24 @@ MAX_DELTA_CAP = (1 << 30) - 1
 WINDOW_MS_CAP = (1 << 31) - 1 - (1 << 30) - 1
 _NEVER = (1 << 31) - 1
 _I32 = torch.int32
+#: B1's cluster route takes batches of CLUSTER_MIN_HITS to CLUSTER_MAX_HITS
+#: hits: one block of the cluster per 1024 hits, up to the 16 blocks of
+#: the H100's largest cluster (kClusterMaxHits in csrc/counter_table.cu).
+#: Below 1024 hits the cluster is one block whose radix sort costs more
+#: than the one-block kernel's bitonic sort: that kernel measured faster
+#: there (PERF.md §6).
+CLUSTER_MIN_HITS = 1024
+CLUSTER_MAX_HITS = 16 * 1024
 
 #: kernel name -> number of CUDA launches made by its wrapper
 launches = {
-    "check_and_update": 0,
+    "check_and_update": 0,  # B1, one block (check_kernel)
+    "check_and_update_cluster": 0,  # B1, a cluster (check_cluster_kernel)
     "update": 0,
     "read_slots": 0,
     "read_slots_host": 0,  # B3a's host form
     "clear_slots": 0,
+    "clear_slots_host": 0,  # B3b's host form
     "rebase_epoch": 0,  # B4a, rebase_epoch_chunked
     "rebase_epoch_device": 0,  # B4b, rebase_epoch
     "credit": 0,
@@ -195,7 +219,8 @@ def _require_host(a: np.ndarray, name: str, n: int) -> None:
 class TableContext:
     """A table bound once for the host-list launches (the host forms of
     B4d, ``seed_slots_host``, of B7b, ``sharded_clear_cells_host``, of
-    B3a, ``read_slots_host``, and of B6c, ``apply_remote_host``).
+    B3a, ``read_slots_host``, of B6c, ``apply_remote_host``, and of B3b,
+    ``clear_slots_host``).
 
     On the card the three columns are checked here, once, and bound with
     the stream (the storage's own) in a C context, ``ct_ctx_create``; a
@@ -210,8 +235,8 @@ class TableContext:
     the answer buffer."""
 
     __slots__ = ("state", "cuda", "handle", "capacity", "clear_fn",
-                 "seed_fn", "read_fn", "remote_fn", "staged_fn", "results",
-                 "_results_fn", "_destroy")
+                 "seed_fn", "read_fn", "remote_fn", "staged_fn",
+                 "clear_slots_fn", "results", "_results_fn", "_destroy")
     _NO_RESULTS = np.zeros((0, 2), np.int32)
 
     def __init__(self, state, stream=None):
@@ -247,10 +272,11 @@ class TableContext:
         self.read_fn = lib.ct_read_slots_host
         self.remote_fn = lib.ct_apply_remote_host
         self.staged_fn = lib.ct_apply_remote_staged
+        self.clear_slots_fn = lib.ct_clear_slots_host
         self._results_fn = lib.ct_ctx_results
         #: entries one launch carries: all-rows slots, pairs, seed rows,
-        #: slots read (B3a), remote-share rows (B6c)
-        self.capacity = tuple(lib.ct_host_list_capacity(k) for k in range(5))
+        #: slots read (B3a), remote-share rows (B6c), slots cleared (B3b)
+        self.capacity = tuple(lib.ct_host_list_capacity(k) for k in range(6))
 
     def reserve(self, n: int) -> np.ndarray:
         """Grow B3a's answer buffer to at least ``n`` (value, ttl) pairs
@@ -497,6 +523,16 @@ def check_and_update_plain(
     return _check_finish(plan, admitted, ok_sorted)
 
 
+def check_route(H: int) -> str:
+    """B1's CUDA kernel for a batch of H hits: "cluster" (the
+    thread-block cluster, ``check_cluster_kernel``) for ``CLUSTER_MIN_HITS
+    <= H <= CLUSTER_MAX_HITS``, else "block" (the one-block
+    ``check_kernel``). A rule on H alone: both kernels compute the same
+    function."""
+    return "cluster" if CLUSTER_MIN_HITS <= H <= CLUSTER_MAX_HITS \
+        else "block"
+
+
 def check_and_update_batch(
     state: CounterTableState,
     slots: torch.Tensor,       # int32[H] slot per hit (C for padding)
@@ -507,10 +543,15 @@ def check_and_update_batch(
     fresh: torch.Tensor,       # bool[H] slot newly allocated/recycled
     bucket: torch.Tensor,      # bool[H] GCRA token-bucket hit
     now_ms: int,
+    route: Optional[str] = None,
 ) -> Tuple[CounterTableState, BatchResult]:
     """One fused check-all-then-update-all over a batch of requests (the
     JAX ``check_and_update_batch``). Padding hits use slot C, delta 0,
-    max INT32_MAX, fresh and bucket False. Updates ``state`` in place."""
+    max INT32_MAX, fresh and bucket False. Updates ``state`` in place.
+    On the card ``route`` picks the kernel: None takes ``check_route(H)``;
+    "block" or "cluster" forces one (the kernels' checks and timings
+    compare both); a cluster past ``CLUSTER_MAX_HITS`` or one the card
+    cannot place raises."""
     if not _on_cuda(state.values):
         return state, check_and_update_plain(
             state, slots, deltas, maxes, windows_ms, req_ids, fresh, bucket,
@@ -526,23 +567,33 @@ def check_and_update_batch(
     _require(bucket, "bucket", torch.bool, H, dev)
     if H < 1:
         raise ValueError("check_and_update_batch needs at least one hit")
+    route = check_route(H) if route is None else route
+    if route not in ("block", "cluster"):
+        raise ValueError(f"check_and_update_batch: no route {route!r}")
     lib = build.library()
-    workspace = torch.empty(
-        lib.ct_check_workspace_bytes(H), dtype=torch.uint8, device=dev
-    )
     result = BatchResult(
         torch.empty(H, dtype=torch.bool, device=dev),
         torch.empty(H, dtype=torch.bool, device=dev),
         torch.empty(H, dtype=_I32, device=dev),
         torch.empty(H, dtype=_I32, device=dev),
     )
+    table = [t.data_ptr() for t in state]
+    hits = [t.data_ptr() for t in (slots, deltas, maxes, windows_ms, req_ids,
+                                   fresh, bucket)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "cluster":
+        build.check(lib.ct_check_and_update_cluster(
+            *table, *hits, H, state.values.shape[0] - 1, _now(now_ms),
+            *(t.data_ptr() for t in result), stream,
+        ), "ct_check_and_update_cluster")
+        launches["check_and_update_cluster"] += 1
+        return state, result
+    workspace = torch.empty(
+        lib.ct_check_workspace_bytes(H), dtype=torch.uint8, device=dev
+    )
     build.check(lib.ct_check_and_update(
-        *(t.data_ptr() for t in state),
-        *(t.data_ptr() for t in (slots, deltas, maxes, windows_ms, req_ids,
-                                 fresh, bucket)),
-        H, state.values.shape[0] - 1, _now(now_ms), workspace.data_ptr(),
-        *(t.data_ptr() for t in result),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *table, *hits, H, state.values.shape[0] - 1, _now(now_ms),
+        workspace.data_ptr(), *(t.data_ptr() for t in result), stream,
     ), "ct_check_and_update")
     launches["check_and_update"] += 1
     return state, result
@@ -742,7 +793,9 @@ def clear_slots_plain(state: CounterTableState, slots) -> CounterTableState:
 def clear_slots(
     state: CounterTableState, slots: torch.Tensor
 ) -> CounterTableState:
-    """Zero value, expiry and hits at ``slots`` (in place)."""
+    """Zero value, expiry and hits at ``slots`` (in place). The storages
+    clear through ``clear_slots_host``; this device-tensor form is the
+    JAX-shaped call."""
     if not _on_cuda(state.values):
         return clear_slots_plain(state, slots)
     n = slots.shape[0]
@@ -757,6 +810,37 @@ def clear_slots(
     ), "ct_clear_slots")
     launches["clear_slots"] += 1
     return state
+
+
+def clear_slots_host_plain(state: CounterTableState,
+                           slots: np.ndarray) -> CounterTableState:
+    """Plain twin of ``clear_slots_host``: ``clear_slots_plain`` on the
+    list, in place."""
+    return clear_slots_plain(
+        state, torch.from_numpy(slots).to(state.values.device))
+
+
+def clear_slots_host(ctx: TableContext,
+                     slots: np.ndarray) -> CounterTableState:
+    """``clear_slots`` from a host list (numpy int32[n]; duplicates and
+    the scratch slot allowed: they write the same zeros) on
+    ``ctx.state``, in place. On the card the list rides in the kernel's
+    parameter block (``ct_clear_slots_host``, one launch per block of
+    ``ctx.capacity[5]`` slots, in order on the context's stream): no
+    upload, no tensor."""
+    if not ctx.cuda:
+        return clear_slots_host_plain(ctx.state, slots)
+    n = slots.shape[0]
+    _require_host(slots, "slots", n)
+    if not ctx.handle:
+        raise RuntimeError("clear_slots_host: the launch context is closed")
+    if n == 0:
+        return ctx.state
+    rc = ctx.clear_slots_fn(ctx.handle, slots.tobytes(), n)
+    if rc:
+        build.check(rc, "ct_clear_slots_host")
+    launches["clear_slots_host"] += -(-n // ctx.capacity[5])
+    return ctx.state
 
 
 # -- B4a: epoch rebase -------------------------------------------------------

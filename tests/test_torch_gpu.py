@@ -22,8 +22,10 @@ from limitador_tpu_torch.parallel import mesh as M
 
 from .torch_batches import (
     C,
+    CHECK_KINDS,
     NEVER,
     batch,
+    check_case,
     credit_batch,
     dirty_scratch,
     hits_column,
@@ -66,16 +68,74 @@ def test_check_and_update_kernel_matches_plain(cuda, H):
     slot_lanes = lanes(rng, n_slots)
     tab = table(rng, now_ms, slot_lanes)
     ka, pb = _state(tab, cuda), _state(tab, cuda)
+    # the route by H: the cluster from 1,024 to 16,384 hits, else one block
+    key = ("check_and_update_cluster" if K.check_route(H) == "cluster"
+           else "check_and_update")
     for _round in range(3):
         arrays = tuple(torch.from_numpy(a).to(cuda)
                        for a in batch(rng, H, slot_lanes, n_slots))
-        before = K.launches["check_and_update"]
+        before = K.launches[key]
         _, got = K.check_and_update_batch(ka, *arrays, now_ms)
-        assert K.launches["check_and_update"] == before + 1
+        assert K.launches[key] == before + 1
         want = K.check_and_update_plain(pb, *arrays, now_ms)
         _equal(got, want)
         _equal(ka, pb)
         now_ms += 700
+
+
+@pytest.mark.parametrize("kind", CHECK_KINDS)
+@pytest.mark.parametrize("H", [1, 8, 1000, 1024, 8192, 16383, 16384, 16385])
+def test_check_cluster_kernel_matches_plain(cuda, H, kind):
+    """B1's two kernels (the cluster and the one block) against the plain
+    version on the same batches: every output and the final table, two
+    rounds on one table. The cluster route stops at 16,384 hits (one
+    block of the largest cluster per 1024): past it the wrapper takes the
+    one-block kernel, and forcing the cluster raises."""
+    rng = np.random.default_rng(7000 + H + 13 * CHECK_KINDS.index(kind))
+    now_ms = 5_000_000
+    tab, arrays = check_case(rng, H, kind, now_ms)
+    routes = ("cluster", "block") if H <= K.CLUSTER_MAX_HITS else ("block",)
+    states = {route: _state(tab, cuda) for route in routes}
+    want_state = _state(tab, cuda)
+    for _round in range(2):
+        dev_arrays = tuple(torch.from_numpy(a).to(cuda) for a in arrays)
+        want = K.check_and_update_plain(want_state, *dev_arrays, now_ms)
+        for route in routes:
+            key = ("check_and_update_cluster" if route == "cluster"
+                   else "check_and_update")
+            before = K.launches[key]
+            _, got = K.check_and_update_batch(states[route], *dev_arrays,
+                                              now_ms, route=route)
+            assert K.launches[key] == before + 1
+            _equal(got, want)
+            _equal(states[route], want_state)
+        now_ms += 700
+    if H > K.CLUSTER_MAX_HITS:
+        with pytest.raises(RuntimeError):
+            K.check_and_update_batch(states["block"], *dev_arrays, now_ms,
+                                     route="cluster")
+
+
+@pytest.mark.parametrize("n", [1, 8, 1000, 8001, 20000])
+def test_clear_slots_host_form_matches_plain(cuda, n):
+    """B3b's host form: the list by value (duplicates, the scratch slot,
+    lists past one parameter block), one launch per block, equal to the
+    plain version; an empty list launches nothing."""
+    rng = np.random.default_rng(900 + n)
+    tab = table(rng, 1_000_000, {})
+    slots = rng.integers(0, C + 1, n).astype(np.int32)
+    slots[0] = C
+    ka, pb = _state(tab, cuda), _state(tab, cuda)
+    ctx = K.TableContext(ka)
+    before = dict(K.launches)
+    K.clear_slots_host(ctx, slots)
+    K.clear_slots_host(ctx, np.zeros(0, np.int32))
+    assert K.launches["clear_slots_host"] == \
+        before["clear_slots_host"] + -(-n // ctx.capacity[5])
+    assert K.launches["clear_slots"] == before["clear_slots"]
+    K.clear_slots_plain(pb, torch.from_numpy(slots).to(cuda))
+    _equal(ka, pb)
+    ctx.close()
 
 
 @pytest.mark.parametrize("H", [8, 1024, 20000])
@@ -202,17 +262,19 @@ def _native(dev, hot):
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_native_pipeline_on_the_card_decides_like_the_cpu(cuda, seed, hot):
     """The fuzz corpus through the native pipeline over the card's table
-    (B1 on the card) and over the CPU's (B1's plain version): every row,
-    with several chunks in flight, and the final tables."""
+    (B1 on the card, by the route of each chunk's hit count) and over
+    the CPU's (B1's plain version): every row, with several chunks in
+    flight, and the final tables."""
     (gpu, _gl), (cpu, _cl) = _native(cuda, hot), _native("cpu", hot)
     blobs = corpus(seed)
-    before = K.launches["check_and_update"]
+    routes = ("check_and_update", "check_and_update_cluster")
+    before = sum(K.launches[key] for key in routes)
     for _pass in range(2):
         for ofs in range(0, len(blobs), 100):
             part = blobs[ofs:ofs + 100]
             assert gpu.decide_many(part, chunk=25, inflight=4) == \
                 cpu.decide_many(part, chunk=25, inflight=4)
-    assert K.launches["check_and_update"] > before
+    assert sum(K.launches[key] for key in routes) > before
     _equal(gpu.storage._state, cpu.storage._state)
     assert gpu.storage.drain_hot_slots(64) == cpu.storage.drain_hot_slots(64)
 
@@ -381,12 +443,72 @@ def test_replicated_node_on_the_card_decides_like_the_cpu(cuda):
     for name in ("replicated_check", "replicated_update",
                  "apply_remote_host", "read_slots_host"):
         assert K.launches[name] > before[name], name
-    for name in ("check_and_update", "update"):
+    for name in ("check_and_update", "check_and_update_cluster", "update"):
         assert K.launches[name] == before[name], name
     card, cpu = nodes
     _equal(card._state, cpu._state)
     _equal((card._remote_vals, card._remote_exp),
            (cpu._remote_vals, cpu._remote_exp))
+    for node in nodes:
+        node.close()
+
+
+def test_replicated_node_clears_a_merge_in_one_launch(cuda):
+    """A replicated node on the card whose table is full adopts 1,000
+    gossiped counters in one merge, each into a recycled slot: the
+    clears are staged and reach the card as one ``clear_slots_host``
+    launch at the next access, never through ``clear_slots``; then a
+    check batch on the adopted counters (not fresh) and the merged view
+    equal a CPU node's given the same calls, as do the five arrays."""
+    from limitador_tpu_torch.core.counter import Counter
+    from limitador_tpu_torch.device.replicated import TorchReplicatedStorage
+    from limitador_tpu_torch.device.storage import _Request
+    from limitador_tpu_torch.storage.keys import key_for_counter
+
+    class Clock:
+        now = 1_700_000_000.0
+
+        def __call__(self):
+            return self.now
+
+    clock = Clock()
+    nodes = [TorchReplicatedStorage("me", capacity=4096, cache_size=1000,
+                                    clock=clock, device=dev)
+             for dev in (cuda, "cpu")]
+    limit = Limit("ns", 50, 60, [], ["u"])
+    for node in nodes:
+        RateLimiter(node).add_limit(limit)
+    resident = [_Request([Counter(limit, {"u": f"r{i}"})], 3, False)
+                for i in range(1000)]
+    adopted = [Counter(limit, {"u": f"g{i}"}) for i in range(1000)]
+    now_ms = int(clock.now * 1000)
+    merge = [(key_for_counter(c), {"peer": 7}, now_ms + 30_000)
+             for c in adopted]
+    answers = []
+    for node in nodes:
+        node.check_many(resident)
+        before = dict(K.launches)
+        for update in merge:
+            node._on_remote_update(*update)
+        staged = len(node._staged_clears)
+        with node._lock:
+            node._read([0], node._now_ms())
+        launched = {name: K.launches[name] - before[name]
+                    for name in ("clear_slots", "clear_slots_host")}
+        # 41 fits only on a cleared cell: 0 + 7 remote + 41 <= 50, where
+        # the evicted counter's 3 would make it 51
+        auths = node.check_many(
+            [_Request([c], 41, True) for c in adopted[:200]])
+        answers.append((staged, launched, [a.limited for a in auths],
+                        sorted((c.set_variables["u"], c.remaining)
+                               for c in node.get_counters({limit}))))
+    card, cpu = answers
+    assert card[0] == cpu[0] == 1000
+    assert card[1] == {"clear_slots": 0, "clear_slots_host": 1}
+    assert card[2:] == cpu[2:] and not any(card[2])
+    _equal(nodes[0]._state, nodes[1]._state)
+    _equal((nodes[0]._remote_vals, nodes[0]._remote_exp),
+           (nodes[1]._remote_vals, nodes[1]._remote_exp))
     for node in nodes:
         node.close()
 

@@ -2,7 +2,9 @@
 
 For each of the seven kernels on the serving path (the fused check, the
 unconditional update, ``read_slots``, ``clear_slots``, the epoch rebase,
-the lease credit and the heavy-hitter drain) the same numpy-seeded inputs go through the jitted JAX function
+the lease credit and the heavy-hitter drain), and the host forms of
+``read_slots`` and ``clear_slots``, the same numpy-seeded inputs go
+through the jitted JAX function
 and through the port's wrapper on CPU tensors, which runs the kernel's
 plain PyTorch version. Every output is an integer array, so the tolerance
 is exact equality: every output and the final ``values``, ``expiry_ms``
@@ -17,7 +19,15 @@ import torch
 from limitador_tpu.ops import kernel as JK
 from limitador_tpu_torch.ops import kernel as TK
 
-from .torch_batches import C, NEVER, SpyContext, credit_batch, hits_column
+from .torch_batches import (
+    CHECK_KINDS,
+    C,
+    NEVER,
+    SpyContext,
+    check_case,
+    credit_batch,
+    hits_column,
+)
 from .torch_batches import batch as _batch
 from .torch_batches import lanes as _lanes
 from .torch_batches import table as _tables
@@ -67,6 +77,46 @@ def test_check_and_update_matches_jax(H, seed):
         arrays = _batch(rng, H, lanes, n_slots, zipf=round_i % 2 == 0)
         jstate, tstate = _both_check(jstate, tstate, arrays, now_ms)
         now_ms += int(rng.choice([0, 30, 700, 61_000]))
+
+
+@pytest.mark.parametrize("kind", CHECK_KINDS)
+@pytest.mark.parametrize("H", [8, 1024])
+def test_check_edge_batches_match_jax(H, kind):
+    """The batches the card tests hold both B1 kernels to (one segment of
+    H, a cascade of flipping verdicts, int32 wraps, the mixed batch),
+    two rounds on one table: the plain version equals the JAX program,
+    whichever route is asked for (on a CPU table both take the plain
+    version)."""
+    rng = np.random.default_rng(4000 + H + 17 * CHECK_KINDS.index(kind))
+    now_ms = 5_000_000
+    table, arrays = check_case(rng, H, kind, now_ms)
+    jstate = _jax_state(*table)
+    tstates = {route: _torch_state(*table) for route in ("block", "cluster")}
+    for _round in range(2):
+        jstate, jres = JK.check_and_update_batch(jstate, *arrays,
+                                                 np.int32(now_ms))
+        for route, tstate in tstates.items():
+            _, tres = TK.check_and_update_batch(
+                tstate, *(torch.from_numpy(a) for a in arrays), now_ms,
+                route=route)
+            for name, j, t in zip(TK.BatchResult._fields, jres, tres):
+                np.testing.assert_array_equal(np.asarray(j), t.numpy(),
+                                              err_msg=name)
+            _assert_tables(jstate, tstate)
+        now_ms += 700
+
+
+@pytest.mark.parametrize("H,route", [
+    (1, "block"), (8, "block"), (512, "block"), (1023, "block"),
+    (1024, "cluster"), (8192, "cluster"), (16383, "cluster"),
+    (16384, "cluster"), (16385, "block"), (32768, "block")])
+def test_check_route_is_a_rule_on_the_hit_count(H, route):
+    """B1's kernel on the card is a function of H alone: the cluster from
+    1024 hits (below it the one-block kernel measured faster) up to its
+    capacity of 16 blocks of 1024 hits, the one-block kernel past it."""
+    assert TK.CLUSTER_MIN_HITS == 1024
+    assert TK.CLUSTER_MAX_HITS == 16 * 1024
+    assert TK.check_route(H) == route
 
 
 @pytest.mark.parametrize("H", [8, 64, 1024])
@@ -192,6 +242,39 @@ def test_clear_slots_matches_jax(n):
     jstate = JK.clear_slots(_jax_state(*table), slots)
     tstate = TK.clear_slots(_torch_state(*table), torch.from_numpy(slots))
     _assert_tables(jstate, tstate)
+
+
+@pytest.mark.parametrize("n", [1, 9, 8001])
+def test_clear_slots_host_form_matches_jax(n):
+    """B3b's host form on a bare list (duplicates, the scratch slot, a
+    list past one parameter block) equals ``JK.clear_slots`` on it:
+    through a CPU context (the plain version, no launch) and through a
+    context that emulates the C entry point (one call with the list as
+    bytes, launches counted per block of 8)."""
+    rng = np.random.default_rng(8200 + n)
+    table = _tables(rng, 1_000_000, {})
+    slots = rng.integers(0, C + 1, n).astype(np.int32)
+    slots[0] = C
+    slots[-1] = slots[n // 2]
+    jstate = JK.clear_slots(_jax_state(*table), slots)
+    ctx = TK.TableContext(_torch_state(*table))
+    before = dict(TK.launches)
+    TK.clear_slots_host(ctx, slots)
+    assert TK.launches == before
+    _assert_tables(jstate, ctx.state)
+    spy = SpyContext(_torch_state(*table), capacity=(8, 4, 3, 8, 3, 8))
+    TK.clear_slots_host(spy, slots)
+    TK.clear_slots_host(spy, np.zeros(0, np.int32))
+    assert spy.calls == [("clear", n)]
+    assert TK.launches["clear_slots_host"] == \
+        before["clear_slots_host"] + -(-n // 8)
+    assert TK.launches["clear_slots"] == before["clear_slots"]
+    _assert_tables(jstate, spy.state)
+    with pytest.raises(ValueError):
+        TK.clear_slots_host(spy, slots.astype(np.int64))
+    spy.close()
+    with pytest.raises(RuntimeError):
+        TK.clear_slots_host(spy, slots)
 
 
 @pytest.mark.parametrize(

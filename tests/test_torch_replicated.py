@@ -410,6 +410,109 @@ def test_parked_wire_keys_are_adopted_once_the_limit_exists():
         tside.close()
 
 
+def _resident(n, delta=2):
+    """A check batch of n one-hit requests on "win", users r0..: n
+    qualified counters with written cells (their slots recycle later)."""
+    return ("check", 0, [(["win"], f"r{i}", delta, False) for i in range(n)])
+
+
+def _injects(users, count=3):
+    return [("inject", 0, "win", u, count, 30_000) for u in users]
+
+
+# Gossip merges that adopt counters into recycled slots of a full table
+# (cache_size 6), each adoption's clear staged on the port node; then the
+# accesses that must see the clears. "within": is_within_limits re-adopts
+# an evicted key and reads its cell at once (0 + 3 remote + 5 <= 8 only
+# on a cleared cell). "merge_then_check": a check batch on adopted
+# counters, not fresh (0 + 3 + 4 <= 8 only on a cleared cell).
+# "recycled_while_staged": staged slots recycled before any access, by
+# further adoptions and by a check batch's fresh allocation.
+ADOPTION_CASES = {
+    "within": [_resident(6)] + _injects([f"g{i}" for i in range(8)])
+    + [("within", 0, "win", "g0", 5)],
+    "merge_then_check": [_resident(6)]
+    + _injects([f"g{i}" for i in range(6)])
+    + [("check", 0, [(["win"], "g0", 4, True), (["win"], "g1", 4, True)])],
+    "recycled_while_staged": [_resident(6)]
+    + _injects([f"g{i}" for i in range(8)])
+    + [("check", 0, [(["win"], "g7", 1, True), (["win"], "n0", 1, True),
+                     (["win"], "n1", 5, True)])],
+}
+
+
+@pytest.mark.parametrize("case", sorted(ADOPTION_CASES))
+def test_adopted_clears_are_staged_and_flushed_once(case):
+    """The port node stages the clears of a merge's adoptions and
+    launches them as one B3b host-form call at the next access of its
+    table (a context emulating the C entry points records the calls);
+    answers, merged views, gossip and all five arrays equal the JAX
+    node's, which clears each adopted slot at once."""
+    (jclock, jside), (tclock, tside) = _sides(64, 6)
+    try:
+        node = tside.nodes[0]
+        spy = SpyContext(node._state)
+        node._ctx = spy
+        ops = ADOPTION_CASES[case]
+        for op in ops[:-1]:
+            assert _run(jside, jclock, op) == _run(tside, tclock, op), op
+        staged = len(node._staged_clears)
+        assert staged and not [c for c in spy.calls if c[0] == "clear"]
+        spy.calls.clear()
+        got = [_run(side, clock, ops[-1])
+               for side, clock in ((jside, jclock), (tside, tclock))]
+        assert got[0] == got[1]
+        # the one clear came first, with every staged slot
+        assert spy.calls[0] == ("clear", staged)
+        assert [c for c in spy.calls if c[0] == "clear"] == [spy.calls[0]]
+        assert not node._staged_clears
+        if case == "within":
+            assert got[1] is True and spy.calls[1:] == [("read", 1)]
+        else:
+            auths, _loaded_ = got[1]
+            assert auths[:2] == [(False, None), (False, None)]
+        for n in (0, 1):
+            _run(jside, jclock, ("publish", n))
+            _run(tside, tclock, ("publish", n))
+        _assert_nodes_equal(jside, tside, case)
+        for jn, tn in zip(jside.nodes, tside.nodes):
+            assert jn.broker.sent == tn.broker.sent
+    finally:
+        jside.close()
+        tside.close()
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_gossip_heavy_script_with_staged_clears_matches_jax(seed):
+    """The JAX-versus-port script with most steps peer updates into a
+    small, full table (cache_size 8), so most merges adopt into recycled
+    slots and their clears stay staged across several merges before a
+    check, an update, a read or a publish flushes them."""
+    (jclock, jside), (tclock, tside) = _sides(64, 8)
+    rng = random.Random(seed)
+    try:
+        flushed = 0
+        for i, op in enumerate(_script(seed, steps=200)):
+            if op[0] in ("check", "update", "apply", "within", "publish") \
+                    and rng.random() < 0.6:
+                # most accesses become further merges first
+                node = op[1] if len(op) > 1 else 0
+                for u in range(rng.randint(1, 6)):
+                    extra = ("inject", node, "win", f"x{rng.randrange(30)}",
+                             rng.randint(0, 5), rng.randint(-500, 20_000))
+                    _run(jside, jclock, extra)
+                    _run(tside, tclock, extra)
+            flushed += bool(tside.nodes[0]._staged_clears)
+            assert _run(jside, jclock, op) == _run(tside, tclock, op), (i, op)
+            if i % 50 == 49:
+                _assert_nodes_equal(jside, tside, i)
+        _assert_nodes_equal(jside, tside, "end")
+        assert flushed  # clears were staged across steps
+    finally:
+        jside.close()
+        tside.close()
+
+
 # -- the port alone: the JAX package's replication behaviours ----------------
 
 

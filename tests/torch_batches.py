@@ -79,6 +79,83 @@ def batch(rng, H, lanes, n_slots, zipf=True):
     return arrays
 
 
+CHECK_KINDS = ("mixed", "one_slot", "cascade", "wraps")
+
+
+def check_case(rng, H, kind, now_ms):
+    """A table and an H-hit B1 batch of one ``kind``:
+
+    - "mixed": ``batch`` over ``lanes``: hot slots, multi-hit requests,
+      buckets, fresh slots and scratch padding;
+    - "one_slot": every hit on one window slot, one segment of H, in
+      requests of 1-3 hits, the max a third of the way in;
+    - "cascade": request r hits slots r and r + 1 (a fresh window of max
+      1, delta 1), so each verdict flips the next one's: about one sweep
+      per request until the fixpoint settles, then scratch padding;
+    - "wraps": live window cells near 2**31, deltas up to 2**30 and
+      maxes near INT32_MAX, so value + pending + delta wraps int32.
+    """
+    if kind == "mixed":
+        n_slots = min(max(H // 2, 4), 4000)
+        slot_lanes = lanes(rng, n_slots)
+        return (table(rng, now_ms, slot_lanes),
+                batch(rng, H, slot_lanes, n_slots))
+    values, expiry, hits = table(rng, now_ms, {})
+    slots = np.full(H, C, np.int32)
+    deltas = np.zeros(H, np.int32)
+    maxes = np.full(H, NEVER, np.int32)
+    wins = np.zeros(H, np.int32)
+    req = np.full(H, H - 1, np.int32)
+    fresh = np.zeros(H, bool)
+    bucket = np.zeros(H, bool)
+    if kind == "one_slot":
+        s = int(rng.integers(0, C))
+        values[s], expiry[s] = 3, now_ms + 5_000
+        slots[:] = s
+        deltas[:] = rng.choice([0, 1, 1, 2], H)
+        maxes[:] = max(H // 3, 1)
+        wins[:] = 60_000
+        req[:] = np.sort(rng.integers(0, H, H))
+        req[0] = 0
+    elif kind == "cascade":
+        # the chain on slots [base, base + n_req], then one-hit filler
+        # requests (delta 0) on slots below and above it, so that the
+        # chain sits mid-batch in sorted order, across a block boundary
+        # of the cluster kernel at H >= 2048
+        n_req = min(H // 2, 300)
+        base = C // 2
+        r = np.repeat(np.arange(n_req, dtype=np.int32), 2)
+        slots[:r.size] = base + r + np.tile(np.asarray([0, 1], np.int32),
+                                            n_req)
+        deltas[:r.size] = 1
+        maxes[:r.size] = 1
+        wins[:r.size] = 60_000
+        req[:r.size] = r
+        fresh[:r.size] = True
+        n_fill = H - r.size - (1 if H > r.size else 0)
+        below = rng.integers(0, base, n_fill)
+        above = rng.integers(base + n_req + 1, C, n_fill)
+        fill = np.where(np.arange(n_fill) % 2 == 0, below, above)
+        slots[r.size:r.size + n_fill] = fill
+        wins[r.size:r.size + n_fill] = 1000
+        req[r.size:r.size + n_fill] = n_req + np.arange(n_fill)
+    elif kind == "wraps":
+        s = rng.integers(0, 64, H).astype(np.int32)
+        values[:64] = NEVER - rng.integers(0, 1 << 20, 64)
+        expiry[:64] = now_ms + rng.integers(1, 60_000, 64)
+        order = np.argsort(rng.random(H), kind="stable")
+        slots[:] = s[order]
+        deltas[:] = rng.integers(0, (1 << 30) + 1, H)
+        maxes[:] = NEVER - rng.integers(0, 1 << 10, H)
+        wins[:] = 60_000
+        req[:] = np.sort(rng.integers(0, H, H))
+        req[0] = 0
+    else:
+        raise ValueError(kind)
+    return (values, expiry, hits), (slots, deltas, maxes, wins, req, fresh,
+                                    bucket)
+
+
 def credit_batch(rng, H, now_ms, n_slots=C):
     """A table and an H-row credit batch (unique slots, padding rows at
     the scratch row) with the edge rows of the lease credit: an expired
@@ -314,11 +391,11 @@ class SpyContext:
     (entry point, rows), so a CPU test sees the marshalling, the calls
     and the per-block launch counts. ``capacity`` is the entries a
     launch carries, by kind (all-rows slots, pairs, seed rows, slots
-    read, remote rows)."""
+    read, remote rows, slots cleared)."""
 
     cuda = True
 
-    def __init__(self, state, capacity=(8000, 4000, 2666, 8000, 2666)):
+    def __init__(self, state, capacity=(8000, 4000, 2666, 8000, 2666, 8000)):
         self.state = state
         self.capacity = capacity
         self.handle = 1
@@ -360,6 +437,15 @@ class SpyContext:
     def staged_fn(self, handle, slots, sums, expiries, n):
         self.remote_fn(handle, slots, sums, expiries, n)
         self.calls[-1] = ("staged", n)
+        return 0
+
+    def clear_slots_fn(self, handle, slots, n):
+        from limitador_tpu_torch.ops import kernel as K
+
+        (idx,) = self._rows(slots)
+        assert handle and idx.numel() == n
+        K.clear_slots_plain(self.state, idx)
+        self.calls.append(("clear", n))
         return 0
 
     def seed_fn(self, handle, slots, values, expiry, n, padded):
