@@ -24,8 +24,11 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    launch) and index_fill_. The lease credit
    (B4c) runs with its edge rows, the heavy-hitter drain (B5) with ties,
    fewer live slots than k, and k up to C; the replicated check (B6a)
-   and update (B6b) over remote lanes with live and expired sums, bucket
-   floors and sums past 2^31 (and B6a with zero lanes against B1), the
+   in both its kernels (the cluster with the gossip hooks at 1024, 8192
+   and 16,384 hits, the one block at 8 to 32,768) and the update (B6b)
+   over remote lanes with live and expired sums, bucket floors and sums
+   past 2^31 (and B6a with zero lanes against B1's kernel of the same
+   route), the
    remote-sum scatter (B6c) over unique slots, the tier promotion seed
    (B4d) at the promotion path's n = 1 and at larger batches with padding
    and a nonzero scratch row, the device-scalar epoch rebase (B4b) with
@@ -44,7 +47,10 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    pinned upload, launch, two downloads; B6c: three-pass pack, three
    pinned uploads, launch) and the library path (B3a: index_select of
    both columns from an upload, then .cpu(); B6c: index_copy_ of both
-   lanes stacked, from uploads).
+   lanes stacked, from uploads). B7a in its four variants at 8, 1024
+   and 2048 hits a row over the phase-10a table on both routes (the
+   thread-block clusters and one block a row) and coupled at 4096 a row
+   on the rows route.
 4. The main path: the port's gRPC server on the card (capacity 1<<20)
    answers Envoy ShouldRateLimit and Kuadrant CheckRateLimit/Report over a
    real channel, with a hot reload and an epoch rebase; every answer is
@@ -76,7 +82,9 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    brokers on localhost answer 2,000 sequential calls round-robin: every
    node's view exact after five gossip periods, spent users refused on
    every node, over-admission and per-node latency recorded. A replicated
-   node must launch B6a/B6b/B6c and never B1/B2. Phase 8a splits the
+   node must launch B6a/B6b/B6c and never B1/B2; 8a's 8192-hit batches
+   take B6a's cluster, 8b's small ones its one block, and both phases
+   print B6a's calls by route and hits. Phase 8a splits the
    B6c flush's host time into the pack and the C call, with the B6c
    launches a flush, and records the B3b launches and the gossip's host
    ms a batch: the clears of a merge's adoptions are staged and reach
@@ -117,7 +125,9 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    compiled (one row on one card) answers 2,000 sequential
    ShouldRateLimit, CheckRateLimit and Report calls with a hot reload that
    drops a limit, each answer equal to a memory server's, p50 and p99
-   recorded. B7a in all four variants, B7b, B7c and B7d must launch there.
+   recorded. B7a in all four variants, B7b, B7c and B7d must launch there,
+   B7a on both its routes (10a must take the cluster); both phases print
+   B7a's calls by route, variant and shape.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -126,6 +136,7 @@ The line before the last is the kernels JSON; the last line is
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import functools
 import json
 import os
@@ -186,9 +197,11 @@ REPLACES = {
     "seed_slots": "limitador_tpu/ops/kernel.py:626",
     "drain_top_hits": "limitador_tpu/ops/kernel.py:673",
     "replicated_check": "limitador_tpu/tpu/replicated.py:55",
+    "replicated_check_cluster": "limitador_tpu/tpu/replicated.py:55",
     "replicated_update": "limitador_tpu/tpu/replicated.py:96",
     "apply_remote": "limitador_tpu/tpu/replicated.py:120",
     "sharded_check_and_update": "limitador_tpu/parallel/mesh.py:399",
+    "sharded_check_and_update_cluster": "limitador_tpu/parallel/mesh.py:399",
     "sharded_clear_cells": "limitador_tpu/parallel/mesh.py:507",
     "sharded_update": "limitador_tpu/parallel/mesh.py:552",
     "sharded_drain_top_hits": "limitador_tpu/parallel/mesh.py:589",
@@ -204,11 +217,17 @@ MAIN_SHAPE = {
     "update": 8, "read_slots": 8, "clear_slots": "host/6600",
     "rebase_epoch": C + 1, "rebase_epoch_device": C + 1,
     "credit": 1024, "seed_slots": 1, "drain_top_hits": 64,
-    "replicated_check": 8192, "replicated_update": 8, "apply_remote": 12288,
-    # B7 over the phase-10a table, 8 rows of 1<<17 cells: B7a at 1024 hits
-    # a row in its coupled + global variant (the mixed batches), B7b at 64
-    # slots a row, B7c at 8 hits a row, B7d at k = 64
-    "sharded_check_and_update": "coupled+global/1024",
+    # B6a: the cluster at phase 8a's 8192 hits, the one block at the
+    # served nodes' 8 (phase 8b)
+    "replicated_check": 8, "replicated_check_cluster": 8192,
+    "replicated_update": 8, "apply_remote": 12288,
+    # B7 over the phase-10a table, 8 rows of 1<<17 cells: B7a's cluster
+    # at 2048 hits a row in its coupled + global variant (the mixed
+    # batches), its rows route at 4096 coupled (past the cluster: the
+    # coupled batches' busiest row), B7b at 64 slots a row, B7c at 8 hits
+    # a row, B7d at k = 64
+    "sharded_check_and_update_cluster": "coupled+global/2048",
+    "sharded_check_and_update": "coupled/4096",
     "sharded_clear_cells": 64, "sharded_update": 8,
     "sharded_drain_top_hits": 64,
 }
@@ -216,7 +235,12 @@ MAIN_SHAPE = {
 SHARDS = 8
 LOCAL_CAP = 1 << 17
 GLOBAL_REGION = 1024
-SHARDED_HS = (8, 1024)
+SHARDED_HS = (8, 1024, 2048)
+# B7a's rows route past the cluster: phase 10a's coupled batches (8 x
+# 4096), timed on that route alone
+SHARDED_ROWS_HS = (4096,)
+# B6a: both kernels up to the cluster's capacity, the one block past it
+B6A_HS = (8, 1024, 8192, 16384, 32768)
 B7A_VARIANTS = ((False, False), (True, False), (False, True), (True, True))
 # kernels each main-path phase must launch (B1 by the batch's hits: the
 # served phases' small batches take the one-block kernel, the drives'
@@ -227,8 +251,8 @@ PHASE6_KERNELS = PHASE4_KERNELS + ("drain_top_hits",)
 PHASE7_KERNELS = ("check_and_update_cluster", "read_slots", "credit",
                   "drain_top_hits")
 # a replicated node checks through B6a and updates through B6b, never B1/B2
-PHASE8A_KERNELS = ("replicated_check", "apply_remote", "read_slots",
-                   "clear_slots")
+PHASE8A_KERNELS = ("replicated_check_cluster", "apply_remote",
+                   "read_slots", "clear_slots")
 PHASE8B_KERNELS = ("replicated_check", "replicated_update", "apply_remote",
                    "read_slots")
 PLAIN_KERNELS = ("check_and_update", "check_and_update_cluster", "update")
@@ -247,9 +271,12 @@ HOST_FORMS = {"read_slots": "read_slots_host",
               "clear_slots": "clear_slots_host"}
 READ_HOST_NS = (1, 8, 1000, 8001, 32768)
 REMOTE_HOST_NS = (8, 1024, 12288, 65536)
-# the sharded paths: 10a and 10b together must launch all four
-SHARDED_KERNELS = ("sharded_check_and_update", "sharded_clear_cells",
-                   "sharded_update", "sharded_drain_top_hits")
+# the sharded paths: 10a and 10b together must launch all five (B7a's
+# two routes)
+SHARDED_KERNELS = ("sharded_check_and_update",
+                   "sharded_check_and_update_cluster",
+                   "sharded_clear_cells", "sharded_update",
+                   "sharded_drain_top_hits")
 
 
 def fail(msg: str) -> None:
@@ -273,6 +300,50 @@ def _host_forms_only(run, label, remote):
     missing = [name for name in need if run[name] == 0]
     if missing:
         fail(f"{label}: host forms not launched: {missing}")
+
+
+@contextlib.contextmanager
+def _route_tally(label):
+    """Count B6a's and B7a's card calls by route and shape while the block
+    runs (the storages look both wrappers up on their modules at each
+    call), then print them under ``label``; yields the counts. The
+    launch counts stay the wrappers' own."""
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.parallel import mesh as M
+
+    counts = {}
+    b6a, b7a = K.replicated_check_batch, M.sharded_check_and_update
+
+    def add(key):
+        counts[key] = counts.get(key, 0) + 1
+
+    def replicated(state, remote_vals, remote_exp, slots, *args,
+                   route=None):
+        if state.values.is_cuda:
+            H = slots.shape[0]
+            add(f"B6a {route or K.check_route(H)} H={H}")
+        return b6a(state, remote_vals, remote_exp, slots, *args,
+                   route=route)
+
+    def sharded(state, slots, *args, global_region=1024, coupled=True,
+                has_global=True, route=None):
+        if state.values.is_cuda:
+            n, H = slots.shape
+            taken = route or M.sharded_check_route(n, H, coupled,
+                                                   has_global)
+            variant = ("coupled" if coupled else "lean") + (
+                "+global" if has_global else "")
+            add(f"B7a {taken} {variant} {n}x{H}")
+        return b7a(state, slots, *args, global_region=global_region,
+                   coupled=coupled, has_global=has_global, route=route)
+
+    K.replicated_check_batch, M.sharded_check_and_update = replicated, sharded
+    try:
+        yield counts
+    finally:
+        K.replicated_check_batch, M.sharded_check_and_update = b6a, b7a
+        print(f"{label}: B6a/B7a card calls by route and shape: "
+              f"{json.dumps(dict(sorted(counts.items())))}")
 
 
 def zipf_keys(n_keys: int, n_samples: int, s: float, rng) -> np.ndarray:
@@ -602,22 +673,25 @@ def _device_ms(fn, setup, kernel, reps=10):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        for _ in range(reps):
-            args = setup() if setup is not None else ()
-            fn(*args)
-        torch.cuda.synchronize()
     names = (kernel,) if isinstance(kernel, str) else kernel
-    total_us = 0.0
-    seen = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total",
-                         getattr(evt, "cuda_time_total", 0.0))
-        if any(name in evt.key for name in names):
-            total_us += dev_us
-        elif dev_us > 0:
-            seen.append(evt.key[:60])
+    for _attempt in range(2):  # a trace that saw no kernel at all, again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                args = setup() if setup is not None else ()
+                fn(*args)
+            torch.cuda.synchronize()
+        total_us = 0.0
+        seen = []
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "device_time_total",
+                             getattr(evt, "cuda_time_total", 0.0))
+            if any(name in evt.key for name in names):
+                total_us += dev_us
+            elif dev_us > 0:
+                seen.append(evt.key[:60])
+        if total_us > 0 or seen:
+            break
     if total_us <= 0:
         print(f"    (the profiler recorded no device time for {names}; "
               f"kernels it saw: {seen[:6]})", file=sys.stderr)
@@ -735,6 +809,8 @@ def phase_kernels(dev):
             record(name, H, err, ms, plain_ms, nbytes,
                    device_ms=dms)["sweeps"] = sweeps
         print(f"    B1 at H={H}: the fixpoint ran {sweeps} sweeps")
+    _replicated_checks(dev, rng, lanes, tables, base_np, rbase, rbase_np,
+                       remote_np, now_ms, record)
     for H in HS:
         arrays = _batch(rng, H, lanes)
         dev_arrays = tuple(torch.from_numpy(a).to(dev) for a in arrays)
@@ -758,40 +834,11 @@ def phase_kernels(dev):
         record("update", H, err, ms, plain_ms,
                _update_bytes(upd_np, base_np, _host(tb), now_ms),
                device_ms=dms)
-        # B6a: the check over live/expired remote sums and bucket floors,
-        # local + remote past 2^31; with zero lanes it must equal B1 (the
-        # one-block kernel, which B6a instantiates)
         rv, re = remote_np
         remote = (torch.from_numpy(rv).to(dev), torch.from_numpy(re).to(dev))
-        zeros = tuple(torch.zeros_like(t) for t in remote)
 
         def rtables():
             return K.CounterTableState(*(t.clone() for t in rbase))
-        ta, tb = rtables(), rtables()
-        _, ra = K.replicated_check_batch(ta, *remote, *dev_arrays, now_ms)
-        rb = K.replicated_check_plain(tb, *remote, *dev_arrays, now_ms)
-        za, zb = tables(), tables()
-        _, zra = K.replicated_check_batch(za, *zeros, *dev_arrays, now_ms)
-        _, zrb = K.check_and_update_batch(zb, *dev_arrays, now_ms,
-                                          route="block")
-        torch.cuda.synchronize()
-        err = _max_abs_err(list(zip(ra, rb)) + list(zip(ta, tb))
-                           + list(zip(zra, zrb)) + list(zip(za, zb)))
-        ms = _median_ms(
-            lambda t: K.replicated_check_batch(t, *remote, *dev_arrays,
-                                               now_ms),
-            lambda: (rtables(),))
-        plain_ms = _median_ms(
-            lambda t: K.replicated_check_plain(t, *remote, *dev_arrays,
-                                               now_ms),
-            lambda: (rtables(),), reps=5, warmup=1)
-        dms = _device_ms(
-            lambda t: K.replicated_check_batch(t, *remote, *dev_arrays,
-                                               now_ms),
-            lambda: (rtables(),), "check_kernel")
-        record("replicated_check", H, err, ms, plain_ms,
-               _check_bytes(arrays, rbase_np, _host(tb), now_ms, (rv, re)),
-               device_ms=dms)
         # B6b: the update with the remote TAT floor
         ta, tb = rtables(), rtables()
         K.replicated_update_batch(ta, remote[1], *upd, now_ms)
@@ -1010,6 +1057,60 @@ def phase_kernels(dev):
     if not exact:
         fail("a kernel disagrees with its plain version")
     return out
+
+
+def _replicated_checks(dev, rng, lanes, tables, base_np, rbase, rbase_np,
+                       remote_np, now_ms, record):
+    """B6a, both kernels (the cluster with the gossip hooks up to 16,384
+    hits, the one block at every H), over remote lanes with live and
+    expired window sums, bucket floors and local + remote past 2^31,
+    against the plain version on one batch per H; with both lanes zero,
+    each kernel must equal B1's kernel of the same route."""
+    import torch
+
+    from limitador_tpu_torch.ops import kernel as K
+
+    rv, re = remote_np
+    remote = (torch.from_numpy(rv).to(dev), torch.from_numpy(re).to(dev))
+    zeros = tuple(torch.zeros_like(t) for t in remote)
+
+    def rtables():
+        return (K.CounterTableState(*(t.clone() for t in rbase)),)
+
+    routes = (("replicated_check_cluster", "cluster", "check_cluster_kernel"),
+              ("replicated_check", "block", "check_kernel"))
+    for H in B6A_HS:
+        arrays = _batch(rng, H, lanes)
+        dev_arrays = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        (tb,) = rtables()
+        rb = K.replicated_check_plain(tb, *remote, *dev_arrays, now_ms)
+        plain_ms = _median_ms(
+            lambda t: K.replicated_check_plain(t, *remote, *dev_arrays,
+                                               now_ms),
+            rtables, reps=5, warmup=1)
+        nbytes = _check_bytes(arrays, rbase_np, _host(tb), now_ms, (rv, re))
+        for name, route, kernel in routes:
+            if route == "cluster" and H > K.CLUSTER_MAX_HITS:
+                continue
+            (ta,) = rtables()
+            _, ra = K.replicated_check_batch(ta, *remote, *dev_arrays,
+                                             now_ms, route=route)
+            za, zb = tables(), tables()
+            _, zra = K.replicated_check_batch(za, *zeros, *dev_arrays,
+                                              now_ms, route=route)
+            _, zrb = K.check_and_update_batch(zb, *dev_arrays, now_ms,
+                                              route=route)
+            torch.cuda.synchronize()
+            err = _max_abs_err(list(zip(ra, rb)) + list(zip(ta, tb))
+                               + list(zip(zra, zrb)) + list(zip(za, zb)))
+            ms = _median_ms(
+                lambda t: K.replicated_check_batch(
+                    t, *remote, *dev_arrays, now_ms, route=route), rtables)
+            dms = _device_ms(
+                lambda t: K.replicated_check_batch(
+                    t, *remote, *dev_arrays, now_ms, route=route), rtables,
+                kernel)
+            record(name, H, err, ms, plain_ms, nbytes, device_ms=dms)
 
 
 def _bound_ctx(table):
@@ -1487,7 +1588,9 @@ def _sharded_batch(rng, H, lanes, coupled, with_global, n=SHARDS,
     (each request on one row, row-local ids) or coupled (requests over
     up to three rows, ids < n*H); global hits on global slots with
     ``with_global``. Returns (slots, deltas, maxes, windows, req_ids,
-    fresh, bucket, is_global), rows padded with slot L."""
+    fresh, bucket, is_global), rows padded with slot L. A request's cells
+    are distinct, as a storage stages them (two hits of one request on
+    one cell can flip its verdict every sweep, to the cap)."""
     cols = [[[] for _ in range(n)] for _ in range(8)]
     R = n * H if coupled else H
     local = [0] * n
@@ -1502,10 +1605,14 @@ def _sharded_batch(rng, H, lanes, coupled, with_global, n=SHARDS,
         if any(len(cols[0][x]) + rows.count(x) > H - 1 for x in rows):
             break
         rid = r if coupled else local[home]
+        mine = set()
         for x in rows:
             glob = with_global and rng.random() < 0.3
             slot = int(rng.integers(0, G)) if glob else int(keys[ki])
             ki += 1
+            if (x, slot) in mine:
+                continue
+            mine.add((x, slot))
             if slot not in lanes:
                 lanes[slot] = _lane(rng)
             is_bucket, maxv, win = lanes[slot]
@@ -1535,11 +1642,14 @@ def _sharded_batch(rng, H, lanes, coupled, with_global, n=SHARDS,
 
 def _sharded_kernels(dev, rng, record):
     """B7a-B7d against their plain versions on the card over the
-    phase-10a table ([8, 1<<17 + 1]): B7a in its four variants at 8 and
-    1024 hits a row, B7b at 64 slots a row, B7c at 8 hits a row, B7d at
-    k = 64; times, bounds and library times as the other kernels'."""
+    phase-10a table ([8, 1<<17 + 1]): B7a in its four variants at 8, 1024
+    and 2048 hits a row on both routes (the thread-block clusters and one
+    block a row) and coupled at 4096 a row on the rows route (past the
+    cluster), B7b at 64 slots a row, B7c at 8 hits a row, B7d at k = 64;
+    times, bounds and library times as the other kernels'."""
     import torch
 
+    from limitador_tpu_torch.ops import kernel as K
     from limitador_tpu_torch.parallel import mesh as M
 
     now_ms = 5_000_000
@@ -1557,38 +1667,56 @@ def _sharded_kernels(dev, rng, record):
                             [a[x] for a in base_np], [a[x] for a in after],
                             now_ms) for x in range(n))
 
-    for H in SHARDED_HS:
+    routes = (("sharded_check_and_update_cluster", "cluster",
+               "check_cluster_kernel"),
+              ("sharded_check_and_update", "rows",
+               ("check_kernel", "global_sum_kernel")))
+    for H in SHARDED_HS + SHARDED_ROWS_HS:
         for coupled, has_global in B7A_VARIANTS:
+            if H in SHARDED_ROWS_HS and (coupled, has_global) != (True,
+                                                                  False):
+                continue
             cols_np = _sharded_batch(rng, H, lanes, coupled, has_global)
             cols = tuple(torch.from_numpy(a).to(dev) for a in cols_np)
-            kw = dict(global_region=G, coupled=coupled,
-                      has_global=has_global)
-            (ta,), (tb,) = tables(), tables()
-            _, ra = M.sharded_check_and_update(ta, *cols, now_ms, **kw)
+            (tb,) = tables()
             rb = M.sharded_check_and_update_plain(tb, *cols, now_ms, G,
                                                   coupled, has_global)
-            torch.cuda.synchronize()
-            err = _max_abs_err(list(zip(ra, rb)) + list(zip(ta, tb)))
-            ms = _median_ms(
-                lambda t: M.sharded_check_and_update(t, *cols, now_ms, **kw),
-                tables)
             plain_ms = _median_ms(
                 lambda t: M.sharded_check_and_update_plain(
                     t, *cols, now_ms, G, coupled, has_global),
                 tables, reps=3, warmup=1)
-            dms = _device_ms(
-                lambda t: M.sharded_check_and_update(t, *cols, now_ms, **kw),
-                tables, ("check_kernel", "global_sum_kernel"))
             after = _host(tb)
             nbytes = rows_bytes(
                 lambda c, before, aft, now: _check_bytes(
                     c[:7], before, aft, now, scratch=L), cols_np, after)
             if has_global:
-                nbytes += n * H + 2 * n * G * 4
+                # each hit's flag, and every row's partial (value and
+                # expiry) of each global slot the batch touches
+                touched = np.unique(cols_np[0][cols_np[7]])
+                nbytes += n * H + 8 * n * touched.size
             variant = ("coupled" if coupled else "lean") + (
                 "+global" if has_global else "")
-            record("sharded_check_and_update", f"{variant}/{H}", err, ms,
-                   plain_ms, nbytes, device_ms=dms)
+            # one cluster of n*H hits, or (lean, no global hit) one of H
+            # a row
+            span = n * H if coupled or has_global else H
+            for name, route, kernel in routes:
+                if route == "cluster" and span > K.CLUSTER_MAX_HITS:
+                    continue
+                kw = dict(global_region=G, coupled=coupled,
+                          has_global=has_global, route=route)
+                (ta,) = tables()
+                _, ra = M.sharded_check_and_update(ta, *cols, now_ms, **kw)
+                torch.cuda.synchronize()
+                err = _max_abs_err(list(zip(ra, rb)) + list(zip(ta, tb)))
+                ms = _median_ms(
+                    lambda t: M.sharded_check_and_update(t, *cols, now_ms,
+                                                         **kw), tables)
+                dms = _device_ms(
+                    lambda t: M.sharded_check_and_update(t, *cols, now_ms,
+                                                         **kw),
+                    tables, kernel)
+                record(name, f"{variant}/{H}", err, ms, plain_ms, nbytes,
+                       device_ms=dms)
     # B7c: per-row update, large deltas included
     H = 8
     slots, deltas, _m, wins, _r, fresh, bucket, _g = _sharded_batch(
@@ -3220,8 +3348,9 @@ def phase_sharded_drive(dev, card, batches=SHARDED_BATCHES, hits=8192):
     if spent["most_flushes_begin"] > 1 or spent["most_flushes_finish"] > 1:
         fail("sharded drive: more than one B7b flush in a staging pass or "
              "a finish")
-    missing = [k for k in ("sharded_check_and_update", "sharded_clear_cells",
-                           "sharded_drain_top_hits") if launches[k] == 0]
+    missing = [k for k in ("sharded_check_and_update_cluster",
+                           "sharded_clear_cells", "sharded_drain_top_hits")
+               if launches[k] == 0]
     if missing:
         fail(f"kernels not launched on the sharded drive: {missing}")
     return launches, {
@@ -3412,11 +3541,19 @@ def main() -> int:
                if _launched(drive_launches, name) == 0]
     if missing:
         fail(f"kernels not launched on the native drive: {missing}")
-    repl_launches, repl = phase_replication_drive(dev, card,
-                                                  REPLICATION_BATCHES)
-    with tempfile.TemporaryDirectory() as tmpdir:
+    with _route_tally("replication drive (8a)") as routes:
+        repl_launches, repl = phase_replication_drive(dev, card,
+                                                      REPLICATION_BATCHES)
+    repl["routes"] = routes
+    if any(key.startswith("B6a block") and int(key.split("H=")[1]) >= 1024
+           for key in routes):
+        fail("replication drive: a B6a batch of 1,024 hits or more took "
+             "the one block")
+    with tempfile.TemporaryDirectory() as tmpdir, \
+            _route_tally("served replication (8b)") as routes:
         served_launches, served = asyncio.run(
             _served_replication(tmpdir, dev, card))
+    served["routes"] = routes
     tier_launches, tiered = phase_tiered_drive(dev, card)
     with tempfile.TemporaryDirectory() as tmpdir:
         served_tier_launches, served_tiers = asyncio.run(
@@ -3435,10 +3572,14 @@ def main() -> int:
             _served_tiers(tmpdir, dev, card, leases=True,
                           label="served tiers (leases on, observatory on)",
                           need_reclaim=False))
-    sharded_launches, sharded = phase_sharded_drive(dev, card)
-    with tempfile.TemporaryDirectory() as tmpdir:
+    with _route_tally("sharded drive (10a)") as routes:
+        sharded_launches, sharded = phase_sharded_drive(dev, card)
+    sharded["routes"] = routes
+    with tempfile.TemporaryDirectory() as tmpdir, \
+            _route_tally("served sharded (10b)") as routes:
         served_sharded_launches, served_sharded = asyncio.run(
             _served_sharded(tmpdir, dev, card))
+    served_sharded["routes"] = routes
     missing = [k for k in SHARDED_KERNELS
                if sharded_launches[k] + served_sharded_launches[k] == 0]
     if missing:

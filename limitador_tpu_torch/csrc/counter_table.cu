@@ -24,9 +24,8 @@
 // 16,384 hits run on a thread-block cluster (ct_check_and_update_cluster,
 // check_cluster_kernel below: one block of up to 1024 threads per 1024
 // hits, every per-hit array in distributed shared memory). Below 1,024
-// hits (where it measured faster) and above the cluster's capacity, and
-// as the base of B6a and B7a, ONE thread block of 1024 threads walks the
-// whole batch
+// hits (where it measured faster) and above the cluster's capacity, ONE
+// thread block of 1024 threads walks the whole batch
 // (ct_check_and_update, check_kernel), as does the update (ct_update,
 // replacing update_core / update_batch, :433-576), with __syncthreads
 // between phases and __syncthreads_or for the fixpoint's "changed" test.
@@ -57,18 +56,27 @@
 // the check and the update as templates on kRemote: B6a is the check with
 // the gossip hooks of check_and_update_core (base_hook adds the live
 // remote window sum, tat_floor_hook floors bucket TATs at the remote TAT,
-// read and write base alike), B6b the update with the TAT floor, and B6c
-// a grid-stride scatter of both remote lanes.
+// read and write base alike), on B1's two routes (the cluster kernel and
+// the one block, both with kRemote, chosen by H as B1's); B6b the update
+// with the TAT floor, and B6c a grid-stride scatter of both remote lanes.
 //
 // The sharded table (limitador_tpu/parallel/mesh.py:399-612) is n rows of
-// L + 1 cells, one shard a row. Its four programs reuse these kernels a
-// row per block: B7a is the check with kRows (plus kGlobal, the psum base,
-// and kCoupled, the pmin of the votes across rows, with grid barriers
-// under a cooperative launch), B7c the update with kRows, B7d the top-k
-// with a row index in the grid, and B7b a grid-stride clear of per-row
-// slot lists. Their bounds are the row kernels' bounds summed over the
-// rows, plus, for B7a's global variants, the pre-pass's 8 bytes per row
-// and global slot; latency, not bytes, keeps them above it, as for B1.
+// L + 1 cells, one shard a row, contiguous in memory. B7a has two routes.
+// Its cluster route (ct_sharded_check_and_update_cluster) is the cluster
+// kernel with kRows over the flattened [n, H] columns: a hit's cell is row
+// * (L + 1) + slot, so the rows' cells never share a segment. A coupled or
+// global batch of n * H <= 16,384 hits is ONE cluster: the rows' votes
+// meet in its shared memory (the pmin), and a global hit sums the live
+// partials of its slot over the rows before the first write (the psum).
+// A lean batch without a global hit is one cluster a row. The rows route
+// (ct_sharded_check_and_update) takes what the cluster cannot: the check
+// with kRows a row per block, plus kGlobal (the psum base from a pre-pass
+// launch) and kCoupled (the pmin across rows, with grid barriers under a
+// cooperative launch). B7c is the update with kRows, B7d the top-k with a
+// row index in the grid, and B7b a grid-stride clear of per-row slot
+// lists. Their bounds are the row kernels' bounds summed over the rows,
+// plus, for B7a's global variants, 8 bytes per row and distinct global
+// slot; latency, not bytes, keeps them above it, as for B1.
 //
 // B7b, B4d, B3a, B6c and B3b also take host lists by value
 // (ct_sharded_clear_host, ct_seed_slots_host, ct_read_slots_host,
@@ -273,7 +281,7 @@ struct Rows {
   int32_t* coupled;       // kCoupled: admitted[n*H], vote[n*H], flags[2]
 };
 
-// B7a is check_kernel<false, true, kGlobal, kCoupled>:
+// B7a's rows route is check_kernel<false, true, kGlobal, kCoupled>:
 // - lean (kCoupled false): request ids are row-local (< H) and each block
 //   runs its own fixpoint with __syncthreads_or, capped at H sweeps, as
 //   each device's while_loop does under shard_map. No block waits on
@@ -294,11 +302,11 @@ struct Rows {
 //   in the previous sweep by every block before the first barrier, is
 //   zeroed here). The cap is n*H sweeps, as the JAX loop's num_req. The
 //   barriers are cooperative_groups' grid sync under a cooperative
-//   launch, not a thread-block cluster: a cluster's blocks share at most
-//   8 SMs (16 with a non-portable size), and a block here holds up to
-//   128 KB of shared memory and 1024 threads, one block to an SM, so a
-//   cluster would cap n at 8; the grid barrier takes n up to the SM count
-//   (132), which the launcher checks before it launches.
+//   launch, which needs every row's block resident (the launcher checks
+//   n against the card's capacity before it launches). The cluster route
+//   (check_cluster_kernel with kRows) takes every batch of n * H <=
+//   16,384 hits instead, the card's largest cluster; this kernel keeps
+//   the rest: more rows, or rows past 2,048 hits at n = 8.
 template <bool kRemote, bool kRows = false, bool kGlobal = false,
           bool kCoupled = false>
 __global__ void __launch_bounds__(kThreads, 1) check_kernel(
@@ -546,19 +554,24 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// B1 on a thread-block cluster: check_cluster_kernel.
+// B1, B6a and B7a on thread-block clusters: check_cluster_kernel.
 //
-// The same function as check_kernel<false>, bit for bit, spread over one
-// cluster of k = ceil(H / 1024) blocks (up to 16, the H100's non-portable
-// cluster size, so H <= 16,384) on k SMs. Each thread owns one sorted
+// The same function as check_kernel<kRemote> (B1, B6a), bit for bit,
+// spread over one cluster of k = ceil(H / 1024) blocks (up to 16, the
+// H100's non-portable cluster size, so H <= 16,384) on k SMs. With kRows
+// it is B7a over the flattened [n, H] columns of the sharded table (the
+// sort key is the cell, row * (L + 1) + slot; lean ids become row * H +
+// id): one cluster of n * H hits for a coupled or global batch, or n
+// clusters of H, one a row, for a lean one. Each thread owns one sorted
 // position and one request id: block b owns positions and request ids
 // [b * per, b * per + per), per = ceil(H / k). Everything another thread
 // reads lives in shared memory; another block's arrays are reached
 // through distributed shared memory (cluster.map_shared_rank), and
 // cluster.sync() separates the phases. No device workspace.
 //   1. Stable sort by slot: an LSD radix sort of (slot, index) keys over
-//      the slot's bits (bit length of the scratch slot, in passes of at
-//      most 8 bits: 3 of 7 at C = 1 << 20). Within a block a key's rank
+//      the key's bits (bit length of the largest key, in passes of at
+//      most 8 bits: 3 of 7 at C = 1 << 20, and at 8 rows of 1 << 17 + 1
+//      cells). Within a block a key's rank
 //      among equal digits comes from __match_any_sync per warp and the
 //      warps' digit counts; across blocks from every block's digit counts
 //      read through DSMEM. Each key is stored into the block that owns
@@ -576,9 +589,17 @@ __global__ void __launch_bounds__(kThreads, 1) check_kernel(
 //      sweep), so a sweep needs two cluster barriers: after the scan
 //      totals (which also publish the previous sweep's flags) and after
 //      the votes. The sweep that finds nothing changed is the final
-//      scan. The cap is H sweeps, as the JAX while_loop's.
+//      scan. The cap is H sweeps, as the JAX while_loop's (B7a: n * H
+//      when coupled; H for lean rows, where a converged row's verdicts
+//      no longer change while other rows sweep on, so each row ends as
+//      its own loop would).
 //   4. Outputs as check_kernel's; each segment's last hit writes its
-//      cell; block 0 re-zeroes the scratch cell after the last barrier.
+//      cell (never a scratch cell); block 0 re-zeroes the scratch cells
+//      after the last barrier.
+// B6a's hooks read the remote lanes at the gather and floor the bucket
+// TAT at the base and at the write. B7a's global hits read the n live
+// partials of their slot at the gather, before the first barrier, so
+// before any block writes: no pre-pass launch.
 // Bound: the bytes of check_kernel; the barriers, about 2 per radix pass
 // and per sweep, are the cost.
 
@@ -588,24 +609,44 @@ constexpr int kClusterMaxBlocks = 16;
 constexpr int kClusterMaxHits = kClusterMaxBlocks * kThreads;
 
 struct ClusterPlan {
-  int blocks;   // k: the cluster, which is the whole grid
+  int blocks;   // k: one cluster (the whole grid, but for B7a's lean rows)
   int per;      // positions and request ids a block owns
   int threads;  // per, rounded up to whole warps
-  int passes;   // radix passes over the slot's bits
+  int passes;   // radix passes over the sort key's bits
   int width;    // bits a pass
+  int cap;      // most sweeps of the fixpoint
 };
 
-ClusterPlan cluster_plan(int H, int scratch) {
+// A cluster over H hits whose sort keys lie in [0, max_key].
+ClusterPlan cluster_plan(int H, int max_key, int cap) {
   ClusterPlan p;
   p.blocks = (H + kThreads - 1) / kThreads;
   p.per = (H + p.blocks - 1) / p.blocks;
   p.threads = (p.per + 31) / 32 * 32;
-  int bits = 1;  // slots lie in [0, scratch]
-  while (bits < 32 && ((uint32_t)scratch >> bits) != 0) ++bits;
+  int bits = 1;
+  while (bits < 32 && ((uint32_t)max_key >> bits) != 0) ++bits;
   p.passes = (bits + 7) / 8;
   p.width = (bits + p.passes - 1) / p.passes;
+  p.cap = cap;
   return p;
 }
+
+// What B6a and B7a add to B1's cluster kernel; B1's instance reads none
+// of it.
+struct ClusterHooks {
+  // kRemote (B6a): the remote lanes, int32[C+1] each, only read.
+  const int32_t* remote_vals;
+  const int32_t* remote_exp;
+  // kRows (B7a): the [n, H] hit columns over the int32[n, L+1] table; a
+  // hit of row r is the cell r * row_len + slot, each row's scratch its
+  // cell L.
+  const uint8_t* is_global;  // the global flags; null: no global hit
+  int rows;                  // n
+  int row_hits;              // H
+  int row_len;               // L + 1
+  int global_region;         // G <= L + 1
+  int lean;                  // request ids are row-local (< H)
+};
 
 // Dynamic shared memory of one block: keys[per] (uint64), five int32
 // arrays of per (scan prefixes, segment flags, segment window maxima, two
@@ -619,7 +660,7 @@ size_t cluster_smem(const ClusterPlan& p) {
 }
 
 const size_t kClusterSmemMax =
-    cluster_smem(ClusterPlan{kClusterMaxBlocks, kThreads, kThreads, 4, 8});
+    cluster_smem(ClusterPlan{kClusterMaxBlocks, kThreads, kThreads, 4, 8, 0});
 
 // Inclusive scan of one value a thread over the block (kMax: running max
 // of values >= 0, else wrapping uint32 sum); *total gets the block's
@@ -671,6 +712,11 @@ __device__ void smem_exscan(int32_t* a, int n, uint32_t* wsum) {
   __syncthreads();
 }
 
+// H is the hits of one cluster. kRows with several clusters (B7a's lean
+// rows without a global region) gives cluster c the hits [c * H, c * H +
+// H) of the flattened columns: one row each, no cluster reading another's
+// cells.
+template <bool kRemote, bool kRows>
 __global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
     int32_t* __restrict__ values, int32_t* __restrict__ expiry,
     int32_t* __restrict__ hits, const int32_t* __restrict__ slots,
@@ -679,7 +725,8 @@ __global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
     const uint8_t* __restrict__ fresh, const uint8_t* __restrict__ bucket,
     int H, int scratch, int32_t now, ClusterPlan plan,
     uint8_t* __restrict__ out_admitted, uint8_t* __restrict__ out_ok,
-    int32_t* __restrict__ out_remaining, int32_t* __restrict__ out_ttl) {
+    int32_t* __restrict__ out_remaining, int32_t* __restrict__ out_ttl,
+    ClusterHooks hk) {
   extern __shared__ uint64_t cl_smem[];
   __shared__ uint32_t wsum[32];
   __shared__ uint32_t off[kClusterMaxBlocks];  // earlier blocks' totals
@@ -705,12 +752,32 @@ __global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
   int32_t* tsum = cnt + bins;
   int32_t* dbase = tsum + bins;
   auto at = [&](auto* p, int rank) { return cluster.map_shared_rank(p, rank); };
+  int base = 0;  // the cluster's first hit in the flattened columns
+  if constexpr (kRows) {
+    base = (int)(blockIdx.x / k) * H;
+    slots += base;
+    deltas += base;
+    maxes += base;
+    windows += base;
+    req_ids += base;
+    fresh += base;
+    bucket += base;
+    if (hk.is_global != nullptr) hk.is_global += base;
+    out_admitted += base;
+    out_ok += base;
+    out_remaining += base;
+    out_ttl += base;
+  }
 
-  // 1. The radix sort.
+  // 1. The radix sort, of (cell, index) keys: the slot, or under kRows the
+  // hit's row * row_len + slot.
   uint32_t slot = 0;
   int idx = 0;
   if (live) {
     slot = (uint32_t)slots[lo + tid];
+    if constexpr (kRows) {
+      slot += (uint32_t)((base + lo + tid) / hk.row_hits * hk.row_len);
+    }
     idx = lo + tid;
   }
   const unsigned below = (1u << lane) - 1u;
@@ -785,7 +852,11 @@ __global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
   const int local_start = (int)block_scan1<true>((uint32_t)mark, wsum, &agg);
   if (tid == 0) sh_agg = (int32_t)agg;
   int32_t delta = 0, maxv = 0, win = 0, req = 0, v_raw = 0, e_raw = 0;
-  int flags = 0;  // 1 fresh, 2 bucket, 4 h_fresh, 8 expired
+  int flags = 0;  // 1 fresh, 2 bucket, 4 h_fresh, 8 expired, 16 global
+  bool is_scratch = false;
+  // B6a: the remote TAT (bucket) and the live remote sum (window); B7a:
+  // a global hit's base.
+  int32_t r_exp = 0, r_add = 0, g_base = 0;
   if (live) {
     delta = deltas[h];
     maxv = maxes[h];
@@ -794,6 +865,38 @@ __global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
     flags = (fresh[h] ? 1 : 0) | (bucket[h] ? 2 : 0);
     v_raw = values[s];
     e_raw = expiry[s];
+    if constexpr (kRows) {
+      const int row = s / hk.row_len;
+      const int local = s - row * hk.row_len;
+      is_scratch = local == hk.row_len - 1;
+      if (hk.lean) req += row * hk.row_hits - base;
+      if (hk.is_global != nullptr && hk.is_global[h]) {
+        // The psum base_hook: the wrapping sum over the rows of the live
+        // partials at the slot, read before any block writes the table
+        // (the writes follow the last sweep's barriers). Both cells are
+        // loaded unconditionally, so the rows' loads are in flight
+        // together.
+        flags |= 16;
+        const int g = imin(local, hk.global_region - 1);
+        uint32_t sum = 0;
+#pragma unroll 8
+        for (int r = 0; r < hk.rows; ++r) {
+          const size_t cell = (size_t)r * hk.row_len + g;
+          const int32_t e = expiry[cell], v = values[cell];
+          sum += now < e ? (uint32_t)v : 0u;
+        }
+        g_base = (int32_t)sum;
+      }
+    } else {
+      is_scratch = s == scratch;
+    }
+    if constexpr (kRemote) {
+      // B6a's hooks: bucket lanes floor their TAT at the remote TAT;
+      // window lanes add the live remote sum (now < remote_exp, strict),
+      // fresh slots included.
+      r_exp = hk.remote_exp[s];
+      if (!(flags & 2) && now < r_exp) r_add = hk.remote_vals[s];
+    }
     segf[tid] = 0;
     segw[tid] = kIntMin;
     adm[tid] = 1;
@@ -846,7 +949,7 @@ __global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
       if (lane == 0) sh_any = any;
     }
     __syncthreads();
-    if (sweep > 0 && (!sh_any || sweep >= H)) break;
+    if (sweep > 0 && (!sh_any || sweep >= plan.cap)) break;
     if (sweep == 0 && live) {
       // The effective base per hit: the window value, or the GCRA spent
       // count.
@@ -855,13 +958,15 @@ __global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
       const int32_t e_eff = h_fresh ? wadd(win, now) : e_raw;
       const bool expired = e_eff <= now;
       const int32_t v_window = (expired || h_fresh) ? 0 : v_raw;
-      const int32_t tat_eff = h_fresh ? 0 : e_raw;
+      int32_t tat_eff = h_fresh ? 0 : e_raw;
+      if (kRemote && is_bucket) tat_eff = imax(tat_eff, r_exp);
       base_rel = imax(wsub(tat_eff, now), 0);
       const int32_t ival = imax(win, 1);
       const int32_t tau = wmul(wsub(maxv, 1), is_bucket ? win : 0);
       const int32_t spent =
           wsub(maxv, wadd(floordiv(wsub(tau, base_rel), ival), 1));
-      v_eff = is_bucket ? spent : v_window;
+      v_eff = is_bucket ? spent : (kRemote ? wadd(v_window, r_add) : v_window);
+      if (kRows && (flags & 16)) v_eff = g_base;
       flags |= (h_fresh ? 4 : 0) | (expired ? 8 : 0);
     }
     if (live) {
@@ -905,7 +1010,7 @@ __global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
     if (w > *st_segw) atomicMax(st_segw, w);
   }
   cluster.sync();  // segment aggregates complete
-  if (live && is_end && s != scratch) {
+  if (live && is_end && !is_scratch) {
     const bool is_bucket = flags & 2, h_fresh = flags & 4;
     const int32_t seg_flags = *st_segf;
     const bool h_adm = seg_flags & 2;
@@ -917,7 +1022,11 @@ __global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
     const bool reset = is_bucket ? (h_adm || h_fresh)
                                  : ((h_adm && starts_fresh) || h_fresh);
     if (reset) {
-      const int32_t tat_base = imax(h_fresh ? 0 : e_raw, now);
+      int32_t tat_eff = h_fresh ? 0 : e_raw;
+      // B6a: the write base is the floored TAT, so the local cell
+      // persists the join of local and remote state.
+      if (kRemote && is_bucket) tat_eff = imax(tat_eff, r_exp);
+      const int32_t tat_base = imax(tat_eff, now);
       expiry[s] = is_bucket ? wadd(tat_base, wmul(h_total, win))
                             : wadd(*st_segw, now);
     }
@@ -925,7 +1034,18 @@ __global__ void __launch_bounds__(kThreads, 1) check_cluster_kernel(
     hits[s] = wadd(base_hits, i - start + 1);
   }
   cluster.sync();  // no block leaves while another reads its memory
-  if (b == 0 && tid == 0) {
+  if constexpr (kRows) {
+    // Every row the cluster covers re-zeroes its scratch cell.
+    if (b == 0) {
+      const int last = (base + H - 1) / hk.row_hits;
+      for (int r = base / hk.row_hits + tid; r <= last; r += blockDim.x) {
+        const size_t cell = (size_t)r * hk.row_len + hk.row_len - 1;
+        values[cell] = 0;
+        expiry[cell] = 0;
+        hits[cell] = 0;
+      }
+    }
+  } else if (b == 0 && tid == 0) {
     values[scratch] = 0;
     expiry[scratch] = 0;
     hits[scratch] = 0;
@@ -1493,25 +1613,27 @@ int launch_check(void* values, void* expiry, void* hits,
   return (int)cudaGetLastError();
 }
 
-// Whether the card places a cluster of `blocks` blocks of check_cluster_kernel
-// at the largest block it may launch at that size (1024 threads and
-// kClusterSmemMax bytes, one block to an SM): cudaOccupancyMaxActiveClusters,
-// asked once per card and size. 1 yes, 0 no, a negative CUDA error.
+// Whether the card places a cluster of `blocks` blocks of this
+// check_cluster_kernel instance at the largest block it may launch at that
+// size (1024 threads and kClusterSmemMax bytes, one block to an SM):
+// cudaOccupancyMaxActiveClusters, asked once per card, instance and size.
+// 1 yes, 0 no, a negative CUDA error.
+template <bool kRemote, bool kRows>
 int cluster_room(int blocks) {
   constexpr int kDevices = 64;
   static int room[kDevices][kClusterMaxBlocks + 1];  // 0 unknown, 1 yes, 2 no
+  auto kernel = check_cluster_kernel<kRemote, kRows>;
   int device = 0;
   cudaError_t rc = cudaGetDevice(&device);
   if (rc != cudaSuccess) return -(int)rc;
   int* known = device < kDevices ? &room[device][blocks] : nullptr;
   if (known && *known) return *known == 1;
-  rc = cudaFuncSetAttribute(check_cluster_kernel,
+  rc = cudaFuncSetAttribute(kernel,
                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                             (int)kClusterSmemMax);
   if (rc == cudaSuccess) {
-    rc = cudaFuncSetAttribute(check_cluster_kernel,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed,
-                              1);
+    rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
   if (rc != cudaSuccess) return -(int)rc;
   cudaLaunchConfig_t cfg = {};
@@ -1526,7 +1648,7 @@ int cluster_room(int blocks) {
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   int clusters = 0;
-  rc = cudaOccupancyMaxActiveClusters(&clusters, check_cluster_kernel, &cfg);
+  rc = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (rc != cudaSuccess) {
     cudaGetLastError();
     return -(int)rc;
@@ -1535,19 +1657,26 @@ int cluster_room(int blocks) {
   return clusters > 0;
 }
 
-// B1 on a cluster of ceil(H / 1024) blocks, H <= kClusterMaxHits. A cluster
-// the card cannot place is refused (cudaErrorInvalidClusterSize) before
-// any launch; so is one the launch itself refuses.
+// check_cluster_kernel on `clusters` clusters of ceil(H / 1024) blocks
+// each, H <= kClusterMaxHits hits a cluster, sort keys in [0, max_key].
+// B1 and B6a pass one cluster and max_key = scratch. A cluster the card
+// cannot place is refused (cudaErrorInvalidClusterSize) before any
+// launch; so is one the launch itself refuses.
+template <bool kRemote, bool kRows>
 int launch_check_cluster(void* values, void* expiry, void* hits,
                          const void* slots, const void* deltas,
                          const void* maxes, const void* windows,
                          const void* req_ids, const void* fresh,
-                         const void* bucket, int H, int scratch, int now_ms,
-                         void* out_admitted, void* out_ok,
-                         void* out_remaining, void* out_ttl, void* stream) {
-  if (H < 1 || H > kClusterMaxHits) return (int)cudaErrorInvalidValue;
-  const ClusterPlan p = cluster_plan(H, scratch);
-  const int room = cluster_room(p.blocks);
+                         const void* bucket, int H, int clusters,
+                         int scratch, int max_key, int cap, int now_ms,
+                         const ClusterHooks& hk, void* out_admitted,
+                         void* out_ok, void* out_remaining, void* out_ttl,
+                         void* stream) {
+  if (H < 1 || H > kClusterMaxHits || clusters < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ClusterPlan p = cluster_plan(H, max_key, cap);
+  const int room = cluster_room<kRemote, kRows>(p.blocks);
   if (room < 0) return -room;
   if (room == 0) return (int)cudaErrorInvalidClusterSize;
   cudaLaunchConfig_t cfg = {};
@@ -1556,19 +1685,19 @@ int launch_check_cluster(void* values, void* expiry, void* hits,
   attr.val.clusterDim.x = p.blocks;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
-  cfg.gridDim = dim3(p.blocks);
+  cfg.gridDim = dim3(p.blocks * clusters);
   cfg.blockDim = dim3(p.threads);
   cfg.dynamicSmemBytes = cluster_smem(p);
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const cudaError_t rc = cudaLaunchKernelEx(
-      &cfg, check_cluster_kernel, (int32_t*)values, (int32_t*)expiry,
-      (int32_t*)hits, (const int32_t*)slots, (const int32_t*)deltas,
-      (const int32_t*)maxes, (const int32_t*)windows,
+      &cfg, check_cluster_kernel<kRemote, kRows>, (int32_t*)values,
+      (int32_t*)expiry, (int32_t*)hits, (const int32_t*)slots,
+      (const int32_t*)deltas, (const int32_t*)maxes, (const int32_t*)windows,
       (const int32_t*)req_ids, (const uint8_t*)fresh, (const uint8_t*)bucket,
       H, scratch, (int32_t)now_ms, p, (uint8_t*)out_admitted,
-      (uint8_t*)out_ok, (int32_t*)out_remaining, (int32_t*)out_ttl);
+      (uint8_t*)out_ok, (int32_t*)out_remaining, (int32_t*)out_ttl, hk);
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
@@ -1945,10 +2074,10 @@ int ct_check_and_update_cluster(void* values, void* expiry, void* hits,
                                 int now_ms, void* out_admitted, void* out_ok,
                                 void* out_remaining, void* out_ttl,
                                 void* stream) {
-  return launch_check_cluster(values, expiry, hits, slots, deltas, maxes,
-                              windows, req_ids, fresh, bucket, H, scratch,
-                              now_ms, out_admitted, out_ok, out_remaining,
-                              out_ttl, stream);
+  return launch_check_cluster<false, false>(
+      values, expiry, hits, slots, deltas, maxes, windows, req_ids, fresh,
+      bucket, H, 1, scratch, scratch, H, now_ms, ClusterHooks{},
+      out_admitted, out_ok, out_remaining, out_ttl, stream);
 }
 
 // B6a (_replicated_check, tpu/replicated.py:55-93): B1 over the merged
@@ -1965,6 +2094,26 @@ int ct_check_and_update_replicated(
                             bucket, H, scratch, now_ms, workspace,
                             out_admitted, out_ok, out_remaining, out_ttl,
                             stream);
+}
+
+// B6a on the thread-block cluster (check_cluster_kernel with its hooks),
+// 1 <= H <= kClusterMaxHits (the wrapper routes as B1): the arguments of
+// ct_check_and_update_replicated but the workspace, which it does not
+// need.
+int ct_check_and_update_replicated_cluster(
+    void* values, void* expiry, void* hits, const void* remote_vals,
+    const void* remote_exp, const void* slots, const void* deltas,
+    const void* maxes, const void* windows, const void* req_ids,
+    const void* fresh, const void* bucket, int H, int scratch, int now_ms,
+    void* out_admitted, void* out_ok, void* out_remaining, void* out_ttl,
+    void* stream) {
+  ClusterHooks hk{};
+  hk.remote_vals = (const int32_t*)remote_vals;
+  hk.remote_exp = (const int32_t*)remote_exp;
+  return launch_check_cluster<true, false>(
+      values, expiry, hits, slots, deltas, maxes, windows, req_ids, fresh,
+      bucket, H, 1, scratch, scratch, H, now_ms, hk, out_admitted, out_ok,
+      out_remaining, out_ttl, stream);
 }
 
 int ct_update(void* values, void* expiry, void* hits, const void* slots,
@@ -2091,11 +2240,11 @@ int ct_drain_top_hits(void* hits, int n, int k, void* workspace,
   return (int)cudaGetLastError();
 }
 
-// B7a (_local_step + sharded_check_and_update, parallel/mesh.py:399-504):
-// B1 on each row of the int32[n, L+1] table, one block per row, in one
-// launch (two with has_global: the live-partial sums first). The bool
-// columns are uint8. admitted is uint8[n*H] when coupled and
-// uint8[n, H] when lean; ok, remaining and ttl_ms are [n, H].
+// B7a (_local_step + sharded_check_and_update, parallel/mesh.py:399-504),
+// its rows route: B1 on each row of the int32[n, L+1] table, one block
+// per row, in one launch (two with has_global: the live-partial sums
+// first). The bool columns are uint8. admitted is uint8[n*H] when coupled
+// and uint8[n, H] when lean; ok, remaining and ttl_ms are [n, H].
 long long ct_sharded_check_workspace_bytes(int n, int H, int G) {
   return (long long)sharded_check_ws(n, H, G);
 }
@@ -2123,6 +2272,39 @@ int ct_sharded_check_and_update(
   }
   return has_global ? go(launch_sharded_check<true, false>)
                     : go(launch_sharded_check<false, false>);
+}
+
+// B7a on thread-block clusters over the flattened [n, H] columns (no
+// workspace, no pre-pass, no grid barrier): coupled or global batches run
+// one cluster over all n * H <= kClusterMaxHits hits, so the rows' votes
+// meet in its shared memory and the global sums are read before any
+// write; lean batches without a global hit run n clusters of H <=
+// kClusterMaxHits hits, one a row. The arguments of
+// ct_sharded_check_and_update but the workspace.
+int ct_sharded_check_and_update_cluster(
+    void* values, void* expiry, void* hits, const void* slots,
+    const void* deltas, const void* maxes, const void* windows,
+    const void* req_ids, const void* fresh, const void* bucket,
+    const void* is_global, int n, int H, int L, int now_ms, int G,
+    int has_global, int coupled, void* out_admitted, void* out_ok,
+    void* out_remaining, void* out_ttl, void* stream) {
+  if (n < 1 || H < 1 || L < 0 || (long long)n * (L + 1) > 0x7fffffffLL ||
+      (long long)n * H > 0x7fffffffLL || (has_global && G < 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool one = coupled || has_global;
+  ClusterHooks hk{};
+  hk.is_global = has_global ? (const uint8_t*)is_global : nullptr;
+  hk.rows = n;
+  hk.row_hits = H;
+  hk.row_len = L + 1;
+  hk.global_region = G;
+  hk.lean = !coupled;
+  return launch_check_cluster<false, true>(
+      values, expiry, hits, slots, deltas, maxes, windows, req_ids, fresh,
+      bucket, one ? n * H : H, one ? 1 : n, L, n * (L + 1) - 1,
+      coupled ? n * H : H, now_ms, hk, out_admitted, out_ok, out_remaining,
+      out_ttl, stream);
 }
 
 // B7c: B2 on each row, one block per row, one launch.

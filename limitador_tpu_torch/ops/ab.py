@@ -9,7 +9,15 @@ calls after 5 of warm-up), the inputs made from one numpy seed:
 
 - B1 at H = 8192 and 16,384 hits over a 1<<20-counter table (the call,
   through each tree's own route: the thread-block cluster where the tree
-  has it, else the one-block kernel) and B6a at 8192;
+  has it, else the one-block kernel) and B6a at 8192 and 16,384 (the
+  call and, from ``torch.profiler``, the kernel alone: ``b6a_kernel_ms``,
+  ``b6a_16384_kernel_ms``);
+- B7a coupled + global over an [8, 1<<17 + 1] table at 1024 and 2048
+  hits a row, through each tree's own route (one cluster over the rows
+  where the tree has it, else one block a row with the pre-pass): the
+  call (``b7a_1024_ms``, ``b7a_2048_ms``) and the kernels alone
+  (``b7a_1024_kernel_ms``, ``b7a_2048_kernel_ms``: every kernel of the
+  call, the pre-pass included);
 - B7b over an [8, 1<<17 + 1] table: the device-tensor call at [8, 64]
   (``b7b_call_ms``), the same list from a numpy array to the launched
   kernel (``b7b_path_ms``) and one evicted global slot on every row
@@ -110,6 +118,26 @@ args2 = [torch.from_numpy(a).to(dev) for a in (
 b1 = lambda t: K.check_and_update_batch(t, *args, now)
 b1_big = lambda t: K.check_and_update_batch(t, *args2, now)
 b6a = lambda t: K.replicated_check_batch(t, *remote, *args, now)
+b6a_big = lambda t: K.replicated_check_batch(t, *remote, *args2, now)
+
+
+def kernel_ms(fn, setup=table, reps=10):
+    """Device time per call of the kernels fn launches (profiler), each
+    call on a fresh table made before the profiled range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tables = [setup() for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in tables:
+            fn(t)
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0.0))
+                for e in prof.key_averages() if "kernel" in e.key)
+    return total / reps / 1e3 if total > 0 else None
+
+
 exact = True
 for cols_ in (args, args2):
     ta, tb = table(), table()
@@ -117,11 +145,12 @@ for cols_ in (args, args2):
     rb = K.check_and_update_plain(tb, *cols_, now)
     exact = exact and all(torch.equal(x, y) for x, y in zip(
         list(ra) + list(ta), list(rb) + list(tb)))
-ta, tb = table(), table()
-_, ra = K.replicated_check_batch(ta, *remote, *args, now)
-rb = K.replicated_check_plain(tb, *remote, *args, now)
-exact = exact and all(torch.equal(x, y) for x, y in zip(
-    list(ra) + list(ta), list(rb) + list(tb)))
+for cols_ in (args, args2):
+    ta, tb = table(), table()
+    _, ra = K.replicated_check_batch(ta, *remote, *cols_, now)
+    rb = K.replicated_check_plain(tb, *remote, *cols_, now)
+    exact = exact and all(torch.equal(x, y) for x, y in zip(
+        list(ra) + list(ta), list(rb) + list(tb)))
 
 # B7b and B4d: the device-tensor call, and the tree's path from host lists
 host = hasattr(K, "TableContext")
@@ -162,15 +191,72 @@ def parent_seed(t):
                               for a, f in zip(seed, fills))))
 
 
+def b7a_cols(Hs):
+    """Coupled + global [n, Hs] columns: requests of one to three hits on
+    random rows (ids < n*Hs) and distinct cells, 30% of hits on global
+    slots (< 1024, max 100), the rest Zipf over [1024, L) (max 10 or 100,
+    window 60 s)."""
+    cols = [[[] for _ in range(n)] for _ in range(8)]
+    r = 0
+    while True:
+        rows_ = rng.integers(0, n, int(rng.integers(1, 4)))
+        if any(len(cols[0][x]) + int((rows_ == x).sum()) > Hs - 1
+               for x in rows_):
+            break
+        mine = set()
+        for x in rows_:
+            glob = rng.random() < 0.3
+            slot = (int(rng.integers(0, 1024)) if glob
+                    else int(min(1024 + rng.zipf(1.2) - 1, L - 1)))
+            if (x, slot) in mine:
+                continue
+            mine.add((x, slot))
+            for c, v in zip(cols, (slot, int(rng.integers(0, 3)),
+                                   100 if glob else int(rng.choice([10, 100])),
+                                   60_000, r, rng.random() < 0.05, False,
+                                   glob)):
+                c[x].append(v)
+        r += 1
+    out = []
+    for c, fill, dt in zip(cols, (L, 0, 2**31 - 1, 0, n * Hs - 1, False,
+                                  False, False),
+                           (np.int32,) * 5 + (bool,) * 3):
+        a = np.full((n, Hs), fill, dt)
+        for x in range(n):
+            a[x, :len(c[x])] = c[x]
+        out.append(torch.from_numpy(a).to(dev))
+    return out
+
+
+times = {}
+for Hs in (1024, 2048):
+    cols_ = b7a_cols(Hs)
+    b7a = lambda t, c=cols_: M.sharded_check_and_update(
+        t, *c, now, global_region=1024, coupled=True, has_global=True)
+    ta, tb = stable(), stable()
+    _, ra = b7a(ta)
+    rb = M.sharded_check_and_update_plain(tb, *cols_, now, 1024, True, True)
+    exact = exact and all(torch.equal(x, y) for x, y in zip(
+        list(ra) + list(ta), list(rb) + list(tb)))
+    times[f"b7a_{Hs}_ms"] = median_ms(b7a, stable)
+    times[f"b7a_{Hs}_kernel_ms"] = kernel_ms(b7a, stable)
+    times[f"b7a_{Hs}_route"] = getattr(
+        M, "sharded_check_route", lambda *a: "rows")(n, Hs, True, True)
+
 d_rows = torch.from_numpy(rows).to(dev)
 d_seed = pinned(*(np.concatenate([a, np.full(7, f, np.int32)])
                   for a, f in zip(seed, (C, 0, 0))))
-times = {"b1_ms": median_ms(b1), "b1_16384_ms": median_ms(b1_big),
-         "b1_route": getattr(K, "check_route", lambda H: "block")(H),
-         "b6a_ms": median_ms(b6a),
-         "b7b_call_ms": median_ms(lambda t: M.sharded_clear_cells(t, d_rows),
-                                  stable),
-         "b4d_call_ms": median_ms(lambda t: K.seed_slots(t, *d_seed))}
+times.update({
+    "b1_ms": median_ms(b1), "b1_16384_ms": median_ms(b1_big),
+    "b1_route": getattr(K, "check_route", lambda H: "block")(H),
+    "b6a_ms": median_ms(b6a), "b6a_kernel_ms": kernel_ms(b6a),
+    "b6a_16384_ms": median_ms(b6a_big),
+    "b6a_16384_kernel_ms": kernel_ms(b6a_big),
+    "b6a_route": ("cluster" if "replicated_check_cluster" in K.launches
+                  else "block"),
+    "b7b_call_ms": median_ms(lambda t: M.sharded_clear_cells(t, d_rows),
+                             stable),
+    "b4d_call_ms": median_ms(lambda t: K.seed_slots(t, *d_seed))})
 if host:
     times.update(
         b7b_path_ms=median_ms(

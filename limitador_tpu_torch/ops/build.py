@@ -50,6 +50,9 @@ _SIGNATURES = {
     "ct_check_and_update_replicated": (
         _I, [_P] * 12 + [_I, _I, _I] + [_P] * 6,
     ),
+    "ct_check_and_update_replicated_cluster": (
+        _I, [_P] * 12 + [_I, _I, _I] + [_P] * 5,
+    ),
     "ct_update_replicated": (_I, [_P] * 9 + [_I, _I, _I] + [_P] * 2),
     "ct_apply_remote": (_I, [_P] * 5 + [_I, _P]),
     "ct_read_slots": (_I, [_P, _P, _P, _I, _I, _P, _P, _P]),
@@ -65,6 +68,9 @@ _SIGNATURES = {
     "ct_sharded_coupled_capacity": (_I, [_I, _I]),
     "ct_sharded_check_and_update": (
         _I, [_P] * 11 + [_I] * 7 + [_P] * 6,
+    ),
+    "ct_sharded_check_and_update_cluster": (
+        _I, [_P] * 11 + [_I] * 7 + [_P] * 5,
     ),
     "ct_sharded_update_workspace_bytes": (ctypes.c_longlong, [_I, _I]),
     "ct_sharded_update": (_I, [_P] * 8 + [_I] * 4 + [_P] * 2),

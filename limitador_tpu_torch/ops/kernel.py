@@ -34,13 +34,15 @@ their launches under keys of their own (``read_slots_host``,
 ``apply_remote_host``, ``clear_slots_host``), so a run shows which form
 its path took.
 
-B1 has two CUDA kernels, chosen by the batch's hit count H alone
-(``check_route``): a thread-block cluster (``check_cluster_kernel``,
-launches counted as ``check_and_update_cluster``) for ``CLUSTER_MIN_HITS
-<= H <= CLUSTER_MAX_HITS`` (1,024 to 16,384: the drives' 8192-hit
-batches), and the one-block ``check_kernel`` (``check_and_update``)
-elsewhere (the served paths' small batches, and batches past the
-cluster's capacity).
+B1 and B6a each have two CUDA kernels, chosen by the batch's hit count H
+alone (``check_route``): a thread-block cluster (``check_cluster_kernel``,
+launches counted as ``check_and_update_cluster`` and
+``replicated_check_cluster``) for ``CLUSTER_MIN_HITS <= H <=
+CLUSTER_MAX_HITS`` (1,024 to 16,384: the drives' 8192-hit batches), and
+the one-block ``check_kernel`` (``check_and_update``,
+``replicated_check``) elsewhere (the served paths' small batches, and
+batches past the cluster's capacity). B7a's routes are in
+``parallel/mesh.py`` (``sharded_check_route``).
 
 The JAX programs donate the table (``donate_argnums=(0,)``) and return a
 new state. Here every function that writes the table updates its tensors
@@ -140,12 +142,14 @@ launches = {
     "credit": 0,
     "seed_slots": 0,
     "drain_top_hits": 0,
-    "replicated_check": 0,
+    "replicated_check": 0,  # B6a, one block (check_kernel<true>)
+    "replicated_check_cluster": 0,  # B6a, a cluster (its hooks)
     "replicated_update": 0,
     "apply_remote": 0,
     "apply_remote_host": 0,  # B6c's host form
     # B7a-d, the sharded table (parallel/mesh.py)
-    "sharded_check_and_update": 0,
+    "sharded_check_and_update": 0,  # B7a, one block a row
+    "sharded_check_and_update_cluster": 0,  # B7a, thread-block clusters
     "sharded_clear_cells": 0,
     "sharded_update": 0,
     "sharded_drain_top_hits": 0,
@@ -1176,11 +1180,16 @@ def replicated_check_batch(
     fresh: torch.Tensor,
     bucket: torch.Tensor,
     now_ms: int,
+    route: Optional[str] = None,
 ) -> Tuple[CounterTableState, BatchResult]:
     """B1 with the gossip hooks (the JAX ``_replicated_check``): window
     lanes read their base as local + live remote sum, bucket lanes read
     and write from max(local TAT, remote TAT). The remote lanes are only
-    read. Updates ``state`` in place."""
+    read. Updates ``state`` in place. On the card ``route`` picks the
+    kernel as B1's does: None takes ``check_route(H)`` (the cluster from
+    1,024 to 16,384 hits, else one block); "block" or "cluster" forces
+    one; a cluster past ``CLUSTER_MAX_HITS`` or one the card cannot place
+    raises."""
     if not _on_cuda(state.values):
         return state, replicated_check_plain(
             state, remote_vals, remote_exp, slots, deltas, maxes,
@@ -1199,24 +1208,32 @@ def replicated_check_batch(
     _require(bucket, "bucket", torch.bool, H, dev)
     if H < 1:
         raise ValueError("replicated_check_batch needs at least one hit")
+    route = check_route(H) if route is None else route
+    if route not in ("block", "cluster"):
+        raise ValueError(f"replicated_check_batch: no route {route!r}")
     lib = build.library()
-    workspace = torch.empty(
-        lib.ct_check_workspace_bytes(H), dtype=torch.uint8, device=dev
-    )
     result = BatchResult(
         torch.empty(H, dtype=torch.bool, device=dev),
         torch.empty(H, dtype=torch.bool, device=dev),
         torch.empty(H, dtype=_I32, device=dev),
         torch.empty(H, dtype=_I32, device=dev),
     )
+    head = [t.data_ptr() for t in (*state, remote_vals, remote_exp, slots,
+                                   deltas, maxes, windows_ms, req_ids,
+                                   fresh, bucket)]
+    tail = [t.data_ptr() for t in result]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "cluster":
+        build.check(lib.ct_check_and_update_replicated_cluster(
+            *head, H, n - 1, _now(now_ms), *tail, stream,
+        ), "ct_check_and_update_replicated_cluster")
+        launches["replicated_check_cluster"] += 1
+        return state, result
+    workspace = torch.empty(
+        lib.ct_check_workspace_bytes(H), dtype=torch.uint8, device=dev
+    )
     build.check(lib.ct_check_and_update_replicated(
-        *(t.data_ptr() for t in state),
-        remote_vals.data_ptr(), remote_exp.data_ptr(),
-        *(t.data_ptr() for t in (slots, deltas, maxes, windows_ms, req_ids,
-                                 fresh, bucket)),
-        H, n - 1, _now(now_ms), workspace.data_ptr(),
-        *(t.data_ptr() for t in result),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *head, H, n - 1, _now(now_ms), workspace.data_ptr(), *tail, stream,
     ), "ct_check_and_update_replicated")
     launches["replicated_check"] += 1
     return state, result

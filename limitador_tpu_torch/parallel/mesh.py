@@ -10,10 +10,23 @@ reductions across rows inside the kernels:
 
 - the coupled variant's ``pmin`` (a request spanning shards is admitted
   only if every shard votes for it, in every sweep of the admission
-  fixpoint) is a grid-wide AND of the rows' votes;
+  fixpoint) is an AND of the rows' votes;
 - the global region's ``psum`` (a global counter's base is the sum of
-  every shard's live partial) is a pre-pass over the first
-  ``global_region`` columns of every row.
+  every shard's live partial) is a sum over the rows of the first
+  ``global_region`` columns, read before the step writes any row.
+
+B7a has two CUDA kernels, chosen by a rule on the batch's shape
+(``sharded_check_route``). The "cluster" route is B1's thread-block
+cluster over the flattened columns: a coupled or global batch of n*H <=
+16,384 hits is one cluster, whose shared memory holds every row's votes
+and whose hits read the global sums before its barriers let any write
+through; a lean batch without a global hit is one cluster a row, B1's
+route per row (1,024 to 16,384 hits). It needs no workspace, no pre-pass
+and no grid barrier (launches counted as
+``sharded_check_and_update_cluster``). The "rows" route is one block a
+row (``sharded_check_and_update``): lean rows run alone, the global sums
+come from a pre-pass launch, and coupled rows meet at grid barriers
+under a cooperative launch, which needs every row's block resident.
 
 Column L of each row is that shard's scratch cell. Batch columns are
 [n, H]: row s holds shard s's hits, padded with slot L, delta 0, max
@@ -34,7 +47,7 @@ is not ported yet (ROADMAP Queue A).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +70,7 @@ __all__ = [
     "sharded_drain_top_hits",
     "sharded_drain_top_hits_plain",
     "coupled_row_capacity",
+    "sharded_check_route",
 ]
 
 _I32 = torch.int32
@@ -205,6 +219,22 @@ def coupled_row_capacity(H: int, has_global: bool, device) -> int:
     return got
 
 
+def sharded_check_route(n: int, H: int, coupled: bool,
+                        has_global: bool) -> str:
+    """B7a's CUDA kernel for an [n, H] batch: "cluster" or "rows" (one
+    block a row). Coupled and global batches take one cluster over the
+    n*H hits up to ``K.CLUSTER_MAX_HITS``, with no low edge: down to 8
+    rows of 8 hits its call, one launch with no workspace, was faster
+    than the rows route's, and its kernel faster for coupled batches and
+    at most 5 us slower for lean global ones (PERF.md §6). Lean batches
+    without a global hit take one cluster a row where B1 takes its
+    cluster (``K.check_route(H)``). A rule on the shape alone: both
+    kernels compute the same function."""
+    if coupled or has_global:
+        return "cluster" if n * H <= K.CLUSTER_MAX_HITS else "rows"
+    return "cluster" if K.check_route(H) == "cluster" else "rows"
+
+
 def sharded_check_and_update(
     state: ShardedCounterState,
     slots: torch.Tensor,       # int32[n, H] owner-row slot per hit
@@ -219,14 +249,18 @@ def sharded_check_and_update(
     global_region: int = 1024,
     coupled: bool = True,
     has_global: bool = True,
+    route: Optional[str] = None,
 ) -> Tuple[ShardedCounterState, ShardedBatchResult]:
     """One check-and-update step over every row of the sharded table (the
     JAX ``sharded_check_and_update``): ``coupled`` batches use request
     ids below n*H and return ``admitted[n*H]``; lean ones use row-local
     ids below H and return ``admitted[n, H]``. ``has_global`` reads the
     base of a hit flagged global as the live psum of its slot over the
-    rows. Updates ``state`` in place. A coupled launch raises when its n
-    blocks cannot all be resident on the card."""
+    rows. Updates ``state`` in place. On the card ``route`` picks the
+    kernel: None takes ``sharded_check_route``; "cluster" or "rows"
+    forces one. A cluster past its capacity or one the card cannot place
+    raises, and so does a coupled "rows" launch whose n blocks cannot all
+    be resident on the card."""
     if not K._on_cuda(state.values):
         return state, sharded_check_and_update_plain(
             state, slots, deltas, maxes, windows_ms, req_ids, fresh, bucket,
@@ -252,7 +286,30 @@ def sharded_check_and_update(
     G = min(int(global_region), L + 1)
     if has_global and G < 1:
         raise ValueError(f"global_region {global_region} < 1")
+    route = (sharded_check_route(n, H, coupled, has_global)
+             if route is None else route)
+    if route not in ("rows", "cluster"):
+        raise ValueError(f"sharded_check_and_update: no route {route!r}")
     lib = build.library()
+    result = ShardedBatchResult(
+        torch.empty(n * H if coupled else (n, H), dtype=torch.bool,
+                    device=dev),
+        torch.empty((n, H), dtype=torch.bool, device=dev),
+        torch.empty((n, H), dtype=_I32, device=dev),
+        torch.empty((n, H), dtype=_I32, device=dev),
+    )
+    columns = [t.data_ptr() for t in (*state, slots, deltas, maxes,
+                                      windows_ms, req_ids, fresh, bucket,
+                                      is_global)]
+    shape = (n, H, L, K._now(now_ms), max(G, 0), int(has_global),
+             int(coupled))
+    outputs = [t.data_ptr() for t in result]
+    if route == "cluster":
+        build.check(lib.ct_sharded_check_and_update_cluster(
+            *columns, *shape, *outputs, _stream(dev),
+        ), "ct_sharded_check_and_update_cluster")
+        K.launches["sharded_check_and_update_cluster"] += 1
+        return state, result
     if coupled:
         fits = coupled_row_capacity(H, bool(has_global), dev)
         if n > fits:
@@ -264,19 +321,8 @@ def sharded_check_and_update(
         lib.ct_sharded_check_workspace_bytes(n, H, max(G, 0)),
         dtype=torch.uint8, device=dev,
     )
-    result = ShardedBatchResult(
-        torch.empty(n * H if coupled else (n, H), dtype=torch.bool,
-                    device=dev),
-        torch.empty((n, H), dtype=torch.bool, device=dev),
-        torch.empty((n, H), dtype=_I32, device=dev),
-        torch.empty((n, H), dtype=_I32, device=dev),
-    )
     build.check(lib.ct_sharded_check_and_update(
-        *(t.data_ptr() for t in state),
-        *(t.data_ptr() for t in (slots, deltas, maxes, windows_ms, req_ids,
-                                 fresh, bucket, is_global)),
-        n, H, L, K._now(now_ms), max(G, 0), int(has_global), int(coupled),
-        workspace.data_ptr(), *(t.data_ptr() for t in result), _stream(dev),
+        *columns, *shape, workspace.data_ptr(), *outputs, _stream(dev),
     ), "ct_sharded_check_and_update")
     K.launches["sharded_check_and_update"] += 1
     return state, result

@@ -28,6 +28,7 @@ from .torch_batches import (
     check_case,
     credit_batch,
     dirty_scratch,
+    divergent_lean_batch,
     hits_column,
     lanes,
     remote_lanes,
@@ -319,12 +320,15 @@ def test_replicated_check_kernel_matches_plain(cuda, H):
     zero_a, zero_b = _state(tab, cuda), _state(tab, cuda)
     remote = (torch.from_numpy(rv).to(cuda), torch.from_numpy(re).to(cuda))
     zeros = tuple(torch.zeros_like(t) for t in remote)
+    # the route by H, as B1's: the cluster from 1,024 to 16,384 hits
+    key = ("replicated_check_cluster" if K.check_route(H) == "cluster"
+           else "replicated_check")
     for _round in range(3):
         arrays = tuple(torch.from_numpy(a).to(cuda)
                        for a in batch(rng, H, slot_lanes, n_slots))
-        before = K.launches["replicated_check"]
+        before = K.launches[key]
         _, got = K.replicated_check_batch(ka, *remote, *arrays, now_ms)
-        assert K.launches["replicated_check"] == before + 1
+        assert K.launches[key] == before + 1
         want = K.replicated_check_plain(pb, *remote, *arrays, now_ms)
         _equal(got, want)
         _equal(ka, pb)
@@ -333,6 +337,47 @@ def test_replicated_check_kernel_matches_plain(cuda, H):
         _equal(got, want)
         _equal(zero_a, zero_b)
         now_ms += 700
+
+
+@pytest.mark.parametrize("H", [1024, 8192, 16384, 16385])
+def test_replicated_check_cluster_kernel_matches_plain(cuda, H):
+    """B6a's two kernels (the cluster with the gossip hooks, and the one
+    block) against the plain version on the same batches, over remote
+    lanes with live and expired sums, bucket floors and sums past 2**31:
+    every output and the final table, two rounds on one table. Past
+    16,384 hits the wrapper takes the one block and forcing the cluster
+    raises."""
+    rng = np.random.default_rng(9300 + H)
+    now_ms = 5_000_000
+    n_slots = 4000
+    slot_lanes = lanes(rng, n_slots)
+    values, expiry, hits = table(rng, now_ms, slot_lanes)
+    rv, re = remote_lanes(rng, now_ms, slot_lanes, values, n_slots)
+    tab = (values, expiry, hits)
+    remote = (torch.from_numpy(rv).to(cuda), torch.from_numpy(re).to(cuda))
+    routes = ("cluster", "block") if H <= K.CLUSTER_MAX_HITS else ("block",)
+    assert K.check_route(H) == routes[0]
+    states = {route: _state(tab, cuda) for route in routes}
+    want_state = _state(tab, cuda)
+    for _round in range(2):
+        arrays = tuple(torch.from_numpy(a).to(cuda)
+                       for a in batch(rng, H, slot_lanes, n_slots))
+        want = K.replicated_check_plain(want_state, *remote, *arrays,
+                                        now_ms)
+        for route in routes:
+            key = ("replicated_check_cluster" if route == "cluster"
+                   else "replicated_check")
+            before = K.launches[key]
+            _, got = K.replicated_check_batch(states[route], *remote,
+                                              *arrays, now_ms, route=route)
+            assert K.launches[key] == before + 1
+            _equal(got, want)
+            _equal(states[route], want_state)
+        now_ms += 700
+    if H > K.CLUSTER_MAX_HITS:
+        with pytest.raises(RuntimeError):
+            K.replicated_check_batch(states["block"], *remote, *arrays,
+                                     now_ms, route="cluster")
 
 
 @pytest.mark.parametrize("H", [8, 1024, 20000])
@@ -622,14 +667,17 @@ def test_sharded_check_kernel_matches_plain(cuda, coupled, has_global, n,
     slot_lanes = sharded_lanes(rng, n_slots, G)
     tab = sharded_table(rng, n, L, now_ms, slot_lanes, G)
     ka, pb = _sharded(tab, cuda), _sharded(tab, cuda)
+    key = ("sharded_check_and_update_cluster"
+           if M.sharded_check_route(n, H, coupled, has_global) == "cluster"
+           else "sharded_check_and_update")
     for _round in range(3):
         cols = tuple(torch.from_numpy(a).to(cuda) for a in sharded_batch(
             rng, n, H, slot_lanes, L, G, coupled, has_global, n_slots))
-        before = K.launches["sharded_check_and_update"]
+        before = K.launches[key]
         _, got = M.sharded_check_and_update(
             ka, *cols, now_ms, global_region=G, coupled=coupled,
             has_global=has_global)
-        assert K.launches["sharded_check_and_update"] == before + 1
+        assert K.launches[key] == before + 1
         want = M.sharded_check_and_update_plain(
             pb, *cols, now_ms, G, coupled, has_global)
         _equal(got, want)
@@ -670,6 +718,9 @@ def test_sharded_check_kernel_takes_a_region_past_the_row(cuda, coupled):
 
 
 def test_coupled_launch_refuses_rows_the_card_cannot_hold(cuda):
+    """The rows route's cooperative launch needs every row's block
+    resident: one row more than the card holds raises (forced, since
+    those n*8 hits fit the cluster route, which needs no residency)."""
     fits = M.coupled_row_capacity(8, False, cuda)
     n = fits + 1
     tab = [np.zeros((n, 65), np.int32) for _ in range(3)]
@@ -680,7 +731,104 @@ def test_coupled_launch_refuses_rows_the_card_cannot_hold(cuda):
         (False, torch.bool), (False, torch.bool))]
     with pytest.raises(RuntimeError, match="resident"):
         M.sharded_check_and_update(state, *cols, 1000, global_region=8,
-                                   coupled=True, has_global=False)
+                                   coupled=True, has_global=False,
+                                   route="rows")
+
+
+def _both_routes(ka, kb, pb, cols, now_ms, G, coupled, has_global):
+    """The cluster route on ``ka``, the rows route on ``kb`` and the
+    plain version on ``pb``, one batch: every output and the final
+    tables equal, one launch under each route's key."""
+    want = M.sharded_check_and_update_plain(pb, *cols, now_ms, G, coupled,
+                                            has_global)
+    for state, route, key in (
+            (ka, "cluster", "sharded_check_and_update_cluster"),
+            (kb, "rows", "sharded_check_and_update")):
+        before = K.launches[key]
+        _, got = M.sharded_check_and_update(
+            state, *cols, now_ms, global_region=G, coupled=coupled,
+            has_global=has_global, route=route)
+        assert K.launches[key] == before + 1
+        _equal(got, want)
+        _equal(state, pb)
+
+
+@pytest.mark.parametrize("coupled", [False, True], ids=["lean", "coupled"])
+@pytest.mark.parametrize("has_global", [False, True],
+                         ids=["local", "global"])
+@pytest.mark.parametrize("H", [1024, 2048])
+def test_sharded_check_cluster_kernel_matches_plain(cuda, coupled,
+                                                    has_global, H):
+    """B7a's two kernels against the plain version over the phase-10a
+    table's shape (8 rows of 1<<17 + 1 cells): 8 x 1024 and 8 x 2048
+    hits, in each variant the cluster route (one cluster of n*H hits, or
+    one a row when lean without a global hit) and the rows route, two
+    rounds on one table."""
+    rng = np.random.default_rng(9500 + H + 2 * coupled + has_global)
+    now_ms = 5_000_000
+    n, L, G = 8, 1 << 17, 1024
+    slot_lanes = sharded_lanes(rng, 4096, G)
+    tab = sharded_table(rng, n, L, now_ms, slot_lanes, G)
+    assert M.sharded_check_route(n, H, coupled, has_global) == "cluster"
+    ka, kb, pb = (_sharded(tab, cuda) for _ in range(3))
+    for _round in range(2):
+        cols = tuple(torch.from_numpy(a).to(cuda) for a in sharded_batch(
+            rng, n, H, slot_lanes, L, G, coupled, has_global, 4096))
+        _both_routes(ka, kb, pb, cols, now_ms, G, coupled, has_global)
+        now_ms += 700
+
+
+@pytest.mark.parametrize("has_global", [False, True],
+                         ids=["local", "global"])
+@pytest.mark.parametrize("H", [1024, 2048])
+def test_sharded_lean_rows_keep_their_own_sweep_caps(cuda, has_global, H):
+    """A lean batch whose rows settle after different sweep counts, row 0
+    only at its cap of H sweeps (``divergent_lean_batch``): the cluster
+    route, which sweeps every row in one loop, equals the plain version's
+    per-row loops, as does the rows route."""
+    rng = np.random.default_rng(9700 + H + has_global)
+    now_ms = 5_000_000
+    n, L, G = 8, 1 << 17, 1024
+    slot_lanes = sharded_lanes(rng, 4096, G)
+    tab = sharded_table(rng, n, L, now_ms, slot_lanes, G)
+    cols = tuple(torch.from_numpy(a).to(cuda) for a in divergent_lean_batch(
+        rng, n, H, slot_lanes, L, G, has_global, 4096))
+    ka, kb, pb = (_sharded(tab, cuda) for _ in range(3))
+    _both_routes(ka, kb, pb, cols, now_ms, G, False, has_global)
+
+
+@pytest.mark.parametrize("coupled", [False, True], ids=["lean", "coupled"])
+@pytest.mark.parametrize("has_global", [False, True],
+                         ids=["local", "global"])
+def test_sharded_check_past_the_cluster_takes_the_rows(cuda, coupled,
+                                                       has_global):
+    """Past the cluster's reach (8 x 4096 coupled or global: 32,768 hits
+    in one cluster; lean rows of 20,000) the wrapper takes the rows
+    route and equals the plain version; forcing the cluster raises."""
+    rng = np.random.default_rng(9900 + 2 * coupled + has_global)
+    now_ms = 5_000_000
+    G = 64
+    n, H, L = (8, 4096, 1 << 14) if coupled or has_global else \
+        (2, 20000, 1 << 15)
+    slot_lanes = sharded_lanes(rng, 4096, G)
+    tab = sharded_table(rng, n, L, now_ms, slot_lanes, G)
+    assert M.sharded_check_route(n, H, coupled, has_global) == "rows"
+    cols = tuple(torch.from_numpy(a).to(cuda) for a in sharded_batch(
+        rng, n, H, slot_lanes, L, G, coupled, has_global, 4096))
+    ka, pb = _sharded(tab, cuda), _sharded(tab, cuda)
+    before = K.launches["sharded_check_and_update"]
+    _, got = M.sharded_check_and_update(ka, *cols, now_ms, global_region=G,
+                                        coupled=coupled,
+                                        has_global=has_global)
+    assert K.launches["sharded_check_and_update"] == before + 1
+    want = M.sharded_check_and_update_plain(pb, *cols, now_ms, G, coupled,
+                                            has_global)
+    _equal(got, want)
+    _equal(ka, pb)
+    with pytest.raises(RuntimeError):
+        M.sharded_check_and_update(ka, *cols, now_ms, global_region=G,
+                                   coupled=coupled, has_global=has_global,
+                                   route="cluster")
 
 
 @pytest.mark.parametrize("K_", [1, 64, 300])

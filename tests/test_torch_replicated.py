@@ -51,6 +51,7 @@ from limitador_tpu_torch.storage.keys import key_for_counter as t_key
 from .torch_batches import (
     SpyContext,
     batch,
+    fake_card,
     lanes,
     remote_lanes,
     remote_rows,
@@ -141,6 +142,84 @@ def test_replicated_check_with_empty_remote_lanes_is_b1():
         _, rb = TK.check_and_update_batch(b, *arrays, now_ms)
         for x, y in zip(list(ra) + list(a), list(rb) + list(b)):
             assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("H", [1024, 2048])
+def test_replicated_check_matches_jax_at_the_cluster_shapes(H):
+    """B6a's plain version against the JAX ``_replicated_check`` at the
+    hit counts the cluster route takes (1,024 to 16,384), on batches that
+    reach every hook: window hits on live and on expired remote sums,
+    bucket hits floored by a remote TAT ahead of now and by one behind
+    it, and hits whose local + live remote sum passes 2**31."""
+    rng = np.random.default_rng(9100 + H)
+    now_ms = 5_000_000
+    n_slots = 1500
+    slot_lanes = lanes(rng, n_slots)
+    values, expiry, hits = table(rng, now_ms, slot_lanes)
+    rv, re = remote_lanes(rng, now_ms, slot_lanes, values, n_slots)
+    jstate, tstate = _states(values, expiry, hits)
+    jrem = (jnp.asarray(rv), jnp.asarray(re))
+    trem = (torch.from_numpy(rv.copy()), torch.from_numpy(re.copy()))
+    reached = set()
+    for _round in range(2):
+        arrays = batch(rng, H, slot_lanes, n_slots)
+        s, bucket = arrays[0], arrays[6]
+        live = re[s] > now_ms
+        window = ~bucket & (s < n_slots)
+        reached |= {
+            name for name, hit in (
+                ("live sum", window & live & (rv[s] > 0)),
+                ("expired sum", window & ~live & (rv[s] > 0)),
+                ("floor ahead", bucket & live),
+                ("floor behind", bucket & ~live & (re[s] > 0)),
+                ("past 2**31", window & live & (
+                    values[s].astype(np.int64) + rv[s] >= 1 << 31)),
+            ) if hit.any()
+        }
+        jstate, jres = JR._replicated_check(
+            jstate, *jrem, *arrays, np.int32(now_ms))
+        tstate, tres = TK.replicated_check_batch(
+            tstate, *trem, *(torch.from_numpy(a) for a in arrays), now_ms)
+        for name, j, t in zip(TK.BatchResult._fields, jres, tres):
+            np.testing.assert_array_equal(np.asarray(j), t.numpy(),
+                                          err_msg=name)
+        _same_table(jstate, tstate)
+        now_ms += 900
+    assert reached == {"live sum", "expired sum", "floor ahead",
+                       "floor behind", "past 2**31"}
+
+
+@pytest.mark.parametrize("H, route", [
+    (1, "block"), (8, "block"), (1023, "block"), (1024, "cluster"),
+    (8192, "cluster"), (16384, "cluster"), (16385, "block"),
+])
+def test_replicated_check_routes_by_hits_as_b1(monkeypatch, H, route):
+    """B6a's card path takes B1's rule on H (``check_route``): the cluster
+    kernel from 1,024 to 16,384 hits with no workspace, counted under
+    ``replicated_check_cluster``, else the one block with its workspace;
+    ``route=`` forces either, and an unknown route raises. The card is
+    stood in for by a library that records its entry points."""
+    lib = fake_card(monkeypatch)
+    assert TK.check_route(H) == route
+    state = TK.make_table(64, "cpu")
+    lanes_ = (torch.zeros(65, dtype=torch.int32),) * 2
+    cols = ([torch.zeros(H, dtype=torch.int32)] * 5
+            + [torch.zeros(H, dtype=torch.bool)] * 2)
+    entry = {"cluster": ["ct_check_and_update_replicated_cluster"],
+             "block": ["ct_check_workspace_bytes",
+                       "ct_check_and_update_replicated"]}
+    key = {"cluster": "replicated_check_cluster",
+           "block": "replicated_check"}
+    for forced in (None, "block", "cluster"):
+        taken = forced or route
+        before = dict(TK.launches)
+        lib.calls.clear()
+        TK.replicated_check_batch(state, *lanes_, *cols, 1000, route=forced)
+        assert lib.names() == entry[taken]
+        assert {k: v - before[k] for k, v in TK.launches.items()
+                if v != before[k]} == {key[taken]: 1}
+    with pytest.raises(ValueError, match="no route"):
+        TK.replicated_check_batch(state, *lanes_, *cols, 1000, route="grid")
 
 
 # -- the storage, JAX against the port ---------------------------------------

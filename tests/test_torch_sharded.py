@@ -40,6 +40,8 @@ from limitador_tpu_torch.parallel import mesh as TM
 
 from .torch_batches import (
     NEVER,
+    divergent_lean_batch,
+    fake_card,
     sharded_batch,
     sharded_lanes,
     sharded_table,
@@ -173,6 +175,133 @@ def test_global_partials_past_int32_wrap_like_psum():
                              False, True)
     # the wrapped bases (0 and -2**30) admit, as XLA's wrapping psum does
     assert tres.hit_ok[:, :2].all()
+
+
+@pytest.mark.parametrize("coupled", [False, True], ids=["lean", "coupled"])
+@pytest.mark.parametrize("has_global", [False, True],
+                         ids=["local", "global"])
+def test_sharded_check_matches_jax_at_the_cluster_shapes(coupled,
+                                                         has_global):
+    """8 rows of 2048 hits, where the cluster route spans its 16 blocks
+    (one cluster of 16,384 hits when coupled or global, 8 clusters of 2
+    blocks when lean), over a table of 4096 cells a row: the plain
+    version against the JAX program in all four variants."""
+    rng = np.random.default_rng(2048 + 2 * coupled + has_global)
+    mesh = _mesh()
+    now_ms = 5_000_000
+    L_, H = 4096, 2048
+    lanes = sharded_lanes(rng, L_, G)
+    table = sharded_table(rng, N, L_, now_ms, lanes, G)
+    assert TM.sharded_check_route(N, H, coupled, has_global) == "cluster"
+    cols = sharded_batch(rng, N, H, lanes, L_, G, coupled, has_global)
+    _both_check(mesh, _jax_state(mesh, table), _torch_state(table), cols,
+                now_ms, coupled, has_global)
+
+
+@pytest.mark.parametrize("has_global", [False, True],
+                         ids=["local", "global"])
+def test_lean_rows_settle_after_their_own_sweeps(has_global):
+    """A lean batch whose rows' fixpoints settle after different sweep
+    counts, row 0 only at its cap of H sweeps (a request whose verdict
+    flips every sweep): each row ends as its own loop would, as the JAX
+    program's per-device while_loop does. The cluster route runs every
+    row's sweeps in one loop, capped at H; this pins the plain version
+    it is held against on the card."""
+    rng = np.random.default_rng(11)
+    mesh = _mesh()
+    now_ms = 5_000_000
+    H = 32
+    lanes = sharded_lanes(rng, L, G)
+    table = sharded_table(rng, N, L, now_ms, lanes, G)
+    cols = divergent_lean_batch(rng, N, H, lanes, L, G, has_global)
+    sweeps = {}
+    real_sweep = TK._check_sweep
+
+    def counted(plan, admitted, num_req):
+        sweeps[id(plan)] = sweeps.get(id(plan), 0) + 1
+        return real_sweep(plan, admitted, num_req)
+
+    TK._check_sweep = counted
+    try:
+        _both_check(mesh, _jax_state(mesh, table), _torch_state(table),
+                    cols, now_ms, False, has_global)
+    finally:
+        TK._check_sweep = real_sweep
+    per_row = list(sweeps.values())  # rows in order
+    assert len(per_row) == N
+    assert per_row[0] == H and max(per_row[1:]) < H
+    assert per_row[1] >= 9 and len(set(per_row)) >= 3
+
+
+@pytest.mark.parametrize("n, H, coupled, has_global, route", [
+    (8, 8, True, True, "cluster"),
+    (8, 8, False, True, "cluster"),
+    (8, 8, True, False, "cluster"),
+    (8, 8, False, False, "rows"),
+    (8, 127, False, False, "rows"),
+    (8, 1024, False, False, "cluster"),
+    (8, 1024, True, True, "cluster"),
+    (8, 2048, True, False, "cluster"),
+    (8, 2048, False, True, "cluster"),
+    (8, 2048, False, False, "cluster"),
+    (8, 2049, True, True, "rows"),
+    (8, 4096, False, True, "rows"),
+    (8, 16384, False, False, "cluster"),
+    (8, 16385, False, False, "rows"),
+    (16, 1024, True, False, "cluster"),
+    (17, 1024, True, False, "rows"),
+    (1, 16384, False, True, "cluster"),
+    (132, 64, True, False, "cluster"),
+    (132, 128, True, False, "rows"),
+])
+def test_sharded_check_route_rule(n, H, coupled, has_global, route):
+    """B7a's route is a rule on the batch's shape: coupled and global
+    batches take one cluster over their n*H hits up to the cluster's
+    16,384, lean rows without a global hit a cluster each where B1 takes
+    its cluster (1,024 to 16,384 hits), and the one-block-a-row kernel
+    the rest."""
+    assert TM.sharded_check_route(n, H, coupled, has_global) == route
+
+
+@pytest.mark.parametrize("n, H, coupled, has_global", [
+    (8, 8, True, True), (8, 8, False, False), (8, 1024, True, True),
+    (8, 1024, False, False), (8, 2048, False, True), (8, 4096, True, False),
+    (8, 4096, False, True),
+])
+def test_sharded_check_card_path_by_route(monkeypatch, n, H, coupled,
+                                          has_global):
+    """The card path of B7a: the cluster route makes one
+    ``ct_sharded_check_and_update_cluster`` call with no workspace, no
+    co-residency query and no pre-pass, counted under
+    ``sharded_check_and_update_cluster``; the rows route sizes its
+    workspace (and, coupled, asks the co-residency) before its launch,
+    counted under ``sharded_check_and_update``. ``route=`` forces either;
+    an unknown route raises. The card is stood in for by a library that
+    records its entry points."""
+    lib = fake_card(monkeypatch)
+    state = TM.make_sharded_table(n, 64, "cpu")
+    cols = ([torch.zeros((n, H), dtype=torch.int32)] * 5
+            + [torch.zeros((n, H), dtype=torch.bool)] * 3)
+    rows = (["ct_sharded_coupled_capacity"] if coupled else []) + [
+        "ct_sharded_check_workspace_bytes", "ct_sharded_check_and_update"]
+    entry = {"cluster": ["ct_sharded_check_and_update_cluster"],
+             "rows": rows}
+    key = {"cluster": "sharded_check_and_update_cluster",
+           "rows": "sharded_check_and_update"}
+    for forced in (None, "rows", "cluster"):
+        taken = forced or TM.sharded_check_route(n, H, coupled, has_global)
+        before = dict(TK.launches)
+        lib.calls.clear()
+        TM.sharded_check_and_update(state, *cols, 1000, global_region=16,
+                                    coupled=coupled, has_global=has_global,
+                                    route=forced)
+        assert lib.names() == entry[taken]
+        assert {k: v - before[k] for k, v in TK.launches.items()
+                if v != before[k]} == {key[taken]: 1}
+    with pytest.raises(ValueError, match="no route"):
+        TM.sharded_check_and_update(state, *cols, 1000, global_region=16,
+                                    coupled=coupled, has_global=has_global,
+                                    route="grid")
 
 
 # -- the cases of tests/test_sharded.py (its three HLO lints have no

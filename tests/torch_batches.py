@@ -381,6 +381,54 @@ def sharded_batch(rng, n, H, lanes_, L, G, coupled, with_global,
     return tuple(out)
 
 
+def divergent_lean_batch(rng, n, H, lanes_, L, G, with_global,
+                         n_slots=None):
+    """Lean [n, H] columns whose rows' fixpoints settle after different
+    sweep counts. Row 0 starts with a request of two delta-1 hits on one
+    fresh slot of max 1: its verdict flips every sweep, up to the cap of
+    H sweeps. Rows 1 to 3 start with cascades of 9, 4 and 1 requests
+    (request j hits fresh slots j and j + 1 of max 1, so each verdict
+    flips the next one's): about one sweep per request. These use the
+    slots [top - 64, top), top = ``n_slots`` (default L). Every row is
+    then filled with requests of one to three hits on distinct slots,
+    Zipf over [G, top - 64), and global slots with ``with_global``;
+    padding is slot L. Returns the columns of ``sharded_batch``."""
+    spare = (n_slots or L) - 64
+    fills = (L, 0, NEVER, 0, H - 1, False, False, False)
+    dtypes = (np.int32,) * 5 + (bool,) * 3
+    cols = [np.full((n, H), f, dt) for f, dt in zip(fills, dtypes)]
+    for row in range(n):
+        hits = []
+        req = 0
+        if row == 0:
+            hits += [(spare, 1, 1, 60_000, 0, True, False, False)] * 2
+            req = 1
+        elif row <= 3:
+            req = (9, 4, 1)[row - 1]
+            hits += [(spare + j + k, 1, 1, 60_000, j, True, False, False)
+                     for j in range(req) for k in (0, 1)]
+        while True:
+            k = int(rng.integers(1, 4))
+            if len(hits) + k > H - 1:
+                break
+            mine = set()
+            for _ in range(k):
+                glob = with_global and G > 0 and rng.random() < 0.3
+                slot = (int(rng.integers(0, G)) if glob
+                        else int(min(G + rng.zipf(1.3) - 1, spare - 1)))
+                if slot in mine:
+                    continue
+                mine.add(slot)
+                is_bucket, maxv, win = lanes_[slot]
+                hits.append((slot, int(rng.choice([0, 1, 1, 1, 2, 5, 7])),
+                             maxv, win, req, rng.random() < 0.1,
+                             is_bucket and not glob, glob))
+            req += 1
+        for c, vals in zip(cols, zip(*hits)):
+            c[row, :len(hits)] = vals
+    return tuple(cols)
+
+
 class SpyContext:
     """Stands in for a ``TableContext`` bound on the card, over a CPU
     table: the host forms take their card path through it (``cuda`` and
@@ -459,3 +507,51 @@ class SpyContext:
 
     def close(self):
         self.handle = None
+
+
+class RecordingLibrary:
+    """Stands in for the built kernel library on the CPU: every entry
+    point records (name, argument count) in ``calls`` and returns 0
+    (cudaSuccess), a workspace size of 64 bytes or, for the co-residency
+    query, 132 rows, so that a CPU test sees which entry points a
+    wrapper's card path calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, len(args)))
+            if name.endswith("_capacity"):
+                return 132
+            return 64 if name.endswith("_bytes") else 0
+        return entry
+
+    def names(self):
+        return [name for name, _ in self.calls]
+
+
+def fake_card(monkeypatch):
+    """Send the kernels' wrappers down their card path over CPU tensors,
+    into a ``RecordingLibrary``, which it returns: ``_on_cuda`` answers
+    yes, the current stream is 0 and the coupled co-residency query goes
+    to the library."""
+    import types
+
+    import torch
+
+    from limitador_tpu_torch.ops import build
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.parallel import mesh as M
+
+    lib = RecordingLibrary()
+    monkeypatch.setattr(K, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    monkeypatch.setattr(M, "coupled_row_capacity",
+                        lambda H, has_global, device:
+                        lib.ct_sharded_coupled_capacity(H, int(has_global)))
+    return lib
+
