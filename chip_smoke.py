@@ -18,12 +18,18 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    thread-block cluster, the route from 1,024 to 16,384 hits, beside the
    one-block kernel, the route below and above) and at 32,768 (the
    one-block kernel alone), with the fixpoint's sweep count of each
-   batch. B3b also in its host form (the storage's numpy list in the
+   batch. The heavy-hitter drain (B5): its one-pass kernel and its host
+   form (``drain_top_hits_host``: one launch answering into the
+   context's mapped buffer) on Zipf, sparse, zero, uniform random,
+   all-equal, ascending and INT_MIN/INT_MAX columns at k in (1, 7, 64, 1000, 1024), over
+   1<<20 and 1<<10 cells, and k past 1024 (the full sort) up to C;
+   timed on Zipf (kernel, device-tensor call, host form, plain, topk +
+   zero_) and on the ascending, uniform random ("wide") and
+   INT_MIN/INT_MAX columns at k = 64 and 1024. B3b also in its host form (the storage's numpy list in the
    kernel's parameter block) at n = 1, 8, 6600 and 9100, timed beside
    the parent's path for the same list (pinned upload, device-tensor
    launch) and index_fill_. The lease credit
-   (B4c) runs with its edge rows, the heavy-hitter drain (B5) with ties,
-   fewer live slots than k, and k up to C; the replicated check (B6a)
+   (B4c) runs with its edge rows; the replicated check (B6a)
    in both its kernels (the cluster with the gossip hooks at 1024, 8192
    and 16,384 hits, the one block at 8 to 32,768) and the update (B6b)
    over remote lanes with live and expired sums, bucket floors and sums
@@ -50,7 +56,15 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    lanes stacked, from uploads). B7a in its four variants at 8, 1024
    and 2048 hits a row over the phase-10a table on both routes (the
    thread-block clusters and one block a row) and coupled at 4096 a row
-   on the rows route.
+   on the rows route. B7c's host form (``sharded_update_host``: the
+   storage's list of (row, slot, delta, window, flags) entries by value,
+   sorted by cell in one block) at 1, 2, 8, 64 and 1999 to 2001 entries
+   (the parameter block's capacity, 2000, and one staged copy past it)
+   with repeated cells, buckets and windows mixed, deltas at the caps
+   and a fresh entry after a non-fresh one on one cell at the capacity's
+   boundary: bit-exact with the JAX-shaped plain version on the padded
+   columns, timed beside the parent's path for the same list (pad,
+   pinned uploads, the device-tensor launch).
 4. The main path: the port's gRPC server on the card (capacity 1<<20)
    answers Envoy ShouldRateLimit and Kuadrant CheckRateLimit/Report over a
    real channel, with a hot reload and an epoch rebase; every answer is
@@ -138,6 +152,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import functools
+import itertools
 import json
 import os
 import socket
@@ -161,7 +176,13 @@ B1_HS = (8, 64, 128, 256, 512, 1024, 8192, 16384, 32768)
 CLEAR_HOST_NS = (1, 8, 6600, 9100)
 READ_NS = (8, 1024, 32768)
 CREDIT_HS = (8, 1024, 4096)
-DRAIN_KS = (64, 1, 1000)
+DRAIN_KS = (64, 1, 7, 1000, 1024)
+DRAIN_KINDS = ("zipf", "sparse", "zero", "wide", "equal", "ascending",
+               "extremes")
+DRAIN_SMALL_C = 1 << 10
+# B7c's host form: Report sizes, and the parameter block's capacity
+# (2000 entries with nvcc 12.1 or later) and one past it
+UPDATE_HOST_COUNTS = (1, 2, 8, 64, 1999, 2000, 2001)
 # B6c's n: phase 8a's flushes gather two other nodes' batches, about
 # 12,288 dirty slots (PERF.md), the shape its JSON row reports
 REMOTE_NS = (8, 1024, 8192, 12288, 65536)
@@ -209,14 +230,14 @@ REPLACES = {
 # the shape each kernel sees on the main path, for the JSON line (B1: the
 # cluster at the drives' 8192 hits, the one block at the served paths'
 # 8 (it also takes phase 5's 32,768-hit batch); B3b: the host
-# form at a phase-8a flush; B4c: rows of a lease settle; B5: k of the
-# default --usage-topk; B6c: rows of a phase-8a flush; B4d: one promoted
-# key; B4b: no caller, the whole column as B4a)
+# form at a phase-8a flush; B4c: rows of a lease settle; B5: the host
+# form at k of the default --usage-topk; B6c: rows of a phase-8a flush;
+# B4d: one promoted key; B4b: no caller, the whole column as B4a)
 MAIN_SHAPE = {
     "check_and_update": 8, "check_and_update_cluster": 8192,
     "update": 8, "read_slots": 8, "clear_slots": "host/6600",
     "rebase_epoch": C + 1, "rebase_epoch_device": C + 1,
-    "credit": 1024, "seed_slots": 1, "drain_top_hits": 64,
+    "credit": 1024, "seed_slots": 1, "drain_top_hits": "host/64",
     # B6a: the cluster at phase 8a's 8192 hits, the one block at the
     # served nodes' 8 (phase 8b)
     "replicated_check": 8, "replicated_check_cluster": 8192,
@@ -224,11 +245,11 @@ MAIN_SHAPE = {
     # B7 over the phase-10a table, 8 rows of 1<<17 cells: B7a's cluster
     # at 2048 hits a row in its coupled + global variant (the mixed
     # batches), its rows route at 4096 coupled (past the cluster: the
-    # coupled batches' busiest row), B7b at 64 slots a row, B7c at 8 hits
-    # a row, B7d at k = 64
+    # coupled batches' busiest row), B7b at 64 slots a row, B7c's host
+    # form at a Report of 8 counters, B7d at k = 64
     "sharded_check_and_update_cluster": "coupled+global/2048",
     "sharded_check_and_update": "coupled/4096",
-    "sharded_clear_cells": 64, "sharded_update": 8,
+    "sharded_clear_cells": 64, "sharded_update": "host/8",
     "sharded_drain_top_hits": 64,
 }
 # B7: the phase-10a table and the shapes held against the plain versions
@@ -262,13 +283,16 @@ PHASE9A_KERNELS = ("check_and_update_cluster", "read_slots", "seed_slots")
 PHASE9B_KERNELS = ("check_and_update", "read_slots", "seed_slots")
 PHASE9B_LEASE_KERNELS = PHASE9B_KERNELS + ("credit",)
 PHASE9B_SERVED_KERNELS = PHASE9B_KERNELS + ("drain_top_hits",)
-# B3a, B6c and B3b count their host forms (the storages' path) under
-# keys of their own: a phase launched one when either count moved, and
+# B3a, B6c, B3b, B5 and B7c count their host forms (the storages' path)
+# under keys of their own: a phase launched one when either count moved,
 # phases 8a, 8b, 9a and 9b must have reached them through the host forms
-# only (_host_forms_only)
+# only (_host_forms_only), and no storage path drains or updates through
+# B5's or B7c's device-tensor wrapper (_storage_forms)
 HOST_FORMS = {"read_slots": "read_slots_host",
               "apply_remote": "apply_remote_host",
-              "clear_slots": "clear_slots_host"}
+              "clear_slots": "clear_slots_host",
+              "drain_top_hits": "drain_top_hits_host",
+              "sharded_update": "sharded_update_host"}
 READ_HOST_NS = (1, 8, 1000, 8001, 32768)
 REMOTE_HOST_NS = (8, 1024, 12288, 65536)
 # the sharded paths: 10a and 10b together must launch all five (B7a's
@@ -290,13 +314,28 @@ def _launched(run, name):
 
 
 def _host_forms_only(run, label, remote):
-    """Fail unless every B3a, B6c and B3b of the run went through its
-    host form, and B3a's (on a replicated path B6c's too) launched."""
+    """Fail unless every B3a, B6c, B3b, B5 and B7c of the run went
+    through its host form, and B3a's (on a replicated path B6c's too)
+    launched."""
     device = [name for name in HOST_FORMS if run[name]]
     if device:
         fail(f"{label}: B3a/B6c launched through the device-tensor "
              f"wrapper: {device}")
     need = ("read_slots_host",) + (("apply_remote_host",) if remote else ())
+    missing = [name for name in need if run[name] == 0]
+    if missing:
+        fail(f"{label}: host forms not launched: {missing}")
+
+
+def _storage_forms(run, label, need=()):
+    """Fail if a storage path drained (B5) or updated a sharded table
+    (B7c) through the device-tensor wrapper, or if a host form in
+    ``need`` did not launch."""
+    device = [name for name in ("drain_top_hits", "sharded_update")
+              if run[name]]
+    if device:
+        fail(f"{label}: launched through the device-tensor wrapper, not "
+             f"the host form: {device}")
     missing = [name for name in need if run[name] == 0]
     if missing:
         fail(f"{label}: host forms not launched: {missing}")
@@ -634,15 +673,32 @@ def _update_bytes(upd, before, after, now_ms, remote_exp=None, scratch=C):
     return nbytes
 
 
-def _hit_column(rng, kind):
-    """int32[C+1] hit columns for B5: Zipf-0.99 traffic (ties among the
-    cold slots), fewer live slots than k with tied counts, all zero."""
-    hits = np.zeros(C + 1, np.int32)
+def _hit_column(rng, kind, n=C):
+    """int32[n+1] hit columns for B5: Zipf-0.99 traffic (ties among the
+    cold slots), fewer live slots than k with tied counts, all zero,
+    uniform random counts in [0, 2^31 - 1) ("wide"), all equal (the index
+    alone orders), counts rising with the index (every round beats every
+    threshold), or random counts over all of int32 with INT_MIN, INT_MAX,
+    -1, 0 and 1 among them."""
+    hits = np.zeros(n + 1, np.int32)
     if kind == "zipf":
-        np.add.at(hits, zipf_keys(C, 4 * 8192, 0.99, rng), 1)
+        np.add.at(hits, zipf_keys(n, max(4 * 8192 * n // C, 64), 0.99, rng),
+                  1)
     elif kind == "sparse":
-        hits[rng.choice(C, 10, replace=False)] = rng.choice([1, 2, 2, 5], 10)
-    hits[C] = 3  # scratch garbage: zeroed, never reported
+        hits[rng.choice(n, 10, replace=False)] = rng.choice([1, 2, 2, 5], 10)
+    elif kind == "wide":
+        hits[:n] = rng.integers(0, (1 << 31) - 1, n)
+    elif kind == "equal":
+        hits[:n] = 7
+    elif kind == "ascending":
+        hits[:n] = np.arange(n, dtype=np.int32)
+    elif kind == "extremes":
+        hits[:n] = rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+        pick = rng.random(n) < 0.5
+        hits[:n][pick] = rng.choice(
+            np.array([-(1 << 31), (1 << 31) - 1, -1, 0, 1], np.int32),
+            int(pick.sum()))
+    hits[n] = 3  # scratch garbage: zeroed, never reported
     return hits
 
 
@@ -987,41 +1043,7 @@ def phase_kernels(dev):
         nbytes = _credit_bytes(cols, rows, [t.cpu().numpy() for t in tb],
                                now_ms)
         record("credit", H, err, ms, plain_ms, nbytes, device_ms=dms)
-    # B5: the heavy-hitter drain; the timed column is Zipf traffic
-    zipf_col = torch.from_numpy(_hit_column(rng, "zipf")).to(dev)
-    for k in DRAIN_KS:
-        errs = []
-        for kind in ("zipf", "sparse", "zero"):
-            col = zipf_col if kind == "zipf" else torch.from_numpy(
-                _hit_column(rng, kind)).to(dev)
-            ha, hb = col.clone(), col.clone()
-            got = K.drain_top_hits(ha, k)
-            want = K.drain_top_hits_plain(hb, k)
-            errs.extend(zip(got, want))
-        err = _max_abs_err(errs)
-
-        def column():
-            return (zipf_col.clone(),)
-
-        ms = _median_ms(lambda h: K.drain_top_hits(h, k), column)
-        plain_ms = _median_ms(lambda h: K.drain_top_hits_plain(h, k),
-                              column)
-        lib_ms = _median_ms(
-            lambda h: (torch.topk(h[:-1], k), h.zero_()), column)
-        dms = _device_ms(lambda h: K.drain_top_hits(h, k), column, "topk_")
-        record("drain_top_hits", k, err, ms, plain_ms, 8 * (C + 1) + 8 * k,
-               lib_ms, dms)
-    # B5 past the shared-memory path (k > 1024) up to k = C: right, untimed
-    big_errs = []
-    for k in (1025, 4096, C):
-        for kind in ("zipf", "sparse"):
-            col = torch.from_numpy(_hit_column(rng, kind)).to(dev)
-            ha, hb = col.clone(), col.clone()
-            big_errs.extend(zip(K.drain_top_hits(ha, k),
-                                K.drain_top_hits_plain(hb, k)))
-    err = _max_abs_err(big_errs)
-    print(f"  drain_top_hits    k in (1025, 4096, C) err={err}")
-    exact = exact and err == 0
+    exact = _drain_kernels(dev, rng, record) and exact
     # B6c: the remote-sum scatter over unique slots
     lanes_base = tuple(torch.from_numpy(a).to(dev) for a in remote_np)
     for n in REMOTE_NS:
@@ -1131,17 +1153,20 @@ def _pinned(dev, *arrays):
             for a in arrays]
 
 
-def _host_breakdown(label, steps, reps=2000):
+def _host_breakdown(label, steps, reps=2000, setup=None):
     """Median host time (``time.perf_counter_ns``) of each step of a
     host-form call, each step run alone ``reps`` times (a sync every
-    100, so that no queue of launches builds up)."""
+    100, so that no queue of launches builds up; with ``setup``, it and
+    a sync before every step, outside the time)."""
     import torch
 
     out = {}
     for name, step in steps.items():
         times = []
         for k in range(reps):
-            if k % 100 == 0:
+            if setup is not None:
+                setup()
+            if k % 100 == 0 or setup is not None:
                 torch.cuda.synchronize()
             t0 = time.perf_counter_ns()
             step()
@@ -1427,6 +1452,137 @@ def _read_host_forms(dev, record, table, rng, now_ms):
                     "library path (upload, index_select, .cpu())": library,
                 })
     ctx.close()
+
+
+def _drain_kernels(dev, rng, record):
+    """B5 against its plain version: the one-pass kernel (the
+    device-tensor call) and the host form (``drain_top_hits_host``, the
+    answers in the context's mapped buffer) on every column kind at k in
+    DRAIN_KS, over 1<<20 and 1<<10 cells, then k past 1024 (the full
+    sort) up to C. Times at 1<<20: on Zipf at each k the device-tensor
+    call, the kernel alone, plain and ``topk`` + ``zero_``; the host form
+    at k = 64 (from the call to the numpy answers, its host time split
+    into steps); the ascending column (every round beats every
+    threshold), the uniform random one (each block's threshold rises
+    slowest there) and the INT_MIN/INT_MAX one at k = 64 and 1024.
+    Returns whether every case was exact."""
+    import torch
+
+    from limitador_tpu_torch.ops import kernel as K
+
+    errs = []
+    for n in (C, DRAIN_SMALL_C):
+        for kind in DRAIN_KINDS:
+            col = _hit_column(rng, kind, n)
+            cold = torch.from_numpy(col).to(dev)
+            for k in DRAIN_KS:
+                ha, hb = cold.clone(), cold.clone()
+                got = K.drain_top_hits(ha, k)
+                want = K.drain_top_hits_plain(hb, k)
+                errs.extend(zip(got, want))
+                table = K.CounterTableState(torch.zeros_like(cold),
+                                            torch.zeros_like(cold),
+                                            cold.clone())
+                ctx = _bound_ctx(table)
+                counts, slots = K.drain_top_hits_host(ctx, k)
+                ctx.close()
+                errs.extend(zip((torch.from_numpy(counts),
+                                 torch.from_numpy(slots), table.hits.cpu()),
+                                (want[1].cpu(), want[2].cpu(),
+                                 want[0].cpu())))
+    err = _max_abs_err(errs)
+    print(f"  drain_top_hits    {len(DRAIN_KINDS)} column kinds x k in "
+          f"{DRAIN_KS} x C in (1<<20, 1<<10), kernel and host form: "
+          f"err={err}")
+    exact = err == 0
+    zipf_col = torch.from_numpy(_hit_column(rng, "zipf")).to(dev)
+    hard = {kind: torch.from_numpy(_hit_column(rng, kind)).to(dev)
+            for kind in ("ascending", "wide", "extremes")}
+    for k in DRAIN_KS:
+        ha, hb = zipf_col.clone(), zipf_col.clone()
+        err = _max_abs_err(zip(K.drain_top_hits(ha, k),
+                               K.drain_top_hits_plain(hb, k)))
+
+        def column():
+            return (zipf_col.clone(),)
+
+        ms = _median_ms(lambda h: K.drain_top_hits(h, k), column)
+        plain_ms = _median_ms(lambda h: K.drain_top_hits_plain(h, k),
+                              column)
+        lib_ms = _median_ms(
+            lambda h: (torch.topk(h[:-1], k), h.zero_()), column)
+        dms = _device_ms(lambda h: K.drain_top_hits(h, k), column,
+                         "drain_kernel")
+        record("drain_top_hits", k, err, ms, plain_ms, 8 * (C + 1) + 8 * k,
+               lib_ms, dms)
+    for (kind, col), k in itertools.product(hard.items(), (64, 1024)):
+        ha, hb = col.clone(), col.clone()
+        err = _max_abs_err(zip(K.drain_top_hits(ha, k),
+                               K.drain_top_hits_plain(hb, k)))
+
+        def column(col=col):
+            return (col.clone(),)
+
+        record("drain_top_hits", f"{kind}/{k}", err,
+               _median_ms(lambda h: K.drain_top_hits(h, k), column),
+               _median_ms(lambda h: K.drain_top_hits_plain(h, k), column),
+               8 * (C + 1) + 8 * k,
+               _median_ms(lambda h: (torch.topk(h[:-1], k), h.zero_()),
+                          column),
+               _device_ms(lambda h: K.drain_top_hits(h, k), column,
+                          "drain_kernel"))
+    # the host form, the storages' path, at the default --usage-topk
+    k = 64
+    table = K.CounterTableState(torch.zeros_like(zipf_col),
+                                torch.zeros_like(zipf_col), zipf_col.clone())
+    ctx = _bound_ctx(table)
+
+    def refill():
+        table.hits.copy_(zipf_col)
+        return ()
+
+    def call():
+        return K.drain_top_hits_host(ctx, k)
+
+    def tensor_path():
+        _, counts, slots = K.drain_top_hits(table.hits, k)
+        return counts.cpu().numpy(), slots.cpu().numpy()
+
+    refill()
+    got = call()
+    _, want_c, want_s = K.drain_top_hits_plain(zipf_col.clone(), k)
+    err = max(int(np.abs(g.astype(np.int64) - w.cpu().numpy()).max())
+              for g, w in zip(got, (want_c, want_s)))
+    row = record(
+        "drain_top_hits", f"host/{k}", err, _median_ms(call, refill),
+        _median_ms(lambda: K.drain_top_hits_host_plain(table, k), refill),
+        8 * (C + 1) + 8 * k,
+        _median_ms(lambda h: (torch.topk(h[:-1], k), h.zero_()),
+                   lambda: (zipf_col.clone(),)),
+        _device_ms(call, refill, "drain_kernel"),
+        _median_ms(tensor_path, refill))
+    handle = ctx.handle
+    row["host_breakdown_us"] = _host_breakdown(
+        f"B5 host form, k={k} (each step on a refilled column)", {
+            "C call (launch, wait)": lambda: ctx.drain_fn(handle, k),
+            "answers copied out": lambda: (ctx.results[:k, 0].copy(),
+                                           ctx.results[:k, 1].copy()),
+            "the whole wrapper": call,
+            "device-tensor call and two downloads": tensor_path,
+        }, reps=300, setup=refill)
+    ctx.close()
+    exact = exact and err == 0
+    # past the shared-memory path (k > 1024, the full sort) up to k = C
+    big_errs = []
+    for k in (1025, 4096, C):
+        for kind in ("zipf", "sparse"):
+            col = torch.from_numpy(_hit_column(rng, kind)).to(dev)
+            ha, hb = col.clone(), col.clone()
+            big_errs.extend(zip(K.drain_top_hits(ha, k),
+                                K.drain_top_hits_plain(hb, k)))
+    err = _max_abs_err(big_errs)
+    print(f"  drain_top_hits    k in (1025, 4096, C) err={err}")
+    return exact and err == 0
 
 
 def _remote_host_forms(dev, record, lanes_base, rng):
@@ -1740,6 +1896,7 @@ def _sharded_kernels(dev, rng, record):
            rows_bytes(lambda u, before, aft, now: _update_bytes(
                u, before, aft, now, scratch=L), upd_np, _host(tb)),
            device_ms=dms)
+    _update_host_forms(dev, rng, record, base, base_np, lanes, now_ms)
     # B7b: per-row clears, padding and duplicates included
     K_ = 64
     rows_np = rng.integers(G, L, (n, K_)).astype(np.int32)
@@ -1791,6 +1948,120 @@ def _sharded_kernels(dev, rng, record):
                      "topk_")
     record("sharded_drain_top_hits", k, err, ms, plain_ms,
            8 * n * (L + 1) + 8 * n * k, lib_ms, dms)
+
+
+def _update_entries(rng, count, lanes, straddle, n=SHARDS, L=LOCAL_CAP,
+                   G=GLOBAL_REGION):
+    """A B7c host list of ``count`` (row, slot, delta, window, flags)
+    entries: local slots Zipf-0.99 over [G, L) on any row (repeated
+    cells), a quarter global slots on any row (the row a delta is
+    applied on), lanes from ``lanes`` with 3% of bucket flags flipped
+    (cells mixing buckets and windows), 10% fresh, deltas 0 to 3 with 6%
+    at and past the caps or negative; entries straddle - 1 and straddle
+    are one cell, not fresh and then fresh."""
+    rows = rng.integers(0, n, count)
+    glob = rng.random(count) < 0.25
+    slots = np.where(glob, rng.integers(0, G, count),
+                     zipf_keys(L - G, count, 0.99, rng) + G)
+    lane = [lanes.setdefault(int(x), (False, 1 << 30, 60_000) if x < G
+                             else _lane(rng)) for x in slots]
+    bucket = np.array([a for a, _m, _w in lane], bool)
+    bucket ^= rng.random(count) < 0.03
+    wins = np.array([w for _a, _m, w in lane], np.int64)
+    deltas = rng.integers(0, 4, count)
+    edge = rng.random(count) < 0.06
+    deltas[edge] = rng.choice([-5, (1 << 30) - 1, 1 << 30, (1 << 31) - 1],
+                              int(edge.sum()))
+    fresh = rng.random(count) < 0.1
+    if 1 <= straddle < count:
+        i = straddle
+        rows[i], slots[i] = rows[i - 1], slots[i - 1]
+        bucket[i], wins[i] = bucket[i - 1], wins[i - 1]
+        fresh[i - 1], fresh[i] = False, True
+    flags = fresh.astype(np.int64) | bucket.astype(np.int64) << 1
+    return np.stack([rows, slots, deltas, wins, flags],
+                    axis=1).astype(np.int32)
+
+
+def _padded_update(entries, n=SHARDS, L=LOCAL_CAP):
+    """The JAX-shaped [n, H] columns of a B7c host list (what the parent
+    tree stages): each row's entries in list order, padded with slot L;
+    H a power of two, 8 at least."""
+    counts = np.bincount(entries[:, 0], minlength=n)
+    H = max(8, 1 << (max(int(counts.max(initial=0)), 1) - 1).bit_length())
+    cols = [np.full((n, H), L, np.int32), np.zeros((n, H), np.int32),
+            np.zeros((n, H), np.int32), np.zeros((n, H), bool),
+            np.zeros((n, H), bool)]
+    pos = np.zeros(n, np.int64)
+    for row, slot, delta, win, flags in entries.tolist():
+        j = pos[row]
+        pos[row] += 1
+        cols[0][row, j], cols[1][row, j], cols[2][row, j] = slot, delta, win
+        cols[3][row, j], cols[4][row, j] = flags & 1, flags & 2
+    return cols
+
+
+def _update_host_forms(dev, rng, record, base, base_np, lanes, now_ms):
+    """B7c's host form (``sharded_update_host``) against the JAX-shaped
+    plain version on the padded columns, at UPDATE_HOST_COUNTS entries,
+    a cell straddling the capacity (2000: the parameter block; 2001: one
+    staged copy, still one launch); each call timed from the list to the
+    launched kernel beside the parent's path for the same list (pad to
+    [n, H], two pinned uploads, the device-tensor launch), the kernel
+    alone by the profiler, and the host time of a Report of 8 split into
+    its steps."""
+    import torch
+
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.parallel import mesh as M
+
+    for count in UPDATE_HOST_COUNTS:
+        entries = _update_entries(rng, count, lanes, min(count - 1, 2000))
+        padded = _padded_update(entries)
+        d_padded = [torch.from_numpy(a).to(dev) for a in padded]
+        ctx = _bound_ctx(M.ShardedCounterState(*(t.clone() for t in base)))
+        want = M.ShardedCounterState(*(t.clone() for t in base))
+        before = K.launches["sharded_update_host"]
+        M.sharded_update_host(ctx, entries, now_ms)
+        launched = K.launches["sharded_update_host"] - before
+        M.sharded_update_plain(want, *d_padded, now_ms)
+        torch.cuda.synchronize()
+        err = _max_abs_err(zip(ctx.state, want))
+        if launched != 1:
+            fail(f"B7c host form at {count} entries: {launched} launches")
+
+        def call():
+            M.sharded_update_host(ctx, entries, now_ms)
+
+        def parent():
+            ints = np.stack(padded[:3])
+            flags = np.stack(padded[3:])
+            d_ints, d_flags = _pinned(dev, ints, flags)
+            M.sharded_update(ctx.state, *d_ints, *d_flags, now_ms)
+
+        distinct = np.unique(entries[:, 0].astype(np.int64) * (LOCAL_CAP + 1)
+                             + entries[:, 1]).size
+        row = record(
+            "sharded_update", f"host/{count}", err, _median_ms(call),
+            _median_ms(lambda: M.sharded_update_host_plain(
+                want, entries, now_ms), reps=5, warmup=1),
+            16 * count + 24 * distinct, None,
+            _device_ms(call, None, ("update_list_kernel",
+                                    "update_staged_kernel")),
+            _median_ms(parent))
+        if count == 8:
+            data, handle = entries.tobytes(), ctx.handle
+            row["host_breakdown_us"] = _host_breakdown(
+                f"B7c host form, {count} entries", {
+                    "list from Python tuples": lambda: np.asarray(
+                        [tuple(e) for e in entries.tolist()], np.int32),
+                    "list as bytes": lambda: entries.tobytes(),
+                    "C call (list into the parameter block, launch)":
+                        lambda: ctx.update_fn(handle, data, count, now_ms),
+                    "the whole wrapper": call,
+                    "the parent's path": parent,
+                })
+        ctx.close()
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -3508,7 +3779,7 @@ async def _served_sharded(tmpdir, dev, card, calls=2000, users=300):
         fail(f"served sharded: a background tier failed: {failures!r}")
     if mismatches:
         fail("served sharded: answers differ from the memory server's")
-    missing = [k for k in SHARDED_KERNELS if launches[k] == 0]
+    missing = [k for k in SHARDED_KERNELS if _launched(launches, k) == 0]
     if missing:
         fail(f"kernels not launched on the served sharded path: {missing}")
     return launches, {
@@ -3581,9 +3852,21 @@ def main() -> int:
             _served_sharded(tmpdir, dev, card))
     served_sharded["routes"] = routes
     missing = [k for k in SHARDED_KERNELS
-               if sharded_launches[k] + served_sharded_launches[k] == 0]
+               if _launched(sharded_launches, k)
+               + _launched(served_sharded_launches, k) == 0]
     if missing:
         fail(f"kernels not launched on the sharded paths: {missing}")
+    # B5 and B7c on the storages' paths: their host forms only (the
+    # observatory's drains in 6 and 7, 10b's Reports)
+    for label, run, need in (
+            ("main path (4)", launches, ()),
+            ("native main path (6)", native_launches,
+             ("drain_top_hits_host",)),
+            ("native drive (7)", drive_launches, ("drain_top_hits_host",)),
+            ("sharded drive (10a)", sharded_launches, ()),
+            ("served sharded (10b)", served_sharded_launches,
+             ("sharded_update_host",))):
+        _storage_forms(run, label, need)
     for label, got, want in (
             ("served tiers", served_tier_launches, PHASE9B_KERNELS),
             ("served tiers (leases on)", leased_tier_launches,

@@ -72,24 +72,27 @@
 // (ct_sharded_check_and_update) takes what the cluster cannot: the check
 // with kRows a row per block, plus kGlobal (the psum base from a pre-pass
 // launch) and kCoupled (the pmin across rows, with grid barriers under a
-// cooperative launch). B7c is the update with kRows, B7d the top-k with a
-// row index in the grid, and B7b a grid-stride clear of per-row slot
-// lists. Their bounds are the row kernels' bounds summed over the rows,
+// cooperative launch). B7c is the update with kRows on its device-tensor
+// route and, from the storage's host list, one block over the flattened
+// rows (update_list_kernel); B7d the earlier two-pass top-k with a row
+// index in the grid; and B7b a grid-stride clear of per-row slot lists. Their bounds are the row kernels' bounds summed over the rows,
 // plus, for B7a's global variants, 8 bytes per row and distinct global
 // slot; latency, not bytes, keeps them above it, as for B1.
 //
-// B7b, B4d, B3a, B6c and B3b also take host lists by value
+// B7b, B4d, B3a, B6c, B3b and B7c also take host lists by value
 // (ct_sharded_clear_host, ct_seed_slots_host, ct_read_slots_host,
-// ct_apply_remote_host, ct_clear_slots_host, below): the storages' own
-// slot lists ride in the kernel's parameter block, through a context
-// bound once per table. B3a's host form answers into pinned host memory
-// that the context owns. The storages stage their B3b clears and launch
-// them as one such call before the table's next access.
+// ct_apply_remote_host, ct_clear_slots_host, ct_sharded_update_host,
+// below): the storages' own lists ride in the kernel's parameter block,
+// through a context bound once per table. B3a's host form and B5's
+// (ct_drain_top_hits_host) answer into pinned host memory that the
+// context owns. The storages stage their B3b clears and launch them as
+// one such call before the table's next access.
 //
 // Every entry point launches on the stream it is given (or its context's)
 // and returns cudaGetLastError() as an int; it allocates no device memory,
 // except a context's own buffers (ct_ctx_results, the staging rows of
-// ct_apply_remote_staged), which grow on demand and die with it.
+// ct_apply_remote_staged and ct_sharded_update_host, the workspace of
+// ct_drain_top_hits_host), which grow on demand and die with it.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -1372,22 +1375,43 @@ __global__ void credit_kernel(int32_t* __restrict__ values,
 // the lowest index, which is top_k's order. Key 0 (count INT_MIN at index
 // 0xffffffff) cannot be a slot's key and pads every list.
 //
-// k <= 1024, two launches. Pass 1: B blocks of 1024 threads each walk a
-// contiguous chunk of the column in tiles of 1024 slots, zeroing each
-// cell as it is read. A block keeps its running top-K (K = k rounded up
-// to a power of two) sorted in shared memory; a tile whose largest key
-// is below the K-th best is skipped, else it is bitonic-sorted and merged
-// in (the elementwise max of best[i] and tile[K-1-i] is bitonic and holds
-// the top K of both; one bitonic merge sorts it). Pass 2: one block runs
-// the same walk over the B * K candidates and writes the first k.
+// k <= 1024, one launch (drain_kernel, below): up to 132 blocks of 256
+// threads, one per SM, each walk a contiguous chunk of the column in
+// rounds of 4,096 cells, four 16-byte loads a thread (the next round's
+// in flight), zeroing each cell with a 16-byte store as it is read. No
+// tile is sorted. A block keeps its K best (K = k rounded up to a power
+// of two) sorted in shared memory and a threshold, a key that at least K
+// keys of the column reach, raised by three bounds: the block's K-th
+// best; each round while K <= 256, the least of the maxima of max(K, 32)
+// groups of the round's cells (group (cell mod 4, thread mod groups / 4):
+// a column ordered by the index alone, all counts equal or rising, keeps
+// just `groups` cells); and the row's shared bound, which every block
+// raises to its own with an atomicMax after each round and reads back
+// before the next, so the hot part of a column filters the rest. A warp
+// appends the keys that reach the threshold to a shared candidate buffer
+// with one atomicAdd; the buffer is merged into the K best (one bitonic
+// sort of the K best and the candidates, at most 2K or 512 keys, warps
+// synchronising alone below distance 64) when it is full, and once more
+// at the end after a last pass through the shared bound. Each block then
+// publishes only its K best at or above the bound (a prefix of its list,
+// mostly none) and counts itself done after a fence; the last block to
+// finish reads just those, through the same filter, writes the first k,
+// and sets the header back to 0 for the next launch on the stream. That
+// last-block merge, rather than a thread-block cluster, because a
+// cluster holds 16 blocks at most and the column needs 132 to reach the
+// card's bandwidth. B7d's rows still run the earlier two-pass body
+// (topk_blocks_kernel): pass 1, 264 blocks of 1024 threads
+// bitonic-sorting every tile that beats the block's K-th best; pass 2,
+// one block over the B * K candidates.
 // k > 1024: a bitonic sort of every key in device memory, one launch per
 // stage, then the first k are decoded: slower, for any k up to C.
 // Bound: bytes, the column read and zeroed once: 8 (C + 1) bytes, 2.5 us
-// at C = 1 << 20. The sorts are the cost; the skip keeps them rare once
-// the running top-K fills with the hot slots.
+// at C = 1 << 20. What is left above it is latency: a round's barriers
+// and the merges' bitonic stages (about 0.1 us each), and the last
+// block's reads after every block is done.
 
 constexpr int kTopkThreads = 1024;
-constexpr int kTopkMaxSmall = 1024;  // largest K of the two-pass path
+constexpr int kTopkMaxSmall = 1024;  // largest K of the shared-memory paths
 constexpr int kTopkMaxBlocks = 264;  // two waves of 132 SMs
 
 __device__ __forceinline__ uint64_t topk_key(int32_t count, uint32_t index) {
@@ -1546,13 +1570,435 @@ __global__ void topk_sort_step_kernel(uint64_t* __restrict__ keys,
   }
 }
 
+// The first k sorted keys decoded; answer i at out_counts[i * stride] and
+// out_slots[i * stride] (stride 2: (count, slot) pairs in a host buffer).
 __global__ void topk_emit_kernel(const uint64_t* __restrict__ keys, int k,
                                  int32_t* __restrict__ out_counts,
-                                 int32_t* __restrict__ out_slots) {
+                                 int32_t* __restrict__ out_slots,
+                                 int stride) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < k;
        i += gridDim.x * blockDim.x) {
-    topk_decode(keys[i], &out_counts[i], &out_slots[i]);
+    topk_decode(keys[i], &out_counts[(size_t)i * stride],
+                &out_slots[(size_t)i * stride]);
   }
+}
+
+// B5's one-launch drain, k <= 1024 (see the section's head).
+constexpr int kDrainThreads = 256;
+constexpr int kDrainKeys = 16;  // keys a thread holds in a round
+constexpr int kDrainVecs = kDrainKeys / 4;  // 16-byte loads a thread a round
+constexpr int kDrainBuf = 2048;  // the K best, then the candidates
+constexpr int kDrainMaxBlocks = 132;  // one per SM
+constexpr int kDrainGroupMaxK = 256;  // the round threshold's largest K
+
+struct DrainShared {
+  uint64_t buf[kDrainBuf];  // [0, K) the K best, descending; then cnt keys
+  uint64_t gmax[kDrainThreads];  // group maxima of the round threshold
+  uint64_t wmin[kDrainThreads / 32];
+  uint64_t thr;  // a key reaching it may be among the block's K best
+  int cnt;
+  int published;  // of the K best, those at or above the bound
+  int last;
+};
+
+// Candidates a block gathers before it merges: K up to 256 merge every
+// 256 (a sort of at most 512 keys), a larger K every K (2K keys). Each
+// merge raises the threshold, and the keys still waiting are filtered
+// again, so a column that floods the buffer merges often but small.
+__device__ __forceinline__ int drain_room(int K) { return K < 256 ? 256 : K; }
+
+// Descending bitonic sort of a[0, P) (P a power of two) by the block,
+// P / 2 compare-exchanges a stage. At a distance up to 32 a warp's pairs
+// stay in its own 64 keys (pair q touches keys 64 (q / 32) + [0, 64));
+// at 64 or more they cross into other warps' keys. So only a step
+// between two stages both at distances up to 32 may sync the warp alone;
+// a step into or out of a wider stage needs the block's barrier.
+__device__ void drain_sort(uint64_t* a, int P) {
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int q = threadIdx.x; q < (P >> 1); q += blockDim.x) {
+        const int lo = 2 * q - (q & (j - 1)), hi = lo + j;
+        const uint64_t x = a[lo], y = a[hi];
+        if ((x < y) == ((lo & k) == 0)) {
+          a[lo] = y;
+          a[hi] = x;
+        }
+      }
+      const int next = j > 1 ? j >> 1 : k;  // the next stage's distance
+      if (j >= 64 || next >= 64) {
+        __syncthreads();
+      } else {
+        __syncwarp();
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The K best and the m candidates after them sorted as one list; its
+// first K are the new K best, and the K-th raises the threshold.
+__device__ void drain_merge(DrainShared& s, int K, int m) {
+  const int P = next_pow2(K + m);
+  for (int i = K + m + threadIdx.x; i < P; i += blockDim.x) s.buf[i] = 0;
+  __syncthreads();
+  drain_sort(s.buf, P);
+  if (threadIdx.x == 0) {
+    s.cnt = 0;
+    if (s.buf[K - 1] > s.thr) s.thr = s.buf[K - 1];
+  }
+  __syncthreads();
+}
+
+// The round threshold: key 4q + e of thread t (cell 4 (q * 256 + t) + e
+// of the round) goes to group e * groups / 4 + t % (groups / 4), groups
+// >= K; each group's maximum is a distinct key of the round, so at least
+// K keys reach the least of them. The lowest cell of group (e, t) is
+// cell 4t + e: a column ordered by the index alone leaves the round's
+// first or last `groups` cells. Raises s.thr to it.
+__device__ __forceinline__ void drain_round_threshold(
+    DrainShared& s, const uint64_t (&key)[kDrainKeys], unsigned mask,
+    int groups) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int quarter = groups >> 2;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint64_t m = 0;
+#pragma unroll
+    for (int q = 0; q < kDrainVecs; ++q) {
+      const int j = 4 * q + e;
+      if ((mask >> j & 1) && key[j] > m) m = key[j];
+    }
+    // lanes quarter apart share a group: their maximum first
+    for (int o = quarter; o < 32; o <<= 1) {
+      const uint64_t y = __shfl_xor_sync(kFull, m, o);
+      m = y > m ? y : m;
+    }
+    if (m && lane < quarter) {
+      atomicMax(reinterpret_cast<unsigned long long*>(
+                    &s.gmax[e * quarter + tid % quarter]),
+                (unsigned long long)m);
+    }
+  }
+  __syncthreads();
+  uint64_t least = ~0ull;
+  if (tid < groups) {
+    least = s.gmax[tid];
+    s.gmax[tid] = 0;  // for the next round
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const uint64_t y = __shfl_xor_sync(kFull, least, o);
+    least = y < least ? y : least;
+  }
+  if (lane == 0) s.wmin[tid >> 5] = least;
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < kDrainThreads / 32; ++w) {
+      least = s.wmin[w] < least ? s.wmin[w] : least;
+    }
+    if (least != ~0ull && least > s.thr) s.thr = least;
+  }
+  __syncthreads();
+}
+
+// Appends the keys of `mask` that reach the threshold to the candidate
+// buffer, a warp at a time (one atomicAdd), and merges whenever the
+// buffer fills, until every key of the round is in or below the
+// threshold. Called by every thread of the block.
+__device__ __forceinline__ void drain_absorb(DrainShared& s,
+                             const uint64_t (&key)[kDrainKeys],
+                             unsigned mask, int K) {
+  const int lane = threadIdx.x & 31;
+  const int room = drain_room(K);
+  for (;;) {
+    const uint64_t thr = s.thr;
+#pragma unroll
+    for (int j = 0; j < kDrainKeys; ++j) {
+      if (key[j] < thr) mask &= ~(1u << j);
+    }
+    const int mine = __popc(mask);
+    int incl = mine;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    int base = 0;
+    if (lane == 31 && total) base = atomicAdd(&s.cnt, total);
+    int pos = __shfl_sync(kFull, base, 31) + incl - mine;
+#pragma unroll
+    for (int j = 0; j < kDrainKeys; ++j) {
+      if (mask >> j & 1) {
+        if (pos < room) {
+          s.buf[K + pos] = key[j];
+          mask &= ~(1u << j);
+        }
+        ++pos;
+      }
+    }
+    __syncthreads();
+    const int cnt = s.cnt;
+    const int pending = __syncthreads_or(mask != 0);
+    if (cnt >= room) drain_merge(s, K, room);
+    if (!pending) return;
+  }
+}
+
+// The workspace of `rows` rows of G blocks: a header with each row's
+// done counter (uint32) and shared threshold (uint64), 0 between
+// launches; each block's count of published keys (uint32); each block's
+// published keys (K a block).
+__host__ __device__ inline size_t drain_thr_offset(int rows) {
+  return ((size_t)rows * 4 + 7) & ~(size_t)7;
+}
+__host__ __device__ inline size_t drain_head_bytes(int rows) {
+  return (drain_thr_offset(rows) + (size_t)rows * 8 + 255) & ~(size_t)255;
+}
+__host__ __device__ inline size_t drain_cand_offset(int rows, int G) {
+  return drain_head_bytes(rows) + (((size_t)rows * G * 4 + 255) & ~(size_t)255);
+}
+
+// The row's shared threshold folded into the block's (thread 0; the
+// caller's next barrier publishes it). Every bound in it is one that at
+// least K keys of the row reach.
+__device__ __forceinline__ void drain_take_shared(DrainShared& s,
+                                                  unsigned long long* gthr) {
+  const uint64_t g = __ldcg(gthr);
+  if (g > s.thr) s.thr = g;
+}
+
+// B5 on row blockIdx.y of `rows` columns of n cells (B5 runs one; a row
+// index in the grid leaves room for B7d's rows), gridDim.x blocks a row.
+// The column is zeroed; the row's first k answers go to out_counts[i *
+// stride] and out_slots[i * stride]. The workspace's header must be 0
+// before the launch and is 0 after it.
+//
+// The blocks share their thresholds: each raises the row's shared bound
+// (atomicMax) to its own after every round and reads it back before the
+// next, so a bound found in the hot part of the column filters the rest
+// of it. At the end a block drops its candidates below the bound, merges
+// the rest, and publishes only its K best that reach it (a prefix of its
+// sorted list, often none); the last block reads just those.
+__global__ void __launch_bounds__(kDrainThreads) drain_kernel(
+    int32_t* __restrict__ hits, int n, int K, int k, int groups,
+    char* __restrict__ workspace, int32_t* __restrict__ out_counts,
+    int32_t* __restrict__ out_slots, int stride) {
+  __shared__ DrainShared s;
+  __shared__ int offs[kDrainMaxBlocks + 1];
+  const int tid = threadIdx.x;
+  const int G = gridDim.x;
+  const int rows = gridDim.y;
+  const size_t row = blockIdx.y;
+  const int n_keys = n - 1;  // the scratch cell is zeroed, never a key
+  hits += row * n;
+  unsigned* done = reinterpret_cast<unsigned*>(workspace) + row;
+  unsigned long long* gthr = reinterpret_cast<unsigned long long*>(
+                                 workspace + drain_thr_offset(rows)) + row;
+  unsigned* counts = reinterpret_cast<unsigned*>(
+                         workspace + drain_head_bytes(rows)) + row * G;
+  uint64_t* cand = reinterpret_cast<uint64_t*>(
+                       workspace + drain_cand_offset(rows, G)) + row * G * K;
+  out_counts += row * k * stride;
+  out_slots += row * k * stride;
+  for (int i = tid; i < K; i += kDrainThreads) s.buf[i] = 0;
+  s.gmax[tid] = 0;
+  if (tid == 0) {
+    s.thr = 1;  // every slot's key is >= 1; key 0 is filler
+    s.cnt = 0;
+  }
+  __syncthreads();
+  // Cells before the first 16-byte boundary and after the last whole
+  // vector: block 0's, before its rounds.
+  const int misaligned = (int)(((uintptr_t)hits >> 2) & 3);
+  const int head = misaligned ? (4 - misaligned < n ? 4 - misaligned : n) : 0;
+  const int nv = (n - head) >> 2;
+  const int tail = head + 4 * nv;
+  if (blockIdx.x == 0 && head + n - tail > 0) {
+    uint64_t key[kDrainKeys] = {};
+    unsigned mask = 0;
+    const int i = tid < head ? tid : tail + tid - head;
+    if (tid < head + n - tail) {
+      const int32_t c = hits[i];
+      hits[i] = 0;
+      if (i < n_keys) {
+        key[0] = topk_key(c, (uint32_t)i);
+        mask = 1;
+      }
+    }
+    drain_absorb(s, key, mask, K);
+  }
+  // Rounds of 4096 cells, the next round's loads in flight while this
+  // one is filtered.
+  int4* vec = reinterpret_cast<int4*>(hits + head);
+  constexpr int step = kDrainThreads * kDrainVecs;
+  const int per = (nv + G - 1) / G;
+  const int lo = blockIdx.x * per;
+  const int hi = lo + per < nv ? lo + per : nv;
+  int4 next[kDrainVecs];
+#pragma unroll
+  for (int q = 0; q < kDrainVecs; ++q) {
+    const int x = lo + q * kDrainThreads + tid;
+    if (x < hi) next[q] = vec[x];
+  }
+  for (int base = lo; base < hi; base += step) {
+    int4 v[kDrainVecs];
+#pragma unroll
+    for (int q = 0; q < kDrainVecs; ++q) {
+      const int x = base + q * kDrainThreads + tid;
+      v[q] = next[q];
+      if (x < hi) vec[x] = make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int q = 0; q < kDrainVecs; ++q) {
+      const int x = base + step + q * kDrainThreads + tid;
+      if (x < hi) next[q] = vec[x];
+    }
+    // The shared bound's load in flight with the keys' arithmetic.
+    const uint64_t shared_bound = G > 1 && tid == 0 ? __ldcg(gthr) : 0;
+    uint64_t key[kDrainKeys];
+    unsigned mask = 0;
+#pragma unroll
+    for (int q = 0; q < kDrainVecs; ++q) {
+      const int x = base + q * kDrainThreads + tid;
+      const int32_t c[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cell = head + 4 * x + e;
+        const bool live = x < hi && cell < n_keys;
+        key[4 * q + e] = live ? topk_key(c[e], (uint32_t)cell) : 0;
+        mask |= (unsigned)live << (4 * q + e);
+      }
+    }
+    if (tid == 0 && shared_bound > s.thr) s.thr = shared_bound;
+    if (groups) {
+      drain_round_threshold(s, key, mask, groups);
+    } else {
+      __syncthreads();
+    }
+    drain_absorb(s, key, mask, K);
+    if (G > 1 && tid == 0 && s.thr > 1) atomicMax(gthr, s.thr);
+  }
+  if (G > 1) {
+    // The candidates again through the latest shared bound, compacted.
+    if (tid == 0) drain_take_shared(s, gthr);
+    __syncthreads();
+    const int m = s.cnt;
+    uint64_t key[kDrainKeys];
+    unsigned mask = 0;
+#pragma unroll
+    for (int j = 0; j < kDrainKeys; ++j) {
+      const int x = j * kDrainThreads + tid;
+      key[j] = x < m ? s.buf[K + x] : 0;
+      mask |= (unsigned)(x < m) << j;
+    }
+    __syncthreads();
+    if (tid == 0) s.cnt = 0;
+    __syncthreads();
+    drain_absorb(s, key, mask, K);
+  }
+  if (s.cnt) drain_merge(s, K, s.cnt);
+  if (G > 1) {
+    // Publish the K best that reach the bound (a prefix of the sorted
+    // list), and the block's K-th best as a bound.
+    if (tid == 0) {
+      if (s.buf[K - 1] > s.thr) s.thr = s.buf[K - 1];
+      if (s.thr > 1) atomicMax(gthr, s.thr);
+      drain_take_shared(s, gthr);
+    }
+    if (tid == 0) s.published = 0;
+    __syncthreads();
+    const uint64_t thr = s.thr;
+    for (int i = tid; i < K; i += kDrainThreads) {
+      if (s.buf[i] >= thr) {
+        cand[(size_t)blockIdx.x * K + i] = s.buf[i];
+        if (i == K - 1 || s.buf[i + 1] < thr) s.published = i + 1;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) counts[blockIdx.x] = (unsigned)s.published;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) s.last = atomicAdd(done, 1u) == (unsigned)G - 1;
+    __syncthreads();
+    if (!s.last) return;
+    __threadfence();
+    // The last block: the published keys of the others (its own K best
+    // are in s.buf), through the same filter from the final bound.
+    if (tid == 0) drain_take_shared(s, gthr);
+    int c = 0;
+    if (tid < G && tid != (int)blockIdx.x) c = (int)__ldcg(counts + tid);
+    int incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if ((tid & 31) >= o) incl += y;
+    }
+    if ((tid & 31) == 31) s.wmin[tid >> 5] = (uint64_t)incl;
+    __syncthreads();
+    int before = 0;
+    for (int w = 0; w < (tid >> 5); ++w) before += (int)s.wmin[w];
+    if (tid < G) offs[tid] = before + incl - c;
+    if (tid == G - 1) offs[G] = before + incl;
+    __syncthreads();
+    const int total = offs[G];
+    for (int base = 0; base < total; base += kDrainThreads * kDrainKeys) {
+      uint64_t key[kDrainKeys];
+      unsigned mask = 0;
+#pragma unroll
+      for (int j = 0; j < kDrainKeys; ++j) {
+        const int x = base + j * kDrainThreads + tid;
+        key[j] = 0;
+        if (x < total) {
+          int lo_b = 0, hi_b = G - 1;  // the block b with offs[b] <= x < offs[b + 1]
+          while (lo_b < hi_b) {
+            const int mid = (lo_b + hi_b + 1) >> 1;
+            if (offs[mid] <= x) {
+              lo_b = mid;
+            } else {
+              hi_b = mid - 1;
+            }
+          }
+          key[j] = __ldcg(reinterpret_cast<const unsigned long long*>(
+              cand + (size_t)lo_b * K + (x - offs[lo_b])));
+          mask |= 1u << j;
+        }
+      }
+      drain_absorb(s, key, mask, K);
+    }
+    if (s.cnt) drain_merge(s, K, s.cnt);
+    if (tid == 0) {
+      *done = 0;
+      *gthr = 0;
+    }
+  }
+  for (int i = tid; i < k; i += kDrainThreads) {
+    topk_decode(s.buf[i], &out_counts[(size_t)i * stride],
+                &out_slots[(size_t)i * stride]);
+  }
+}
+
+// Blocks a row of n cells: one per round of cells, at most one per SM.
+int drain_blocks(int n) {
+  const int rounds = (n / 4 + kDrainThreads * kDrainVecs - 1) /
+                     (kDrainThreads * kDrainVecs);
+  return rounds < 1 ? 1
+                    : (rounds < kDrainMaxBlocks ? rounds : kDrainMaxBlocks);
+}
+
+long long drain_workspace_bytes(int rows, int n, int k) {
+  const int G = drain_blocks(n);
+  return (long long)drain_cand_offset(rows, G) +
+         (long long)rows * G * next_pow2(k) * 8;
+}
+
+// One drain_kernel launch over `rows` rows; the header must be 0.
+int launch_drain(int32_t* hits, int rows, int n, int k, void* workspace,
+                 int32_t* out_counts, int32_t* out_slots, int stride,
+                 cudaStream_t st) {
+  const int K = next_pow2(k);
+  const int groups = K <= kDrainGroupMaxK ? (K < 32 ? 32 : K) : 0;
+  drain_kernel<<<dim3(drain_blocks(n), rows), kDrainThreads, 0, st>>>(
+      hits, n, K, k, groups, static_cast<char*>(workspace), out_counts,
+      out_slots, stride);
+  return (int)cudaGetLastError();
 }
 
 // Launch geometry of the two-pass path: K, blocks and slots per block.
@@ -1805,8 +2251,8 @@ int launch_update(void* values, void* expiry, void* hits,
 }
 
 // ---------------------------------------------------------------------------
-// Host lists by value: B7b, B4d, B3a, B6c and B3b from the storages' own
-// lists.
+// Host lists by value: B7b, B4d, B3a, B6c, B3b and B7c from the storages'
+// own lists.
 //
 // The storages decide clears, promotion seeds, reads and remote shares on
 // the host, a few cells at a time. Staged as device tensors (a pinned buffer, an H2D copy and
@@ -1860,6 +2306,15 @@ struct Ctx {
   int32_t* stage_dev = nullptr;
   int stage_cap = 0;
   cudaEvent_t staged = nullptr;
+  // B5's host form: the done counters and each block's K best.
+  void* drain_ws = nullptr;
+  long long drain_ws_bytes = 0;
+  // B7c's staged design: pinned [4, cap] entries, their device copy with
+  // the sort's scratch arrays, and the event guarding the pinned rows.
+  int32_t* upd_stage = nullptr;
+  int32_t* upd_dev = nullptr;
+  int upd_cap = 0;
+  cudaEvent_t upd_staged = nullptr;
 };
 
 // The context's card is current for the launch (the calling thread's own
@@ -1984,6 +2439,213 @@ __global__ void remote_list_kernel(int32_t* __restrict__ remote_vals,
     remote_vals[s] = list.value[i];
     remote_exp[s] = list.expiry[i];
   }
+}
+
+// B7c's host form (sharded_update, parallel/mesh.py:552-586): B2 on each
+// row of the sharded table from a flat list of entries, (cell, delta,
+// window, flags) with cell = row * (L + 1) + slot and flags bit 0 fresh,
+// bit 1 bucket. Cells never cross rows, so one pass over the flattened
+// rows is B2 on each row. One block: a warp for up to 32 entries, more
+// warps up to the list's capacity. It sorts the entries by cell, stably
+// (the key is cell << 32 | entry index, as B7a's cluster keys its
+// hits), finds each sorted entry's segment start by a binary search of
+// the sorted keys, gathers each segment's exact delta sum (64-bit
+// atomics: count * (2^30 - 1) never wraps), OR of fresh and largest
+// window at its start, and the segment's last entry (the last in list
+// order) applies update_kernel's rules. No workspace: the keys and the
+// segment arrays are shared memory (P = next_pow2(count) of each, 24
+// bytes a key, and the list itself, copied out of the parameter block),
+// or, for a list past one parameter block, the context's staging buffer
+// in device memory (ct_sharded_update_host). Every row's
+// scratch cell is zeroed, as the JAX program's scatter leaves it. Bound:
+// bytes, 16 B of entry read and 12 B read and written per distinct cell;
+// a call is launch-bound.
+__device__ void update_entries(int32_t* __restrict__ values,
+                               int32_t* __restrict__ expiry,
+                               int32_t* __restrict__ hits, int rows,
+                               int row_len, const int32_t* cell,
+                               const int32_t* delta, const int32_t* window,
+                               const int32_t* flags, int count, int32_t now,
+                               uint64_t* keys,
+                               unsigned long long* seg_sum, int* seg_fresh,
+                               int* seg_win) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int P = next_pow2(count);
+  for (int i = tid; i < P; i += T) {
+    keys[i] = i < count ? ((uint64_t)(uint32_t)cell[i] << 32 | (uint32_t)i)
+                        : ~0ull;
+    seg_sum[i] = 0;
+    seg_fresh[i] = 0;
+    seg_win[i] = kIntMin;
+  }
+  __syncthreads();
+  // Ascending bitonic sort (the padding keys, all ones, sort last).
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int q = tid; q < (P >> 1); q += T) {
+        const int lo = 2 * q - (q & (j - 1)), hi = lo + j;
+        const uint64_t x = keys[lo], y = keys[hi];
+        if ((x > y) == ((lo & k) == 0)) {
+          keys[lo] = y;
+          keys[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // The start of sorted entry i's segment: the first key of its cell.
+  auto seg_start = [&](int i, uint32_t c) {
+    int lo = 0, hi = i;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((uint32_t)(keys[mid] >> 32) < c) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    return lo;
+  };
+  for (int i = tid; i < count; i += T) {
+    const uint64_t key = keys[i];
+    const int start = seg_start(i, (uint32_t)(key >> 32));
+    const int e = (int)(uint32_t)key;
+    atomicAdd(&seg_sum[start],
+              (unsigned long long)imin(imax(delta[e], 0), kMaxDeltaCap));
+    if (flags[e] & 1) atomicOr(&seg_fresh[start], 1);
+    atomicMax(&seg_win[start], window[e]);
+  }
+  __syncthreads();
+  for (int i = tid; i < count; i += T) {
+    const uint64_t key = keys[i];
+    const uint32_t c = (uint32_t)(key >> 32);
+    if (i + 1 < count && (uint32_t)(keys[i + 1] >> 32) == c) continue;
+    const int start = seg_start(i, c);
+    const int e = (int)(uint32_t)key;  // the segment's last in list order
+    const unsigned long long sum = seg_sum[start];
+    const int32_t seg_add =
+        sum >= (unsigned long long)kMaxValueCap ? kMaxValueCap : (int32_t)sum;
+    const bool h_fresh = seg_fresh[start];
+    const bool is_bucket = flags[e] & 2;
+    const int32_t win = window[e];
+    const int32_t v_raw = values[c], e_raw = expiry[c];
+    const bool cell_expired = e_raw <= now || h_fresh;
+    const int32_t base_c = imin(cell_expired ? 0 : v_raw, kMaxValueCap);
+    const int32_t headroom = wsub(kMaxValueCap, base_c);
+    values[c] = is_bucket ? 0 : wadd(base_c, imin(seg_add, headroom));
+    if (cell_expired || is_bucket) {
+      const int32_t ival = imax(win, 1);
+      const int32_t tat_base = imax(h_fresh ? 0 : e_raw, now);
+      const int32_t max_adv = floordiv(wsub(kNever, tat_base), ival);
+      const int32_t adv = imin(seg_add, max_adv);
+      expiry[c] = is_bucket ? wadd(tat_base, wmul(adv, win))
+                            : wadd(now, seg_win[start]);
+    }
+    hits[c] = wadd(h_fresh ? 0 : hits[c], i - start + 1);
+  }
+  for (int r = tid; r < rows; r += T) {
+    const size_t scratch = (size_t)r * row_len + row_len - 1;
+    values[scratch] = 0;
+    expiry[scratch] = 0;
+    hits[scratch] = 0;
+  }
+}
+
+template <int N>
+struct UpdateList {
+  int32_t cell[N];
+  int32_t delta[N];
+  int32_t window[N];
+  int32_t flags[N];
+};
+
+template <int N>
+__global__ void update_list_kernel(int32_t* __restrict__ values,
+                                   int32_t* __restrict__ expiry,
+                                   int32_t* __restrict__ hits, int rows,
+                                   int row_len, int count, int32_t now,
+                                   const __grid_constant__ UpdateList<N> list) {
+  extern __shared__ uint64_t smem_keys[];
+  const int P = next_pow2(count);
+  uint64_t* keys = smem_keys;
+  auto* seg_sum = reinterpret_cast<unsigned long long*>(keys + P);
+  int* seg_fresh = reinterpret_cast<int*>(seg_sum + P);
+  // The list copied out of the parameter block once, in order: the
+  // constant bank serves one word a warp access, and the passes below
+  // read the entries in sorted order.
+  int32_t* ent = seg_fresh + 2 * P;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    ent[i] = list.cell[i];
+    ent[count + i] = list.delta[i];
+    ent[2 * count + i] = list.window[i];
+    ent[3 * count + i] = list.flags[i];
+  }
+  __syncthreads();
+  update_entries(values, expiry, hits, rows, row_len, ent, ent + count,
+                 ent + 2 * count, ent + 3 * count, count, now, keys, seg_sum,
+                 seg_fresh, seg_fresh + P);
+}
+
+// The staged design: the [4, count] entries and the P-sized scratch
+// arrays in one device buffer.
+__global__ void update_staged_kernel(int32_t* __restrict__ values,
+                                     int32_t* __restrict__ expiry,
+                                     int32_t* __restrict__ hits, int rows,
+                                     int row_len, int count, int32_t now,
+                                     int32_t* __restrict__ stage) {
+  const int P = next_pow2(count);
+  const size_t n = (size_t)count;
+  uint64_t* keys = reinterpret_cast<uint64_t*>(stage + 4 * ((n + 1) & ~1));
+  auto* seg_sum = reinterpret_cast<unsigned long long*>(keys + P);
+  int* seg_fresh = reinterpret_cast<int*>(seg_sum + P);
+  update_entries(values, expiry, hits, rows, row_len, stage, stage + n,
+                 stage + 2 * n, stage + 3 * n, count, now, keys, seg_sum,
+                 seg_fresh, seg_fresh + P);
+}
+
+// Bytes of update_entries' scratch arrays for a list of `count`.
+size_t update_scratch_bytes(int count) {
+  return (size_t)next_pow2(count) * 24;
+}
+
+// The list's entries as (cell, delta, window, flags) columns of `n`;
+// false when a row or slot is out of range (slot L, the scratch cell,
+// included: the host form has no padding).
+bool pack_updates(const Ctx& c, const int32_t* entries, int count,
+                  int32_t* cell, int32_t* delta, int32_t* window,
+                  int32_t* flags) {
+  for (int i = 0; i < count; ++i) {
+    const int32_t* e = entries + 5 * (size_t)i;
+    if (e[0] < 0 || e[0] >= c.rows || e[1] < 0 || e[1] >= c.row_len - 1) {
+      return false;
+    }
+    cell[i] = e[0] * c.row_len + e[1];
+    delta[i] = e[2];
+    window[i] = e[3];
+    flags[i] = e[4];
+  }
+  return true;
+}
+
+template <int N>
+int launch_update_list(const Ctx& c, const int32_t* entries, int count,
+                       int32_t now) {
+  UpdateList<N> list;
+  if (!pack_updates(c, entries, count, list.cell, list.delta, list.window,
+                    list.flags)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int warps = (count + 31) / 32;
+  const int threads = warps < 32 ? 32 * warps : 1024;
+  const size_t smem = update_scratch_bytes(count) + 16 * (size_t)count;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(update_list_kernel<N>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  update_list_kernel<N><<<1, threads, smem, c.stream>>>(
+      c.values, c.expiry, c.hits, c.rows, c.row_len, count, now, list);
+  return (int)cudaGetLastError();
 }
 
 template <int N>
@@ -2201,32 +2863,19 @@ int ct_credit(void* values, void* expiry, const void* slots,
 
 // Device workspace for ct_drain_top_hits over n = C + 1 cells.
 long long ct_topk_workspace_bytes(int n, int k) {
-  if (k <= kTopkMaxSmall) {
-    const TopkPlan p = topk_plan(n, k);
-    return (long long)p.blocks * p.K * 8;
-  }
+  if (k <= kTopkMaxSmall) return drain_workspace_bytes(1, n, k);
   return topk_sort_len(n - 1) * 8;
 }
 
-int ct_drain_top_hits(void* hits, int n, int k, void* workspace,
-                      void* out_counts, void* out_slots, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// B5 past the shared-memory path (k > 1024): every key sorted in the
+// workspace, one launch a stage, the first k decoded.
+static int topk_full_sort(int32_t* hits, int n, int k, uint64_t* ws,
+                          int32_t* out_counts, int32_t* out_slots,
+                          int stride, cudaStream_t st) {
   const int n_keys = n - 1;
-  uint64_t* ws = (uint64_t*)workspace;
-  if (k <= kTopkMaxSmall) {
-    const TopkPlan p = topk_plan(n, k);
-    topk_blocks_kernel<true><<<p.blocks, kTopkThreads, 0, st>>>(
-        (int32_t*)hits, nullptr, n, n_keys, p.chunk, p.K, ws, 0, nullptr,
-        nullptr);
-    const int m = p.blocks * p.K;
-    topk_blocks_kernel<false><<<1, kTopkThreads, 0, st>>>(
-        nullptr, ws, m, m, m, p.K, nullptr, k, (int32_t*)out_counts,
-        (int32_t*)out_slots);
-    return (int)cudaGetLastError();
-  }
   const long long P = topk_sort_len(n_keys);
   const int grid = 132 * 16;
-  topk_keys_kernel<<<grid, 256, 0, st>>>((int32_t*)hits, n, n_keys, P, ws);
+  topk_keys_kernel<<<grid, 256, 0, st>>>(hits, n, n_keys, P, ws);
   int rc = (int)cudaGetLastError();
   for (long long kk = 2; kk <= P && rc == 0; kk <<= 1) {
     for (long long j = kk >> 1; j > 0 && rc == 0; j >>= 1) {
@@ -2235,9 +2884,25 @@ int ct_drain_top_hits(void* hits, int n, int k, void* workspace,
     }
   }
   if (rc != 0) return rc;
-  topk_emit_kernel<<<grid_for(k), 256, 0, st>>>(ws, k, (int32_t*)out_counts,
-                                                 (int32_t*)out_slots);
+  topk_emit_kernel<<<grid_for(k), 256, 0, st>>>(ws, k, out_counts, out_slots,
+                                                 stride);
   return (int)cudaGetLastError();
+}
+
+// B5 on a device column: k <= 1024 zeroes the workspace's done counter
+// (fresh memory) and launches drain_kernel once.
+int ct_drain_top_hits(void* hits, int n, int k, void* workspace,
+                      void* out_counts, void* out_slots, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k <= kTopkMaxSmall) {
+    const cudaError_t rc =
+        cudaMemsetAsync(workspace, 0, drain_head_bytes(1), st);
+    if (rc != cudaSuccess) return (int)rc;
+    return launch_drain((int32_t*)hits, 1, n, k, workspace,
+                        (int32_t*)out_counts, (int32_t*)out_slots, 1, st);
+  }
+  return topk_full_sort((int32_t*)hits, n, k, (uint64_t*)workspace,
+                        (int32_t*)out_counts, (int32_t*)out_slots, 1, st);
 }
 
 // B7a (_local_step + sharded_check_and_update, parallel/mesh.py:399-504),
@@ -2338,9 +3003,10 @@ int ct_sharded_clear(void* values, void* expiry, void* hits,
   return (int)cudaGetLastError();
 }
 
-// B7d: B5 on each of the n rows of L + 1 cells; k <= 1024 runs B5's two
-// passes with a row index in the grid (two launches for all rows), a
-// larger k B5's full sort row after row.
+// B7d: the top-k drain on each of the n rows of L + 1 cells; k <= 1024
+// runs the earlier two-pass body (topk_blocks_kernel, not B5's one-launch
+// drain_kernel) with a row index in the grid (two launches for all rows),
+// a larger k B5's full sort row after row.
 long long ct_sharded_topk_workspace_bytes(int rows, int n, int k) {
   if (k <= kTopkMaxSmall) {
     const TopkPlan p = topk_plan(n, k);
@@ -2399,13 +3065,17 @@ void* ct_ctx_create(void* values, void* expiry, void* hits, int rows,
 void ct_ctx_destroy(void* ctx) {
   Ctx* c = (Ctx*)ctx;
   if (!c) return;
-  if (c->result || c->stage) {
+  if (c->result || c->stage || c->drain_ws || c->upd_stage) {
     DeviceGuard guard(c->device);
     cudaStreamSynchronize(c->stream);
     if (c->result) cudaFreeHost(c->result);
     if (c->stage) cudaFreeHost(c->stage);
     if (c->stage_dev) cudaFree(c->stage_dev);
     if (c->staged) cudaEventDestroy(c->staged);
+    if (c->drain_ws) cudaFree(c->drain_ws);
+    if (c->upd_stage) cudaFreeHost(c->upd_stage);
+    if (c->upd_dev) cudaFree(c->upd_dev);
+    if (c->upd_staged) cudaEventDestroy(c->upd_staged);
     cudaGetLastError();
   }
   delete c;
@@ -2413,7 +3083,7 @@ void ct_ctx_destroy(void* ctx) {
 
 // Entries one launch carries: 0 all-rows slots, 1 (row, slot) pairs,
 // 2 seed rows, 3 slots read (B3a), 4 remote-share rows (B6c), 5 slots
-// cleared (B3b).
+// cleared (B3b), 6 update entries (B7c).
 int ct_host_list_capacity(int kind) {
   switch (kind) {
     case 0:
@@ -2422,6 +3092,8 @@ int ct_host_list_capacity(int kind) {
       return kListInts;
     case 1:
       return kListInts / 2;
+    case 6:
+      return kListInts / 4;
     default:
       return kListInts / 3;
   }
@@ -2615,6 +3287,115 @@ int ct_seed_slots_host(void* ctx, const int32_t* slots,
     off += per;
   } while (off < n);
   return 0;
+}
+
+// B5 from the context's column (a single table): the k answers, (count,
+// slot) pairs, land in its answer buffer (ct_ctx_results, at least k
+// pairs), and the call waits on its stream, so the drain follows every
+// launch queued there before it and the host may read the answers when
+// it returns. The workspace is the context's, allocated at the first
+// call (and grown for a larger k) with its done counter at 0, which
+// every launch leaves at 0.
+int ct_drain_top_hits_host(void* ctx, int k) {
+  Ctx* c = (Ctx*)ctx;
+  if (!c || c->rows != 1 || k < 1 || k > c->row_len - 1 ||
+      k > c->result_cap) {
+    return (int)cudaErrorInvalidValue;
+  }
+  DeviceGuard guard(c->device);
+  const int n = c->row_len;
+  // The full sort's keys go after the header, which stays 0.
+  const long long head = (long long)drain_head_bytes(1);
+  const long long need = k <= kTopkMaxSmall
+                             ? drain_workspace_bytes(1, n, k)
+                             : head + topk_sort_len(n - 1) * 8;
+  cudaError_t rc;
+  if (need > c->drain_ws_bytes) {
+    if (c->drain_ws) cudaFree(c->drain_ws);  // no drain is in flight
+    c->drain_ws = nullptr;
+    c->drain_ws_bytes = 0;
+    if ((rc = cudaMalloc(&c->drain_ws, (size_t)need)) != cudaSuccess ||
+        (rc = cudaMemset(c->drain_ws, 0, (size_t)head)) != cudaSuccess) {
+      return (int)rc;
+    }
+    c->drain_ws_bytes = need;
+  }
+  int32_t* out = reinterpret_cast<int32_t*>(c->result_dev);
+  const int launched =
+      k <= kTopkMaxSmall
+          ? launch_drain(c->hits, 1, n, k, c->drain_ws, out, out + 1, 2,
+                         c->stream)
+          : topk_full_sort(c->hits, n, k,
+                           (uint64_t*)((char*)c->drain_ws + head), out,
+                           out + 1, 2, c->stream);
+  if (launched != 0) return launched;
+  return (int)cudaStreamSynchronize(c->stream);
+}
+
+// B7c from a host list: `count` entries (row, slot, delta, window,
+// flags), int32 each, flags bit 0 fresh and bit 1 bucket; 0 <= row <
+// rows and 0 <= slot < L (no padding, no scratch slot). One launch: up
+// to ct_host_list_capacity(6) entries ride in the parameter block; a
+// longer list is packed into the context's pinned staging buffer, copied
+// to its device buffer in one copy and run by one block there, so no
+// cell's entries are ever split between launches (in two launches a
+// fresh entry in the second would drop the first's delta, hits and
+// bucket advance). The event after the copy guards the pinned buffer.
+int ct_sharded_update_host(void* ctx, const int32_t* entries, int count,
+                           int now_ms) {
+  Ctx* c = (Ctx*)ctx;
+  if (!c || count < 0) return (int)cudaErrorInvalidValue;
+  if (count == 0) return 0;
+  DeviceGuard guard(c->device);
+  constexpr int per = kListInts / 4;
+  const int32_t now = (int32_t)now_ms;
+  if (count <= 32) return launch_update_list<32>(*c, entries, count, now);
+  if (count <= 128) return launch_update_list<128>(*c, entries, count, now);
+  if (count <= per) return launch_update_list<per>(*c, entries, count, now);
+  cudaError_t rc;
+  if (c->upd_staged &&
+      (rc = cudaEventSynchronize(c->upd_staged)) != cudaSuccess) {
+    return (int)rc;
+  }
+  if (count > c->upd_cap) {
+    int cap = 4096;
+    while (cap < count) cap <<= 1;
+    if (c->upd_dev &&
+        (rc = cudaStreamSynchronize(c->stream)) != cudaSuccess) {
+      return (int)rc;  // the last staged launch still reads upd_dev
+    }
+    if (c->upd_stage) cudaFreeHost(c->upd_stage);
+    if (c->upd_dev) cudaFree(c->upd_dev);
+    c->upd_stage = nullptr;
+    c->upd_dev = nullptr;
+    c->upd_cap = 0;
+    if ((rc = cudaHostAlloc((void**)&c->upd_stage, 16 * (size_t)cap,
+                            cudaHostAllocPortable)) != cudaSuccess ||
+        (rc = cudaMalloc((void**)&c->upd_dev,
+                         16 * (size_t)cap + update_scratch_bytes(cap))) !=
+            cudaSuccess ||
+        (!c->upd_staged && (rc = cudaEventCreateWithFlags(
+                                &c->upd_staged, cudaEventDisableTiming)) !=
+                               cudaSuccess)) {
+      return (int)rc;
+    }
+    c->upd_cap = cap;
+  }
+  const size_t n = (size_t)count;
+  int32_t* st = c->upd_stage;
+  if (!pack_updates(*c, entries, count, st, st + n, st + 2 * n,
+                    st + 3 * n)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((rc = cudaMemcpyAsync(c->upd_dev, st, 16 * n, cudaMemcpyHostToDevice,
+                            c->stream)) != cudaSuccess ||
+      (rc = cudaEventRecord(c->upd_staged, c->stream)) != cudaSuccess) {
+    return (int)rc;
+  }
+  update_staged_kernel<<<1, 1024, 0, c->stream>>>(
+      c->values, c->expiry, c->hits, c->rows, c->row_len, count, now,
+      c->upd_dev);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

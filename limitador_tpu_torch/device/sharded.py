@@ -20,8 +20,11 @@ shards are the rows of one int32[n, L+1] tensor per column on one card
   *coupled* (some request spans rows: a grid-wide AND of the rows' votes
   in every sweep), and either with the global pre-pass when a global hit
   is in the batch (counted as ``global``). ``launch_stats`` counts them.
-- Reports and ``apply_deltas`` are one B7c launch, and the usage
-  observatory's ``drain_hot_slots`` one B7d launch plus cell reads.
+- Reports and ``apply_deltas`` are one B7c host-form launch (the
+  storage's list of entries by value, sorted by cell in the kernel) and
+  one B3a host-form read of the touched cells through a second context
+  over the flattened table, and the usage observatory's
+  ``drain_hot_slots`` one B7d launch plus cell reads.
 - Cell clears (a recycled or deleted local cell, an evicted or released
   global slot on every row) are decided in the JAX storage's order but
   staged, and launched as one B7b from the host list (the kernel's
@@ -166,9 +169,8 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
 
     SNAPSHOT_FORMAT = "limitador_tpu_torch/sharded/1"
 
-    # The storage stream discipline, the bound table and the checkpoint
-    # reader are TorchStorage's.
-    _state = TorchStorage._state
+    # The storage stream discipline and the checkpoint reader are
+    # TorchStorage's.
     _upload = TorchStorage._upload
     _download = TorchStorage._download
     _start_download = TorchStorage._start_download
@@ -246,6 +248,24 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def _state(self):
+        """The table. Every assignment binds TorchStorage's launch
+        context (``_ctx``, the [n, L+1] columns: B7b, B7c) and a second
+        one over the same columns flattened to one row of n * (L + 1)
+        cells (``_flat_ctx``: B3a's host form reads any cell by its flat
+        index, row * (L + 1) + slot), and closes the ones it replaces."""
+        return self._ctx.state
+
+    @_state.setter
+    def _state(self, state) -> None:
+        TorchStorage._state.fset(self, state)
+        old = self.__dict__.get("_flat_ctx")
+        self._flat_ctx = K.TableContext(
+            K.CounterTableState(*(t.view(-1) for t in state)), self._stream)
+        if old is not None:
+            old.close()
 
     @property
     def n_shards(self) -> int:
@@ -860,20 +880,19 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
 
     def apply_deltas(self, items):
         """Unconditional batched increments (the Report path): one B7c
-        launch, then one read of the touched local cells and one of the
-        touched global columns for the values. Returns (value, ttl_s) per
-        item, in order."""
+        host-form call (``sharded_update_host``: the list of (row, slot,
+        delta, window, flags) entries by value, one launch, no padding
+        and no upload), then one B3a host-form read (``read_slots_host``
+        on the flattened table) of the touched local cells and of every
+        row's partial of the touched global slots, answered in the
+        context's mapped buffer. Returns (value, ttl_s) per item, in
+        order."""
         for _counter, delta in items:
             require_nonnegative_delta(delta)
         with self._lock:
             now_ms = self._now_ms()
             now = self._clock()
-            app_l: List[int] = []
-            slot_l: List[int] = []
-            delta_l: List[int] = []
-            win_l: List[int] = []
-            fresh_l: List[bool] = []
-            bucket_l: List[bool] = []
+            entries: List[Tuple[int, int, int, int, int]] = []
             # loc: (shard, slot, is_global, counter) or ("big", value, ttl)
             locs: List[tuple] = []
             for counter, delta in items:
@@ -888,40 +907,26 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
                     counter, create=True
                 )
                 win, is_bucket = self._lane_of(counter)
-                app_l.append(self._app_shard() if is_g else shard)
-                slot_l.append(slot)
-                delta_l.append(min(int(delta), K.MAX_DELTA_CAP))
-                win_l.append(win)
-                fresh_l.append(is_fresh)
-                bucket_l.append(is_bucket)
+                entries.append((
+                    self._app_shard() if is_g else shard, slot,
+                    min(int(delta), K.MAX_DELTA_CAP), win,
+                    int(is_fresh) | int(is_bucket) << 1,
+                ))
                 locs.append((shard, slot, is_g, counter))
-            n = self._n
-            app_ids = np.asarray(app_l, np.int32)
-            counts, pos = _partition_positions(app_ids, n)
-            H = _bucket(max(int(counts.max(initial=0)), 1))
-            cols = _scatter_rows(app_ids, pos, n, H, (
-                (slot_l, self._scratch, np.int32),
-                (delta_l, 0, np.int32),
-                (win_l, 0, np.int32),
-                (fresh_l, False, bool),
-                (bucket_l, False, bool),
-            ))
-            with self._on_device():
-                d_ints, d_flags = self._upload(np.stack(cols[:3]),
-                                               np.stack(cols[3:]))
-                M.sharded_update(self._state, *d_ints, *d_flags, now_ms)
+            if not entries:
+                return [(loc[1], loc[2]) for loc in locs]
+            self._flush_clears()
+            M.sharded_update_host(self._ctx, np.asarray(entries, np.int32),
+                                  now_ms)
+            n, row_len = self._n, self._local_capacity + 1
             dev_locs = [loc for loc in locs if loc[0] != "big"]
-            lsh = [s for s, _sl, g, _c in dev_locs if not g]
-            lsl = [sl for _s, sl, g, _c in dev_locs if not g]
-            gsl = np.asarray(
-                sorted({sl for _s, sl, g, _c in dev_locs if g}), np.int32
-            )
-            lv = le = gv = ge = None
-            if lsh:
-                lv, le = self._read_cells(lsh, lsl)
-            if gsl.size:
-                gv, ge = self._read_columns(gsl)
-            gpos = {int(sl): i for i, sl in enumerate(gsl)}
+            cells = [s * row_len + sl for s, sl, g, _c in dev_locs if not g]
+            n_local = len(cells)
+            gsl = sorted({sl for _s, sl, g, _c in dev_locs if g})
+            cells += [r * row_len + sl for sl in gsl for r in range(n)]
+            vals, ttls = K.read_slots_host(
+                self._flat_ctx, np.asarray(cells, np.int32), now_ms)
+            gpos = {sl: n_local + i * n for i, sl in enumerate(gsl)}
             out = []
             li = 0
             for loc in locs:
@@ -931,21 +936,18 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
                     continue
                 shard, slot, is_g, counter = loc
                 if is_g:
-                    col = gpos[slot]
-                    live = ge[:, col] > now_ms
-                    value = int(gv[live, col].sum())
-                    ttl = (
-                        max(int(ge[:, col].max()) - now_ms, 0)
-                        if live.any() else 0
-                    )
+                    # the live partials' sum; the latest live expiry
+                    at = gpos[slot]
+                    value = int(vals[at:at + n].sum())
+                    ttl = int(ttls[at:at + n].max())
                 else:
-                    ttl = max(int(le[li]) - now_ms, 0)
+                    ttl = int(ttls[li])
                     if counter.limit.policy == "token_bucket":
                         value = spent_tokens(
                             counter.max_value, counter.window_seconds, ttl
                         )
                     else:
-                        value = int(lv[li]) if le[li] > now_ms else 0
+                        value = int(vals[li])
                     li += 1
                 out.append((value, ttl / 1000.0))
         return out

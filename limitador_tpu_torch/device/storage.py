@@ -694,19 +694,19 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         reset the per-slot hit accumulator and attribute the K hottest
         slots through the slot table: namespace, limit, key values, hit
         count, plus a value/max_value utilization sample and ttl read at
-        drain time. One top-k launch (B5) and one B3a read (``_read``),
-        off the check path. A slot recycled within one drain
-        interval attributes its counts to the current occupant (or drops
-        them when the slot is free)."""
+        drain time. One B5 host-form call (``drain_top_hits_host``: one
+        launch answering into the bound context's mapped buffer, after
+        the staged clears) and one B3a read (``_read``, which overwrites
+        that buffer: the drain's answers are copies), off the check path.
+        A slot recycled within one drain interval attributes its counts
+        to the current occupant (or drops them when the slot is free)."""
         if k <= 0:
             return []
         with self._lock:
             now_ms = self._now_ms()
-            with self._on_device():
-                _, counts, slots = K.drain_top_hits(
-                    self._state.hits, min(int(k), self._capacity)
-                )
-                counts, slots = self._download(counts, slots)
+            self._flush_clears()
+            counts, slots = K.drain_top_hits_host(
+                self._ctx, min(int(k), self._capacity))
             live = counts > 0
             if not live.any():
                 return []

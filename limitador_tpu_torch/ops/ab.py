@@ -33,12 +33,23 @@ calls after 5 of warm-up), the inputs made from one numpy seed:
 - B3b through the tree's own ``TorchReplicatedStorage`` on the card: a
   gossip merge that adopts 1,000 new keys into recycled slots (each
   adoption's clear launched at once, or staged), then one read of the
-  table, which follows every clear (``b3b_path_ms``).
+  table, which follows every clear (``b3b_path_ms``);
+- B5 at k = 64 over a Zipf-0.99 hit column of 1<<20 counters: the
+  kernels alone (``b5_kernel_ms``, profiler), the device-tensor call
+  (``b5_call_ms``), and the tree's own ``TorchStorage.drain_hot_slots``
+  on the card, the drain and the read of the live slots
+  (``b5_path_ms``);
+- B7c through the tree's own ``TorchShardedStorage.apply_deltas`` on the
+  card ([8, 1<<17 + 1]): one Report of 1, 2 and 8 counters, each after
+  the counters' first Report (``b7c_path_1_ms``, ``b7c_path_2_ms``,
+  ``b7c_path_8_ms``), the answers checked against the same storage on
+  the CPU.
 
-The three storage paths are timed on the host clock (``perf_counter_ns``,
-median of 500, 200 and 20 calls, the card idle before each): B3a's path
-ends with the answers on the host, B6c's once the kernel is queued,
-B3b's with the read's answers.
+The storage paths are timed on the host clock (``perf_counter_ns``,
+median of 500, 200, 20, 200 and 500 calls, the card idle before each):
+B3a's path ends with the answers on the host, B6c's once the kernel is
+queued, B3b's with the read's answers, B5's with the records and B7c's
+with the answers (after the update and the read of the cells).
 
 A "path" time is the tree's own main path from the host list: the host
 form (the list in the kernel's parameter block) where the tree has it,
@@ -365,6 +376,59 @@ def merge():
 times["b3b_path_ms"] = host_ms(merge, reps=20, warmup=2)
 node.close()
 store.close()
+
+# B5: the kernels, the device-tensor call and the storage's drain
+zipf_hits = np.zeros(C + 1, np.int32)
+np.add.at(zipf_hits, np.searchsorted(np.cumsum(w),
+                                     rng.random(4 * 8192) * w.sum()), 1)
+zipf_hits[C] = 3
+d_zipf = torch.from_numpy(zipf_hits).to(dev)
+
+
+def zipf_column():
+    return d_zipf.clone()
+
+
+b5 = lambda h: K.drain_top_hits(h, 64)
+ha = zipf_column()
+got = b5(ha)
+want = K.drain_top_hits_plain(zipf_column(), 64)
+exact = exact and all(torch.equal(x, y) for x, y in zip(got, want))
+times["b5_kernel_ms"] = kernel_ms(b5, zipf_column)
+times["b5_call_ms"] = median_ms(b5, zipf_column)
+store = TorchStorage(capacity=C, device=dev)
+
+
+def refill():
+    with store._lock:
+        store._state.hits.copy_(d_zipf)
+
+
+refill()
+records = store.drain_hot_slots(64)
+exact = exact and [(r["slot"], r["count"]) for r in records] == [
+    (int(s), int(c)) for s, c in zip(want[2].tolist(), want[1].tolist())
+    if c > 0]
+times["b5_path_ms"] = host_ms(lambda: store.drain_hot_slots(64), refill,
+                              reps=200)
+store.close()
+
+# B7c: one Report through the sharded storage's apply_deltas
+from limitador_tpu_torch.device.sharded import TorchShardedStorage
+
+report_limit = Limit("ab", 1 << 20, 60, [], ["u"])
+for size in (1, 2, 8):
+    stores = [TorchShardedStorage(n_shards=8, local_capacity=1 << 17,
+                                  clock=lambda: 1000.0, device=d)
+              for d in (dev, "cpu")]
+    items = [(Counter(report_limit, {"u": f"{size}-{i}"}), 1 + i % 3)
+             for i in range(size)]
+    answers = [[s_.apply_deltas(items) for _ in range(3)] for s_ in stores]
+    exact = exact and answers[0] == answers[1]
+    times[f"b7c_path_{size}_ms"] = host_ms(
+        lambda: stores[0].apply_deltas(items), reps=500)
+    for s_ in stores:
+        s_.close()
 print(json.dumps({"tree": sys.argv[1], "host_forms": host, "exact": exact,
                   **times}))
 '''

@@ -88,6 +88,8 @@ _SIGNATURES = {
     "ct_apply_remote_host": (_I, [_P] * 4 + [_I]),
     "ct_apply_remote_staged": (_I, [_P] * 4 + [_I]),
     "ct_clear_slots_host": (_I, [_P, _P, _I]),
+    "ct_drain_top_hits_host": (_I, [_P, _I]),
+    "ct_sharded_update_host": (_I, [_P, _P, _I, _I]),
 }
 
 #: what the last build or load did: path, seconds, ptxas resource lines

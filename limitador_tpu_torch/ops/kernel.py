@@ -25,14 +25,17 @@ Each kernel has three parts here:
 - ``launches[name]``: a plain integer, incremented by the wrapper each time
   it launches its CUDA kernel (never by the plain version).
 
-Five kernels also take host lists through a ``TableContext`` bound once
+Six kernels also take host lists through a ``TableContext`` bound once
 per table (their "host forms", the storages' main path): B4d
-``seed_slots_host``, B7b ``sharded_clear_cells_host`` (in
-``parallel/mesh.py``), B3a ``read_slots_host``, B6c ``apply_remote_host``
-and B3b ``clear_slots_host``. B3a's, B6c's and B3b's host forms count
-their launches under keys of their own (``read_slots_host``,
-``apply_remote_host``, ``clear_slots_host``), so a run shows which form
-its path took.
+``seed_slots_host``, B7b ``sharded_clear_cells_host`` and B7c
+``sharded_update_host`` (both in ``parallel/mesh.py``), B3a
+``read_slots_host``, B6c ``apply_remote_host`` and B3b
+``clear_slots_host``; B5's host form, ``drain_top_hits_host``, takes
+only k and answers, as B3a's does, into the context's mapped host
+buffer. B3a's, B6c's, B3b's, B5's and B7c's host forms count their
+launches under keys of their own (``read_slots_host``,
+``apply_remote_host``, ``clear_slots_host``, ``drain_top_hits_host``,
+``sharded_update_host``), so a run shows which form its path took.
 
 B1 and B6a each have two CUDA kernels, chosen by the batch's hit count H
 alone (``check_route``): a thread-block cluster (``check_cluster_kernel``,
@@ -97,6 +100,8 @@ __all__ = [
     "TableContext",
     "drain_top_hits",
     "drain_top_hits_plain",
+    "drain_top_hits_host",
+    "drain_top_hits_host_plain",
     "replicated_check_batch",
     "replicated_check_plain",
     "replicated_update_batch",
@@ -142,6 +147,7 @@ launches = {
     "credit": 0,
     "seed_slots": 0,
     "drain_top_hits": 0,
+    "drain_top_hits_host": 0,  # B5's host form
     "replicated_check": 0,  # B6a, one block (check_kernel<true>)
     "replicated_check_cluster": 0,  # B6a, a cluster (its hooks)
     "replicated_update": 0,
@@ -152,6 +158,7 @@ launches = {
     "sharded_check_and_update_cluster": 0,  # B7a, thread-block clusters
     "sharded_clear_cells": 0,
     "sharded_update": 0,
+    "sharded_update_host": 0,  # B7c's host form
     "sharded_drain_top_hits": 0,
 }
 
@@ -223,15 +230,17 @@ def _require_host(a: np.ndarray, name: str, n: int) -> None:
 class TableContext:
     """A table bound once for the host-list launches (the host forms of
     B4d, ``seed_slots_host``, of B7b, ``sharded_clear_cells_host``, of
-    B3a, ``read_slots_host``, of B6c, ``apply_remote_host``, and of B3b,
-    ``clear_slots_host``).
+    B7c, ``sharded_update_host``, of B3a, ``read_slots_host``, of B6c,
+    ``apply_remote_host``, of B3b, ``clear_slots_host``, and of B5,
+    ``drain_top_hits_host``).
 
     On the card the three columns are checked here, once, and bound with
     the stream (the storage's own) in a C context, ``ct_ctx_create``; a
     launch through it passes the handle and numpy lists and makes no
-    torch call. The C context also owns B3a's answer buffer (pinned host
-    memory mapped for the card, ``results`` its numpy view), freed with
-    it. On the CPU it holds the table, and the host forms run their plain
+    torch call. The C context also owns the answer buffer of B3a and B5
+    (pinned host memory mapped for the card, ``results`` its numpy
+    view), B5's workspace and B7c's staging buffers, freed with it. On
+    the CPU it holds the table, and the host forms run their plain
     versions on it. A storage makes one whenever it takes or replaces its
     table, and closes the one it replaces: a context must never outlive
     the table it points at, so it keeps the table. Calls through one
@@ -240,7 +249,8 @@ class TableContext:
 
     __slots__ = ("state", "cuda", "handle", "capacity", "clear_fn",
                  "seed_fn", "read_fn", "remote_fn", "staged_fn",
-                 "clear_slots_fn", "results", "_results_fn", "_destroy")
+                 "clear_slots_fn", "drain_fn", "update_fn", "results",
+                 "_results_fn", "_destroy")
     _NO_RESULTS = np.zeros((0, 2), np.int32)
 
     def __init__(self, state, stream=None):
@@ -277,15 +287,19 @@ class TableContext:
         self.remote_fn = lib.ct_apply_remote_host
         self.staged_fn = lib.ct_apply_remote_staged
         self.clear_slots_fn = lib.ct_clear_slots_host
+        self.drain_fn = lib.ct_drain_top_hits_host
+        self.update_fn = lib.ct_sharded_update_host
         self._results_fn = lib.ct_ctx_results
         #: entries one launch carries: all-rows slots, pairs, seed rows,
-        #: slots read (B3a), remote-share rows (B6c), slots cleared (B3b)
-        self.capacity = tuple(lib.ct_host_list_capacity(k) for k in range(6))
+        #: slots read (B3a), remote-share rows (B6c), slots cleared (B3b),
+        #: update entries (B7c; a longer list is staged, still one launch)
+        self.capacity = tuple(lib.ct_host_list_capacity(k) for k in range(7))
 
     def reserve(self, n: int) -> np.ndarray:
-        """Grow B3a's answer buffer to at least ``n`` (value, ttl) pairs
-        (a power of two, 1024 at least) and return ``results``, its
-        numpy view, which every read overwrites."""
+        """Grow the answer buffer to at least ``n`` int32 pairs (B3a's
+        (value, ttl), B5's (count, slot); a power of two, 1024 at least)
+        and return ``results``, its numpy view, which every read and
+        drain overwrites."""
         cap = max(1024, 1 << (n - 1).bit_length())
         ptr = self._results_fn(self.handle, cap) if self.handle else None
         if not ptr:
@@ -1102,7 +1116,10 @@ def drain_top_hits(
     ``drain_top_hits``): returns (the zeroed column, counts[k] descending,
     slots[k]), ties to the lowest slot; rows with count 0 are filler.
     The scratch row is zeroed and never reported. ``1 <= k <= C``. The
-    column is zeroed in place."""
+    column is zeroed in place. On the card, for k <= 1024, one launch of
+    B5's one-pass kernel (after a 256-byte memset of its fresh
+    workspace's done counter); the storages drain through
+    ``drain_top_hits_host``."""
     n = hits.shape[0]
     k = int(k)
     if not 1 <= k <= n - 1:
@@ -1123,6 +1140,46 @@ def drain_top_hits(
     ), "ct_drain_top_hits")
     launches["drain_top_hits"] += 1
     return hits, counts, slots
+
+
+def drain_top_hits_host_plain(state: CounterTableState,
+                              k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Plain twin of ``drain_top_hits_host``: ``drain_top_hits_plain``
+    on the table's hit column, the answers as numpy int32 arrays."""
+    _, counts, slots = drain_top_hits_plain(state.hits, k)
+    return counts.cpu().numpy(), slots.cpu().numpy()
+
+
+def drain_top_hits_host(ctx: TableContext,
+                        k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``drain_top_hits`` on ``ctx.state``'s hit column, answered on the
+    host: (counts, slots) as numpy int32[k] arrays of their own, the
+    column zeroed in place. On the card one C call launches B5's
+    one-pass kernel (for k <= 1024; a larger k the full sort) with the
+    context's own workspace, the kernel stores the k (count, slot) pairs
+    into the context's mapped host buffer (B3a's), and the call waits on
+    the context's stream: the drain follows every launch queued there
+    before it, and needs no allocation, no output tensor and no copy.
+    The next read or drain overwrites the buffer; the answers are copied
+    out of it first."""
+    n = ctx.state.hits.shape[0]
+    k = int(k)
+    if not 1 <= k <= n - 1:
+        raise ValueError(f"drain_top_hits_host: k={k} outside [1, {n - 1}]")
+    if not ctx.cuda:
+        return drain_top_hits_host_plain(ctx.state, k)
+    if not ctx.handle:
+        raise RuntimeError("drain_top_hits_host: the launch context is "
+                           "closed")
+    results = ctx.results
+    if results.shape[0] < k:
+        results = ctx.reserve(k)
+    rc = ctx.drain_fn(ctx.handle, k)
+    if rc:
+        build.check(rc, "ct_drain_top_hits_host")
+    launches["drain_top_hits_host"] += 1
+    pairs = results[:k]
+    return pairs[:, 0].copy(), pairs[:, 1].copy()
 
 
 # -- B6: the replicated topology --------------------------------------------

@@ -36,7 +36,10 @@ stages them).
 Each program has a plain version (``*_plain``), which a CPU table runs
 and ``chip_smoke.py`` holds the kernel against, and a wrapper that
 launches the CUDA kernel of ``csrc/counter_table.cu`` for a CUDA table
-and counts the launch in ``ops.kernel.launches``. Like the rest of the
+and counts the launch in ``ops.kernel.launches``. B7b and B7c also take
+the storage's host lists through a bound ``ops.kernel.TableContext``
+(``sharded_clear_cells_host``, ``sharded_update_host``, the sharded
+storage's path; B7c's host form counts under ``sharded_update_host``). Like the rest of the
 port, every function updates the table in place and returns it.
 
 The pod plumbing of the JAX file (``PodInfo``, ``PodPsumLane``,
@@ -67,6 +70,8 @@ __all__ = [
     "sharded_clear_cells_host_plain",
     "sharded_update",
     "sharded_update_plain",
+    "sharded_update_host",
+    "sharded_update_host_plain",
     "sharded_drain_top_hits",
     "sharded_drain_top_hits_plain",
     "coupled_row_capacity",
@@ -463,6 +468,74 @@ def sharded_update(
     ), "ct_sharded_update")
     K.launches["sharded_update"] += 1
     return state
+
+
+def _require_entries(entries: np.ndarray) -> None:
+    if entries.dtype != np.int32 or entries.ndim != 2 or \
+            entries.shape[1] != 5:
+        raise ValueError("entries: expected a numpy int32 [count, 5] list "
+                         "of (row, slot, delta, window, flags)")
+
+
+def sharded_update_host_plain(state: ShardedCounterState,
+                              entries: np.ndarray,
+                              now_ms) -> ShardedCounterState:
+    """Plain twin of ``sharded_update_host``: B2's plain version on each
+    row over that row's entries in list order, every row's scratch cell
+    zeroed (an empty list changes nothing, as on the card). In
+    place."""
+    _require_entries(entries)
+    if entries.shape[0] == 0:
+        return state
+    n, L1 = state.values.shape
+    rows, slots = entries[:, 0], entries[:, 1]
+    if ((rows < 0) | (rows >= n) | (slots < 0) | (slots >= L1 - 1)).any():
+        raise ValueError(f"entries: rows must lie in [0, {n}) and slots in "
+                         f"[0, {L1 - 1})")
+    dev = state.values.device
+    for s in range(n):
+        mine = entries[rows == s]
+        if mine.shape[0]:
+            cols = [torch.from_numpy(np.ascontiguousarray(mine[:, j])).to(dev)
+                    for j in range(1, 5)]
+            flags = cols[3]
+            K.update_plain(_row(state, s), cols[0], cols[1], cols[2],
+                           (flags & 1).bool(), (flags & 2).bool(), now_ms)
+    for t in state:
+        t[:, -1] = 0
+    return state
+
+
+def sharded_update_host(ctx: K.TableContext, entries: np.ndarray,
+                        now_ms) -> ShardedCounterState:
+    """``sharded_update`` from a host list, on ``ctx.state`` in place:
+    ``entries`` is a numpy int32 [count, 5] list of (row, slot, delta,
+    window, flags) entries, flags bit 0 fresh and bit 1 bucket, in the
+    order the JAX call's [n, H] columns hold them row by row (its
+    padding entries, slot L, are left out). Each row takes B2 over its
+    entries, as the JAX call's rows do, and every row's scratch cell is
+    zeroed. On the card one C call, one launch on the context's stream
+    (``ct_sharded_update_host``): a list of up to ``ctx.capacity[6]``
+    entries rides in the kernel's parameter block; a longer one goes
+    through the context's staging buffer in one copy, never in chunks,
+    so no cell's entries are split between launches. The kernel sorts
+    the entries by cell, stably, and applies B2's rules per cell. No
+    padding, no upload, no tensor, no workspace."""
+    if not ctx.cuda:
+        return sharded_update_host_plain(ctx.state, entries, now_ms)
+    _require_entries(entries)
+    now = K._now(now_ms)
+    if not ctx.handle:
+        raise RuntimeError("sharded_update_host: the launch context is "
+                           "closed")
+    count = entries.shape[0]
+    if count == 0:
+        return ctx.state
+    rc = ctx.update_fn(ctx.handle, entries.tobytes(), count, now)
+    if rc:
+        build.check(rc, "ct_sharded_update_host")
+    K.launches["sharded_update_host"] += 1
+    return ctx.state
 
 
 # -- B7d: per-row heavy-hitter drain -----------------------------------------

@@ -23,6 +23,7 @@ from limitador_tpu_torch.parallel import mesh as M
 from .torch_batches import (
     C,
     CHECK_KINDS,
+    DRAIN_EDGE_KINDS,
     NEVER,
     batch,
     check_case,
@@ -31,6 +32,7 @@ from .torch_batches import (
     divergent_lean_batch,
     hits_column,
     lanes,
+    padded_update_columns,
     remote_lanes,
     remote_rows,
     seed_rows,
@@ -38,6 +40,7 @@ from .torch_batches import (
     sharded_lanes,
     sharded_table,
     table,
+    update_entries,
 )
 from .torch_native_corpus import FROZEN_NOW, corpus, limits
 
@@ -1110,3 +1113,146 @@ def test_a_peek_right_after_a_b1_launch_reads_its_result(cuda):
             np.testing.assert_array_equal(g, w)
     _equal(storage._state, plain)
     storage.close()
+
+
+# -- B5's one-pass drain and its host form; B7c's host form -------------------
+
+
+DRAIN_KINDS = ("zipf", "sparse", "zero", "wide") + DRAIN_EDGE_KINDS
+
+
+def _hits_table(hits, dev):
+    col = torch.from_numpy(hits).to(dev)
+    return K.CounterTableState(torch.zeros_like(col), torch.zeros_like(col),
+                               col)
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1 << 20], ids=["1k", "1M"])
+@pytest.mark.parametrize("k", [1, 7, 64, 1000, 1024])
+@pytest.mark.parametrize("kind", DRAIN_KINDS)
+def test_drain_one_pass_kernel_and_host_form_match_plain(cuda, kind, k, n):
+    """B5's one-pass kernel (the device-tensor call, one launch) and its
+    host form (answers in the context's mapped buffer) against the plain
+    drain, on traffic-shaped and adversarial columns (counts rising with
+    the index, all equal, negative and at INT_MIN/INT_MAX): the same
+    counts and slots, ties to the lowest slot, and the column zeroed."""
+    hits = hits_column(np.random.default_rng(k + n), kind, n)
+    _, want_c, want_s = K.drain_top_hits_plain(
+        torch.from_numpy(hits.copy()), k)
+    a = torch.from_numpy(hits.copy()).to(cuda)
+    before = K.launches["drain_top_hits"]
+    _, got_c, got_s = K.drain_top_hits(a, k)
+    assert K.launches["drain_top_hits"] == before + 1
+    _equal((got_c, got_s), (want_c, want_s))
+    assert not a.any()
+    state = _hits_table(hits, cuda)
+    ctx = K.TableContext(state, torch.cuda.current_stream(cuda))
+    before = K.launches["drain_top_hits_host"]
+    counts, slots = K.drain_top_hits_host(ctx, k)
+    assert K.launches["drain_top_hits_host"] == before + 1
+    assert counts.flags.owndata and slots.flags.owndata
+    np.testing.assert_array_equal(counts, want_c.numpy())
+    np.testing.assert_array_equal(slots, want_s.numpy())
+    assert not state.hits.any()
+    ctx.close()
+
+
+def test_a_drain_right_after_a_b1_launch_reads_its_hits(cuda):
+    """B1 queued on the storage stream (no sync), then at once the host
+    form's drain through the storage's context: it reads the hits that
+    B1 added, as the plain drain after the same B1 does."""
+    storage = TorchStorage(capacity=C, clock=lambda: 1000.0, device=cuda)
+    rng = np.random.default_rng(813)
+    now_ms = 5_000_000
+    slot_lanes = lanes(rng, 4000)
+    tab = table(rng, now_ms, slot_lanes)
+    storage._state = _state(tab, cuda)
+    plain = _state(tab, cuda)
+    for _round in range(3):
+        arrays = tuple(torch.from_numpy(a).to(cuda)
+                       for a in batch(rng, 20000, slot_lanes, 4000))
+        torch.cuda.synchronize()  # the inputs are in place; B1 is not
+        with storage._lock:
+            with storage._on_device():
+                K.check_and_update_batch(storage._state, *arrays, now_ms)
+            got = K.drain_top_hits_host(storage._ctx, 64)
+        K.check_and_update_plain(plain, *arrays, now_ms)
+        _, want_c, want_s = K.drain_top_hits_plain(plain.hits, 64)
+        np.testing.assert_array_equal(got[0], want_c.cpu().numpy())
+        np.testing.assert_array_equal(got[1], want_s.cpu().numpy())
+    _equal(storage._state, plain)
+    storage.close()
+
+
+def test_drains_in_a_row_leave_the_done_counter_at_zero(cuda):
+    """The last block sets the workspace's done counter back to 0: drains
+    in a row through one context (its workspace allocated once, grown
+    for a larger k) and through the device-tensor call stay exact, the
+    answer buffer's earlier answers kept by the caller's copies."""
+    rng = np.random.default_rng(814)
+    state = _hits_table(hits_column(rng, "zipf", 1 << 20), cuda)
+    ctx = K.TableContext(state, torch.cuda.current_stream(cuda))
+    for kind, k in (("zipf", 64), ("ascending", 64), ("equal", 7),
+                    ("zipf", 1000), ("extremes", 64), ("sparse", 1),
+                    ("zipf", 4096), ("zipf", 64)):
+        hits = hits_column(rng, kind, 1 << 20)
+        state.hits.copy_(torch.from_numpy(hits))
+        _, want_c, want_s = K.drain_top_hits_plain(
+            torch.from_numpy(hits.copy()), k)
+        counts, slots = K.drain_top_hits_host(ctx, k)
+        np.testing.assert_array_equal(counts, want_c.numpy())
+        np.testing.assert_array_equal(slots, want_s.numpy())
+        a = torch.from_numpy(hits).to(cuda)
+        _equal(K.drain_top_hits(a, k)[1:], (want_c, want_s))
+    ctx.close()
+
+
+@pytest.mark.parametrize("count", [1, 8, 32, 33, 128, 129, 1999, 2000, 2001,
+                                   6000])
+def test_sharded_update_host_form_matches_plain(cuda, count):
+    """B7c from a host list (one launch: the parameter block up to the
+    capacity, one staged copy past it) against the JAX-shaped plain
+    version on the padded [n, H] columns and against the host form's
+    plain twin: repeated cells, buckets and windows mixed, deltas at the
+    caps, and a cell whose fresh entry follows a non-fresh one across
+    the capacity's boundary (or as the last two entries of a shorter
+    list)."""
+    rng = np.random.default_rng(900 + count)
+    now_ms = 5_000_000
+    L, G = 1 << 12, 16
+    slot_lanes = sharded_lanes(rng, L, G)
+    tab = sharded_table(rng, 8, L, now_ms, slot_lanes, G)
+    ka, pb, pc = (_sharded(tab, cuda) for _ in range(3))
+    ctx = K.TableContext(ka, torch.cuda.current_stream(cuda))
+    cap = ctx.capacity[6]
+    assert cap == 2000
+    for _round in range(3):
+        entries = update_entries(rng, count, 8, L, G, slot_lanes,
+                                 straddle=min(count - 1, cap))
+        before = K.launches["sharded_update_host"]
+        M.sharded_update_host(ctx, entries, now_ms)
+        assert K.launches["sharded_update_host"] == before + 1
+        M.sharded_update_plain(pb, *(
+            torch.from_numpy(a).to(cuda)
+            for a in padded_update_columns(entries, 8, L)), now_ms)
+        M.sharded_update_host_plain(pc, entries, now_ms)
+        torch.cuda.synchronize()
+        _equal(ka, pb)
+        _equal(ka, pc)
+        now_ms += int(rng.choice([0, 500, 61_000]))
+    ctx.close()
+
+
+def test_sharded_update_host_form_refuses_the_scratch_slot(cuda):
+    """The host form has no padding: an entry of slot L or of a row past
+    the table raises, and the table is left as it was."""
+    tab = tuple(np.ones((8, 65), np.int32) for _ in range(3))
+    ka = _sharded(tab, cuda)
+    ctx = K.TableContext(ka, torch.cuda.current_stream(cuda))
+    for bad in ([0, 64, 1, 1000, 0], [8, 3, 1, 1000, 0]):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            M.sharded_update_host(ctx, np.asarray([[1, 2, 1, 1000, 0], bad],
+                                                  np.int32), 0)
+    torch.cuda.synchronize()
+    _equal(ka, _sharded(tab, cuda))
+    ctx.close()

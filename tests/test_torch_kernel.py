@@ -21,6 +21,7 @@ from limitador_tpu_torch.ops import kernel as TK
 
 from .torch_batches import (
     CHECK_KINDS,
+    DRAIN_EDGE_KINDS,
     C,
     NEVER,
     SpyContext,
@@ -432,8 +433,11 @@ def test_credit_refuses_duplicate_slots_when_checking():
                         check_unique=True)
 
 
+DRAIN_KINDS = ("zipf", "sparse", "zero", "wide") + DRAIN_EDGE_KINDS
+
+
 @pytest.mark.parametrize("k", [1, 4, 64, C])
-@pytest.mark.parametrize("kind", ["zipf", "sparse", "zero", "wide"])
+@pytest.mark.parametrize("kind", DRAIN_KINDS)
 def test_drain_top_hits_matches_jax(kind, k):
     rng = np.random.default_rng(k)
     hits = hits_column(rng, kind)
@@ -450,3 +454,42 @@ def test_drain_top_hits_refuses_k_out_of_range():
     for k in (0, C + 1):
         with pytest.raises(ValueError):
             TK.drain_top_hits(hits, k)
+
+
+@pytest.mark.parametrize("k", [1, 7, 64, 1000, 1024, 1025, C])
+@pytest.mark.parametrize("kind", DRAIN_KINDS)
+def test_drain_top_hits_host_form_matches_jax(kind, k):
+    """B5's host form equals ``JK.drain_top_hits`` on every column kind
+    (counts rising with the index, all equal, negative and at
+    INT_MIN/INT_MAX among them): through a CPU context (the plain twin,
+    no launch) and through a context that emulates the C entry point
+    (one call with k, one launch counted, the answers copied out of the
+    buffer that the next drain overwrites); the column zeroed."""
+    rng = np.random.default_rng(8300 + k)
+    hits = hits_column(rng, kind)
+    _jh, jc, js = JK.drain_top_hits(jnp.asarray(hits), k)
+    z = np.zeros(C + 1, np.int32)
+    ctx = TK.TableContext(_torch_state(z, z, hits.copy()))
+    before = dict(TK.launches)
+    tc, ts = TK.drain_top_hits_host(ctx, k)
+    assert TK.launches == before
+    spy = SpyContext(_torch_state(z, z, hits.copy()))
+    sc, ss = TK.drain_top_hits_host(spy, k)
+    assert spy.calls == [("drain", k)]
+    assert TK.launches["drain_top_hits_host"] == \
+        before["drain_top_hits_host"] + 1
+    assert TK.launches["drain_top_hits"] == before["drain_top_hits"]
+    spy.state.hits.copy_(torch.from_numpy(hits_column(rng, "wide")))
+    TK.drain_top_hits_host(spy, k)
+    assert sc.flags.owndata and ss.flags.owndata
+    for got in ((tc, ts), (sc, ss)):
+        for name, j, t in (("counts", jc, got[0]), ("slots", js, got[1])):
+            assert t.dtype == np.int32
+            np.testing.assert_array_equal(np.asarray(j), t, err_msg=name)
+    assert not ctx.state.hits.any() and not spy.state.hits.any()
+    for k_bad in (0, C + 1):
+        with pytest.raises(ValueError):
+            TK.drain_top_hits_host(spy, k_bad)
+    spy.close()
+    with pytest.raises(RuntimeError):
+        TK.drain_top_hits_host(spy, k)

@@ -40,11 +40,14 @@ from limitador_tpu_torch.parallel import mesh as TM
 
 from .torch_batches import (
     NEVER,
+    SpyContext,
     divergent_lean_batch,
     fake_card,
+    padded_update_columns,
     sharded_batch,
     sharded_lanes,
     sharded_table,
+    update_entries,
 )
 
 pytestmark = pytest.mark.skipif(
@@ -1801,3 +1804,154 @@ def test_every_new_table_rebinds_the_clear_context(case, tmp_path):
     assert storage._state.hits[2, 40] == 0
     if old is not None:
         assert (old.values[:, 3] == 5).all()
+
+
+# -- B7c's host form and the Report path --------------------------------------
+
+#: entries one B7c launch carries on the card (nvcc 12.1 or later)
+UPDATE_CAPACITY = 2000
+
+
+@pytest.mark.parametrize("count", [8, 33, UPDATE_CAPACITY - 1,
+                                   UPDATE_CAPACITY, UPDATE_CAPACITY + 1])
+def test_sharded_update_host_form_matches_jax(count):
+    """B7c's host form on a flat list equals the JAX ``sharded_update``
+    on the list's padded [n, H] columns, three rounds over one table:
+    through a CPU context (the plain twin, no launch) and through a
+    context that emulates the C entry point (one call with the list as
+    bytes, one launch). The lists hold repeated cells, buckets and
+    windows mixed on one row, global slots on the rows they are applied
+    to, deltas at and past the caps, and a cell whose fresh entry
+    follows a non-fresh one at the boundary of one launch's capacity
+    (entries capacity - 1 and capacity), or as the list's last two."""
+    rng = np.random.default_rng(9100 + count)
+    mesh = _mesh()
+    now_ms = 5_000_000
+    lanes = sharded_lanes(rng, L, G)
+    table = sharded_table(rng, N, L, now_ms, lanes, G)
+    jstate = _jax_state(mesh, table)
+    ctx = TK.TableContext(_torch_state(table))
+    spy = SpyContext(_torch_state(table))
+    straddle = min(count - 1, UPDATE_CAPACITY)
+    for _round in range(3):
+        entries = update_entries(rng, count, N, L, G, lanes, straddle)
+        cells = entries[:, 0] * (L + 1) + entries[:, 1]
+        assert np.unique(cells).size < count  # repeated cells
+        assert (entries[:, 1] < G).any()  # global slots
+        a, b = entries[straddle - 1], entries[straddle]
+        assert (a[:2] == b[:2]).all() and a[4] & 1 == 0 and b[4] & 1
+        jstate = JM.sharded_update(mesh, jstate,
+                                   *padded_update_columns(entries, N, L),
+                                   np.int32(now_ms))
+        before = dict(TK.launches)
+        assert TM.sharded_update_host(ctx, entries, now_ms) is ctx.state
+        assert TK.launches == before  # the CPU runs the plain twin
+        TM.sharded_update_host(spy, entries, now_ms)
+        assert spy.calls[-1] == ("update", count)
+        assert TK.launches["sharded_update_host"] == \
+            before["sharded_update_host"] + 1
+        assert TK.launches["sharded_update"] == before["sharded_update"]
+        _assert_tables(jstate, ctx.state)
+        _assert_tables(jstate, spy.state)
+        now_ms += int(rng.choice([0, 500, 61_000]))
+
+
+def test_sharded_update_host_form_hand_cells():
+    """Hand cells through the host form's twin and the JAX call: a
+    window cell whose fresh entry follows a non-fresh one (it ends at the
+    fresh entry's window alone, with both deltas), a bucket and a window
+    on row 2, a global slot twice on its application row 5, a cell that
+    turns from window to bucket at its last entry, and deltas past the
+    cap and negative; an empty list changes nothing."""
+    rng = np.random.default_rng(9200)
+    mesh = _mesh()
+    now_ms = 2_000_000
+    lanes = sharded_lanes(rng, L, G)
+    table = sharded_table(rng, N, L, now_ms, lanes, G)
+    entries = np.asarray([
+        [2, 100, 3, 60_000, 0],
+        [2, 100, 5, 60_000, 1],
+        [2, 101, 1, 500, 2],
+        [2, 102, 2, 1000, 0],
+        [5, 3, 4, 60_000, 0],
+        [5, 3, (1 << 30) - 1, 60_000, 0],
+        [5, 3, NEVER, 60_000, 0],
+        [0, 200, -7, 1000, 0],
+        [0, 201, 2, 1000, 0],
+        [0, 201, 1, 250, 2],
+    ], np.int32)
+    jstate = JM.sharded_update(mesh, _jax_state(mesh, table),
+                               *padded_update_columns(entries, N, L),
+                               np.int32(now_ms))
+    ctx = TK.TableContext(_torch_state(table))
+    TM.sharded_update_host(ctx, entries, now_ms)
+    _assert_tables(jstate, ctx.state)
+    assert int(ctx.state.values[2, 100]) == 8
+    assert int(ctx.state.expiry_ms[2, 100]) == now_ms + 60_000
+    assert int(ctx.state.hits[2, 100]) == 2
+    before = [t.clone() for t in ctx.state]
+    TM.sharded_update_host(ctx, np.zeros((0, 5), np.int32), now_ms)
+    for t, b in zip(ctx.state, before):
+        assert torch.equal(t, b)
+
+
+@pytest.mark.parametrize("bad", [[0, L, 1, 1000, 0], [N, 3, 1, 1000, 0],
+                                 [-1, 3, 1, 1000, 0], [0, -1, 1, 1000, 0]])
+def test_sharded_update_host_form_refuses_cells_past_the_table(bad):
+    """The host form has no padding: an entry of slot L (the scratch
+    cell), of a negative slot or of a row past the table raises, as the
+    card's entry point refuses it; a list of the wrong shape or type
+    too."""
+    ctx = TK.TableContext(TM.make_sharded_table(N, L, "cpu"))
+    with pytest.raises(ValueError):
+        TM.sharded_update_host(ctx, np.asarray([bad], np.int32), 0)
+    for wrong in (np.zeros((2, 4), np.int32), np.zeros((2, 5), np.int64)):
+        with pytest.raises(ValueError):
+            TM.sharded_update_host(ctx, wrong, 0)
+    assert not any(t.any() for t in ctx.state)
+
+
+def test_apply_deltas_is_one_update_launch_per_call(monkeypatch):
+    """A counting spy on B7c's host form: every ``apply_deltas`` with a
+    device counter is one call (one launch) carrying each device counter
+    once, in item order, whatever the Report's size (1, 2, 8 counters:
+    windows, buckets, global counters, recycled cells); a Report of host
+    counters only launches nothing. Its answers and the three arrays
+    equal the JAX sharded storage's after every call."""
+    calls = []
+    launch = TM.sharded_update_host
+
+    def spy(ctx, entries, now_ms):
+        calls.append(entries.copy())
+        return launch(ctx, entries, now_ms)
+
+    monkeypatch.setattr(TM, "sharded_update_host", spy)
+    clock, js, ts = _twins(cache_size=24)
+    g = _limit_pair("g", 50, 60, [], ["t"], name="per-tenant")
+    win = _limit_pair("ns", 30, 60, [], ["u"], name="win")
+    tb = _limit_pair("ns", 6, 60, [], ["u"], name="bucket",
+                     policy="token_bucket")
+    big = _limit_pair("ns", 1 << 40, 60, [], ["u"], name="big")
+    rng = random.Random(23)
+    for step in range(40):
+        size = (1, 2, 8)[step % 3]
+        items = []
+        for _ in range(size):
+            pair = rng.choice((g, win, tb, win))
+            key = "t" if pair is g else "u"
+            items.append((pair, {key: str(rng.randrange(30))}))
+        deltas = [rng.randrange(4) for _ in items]
+        n_calls = len(calls)
+        jv = js.apply_deltas([(JCounter(p[0], dict(v)), d)
+                              for (p, v), d in zip(items, deltas)])
+        tv = ts.apply_deltas([(Counter(p[1], dict(v)), d)
+                              for (p, v), d in zip(items, deltas)])
+        assert tv == jv, step
+        assert len(calls) == n_calls + 1
+        assert calls[-1].shape == (size, 5)
+        _same_tables(js, ts)
+        clock.advance(rng.choice([0, 3, 61]))
+    n_calls = len(calls)
+    jv = js.apply_deltas([(JCounter(big[0], {"u": "a"}), 5)])
+    assert ts.apply_deltas([(Counter(big[1], {"u": "a"}), 5)]) == jv
+    assert len(calls) == n_calls

@@ -18,6 +18,7 @@ from limitador_tpu.observability.usage import (
     TenantUsageObservatory as JaxObservatory,
 )
 from limitador_tpu_torch import Counter, Limit
+from limitador_tpu_torch.device.storage import hot_attribution
 from limitador_tpu_torch.observability.usage import TenantUsageObservatory
 from limitador_tpu_torch.ops import kernel as K
 
@@ -116,3 +117,52 @@ def test_observatory_top_matches_jax():
     jtop = observatories[0].top_counters()
     ttop = observatories[1].top_counters()
     assert ttop == jtop
+
+
+def test_drain_hot_slots_takes_the_host_form(monkeypatch):
+    """``drain_hot_slots`` drains through B5's host form (one call per
+    drain, never the device-tensor ``drain_top_hits``) and returns the
+    records that the device-tensor route gives on a copy of the same
+    table: B5 on the hit column, then the B3a read and the attribution
+    of the live slots."""
+    clocks = (_Clock(), _Clock())
+    config = dict(max_tokens=8, hot_threshold=2, ttl_s=30.0)
+    pairs = (_jax_leased(clocks[0], limits(JLimit), **config),
+             _port_leased(clocks[1], limits(Limit), **config))
+    _drive(pairs, corpus(21), clocks)
+    _update_both(pairs, np.random.default_rng(21))
+    storage = pairs[1][0].storage
+    hosted, tensors = [], []
+    host_form, tensor_form = K.drain_top_hits_host, K.drain_top_hits
+
+    def host_spy(ctx, k):
+        hosted.append(k)
+        return host_form(ctx, k)
+
+    def tensor_spy(hits, k):
+        tensors.append(k)
+        return tensor_form(hits, k)
+
+    monkeypatch.setattr(K, "drain_top_hits_host", host_spy)
+    monkeypatch.setattr(K, "drain_top_hits", tensor_spy)
+    for k in (64, 3):
+        with storage._lock:
+            copy = K.CounterTableState(*(t.clone() for t in storage._state))
+            now_ms = storage._now_ms()
+            _, counts, slots = tensor_form(copy.hits, k)
+            live = counts > 0
+            values, ttls = K.read_slots_plain(copy, slots[live], now_ms)
+        want = []
+        for slot, count, v, t in zip(slots[live].tolist(),
+                                     counts[live].tolist(),
+                                     values.tolist(), ttls.tolist()):
+            record = {"slot": slot, "count": count}
+            entry = storage._table.info.get(slot)
+            if entry is not None:
+                record.update(hot_attribution(entry[1], v, t))
+            want.append(record)
+        got = storage.drain_hot_slots(k)
+        assert got == want and got
+        assert hosted == [k] and tensors == []
+        hosted.clear()
+        _drive(pairs, corpus(22), clocks)

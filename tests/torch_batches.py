@@ -206,20 +206,36 @@ def credit_batch(rng, H, now_ms, n_slots=C):
     )
 
 
-def hits_column(rng, kind):
-    """An int32[C+1] hit column: "zipf" (hot slots, many ties), "sparse"
-    (fewer live slots than most k, tied counts), "zero", or "wide"
-    (large counts)."""
-    hits = np.zeros(C + 1, np.int32)
+#: B5's adversarial columns beside the traffic-shaped ones
+DRAIN_EDGE_KINDS = ("ascending", "equal", "extremes")
+
+
+def hits_column(rng, kind, n=C):
+    """An int32[n+1] hit column: "zipf" (hot slots, many ties), "sparse"
+    (fewer live slots than most k, tied counts), "zero", "wide" (large
+    counts), "ascending" (counts rising with the index: every later cell
+    beats every earlier one), "equal" (one count everywhere: the index
+    alone orders), or "extremes" (negative counts, INT_MIN, INT_MAX,
+    -1 and 0, with ties)."""
+    hits = np.zeros(n + 1, np.int32)
     if kind == "zipf":
-        keys = np.minimum(rng.zipf(1.3, 20 * C) - 1, C - 1)
+        keys = np.minimum(rng.zipf(1.3, 20 * n) - 1, n - 1)
         np.add.at(hits, keys, 1)
     elif kind == "sparse":
-        live = rng.choice(C, 10, replace=False)
+        live = rng.choice(n, 10, replace=False)
         hits[live] = rng.choice([1, 2, 2, 5], 10)
     elif kind == "wide":
-        hits[:C] = rng.integers(0, NEVER, C)
-    hits[C] = 3  # scratch garbage: zeroed, never reported
+        hits[:n] = rng.integers(0, NEVER, n)
+    elif kind == "ascending":
+        hits[:n] = np.arange(n, dtype=np.int32)
+    elif kind == "equal":
+        hits[:n] = 7
+    elif kind == "extremes":
+        edges = np.array([-(1 << 31), NEVER, -1, 0, 1], np.int32)
+        hits[:n] = rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+        pick = rng.random(n) < 0.5
+        hits[:n][pick] = rng.choice(edges, int(pick.sum()))
+    hits[n] = 3  # scratch garbage: zeroed, never reported
     return hits
 
 
@@ -325,6 +341,58 @@ def sharded_lanes(rng, L, G):
         out[slot] = (False, int(rng.choice([1 << 30, 5 << 28, 100])),
                      int(rng.choice([1000, 60_000])))
     return out
+
+
+def update_entries(rng, count, n, L, G, lanes_, straddle=None):
+    """A B7c host list of ``count`` (row, slot, delta, window, flags)
+    entries over an [n, L+1] table (flags bit 0 fresh, bit 1 bucket):
+    local slots Zipf over [G, L) on any row (repeated cells), a quarter
+    global slots (< G) on any row, lanes as ``lanes_`` says with 3% of
+    bucket flags flipped (a cell whose entries mix buckets and windows),
+    about 10% fresh, deltas 0 to 3 with some at and past the caps and
+    some negative. With ``straddle`` = i (1 <= i < count), entries i - 1
+    and i are one cell, the first not fresh and the second fresh: split
+    between two launches at i, the cell would end at the second delta
+    alone."""
+    rows = rng.integers(0, n, count)
+    glob = rng.random(count) < 0.25
+    slots = np.where(glob, rng.integers(0, G, count),
+                     np.minimum(G + rng.zipf(1.3, count) - 1, L - 1))
+    bucket = np.array([lanes_[int(s)][0] for s in slots], bool)
+    bucket ^= rng.random(count) < 0.03
+    wins = np.array([lanes_[int(s)][2] for s in slots], np.int64)
+    deltas = rng.integers(0, 4, count)
+    edge = rng.random(count) < 0.06
+    deltas[edge] = rng.choice([-5, (1 << 30) - 1, 1 << 30, NEVER, 12345],
+                              int(edge.sum()))
+    fresh = rng.random(count) < 0.1
+    if straddle is not None and 1 <= straddle < count:
+        i = straddle
+        rows[i], slots[i] = rows[i - 1], slots[i - 1]
+        bucket[i], wins[i] = bucket[i - 1], wins[i - 1]
+        fresh[i - 1], fresh[i] = False, True
+    flags = fresh.astype(np.int64) | bucket.astype(np.int64) << 1
+    return np.stack([rows, slots, deltas, wins, flags],
+                    axis=1).astype(np.int32)
+
+
+def padded_update_columns(entries, n, L):
+    """The JAX call's [n, H] columns (slots, deltas, windows, fresh,
+    bucket) of a B7c host list: each row's entries in list order, padded
+    with slot L, delta 0, window 0, fresh and bucket False; H a power of
+    two, 8 at least."""
+    counts = np.bincount(entries[:, 0], minlength=n)
+    H = max(8, 1 << (max(int(counts.max(initial=0)), 1) - 1).bit_length())
+    cols = [np.full((n, H), L, np.int32), np.zeros((n, H), np.int32),
+            np.zeros((n, H), np.int32), np.zeros((n, H), bool),
+            np.zeros((n, H), bool)]
+    pos = np.zeros(n, np.int64)
+    for row, slot, delta, win, flags in entries.tolist():
+        j = pos[row]
+        pos[row] += 1
+        cols[0][row, j], cols[1][row, j], cols[2][row, j] = slot, delta, win
+        cols[3][row, j], cols[4][row, j] = flags & 1, flags & 2
+    return tuple(cols)
 
 
 def sharded_batch(rng, n, H, lanes_, L, G, coupled, with_global,
@@ -439,11 +507,12 @@ class SpyContext:
     (entry point, rows), so a CPU test sees the marshalling, the calls
     and the per-block launch counts. ``capacity`` is the entries a
     launch carries, by kind (all-rows slots, pairs, seed rows, slots
-    read, remote rows, slots cleared)."""
+    read, remote rows, slots cleared, update entries)."""
 
     cuda = True
 
-    def __init__(self, state, capacity=(8000, 4000, 2666, 8000, 2666, 8000)):
+    def __init__(self, state,
+                 capacity=(8000, 4000, 2666, 8000, 2666, 8000, 2000)):
         self.state = state
         self.capacity = capacity
         self.handle = 1
@@ -494,6 +563,25 @@ class SpyContext:
         assert handle and idx.numel() == n
         K.clear_slots_plain(self.state, idx)
         self.calls.append(("clear", n))
+        return 0
+
+    def drain_fn(self, handle, k):
+        from limitador_tpu_torch.ops import kernel as K
+
+        assert handle and 1 <= k <= self.results.shape[0]
+        counts, slots = K.drain_top_hits_host_plain(self.state, k)
+        self.results[:k, 0] = counts
+        self.results[:k, 1] = slots
+        self.calls.append(("drain", k))
+        return 0
+
+    def update_fn(self, handle, entries, count, now_ms):
+        from limitador_tpu_torch.parallel import mesh as M
+
+        rows = np.frombuffer(entries, np.int32).reshape(-1, 5)
+        assert handle and rows.shape[0] == count
+        M.sharded_update_host_plain(self.state, rows.copy(), now_ms)
+        self.calls.append(("update", count))
         return 0
 
     def seed_fn(self, handle, slots, values, expiry, n, padded):
