@@ -64,7 +64,19 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    and a fresh entry after a non-fresh one on one cell at the capacity's
    boundary: bit-exact with the JAX-shaped plain version on the padded
    columns, timed beside the parent's path for the same list (pad,
-   pinned uploads, the device-tensor launch).
+   pinned uploads, the device-tensor launch). B6b's host form
+   (``replicated_update_host``: B7c's body on a replicated node's list
+   with the remote TAT floor) the same way at 1, 2, 8, 64, 2000 and 2001
+   entries. B7d (one launch of B5's one-pass kernel over the rows, at
+   the kernel's own blocks a row, 32 up to k = 256 and 16 past it, and
+   forced to 32 and to 16; and its host form
+   ``sharded_drain_top_hits_host``, the rows' answers in the context's
+   mapped buffer, twice in a row on one context) on the seven column
+   kinds at k in (1, 7, 64, 1000, 1024, 1025) over [8, 1<<17 + 1] and
+   [3, 1<<10 + 1]; timed on Zipf, uniform random and INT_MIN/INT_MAX
+   columns at k = 64 and 1024 at the rule and both block counts (call,
+   kernel alone, plain, topk(dim=1) + zero_), and the host form at k =
+   64.
 4. The main path: the port's gRPC server on the card (capacity 1<<20)
    answers Envoy ShouldRateLimit and Kuadrant CheckRateLimit/Report over a
    real channel, with a hot reload and an epoch rebase; every answer is
@@ -96,7 +108,8 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    brokers on localhost answer 2,000 sequential calls round-robin: every
    node's view exact after five gossip periods, spent users refused on
    every node, over-admission and per-node latency recorded. A replicated
-   node must launch B6a/B6b/B6c and never B1/B2; 8a's 8192-hit batches
+   node must launch B6a/B6b/B6c and never B1/B2, B6b through its host
+   form only (replicated_update_host); 8a's 8192-hit batches
    take B6a's cluster, 8b's small ones its one block, and both phases
    print B6a's calls by route and hits. Phase 8a splits the
    B6c flush's host time into the pack and the C call, with the B6c
@@ -140,7 +153,9 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    ShouldRateLimit, CheckRateLimit and Report calls with a hot reload that
    drops a limit, each answer equal to a memory server's, p50 and p99
    recorded. B7a in all four variants, B7b, B7c and B7d must launch there,
-   B7a on both its routes (10a must take the cluster); both phases print
+   B7a on both its routes (10a must take the cluster), B7c and B7d
+   through their host forms only (10a's and 10b's drains through
+   sharded_drain_top_hits_host); both phases print
    B7a's calls by route, variant and shape.
 
 The line before the last is the kernels JSON; the last line is
@@ -183,6 +198,9 @@ DRAIN_SMALL_C = 1 << 10
 # B7c's host form: Report sizes, and the parameter block's capacity
 # (2000 entries with nvcc 12.1 or later) and one past it
 UPDATE_HOST_COUNTS = (1, 2, 8, 64, 1999, 2000, 2001)
+# B6b's host form: a served node's Reports (one or two counters), and
+# the same capacity and one past it
+REPLICATED_HOST_COUNTS = (1, 2, 8, 64, 2000, 2001)
 # B6c's n: phase 8a's flushes gather two other nodes' batches, about
 # 12,288 dirty slots (PERF.md), the shape its JSON row reports
 REMOTE_NS = (8, 1024, 8192, 12288, 65536)
@@ -241,16 +259,17 @@ MAIN_SHAPE = {
     # B6a: the cluster at phase 8a's 8192 hits, the one block at the
     # served nodes' 8 (phase 8b)
     "replicated_check": 8, "replicated_check_cluster": 8192,
-    "replicated_update": 8, "apply_remote": 12288,
+    # B6b: the host form at a served node's one-counter Report (phase 8b)
+    "replicated_update": "host/1", "apply_remote": 12288,
     # B7 over the phase-10a table, 8 rows of 1<<17 cells: B7a's cluster
     # at 2048 hits a row in its coupled + global variant (the mixed
     # batches), its rows route at 4096 coupled (past the cluster: the
     # coupled batches' busiest row), B7b at 64 slots a row, B7c's host
-    # form at a Report of 8 counters, B7d at k = 64
+    # form at a Report of 8 counters, B7d's host form at k = 64
     "sharded_check_and_update_cluster": "coupled+global/2048",
     "sharded_check_and_update": "coupled/4096",
     "sharded_clear_cells": 64, "sharded_update": "host/8",
-    "sharded_drain_top_hits": 64,
+    "sharded_drain_top_hits": "host/64",
 }
 # B7: the phase-10a table and the shapes held against the plain versions
 SHARDS = 8
@@ -283,16 +302,18 @@ PHASE9A_KERNELS = ("check_and_update_cluster", "read_slots", "seed_slots")
 PHASE9B_KERNELS = ("check_and_update", "read_slots", "seed_slots")
 PHASE9B_LEASE_KERNELS = PHASE9B_KERNELS + ("credit",)
 PHASE9B_SERVED_KERNELS = PHASE9B_KERNELS + ("drain_top_hits",)
-# B3a, B6c, B3b, B5 and B7c count their host forms (the storages' path)
-# under keys of their own: a phase launched one when either count moved,
-# phases 8a, 8b, 9a and 9b must have reached them through the host forms
-# only (_host_forms_only), and no storage path drains or updates through
-# B5's or B7c's device-tensor wrapper (_storage_forms)
+# B3a, B6c, B3b, B5, B6b, B7c and B7d count their host forms (the
+# storages' path) under keys of their own: a phase launched one when
+# either count moved, and no storage path (phases 4 and 6 to 10b)
+# launches one through its device-tensor wrapper (_storage_forms,
+# _host_forms_only)
 HOST_FORMS = {"read_slots": "read_slots_host",
               "apply_remote": "apply_remote_host",
               "clear_slots": "clear_slots_host",
               "drain_top_hits": "drain_top_hits_host",
-              "sharded_update": "sharded_update_host"}
+              "replicated_update": "replicated_update_host",
+              "sharded_update": "sharded_update_host",
+              "sharded_drain_top_hits": "sharded_drain_top_hits_host"}
 READ_HOST_NS = (1, 8, 1000, 8001, 32768)
 REMOTE_HOST_NS = (8, 1024, 12288, 65536)
 # the sharded paths: 10a and 10b together must launch all five (B7a's
@@ -314,25 +335,17 @@ def _launched(run, name):
 
 
 def _host_forms_only(run, label, remote):
-    """Fail unless every B3a, B6c, B3b, B5 and B7c of the run went
-    through its host form, and B3a's (on a replicated path B6c's too)
-    launched."""
-    device = [name for name in HOST_FORMS if run[name]]
-    if device:
-        fail(f"{label}: B3a/B6c launched through the device-tensor "
-             f"wrapper: {device}")
-    need = ("read_slots_host",) + (("apply_remote_host",) if remote else ())
-    missing = [name for name in need if run[name] == 0]
-    if missing:
-        fail(f"{label}: host forms not launched: {missing}")
+    """``_storage_forms``, and B3a's host form (on a replicated path
+    B6c's too) must have launched."""
+    _storage_forms(run, label, ("read_slots_host",) + (
+        ("apply_remote_host",) if remote else ()))
 
 
 def _storage_forms(run, label, need=()):
-    """Fail if a storage path drained (B5) or updated a sharded table
-    (B7c) through the device-tensor wrapper, or if a host form in
-    ``need`` did not launch."""
-    device = [name for name in ("drain_top_hits", "sharded_update")
-              if run[name]]
+    """Fail unless every B3a, B6c, B3b, B5, B6b, B7c and B7d of the run
+    went through its host form, or if a host form in ``need`` did not
+    launch."""
+    device = [name for name in HOST_FORMS if run[name]]
     if device:
         fail(f"{label}: launched through the device-tensor wrapper, not "
              f"the host form: {device}")
@@ -913,6 +926,8 @@ def phase_kernels(dev):
         record("replicated_update", H, err, ms, plain_ms,
                _update_bytes(upd_np, rbase_np, _host(tb), now_ms, re),
                device_ms=dms)
+    exact = _replicated_update_host_forms(dev, rng, record, rbase, remote_np,
+                                          lanes, now_ms) and exact
 
     table = tables()
     stacked2 = torch.stack([table.values, table.expiry_ms])
@@ -1075,7 +1090,7 @@ def phase_kernels(dev):
                          fresh_lanes, "apply_remote_kernel")
         record("apply_remote", n, err, ms, plain_ms, 20 * n, lib_ms, dms)
     _remote_host_forms(dev, record, lanes_base, rng)
-    _sharded_kernels(dev, rng, record)
+    exact = _sharded_kernels(dev, rng, record) and exact
     if not exact:
         fail("a kernel disagrees with its plain version")
     return out
@@ -1133,6 +1148,97 @@ def _replicated_checks(dev, rng, lanes, tables, base_np, rbase, rbase_np,
                     t, *remote, *dev_arrays, now_ms, route=route), rtables,
                 kernel)
             record(name, H, err, ms, plain_ms, nbytes, device_ms=dms)
+
+
+def _replicated_update_host_forms(dev, rng, record, rbase, remote_np,
+                                  lanes, now_ms):
+    """B6b's host form (``replicated_update_host``: a replicated node's
+    list of (0, slot, delta, window, flags) entries by value, B7c's body
+    with the remote TAT floor read through the remote lanes' context)
+    against B6b's plain version on the padded columns, at
+    REPLICATED_HOST_COUNTS entries over the replicated table (bucket
+    floors ahead of and behind now, live window expiries in the remote
+    lane): repeated cells mixing buckets and windows, fresh cells,
+    deltas at the caps and a fresh entry after a non-fresh one on one
+    cell at the parameter block's capacity (2000; 2001: one staged copy,
+    still one launch). Each call timed from the list to the launched
+    kernel beside the parent's path for the same list (pad, two pinned
+    uploads, the device-tensor launch), the kernel alone by the
+    profiler, and the host time of a one-counter Report split into its
+    steps. Returns whether every case was exact."""
+    import torch
+
+    from limitador_tpu_torch.ops import kernel as K
+
+    exp0 = torch.from_numpy(remote_np[1]).to(dev)
+    exp = exp0.clone()
+    remote = K.CounterTableState(torch.from_numpy(remote_np[0]).to(dev),
+                                 exp, exp)  # as a node binds its lanes
+    rctx = _bound_ctx(remote)
+    exact = True
+    for count in REPLICATED_HOST_COUNTS:
+        entries = _update_entries(rng, count, lanes, min(count - 1, 2000),
+                                  n=1, L=C, G=1)
+        padded = [c[0] for c in _padded_update(entries, n=1, L=C)]
+        d_padded = [torch.from_numpy(a).to(dev) for a in padded]
+        ctx = _bound_ctx(K.CounterTableState(*(t.clone() for t in rbase)))
+        want = K.CounterTableState(*(t.clone() for t in rbase))
+        before = K.launches["replicated_update_host"]
+        K.replicated_update_host(ctx, rctx, entries, now_ms)
+        launched = K.launches["replicated_update_host"] - before
+        K.replicated_update_plain(want, remote.expiry_ms, *d_padded, now_ms)
+        torch.cuda.synchronize()
+        err = _max_abs_err(list(zip(ctx.state, want))
+                           + [(remote.expiry_ms, exp0)])
+        exact = exact and err == 0
+        if launched != 1:
+            fail(f"B6b host form at {count} entries: {launched} launches")
+
+        def call():
+            K.replicated_update_host(ctx, rctx, entries, now_ms)
+
+        def parent():
+            ints = np.stack(padded[:3])
+            flags = np.stack(padded[3:])
+            d_ints, d_flags = _pinned(dev, ints, flags)
+            K.replicated_update_batch(ctx.state, remote.expiry_ms, *d_ints,
+                                      *d_flags, now_ms)
+
+        distinct, first = np.unique(entries[:, 1], return_index=True)
+        buckets = int((entries[first, 4] & 2 > 0).sum())
+        row = record(
+            "replicated_update", f"host/{count}", err, _median_ms(call),
+            _median_ms(lambda: K.replicated_update_host_plain(
+                want, remote.expiry_ms, entries, now_ms), reps=5, warmup=1),
+            16 * count + 24 * distinct.size + 4 * buckets, None,
+            _device_ms(call, None, ("update_list_kernel",
+                                    "update_staged_kernel")),
+            _median_ms(parent))
+        if count == 1:
+            data, handle, rhandle = entries.tobytes(), ctx.handle, rctx.handle
+            ints, flags = np.stack(padded[:3]), np.stack(padded[3:])
+
+            def to_list():  # as the node's _kernel_update drops padding
+                real = ints[0] != C
+                e = np.zeros((int(real.sum()), 5), np.int32)
+                e[:, 1:4] = ints[:, real].T
+                e[:, 4] = flags[0, real] | flags[1, real].astype(
+                    np.int32) << 1
+                return e
+
+            row["host_breakdown_us"] = _host_breakdown(
+                f"B6b host form, {count} entry", {
+                    "list from the staged columns": to_list,
+                    "list as bytes": lambda: entries.tobytes(),
+                    "C call (list into the parameter block, launch)":
+                        lambda: ctx.replicated_update_fn(
+                            handle, rhandle, data, count, now_ms),
+                    "the whole wrapper": call,
+                    "the parent's path": parent,
+                })
+        ctx.close()
+    rctx.close()
+    return exact
 
 
 def _bound_ctx(table):
@@ -1922,32 +2028,130 @@ def _sharded_kernels(dev, rng, record):
     record("sharded_clear_cells", K_, err, ms, plain_ms,
            4 * n * K_ + 12 * distinct, lib_ms, dms)
     _clear_host_forms(dev, rng, record, base, rows_np, ta, lib_ms)
-    # B7d: per-row top-k drain over Zipf traffic with ties
-    hits_np = np.zeros((n, L + 1), np.int32)
-    for x in range(n):
-        np.add.at(hits_np[x], zipf_keys(L, 4 * 1024, 0.99, rng), 1)
-    hits_np[:, L] = 3
-    col = torch.from_numpy(hits_np).to(dev)
+    return _sharded_drains(dev, rng, record)
+
+
+def _sharded_drains(dev, rng, record):
+    """B7d against its plain version: the device-tensor call (one launch
+    of B5's one-pass kernel over the rows, at the kernel's own blocks a
+    row and forced to 32 and to 16, a wave of 128 blocks) and the host
+    form (``sharded_drain_top_hits_host``, the rows' answers in the
+    context's mapped buffer) on every column kind at k in DRAIN_KS and
+    1025 (the full sort), over [8, 1<<17 + 1] and [3, 1<<10 + 1], with
+    two drains in a row on one context. Times over [8, 1<<17 + 1]: on
+    Zipf, uniform random ("wide") and INT_MIN/INT_MAX columns at k = 64
+    and 1024, the call and the kernel alone at the kernel's rule and at
+    32 and 16 blocks a row, plain and ``topk(dim=1)`` + ``zero_``; the
+    host form on Zipf at k = 64 (from the call to the numpy answers, its
+    host time split into steps). Returns whether every case was
+    exact."""
+    import torch
+
+    from limitador_tpu_torch.parallel import mesh as M
+
+    n, L = SHARDS, LOCAL_CAP
+    # the kernel's own rule (one block a round, 32 a row here, for k up
+    # to 256; one wave, 16 a row, past it), then 32 and 16 forced
+    rows_blocks = (0, 32, 16)
+
+    def columns(kind, rows, width):
+        return torch.from_numpy(np.stack([_hit_column(rng, kind, width)
+                                          for _ in range(rows)])).to(dev)
+
+    err = 0
+    for rows, width in ((n, L), (3, DRAIN_SMALL_C)):
+        for kind in DRAIN_KINDS:
+            col = columns(kind, rows, width)
+            state = M.ShardedCounterState(torch.zeros_like(col),
+                                          torch.zeros_like(col), col.clone())
+            ctx = _bound_ctx(state)
+            for k in DRAIN_KS + (1025,):
+                k = min(k, width)
+                want = M.sharded_drain_top_hits_plain(col.clone(), k)
+                for blocks in rows_blocks:
+                    err = max(err, _max_abs_err(zip(M.sharded_drain_top_hits(
+                        col.clone(), k, blocks=blocks), want)))
+                for _again in range(2):  # the header back at 0 each time
+                    state.hits.copy_(col)
+                    counts, slots = M.sharded_drain_top_hits_host(ctx, k)
+                    err = max(err, _max_abs_err(zip(
+                        (torch.from_numpy(counts), torch.from_numpy(slots),
+                         state.hits), (want[1].cpu(), want[2].cpu(),
+                                       want[0]))))
+            ctx.close()
+    print(f"  sharded_drain_top_hits {len(DRAIN_KINDS)} column kinds x k in "
+          f"{DRAIN_KS + (1025,)} x [8, 1<<17 + 1] and [3, 1<<10 + 1], the "
+          f"call at {rows_blocks} blocks a row (0: the kernel's rule) and "
+          f"the host form twice: err={err}")
+    exact = err == 0
+    cols = {kind: columns(kind, n, L) for kind in ("zipf", "wide",
+                                                   "extremes")}
+    for (kind, col), k in itertools.product(cols.items(), (64, 1024)):
+        def column(col=col):
+            return (col.clone(),)
+
+        ha, hb = col.clone(), col.clone()
+        err = _max_abs_err(zip(M.sharded_drain_top_hits(ha, k),
+                               M.sharded_drain_top_hits_plain(hb, k)))
+        nbytes = 8 * n * (L + 1) + 8 * n * k
+        lib_ms = _median_ms(
+            lambda h: (torch.topk(h[:, :-1], k, dim=1), h.zero_()), column)
+        plain_ms = _median_ms(lambda h: M.sharded_drain_top_hits_plain(h, k),
+                              column, reps=10, warmup=1)
+        for blocks in rows_blocks:
+            shape = (k if kind == "zipf" else f"{kind}/{k}") if not blocks \
+                else f"{kind}/{k}/blocks{blocks}"  # 0: the kernel's rule
+            record("sharded_drain_top_hits", shape, err,
+                   _median_ms(lambda h: M.sharded_drain_top_hits(
+                       h, k, blocks=blocks), column),
+                   plain_ms, nbytes, lib_ms,
+                   _device_ms(lambda h: M.sharded_drain_top_hits(
+                       h, k, blocks=blocks), column, "drain_kernel"))
+    # the host form, the sharded storage's path, at the default
+    # --usage-topk
     k = 64
-    errs = []
-    for h in (col, torch.zeros_like(col)):
-        ha, hb = h.clone(), h.clone()
-        errs.extend(zip(M.sharded_drain_top_hits(ha, k),
-                        M.sharded_drain_top_hits_plain(hb, k)))
-    err = _max_abs_err(errs)
+    zipf = cols["zipf"]
+    state = M.ShardedCounterState(torch.zeros_like(zipf),
+                                  torch.zeros_like(zipf), zipf.clone())
+    ctx = _bound_ctx(state)
 
-    def column():
-        return (col.clone(),)
+    def refill():
+        state.hits.copy_(zipf)
+        return ()
 
-    ms = _median_ms(lambda h: M.sharded_drain_top_hits(h, k), column)
-    plain_ms = _median_ms(lambda h: M.sharded_drain_top_hits_plain(h, k),
-                          column, reps=10, warmup=1)
-    lib_ms = _median_ms(
-        lambda h: (torch.topk(h[:, :-1], k, dim=1), h.zero_()), column)
-    dms = _device_ms(lambda h: M.sharded_drain_top_hits(h, k), column,
-                     "topk_")
-    record("sharded_drain_top_hits", k, err, ms, plain_ms,
-           8 * n * (L + 1) + 8 * n * k, lib_ms, dms)
+    def call():
+        return M.sharded_drain_top_hits_host(ctx, k)
+
+    def tensor_path():
+        _, counts, slots = M.sharded_drain_top_hits(state.hits, k)
+        return counts.cpu().numpy(), slots.cpu().numpy()
+
+    refill()
+    got = call()
+    _, want_c, want_s = M.sharded_drain_top_hits_plain(zipf.clone(), k)
+    err = max(int(np.abs(g.astype(np.int64) - w.cpu().numpy()).max())
+              for g, w in zip(got, (want_c, want_s)))
+    row = record(
+        "sharded_drain_top_hits", f"host/{k}", err, _median_ms(call, refill),
+        _median_ms(lambda: M.sharded_drain_top_hits_host_plain(state, k),
+                   refill, reps=10, warmup=1),
+        8 * n * (L + 1) + 8 * n * k,
+        _median_ms(lambda h: (torch.topk(h[:, :-1], k, dim=1), h.zero_()),
+                   lambda: (zipf.clone(),)),
+        _device_ms(call, refill, "drain_kernel"),
+        _median_ms(tensor_path, refill))
+    handle = ctx.handle
+    row["host_breakdown_us"] = _host_breakdown(
+        f"B7d host form, k={k} (each step on a refilled table)", {
+            "C call (launch, wait)": lambda: ctx.drain_fn(handle, k),
+            "answers copied out": lambda: (
+                ctx.results[:n * k].reshape(n, k, 2)[:, :, 0].copy(),
+                ctx.results[:n * k].reshape(n, k, 2)[:, :, 1].copy()),
+            "the whole wrapper": call,
+            "device-tensor call and two downloads": tensor_path,
+        }, reps=300, setup=refill)
+    ctx.close()
+    return exact and err == 0
 
 
 def _update_entries(rng, count, lanes, straddle, n=SHARDS, L=LOCAL_CAP,
@@ -3621,7 +3825,7 @@ def phase_sharded_drive(dev, card, batches=SHARDED_BATCHES, hits=8192):
              "a finish")
     missing = [k for k in ("sharded_check_and_update_cluster",
                            "sharded_clear_cells", "sharded_drain_top_hits")
-               if launches[k] == 0]
+               if _launched(launches, k) == 0]
     if missing:
         fail(f"kernels not launched on the sharded drive: {missing}")
     return launches, {
@@ -3856,16 +4060,21 @@ def main() -> int:
                + _launched(served_sharded_launches, k) == 0]
     if missing:
         fail(f"kernels not launched on the sharded paths: {missing}")
-    # B5 and B7c on the storages' paths: their host forms only (the
-    # observatory's drains in 6 and 7, 10b's Reports)
+    # B5, B6b, B7c and B7d on the storages' paths: their host forms only
+    # (the observatory's drains in 6, 7, 10a and 10b, 8b's and 10b's
+    # Reports)
     for label, run, need in (
             ("main path (4)", launches, ()),
             ("native main path (6)", native_launches,
              ("drain_top_hits_host",)),
             ("native drive (7)", drive_launches, ("drain_top_hits_host",)),
-            ("sharded drive (10a)", sharded_launches, ()),
+            ("replication drive (8a)", repl_launches, ()),
+            ("served replication (8b)", served_launches,
+             ("replicated_update_host",)),
+            ("sharded drive (10a)", sharded_launches,
+             ("sharded_drain_top_hits_host",)),
             ("served sharded (10b)", served_sharded_launches,
-             ("sharded_update_host",))):
+             ("sharded_update_host", "sharded_drain_top_hits_host"))):
         _storage_forms(run, label, need)
     for label, got, want in (
             ("served tiers", served_tier_launches, PHASE9B_KERNELS),

@@ -58,7 +58,10 @@
 // remote window sum, tat_floor_hook floors bucket TATs at the remote TAT,
 // read and write base alike), on B1's two routes (the cluster kernel and
 // the one block, both with kRemote, chosen by H as B1's); B6b the update
-// with the TAT floor, and B6c a grid-stride scatter of both remote lanes.
+// with the TAT floor (update_kernel<true> from device tensors; from a
+// replicated node's host list the host form of B7c's body with the
+// floor, ct_update_replicated_host), and B6c a grid-stride scatter of
+// both remote lanes.
 //
 // The sharded table (limitador_tpu/parallel/mesh.py:399-612) is n rows of
 // L + 1 cells, one shard a row, contiguous in memory. B7a has two routes.
@@ -74,25 +77,28 @@
 // launch) and kCoupled (the pmin across rows, with grid barriers under a
 // cooperative launch). B7c is the update with kRows on its device-tensor
 // route and, from the storage's host list, one block over the flattened
-// rows (update_list_kernel); B7d the earlier two-pass top-k with a row
-// index in the grid; and B7b a grid-stride clear of per-row slot lists. Their bounds are the row kernels' bounds summed over the rows,
+// rows (update_list_kernel); B7d is B5's one-pass drain_kernel with the
+// row in blockIdx.y; and B7b a grid-stride clear of per-row slot lists.
+// Their bounds are the row kernels' bounds summed over the rows,
 // plus, for B7a's global variants, 8 bytes per row and distinct global
 // slot; latency, not bytes, keeps them above it, as for B1.
 //
-// B7b, B4d, B3a, B6c, B3b and B7c also take host lists by value
+// B7b, B4d, B3a, B6c, B3b, B7c and B6b also take host lists by value
 // (ct_sharded_clear_host, ct_seed_slots_host, ct_read_slots_host,
 // ct_apply_remote_host, ct_clear_slots_host, ct_sharded_update_host,
-// below): the storages' own lists ride in the kernel's parameter block,
-// through a context bound once per table. B3a's host form and B5's
-// (ct_drain_top_hits_host) answer into pinned host memory that the
-// context owns. The storages stage their B3b clears and launch them as
-// one such call before the table's next access.
+// ct_update_replicated_host, below): the storages' own lists ride in the
+// kernel's parameter block, through a context bound once per table.
+// B3a's host form and B5's and B7d's (ct_drain_top_hits_host, on a
+// context of one row or of the sharded table's rows) answer into pinned
+// host memory that the context owns. The storages stage their B3b clears
+// and launch them as one such call before the table's next access.
 //
 // Every entry point launches on the stream it is given (or its context's)
 // and returns cudaGetLastError() as an int; it allocates no device memory,
 // except a context's own buffers (ct_ctx_results, the staging rows of
-// ct_apply_remote_staged and ct_sharded_update_host, the workspace of
-// ct_drain_top_hits_host), which grow on demand and die with it.
+// ct_apply_remote_staged and of ct_sharded_update_host and
+// ct_update_replicated_host, the workspace of ct_drain_top_hits_host),
+// which grow on demand and die with it.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -1399,10 +1405,13 @@ __global__ void credit_kernel(int32_t* __restrict__ values,
 // and sets the header back to 0 for the next launch on the stream. That
 // last-block merge, rather than a thread-block cluster, because a
 // cluster holds 16 blocks at most and the column needs 132 to reach the
-// card's bandwidth. B7d's rows still run the earlier two-pass body
-// (topk_blocks_kernel): pass 1, 264 blocks of 1024 threads
-// bitonic-sorting every tile that beats the block's K-th best; pass 2,
-// one block over the B * K candidates.
+// card's bandwidth. B7d (sharded_drain_top_hits, parallel/mesh.py:
+// 589-612) is the same launch over the n rows of the sharded table, the
+// row in blockIdx.y: each row has its own done counter, shared bound,
+// published lists and last block, and its own unaligned head and tail
+// (row r starts at 4 r (L + 1) bytes). No block waits on another, so a
+// grid past one wave needs no co-residency; drain_row_blocks sets the
+// blocks a row by k.
 // k > 1024: a bitonic sort of every key in device memory, one launch per
 // stage, then the first k are decoded: slower, for any k up to C.
 // Bound: bytes, the column read and zeroed once: 8 (C + 1) bytes, 2.5 us
@@ -1410,9 +1419,7 @@ __global__ void credit_kernel(int32_t* __restrict__ values,
 // and the merges' bitonic stages (about 0.1 us each), and the last
 // block's reads after every block is done.
 
-constexpr int kTopkThreads = 1024;
-constexpr int kTopkMaxSmall = 1024;  // largest K of the shared-memory paths
-constexpr int kTopkMaxBlocks = 264;  // two waves of 132 SMs
+constexpr int kTopkMaxSmall = 1024;  // largest k of drain_kernel
 
 __device__ __forceinline__ uint64_t topk_key(int32_t count, uint32_t index) {
   return ((uint64_t)((uint32_t)count ^ 0x80000000u) << 32) |
@@ -1423,119 +1430,6 @@ __device__ __forceinline__ void topk_decode(uint64_t key, int32_t* count,
                                             int32_t* slot) {
   *count = (int32_t)((uint32_t)(key >> 32) ^ 0x80000000u);
   *slot = (int32_t)(0xffffffffu - (uint32_t)(key & 0xffffffffull));
-}
-
-// Bitonic sort of n (a power of two <= blockDim) shared keys, descending.
-__device__ void bitonic_sort_desc(uint64_t* a, int n) {
-  const int i = threadIdx.x;
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const int ixj = i ^ j;
-      if (i < n && ixj > i) {
-        const uint64_t x = a[i], y = a[ixj];
-        if ((x < y) == ((i & k) == 0)) {
-          a[i] = y;
-          a[ixj] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Sort a bitonic sequence of n shared keys descending.
-__device__ void bitonic_merge_desc(uint64_t* a, int n) {
-  const int i = threadIdx.x;
-  for (int j = n >> 1; j > 0; j >>= 1) {
-    const int ixj = i ^ j;
-    if (i < n && ixj > i) {
-      const uint64_t x = a[i], y = a[ixj];
-      if (x < y) {
-        a[i] = y;
-        a[ixj] = x;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// One block's running top-K over [lo, hi) of either the hit column
-// (zeroed as it is read; keys only below n_keys) or a candidate list.
-// Writes the block's K best to cand_out[blockIdx.x * K ...], or, with
-// out_counts set, the first k decoded. blockIdx.y is the row: B5 runs
-// one (row 0, the whole column), B7d one per row of the sharded hits
-// (sharded_drain_top_hits, parallel/mesh.py:589-612), each row n cells
-// of hits, n candidates in and gridDim.x * K out, k results.
-template <bool kFromHits>
-__global__ void __launch_bounds__(kTopkThreads) topk_blocks_kernel(
-    int32_t* __restrict__ hits, const uint64_t* __restrict__ cand_in,
-    int n, int n_keys, int chunk, int K, uint64_t* __restrict__ cand_out,
-    int k, int32_t* __restrict__ out_counts,
-    int32_t* __restrict__ out_slots) {
-  __shared__ uint64_t best[kTopkMaxSmall];
-  __shared__ uint64_t tile[kTopkThreads];
-  __shared__ uint64_t warp_max[kTopkThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t row = blockIdx.y;
-  if (kFromHits) {
-    hits += row * n;
-  } else {
-    cand_in += row * n;
-  }
-  if (cand_out != nullptr) cand_out += row * gridDim.x * K;
-  if (out_counts != nullptr) {
-    out_counts += row * k;
-    out_slots += row * k;
-  }
-  if (tid < K) best[tid] = 0;
-  const long long lo = (long long)blockIdx.x * chunk;
-  const long long hi = lo + chunk < n ? lo + chunk : n;
-  __syncthreads();
-  for (long long base = lo; base < hi; base += kTopkThreads) {
-    const long long i = base + tid;
-    uint64_t key = 0;
-    if (i < hi) {
-      if (kFromHits) {
-        const int32_t c = hits[i];
-        hits[i] = 0;
-        if (i < n_keys) key = topk_key(c, (uint32_t)i);
-      } else {
-        key = cand_in[i];
-      }
-    }
-    tile[tid] = key;
-    uint64_t m = key;
-    for (int o = 16; o > 0; o >>= 1) {
-      const uint64_t y = __shfl_xor_sync(kFull, m, o);
-      m = y > m ? y : m;
-    }
-    if (lane == 0) warp_max[warp] = m;
-    __syncthreads();
-    if (warp == 0) {
-      m = warp_max[lane];
-      for (int o = 16; o > 0; o >>= 1) {
-        const uint64_t y = __shfl_xor_sync(kFull, m, o);
-        m = y > m ? y : m;
-      }
-      if (lane == 0) warp_max[0] = m;
-    }
-    __syncthreads();
-    const bool skip = warp_max[0] <= best[K - 1];
-    __syncthreads();
-    if (skip) continue;
-    bitonic_sort_desc(tile, kTopkThreads);
-    if (tid < K) {
-      const uint64_t a = best[tid], b = tile[K - 1 - tid];
-      best[tid] = a > b ? a : b;
-    }
-    __syncthreads();
-    bitonic_merge_desc(best, K);
-  }
-  if (out_counts != nullptr) {
-    if (tid < k) topk_decode(best[tid], &out_counts[tid], &out_slots[tid]);
-  } else if (tid < K) {
-    cand_out[(size_t)blockIdx.x * K + tid] = best[tid];
-  }
 }
 
 __global__ void topk_keys_kernel(int32_t* __restrict__ hits, int n,
@@ -1766,11 +1660,11 @@ __device__ __forceinline__ void drain_take_shared(DrainShared& s,
   if (g > s.thr) s.thr = g;
 }
 
-// B5 on row blockIdx.y of `rows` columns of n cells (B5 runs one; a row
-// index in the grid leaves room for B7d's rows), gridDim.x blocks a row.
-// The column is zeroed; the row's first k answers go to out_counts[i *
-// stride] and out_slots[i * stride]. The workspace's header must be 0
-// before the launch and is 0 after it.
+// B5 on row blockIdx.y of `rows` columns of n cells (B5 runs one, B7d
+// the sharded table's rows), gridDim.x blocks a row. The column is
+// zeroed; row r's first k answers go to out_counts[(r k + i) stride] and
+// out_slots[(r k + i) stride]. The workspace's header must be 0 before
+// the launch and is 0 after it.
 //
 // The blocks share their thresholds: each raises the row's shared bound
 // (atomicMax) to its own after every round and reads it back before the
@@ -1975,48 +1869,32 @@ __global__ void __launch_bounds__(kDrainThreads) drain_kernel(
   }
 }
 
-// Blocks a row of n cells: one per round of cells, at most one per SM.
-int drain_blocks(int n) {
+// Blocks a row of n cells: one per round of cells, at most one per SM,
+// and at most `cap` (0: no cap of its own).
+int drain_blocks(int n, int cap) {
   const int rounds = (n / 4 + kDrainThreads * kDrainVecs - 1) /
                      (kDrainThreads * kDrainVecs);
-  return rounds < 1 ? 1
-                    : (rounds < kDrainMaxBlocks ? rounds : kDrainMaxBlocks);
+  int G = rounds < kDrainMaxBlocks ? rounds : kDrainMaxBlocks;
+  if (cap > 0 && G > cap) G = cap;
+  return G < 1 ? 1 : G;
 }
 
-long long drain_workspace_bytes(int rows, int n, int k) {
-  const int G = drain_blocks(n);
+long long drain_workspace_bytes(int rows, int G, int k) {
   return (long long)drain_cand_offset(rows, G) +
          (long long)rows * G * next_pow2(k) * 8;
 }
 
-// One drain_kernel launch over `rows` rows; the header must be 0.
-int launch_drain(int32_t* hits, int rows, int n, int k, void* workspace,
-                 int32_t* out_counts, int32_t* out_slots, int stride,
-                 cudaStream_t st) {
+// One drain_kernel launch over `rows` rows of G blocks; the header must
+// be 0.
+int launch_drain(int32_t* hits, int rows, int n, int G, int k,
+                 void* workspace, int32_t* out_counts, int32_t* out_slots,
+                 int stride, cudaStream_t st) {
   const int K = next_pow2(k);
   const int groups = K <= kDrainGroupMaxK ? (K < 32 ? 32 : K) : 0;
-  drain_kernel<<<dim3(drain_blocks(n), rows), kDrainThreads, 0, st>>>(
+  drain_kernel<<<dim3(G, rows), kDrainThreads, 0, st>>>(
       hits, n, K, k, groups, static_cast<char*>(workspace), out_counts,
       out_slots, stride);
   return (int)cudaGetLastError();
-}
-
-// Launch geometry of the two-pass path: K, blocks and slots per block.
-struct TopkPlan {
-  int K, blocks, chunk;
-};
-
-TopkPlan topk_plan(int n, int k) {
-  TopkPlan p;
-  p.K = next_pow2(k);
-  const int tiles = (n + kTopkThreads - 1) / kTopkThreads;
-  int blocks = 32 * kTopkThreads / p.K;
-  if (blocks > kTopkMaxBlocks) blocks = kTopkMaxBlocks;
-  if (blocks > tiles) blocks = tiles;
-  if (blocks < 1) blocks = 1;
-  p.blocks = blocks;
-  p.chunk = ((tiles + blocks - 1) / blocks) * kTopkThreads;
-  return p;
 }
 
 long long topk_sort_len(int n_keys) {
@@ -2251,8 +2129,8 @@ int launch_update(void* values, void* expiry, void* hits,
 }
 
 // ---------------------------------------------------------------------------
-// Host lists by value: B7b, B4d, B3a, B6c, B3b and B7c from the storages'
-// own lists.
+// Host lists by value: B7b, B4d, B3a, B6c, B3b, B7c and B6b from the
+// storages' own lists.
 //
 // The storages decide clears, promotion seeds, reads and remote shares on
 // the host, a few cells at a time. Staged as device tensors (a pinned buffer, an H2D copy and
@@ -2306,11 +2184,12 @@ struct Ctx {
   int32_t* stage_dev = nullptr;
   int stage_cap = 0;
   cudaEvent_t staged = nullptr;
-  // B5's host form: the done counters and each block's K best.
+  // B5's and B7d's host form: the header and each block's K best.
   void* drain_ws = nullptr;
   long long drain_ws_bytes = 0;
-  // B7c's staged design: pinned [4, cap] entries, their device copy with
-  // the sort's scratch arrays, and the event guarding the pinned rows.
+  // B7c's and B6b's staged design: pinned [4, cap] entries, their device
+  // copy with the sort's scratch arrays, and the event guarding the
+  // pinned rows.
   int32_t* upd_stage = nullptr;
   int32_t* upd_dev = nullptr;
   int upd_cap = 0;
@@ -2460,12 +2339,21 @@ __global__ void remote_list_kernel(int32_t* __restrict__ remote_vals,
 // scratch cell is zeroed, as the JAX program's scatter leaves it. Bound:
 // bytes, 16 B of entry read and 12 B read and written per distinct cell;
 // a call is launch-bound.
+// B6b's host form (_replicated_update, tpu/replicated.py:96-117) is the
+// same body on a single table (row 0) with `floor` set to the remote
+// expiry lane: a bucket cell, by its segment's last entry's flag, starts
+// its advance from max(own TAT, or 0 when fresh; floor[cell]) before
+// max(., now), as update_core folds tat_floor_hook (ops/kernel.py:
+// 535-538); window cells never read it. B7c passes null: its cells
+// compute exactly what they did without the argument. B6b adds 4 B read
+// per distinct bucket cell.
 __device__ void update_entries(int32_t* __restrict__ values,
                                int32_t* __restrict__ expiry,
                                int32_t* __restrict__ hits, int rows,
                                int row_len, const int32_t* cell,
                                const int32_t* delta, const int32_t* window,
                                const int32_t* flags, int count, int32_t now,
+                               const int32_t* __restrict__ floor,
                                uint64_t* keys,
                                unsigned long long* seg_sum, int* seg_fresh,
                                int* seg_win) {
@@ -2535,7 +2423,11 @@ __device__ void update_entries(int32_t* __restrict__ values,
     values[c] = is_bucket ? 0 : wadd(base_c, imin(seg_add, headroom));
     if (cell_expired || is_bucket) {
       const int32_t ival = imax(win, 1);
-      const int32_t tat_base = imax(h_fresh ? 0 : e_raw, now);
+      int32_t local_tat = h_fresh ? 0 : e_raw;
+      if (floor != nullptr && is_bucket) {
+        local_tat = imax(local_tat, floor[c]);
+      }
+      const int32_t tat_base = imax(local_tat, now);
       const int32_t max_adv = floordiv(wsub(kNever, tat_base), ival);
       const int32_t adv = imin(seg_add, max_adv);
       expiry[c] = is_bucket ? wadd(tat_base, wmul(adv, win))
@@ -2564,6 +2456,7 @@ __global__ void update_list_kernel(int32_t* __restrict__ values,
                                    int32_t* __restrict__ expiry,
                                    int32_t* __restrict__ hits, int rows,
                                    int row_len, int count, int32_t now,
+                                   const int32_t* __restrict__ floor,
                                    const __grid_constant__ UpdateList<N> list) {
   extern __shared__ uint64_t smem_keys[];
   const int P = next_pow2(count);
@@ -2582,8 +2475,8 @@ __global__ void update_list_kernel(int32_t* __restrict__ values,
   }
   __syncthreads();
   update_entries(values, expiry, hits, rows, row_len, ent, ent + count,
-                 ent + 2 * count, ent + 3 * count, count, now, keys, seg_sum,
-                 seg_fresh, seg_fresh + P);
+                 ent + 2 * count, ent + 3 * count, count, now, floor, keys,
+                 seg_sum, seg_fresh, seg_fresh + P);
 }
 
 // The staged design: the [4, count] entries and the P-sized scratch
@@ -2592,6 +2485,7 @@ __global__ void update_staged_kernel(int32_t* __restrict__ values,
                                      int32_t* __restrict__ expiry,
                                      int32_t* __restrict__ hits, int rows,
                                      int row_len, int count, int32_t now,
+                                     const int32_t* __restrict__ floor,
                                      int32_t* __restrict__ stage) {
   const int P = next_pow2(count);
   const size_t n = (size_t)count;
@@ -2599,8 +2493,8 @@ __global__ void update_staged_kernel(int32_t* __restrict__ values,
   auto* seg_sum = reinterpret_cast<unsigned long long*>(keys + P);
   int* seg_fresh = reinterpret_cast<int*>(seg_sum + P);
   update_entries(values, expiry, hits, rows, row_len, stage, stage + n,
-                 stage + 2 * n, stage + 3 * n, count, now, keys, seg_sum,
-                 seg_fresh, seg_fresh + P);
+                 stage + 2 * n, stage + 3 * n, count, now, floor, keys,
+                 seg_sum, seg_fresh, seg_fresh + P);
 }
 
 // Bytes of update_entries' scratch arrays for a list of `count`.
@@ -2629,7 +2523,7 @@ bool pack_updates(const Ctx& c, const int32_t* entries, int count,
 
 template <int N>
 int launch_update_list(const Ctx& c, const int32_t* entries, int count,
-                       int32_t now) {
+                       int32_t now, const int32_t* floor) {
   UpdateList<N> list;
   if (!pack_updates(c, entries, count, list.cell, list.delta, list.window,
                     list.flags)) {
@@ -2644,7 +2538,8 @@ int launch_update_list(const Ctx& c, const int32_t* entries, int count,
                          (int)smem);
   }
   update_list_kernel<N><<<1, threads, smem, c.stream>>>(
-      c.values, c.expiry, c.hits, c.rows, c.row_len, count, now, list);
+      c.values, c.expiry, c.hits, c.rows, c.row_len, count, now, floor,
+      list);
   return (int)cudaGetLastError();
 }
 
@@ -2861,12 +2756,6 @@ int ct_credit(void* values, void* expiry, const void* slots,
   return (int)cudaGetLastError();
 }
 
-// Device workspace for ct_drain_top_hits over n = C + 1 cells.
-long long ct_topk_workspace_bytes(int n, int k) {
-  if (k <= kTopkMaxSmall) return drain_workspace_bytes(1, n, k);
-  return topk_sort_len(n - 1) * 8;
-}
-
 // B5 past the shared-memory path (k > 1024): every key sorted in the
 // workspace, one launch a stage, the first k decoded.
 static int topk_full_sort(int32_t* hits, int n, int k, uint64_t* ws,
@@ -2889,20 +2778,73 @@ static int topk_full_sort(int32_t* hits, int n, int k, uint64_t* ws,
   return (int)cudaGetLastError();
 }
 
-// B5 on a device column: k <= 1024 zeroes the workspace's done counter
-// (fresh memory) and launches drain_kernel once.
+// Blocks a row of a drain over `rows` rows of n cells at k: one per
+// round of cells, except that past the round threshold's reach (K >
+// kDrainGroupMaxK) the rows share one wave (132 / rows blocks a row),
+// since each row's last block then merges up to G x K published keys
+// in series. On the H100 at [8, 1<<17 + 1] (PERF.md §6), 16 blocks a
+// row took 0.11-0.20 ms at k = 1024 where 32 took 0.17-0.29, and 32
+// took 0.0215 ms at k = 64 on Zipf where 16 took 0.0235. B5's one row
+// takes 132 either way.
+static int drain_row_blocks(int rows, int n, int k) {
+  const int wave = kDrainMaxBlocks / rows;
+  return drain_blocks(n, next_pow2(k) > kDrainGroupMaxK
+                             ? (wave > 1 ? wave : 1)
+                             : 0);
+}
+
+// The workspace of a drain of `rows` rows of n cells at k, G blocks a
+// row: drain_kernel's header, counts and lists, or for k > 1024 the
+// header (left at 0) and the full sort's keys after it.
+static long long drain_rows_workspace(int rows, int n, int k, int G) {
+  if (k <= kTopkMaxSmall) return drain_workspace_bytes(rows, G, k);
+  return (long long)drain_head_bytes(rows) + topk_sort_len(n - 1) * 8;
+}
+
+// The drain of `rows` rows of n cells, row r's answer i at
+// out_counts[(r k + i) stride] and out_slots[(r k + i) stride]: for k <=
+// 1024 one drain_kernel launch of G blocks a row (the workspace's header
+// must be 0, and is left at 0), a larger k the full sort row after row.
+static int drain_rows(int32_t* hits, int rows, int n, int k, int G,
+                      char* ws, int32_t* out_counts, int32_t* out_slots,
+                      int stride, cudaStream_t st) {
+  if (k <= kTopkMaxSmall) {
+    return launch_drain(hits, rows, n, G, k, ws, out_counts, out_slots,
+                        stride, st);
+  }
+  uint64_t* keys = reinterpret_cast<uint64_t*>(ws + drain_head_bytes(rows));
+  for (int r = 0; r < rows; ++r) {
+    const size_t at = (size_t)r * k * stride;
+    const int rc = topk_full_sort(hits + (size_t)r * n, n, k, keys,
+                                  out_counts + at, out_slots + at, stride,
+                                  st);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// A drain into device tensors: the fresh workspace's header zeroed, then
+// drain_rows.
+static int drain_device(void* hits, int rows, int n, int k, int G,
+                        void* workspace, void* out_counts, void* out_slots,
+                        cudaStream_t st) {
+  const cudaError_t rc =
+      cudaMemsetAsync(workspace, 0, drain_head_bytes(rows), st);
+  if (rc != cudaSuccess) return (int)rc;
+  return drain_rows((int32_t*)hits, rows, n, k, G, (char*)workspace,
+                    (int32_t*)out_counts, (int32_t*)out_slots, 1, st);
+}
+
+// B5 on a device column of n = C + 1 cells (drain_kernel once for k <=
+// 1024) and its workspace.
+long long ct_topk_workspace_bytes(int n, int k) {
+  return drain_rows_workspace(1, n, k, drain_row_blocks(1, n, k));
+}
+
 int ct_drain_top_hits(void* hits, int n, int k, void* workspace,
                       void* out_counts, void* out_slots, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (k <= kTopkMaxSmall) {
-    const cudaError_t rc =
-        cudaMemsetAsync(workspace, 0, drain_head_bytes(1), st);
-    if (rc != cudaSuccess) return (int)rc;
-    return launch_drain((int32_t*)hits, 1, n, k, workspace,
-                        (int32_t*)out_counts, (int32_t*)out_slots, 1, st);
-  }
-  return topk_full_sort((int32_t*)hits, n, k, (uint64_t*)workspace,
-                        (int32_t*)out_counts, (int32_t*)out_slots, 1, st);
+  return drain_device(hits, 1, n, k, drain_row_blocks(1, n, k), workspace,
+                      out_counts, out_slots, (cudaStream_t)stream);
 }
 
 // B7a (_local_step + sharded_check_and_update, parallel/mesh.py:399-504),
@@ -3003,44 +2945,26 @@ int ct_sharded_clear(void* values, void* expiry, void* hits,
   return (int)cudaGetLastError();
 }
 
-// B7d: the top-k drain on each of the n rows of L + 1 cells; k <= 1024
-// runs the earlier two-pass body (topk_blocks_kernel, not B5's one-launch
-// drain_kernel) with a row index in the grid (two launches for all rows),
-// a larger k B5's full sort row after row.
-long long ct_sharded_topk_workspace_bytes(int rows, int n, int k) {
-  if (k <= kTopkMaxSmall) {
-    const TopkPlan p = topk_plan(n, k);
-    return (long long)rows * p.blocks * p.K * 8;
-  }
-  return topk_sort_len(n - 1) * 8;
+// B7d: the top-k drain on each of the `rows` rows of n = L + 1 cells
+// into int32[rows, k] counts and slots: for k <= 1024 one drain_kernel
+// launch of `blocks` blocks a row (0: drain_row_blocks, the storages'
+// rule; phase 3 of chip_smoke.py times 32 and 16), a larger k B5's full
+// sort row after row. Its workspace at the same arguments:
+long long ct_sharded_topk_workspace_bytes(int rows, int n, int k,
+                                          int blocks) {
+  return drain_rows_workspace(rows, n, k,
+                              blocks > 0 ? drain_blocks(n, blocks)
+                                         : drain_row_blocks(rows, n, k));
 }
 
-int ct_sharded_drain_top_hits(void* hits, int rows, int n, int k,
+int ct_sharded_drain_top_hits(void* hits, int rows, int n, int k, int blocks,
                               void* workspace, void* out_counts,
                               void* out_slots, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  uint64_t* ws = (uint64_t*)workspace;
-  if (k <= kTopkMaxSmall) {
-    const TopkPlan p = topk_plan(n, k);
-    topk_blocks_kernel<true><<<dim3(p.blocks, rows), kTopkThreads, 0, st>>>(
-        (int32_t*)hits, nullptr, n, n - 1, p.chunk, p.K, ws, 0, nullptr,
-        nullptr);
-    const int m = p.blocks * p.K;
-    topk_blocks_kernel<false><<<dim3(1, rows), kTopkThreads, 0, st>>>(
-        nullptr, ws, m, m, m, p.K, nullptr, k, (int32_t*)out_counts,
-        (int32_t*)out_slots);
-    return (int)cudaGetLastError();
-  }
-  for (int r = 0; r < rows; ++r) {
-    const int rc = ct_drain_top_hits(
-        (int32_t*)hits + (size_t)r * n, n, k, workspace,
-        (int32_t*)out_counts + (size_t)r * k,
-        (int32_t*)out_slots + (size_t)r * k, stream);
-    if (rc != 0) return rc;
-  }
-  return 0;
+  const int G = blocks > 0 ? drain_blocks(n, blocks)
+                           : drain_row_blocks(rows, n, k);
+  return drain_device(hits, rows, n, k, G, workspace, out_counts, out_slots,
+                      (cudaStream_t)stream);
 }
-
 
 // The launch context of one table: int32 columns of rows x row_len cells
 // on one card (rows = 1 for a single table of C + 1 cells), and the
@@ -3083,7 +3007,7 @@ void ct_ctx_destroy(void* ctx) {
 
 // Entries one launch carries: 0 all-rows slots, 1 (row, slot) pairs,
 // 2 seed rows, 3 slots read (B3a), 4 remote-share rows (B6c), 5 slots
-// cleared (B3b), 6 update entries (B7c).
+// cleared (B3b), 6 update entries (B7c, B6b).
 int ct_host_list_capacity(int kind) {
   switch (kind) {
     case 0:
@@ -3289,69 +3213,68 @@ int ct_seed_slots_host(void* ctx, const int32_t* slots,
   return 0;
 }
 
-// B5 from the context's column (a single table): the k answers, (count,
-// slot) pairs, land in its answer buffer (ct_ctx_results, at least k
-// pairs), and the call waits on its stream, so the drain follows every
-// launch queued there before it and the host may read the answers when
-// it returns. The workspace is the context's, allocated at the first
-// call (and grown for a larger k) with its done counter at 0, which
-// every launch leaves at 0.
+// B5 and B7d from the context's columns: each row's k answers, (count,
+// slot) pairs, land in its answer buffer (ct_ctx_results, at least rows
+// x k pairs; row r's at pairs [r k, r k + k)), and the call waits on its
+// stream, so the drain follows every launch queued there before it and
+// the host may read the answers when it returns. The workspace is the
+// context's, allocated at the first call (and grown for a larger k) with
+// its header at 0, which every launch leaves at 0.
 int ct_drain_top_hits_host(void* ctx, int k) {
   Ctx* c = (Ctx*)ctx;
-  if (!c || c->rows != 1 || k < 1 || k > c->row_len - 1 ||
-      k > c->result_cap) {
+  if (!c || k < 1 || k > c->row_len - 1 ||
+      (long long)c->rows * k > c->result_cap) {
     return (int)cudaErrorInvalidValue;
   }
   DeviceGuard guard(c->device);
   const int n = c->row_len;
-  // The full sort's keys go after the header, which stays 0.
-  const long long head = (long long)drain_head_bytes(1);
-  const long long need = k <= kTopkMaxSmall
-                             ? drain_workspace_bytes(1, n, k)
-                             : head + topk_sort_len(n - 1) * 8;
+  const int G = drain_row_blocks(c->rows, n, k);
+  const long long need = drain_rows_workspace(c->rows, n, k, G);
   cudaError_t rc;
   if (need > c->drain_ws_bytes) {
     if (c->drain_ws) cudaFree(c->drain_ws);  // no drain is in flight
     c->drain_ws = nullptr;
     c->drain_ws_bytes = 0;
     if ((rc = cudaMalloc(&c->drain_ws, (size_t)need)) != cudaSuccess ||
-        (rc = cudaMemset(c->drain_ws, 0, (size_t)head)) != cudaSuccess) {
+        (rc = cudaMemset(c->drain_ws, 0, drain_head_bytes(c->rows))) !=
+            cudaSuccess) {
       return (int)rc;
     }
     c->drain_ws_bytes = need;
   }
   int32_t* out = reinterpret_cast<int32_t*>(c->result_dev);
-  const int launched =
-      k <= kTopkMaxSmall
-          ? launch_drain(c->hits, 1, n, k, c->drain_ws, out, out + 1, 2,
-                         c->stream)
-          : topk_full_sort(c->hits, n, k,
-                           (uint64_t*)((char*)c->drain_ws + head), out,
-                           out + 1, 2, c->stream);
+  const int launched = drain_rows(c->hits, c->rows, n, k, G,
+                                  (char*)c->drain_ws, out, out + 1, 2,
+                                  c->stream);
   if (launched != 0) return launched;
   return (int)cudaStreamSynchronize(c->stream);
 }
 
-// B7c from a host list: `count` entries (row, slot, delta, window,
-// flags), int32 each, flags bit 0 fresh and bit 1 bucket; 0 <= row <
-// rows and 0 <= slot < L (no padding, no scratch slot). One launch: up
-// to ct_host_list_capacity(6) entries ride in the parameter block; a
-// longer list is packed into the context's pinned staging buffer, copied
-// to its device buffer in one copy and run by one block there, so no
-// cell's entries are ever split between launches (in two launches a
-// fresh entry in the second would drop the first's delta, hits and
-// bucket advance). The event after the copy guards the pinned buffer.
-int ct_sharded_update_host(void* ctx, const int32_t* entries, int count,
-                           int now_ms) {
-  Ctx* c = (Ctx*)ctx;
-  if (!c || count < 0) return (int)cudaErrorInvalidValue;
+// B7c and B6b from a host list: `count` entries (row, slot, delta,
+// window, flags), int32 each, flags bit 0 fresh and bit 1 bucket; 0 <=
+// row < rows and 0 <= slot < L (no padding, no scratch slot); `floor`
+// null (B7c) or B6b's remote expiry lane. One launch: up to
+// ct_host_list_capacity(6) entries ride in the parameter block; a longer
+// list is packed into the context's pinned staging buffer, copied to its
+// device buffer in one copy and run by one block there, so no cell's
+// entries are ever split between launches (in two launches a fresh entry
+// in the second would drop the first's delta, hits and bucket advance).
+// The event after the copy guards the pinned buffer.
+static int update_host(Ctx* c, const int32_t* entries, int count,
+                       int now_ms, const int32_t* floor) {
   if (count == 0) return 0;
   DeviceGuard guard(c->device);
   constexpr int per = kListInts / 4;
   const int32_t now = (int32_t)now_ms;
-  if (count <= 32) return launch_update_list<32>(*c, entries, count, now);
-  if (count <= 128) return launch_update_list<128>(*c, entries, count, now);
-  if (count <= per) return launch_update_list<per>(*c, entries, count, now);
+  if (count <= 32) {
+    return launch_update_list<32>(*c, entries, count, now, floor);
+  }
+  if (count <= 128) {
+    return launch_update_list<128>(*c, entries, count, now, floor);
+  }
+  if (count <= per) {
+    return launch_update_list<per>(*c, entries, count, now, floor);
+  }
   cudaError_t rc;
   if (c->upd_staged &&
       (rc = cudaEventSynchronize(c->upd_staged)) != cudaSuccess) {
@@ -3393,9 +3316,35 @@ int ct_sharded_update_host(void* ctx, const int32_t* entries, int count,
     return (int)rc;
   }
   update_staged_kernel<<<1, 1024, 0, c->stream>>>(
-      c->values, c->expiry, c->hits, c->rows, c->row_len, count, now,
+      c->values, c->expiry, c->hits, c->rows, c->row_len, count, now, floor,
       c->upd_dev);
   return (int)cudaGetLastError();
+}
+
+int ct_sharded_update_host(void* ctx, const int32_t* entries, int count,
+                           int now_ms) {
+  Ctx* c = (Ctx*)ctx;
+  if (!c || count < 0) return (int)cudaErrorInvalidValue;
+  return update_host(c, entries, count, now_ms, nullptr);
+}
+
+// B6b from a host list on a replicated node's single table (`ctx`, row 0
+// in every entry), the remote TAT floor read from the expiry lane of its
+// remote context (`remote_ctx`, as bound by the node: values =
+// remote_vals, expiry = remote_exp). Both contexts must be one row of
+// the same length on one card and stream, so that the launch follows
+// the remote lanes' flushes queued there.
+int ct_update_replicated_host(void* ctx, void* remote_ctx,
+                              const int32_t* entries, int count,
+                              int now_ms) {
+  Ctx* c = (Ctx*)ctx;
+  const Ctx* r = (const Ctx*)remote_ctx;
+  if (!c || !r || count < 0 || c->rows != 1 || r->rows != 1 ||
+      r->row_len != c->row_len || r->device != c->device ||
+      r->stream != c->stream) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return update_host(c, entries, count, now_ms, r->expiry);
 }
 
 }  // extern "C"

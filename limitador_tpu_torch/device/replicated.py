@@ -23,7 +23,8 @@ as ``CounterTableState(remote_vals, remote_exp, remote_exp)``), through
 which the flushes write and ``_read_remote`` reads (B3a's host form).
 Checks launch B6a (``replicated_check_batch``: window lanes add the live
 remote sum, bucket lanes floor their TAT at the remote TAT),
-unconditional updates B6b (``replicated_update_batch``: the TAT floor
+unconditional updates B6b's host form (``replicated_update_host``: the
+list by value, the TAT floor read from the remote context's expiry lane
 before the advance).
 
 Consistency contract: local decisions are exact against (own + last
@@ -187,11 +188,17 @@ class TorchReplicatedStorage(TorchStorage):
         return result
 
     def _kernel_update(self, ints, flags, now_ms):
+        """B6b's host form: the staged columns without their padding
+        (scratch slots) as one list of (0, slot, delta, window, flags)
+        entries, through the table's and the remote lanes' current
+        contexts, after the remote flush queued on the same stream."""
         self._flush_dirty_remote()
-        d_ints, d_flags = self._upload(ints, flags)
-        K.replicated_update_batch(
-            self._state, self._remote_exp, *d_ints, *d_flags, now_ms,
-        )
+        real = ints[0] != self._scratch
+        entries = np.zeros((int(real.sum()), 5), np.int32)
+        entries[:, 1:4] = ints[:, real].T
+        entries[:, 4] = flags[0, real] | flags[1, real].astype(np.int32) << 1
+        K.replicated_update_host(self._ctx, self._remote_ctx, entries,
+                                 now_ms)
 
     def begin_check_columnar(self, *args, **kwargs):
         raise StorageError(

@@ -24,7 +24,8 @@ shards are the rows of one int32[n, L+1] tensor per column on one card
   storage's list of entries by value, sorted by cell in the kernel) and
   one B3a host-form read of the touched cells through a second context
   over the flattened table, and the usage observatory's
-  ``drain_hot_slots`` one B7d launch plus cell reads.
+  ``drain_hot_slots`` one B7d host-form launch (the answers in the
+  context's mapped buffer) plus cell reads.
 - Cell clears (a recycled or deleted local cell, an evicted or released
   global slot on every row) are decided in the JAX storage's order but
   staged, and launched as one B7b from the host list (the kernel's
@@ -454,8 +455,10 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
             return {"shards": shards}
 
     def drain_hot_slots(self, k: int = 64) -> List[dict]:
-        """Heavy-hitter drain (the usage observatory): one B7d launch
-        (each row's top k, the hit accumulator zeroed), then attribution
+        """Heavy-hitter drain (the usage observatory): one B7d host-form
+        call (``sharded_drain_top_hits_host``: one launch over the rows,
+        each row's top k answered into the bound context's mapped buffer,
+        the hit accumulator zeroed), then attribution
         through the per-row slot tables. A global counter's traffic lands
         in each row it was applied on; those counts merge here by slot
         and are attributed with the summed value. Returns the merged
@@ -466,9 +469,7 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
             now_ms = self._now_ms()
             kk = min(int(k), self._local_capacity)
             with self._on_device():
-                _, counts, slots = M.sharded_drain_top_hits(
-                    self._state.hits, kk)
-                counts, slots = self._download(counts, slots)
+                counts, slots = M.sharded_drain_top_hits_host(self._ctx, kk)
             out: List[dict] = []
             g_counts: Dict[int, int] = {}
             loc_sh: List[int] = []

@@ -43,13 +43,25 @@ calls after 5 of warm-up), the inputs made from one numpy seed:
   card ([8, 1<<17 + 1]): one Report of 1, 2 and 8 counters, each after
   the counters' first Report (``b7c_path_1_ms``, ``b7c_path_2_ms``,
   ``b7c_path_8_ms``), the answers checked against the same storage on
-  the CPU.
+  the CPU;
+- B7d at k = 64 over 8 Zipf-0.99 rows of 1<<17 + 1 cells: the kernels
+  alone (``b7d_kernel_ms``, profiler), the device-tensor call
+  (``b7d_call_ms``), and the tree's own
+  ``TorchShardedStorage.drain_hot_slots`` on the card after a refill of
+  the hits, the drain and the read of the live cells (``b7d_path_ms``),
+  its records checked against the plain drain;
+- B6b through the tree's own ``TorchReplicatedStorage.apply_deltas`` on
+  the card: one Report of 1, 2 and 8 token-bucket counters whose remote
+  TAT (a peer's spend, gossiped before) floors their advance
+  (``b6b_path_1_ms``, ``b6b_path_2_ms``, ``b6b_path_8_ms``), the answers
+  checked against the same node on the CPU.
 
 The storage paths are timed on the host clock (``perf_counter_ns``,
-median of 500, 200, 20, 200 and 500 calls, the card idle before each):
-B3a's path ends with the answers on the host, B6c's once the kernel is
-queued, B3b's with the read's answers, B5's with the records and B7c's
-with the answers (after the update and the read of the cells).
+median of 500, 200, 20, 200, 500, 200 and 500 calls, the card idle
+before each): B3a's path ends with the answers on the host, B6c's once
+the kernel is queued, B3b's with the read's answers, B5's and B7d's with
+the records and B7c's and B6b's with the answers (after the update and
+the read of the cells).
 
 A "path" time is the tree's own main path from the host list: the host
 form (the list in the kernel's parameter block) where the tree has it,
@@ -429,6 +441,67 @@ for size in (1, 2, 8):
         lambda: stores[0].apply_deltas(items), reps=500)
     for s_ in stores:
         s_.close()
+
+# B7d: the kernels, the device-tensor call and the sharded storage's drain
+L = 1 << 17
+wl = 1.0 / np.arange(1, L - 1024 + 1) ** 0.99
+zipf_rows = np.zeros((8, L + 1), np.int32)
+for row in zipf_rows:
+    np.add.at(row, 1024 + np.searchsorted(
+        np.cumsum(wl), rng.random(4 * 1024) * wl.sum()), 1)
+zipf_rows[:, L] = 3
+d_rows = torch.from_numpy(zipf_rows).to(dev)
+
+
+def zipf_table():
+    return d_rows.clone()
+
+
+b7d = lambda h: M.sharded_drain_top_hits(h, 64)
+got = b7d(zipf_table())
+want = M.sharded_drain_top_hits_plain(zipf_table(), 64)
+exact = exact and all(torch.equal(x, y) for x, y in zip(got, want))
+times["b7d_kernel_ms"] = kernel_ms(b7d, zipf_table)
+times["b7d_call_ms"] = median_ms(b7d, zipf_table)
+store = TorchShardedStorage(n_shards=8, local_capacity=L, device=dev)
+
+
+def refill():
+    with store._lock:
+        store._state.hits.copy_(d_rows)
+
+
+refill()
+records = store.drain_hot_slots(64)
+expect = sorted(((int(s_), r, int(c)) for r in range(8)
+                 for s_, c in zip(want[2][r].tolist(), want[1][r].tolist())
+                 if c > 0), key=lambda x: -x[2])[:64]
+exact = exact and [(x["slot"], x["shard"], x["count"])
+                   for x in records] == expect
+times["b7d_path_ms"] = host_ms(lambda: store.drain_hot_slots(64), refill,
+                               reps=200)
+store.close()
+
+# B6b: one Report through the replicated storage's apply_deltas, bucket
+# counters whose remote TAT (a peer's spend) floors their advance
+tb_limit = Limit("ab", 1000, 60, [], ["u"], policy="token_bucket")
+for size in (1, 2, 8):
+    nodes = [TorchReplicatedStorage("ab", capacity=C, clock=lambda: 1000.0,
+                                    device=d) for d in (dev, "cpu")]
+    items = [(Counter(tb_limit, {"u": f"{size}-{i}"}), 1 + i % 3)
+             for i in range(size)]
+    for node_ in nodes:
+        RateLimiter(node_).add_limit(tb_limit)
+        for i, (counter, _d) in enumerate(items):
+            tat = 1_000_000 + 600 * (i + 1)  # ahead of now: tokens spent
+            node_._on_remote_update(key_for_counter(counter), {"peer": tat},
+                                    tat)
+    answers = [[n_.apply_deltas(items) for _ in range(3)] for n_ in nodes]
+    exact = exact and answers[0] == answers[1]
+    times[f"b6b_path_{size}_ms"] = host_ms(
+        lambda: nodes[0].apply_deltas(items), reps=500)
+    for n_ in nodes:
+        n_.close()
 print(json.dumps({"tree": sys.argv[1], "host_forms": host, "exact": exact,
                   **times}))
 '''

@@ -75,8 +75,8 @@ _SIGNATURES = {
     "ct_sharded_update_workspace_bytes": (ctypes.c_longlong, [_I, _I]),
     "ct_sharded_update": (_I, [_P] * 8 + [_I] * 4 + [_P] * 2),
     "ct_sharded_clear": (_I, [_P] * 4 + [_I] * 3 + [_P]),
-    "ct_sharded_topk_workspace_bytes": (ctypes.c_longlong, [_I, _I, _I]),
-    "ct_sharded_drain_top_hits": (_I, [_P, _I, _I, _I] + [_P] * 4),
+    "ct_sharded_topk_workspace_bytes": (ctypes.c_longlong, [_I] * 4),
+    "ct_sharded_drain_top_hits": (_I, [_P] + [_I] * 4 + [_P] * 4),
     # host lists by value through a context bound once per table
     "ct_ctx_create": (_P, [_P, _P, _P, _I, _I, _P]),
     "ct_ctx_destroy": (None, [_P]),
@@ -90,6 +90,7 @@ _SIGNATURES = {
     "ct_clear_slots_host": (_I, [_P, _P, _I]),
     "ct_drain_top_hits_host": (_I, [_P, _I]),
     "ct_sharded_update_host": (_I, [_P, _P, _I, _I]),
+    "ct_update_replicated_host": (_I, [_P, _P, _P, _I, _I]),
 }
 
 #: what the last build or load did: path, seconds, ptxas resource lines

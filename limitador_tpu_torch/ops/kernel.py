@@ -25,17 +25,22 @@ Each kernel has three parts here:
 - ``launches[name]``: a plain integer, incremented by the wrapper each time
   it launches its CUDA kernel (never by the plain version).
 
-Six kernels also take host lists through a ``TableContext`` bound once
-per table (their "host forms", the storages' main path): B4d
+Seven kernels also take host lists through a ``TableContext`` bound
+once per table (their "host forms", the storages' main path): B4d
 ``seed_slots_host``, B7b ``sharded_clear_cells_host`` and B7c
 ``sharded_update_host`` (both in ``parallel/mesh.py``), B3a
-``read_slots_host``, B6c ``apply_remote_host`` and B3b
-``clear_slots_host``; B5's host form, ``drain_top_hits_host``, takes
-only k and answers, as B3a's does, into the context's mapped host
-buffer. B3a's, B6c's, B3b's, B5's and B7c's host forms count their
+``read_slots_host``, B6c ``apply_remote_host``, B3b
+``clear_slots_host`` and B6b ``replicated_update_host`` (B7c's body
+with the remote TAT floor read through the node's remote-lane
+context); B5's host form, ``drain_top_hits_host``, and B7d's,
+``sharded_drain_top_hits_host`` (``parallel/mesh.py``), take only k and
+answer, as B3a's does, into the context's mapped host buffer. B3a's,
+B6c's, B3b's, B5's, B6b's, B7c's and B7d's host forms count their
 launches under keys of their own (``read_slots_host``,
 ``apply_remote_host``, ``clear_slots_host``, ``drain_top_hits_host``,
-``sharded_update_host``), so a run shows which form its path took.
+``replicated_update_host``, ``sharded_update_host``,
+``sharded_drain_top_hits_host``), so a run shows which form its path
+took.
 
 B1 and B6a each have two CUDA kernels, chosen by the batch's hit count H
 alone (``check_route``): a thread-block cluster (``check_cluster_kernel``,
@@ -106,6 +111,8 @@ __all__ = [
     "replicated_check_plain",
     "replicated_update_batch",
     "replicated_update_plain",
+    "replicated_update_host",
+    "replicated_update_host_plain",
     "apply_remote",
     "apply_remote_plain",
     "apply_remote_host",
@@ -151,6 +158,7 @@ launches = {
     "replicated_check": 0,  # B6a, one block (check_kernel<true>)
     "replicated_check_cluster": 0,  # B6a, a cluster (its hooks)
     "replicated_update": 0,
+    "replicated_update_host": 0,  # B6b's host form
     "apply_remote": 0,
     "apply_remote_host": 0,  # B6c's host form
     # B7a-d, the sharded table (parallel/mesh.py)
@@ -160,6 +168,7 @@ launches = {
     "sharded_update": 0,
     "sharded_update_host": 0,  # B7c's host form
     "sharded_drain_top_hits": 0,
+    "sharded_drain_top_hits_host": 0,  # B7d's host form
 }
 
 
@@ -227,29 +236,39 @@ def _require_host(a: np.ndarray, name: str, n: int) -> None:
         raise ValueError(f"{name}: expected a numpy int32[{n}]")
 
 
+def _require_entries(entries: np.ndarray) -> None:
+    """B7c's and B6b's host lists: numpy int32 [count, 5]."""
+    if entries.dtype != np.int32 or entries.ndim != 2 or \
+            entries.shape[1] != 5:
+        raise ValueError("entries: expected a numpy int32 [count, 5] list "
+                         "of (row, slot, delta, window, flags)")
+
+
 class TableContext:
     """A table bound once for the host-list launches (the host forms of
     B4d, ``seed_slots_host``, of B7b, ``sharded_clear_cells_host``, of
     B7c, ``sharded_update_host``, of B3a, ``read_slots_host``, of B6c,
-    ``apply_remote_host``, of B3b, ``clear_slots_host``, and of B5,
-    ``drain_top_hits_host``).
+    ``apply_remote_host``, of B3b, ``clear_slots_host``, of B6b,
+    ``replicated_update_host``, and of B5 and B7d,
+    ``drain_top_hits_host`` and ``sharded_drain_top_hits_host``).
 
     On the card the three columns are checked here, once, and bound with
     the stream (the storage's own) in a C context, ``ct_ctx_create``; a
     launch through it passes the handle and numpy lists and makes no
-    torch call. The C context also owns the answer buffer of B3a and B5
-    (pinned host memory mapped for the card, ``results`` its numpy
-    view), B5's workspace and B7c's staging buffers, freed with it. On
-    the CPU it holds the table, and the host forms run their plain
-    versions on it. A storage makes one whenever it takes or replaces its
-    table, and closes the one it replaces: a context must never outlive
-    the table it points at, so it keeps the table. Calls through one
-    context are serialised by its owner (the storage's lock): they share
-    the answer buffer."""
+    torch call. The C context also owns the answer buffer of B3a, B5
+    and B7d (pinned host memory mapped for the card, ``results`` its
+    numpy view), B5's and B7d's workspace and B7c's and B6b's staging
+    buffers, freed with it. On the CPU it holds the table, and the host
+    forms run their plain versions on it. A storage makes one whenever
+    it takes or replaces its table, and closes the one it replaces: a
+    context must never outlive the table it points at, so it keeps the
+    table. Calls through one context are serialised by its owner (the
+    storage's lock): they share the answer buffer."""
 
     __slots__ = ("state", "cuda", "handle", "capacity", "clear_fn",
                  "seed_fn", "read_fn", "remote_fn", "staged_fn",
-                 "clear_slots_fn", "drain_fn", "update_fn", "results",
+                 "clear_slots_fn", "drain_fn", "update_fn",
+                 "replicated_update_fn", "results",
                  "_results_fn", "_destroy")
     _NO_RESULTS = np.zeros((0, 2), np.int32)
 
@@ -289,15 +308,18 @@ class TableContext:
         self.clear_slots_fn = lib.ct_clear_slots_host
         self.drain_fn = lib.ct_drain_top_hits_host
         self.update_fn = lib.ct_sharded_update_host
+        self.replicated_update_fn = lib.ct_update_replicated_host
         self._results_fn = lib.ct_ctx_results
         #: entries one launch carries: all-rows slots, pairs, seed rows,
         #: slots read (B3a), remote-share rows (B6c), slots cleared (B3b),
-        #: update entries (B7c; a longer list is staged, still one launch)
+        #: update entries (B7c, B6b; a longer list is staged, still one
+        #: launch)
         self.capacity = tuple(lib.ct_host_list_capacity(k) for k in range(7))
 
     def reserve(self, n: int) -> np.ndarray:
         """Grow the answer buffer to at least ``n`` int32 pairs (B3a's
-        (value, ttl), B5's (count, slot); a power of two, 1024 at least)
+        (value, ttl), B5's and B7d's (count, slot); a power of two, 1024
+        at least)
         and return ``results``, its numpy view, which every read and
         drain overwrites."""
         cap = max(1024, 1 << (n - 1).bit_length())
@@ -1351,6 +1373,69 @@ def replicated_update_batch(
     ), "ct_update_replicated")
     launches["replicated_update"] += 1
     return state
+
+
+def _entry_columns(entries: np.ndarray, device):
+    """(slots, deltas, windows, fresh, bucket) tensors of a host list."""
+    cols = [torch.from_numpy(np.ascontiguousarray(entries[:, j])).to(device)
+            for j in range(1, 5)]
+    flags = cols[3]
+    return cols[0], cols[1], cols[2], (flags & 1).bool(), (flags & 2).bool()
+
+
+def replicated_update_host_plain(state: CounterTableState,
+                                 remote_exp: torch.Tensor,
+                                 entries: np.ndarray,
+                                 now_ms) -> CounterTableState:
+    """Plain twin of ``replicated_update_host``: ``replicated_update_plain``
+    over the list's entries in list order (an empty list changes
+    nothing, as on the card). In place."""
+    _require_entries(entries)
+    if entries.shape[0] == 0:
+        return state
+    c1 = state.values.shape[0]
+    rows, slots = entries[:, 0], entries[:, 1]
+    if (rows != 0).any() or ((slots < 0) | (slots >= c1 - 1)).any():
+        raise ValueError(f"entries: rows must be 0 and slots in "
+                         f"[0, {c1 - 1})")
+    return replicated_update_plain(
+        state, remote_exp, *_entry_columns(entries, state.values.device),
+        now_ms)
+
+
+def replicated_update_host(ctx: TableContext, remote_ctx: TableContext,
+                           entries: np.ndarray,
+                           now_ms) -> CounterTableState:
+    """``replicated_update_batch`` from a replicated node's host list, on
+    ``ctx.state`` in place: ``entries`` is a numpy int32 [count, 5] list
+    of (row, slot, delta, window, flags) entries, row 0, flags bit 0
+    fresh and bit 1 bucket, in the order the JAX call's columns hold
+    them (its padding entries, the scratch slot, are left out); the
+    remote TAT floor is ``remote_ctx.state.expiry_ms``, the node's
+    ``remote_exp`` lane. On the card one C call, one launch on the
+    context's stream (``ct_update_replicated_host``): B7c's body on the
+    one row with the floor, the list in the kernel's parameter block up
+    to ``ctx.capacity[6]`` entries and past it in one staged copy, never
+    split. No padding, no upload, no tensor, no workspace. The caller
+    passes the current contexts at every call: each is rebound when its
+    lanes are replaced."""
+    if not ctx.cuda:
+        return replicated_update_host_plain(
+            ctx.state, remote_ctx.state.expiry_ms, entries, now_ms)
+    _require_entries(entries)
+    now = _now(now_ms)
+    if not ctx.handle or not remote_ctx.handle:
+        raise RuntimeError("replicated_update_host: a launch context is "
+                           "closed")
+    count = entries.shape[0]
+    if count == 0:
+        return ctx.state
+    rc = ctx.replicated_update_fn(ctx.handle, remote_ctx.handle,
+                                  entries.tobytes(), count, now)
+    if rc:
+        build.check(rc, "ct_update_replicated_host")
+    launches["replicated_update_host"] += 1
+    return ctx.state
 
 
 def apply_remote_plain(remote_vals, remote_exp, slots, sums, expiries):

@@ -39,8 +39,11 @@ launches the CUDA kernel of ``csrc/counter_table.cu`` for a CUDA table
 and counts the launch in ``ops.kernel.launches``. B7b and B7c also take
 the storage's host lists through a bound ``ops.kernel.TableContext``
 (``sharded_clear_cells_host``, ``sharded_update_host``, the sharded
-storage's path; B7c's host form counts under ``sharded_update_host``). Like the rest of the
-port, every function updates the table in place and returns it.
+storage's path; B7c's host form counts under ``sharded_update_host``),
+and B7d drains through one (``sharded_drain_top_hits_host``, counted
+under its own key, its answers in the context's mapped host buffer).
+Like the rest of the port, every function updates the table in place
+and returns it.
 
 The pod plumbing of the JAX file (``PodInfo``, ``PodPsumLane``,
 ``PodMembership``, the pod meshes) belongs to the multi-process pod and
@@ -74,6 +77,8 @@ __all__ = [
     "sharded_update_host_plain",
     "sharded_drain_top_hits",
     "sharded_drain_top_hits_plain",
+    "sharded_drain_top_hits_host",
+    "sharded_drain_top_hits_host_plain",
     "coupled_row_capacity",
     "sharded_check_route",
 ]
@@ -470,13 +475,6 @@ def sharded_update(
     return state
 
 
-def _require_entries(entries: np.ndarray) -> None:
-    if entries.dtype != np.int32 or entries.ndim != 2 or \
-            entries.shape[1] != 5:
-        raise ValueError("entries: expected a numpy int32 [count, 5] list "
-                         "of (row, slot, delta, window, flags)")
-
-
 def sharded_update_host_plain(state: ShardedCounterState,
                               entries: np.ndarray,
                               now_ms) -> ShardedCounterState:
@@ -484,7 +482,7 @@ def sharded_update_host_plain(state: ShardedCounterState,
     row over that row's entries in list order, every row's scratch cell
     zeroed (an empty list changes nothing, as on the card). In
     place."""
-    _require_entries(entries)
+    K._require_entries(entries)
     if entries.shape[0] == 0:
         return state
     n, L1 = state.values.shape
@@ -496,11 +494,8 @@ def sharded_update_host_plain(state: ShardedCounterState,
     for s in range(n):
         mine = entries[rows == s]
         if mine.shape[0]:
-            cols = [torch.from_numpy(np.ascontiguousarray(mine[:, j])).to(dev)
-                    for j in range(1, 5)]
-            flags = cols[3]
-            K.update_plain(_row(state, s), cols[0], cols[1], cols[2],
-                           (flags & 1).bool(), (flags & 2).bool(), now_ms)
+            K.update_plain(_row(state, s), *K._entry_columns(mine, dev),
+                           now_ms)
     for t in state:
         t[:, -1] = 0
     return state
@@ -523,7 +518,7 @@ def sharded_update_host(ctx: K.TableContext, entries: np.ndarray,
     padding, no upload, no tensor, no workspace."""
     if not ctx.cuda:
         return sharded_update_host_plain(ctx.state, entries, now_ms)
-    _require_entries(entries)
+    K._require_entries(entries)
     now = K._now(now_ms)
     if not ctx.handle:
         raise RuntimeError("sharded_update_host: the launch context is "
@@ -554,13 +549,18 @@ def sharded_drain_top_hits_plain(hits: torch.Tensor, k: int):
 
 
 def sharded_drain_top_hits(
-    hits: torch.Tensor, k: int
+    hits: torch.Tensor, k: int, blocks: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-row read-and-reset of the hit accumulator (the JAX
     ``sharded_drain_top_hits``): returns (the zeroed hits, counts[n, k]
     descending per row, slots[n, k]), ties to the lowest slot, count-0
     entries filler; the scratch column is zeroed and never reported.
-    ``1 <= k <= L``. In place."""
+    ``1 <= k <= L``. In place. On the card, for k <= 1024, one launch of
+    B5's one-pass kernel over the rows (after a memset of its fresh
+    workspace's header), ``blocks`` blocks a row (0: the kernel's own
+    rule; phase 3 of ``chip_smoke.py`` times the alternatives); a larger
+    k sorts row after row. The storages drain through
+    ``sharded_drain_top_hits_host``."""
     if hits.dim() != 2:
         raise ValueError("sharded hits are int32[n, L+1]")
     n, L1 = hits.shape
@@ -573,13 +573,60 @@ def sharded_drain_top_hits(
     dev = hits.device
     _require2(hits, "hits", _I32, (n, L1), dev)
     lib = build.library()
-    workspace = torch.empty(lib.ct_sharded_topk_workspace_bytes(n, L1, k),
-                            dtype=torch.uint8, device=dev)
+    workspace = torch.empty(
+        lib.ct_sharded_topk_workspace_bytes(n, L1, k, int(blocks)),
+        dtype=torch.uint8, device=dev)
     counts = torch.empty((n, k), dtype=_I32, device=dev)
     slots = torch.empty((n, k), dtype=_I32, device=dev)
     build.check(lib.ct_sharded_drain_top_hits(
-        hits.data_ptr(), n, L1, k, workspace.data_ptr(), counts.data_ptr(),
-        slots.data_ptr(), _stream(dev),
+        hits.data_ptr(), n, L1, k, int(blocks), workspace.data_ptr(),
+        counts.data_ptr(), slots.data_ptr(), _stream(dev),
     ), "ct_sharded_drain_top_hits")
     K.launches["sharded_drain_top_hits"] += 1
     return hits, counts, slots
+
+
+def sharded_drain_top_hits_host_plain(
+        state: ShardedCounterState, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Plain twin of ``sharded_drain_top_hits_host``:
+    ``sharded_drain_top_hits_plain`` on the table's hits, the answers as
+    numpy int32[n, k] arrays."""
+    _, counts, slots = sharded_drain_top_hits_plain(state.hits, k)
+    return counts.cpu().numpy(), slots.cpu().numpy()
+
+
+def sharded_drain_top_hits_host(
+        ctx: K.TableContext, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``sharded_drain_top_hits`` on ``ctx.state``'s [n, L+1] hits,
+    answered on the host: (counts, slots) as numpy int32[n, k] arrays of
+    their own, the hits zeroed in place. On the card one C call
+    (``ct_drain_top_hits_host`` on the context of the rows): for k <=
+    1024 one launch of B5's one-pass kernel over the rows with the
+    context's own workspace, each row's k (count, slot) pairs stored
+    into the context's mapped host buffer (row r's at pairs [r k, r k +
+    k)), and the call waits on the context's stream, so the drain
+    follows every launch queued there before it; no allocation, no
+    output tensor, no copy. The next read or drain through the context
+    overwrites the buffer; the answers are copied out of it first."""
+    hits = ctx.state.hits
+    if hits.dim() != 2:
+        raise ValueError("sharded hits are int32[n, L+1]")
+    n, L1 = hits.shape
+    k = int(k)
+    if not 1 <= k <= L1 - 1:
+        raise ValueError(f"sharded_drain_top_hits_host: k={k} outside "
+                         f"[1, {L1 - 1}]")
+    if not ctx.cuda:
+        return sharded_drain_top_hits_host_plain(ctx.state, k)
+    if not ctx.handle:
+        raise RuntimeError("sharded_drain_top_hits_host: the launch "
+                           "context is closed")
+    results = ctx.results
+    if results.shape[0] < n * k:
+        results = ctx.reserve(n * k)
+    rc = ctx.drain_fn(ctx.handle, k)
+    if rc:
+        build.check(rc, "ct_drain_top_hits_host")
+    K.launches["sharded_drain_top_hits_host"] += 1
+    pairs = results[:n * k].reshape(n, k, 2)
+    return pairs[:, :, 0].copy(), pairs[:, :, 1].copy()

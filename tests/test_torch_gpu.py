@@ -488,10 +488,11 @@ def test_replicated_node_on_the_card_decides_like_the_cpu(cuda):
                      c.remaining, c.expires_in)
                     for c in lim.get_counters("ns")) for lim in limiters]
     assert views[0] == views[1]
-    for name in ("replicated_check", "replicated_update",
+    for name in ("replicated_check", "replicated_update_host",
                  "apply_remote_host", "read_slots_host"):
         assert K.launches[name] > before[name], name
-    for name in ("check_and_update", "check_and_update_cluster", "update"):
+    for name in ("check_and_update", "check_and_update_cluster", "update",
+                 "replicated_update"):
         assert K.launches[name] == before[name], name
     card, cpu = nodes
     _equal(card._state, cpu._state)
@@ -1256,3 +1257,146 @@ def test_sharded_update_host_form_refuses_the_scratch_slot(cuda):
     torch.cuda.synchronize()
     _equal(ka, _sharded(tab, cuda))
     ctx.close()
+
+
+# -- B7d on B5's one-pass body and its host form; B6b's host form -------------
+
+#: the sharded table's shapes: the storage's (8 rows of 1<<17 + 1 cells,
+#: each row's start 4 (L + 1) bytes past the last: every row has its own
+#: unaligned head and tail) and a small one
+SHARDED_DRAIN_SHAPES = ((8, 1 << 17), (3, 1 << 10))
+
+
+def _sharded_hits(rng, kind, rows, L):
+    return np.stack([hits_column(rng, kind, L) for _ in range(rows)])
+
+
+@pytest.mark.parametrize("shape", SHARDED_DRAIN_SHAPES,
+                         ids=["8x128k", "3x1k"])
+@pytest.mark.parametrize("k", [1, 7, 64, 1000, 1024, 1025])
+@pytest.mark.parametrize("kind", DRAIN_KINDS)
+def test_sharded_drain_host_form_and_call_match_plain(cuda, kind, k, shape):
+    """B7d's device-tensor call (one drain_kernel launch over the rows for
+    k <= 1024, at the kernel's own blocks a row and forced to 16 and 32;
+    the full sort row after row past it) and its host form (the rows'
+    answers in the context's mapped buffer) against the plain drain of
+    every row: the
+    same counts and slots on every row, ties to the lowest slot, and
+    every row zeroed. A k past the row's L is taken as L."""
+    rows, L = shape
+    k = min(k, L)
+    hits = _sharded_hits(np.random.default_rng(k + L + rows), kind, rows, L)
+    _, want_c, want_s = M.sharded_drain_top_hits_plain(
+        torch.from_numpy(hits.copy()), k)
+    for blocks in (0, 16, 32):
+        a = torch.from_numpy(hits.copy()).to(cuda)
+        before = K.launches["sharded_drain_top_hits"]
+        _, got_c, got_s = M.sharded_drain_top_hits(a, k, blocks=blocks)
+        assert K.launches["sharded_drain_top_hits"] == before + 1
+        _equal((got_c, got_s), (want_c, want_s))
+        assert not a.any()
+    col = torch.from_numpy(hits).to(cuda)
+    state = M.ShardedCounterState(torch.zeros_like(col),
+                                  torch.zeros_like(col), col)
+    ctx = K.TableContext(state, torch.cuda.current_stream(cuda))
+    before = K.launches["sharded_drain_top_hits_host"]
+    counts, slots = M.sharded_drain_top_hits_host(ctx, k)
+    assert K.launches["sharded_drain_top_hits_host"] == before + 1
+    assert counts.shape == (rows, k) and counts.flags.owndata
+    np.testing.assert_array_equal(counts, want_c.numpy())
+    np.testing.assert_array_equal(slots, want_s.numpy())
+    assert not state.hits.any()
+    ctx.close()
+
+
+def test_sharded_drains_in_a_row_leave_the_header_at_zero(cuda):
+    """Every row's last block sets its done counter and shared bound back
+    to 0: drains in a row through one context of the rows (its workspace
+    allocated once, grown for a larger k, the full sort past 1024 and
+    back) and through the device-tensor call stay exact."""
+    rng = np.random.default_rng(815)
+    rows, L = SHARDED_DRAIN_SHAPES[0]
+    col = torch.zeros((rows, L + 1), dtype=torch.int32, device=cuda)
+    state = M.ShardedCounterState(torch.zeros_like(col),
+                                  torch.zeros_like(col), col)
+    ctx = K.TableContext(state, torch.cuda.current_stream(cuda))
+    for kind, k in (("zipf", 64), ("zipf", 64), ("ascending", 64),
+                    ("equal", 7), ("extremes", 1000), ("sparse", 1),
+                    ("wide", 1025), ("zipf", 64)):
+        hits = _sharded_hits(rng, kind, rows, L)
+        state.hits.copy_(torch.from_numpy(hits))
+        _, want_c, want_s = M.sharded_drain_top_hits_plain(
+            torch.from_numpy(hits.copy()), k)
+        counts, slots = M.sharded_drain_top_hits_host(ctx, k)
+        np.testing.assert_array_equal(counts, want_c.numpy())
+        np.testing.assert_array_equal(slots, want_s.numpy())
+        a = torch.from_numpy(hits).to(cuda)
+        _equal(M.sharded_drain_top_hits(a, k)[1:], (want_c, want_s))
+    ctx.close()
+
+
+@pytest.mark.parametrize("count", [1, 2, 8, 64, 2000, 2001])
+def test_replicated_update_host_form_matches_plain(cuda, count):
+    """B6b from a host list (one launch: the parameter block up to its
+    capacity, one staged copy past it) against B6b's plain version on
+    the padded columns and against the host form's plain twin, on a
+    table whose remote lanes hold bucket TATs ahead of and behind now:
+    repeated cells mixing buckets and windows, fresh cells, deltas at
+    the caps, a fresh entry after a non-fresh one on one cell at the
+    capacity's boundary; the remote lanes are only read."""
+    rng = np.random.default_rng(950 + count)
+    now_ms = 5_000_000
+    slot_lanes = lanes(rng, C)
+    tab = table(rng, now_ms, slot_lanes)
+    rv, re = remote_lanes(rng, now_ms, slot_lanes, tab[0])
+    ka, pb, pc = (_state(tab, cuda) for _ in range(3))
+    remote = K.CounterTableState(*(torch.from_numpy(a.copy()).to(cuda)
+                                   for a in (rv, re, re)))
+    ctx = K.TableContext(ka, torch.cuda.current_stream(cuda))
+    rctx = K.TableContext(remote, torch.cuda.current_stream(cuda))
+    for _round in range(3):
+        entries = update_entries(rng, count, 1, C, 1, slot_lanes,
+                                 straddle=min(count - 1, 2000))
+        before = dict(K.launches)
+        K.replicated_update_host(ctx, rctx, entries, now_ms)
+        assert K.launches["replicated_update_host"] == \
+            before["replicated_update_host"] + 1
+        assert K.launches["replicated_update"] == before["replicated_update"]
+        cols = [torch.from_numpy(c[0]).to(cuda)
+                for c in padded_update_columns(entries, 1, C)]
+        K.replicated_update_plain(pb, remote.expiry_ms, *cols, now_ms)
+        K.replicated_update_host_plain(pc, remote.expiry_ms, entries, now_ms)
+        torch.cuda.synchronize()
+        _equal(ka, pb)
+        _equal(ka, pc)
+        now_ms += int(rng.choice([0, 500, 61_000]))
+    np.testing.assert_array_equal(remote.expiry_ms.cpu().numpy(), re)
+    np.testing.assert_array_equal(remote.values.cpu().numpy(), rv)
+    ctx.close()
+    rctx.close()
+
+
+def test_replicated_update_host_form_refuses_mismatched_contexts(cuda):
+    """The remote context must be one row of the table's length: a
+    remote context of another length, or a sharded table, raises; so
+    does the scratch slot. The table is left as it was."""
+    tab = tuple(np.ones(C + 1, np.int32) for _ in range(3))
+    ka = _state(tab, cuda)
+    stream = torch.cuda.current_stream(cuda)
+    ctx = K.TableContext(ka, stream)
+    entries = np.asarray([[0, 5, 1, 1000, 2]], np.int32)
+    short = K.TableContext(_state(tuple(np.ones(C, np.int32)
+                                        for _ in range(3)), cuda), stream)
+    rows = K.TableContext(_sharded(tuple(np.ones((2, C + 1), np.int32)
+                                         for _ in range(3)), cuda), stream)
+    good = K.TableContext(_state(tab, cuda), stream)
+    for rctx in (short, rows):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            K.replicated_update_host(ctx, rctx, entries, 0)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        K.replicated_update_host(ctx, good, np.asarray(
+            [[0, C, 1, 1000, 0]], np.int32), 0)
+    torch.cuda.synchronize()
+    _equal(ka, _state(tab, cuda))
+    for c in (ctx, short, rows, good):
+        c.close()

@@ -49,13 +49,17 @@ from limitador_tpu_torch.storage.base import StorageError
 from limitador_tpu_torch.storage.keys import key_for_counter as t_key
 
 from .torch_batches import (
+    C,
+    NEVER,
     SpyContext,
     batch,
     fake_card,
     lanes,
+    padded_update_columns,
     remote_lanes,
     remote_rows,
     table,
+    update_entries,
 )
 
 # -- the kernels -------------------------------------------------------------
@@ -750,12 +754,12 @@ def test_report_path_folds_the_remote_tat_floor(path):
         counter = TCounter(limit, {"u": "x"})
         tat = now_ms + 3 * 12_000  # a peer spent 3 of 5
         node._on_remote_update(t_key(counter), {"A": tat}, tat)
-        launches = TK.launches["replicated_update"]
+        launches = dict(TK.launches)
         if path == "update_counter":
             node.update_counter(counter, 1)
         else:
             node.apply_deltas([(counter, 1)])
-        assert TK.launches["replicated_update"] == launches  # CPU: plain
+        assert TK.launches == launches  # CPU: plain
         assert node._touched  # the Report-path write gossips
         ctx = T.Context({"u": "x"})
         outs = [limiter.check_rate_limited_and_update("tb", ctx, 1).limited
@@ -1214,3 +1218,199 @@ def test_an_epoch_rebase_leaves_the_remote_context_bound():
     for j, t in zip(answers[0][2], answers[1][2]):
         np.testing.assert_array_equal(j, t)
 
+
+
+# -- B6b's host form and the Report path --------------------------------------
+
+#: entries one B6b launch carries on the card (nvcc 12.1 or later)
+UPDATE_CAPACITY = 2000
+
+
+def _report_list(rng, count, slot_lanes):
+    """A B6b host list over a single table of C + 1 cells: B7c's list
+    generator on one row (Zipf slots, slot 0 a quarter of the time, so
+    repeated cells; 3% of bucket flags flipped, so cells mixing buckets
+    and windows; 10% fresh; deltas at and past the caps), entries
+    capacity - 1 and capacity one cell, not fresh and then fresh."""
+    return update_entries(rng, count, 1, C, 1, slot_lanes,
+                          straddle=min(count - 1, UPDATE_CAPACITY))
+
+
+def _jax_update(jstate, remote_exp, entries, now_ms):
+    """The jitted ``_replicated_update`` on the list's padded columns."""
+    cols = [c[0] for c in padded_update_columns(entries, 1, C)]
+    return JR._replicated_update(jstate, jnp.asarray(remote_exp), *cols,
+                                 np.int32(now_ms))
+
+
+@pytest.mark.parametrize("path", ["plain", "card"])
+@pytest.mark.parametrize("count", [1, 2, 8, UPDATE_CAPACITY,
+                                   UPDATE_CAPACITY + 1])
+def test_replicated_update_host_form_matches_jax(count, path):
+    """B6b from a host list equals the jitted ``_replicated_update`` on
+    the list's padded columns, three rounds over one table whose remote
+    lanes hold bucket TATs ahead of and behind now and live and expired
+    window expiries: through a CPU context (the plain twin, no launch)
+    and through contexts that emulate the C entry point (one call with
+    the list as bytes and both handles, one launch counted under the
+    host form's key, never the device-tensor wrapper's)."""
+    rng = np.random.default_rng(9500 + count)
+    now_ms = 5_000_000
+    slot_lanes = lanes(rng, C)
+    values, expiry, hits = table(rng, now_ms, slot_lanes)
+    _rv, re = remote_lanes(rng, now_ms, slot_lanes, values)
+    jstate, tstate = _states(values, expiry, hits)
+    rem = TK.CounterTableState(*(torch.from_numpy(a.copy())
+                                 for a in (_rv, re, re)))
+    if path == "plain":
+        ctx, rctx = TK.TableContext(tstate), TK.TableContext(rem)
+    else:
+        ctx, rctx = SpyContext(tstate), SpyContext(rem)
+    for _round in range(3):
+        entries = _report_list(rng, count, slot_lanes)
+        if count >= UPDATE_CAPACITY and _round == 0:  # every case
+            slots, bucket = entries[:, 1], entries[:, 4] & 2 > 0
+            floor = re[slots]
+            assert (bucket & (floor > now_ms)).any()
+            assert (bucket & (floor > 0) & (floor <= now_ms)).any()
+            assert (bucket & (entries[:, 4] & 1 > 0) & (floor > now_ms)).any()
+            assert (~bucket & (floor > now_ms)).any()
+            assert np.intersect1d(slots[bucket], slots[~bucket]).size
+        jstate = _jax_update(jstate, re, entries, now_ms)
+        before = dict(TK.launches)
+        assert TK.replicated_update_host(ctx, rctx, entries, now_ms) \
+            is ctx.state
+        moved = {key: TK.launches[key] - before[key] for key in before
+                 if TK.launches[key] != before[key]}
+        assert moved == ({} if path == "plain"
+                         else {"replicated_update_host": 1})
+        _same_table(jstate, ctx.state)
+        now_ms += int(rng.choice([0, 500, 61_000]))
+    if path == "card":
+        assert ctx.calls == [("replicated_update", count)] * 3
+    np.testing.assert_array_equal(rem.expiry_ms.numpy(), re)
+
+
+def test_replicated_update_host_form_hand_cells():
+    """Hand cells through the host form's twin and the JAX program: a
+    bucket whose remote TAT is ahead of its own and of now (it advances
+    from the floor), one whose floor is behind now (from max(own, now)),
+    a fresh bucket with a floor ahead (its own TAT dropped, the floor
+    kept), a window cell with a remote expiry set (never floored), a
+    cell of a window entry then a fresh bucket entry (the last entry's
+    bucket flag takes the floor) and one of a bucket then a window entry
+    (no floor), deltas summing past MAX_VALUE_CAP, and a bucket whose
+    floor sits near the int32 horizon (the advance clamps). An empty
+    list changes nothing."""
+    now_ms = 2_000_000
+    I = 1000
+    values = np.zeros(C + 1, np.int32)
+    expiry = np.zeros(C + 1, np.int32)
+    hits = np.full(C + 1, 3, np.int32)
+    re = np.zeros(C + 1, np.int32)
+    hits[C] = 0
+    cells = {  # slot: (own TAT or window end, remote_exp)
+        10: (now_ms + 2 * I, now_ms + 5 * I),  # floor ahead of own
+        11: (now_ms + 3 * I, now_ms - 4 * I),  # floor behind now
+        12: (now_ms + 6 * I, now_ms + 2 * I),  # fresh: own dropped
+        13: (now_ms + 60_000, now_ms + 90_000),  # window
+        14: (now_ms + 1 * I, now_ms + 7 * I),  # window then fresh bucket
+        15: (now_ms + 1 * I, now_ms + 7 * I),  # bucket then window
+        16: (now_ms + 60_000, 0),  # deltas past the cap
+        17: (now_ms, NEVER - 10),  # floor at the horizon
+    }
+    for slot, (own, remote) in cells.items():
+        expiry[slot], re[slot] = own, remote
+    values[13], values[16] = 5, 7
+    entries = np.asarray([
+        [0, 10, 2, I, 2],
+        [0, 11, 1, I, 2],
+        [0, 12, 1, I, 3],
+        [0, 13, 4, 60_000, 0],
+        [0, 14, 1, 60_000, 0],
+        [0, 14, 2, I, 3],
+        [0, 15, 1, I, 2],
+        [0, 15, 2, 60_000, 0],
+        [0, 16, (1 << 30) - 1, 60_000, 0],
+        [0, 16, NEVER, 60_000, 0],
+        [0, 17, 5, I, 2],
+    ], np.int32)
+    jstate, tstate = _states(values, expiry, hits)
+    jstate = _jax_update(jstate, re, entries, now_ms)
+    rem = TK.CounterTableState(*(torch.from_numpy(a) for a in (
+        np.zeros_like(re), re, re)))
+    TK.replicated_update_host(TK.TableContext(tstate),
+                              TK.TableContext(rem), entries, now_ms)
+    _same_table(jstate, tstate)
+    exp = tstate.expiry_ms
+    assert int(exp[10]) == now_ms + 7 * I  # the floor, then 2 tokens
+    assert int(exp[11]) == now_ms + 4 * I  # own TAT, then 1 token
+    assert int(exp[12]) == now_ms + 3 * I  # the floor, not its own TAT
+    assert int(exp[13]) == now_ms + 60_000  # a live window keeps its end
+    assert int(tstate.values[13]) == 9
+    assert int(exp[14]) == now_ms + 10 * I  # fresh: the floor, 3 tokens
+    # a live window at its last entry: its end kept, no floor
+    assert int(exp[15]) == now_ms + I and int(tstate.values[15]) == 3
+    assert int(tstate.values[16]) == 1 << 30  # saturated at the cap
+    assert int(exp[17]) > NEVER - 10 - I  # clamped below the horizon
+    assert [int(tstate.hits[s]) for s in (12, 14)] == [1, 2]  # fresh
+    before = [t.clone() for t in tstate]
+    TK.replicated_update_host(TK.TableContext(tstate), TK.TableContext(rem),
+                              np.zeros((0, 5), np.int32), now_ms)
+    for t, b in zip(tstate, before):
+        assert torch.equal(t, b)
+
+
+@pytest.mark.parametrize("bad", [[0, C, 1, 1000, 0], [1, 3, 1, 1000, 0],
+                                 [0, -1, 1, 1000, 0]])
+def test_replicated_update_host_form_refuses_cells_past_the_table(bad):
+    """The host form has no padding: an entry of the scratch slot, of a
+    negative slot or of a row other than 0 raises; a list of the wrong
+    shape or type too; the table is left as it was."""
+    state = TK.make_table(C, "cpu")
+    ctx = TK.TableContext(state)
+    rctx = TK.TableContext(TK.make_table(C, "cpu"))
+    with pytest.raises(ValueError):
+        TK.replicated_update_host(ctx, rctx, np.asarray([bad], np.int32), 0)
+    for wrong in (np.zeros((2, 4), np.int32), np.zeros((2, 5), np.int64)):
+        with pytest.raises(ValueError):
+            TK.replicated_update_host(ctx, rctx, wrong, 0)
+    assert not any(t.any() for t in state)
+
+
+@pytest.mark.parametrize("seed", [3])
+def test_replicated_storage_through_the_host_forms_matches_jax(seed):
+    """The JAX nodes' op script (checks, Reports through
+    ``update_counter`` and ``apply_deltas``, gossip, an epoch rebase)
+    with each port node's table and remote lanes behind contexts that
+    emulate the C entry points: the same answers, views and arrays as
+    the JAX nodes', and every Report one B6b host-form call carrying
+    its device counters alone (no padding), counted under
+    ``replicated_update_host`` and never under ``replicated_update``."""
+    (jclock, jside), (tclock, tside) = _sides(64, 20)
+    spies = []
+    for node in tside.nodes:
+        node._ctx = SpyContext(node._ctx.state)
+        node._remote_ctx = SpyContext(node._remote_ctx.state)
+        spies.append(node._ctx)
+    try:
+        before = dict(TK.launches)
+        reports = 0
+        for i, op in enumerate(_script(seed)):
+            assert _run(jside, jclock, op) == _run(tside, tclock, op), (i, op)
+            if op[0] in ("update", "apply"):
+                reports += 1
+            if i % 40 == 39:
+                _assert_nodes_equal(jside, tside, i)
+        _assert_nodes_equal(jside, tside, "end")
+        calls = [c for spy in spies for c in spy.calls
+                 if c[0] == "replicated_update"]
+        assert 0 < len(calls) <= reports
+        assert all(0 < n <= 5 for _name, n in calls)
+        assert TK.launches["replicated_update_host"] == \
+            before["replicated_update_host"] + len(calls)
+        assert TK.launches["replicated_update"] == \
+            before["replicated_update"]
+    finally:
+        jside.close()
+        tside.close()

@@ -43,6 +43,7 @@ from .torch_batches import (
     SpyContext,
     divergent_lean_batch,
     fake_card,
+    hits_column,
     padded_update_columns,
     sharded_batch,
     sharded_lanes,
@@ -1955,3 +1956,116 @@ def test_apply_deltas_is_one_update_launch_per_call(monkeypatch):
     jv = js.apply_deltas([(JCounter(big[0], {"u": "a"}), 5)])
     assert ts.apply_deltas([(Counter(big[1], {"u": "a"}), 5)]) == jv
     assert len(calls) == n_calls
+
+
+# -- B7d's host form and the sharded observatory's drain ----------------------
+
+#: B7d's column kinds: traffic-shaped and adversarial (tied, rising with
+#: the index, at INT_MIN/INT_MAX)
+DRAIN_KINDS = ("zipf", "sparse", "zero", "equal", "ascending", "extremes",
+               "wide")
+DRAIN_L = 1 << 10
+
+
+@pytest.mark.parametrize("k", [1, 7, 64, DRAIN_L])
+@pytest.mark.parametrize("kind", DRAIN_KINDS)
+def test_sharded_drain_host_form_matches_jax(kind, k):
+    """B7d's host form equals the JAX ``sharded_drain_top_hits`` on the 8
+    virtual devices, each row its own column of the kind (scratch cell
+    dirty), at L = 1<<10: the same counts and slots per row, ties to the
+    lowest slot, and every row zeroed. Through a CPU context (the plain
+    twin, no launch) and through a context that emulates the C entry
+    point (one call, one launch counted under the host form's key), two
+    drains in a row on each (the second of an emptied table)."""
+    rng = np.random.default_rng(9400 + k)
+    mesh = _mesh()
+    hits = np.stack([hits_column(rng, kind, DRAIN_L) for _ in range(N)])
+    sharding = JM.batch_sharding(mesh)
+    jh, jc, js = JM.sharded_drain_top_hits(
+        mesh, jax.device_put(hits, sharding), k)
+    zeroed = np.asarray(jh)
+    _, jc2, js2 = JM.sharded_drain_top_hits(mesh, jh, k)  # donates jh
+    zeros = np.zeros_like(hits)
+    for form in ("plain", "card"):
+        state = TM.ShardedCounterState(*(torch.from_numpy(a) for a in (
+            zeros.copy(), zeros.copy(), hits.copy())))
+        ctx = TK.TableContext(state) if form == "plain" else SpyContext(state)
+        for want_c, want_s in ((jc, js), (jc2, js2)):
+            before = dict(TK.launches)
+            counts, slots = TM.sharded_drain_top_hits_host(ctx, k)
+            assert counts.shape == slots.shape == (N, k)
+            assert counts.dtype == slots.dtype == np.int32
+            np.testing.assert_array_equal(counts, np.asarray(want_c))
+            np.testing.assert_array_equal(slots, np.asarray(want_s))
+            np.testing.assert_array_equal(state.hits.numpy(), zeroed)
+            moved = {key: TK.launches[key] - before[key] for key in before
+                     if TK.launches[key] != before[key]}
+            assert moved == ({} if form == "plain"
+                             else {"sharded_drain_top_hits_host": 1})
+        if form == "card":
+            assert ctx.calls == [("drain", k)] * 2
+
+
+def test_sharded_drain_host_form_refuses_k_past_the_row():
+    """k outside [1, L] raises on both paths; so does a closed context."""
+    ctx = TK.TableContext(TM.make_sharded_table(N, 16, "cpu"))
+    spy = SpyContext(TM.make_sharded_table(N, 16, "cpu"))
+    for c in (ctx, spy):
+        for k in (0, 17):
+            with pytest.raises(ValueError):
+                TM.sharded_drain_top_hits_host(c, k)
+    spy.close()
+    with pytest.raises(RuntimeError):
+        TM.sharded_drain_top_hits_host(spy, 4)
+
+
+@pytest.mark.parametrize("form", ["plain", "card"])
+def test_sharded_drain_hot_slots_takes_the_host_form(form):
+    """The sharded observatory's ``drain_hot_slots`` equals the JAX
+    sharded storage's after every round of traffic (lean, coupled and
+    global hits, Reports) at k = 64 and 3, and drains through B7d's host
+    form only: on the CPU it moves no launch count; through a context
+    that emulates the C entry point it is one call and one launch under
+    ``sharded_drain_top_hits_host``, never the device-tensor wrapper."""
+    clock, js, ts = _twins(cache_size=64)
+    spy = None
+    if form == "card":
+        spy = SpyContext(ts._ctx.state)
+        ts._ctx = spy
+    g = _limit_pair("g", 50, 60, [], ["t"], name="per-tenant")
+    loose = _limit_pair("ns", 40, 60, [], ["u"], name="loose")
+    pair = _limit_pair("ns", 30, 60, [], ["u", "r"], name="route")
+    rng = random.Random(31)
+    drains = 0
+    for b in range(4):
+        specs = [[(loose, {"u": str(rng.randrange(20))}),
+                  (pair, {"u": str(rng.randrange(20)),
+                          "r": str(rng.randrange(4))})]
+                 for _ in range(24)]
+        specs += [[(g, {"t": str(rng.randrange(6))})] for _ in range(12)]
+        jreq, treq = _both_requests(specs)
+        assert [(a.limited, a.limit_name) for a in js.check_many(jreq)] == \
+            [(a.limited, a.limit_name) for a in ts.check_many(treq)]
+        items = [(loose, {"u": str(rng.randrange(30))}) for _ in range(5)]
+        assert js.apply_deltas([(JCounter(p[0], dict(v)), 2)
+                                for p, v in items]) == \
+            ts.apply_deltas([(Counter(p[1], dict(v)), 2) for p, v in items])
+        for k in (64, 3):
+            before = dict(TK.launches)
+            got = ts.drain_hot_slots(k)
+            assert got == js.drain_hot_slots(k)
+            assert got or k == 3
+            moved = {key: TK.launches[key] - before[key] for key in before
+                     if TK.launches[key] != before[key]}
+            if form == "plain":
+                assert moved == {}
+            else:
+                assert moved.get("sharded_drain_top_hits_host") == 1
+                assert "sharded_drain_top_hits" not in moved
+                drains += 1
+        _same_tables(js, ts)
+        clock.advance(11)
+    if spy is not None:
+        assert [c for c in spy.calls if c[0] == "drain"] == \
+            [("drain", k) for _ in range(4) for k in (64, 3)]
+        assert drains == 8

@@ -7,6 +7,8 @@ kernels against their plain versions on the card); imports numpy only
 which has no JAX, can import it.
 """
 
+import weakref
+
 import numpy as np
 
 C = 4096
@@ -510,12 +512,16 @@ class SpyContext:
     read, remote rows, slots cleared, update entries)."""
 
     cuda = True
+    #: handle -> live spy, so that an entry point given a second handle
+    #: (B6b's remote context) finds its lanes
+    _live = weakref.WeakValueDictionary()
 
     def __init__(self, state,
                  capacity=(8000, 4000, 2666, 8000, 2666, 8000, 2000)):
         self.state = state
         self.capacity = capacity
-        self.handle = 1
+        self.handle = id(self)
+        SpyContext._live[self.handle] = self
         self.calls = []
         self.results = np.zeros((0, 2), np.int32)
 
@@ -567,11 +573,17 @@ class SpyContext:
 
     def drain_fn(self, handle, k):
         from limitador_tpu_torch.ops import kernel as K
+        from limitador_tpu_torch.parallel import mesh as M
 
-        assert handle and 1 <= k <= self.results.shape[0]
-        counts, slots = K.drain_top_hits_host_plain(self.state, k)
-        self.results[:k, 0] = counts
-        self.results[:k, 1] = slots
+        if self.state.hits.dim() == 1:
+            counts, slots = K.drain_top_hits_host_plain(self.state, k)
+        else:
+            counts, slots = M.sharded_drain_top_hits_host_plain(self.state,
+                                                                k)
+        n = counts.size
+        assert handle and 1 <= k and n <= self.results.shape[0]
+        self.results[:n, 0] = counts.reshape(-1)
+        self.results[:n, 1] = slots.reshape(-1)
         self.calls.append(("drain", k))
         return 0
 
@@ -582,6 +594,18 @@ class SpyContext:
         assert handle and rows.shape[0] == count
         M.sharded_update_host_plain(self.state, rows.copy(), now_ms)
         self.calls.append(("update", count))
+        return 0
+
+    def replicated_update_fn(self, handle, remote_handle, entries, count,
+                             now_ms):
+        from limitador_tpu_torch.ops import kernel as K
+
+        rows = np.frombuffer(entries, np.int32).reshape(-1, 5)
+        remote = SpyContext._live[remote_handle]
+        assert handle and rows.shape[0] == count
+        K.replicated_update_host_plain(self.state, remote.state.expiry_ms,
+                                       rows.copy(), now_ms)
+        self.calls.append(("replicated_update", count))
         return 0
 
     def seed_fn(self, handle, slots, values, expiry, n, padded):
