@@ -67,7 +67,16 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    pinned uploads, the device-tensor launch). B6b's host form
    (``replicated_update_host``: B7c's body on a replicated node's list
    with the remote TAT floor) the same way at 1, 2, 8, 64, 2000 and 2001
-   entries. B7d (one launch of B5's one-pass kernel over the rows, at
+   entries, and B2's (``update_host``: a storage's list, B7c's body on
+   the one-row table) at B7c's counts against B2's plain version on the
+   padded columns, beside the parent's path (pad to 8, pinned uploads,
+   update_batch with its workspace). B4c's host form (``credit_host``:
+   the broker's list by value, one thread an entry, staged past 2000)
+   at 1, 64, 1024, 1963 (phase 7b's largest settle), 2000, 2001 and
+   6000 entries with the edge rows, twice in a row on one context,
+   against its plain version on the padded columns and its plain twin,
+   beside the parent's path (pad, stack, pinned uploads, credit_batch).
+   B7d (one launch of B5's one-pass kernel over the rows, at
    the kernel's own blocks a row, 32 up to k = 256 and 16 past it, and
    forced to 32 and to 16; and its host form
    ``sharded_drain_top_hits_host``, the rows' answers in the context's
@@ -81,7 +90,8 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    answers Envoy ShouldRateLimit and Kuadrant CheckRateLimit/Report over a
    real channel, with a hot reload and an epoch rebase; every answer is
    held against the port's InMemoryStorage on the same sequence, and every
-   kernel of that path must have launched during the run.
+   kernel of that path must have launched during the run (B2 through its
+   host form only, update_host).
 5. A short drive: 8192-hit batches through TorchStorage.check_many over
    1M Zipf-0.99 keys, then one batch of 32,768 hits (past the cluster's
    capacity: the one-block B1); decisions per second of the 8192-hit
@@ -97,8 +107,9 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    (a) leases off, every row against serial order, then the usage
    observatory's top-64 against a host tally; (b) leases on, the
    over-admission bound and token conservation after every refresh, then
-   a forced settle through B4c and every user's device value against its
-   admitted count.
+   a forced settle through B4c's host form (credit_host, one launch) and
+   every user's device value against its admitted count; the credit rows
+   of every settle are printed.
 8. The replicated topology: (a) three TorchReplicatedStorage nodes on the
    card (capacity 1<<20 each, frozen clock) take 8192-hit batches in turn
    over 1M Zipf-0.99 users, a loopback broker completing the gossip
@@ -198,6 +209,13 @@ DRAIN_SMALL_C = 1 << 10
 # B7c's host form: Report sizes, and the parameter block's capacity
 # (2000 entries with nvcc 12.1 or later) and one past it
 UPDATE_HOST_COUNTS = (1, 2, 8, 64, 1999, 2000, 2001)
+# B2's host form runs the same counts as B7c's (an update_counter is one
+# entry); B4c's: the credit rows of phase 7b's largest settle
+# (CREDIT_SETTLE_ROWS, the shape of the JSON line; the phase prints its
+# settles' rows: 1,327, 1,963 and 89 on the H100, PERF.md §6), 1, 64,
+# 1024, the parameter block's capacity and past it
+CREDIT_SETTLE_ROWS = 1963
+CREDIT_HOST_COUNTS = (CREDIT_SETTLE_ROWS, 1, 64, 1024, 2000, 2001, 6000)
 # B6b's host form: a served node's Reports (one or two counters), and
 # the same capacity and one past it
 REPLICATED_HOST_COUNTS = (1, 2, 8, 64, 2000, 2001)
@@ -248,14 +266,18 @@ REPLACES = {
 # the shape each kernel sees on the main path, for the JSON line (B1: the
 # cluster at the drives' 8192 hits, the one block at the served paths'
 # 8 (it also takes phase 5's 32,768-hit batch); B3b: the host
-# form at a phase-8a flush; B4c: rows of a lease settle; B5: the host
+# form at a phase-8a flush; B4c: the host form at rows of a lease
+# settle; B5: the host
 # form at k of the default --usage-topk; B6c: rows of a phase-8a flush;
 # B4d: one promoted key; B4b: no caller, the whole column as B4a)
 MAIN_SHAPE = {
     "check_and_update": 8, "check_and_update_cluster": 8192,
-    "update": 8, "read_slots": 8, "clear_slots": "host/6600",
+    # B2: the host form at one entry (an update_counter, a one-counter
+    # Report; "host/8" beside it in the JSON line's host_forms)
+    "update": "host/1", "read_slots": 8, "clear_slots": "host/6600",
     "rebase_epoch": C + 1, "rebase_epoch_device": C + 1,
-    "credit": 1024, "seed_slots": 1, "drain_top_hits": "host/64",
+    "credit": f"host/{CREDIT_SETTLE_ROWS}", "seed_slots": 1,
+    "drain_top_hits": "host/64",
     # B6a: the cluster at phase 8a's 8192 hits, the one block at the
     # served nodes' 8 (phase 8b)
     "replicated_check": 8, "replicated_check_cluster": 8192,
@@ -295,19 +317,22 @@ PHASE8A_KERNELS = ("replicated_check_cluster", "apply_remote",
                    "read_slots", "clear_slots")
 PHASE8B_KERNELS = ("replicated_check", "replicated_update", "apply_remote",
                    "read_slots")
-PLAIN_KERNELS = ("check_and_update", "check_and_update_cluster", "update")
+PLAIN_KERNELS = ("check_and_update", "check_and_update_cluster", "update",
+                 "update_host")
 # tiers: evictions and demotions peek through B3a, promotions seed
 # through B4d; with leases, demotions settle through B4c
 PHASE9A_KERNELS = ("check_and_update_cluster", "read_slots", "seed_slots")
 PHASE9B_KERNELS = ("check_and_update", "read_slots", "seed_slots")
 PHASE9B_LEASE_KERNELS = PHASE9B_KERNELS + ("credit",)
 PHASE9B_SERVED_KERNELS = PHASE9B_KERNELS + ("drain_top_hits",)
-# B3a, B6c, B3b, B5, B6b, B7c and B7d count their host forms (the
-# storages' path) under keys of their own: a phase launched one when
-# either count moved, and no storage path (phases 4 and 6 to 10b)
+# B2, B3a, B4c, B6c, B3b, B5, B6b, B7c and B7d count their host forms
+# (the storages' path) under keys of their own: a phase launched one
+# when either count moved, and no storage path (phases 4 and 6 to 10b)
 # launches one through its device-tensor wrapper (_storage_forms,
 # _host_forms_only)
-HOST_FORMS = {"read_slots": "read_slots_host",
+HOST_FORMS = {"update": "update_host",
+              "credit": "credit_host",
+              "read_slots": "read_slots_host",
               "apply_remote": "apply_remote_host",
               "clear_slots": "clear_slots_host",
               "drain_top_hits": "drain_top_hits_host",
@@ -342,9 +367,9 @@ def _host_forms_only(run, label, remote):
 
 
 def _storage_forms(run, label, need=()):
-    """Fail unless every B3a, B6c, B3b, B5, B6b, B7c and B7d of the run
-    went through its host form, or if a host form in ``need`` did not
-    launch."""
+    """Fail unless every B2, B3a, B4c, B6c, B3b, B5, B6b, B7c and B7d of
+    the run went through its host form, or if a host form in ``need``
+    did not launch."""
     device = [name for name in HOST_FORMS if run[name]]
     if device:
         fail(f"{label}: launched through the device-tensor wrapper, not "
@@ -545,16 +570,18 @@ def _seed_rows(rng, H, n, now_ms):
             np.concatenate([expiry, np.zeros(pad, np.int32)]))
 
 
-def _credit_rows(rng, H, now_ms, base):
+def _credit_rows(rng, H, now_ms, base, n_real=None):
     """An H-row lease-credit batch over the 1<<20 table ``base`` (numpy
     columns, changed in place): unique slots from the Zipf head and tail,
-    live buckets a few intervals ahead, padding rows at the scratch row,
-    and the edge rows: an expired window, an expired bucket, a covering
-    credit, credit * interval beyond int32 (the wrap guard); the scratch
-    row starts non-zero."""
+    live buckets a few intervals ahead, padding rows at the scratch row
+    (an eighth of H, at least one, unless ``n_real`` rows are real), and
+    the edge rows first: an expired window, an expired bucket, a
+    covering credit, credit * interval beyond int32 (the wrap guard);
+    the scratch row starts non-zero."""
     values, expiry, _hits = base
     values[C], expiry[C] = 77, 12345
-    n_real = max(H - max(H // 8, 1), 1)
+    if n_real is None:
+        n_real = max(H - max(H // 8, 1), 1)
     slots = np.unique(zipf_keys(C, 4 * n_real, 0.99, rng))
     slots = rng.permutation(slots)[:n_real]
     if slots.size < n_real:
@@ -928,6 +955,8 @@ def phase_kernels(dev):
                device_ms=dms)
     exact = _replicated_update_host_forms(dev, rng, record, rbase, remote_np,
                                           lanes, now_ms) and exact
+    exact = _table_update_host_forms(dev, rng, record, base, base_np, lanes,
+                                     now_ms) and exact
 
     table = tables()
     stacked2 = torch.stack([table.values, table.expiry_ms])
@@ -1058,6 +1087,7 @@ def phase_kernels(dev):
         nbytes = _credit_bytes(cols, rows, [t.cpu().numpy() for t in tb],
                                now_ms)
         record("credit", H, err, ms, plain_ms, nbytes, device_ms=dms)
+    exact = _credit_host_forms(dev, rng, record, base, now_ms) and exact
     exact = _drain_kernels(dev, rng, record) and exact
     # B6c: the remote-sum scatter over unique slots
     lanes_base = tuple(torch.from_numpy(a).to(dev) for a in remote_np)
@@ -1238,6 +1268,192 @@ def _replicated_update_host_forms(dev, rng, record, rbase, remote_np,
                 })
         ctx.close()
     rctx.close()
+    return exact
+
+
+def _table_update_host_forms(dev, rng, record, base, base_np, lanes,
+                             now_ms):
+    """B2's host form (``update_host``: a storage's list of (0, slot,
+    delta, window, flags) entries by value, B7c's body on the one-row
+    table, no floor) against B2's plain version on the padded columns
+    (the JAX call's), at UPDATE_HOST_COUNTS entries: repeated cells
+    mixing buckets and windows, fresh cells, deltas at the caps and a
+    fresh entry after a non-fresh one on one cell at the parameter
+    block's capacity (2000; 2001: one staged copy, still one launch).
+    Each call timed from the list to the launched kernel beside the
+    parent's path for the same list (pad to the bucket, two pinned
+    uploads, ``update_batch`` with its workspace), the kernel alone by
+    the profiler, and the host time of an ``update_counter`` (one entry)
+    split into its steps. Returns whether every case was exact."""
+    import torch
+
+    from limitador_tpu_torch.ops import kernel as K
+
+    exact = True
+    for count in UPDATE_HOST_COUNTS:
+        entries = _update_entries(rng, count, lanes, min(count - 1, 2000),
+                                  n=1, L=C, G=1)
+        padded = [c[0] for c in _padded_update(entries, n=1, L=C)]
+        d_padded = [torch.from_numpy(a).to(dev) for a in padded]
+        ctx = _bound_ctx(K.CounterTableState(*(t.clone() for t in base)))
+        want = K.CounterTableState(*(t.clone() for t in base))
+        before = dict(K.launches)
+        K.update_host(ctx, entries, now_ms)
+        launched = {k: K.launches[k] - before[k] for k in before
+                    if K.launches[k] != before[k]}
+        K.update_plain(want, *d_padded, now_ms)
+        torch.cuda.synchronize()
+        err = _max_abs_err(list(zip(ctx.state, want)))
+        exact = exact and err == 0
+        if launched != {"update_host": 1}:
+            fail(f"B2 host form at {count} entries launched {launched}")
+
+        def call():
+            K.update_host(ctx, entries, now_ms)
+
+        def parent():
+            ints = np.stack(padded[:3])
+            flags = np.stack(padded[3:])
+            d_ints, d_flags = _pinned(dev, ints, flags)
+            K.update_batch(ctx.state, *d_ints, *d_flags, now_ms)
+
+        distinct = np.unique(entries[:, 1]).size
+        row = record(
+            "update", f"host/{count}", err, _median_ms(call),
+            _median_ms(lambda: K.update_host_plain(want, entries, now_ms),
+                       reps=5, warmup=1),
+            16 * count + 24 * distinct, None,
+            _device_ms(call, None, ("update_list_kernel",
+                                    "update_staged_kernel")),
+            _median_ms(parent))
+        if count == 1:
+            data, handle = entries.tobytes(), ctx.handle
+            one = tuple(int(x) for x in entries[0])
+
+            def pad_columns():  # the parent tree's update_counter staging
+                ints = np.zeros((3, 8), np.int32)
+                flags = np.zeros((2, 8), bool)
+                ints[0, :] = C
+                ints[:, 0] = one[1:4]
+                flags[:, 0] = (one[4] & 1, one[4] & 2)
+                return ints, flags
+
+            row["host_breakdown_us"] = _host_breakdown(
+                f"B2 host form, {count} entry", {
+                    "list from the counter's entry": lambda: np.asarray(
+                        [one], np.int32),
+                    "list as bytes": lambda: entries.tobytes(),
+                    "C call (list into the parameter block, launch)":
+                        lambda: ctx.update_fn(handle, data, count, now_ms),
+                    "the whole wrapper": call,
+                    "the parent's staging (pad to 8)": pad_columns,
+                    "the parent's path": parent,
+                })
+        ctx.close()
+    return exact
+
+
+def _credit_host_forms(dev, rng, record, base, now_ms):
+    """B4c's host form (``credit_host``: the lease broker's list of (0,
+    slot, credit, interval, bucket << 1) entries by value, one thread an
+    entry) against B4c's plain version on the padded columns (the JAX
+    call's), at CREDIT_HOST_COUNTS entries with the edge rows (an
+    expired window, an expired bucket, a covering credit, one short,
+    credit * interval beyond int32, a window floored at 0) and a dirty
+    scratch row: up to 2000 in the parameter block, past it one staged
+    copy, each twice in a row on one context. Each call timed from the
+    list to the launched kernel beside the parent's path for the same
+    columns (pad to the bucket, stack, two pinned uploads, the
+    device-tensor launch), the kernel alone by the profiler, and the
+    host time at the first count split into its steps. Returns whether
+    every case was exact."""
+    import torch
+
+    from limitador_tpu_torch.device.storage import _staged
+    from limitador_tpu_torch.ops import kernel as K
+
+    exact = True
+    for count in CREDIT_HOST_COUNTS:
+        H = max(8, 1 << (count - 1).bit_length())
+        cols = [t.cpu().numpy().copy() for t in base]
+        rows = _credit_rows(rng, H, now_ms, cols, n_real=count)
+        entries = np.zeros((count, 5), np.int32)
+        entries[:, 1], entries[:, 2], entries[:, 3] = (r[:count]
+                                                       for r in rows[:3])
+        entries[:, 4] = rows[3][:count].astype(np.int32) << 1
+        start = K.CounterTableState(*(torch.from_numpy(c).to(dev)
+                                      for c in cols))
+        d_rows = [torch.from_numpy(a).to(dev) for a in rows]
+        ctx = _bound_ctx(K.CounterTableState(*(t.clone() for t in start)))
+        want = K.CounterTableState(*(t.clone() for t in start))
+        twin = K.CounterTableState(*(t.clone() for t in start))
+        before = dict(K.launches)
+        for _turn in range(2):  # twice in a row: the staging buffer's reuse
+            K.credit_host(ctx, entries, now_ms, check_unique=True)
+            K.credit_plain(want, *d_rows, now_ms)
+            K.credit_host_plain(twin, entries, now_ms)
+        launched = {k: K.launches[k] - before[k] for k in before
+                    if K.launches[k] != before[k]}
+        torch.cuda.synchronize()
+        err = _max_abs_err(list(zip(ctx.state, want))
+                           + list(zip(ctx.state, twin)))
+        if int(ctx.state.values[C]) or int(ctx.state.expiry_ms[C]):
+            err = max(err, 1)
+        exact = exact and err == 0
+        if launched != {"credit_host": 2}:
+            fail(f"B4c host form at {count} entries launched {launched}")
+        after = K.CounterTableState(*(t.clone() for t in start))
+        K.credit_plain(after, *d_rows, now_ms)
+        nbytes = _credit_bytes(cols, tuple(r[:count] for r in rows),
+                               [t.cpu().numpy() for t in after], now_ms)
+
+        def restore():  # the starting cells, outside the timed range
+            for t, s0 in zip(ctx.state, start):
+                t.copy_(s0)
+            return (ctx,)
+
+        def call(c):
+            K.credit_host(c, entries, now_ms)
+
+        def parent(c):  # the parent tree's credit_columnar
+            ints = np.stack([_staged(rows[0][:count], H, C, np.int32),
+                             _staged(rows[1][:count], H, 0, np.int32),
+                             _staged(rows[2][:count], H, 0, np.int32)])
+            flags = _staged(rows[3][:count], H, False, bool)
+            d_ints, d_bucket = _pinned(dev, ints, flags)
+            K.credit_batch(c.state, *d_ints, d_bucket, now_ms)
+
+        row = record(
+            "credit", f"host/{count}", err, _median_ms(call, restore),
+            _median_ms(lambda t: K.credit_host_plain(t, entries, now_ms),
+                       lambda: (K.CounterTableState(
+                           *(t.clone() for t in start)),),
+                       reps=5, warmup=1),
+            nbytes, None,
+            _device_ms(call, restore, ("credit_list_kernel",
+                                       "credit_staged_kernel")),
+            _median_ms(parent, restore))
+        if count == CREDIT_HOST_COUNTS[0]:
+            data, handle = entries.tobytes(), ctx.handle
+            src = (rows[0][:count], rows[1][:count], rows[2][:count],
+                   rows[3][:count])
+
+            def to_list():  # as credit_columnar builds it
+                e = np.zeros((count, 5), np.int32)
+                e[:, 1], e[:, 2], e[:, 3] = src[:3]
+                e[:, 4] = np.asarray(src[3], np.int32) << 1
+                return e
+
+            row["host_breakdown_us"] = _host_breakdown(
+                f"B4c host form, {count} entries", {
+                    "list from the broker's columns": to_list,
+                    "list as bytes": lambda: entries.tobytes(),
+                    "C call (list into the parameter block, launch)":
+                        lambda: ctx.credit_fn(handle, data, count, now_ms),
+                    "the whole wrapper": lambda: call(ctx),
+                    "the parent's path": lambda: parent(ctx),
+                }, reps=500)
+        ctx.close()
     return exact
 
 
@@ -2261,7 +2477,8 @@ def _update_host_forms(dev, rng, record, base, base_np, lanes, now_ms):
                         [tuple(e) for e in entries.tolist()], np.int32),
                     "list as bytes": lambda: entries.tobytes(),
                     "C call (list into the parameter block, launch)":
-                        lambda: ctx.update_fn(handle, data, count, now_ms),
+                        lambda: ctx.sharded_update_fn(
+                            handle, data, count, now_ms),
                     "the whole wrapper": call,
                     "the parent's path": parent,
                 })
@@ -2811,9 +3028,9 @@ def phase_native_drive(dev, card, batches, leases, hits=8192,
     if pipeline.decide_many([_drive_blob(settle_user)]) != [ok]:
         fail(f"{label}: the settle probe was not admitted")
     clock.now += LeaseConfig().ttl_s + 1.0
-    credits_before = K.launches["credit"]
+    credits_before = K.launches["credit_host"]
     broker.refresh()
-    spent_credit = K.launches["credit"] - credits_before
+    spent_credit = K.launches["credit_host"] - credits_before
     settled = broker.stats()
     if settled["lease_outstanding_tokens"] != 0 or settled[
             "lease_granted_tokens"] != (settled["lease_admissions"]
@@ -4060,14 +4277,15 @@ def main() -> int:
                + _launched(served_sharded_launches, k) == 0]
     if missing:
         fail(f"kernels not launched on the sharded paths: {missing}")
-    # B5, B6b, B7c and B7d on the storages' paths: their host forms only
-    # (the observatory's drains in 6, 7, 10a and 10b, 8b's and 10b's
-    # Reports)
+    # B2, B4c, B5, B6b, B7c and B7d on the storages' paths: their host
+    # forms only (4's and 6's updates, 7b's settle, the observatory's
+    # drains in 6, 7, 10a and 10b, 8b's and 10b's Reports)
     for label, run, need in (
-            ("main path (4)", launches, ()),
+            ("main path (4)", launches, ("update_host",)),
             ("native main path (6)", native_launches,
-             ("drain_top_hits_host",)),
-            ("native drive (7)", drive_launches, ("drain_top_hits_host",)),
+             ("update_host", "drain_top_hits_host")),
+            ("native drive (7)", drive_launches,
+             ("credit_host", "drain_top_hits_host")),
             ("replication drive (8a)", repl_launches, ()),
             ("served replication (8b)", served_launches,
              ("replicated_update_host",)),

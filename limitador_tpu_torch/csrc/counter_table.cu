@@ -83,11 +83,15 @@
 // plus, for B7a's global variants, 8 bytes per row and distinct global
 // slot; latency, not bytes, keeps them above it, as for B1.
 //
-// B7b, B4d, B3a, B6c, B3b, B7c and B6b also take host lists by value
-// (ct_sharded_clear_host, ct_seed_slots_host, ct_read_slots_host,
+// B7b, B4d, B3a, B6c, B3b, B7c, B6b, B2 and B4c also take host lists by
+// value (ct_sharded_clear_host, ct_seed_slots_host, ct_read_slots_host,
 // ct_apply_remote_host, ct_clear_slots_host, ct_sharded_update_host,
-// ct_update_replicated_host, below): the storages' own lists ride in the
-// kernel's parameter block, through a context bound once per table.
+// ct_update_replicated_host, ct_update_host, ct_credit_host, below): the
+// storages' own lists ride in the kernel's parameter block, through a
+// context bound once per table. B2's host form is B7c's body on a table
+// of one row (update_list_kernel, no floor); B4c's is credit_kernel's
+// body, one thread an entry (credit_list_kernel); past one parameter
+// block both take the context's staging buffer, still one launch.
 // B3a's host form and B5's and B7d's (ct_drain_top_hits_host, on a
 // context of one row or of the sharded table's rows) answer into pinned
 // host memory that the context owns. The storages stage their B3b clears
@@ -96,8 +100,8 @@
 // Every entry point launches on the stream it is given (or its context's)
 // and returns cudaGetLastError() as an int; it allocates no device memory,
 // except a context's own buffers (ct_ctx_results, the staging rows of
-// ct_apply_remote_staged and of ct_sharded_update_host and
-// ct_update_replicated_host, the workspace of ct_drain_top_hits_host),
+// ct_apply_remote_staged and of the update and credit host forms, the
+// workspace of ct_drain_top_hits_host),
 // which grow on demand and die with it.
 
 #include <cooperative_groups.h>
@@ -1339,6 +1343,28 @@ __global__ void apply_remote_kernel(int32_t* __restrict__ remote_vals,
 // cells gathered and written back: about 29 bytes per row), 0.04 us at
 // H = 4096; the launch costs more than the work.
 
+// One credit row: credit c on cell s, interval (or window) w.
+__device__ __forceinline__ void credit_cell(int32_t* __restrict__ values,
+                                            int32_t* __restrict__ expiry,
+                                            int s, int32_t c, int32_t w,
+                                            bool is_bucket, int32_t now) {
+  const int32_t e = expiry[s];
+  if (is_bucket) {
+    if (e > now) {
+      // The TAT retreats by credit * interval, floored at now. The
+      // product is formed only when the credit covers fewer intervals
+      // than lie ahead, where it cannot wrap for a credit >= 0; XLA
+      // forms it on every row and discards it. wmul keeps even a
+      // negative credit's product equal to XLA's wrapping one.
+      const int32_t ival = imax(w, 1);
+      const int32_t ahead = imax(wsub(e, now), 0);
+      expiry[s] = c >= ahead / ival ? now : wsub(e, wmul(c, ival));
+    }
+  } else if (now < e) {
+    values[s] = imax(wsub(values[s], c), 0);
+  }
+}
+
 __global__ void credit_kernel(int32_t* __restrict__ values,
                               int32_t* __restrict__ expiry,
                               const int32_t* __restrict__ slots,
@@ -1354,21 +1380,7 @@ __global__ void credit_kernel(int32_t* __restrict__ values,
   for (int i = first; i < H; i += gridDim.x * blockDim.x) {
     const int s = slots[i];
     if (s == scratch) continue;
-    const int32_t e = expiry[s], c = credits[i];
-    if (bucket[i]) {
-      if (e > now) {
-        // The TAT retreats by credit * interval, floored at now. The
-        // product is formed only when the credit covers fewer intervals
-        // than lie ahead, where it cannot wrap for a credit >= 0; XLA
-        // forms it on every row and discards it. wmul keeps even a
-        // negative credit's product equal to XLA's wrapping one.
-        const int32_t ival = imax(windows[i], 1);
-        const int32_t ahead = imax(wsub(e, now), 0);
-        expiry[s] = c >= ahead / ival ? now : wsub(e, wmul(c, ival));
-      }
-    } else if (now < e) {
-      values[s] = imax(wsub(values[s], c), 0);
-    }
+    credit_cell(values, expiry, s, credits[i], windows[i], bucket[i], now);
   }
 }
 
@@ -2187,9 +2199,9 @@ struct Ctx {
   // B5's and B7d's host form: the header and each block's K best.
   void* drain_ws = nullptr;
   long long drain_ws_bytes = 0;
-  // B7c's and B6b's staged design: pinned [4, cap] entries, their device
-  // copy with the sort's scratch arrays, and the event guarding the
-  // pinned rows.
+  // The staged design of B7c's, B6b's, B2's and B4c's host forms: pinned
+  // [4, cap] entries, their device copy with the sort's scratch arrays,
+  // and the event guarding the pinned rows.
   int32_t* upd_stage = nullptr;
   int32_t* upd_dev = nullptr;
   int upd_cap = 0;
@@ -2344,8 +2356,9 @@ __global__ void remote_list_kernel(int32_t* __restrict__ remote_vals,
 // expiry lane: a bucket cell, by its segment's last entry's flag, starts
 // its advance from max(own TAT, or 0 when fresh; floor[cell]) before
 // max(., now), as update_core folds tat_floor_hook (ops/kernel.py:
-// 535-538); window cells never read it. B7c passes null: its cells
-// compute exactly what they did without the argument. B6b adds 4 B read
+// 535-538); window cells never read it. B7c and B2's host form (this
+// body on a one-row table) pass null: their cells compute exactly what
+// they did without the argument. B6b adds 4 B read
 // per distinct bucket cell.
 __device__ void update_entries(int32_t* __restrict__ values,
                                int32_t* __restrict__ expiry,
@@ -2497,6 +2510,44 @@ __global__ void update_staged_kernel(int32_t* __restrict__ values,
                  seg_sum, seg_fresh, seg_fresh + P);
 }
 
+// B4c's host form (credit_batch, ops/kernel.py:579-622): credit_kernel's
+// body from a list of (cell, credit, interval, flags) entries of a single
+// table, flags bit 1 bucket, one thread an entry, in the parameter block
+// (credit_list_kernel) or, past one block, in the context's staging
+// buffer (credit_staged_kernel). The list has no padding (no entry is the
+// scratch cell), and global thread 0 zeroes the scratch cell's value and
+// expiry, as credit_kernel does.
+template <int N>
+__global__ void credit_list_kernel(
+    int32_t* __restrict__ values, int32_t* __restrict__ expiry, int count,
+    int scratch, int32_t now, const __grid_constant__ UpdateList<N> list) {
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  if (first == 0) {
+    values[scratch] = 0;
+    expiry[scratch] = 0;
+  }
+  for (int i = first; i < count; i += gridDim.x * blockDim.x) {
+    credit_cell(values, expiry, list.cell[i], list.delta[i], list.window[i],
+                list.flags[i] & 2, now);
+  }
+}
+
+__global__ void credit_staged_kernel(int32_t* __restrict__ values,
+                                     int32_t* __restrict__ expiry, int count,
+                                     int scratch, int32_t now,
+                                     const int32_t* __restrict__ stage) {
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  if (first == 0) {
+    values[scratch] = 0;
+    expiry[scratch] = 0;
+  }
+  const size_t n = (size_t)count;
+  for (int i = first; i < count; i += gridDim.x * blockDim.x) {
+    credit_cell(values, expiry, stage[i], stage[n + i], stage[2 * n + i],
+                stage[3 * n + i] & 2, now);
+  }
+}
+
 // Bytes of update_entries' scratch arrays for a list of `count`.
 size_t update_scratch_bytes(int count) {
   return (size_t)next_pow2(count) * 24;
@@ -2540,6 +2591,19 @@ int launch_update_list(const Ctx& c, const int32_t* entries, int count,
   update_list_kernel<N><<<1, threads, smem, c.stream>>>(
       c.values, c.expiry, c.hits, c.rows, c.row_len, count, now, floor,
       list);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_credit_list(const Ctx& c, const int32_t* entries, int count,
+                       int32_t now) {
+  UpdateList<N> list;
+  if (!pack_updates(c, entries, count, list.cell, list.delta, list.window,
+                    list.flags)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  credit_list_kernel<N><<<grid_for(count), 256, 0, c.stream>>>(
+      c.values, c.expiry, count, c.row_len - 1, now, list);
   return (int)cudaGetLastError();
 }
 
@@ -3007,7 +3071,7 @@ void ct_ctx_destroy(void* ctx) {
 
 // Entries one launch carries: 0 all-rows slots, 1 (row, slot) pairs,
 // 2 seed rows, 3 slots read (B3a), 4 remote-share rows (B6c), 5 slots
-// cleared (B3b), 6 update entries (B7c, B6b).
+// cleared (B3b), 6 update and credit entries (B7c, B6b, B2, B4c).
 int ct_host_list_capacity(int kind) {
   switch (kind) {
     case 0:
@@ -3250,31 +3314,12 @@ int ct_drain_top_hits_host(void* ctx, int k) {
   return (int)cudaStreamSynchronize(c->stream);
 }
 
-// B7c and B6b from a host list: `count` entries (row, slot, delta,
-// window, flags), int32 each, flags bit 0 fresh and bit 1 bucket; 0 <=
-// row < rows and 0 <= slot < L (no padding, no scratch slot); `floor`
-// null (B7c) or B6b's remote expiry lane. One launch: up to
-// ct_host_list_capacity(6) entries ride in the parameter block; a longer
-// list is packed into the context's pinned staging buffer, copied to its
-// device buffer in one copy and run by one block there, so no cell's
-// entries are ever split between launches (in two launches a fresh entry
-// in the second would drop the first's delta, hits and bucket advance).
-// The event after the copy guards the pinned buffer.
-static int update_host(Ctx* c, const int32_t* entries, int count,
-                       int now_ms, const int32_t* floor) {
-  if (count == 0) return 0;
-  DeviceGuard guard(c->device);
-  constexpr int per = kListInts / 4;
-  const int32_t now = (int32_t)now_ms;
-  if (count <= 32) {
-    return launch_update_list<32>(*c, entries, count, now, floor);
-  }
-  if (count <= 128) {
-    return launch_update_list<128>(*c, entries, count, now, floor);
-  }
-  if (count <= per) {
-    return launch_update_list<per>(*c, entries, count, now, floor);
-  }
+// Packs `count` entries (row, slot, delta, window, flags) into the
+// context's pinned staging buffer as [4, count] columns and queues one
+// copy of them to its device buffer (upd_dev, with update_entries'
+// scratch arrays after the columns), both grown on demand. The event
+// after the copy guards the pinned buffer: the next staging waits for it.
+static int stage_updates(Ctx* c, const int32_t* entries, int count) {
   cudaError_t rc;
   if (c->upd_staged &&
       (rc = cudaEventSynchronize(c->upd_staged)) != cudaSuccess) {
@@ -3315,6 +3360,35 @@ static int update_host(Ctx* c, const int32_t* entries, int count,
       (rc = cudaEventRecord(c->upd_staged, c->stream)) != cudaSuccess) {
     return (int)rc;
   }
+  return 0;
+}
+
+// B7c, B6b and B2 from a host list: `count` entries (row, slot, delta,
+// window, flags), int32 each, flags bit 0 fresh and bit 1 bucket; 0 <=
+// row < rows and 0 <= slot < L (no padding, no scratch slot); `floor`
+// null (B7c, B2) or B6b's remote expiry lane. One launch: up to
+// ct_host_list_capacity(6) entries ride in the parameter block; a longer
+// list goes through the context's staging buffer (stage_updates) and is
+// run by one block there, so no cell's entries are ever split between
+// launches (in two launches a fresh entry in the second would drop the
+// first's delta, hits and bucket advance).
+static int update_host(Ctx* c, const int32_t* entries, int count,
+                       int now_ms, const int32_t* floor) {
+  if (count == 0) return 0;
+  DeviceGuard guard(c->device);
+  constexpr int per = kListInts / 4;
+  const int32_t now = (int32_t)now_ms;
+  if (count <= 32) {
+    return launch_update_list<32>(*c, entries, count, now, floor);
+  }
+  if (count <= 128) {
+    return launch_update_list<128>(*c, entries, count, now, floor);
+  }
+  if (count <= per) {
+    return launch_update_list<per>(*c, entries, count, now, floor);
+  }
+  const int rc = stage_updates(c, entries, count);
+  if (rc != 0) return rc;
   update_staged_kernel<<<1, 1024, 0, c->stream>>>(
       c->values, c->expiry, c->hits, c->rows, c->row_len, count, now, floor,
       c->upd_dev);
@@ -3345,6 +3419,40 @@ int ct_update_replicated_host(void* ctx, void* remote_ctx,
     return (int)cudaErrorInvalidValue;
   }
   return update_host(c, entries, count, now_ms, r->expiry);
+}
+
+// B2 from a host list on a single table (`ctx` of one row, row 0 in
+// every entry): update_host without a floor, which is B7c's body on that
+// row. A sharded context is refused, so that no B7c list reaches it.
+int ct_update_host(void* ctx, const int32_t* entries, int count,
+                   int now_ms) {
+  Ctx* c = (Ctx*)ctx;
+  if (!c || count < 0 || c->rows != 1) return (int)cudaErrorInvalidValue;
+  return update_host(c, entries, count, now_ms, nullptr);
+}
+
+// B4c from a host list on a single table: `count` entries (row 0, slot,
+// credit, interval, flags bit 1 bucket), unique slots in [0, L) (the
+// lease broker aggregates by slot). One launch on the context's stream:
+// up to ct_host_list_capacity(6) entries in the parameter block
+// (credit_list_kernel), a longer list through the staging buffer that
+// B7c's and B6b's long lists take (credit_staged_kernel).
+int ct_credit_host(void* ctx, const int32_t* entries, int count,
+                   int now_ms) {
+  Ctx* c = (Ctx*)ctx;
+  if (!c || count < 0 || c->rows != 1) return (int)cudaErrorInvalidValue;
+  if (count == 0) return 0;
+  DeviceGuard guard(c->device);
+  constexpr int per = kListInts / 4;
+  const int32_t now = (int32_t)now_ms;
+  if (count <= 32) return launch_credit_list<32>(*c, entries, count, now);
+  if (count <= 128) return launch_credit_list<128>(*c, entries, count, now);
+  if (count <= per) return launch_credit_list<per>(*c, entries, count, now);
+  const int rc = stage_updates(c, entries, count);
+  if (rc != 0) return rc;
+  credit_staged_kernel<<<grid_for(count), 256, 0, c->stream>>>(
+      c->values, c->expiry, count, c->row_len - 1, now, c->upd_dev);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -187,16 +187,12 @@ class TorchReplicatedStorage(TorchStorage):
         )
         return result
 
-    def _kernel_update(self, ints, flags, now_ms):
-        """B6b's host form: the staged columns without their padding
-        (scratch slots) as one list of (0, slot, delta, window, flags)
-        entries, through the table's and the remote lanes' current
-        contexts, after the remote flush queued on the same stream."""
+    def _kernel_update(self, entries, now_ms):
+        """B6b's host form on the storage's list of (0, slot, delta,
+        window, flags) entries, through the table's and the remote lanes'
+        current contexts, after the remote flush queued on the same
+        stream."""
         self._flush_dirty_remote()
-        real = ints[0] != self._scratch
-        entries = np.zeros((int(real.sum()), 5), np.int32)
-        entries[:, 1:4] = ints[:, real].T
-        entries[:, 4] = flags[0, real] | flags[1, real].astype(np.int32) << 1
         K.replicated_update_host(self._ctx, self._remote_ctx, entries,
                                  now_ms)
 

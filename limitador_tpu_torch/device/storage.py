@@ -31,7 +31,7 @@ that ``finish_check_many`` waits on.
 The native serving path (``device/native_pipeline.py``) stages its own
 kernel columns and enters through ``begin_check_columnar`` /
 ``finish_check_columnar``; the lease broker returns quota through
-``credit_columnar`` (the B4c kernel), and the usage observatory drains the
+``credit_columnar`` (B4c's host form), and the usage observatory drains the
 hit column through ``drain_hot_slots`` (B5 + B3a). The slot table fires
 ``on_native_release`` / ``on_slot_release`` on every slot release (LRU
 eviction, delete) and ``on_clear`` on a wholesale table swap, exactly
@@ -41,7 +41,10 @@ never keep a recycled slot.
 Every check launches through ``_kernel_check`` and every unconditional
 update (``update_counter``, the batched Report path ``apply_deltas``)
 through ``_kernel_update``, the dispatch points the replicated subclass
-(``device/replicated.py``) overrides. ``snapshot``, ``load_snapshot`` and
+(``device/replicated.py``) overrides. An update is a numpy list of
+(row, slot, delta, window, flags) entries (``_update_row``), one launch
+of B2's host form on the bound context: no padding, no upload, no
+workspace. ``snapshot``, ``load_snapshot`` and
 ``restore`` checkpoint the table and key space in the port's own format.
 """
 
@@ -771,15 +774,27 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         )
         return result
 
-    def _kernel_update(self, ints: np.ndarray, flags: np.ndarray,
-                       now_ms: int) -> None:
+    def _update_row(self, counter: Counter,
+                    delta: int) -> Tuple[int, int, int, int, int]:
+        """``counter``'s entry of an update list, its slot allocated:
+        (0, slot, delta capped at MAX_DELTA_CAP, window or emission
+        interval, flags bit 0 fresh and bit 1 bucket). Caller holds the
+        lock."""
+        slot, is_fresh = self._slot_for(counter, create=True)
+        win, is_bucket = self._lane_of(counter)
+        return (0, slot, min(int(delta), K.MAX_DELTA_CAP), win,
+                int(is_fresh) | int(is_bucket) << 1)
+
+    def _kernel_update(self, entries: np.ndarray, now_ms: int) -> None:
         """Unconditional-update dispatch point (``update_counter``,
-        ``apply_deltas``): uploads int32[3, H] slots, deltas, windows and
-        bool[2, H] fresh, bucket and launches B2. The replicated subclass
-        swaps in B6b, which folds the gossiped remote TAT floor into
-        bucket advances. Caller holds the lock, inside ``_on_device``."""
-        d_ints, d_flags = self._upload(ints, flags)
-        K.update_batch(self._state, *d_ints, *d_flags, now_ms)
+        ``apply_deltas``): one launch of B2's host form on the bound
+        context (``K.update_host``), the numpy int32 [count, 5] list of
+        ``_update_row`` entries in the order the JAX storage stages its
+        columns (each cell's bucket interval is its last entry's). The
+        replicated subclass swaps in B6b's host form, which folds the
+        gossiped remote TAT floor into bucket advances. Caller holds the
+        lock, inside ``_on_device``."""
+        K.update_host(self._ctx, entries, now_ms)
 
     def begin_check_many(self, requests: List[_Request]) -> _CheckHandle:
         """Build hit arrays and launch the kernel WITHOUT waiting for its
@@ -1045,27 +1060,24 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
 
     def credit_columnar(self, slots, credits, windows_ms, bucket) -> None:
         """Return unused leased quota to the table (the lease broker's
-        credit lane): one B4c launch, floored so a credit never creates
-        more headroom than a fresh cell. ``slots`` must be unique and
-        LIVE: the caller verifies slot->counter identity under this same
-        lock, because a recycled slot's credit would land on another
-        counter. Rows are padded to a pow2 bucket with inert scratch
-        rows."""
+        credit lane): one launch of B4c's host form, floored so a credit
+        never creates more headroom than a fresh cell. ``slots`` must be
+        unique and LIVE: the caller verifies slot->counter identity under
+        this same lock, because a recycled slot's credit would land on
+        another counter. The columns become one (0, slot, credit,
+        interval, bucket << 1) list, unpadded."""
         n = int(slots.shape[0])
         if n == 0:
             return
-        H = _bucket(n)
-        ints = np.stack([
-            _staged(slots, H, self._scratch, np.int32),
-            _staged(credits, H, 0, np.int32),
-            _staged(windows_ms, H, 0, np.int32),
-        ])
-        flags = _staged(bucket, H, False, bool)
+        entries = np.zeros((n, 5), np.int32)
+        entries[:, 1] = slots
+        entries[:, 2] = credits
+        entries[:, 3] = windows_ms
+        entries[:, 4] = np.asarray(bucket, np.int32) << 1
         with self._lock:
             now_ms = self._now_ms()
             with self._on_device():
-                d_ints, d_bucket = self._upload(ints, flags)
-                K.credit_batch(self._state, *d_ints, d_bucket, now_ms)
+                K.credit_host(self._ctx, entries, now_ms)
 
     def pad_hits(self, arrays: Tuple[np.ndarray, ...], nhits: int):
         """Pad (slots, deltas, maxes, windows, req_ids, fresh[, bucket])
@@ -1205,16 +1217,10 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
                 cell.update(int(delta), counter.window_seconds, self._clock())
                 self._on_big_write(key)
                 return
-            slot, is_fresh = self._slot_for(counter, create=True)
-            H = _bucket(1)
-            ints = np.zeros((3, H), np.int32)
-            flags = np.zeros((2, H), bool)
-            ints[0, :] = self._scratch
-            win, is_bucket = self._lane_of(counter)
-            ints[:, 0] = (slot, min(int(delta), K.MAX_DELTA_CAP), win)
-            flags[:, 0] = (is_fresh, is_bucket)
+            entries = np.asarray([self._update_row(counter, delta)],
+                                 np.int32)
             with self._on_device():
-                self._kernel_update(ints, flags, now_ms)
+                self._kernel_update(entries, now_ms)
 
     def check_and_update(
         self, counters: List[Counter], delta: int, load_counters: bool
@@ -1312,21 +1318,14 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
                 else:
                     dev_items.append((i, counter, delta))
             if dev_items:
-                n = len(dev_items)
-                H = _bucket(n)
-                ints = np.zeros((3, H), np.int32)
-                flags = np.zeros((2, H), bool)
-                ints[0, :] = self._scratch
-                for k, (_i, counter, delta) in enumerate(dev_items):
-                    slot, is_fresh = self._slot_for(counter, create=True)
-                    win, is_bucket = self._lane_of(counter)
-                    ints[:, k] = (slot, min(int(delta), K.MAX_DELTA_CAP), win)
-                    flags[:, k] = (is_fresh, is_bucket)
+                entries = np.asarray(
+                    [self._update_row(counter, delta)
+                     for _i, counter, delta in dev_items], np.int32)
                 with self._on_device():
-                    self._kernel_update(ints, flags, now_ms)
-                values, ttls = self._read(ints[0, :n], now_ms)
+                    self._kernel_update(entries, now_ms)
+                values, ttls = self._read(entries[:, 1], now_ms)
                 for k, (i, counter, _delta) in enumerate(dev_items):
-                    if flags[1, k]:
+                    if entries[k, 4] & 2:
                         value = spent_tokens(
                             counter.max_value, counter.window_seconds,
                             int(ttls[k]),

@@ -1,7 +1,7 @@
 """LeaseBroker: sizes, grants, reclaims and settles quota leases.
 
 Port counterpart of ``limitador_tpu/lease/broker.py``. Credits go through
-``TorchStorage.credit_columnar``, the B4c CUDA kernel on the card.
+``TorchStorage.credit_columnar``, B4c's host form on the card.
 
 One broker per native pipeline (the mirror it feeds is per pipeline
 context). The hot path never sees this module: token consumption runs

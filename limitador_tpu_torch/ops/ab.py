@@ -54,14 +54,24 @@ calls after 5 of warm-up), the inputs made from one numpy seed:
   the card: one Report of 1, 2 and 8 token-bucket counters whose remote
   TAT (a peer's spend, gossiped before) floors their advance
   (``b6b_path_1_ms``, ``b6b_path_2_ms``, ``b6b_path_8_ms``), the answers
-  checked against the same node on the CPU.
+  checked against the same node on the CPU;
+- B2 through the tree's own ``TorchStorage`` on the card: one
+  ``update_counter`` of a token bucket (``b2_path_1_ms``, until the
+  launch is queued) and one ``apply_deltas`` of 8 counters, windows and
+  buckets (``b2_path_8_ms``, the update and the read of the cells), the
+  answers checked against the same storage on the CPU;
+- B4c through the tree's own ``TorchStorage.credit_columnar`` on the
+  card: a settle's 1024 unique rows, half of them buckets
+  (``b4c_path_ms``, until the launch is queued), the table checked
+  against the same credit on the CPU.
 
 The storage paths are timed on the host clock (``perf_counter_ns``,
-median of 500, 200, 20, 200, 500, 200 and 500 calls, the card idle
-before each): B3a's path ends with the answers on the host, B6c's once
-the kernel is queued, B3b's with the read's answers, B5's and B7d's with
-the records and B7c's and B6b's with the answers (after the update and
-the read of the cells).
+median of 500, 200, 20, 200, 500, 200, 500 and 500 calls, the card idle
+before each): B3a's path ends with the answers on the host, B6c's, B2's
+``update_counter`` and B4c's once the kernel is queued, B3b's with the
+read's answers, B5's and B7d's with the records and B7c's, B6b's and
+B2's ``apply_deltas`` with the answers (after the update and the read of
+the cells).
 
 A "path" time is the tree's own main path from the host list: the host
 form (the list in the kernel's parameter block) where the tree has it,
@@ -502,6 +512,44 @@ for size in (1, 2, 8):
         lambda: nodes[0].apply_deltas(items), reps=500)
     for n_ in nodes:
         n_.close()
+
+# B2 and B4c through the single table's own storage paths: update_counter
+# of one counter, apply_deltas of 8 (the update and the read of the
+# cells), credit_columnar of a settle's 1024 unique rows
+stores = [TorchStorage(capacity=C, clock=lambda: 1000.0, device=d)
+          for d in (dev, "cpu")]
+win_limit = Limit("ab", 1 << 20, 60, [], ["u"])
+tb_limit = Limit("ab", 1000, 60, [], ["u"], policy="token_bucket")
+one = Counter(tb_limit, {"u": "one"})
+eight = [(Counter((win_limit, tb_limit)[i % 2], {"u": f"r{i}"}), 1 + i % 3)
+         for i in range(8)]
+answers = []
+for s_ in stores:
+    s_.update_counter(one, 2)
+    answers.append([s_.apply_deltas(eight) for _ in range(3)])
+exact = exact and answers[0] == answers[1]
+times["b2_path_1_ms"] = host_ms(lambda: stores[0].update_counter(one, 1),
+                                reps=500)
+times["b2_path_8_ms"] = host_ms(lambda: stores[0].apply_deltas(eight),
+                                reps=500)
+credit_slots = rng.choice(C, 1024, replace=False).astype(np.int32)
+credit_cols = (credit_slots, rng.integers(0, 300, 1024).astype(np.int32),
+               rng.integers(1, 5000, 1024).astype(np.int32),
+               rng.random(1024) < 0.5)
+for s_ in stores:
+    with s_._lock:
+        for t, b in zip(s_._state, base):
+            t.copy_(b)
+torch.cuda.synchronize()  # the copies ran on this thread's stream
+for s_ in stores:
+    s_.credit_columnar(*credit_cols)
+torch.cuda.synchronize()
+exact = exact and all(torch.equal(a.cpu(), b) for a, b in zip(
+    stores[0]._state, stores[1]._state))
+times["b4c_path_ms"] = host_ms(lambda: stores[0].credit_columnar(
+    *credit_cols), reps=500)
+for s_ in stores:
+    s_.close()
 print(json.dumps({"tree": sys.argv[1], "host_forms": host, "exact": exact,
                   **times}))
 '''

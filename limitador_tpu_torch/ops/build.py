@@ -91,6 +91,8 @@ _SIGNATURES = {
     "ct_drain_top_hits_host": (_I, [_P, _I]),
     "ct_sharded_update_host": (_I, [_P, _P, _I, _I]),
     "ct_update_replicated_host": (_I, [_P, _P, _P, _I, _I]),
+    "ct_update_host": (_I, [_P, _P, _I, _I]),
+    "ct_credit_host": (_I, [_P, _P, _I, _I]),
 }
 
 #: what the last build or load did: path, seconds, ptxas resource lines

@@ -25,21 +25,22 @@ Each kernel has three parts here:
 - ``launches[name]``: a plain integer, incremented by the wrapper each time
   it launches its CUDA kernel (never by the plain version).
 
-Seven kernels also take host lists through a ``TableContext`` bound
+Nine kernels also take host lists through a ``TableContext`` bound
 once per table (their "host forms", the storages' main path): B4d
 ``seed_slots_host``, B7b ``sharded_clear_cells_host`` and B7c
 ``sharded_update_host`` (both in ``parallel/mesh.py``), B3a
 ``read_slots_host``, B6c ``apply_remote_host``, B3b
-``clear_slots_host`` and B6b ``replicated_update_host`` (B7c's body
+``clear_slots_host``, B6b ``replicated_update_host`` (B7c's body
 with the remote TAT floor read through the node's remote-lane
-context); B5's host form, ``drain_top_hits_host``, and B7d's,
+context), B2 ``update_host`` (B7c's body on a one-row table) and B4c
+``credit_host``; B5's host form, ``drain_top_hits_host``, and B7d's,
 ``sharded_drain_top_hits_host`` (``parallel/mesh.py``), take only k and
-answer, as B3a's does, into the context's mapped host buffer. B3a's,
-B6c's, B3b's, B5's, B6b's, B7c's and B7d's host forms count their
-launches under keys of their own (``read_slots_host``,
-``apply_remote_host``, ``clear_slots_host``, ``drain_top_hits_host``,
-``replicated_update_host``, ``sharded_update_host``,
-``sharded_drain_top_hits_host``), so a run shows which form its path
+answer, as B3a's does, into the context's mapped host buffer. Every
+host form but B4d's counts its launches under a key of its own
+(``read_slots_host``, ``apply_remote_host``, ``clear_slots_host``,
+``drain_top_hits_host``, ``replicated_update_host``,
+``sharded_update_host``, ``sharded_drain_top_hits_host``,
+``update_host``, ``credit_host``), so a run shows which form its path
 took.
 
 B1 and B6a each have two CUDA kernels, chosen by the batch's hit count H
@@ -84,6 +85,8 @@ __all__ = [
     "CLUSTER_MAX_HITS",
     "update_batch",
     "update_plain",
+    "update_host",
+    "update_host_plain",
     "read_slots",
     "read_slots_plain",
     "read_slots_host",
@@ -98,6 +101,8 @@ __all__ = [
     "rebase_epoch_plain",
     "credit_batch",
     "credit_plain",
+    "credit_host",
+    "credit_host_plain",
     "seed_slots",
     "seed_slots_plain",
     "seed_slots_host",
@@ -145,6 +150,7 @@ launches = {
     "check_and_update": 0,  # B1, one block (check_kernel)
     "check_and_update_cluster": 0,  # B1, a cluster (check_cluster_kernel)
     "update": 0,
+    "update_host": 0,  # B2's host form
     "read_slots": 0,
     "read_slots_host": 0,  # B3a's host form
     "clear_slots": 0,
@@ -152,6 +158,7 @@ launches = {
     "rebase_epoch": 0,  # B4a, rebase_epoch_chunked
     "rebase_epoch_device": 0,  # B4b, rebase_epoch
     "credit": 0,
+    "credit_host": 0,  # B4c's host form
     "seed_slots": 0,
     "drain_top_hits": 0,
     "drain_top_hits_host": 0,  # B5's host form
@@ -237,11 +244,30 @@ def _require_host(a: np.ndarray, name: str, n: int) -> None:
 
 
 def _require_entries(entries: np.ndarray) -> None:
-    """B7c's and B6b's host lists: numpy int32 [count, 5]."""
+    """The update and credit host lists (B7c, B6b, B2, B4c): numpy int32
+    [count, 5]."""
     if entries.dtype != np.int32 or entries.ndim != 2 or \
             entries.shape[1] != 5:
         raise ValueError("entries: expected a numpy int32 [count, 5] list "
                          "of (row, slot, delta, window, flags)")
+
+
+def _require_table_entries(entries: np.ndarray, c1: int) -> None:
+    """A host list on a single table of ``c1`` cells: row 0 and slots in
+    [0, c1 - 1) (the scratch cell is refused: a host list has no
+    padding), as the C entry points refuse them."""
+    rows, slots = entries[:, 0], entries[:, 1]
+    if (rows != 0).any() or ((slots < 0) | (slots >= c1 - 1)).any():
+        raise ValueError(f"entries: rows must be 0 and slots in "
+                         f"[0, {c1 - 1})")
+
+
+def _entry_columns(entries: np.ndarray, device):
+    """(slots, deltas, windows, fresh, bucket) tensors of a host list."""
+    cols = [torch.from_numpy(np.ascontiguousarray(entries[:, j])).to(device)
+            for j in range(1, 5)]
+    flags = cols[3]
+    return cols[0], cols[1], cols[2], (flags & 1).bool(), (flags & 2).bool()
 
 
 class TableContext:
@@ -249,26 +275,29 @@ class TableContext:
     B4d, ``seed_slots_host``, of B7b, ``sharded_clear_cells_host``, of
     B7c, ``sharded_update_host``, of B3a, ``read_slots_host``, of B6c,
     ``apply_remote_host``, of B3b, ``clear_slots_host``, of B6b,
-    ``replicated_update_host``, and of B5 and B7d,
-    ``drain_top_hits_host`` and ``sharded_drain_top_hits_host``).
+    ``replicated_update_host``, of B2, ``update_host``, of B4c,
+    ``credit_host``, and of B5 and B7d, ``drain_top_hits_host`` and
+    ``sharded_drain_top_hits_host``).
 
     On the card the three columns are checked here, once, and bound with
     the stream (the storage's own) in a C context, ``ct_ctx_create``; a
     launch through it passes the handle and numpy lists and makes no
     torch call. The C context also owns the answer buffer of B3a, B5
     and B7d (pinned host memory mapped for the card, ``results`` its
-    numpy view), B5's and B7d's workspace and B7c's and B6b's staging
-    buffers, freed with it. On the CPU it holds the table, and the host
-    forms run their plain versions on it. A storage makes one whenever
-    it takes or replaces its table, and closes the one it replaces: a
-    context must never outlive the table it points at, so it keeps the
-    table. Calls through one context are serialised by its owner (the
-    storage's lock): they share the answer buffer."""
+    numpy view), B5's and B7d's workspace and the staging buffers of
+    the update and credit host forms, freed with it. On the CPU it holds
+    the table, and the host forms run their plain versions on it. A
+    storage makes one whenever it takes or replaces its table, and
+    closes the one it replaces: a context must never outlive the table
+    it points at, so it keeps the table. Calls through one context are
+    serialised by its owner (the storage's lock): they share the answer
+    buffer."""
 
     __slots__ = ("state", "cuda", "handle", "capacity", "clear_fn",
                  "seed_fn", "read_fn", "remote_fn", "staged_fn",
-                 "clear_slots_fn", "drain_fn", "update_fn",
-                 "replicated_update_fn", "results",
+                 "clear_slots_fn", "drain_fn", "sharded_update_fn",
+                 "replicated_update_fn", "update_fn", "credit_fn",
+                 "results",
                  "_results_fn", "_destroy")
     _NO_RESULTS = np.zeros((0, 2), np.int32)
 
@@ -307,13 +336,15 @@ class TableContext:
         self.staged_fn = lib.ct_apply_remote_staged
         self.clear_slots_fn = lib.ct_clear_slots_host
         self.drain_fn = lib.ct_drain_top_hits_host
-        self.update_fn = lib.ct_sharded_update_host
+        self.sharded_update_fn = lib.ct_sharded_update_host
         self.replicated_update_fn = lib.ct_update_replicated_host
+        self.update_fn = lib.ct_update_host
+        self.credit_fn = lib.ct_credit_host
         self._results_fn = lib.ct_ctx_results
         #: entries one launch carries: all-rows slots, pairs, seed rows,
         #: slots read (B3a), remote-share rows (B6c), slots cleared (B3b),
-        #: update entries (B7c, B6b; a longer list is staged, still one
-        #: launch)
+        #: update and credit entries (B7c, B6b, B2, B4c; a longer list is
+        #: staged, still one launch)
         self.capacity = tuple(lib.ct_host_list_capacity(k) for k in range(7))
 
     def reserve(self, n: int) -> np.ndarray:
@@ -747,6 +778,50 @@ def update_batch(
     return state
 
 
+def update_host_plain(state: CounterTableState, entries: np.ndarray,
+                      now_ms) -> CounterTableState:
+    """Plain twin of ``update_host``: ``update_plain`` over the list's
+    entries in list order (an empty list changes nothing, as on the
+    card). In place."""
+    _require_entries(entries)
+    if entries.shape[0] == 0:
+        return state
+    _require_table_entries(entries, state.values.shape[0])
+    return update_plain(
+        state, *_entry_columns(entries, state.values.device), now_ms)
+
+
+def update_host(ctx: TableContext, entries: np.ndarray,
+                now_ms) -> CounterTableState:
+    """``update_batch`` from a storage's host list, on ``ctx.state`` in
+    place: ``entries`` is a numpy int32 [count, 5] list of (row, slot,
+    delta, window, flags) entries, row 0, flags bit 0 fresh and bit 1
+    bucket, in the order the JAX call's columns hold them (its padding
+    entries, the scratch slot, are left out: they change nothing but the
+    scratch cell, which every update leaves at 0). Each cell's bucket
+    interval is its last entry's in list order, as the JAX call's stable
+    sort leaves it. On the card one C call, one launch on the context's
+    stream (``ct_update_host``, which refuses a context of more than one
+    row): B7c's body on the one row, the list in the kernel's parameter
+    block up to ``ctx.capacity[6]`` entries and past it in one staged
+    copy, never split. No padding, no upload, no tensor, no
+    workspace."""
+    if not ctx.cuda:
+        return update_host_plain(ctx.state, entries, now_ms)
+    _require_entries(entries)
+    now = _now(now_ms)
+    if not ctx.handle:
+        raise RuntimeError("update_host: the launch context is closed")
+    count = entries.shape[0]
+    if count == 0:
+        return ctx.state
+    rc = ctx.update_fn(ctx.handle, entries.tobytes(), count, now)
+    if rc:
+        build.check(rc, "ct_update_host")
+    launches["update_host"] += 1
+    return ctx.state
+
+
 # -- B3: reads and clears ----------------------------------------------------
 
 
@@ -1025,6 +1100,51 @@ def credit_batch(
     ), "ct_credit")
     launches["credit"] += 1
     return state
+
+
+def credit_host_plain(state: CounterTableState, entries: np.ndarray,
+                      now_ms) -> CounterTableState:
+    """Plain twin of ``credit_host``: ``credit_plain`` over the list's
+    columns (an empty list changes nothing, as on the card). In
+    place."""
+    _require_entries(entries)
+    if entries.shape[0] == 0:
+        return state
+    _require_table_entries(entries, state.values.shape[0])
+    slots, credits, windows, _fresh, bucket = _entry_columns(
+        entries, state.values.device)
+    return credit_plain(state, slots, credits, windows, bucket, now_ms)
+
+
+def credit_host(ctx: TableContext, entries: np.ndarray, now_ms,
+                check_unique: bool = False) -> CounterTableState:
+    """``credit_batch`` from the lease broker's host list, on
+    ``ctx.state`` in place: ``entries`` is a numpy int32 [count, 5] list
+    of (row, slot, credit, interval, flags) entries, row 0, flags bit 1
+    bucket (bit 0 unused), unique slots (the broker aggregates by slot;
+    ``check_unique`` verifies it on the host, for tests). The JAX call
+    pads to a pow2 bucket with scratch rows, which change nothing but
+    the scratch cell, which every credit leaves at 0. On the card one C
+    call, one launch on the context's stream (``ct_credit_host``): one
+    thread an entry, the list in the kernel's parameter block up to
+    ``ctx.capacity[6]`` entries and past it in one staged copy. No
+    padding, no upload, no tensor."""
+    _require_entries(entries)
+    if check_unique and np.unique(entries[:, 1]).size != entries.shape[0]:
+        raise ValueError("credit_host: duplicate slots")
+    if not ctx.cuda:
+        return credit_host_plain(ctx.state, entries, now_ms)
+    now = _now(now_ms)
+    if not ctx.handle:
+        raise RuntimeError("credit_host: the launch context is closed")
+    count = entries.shape[0]
+    if count == 0:
+        return ctx.state
+    rc = ctx.credit_fn(ctx.handle, entries.tobytes(), count, now)
+    if rc:
+        build.check(rc, "ct_credit_host")
+    launches["credit_host"] += 1
+    return ctx.state
 
 
 # -- B4d: tier promotion seed ------------------------------------------------
@@ -1375,14 +1495,6 @@ def replicated_update_batch(
     return state
 
 
-def _entry_columns(entries: np.ndarray, device):
-    """(slots, deltas, windows, fresh, bucket) tensors of a host list."""
-    cols = [torch.from_numpy(np.ascontiguousarray(entries[:, j])).to(device)
-            for j in range(1, 5)]
-    flags = cols[3]
-    return cols[0], cols[1], cols[2], (flags & 1).bool(), (flags & 2).bool()
-
-
 def replicated_update_host_plain(state: CounterTableState,
                                  remote_exp: torch.Tensor,
                                  entries: np.ndarray,
@@ -1393,11 +1505,7 @@ def replicated_update_host_plain(state: CounterTableState,
     _require_entries(entries)
     if entries.shape[0] == 0:
         return state
-    c1 = state.values.shape[0]
-    rows, slots = entries[:, 0], entries[:, 1]
-    if (rows != 0).any() or ((slots < 0) | (slots >= c1 - 1)).any():
-        raise ValueError(f"entries: rows must be 0 and slots in "
-                         f"[0, {c1 - 1})")
+    _require_table_entries(entries, state.values.shape[0])
     return replicated_update_plain(
         state, remote_exp, *_entry_columns(entries, state.values.device),
         now_ms)

@@ -526,7 +526,8 @@ def sharded_update_host(ctx: K.TableContext, entries: np.ndarray,
     count = entries.shape[0]
     if count == 0:
         return ctx.state
-    rc = ctx.update_fn(ctx.handle, entries.tobytes(), count, now)
+    rc = ctx.sharded_update_fn(ctx.handle, entries.tobytes(), count,
+                               now)
     if rc:
         build.check(rc, "ct_sharded_update_host")
     K.launches["sharded_update_host"] += 1

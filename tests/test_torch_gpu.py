@@ -28,6 +28,7 @@ from .torch_batches import (
     batch,
     check_case,
     credit_batch,
+    credit_list,
     dirty_scratch,
     divergent_lean_batch,
     hits_column,
@@ -1400,3 +1401,173 @@ def test_replicated_update_host_form_refuses_mismatched_contexts(cuda):
     _equal(ka, _state(tab, cuda))
     for c in (ctx, short, rows, good):
         c.close()
+
+
+# -- B2's and B4c's host forms ------------------------------------------------
+
+
+@pytest.mark.parametrize("count", [1, 2, 8, 33, 129, 2000, 2001])
+def test_update_host_form_matches_plain(cuda, count):
+    """B2 from a host list (one launch: the parameter block up to its
+    capacity, one staged copy past it) against B2's plain version on the
+    padded columns and against the host form's plain twin: repeated
+    cells mixing buckets and windows, fresh cells, deltas at and past
+    the caps, a fresh entry after a non-fresh one on one cell at the
+    capacity's boundary; three rounds on one context."""
+    rng = np.random.default_rng(970 + count)
+    now_ms = 5_000_000
+    slot_lanes = lanes(rng, C)
+    tab = table(rng, now_ms, slot_lanes)
+    ka, pb, pc = (_state(tab, cuda) for _ in range(3))
+    ctx = K.TableContext(ka, torch.cuda.current_stream(cuda))
+    for _round in range(3):
+        entries = update_entries(rng, count, 1, C, 1, slot_lanes,
+                                 straddle=min(count - 1, 2000))
+        before = dict(K.launches)
+        K.update_host(ctx, entries, now_ms)
+        assert K.launches["update_host"] == before["update_host"] + 1
+        assert K.launches["update"] == before["update"]
+        cols = [torch.from_numpy(c[0]).to(cuda)
+                for c in padded_update_columns(entries, 1, C)]
+        K.update_plain(pb, *cols, now_ms)
+        K.update_host_plain(pc, entries, now_ms)
+        torch.cuda.synchronize()
+        _equal(ka, pb)
+        _equal(ka, pc)
+        now_ms += int(rng.choice([0, 500, 61_000]))
+    ctx.close()
+
+
+def test_update_host_form_refuses_a_sharded_context(cuda):
+    """``ct_update_host`` takes a single table: an 8-row context, the
+    scratch slot, a negative slot and row 1 raise; the tables are left
+    as they were."""
+    tab = tuple(np.ones(C + 1, np.int32) for _ in range(3))
+    rows_tab = tuple(np.ones((8, 65), np.int32) for _ in range(3))
+    ka, kb = _state(tab, cuda), _sharded(rows_tab, cuda)
+    stream = torch.cuda.current_stream(cuda)
+    ctx, rows = K.TableContext(ka, stream), K.TableContext(kb, stream)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        K.update_host(rows, np.asarray([[0, 3, 1, 1000, 0]], np.int32), 0)
+    for bad in ([0, C, 1, 1000, 0], [0, -1, 1, 1000, 0], [1, 3, 1, 1000, 0]):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            K.update_host(ctx, np.asarray([[0, 2, 1, 1000, 0], bad],
+                                          np.int32), 0)
+    torch.cuda.synchronize()
+    _equal(ka, _state(tab, cuda))
+    _equal(kb, _sharded(rows_tab, cuda))
+    ctx.close()
+    rows.close()
+
+
+@pytest.mark.parametrize("count", [1, 9, 1024, 2000, 2001, 4000])
+def test_credit_host_form_matches_plain(cuda, count):
+    """B4c from the broker's host list (one launch: the parameter block up
+    to its capacity, one staged copy past it) against B4c's plain
+    version on the padded columns and against the host form's plain
+    twin, with the edge rows (an expired window and bucket, a credit
+    covering exactly, one short, credit x interval past int32, a window
+    floored at 0, negative credits) and a dirty scratch cell."""
+    rng = np.random.default_rng(990 + count)
+    now_ms = 5_000_000
+    tab, entries, rows = credit_list(rng, count, now_ms)
+    ka, pb, pc = (_state(tab, cuda) for _ in range(3))
+    ctx = K.TableContext(ka, torch.cuda.current_stream(cuda))
+    before = dict(K.launches)
+    K.credit_host(ctx, entries, now_ms, check_unique=True)
+    assert K.launches["credit_host"] == before["credit_host"] + 1
+    assert K.launches["credit"] == before["credit"]
+    K.credit_plain(pb, *(torch.from_numpy(a).to(cuda) for a in rows),
+                   now_ms)
+    K.credit_host_plain(pc, entries, now_ms)
+    torch.cuda.synchronize()
+    _equal(ka, pb)
+    _equal(ka, pc)
+    assert int(ka.values[-1]) == int(ka.expiry_ms[-1]) == 0
+    ctx.close()
+
+
+def test_staged_credits_in_a_row_on_one_context(cuda):
+    """Two staged credit lists (past one parameter block) in a row on one
+    context, then a staged update and a third staged credit: the
+    staging buffer's reuse keeps every launch exact against the plain
+    twins."""
+    rng = np.random.default_rng(997)
+    now_ms = 5_000_000
+    slot_lanes = lanes(rng, C)
+    tab = table(rng, now_ms, slot_lanes)
+    ka, pb = _state(tab, cuda), _state(tab, cuda)
+    ctx = K.TableContext(ka, torch.cuda.current_stream(cuda))
+    for step, count in enumerate((2001, 3000, 2500, 4000)):
+        if step == 2:
+            entries = update_entries(rng, count, 1, C, 1, slot_lanes)
+            K.update_host(ctx, entries, now_ms)
+            K.update_host_plain(pb, entries, now_ms)
+        else:
+            slots = rng.choice(C, count, replace=False).astype(np.int32)
+            entries = np.zeros((count, 5), np.int32)
+            entries[:, 1] = slots
+            entries[:, 2] = rng.integers(-3, 300, count)
+            entries[:, 3] = rng.integers(1, 5000, count)
+            entries[:, 4] = (rng.random(count) < 0.5).astype(np.int32) << 1
+            K.credit_host(ctx, entries, now_ms)
+            K.credit_host_plain(pb, entries, now_ms)
+        now_ms += 700
+    torch.cuda.synchronize()
+    _equal(ka, pb)
+    ctx.close()
+
+
+def test_storage_updates_and_credits_through_the_host_forms(cuda):
+    """On the card ``update_counter``, ``apply_deltas`` and
+    ``credit_columnar`` launch B2's and B4c's host forms, one launch a
+    call, never ``update_batch`` or ``credit_batch``, and leave the table
+    the CPU storage leaves."""
+    from limitador_tpu_torch.core.counter import Counter
+
+    class Clock:
+        now = 1_700_000_000.0
+
+        def __call__(self):
+            return self.now
+
+    clock = Clock()
+    stores = [TorchStorage(capacity=256, clock=clock, device=dev)
+              for dev in (cuda, "cpu")]
+    win = Limit("ns", 40, 60, [], ["u"], name="win")
+    tb = Limit("ns", 9, 60, [], ["u"], name="tb", policy="token_bucket")
+    rng = np.random.default_rng(13)
+    before = dict(K.launches)
+    calls = 0
+    for step in range(60):
+        items = [(Counter((win, tb)[int(rng.integers(0, 2))],
+                          {"u": str(rng.integers(0, 6))}),
+                  int(rng.integers(0, 4)))
+                 for _ in range((1, 2, 8)[step % 3])]
+        if step % 4 == 0:
+            for st in stores:
+                st.update_counter(*items[0])
+        else:
+            got = [st.apply_deltas(items) for st in stores]
+            assert got[0] == got[1], step
+        calls += 1
+        if step % 10 == 9:
+            slots, credits, wins, bucket = [], [], [], []
+            for slot, (_key, counter) in stores[0]._table.info.items():
+                slots.append(slot)
+                credits.append(int(rng.integers(0, 3)))
+                wins.append(stores[0]._lane_of(counter)[0])
+                bucket.append(stores[0]._lane_of(counter)[1])
+            for st in stores:
+                st.credit_columnar(np.asarray(slots, np.int32),
+                                   np.asarray(credits, np.int32),
+                                   np.asarray(wins, np.int32),
+                                   np.asarray(bucket, bool))
+        clock.now += float(rng.choice([0.0, 0.5, 7.0]))
+    assert K.launches["update_host"] == before["update_host"] + calls
+    assert K.launches["credit_host"] == before["credit_host"] + 6
+    for name in ("update", "credit"):
+        assert K.launches[name] == before[name], name
+    _equal(stores[0]._state, stores[1]._state)
+    for st in stores:
+        st.close()

@@ -5,7 +5,7 @@ The lease corpus of ``tests/test_native_lane_fuzz.py`` (fuzz seeds 6 and 7,
 by hand on a manual clock) runs through both packages' native pipelines:
 the response bytes of every row, ``broker.stats()`` after every refresh and
 the tables after a forced settle must be equal (tolerance: exact; the port
-settles through its B4c credit kernel's plain version here). Then the lease
+settles through its B4c host form's plain twin here). Then the lease
 contract of ``tests/test_lease.py`` on the port alone: device usage equals
 admitted plus outstanding, a settle collapses to the exact admitted count,
 grants never exceed the remaining headroom, and tiny limits are never
@@ -205,8 +205,10 @@ def test_settle_collapses_to_exact_oracle_state():
     assert stats["lease_granted_tokens"] == (
         stats["lease_admissions"] + stats["lease_returned_tokens"]
     )
-    # on the CPU the credit ran the plain version: no CUDA launch
+    # on the CPU the credit ran the plain version: no CUDA launch, in
+    # either form
     assert K.launches["credit"] == 0
+    assert K.launches["credit_host"] == 0
 
 
 def test_grants_never_exceed_remaining_headroom():

@@ -158,17 +158,20 @@ def check_case(rng, H, kind, now_ms):
                                     bucket)
 
 
-def credit_batch(rng, H, now_ms, n_slots=C):
+def credit_batch(rng, H, now_ms, n_slots=C, n_real=None):
     """A table and an H-row credit batch (unique slots, padding rows at
     the scratch row) with the edge rows of the lease credit: an expired
     window, an expired bucket, a covering credit, a credit whose
     credit * interval exceeds int32 (the wrap guard), negative credits,
-    and a scratch row that starts non-zero."""
+    and a scratch row that starts non-zero. ``n_real`` real rows (by
+    default an eighth of H, at least one, is padding); the edge rows come
+    first."""
     values = rng.integers(0, 200, C + 1).astype(np.int32)
     expiry = rng.integers(0, 2 * now_ms, C + 1).astype(np.int32)
     hits = rng.integers(0, 1000, C + 1).astype(np.int32)
     values[C], expiry[C], hits[C] = 77, 12345, 9  # garbage in scratch
-    n_real = max(H - max(H // 8, 1), 1)
+    if n_real is None:
+        n_real = max(H - max(H // 8, 1), 1)
     slots = rng.choice(n_slots, n_real, replace=False).astype(np.int32)
     credits = rng.integers(0, 300, n_real).astype(np.int32)
     windows = rng.integers(1, 5000, n_real).astype(np.int32)
@@ -206,6 +209,21 @@ def credit_batch(rng, H, now_ms, n_slots=C):
             np.concatenate([bucket, np.zeros(pad, bool)]),
         ),
     )
+
+
+def credit_list(rng, count, now_ms):
+    """``credit_batch`` as the lease broker hands it to B4c's host form:
+    (table, entries, rows), ``entries`` the int32 [count, 5] list of (0,
+    slot, credit, interval, bucket << 1) entries (the edge rows first,
+    unpadded) and ``rows`` the same credits as the JAX call's columns,
+    padded to a pow2 bucket of 8 at least with scratch rows."""
+    H = max(8, 1 << (count - 1).bit_length())
+    tbl, rows = credit_batch(rng, H, now_ms, n_real=count)
+    entries = np.zeros((count, 5), np.int32)
+    for j in range(3):
+        entries[:, j + 1] = rows[j][:count]
+    entries[:, 4] = rows[3][:count].astype(np.int32) << 1
+    return tbl, entries, rows
 
 
 #: B5's adversarial columns beside the traffic-shaped ones
@@ -523,6 +541,8 @@ class SpyContext:
         self.handle = id(self)
         SpyContext._live[self.handle] = self
         self.calls = []
+        #: the lists B2's and B4c's entry points were given, as arrays
+        self.lists = []
         self.results = np.zeros((0, 2), np.int32)
 
     @staticmethod
@@ -587,13 +607,33 @@ class SpyContext:
         self.calls.append(("drain", k))
         return 0
 
-    def update_fn(self, handle, entries, count, now_ms):
+    def sharded_update_fn(self, handle, entries, count, now_ms):
         from limitador_tpu_torch.parallel import mesh as M
 
         rows = np.frombuffer(entries, np.int32).reshape(-1, 5)
         assert handle and rows.shape[0] == count
         M.sharded_update_host_plain(self.state, rows.copy(), now_ms)
         self.calls.append(("update", count))
+        return 0
+
+    def update_fn(self, handle, entries, count, now_ms):
+        from limitador_tpu_torch.ops import kernel as K
+
+        rows = np.frombuffer(entries, np.int32).reshape(-1, 5).copy()
+        assert handle and rows.shape[0] == count
+        K.update_host_plain(self.state, rows, now_ms)
+        self.calls.append(("table_update", count))
+        self.lists.append(rows)
+        return 0
+
+    def credit_fn(self, handle, entries, count, now_ms):
+        from limitador_tpu_torch.ops import kernel as K
+
+        rows = np.frombuffer(entries, np.int32).reshape(-1, 5).copy()
+        assert handle and rows.shape[0] == count
+        K.credit_host_plain(self.state, rows, now_ms)
+        self.calls.append(("credit", count))
+        self.lists.append(rows)
         return 0
 
     def replicated_update_fn(self, handle, remote_handle, entries, count,
