@@ -168,6 +168,25 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    through their host forms only (10a's and 10b's drains through
    sharded_drain_top_hits_host); both phases print
    B7a's calls by route, variant and shape.
+11. The HTTP API on the card: server.start with torch --device cuda
+   --capacity 1<<20 --usage-topk 64 --limit-name-in-labels and a
+   one-label CEL --metric-labels map, beside a memory server with the same
+   options, on one frozen clock; 2,000 sequential HTTP calls to each
+   through http.client with keep-alive (60% POST /check_and_report, half
+   with draft-03 headers, 20% /check, 20% /report; users Zipf-0.99 over
+   1<<20 ids; 5 a minute per user, fixed window, and 3 per 10 s per
+   (user, route of 16), token bucket; a hot reload that drops the bucket
+   at call 1,000): every status and X-RateLimit header equal to the memory
+   server's, /counters equal, the authorized_calls, authorized_hits and
+   limited_calls samples equal, the occupancy gauge equal to
+   device_stats(), /debug/top?k=64 equal to a host tally of hits; B1,
+   update_host, read_slots_host and drain_top_hits_host launched and no
+   device-tensor B2, B3a or B5; p50 and p99 by route. The servers of
+   phases 4, 6, 8b, 9b and 10b serve HTTP too: after 6's drive
+   native_lane_rows equals lane_stats()["hits"]; after 9b's the lease_*
+   families keep granted = admissions + returned + outstanding,
+   tier_resident equals tier_stats() and /debug/tiering answers 200;
+   after 10b's sharded_launches by variant equals the storage's tally.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -352,6 +371,76 @@ SHARDED_KERNELS = ("sharded_check_and_update",
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def _http_options():
+    """(--http-host/--http-port options on a free local port, the port):
+    every server of this script serves the HTTP API beside gRPC."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return ["--http-host", "127.0.0.1", "--http-port", str(port)], port
+
+
+def _http_get(port, path):
+    """(status, body) of one GET, from a thread off the servers' loop."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+async def _served_get(port, path):
+    status, body = await asyncio.get_running_loop().run_in_executor(
+        None, _http_get, port, path)
+    if status != 200:
+        fail(f"GET {path} on port {port} answered {status}")
+    return body
+
+
+async def _served_metrics(port):
+    """The /metrics families of the server on ``port``, by name."""
+    from prometheus_client.parser import text_string_to_metric_families
+
+    text = (await _served_get(port, "/metrics")).decode()
+    return {f.name: f for f in text_string_to_metric_families(text)}
+
+
+def _histogram(families, name):
+    """count, mean ms and the upper bucket edges (ms) holding the 50th
+    and 99th percentile of a latency histogram's samples."""
+    fam = families[name]
+    count = [s.value for s in fam.samples if s.name == name + "_count"][0]
+    total = [s.value for s in fam.samples if s.name == name + "_sum"][0]
+    buckets = sorted((float(s.labels["le"]), s.value) for s in fam.samples
+                     if s.name == name + "_bucket")
+
+    def edge(q):
+        return next((le * 1e3 for le, n in buckets if n >= q * count),
+                    None)
+
+    return {"count": int(count),
+            "mean_ms": total / count * 1e3 if count else None,
+            "p50_le_ms": edge(0.5), "p99_le_ms": edge(0.99)}
+
+
+def _metric(families, name, **labels):
+    """The sum of a family's samples (counter totals) with ``labels``."""
+    return sum(s.value for s in families[name].samples
+               if s.name in (name, name + "_total")
+               and all(s.labels.get(k) == v for k, v in labels.items()))
+
+
+def _registry_total(metrics, family):
+    """The sum of a counter family's samples in a PrometheusMetrics."""
+    return int(sum(s.value for m in metrics.registry.collect()
+                   if m.name == family for s in m.samples
+                   if s.name == family + "_total"))
 
 
 def _launched(run, name):
@@ -2682,13 +2771,14 @@ async def _main_path(tmpdir, dev, native=False):
     K.reset_launches()
     t0 = time.perf_counter()
     tier_failures = []  # a usage drain or lease refresh that raised
+    gpu_http, gpu_http_port = _http_options()
     gpu = await server.start(parse(
-        [limits, "torch", *options, *device_options,
+        [limits, "torch", *options, *device_options, *gpu_http,
          "--rls-port", str(ports[0])]), clock=clock,
         on_failure=tier_failures.append)
     oracle = await server.start(parse(
-        [limits, "memory", *options, "--rls-port", str(ports[1])]),
-        clock=clock)
+        [limits, "memory", *options, *_http_options()[0],
+         "--rls-port", str(ports[1])]), clock=clock)
     answers = mismatches = 0
     try:
         async with grpc.aio.insecure_channel(f"127.0.0.1:{ports[0]}") as gc, \
@@ -2739,6 +2829,13 @@ async def _main_path(tmpdir, dev, native=False):
                   f"p50 "
                   f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
                   f"{np.percentile(lat_ms, 99):.3f} ms over {lat_ms.size}")
+            # the layers of the served call: the MetricsLayer's
+            # should_rate_limit aggregate of datastore spans, and the
+            # batcher's queue-excluded device round trip
+            families = await _served_metrics(gpu_http_port)
+            for hist in ("datastore_latency", "datastore_device_latency"):
+                print(f"{label} /metrics {hist}: "
+                      f"{json.dumps(_histogram(families, hist))}")
             if native:
                 # the observatory drains every 0.25 s; wait for one more
                 drains = gpu.observatory.tenant_usage()["drains"]
@@ -2749,8 +2846,15 @@ async def _main_path(tmpdir, dev, native=False):
                     await asyncio.sleep(0.05)
                 print(f"{label} usage top-3: "
                       f"{[(r['namespace'], r['key'], r['hits']) for r in gpu.observatory.top(3)]}")
-                print(f"{label} hot lane: "
-                      f"{json.dumps(gpu.native_pipeline.lane_stats())}")
+                lane = gpu.native_pipeline.lane_stats()
+                print(f"{label} hot lane: {json.dumps(lane)}")
+                rows = _metric(await _served_metrics(gpu_http_port),
+                               "native_lane_rows")
+                if rows != lane["hits"] or rows == 0:
+                    fail(f"{label}: /metrics native_lane_rows {rows} != "
+                         f"lane_stats hits {lane['hits']}")
+                print(f"{label}: /metrics native_lane_rows {int(rows)} "
+                      "equals the hot lane's hits")
             final = {}
             for name, srv in (("gpu", gpu), ("oracle", oracle)):
                 got = {}
@@ -2912,6 +3016,7 @@ def phase_native_drive(dev, card, batches, leases, hits=8192,
     from limitador_tpu_torch.device.native_pipeline import NativeRlsPipeline
     from limitador_tpu_torch.device.pipeline import CompiledTorchLimiter
     from limitador_tpu_torch.lease import LeaseConfig
+    from limitador_tpu_torch.observability.metrics import PrometheusMetrics
     from limitador_tpu_torch.observability.usage import (
         TenantUsageObservatory,
     )
@@ -2928,7 +3033,10 @@ def phase_native_drive(dev, card, batches, leases, hits=8192,
     limiter = CompiledTorchLimiter(AsyncTorchStorage(storage))
     limiter.add_limit(Limit("drive", max_value, 3600, [],
                             ["descriptors[0].u"], name="per-user"))
-    pipeline = NativeRlsPipeline(limiter, max_batch=hits, hot_lane=True)
+    # the rows count into the metrics, as a server's pipeline counts them
+    metrics = PrometheusMetrics()
+    pipeline = NativeRlsPipeline(limiter, metrics=metrics, max_batch=hits,
+                                 hot_lane=True)
     broker = None
     if leases:
         broker = pipeline.attach_lease(LeaseConfig(), autostart=False)
@@ -2985,6 +3093,12 @@ def phase_native_drive(dev, card, batches, leases, hits=8192,
         f"{k} {v / batches * 1e3:.2f} ms/batch"
         for k, v in list(spent.items()) + [("other", other)]))
     print(f"{label} hot lane: {json.dumps(pipeline.lane_stats())}")
+    counted = {family: _registry_total(metrics, family)
+               for family in ("authorized_calls", "limited_calls")}
+    if counted != {"authorized_calls": int(admitted.sum()),
+                   "limited_calls": n - int(admitted.sum())}:
+        fail(f"{label}: the metrics counted {counted}, the drive admitted "
+             f"{int(admitted.sum())} of {n}")
     per_user = np.bincount(keys, weights=admitted, minlength=capacity)
     if not leases:
         order = np.argsort(keys, kind="stable")
@@ -3295,7 +3409,8 @@ async def _served_replication(tmpdir, dev, card, calls=2000, users=50,
             peers = [a for j, a in enumerate(gossip) if j != i]
             nodes.append(await server.start(parse([
                 limits, "torch", "--device", dev.type, "--rls-host",
-                "127.0.0.1", "--rls-port", str(ports[i]), "--node-id",
+                "127.0.0.1", *_http_options()[0],
+                "--rls-port", str(ports[i]), "--node-id",
                 f"node{i}", "--listen-address", gossip[i], "--peer",
                 peers[0], "--peer", peers[1]])))
         envoy = "/envoy.service.ratelimit.v3.RateLimitService/" \
@@ -3610,9 +3725,11 @@ async def _served_tiers(tmpdir, dev, card, leases, calls=2000, users=600,
     parse = server.build_parser().parse_args
     clock = ManualClock()
     failures = []
+    http, http_port = _http_options()
     argv = [limits, "torch", "--device", dev.type, "--rls-host", "127.0.0.1",
-            "--rls-port", str(ports[0]), "--tier-mode", "on", "--pipeline",
-            "native", "--cache-size", "256", "--tier-migrate-interval", "0.2"]
+            *http, "--rls-port", str(ports[0]), "--tier-mode", "on",
+            "--pipeline", "native", "--cache-size", "256",
+            "--tier-migrate-interval", "0.2"]
     if leases:
         argv += ["--lease-mode", "on"]
     argv += list(extra)
@@ -3624,8 +3741,9 @@ async def _served_tiers(tmpdir, dev, card, leases, calls=2000, users=600,
     oracle = None
     if not leases:
         oracle = await server.start(parse(
-            [limits, "memory", "--rls-host", "127.0.0.1", "--rls-port",
-             str(ports[1])]), clock=clock)
+            [limits, "memory", "--rls-host", "127.0.0.1",
+             *_http_options()[0], "--rls-port", str(ports[1])]),
+            clock=clock)
     reclaimed = [0]
     broker = tiered.native_pipeline.lease_broker
     if broker is not None:
@@ -3665,9 +3783,36 @@ async def _served_tiers(tmpdir, dev, card, leases, calls=2000, users=600,
         # let a last round run after the drive
         await asyncio.sleep(0.5)
         manager = tiered.tier_manager
+        # nothing migrates, grants or settles between the reads below
+        manager.close()
+        if broker is not None:
+            broker.close()
         mstats = manager.stats()
         tstats = tiered.storage.tier_stats()
         lstats = broker.stats() if broker is not None else None
+        families = await _served_metrics(http_port)
+        tiering = json.loads(await _served_get(http_port, "/debug/tiering"))
+        served = {tier: _metric(families, "tier_resident", tier=tier)
+                  for tier in ("device", "cold")}
+        if served != {"device": tstats["device_resident"],
+                      "cold": tstats["cold"]["resident"]} \
+                or tiering["device_resident"] != tstats["device_resident"]:
+            fail(f"{label}: tier_resident {served} or /debug/tiering "
+                 f"differs from tier_stats {tstats}")
+        if broker is not None:
+            got = {k: _metric(families, k) for k in (
+                "lease_granted_tokens", "lease_admissions",
+                "lease_returned_tokens", "lease_outstanding_tokens")}
+            if got["lease_granted_tokens"] != (
+                    got["lease_admissions"] + got["lease_returned_tokens"]
+                    + got["lease_outstanding_tokens"]) \
+                    or got["lease_granted_tokens"] == 0:
+                fail(f"{label}: the lease_* families break conservation: "
+                     f"{got}")
+            print(f"{label}: /metrics lease_* keep granted = admissions "
+                  f"+ returned + outstanding: {json.dumps(got)}")
+        print(f"{label}: /metrics tier_resident {json.dumps(served)} "
+              "equals tier_stats(); /debug/tiering answers 200")
     finally:
         await tiered.stop()
         if oracle is not None:
@@ -4121,14 +4266,15 @@ async def _served_sharded(tmpdir, dev, card, calls=2000, users=300):
     clock = ManualClock()
     failures = []
     K.reset_launches()
+    http, http_port = _http_options()
     sharded = await server.start(parse(
         [limits, "sharded", "--device", dev.type, "--global-namespaces",
          "tenants", "--pipeline", "compiled", "--usage-drain-interval",
-         "0.25", "--rls-host", "127.0.0.1", "--rls-port", str(ports[0])]),
-        clock=clock, on_failure=failures.append)
+         "0.25", "--rls-host", "127.0.0.1", *http, "--rls-port",
+         str(ports[0])]), clock=clock, on_failure=failures.append)
     oracle = await server.start(parse(
-        [limits, "memory", "--rls-host", "127.0.0.1", "--rls-port",
-         str(ports[1])]), clock=clock)
+        [limits, "memory", "--rls-host", "127.0.0.1", *_http_options()[0],
+         "--rls-port", str(ports[1])]), clock=clock)
     rng = np.random.default_rng(88)
     who = zipf_keys(users, calls, 0.99, rng).tolist()
     items = rng.integers(0, 8, calls).tolist()
@@ -4183,6 +4329,14 @@ async def _served_sharded(tmpdir, dev, card, calls=2000, users=300):
             await asyncio.sleep(0.05)
         top = sharded.observatory.top(3)
         variants = sharded.storage.launch_stats()["sharded_launches"]
+        families = await _served_metrics(http_port)
+        served = {v: _metric(families, "sharded_launches", variant=v)
+                  for v in variants}
+        if served != variants:
+            fail(f"served sharded: /metrics sharded_launches {served} != "
+                 f"the storage's tally {variants}")
+        print(f"served sharded: /metrics sharded_launches by variant "
+              f"equals the storage's tally")
     finally:
         await sharded.stop()
         await oracle.stop()
@@ -4207,6 +4361,274 @@ async def _served_sharded(tmpdir, dev, card, calls=2000, users=300):
         "seconds": seconds, "p50_ms": float(np.percentile(lat_ms, 50)),
         "p99_ms": float(np.percentile(lat_ms, 99)),
         "global_mismatches": global_mismatches, "variants": variants,
+    }
+
+
+# -- phase 11 ---------------------------------------------------------------
+
+HTTP_CALLS = 2000
+HTTP_YAML = """\
+- namespace: web
+  max_value: 5
+  seconds: 60
+  variables: ["descriptors[0].user"]
+  name: per-user
+- namespace: web
+  max_value: 3
+  seconds: 10
+  variables: ["descriptors[0].user", "descriptors[0].route"]
+  policy: token_bucket
+  name: per-route
+"""
+# the reload at call 1,000 drops the token bucket
+HTTP_RELOADED_YAML = """\
+- namespace: web
+  max_value: 5
+  seconds: 60
+  variables: ["descriptors[0].user"]
+  name: per-user
+"""
+HTTP_LABELS = "{'route': descriptors[0].route}"
+
+
+def _same_http_answer(got, want) -> bool:
+    """Same status, body and X-RateLimit headers; X-RateLimit-Reset
+    within 1 s (the device counts whole milliseconds, the memory server
+    float seconds), as ``_same_answer`` holds the gRPC answers."""
+    (gs, gh, gb), (ws, wh, wb) = got, want
+    if (gs, gb) != (ws, wb) or [k for k, _v in gh] != [k for k, _v in wh]:
+        return False
+    for (key, g), (_key, w) in zip(gh, wh):
+        if key.lower() == "x-ratelimit-reset":
+            if abs(int(g) - int(w)) > 1:
+                return False
+        elif g != w:
+            return False
+    return True
+
+
+def _counters_by_identity(body):
+    """A ``/counters`` body as {(limit, set_variables): (remaining,
+    expires_in_seconds)}: its order sorts on the expiry too, so two
+    servers a second apart list the same counters in other orders."""
+    return {
+        (json.dumps(c["limit"], sort_keys=True),
+         json.dumps(c["set_variables"], sort_keys=True)):
+        (c["remaining"], c["expires_in_seconds"])
+        for c in body
+    }
+
+
+def _counters_differ(got, want):
+    """The counters of two ``/counters`` bodies that differ: any but
+    ``expires_in_seconds`` (whole seconds, truncated) within 1 s."""
+    g, w = _counters_by_identity(got), _counters_by_identity(want)
+    out = []
+    for key in sorted(g.keys() | w.keys()):
+        a, b = g.get(key), w.get(key)
+        if a is None or b is None or a[0] != b[0] or (a[1] is None) != (
+                b[1] is None) or (a[1] is not None and abs(a[1] - b[1]) > 1):
+            out.append((key, a, b))
+    return out
+
+
+def _http_calls(conns, calls, lat):
+    """Send each (path, body) of ``calls`` to every connection of
+    ``conns`` in turn (http.client, keep-alive); returns per call the
+    answers (status, X-RateLimit-* headers, body), and appends the first
+    connection's seconds per call to ``lat`` by path."""
+    out = []
+    headers = {"Content-Type": "application/json"}
+    for path, body in calls:
+        answers = []
+        for i, conn in enumerate(conns):
+            t0 = time.perf_counter()
+            conn.request("POST", path, body, headers)
+            resp = conn.getresponse()
+            data = resp.read()
+            if i == 0:
+                lat.setdefault(path, []).append(time.perf_counter() - t0)
+            answers.append((resp.status, sorted(
+                (k, v) for k, v in resp.getheaders()
+                if k.lower().startswith("x-ratelimit")), data))
+        out.append(answers)
+    return out
+
+
+async def _http_api(tmpdir, dev, card, calls=HTTP_CALLS):
+    """Phase 11: the HTTP API of ``server.start`` with torch --device
+    cuda --capacity 1<<20 --usage-topk 64 --limit-name-in-labels and a
+    one-label --metric-labels map, beside a memory server with the same
+    options, on one frozen clock (5 ms a call, 61 s at call 1,500).
+    2,000 sequential calls to each through http.client with keep-alive:
+    60% POST /check_and_report (half with draft-03 headers), 20% /check,
+    20% /report, users Zipf-0.99 over 1<<20 ids, routes of 16; the
+    limits file's token bucket is dropped at call 1,000. Every answer
+    must equal the memory server's, and so must /counters/web and the
+    authorized_calls, authorized_hits and limited_calls samples; the
+    occupancy gauge must equal device_stats() and /debug/top?k=64 a host
+    tally of hits (one drain, at the request: the observatory's interval
+    is longer than the drive)."""
+    import http.client
+
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server import __main__ as server
+
+    label = "HTTP API (11)"
+    limits = os.path.join(tmpdir, "http.yaml")
+    with open(limits, "w") as f:
+        f.write(HTTP_YAML)
+    parse = server.build_parser().parse_args
+    clock = ManualClock()
+    failures = []
+    common = ["--rls-host", "127.0.0.1", "--limit-name-in-labels",
+              "--metric-labels", HTTP_LABELS, "--usage-topk", "64",
+              "--usage-drain-interval", "3600"]
+    ports = {}
+    servers = {}
+    rng = np.random.default_rng(111)
+    users = zipf_keys(1 << 20, calls, 0.99, rng).tolist()
+    routes = rng.integers(0, 16, calls).tolist()
+    kinds = rng.random(calls).tolist()
+    drafts = (rng.random(calls) < 0.5).tolist()
+    plan = []
+    tally = {}
+    for i in range(calls):
+        values = {"user": f"u{users[i]}", "route": f"r{routes[i]}"}
+        body = {"namespace": "web", "values": values, "delta": 1}
+        if kinds[i] < 0.6:
+            path = "/check_and_report"
+            if drafts[i]:
+                body["response_headers"] = "DRAFT_VERSION_03"
+        else:
+            path = "/check" if kinds[i] < 0.8 else "/report"
+        if path != "/check":
+            # one kernel hit on the per-user counter (B1 or B2's host form)
+            tally[users[i]] = tally.get(users[i], 0) + 1
+        plan.append((path, json.dumps(body)))
+    K.reset_launches()
+    try:
+        for name, storage, extra in (
+                ("gpu", "torch", ["--device", dev.type, "--capacity",
+                                  str(C)]),
+                ("memory", "memory", [])):
+            http_opts, ports[name] = _http_options()
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                rls = sock.getsockname()[1]
+            servers[name] = await server.start(parse(
+                [limits, storage, *extra, *common, *http_opts,
+                 "--rls-port", str(rls)]), clock=clock,
+                on_failure=failures.append)
+        gpu, memory = servers["gpu"], servers["memory"]
+        conns = [http.client.HTTPConnection("127.0.0.1", ports[n],
+                                            timeout=60)
+                 for n in ("gpu", "memory")]
+        loop = asyncio.get_running_loop()
+        lat = {}
+        answers = []
+        t0 = time.perf_counter()
+        for lo, hi in ((0, calls // 2), (calls // 2, calls)):
+            if lo:
+                with open(limits, "w") as f:
+                    f.write(HTTP_RELOADED_YAML)
+                st = os.stat(limits)
+                os.utime(limits, ns=(st.st_atime_ns,
+                                     st.st_mtime_ns + 10**9))
+                deadline = time.monotonic() + 20
+                while any(len(srv.limiter.get_limits("web")) != 1
+                          for srv in servers.values()):
+                    if time.monotonic() > deadline:
+                        fail(f"{label}: reload not applied within 20 s")
+                    await asyncio.sleep(0.05)
+            for i in range(lo, hi):
+                clock.now += 61.0 if i == 3 * calls // 4 else 0.005
+                answers += await loop.run_in_executor(
+                    None, _http_calls, conns, plan[i:i + 1], lat)
+        seconds = time.perf_counter() - t0
+        for conn in conns:
+            conn.close()
+        mismatches = [i for i, (got, want) in enumerate(answers)
+                      if not _same_http_answer(got, want)]
+        resets_off = sum(got != want for got, want in answers)
+        statuses = {}
+        for (status, _h, _b), _want in answers:
+            statuses[status] = statuses.get(status, 0) + 1
+        counters = {name: json.loads(await _served_get(
+            ports[name], "/counters/web")) for name in servers}
+        top = json.loads(await _served_get(ports["gpu"],
+                                           "/debug/top?k=64"))["top"]
+        occupied = gpu.storage.device_stats()["shards"][0]["occupied"]
+        families = {name: await _served_metrics(ports[name])
+                    for name in servers}
+        device_latency = _histogram(families["gpu"],
+                                    "datastore_device_latency")
+    finally:
+        for srv in servers.values():
+            await srv.stop()
+    launches = dict(K.launches)
+
+    def samples(fams, name):
+        return sorted((s.name, tuple(sorted(s.labels.items())), s.value)
+                      for s in fams[name].samples
+                      if s.name.endswith("_total"))
+
+    print(f"{label}: {calls} calls to each server in {seconds:.2f}s, "
+          f"statuses {json.dumps(statuses)}; {len(mismatches)} answers "
+          f"differ from the memory server's ({resets_off} with an "
+          f"X-RateLimit-Reset 1 s apart)")
+    for path, values in sorted(lat.items()):
+        ms = np.asarray(values) * 1e3
+        print(f"{label} {path} latency ({dev.type}; {card}): p50 "
+              f"{np.percentile(ms, 50):.3f} ms, p99 "
+              f"{np.percentile(ms, 99):.3f} ms over {ms.size}")
+    print(f"{label} /metrics datastore_device_latency (the batchers' round "
+          f"trips): {json.dumps(device_latency)}")
+    print(f"{label} launches: {json.dumps(launches)}")
+    if failures:
+        fail(f"{label}: a background tier failed: {failures!r}")
+    if mismatches:
+        i = mismatches[0]
+        fail(f"{label}: call {i} {plan[i]}: {answers[i][0]} != "
+             f"{answers[i][1]}")
+    if statuses.get(429, 0) == 0 or statuses.get(200, 0) == 0:
+        fail(f"{label}: the drive never limited or never admitted")
+    differ = _counters_differ(counters["gpu"], counters["memory"])
+    if differ or not counters["gpu"]:
+        fail(f"{label}: {len(differ)} of /counters/web differ from the "
+             f"memory server's: {differ[:3]}")
+    for name in ("authorized_calls", "authorized_hits", "limited_calls"):
+        got = samples(families["gpu"], name)
+        if got != samples(families["memory"], name) or not got:
+            fail(f"{label}: {name} samples differ from the memory "
+                 f"server's")
+    used = _metric(families["gpu"], "counter_slots_used", shard="0")
+    if used != occupied or occupied == 0:
+        fail(f"{label}: counter_slots_used {used} != device_stats "
+             f"{occupied}")
+    got = [(int(r["key"]["descriptors[0].user"][1:]), r["hits"])
+           for r in top]
+    if any(tally.get(u) != hits for u, hits in got) or sorted(
+            (h for _u, h in got), reverse=True) != sorted(
+            tally.values(), reverse=True)[:64]:
+        fail(f"{label}: /debug/top differs from the host tally: "
+             f"{got[:5]}")
+    print(f"{label}: answers, /counters/web, the reference counters and "
+          f"the occupancy gauge ({occupied}) equal the memory server's "
+          f"and device_stats(); /debug/top?k=64 equals the host tally "
+          f"(top: user {got[0][0]} with {got[0][1]} hits)")
+    if _launched(launches, "check_and_update") + _launched(
+            launches, "check_and_update_cluster") == 0:
+        fail(f"{label}: B1 not launched")
+    _storage_forms(launches, label, ("update_host", "read_slots_host",
+                                     "drain_top_hits_host"))
+    return launches, {
+        "seconds": seconds, "statuses": statuses,
+        "latency_ms": {path: {
+            "p50": float(np.percentile(np.asarray(v) * 1e3, 50)),
+            "p99": float(np.percentile(np.asarray(v) * 1e3, 99)),
+            "n": len(v)} for path, v in lat.items()},
+        "occupied": occupied, "datastore_device_latency": device_latency,
     }
 
 
@@ -4272,6 +4694,8 @@ def main() -> int:
         served_sharded_launches, served_sharded = asyncio.run(
             _served_sharded(tmpdir, dev, card))
     served_sharded["routes"] = routes
+    with tempfile.TemporaryDirectory() as tmpdir:
+        http_launches, http_api = asyncio.run(_http_api(tmpdir, dev, card))
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -4305,12 +4729,12 @@ def main() -> int:
             fail(f"kernels not launched on {label}: {missing}")
         _host_forms_only(got, label, remote=False)
     # launches on the main paths: phases 4, 5, 6, 7, 8a, 8b, 9a, 9b, 10a,
-    # 10b
+    # 10b, 11
     runs = (launches, drive5_launches, native_launches, drive_launches,
             repl_launches,
             served_launches, tier_launches, served_tier_launches,
             leased_tier_launches, served_default_launches, sharded_launches,
-            served_sharded_launches)
+            served_sharded_launches, http_launches)
     launches = {name: sum(run[name] for run in runs) for name in launches}
     kernels = []
     for kname, by_shape in results.items():
@@ -4359,6 +4783,8 @@ def main() -> int:
             "served_tiers_default": served_default,
             "sharded_drive": sharded,
             "served_sharded": served_sharded,
+            "http_api": http_api,
+            "http_api_launches": http_launches,
         }, f, indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

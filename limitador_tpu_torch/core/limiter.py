@@ -1,8 +1,8 @@
 """Rate limiter facades.
 
-Port counterpart of ``limitador_tpu/core/limiter.py``, copied with its imports kept
-package-relative and the tracing spans left out (observability is not
-ported yet).
+Port counterpart of ``limitador_tpu/core/limiter.py``, copied with its
+imports kept package-relative; the ``datastore`` spans stand where the
+JAX package has them (``observability/tracing.py``).
 
 Mirrors upstream limitador/src/lib.rs: ``RateLimiter`` (sync) and
 ``AsyncRateLimiter`` over the storage facades, ``CheckResult`` with the
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Set, Union
 
+from ..observability.tracing import datastore_span
 from ..storage.base import (
     AsyncCounterStorage,
     AsyncStorage,
@@ -138,9 +139,10 @@ class RateLimiter:
             counters = _counters_that_apply(
                 self.storage, Namespace.of(namespace), ctx
             )
-        for counter in counters:
-            if not self.storage.is_within_limits(counter, delta):
-                return CheckResult(True, [], counter.limit.name)
+        with datastore_span("is_within_limits"):
+            for counter in counters:
+                if not self.storage.is_within_limits(counter, delta):
+                    return CheckResult(True, [], counter.limit.name)
         return CheckResult(False, [], None)
 
     def update_counters(
@@ -151,8 +153,9 @@ class RateLimiter:
             counters = _counters_that_apply(
                 self.storage, Namespace.of(namespace), ctx
             )
-        for counter in counters:
-            self.storage.update_counter(counter, delta)
+        with datastore_span("update_counter"):
+            for counter in counters:
+                self.storage.update_counter(counter, delta)
 
     def check_rate_limited_and_update(
         self,
@@ -171,9 +174,10 @@ class RateLimiter:
             )
         if not counters:
             return CheckResult(False, counters, None)
-        auth = self.storage.check_and_update(
-            counters, delta, load_counters
-        )
+        with datastore_span("check_and_update"):
+            auth = self.storage.check_and_update(
+                counters, delta, load_counters
+            )
         loaded = counters if load_counters else []
         if auth.limited:
             return CheckResult(True, loaded, auth.limit_name)
@@ -237,9 +241,10 @@ class AsyncRateLimiter:
             counters = _counters_that_apply(
                 self.storage, Namespace.of(namespace), ctx
             )
-        for counter in counters:
-            if not await self.storage.is_within_limits(counter, delta):
-                return CheckResult(True, [], counter.limit.name)
+        with datastore_span("is_within_limits"):
+            for counter in counters:
+                if not await self.storage.is_within_limits(counter, delta):
+                    return CheckResult(True, [], counter.limit.name)
         return CheckResult(False, [], None)
 
     async def update_counters(
@@ -250,8 +255,9 @@ class AsyncRateLimiter:
             counters = _counters_that_apply(
                 self.storage, Namespace.of(namespace), ctx
             )
-        for counter in counters:
-            await self.storage.update_counter(counter, delta)
+        with datastore_span("update_counter"):
+            for counter in counters:
+                await self.storage.update_counter(counter, delta)
 
     async def check_rate_limited_and_update(
         self,
@@ -267,9 +273,10 @@ class AsyncRateLimiter:
             )
         if not counters:
             return CheckResult(False, counters, None)
-        auth = await self.storage.check_and_update(
-            counters, delta, load_counters
-        )
+        with datastore_span("check_and_update"):
+            auth = await self.storage.check_and_update(
+                counters, delta, load_counters
+            )
         loaded = counters if load_counters else []
         if auth.limited:
             return CheckResult(True, loaded, auth.limit_name)

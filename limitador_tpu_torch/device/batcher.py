@@ -29,15 +29,25 @@ in-flight window, so chunk i+1's staging and upload overlap chunk i's
 device time. The ``MicroBatcher`` here still dispatches each flush as one
 launch.
 
-Left out of the port for now (``ROADMAP.md``): the device-plane recorder,
-the metrics-layer hooks and the admission hooks (``chunk_queue_wait``
-takes ``admission=None`` until admission is ported).
+Metrics (``AsyncTorchStorage.set_metrics``): each decided request
+observes its batch's round trip (begin to finish, queue wait excluded)
+into ``datastore_device_latency`` (``datastore_latency`` is the
+MetricsLayer's); ``library_stats`` feeds the library gauges
+(``batcher_size``, ``cache_size``, ``batcher_flush_size``, the queue
+depth and, on the sharded table, ``sharded_launches`` and the route
+memo) and ``device_stats`` the per-shard table families.
+
+Left out of the port for now (``ROADMAP.md``): the device-plane recorder
+(queue waits, fill ratios, flush reasons, phase timings, the flight
+recorder) and the admission hooks (``chunk_queue_wait`` takes
+``admission=None`` until admission is ported).
 """
 
 from __future__ import annotations
 
 import asyncio
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
@@ -144,6 +154,13 @@ def chunk_queue_wait(admission, oldest_enqueue: float,
     return t_flush - oldest_enqueue
 
 
+def _observe(metrics, n_requests: int, seconds: float) -> None:
+    """One ``datastore_device_latency`` sample per request of a batch."""
+    hist = metrics.datastore_device_latency
+    for _ in range(n_requests):
+        hist.observe(seconds)
+
+
 class MicroBatcher:
     def __init__(
         self,
@@ -170,6 +187,10 @@ class MicroBatcher:
             max_inflight, thread_name_prefix="torch-collect"
         )
         self._finishers: set = set()
+        #: PrometheusMetrics sink (``AsyncTorchStorage.set_metrics``)
+        self.metrics = None
+        #: hits per flush, drained by ``AsyncTorchStorage.library_stats``
+        self.flush_sizes: List[int] = []
 
     def _ensure_started(self) -> None:
         if self._task is None or self._task.done():
@@ -201,11 +222,13 @@ class MicroBatcher:
             if not future.done():
                 future.set_result(auth)
 
-    async def _finish_inflight(self, batch, handle, finish, sem, loop):
+    async def _finish_inflight(self, batch, handle, finish, sem, loop, t0):
         try:
             auths = await loop.run_in_executor(
                 self._collect_pool, finish, handle
             )
+            if self.metrics is not None:
+                _observe(self.metrics, len(batch), time.perf_counter() - t0)
             self._resolve(batch, auths)
         except Exception as exc:
             self._fail(batch, exc)
@@ -234,8 +257,12 @@ class MicroBatcher:
             # backpressure requests keep coalescing in _pending.
             await sem.acquire()
             batch = self._pending
+            # Recorded in hits, the batcher_flush_size histogram's unit.
+            self.flush_sizes.append(self._pending_hits)
+            del self.flush_sizes[:-1000]
             self._pending = []
             self._pending_hits = 0
+            t0 = time.perf_counter()
             try:
                 handle = await loop.run_in_executor(
                     self._dispatch_pool, begin, [r for r, _f in batch]
@@ -245,7 +272,7 @@ class MicroBatcher:
                 self._fail(batch, exc)
                 continue
             t = loop.create_task(
-                self._finish_inflight(batch, handle, finish, sem, loop)
+                self._finish_inflight(batch, handle, finish, sem, loop, t0)
             )
             self._finishers.add(t)
             t.add_done_callback(self._finishers.discard)
@@ -293,6 +320,8 @@ class UpdateBatcher:
         self._task: Optional[asyncio.Task] = None
         self._closed = False
         self._pool = ThreadPoolExecutor(1, thread_name_prefix="torch-update")
+        #: PrometheusMetrics sink (``AsyncTorchStorage.set_metrics``)
+        self.metrics = None
 
     def _ensure_started(self) -> None:
         if self._task is None or self._task.done():
@@ -345,11 +374,16 @@ class UpdateBatcher:
             if len(self._pending) < self.max_batch:
                 await asyncio.sleep(self.max_delay)
             items, waiters = self._swap()
+            t0 = time.perf_counter()
             try:
                 await loop.run_in_executor(self._pool, self._apply, items)
             except Exception as exc:
                 self._settle(waiters, exc)
             else:
+                if self.metrics is not None:
+                    _observe(
+                        self.metrics, len(waiters), time.perf_counter() - t0
+                    )
                 self._settle(waiters, None)
 
     async def close(self) -> None:
@@ -400,6 +434,7 @@ class AsyncTorchStorage(AsyncCounterStorage):
         self._loop_batchers: dict = {}
         self._default_bound = False
         self._shards_lock = threading.Lock()
+        self._metrics = None
 
     def _batcher_pairs(self) -> list:
         """Every live (check, update) batcher pair, the default pair
@@ -436,8 +471,55 @@ class AsyncTorchStorage(AsyncCounterStorage):
                         MicroBatcher(self.inner, max_batch_hits, max_delay),
                         UpdateBatcher(self.inner, max_delay=max_delay),
                     )
+                    for batcher in pair:
+                        batcher.metrics = self._metrics
                 self._loop_batchers[loop] = pair
             return pair
+
+    def set_metrics(self, metrics) -> None:
+        """Have the batchers observe each request's device batch round
+        trip (queue wait excluded) into ``datastore_device_latency``."""
+        self._metrics = metrics
+        for mb, ub in self._batcher_pairs():
+            mb.metrics = metrics
+            ub.metrics = metrics
+
+    def library_stats(self) -> dict:
+        """Operational metrics for the /metrics library gauges,
+        aggregated across the per-loop batcher pairs."""
+        flush_sizes: List[int] = []
+        batcher_size = 0
+        queue_depth = 0
+        for mb, ub in self._batcher_pairs():
+            shard_sizes, mb.flush_sizes = mb.flush_sizes, []
+            flush_sizes.extend(shard_sizes)
+            batcher_size += mb._pending_hits + len(ub._pending)
+            queue_depth += len(mb._pending) + len(ub._pending)
+        cache_size = 0
+        table = getattr(self.inner, "_table", None)
+        if table is not None:
+            cache_size = len(table.qualified) + len(table.simple)
+        else:  # sharded: per-row tables + the global region
+            for t in self.inner._tables:
+                cache_size += len(t.qualified) + len(t.simple)
+            gtable = self.inner._gtable
+            cache_size += len(gtable.qualified) + len(gtable.simple)
+        stats = {
+            "batcher_size": batcher_size,
+            "cache_size": cache_size,
+            "flush_sizes": flush_sizes,
+            "queue_depth": queue_depth,
+        }
+        launch_stats = getattr(self.inner, "launch_stats", None)
+        if callable(launch_stats):
+            # sharded storage: per-variant launch tallies and the route
+            # memo (the sharded_* families)
+            stats.update(launch_stats())
+        return stats
+
+    def device_stats(self) -> dict:
+        """Per-shard device table stats of the wrapped storage."""
+        return self.inner.device_stats()
 
     async def check_and_update(
         self, counters: List[Counter], delta: int, load_counters: bool

@@ -36,16 +36,29 @@ cannot come up, and ``attach_lease`` without the lane, raise
 ``RuntimeError``. ``hot_lane=False`` is a real choice: the pure-Python
 cached lane, byte-identical decisions.
 
+``library_stats`` feeds the ``plan_cache_*``, ``native_lane_*`` and
+``lease_*`` Prometheus families; ``plan_cache_stats``, ``lane_stats`` and
+``lease_stats`` the ``/debug/stats`` sections.
+
+With ``metrics``, the rows this pipeline decides count into
+``authorized_calls``, ``authorized_hits`` and ``limited_calls`` as the
+JAX pipeline counts them: the hot lane's begin-time OK aggregates and
+finish aggregates (C side), the cached lane's plans, the miss lane's
+namespaces (the first failing hit names the limit) and the exact path.
+The CEL label map of ``--metric-labels`` is not evaluated here (its
+labels stay empty for these rows, as in the JAX package).
+
 Left out of the port for now (``ROADMAP.md``): the pod fast path
-(``attach_pod``, the foreign-row lane and the bulk forwards), the
-admission breaker (``fail_over_queued``), the native ingress entry
-points, the flight recorder, the metrics and the OTLP spans.
+(``attach_pod``, the foreign-row lane and the bulk forwards, with the
+``pod_*`` families), the admission breaker (``fail_over_queued``), the
+native ingress entry points, the flight recorder and the OTLP spans.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextvars
+import logging
 import threading
 import time
 from collections import deque
@@ -71,6 +84,8 @@ from .plan_cache import (
     DecisionPlanCache,
 )
 from .storage import TorchStorage
+
+log = logging.getLogger("limitador_tpu_torch")
 
 __all__ = ["NativeRlsPipeline"]
 
@@ -135,6 +150,7 @@ class NativeRlsPipeline:
     def __init__(
         self,
         limiter: CompiledTorchLimiter,
+        metrics=None,
         max_delay: float = 0.0005,
         max_batch: int = 8192,
         max_inflight: int = 2,
@@ -156,6 +172,13 @@ class NativeRlsPipeline:
 
         self.limiter = limiter
         self.storage: TorchStorage = limiter._torch.inner
+        #: PrometheusMetrics the decided rows count into (None: no counts)
+        self.metrics = metrics
+        if metrics is not None and metrics.custom_label_names:
+            log.warning(
+                "--metric-labels values are not evaluated on the native "
+                "columnar path; custom labels stay empty for the requests "
+                "it serves (--pipeline compiled evaluates them)")
         self.max_delay = max_delay
         self.max_batch = max_batch
         #: concurrent dispatched-but-uncollected batches PER SHARD
@@ -253,6 +276,37 @@ class NativeRlsPipeline:
                 for key in ("hits", "misses", "staged_hits", "insertions",
                             "invalidations", "overflows")
             } | {"plans": stats["plans"], "epoch": stats["epoch"]}
+
+    def plan_cache_stats(self) -> dict:
+        return self.plan_cache.stats() if self.plan_cache is not None else {}
+
+    def library_stats(self) -> dict:
+        """Metrics poll surface for the plan_cache_*, native_lane_* and
+        lease_* families."""
+        out = dict(self.plan_cache_stats())
+        lane_stats = self.lane_stats()
+        if lane_stats:
+            out.update({
+                "native_lane_rows": lane_stats["hits"],
+                "native_lane_misses": lane_stats["misses"],
+                "native_lane_staged_hits": lane_stats["staged_hits"],
+                "native_lane_invalidations": lane_stats["invalidations"],
+                "native_lane_overflows": lane_stats["overflows"],
+                "native_lane_plans": lane_stats["plans"],
+            })
+        if self.lease_broker is not None:
+            out.update(self.lease_broker.stats())
+        return out
+
+    def lease_stats(self) -> dict:
+        """Lease-tier debug surface (/debug/stats ``lease`` section);
+        empty when the tier is off."""
+        broker = self.lease_broker
+        if broker is None:
+            return {}
+        out = broker.stats()
+        out["leases"] = len(broker._leases)
+        return out
 
     @property
     def hot_lane_active(self) -> bool:
@@ -652,6 +706,10 @@ class NativeRlsPipeline:
                     )
                     pendings.append(_HotPending(staged, lane, inflight))
             codes = staged.codes
+            if staged.ok_aggr and self.metrics is not None:
+                for ns, calls, hits in lane.ok_aggr_strings(staged.ok_aggr):
+                    self.metrics.incr_authorized_calls(ns, n=calls)
+                    self.metrics.incr_authorized_hits(ns, hits)
             miss_mask = codes == native.LANE_MISS
             n_miss = int(miss_mask.sum())
             # The mirror IS the decision-plan cache's lookup half when
@@ -672,6 +730,9 @@ class NativeRlsPipeline:
             unknown_blob = self.UNKNOWN_BLOB
             miss_append = miss_idx.append
             hit_append = cached_rows.append
+            ok_calls: Dict[str, int] = {}
+            ok_hits: Dict[str, int] = {}
+            metrics = self.metrics
             # The storage lock spans lookup -> launch (slot liveness).
             with self.storage._lock:
                 get = cache.entries.get
@@ -683,11 +744,18 @@ class NativeRlsPipeline:
                         hit_append((i, plan))
                     elif plan.kind == PLAN_OK:
                         results[i] = ok_blob
+                        ns = plan.namespace
+                        if ns is not None and metrics is not None:
+                            ok_calls[ns] = ok_calls.get(ns, 0) + 1
+                            ok_hits[ns] = ok_hits.get(ns, 0) + plan.delta
                     else:
                         results[i] = unknown_blob
                 cache.count(n - len(miss_idx), len(miss_idx))
                 if cached_rows:
                     pendings.append(self._begin_cached(cached_rows))
+            for ns, calls in ok_calls.items():
+                metrics.incr_authorized_calls(ns, n=calls)
+                metrics.incr_authorized_hits(ns, ok_hits[ns])
         else:
             miss_idx = list(range(n))
         if not miss_idx:
@@ -825,14 +893,45 @@ class NativeRlsPipeline:
         return _CachedPending(cached_rows, inflight)
 
     def _finish_cached(self, pending: "_CachedPending", results) -> None:
-        """Collect the plan-cache lane: fill response templates."""
-        admitted, _hit_ok, _rem, _ttl = self.storage.finish_check_columnar(
+        """Collect the plan-cache lane: fill response templates and count
+        the metrics as the uncached lane does (authorized calls and hits
+        per namespace; the first failing hit names the limit)."""
+        admitted, hit_ok, _rem, _ttl = self.storage.finish_check_columnar(
             pending.inflight, with_remaining=False
         )
         ok_blob, over_blob = self.OK_BLOB, self.OVER_BLOB
+        metrics = self.metrics
         entries = pending.entries
-        for (row, _plan), ok in zip(entries, admitted[:len(entries)].tolist()):
-            results[row] = ok_blob if ok else over_blob
+        admitted_l = admitted[:len(entries)].tolist()
+        if metrics is None:
+            for (row, _plan), ok in zip(entries, admitted_l):
+                results[row] = ok_blob if ok else over_blob
+            return
+        ok_calls: Dict[str, int] = {}
+        ok_hits: Dict[str, int] = {}
+        limited: Dict[Tuple[str, Optional[str]], int] = {}
+        base = 0
+        for (row, plan), ok in zip(entries, admitted_l):
+            if ok:
+                results[row] = ok_blob
+                ns = plan.namespace
+                ok_calls[ns] = ok_calls.get(ns, 0) + 1
+                ok_hits[ns] = ok_hits.get(ns, 0) + plan.delta
+            else:
+                results[row] = over_blob
+                name = None
+                for j in range(plan.nhits):
+                    if not hit_ok[base + j]:
+                        name = plan.limit_names[j]
+                        break
+                key = (plan.namespace, name)
+                limited[key] = limited.get(key, 0) + 1
+            base += plan.nhits
+        for ns, calls in ok_calls.items():
+            metrics.incr_authorized_calls(ns, n=calls)
+            metrics.incr_authorized_hits(ns, ok_hits[ns])
+        for (ns, name), count in limited.items():
+            metrics.incr_limited_calls(ns, name, n=count)
 
     def _finish_batch(self, batch, results, pendings) -> None:
         """Collect phase: block on the device results, fill the kernel-
@@ -890,6 +989,7 @@ class NativeRlsPipeline:
         hit_req: List[np.ndarray] = []
         hit_fresh: List[np.ndarray] = []
         hit_bucket: List[np.ndarray] = []
+        hit_limits: List[object] = []  # the limit of each hit_req entry
         failed_reqs: set = set()  # local idx whose allocation errored
         # per-local-row flat plan records (slot, max, win, bucket) in
         # limit compile order, grown only on the miss path
@@ -957,6 +1057,7 @@ class NativeRlsPipeline:
                 hit_req.append(idx)
                 hit_fresh.append(fresh)
                 hit_bucket.append(np.full(idx.size, is_bucket, bool))
+                hit_limits.append(limit)
                 if cache is not None:
                     ib = int(is_bucket)
                     mv = int(max_value)
@@ -978,6 +1079,10 @@ class NativeRlsPipeline:
             if not hit_slots:
                 for local in range(m):
                     results[grows[local]] = self.OK_BLOB
+                if self.metrics and m:
+                    self.metrics.incr_authorized_calls(namespace, n=m)
+                    self.metrics.incr_authorized_hits(
+                        namespace, int(deltas_req.sum()))
                 return None
 
             slots = np.concatenate(hit_slots)
@@ -985,6 +1090,8 @@ class NativeRlsPipeline:
             maxes = np.concatenate(hit_maxes)
             windows = np.concatenate(hit_windows)
             req = np.concatenate(hit_req)
+            # where each limit's hits end in the concatenation
+            limit_ends = np.cumsum([idx.size for idx in hit_req])
             fresh = np.concatenate(hit_fresh)
             bucket = np.concatenate(hit_bucket)
             # Kernel req ids must be dense in [0, H): requests without hits
@@ -999,7 +1106,9 @@ class NativeRlsPipeline:
                 slots.shape[0],
             )
             inflight = self.storage.begin_check_columnar(*arrays)
-        return _NsPending(grows, failed_reqs, participating, inflight)
+        return _NsPending(namespace, grows, deltas_req, failed_reqs,
+                          participating, order, req[order], hit_limits,
+                          limit_ends, inflight)
 
     def _insert_plans(
         self, cache, cache_epoch, blobs, rows_arr, deltas_req,
@@ -1063,12 +1172,19 @@ class NativeRlsPipeline:
         admitted, hit_ok, _rem, _ttl = self.storage.finish_check_columnar(
             pending.inflight, with_remaining=False
         )
-        pending.lane.finish(staged, admitted, hit_ok)
+        ok_aggr, limited = pending.lane.finish(staged, admitted, hit_ok)
         if staged.fill_results:
             ok_blob, over_blob = self.OK_BLOB, self.OVER_BLOB
             for r, a in zip(staged.rows.tolist(),
                             admitted[:staged.k].tolist()):
                 results[r] = ok_blob if a else over_blob
+        metrics = self.metrics
+        if metrics is not None:
+            for ns, calls, hits in ok_aggr:
+                metrics.incr_authorized_calls(ns, n=calls)
+                metrics.incr_authorized_hits(ns, hits)
+            for ns, name, count in limited:
+                metrics.incr_limited_calls(ns, name, n=count)
 
     def _finish_namespace(self, pending, results) -> None:
         """Collect one pending's device result and fill its rows (the
@@ -1080,11 +1196,12 @@ class NativeRlsPipeline:
         if type(pending) is _CachedPending:
             self._finish_cached(pending, results)
             return
-        admitted, _hit_ok, _rem, _ttl = self.storage.finish_check_columnar(
+        admitted, hit_ok, _rem, _ttl = self.storage.finish_check_columnar(
             pending.inflight, with_remaining=False
         )
         # Requests without hits default to admitted (no counter applied).
         rows_list = pending.rows.tolist()
+        failed_reqs = pending.failed_reqs
         admitted_full = np.ones(len(rows_list), bool)
         admitted_full[pending.participating] = admitted[
             : pending.participating.size
@@ -1092,8 +1209,49 @@ class NativeRlsPipeline:
         ok_blob, over_blob = self.OK_BLOB, self.OVER_BLOB
         for r, a in zip(rows_list, admitted_full.tolist()):
             results[r] = ok_blob if a else over_blob
-        for local in pending.failed_reqs:
+        for local in failed_reqs:
             results[rows_list[local]] = _STORAGE_ERROR
+        metrics = self.metrics
+        if not metrics:
+            return
+        namespace = pending.namespace
+        ok_mask = admitted_full
+        if failed_reqs:
+            ok_mask = admitted_full.copy()
+            ok_mask[sorted(failed_reqs)] = False
+        n_ok = int(ok_mask.sum())
+        if n_ok:
+            metrics.incr_authorized_calls(namespace, n=n_ok)
+            metrics.incr_authorized_hits(
+                namespace, int(pending.deltas_req[ok_mask].sum()))
+        limited = ~admitted_full
+        if failed_reqs:
+            limited[sorted(failed_reqs)] = False
+        if not limited.any():
+            return
+        # The first failing hit in request order names the limit. Hits
+        # run in request order, each request's in its limits' order, so
+        # it is each request's lowest failing position.
+        req_sorted = pending.req_sorted
+        h = req_sorted.size
+        failing = np.nonzero(~hit_ok[:h])[0]
+        first = np.full(limited.size, h, np.int64)
+        np.minimum.at(first, req_sorted[failing], failing)
+        first = first[limited]
+        named = first < h
+        counts: Dict[Optional[str], int] = {}
+        if not named.all():
+            counts[None] = int((~named).sum())
+        which, n = np.unique(
+            np.searchsorted(pending.limit_ends, pending.order[first[named]],
+                            side="right"),
+            return_counts=True,
+        )
+        for i, c in zip(which.tolist(), n.tolist()):
+            name = pending.hit_limits[i].name
+            counts[name] = counts.get(name, 0) + c
+        for name, c in counts.items():
+            metrics.incr_limited_calls(namespace, name, n=c)
 
     def _allocate_missing(
         self, limit, var_cols, idx, keys, slots, fresh_mask, failed_reqs,
@@ -1143,7 +1301,18 @@ class NativeRlsPipeline:
                 result = await self.limiter.check_rate_limited_and_update(
                     req.domain, ctx, _hits_addend(req), False
                 )
-                out = self.OVER_BLOB if result.limited else self.OK_BLOB
+                metrics = self.metrics
+                if result.limited:
+                    if metrics:
+                        metrics.incr_limited_calls(
+                            req.domain, result.limit_name)
+                    out = self.OVER_BLOB
+                else:
+                    if metrics:
+                        metrics.incr_authorized_calls(req.domain)
+                        metrics.incr_authorized_hits(
+                            req.domain, _hits_addend(req))
+                    out = self.OK_BLOB
             if not future.done():
                 future.set_result(out)
         except Exception as exc:
@@ -1194,15 +1363,29 @@ def _resolve_many(pairs) -> None:
 
 
 class _NsPending:
-    """One namespace's launched-but-uncollected kernel. ``rows`` are
-    batch-global row indices."""
+    """One namespace's launched-but-uncollected kernel: everything
+    ``_finish_namespace`` needs to turn the device result into response
+    blobs and metrics. ``rows`` are batch-global row indices."""
 
-    __slots__ = ("rows", "failed_reqs", "participating", "inflight")
+    __slots__ = (
+        "namespace", "rows", "deltas_req", "failed_reqs", "participating",
+        "order", "req_sorted", "hit_limits", "limit_ends", "inflight",
+    )
 
-    def __init__(self, rows, failed_reqs, participating, inflight):
+    def __init__(self, namespace, rows, deltas_req, failed_reqs,
+                 participating, order, req_sorted, hit_limits, limit_ends,
+                 inflight):
+        self.namespace = namespace
         self.rows = rows
+        self.deltas_req = deltas_req
         self.failed_reqs = failed_reqs
         self.participating = participating
+        #: kernel position -> position in the limits' concatenation
+        self.order = order
+        #: local request of each hit, in kernel order
+        self.req_sorted = req_sorted
+        self.hit_limits = hit_limits
+        self.limit_ends = limit_ends
         self.inflight = inflight
 
 

@@ -25,9 +25,13 @@ It is also the limiter the native pipeline (``device/native_pipeline.py``)
 wraps: that pipeline takes its limits registry and its exact per-request
 fallback from here.
 
-Left out of the port for now (``ROADMAP.md``): the device-plane recorder,
-the metrics and tracing spans, and the admission plane's breaker
-(``fail_over_queued``).
+Metrics (``set_metrics``): each decided request observes its batch's
+device round trip (begin to finish) into ``datastore_device_latency``;
+``library_stats`` adds the CEL evaluation counts, the queue depth and the
+counter-plan cache to the storage's.
+
+Left out of the port for now (``ROADMAP.md``): the device-plane recorder
+and the admission plane's breaker (``fail_over_queued``).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from ..core.cel import Context
 from ..core.counter import Counter
 from ..core.limiter import AsyncRateLimiter, CheckResult
 from ..core.limit import Limit, Namespace
-from .batcher import AsyncTorchStorage, ChunkPlanner, chunk_queue_wait
+from .batcher import AsyncTorchStorage, ChunkPlanner, _observe, chunk_queue_wait
 from .compiler import NamespaceCompiler
 from .plan_cache import CounterPlanCache
 
@@ -110,6 +114,10 @@ class CompiledTorchLimiter(AsyncRateLimiter):
         super().__init__(storage)
         # chunks auto-sized from the observed device time per hit
         self.chunk_planner = ChunkPlanner()
+        self._metrics = None
+        # CEL evaluation counts of compilers dropped by limits changes
+        self._retired_vec_evals = 0
+        self._retired_fb_evals = 0
         self._torch: AsyncTorchStorage = self.storage.counters
         self._compilers: Dict[Namespace, NamespaceCompiler] = {}
         # Epoch-guarded (namespace, values) -> Counter-list memo; every
@@ -137,6 +145,14 @@ class CompiledTorchLimiter(AsyncRateLimiter):
             max(self.max_inflight, 2), thread_name_prefix="compiled-collect"
         )
 
+    @property
+    def _pending(self):
+        """Aggregate pending across serving shards (stats/debug only)."""
+        out: list = []
+        for shard in list(self._shards.values()):
+            out.extend(shard.pending)
+        return out
+
     # -- compiler cache invalidation ----------------------------------------
     #
     # Invalidation runs AFTER the registry mutation and takes _eval_lock.
@@ -147,7 +163,7 @@ class CompiledTorchLimiter(AsyncRateLimiter):
 
     def _invalidate(self, namespace: Namespace) -> None:
         with self._eval_lock:
-            self._compilers.pop(namespace, None)
+            self._retire_compiler(self._compilers.pop(namespace, None))
             if self.counters_cache is not None:
                 self.counters_cache.bump_epoch()
 
@@ -172,9 +188,46 @@ class CompiledTorchLimiter(AsyncRateLimiter):
     async def configure_with(self, limits) -> None:
         await super().configure_with(limits)
         with self._eval_lock:
+            for compiler in self._compilers.values():
+                self._retire_compiler(compiler)
             self._compilers.clear()
             if self.counters_cache is not None:
                 self.counters_cache.bump_epoch()
+
+    # -- metrics ---------------------------------------------------------------
+
+    def set_metrics(self, metrics) -> None:
+        """Observe device batch round trips into the server's metrics; the
+        wrapped storage's batchers (the per-request lane for context
+        shapes the compiler does not cover) observe their own."""
+        self._metrics = metrics
+        self._torch.set_metrics(metrics)
+
+    def _retire_compiler(self, compiler) -> None:
+        if compiler is not None:
+            self._retired_vec_evals += compiler.vectorized_evals
+            self._retired_fb_evals += compiler.fallback_evals
+
+    def plan_cache_stats(self) -> dict:
+        return (
+            self.counters_cache.stats()
+            if self.counters_cache is not None else {}
+        )
+
+    def library_stats(self) -> dict:
+        stats = self._torch.library_stats()
+        vec, fb = self._retired_vec_evals, self._retired_fb_evals
+        for compiler in self._compilers.values():
+            vec += compiler.vectorized_evals
+            fb += compiler.fallback_evals
+        stats["cel_vectorized_evals"] = vec
+        stats["cel_fallback_evals"] = fb
+        stats["queue_depth"] = stats.get("queue_depth", 0) + len(self._pending)
+        stats.update(self.plan_cache_stats())
+        return stats
+
+    def device_stats(self) -> dict:
+        return self._torch.device_stats()
 
     def _compiler_for(self, namespace: Namespace) -> NamespaceCompiler:
         compiler = self._compilers.get(namespace)
@@ -304,6 +357,7 @@ class CompiledTorchLimiter(AsyncRateLimiter):
             except BaseException as exc:
                 _drop_rest(ci, exc)
                 raise
+            t0 = time.perf_counter()
             try:
                 handle = await loop.run_in_executor(
                     self._dispatch_pool,
@@ -319,6 +373,7 @@ class CompiledTorchLimiter(AsyncRateLimiter):
                 continue
             task = loop.run_in_executor(
                 self._collect_pool, self._collect_batch, handle, sub_live,
+                t0,
             )
             shard.inflight.add(task)
 
@@ -331,15 +386,18 @@ class CompiledTorchLimiter(AsyncRateLimiter):
 
             task.add_done_callback(_collected)
 
-    def _collect_batch(self, handle, live) -> None:
+    def _collect_batch(self, handle, live, t0: float) -> None:
         """Collect-thread phase: device transfer, decode, resolve every
         future in one loop callback per loop."""
         t_fin = time.perf_counter()
         auths = self._torch.inner.finish_check_many(handle)
+        t_done = time.perf_counter()
         self.chunk_planner.observe(
-            time.perf_counter() - t_fin,
+            t_done - t_fin,
             sum(len(counters) for _p, counters in live),
         )
+        if self._metrics is not None:
+            _observe(self._metrics, len(live), t_done - t0)
         by_loop: Dict[object, list] = {}
         for (p, counters), auth in zip(live, auths):
             loaded = counters if p.load else []

@@ -244,7 +244,7 @@ class _SlotTable:
         # (clear) fires on_clear instead.
         self.on_slot_release = None
         self.on_clear = None
-        # Device-plane telemetry (the sharded storage's device_stats):
+        # Device-plane telemetry (the storages' device_stats):
         # LRU evictions, and fresh allocations that recycled a released
         # slot. Host bookkeeping only, never reset by dump/load.
         self.evictions = 0
@@ -669,6 +669,23 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
         kernel's ``fresh`` flag on next allocation."""
         key, slot = self._lru_victim()
         self._table.release(slot, key, qualified=True)
+        self._table.evictions += 1
+
+    def device_stats(self) -> dict:
+        """Device table stats for /debug/stats and the per-shard
+        Prometheus families: occupancy as a level, evictions and
+        collisions as cumulative counts."""
+        with self._lock:
+            t = self._table
+            return {
+                "shards": [{
+                    "shard": "0",
+                    "occupied": len(t.info),
+                    "capacity": self._capacity,
+                    "evictions": t.evictions,
+                    "collisions": t.collisions,
+                }],
+            }
 
     def _slot_for(self, counter: Counter, create: bool) -> Tuple[Optional[int], bool]:
         """Return (slot, fresh). fresh=True when allocated/recycled now."""

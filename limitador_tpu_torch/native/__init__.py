@@ -645,6 +645,13 @@ class NativeHotLane:
         ]
         return ok, limited
 
+    def ok_aggr_strings(self, ok_aggr):
+        """Begin-time OK aggregation with namespace tokens resolved."""
+        return [
+            (self._ns_string(ns), calls, hits)
+            for ns, calls, hits in ok_aggr
+        ]
+
     def _ns_string(self, token: int) -> str:
         s = self._ns_strings.get(token)
         if s is None:

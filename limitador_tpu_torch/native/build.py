@@ -26,7 +26,9 @@ from pathlib import Path
 
 from ..ops.build import BuildError
 
-__all__ = ["BuildError", "library", "build", "build_info", "SOURCE"]
+__all__ = [
+    "BuildError", "library", "build", "build_info", "build_status", "SOURCE",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "hostpath.cc"
@@ -38,6 +40,7 @@ build_info: dict = {}
 
 _lock = threading.Lock()
 _lib = None
+_build_error = None
 
 
 def _compiler() -> str:
@@ -87,8 +90,26 @@ def build(source: Path = None) -> Path:
 def library() -> ctypes.CDLL:
     """The loaded host-lane library, built at first use. The caller binds
     the signatures (``native/__init__.py``)."""
-    global _lib
+    global _lib, _build_error
     with _lock:
         if _lib is None:
-            _lib = ctypes.CDLL(str(build()))
+            try:
+                _lib = ctypes.CDLL(str(build()))
+            except (BuildError, OSError) as exc:
+                _build_error = str(exc)
+                raise
         return _lib
+
+
+def build_status() -> dict:
+    """The host lane's load state for ``GET /debug/stats``
+    (``native_build``, the JAX package's per-library shape; this port has
+    no sanitizer builds); reporting builds nothing."""
+    return {
+        "hostpath": {
+            "attempted": _lib is not None or _build_error is not None,
+            "loaded": _lib is not None,
+            "build_error": _build_error,
+            "sanitizer": None,
+        },
+    }

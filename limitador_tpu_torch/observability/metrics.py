@@ -1,0 +1,726 @@
+"""Prometheus metrics.
+
+Counterpart of ``limitador_tpu/observability/metrics.py`` (the
+reference's prometheus_metrics.rs): counters ``authorized_calls`` /
+``authorized_hits`` / ``limited_calls`` labeled by
+``limitador_namespace`` (plus ``limitador_limit_name`` when enabled, and
+the custom CEL labels of ``--metric-labels``), gauges ``limitador_up`` /
+``datastore_partitioned``, histograms ``datastore_latency`` (the
+MetricsLayer's span aggregate, seconds) and ``datastore_device_latency``
+(the queue-excluded device batch round trip).
+
+Families, names, help texts, types and buckets are the JAX package's.
+Besides the reference families, this module declares those of the layers
+the port has: the batchers and caches, CEL evaluation, the plan caches,
+the native hot lane, quota leases, the per-shard device tables, the
+usage observatory (``tenant_*``), the sharded table and the tiers. A
+family of a plane the port does not have yet (the pod, admission, the
+capacity controller, the SLO watchdog, the native telemetry plane, the
+flight recorder, the serving model, the signal bus, the native ingress,
+the cached storage) is declared with the slice that brings the plane.
+The recorder-fed ``batcher_queue_wait`` / ``batcher_batch_fill_ratio`` /
+``batcher_flushes`` are declared and pre-seeded, and stay at zero until
+the device-plane recorder is ported (ROADMAP Queue A item 4).
+
+``datastore_latency`` reads the MetricsLayer's two aggregates, as the JAX
+server wires them (main.rs:908-917): ``install_metrics_layer`` installs
+one process-wide layer whose consumer hands each aggregate to the
+metrics of the server that handled the request (``bind_request_metrics``,
+called by the gRPC service per request), so that several servers in one
+process keep their own histograms.
+"""
+
+from __future__ import annotations
+
+from contextvars import ContextVar
+from typing import Optional
+
+from prometheus_client import (
+    CONTENT_TYPE_LATEST,
+    CollectorRegistry,
+    Counter,
+    Gauge,
+    Histogram,
+    generate_latest,
+)
+from prometheus_client.openmetrics.exposition import (
+    CONTENT_TYPE_LATEST as OPENMETRICS_CONTENT_TYPE,
+)
+from prometheus_client.openmetrics.exposition import (
+    generate_latest as openmetrics_latest,
+)
+
+from .device_plane import BATCHERS, FLUSH_REASONS, current_request_id
+from .metrics_layer import MetricsLayer, install, installed
+from .tracing import current_trace_id
+
+__all__ = [
+    "PrometheusMetrics",
+    "bind_request_metrics",
+    "install_metrics_layer",
+]
+
+#: the PrometheusMetrics of the server handling the current request
+_request_metrics: ContextVar = ContextVar(
+    "limitador_tpu_torch_request_metrics", default=None
+)
+
+
+def bind_request_metrics(metrics) -> None:
+    """Route the MetricsLayer aggregates of the current request context
+    to ``metrics``."""
+    _request_metrics.set(metrics)
+
+
+def _record_request_datastore_latency(timings) -> None:
+    metrics = _request_metrics.get()
+    if metrics is not None:
+        metrics.record_datastore_latency(timings)
+
+
+def install_metrics_layer() -> None:
+    """Install the process-wide span-tree aggregation once: request-path
+    ``datastore`` spans roll up under ``should_rate_limit``, write-behind
+    I/O under ``flush_batcher_and_update_counters``, and each aggregate
+    goes to the request's bound metrics."""
+    if installed() is None:
+        install(
+            MetricsLayer()
+            .gather("should_rate_limit", _record_request_datastore_latency,
+                    ["datastore"])
+            .gather("flush_batcher_and_update_counters",
+                    _record_request_datastore_latency, ["datastore"])
+        )
+
+
+NAMESPACE_LABEL = "limitador_namespace"
+LIMIT_NAME_LABEL = "limitador_limit_name"
+
+#: cumulative library_stats counts fed to same-named counters as the
+#: increment since the last render
+_CUMULATIVE_KEYS = (
+    "cel_vectorized_evals",
+    "cel_fallback_evals",
+    "plan_cache_hits",
+    "plan_cache_misses",
+    "plan_cache_evictions",
+    "plan_cache_invalidations",
+    "native_lane_rows",
+    "native_lane_misses",
+    "native_lane_staged_hits",
+    "native_lane_invalidations",
+    "native_lane_overflows",
+    "lease_admissions",
+    "lease_grants",
+    "lease_grant_denials",
+    "lease_granted_tokens",
+    "lease_returned_tokens",
+    "sharded_route_memo_hits",
+    "sharded_route_memo_misses",
+    "sharded_route_memo_evictions",
+)
+
+
+class PrometheusMetrics:
+    def __init__(
+        self,
+        use_limit_name_label: bool = False,
+        registry: Optional[CollectorRegistry] = None,
+        metric_labels: Optional[str] = None,
+    ):
+        """``metric_labels`` is a CEL map expression evaluated against each
+        request context to produce extra label values (the reference's
+        --metric-labels-default, prometheus_metrics.rs:135-167). Label
+        NAMES must be literal map keys (prometheus requires fixed names);
+        values may be any CEL expression over the request."""
+        self.registry = registry or CollectorRegistry()
+        self.use_limit_name_label = use_limit_name_label
+        self.labels_expr = None
+        self.custom_label_names: list = []
+        if metric_labels:
+            self.labels_expr, self.custom_label_names = self._parse_labels(
+                metric_labels
+            )
+        labels = [NAMESPACE_LABEL] + self.custom_label_names
+        limited_labels = (
+            [NAMESPACE_LABEL, LIMIT_NAME_LABEL]
+            if use_limit_name_label
+            else [NAMESPACE_LABEL]
+        ) + self.custom_label_names
+        self.authorized_calls = Counter(
+            "authorized_calls", "Authorized calls", labels,
+            registry=self.registry,
+        )
+        self.authorized_hits = Counter(
+            "authorized_hits", "Authorized hits", labels,
+            registry=self.registry,
+        )
+        self.limited_calls = Counter(
+            "limited_calls", "Limited calls", limited_labels,
+            registry=self.registry,
+        )
+        self.limitador_up = Gauge(
+            "limitador_up", "Limitador is running", registry=self.registry
+        )
+        self.limitador_up.set(1)
+        self.datastore_partitioned = Gauge(
+            "datastore_partitioned",
+            "Limitador is partitioned from backing datastore",
+            registry=self.registry,
+        )
+        self.datastore_partitioned.set(0)
+        self.datastore_latency = Histogram(
+            "datastore_latency",
+            "Latency to the underlying counter datastore",
+            registry=self.registry,
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.002, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+        )
+        # Queue-excluded device batch round trip: the slice of
+        # datastore_latency each batched request spent on the device.
+        self.datastore_device_latency = Histogram(
+            "datastore_device_latency",
+            "Device batch round-trip latency (queue excluded)",
+            registry=self.registry,
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.002, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+        )
+        # Library-side operational metrics (the reference's metrics-facade
+        # gauges): polled from attached sources at render time.
+        self.batcher_size = Gauge(
+            "batcher_size", "Pending counter updates in the batcher",
+            registry=self.registry,
+        )
+        self.cache_size = Gauge(
+            "cache_size", "Locally cached counters",
+            registry=self.registry,
+        )
+        self.batcher_flush_size = Histogram(
+            "batcher_flush_size", "Counters per batcher flush",
+            registry=self.registry,
+            buckets=(1, 2, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 10000),
+        )
+        self.cel_vectorized_evals = Counter(
+            "cel_vectorized_evals",
+            "(request, limit) evaluations served by the vectorized "
+            "compiler",
+            registry=self.registry,
+        )
+        self.cel_fallback_evals = Counter(
+            "cel_fallback_evals",
+            "(request, limit) evaluations that fell back to the CEL "
+            "interpreter",
+            registry=self.registry,
+        )
+        # -- device plane: the batchers' queues (the recorder's families
+        # stay at zero until the recorder is ported) and the per-shard
+        # device tables, polled from device_stats() sources at render
+        # time.
+        self.batcher_queue_depth = Gauge(
+            "batcher_queue_depth",
+            "Requests currently waiting in the micro-batcher queues",
+            registry=self.registry,
+        )
+        self.batcher_queue_wait = Histogram(
+            "batcher_queue_wait",
+            "Seconds a request waited in the batcher queue before its "
+            "batch flushed (linger included, device time excluded); "
+            "batcher=check is the decision path, batcher=update the "
+            "write-behind path",
+            ["batcher"],
+            registry=self.registry,
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.002, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+        )
+        self.batcher_batch_fill_ratio = Histogram(
+            "batcher_batch_fill_ratio",
+            "Flush occupancy as a fraction of the configured max batch "
+            "(1.0 = size-triggered full batch), per batcher "
+            "(check = decision path, update = write-behind path)",
+            ["batcher"],
+            registry=self.registry,
+            buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+        )
+        self.batcher_flushes = Counter(
+            "batcher_flushes",
+            "Batcher flushes by trigger: size (batch full), deadline "
+            "(linger expired), shutdown (close drain); per batcher "
+            "(check = decision path, update = write-behind path)",
+            ["batcher", "reason"],
+            registry=self.registry,
+        )
+        self.counter_slots_used = Gauge(
+            "counter_slots_used",
+            "Occupied device counter-table slots, per shard",
+            ["shard"],
+            registry=self.registry,
+        )
+        self.counter_slots_capacity = Gauge(
+            "counter_slots_capacity",
+            "Device counter-table slot capacity, per shard",
+            ["shard"],
+            registry=self.registry,
+        )
+        self.counter_slot_evictions = Counter(
+            "counter_slot_evictions",
+            "Counters evicted from a full device table to make room, "
+            "per shard",
+            ["shard"],
+            registry=self.registry,
+        )
+        self.counter_slot_collisions = Counter(
+            "counter_slot_collisions",
+            "Fresh allocations that recycled a previously-occupied "
+            "device slot (stale cell overridden by the kernel's fresh "
+            "flag), per shard",
+            ["shard"],
+            registry=self.registry,
+        )
+        # -- decision-plan caches (device/plan_cache.py): cumulative
+        # counts from the pipelines' library_stats; size is a level.
+        self.plan_cache_hits = Counter(
+            "plan_cache_hits",
+            "Requests served from a memoized decision plan (parse/CEL/"
+            "slot hashing skipped)",
+            registry=self.registry,
+        )
+        self.plan_cache_misses = Counter(
+            "plan_cache_misses",
+            "Requests that derived (and memoized) a fresh decision plan",
+            registry=self.registry,
+        )
+        self.plan_cache_evictions = Counter(
+            "plan_cache_evictions",
+            "Decision plans evicted by the cache's LRU size cap",
+            registry=self.registry,
+        )
+        self.plan_cache_invalidations = Counter(
+            "plan_cache_invalidations",
+            "Decision plans dropped for coherence: limits-epoch bumps "
+            "(reload/add/update/delete) and device-slot recycling",
+            registry=self.registry,
+        )
+        self.plan_cache_size = Gauge(
+            "plan_cache_size",
+            "Decision plans currently cached",
+            registry=self.registry,
+        )
+        # -- the native hot lane (device/native_pipeline.py +
+        # csrc/hostpath.cc), from the pipeline's library_stats.
+        self.native_lane_rows = Counter(
+            "native_lane_rows",
+            "Requests decided by the GIL-free native hot lane (plan "
+            "lookup, staging and response build with zero per-row "
+            "Python)",
+            registry=self.registry,
+        )
+        self.native_lane_misses = Counter(
+            "native_lane_misses",
+            "Requests the hot lane missed on (decided by the Python "
+            "miss lane, then mirrored)",
+            registry=self.registry,
+        )
+        self.native_lane_staged_hits = Counter(
+            "native_lane_staged_hits",
+            "Device hits staged natively into the pre-allocated upload "
+            "buffers by the hot lane",
+            registry=self.registry,
+        )
+        self.native_lane_invalidations = Counter(
+            "native_lane_invalidations",
+            "C plan-mirror entries dropped for coherence (slot "
+            "recycling, limits-epoch bumps, size-cap clears)",
+            registry=self.registry,
+        )
+        self.native_lane_overflows = Counter(
+            "native_lane_overflows",
+            "Hot-lane rows demoted to the Python miss lane because the "
+            "staging buffers were full (undersized hot-lane cap)",
+            registry=self.registry,
+        )
+        self.native_lane_plans = Gauge(
+            "native_lane_plans",
+            "Decision plans live in the C-side plan mirror",
+            registry=self.registry,
+        )
+        # -- quota leases (lease/broker.py): the outstanding-token level
+        # is the over-admission bound.
+        self.lease_admissions = Counter(
+            "lease_admissions",
+            "Requests admitted from a live quota lease in the C hot "
+            "lane (zero Python, zero device work)",
+            registry=self.registry,
+        )
+        self.lease_grants = Counter(
+            "lease_grants",
+            "Quota leases granted (pre-debited through the columnar "
+            "check lane, headroom-checked atomically)",
+            registry=self.registry,
+        )
+        self.lease_grant_denials = Counter(
+            "lease_grant_denials",
+            "Lease grants refused by the device for lack of window "
+            "headroom (the broker halves and backs off)",
+            registry=self.registry,
+        )
+        self.lease_granted_tokens = Counter(
+            "lease_granted_tokens",
+            "Tokens granted across all leases",
+            registry=self.registry,
+        )
+        self.lease_returned_tokens = Counter(
+            "lease_returned_tokens",
+            "Unused lease tokens reclaimed (expiry, plan invalidation, "
+            "limits reload, context swap) and credited back",
+            registry=self.registry,
+        )
+        self.lease_active = Gauge(
+            "lease_active",
+            "Live leases (mirrored plans holding tokens)",
+            registry=self.registry,
+        )
+        self.lease_outstanding_tokens = Gauge(
+            "lease_outstanding_tokens",
+            "Outstanding (granted-but-unconsumed) lease tokens — the "
+            "enforced over-admission bound",
+            registry=self.registry,
+        )
+        # -- the tenant usage observatory (observability/usage.py), fed
+        # by its render hook.
+        self.tenant_hits = Counter(
+            "tenant_hits",
+            "Counter hits attributed per namespace by the usage "
+            "observatory (device accumulator drains + native leased "
+            "admissions)",
+            [NAMESPACE_LABEL],
+            registry=self.registry,
+        )
+        self.tenant_utilization = Histogram(
+            "tenant_utilization",
+            "value/max_value utilization sampled per hot counter at "
+            "each heavy-hitter drain, per namespace (>1.0 = Report-role "
+            "overflow past the limit)",
+            [NAMESPACE_LABEL],
+            registry=self.registry,
+            buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99, 1.0, 1.5),
+        )
+        self.tenant_max_utilization = Gauge(
+            "tenant_max_utilization",
+            "Highest sampled counter utilization per namespace at the "
+            "last heavy-hitter drain",
+            [NAMESPACE_LABEL],
+            registry=self.registry,
+        )
+        self.tenant_near_exhaustion = Gauge(
+            "tenant_near_exhaustion",
+            "Sampled counters at or past the near-exhaustion threshold "
+            "(default 90% of max_value) per namespace at the last drain",
+            [NAMESPACE_LABEL],
+            registry=self.registry,
+        )
+        self.tenant_top_hit_count = Gauge(
+            "tenant_top_hit_count",
+            "Cumulative hit count of the single hottest tracked counter",
+            registry=self.registry,
+        )
+        self.tenant_tracked_counters = Gauge(
+            "tenant_tracked_counters",
+            "Counter identities tracked in the host-side heavy-hitter "
+            "table",
+            registry=self.registry,
+        )
+        # -- the sharded table (device/sharded.py): launches per variant
+        # and the route memo, from launch_stats() via library_stats.
+        self.sharded_launches = Counter(
+            "sharded_launches",
+            "Multi-chip kernel launches by collective variant: lean (no "
+            "collective), coupled (cross-shard pmin request coupling), "
+            "global (psum global-counter region present)",
+            ["variant"],
+            registry=self.registry,
+        )
+        self.sharded_route_memo_hits = Counter(
+            "sharded_route_memo_hits",
+            "Key->owner-shard route memo hits (LRU-bounded, "
+            "tpu/sharded.py)",
+            registry=self.registry,
+        )
+        self.sharded_route_memo_misses = Counter(
+            "sharded_route_memo_misses",
+            "Route memo misses (key re-hashed; miss-heavy means the "
+            "LRU cap thrashes under the live key cardinality)",
+            registry=self.registry,
+        )
+        self.sharded_route_memo_evictions = Counter(
+            "sharded_route_memo_evictions",
+            "Route memo LRU evictions",
+            registry=self.registry,
+        )
+        self.sharded_route_memo_size = Gauge(
+            "sharded_route_memo_size",
+            "Resident route-memo entries (capped at 4x the qualified-"
+            "counter cache size)",
+            registry=self.registry,
+        )
+        # -- tiers (tier/): fed by the TierManager's render hook.
+        self.tier_resident = Gauge(
+            "tier_resident",
+            "Counters resident per storage tier (device = slot-table "
+            "occupancy, cold = exact host cells)",
+            ["tier"],
+            registry=self.registry,
+        )
+        self.tier_migrations = Counter(
+            "tier_migrations",
+            "Counters moved between tiers by the TierManager, by "
+            "direction (promote = cold->device, demote = device->cold; "
+            "demand-path evictions also demote but settle no leases)",
+            ["direction"],
+            registry=self.registry,
+        )
+        self.tier_migration_backlog = Gauge(
+            "tier_migration_backlog",
+            "Migration candidates the last TierManager round priced in "
+            "but could not move (headroom, in-flight guards)",
+            registry=self.registry,
+        )
+        self.tier_cold_decide_seconds = Histogram(
+            "tier_cold_decide_seconds",
+            "Host evaluation latency of decisions served by the cold "
+            "tier (the exact dict-lane decide, device untouched)",
+            registry=self.registry,
+            buckets=(
+                0.000005, 0.00001, 0.000025, 0.00005, 0.0001, 0.00025,
+                0.0005, 0.001, 0.0025, 0.005, 0.01,
+            ),
+        )
+        self.tier_decision_benefit = Gauge(
+            "tier_decision_benefit",
+            "Model-priced benefit (seconds of host decide time per "
+            "interval) of the last TierManager migration decision",
+            registry=self.registry,
+        )
+        self.tier_cold_spilled = Counter(
+            "tier_cold_spilled",
+            "Cold-tier journal rows appended to the disk spill log",
+            registry=self.registry,
+        )
+        # Pre-seed the bounded label sets so the families render (and
+        # dashboards see zeros) before the first sample.
+        for tier in ("device", "cold"):
+            self.tier_resident.labels(tier)
+        for direction in ("promote", "demote"):
+            self.tier_migrations.labels(direction)
+        for batcher in BATCHERS:
+            self.batcher_queue_wait.labels(batcher)
+            self.batcher_batch_fill_ratio.labels(batcher)
+            for reason in FLUSH_REASONS:
+                self.batcher_flushes.labels(batcher, reason)
+        for variant in ("lean", "coupled", "global"):
+            self.sharded_launches.labels(variant)
+        self._library_sources: list = []
+        self._counter_baselines: dict = {}
+        self._render_hooks: list = []
+        # OpenMetrics exemplar rendering: off by default; enable_exemplars
+        # arms trace-id exemplars on the decision-latency tail buckets
+        # and the OpenMetrics exposition.
+        self.exemplars_enabled = False
+        self._exemplar_min_s = 0.025
+
+    def attach_render_hook(self, hook) -> None:
+        """Attach any object exposing ``poll(metrics)``; called on every
+        render (the tenant usage observatory and the tier manager ride
+        this)."""
+        self._render_hooks.append(hook)
+
+    def attach_library_source(self, source) -> None:
+        """Attach an object exposing ``library_stats() -> dict``; polled
+        on every render. Recognized keys: ``batcher_size`` /
+        ``cache_size`` / ``queue_depth`` / ``plan_cache_size`` /
+        ``native_lane_plans`` / ``lease_active`` /
+        ``lease_outstanding_tokens`` / ``sharded_route_memo_size``
+        (levels, summed over sources); the ``_CUMULATIVE_KEYS`` (counts,
+        converted to increments per source); ``flush_sizes`` (a list
+        drained into the histogram); ``sharded_launches`` (variant ->
+        cumulative count, converted to labeled increments). A source
+        with ``device_stats()`` also feeds the per-shard table
+        families."""
+        self._library_sources.append(source)
+
+    def _poll_library_sources(self) -> None:
+        for hook in self._render_hooks:
+            hook.poll(self)
+        levels = dict.fromkeys((
+            "batcher_size", "cache_size", "queue_depth", "plan_cache_size",
+            "native_lane_plans", "lease_active", "lease_outstanding_tokens",
+            "sharded_route_memo_size",
+        ), 0)
+        for i, source in enumerate(self._library_sources):
+            self._poll_device_stats(i, source)
+            stats = source.library_stats()
+            for key in levels:
+                levels[key] += int(stats.get(key, 0))
+            for key in _CUMULATIVE_KEYS:
+                if key in stats:
+                    seen = int(stats[key])
+                    baseline = self._counter_baselines.get((i, key), 0)
+                    if seen > baseline:
+                        getattr(self, key).inc(seen - baseline)
+                        self._counter_baselines[(i, key)] = seen
+            for size in stats.get("flush_sizes", ()):
+                self.batcher_flush_size.observe(size)
+            for variant, seen in stats.get("sharded_launches", {}).items():
+                seen = int(seen)
+                baseline_key = (i, "sharded_launches", variant)
+                baseline = self._counter_baselines.get(baseline_key, 0)
+                if seen > baseline:
+                    self.sharded_launches.labels(variant).inc(
+                        seen - baseline
+                    )
+                    self._counter_baselines[baseline_key] = seen
+        self.batcher_size.set(levels["batcher_size"])
+        self.cache_size.set(levels["cache_size"])
+        self.batcher_queue_depth.set(levels["queue_depth"])
+        self.plan_cache_size.set(levels["plan_cache_size"])
+        self.native_lane_plans.set(levels["native_lane_plans"])
+        self.lease_active.set(levels["lease_active"])
+        self.lease_outstanding_tokens.set(levels["lease_outstanding_tokens"])
+        self.sharded_route_memo_size.set(levels["sharded_route_memo_size"])
+
+    def _poll_device_stats(self, i: int, source) -> None:
+        """Per-shard device-table stats from a ``device_stats()`` source:
+        occupancy/capacity as levels, evictions/collisions as cumulative
+        counts converted to increments."""
+        device_stats = getattr(source, "device_stats", None)
+        if not callable(device_stats):
+            return
+        for shard in device_stats().get("shards", ()):
+            label = str(shard.get("shard"))
+            self.counter_slots_used.labels(label).set(
+                int(shard.get("occupied", 0))
+            )
+            self.counter_slots_capacity.labels(label).set(
+                int(shard.get("capacity", 0))
+            )
+            for key, metric in (
+                ("evictions", self.counter_slot_evictions),
+                ("collisions", self.counter_slot_collisions),
+            ):
+                seen = int(shard.get(key, 0))
+                baseline_key = (i, label, key)
+                baseline = self._counter_baselines.get(baseline_key, 0)
+                if seen > baseline:
+                    metric.labels(label).inc(seen - baseline)
+                    self._counter_baselines[baseline_key] = seen
+
+    @staticmethod
+    def _parse_labels(metric_labels: str):
+        """Parse a CEL map literal into (expr, [label names])."""
+        from ..core.cel import Expression, Literal, MapExpr
+
+        expr = Expression.parse(metric_labels)
+        if not isinstance(expr.ast, MapExpr):
+            raise ValueError("metric labels must be a CEL map literal")
+        names = []
+        for k, _v in expr.ast.entries:
+            if not (isinstance(k, Literal) and isinstance(k.value, str)):
+                raise ValueError("metric label names must be string literals")
+            names.append(k.value)
+        return expr, names
+
+    def reload_labels(self, metric_labels: str) -> None:
+        """Hot-swap the label VALUE expressions (the reference's watched
+        labels file). Prometheus label NAMES are fixed per metric at
+        startup, so new names require a restart; expressions for a
+        subset of the configured names are fine (absent names render
+        empty)."""
+        expr, names = self._parse_labels(metric_labels)
+        unknown = [n for n in names if n not in self.custom_label_names]
+        if unknown:
+            raise ValueError(
+                f"metric label names {unknown} were not configured at "
+                f"startup (configured: {self.custom_label_names}); label "
+                "names are fixed per process"
+            )
+        self.labels_expr = expr
+
+    def custom_labels(self, ctx) -> list:
+        """Evaluate the CEL label map against a request context; absent
+        or failing values become empty labels (the reference's
+        behaviour: a label never errors the request)."""
+        if self.labels_expr is None or ctx is None:
+            return [""] * len(self.custom_label_names)
+        try:
+            values = self.labels_expr.eval_map(ctx)
+        except Exception:
+            values = {}
+        return [values.get(name, "") for name in self.custom_label_names]
+
+    def incr_authorized_calls(
+        self, namespace: str, ctx=None, n: int = 1, labels=None
+    ) -> None:
+        extra = labels if labels is not None else self.custom_labels(ctx)
+        self.authorized_calls.labels(namespace, *extra).inc(n)
+
+    def incr_authorized_hits(
+        self, namespace: str, hits: int, ctx=None, labels=None
+    ) -> None:
+        extra = labels if labels is not None else self.custom_labels(ctx)
+        self.authorized_hits.labels(namespace, *extra).inc(hits)
+
+    def incr_limited_calls(
+        self, namespace: str, limit_name: Optional[str] = None, ctx=None,
+        labels=None, n: int = 1,
+    ) -> None:
+        extra = labels if labels is not None else self.custom_labels(ctx)
+        if self.use_limit_name_label:
+            self.limited_calls.labels(
+                namespace, limit_name or "", *extra
+            ).inc(n)
+        else:
+            self.limited_calls.labels(namespace, *extra).inc(n)
+
+    def enable_exemplars(self, min_seconds: float = 0.025) -> None:
+        """Arm OpenMetrics exemplar rendering: decision-latency
+        observations landing in the tail buckets (>= ``min_seconds``)
+        carry a ``trace_id`` exemplar, and ``render`` switches to the
+        OpenMetrics exposition (the only format that serializes
+        exemplars). Off by default: the text 0.0.4 exposition."""
+        self.exemplars_enabled = True
+        self._exemplar_min_s = float(min_seconds)
+
+    def _latency_exemplar(self, seconds: float) -> Optional[dict]:
+        if not self.exemplars_enabled or seconds < self._exemplar_min_s:
+            return None
+        trace_id = current_trace_id() or current_request_id()
+        if not trace_id:
+            return None
+        return {"trace_id": str(trace_id)[:64]}
+
+    def record_datastore_latency(self, timings) -> None:
+        """MetricsLayer consumer (prometheus_metrics.rs:131-133): the
+        aggregated busy+idle duration of all ``datastore`` child spans
+        under one aggregate root."""
+        seconds = timings.duration
+        self.datastore_latency.observe(
+            seconds, exemplar=self._latency_exemplar(seconds)
+        )
+
+    @property
+    def content_type(self) -> str:
+        """The exposition content type ``render`` currently emits."""
+        if self.exemplars_enabled:
+            return OPENMETRICS_CONTENT_TYPE
+        return CONTENT_TYPE_LATEST
+
+    def render(self) -> bytes:
+        self._poll_library_sources()
+        if self.exemplars_enabled:
+            return openmetrics_latest(self.registry)
+        return generate_latest(self.registry)

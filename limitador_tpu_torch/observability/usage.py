@@ -25,9 +25,11 @@ leased counts. Slot recycling inside one drain interval attributes the
 old occupant's counts to the current occupant (or drops them when the
 slot is free).
 
+``poll(metrics)`` feeds the ``tenant_*`` Prometheus families at render
+time (``PrometheusMetrics.attach_render_hook``).
+
 Left out of the port for now (``ROADMAP.md``): the signal bus and the
-serving-model refit that ride the drain thread, and the Prometheus
-``poll`` (the port has no metrics yet).
+serving-model refit that ride the drain thread.
 """
 
 from __future__ import annotations
@@ -91,6 +93,7 @@ class TenantUsageObservatory:
         # per-namespace aggregates
         self._ns_hits: Dict[str, int] = {}          # cumulative
         self._ns_last: Dict[str, dict] = {}         # last-drain pressure
+        self._util_samples: List[Tuple[str, float]] = []  # since last poll
         self._drains = 0
         self._unattributed = 0
         self._evicted = 0
@@ -173,6 +176,7 @@ class TenantUsageObservatory:
                     pass_util[key] = util
             ns_pressure: Dict[str, dict] = {}
             for (ns, *_rest), util in pass_util.items():
+                self._util_samples.append((ns, util))
                 agg = ns_pressure.setdefault(
                     ns, {"max_utilization": 0.0, "near_exhaustion": 0,
                          "sampled": 0}
@@ -264,3 +268,38 @@ class TenantUsageObservatory:
             "top": top,
             "pressure": self.pressure(),
         }
+
+    # -- render-time metrics poll --------------------------------------------
+
+    def poll(self, metrics) -> None:
+        """``PrometheusMetrics.attach_render_hook`` target: feed the
+        ``tenant_*`` families. Hit counters are cumulative-converted per
+        namespace; utilization samples drained since the last render
+        feed the histogram."""
+        with self._lock:
+            ns_hits = dict(self._ns_hits)
+            samples, self._util_samples = self._util_samples, []
+            ns_last = {ns: dict(agg) for ns, agg in self._ns_last.items()}
+            tracked = len(self._counts)
+            top_count = max(
+                (row[0] for row in self._counts.values()), default=0
+            )
+        for ns, seen in ns_hits.items():
+            baseline_key = ("tenant_hits", ns)
+            baseline = metrics._counter_baselines.get(baseline_key, 0)
+            if seen > baseline:
+                metrics.tenant_hits.labels(ns).inc(seen - baseline)
+                metrics._counter_baselines[baseline_key] = seen
+        for ns, util in samples:
+            metrics.tenant_utilization.labels(ns).observe(
+                min(max(util, 0.0), 2.0)
+            )
+        for ns, agg in ns_last.items():
+            metrics.tenant_max_utilization.labels(ns).set(
+                agg["max_utilization"]
+            )
+            metrics.tenant_near_exhaustion.labels(ns).set(
+                agg["near_exhaustion"]
+            )
+        metrics.tenant_top_hit_count.set(top_count)
+        metrics.tenant_tracked_counters.set(tracked)

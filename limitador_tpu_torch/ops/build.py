@@ -25,7 +25,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BuildError", "library", "build", "check", "build_info"]
+__all__ = [
+    "BuildError", "library", "build", "check", "build_info", "build_status",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "counter_table.cu",)
@@ -100,6 +102,7 @@ build_info: dict = {}
 
 _lock = threading.Lock()
 _lib = None
+_build_error = None
 
 
 class BuildError(RuntimeError):
@@ -162,18 +165,35 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use (later calls take no
     lock)."""
-    global _lib
+    global _lib, _build_error
     if _lib is not None:
         return _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            try:
+                lib = ctypes.CDLL(str(build()))
+            except (BuildError, OSError) as exc:
+                _build_error = str(exc)
+                raise
             for name, (restype, argtypes) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.restype = restype
                 fn.argtypes = argtypes
             _lib = lib
         return _lib
+
+
+def build_status() -> dict:
+    """The kernel library's load state for ``GET /debug/stats``
+    (``native_build``); reporting builds nothing."""
+    return {
+        "counter_table": {
+            "attempted": _lib is not None or _build_error is not None,
+            "loaded": _lib is not None,
+            "build_error": _build_error,
+            "sanitizer": None,
+        },
+    }
 
 
 def check(rc: int, name: str) -> None:

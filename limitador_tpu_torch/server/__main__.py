@@ -1,10 +1,16 @@
-"""The port's server binary: Envoy RLS v3 + Kuadrant v1 over gRPC.
+"""The port's server binary: Envoy RLS v3 + Kuadrant v1 over gRPC, and
+the HTTP admin and check API with Prometheus metrics.
 
-Counterpart of ``limitador_tpu/server/__main__.py``, cut to the gRPC
-services and the options of the slices ported so far:
+Counterpart of ``limitador_tpu/server/__main__.py``, cut to the options
+of the slices ported so far:
 
     python -m limitador_tpu_torch.server LIMITS_FILE [torch|sharded|memory] \\
-        [--rls-port P] [--device cuda|cpu] [--capacity N] \\
+        [--rls-port P] [--http-host H --http-port P] [--device cuda|cpu] \\
+        [--capacity N] [--validate] [--limits-poll-interval S] \\
+        [--log-level L] [--structured-logs] [--limit-name-in-labels] \\
+        [--metric-labels CEL_MAP | --metric-labels-file FILE] \\
+        [--metrics-exemplars on|off] [--tracing-endpoint URL] \\
+        [--tracing-sample-rate F] [--grpc-reflection-service] \\
         [--global-namespaces NS,NS --global-region N] \\
         [--batch-delay-us U] [--rate-limit-headers NONE|DRAFT_VERSION_03] \\
         [--pipeline standard|compiled|native] [--native-hot-lane on|off] \\
@@ -77,15 +83,30 @@ arms ``--tier-cold`` again). A checkpoint that cannot be restored
 (unreadable, or tiered while ``--tier-mode`` is off) is moved aside to
 ``FILE.rejected`` and the server starts with a fresh table.
 
+HTTP (``server/http_api.py``, every storage) on ``--http-host``:
+``--http-port``: ``/status``, ``/api/spec``, ``/metrics``,
+``/limits/{ns}``, ``/counters/{ns}``, ``POST /check``, ``/report`` and
+``/check_and_report``, and ``/debug/stats``, ``/debug/top`` and
+``/debug/tiering``. ``/metrics`` carries the reference's families and
+those of the layers the server runs (``observability/metrics.py``);
+``datastore_latency`` reads the MetricsLayer's ``should_rate_limit``
+aggregate. ``--metric-labels`` (or the watched ``--metric-labels-file``)
+adds CEL-valued labels. gRPC server reflection is always on (the
+reference's behaviour; ``--grpc-reflection-service`` is ignored and
+accepted only so that the JAX server's command lines parse), and every
+request carries an ``x-request-id``. ``--tracing-endpoint`` exports
+spans over OTLP/HTTP+JSON.
+
 Nothing falls back: a native pipeline or lease tier that cannot come up
 (the host lane does not build, the hot lane is unavailable, the storage
-is not torch, rate-limit headers are asked for) stops the server with an
-error (exit 2), and a lease refresh, usage drain or tier migration round
-that fails while serving stops it too (exit 1).
+is not torch, rate-limit headers are asked for), an HTTP port that
+cannot be bound and a ``--tracing-endpoint`` that cannot start stop the
+server with an error (exit 2), and a lease refresh, usage drain or tier
+migration round that fails while serving stops it too (exit 1).
 
-Not in the port yet (``ROADMAP.md``): the HTTP API, observability,
-admission, the host-memory ``distributed`` storage, the native ingress
-and the multi-process pod.
+Not in the port yet (``ROADMAP.md``): admission, the device-plane
+recorder and ``--dispatch-chunk``, ``--serving-shards``, the host-memory
+``distributed`` storage, the native ingress and the multi-process pod.
 """
 
 from __future__ import annotations
@@ -93,6 +114,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import inspect
+import json
 import logging
 import os
 import signal
@@ -103,9 +125,12 @@ from typing import Optional
 
 from ..core.cel import CelError
 from ..core.limiter import AsyncRateLimiter, RateLimiter
+from ..observability import tracing
+from ..observability.metrics import PrometheusMetrics, install_metrics_layer
 from ..ops.build import BuildError
 from ..storage.base import StorageError
 from ..storage.in_memory import DEFAULT_CACHE_SIZE, InMemoryStorage
+from .http_api import run_http_server
 from .limits_file import LimitsFileError, LimitsFileWatcher, load_limits_file
 from .rls import (
     RATE_LIMIT_HEADERS_DRAFT03,
@@ -120,6 +145,56 @@ log = logging.getLogger("limitador_tpu_torch")
 
 def _env(name, default=None):
     return os.environ.get(name, default)
+
+
+class _JsonFormatter(logging.Formatter):
+    """Structured JSON log lines, shaped like the reference's
+    tracing_subscriber json layer (main.rs:922-957): timestamp, level,
+    target, fields.message."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        entry = {
+            "timestamp": self.formatTime(record, "%Y-%m-%dT%H:%M:%S%z"),
+            "level": record.levelname,
+            "target": record.name,
+            "fields": {"message": record.getMessage()},
+        }
+        if record.exc_info:
+            entry["fields"]["exception"] = self.formatException(
+                record.exc_info
+            )
+        return json.dumps(entry)
+
+
+_LEVELS = {
+    "trace": logging.DEBUG,
+    "debug": logging.DEBUG,
+    "info": logging.INFO,
+    "warn": logging.WARNING,
+    "warning": logging.WARNING,
+    "error": logging.ERROR,
+}
+
+
+def _setup_logging(structured: bool, level: str) -> None:
+    handler = logging.StreamHandler(sys.stderr)
+    if structured:
+        handler.setFormatter(_JsonFormatter())
+    else:
+        handler.setFormatter(
+            logging.Formatter("%(asctime)s %(levelname)s %(name)s: "
+                              "%(message)s")
+        )
+    root = logging.getLogger()
+    root.handlers[:] = [handler]
+    root.setLevel(_LEVELS.get(level.lower(), logging.INFO))
+
+
+def _positive_interval(value: str) -> float:
+    interval = float(value)
+    if interval <= 0:
+        raise argparse.ArgumentTypeError("poll interval must be > 0 seconds")
+    return interval
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -137,6 +212,69 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--rls-host", default="0.0.0.0")
     p.add_argument("--rls-port", type=int, default=8081)
+    p.add_argument("--http-host", default=_env("HTTP_API_HOST", "0.0.0.0"))
+    p.add_argument(
+        "--http-port", type=int, default=int(_env("HTTP_API_PORT", "8080"))
+    )
+    p.add_argument(
+        "--limit-name-in-labels", action="store_true",
+        default=_env("LIMIT_NAME_IN_PROMETHEUS_LABELS") == "1",
+        help="add limit names to prometheus labels",
+    )
+    p.add_argument(
+        "--tracing-endpoint", default=_env("TRACING_ENDPOINT"),
+        help="OTLP/HTTP endpoint for span export (the vendored "
+        "OTLP/HTTP+JSON pipeline over the opentelemetry API; a pipeline "
+        "that cannot start exits 2)",
+    )
+    p.add_argument(
+        "--tracing-sample-rate", type=float,
+        default=float(_env("TRACING_SAMPLE_RATE", "1.0")),
+        help="head-sampling rate for exported spans: 1.0 records every "
+        "request, 0.01 one in a hundred; the datastore_latency "
+        "aggregation is never sampled",
+    )
+    p.add_argument(
+        "--metric-labels", default=_env("METRIC_LABELS"),
+        help="CEL map literal evaluated per request for extra prometheus "
+        "labels, e.g. \"{'tenant': descriptors[0].tenant}\"",
+    )
+    p.add_argument(
+        "--metric-labels-file", default=_env("METRIC_LABELS_FILE"),
+        help="file holding the CEL label map; watched and hot-reloaded "
+        "(label NAMES are fixed at startup, value expressions may change)",
+    )
+    p.add_argument(
+        "--metrics-exemplars", choices=["on", "off"],
+        default=_env("TPU_METRICS_EXEMPLARS", "off"),
+        help="attach trace-id exemplars to tail-bucket datastore-latency "
+        "observations and render /metrics in the OpenMetrics exposition; "
+        "off keeps the text 0.0.4 exposition",
+    )
+    p.add_argument(
+        "--grpc-reflection-service", action="store_true",
+        help="ignored; reflection is always on (accepted so that the JAX "
+        "server's command lines parse)",
+    )
+    p.add_argument(
+        "--validate", action="store_true",
+        help="validate the limits file and exit",
+    )
+    p.add_argument(
+        "--structured-logs", action="store_true",
+        default=_env("STRUCTURED_LOGS", "") == "1",
+        help="emit structured JSON log lines",
+    )
+    p.add_argument(
+        "--log-level",
+        default=_env("LIMITADOR_LOG", _env("RUST_LOG", "info")),
+        help="log level: trace|debug|info|warn|error",
+    )
+    p.add_argument(
+        "--limits-poll-interval", type=_positive_interval,
+        default=_positive_interval(_env("LIMITS_FILE_POLL_INTERVAL", "1.0")),
+        help="limits/labels file change-poll interval in seconds, > 0",
+    )
     p.add_argument(
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="where the torch storage keeps its table (default: cuda)",
@@ -462,9 +600,10 @@ def build_limiter(args, clock=time.time):
     return AsyncRateLimiter(async_storage)
 
 
-def build_native(args, limiter):
-    """The native pipeline (with its lease tier) when asked for, else
-    None. Raises when what was asked for cannot come up."""
+def build_native(args, limiter, metrics=None):
+    """The native pipeline (with its lease tier) when asked for, counting
+    its rows into ``metrics``, else None. Raises when what was asked for
+    cannot come up."""
     if args.lease_mode == "on" and (
         args.pipeline != "native" or args.native_hot_lane != "on"
     ):
@@ -486,7 +625,7 @@ def build_native(args, limiter):
     from ..device.native_pipeline import NativeRlsPipeline
 
     pipeline = NativeRlsPipeline(
-        limiter, max_delay=args.batch_delay_us / 1e6,
+        limiter, metrics, max_delay=args.batch_delay_us / 1e6,
         plan_cache_size=args.plan_cache_size,
         hot_lane=args.native_hot_lane == "on",
     )
@@ -547,13 +686,14 @@ class Checkpointer:
 
 
 class RunningServer:
-    """A started server: its limiter, gRPC server and limits watcher,
-    and the native pipeline, usage observatory, tier manager and
-    checkpointer when they run."""
+    """A started server: its limiter, gRPC and HTTP servers, metrics and
+    limits watcher, and the native pipeline, usage observatory, tier
+    manager, checkpointer and labels watcher when they run."""
 
     def __init__(self, limiter, rls_server, watcher, status,
                  native_pipeline=None, observatory=None, checkpointer=None,
-                 tier_manager=None):
+                 tier_manager=None, http_runner=None, metrics=None,
+                 labels_watcher=None):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
@@ -563,6 +703,11 @@ class RunningServer:
         self.observatory = observatory
         self.checkpointer = checkpointer
         self.tier_manager = tier_manager
+        #: the HTTP API's aiohttp runner
+        self.http_runner = http_runner
+        #: the PrometheusMetrics behind /metrics
+        self.metrics = metrics
+        self.labels_watcher = labels_watcher
 
     @property
     def storage(self):
@@ -574,9 +719,12 @@ class RunningServer:
 
     async def stop(self) -> None:
         self.watcher.stop()
+        if self.labels_watcher is not None:
+            self.labels_watcher.stop()
         if self.tier_manager is not None:
             self.tier_manager.close()
         await self.rls_server.stop(grace=1.0)
+        await self.http_runner.cleanup()
         if self.checkpointer is not None:
             await self.checkpointer.stop()
         await _close(self.limiter, self.native_pipeline, self.observatory)
@@ -594,17 +742,98 @@ async def _close(limiter, native_pipeline, observatory) -> None:
         await limiter.storage.counters.close()
 
 
+def build_metrics(args) -> PrometheusMetrics:
+    """The server's metrics: limit names in the labels, the CEL label map
+    (``--metric-labels-file``'s content, when not empty, wins over
+    ``--metric-labels``) and exemplars as asked. A labels file that
+    cannot be read or a map that does not parse raises ValueError."""
+    labels = args.metric_labels
+    if args.metric_labels_file:
+        try:
+            with open(args.metric_labels_file) as f:
+                labels = f.read().strip() or labels
+        except OSError as exc:
+            raise ValueError(
+                f"cannot read --metric-labels-file: {exc}"
+            ) from exc
+    metrics = PrometheusMetrics(
+        use_limit_name_label=args.limit_name_in_labels,
+        metric_labels=labels,
+    )
+    if args.metrics_exemplars == "on":
+        metrics.enable_exemplars()
+        # The OpenMetrics exposition must render before serving starts.
+        metrics.render()
+    return metrics
+
+
+def _labels_watcher(args, metrics) -> Optional[LimitsFileWatcher]:
+    """Watch ``--metric-labels-file`` and hot-swap the label values;
+    a rejected map is logged and the previous one kept."""
+    if not args.metric_labels_file:
+        return None
+
+    def load(path):
+        with open(path) as f:
+            return f.read().strip()
+
+    def changed(content):
+        if content:
+            try:
+                metrics.reload_labels(content)
+            except (ValueError, CelError) as exc:
+                log.warning(f"metric labels reload rejected: {exc}")
+            else:
+                log.info("metric labels reloaded")
+
+    watcher = LimitsFileWatcher(
+        args.metric_labels_file, changed,
+        on_error=lambda exc: log.warning(
+            f"metric labels file reload failed: {exc}"),
+        poll_interval=args.limits_poll_interval, loader=load,
+    )
+    watcher.start()
+    return watcher
+
+
+def _wire_metrics(metrics, limiter, native_pipeline, observatory) -> None:
+    """Attach the library sources and render hooks the server runs, and
+    let the batched storage (or the compiled pipeline) time its own
+    device round trips."""
+    counters = limiter.storage.counters
+    # The compiled pipeline aggregates its storage's stats and adds the
+    # compiler's; otherwise the storage itself.
+    stats_source = (
+        limiter if hasattr(limiter, "library_stats") else counters
+    )
+    if hasattr(stats_source, "library_stats"):
+        metrics.attach_library_source(stats_source)
+    for target in (limiter, counters):
+        if hasattr(target, "set_metrics"):
+            target.set_metrics(metrics)
+            break
+    if native_pipeline is not None:
+        metrics.attach_library_source(native_pipeline)
+    if observatory is not None:
+        metrics.attach_render_hook(observatory)
+
+
 async def start(args, clock=time.time, on_failure=None) -> RunningServer:
-    """Build the limiter (and the native pipeline, lease tier, usage
-    observatory and tier manager the options ask for), load the limits
-    file, start watching it and start serving gRPC on
-    ``--rls-host:--rls-port``. A lease refresh, usage drain or migration
-    round that fails stops its thread, which then calls
+    """Configure span export, build the metrics and the limiter (and the
+    native pipeline, lease tier, usage observatory and tier manager the
+    options ask for), load the limits file, start watching it and start
+    serving gRPC on ``--rls-host:--rls-port`` and HTTP on
+    ``--http-host:--http-port``. A lease refresh, usage drain or
+    migration round that fails stops its thread, which then calls
     ``on_failure(exc)``."""
+    tracing.configure_tracing(args.tracing_endpoint)
+    tracing.set_sample_rate(args.tracing_sample_rate)
+    metrics = build_metrics(args)
+    install_metrics_layer()
     limiter = build_limiter(args, clock)
     native_pipeline = observatory = None
     try:
-        native_pipeline = build_native(args, limiter)
+        native_pipeline = build_native(args, limiter, metrics)
         if args.storage != "memory" and args.usage_topk > 0:
             from ..observability.usage import TenantUsageObservatory
 
@@ -615,6 +844,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
                 interval_s=args.usage_drain_interval,
                 near_threshold=args.usage_near_threshold,
             )
+        _wire_metrics(metrics, limiter, native_pipeline, observatory)
     except BaseException:
         await _close(limiter, native_pipeline, observatory)
         raise
@@ -647,17 +877,23 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
 
     # The watcher captures its baseline stamp BEFORE the initial load, so
     # a file replaced between load and watch still triggers a reload.
-    watcher = LimitsFileWatcher(args.limits_file, on_change, on_error)
+    watcher = LimitsFileWatcher(args.limits_file, on_change, on_error,
+                                poll_interval=args.limits_poll_interval)
+    labels_watcher = rls_server = None
     try:
         await apply_limits(load_limits_file(args.limits_file))
         status["limits_file_version"] = 1
         watcher.start()
+        labels_watcher = _labels_watcher(args, metrics)
         rls_server = await serve_rls(
             limiter, f"{args.rls_host}:{args.rls_port}",
             args.rate_limit_headers, native_pipeline=native_pipeline,
+            metrics=metrics,
         )
     except BaseException:
         watcher.stop()
+        if labels_watcher is not None:
+            labels_watcher.stop()
         await _close(limiter, native_pipeline, observatory)
         raise
     broker = getattr(native_pipeline, "lease_broker", None)
@@ -673,6 +909,25 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             observatory=observatory,
             interval_s=args.tier_migrate_interval,
         )
+        metrics.attach_render_hook(tier_manager)
+    try:
+        http_runner = await run_http_server(
+            limiter, args.http_host, args.http_port, metrics, status,
+            debug_sources=[s for s in (native_pipeline, observatory,
+                                       tier_manager) if s is not None],
+        )
+    except BaseException as exc:
+        watcher.stop()
+        if labels_watcher is not None:
+            labels_watcher.stop()
+        await rls_server.stop(grace=None)
+        await _close(limiter, native_pipeline, observatory)
+        if isinstance(exc, OSError):
+            raise ValueError(
+                f"cannot serve HTTP on {args.http_host}:{args.http_port}: "
+                f"{exc}"
+            ) from exc
+        raise
     for tier in (broker, observatory, tier_manager):
         if tier is not None:
             tier.on_error = on_failure
@@ -684,7 +939,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         checkpointer.start()
     return RunningServer(limiter, rls_server, watcher, status,
                          native_pipeline, observatory, checkpointer,
-                         tier_manager)
+                         tier_manager, http_runner, metrics, labels_watcher)
 
 
 async def _amain(args) -> int:
@@ -697,7 +952,8 @@ async def _amain(args) -> int:
         loop.call_soon_threadsafe(stop.set)
 
     server = await start(args, on_failure=on_failure)
-    log.info(f"serving RLS gRPC on {args.rls_host}:{args.rls_port} "
+    log.info(f"serving RLS gRPC on {args.rls_host}:{args.rls_port} and "
+             f"HTTP on {args.http_host}:{args.http_port} "
              f"({args.storage} storage, {args.pipeline} pipeline"
              + (f", replicated node {args.node_id or 'node'} gossiping on "
                 f"{args.listen_address or '0.0.0.0:5001'}"
@@ -721,16 +977,26 @@ async def _amain(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-    )
+    _setup_logging(args.structured_logs, args.log_level)
+    if args.validate:
+        try:
+            limits = load_limits_file(args.limits_file)
+        except LimitsFileError as exc:
+            log.error(f"INVALID: {exc}")
+            return 1
+        # Success goes to stdout (a script-parseable contract, whatever
+        # the log format); diagnostics go to the stderr log handler.
+        print(f"OK: {len(limits)} limits")
+        return 0
+    if args.grpc_reflection_service:
+        log.info("gRPC reflection is always served; "
+                 "--grpc-reflection-service changes nothing")
     try:
         return asyncio.run(_amain(args))
     except KeyboardInterrupt:
         return 0
     except (ValueError, LimitsFileError, CelError, StorageError,
-            BuildError) as exc:
+            BuildError, tracing.TracingError) as exc:
         log.error(f"configuration error: {exc}")
         return 2
 

@@ -1,5 +1,6 @@
-"""Generated protobuf bindings: Envoy RLS v3, Kuadrant v1 and the
-replication protocol (``limitador.service.distributed.v1``).
+"""Generated protobuf bindings: Envoy RLS v3, Kuadrant v1, the
+replication protocol (``limitador.service.distributed.v1``) and gRPC
+server reflection (``grpc.reflection.v1alpha``).
 
 Counterpart of ``limitador_tpu/server/proto/``. The ``*_pb2`` modules are
 copies of the JAX package's generated files with two changes: they import
@@ -14,10 +15,11 @@ from . import (
     distributed_pb2,
     kuadrant_rls_pb2,
     ratelimit_pb2,
+    reflection_pb2,
     rls_pb2,
 )
 
 __all__ = [
     "base_pb2", "distributed_pb2", "kuadrant_rls_pb2", "ratelimit_pb2",
-    "rls_pb2",
+    "reflection_pb2", "rls_pb2",
 ]

@@ -18,9 +18,15 @@ With a native pipeline (``device/native_pipeline.py``) and headers off,
 answers with the pipeline's prebuilt response blobs; the Kuadrant service
 keeps the standard handlers.
 
-Left out of the port for now (``ROADMAP.md``): metrics, admission
-control, the native ingress's method table, server reflection and the
-request-id middleware.
+Observability, as in the JAX package: ``authorized_calls``,
+``authorized_hits`` and ``limited_calls`` per request (the native
+pipeline counts its own rows); the ``should_rate_limit`` span, which is
+the MetricsLayer aggregate root that ``datastore_latency`` reads; the
+``x-request-id`` interceptor; and gRPC server reflection, served
+unconditionally like the reference's.
+
+Left out of the port for now (``ROADMAP.md``): admission control, the
+native ingress's method table and the sync serving shards.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ import grpc
 
 from ..core.cel import Context
 from ..core.limiter import AsyncRateLimiter, CheckResult
+from ..observability.metrics import PrometheusMetrics, bind_request_metrics
+from ..observability.metrics_layer import metrics_span
+from ..observability.tracing import should_rate_limit_span, tracing_enabled
 from ..storage.base import StorageError
 from .proto import rls_pb2
 
@@ -89,8 +98,10 @@ class RlsService:
     """Shared implementation behind both gRPC services."""
 
     def __init__(self, limiter,
+                 metrics: Optional[PrometheusMetrics] = None,
                  rate_limit_headers: str = RATE_LIMIT_HEADERS_NONE):
         self.limiter = limiter
+        self.metrics = metrics
         self.rate_limit_headers = rate_limit_headers
         self._is_async = isinstance(limiter, AsyncRateLimiter)
 
@@ -123,18 +134,40 @@ class RlsService:
         ctx = _context_from_request(request)
         hits_addend = _hits_addend(request)
         with_headers = self.rate_limit_headers != RATE_LIMIT_HEADERS_NONE
-        try:
-            result = await self._check_and_update(
-                namespace, ctx, hits_addend, with_headers
-            )
-        except StorageError as exc:
-            await context.abort(
-                grpc.StatusCode.UNAVAILABLE, f"Service unavailable: {exc}"
-            )
-        code = (
-            rls_pb2.RateLimitResponse.OVER_LIMIT if result.limited
-            else rls_pb2.RateLimitResponse.OK
-        )
+        bind_request_metrics(self.metrics)
+        # W3C trace context from the gRPC metadata parents the span,
+        # read only when an exporter is installed.
+        carrier = None
+        if tracing_enabled():
+            carrier = dict(context.invocation_metadata() or ())
+        with should_rate_limit_span(namespace, hits_addend, carrier) as record:
+            try:
+                result = await self._check_and_update(
+                    namespace, ctx, hits_addend, with_headers
+                )
+            except StorageError as exc:
+                await context.abort(
+                    grpc.StatusCode.UNAVAILABLE,
+                    f"Service unavailable: {exc}",
+                )
+            record(result.limited, result.limit_name)
+        metrics = self.metrics
+        if metrics:
+            # evaluate the custom label map once per request
+            extra = metrics.custom_labels(ctx)
+        if result.limited:
+            if metrics:
+                metrics.incr_limited_calls(
+                    namespace, result.limit_name, labels=extra
+                )
+            code = rls_pb2.RateLimitResponse.OVER_LIMIT
+        else:
+            if metrics:
+                metrics.incr_authorized_calls(namespace, labels=extra)
+                metrics.incr_authorized_hits(
+                    namespace, hits_addend, labels=extra
+                )
+            code = rls_pb2.RateLimitResponse.OK
         return _response(code, result, with_headers)
 
     # -- Kuadrant check/report split --------------------------------------
@@ -152,10 +185,16 @@ class RlsService:
             await context.abort(
                 grpc.StatusCode.UNAVAILABLE, f"Service unavailable: {exc}"
             )
-        code = (
-            rls_pb2.RateLimitResponse.OVER_LIMIT if result.limited
-            else rls_pb2.RateLimitResponse.OK
-        )
+        if result.limited:
+            if self.metrics:
+                self.metrics.incr_limited_calls(
+                    namespace, result.limit_name, ctx=ctx
+                )
+            code = rls_pb2.RateLimitResponse.OVER_LIMIT
+        else:
+            if self.metrics:
+                self.metrics.incr_authorized_calls(namespace, ctx=ctx)
+            code = rls_pb2.RateLimitResponse.OK
         with_headers = self.rate_limit_headers != RATE_LIMIT_HEADERS_NONE
         return _response(code, result, with_headers)
 
@@ -164,12 +203,16 @@ class RlsService:
         if not namespace:
             return _UNKNOWN_RESPONSE
         ctx = _context_from_request(request)
+        hits_addend = _hits_addend(request)
         try:
-            await self._update_counters(namespace, ctx, _hits_addend(request))
+            await self._update_counters(namespace, ctx, hits_addend)
         except StorageError as exc:
             await context.abort(
                 grpc.StatusCode.UNAVAILABLE, f"Service unavailable: {exc}"
             )
+        if self.metrics:
+            # Report counts hits only; CheckRateLimit counts the calls.
+            self.metrics.incr_authorized_hits(namespace, hits_addend, ctx=ctx)
         return _PLAIN_RESPONSES[rls_pb2.RateLimitResponse.OK]
 
 
@@ -208,15 +251,21 @@ def make_rls_handlers(service: RlsService):
     return [envoy, kuadrant]
 
 
-def make_native_should_rate_limit_handler(native_pipeline):
+def make_native_should_rate_limit_handler(native_pipeline, metrics=None):
     """ShouldRateLimit over RAW request bytes: identity (de)serializers keep
     Python protobuf off the hot path; the native pipeline parses the wire
     bytes in C++ and answers with prebuilt response blobs. Storage errors
     answer UNAVAILABLE."""
 
     async def handler(blob: bytes, context) -> bytes:
+        bind_request_metrics(metrics)
         try:
-            return await native_pipeline.submit(blob)
+            # MetricsLayer aggregate for the native path: the one storage
+            # wait (parse -> device -> response blob) is the request's
+            # datastore time.
+            with metrics_span("should_rate_limit"):
+                with metrics_span("datastore"):
+                    return await native_pipeline.submit(blob)
         except StorageError as exc:
             await context.abort(
                 grpc.StatusCode.UNAVAILABLE, f"Service unavailable: {exc}"
@@ -239,12 +288,17 @@ async def serve_rls(
     address: str = "0.0.0.0:8081",
     rate_limit_headers: str = RATE_LIMIT_HEADERS_NONE,
     native_pipeline=None,
+    metrics: Optional[PrometheusMetrics] = None,
 ) -> grpc.aio.Server:
     """Start the gRPC server (returns it started; caller owns shutdown).
 
     With ``native_pipeline`` set, ShouldRateLimit runs the native
     columnar path, which answers without headers; the Kuadrant service
-    keeps the standard handlers."""
+    keeps the standard handlers. Every RPC passes the ``x-request-id``
+    interceptor, and server reflection lists both services."""
+    from .middleware import GrpcRequestIdInterceptor
+    from .reflection import make_reflection_handler
+
     if (
         native_pipeline is not None
         and rate_limit_headers != RATE_LIMIT_HEADERS_NONE
@@ -252,15 +306,18 @@ async def serve_rls(
         raise ValueError(
             "the native pipeline answers ShouldRateLimit without headers"
         )
-    server = grpc.aio.server()
-    service = RlsService(limiter, rate_limit_headers)
+    server = grpc.aio.server(interceptors=(GrpcRequestIdInterceptor(),))
+    service = RlsService(limiter, metrics, rate_limit_headers)
     envoy_handler, kuadrant_handler = make_rls_handlers(service)
     if native_pipeline is not None:
         envoy_handler = make_native_should_rate_limit_handler(
-            native_pipeline
+            native_pipeline, metrics
         )
     server.add_generic_rpc_handlers((envoy_handler,))
     server.add_generic_rpc_handlers((kuadrant_handler,))
+    server.add_generic_rpc_handlers(
+        (make_reflection_handler((_ENVOY_SERVICE, _KUADRANT_SERVICE)),)
+    )
     if server.add_insecure_port(address) == 0:
         raise RuntimeError(f"could not bind RLS gRPC server to {address}")
     await server.start()

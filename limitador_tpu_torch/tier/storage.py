@@ -186,6 +186,7 @@ class TieredStorage(TorchStorage):
                                         int(ttls[0])), counter,
             )
         self._table.release(slot, key, qualified=True)
+        self._table.evictions += 1
 
     def _demoted_cell(self, counter, value: int, ttl_ms: int):
         """Exact host cell from an observed device cell. Fixed windows:

@@ -1571,3 +1571,73 @@ def test_storage_updates_and_credits_through_the_host_forms(cuda):
     _equal(stores[0]._state, stores[1]._state)
     for st in stores:
         st.close()
+
+
+def test_http_server_on_the_card_answers_like_the_cpu(cuda, tmp_path):
+    """The HTTP sequence of ``torch_http.py`` (check-and-report with and
+    without draft-03 headers, check, report, bad bodies, a hot reload) to
+    a ``--device cuda`` server and a ``--device cpu`` one: equal answers,
+    ``/counters`` and ``/metrics`` counts; the storage paths launch B2,
+    B3a and B5 only as host forms."""
+    import asyncio
+
+    from prometheus_client.parser import text_string_to_metric_families
+
+    from limitador_tpu_torch.server import __main__ as port_main
+
+    from . import torch_http as H
+
+    device_forms = ("update", "read_slots", "drain_top_hits", "credit",
+                    "clear_slots")
+
+    async def run():
+        clock = H.FakeClock()
+        path = tmp_path / "limits.yaml"
+        path.write_text(H.LIMITS)
+        ports = {dev: H.free_port() for dev in ("cuda", "cpu")}
+        servers = {}
+        try:
+            for dev, port in ports.items():
+                servers[dev] = await port_main.start(
+                    port_main.build_parser().parse_args(H.port_argv(
+                        path, "torch", port, "--device", dev,
+                        "--limit-name-in-labels", "--metric-labels",
+                        H.LABELS)), clock=clock)
+
+            async def reload():
+                H.reload_limits_file(path)
+                await H.wait_for(lambda: all(
+                    any(l.name == "tb-total"
+                        for l in s.limiter.get_limits("tb"))
+                    for s in servers.values()))
+
+            before = dict(K.launches)
+            out = await H.drive(clock, {
+                dev: f"http://127.0.0.1:{port}"
+                for dev, port in ports.items()}, reload)
+            return out, before, dict(K.launches)
+        finally:
+            for server in servers.values():
+                await server.stop()
+
+    out, before, after = asyncio.run(run())
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu["steps"] == cpu["steps"]
+    for key in ("limits", "counters", "status"):
+        assert gpu[key] == cpu[key], key
+
+    def counts(text):
+        return {
+            (s.name, tuple(sorted(s.labels.items()))): s.value
+            for f in text_string_to_metric_families(text)
+            if f.name in ("authorized_calls", "authorized_hits",
+                          "limited_calls")
+            for s in f.samples if s.name.endswith("_total")
+        }
+
+    assert counts(gpu["metrics"]) == counts(cpu["metrics"])
+    assert counts(gpu["metrics"])
+    moved = {k for k in after if after[k] != before.get(k, 0)}
+    assert moved & {"check_and_update", "check_and_update_cluster"}
+    assert {"update_host", "read_slots_host"} <= moved
+    assert not moved & set(device_forms), moved

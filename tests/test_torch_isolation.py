@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of limitador_tpu.
 
 - A subprocess that refuses to import ``jax`` and ``limitador_tpu``
-  imports every module of ``limitador_tpu_torch``, builds a
+  imports every module of ``limitador_tpu_torch`` (which leaves
+  ``opentelemetry`` unimported: only span export imports it), builds a
   ``TorchStorage(device="cpu")`` and decides a request, decides a
   cold counter through ``tier.TieredStorage``, and decides a request
   whose counters span rows of ``TorchShardedStorage(n_shards=4)``.
@@ -38,6 +39,8 @@ names = [m.name for m in pkgutil.walk_packages(
     limitador_tpu_torch.__path__, "limitador_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# span export imports the opentelemetry API only when it is configured
+assert not any(m.split(".")[0] == "opentelemetry" for m in sys.modules)
 
 from limitador_tpu_torch import Context, Limit, RateLimiter
 from limitador_tpu_torch.device import TorchStorage

@@ -438,3 +438,52 @@ def test_broken_host_lane_build_raises(tmp_path, monkeypatch):
         port_pipeline(True)
     assert not native.available()
     assert "g++ failed" in native.build_error()
+
+
+@pytest.mark.parametrize(
+    "hot, gathered",
+    [(True, False), (False, False), (True, True), (False, True)],
+    ids=["lane-on", "lane-off", "lane-on-gathered", "lane-off-gathered"],
+)
+def test_rows_count_into_the_metrics_like_jax(hot, gathered):
+    """authorized_calls, authorized_hits and limited_calls (with limit
+    names) of the rows the pipeline decides: the hot lane's begin and
+    finish aggregates (or the cached lane's plans), the miss lane's
+    namespaces and the exact path, against the JAX pipeline's counts,
+    two passes over one corpus. Submitted one at a time, or each pass
+    at once, so that the miss lane names the limits of many rows in one
+    batch."""
+    from limitador_tpu.observability.metrics import (
+        PrometheusMetrics as JMetrics,
+    )
+    from limitador_tpu_torch.observability.metrics import PrometheusMetrics
+
+    blobs = corpus(8, n=160)
+    jm, tm = JMetrics(use_limit_name_label=True), PrometheusMetrics(True)
+    jp, _jl = jax_pipeline(hot)
+    tp, _tl = port_pipeline(hot)
+    jp.metrics, tp.metrics = jm, tm
+
+    async def serve(pipeline):
+        out = []
+        for _pass in range(2):
+            if gathered:
+                out.extend(await asyncio.wait_for(asyncio.gather(
+                    *(pipeline.submit(blob) for blob in blobs)), 60))
+                continue
+            for blob in blobs:
+                out.append(await asyncio.wait_for(pipeline.submit(blob), 60))
+        await pipeline.close()
+        return out
+
+    assert asyncio.run(serve(tp)) == asyncio.run(serve(jp))
+
+    def samples(metrics, family):
+        return sorted(
+            (tuple(sorted(s.labels.items())), s.value)
+            for metric in metrics.registry.collect() if metric.name == family
+            for s in metric.samples if s.name.endswith("_total"))
+
+    for family in ("authorized_calls", "authorized_hits", "limited_calls"):
+        assert samples(tm, family) == samples(jm, family), family
+        assert samples(tm, family), family

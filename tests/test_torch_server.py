@@ -174,6 +174,7 @@ async def _parity(tmp_path):
     args = port_main.build_parser().parse_args([
         str(limits_path), "torch", "--device", "cpu", "--capacity",
         str(1 << 12), "--rls-host", "127.0.0.1", "--rls-port", str(p_port),
+        "--http-port", str(_free_port()),
         "--rate-limit-headers", "DRAFT_VERSION_03",
     ])
     p_server = await port_main.start(args, clock=clock)
@@ -222,7 +223,8 @@ def test_cli_serves_on_the_cpu_and_limits(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "limitador_tpu_torch.server",
          str(limits_path), "torch", "--device", "cpu", "--capacity", "1024",
-         "--rls-host", "127.0.0.1", "--rls-port", str(port)],
+         "--rls-host", "127.0.0.1",
+         "--http-port", str(_free_port()), "--rls-port", str(port)],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
     )
     try:
@@ -255,7 +257,8 @@ def test_cli_refuses_the_card_without_cuda(tmp_path):
     limits_path.write_text(LIMITS)
     proc = subprocess.run(
         [sys.executable, "-m", "limitador_tpu_torch.server",
-         str(limits_path), "torch", "--rls-port", str(_free_port())],
+         str(limits_path), "torch", "--http-port", str(_free_port()),
+         "--rls-port", str(_free_port())],
         cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)},
         capture_output=True, text=True, timeout=120,
     )
@@ -307,10 +310,11 @@ async def _native_vs_oracle(tmp_path, extra):
     common = ["--rls-host", "127.0.0.1"]
     native = await port_main.start(parse(
         [str(limits_path), "torch", "--device", "cpu", "--capacity", "1024",
-         "--pipeline", "native", "--rls-port", str(ports[0]), *common,
-         *extra]), clock=clock)
+         "--pipeline", "native", "--http-port", str(_free_port()),
+         "--rls-port", str(ports[0]), *common, *extra]), clock=clock)
     oracle = await port_main.start(parse(
-        [str(limits_path), "memory", "--rls-port", str(ports[1]), *common]),
+        [str(limits_path), "memory", "--http-port", str(_free_port()),
+         "--rls-port", str(ports[1]), *common]),
         clock=clock)
     try:
         assert native.native_pipeline is not None
@@ -372,7 +376,7 @@ def test_native_pipeline_with_a_broken_host_lane_exits(tmp_path,
     limits_path.write_text(LIMITS)
     argv = [str(limits_path), "torch", "--device", "cpu", "--capacity",
             "1024", "--pipeline", "native", "--rls-host", "127.0.0.1",
-            "--rls-port", str(_free_port())]
+            "--http-port", str(_free_port()), "--rls-port", str(_free_port())]
     with pytest.raises(build.BuildError):
         asyncio.run(port_main.start(port_main.build_parser().parse_args(
             argv)))
@@ -404,13 +408,29 @@ def test_native_pipeline_with_a_broken_host_lane_exits(tmp_path,
     ["sharded", "--device", "cpu", "--lease-mode", "on"],
     ["sharded", "--device", "cpu", "--peer", "127.0.0.1:9"],
     ["sharded", "--device", "cpu", "--listen-address", "127.0.0.1:0"],
+    # span export without the opentelemetry API, an HTTP port already
+    # bound, a label map that is not a map or a labels file not there
+    ["memory", "--tracing-endpoint", "http://127.0.0.1:4318"],
+    ["torch", "--device", "cpu", "--http-port", "BOUND"],
+    ["memory", "--http-port", "BOUND"],
+    ["memory", "--metric-labels", "descriptors[0].user"],
+    ["memory", "--metric-labels-file", "no-such-labels.cel"],
 ])
-def test_modes_that_cannot_come_up_exit(tmp_path, argv):
+def test_modes_that_cannot_come_up_exit(tmp_path, monkeypatch, argv):
     limits_path = tmp_path / "limits.yaml"
     limits_path.write_text(LIMITS)
-    assert port_main.main([str(limits_path), *argv, "--rls-host",
-                           "127.0.0.1", "--rls-port",
-                           str(_free_port())]) == 2
+    # an import of opentelemetry raises ImportError
+    monkeypatch.setitem(sys.modules, "opentelemetry", None)
+    with socket.socket() as bound:
+        bound.bind(("127.0.0.1", 0))
+        bound.listen()
+        argv = [str(bound.getsockname()[1]) if a == "BOUND" else a
+                for a in argv]
+        if "--http-port" not in argv:
+            argv += ["--http-port", str(_free_port())]
+        assert port_main.main([str(limits_path), *argv, "--rls-host",
+                               "127.0.0.1", "--http-host", "127.0.0.1",
+                               "--rls-port", str(_free_port())]) == 2
 
 
 @pytest.mark.parametrize("tier", ["usage", "lease"])
@@ -428,7 +448,7 @@ def test_a_failing_background_tier_stops_the_server(tmp_path, monkeypatch,
     limits_path.write_text(LIMITS)
     argv = [str(limits_path), "torch", "--device", "cpu", "--capacity",
             "1024", "--pipeline", "native", "--rls-host", "127.0.0.1",
-            "--rls-port", str(_free_port())]
+            "--http-port", str(_free_port()), "--rls-port", str(_free_port())]
     if tier == "usage":
         monkeypatch.setattr(TorchStorage, "drain_hot_slots", broken)
         argv += ["--usage-drain-interval", "0.05"]
@@ -461,7 +481,8 @@ async def _replicated_pair(tmp_path, extra=()):
     servers = []
     for i, name in enumerate("ab"):
         argv = [str(limits_path), "torch", "--device", "cpu", "--capacity",
-                "1024", "--rls-host", "127.0.0.1", "--rls-port",
+                "1024", "--rls-host", "127.0.0.1",
+                "--http-port", str(_free_port()), "--rls-port",
                 str(_free_port()), "--node-id", name, "--listen-address",
                 f"127.0.0.1:{gossip[i]}", "--peer",
                 f"127.0.0.1:{gossip[1 - i]}", *extra]
@@ -560,7 +581,8 @@ def test_snapshot_restores_the_counters_after_a_restart(tmp_path,
     async def serve(hits):
         rls_port = _free_port()
         server = await port_main.start(port_main.build_parser().parse_args(
-            argv + ["--rls-port", str(rls_port)]))
+            argv + ["--http-port", str(_free_port()),
+                    "--rls-port", str(rls_port)]))
         try:
             async with grpc.aio.insecure_channel(
                     f"127.0.0.1:{rls_port}") as chan:
@@ -594,7 +616,8 @@ def test_a_restarted_node_loads_its_snapshot_before_it_gossips(
 
     def argv(i, *extra):
         return [str(limits_path), "torch", "--device", "cpu", "--capacity",
-                "1024", "--rls-host", "127.0.0.1", "--rls-port",
+                "1024", "--rls-host", "127.0.0.1",
+                "--http-port", str(_free_port()), "--rls-port",
                 str(_free_port()), "--node-id", "ab"[i], "--listen-address",
                 f"127.0.0.1:{gossip[i]}", *extra]
 
@@ -660,7 +683,8 @@ def test_an_unreadable_snapshot_is_moved_aside(tmp_path):
     path.write_bytes(b"not a checkpoint")
     args = port_main.build_parser().parse_args([
         str(limits_path), "torch", "--device", "cpu", "--capacity", "1024",
-        "--rls-host", "127.0.0.1", "--rls-port", str(_free_port()),
+        "--rls-host", "127.0.0.1",
+        "--http-port", str(_free_port()), "--rls-port", str(_free_port()),
         "--snapshot-path", str(path)])
 
     async def boot():
@@ -690,10 +714,12 @@ async def _sharded_vs_memory(tmp_path, extra):
     sharded = await port_main.start(parse(
         [str(limits_path), "sharded", "--device", "cpu", "--capacity",
          "1024", "--global-namespaces", "api", "--global-region", "64",
-         "--usage-drain-interval", "0.05", "--rls-port", str(ports[0]),
+         "--usage-drain-interval", "0.05",
+         "--http-port", str(_free_port()), "--rls-port", str(ports[0]),
          *common, *extra]), clock=clock)
     oracle = await port_main.start(parse(
-        [str(limits_path), "memory", "--rls-port", str(ports[1]), *common]),
+        [str(limits_path), "memory", "--http-port", str(_free_port()),
+         "--rls-port", str(ports[1]), *common]),
         clock=clock)
     try:
         storage = sharded.storage
@@ -775,3 +801,13 @@ def test_a_sharded_snapshot_overrides_the_command_line_with_warnings(
     restored = RateLimiter(storage)
     restored.add_limit(Limit("g", 5, 60, [], ["u"]))
     assert [c.remaining for c in restored.get_counters("g")] == [2]
+
+
+def test_validate_checks_the_limits_file_and_exits(tmp_path, capsys):
+    good = tmp_path / "limits.yaml"
+    good.write_text(LIMITS)
+    assert port_main.main([str(good), "--validate"]) == 0
+    assert capsys.readouterr().out == "OK: 4 limits\n"
+    bad = tmp_path / "bad.yaml"
+    bad.write_text("- namespace: api\n  max_value: nope\n")
+    assert port_main.main([str(bad), "--validate"]) == 1

@@ -1116,7 +1116,8 @@ def test_tier_mode_that_cannot_come_up_exits(tmp_path, argv):
     limits_path = tmp_path / "limits.yaml"
     limits_path.write_text(LIMITS_YAML)
     assert port_main.main([str(limits_path), *argv, "--rls-host",
-                           "127.0.0.1", "--rls-port",
+                           "127.0.0.1",
+                           "--http-port", str(_free_port()), "--rls-port",
                            str(_free_port())]) == 2
 
 
@@ -1144,6 +1145,7 @@ def test_a_tiered_checkpoint_without_tiers_exits_and_stays(tmp_path, argv):
     saved = _tiered_checkpoint(ckpt)
     assert port_main.main([str(limits_path), *argv, "--snapshot-path",
                            str(ckpt), "--rls-host", "127.0.0.1",
+                           "--http-port", str(_free_port()),
                            "--rls-port", str(_free_port())]) == 2
     assert ckpt.read_bytes() == saved
     assert not (tmp_path / "t.ckpt.rejected").exists()
@@ -1193,6 +1195,7 @@ def test_served_tiers_answer_like_the_oracle_and_restart_from_a_snapshot(
 
     def argv(port, *extra):
         return parse([str(limits_path), *extra, "--rls-host", "127.0.0.1",
+                      "--http-port", str(_free_port()),
                       "--rls-port", str(port)])
 
     tiered = ["torch", "--device", "cpu", "--capacity", "64",
