@@ -187,6 +187,25 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    families keep granted = admissions + returned + outstanding,
    tier_resident equals tier_stats() and /debug/tiering answers 200;
    after 10b's sharded_launches by variant equals the storage's tally.
+12. The device plane: (a) phases 4 and 6 again with
+   --native-trace-sample 64 --slo-budget-ms 2, every call with its own
+   x-request-id: batcher_flushes equals the pipelines' own flush tally
+   (the batcher's flush sizes, the compiled and native flushes counted
+   apart), batcher_queue_wait's count the requests queued, every
+   device_phase_latency phase's count the batches (begins counted apart),
+   native_phase_hot_lookup's count the lane's begins, the SLO watchdog's
+   samples the decisions recorded, device_backed 1, the flight
+   recorder's request ids ones the client sent, the answers the
+   oracle's; the 400 latency calls' p50/p99 by phase (queue wait,
+   dispatch, host_cache, native_lane, host_stage, device_sync, unpack)
+   as shares of the served p50, and the recorder's own host time;
+   (b) a MicroBatcher with dispatch_chunk=1024 and =0 on 8 flushes of
+   8192 phase-5 Zipf requests (and a warm-up flush): equal decisions,
+   equal to serial order, B1's cluster once a chunk, the chunk counts in
+   dispatch_chunk_splits, decisions/s of each; (c) POST /debug/profile
+   start, 200 calls, stop on a --device cuda server: the Chrome trace
+   holds CUDA kernel events named after csrc/counter_table.cu's
+   kernels.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -250,6 +269,9 @@ DRIVE_BATCHES = 50
 # ...then one batch past the cluster's capacity (the one-block B1)
 DRIVE_BIG_HITS = 32768
 NATIVE_BATCHES = 50
+# Phase 12b: 8 flushes of 8192 requests (65,536 decisions) a setting,
+# after one warm-up flush each
+CHUNK_FLUSHES = 8
 # Phase 8a runs its drive twice, on the card and replayed on the CPU, with
 # Python gossip merges between batches: 16 batches (131,072 decisions).
 REPLICATION_BATCHES = 16
@@ -2737,10 +2759,14 @@ def _lat_blob(rls_pb2, i, native):
         {"method": "GET", "user": f"lat{i % 50}"}, {"tenant": "t1"}])
 
 
-async def _main_path(tmpdir, dev, native=False):
+async def _main_path(tmpdir, dev, native=False, plane=None):
     """Phase 4 (standard pipeline, draft-03 headers) or, with ``native``,
     phase 6 (the native pipeline; headers off, as the native handler
-    serves only then)."""
+    serves only then). With ``plane`` (a dict, filled in), phase 12a: the
+    same drive with --native-trace-sample 64 --slo-budget-ms 2, every call
+    sending its own x-request-id, the device plane's tallies held against
+    the pipelines' own (``_plane_checks``) and the latency calls' phase
+    split printed."""
     import grpc
 
     from limitador_tpu_torch.ops import kernel as K
@@ -2748,6 +2774,8 @@ async def _main_path(tmpdir, dev, native=False):
     from limitador_tpu_torch.server.proto import rls_pb2
 
     label = "native main path" if native else "main path"
+    if plane is not None:
+        label = f"device plane (12a, {'native' if native else 'standard'})"
     extra_yaml = NATIVE_NS_YAML if native else ""
     limits = os.path.join(tmpdir, "limits.yaml")
     with open(limits, "w") as f:
@@ -2767,6 +2795,9 @@ async def _main_path(tmpdir, dev, native=False):
             "--lease-mode", "off", "--usage-topk", "64",
             "--usage-drain-interval", "0.25",
         ]
+    if plane is not None:
+        device_options += ["--native-trace-sample", "64",
+                           "--slo-budget-ms", "2"]
     parse = server.build_parser().parse_args
     K.reset_launches()
     t0 = time.perf_counter()
@@ -2780,6 +2811,15 @@ async def _main_path(tmpdir, dev, native=False):
         [limits, "memory", *options, *_http_options()[0],
          "--rls-port", str(ports[1])]), clock=clock)
     answers = mismatches = 0
+    sent = set()
+    metadata = None
+    if plane is not None:
+        tally = _plane_spies(gpu)
+
+        def metadata():
+            rid = f"smoke12-{len(sent)}"
+            sent.add(rid)
+            return (("x-request-id", rid),)
     try:
         async with grpc.aio.insecure_channel(f"127.0.0.1:{ports[0]}") as gc, \
                 grpc.aio.insecure_channel(f"127.0.0.1:{ports[1]}") as oc:
@@ -2801,7 +2841,9 @@ async def _main_path(tmpdir, dev, native=False):
                         if time.monotonic() > deadline:
                             fail("hot reload not applied within 20 s")
                         await asyncio.sleep(0.05)
-                got = await gc.unary_unary(rpc)(blob, timeout=60)
+                got = await gc.unary_unary(rpc)(
+                    blob, timeout=60,
+                    metadata=metadata() if metadata else None)
                 want = await oc.unary_unary(rpc)(blob, timeout=60)
                 answers += 1
                 if not _same_answer(rls_pb2, got, want):
@@ -2816,10 +2858,18 @@ async def _main_path(tmpdir, dev, native=False):
             envoy = "/envoy.service.ratelimit.v3.RateLimitService/" \
                 "ShouldRateLimit"
             lat = []
+            if plane is not None:
+                # the split covers the latency calls alone
+                tally["phases"].clear()
+                tally["waits"].clear()
+                for costs in tally["cost_ns"].values():
+                    costs.clear()
             for i in range(400):
                 blob = _lat_blob(rls_pb2, i, native)
+                md = metadata() if metadata else None
                 t1 = time.perf_counter()
-                got = await gc.unary_unary(envoy)(blob, timeout=60)
+                got = await gc.unary_unary(envoy)(blob, timeout=60,
+                                                  metadata=md)
                 lat.append(time.perf_counter() - t1)
                 want = await oc.unary_unary(envoy)(blob, timeout=60)
                 answers += 1
@@ -2828,7 +2878,11 @@ async def _main_path(tmpdir, dev, native=False):
             print(f"{label} served latency (sequential gRPC, {dev.type}): "
                   f"p50 "
                   f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
-                  f"{np.percentile(lat_ms, 99):.3f} ms over {lat_ms.size}")
+                  f"{np.percentile(lat_ms, 99):.3f} ms over {lat_ms.size} "
+                  f"(mean {lat_ms.mean():.3f} ms)")
+            print(f"{label} served latency histogram (0.25 ms bins from 0 "
+                  f"to 12 ms, then the rest): "
+                  f"{np.histogram(np.minimum(lat_ms, 12.1), np.r_[np.arange(0, 12.01, 0.25), np.inf])[0].tolist()}")
             # the layers of the served call: the MetricsLayer's
             # should_rate_limit aggregate of datastore spans, and the
             # batcher's queue-excluded device round trip
@@ -2836,6 +2890,10 @@ async def _main_path(tmpdir, dev, native=False):
             for hist in ("datastore_latency", "datastore_device_latency"):
                 print(f"{label} /metrics {hist}: "
                       f"{json.dumps(_histogram(families, hist))}")
+            if plane is not None:
+                plane.update(await _plane_checks(
+                    label, gpu, gpu_http_port, tally, sent, lat_ms,
+                    native, plane["card"], dev.type == "cuda"))
             if native:
                 # the observatory drains every 0.25 s; wait for one more
                 drains = gpu.observatory.tenant_usage()["drains"]
@@ -2890,6 +2948,432 @@ async def _main_path(tmpdir, dev, native=False):
     if missing:
         fail(f"kernels not launched on the {label}: {missing}")
     return launches
+
+
+# -- phase 12 ---------------------------------------------------------------
+
+
+def _count_calls(obj, name, tally, key):
+    """Count the calls of ``obj.name`` into ``tally[key]`` (an instance
+    attribute over the method: the pipelines call it through ``self``)."""
+    fn = getattr(obj, name)
+
+    def counted(*args, **kwargs):
+        tally[key] += 1
+        return fn(*args, **kwargs)
+
+    setattr(obj, name, counted)
+
+
+def _count_flushes(obj, tally, key):
+    """Count a pipeline's flushes that take a non-empty queue."""
+    flush = obj._flush
+
+    async def counted(shard, *args):
+        if shard.pending:
+            tally[key] += 1
+        return await flush(shard, *args)
+
+    obj._flush = counted
+
+
+def _plane_spies(server):
+    """The pipelines' own tallies, independent of the recorder: requests
+    entering each queue, flushes, begins (batches) and the native lane's
+    exact-path rows; plus every phase dict and check-path queue wait the
+    recorder is handed (for the split)."""
+    tally = dict.fromkeys((
+        "micro_submits", "compiled_submits", "native_submits",
+        "compiled_flushes", "native_flushes", "begins", "native_begins",
+        "exact_rows", "update_submits", "applies", "compiled_live"), 0)
+    storage = server.limiter.storage.counters
+    _count_calls(storage.batcher, "submit", tally, "micro_submits")
+    _count_calls(storage.update_batcher, "submit", tally, "update_submits")
+    _count_calls(storage.inner, "begin_check_many", tally, "begins")
+    _count_calls(storage.inner, "apply_deltas", tally, "applies")
+    limiter = server.limiter
+    if hasattr(limiter, "submit_check"):
+        _count_calls(limiter, "submit_check", tally, "compiled_submits")
+        _count_flushes(limiter, tally, "compiled_flushes")
+        collect = limiter._collect_batch
+
+        def counted_collect(handle, live, *args):
+            # the compiled lane records the rows that had counters
+            tally["compiled_live"] += len(live)
+            return collect(handle, live, *args)
+
+        limiter._collect_batch = counted_collect
+    pipeline = server.native_pipeline
+    if pipeline is not None:
+        _count_calls(pipeline, "submit", tally, "native_submits")
+        _count_calls(pipeline, "_timed_begin_batch", tally, "native_begins")
+        _count_calls(pipeline, "_decide_exact", tally, "exact_rows")
+        _count_flushes(pipeline, tally, "native_flushes")
+    rec = storage.recorder
+    tally["phases"], tally["waits"] = [], []
+    # the recorder's own host time, by method (record_batch includes its
+    # record_phases)
+    tally["cost_ns"] = {"record_flush": [], "record_chunks": [],
+                        "record_batch": []}
+    record_phases, record_flush = rec.record_phases, rec.record_flush
+
+    def phases_tap(phases):
+        tally["phases"].append(dict(phases))
+        record_phases(phases)
+
+    def flush_tap(reason, fill, waits, batcher="check"):
+        waits = list(waits)
+        if batcher == "check":
+            tally["waits"].extend(waits)
+        record_flush(reason, fill, waits, batcher)
+
+    rec.record_phases, rec.record_flush = phases_tap, flush_tap
+
+    def timed(name):
+        fn = getattr(rec, name)
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                tally["cost_ns"][name].append(time.perf_counter_ns() - t0)
+
+        setattr(rec, name, run)
+
+    for name in tally["cost_ns"]:
+        timed(name)
+    return tally
+
+
+def _count_of(families, name, **labels):
+    fam = families[name]
+    return sum(s.value for s in fam.samples if s.name == name + "_count"
+               and all(s.labels.get(k) == v for k, v in labels.items()))
+
+
+async def _plane_checks(label, server, http_port, tally, sent, lat_ms,
+                        native, card, want_backed):
+    """Phase 12a's equalities on a served drive, and the phase split of
+    its latency calls (p50 and p99 of every phase and of the queue wait,
+    each p50 as a share of the served p50)."""
+    families = await _served_metrics(http_port)
+    stats = json.loads(await _served_get(http_port, "/debug/stats"))
+    flushes = _metric(families, "batcher_flushes", batcher="check")
+    own_flushes = (_count_of(families, "batcher_flush_size")
+                   + tally["compiled_flushes"] + tally["native_flushes"])
+    decisions_in = (tally["micro_submits"] + tally["compiled_submits"]
+                    + tally["native_submits"])
+    decided = (tally["micro_submits"] + tally["compiled_live"]
+               + tally["native_submits"] - tally["exact_rows"])
+    batches = tally["begins"] + tally["native_begins"]
+    waits = _count_of(families, "batcher_queue_wait", batcher="check")
+    update_flushes = _metric(families, "batcher_flushes", batcher="update")
+    update_waits = _count_of(families, "batcher_queue_wait", batcher="update")
+    phase_counts = {
+        phase: _count_of(families, "device_phase_latency", phase=phase)
+        for phase in ("dispatch", "host_cache", "native_lane", "host_stage",
+                      "device_sync", "unpack")}
+    lookups = _count_of(families, "native_phase_hot_lookup")
+    slo = server.native_plane.slo_status()
+    backed = _metric(families, "device_backed")
+    rids = {e["request_id"] for e in stats["flight_recorder"]
+            if e["request_id"] is not None}
+    lane = (server.native_pipeline.lane_stats()
+            if server.native_pipeline is not None else {})
+    print(f"{label}: batcher_flushes {flushes:.0f} (the pipelines' own "
+          f"flush tally {own_flushes:.0f}); queue waits {waits:.0f} for "
+          f"{decisions_in} requests; phases {json.dumps(phase_counts)} for "
+          f"{batches} batches; update flushes {update_flushes:.0f} for "
+          f"{tally['applies']} applies, update queue waits "
+          f"{update_waits:.0f} for {tally['update_submits']} reports; "
+          f"native_phase_hot_lookup {lookups:.0f} for "
+          f"{tally['native_begins']} lane begins (lane_stats "
+          f"{json.dumps(lane)}); SLO samples {slo['samples_1h']} for "
+          f"{decided} decided; device_backed {backed:.0f}; flight recorder "
+          f"{len(stats['flight_recorder'])} entries, {len(rids)} request "
+          f"ids, all sent: {rids <= sent}")
+    checks = [
+        ("batcher_flushes", flushes, own_flushes),
+        ("batcher_queue_wait count", waits, decisions_in),
+        ("update flushes", update_flushes, tally["applies"]),
+        ("update queue waits", update_waits, tally["update_submits"]),
+        ("native_phase_hot_lookup count", lookups, tally["native_begins"]),
+        ("SLO samples", slo["samples_1h"], decided),
+        ("device_backed", backed, 1 if want_backed else 0),
+    ]
+    for phase in ("dispatch", "host_stage", "device_sync", "unpack"):
+        checks.append((f"device_phase_latency {phase}",
+                       phase_counts[phase], batches))
+    for phase in ("host_cache", "native_lane"):
+        checks.append((f"device_phase_latency {phase}", phase_counts[phase],
+                       tally["native_begins"]))
+    bad = [(what, got, want) for what, got, want in checks if got != want]
+    if bad:
+        fail(f"{label}: device-plane tallies differ: {bad}")
+    if not rids or not rids <= sent:
+        fail(f"{label}: flight recorder request ids {sorted(rids)[:5]} are "
+             "not ids the client sent")
+    if len(stats["flight_recorder"]) > 32 or \
+            stats["device_backed"] is not want_backed:
+        fail(f"{label}: /debug/stats flight_recorder or device_backed wrong")
+    if native and not lookups:
+        fail(f"{label}: the native lane recorded no begin")
+    # the split: the latency calls' batches (the compiled, native and
+    # micro-batcher paths each hand the recorder their own phases)
+    served_p50 = float(np.percentile(lat_ms, 50))
+    names = ["queue_wait"] + [p for p in (
+        "dispatch", "host_cache", "native_lane", "host_stage",
+        "device_sync", "unpack") if any(p in d for d in tally["phases"])]
+    split = {}
+    for name in names:
+        values = (tally["waits"] if name == "queue_wait" else
+                  [d[name] for d in tally["phases"] if name in d])
+        ms = np.asarray(values, np.float64) * 1e3
+        p50 = float(np.percentile(ms, 50))
+        split[name] = {"p50_ms": p50,
+                       "p99_ms": float(np.percentile(ms, 99)),
+                       "share_of_served_p50": p50 / served_p50,
+                       "n": int(ms.size)}
+    inside = sum(v["p50_ms"] for v in split.values())
+    cost = {name: {"calls": len(v),
+                   "p50_us": float(np.percentile(v, 50)) / 1e3,
+                   "p99_us": float(np.percentile(v, 99)) / 1e3}
+            for name, v in tally["cost_ns"].items() if v}
+    print(f"{label} recorder host time over the latency calls: "
+          + ", ".join(f"{k} {v['calls']} calls p50 {v['p50_us']:.1f} p99 "
+                      f"{v['p99_us']:.1f} us" for k, v in cost.items()))
+    print(f"{label} split of {lat_ms.size} sequential calls, served p50 "
+          f"{served_p50:.4f} ms p99 {float(np.percentile(lat_ms, 99)):.4f} "
+          f"ms ({card}): " + ", ".join(
+              f"{k} p50 {v['p50_ms']:.4f} p99 {v['p99_ms']:.4f} ms "
+              f"({100 * v['share_of_served_p50']:.1f}%)"
+              for k, v in split.items())
+          + f"; sum of the p50s {inside:.4f} ms, the rest of the served "
+          f"p50 {served_p50 - inside:.4f} ms")
+    return {"split": split, "recorder_cost": cost,
+            "served_p50_ms": served_p50,
+            "served_p99_ms": float(np.percentile(lat_ms, 99)),
+            "native_telemetry": stats["native_telemetry"],
+            "slo": slo, "tally": {k: v for k, v in tally.items()
+                                  if k not in ("phases", "waits",
+                                               "cost_ns")}}
+
+
+async def _chunked_drive(dev, dispatch_chunk, keys, flushes, hits):
+    """Phase 12b: ``flushes`` flushes of ``hits`` one-hit requests (phase
+    5's Zipf keys) through a MicroBatcher with ``dispatch_chunk``, each
+    flush enqueued whole before the batcher runs; returns (decisions,
+    decisions/s of the timed flushes, the chunk plans' splits)."""
+    from limitador_tpu_torch import Counter, Limit
+    from limitador_tpu_torch.device import AsyncTorchStorage, TorchStorage
+    from limitador_tpu_torch.observability.metrics import PrometheusMetrics
+    from limitador_tpu_torch.observability.native_plane import SloWatchdog
+
+    clock = ManualClock()
+    storage = AsyncTorchStorage(
+        TorchStorage(capacity=C, clock=clock, device=dev),
+        max_batch_hits=hits, max_delay=0.0005,
+        dispatch_chunk=dispatch_chunk)
+    metrics = PrometheusMetrics()
+    storage.set_metrics(metrics)
+    # the recorder feeds a watchdog 1024- and 8192-decision batches here
+    # (SloWatchdog's numpy path; the served phases feed it one decision)
+    watchdog = SloWatchdog(budget_ms=2.0)
+    storage.recorder.slo = watchdog
+    limit = Limit("drive", 100, 3600, [], ["u"])
+    warm = Limit("warm", 1 << 20, 60, [], ["u"])
+    names = [str(k) for k in range(C)]
+    try:
+        # warm-up flush on other keys (first launches, pinned buffers)
+        await asyncio.gather(*[storage.check_and_update(
+            [Counter(warm, {"u": names[i]})], 1, False)
+            for i in range(hits)])
+        decided = []
+        t0 = time.perf_counter()
+        for b in range(flushes):
+            counters = [[Counter(limit, {"u": names[k]})]
+                        for k in keys[b * hits:(b + 1) * hits].tolist()]
+            auths = await asyncio.gather(*[
+                storage.check_and_update(c, 1, False) for c in counters])
+            decided.extend(a.limited for a in auths)
+        seconds = time.perf_counter() - t0
+    finally:
+        await storage.close()
+    splits = _metric_registry(metrics, "dispatch_chunk_splits")
+    samples = watchdog.status()["samples_1h"]
+    if samples != (flushes + 1) * hits:
+        fail(f"chunked dispatch: the SLO watchdog counted {samples} "
+             f"decisions, want {(flushes + 1) * hits}")
+    return np.asarray(decided), flushes * hits / seconds, splits
+
+
+def _metric_registry(metrics, name):
+    """(count, sum) of an unlabelled histogram in a PrometheusMetrics."""
+    samples = {s.name: s.value for m in metrics.registry.collect()
+               if m.name == name for s in m.samples}
+    return int(samples[name + "_count"]), int(samples[name + "_sum"])
+
+
+def phase_chunked(dev, card, flushes=CHUNK_FLUSHES, hits=8192):
+    """Phase 12b: the same Zipf flushes through dispatch_chunk=1024 and
+    =0: equal decisions (and equal to serial order), B1's cluster once a
+    chunk, the chunk counts in dispatch_chunk_splits."""
+    from limitador_tpu_torch.ops import kernel as K
+
+    rng = np.random.default_rng(99)  # phase 5's keys
+    keys = zipf_keys(C, flushes * hits, 0.99, rng)
+    out = {}
+    for chunk in (1024, 0):
+        K.reset_launches()
+        decided, rate, splits = asyncio.run(
+            _chunked_drive(dev, chunk, keys, flushes, hits))
+        launches = dict(K.launches)
+        out[chunk] = (decided, rate, splits, launches)
+        print(f"chunked dispatch (12b) dispatch_chunk={chunk}: "
+              f"{flushes} flushes x {hits} requests, {rate:.0f} "
+              f"decisions/s ({card}); dispatch_chunk_splits count "
+              f"{splits[0]} sum {splits[1]}; B1 launches cluster "
+              f"{launches['check_and_update_cluster']} one block "
+              f"{launches['check_and_update']}")
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    starts = np.r_[0, np.flatnonzero(sk[1:] != sk[:-1]) + 1]
+    rank = np.empty_like(order)
+    rank[order] = np.arange(sk.size) - np.repeat(
+        starts, np.diff(np.r_[starts, sk.size]))
+    want = rank >= 100
+    chunked, whole = out[1024], out[0]
+    if not (np.array_equal(chunked[0], whole[0])
+            and np.array_equal(whole[0], want)):
+        fail("chunked dispatch: decisions differ between dispatch_chunk="
+             "1024 and 0 or from serial order")
+    # the warm-up flush is one more flush of `hits` hits
+    want_chunks = (flushes + 1) * (hits // 1024)
+    if chunked[2] != (flushes + 1, want_chunks) or \
+            chunked[3]["check_and_update_cluster"] != want_chunks:
+        fail(f"chunked dispatch: splits {chunked[2]} and cluster launches "
+             f"{chunked[3]['check_and_update_cluster']}, want "
+             f"{(flushes + 1, want_chunks)} and {want_chunks}")
+    if whole[2] != (flushes + 1, flushes + 1) or \
+            whole[3]["check_and_update_cluster"] != flushes + 1:
+        fail(f"monolithic dispatch: splits {whole[2]}, cluster launches "
+             f"{whole[3]['check_and_update_cluster']}")
+    print(f"chunked dispatch (12b): decisions equal between the settings "
+          f"and to serial order ({int(want.sum())} limited of "
+          f"{want.size})")
+    launches = {k: chunked[3][k] + whole[3][k] for k in chunked[3]}
+    return launches, {"chunk_1024_decisions_per_s": chunked[1],
+                      "monolithic_decisions_per_s": whole[1],
+                      "chunk_1024_splits": chunked[2],
+                      "monolithic_splits": whole[2]}
+
+
+async def _profile_capture(tmpdir, dev, card, calls=200):
+    """Phase 12c: POST /debug/profile start on a --device cuda server,
+    ``calls`` sequential ShouldRateLimit calls, stop: the Chrome trace
+    holds CUDA kernel events of csrc/counter_table.cu."""
+    import re
+
+    import grpc
+
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    limits = os.path.join(tmpdir, "limits.yaml")
+    with open(limits, "w") as f:
+        f.write(LIMITS_YAML)
+    profile_dir = os.path.join(tmpdir, "profile")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        rls_port = sock.getsockname()[1]
+    http, http_port = _http_options()
+    srv = await server.start(server.build_parser().parse_args([
+        limits, "torch", "--device", dev.type, "--rls-host", "127.0.0.1",
+        "--rls-port", str(rls_port), "--profile-dir", profile_dir, *http]))
+
+    def post(action):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", http_port, timeout=60)
+        try:
+            conn.request("POST", "/debug/profile",
+                         json.dumps({"action": action}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    loop = asyncio.get_running_loop()
+    envoy = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+    try:
+        started = await loop.run_in_executor(None, post, "start")
+        t0 = time.perf_counter()
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{rls_port}") as ch:
+            for i in range(calls):
+                await ch.unary_unary(envoy)(_lat_blob(rls_pb2, i, False),
+                                            timeout=60)
+        seconds = time.perf_counter() - t0
+        stopped = await loop.run_in_executor(None, post, "stop")
+        status = json.loads(await _served_get(http_port, "/debug/profile"))
+    finally:
+        await srv.stop()
+    if started[0] != 200 or stopped[0] != 200 or status["active"]:
+        fail(f"profile capture: start {started}, stop {stopped}, status "
+             f"{status}")
+    traces = [n for n in os.listdir(profile_dir) if n.endswith(".json")]
+    if len(traces) != 1:
+        fail(f"profile capture: {traces} in {profile_dir}")
+    with open(os.path.join(profile_dir, traces[0])) as f:
+        events = json.load(f).get("traceEvents", [])
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           KERNEL_SOURCE)) as f:
+        source_kernels = set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
+            f.read()))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = sorted({k for e in kernels for k in source_kernels
+                   if re.search(rf"\b{k}\b", e.get("name", ""))})
+    print(f"profile (12c): {calls} calls in {seconds:.2f}s captured to "
+          f"{traces[0]}: {len(events)} events, {len(kernels)} CUDA kernel "
+          f"events, kernels of {KERNEL_SOURCE}: {ours} ({card})")
+    if not ours:
+        fail("profile capture: no CUDA kernel event of "
+             f"{KERNEL_SOURCE} in the trace")
+    return {"events": len(events), "kernel_events": len(kernels),
+            "source_kernels": ours}
+
+
+def phase_device_plane(dev, card):
+    """Phase 12: (a) the served drives of phases 4 and 6 with the device
+    plane's checks and split, (b) chunked dispatch, (c) a profile
+    capture. Returns (launches of 12a and 12c, results)."""
+    from limitador_tpu_torch.ops import kernel as K
+
+    t0 = time.perf_counter()
+    out = {"standard": {"card": card}, "native": {"card": card}}
+    # each _main_path counts its own run from 0 and returns it
+    runs = []
+    for native in (False, True):
+        with tempfile.TemporaryDirectory() as tmpdir:
+            runs.append(asyncio.run(_main_path(
+                tmpdir, dev, native=native,
+                plane=out["native" if native else "standard"])))
+    K.reset_launches()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        out["profile"] = asyncio.run(_profile_capture(tmpdir, dev, card))
+    runs.append(dict(K.launches))
+    served_launches = {k: sum(run.get(k, 0) for run in runs)
+                       for k in runs[-1]}
+    chunk_launches, out["chunked"] = phase_chunked(dev, card)
+    launches = {k: served_launches[k] + chunk_launches[k]
+                for k in served_launches}
+    print(f"device plane (12): {time.perf_counter() - t0:.2f}s; launches "
+          f"{json.dumps(launches)}")
+    if _launched(served_launches, "check_and_update") == 0:
+        fail("device plane (12): B1 did not launch on the served paths")
+    return launches, out
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -4696,6 +5180,7 @@ def main() -> int:
     served_sharded["routes"] = routes
     with tempfile.TemporaryDirectory() as tmpdir:
         http_launches, http_api = asyncio.run(_http_api(tmpdir, dev, card))
+    plane_launches, device_plane = phase_device_plane(dev, card)
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -4728,13 +5213,14 @@ def main() -> int:
         if missing:
             fail(f"kernels not launched on {label}: {missing}")
         _host_forms_only(got, label, remote=False)
+    _storage_forms(plane_launches, "device plane (12)", ("update_host",))
     # launches on the main paths: phases 4, 5, 6, 7, 8a, 8b, 9a, 9b, 10a,
-    # 10b, 11
+    # 10b, 11, 12
     runs = (launches, drive5_launches, native_launches, drive_launches,
             repl_launches,
             served_launches, tier_launches, served_tier_launches,
             leased_tier_launches, served_default_launches, sharded_launches,
-            served_sharded_launches, http_launches)
+            served_sharded_launches, http_launches, plane_launches)
     launches = {name: sum(run[name] for run in runs) for name in launches}
     kernels = []
     for kname, by_shape in results.items():
@@ -4785,6 +5271,8 @@ def main() -> int:
             "served_sharded": served_sharded,
             "http_api": http_api,
             "http_api_launches": http_launches,
+            "device_plane": device_plane,
+            "device_plane_launches": plane_launches,
         }, f, indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

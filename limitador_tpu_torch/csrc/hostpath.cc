@@ -26,11 +26,13 @@
 // Build: g++ -std=c++17 -O2 -shared -fPIC -pthread
 // (limitador_tpu_torch/native/build.py), bound by
 // limitador_tpu_torch/native/__init__.py. This copy holds the interner,
-// parser, slot map, hot lane, lease and usage exports. The JAX package's
-// pod ownership mirror, plan-seed export, native telemetry plane and
-// partition assist are left out until the port's slices that use them.
+// parser, slot map, hot lane, lease and usage exports and the native
+// telemetry plane (hp_tel_*). The JAX package's pod ownership mirror,
+// plan-seed export and partition assist are left out until the port's
+// slices that use them.
 
 #include <atomic>
+#include <chrono>
 #include <condition_variable>
 #include <cstdint>
 #include <cstring>
@@ -359,9 +361,16 @@ std::atomic<int> g_threads{-1};  // -1 = derive from hardware on first use
 int lane_threads() {
   int configured = g_threads.load(std::memory_order_relaxed);
   if (configured >= 0) return configured;
-  unsigned hw = std::thread::hardware_concurrency();
-  int n = (int)(hw == 0 ? 1 : hw);
-  return n > 4 ? 4 : n;
+  // Asked once: hardware_concurrency() reads the CPU list from /sys on
+  // every call, a syscall that the native telemetry plane timed at
+  // microseconds to hundreds of microseconds in a container, inside
+  // every hot begin's lookup pass (PERF.md).
+  static const int hw_threads = [] {
+    unsigned hw = std::thread::hardware_concurrency();
+    int n = (int)(hw == 0 ? 1 : hw);
+    return n > 4 ? 4 : n;
+  }();
+  return hw_threads;
 }
 
 ParallelPool* pool_for(int threads) {
@@ -615,6 +624,97 @@ int32_t pow2_bucket(int64_t n, int64_t floor_) {
   int64_t b = floor_;
   while (b < n) b <<= 1;
   return (int32_t)b;
+}
+
+// ---------------------------------------------------------------------------
+// Native telemetry plane: lock-free phase histograms and a slow-row
+// exemplar ring for the zero-Python hot lane.
+//
+// The hot lane runs no Python per repeat row, so the flight recorder and
+// the phase histograms of the Python side never see those rows. This
+// plane measures the native phases from inside the library: two
+// steady_clock reads per begin pass and relaxed fetch_adds into a
+// thread-striped bank of log2-ns counters, wait-free, no locks, no
+// Python. State is process-global (not per Ctx) on purpose: hp_hot_finish
+// runs with a NULL ctx after an interner recycle, and a global plane
+// survives recycles by construction. hp_tel_drain snapshots the
+// cumulative totals into a caller buffer in one call; the Python side
+// (observability/native_plane.py) converts them to increments.
+//
+// Exemplars: a begin whose per-row average exceeds the configured
+// threshold records its phase split, the lead row's blob digest and its
+// lease/plan state into a small mutex-guarded ring (slow events are off
+// the hot path by definition), drained into the flight recorder.
+// ---------------------------------------------------------------------------
+
+constexpr int TEL_PHASES = 4;    // hot_lookup, hot_stage, lease_hit, hot_finish
+constexpr int TEL_BUCKETS = 40;  // log2 ns: bucket b holds [2^b, 2^{b+1})
+constexpr int TEL_BANKS = 8;     // thread-striped to keep fetch_adds local
+constexpr int TEL_EX_STRIDE = 12;
+constexpr int TEL_EX_CAP = 64;
+
+enum TelPhase {
+  TEL_HOT_LOOKUP = 0,  // hot-begin plan-mirror lookup pass
+  TEL_HOT_STAGE = 1,   // staging passes (incl. pad and lease consume)
+  TEL_LEASE_HIT = 2,   // begins that answered >= 1 row from a live lease
+  TEL_HOT_FINISH = 3,  // device columns -> response codes + metrics
+};
+
+struct alignas(64) TelBank {
+  std::atomic<uint64_t> count[TEL_PHASES];
+  std::atomic<uint64_t> sum[TEL_PHASES];
+  std::atomic<uint64_t> buckets[TEL_PHASES][TEL_BUCKETS];
+};
+
+struct Tel {
+  std::atomic<int32_t> enabled{0};
+  std::atomic<int64_t> slow_ns{0};       // per-row average threshold; 0 = off
+  std::atomic<int64_t> trace_sample{0};  // 1-in-N begin sampling; 0 = off
+  std::atomic<uint64_t> batch_seq{0};
+  TelBank banks[TEL_BANKS];
+  std::mutex ex_mu;
+  int64_t ring[TEL_EX_CAP][TEL_EX_STRIDE];
+  int ex_n = 0;     // live exemplars
+  int ex_head = 0;  // next write (oldest overwritten when full)
+};
+
+Tel g_tel;
+
+int tel_bank_id() {
+  static std::atomic<int> next{0};
+  // relaxed: bank assignment only needs per-thread spread mod N
+  thread_local int id =
+      next.fetch_add(1, std::memory_order_relaxed) & (TEL_BANKS - 1);
+  return id;
+}
+
+inline int64_t tel_now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+inline void tel_observe(int phase, int64_t ns) {
+  if (ns < 0) ns = 0;
+  int b = 0;
+  uint64_t v = (uint64_t)ns;
+  while (v >>= 1) b++;  // floor(log2); 0 and 1 land in bucket 0
+  if (b >= TEL_BUCKETS) b = TEL_BUCKETS - 1;
+  TelBank& bank = g_tel.banks[tel_bank_id()];
+  // relaxed: each counter is monotone on its own and nothing
+  // synchronizes through them; a drain racing this call may see count
+  // without sum/bucket (or the reverse), and the next drain sees all
+  bank.count[phase].fetch_add(1, std::memory_order_relaxed);
+  bank.sum[phase].fetch_add((uint64_t)ns, std::memory_order_relaxed);
+  bank.buckets[phase][b].fetch_add(1, std::memory_order_relaxed);
+}
+
+void tel_push_exemplar(const int64_t* fields) {
+  std::lock_guard<std::mutex> lk(g_tel.ex_mu);
+  memcpy(g_tel.ring[g_tel.ex_head], fields,
+         TEL_EX_STRIDE * sizeof(int64_t));
+  g_tel.ex_head = (g_tel.ex_head + 1) % TEL_EX_CAP;
+  if (g_tel.ex_n < TEL_EX_CAP) g_tel.ex_n++;
 }
 
 }  // namespace
@@ -1009,6 +1109,80 @@ int32_t hp_usage_drain(void* c, uint8_t* out_blobs, int64_t blob_cap,
   return n;
 }
 
+// ---- native telemetry plane ----------------------------------------------
+// Process-global (see Tel above): every context's begins and every
+// finish, the NULL-ctx finishes that outlive an interner recycle
+// included, land in one set of counters.
+
+// enabled gates the histogram observes; slow_row_ns > 0 also records
+// exemplars for begins whose per-row average exceeds it; trace_sample N
+// stamps every Nth begin's out_meta with a trace id (0 = off).
+void hp_tel_config(int32_t enabled, int64_t slow_row_ns,
+                   int64_t trace_sample) {
+  // relaxed: three independent flags; a begin that sees a mix of old
+  // and new behaves like either config
+  g_tel.enabled.store(enabled, std::memory_order_relaxed);
+  g_tel.slow_ns.store(slow_row_ns < 0 ? 0 : slow_row_ns,
+                      std::memory_order_relaxed);
+  g_tel.trace_sample.store(trace_sample < 0 ? 0 : trace_sample,
+                           std::memory_order_relaxed);
+}
+
+// 1 while the plane is armed (hp_tel_config enabled), else 0.
+int32_t hp_tel_enabled() {
+  return g_tel.enabled.load(std::memory_order_relaxed);
+}
+
+// Snapshot the cumulative histograms into out: TEL_PHASES records of
+// [count, sum_ns, bucket_0 .. bucket_{TEL_BUCKETS-1}], in TelPhase
+// order. Writes min(cap, needed) int64s and returns the full layout
+// size, so a binding built against other constants fails loudly instead
+// of misreading. Wait-free: relaxed reads summed across banks; a racing
+// increment skews one drain by one observation, never corrupts.
+int32_t hp_tel_drain(int64_t* out, int64_t cap) {
+  const int64_t need = (int64_t)TEL_PHASES * (2 + TEL_BUCKETS);
+  int64_t idx = 0;
+  for (int p = 0; p < TEL_PHASES && idx < cap; p++) {
+    uint64_t count = 0, sum = 0;
+    // relaxed: every counter is monotone on its own and the Python
+    // side converts per-bucket deltas against its own baseline, so an
+    // observation a drain under-reads lands whole in the next one
+    for (int k = 0; k < TEL_BANKS; k++) {
+      count += g_tel.banks[k].count[p].load(std::memory_order_relaxed);
+      sum += g_tel.banks[k].sum[p].load(std::memory_order_relaxed);
+    }
+    if (idx < cap) out[idx++] = (int64_t)count;
+    if (idx < cap) out[idx++] = (int64_t)sum;
+    for (int b = 0; b < TEL_BUCKETS && idx < cap; b++) {
+      uint64_t c = 0;
+      // relaxed: the same per-bucket monotone invariant
+      for (int k = 0; k < TEL_BANKS; k++)
+        c += g_tel.banks[k].buckets[p][b].load(std::memory_order_relaxed);
+      out[idx++] = (int64_t)c;
+    }
+  }
+  return (int32_t)need;
+}
+
+// Drain (and clear) the slow-row exemplar ring: up to cap records of
+// TEL_EX_STRIDE int64 fields each, oldest first: [total_ns, lookup_ns,
+// stage_ns, rows, kernel_rows, staged_hits, miss_rows, leased_rows,
+// blob_digest, blob_len, plan_kind, lease_tokens]. Returns records
+// written.
+int32_t hp_tel_exemplars(int64_t* out, int32_t cap) {
+  std::lock_guard<std::mutex> lk(g_tel.ex_mu);
+  int n = g_tel.ex_n < cap ? g_tel.ex_n : cap;
+  int start = (g_tel.ex_head - g_tel.ex_n + 2 * TEL_EX_CAP) % TEL_EX_CAP;
+  for (int i = 0; i < n; i++) {
+    memcpy(out + (int64_t)i * TEL_EX_STRIDE,
+           g_tel.ring[(start + i) % TEL_EX_CAP],
+           TEL_EX_STRIDE * sizeof(int64_t));
+  }
+  g_tel.ex_n = 0;
+  g_tel.ex_head = 0;
+  return n;
+}
+
 // The hot begin: one call per batch covering plan lookup + columnar
 // staging + begin-time response codes.
 //
@@ -1025,8 +1199,11 @@ int32_t hp_usage_drain(void* c, uint8_t* out_blobs, int64_t blob_cap,
 //   out_hit_names[cap]: limit-name token per staged hit
 //   out_ok_ns/out_ok_calls/out_ok_hits[n]: begin-time OK metric
 //       aggregation (plan-OK rows), n_ok_ns distinct namespaces
-//   out_meta[7]: k, nhits, H, hit_rows, miss_rows, overflow_rows,
-//       n_ok_ns
+//   out_meta[12]: k, nhits, H, hit_rows, miss_rows, overflow_rows,
+//       n_ok_ns, foreign_rows (0: the port has no pod split yet), then
+//       the telemetry tail (zeros with telemetry off): lookup_ns,
+//       stage_ns, leased_rows, trace_id (nonzero only for the 1-in-N
+//       sampled begins when hp_tel_config set trace_sample)
 // Returns k (kernel rows staged).
 int32_t hp_hot_begin(void* c, const uint8_t* const* ptrs,
                      const uint32_t* lens, int32_t n, int64_t epoch,
@@ -1043,6 +1220,10 @@ int32_t hp_hot_begin(void* c, const uint8_t* const* ptrs,
   m.sync_epoch(epoch);
   std::vector<int64_t>& ent = ctx->scratch_ent;
   if ((int64_t)ent.size() < n) ent.resize(n);
+  // relaxed: the flag gates clock reads only; a begin straddling a
+  // config change measures (or skips) this one batch
+  const int32_t tel = g_tel.enabled.load(std::memory_order_relaxed);
+  const int64_t tel_t0 = tel ? tel_now_ns() : 0;
 
   // Pass 1 (parallel): hash + mirror lookup per row; OK/UNKNOWN rows get
   // their begin-time code here. Reads only; disjoint writes per range.
@@ -1068,11 +1249,13 @@ int32_t hp_hot_begin(void* c, const uint8_t* const* ptrs,
   } else {
     lookup_range(0, 1);
   }
+  const int64_t tel_t1 = tel ? tel_now_ns() : 0;
 
   // Pass 2 (serial): kernel-row offsets (prefix sum), overflow handling,
   // lease consumption, and the begin-time OK metric aggregation.
   int32_t k = 0;
   int64_t nhits = 0;
+  int64_t leased_rows = 0;
   int64_t hit_rows = 0, miss_rows = 0, overflow_rows = 0;
   int32_t n_ok_ns = 0;
   auto aggregate_ok = [&](int32_t ns_token, int32_t delta) {
@@ -1108,6 +1291,7 @@ int32_t hp_hot_begin(void* c, const uint8_t* const* ptrs,
         m.lease_outstanding--;
         m.leased++;
         e.use_leased++;
+        leased_rows++;
         if (e.lease_tokens == 0) {
           m.lease_active--;
           // exhausted under live demand: renewal signal sized by the
@@ -1201,6 +1385,60 @@ int32_t hp_hot_begin(void* c, const uint8_t* const* ptrs,
   out_meta[4] = miss_rows;
   out_meta[5] = overflow_rows;
   out_meta[6] = n_ok_ns;
+  out_meta[7] = 0;
+  out_meta[8] = 0;
+  out_meta[9] = 0;
+  out_meta[10] = 0;
+  out_meta[11] = 0;
+  if (tel) {
+    const int64_t tel_t2 = tel_now_ns();
+    const int64_t lookup_ns = tel_t1 - tel_t0;
+    const int64_t stage_ns = tel_t2 - tel_t1;
+    tel_observe(TEL_HOT_LOOKUP, lookup_ns);
+    tel_observe(TEL_HOT_STAGE, stage_ns);
+    if (leased_rows > 0) tel_observe(TEL_LEASE_HIT, tel_t2 - tel_t0);
+    // relaxed: the threshold is advisory per batch; the ring itself is
+    // mutex-guarded (tel_push_exemplar)
+    const int64_t slow = g_tel.slow_ns.load(std::memory_order_relaxed);
+    if (slow > 0 && n > 0 && (tel_t2 - tel_t0) > slow * (int64_t)n) {
+      // Slow begin: the lead row's identity and lease/plan state, so the
+      // flight recorder names a culprit. Lead row = the first kernel row
+      // when one staged (its entry is still addressable through ent),
+      // else row 0.
+      int64_t fields[TEL_EX_STRIDE];
+      fields[0] = tel_t2 - tel_t0;
+      fields[1] = lookup_ns;
+      fields[2] = stage_ns;
+      fields[3] = n;
+      fields[4] = k;
+      fields[5] = nhits;
+      fields[6] = miss_rows;
+      fields[7] = leased_rows;
+      if (k > 0) {
+        const PlanEntry& e = m.table[ent[out_rows[0]]];
+        fields[8] = (int64_t)e.hash;
+        fields[9] = (int64_t)e.blob_len;
+        fields[10] = e.kind;
+        fields[11] = e.lease_tokens;
+      } else {
+        fields[8] = (int64_t)Interner::fnv1a((const char*)ptrs[0], lens[0]);
+        fields[9] = (int64_t)lens[0];
+        fields[10] = -1;
+        fields[11] = -1;
+      }
+      tel_push_exemplar(fields);
+    }
+    out_meta[8] = lookup_ns;
+    out_meta[9] = stage_ns;
+    out_meta[10] = leased_rows;
+    // relaxed: batch_seq needs only uniqueness and a 1-in-N cadence
+    const int64_t samp = g_tel.trace_sample.load(std::memory_order_relaxed);
+    if (samp > 0) {
+      uint64_t seq = g_tel.batch_seq.fetch_add(1, std::memory_order_relaxed)
+                     + 1;
+      if (seq % (uint64_t)samp == 0) out_meta[11] = (int64_t)seq;
+    }
+  }
   return k;
 }
 
@@ -1253,6 +1491,10 @@ void hp_hot_finish(void* c, const uint8_t* admitted, const uint8_t* hit_ok,
                    int32_t* out_lim_ns, int32_t* out_lim_name,
                    int64_t* out_lim_count, int64_t* out_counts) {
   (void)c;
+  // relaxed: the begin side's flag invariant; this call may run with a
+  // NULL ctx after an interner recycle, which is why the plane is global
+  const int32_t tel = g_tel.enabled.load(std::memory_order_relaxed);
+  const int64_t tel_t0 = tel ? tel_now_ns() : 0;
   int32_t n_ok = 0, n_lim = 0;
   int64_t base = 0;
   for (int32_t i = 0; i < k; i++) {
@@ -1303,6 +1545,7 @@ void hp_hot_finish(void* c, const uint8_t* admitted, const uint8_t* hit_ok,
   }
   out_counts[0] = n_ok;
   out_counts[1] = n_lim;
+  if (tel) tel_observe(TEL_HOT_FINISH, tel_now_ns() - tel_t0);
 }
 
 }  // extern "C"

@@ -23,11 +23,14 @@ its subclasses) or a ``TorchShardedStorage``: the batchers call only
 ``begin_check_many``, ``finish_check_many``, ``check_many`` and
 ``apply_deltas``.
 
-``ChunkPlanner`` sizes pipelined sub-batches for the native pipeline
-(``device/native_pipeline.py``): a flush is cut into chunks that ride the
-in-flight window, so chunk i+1's staging and upload overlap chunk i's
-device time. The ``MicroBatcher`` here still dispatches each flush as one
-launch.
+Chunked dispatch (``ChunkPlanner``, shared with the compiled and native
+pipelines): a flush is cut into chunks that ride the in-flight window, so
+chunk i+1's staging and upload overlap chunk i's device time and a
+request waits for its chunk's round trip, not the whole flush's. Chunks
+of one flush launch in order on the one dispatch thread and never split a
+request, so the decisions are those of the monolithic flush.
+``dispatch_chunk``: None (auto, sized from the observed device time per
+hit against the 2 ms budget), 0 (monolithic) or a fixed hit count.
 
 Metrics (``AsyncTorchStorage.set_metrics``): each decided request
 observes its batch's round trip (begin to finish, queue wait excluded)
@@ -35,12 +38,16 @@ into ``datastore_device_latency`` (``datastore_latency`` is the
 MetricsLayer's); ``library_stats`` feeds the library gauges
 (``batcher_size``, ``cache_size``, ``batcher_flush_size``, the queue
 depth and, on the sharded table, ``sharded_launches`` and the route
-memo) and ``device_stats`` the per-shard table families.
+memo) and ``device_stats`` the per-shard table families. ``set_metrics``
+also attaches one ``DeviceStatsRecorder`` to every loop's batcher pair:
+flush reasons, queue waits, fill ratios, chunk plans, the per-batch
+phases (``dispatch``, ``host_stage``, ``device_sync``, ``unpack``) and
+the flight recorder, with a ``device_batch_span`` around each batch. A
+batcher without a recorder touches no observability object.
 
-Left out of the port for now (``ROADMAP.md``): the device-plane recorder
-(queue waits, fill ratios, flush reasons, phase timings, the flight
-recorder) and the admission hooks (``chunk_queue_wait`` takes
-``admission=None`` until admission is ported).
+Left out of the port for now (``ROADMAP.md``): the admission hooks
+(``chunk_queue_wait`` takes ``admission=None`` until admission is
+ported).
 """
 
 from __future__ import annotations
@@ -53,6 +60,11 @@ from typing import Dict, List, Optional, Tuple
 
 from ..core.counter import Counter
 from ..core.limit import Limit
+from ..observability.device_plane import (
+    DeviceStatsRecorder,
+    current_request_id,
+)
+from ..observability.tracing import device_batch_span
 from ..storage.base import (
     AsyncCounterStorage,
     Authorization,
@@ -88,6 +100,21 @@ class ChunkPlanner:
         self.dispatch_chunk = dispatch_chunk
         self.target_s = float(target_s)
         self._per_hit_s = 0.0  # EWMA device_sync seconds per hit
+
+    #: retarget() bounds: the device-time target moves only inside this
+    #: envelope (seconds)
+    MIN_TARGET_S = 0.0005
+    MAX_TARGET_S = 0.008
+
+    def retarget(self, target_s: float) -> float:
+        """Move the auto mode's device-time target, clamped to
+        ``[MIN_TARGET_S, MAX_TARGET_S]``; a fixed ``dispatch_chunk``
+        still wins in :meth:`chunk_hits`. Returns the applied target in
+        seconds."""
+        self.target_s = min(
+            max(float(target_s), self.MIN_TARGET_S), self.MAX_TARGET_S
+        )
+        return self.target_s
 
     def observe(self, device_s: float, hits: int) -> None:
         """Feed one finished launch's device_sync time."""
@@ -161,6 +188,14 @@ def _observe(metrics, n_requests: int, seconds: float) -> None:
         hist.observe(seconds)
 
 
+def _timed_call(fn, arg):
+    """(fn(arg), t_start, t_end): phase timing across an executor hop
+    (t_start minus the caller's submit time is the executor handoff)."""
+    t_start = time.perf_counter()
+    out = fn(arg)
+    return out, t_start, time.perf_counter()
+
+
 class MicroBatcher:
     def __init__(
         self,
@@ -168,12 +203,15 @@ class MicroBatcher:
         max_batch_hits: int = 8192,
         max_delay: float = 0.0005,
         max_inflight: int = 2,
+        dispatch_chunk: Optional[int] = None,
     ):
         self.storage = storage
         self.max_batch_hits = max_batch_hits
         self.max_delay = max_delay
         self.max_inflight = max_inflight
-        self._pending: List[tuple] = []  # (_Request, Future)
+        #: sizes each flush's launches (module docstring)
+        self.chunk_planner = ChunkPlanner(dispatch_chunk)
+        self._pending: List[tuple] = []  # (_Request, Future, t_enq, rid)
         self._pending_hits = 0
         self._wakeup: Optional[asyncio.Event] = None
         self._task: Optional[asyncio.Task] = None
@@ -189,6 +227,9 @@ class MicroBatcher:
         self._finishers: set = set()
         #: PrometheusMetrics sink (``AsyncTorchStorage.set_metrics``)
         self.metrics = None
+        #: DeviceStatsRecorder (``AsyncTorchStorage.set_metrics``); None
+        #: = detached: no request id or record per decision
+        self.recorder = None
         #: hits per flush, drained by ``AsyncTorchStorage.library_stats``
         self.flush_sizes: List[int] = []
 
@@ -205,31 +246,53 @@ class MicroBatcher:
         self._ensure_started()
         future = asyncio.get_running_loop().create_future()
         request = _Request(counters, delta, load)
-        self._pending.append((request, future))
+        rid = current_request_id() if self.recorder is not None else None
+        self._pending.append((request, future, time.perf_counter(), rid))
         self._pending_hits += len(request.ordered)
         self._wakeup.set()
         return await future
 
     @staticmethod
     def _fail(batch, exc) -> None:
-        for _r, future in batch:
+        for _r, future, _t, _rid in batch:
             if not future.done():
                 future.set_exception(exc)
 
     @staticmethod
     def _resolve(batch, auths) -> None:
-        for (_r, future), auth in zip(batch, auths):
+        for (_r, future, _t, _rid), auth in zip(batch, auths):
             if not future.done():
                 future.set_result(auth)
 
-    async def _finish_inflight(self, batch, handle, finish, sem, loop, t0):
+    @staticmethod
+    def _record_batch(rec, batch, batch_id, t_flush, phases) -> None:
+        rec.record_batch(
+            (
+                (t_enq, rid,
+                 request.ordered[0].namespace if request.ordered else None)
+                for request, _future, t_enq, rid in batch
+            ),
+            batch_id, t_flush, phases,
+        )
+
+    async def _finish_inflight(self, batch, handle, finish, sem, loop, t0,
+                               t_flush, batch_id, phases, n_hits):
         try:
-            auths = await loop.run_in_executor(
-                self._collect_pool, finish, handle
-            )
-            if self.metrics is not None:
-                _observe(self.metrics, len(batch), time.perf_counter() - t0)
-            self._resolve(batch, auths)
+            with device_batch_span(batch_id, len(batch)) as span_phases:
+                auths, t_fin, t_done = await loop.run_in_executor(
+                    self._collect_pool, _timed_call, finish, handle
+                )
+                phases["device_sync"] = t_done - t_fin
+                self.chunk_planner.observe(phases["device_sync"], n_hits)
+                if self.metrics is not None:
+                    _observe(self.metrics, len(batch),
+                             time.perf_counter() - t0)
+                self._resolve(batch, auths)
+                phases["unpack"] = time.perf_counter() - t_done
+                span_phases(phases)
+                rec = self.recorder
+                if rec is not None:
+                    self._record_batch(rec, batch, batch_id, t_flush, phases)
         except Exception as exc:
             self._fail(batch, exc)
         finally:
@@ -256,26 +319,78 @@ class MicroBatcher:
             # Take the inflight slot BEFORE the batch: under device
             # backpressure requests keep coalescing in _pending.
             await sem.acquire()
+            # The linger may have filled the batch past the size trigger:
+            # classify by what released the flush.
+            reason = (
+                "size" if self._pending_hits >= self.max_batch_hits
+                else "deadline"
+            )
             batch = self._pending
-            # Recorded in hits, the batcher_flush_size histogram's unit.
-            self.flush_sizes.append(self._pending_hits)
-            del self.flush_sizes[:-1000]
+            flush_hits = self._pending_hits
             self._pending = []
             self._pending_hits = 0
-            t0 = time.perf_counter()
-            try:
-                handle = await loop.run_in_executor(
-                    self._dispatch_pool, begin, [r for r, _f in batch]
+            requests = [r for r, _f, _t, _rid in batch]
+            # Recorded in hits, the batcher_flush_size histogram's unit.
+            self.flush_sizes.append(flush_hits)
+            del self.flush_sizes[:-1000]
+            rec = self.recorder
+            t_flush = time.perf_counter()
+            batch_id = 0
+            if rec is not None:
+                batch_id = rec.next_batch_id()
+                rec.record_flush(
+                    reason, flush_hits / self.max_batch_hits,
+                    [t_flush - t for _r, _f, t, _rid in batch],
                 )
-            except Exception as exc:
-                sem.release()
-                self._fail(batch, exc)
-                continue
-            t = loop.create_task(
-                self._finish_inflight(batch, handle, finish, sem, loop, t0)
+            # Chunked dispatch: the flush splits into launches riding the
+            # inflight window, so chunk i+1 stages and uploads while
+            # chunk i runs. The first chunk uses the slot taken above;
+            # each further chunk takes its own.
+            sizes = [len(r.ordered) for r in requests]
+            ranges = self.chunk_planner.split(
+                sizes, chunk_queue_wait(None, batch[0][2], t_flush)
             )
-            self._finishers.add(t)
-            t.add_done_callback(self._finishers.discard)
+            chunk_hits = [sum(sizes[lo:hi]) for lo, hi in ranges]
+            if rec is not None:
+                rec.record_chunks(chunk_hits)
+            failed = None
+            for idx, (lo, hi) in enumerate(ranges):
+                sub = batch[lo:hi]
+                if failed is not None:
+                    # A begin failure is plane-wide (the launch never
+                    # reached the device): the rest of the flush fails as
+                    # a monolithic dispatch would have.
+                    self._fail(sub, failed)
+                    continue
+                if idx:
+                    try:
+                        await sem.acquire()
+                    except BaseException as exc:
+                        # Cancellation mid-flush must not strand the
+                        # chunks still waiting on the window.
+                        self._fail(batch[lo:], exc)
+                        raise
+                t0 = time.perf_counter()
+                try:
+                    handle, t_begin, t_launch = await loop.run_in_executor(
+                        self._dispatch_pool, _timed_call, begin,
+                        requests[lo:hi],
+                    )
+                except Exception as exc:
+                    sem.release()
+                    self._fail(sub, exc)
+                    failed = exc
+                    continue
+                phases = {
+                    "dispatch": t_begin - t0,
+                    "host_stage": t_launch - t_begin,
+                }
+                t = loop.create_task(self._finish_inflight(
+                    sub, handle, finish, sem, loop, t0, t_flush, batch_id,
+                    phases, chunk_hits[idx],
+                ))
+                self._finishers.add(t)
+                t.add_done_callback(self._finishers.discard)
 
     async def close(self) -> None:
         self._closed = True
@@ -292,10 +407,21 @@ class MicroBatcher:
         # otherwise await forever: decide them in one final batch.
         if self._pending:
             batch, self._pending = self._pending, []
+            flush_hits = self._pending_hits
             self._pending_hits = 0
+            rec = self.recorder
+            if rec is not None:
+                t_now = time.perf_counter()
+                rec.record_flush(
+                    "shutdown", flush_hits / self.max_batch_hits,
+                    [t_now - t for _r, _f, t, _rid in batch],
+                )
             try:
                 self._resolve(
-                    batch, self.storage.check_many([r for r, _f in batch])
+                    batch,
+                    self.storage.check_many(
+                        [r for r, _f, _t, _rid in batch]
+                    ),
                 )
             except Exception as exc:
                 self._fail(batch, exc)
@@ -322,6 +448,8 @@ class UpdateBatcher:
         self._pool = ThreadPoolExecutor(1, thread_name_prefix="torch-update")
         #: PrometheusMetrics sink (``AsyncTorchStorage.set_metrics``)
         self.metrics = None
+        #: DeviceStatsRecorder; None = detached
+        self.recorder = None
 
     def _ensure_started(self) -> None:
         if self._task is None or self._task.done():
@@ -335,7 +463,7 @@ class UpdateBatcher:
         self._ensure_started()
         future = asyncio.get_running_loop().create_future()
         self._pending[counter] = self._pending.get(counter, 0) + int(delta)
-        self._waiters.append(future)
+        self._waiters.append((future, time.perf_counter()))
         self._wakeup.set()
         await future
 
@@ -344,13 +472,23 @@ class UpdateBatcher:
 
     @staticmethod
     def _settle(waiters, exc) -> None:
-        for future in waiters:
+        for future, _t in waiters:
             if future.done():
                 continue
             if exc is not None:
                 future.set_exception(exc)
             else:
                 future.set_result(None)
+
+    def _record_flush(self, reason: str, n_counters: int, waiters) -> None:
+        rec = self.recorder
+        if rec is not None:
+            t_now = time.perf_counter()
+            rec.record_flush(
+                reason, n_counters / self.max_batch,
+                [t_now - t for _f, t in waiters],
+                batcher="update",
+            )
 
     def _swap(self):
         items = list(self._pending.items())
@@ -373,7 +511,12 @@ class UpdateBatcher:
                         return
             if len(self._pending) < self.max_batch:
                 await asyncio.sleep(self.max_delay)
+            reason = (
+                "size" if len(self._pending) >= self.max_batch
+                else "deadline"
+            )
             items, waiters = self._swap()
+            self._record_flush(reason, len(items), waiters)
             t0 = time.perf_counter()
             try:
                 await loop.run_in_executor(self._pool, self._apply, items)
@@ -397,6 +540,7 @@ class UpdateBatcher:
                 pass
         if self._pending:
             items, waiters = self._swap()
+            self._record_flush("shutdown", len(items), waiters)
             try:
                 self._apply(items)
             except Exception as exc:
@@ -424,17 +568,24 @@ class AsyncTorchStorage(AsyncCounterStorage):
         storage: Optional[TorchStorage] = None,
         max_batch_hits: int = 8192,
         max_delay: float = 0.0005,
+        dispatch_chunk: Optional[int] = None,
         **kwargs,
     ):
         self.inner = storage or TorchStorage(**kwargs)
-        self.batcher = MicroBatcher(self.inner, max_batch_hits, max_delay)
+        self.batcher = MicroBatcher(
+            self.inner, max_batch_hits, max_delay,
+            dispatch_chunk=dispatch_chunk,
+        )
         self.update_batcher = UpdateBatcher(self.inner, max_delay=max_delay)
-        self._batcher_args = (max_batch_hits, max_delay)
+        self._batcher_args = (max_batch_hits, max_delay, dispatch_chunk)
         # loop -> (MicroBatcher, UpdateBatcher)
         self._loop_batchers: dict = {}
         self._default_bound = False
         self._shards_lock = threading.Lock()
         self._metrics = None
+        #: the DeviceStatsRecorder every batcher pair writes into
+        #: (``set_metrics``); None = detached
+        self.recorder: Optional[DeviceStatsRecorder] = None
 
     def _batcher_pairs(self) -> list:
         """Every live (check, update) batcher pair, the default pair
@@ -466,23 +617,33 @@ class AsyncTorchStorage(AsyncCounterStorage):
                     self._default_bound = True
                     pair = (self.batcher, self.update_batcher)
                 else:
-                    max_batch_hits, max_delay = self._batcher_args
+                    max_batch_hits, max_delay, dispatch_chunk = (
+                        self._batcher_args
+                    )
                     pair = (
-                        MicroBatcher(self.inner, max_batch_hits, max_delay),
+                        MicroBatcher(self.inner, max_batch_hits, max_delay,
+                                     dispatch_chunk=dispatch_chunk),
                         UpdateBatcher(self.inner, max_delay=max_delay),
                     )
                     for batcher in pair:
                         batcher.metrics = self._metrics
+                        batcher.recorder = self.recorder
                 self._loop_batchers[loop] = pair
             return pair
 
     def set_metrics(self, metrics) -> None:
         """Have the batchers observe each request's device batch round
-        trip (queue wait excluded) into ``datastore_device_latency``."""
+        trip (queue wait excluded) into ``datastore_device_latency``, and
+        attach one device-plane recorder to every batcher pair (queue
+        waits, fill ratios, flush reasons, chunk plans, phase timings,
+        the slow-decision flight recorder)."""
         self._metrics = metrics
+        self.recorder = DeviceStatsRecorder(metrics)
         for mb, ub in self._batcher_pairs():
             mb.metrics = metrics
             ub.metrics = metrics
+            mb.recorder = self.recorder
+            ub.recorder = self.recorder
 
     def library_stats(self) -> dict:
         """Operational metrics for the /metrics library gauges,

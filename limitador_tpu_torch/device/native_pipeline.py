@@ -40,6 +40,14 @@ cached lane, byte-identical decisions.
 ``lease_*`` Prometheus families; ``plan_cache_stats``, ``lane_stats`` and
 ``lease_stats`` the ``/debug/stats`` sections.
 
+Device-plane telemetry: the pipeline shares the compiled limiter's
+recorder (``recorder``, set by the limiter's ``set_metrics``). Each flush
+records its reason, queue waits and chunk plan; each chunk its phases
+(``dispatch``, ``host_cache``, ``native_lane``, ``host_stage``,
+``device_sync``, ``unpack``) inside a ``device_batch_span``, which
+carries the hot begin's native trace id and splits when the native
+telemetry plane sampled that begin.
+
 With ``metrics``, the rows this pipeline decides count into
 ``authorized_calls``, ``authorized_hits`` and ``limited_calls`` as the
 JAX pipeline counts them: the hot lane's begin-time OK aggregates and
@@ -51,7 +59,7 @@ labels stay empty for these rows, as in the JAX package).
 Left out of the port for now (``ROADMAP.md``): the pod fast path
 (``attach_pod``, the foreign-row lane and the bulk forwards, with the
 ``pod_*`` families), the admission breaker (``fail_over_queued``), the
-native ingress entry points, the flight recorder and the OTLP spans.
+native ingress entry points.
 """
 
 from __future__ import annotations
@@ -69,6 +77,8 @@ import numpy as np
 
 from ..core.counter import Counter
 from ..core.limit import Namespace
+from ..observability.device_plane import current_request_id
+from ..observability.tracing import device_batch_span, tracing_enabled
 from ..ops import kernel as K
 from ..storage.base import StorageError
 from ..storage.gcra import device_eligible, emission_interval_ms
@@ -127,7 +137,8 @@ class _SubmitShard:
 
     def __init__(self, loop, max_inflight: int):
         self.loop = loop
-        self.pending: List[Tuple[bytes, asyncio.Future, float]] = []
+        #: (blob, future, t_enqueue, request id)
+        self.pending: List[tuple] = []
         self.flush_task: Optional[asyncio.Task] = None
         self.sem = asyncio.Semaphore(max_inflight)
         self.inflight: set = set()
@@ -156,6 +167,7 @@ class NativeRlsPipeline:
         max_inflight: int = 2,
         plan_cache_size: int = 1 << 16,
         hot_lane: Optional[bool] = None,
+        dispatch_chunk: Optional[int] = None,
     ):
         from ..server.proto import rls_pb2
 
@@ -183,8 +195,14 @@ class NativeRlsPipeline:
         self.max_batch = max_batch
         #: concurrent dispatched-but-uncollected batches PER SHARD
         self.max_inflight = max_inflight
-        # chunks auto-sized from the observed device time per hit
-        self.chunk_planner = ChunkPlanner()
+        # None = chunks auto-sized from the observed device time per
+        # hit, 0 = monolithic, > 0 = fixed rows per chunk
+        self.chunk_planner = ChunkPlanner(dispatch_chunk)
+        self._recorder = None
+        # host_cache / native_lane splits of the last begin, read by
+        # _timed_begin_batch on the same dispatch thread
+        self._last_host_cache = 0.0
+        self._last_native_lane = 0.0
 
         # Raises BuildError when the host lane cannot be built.
         self.hp = native.HostPath()
@@ -248,6 +266,28 @@ class NativeRlsPipeline:
                 max_rows=max(max_batch, 1 << 12),
             )
             self.plan_cache.add_mirror(self._hot_lane)
+
+    @property
+    def recorder(self):
+        """The device-plane recorder, shared with the compiled limiter
+        (whose ``set_metrics`` may run after this pipeline is built).
+        Memoized on first sight, so the per-request gate in ``submit``
+        is one attribute read."""
+        rec = self._recorder
+        if rec is None:
+            rec = self.limiter.recorder
+            if rec is not None:
+                self._recorder = rec
+        return rec
+
+    @property
+    def _pending(self):
+        """Aggregate pending queue across serving shards (the
+        ``/debug/stats`` queue depth)."""
+        out: list = []
+        for shard in list(self._shards.values()):
+            out.extend(shard.pending)
+        return out
 
     # -- plan management ----------------------------------------------------
 
@@ -443,13 +483,16 @@ class NativeRlsPipeline:
         if shard is None:
             shard = self._shard_for(loop)
         future = loop.create_future()
-        shard.pending.append((blob, future, time.perf_counter()))
+        shard.pending.append((
+            blob, future, time.perf_counter(),
+            current_request_id() if self.recorder is not None else None,
+        ))
         task = shard.flush_task
         if task is None or task.done():
             shard.flush_task = _spawn_detached(self._flush_soon(shard))
         if len(shard.pending) == self.max_batch:
             # == not >=: one size-flush per threshold crossing.
-            _spawn_detached(self._flush(shard))
+            _spawn_detached(self._flush(shard, "size"))
         return future
 
     async def _flush_soon(self, shard: _SubmitShard) -> None:
@@ -458,12 +501,25 @@ class NativeRlsPipeline:
         if shard.pending:
             shard.flush_task = _spawn_detached(self._flush_soon(shard))
 
-    async def _flush(self, shard: _SubmitShard) -> None:
+    async def _flush(
+        self, shard: _SubmitShard, reason: Optional[str] = None
+    ) -> None:
         batch, shard.pending = shard.pending, []
         if not batch:
             return
         loop = asyncio.get_running_loop()
+        rec = self.recorder
         t_flush = time.perf_counter()
+        batch_id = 0
+        if rec is not None:
+            batch_id = rec.next_batch_id()
+            rec.record_flush(
+                reason or (
+                    "size" if len(batch) >= self.max_batch else "deadline"
+                ),
+                len(batch) / self.max_batch,
+                [t_flush - t for _b, _f, t, _rid in batch],
+            )
         # Two phases: the host phase (lane -> parse -> masks -> slots ->
         # kernel LAUNCH) runs on the dispatch thread and returns without
         # waiting on the device; the collect phase (download -> resolve
@@ -473,12 +529,14 @@ class NativeRlsPipeline:
         ranges = self.chunk_planner.split(
             [1] * len(batch), chunk_queue_wait(None, batch[0][2], t_flush)
         )
+        if rec is not None:
+            rec.record_chunks([hi - lo for lo, hi in ranges])
 
         def _drop_rest(idx, exc):
             """Fail chunk idx onward: nothing may be left stranded when
             this coroutine unwinds."""
             for l2, h2 in ranges[idx:]:
-                for _blob, future, _t in batch[l2:h2]:
+                for _blob, future, _t, _rid in batch[l2:h2]:
                     if not future.done():
                         future.set_exception(exc)
 
@@ -486,7 +544,7 @@ class NativeRlsPipeline:
         for ci, (lo, hi) in enumerate(ranges):
             sub = batch[lo:hi]
             if failed is not None:
-                for _blob, future, _t in sub:
+                for _blob, future, _t, _rid in sub:
                     if not future.done():
                         future.set_exception(failed)
                 continue
@@ -495,28 +553,36 @@ class NativeRlsPipeline:
             except BaseException as exc:
                 _drop_rest(ci, exc)
                 raise
+            t_submit = time.perf_counter()
             try:
-                results, slow_rows, pendings = await loop.run_in_executor(
-                    self._dispatch_pool, self._begin_batch,
-                    [b for b, _f, _t in sub],
+                ((results, slow_rows, pendings), t_begin, t_staged,
+                 t_cache, t_lane) = await loop.run_in_executor(
+                    self._dispatch_pool, self._timed_begin_batch,
+                    [b for b, _f, _t, _rid in sub],
                 )
             except BaseException as exc:
                 shard.sem.release()
                 if not isinstance(exc, Exception):
                     _drop_rest(ci, exc)
                     raise
-                for _blob, future, _t in sub:
+                for _blob, future, _t, _rid in sub:
                     if not future.done():
                         future.set_exception(exc)
                 failed = exc
                 continue
             # Rows the columnar path can't take: exact per-request path.
             for r in slow_rows:
-                blob, future, _t = sub[r]
+                blob, future, _t, _rid = sub[r]
                 _spawn_detached(self._decide_exact(blob, future))
+            phases = {
+                "dispatch": t_begin - t_submit,
+                "host_cache": t_cache,
+                "native_lane": t_lane,
+                "host_stage": (t_staged - t_begin) - t_cache - t_lane,
+            }
             task = loop.run_in_executor(
                 self._collect_pool, self._finish_batch, sub, results,
-                pendings,
+                pendings, batch_id, t_flush, phases,
             )
             shard.inflight.add(task)
 
@@ -525,7 +591,7 @@ class NativeRlsPipeline:
                 shard.sem.release()
                 exc = t.exception()
                 if exc is not None:
-                    for _blob, future, _t in sub:
+                    for _blob, future, _t, _rid in sub:
                         if not future.done():
                             future.set_exception(exc)
 
@@ -641,6 +707,17 @@ class NativeRlsPipeline:
         with self._native_lock:
             return self._begin_batch_locked(blobs)
 
+    def _timed_begin_batch(self, blobs: List[bytes]):
+        """(begin result, t_start, t_end, host_cache_s, native_lane_s):
+        the dispatch thread's host phase with its plan-cache and hot-lane
+        splits, read right after the begin on the same thread (a
+        concurrent ``decide_many`` can skew the split, never the
+        results)."""
+        t_start = time.perf_counter()
+        out = self._begin_batch(blobs)
+        return (out, t_start, time.perf_counter(), self._last_host_cache,
+                self._last_native_lane)
+
     def _begin_batch_locked(self, blobs: List[bytes], use_cache: bool = True):
         """Host phase, bytes-resolving form: the coded begin below plus
         response bytes for the rows the hot lane decided at begin time
@@ -689,6 +766,8 @@ class NativeRlsPipeline:
         lane = self._hot_lane if use_cache else None
         codes = None
         miss_idx: List[int] = []
+        self._last_host_cache = 0.0
+        self._last_native_lane = 0.0
         if lane is not None:
             # ---- lane 0: the zero-Python hot lane -----------------------
             # One GIL-free C call covers plan lookup, columnar staging
@@ -697,6 +776,7 @@ class NativeRlsPipeline:
             # a concurrent LRU eviction cannot recycle a plan-pinned slot
             # in between. begin_check_columnar copies the staged columns
             # before the lock is released: the next begin reuses them.
+            t_lane0 = time.perf_counter()
             with self.storage._lock:
                 staged = lane.begin(blobs, cache_epoch)
                 staged.fill_results = False
@@ -706,6 +786,7 @@ class NativeRlsPipeline:
                     )
                     pendings.append(_HotPending(staged, lane, inflight))
             codes = staged.codes
+            self._last_native_lane = time.perf_counter() - t_lane0
             if staged.ok_aggr and self.metrics is not None:
                 for ns, calls, hits in lane.ok_aggr_strings(staged.ok_aggr):
                     self.metrics.incr_authorized_calls(ns, n=calls)
@@ -724,6 +805,7 @@ class NativeRlsPipeline:
             )
 
         # ---- lane 1: the hot-descriptor plan cache (pure Python) --------
+        t_cache0 = time.perf_counter()
         if cache is not None:
             cached_rows: List[Tuple[int, DecisionPlan]] = []
             ok_blob = self.OK_BLOB
@@ -758,6 +840,7 @@ class NativeRlsPipeline:
                 metrics.incr_authorized_hits(ns, ok_hits[ns])
         else:
             miss_idx = list(range(n))
+        self._last_host_cache = time.perf_counter() - t_cache0
         if not miss_idx:
             return results, slow_rows, pendings, codes
         return self._begin_miss_lane(
@@ -933,24 +1016,45 @@ class NativeRlsPipeline:
         for (ns, name), count in limited.items():
             metrics.incr_limited_calls(ns, name, n=count)
 
-    def _finish_batch(self, batch, results, pendings) -> None:
+    def _finish_batch(self, batch, results, pendings, batch_id: int,
+                      t_flush: float, phases: dict) -> None:
         """Collect phase: block on the device results, fill the kernel-
         decided rows, resolve every settled future in ONE loop callback."""
-        t_fin = time.perf_counter()
-        for pending in pendings:
-            self._finish_namespace(pending, results)
-        self.chunk_planner.observe(time.perf_counter() - t_fin, len(batch))
-        # None marks slow-path rows (resolved later); UNKNOWN serializes
-        # to b"" (all-default proto3), a valid response, so only None is
-        # the sentinel. All futures of a shard's batch live on that
-        # shard's loop.
-        pairs = [
-            (future, out)
-            for (_blob, future, _t), out in zip(batch, results)
-            if out is not None
-        ]
-        if pairs:
-            pairs[0][0].get_loop().call_soon_threadsafe(_resolve_many, pairs)
+        with device_batch_span(
+            batch_id, len(batch), _native_trace_attrs(pendings)
+        ) as span_phases:
+            t_fin = time.perf_counter()
+            for pending in pendings:
+                self._finish_namespace(pending, results)
+            t_done = time.perf_counter()
+            phases["device_sync"] = t_done - t_fin
+            self.chunk_planner.observe(phases["device_sync"], len(batch))
+            # None marks slow-path rows (resolved later); UNKNOWN
+            # serializes to b"" (all-default proto3), a valid response, so
+            # only None is the sentinel. All futures of a shard's batch
+            # live on that shard's loop.
+            pairs = [
+                (future, out)
+                for (_blob, future, _t, _rid), out in zip(batch, results)
+                if out is not None
+            ]
+            if pairs:
+                pairs[0][0].get_loop().call_soon_threadsafe(
+                    _resolve_many, pairs
+                )
+            phases["unpack"] = time.perf_counter() - t_done
+            span_phases(phases)
+            rec = self.recorder
+            if rec is not None:
+                rec.record_batch(
+                    (
+                        (t_enq, rid, None)
+                        for (_blob, _future, t_enq, rid), out
+                        in zip(batch, results)
+                        if out is not None  # slow rows decide elsewhere
+                    ),
+                    batch_id, t_flush, phases,
+                )
 
     def _begin_namespace(
         self, plan, token, rows, hits, cols, results, blobs, row_map,
@@ -1320,7 +1424,7 @@ class NativeRlsPipeline:
                 future.set_exception(exc)
 
     async def _close_shard(self, shard: _SubmitShard) -> None:
-        await self._flush(shard)
+        await self._flush(shard, "shutdown")
         if shard.inflight:
             await asyncio.gather(*shard.inflight, return_exceptions=True)
 
@@ -1340,6 +1444,18 @@ class NativeRlsPipeline:
                     pass  # shard loop died mid-shutdown: futures are gone
         self._dispatch_pool.shutdown(wait=False)
         self._collect_pool.shutdown(wait=False)
+
+
+def _native_trace_attrs(pendings) -> Optional[dict]:
+    """Span attributes of a 1-in-N sampled hot-lane batch: the trace id
+    the C begin stamped and its native splits. None unless an exporter
+    is installed and this batch was sampled."""
+    if not tracing_enabled():
+        return None
+    for pending in pendings:
+        if type(pending) is _HotPending and pending.staged.trace_id:
+            return native.staged_trace_attrs(pending.staged)
+    return None
 
 
 def _spawn_detached(coro) -> asyncio.Task:

@@ -28,10 +28,15 @@ fallback from here.
 Metrics (``set_metrics``): each decided request observes its batch's
 device round trip (begin to finish) into ``datastore_device_latency``;
 ``library_stats`` adds the CEL evaluation counts, the queue depth and the
-counter-plan cache to the storage's.
+counter-plan cache to the storage's. ``set_metrics`` also takes the
+wrapped storage's device-plane recorder (one batch-id sequence and one
+flight recorder per process): each flush records its reason, queue
+waits and chunk plan, and each chunk its phases (``dispatch``,
+``host_stage`` with the flush's columnar evaluation on the first chunk,
+``device_sync``, ``unpack``) inside a ``device_batch_span``.
 
-Left out of the port for now (``ROADMAP.md``): the device-plane recorder
-and the admission plane's breaker (``fail_over_queued``).
+Left out of the port for now (``ROADMAP.md``): the admission plane's
+breaker (``fail_over_queued``).
 """
 
 from __future__ import annotations
@@ -46,7 +51,15 @@ from ..core.cel import Context
 from ..core.counter import Counter
 from ..core.limiter import AsyncRateLimiter, CheckResult
 from ..core.limit import Limit, Namespace
-from .batcher import AsyncTorchStorage, ChunkPlanner, _observe, chunk_queue_wait
+from ..observability.device_plane import current_request_id
+from ..observability.tracing import device_batch_span
+from .batcher import (
+    AsyncTorchStorage,
+    ChunkPlanner,
+    _observe,
+    _timed_call,
+    chunk_queue_wait,
+)
 from .compiler import NamespaceCompiler
 from .plan_cache import CounterPlanCache
 
@@ -54,15 +67,18 @@ __all__ = ["CompiledTorchLimiter"]
 
 
 class _RawPending:
-    __slots__ = ("namespace", "values", "delta", "load", "future", "t_enq")
+    __slots__ = ("namespace", "values", "delta", "load", "future", "t_enq",
+                 "rid")
 
-    def __init__(self, namespace, values, delta, load, future, t_enq=0.0):
+    def __init__(self, namespace, values, delta, load, future, t_enq=0.0,
+                 rid=None):
         self.namespace = namespace
         self.values = values
         self.delta = delta
         self.load = load
         self.future = future
         self.t_enq = t_enq
+        self.rid = rid
 
 
 class _LoopShard:
@@ -110,11 +126,16 @@ class CompiledTorchLimiter(AsyncRateLimiter):
         self,
         storage: AsyncTorchStorage,
         plan_cache_size: int = 1 << 16,
+        dispatch_chunk: Optional[int] = None,
     ):
         super().__init__(storage)
-        # chunks auto-sized from the observed device time per hit
-        self.chunk_planner = ChunkPlanner()
+        # None = chunks auto-sized from the observed device time per
+        # hit, 0 = monolithic, > 0 = fixed hits per chunk
+        self.chunk_planner = ChunkPlanner(dispatch_chunk)
         self._metrics = None
+        #: the wrapped storage's DeviceStatsRecorder (``set_metrics``);
+        #: None = detached
+        self.recorder = None
         # CEL evaluation counts of compilers dropped by limits changes
         self._retired_vec_evals = 0
         self._retired_fb_evals = 0
@@ -202,6 +223,7 @@ class CompiledTorchLimiter(AsyncRateLimiter):
         shapes the compiler does not cover) observe their own."""
         self._metrics = metrics
         self._torch.set_metrics(metrics)
+        self.recorder = self._torch.recorder
 
     def _retire_compiler(self, compiler) -> None:
         if compiler is not None:
@@ -270,6 +292,7 @@ class CompiledTorchLimiter(AsyncRateLimiter):
         shard.pending.append(_RawPending(
             namespace, values, delta, load_counters, future,
             time.perf_counter(),
+            current_request_id() if self.recorder is not None else None,
         ))
         task = shard.flush_task
         if task is None or task.done():
@@ -310,12 +333,25 @@ class CompiledTorchLimiter(AsyncRateLimiter):
                 self._flush_soon(shard)
             )
 
-    async def _flush(self, shard: _LoopShard) -> None:
+    async def _flush(
+        self, shard: _LoopShard, reason: Optional[str] = None
+    ) -> None:
         batch, shard.pending = shard.pending, []
         if not batch:
             return
         loop = asyncio.get_running_loop()
+        rec = self.recorder
         t_flush = time.perf_counter()
+        batch_id = 0
+        if rec is not None:
+            batch_id = rec.next_batch_id()
+            rec.record_flush(
+                reason or (
+                    "size" if len(batch) >= self.max_batch else "deadline"
+                ),
+                len(batch) / self.max_batch,
+                [t_flush - p.t_enq for p in batch],
+            )
         live: List[Tuple[_RawPending, List[Counter]]] = []
         try:
             from .storage import _Request
@@ -330,6 +366,7 @@ class CompiledTorchLimiter(AsyncRateLimiter):
             if not live:
                 return
             reqs = [_Request(c, p.delta, p.load) for p, c in live]
+            t_eval = time.perf_counter()
         except BaseException as exc:
             # Nothing may escape silently: an exception lost here would
             # strand every other submitter of this batch.
@@ -339,6 +376,10 @@ class CompiledTorchLimiter(AsyncRateLimiter):
             [len(c) for _p, c in live],
             chunk_queue_wait(None, batch[0].t_enq, t_flush),
         )
+        if rec is not None:
+            rec.record_chunks([
+                sum(len(c) for _p, c in live[lo:hi]) for lo, hi in ranges
+            ])
 
         def _drop_rest(idx, exc):
             for l2, h2 in ranges[idx:]:
@@ -357,10 +398,10 @@ class CompiledTorchLimiter(AsyncRateLimiter):
             except BaseException as exc:
                 _drop_rest(ci, exc)
                 raise
-            t0 = time.perf_counter()
+            t_submit = time.perf_counter()
             try:
-                handle = await loop.run_in_executor(
-                    self._dispatch_pool,
+                handle, t_begin, t_launch = await loop.run_in_executor(
+                    self._dispatch_pool, _timed_call,
                     self._torch.inner.begin_check_many, reqs[lo:hi],
                 )
             except BaseException as exc:
@@ -371,9 +412,18 @@ class CompiledTorchLimiter(AsyncRateLimiter):
                 _fail_futures([p for p, _c in sub_live], exc)
                 failed = exc
                 continue
+            # host_stage folds the on-loop columnar evaluation (once per
+            # flush, on its first chunk) in with the launch; the wait for
+            # an inflight slot is backpressure, not host work.
+            phases = {
+                "dispatch": t_begin - t_submit,
+                "host_stage": (t_launch - t_begin) + (
+                    (t_eval - t_flush) if ci == 0 else 0.0
+                ),
+            }
             task = loop.run_in_executor(
                 self._collect_pool, self._collect_batch, handle, sub_live,
-                t0,
+                t_submit, batch_id, t_flush, phases,
             )
             shard.inflight.add(task)
 
@@ -386,27 +436,38 @@ class CompiledTorchLimiter(AsyncRateLimiter):
 
             task.add_done_callback(_collected)
 
-    def _collect_batch(self, handle, live, t0: float) -> None:
+    def _collect_batch(self, handle, live, t0: float, batch_id: int,
+                       t_flush: float, phases: dict) -> None:
         """Collect-thread phase: device transfer, decode, resolve every
         future in one loop callback per loop."""
-        t_fin = time.perf_counter()
-        auths = self._torch.inner.finish_check_many(handle)
-        t_done = time.perf_counter()
-        self.chunk_planner.observe(
-            t_done - t_fin,
-            sum(len(counters) for _p, counters in live),
-        )
-        if self._metrics is not None:
-            _observe(self._metrics, len(live), t_done - t0)
-        by_loop: Dict[object, list] = {}
-        for (p, counters), auth in zip(live, auths):
-            loaded = counters if p.load else []
-            result = CheckResult(auth.limited, loaded, auth.limit_name)
-            by_loop.setdefault(p.future.get_loop(), []).append(
-                (p.future, result)
+        with device_batch_span(batch_id, len(live)) as span_phases:
+            auths, t_fin, t_done = _timed_call(
+                self._torch.inner.finish_check_many, handle
             )
-        for floop, pairs in by_loop.items():
-            floop.call_soon_threadsafe(_settle_results, pairs)
+            phases["device_sync"] = t_done - t_fin
+            self.chunk_planner.observe(
+                phases["device_sync"],
+                sum(len(counters) for _p, counters in live),
+            )
+            if self._metrics is not None:
+                _observe(self._metrics, len(live), t_done - t0)
+            by_loop: Dict[object, list] = {}
+            for (p, counters), auth in zip(live, auths):
+                loaded = counters if p.load else []
+                result = CheckResult(auth.limited, loaded, auth.limit_name)
+                by_loop.setdefault(p.future.get_loop(), []).append(
+                    (p.future, result)
+                )
+            for floop, pairs in by_loop.items():
+                floop.call_soon_threadsafe(_settle_results, pairs)
+            phases["unpack"] = time.perf_counter() - t_done
+            span_phases(phases)
+            rec = self.recorder
+            if rec is not None:
+                rec.record_batch(
+                    ((p.t_enq, p.rid, p.namespace) for p, _c in live),
+                    batch_id, t_flush, phases,
+                )
 
     def _evaluate_batch(
         self, batch: List[_RawPending]
@@ -475,7 +536,7 @@ class CompiledTorchLimiter(AsyncRateLimiter):
         return requests
 
     async def _close_shard(self, shard: _LoopShard) -> None:
-        await self._flush(shard)
+        await self._flush(shard, "shutdown")
         if shard.inflight:
             await asyncio.gather(*shard.inflight, return_exceptions=True)
 

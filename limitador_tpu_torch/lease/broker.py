@@ -36,8 +36,12 @@ The tier demotion pre-pass (``reclaim_slots``) revokes every lease
 touching the slots a TierManager round is about to demote and settles
 them through the same credit lane.
 
+A refresh pass that credited or granted anything records its duration
+as the device-plane recorder's ``lease`` phase (and offers it to the
+flight recorder as a ``lease-refresh`` entry).
+
 Left out of the port for now (``ROADMAP.md``): the capacity controller's
-``grant_scale`` knob and the flight-recorder phase of the refresh pass.
+``grant_scale`` knob.
 """
 
 from __future__ import annotations
@@ -219,12 +223,26 @@ class LeaseBroker:
             credited = self._settle(returns)
             granted = self._grant(lane, candidates, epoch, now)
             dt = time.perf_counter() - t0
+            self._record(dt, credited, granted)
             return {
                 "returns": len(returns),
                 "credited_tokens": credited,
                 "grants": granted,
                 "duration_s": dt,
             }
+
+    def _record(self, dt: float, credited: int, granted: int) -> None:
+        """The refresh pass's ``lease`` phase: a slow settle/grant cycle
+        shows beside the slow batches in ``/debug/stats``."""
+        rec = self.pipeline.recorder
+        if rec is None or (credited == 0 and granted == 0):
+            return
+        phases = {"lease": dt}
+        rec.record_phases(phases)
+        if rec.flight.would_admit(dt):
+            rec.record_decision(
+                dt, None, "lease-refresh", 0, 0.0, rec.phases_ms(phases),
+            )
 
     def _settle(self, returns: List[Tuple[int, int]]) -> int:
         """Credit stranded/expired tokens back to their counters."""

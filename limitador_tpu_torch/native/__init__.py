@@ -13,7 +13,11 @@ pre-allocated kernel staging buffers and begin-time response codes, and
 one finish call that turns the device result columns into response codes
 and aggregated metrics. ctypes releases the GIL around every call. The
 quota-lease exports (``hp_lease_*``) and the usage drain
-(``hp_usage_drain``) ride the same mirror.
+(``hp_usage_drain``) ride the same mirror. The native telemetry plane
+(``hp_tel_*``: process-global log2-ns histograms of the hot lane's
+phases and a slow-row exemplar ring) is armed by ``tel_config`` and read
+by ``tel_drain`` and ``tel_exemplars``; ``observability/native_plane.py``
+is its Python half.
 
 Every pointer handed to the library is a host buffer (numpy arrays and
 ``bytes``): the C++ lane never sees a CUDA pointer. The staging columns
@@ -21,10 +25,13 @@ Every pointer handed to the library is a host buffer (numpy arrays and
 which the next begin reuses; ``TorchStorage.begin_check_columnar`` copies
 them before its storage lock is released.
 
-Not in the port yet (``ROADMAP.md``): the JAX package's native telemetry
-plane (``hp_tel_*``), pod ownership mirror (``hp_pod_*``, plan stamps),
-plan-seed export and ``hp_partition_positions``; the port's copy of the
-source leaves them out. The pointer-table begin (``hp_hot_begin``, the
+The begin's meta is the JAX package's 12 slots wide; slot 7 (the pod
+split's foreign rows) stays 0, as the port has no pod yet.
+
+Not in the port yet (``ROADMAP.md``): the JAX package's pod ownership
+mirror (``hp_pod_*``, plan stamps), plan-seed export and
+``hp_partition_positions``; the port's copy of the source leaves them
+out. The pointer-table begin (``hp_hot_begin``, the
 native ingress's entry) is compiled, as ``hp_hot_begin_buf`` calls it,
 and not bound.
 """
@@ -45,6 +52,12 @@ __all__ = [
     "available",
     "lane_available",
     "lease_available",
+    "tel_available",
+    "tel_config",
+    "tel_enabled",
+    "tel_drain",
+    "tel_exemplars",
+    "staged_trace_attrs",
     "build_error",
     "HostPath",
     "HotStaged",
@@ -67,6 +80,15 @@ LANE_OVER = 4
 LANE_ERROR = 5
 
 _INT32_MAX = (1 << 31) - 1
+
+#: telemetry phases of the host lane, in the C TelPhase enum order
+TEL_PHASES = ("hot_lookup", "hot_stage", "lease_hit", "hot_finish")
+#: log2-ns histogram buckets per phase: bucket b holds [2^b, 2^{b+1}) ns
+TEL_BUCKETS = 40
+#: int64 fields per drained slow-row exemplar (hp_tel_exemplars)
+TEL_EX_STRIDE = 12
+#: int64 slots of the hot begin's meta (hp_hot_begin out_meta)
+META_WIDTH = 12
 
 _bind_lock = threading.Lock()
 _bound = None
@@ -160,6 +182,17 @@ def _bind(lib) -> None:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int32,
     ]
+    # -- native telemetry plane (process-global; observability/
+    # native_plane.py drains it) ---------------------------------------
+    lib.hp_tel_config.argtypes = [
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.hp_tel_enabled.restype = ctypes.c_int32
+    lib.hp_tel_enabled.argtypes = []
+    lib.hp_tel_drain.restype = ctypes.c_int32
+    lib.hp_tel_drain.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.hp_tel_exemplars.restype = ctypes.c_int32
+    lib.hp_tel_exemplars.argtypes = [ctypes.c_void_p, ctypes.c_int32]
     lib.hp_hot_begin_buf.restype = ctypes.c_int32
     lib.hp_hot_begin_buf.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int32,
@@ -216,6 +249,69 @@ def lane_available() -> bool:
 def lease_available() -> bool:
     """True when the loaded library exports the quota-lease symbols."""
     return hasattr(_load(), "hp_lease_grant")
+
+
+def tel_available() -> bool:
+    """True when the loaded library exports the telemetry plane (builds
+    the library at first use; raises ``BuildError`` when it cannot)."""
+    return hasattr(_load(), "hp_tel_drain")
+
+
+def tel_config(enabled: bool, slow_row_ns: int = 0,
+               trace_sample: int = 0) -> bool:
+    """Arm (or disarm) the native telemetry plane: the histogram
+    observes, the slow-row exemplar threshold (per-row average ns; 0 =
+    exemplars off) and 1-in-N begin trace sampling (0 = off). Builds the
+    library at first use; returns True once the plane is configured."""
+    _load().hp_tel_config(1 if enabled else 0, int(slow_row_ns),
+                          int(trace_sample))
+    return True
+
+
+def tel_enabled() -> bool:
+    """True while the telemetry plane is armed. Reads the library only
+    when it is already loaded (a process that never loaded it has the
+    plane off)."""
+    lib = build.loaded()
+    if lib is None:
+        return False
+    return bool(_load().hp_tel_enabled())
+
+
+def tel_drain() -> Dict[str, dict]:
+    """Cumulative native phase histograms:
+    ``{phase: {"count", "sum_ns", "buckets": [TEL_BUCKETS]}}`` in one C
+    call. The C side echoes its layout size: a constants mismatch
+    (binding against another build of the library) raises instead of
+    misreading."""
+    stride = 2 + TEL_BUCKETS
+    out = np.zeros(len(TEL_PHASES) * stride, np.int64)
+    need = _load().hp_tel_drain(out.ctypes.data, out.shape[0])
+    if need != out.shape[0]:
+        raise RuntimeError(
+            f"hp_tel_drain layout mismatch: library says {need} int64s, "
+            f"binding allocated {out.shape[0]}"
+        )
+    snap: Dict[str, dict] = {}
+    for i, phase in enumerate(TEL_PHASES):
+        rec = out[i * stride:(i + 1) * stride]
+        snap[phase] = {
+            "count": int(rec[0]),
+            "sum_ns": int(rec[1]),
+            "buckets": rec[2:].tolist(),
+        }
+    return snap
+
+
+def tel_exemplars(cap: int = 64) -> List[dict]:
+    """Drain (and clear) the slow-row exemplar ring: one dict per slow
+    begin, oldest first."""
+    out = np.zeros((max(int(cap), 1), TEL_EX_STRIDE), np.int64)
+    n = _load().hp_tel_exemplars(out.ctypes.data, out.shape[0])
+    keys = ("total_ns", "lookup_ns", "stage_ns", "rows", "kernel_rows",
+            "staged_hits", "miss_rows", "leased_rows", "blob_digest",
+            "blob_len", "plan_kind", "lease_tokens")
+    return [dict(zip(keys, row)) for row in out[:n].tolist()]
 
 
 class HostPath:
@@ -345,11 +441,13 @@ class HotStaged:
 
     __slots__ = (
         "codes", "k", "nhits", "H", "rows", "row_nhits", "row_delta",
-        "row_ns", "hit_names", "ok_aggr", "fill_results",
+        "row_ns", "hit_names", "ok_aggr", "fill_results", "leased_rows",
+        "lookup_ns", "stage_ns", "trace_id",
     )
 
     def __init__(self, codes, k, nhits, H, rows, row_nhits, row_delta,
-                 row_ns, hit_names, ok_aggr):
+                 row_ns, hit_names, ok_aggr, leased_rows=0, lookup_ns=0,
+                 stage_ns=0, trace_id=0):
         self.codes = codes
         self.k = k
         self.nhits = nhits
@@ -361,6 +459,25 @@ class HotStaged:
         self.hit_names = hit_names
         self.ok_aggr = ok_aggr  # [(ns_token, calls, hits)] at begin time
         self.fill_results = True
+        # telemetry tail (zeros with the plane off): the begin's native
+        # phase splits, leased-row count and the 1-in-N sampled trace id
+        # (0 = unsampled) for OTLP span attachment
+        self.leased_rows = leased_rows
+        self.lookup_ns = lookup_ns
+        self.stage_ns = stage_ns
+        self.trace_id = trace_id
+
+
+def staged_trace_attrs(staged: HotStaged) -> dict:
+    """OTLP span attributes for a 1-in-N sampled hot-lane begin: the
+    trace id the C side stamped and the native phase splits. Callers
+    gate on ``staged.trace_id`` first."""
+    return {
+        "native.trace_id": int(staged.trace_id),
+        "native.hot_lookup_ms": round(staged.lookup_ns / 1e6, 4),
+        "native.hot_stage_ms": round(staged.stage_ns / 1e6, 4),
+        "native.leased_rows": int(staged.leased_rows),
+    }
 
 
 class NativeHotLane:
@@ -393,9 +510,11 @@ class NativeHotLane:
         self.fresh = np.zeros(c, bool)
         self._hit_names = np.empty(c, np.int32)
         self._resize_rows(max_rows)
-        # the begin's 7 geometry slots (k, nhits, H, hit/miss/overflow
-        # rows, namespaces aggregated)
-        self._meta = np.zeros(7, np.int64)
+        # the begin's meta: 7 geometry slots (k, nhits, H, hit/miss/
+        # overflow rows, namespaces aggregated), the pod's foreign rows
+        # (0 here) and the telemetry tail (lookup_ns, stage_ns,
+        # leased_rows, trace_id)
+        self._meta = np.zeros(META_WIDTH, np.int64)
         # token -> namespace / limit-name string memos (metrics apply)
         self._ns_strings: Dict[int, str] = {}
         self._name_strings: Dict[int, Optional[str]] = {}
@@ -587,6 +706,8 @@ class NativeHotLane:
             self._rows[:k].copy(), self._row_nhits[:k].copy(),
             self._row_delta[:k].copy(), self._row_ns[:k].copy(),
             self._hit_names[:nhits].copy(), ok_aggr,
+            leased_rows=int(meta[10]), lookup_ns=int(meta[8]),
+            stage_ns=int(meta[9]), trace_id=int(meta[11]),
         )
 
     def kernel_columns(self, H: int):

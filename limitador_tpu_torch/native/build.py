@@ -27,7 +27,8 @@ from pathlib import Path
 from ..ops.build import BuildError
 
 __all__ = [
-    "BuildError", "library", "build", "build_info", "build_status", "SOURCE",
+    "BuildError", "library", "loaded", "build", "build_info", "build_status",
+    "SOURCE",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -99,6 +100,12 @@ def library() -> ctypes.CDLL:
                 _build_error = str(exc)
                 raise
         return _lib
+
+
+def loaded():
+    """The library when it is already loaded, else None (builds
+    nothing)."""
+    return _lib
 
 
 def build_status() -> dict:

@@ -13,14 +13,16 @@ Families, names, help texts, types and buckets are the JAX package's.
 Besides the reference families, this module declares those of the layers
 the port has: the batchers and caches, CEL evaluation, the plan caches,
 the native hot lane, quota leases, the per-shard device tables, the
-usage observatory (``tenant_*``), the sharded table and the tiers. A
-family of a plane the port does not have yet (the pod, admission, the
-capacity controller, the SLO watchdog, the native telemetry plane, the
-flight recorder, the serving model, the signal bus, the native ingress,
-the cached storage) is declared with the slice that brings the plane.
-The recorder-fed ``batcher_queue_wait`` / ``batcher_batch_fill_ratio`` /
-``batcher_flushes`` are declared and pre-seeded, and stay at zero until
-the device-plane recorder is ported (ROADMAP Queue A item 4).
+usage observatory (``tenant_*``), the sharded table, the tiers, the
+device-plane recorder (``batcher_queue_wait``,
+``batcher_batch_fill_ratio``, ``batcher_flushes``,
+``device_phase_latency``, ``dispatch_chunk_*``), the native telemetry
+plane (``native_phase_*``) and the SLO watchdog (``slo_*``,
+``device_backed``). A family of a plane the port does not have yet (the
+pod, admission, the capacity controller, the process flight recorder,
+the serving model, the signal bus, the native ingress with its
+``native_phase_h2i_respond``, the cached storage) is declared with the
+slice that brings the plane.
 
 ``datastore_latency`` reads the MetricsLayer's two aggregates, as the JAX
 server wires them (main.rs:908-917): ``install_metrics_layer`` installs
@@ -50,8 +52,9 @@ from prometheus_client.openmetrics.exposition import (
     generate_latest as openmetrics_latest,
 )
 
-from .device_plane import BATCHERS, FLUSH_REASONS, current_request_id
+from .device_plane import BATCHERS, FLUSH_REASONS, PHASES, current_request_id
 from .metrics_layer import MetricsLayer, install, installed
+from .native_plane import NATIVE_PHASE_BUCKETS
 from .tracing import current_trace_id
 
 __all__ = [
@@ -216,8 +219,8 @@ class PrometheusMetrics:
             "interpreter",
             registry=self.registry,
         )
-        # -- device plane: the batchers' queues (the recorder's families
-        # stay at zero until the recorder is ported) and the per-shard
+        # -- device plane: the batchers' queues and the recorder's
+        # families (device_plane.DeviceStatsRecorder), and the per-shard
         # device tables, polled from device_stats() sources at render
         # time.
         self.batcher_queue_depth = Gauge(
@@ -254,6 +257,33 @@ class PrometheusMetrics:
             "(check = decision path, update = write-behind path)",
             ["batcher", "reason"],
             registry=self.registry,
+        )
+        self.device_phase_latency = Histogram(
+            "device_phase_latency",
+            "Per-phase device batch breakdown: dispatch (executor "
+            "handoff), host_stage (array build + kernel launch), "
+            "device_sync (device round trip), unpack (decode + resolve)",
+            ["phase"],
+            registry=self.registry,
+            buckets=(
+                0.0001, 0.00025, 0.0005, 0.001, 0.002, 0.005, 0.01,
+                0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+            ),
+        )
+        # -- chunked dispatch (device/batcher.py ChunkPlanner): how
+        # flushes split into pipelined launches.
+        self.dispatch_chunk_hits = Histogram(
+            "dispatch_chunk_hits",
+            "Hits per dispatched sub-batch chunk (one kernel launch); "
+            "monolithic flushes observe their full size once",
+            registry=self.registry,
+            buckets=(256, 512, 1024, 2048, 4096, 8192, 16384, 32768),
+        )
+        self.dispatch_chunk_splits = Histogram(
+            "dispatch_chunk_splits",
+            "Chunks a flush was split into (1 = monolithic dispatch)",
+            registry=self.registry,
+            buckets=(1, 2, 3, 4, 6, 8, 12, 16),
         )
         self.counter_slots_used = Gauge(
             "counter_slots_used",
@@ -349,6 +379,94 @@ class PrometheusMetrics:
             "Decision plans live in the C-side plan mirror",
             registry=self.registry,
         )
+        # -- native telemetry plane (native_plane.py + csrc/hostpath.cc
+        # hp_tel_*): per-phase latency of the zero-Python hot lane,
+        # measured inside the C library and merged bucket for bucket at
+        # render time (the pow2 edges match the C log2-ns buckets).
+        self.native_phase_hot_lookup = Histogram(
+            "native_phase_hot_lookup",
+            "Hot-begin plan-mirror lookup pass latency (per begin call, "
+            "measured natively)",
+            registry=self.registry,
+            buckets=NATIVE_PHASE_BUCKETS,
+        )
+        self.native_phase_hot_stage = Histogram(
+            "native_phase_hot_stage",
+            "Hot-begin columnar staging latency: scatter into the "
+            "pre-allocated upload buffers, pow2 padding and lease "
+            "consume (per begin call, measured natively)",
+            registry=self.registry,
+            buckets=NATIVE_PHASE_BUCKETS,
+        )
+        self.native_phase_lease_hit = Histogram(
+            "native_phase_lease_hit",
+            "Full begin latency of calls that admitted at least one row "
+            "from a live quota lease (measured natively)",
+            registry=self.registry,
+            buckets=NATIVE_PHASE_BUCKETS,
+        )
+        self.native_phase_hot_finish = Histogram(
+            "native_phase_hot_finish",
+            "Hot-finish latency: device result columns to response "
+            "codes + metric aggregation (per finish call, measured "
+            "natively)",
+            registry=self.registry,
+            buckets=NATIVE_PHASE_BUCKETS,
+        )
+        # -- SLO burn-rate watchdog (native_plane.SloWatchdog): the
+        # p99 budget tracked over 5m/1h windows of decision latency.
+        self.slo_p99_ms_5m = Gauge(
+            "slo_p99_ms_5m",
+            "Observed p99 decision latency (ms) over the trailing 5m "
+            "window (bucket upper edge)",
+            registry=self.registry,
+        )
+        self.slo_p99_ms_1h = Gauge(
+            "slo_p99_ms_1h",
+            "Observed p99 decision latency (ms) over the trailing 1h "
+            "window (bucket upper edge)",
+            registry=self.registry,
+        )
+        self.slo_burn_rate_5m = Gauge(
+            "slo_burn_rate_5m",
+            "SLO error-budget burn rate over 5m: share of decisions "
+            "over budget / (1 - target quantile); >1 = p99 breach pace",
+            registry=self.registry,
+        )
+        self.slo_burn_rate_1h = Gauge(
+            "slo_burn_rate_1h",
+            "SLO error-budget burn rate over 1h",
+            registry=self.registry,
+        )
+        self.slo_budget_ms = Gauge(
+            "slo_budget_ms",
+            "Configured decision-latency SLO budget (ms) the watchdog "
+            "tracks at its target quantile",
+            registry=self.registry,
+        )
+        self.slo_breached = Gauge(
+            "slo_breached",
+            "1 while BOTH burn-rate windows exceed 1.0 (sustained p99 "
+            "budget breach), else 0",
+            registry=self.registry,
+        )
+        self.slo_breached_actionable = Gauge(
+            "slo_breached_actionable",
+            "1 while the SLO is breached AND a non-CPU device backs "
+            "this process — the pageable combination (a CPU-fallback "
+            "breach is real but not operator-fixable; alert on THIS, "
+            "graph slo_breached)",
+            registry=self.registry,
+        )
+        # The JAX package's help text, kept for one exposition; the
+        # port answers it from the serving table's torch device.
+        self.device_backed = Gauge(
+            "device_backed",
+            "1 when a non-CPU jax backend serves this process, 0 on "
+            "CPU fallback, -1 before the backend is known",
+            registry=self.registry,
+        )
+        self.device_backed.set(-1)
         # -- quota leases (lease/broker.py): the outstanding-token level
         # is the over-admission bound.
         self.lease_admissions = Counter(
@@ -522,16 +640,25 @@ class PrometheusMetrics:
             self.batcher_batch_fill_ratio.labels(batcher)
             for reason in FLUSH_REASONS:
                 self.batcher_flushes.labels(batcher, reason)
+        for phase in PHASES:
+            self.device_phase_latency.labels(phase)
         for variant in ("lean", "coupled", "global"):
             self.sharded_launches.labels(variant)
         self._library_sources: list = []
         self._counter_baselines: dict = {}
+        self._native_planes: list = []
         self._render_hooks: list = []
         # OpenMetrics exemplar rendering: off by default; enable_exemplars
         # arms trace-id exemplars on the decision-latency tail buckets
         # and the OpenMetrics exposition.
         self.exemplars_enabled = False
         self._exemplar_min_s = 0.025
+
+    def attach_native_plane(self, plane) -> None:
+        """Attach a ``native_plane.NativePlane``; its ``poll(self)`` runs
+        on every render (native phase histogram merge, slow-row exemplar
+        drain, slo_* and device_backed gauges)."""
+        self._native_planes.append(plane)
 
     def attach_render_hook(self, hook) -> None:
         """Attach any object exposing ``poll(metrics)``; called on every
@@ -554,6 +681,8 @@ class PrometheusMetrics:
         self._library_sources.append(source)
 
     def _poll_library_sources(self) -> None:
+        for plane in self._native_planes:
+            plane.poll(self)
         for hook in self._render_hooks:
             hook.poll(self)
         levels = dict.fromkeys((

@@ -17,7 +17,7 @@ Departures from the JAX module (ROADMAP Queue C):
   2) instead of serving on without span export.
 
 Left for later slices: the pod hop (``hop_trace_metadata``,
-``peer_decide_span``) and the device batch span (``device_batch_span``).
+``peer_decide_span``).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ __all__ = [
     "configure_tracing",
     "should_rate_limit_span",
     "datastore_span",
+    "device_batch_span",
     "tracing_enabled",
     "set_sample_rate",
     "sample_rate",
@@ -204,9 +205,56 @@ def _datastore_span(op: str):
             yield
 
 
-@contextmanager
+class _NoopRecordSpan:
+    """Shared no-op stand-in for the span helpers that yield a setter:
+    one object, entered any number of times, at no per-call cost."""
+
+    def __enter__(self):
+        return _noop_record
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP_RECORD_SPAN = _NoopRecordSpan()
+
+
 def _noop_record_span():
-    yield _noop_record
+    return _NOOP_RECORD_SPAN
+
+
+def device_batch_span(batch_id: int, n_requests: int, attrs=None):
+    """Span around one device batch round trip, carrying the batch id
+    and (through the yielded setter) the per-phase timing breakdown as
+    ``batch.phase.*_ms`` attributes, so that a trace view shows where a
+    slow batch spent its time. ``attrs`` adds span attributes (the
+    native telemetry plane attaches ``native.trace_id`` and the native
+    phase splits of a 1-in-N sampled hot-lane batch). Emitted from the
+    batchers' collect phase, outside any MetricsLayer aggregate: the
+    per-request datastore spans already account this wall clock. With
+    no exporter it is the shared no-op."""
+    if not _enabled or not _head_decision():
+        return _NOOP_RECORD_SPAN
+    return _device_batch_span(batch_id, n_requests, attrs)
+
+
+@contextmanager
+def _device_batch_span(batch_id: int, n_requests: int, attrs=None):
+    with _tracer.start_as_current_span("datastore") as span:
+        span.set_attribute("datastore.operation", "device_batch")
+        span.set_attribute("batch.id", batch_id)
+        span.set_attribute("batch.requests", n_requests)
+        if attrs:
+            for key, value in attrs.items():
+                span.set_attribute(key, value)
+
+        def record(phases: dict) -> None:
+            for name, seconds in phases.items():
+                span.set_attribute(
+                    f"batch.phase.{name}_ms", round(seconds * 1e3, 3)
+                )
+
+        yield record
 
 
 def should_rate_limit_span(namespace: str, hits_addend: int, carrier=None):

@@ -12,7 +12,8 @@ of the slices ported so far:
         [--metrics-exemplars on|off] [--tracing-endpoint URL] \\
         [--tracing-sample-rate F] [--grpc-reflection-service] \\
         [--global-namespaces NS,NS --global-region N] \\
-        [--batch-delay-us U] [--rate-limit-headers NONE|DRAFT_VERSION_03] \\
+        [--batch-delay-us U] [--dispatch-chunk auto|off|N] \\
+        [--rate-limit-headers NONE|DRAFT_VERSION_03] \\
         [--pipeline standard|compiled|native] [--native-hot-lane on|off] \\
         [--plan-cache-size N] [--lease-mode on|off] [--lease-max-tokens N] \\
         [--usage-topk K] [--usage-drain-interval S] \\
@@ -20,7 +21,9 @@ of the slices ported so far:
         [--tier-mode on|off [--tier-cold FILE] [--tier-migrate-interval S]] \\
         [--node-id ID --listen-address HOST:PORT --peer HOST:PORT ... \\
          --advertise-address HOST:PORT] \\
-        [--snapshot-path FILE --snapshot-period S]
+        [--snapshot-path FILE --snapshot-period S] [--profile-dir DIR] \\
+        [--native-trace-sample N] [--native-slow-row-us U] \\
+        [--slo-budget-ms MS]
 
 Storages: ``torch`` (default) keeps the counter table on the card
 (``--device cuda``, the default) or, for tests, on the CPU
@@ -86,9 +89,11 @@ arms ``--tier-cold`` again). A checkpoint that cannot be restored
 HTTP (``server/http_api.py``, every storage) on ``--http-host``:
 ``--http-port``: ``/status``, ``/api/spec``, ``/metrics``,
 ``/limits/{ns}``, ``/counters/{ns}``, ``POST /check``, ``/report`` and
-``/check_and_report``, and ``/debug/stats``, ``/debug/top`` and
-``/debug/tiering``. ``/metrics`` carries the reference's families and
-those of the layers the server runs (``observability/metrics.py``);
+``/check_and_report``, and ``/debug/stats``, ``/debug/top``,
+``/debug/tiering`` and ``/debug/profile`` (``torch.profiler`` captures
+into ``--profile-dir``, CUDA activity included on ``--device cuda``).
+``/metrics`` carries the reference's families and those of the layers
+the server runs (``observability/metrics.py``);
 ``datastore_latency`` reads the MetricsLayer's ``should_rate_limit``
 aggregate. ``--metric-labels`` (or the watched ``--metric-labels-file``)
 adds CEL-valued labels. gRPC server reflection is always on (the
@@ -97,16 +102,31 @@ accepted only so that the JAX server's command lines parse), and every
 request carries an ``x-request-id``. ``--tracing-endpoint`` exports
 spans over OTLP/HTTP+JSON.
 
+Device plane (torch and sharded storage): the batchers and pipelines
+write flush reasons, queue waits, fill ratios, chunk plans and per-batch
+phase timings into one recorder (``/metrics`` ``batcher_*``,
+``device_phase_latency``, ``dispatch_chunk_*``; ``/debug/stats``
+``flush_reasons`` and the slowest-32 ``flight_recorder``). A flush is cut
+into launches of ``--dispatch-chunk`` hits (auto by default: sized from
+the observed device time per hit against 2 ms; ``off`` = one launch a
+flush). Torch storage also arms the host lane's native telemetry plane
+(``native_phase_*``; ``--native-slow-row-us`` exemplars into the flight
+recorder; ``--native-trace-sample`` 1-in-N trace ids on the batch
+spans) and an SLO burn-rate watchdog of ``--slo-budget-ms`` at p99
+(``slo_*``, ``device_backed``; ``/debug/stats`` ``native_telemetry``,
+``slo``, ``device_backed``).
+
 Nothing falls back: a native pipeline or lease tier that cannot come up
 (the host lane does not build, the hot lane is unavailable, the storage
-is not torch, rate-limit headers are asked for), an HTTP port that
+is not torch, rate-limit headers are asked for), a native telemetry plane
+that cannot arm (the host lane does not build), an HTTP port that
 cannot be bound and a ``--tracing-endpoint`` that cannot start stop the
 server with an error (exit 2), and a lease refresh, usage drain or tier
 migration round that fails while serving stops it too (exit 1).
 
-Not in the port yet (``ROADMAP.md``): admission, the device-plane
-recorder and ``--dispatch-chunk``, ``--serving-shards``, the host-memory
-``distributed`` storage, the native ingress and the multi-process pod.
+Not in the port yet (``ROADMAP.md``): admission, ``--serving-shards``,
+the host-memory ``distributed`` storage, the native ingress and the
+multi-process pod.
 """
 
 from __future__ import annotations
@@ -126,6 +146,7 @@ from typing import Optional
 from ..core.cel import CelError
 from ..core.limiter import AsyncRateLimiter, RateLimiter
 from ..observability import tracing
+from ..observability.device_plane import TorchProfiler, default_profile_dir
 from ..observability.metrics import PrometheusMetrics, install_metrics_layer
 from ..ops.build import BuildError
 from ..storage.base import StorageError
@@ -195,6 +216,19 @@ def _positive_interval(value: str) -> float:
     if interval <= 0:
         raise argparse.ArgumentTypeError("poll interval must be > 0 seconds")
     return interval
+
+
+def _dispatch_chunk(value: str):
+    if value in ("auto", ""):
+        return None  # auto-sized from the observed device time per hit
+    if value in ("off", "0"):
+        return 0  # one launch a flush
+    chunk = int(value)
+    if chunk < 0:
+        raise argparse.ArgumentTypeError(
+            "dispatch chunk must be >= 0, 'off' or 'auto'"
+        )
+    return chunk
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -299,6 +333,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="micro-batcher linger in microseconds (torch)",
     )
     p.add_argument(
+        "--dispatch-chunk", type=_dispatch_chunk,
+        default=_dispatch_chunk(_env("TPU_DISPATCH_CHUNK", "auto")),
+        help="torch and sharded: hits per pipelined launch; a flush "
+        "splits into chunks so that a request's device round trip is its "
+        "chunk's, not the whole batch's. 'auto' (default) sizes chunks "
+        "from the observed device time per hit against the 2ms budget; "
+        "'off'/0 launches each flush whole; N pins the chunk size",
+    )
+    p.add_argument(
         "--rate-limit-headers", default=RATE_LIMIT_HEADERS_NONE,
         choices=[RATE_LIMIT_HEADERS_NONE, RATE_LIMIT_HEADERS_DRAFT03],
     )
@@ -388,6 +431,36 @@ def build_parser() -> argparse.ArgumentParser:
         "--listen-address", default=_env("LISTEN_ADDRESS"),
         help="torch: replication listen address (enables the replicated "
         "topology; default 0.0.0.0:5001 when only --peer is given)",
+    )
+    p.add_argument(
+        "--profile-dir",
+        default=_env("TPU_PROFILE_DIR", default_profile_dir()),
+        help="default directory of on-demand torch.profiler captures "
+        "(POST /debug/profile may name another per capture); a directory "
+        "that cannot be written fails the capture's start",
+    )
+    p.add_argument(
+        "--native-trace-sample", type=int,
+        default=int(_env("TPU_NATIVE_TRACE_SAMPLE", "0")),
+        help="torch: stamp 1 in N hot-lane begins with a native trace id "
+        "so that OTLP device batch spans carry the C-side phase splits "
+        "(0 = off, the default)",
+    )
+    p.add_argument(
+        "--native-slow-row-us", type=float,
+        default=float(_env("TPU_NATIVE_SLOW_ROW_US", "50")),
+        help="torch: slow-row exemplar threshold of the native telemetry "
+        "plane: a hot-lane begin averaging more than this many "
+        "microseconds a row records its native phase split and "
+        "descriptor digest into the flight recorder (0 disables "
+        "exemplars; histograms stay on)",
+    )
+    p.add_argument(
+        "--slo-budget-ms", type=float,
+        default=float(_env("TPU_SLO_BUDGET_MS", "2.0")),
+        help="torch: decision-latency SLO budget the burn-rate watchdog "
+        "tracks at p99 over 5m/1h windows (slo_* gauges, /debug/stats "
+        "slo section)",
     )
     p.add_argument(
         "--advertise-address", default=_env("ADVERTISE_ADDRESS"),
@@ -589,13 +662,15 @@ def build_limiter(args, clock=time.time):
     else:
         storage = build_storage(args, clock)
     async_storage = AsyncTorchStorage(
-        storage, max_delay=args.batch_delay_us / 1e6
+        storage, max_delay=args.batch_delay_us / 1e6,
+        dispatch_chunk=args.dispatch_chunk,
     )
     if args.pipeline in ("compiled", "native"):
         from ..device.pipeline import CompiledTorchLimiter
 
         return CompiledTorchLimiter(
-            async_storage, plan_cache_size=args.plan_cache_size
+            async_storage, plan_cache_size=args.plan_cache_size,
+            dispatch_chunk=args.dispatch_chunk,
         )
     return AsyncRateLimiter(async_storage)
 
@@ -628,6 +703,7 @@ def build_native(args, limiter, metrics=None):
         limiter, metrics, max_delay=args.batch_delay_us / 1e6,
         plan_cache_size=args.plan_cache_size,
         hot_lane=args.native_hot_lane == "on",
+        dispatch_chunk=args.dispatch_chunk,
     )
     if args.lease_mode == "on":
         from ..lease import LeaseConfig
@@ -688,12 +764,13 @@ class Checkpointer:
 class RunningServer:
     """A started server: its limiter, gRPC and HTTP servers, metrics and
     limits watcher, and the native pipeline, usage observatory, tier
-    manager, checkpointer and labels watcher when they run."""
+    manager, checkpointer, labels watcher and native telemetry plane when
+    they run."""
 
     def __init__(self, limiter, rls_server, watcher, status,
                  native_pipeline=None, observatory=None, checkpointer=None,
                  tier_manager=None, http_runner=None, metrics=None,
-                 labels_watcher=None):
+                 labels_watcher=None, native_plane=None, profiler=None):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
@@ -708,6 +785,11 @@ class RunningServer:
         #: the PrometheusMetrics behind /metrics
         self.metrics = metrics
         self.labels_watcher = labels_watcher
+        #: the NativePlane (native telemetry and the SLO watchdog; torch
+        #: storage only)
+        self.native_plane = native_plane
+        #: the TorchProfiler behind /debug/profile
+        self.profiler = profiler
 
     @property
     def storage(self):
@@ -727,10 +809,14 @@ class RunningServer:
         await self.http_runner.cleanup()
         if self.checkpointer is not None:
             await self.checkpointer.stop()
-        await _close(self.limiter, self.native_pipeline, self.observatory)
+        await _close(self.limiter, self.native_pipeline, self.observatory,
+                     self.native_plane)
 
 
-async def _close(limiter, native_pipeline, observatory) -> None:
+async def _close(limiter, native_pipeline, observatory,
+                 native_plane=None) -> None:
+    if native_plane is not None:
+        native_plane.close()
     if observatory is not None:
         observatory.close()
     if native_pipeline is not None:
@@ -818,6 +904,31 @@ def _wire_metrics(metrics, limiter, native_pipeline, observatory) -> None:
         metrics.attach_render_hook(observatory)
 
 
+def _native_plane(args, limiter, metrics):
+    """Torch storage: arm the host lane's native telemetry plane and the
+    SLO watchdog, feed the watchdog from the device-plane recorder (the
+    compiled limiter's, else the storage's) and poll the plane on every
+    metrics render. Raises when the host lane cannot be built."""
+    if args.storage != "torch":
+        return None
+    from ..observability.native_plane import (
+        NativePlane,
+        device_backed_runtime,
+    )
+
+    counters = limiter.storage.counters
+    plane = NativePlane(
+        budget_ms=args.slo_budget_ms,
+        slow_row_us=args.native_slow_row_us,
+        trace_sample=args.native_trace_sample,
+        recorder=(getattr(limiter, "recorder", None)
+                  or getattr(counters, "recorder", None)),
+        device_backed=device_backed_runtime(counters.inner),
+    )
+    metrics.attach_native_plane(plane)
+    return plane
+
+
 async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     """Configure span export, build the metrics and the limiter (and the
     native pipeline, lease tier, usage observatory and tier manager the
@@ -831,7 +942,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     metrics = build_metrics(args)
     install_metrics_layer()
     limiter = build_limiter(args, clock)
-    native_pipeline = observatory = None
+    native_pipeline = observatory = native_plane = None
     try:
         native_pipeline = build_native(args, limiter, metrics)
         if args.storage != "memory" and args.usage_topk > 0:
@@ -845,8 +956,9 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
                 near_threshold=args.usage_near_threshold,
             )
         _wire_metrics(metrics, limiter, native_pipeline, observatory)
+        native_plane = _native_plane(args, limiter, metrics)
     except BaseException:
-        await _close(limiter, native_pipeline, observatory)
+        await _close(limiter, native_pipeline, observatory, native_plane)
         raise
     loop = asyncio.get_running_loop()
     status = {"limits_file_version": 0, "limits_file_errors": 0}
@@ -894,7 +1006,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         watcher.stop()
         if labels_watcher is not None:
             labels_watcher.stop()
-        await _close(limiter, native_pipeline, observatory)
+        await _close(limiter, native_pipeline, observatory, native_plane)
         raise
     broker = getattr(native_pipeline, "lease_broker", None)
     tier_manager = None
@@ -910,18 +1022,24 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             interval_s=args.tier_migrate_interval,
         )
         metrics.attach_render_hook(tier_manager)
+    profiler = TorchProfiler(
+        args.profile_dir,
+        cuda=args.storage != "memory" and args.device == "cuda",
+    )
     try:
         http_runner = await run_http_server(
             limiter, args.http_host, args.http_port, metrics, status,
-            debug_sources=[s for s in (native_pipeline, observatory,
-                                       tier_manager) if s is not None],
+            debug_sources=[s for s in (native_pipeline, native_plane,
+                                       observatory, tier_manager)
+                           if s is not None],
+            profiler=profiler,
         )
     except BaseException as exc:
         watcher.stop()
         if labels_watcher is not None:
             labels_watcher.stop()
         await rls_server.stop(grace=None)
-        await _close(limiter, native_pipeline, observatory)
+        await _close(limiter, native_pipeline, observatory, native_plane)
         if isinstance(exc, OSError):
             raise ValueError(
                 f"cannot serve HTTP on {args.http_host}:{args.http_port}: "
@@ -939,7 +1057,8 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         checkpointer.start()
     return RunningServer(limiter, rls_server, watcher, status,
                          native_pipeline, observatory, checkpointer,
-                         tier_manager, http_runner, metrics, labels_watcher)
+                         tier_manager, http_runner, metrics, labels_watcher,
+                         native_plane, profiler)
 
 
 async def _amain(args) -> int:

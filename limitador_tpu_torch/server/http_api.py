@@ -17,9 +17,19 @@ http_api/server.rs) over aiohttp:
 and the debug endpoints of the planes the port has:
 
     GET  /debug/stats       batcher queue depths, per-shard counter-table
-                            occupancy, decision-plan caches, the native
-                            hot lane, leases, the usage observatory, the
-                            tiers and the kernel/host-lane build state
+                            occupancy, flush-reason tallies, the slowest-N
+                            decision flight recorder, decision-plan
+                            caches, the native hot lane, leases, the
+                            native telemetry plane, the SLO watchdog,
+                            device_backed, the usage observatory, the
+                            tiers, the profiler state and the
+                            kernel/host-lane build state
+    GET  /debug/profile     torch.profiler capture status
+    POST /debug/profile     {"action": "start"|"stop", "trace_dir"?: str}
+                            starts or stops an on-demand torch.profiler
+                            capture (409 when already capturing / idle);
+                            stop exports a Chrome trace into the
+                            directory
     GET  /debug/top         tenant usage observatory: true top-K hottest
                             counters with namespace/limit/key attribution
                             and utilization (?k=N trims)
@@ -31,8 +41,7 @@ POST bodies are CheckAndReportInfo: {"namespace", "values": {str: str},
 
 The debug routes of planes not ported yet stay unregistered (404):
 ``/debug/signals``, ``/debug/pod*``, ``/debug/events``,
-``/debug/capacity``, ``/debug/profile``, ``/debug/flight*``
-(ROADMAP Queue A).
+``/debug/capacity``, ``/debug/flight*`` (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -46,7 +55,11 @@ from aiohttp import web
 from ..core.cel import Context
 from ..core.limit import Limit
 from ..native.build import build_status as host_lane_build_status
-from ..observability.device_plane import collect_debug_stats
+from ..observability.device_plane import (
+    ProfilerStateError,
+    TorchProfiler,
+    collect_debug_stats,
+)
 from ..observability.metrics import PrometheusMetrics
 from ..ops.build import build_status as kernel_build_status
 from ..storage.base import StorageError
@@ -63,6 +76,9 @@ __all__ = [
 #: /debug/stats sections sourced from debug_sources by named callable:
 #: (section key, source attribute)
 DEBUG_SOURCE_SECTIONS = (
+    ("native_telemetry", "native_telemetry"),
+    ("slo", "slo_status"),
+    ("device_backed", "device_backed"),
     ("tenant_usage", "tenant_usage"),
     ("tiering", "tiering_debug"),
 )
@@ -70,9 +86,13 @@ DEBUG_SOURCE_SECTIONS = (
 #: every /debug/stats section this module adds on top of
 #: collect_debug_stats' base payload
 DEBUG_STATS_SECTIONS = (
+    "profiler",
     "native_build",
     "native_hot_lane",
     "lease",
+    "native_telemetry",
+    "slo",
+    "device_backed",
     "tenant_usage",
     "tiering",
 )
@@ -205,6 +225,32 @@ def _openapi_spec() -> dict:
                     },
                 }
             },
+            "/debug/profile": {
+                "get": {
+                    "summary": "torch.profiler capture status",
+                    "responses": {"200": {"description": "profiler status"}},
+                },
+                "post": {
+                    "summary": "Start/stop an on-demand torch.profiler "
+                               "capture",
+                    "requestBody": {
+                        "required": True,
+                        "content": {
+                            "application/json": {
+                                "schema": {
+                                    "$ref": "#/components/schemas"
+                                            "/ProfileAction"
+                                }
+                            }
+                        },
+                    },
+                    "responses": {
+                        "200": {"description": "profiler toggled"},
+                        "409": {"description": "capture already active / "
+                                               "not active"},
+                    },
+                },
+            },
             "/debug/top": {
                 "get": {
                     "summary": "Tenant usage observatory: top-K hottest "
@@ -288,6 +334,16 @@ def _openapi_spec() -> dict:
                 "Limit": limit_schema,
                 "Counter": counter_schema,
                 "CheckAndReportInfo": info_schema,
+                "ProfileAction": {
+                    "type": "object",
+                    "required": ["action"],
+                    "properties": {
+                        "action": {
+                            "type": "string", "enum": ["start", "stop"],
+                        },
+                        "trace_dir": {"type": "string", "nullable": True},
+                    },
+                },
             }
         },
     }
@@ -299,6 +355,7 @@ class _Api:
         metrics: Optional[PrometheusMetrics],
         status,
         debug_sources=None,
+        profiler: Optional[TorchProfiler] = None,
     ):
         self.limiter = limiter
         self.metrics = metrics
@@ -306,6 +363,7 @@ class _Api:
         # Objects walked for /debug/stats; the limiter is always included
         # (it reaches the batchers and the device tables).
         self.debug_sources = [limiter] + list(debug_sources or ())
+        self.profiler = profiler or TorchProfiler()
 
     async def _call(self, thunk):
         """Invoke a limiter call, awaiting it where the limiter is async.
@@ -340,10 +398,12 @@ class _Api:
 
     async def get_debug_stats(self, request: web.Request) -> web.Response:
         """Device-plane state without a debugger: queue depths, per-shard
-        table occupancy, decision-plan cache stats, the native hot lane,
-        leases, the usage observatory, the tiers and the build state of
-        the kernels and the host lane."""
+        table occupancy, flush reasons, the flight recorder, decision-plan
+        cache stats, the native hot lane, leases, the native telemetry
+        plane, the SLO watchdog, the usage observatory, the tiers, the
+        profiler and the build state of the kernels and the host lane."""
         stats = collect_debug_stats(*self.debug_sources)
+        stats["profiler"] = self.profiler.status()
         stats["native_build"] = {
             **host_lane_build_status(), **kernel_build_status(),
         }
@@ -366,6 +426,36 @@ class _Api:
             if callable(fn):
                 return fn
         return None
+
+    async def get_debug_profile(self, request: web.Request) -> web.Response:
+        return web.json_response(self.profiler.status())
+
+    async def post_debug_profile(self, request: web.Request) -> web.Response:
+        try:
+            data = await request.json()
+            action = data["action"]
+            trace_dir = data.get("trace_dir")
+            if action not in ("start", "stop"):
+                raise ValueError(f"unknown action {action!r}")
+            if trace_dir is not None and not isinstance(trace_dir, str):
+                raise ValueError("trace_dir must be a string")
+        except (KeyError, ValueError, TypeError) as exc:
+            return web.json_response(
+                {"error": f"bad request: {exc}"}, status=400
+            )
+        # On the loop's thread: the profiler must stop on the thread that
+        # started it (the export blocks the loop for its duration).
+        try:
+            target = (self.profiler.stop() if action == "stop"
+                      else self.profiler.start(trace_dir))
+        except ProfilerStateError as exc:
+            return web.json_response({"error": str(exc)}, status=409)
+        except OSError as exc:
+            return web.json_response({"error": str(exc)}, status=500)
+        return web.json_response({
+            "status": "stopped" if action == "stop" else "started",
+            "trace_dir": target,
+        })
 
     async def get_debug_top(self, request: web.Request) -> web.Response:
         """Tenant usage observatory: the true top-K hottest counters with
@@ -497,8 +587,9 @@ def make_http_app(
     metrics: Optional[PrometheusMetrics] = None,
     status: Optional[dict] = None,
     debug_sources=None,
+    profiler: Optional[TorchProfiler] = None,
 ) -> web.Application:
-    api = _Api(limiter, metrics, status, debug_sources)
+    api = _Api(limiter, metrics, status, debug_sources, profiler)
     app = web.Application(middlewares=[http_request_id_middleware])
     app.router.add_get("/status", api.get_status)
     app.router.add_get("/api/spec", api.get_spec)
@@ -506,6 +597,8 @@ def make_http_app(
     app.router.add_get("/debug/stats", api.get_debug_stats)
     app.router.add_get("/debug/top", api.get_debug_top)
     app.router.add_get("/debug/tiering", api.get_debug_tiering)
+    app.router.add_get("/debug/profile", api.get_debug_profile)
+    app.router.add_post("/debug/profile", api.post_debug_profile)
     app.router.add_get("/limits/{namespace}", api.get_limits)
     app.router.add_get("/counters/{namespace}", api.get_counters)
     app.router.add_post("/check", api.post_check)
@@ -521,11 +614,12 @@ async def run_http_server(
     metrics: Optional[PrometheusMetrics] = None,
     status: Optional[dict] = None,
     debug_sources=None,
+    profiler: Optional[TorchProfiler] = None,
 ) -> web.AppRunner:
     """Start the HTTP server (returns the runner; caller owns shutdown).
     A port that cannot be bound raises OSError after the runner is
     cleaned up."""
-    app = make_http_app(limiter, metrics, status, debug_sources)
+    app = make_http_app(limiter, metrics, status, debug_sources, profiler)
     runner = web.AppRunner(app)
     await runner.setup()
     site = web.TCPSite(runner, host, port)

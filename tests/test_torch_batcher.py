@@ -234,3 +234,151 @@ def test_chunk_planner_splits_like_jax(dispatch_chunk, queue_wait_s):
         device_s = float(rng.uniform(1e-5, 5e-3))
         for p in planners:
             p.observe(device_s, sum(sizes))
+
+
+def _chunked_drive(make_storage, limiter_cls, context_cls, limit_cls,
+                   rounds, spy=None):
+    """Two one-flush rounds of 2,100 three-counter requests (6,300 hits,
+    so a 3000-hit chunk still splits) over 300 users in 7 tenants and 5
+    routes; returns every decision as (limited, limit name)."""
+    async def main():
+        storage = make_storage()
+        if spy is not None:
+            spy(storage)
+        limiter = limiter_cls(storage)
+        limiter.add_limit(limit_cls("ns", 10, 60, [], ["u"], name="user"))
+        limiter.add_limit(limit_cls("ns", 400, 60, [], ["t"],
+                                    name="tenant"))
+        limiter.add_limit(limit_cls("ns", 600, 60, [], ["r"],
+                                    name="route"))
+        out = []
+        for users in rounds:
+            # every submit enqueues before the batcher task first runs:
+            # one flush a round
+            results = await asyncio.gather(*[
+                limiter.check_rate_limited_and_update(
+                    "ns", context_cls({"u": f"u{u}", "t": f"t{u % 7}",
+                                       "r": f"r{u % 5}"}), 1)
+                for u in users
+            ])
+            out.extend((r.limited, r.limit_name) for r in results)
+        await storage.close()
+        return out
+
+    return asyncio.run(main())
+
+
+@pytest.mark.parametrize("dispatch_chunk", [None, 0, 512, 3000])
+def test_chunked_dispatch_is_exact_against_monolithic_and_jax(
+        dispatch_chunk):
+    """A MicroBatcher cutting each flush into chunks launches them in
+    order and never splits a request: its decisions equal the monolithic
+    flush's and the JAX MicroBatcher's with the same dispatch_chunk, and
+    the chunk plan reaches the recorder (one begin a chunk)."""
+    from limitador_tpu import AsyncRateLimiter as JLimiter
+    from limitador_tpu import Context as JContext
+    from limitador_tpu import Limit as JLimit
+    from limitador_tpu.tpu.batcher import AsyncTpuStorage
+    from limitador_tpu.tpu.storage import TpuStorage
+    from limitador_tpu_torch.observability.metrics import PrometheusMetrics
+
+    import torch
+
+    rng = np.random.default_rng(23)
+    rounds = [rng.integers(0, 300, 2100).tolist() for _ in range(2)]
+    begins = []
+    metrics = {}
+
+    def port_storage(chunk):
+        def make():
+            storage = AsyncTorchStorage(
+                TorchStorage(capacity=1 << 11, device="cpu"),
+                max_batch_hits=1 << 20, max_delay=0.05,
+                dispatch_chunk=chunk,
+            )
+            if chunk == dispatch_chunk:
+                metrics["m"] = PrometheusMetrics()
+                storage.set_metrics(metrics["m"])
+            return storage
+        return make
+
+    def spy(storage):
+        begin = storage.inner.begin_check_many
+
+        def counted(requests):
+            begins.append(sum(len(r.ordered) for r in requests))
+            return begin(requests)
+
+        storage.inner.begin_check_many = counted
+
+    # one intra-op thread: the test's CPU work stays off the cores the
+    # other test workers time their own work on
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        chunked = _chunked_drive(port_storage(dispatch_chunk),
+                                 AsyncRateLimiter, Context, Limit, rounds,
+                                 spy)
+        monolithic = _chunked_drive(port_storage(0), AsyncRateLimiter,
+                                    Context, Limit, rounds)
+    finally:
+        torch.set_num_threads(threads)
+    jax = _chunked_drive(
+        lambda: AsyncTpuStorage(TpuStorage(capacity=1 << 11),
+                                max_batch_hits=1 << 20, max_delay=0.05,
+                                dispatch_chunk=dispatch_chunk),
+        JLimiter, JContext, JLimit, rounds)
+    assert chunked == monolithic == jax
+    assert sum(limited for limited, _n in chunked) > 0
+    assert {name for limited, name in chunked if limited} >= {
+        "user", "tenant"}
+    # one begin a chunk, chunks of whole requests covering the flushes
+    assert sum(begins) == 2 * 6300
+    if dispatch_chunk == 0:
+        assert begins == [6300, 6300]
+    elif dispatch_chunk in (512, 3000):
+        assert len(begins) > 2 and all(b % 3 == 0 for b in begins)
+    text = metrics["m"].render().decode()
+    assert f"dispatch_chunk_splits_count {2.0}" in text
+    assert f"dispatch_chunk_splits_sum {float(len(begins))}" in text
+    assert f"dispatch_chunk_hits_count {float(len(begins))}" in text
+    assert f"dispatch_chunk_hits_sum {float(sum(begins))}" in text
+
+
+def test_chunk_planner_retarget_clamps_like_jax():
+    from limitador_tpu.tpu.batcher import ChunkPlanner as JaxPlanner
+    from limitador_tpu_torch.device.batcher import ChunkPlanner
+
+    for target in (0.0, 0.0001, 0.001, 0.004, 0.02):
+        port, jax = ChunkPlanner(), JaxPlanner()
+        assert port.retarget(target) == jax.retarget(target)
+        for p in (port, jax):
+            p.observe(0.004, 4096)
+        assert port.chunk_hits(0.0) == jax.chunk_hits(0.0)
+        assert port.chunk_hits(1.0) == jax.chunk_hits(1.0)
+    fixed = ChunkPlanner(dispatch_chunk=700)
+    fixed.retarget(0.008)
+    assert fixed.chunk_hits() == 700
+
+
+def test_chunk_telemetry_reaches_the_recorder():
+    from limitador_tpu_torch.observability.device_plane import (
+        DeviceStatsRecorder,
+    )
+
+    class _Hist:
+        def __init__(self):
+            self.observed = []
+
+        def observe(self, v):
+            self.observed.append(v)
+
+    metrics = type("Metrics", (), {})()
+    for name in ("batcher_flushes", "batcher_batch_fill_ratio",
+                 "batcher_queue_wait", "device_phase_latency",
+                 "dispatch_chunk_hits", "dispatch_chunk_splits"):
+        setattr(metrics, name, _Hist())
+    DeviceStatsRecorder().record_chunks([8, 8, 4])  # no metrics: a no-op
+    DeviceStatsRecorder(metrics).record_chunks([8, 8, 4])
+    assert metrics.dispatch_chunk_splits.observed == [3]
+    assert metrics.dispatch_chunk_hits.observed == [8, 8, 4]

@@ -1641,3 +1641,88 @@ def test_http_server_on_the_card_answers_like_the_cpu(cuda, tmp_path):
     assert moved & {"check_and_update", "check_and_update_cluster"}
     assert {"update_host", "read_slots_host"} <= moved
     assert not moved & set(device_forms), moved
+
+
+def test_native_server_on_the_card_records_like_the_cpu(cuda, tmp_path):
+    """The same sequential ShouldRateLimit calls to a ``--device cuda``
+    and a ``--device cpu`` native server (hot lane on, recorder and
+    native telemetry attached): equal answers, equal recorder counts
+    (flushes, queue waits, phase observations, native begins), and
+    ``device_backed`` 1 on the card, 0 on the CPU."""
+    import asyncio
+
+    import grpc
+    from prometheus_client.parser import text_string_to_metric_families
+
+    from limitador_tpu_torch.server import __main__ as port_main
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    from . import torch_http as H
+
+    envoy = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+    limits = tmp_path / "limits.yaml"
+    limits.write_text(
+        "- namespace: nat\n  max_value: 3\n  seconds: 60\n"
+        "  variables: [\"descriptors[0].u\"]\n")
+
+    def blob(i):
+        req = rls_pb2.RateLimitRequest(domain="nat")
+        req.descriptors.add().entries.add(key="u", value=f"u{i % 4}")
+        return req.SerializeToString()
+
+    async def run():
+        out = {}
+        # one server at a time: the C telemetry plane is process-wide
+        for dev in ("cuda", "cpu"):
+            argv = H.port_argv(limits, "torch", H.free_port(), "--device",
+                               dev, "--pipeline", "native",
+                               "--usage-topk", "0",
+                               "--native-trace-sample", "4")
+            server = await port_main.start(
+                port_main.build_parser().parse_args(argv),
+                clock=H.FakeClock())
+            try:
+                rls = argv[argv.index("--rls-port") + 1]
+                async with grpc.aio.insecure_channel(
+                        f"127.0.0.1:{rls}") as channel:
+                    answers = [
+                        rls_pb2.RateLimitResponse.FromString(
+                            await channel.unary_unary(envoy)(blob(i))
+                        ).overall_code
+                        for i in range(40)
+                    ]
+                out[dev] = (answers, server.metrics.render().decode(),
+                            server.native_pipeline.lane_stats())
+            finally:
+                await server.stop()
+        return out
+
+    out = asyncio.run(run())
+
+    def counts(text):
+        keep = ("batcher_flushes", "batcher_queue_wait",
+                "device_phase_latency", "dispatch_chunk_splits",
+                "native_phase_hot_lookup", "native_phase_hot_stage")
+        return {
+            (s.name, tuple(sorted(s.labels.items()))): s.value
+            for f in text_string_to_metric_families(text) if f.name in keep
+            for s in f.samples
+            if s.name.endswith(("_total", "_count"))
+        }
+
+    def gauge(text, name):
+        return [s.value for f in text_string_to_metric_families(text)
+                if f.name == name for s in f.samples][0]
+
+    (gpu_answers, gpu_text, gpu_lane), (cpu_answers, cpu_text, cpu_lane) = (
+        out["cuda"], out["cpu"])
+    assert gpu_answers == cpu_answers
+    assert gpu_answers.count(rls_pb2.RateLimitResponse.OVER_LIMIT) == 28
+    assert counts(gpu_text) == counts(cpu_text)
+    assert counts(gpu_text)[("batcher_queue_wait_count",
+                             (("batcher", "check"),))] == 40
+    begins = gpu_lane["hits"] + gpu_lane["misses"]
+    assert counts(gpu_text)[("native_phase_hot_lookup_count", ())] == begins
+    assert gpu_lane == cpu_lane
+    assert gauge(gpu_text, "device_backed") == 1.0
+    assert gauge(cpu_text, "device_backed") == 0.0

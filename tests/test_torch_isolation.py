@@ -172,3 +172,42 @@ def test_importing_the_port_builds_nothing():
     )
     assert proc.returncode == 0, proc.stderr
     assert "nothing built" in proc.stdout
+
+
+def _profiler_imports(path: Path):
+    """(qualified name of the enclosing function or class chain, line) of
+    every import of ``torch.profiler`` in ``path``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+
+    def visit(node, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.ClassDef)):
+                visit(child, scope + (child.name,))
+                continue
+            names = []
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                names = [child.module or ""]
+            if any(n == "torch.profiler" or n.startswith("torch.profiler.")
+                   for n in names):
+                out.append((".".join(scope), child.lineno))
+            visit(child, scope)
+
+    visit(tree, ())
+    return out
+
+
+def test_torch_profiler_is_imported_only_in_the_capture_start():
+    """``torch.profiler`` is imported by ``TorchProfiler.start`` and
+    nowhere else in the port (no module imports it at its top)."""
+    found = [
+        (str(path.relative_to(REPO)), scope, line)
+        for path in sorted(PORT.rglob("*.py"))
+        for scope, line in _profiler_imports(path)
+    ]
+    assert [(p, s) for p, s, _l in found] == [
+        ("limitador_tpu_torch/observability/device_plane.py",
+         "TorchProfiler.start")], found

@@ -31,6 +31,7 @@ from limitador_tpu_torch.ops import kernel as K
 from limitador_tpu_torch.server.proto import rls_pb2
 
 from .torch_native_corpus import D, FROZEN_NOW, corpus, decide_cached, limits
+from .torch_reference import jax_reference_lane  # noqa: F401 (autouse)
 
 
 class _Clock:

@@ -38,6 +38,7 @@ from .torch_native_corpus import (
     decide_cached,
     limits,
 )
+from .torch_reference import jax_reference_lane  # noqa: F401 (autouse)
 
 
 def jax_pipeline(hot, capacity=1 << 12, storage=None):

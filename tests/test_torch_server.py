@@ -33,6 +33,7 @@ from limitador_tpu.tpu.batcher import AsyncTpuStorage
 from limitador_tpu.tpu.storage import TpuStorage
 from limitador_tpu_torch.server import __main__ as port_main
 from limitador_tpu_torch.server.proto import rls_pb2
+from tests.torch_http import reload_limits_file
 
 REPO = Path(__file__).resolve().parent.parent
 ENVOY = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
@@ -193,10 +194,7 @@ async def _parity(tmp_path):
                 if phase == "before":
                     # Hot reload: the port through its file watcher, the
                     # reference through configure_with.
-                    limits_path.write_text(RELOADED)
-                    st = limits_path.stat()
-                    os.utime(limits_path, ns=(st.st_atime_ns,
-                                              st.st_mtime_ns + 10**9))
+                    reload_limits_file(limits_path, RELOADED)
                     await j_limiter.configure_with(j_load(str(limits_path)))
                     await _wait_for(
                         lambda: p_server.status["limits_file_version"] == 2
@@ -734,10 +732,7 @@ async def _sharded_vs_memory(tmp_path, extra):
                     want = await _call(oc, method, blob)
                     assert got == want, (phase, i, method)
                 if phase == "before":
-                    limits_path.write_text(RELOADED)
-                    st = limits_path.stat()
-                    os.utime(limits_path, ns=(st.st_atime_ns,
-                                              st.st_mtime_ns + 10**9))
+                    reload_limits_file(limits_path, RELOADED)
                     await _wait_for(
                         lambda: sharded.status["limits_file_version"] == 2
                         and oracle.status["limits_file_version"] == 2)

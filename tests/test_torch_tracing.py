@@ -35,6 +35,7 @@ from limitador_tpu_torch.observability.metrics_layer import (
     metrics_span,
 )
 from limitador_tpu_torch.observability.otlp import BatchExporter, make_provider
+from tests.torch_steady import otel_provider_kept
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -42,10 +43,18 @@ REPO = Path(__file__).resolve().parent.parent
 @pytest.fixture(autouse=True)
 def _uninstall():
     """Each test starts without a layer (a server started earlier in the
-    process installs one) and leaves the process as it found it."""
+    process installs one) and leaves the process as it found it: the
+    layer, the tracing module's pipeline and OpenTelemetry's global
+    tracer provider, which a later test in the same worker (the JAX
+    package's ``tests/test_otlp.py``) must be able to set."""
     prior = installed()
+    pipeline = (tracing._trace, tracing._provider, tracing._tracer,
+                tracing._enabled)
     install(None)
-    yield
+    with otel_provider_kept():
+        yield
+    (tracing._trace, tracing._provider, tracing._tracer,
+     tracing._enabled) = pipeline
     install(prior)
 
 
@@ -694,3 +703,78 @@ def test_server_subprocess_exports_decision_spans(collector, tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+def test_device_batch_spans_export_batch_id_and_phases(collector):
+    """With an exporter and a recorder attached, every batch the
+    MicroBatcher and the native pipeline decide exports a ``datastore``
+    span (``device_batch``) with its batch id, request count and
+    ``batch.phase.*_ms``; a hot-lane batch the native telemetry plane
+    sampled also carries its native trace id and splits."""
+    from limitador_tpu_torch import AsyncRateLimiter, Context, Limit, native
+    from limitador_tpu_torch.device import AsyncTorchStorage, TorchStorage
+    from limitador_tpu_torch.device.native_pipeline import NativeRlsPipeline
+    from limitador_tpu_torch.device.pipeline import CompiledTorchLimiter
+    from limitador_tpu_torch.observability.metrics import PrometheusMetrics
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    prior = (tracing._trace, tracing._provider, tracing._tracer,
+             tracing._enabled)
+    tracing.configure_tracing(f"http://127.0.0.1:{collector.port}")
+
+    def blob(user):
+        req = rls_pb2.RateLimitRequest(domain="nat")
+        req.descriptors.add().entries.add(key="u", value=user)
+        return req.SerializeToString()
+
+    async def main():
+        storage = AsyncTorchStorage(
+            TorchStorage(capacity=256, device="cpu"), max_delay=0.001)
+        limiter = AsyncRateLimiter(storage)
+        limiter.add_limit(Limit("ns", 100, 60, [], ["u"]))
+        storage.set_metrics(PrometheusMetrics())
+        for i in range(3):
+            await limiter.check_rate_limited_and_update(
+                "ns", Context({"u": f"u{i}"}), 1)
+        await storage.close()
+        nat_storage = AsyncTorchStorage(
+            TorchStorage(capacity=256, device="cpu"), max_delay=0.001)
+        compiled = CompiledTorchLimiter(nat_storage)
+        compiled.add_limit(Limit("nat", 100, 60, [], ["descriptors[0].u"]))
+        compiled.set_metrics(PrometheusMetrics())
+        pipeline = NativeRlsPipeline(compiled, max_delay=0.001)
+        native.tel_config(True, 0, 1)  # stamp every begin
+        try:
+            await pipeline.submit(blob("a"))  # miss lane: mirrors the plan
+            await pipeline.submit(blob("a"))  # hot lane
+        finally:
+            native.tel_config(False)
+            await pipeline.close()
+            await compiled.close()
+            await nat_storage.close()
+
+    try:
+        asyncio.run(main())
+        tracing._provider.force_flush()
+        spans = [s for s in collector.wait_spans(5)
+                 if _attr(s, "datastore.operation") == {
+                     "stringValue": "device_batch"}]
+    finally:
+        tracing._provider.shutdown()
+        (tracing._trace, tracing._provider, tracing._tracer,
+         tracing._enabled) = prior
+    assert len(spans) == 5
+    ids = [int(_attr(s, "batch.id")["intValue"]) for s in spans]
+    assert sorted(ids[:3]) == [1, 2, 3]
+    for span in spans:
+        assert span["name"] == "datastore"
+        assert _attr(span, "batch.requests") == {"intValue": "1"}
+        for phase in ("dispatch", "host_stage", "device_sync", "unpack"):
+            assert "doubleValue" in _attr(span, f"batch.phase.{phase}_ms")
+    native_spans = [s for s in spans[3:]
+                    if _attr(s, "batch.phase.native_lane_ms") is not None]
+    assert len(native_spans) == 2
+    sampled = [s for s in native_spans
+               if _attr(s, "native.trace_id") is not None]
+    assert len(sampled) == 1  # the hot-lane begin; the miss lane has none
+    assert "doubleValue" in _attr(sampled[0], "native.hot_lookup_ms")

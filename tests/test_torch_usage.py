@@ -24,6 +24,7 @@ from limitador_tpu_torch.ops import kernel as K
 
 from .test_torch_lease import _Clock, _jax_leased, _port_leased
 from .torch_native_corpus import D, corpus, decide_cached, limits
+from .torch_reference import jax_reference_lane  # noqa: F401 (autouse)
 
 
 def _drive(pairs, blobs, clocks, refresh=True):

@@ -148,12 +148,16 @@ async def wait_for(predicate, timeout=10.0):
         await asyncio.sleep(0.02)
 
 
-def reload_limits_file(path) -> None:
-    """Rewrite the limits file with RELOADED and move its mtime on, so
-    that a polling watcher sees the change at once."""
-    path.write_text(RELOADED)
+def reload_limits_file(path, text=RELOADED) -> None:
+    """Replace the limits file with ``text``, its mtime a second on, so
+    that a polling watcher sees the change at once, and as one change: a
+    write and then a touch of the same file could be polled in between
+    and reload twice."""
+    tmp = path.with_name(path.name + ".next")
+    tmp.write_text(text)
     st = path.stat()
-    os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+    os.utime(tmp, ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+    os.replace(tmp, path)
 
 
 async def drive(clock, servers, reload, extra=None):
