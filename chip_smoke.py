@@ -206,6 +206,31 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    start, 200 calls, stop on a --device cuda server: the Chrome trace
    holds CUDA kernel events named after csrc/counter_table.cu's
    kernels.
+13. The control planes at their defaults (the signal bus, the serving-model
+   fit, the process flight recorder): (a) a server with torch --pipeline
+   native --tier-mode on --cache-size 256 beside a memory server on one
+   frozen clock, 2,000 ShouldRateLimit calls over 600 Zipf-0.99 users
+   (every fourth with a second descriptor, which takes the exact path
+   where cold keys decide on the host), the first 1,000 one at a time,
+   the rest 8 at a time (8 distinct users a group): every answer equal
+   to the memory server's (reset within 1 s); the fit ingested one
+   observation per recorded batch and refit, the flight recorder tapped
+   the lean or native_hot lane and the cold_tier lane, /debug/signals
+   carries every ControlSignals field with device_backed 1, /debug/stats
+   the signals, capacity and flight sections, the tier manager prices
+   with the fit's positive row coefficients (its fallbacks where they
+   are not), and B1, B5 and B4d launched; (b) POST /debug/flight/trigger
+   {"note": "smoke", "profile": true} on a server with --flight-profile-s
+   0.5 while calls go on: the bundle is in the spool and served back by
+   GET /debug/flight?name=, its profile names a Chrome trace that exists
+   (its CUDA kernel events are printed) and flight_bundles and
+   flight_triggers{reason="manual"} count it; (c) phases 4's and 6's
+   servers with the defaults and with --flight off --model-fit off
+   --usage-topk 0 in one process on one clock, 300 rounds of one call to
+   each, the order alternating: byte-equal answers and counters, p50,
+   p99 and the per-round difference printed as records. Every server of
+   the script writes its flight bundles under the run's own temporary
+   directory.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -3376,6 +3401,473 @@ def phase_device_plane(dev, card):
     return launches, out
 
 
+# -- phase 13 ---------------------------------------------------------------
+
+PHASE13A_KERNELS = ("check_and_update", "drain_top_hits", "seed_slots")
+PLANES_OFF = ("--flight", "off", "--model-fit", "off", "--usage-topk", "0")
+
+
+def _http_post(port, path, body):
+    """(status, JSON body) of one POST, from a thread off the loop."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _free_ports(n):
+    ports = []
+    for _ in range(n):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    return ports
+
+
+def _distinct_groups(users, size=8):
+    """``users`` in order, cut into groups of up to ``size`` distinct
+    users (a repeat waits for the next group): a group's calls go out
+    together, and per-user limits make their answers independent of the
+    order in which the server takes them."""
+    groups, pending = [], list(users)
+    while pending:
+        group, rest = [], []
+        for u in pending:
+            (group if len(group) < size and u not in group
+             else rest).append(u)
+        groups.append(group)
+        pending = rest
+    return groups
+
+
+def _plane_spy(server):
+    """Count the recorder's batches with decisions and the estimator's
+    ingests and draining refits (instance attributes over the methods:
+    the pipelines and the drain thread call them through the objects)."""
+    rec = server.limiter.recorder
+    est = server.model_estimator
+    tally = {"batches": 0, "ingests": 0, "refits": 0, "drained": 0}
+    record_batch, ingest, refit = rec.record_batch, est.ingest, est.refit
+
+    def counted_batch(entries, *args, **kwargs):
+        entries = list(entries)
+        tally["batches"] += bool(entries)
+        return record_batch(entries, *args, **kwargs)
+
+    def counted_ingest(*args, **kwargs):
+        tally["ingests"] += 1
+        return ingest(*args, **kwargs)
+
+    def counted_refit(*args, **kwargs):
+        got = refit(*args, **kwargs)
+        if got:
+            tally["refits"] += 1
+            tally["drained"] += got
+        return got
+
+    rec.record_batch = counted_batch
+    est.ingest = counted_ingest
+    est.refit = counted_refit
+    return tally
+
+
+async def _served_planes(tmpdir, dev, card, calls=2000, users=600,
+                         max_value=20):
+    """Phase 13a: ``torch --pipeline native --tier-mode on --cache-size
+    256`` with the control planes at their defaults beside a memory
+    server, one frozen clock; 2,000 ShouldRateLimit calls over 600
+    Zipf-0.99 users (every fourth with a second descriptor, which takes
+    the exact path, where cold keys decide on the host), the first half
+    one at a time, the rest 8 at a time (8 distinct users a group). Every
+    answer equals the memory server's; then the planes' checks."""
+    import grpc
+
+    from limitador_tpu_torch.observability import model as model_mod
+    from limitador_tpu_torch.observability.signals import ControlSignals
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "control planes (13a)"
+    limits = os.path.join(tmpdir, "tiered.yaml")
+    with open(limits, "w") as f:
+        f.write(TIERED_YAML.format(max_value=max_value))
+    ports = _free_ports(2)
+    parse = server.build_parser().parse_args
+    clock = ManualClock()
+    failures = []
+    http, http_port = _http_options()
+    # a fresh process estimator: this server's observations only
+    model_mod._PROCESS = None
+    K.reset_launches()
+    t0 = time.perf_counter()
+    tiered = await server.start(parse([
+        limits, "torch", "--device", dev.type, "--rls-host", "127.0.0.1",
+        *http, "--rls-port", str(ports[0]), "--tier-mode", "on",
+        "--pipeline", "native", "--cache-size", "256",
+        "--tier-migrate-interval", "0.2", "--usage-drain-interval", "0.25",
+        "--flight-spool-dir", os.path.join(tmpdir, "spool")]),
+        clock=clock, on_failure=failures.append)
+    oracle = await server.start(parse(
+        [limits, "memory", "--rls-host", "127.0.0.1", *_http_options()[0],
+         "--rls-port", str(ports[1])]), clock=clock)
+    tally = _plane_spy(tiered)
+    est = tiered.model_estimator
+    rng = np.random.default_rng(67)
+    who = zipf_keys(users, calls, 0.99, rng).tolist()
+    envoy = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+
+    def blob(i, u):
+        descriptors = [{"user": f"t{u}"}]
+        if i % 4 == 3:
+            descriptors.append({"route": f"r{i % 5}"})
+        return _rls_request(rls_pb2, "tier", descriptors)
+
+    mismatches = 0
+    lat = []
+    try:
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{ports[0]}") as tc, \
+                grpc.aio.insecure_channel(f"127.0.0.1:{ports[1]}") as oc:
+            half = calls // 2
+            for i, u in enumerate(who[:half]):
+                b = blob(i, u)
+                t1 = time.perf_counter()
+                got = await tc.unary_unary(envoy)(b, timeout=60)
+                lat.append(time.perf_counter() - t1)
+                want = await oc.unary_unary(envoy)(b, timeout=60)
+                mismatches += not _same_answer(rls_pb2, got, want)
+            i = half
+            for group in _distinct_groups(who[half:]):
+                blobs = [blob(i + k, u) for k, u in enumerate(group)]
+                i += len(group)
+                got = await asyncio.gather(*(
+                    tc.unary_unary(envoy)(b, timeout=60) for b in blobs))
+                want = await asyncio.gather(*(
+                    oc.unary_unary(envoy)(b, timeout=60) for b in blobs))
+                mismatches += sum(not _same_answer(rls_pb2, g, w)
+                                  for g, w in zip(got, want))
+        seconds = time.perf_counter() - t0
+        await asyncio.sleep(0.6)  # drains, bus ticks, refits, a round
+        signals = json.loads(await _served_get(http_port, "/debug/signals"))
+        capacity = json.loads(await _served_get(
+            http_port, "/debug/capacity?batch=8&lease_share=0&procs=1"))
+        bundles = json.loads(await _served_get(http_port, "/debug/flight"))
+        stats = json.loads(await _served_get(http_port, "/debug/stats"))
+        families = await _served_metrics(http_port)
+        # nothing refits, migrates or taps between the reads below
+        tiered.observatory.close()
+        manager = tiered.tier_manager
+        manager.close()
+        flight = tiered.flight_engine.recorder.flight_debug()
+        coeff = est.coefficients()
+        costs = manager._row_costs()
+        cold_p50_ms = tiered.storage.tier_stats()["cold_decide_p50_ms"]
+        tstats = tiered.storage.tier_stats()
+        pending = len(est._pending)
+    finally:
+        await tiered.stop()
+        await oracle.stop()
+    launches = dict(K.launches)
+    lat_ms = np.asarray(lat) * 1e3
+    print(f"{label}: {calls} calls over {users} users in {seconds:.2f}s "
+          f"({calls // 2} sequential: p50 {np.percentile(lat_ms, 50):.3f} "
+          f"ms, p99 {np.percentile(lat_ms, 99):.3f} ms; the rest 8 at a "
+          f"time), {mismatches} differ from the memory server ({card})")
+    print(f"{label}: recorder batches {tally['batches']}, ingests "
+          f"{tally['ingests']}, draining refits {tally['refits']} "
+          f"({tally['drained']} observations), pending {pending}, "
+          f"dropped {est.dropped}; fit r2 {capacity['r2']}, drift "
+          f"{capacity['drift']['state']}, coefficients "
+          f"{json.dumps(coeff)}; tier manager row costs {costs} (cold "
+          f"decide p50 {cold_p50_ms} ms)")
+    print(f"{label}: flight taps {flight['taps']}, tails "
+          f"{json.dumps(flight['tail_depth'])}, exemplars "
+          f"{flight['exemplars']}; cold decisions "
+          f"{tstats['cold']['decisions']}, promotions "
+          f"{tstats['cold']['promotions']}, demotions "
+          f"{tstats['cold']['demotions']}; bundles "
+          f"{len(bundles['bundles'])}")
+    print(f"{label}: /debug/signals current "
+          f"{json.dumps(signals['current'])}")
+    print(f"{label}: /debug/capacity what_if "
+          f"{json.dumps(capacity.get('what_if'))}, headroom "
+          f"{json.dumps(capacity['headroom'])}")
+    print(f"{label} launches: {json.dumps(launches)}")
+    if failures:
+        fail(f"{label}: a background tier failed: {failures[0]!r}")
+    if mismatches:
+        fail(f"{label}: {mismatches} answers differ from the memory "
+             "server's")
+    if tally["ingests"] != tally["batches"] or tally["batches"] == 0:
+        fail(f"{label}: {tally['ingests']} ingests for "
+             f"{tally['batches']} recorded batches")
+    if tally["drained"] + pending + est.dropped != tally["ingests"] \
+            or pending > est.INGEST_CAP:
+        fail(f"{label}: the fit did not consume its ingests: {tally}, "
+             f"pending {pending}, dropped {est.dropped}")
+    if tally["refits"] == 0 or capacity["observations"] == 0:
+        fail(f"{label}: the fit never refit ({tally}, {capacity})")
+    tails = flight["tail_depth"]
+    if not (tails["lean"] or tails["native_hot"]) or not tails["cold_tier"]:
+        fail(f"{label}: the flight recorder lacks taps: {tails}")
+    current = signals["current"]
+    if list(current) != list(ControlSignals.FIELDS) \
+            or signals["fields"] != list(ControlSignals.FIELDS) \
+            or current["device_backed"] != (1 if dev.type == "cuda" else 0):
+        fail(f"{label}: the bus snapshot is wrong: {current}")
+    for section in ("signals", "capacity", "flight", "tiering"):
+        if section not in stats:
+            fail(f"{label}: /debug/stats lacks {section}")
+    want_costs = (
+        coeff["host"]["row"] if coeff["host"]["row"] > 0
+        else (cold_p50_ms / 1000.0 if cold_p50_ms > 0 else 20e-6),
+        coeff["device"]["row"] if coeff["device"]["row"] > 0 else 1e-6)
+    if costs != want_costs:
+        fail(f"{label}: the tier manager prices with {costs}, not the "
+             f"fit's {want_costs}")
+    if _metric(families, "model_observations") <= 0 \
+            or _metric(families, "flight_taps") <= 0:
+        fail(f"{label}: model_observations or flight_taps stayed 0")
+    missing = [k for k in PHASE13A_KERNELS if _launched(launches, k) == 0]
+    if missing:
+        fail(f"kernels not launched on {label}: {missing}")
+    _host_forms_only(launches, label, remote=False)
+    return launches, {
+        "seconds": seconds, "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)), "tally": tally,
+        "coefficients": coeff, "row_costs": list(costs),
+        "fit_positive": {t: coeff[t]["row"] > 0 for t in coeff},
+        "r2": capacity["r2"], "drift": capacity["drift"],
+        "headroom": capacity["headroom"], "flight": flight,
+        "cold": tstats["cold"], "signals": current,
+    }
+
+
+async def _flight_bundle(tmpdir, dev, card, calls=300):
+    """Phase 13b: POST /debug/flight/trigger {"note": "smoke",
+    "profile": true} on a card server with --flight-profile-s 0.5 while
+    calls go on: the bundle is in the spool and served back by name, its
+    profile names a Chrome trace that exists, and flight_bundles and
+    flight_triggers{reason="manual"} count it."""
+    import re
+
+    import grpc
+
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "flight bundle (13b)"
+    limits = os.path.join(tmpdir, "limits.yaml")
+    with open(limits, "w") as f:
+        f.write(LIMITS_YAML)
+    spool = os.path.join(tmpdir, "spool")
+    (rls_port,) = _free_ports(1)
+    http, http_port = _http_options()
+    K.reset_launches()
+    # a budget no call misses: no SLO-burn bundle races the manual one
+    srv = await server.start(server.build_parser().parse_args([
+        limits, "torch", "--device", dev.type, "--rls-host", "127.0.0.1",
+        "--rls-port", str(rls_port), *http, "--flight-profile-s", "0.5",
+        "--slo-budget-ms", "1000", "--flight-spool-dir", spool,
+        "--profile-dir", os.path.join(tmpdir, "profile")]))
+    loop = asyncio.get_running_loop()
+    envoy = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+    try:
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{rls_port}") as ch:
+            for i in range(50):
+                await ch.unary_unary(envoy)(_lat_blob(rls_pb2, i, False),
+                                            timeout=60)
+            fired = loop.run_in_executor(
+                None, _http_post, http_port, "/debug/flight/trigger",
+                {"note": "smoke", "profile": True})
+            for i in range(calls):
+                await ch.unary_unary(envoy)(_lat_blob(rls_pb2, i, False),
+                                            timeout=60)
+            status, out = await fired
+        name = out.get("bundle")
+        listed = json.loads(await _served_get(http_port, "/debug/flight"))
+        served = json.loads(await _served_get(
+            http_port, f"/debug/flight?name={name}"))
+        families = await _served_metrics(http_port)
+    finally:
+        await srv.stop()
+    launches = dict(K.launches)
+    if status != 200 or not out.get("fired") or not name:
+        fail(f"{label}: the trigger answered {status} {out}")
+    path = os.path.join(spool, name)
+    if not os.path.exists(path):
+        fail(f"{label}: {name} is not in the spool {spool}")
+    with open(path) as f:
+        on_disk = json.load(f)
+    if served != on_disk or name not in [b["name"]
+                                         for b in listed["bundles"]]:
+        fail(f"{label}: GET /debug/flight does not serve {name}")
+    profile = on_disk.get("profile") or {}
+    if "error" in profile or not profile.get("trace") \
+            or not os.path.exists(profile["trace"]):
+        fail(f"{label}: the bundle's profile is {profile}")
+    with open(profile["trace"]) as f:
+        events = json.load(f).get("traceEvents", [])
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           KERNEL_SOURCE)) as f:
+        source_kernels = set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
+            f.read()))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = sorted({k for e in kernels for k in source_kernels
+                   if re.search(rf"\b{k}\b", e.get("name", ""))})
+    counted = {"flight_bundles": _metric(families, "flight_bundles"),
+               "flight_triggers_manual": _metric(
+                   families, "flight_triggers", reason="manual")}
+    print(f"{label}: {name}, {os.path.getsize(path)} bytes, reason "
+          f"{on_disk['reason']}, note {on_disk['note']!r}, "
+          f"{len(on_disk['local']['exemplars'])} exemplars, worst "
+          f"{ {k: len(v) for k, v in on_disk['local']['worst'].items()} }, "
+          f"{len(on_disk['local']['signals'])} signal snapshots; profile "
+          f"{profile['seconds']} s to {os.path.basename(profile['trace'])}: "
+          f"{len(events)} events, {len(kernels)} CUDA kernel events, "
+          f"kernels of {KERNEL_SOURCE}: {ours}; /metrics "
+          f"{json.dumps(counted)} ({card})")
+    if counted["flight_bundles"] < 1 or counted["flight_triggers_manual"] != 1:
+        fail(f"{label}: the flight families do not count the bundle: "
+             f"{counted}")
+    return launches, {"bundle": name, "events": len(events),
+                      "kernel_events": len(kernels),
+                      "source_kernels": ours, **counted}
+
+
+async def _planes_cost(tmpdir, dev, card, native, rounds=300):
+    """Phase 13c: a phase-4 (or, with ``native``, phase-6) server with
+    the control planes at their defaults beside one with
+    ``--flight off --model-fit off --usage-topk 0``, in this process on
+    one frozen clock; ``rounds`` rounds of one sequential ShouldRateLimit
+    call to each, the order alternating by round. The answers must be
+    byte-equal, and so must the final counters; p50/p99 of each side and
+    the per-round difference are records, not a gate."""
+    import grpc
+
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = f"planes cost (13c, {'native' if native else 'standard'})"
+    limits = os.path.join(tmpdir, "limits.yaml")
+    with open(limits, "w") as f:
+        f.write(LIMITS_YAML + (NATIVE_NS_YAML if native else ""))
+    options = ["--rls-host", "127.0.0.1", "--rate-limit-headers",
+               "NONE" if native else "DRAFT_VERSION_03", "--device", dev.type]
+    if native:
+        options += ["--pipeline", "native", "--native-hot-lane", "on",
+                    "--lease-mode", "off"]
+    parse = server.build_parser().parse_args
+    clock = ManualClock()
+    ports = dict(zip("ND", _free_ports(2)))
+    servers = {}
+    failures = []
+    try:
+        for side, extra in (("N", ()), ("D", PLANES_OFF)):
+            servers[side] = await server.start(parse(
+                [limits, "torch", *options, *_http_options()[0],
+                 "--rls-port", str(ports[side]),
+                 "--flight-spool-dir", os.path.join(tmpdir, f"spool{side}"),
+                 *extra]), clock=clock, on_failure=failures.append)
+        envoy = "/envoy.service.ratelimit.v3.RateLimitService/" \
+            "ShouldRateLimit"
+        lat = {side: [] for side in servers}
+        mismatches = 0
+        channels = {side: grpc.aio.insecure_channel(f"127.0.0.1:{port}")
+                    for side, port in ports.items()}
+        try:
+            for i in range(rounds + 30):  # the first 30 rounds warm up
+                blob = _lat_blob(rls_pb2, i, native)
+                order = "ND" if i % 2 == 0 else "DN"
+                got = {}
+                for side in order:
+                    t0 = time.perf_counter()
+                    got[side] = await channels[side].unary_unary(envoy)(
+                        blob, timeout=60)
+                    if i >= 30:
+                        lat[side].append(time.perf_counter() - t0)
+                mismatches += got["N"] != got["D"]
+        finally:
+            for ch in channels.values():
+                await ch.close()
+        final = {}
+        for side, srv in servers.items():
+            rows = {}
+            for ns in ("api", "nat"):
+                counters = srv.limiter.get_counters(ns)
+                if asyncio.iscoroutine(counters):
+                    counters = await counters
+                for c in counters:
+                    rows[(ns, c.limit.name,
+                          tuple(c.set_variables.items()))] = (
+                        c.remaining, c.expires_in)
+            final[side] = rows
+    finally:
+        for srv in servers.values():
+            await srv.stop()
+    ms = {side: np.asarray(v) * 1e3 for side, v in lat.items()}
+    diff = ms["N"] - ms["D"]
+    out = {side: {"p50_ms": float(np.percentile(v, 50)),
+                  "p99_ms": float(np.percentile(v, 99)),
+                  "mean_ms": float(v.mean())} for side, v in ms.items()}
+    out["minus_off_median_ms"] = float(np.median(diff))
+    out["minus_off_mean_ms"] = float(diff.mean())
+    out["slower_share"] = float((diff > 0).mean())
+    print(f"{label}: {rounds} rounds, planes on p50 "
+          f"{out['N']['p50_ms']:.3f} / p99 {out['N']['p99_ms']:.3f} ms, "
+          f"off p50 {out['D']['p50_ms']:.3f} / p99 "
+          f"{out['D']['p99_ms']:.3f} ms; on - off per round median "
+          f"{out['minus_off_median_ms']:+.4f} ms, mean "
+          f"{out['minus_off_mean_ms']:+.4f} ms, slower in "
+          f"{out['slower_share']:.1%} of rounds ({card})")
+    if failures:
+        fail(f"{label}: a background tier failed: {failures[0]!r}")
+    if mismatches or final["N"] != final["D"] or not final["N"]:
+        fail(f"{label}: {mismatches} answers differ between the planes on "
+             f"and off, or the counters do ({len(final['N'])} against "
+             f"{len(final['D'])})")
+    print(f"{label}: every answer byte-equal, {len(final['N'])} counters "
+          "equal")
+    return out
+
+
+def phase_control_planes(dev, card):
+    """Phase 13: (a) the served planes over tiers against a memory
+    server, (b) a flight bundle with a profile, (c) the planes' served
+    cost on phases 4 and 6. Returns (launches of 13a, 13b and 13c,
+    results)."""
+    from limitador_tpu_torch.ops import kernel as K
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        launches_a, served = asyncio.run(
+            _served_planes(tmpdir, dev, card))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        launches_b, bundle = asyncio.run(_flight_bundle(tmpdir, dev, card))
+    K.reset_launches()
+    cost = {}
+    for native in (False, True):
+        with tempfile.TemporaryDirectory() as tmpdir:
+            cost["native" if native else "standard"] = asyncio.run(
+                _planes_cost(tmpdir, dev, card, native))
+    launches = {k: launches_a[k] + launches_b[k] + K.launches[k]
+                for k in launches_a}
+    _storage_forms(launches, "control planes (13)", ("drain_top_hits_host",))
+    print(f"control planes (13): {time.perf_counter() - t0:.2f}s; launches "
+          f"{json.dumps(launches)}")
+    return launches, {"served": served, "bundle": bundle, "cost": cost,
+                      "card": card}
+
+
 # -- phase 5 ----------------------------------------------------------------
 
 
@@ -5120,6 +5612,10 @@ def main() -> int:
     name, card = phase_card()
     import torch
 
+    # every server's flight bundles go under this run's own directory
+    spool_root = tempfile.TemporaryDirectory()
+    os.environ["TPU_FLIGHT_SPOOL"] = os.path.join(spool_root.name, "flight")
+
     dev = torch.device("cuda", 0)
     phase_build()
     results = phase_kernels(dev)
@@ -5181,6 +5677,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmpdir:
         http_launches, http_api = asyncio.run(_http_api(tmpdir, dev, card))
     plane_launches, device_plane = phase_device_plane(dev, card)
+    planes_launches, control_planes = phase_control_planes(dev, card)
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -5215,12 +5712,13 @@ def main() -> int:
         _host_forms_only(got, label, remote=False)
     _storage_forms(plane_launches, "device plane (12)", ("update_host",))
     # launches on the main paths: phases 4, 5, 6, 7, 8a, 8b, 9a, 9b, 10a,
-    # 10b, 11, 12
+    # 10b, 11, 12, 13
     runs = (launches, drive5_launches, native_launches, drive_launches,
             repl_launches,
             served_launches, tier_launches, served_tier_launches,
             leased_tier_launches, served_default_launches, sharded_launches,
-            served_sharded_launches, http_launches, plane_launches)
+            served_sharded_launches, http_launches, plane_launches,
+            planes_launches)
     launches = {name: sum(run[name] for run in runs) for name in launches}
     kernels = []
     for kname, by_shape in results.items():
@@ -5273,7 +5771,10 @@ def main() -> int:
             "http_api_launches": http_launches,
             "device_plane": device_plane,
             "device_plane_launches": plane_launches,
+            "control_planes": control_planes,
+            "control_planes_launches": planes_launches,
         }, f, indent=1)
+    spool_root.cleanup()
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,14 +35,19 @@ Per-batch phase names (``PHASES``):
 * ``unpack``: resolving the futures,
 * ``lease``: one lease-broker refresh pass (settle and grant).
 
-The recorder's taps for planes not in the port yet (the process flight
-recorder's exemplar tap, the serving model's fit, the admission plane's
-queue-wait feed and the signal bus's EWMAs) are left out with those
-planes (ROADMAP Queue A).
+The recorder also feeds the control planes from numbers it already has
+in hand: the process flight recorder's ``lean`` lane (``flight_tap``,
+one tap a decision), the serving model's per-launch observations
+(``model``, one ingest a batch) and the signal bus's EWMAs of the check
+path's worst queue wait and fill ratio a flush. The admission plane's
+queue-wait feed (``on_queue_waits``) comes with that plane (ROADMAP
+Queue A item 4).
 """
 
 from __future__ import annotations
 
+import asyncio
+import concurrent.futures
 import contextlib
 import heapq
 import itertools
@@ -51,7 +56,9 @@ import tempfile
 import threading
 import time
 from contextvars import ContextVar
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
+
+from .model import model_fit_enabled, process_estimator
 
 __all__ = [
     "PHASES",
@@ -144,7 +151,10 @@ class DeviceStatsRecorder:
     reasons, chunk plans and phase timings into their families.
     ``clock`` (``time.perf_counter`` by default) is the clock the
     batchers stamp enqueue times with; ``record_batch`` reads it for
-    each decision's end-to-end duration."""
+    each decision's end-to-end duration. The serving model's ingest
+    tap is armed at construction when ``model.model_fit_enabled()``
+    (the server sets it from ``--model-fit`` before any recorder is
+    made)."""
 
     def __init__(self, metrics=None, flight_capacity: int = 32,
                  clock: Callable[[], float] = time.perf_counter):
@@ -160,6 +170,20 @@ class DeviceStatsRecorder:
         # end-to-end latencies record_batch has in hand, one lock per
         # batch. None = detached.
         self.slo = None
+        # Process flight recorder (flight.FlightRecorder): every decision
+        # record_batch times taps its "lean" lane (a counter bump off the
+        # sampled path). None = detached.
+        self.flight_tap = None
+        # Signal-bus taps: EWMAs of the check path's worst queue wait and
+        # fill ratio a flush, read by signals.SignalBus.
+        self.signal_queue_wait_s = 0.0
+        self.signal_batch_fill = 0.0
+        # Serving-model estimator (model.ServingModelEstimator): one
+        # ingest (a lock and a bounded append) a batch; the fit runs on
+        # the usage observatory's drain thread. None = detached.
+        self.model = None
+        if model_fit_enabled():
+            self.model = process_estimator()
 
     def next_batch_id(self) -> int:
         return next(self._batch_ids)
@@ -179,11 +203,20 @@ class DeviceStatsRecorder:
         self,
         reason: str,
         fill_ratio: float,
-        queue_waits: Iterable[float],
+        queue_waits: Sequence[float],
         batcher: str = "check",
     ) -> None:
         with self._lock:
             self.flush_reasons[reason] = self.flush_reasons.get(reason, 0) + 1
+        if batcher == "check":
+            # racy float EWMAs by design: a torn read costs one sample of
+            # smoothing, never correctness
+            self.signal_queue_wait_s += 0.2 * (
+                max(queue_waits, default=0.0) - self.signal_queue_wait_s
+            )
+            self.signal_batch_fill += 0.2 * (
+                min(fill_ratio, 1.0) - self.signal_batch_fill
+            )
         if self.metrics is None:
             return
         self._child("batcher_flushes", batcher, reason).inc()
@@ -237,21 +270,31 @@ class DeviceStatsRecorder:
         phases: Dict[str, float],
     ) -> None:
         """Flush-level fan-out for one finished batch, shared by the
-        three pipelines: phase histograms, the SLO watchdog's feed and
-        flight-recorder offers for the decisions slow enough to enter.
-        ``entries`` yields ``(t_enqueue, request_id, namespace)`` per
-        decided request (namespace may be any object, stringified only
-        on admission)."""
+        three pipelines: phase histograms, the SLO watchdog's feed, the
+        process flight recorder's ``lean`` tap, flight-recorder offers
+        for the decisions slow enough to enter and one serving-model
+        observation. ``entries`` yields ``(t_enqueue, request_id,
+        namespace)`` per decided request (namespace may be any object,
+        stringified only on admission)."""
         self.record_phases(phases)
         phases_ms = self.phases_ms(phases)
         flight = self.flight
+        tap = self.flight_tap
         slo = self.slo
         totals: Optional[list] = [] if slo is not None else None
         t_now = self._clock()
+        n_rows = 0
+        min_enq: Optional[float] = None
         for t_enq, rid, namespace in entries:
+            n_rows += 1
+            if min_enq is None or t_enq < min_enq:
+                min_enq = t_enq
             total = t_now - t_enq
             if totals is not None:
                 totals.append(total)
+            if tap is not None:
+                tap.tap(total, "lean", request_id=rid, namespace=namespace,
+                        phases_ms=phases_ms)
             if flight.would_admit(total):
                 self.record_decision(
                     total, rid, namespace, batch_id,
@@ -259,6 +302,21 @@ class DeviceStatsRecorder:
                 )
         if totals:
             slo.observe_many(totals)
+        model = self.model
+        if model is not None and n_rows:
+            # The host target is the launch-shaped host work only, as
+            # the JAX recorder takes it: native_lane absorbs the loop's
+            # interleaving on the submit lane, lease is a broker pass,
+            # and dispatch is executor queueing, which joins the queue
+            # wait instead.
+            host_s = sum(
+                phases.get(k, 0.0)
+                for k in ("host_cache", "host_stage", "unpack")
+            )
+            model.ingest(
+                n_rows, host_s, phases.get("device_sync", 0.0),
+                max(t_flush - min_enq, 0.0) + phases.get("dispatch", 0.0),
+            )
 
     @staticmethod
     def phases_ms(phases: Dict[str, float]) -> dict:
@@ -302,20 +360,62 @@ class TorchProfiler:
     """On-demand ``torch.profiler`` capture: ``start`` opens the
     process's one ``torch.profiler.profile`` (CPU activity always, CUDA
     activity when ``cuda``), ``stop`` exports its Chrome trace into the
-    capture's directory. Several servers in one process share the one
-    capture: a start while any is active raises ``ProfilerStateError``,
-    and any of them may stop it, on the thread that started it (the
-    profiler's own rule). ``torch.profiler`` is imported in ``start``
-    only."""
+    capture's directory (``last_trace`` names the file). Several servers
+    in one process share the one capture: a start while any is active
+    raises ``ProfilerStateError``, and any of them may stop it, on the
+    thread that started it (the profiler's own rule): a stop from
+    another thread raises ``ProfilerStateError`` and leaves the capture
+    running. With ``loop`` (the server's event loop), ``start`` and
+    ``stop`` called from another thread (a flight bundle's capture, on
+    the trigger thread or an executor thread) run on the loop's thread,
+    where ``/debug/profile`` runs them, and block until they have: the
+    first CUDA capture of a process records no kernel unless it starts
+    on the thread that initialized torch, which the served binary's loop
+    runs on. ``torch.profiler`` is imported in ``start`` only."""
 
-    def __init__(self, default_dir: Optional[str] = None, cuda: bool = False):
+    def __init__(self, default_dir: Optional[str] = None, cuda: bool = False,
+                 loop: Optional[asyncio.AbstractEventLoop] = None):
         self.default_dir = default_dir or default_profile_dir()
         self.cuda = bool(cuda)
+        self.loop = loop
+        #: the Chrome trace the last ``stop`` of this profiler exported
+        self.last_trace: Optional[str] = None
+
+    def _on_loop(self, fn, *args):
+        """``fn(*args)`` on the thread of ``loop`` when one is set and
+        this is another thread (waiting up to a minute for it), else
+        here."""
+        loop = self.loop
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            running = None  # not on a loop's thread
+        if loop is None or running is loop:
+            return fn(*args)
+        done: concurrent.futures.Future = concurrent.futures.Future()
+
+        def run():
+            try:
+                done.set_result(fn(*args))
+            except BaseException as exc:
+                done.set_exception(exc)
+
+        loop.call_soon_threadsafe(run)
+        return done.result(timeout=60.0)
 
     def start(self, trace_dir: Optional[str] = None) -> str:
         """Start a capture into ``trace_dir`` (default ``default_dir``),
         created when missing. Raises ``OSError`` when the directory
         cannot be created or written."""
+        return self._on_loop(self._start, trace_dir)
+
+    def stop(self) -> str:
+        """Stop the capture and export its Chrome trace; returns the
+        directory. The state clears before the profiler stops, so a
+        failed export cannot wedge the endpoint in "already capturing"."""
+        return self._on_loop(self._stop)
+
+    def _start(self, trace_dir: Optional[str]) -> str:
         global _capture
         with _capture_lock:
             if _capture is not None:
@@ -340,27 +440,32 @@ class TorchProfiler:
                 "profile": prof,
                 "trace_dir": target,
                 "started_at": time.time(),
+                "thread": threading.get_ident(),
             }
             return target
 
-    def stop(self) -> str:
-        """Stop the capture and export its Chrome trace; returns the
-        directory. The state clears before the profiler stops, so a
-        failed export cannot wedge the endpoint in "already capturing"."""
+    def _stop(self) -> str:
         global _capture
         with _capture_lock:
             if _capture is None:
                 raise ProfilerStateError("no profiler capture active")
+            if _capture["thread"] != threading.get_ident():
+                raise ProfilerStateError(
+                    "the capture was started on another thread, which "
+                    "stops it"
+                )
             capture, _capture = _capture, None
             prof = capture["profile"]
             target = capture["trace_dir"]
+            trace = os.path.join(
+                target,
+                f"limitador-torch-{os.getpid()}-{next(_capture_seq)}"
+                ".pt.trace.json",
+            )
             with _environ_kept():
                 prof.stop()
-                prof.export_chrome_trace(os.path.join(
-                    target,
-                    f"limitador-torch-{os.getpid()}-{next(_capture_seq)}"
-                    ".pt.trace.json",
-                ))
+                prof.export_chrome_trace(trace)
+            self.last_trace = trace
             return target
 
     def status(self) -> dict:
@@ -442,11 +547,14 @@ def _walk(source, seen, queues, shards, recorders, plan_caches) -> None:
     recorder = getattr(source, "recorder", None)
     if isinstance(recorder, DeviceStatsRecorder):
         recorders[id(recorder)] = recorder
+    name = type(source).__name__
     pending = getattr(source, "_pending", None)
-    if hasattr(pending, "__len__"):
-        name = type(source).__name__
+    # Only the batchers and pipelines are queues: the serving-model
+    # estimator's ingest buffer and the flight trigger's peer retries
+    # (debug sources too) are not.
+    if name in _QUEUE_NAMES and hasattr(pending, "__len__"):
         entry = {
-            "queue": _QUEUE_NAMES.get(name, name),
+            "queue": _QUEUE_NAMES[name],
             "depth": len(pending),
         }
         pending_hits = getattr(source, "_pending_hits", None)

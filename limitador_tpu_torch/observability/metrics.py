@@ -17,10 +17,11 @@ usage observatory (``tenant_*``), the sharded table, the tiers, the
 device-plane recorder (``batcher_queue_wait``,
 ``batcher_batch_fill_ratio``, ``batcher_flushes``,
 ``device_phase_latency``, ``dispatch_chunk_*``), the native telemetry
-plane (``native_phase_*``) and the SLO watchdog (``slo_*``,
-``device_backed``). A family of a plane the port does not have yet (the
-pod, admission, the capacity controller, the process flight recorder,
-the serving model, the signal bus, the native ingress with its
+plane (``native_phase_*``), the SLO watchdog (``slo_*``,
+``device_backed``), the control-signal bus (``signal_*``), the process
+flight recorder (``flight_*``) and the serving-model fit (``model_*``,
+``capacity_*``). A family of a plane the port does not have yet (the
+pod, admission, the capacity controller, the native ingress with its
 ``native_phase_h2i_respond``, the cached storage) is declared with the
 slice that brings the plane.
 
@@ -53,8 +54,12 @@ from prometheus_client.openmetrics.exposition import (
 )
 
 from .device_plane import BATCHERS, FLUSH_REASONS, PHASES, current_request_id
+from .flight import TRIGGER_REASONS
 from .metrics_layer import MetricsLayer, install, installed
+from .model import ATTRIBUTION_STAGES, MODEL_TARGETS, MODEL_TERMS
 from .native_plane import NATIVE_PHASE_BUCKETS
+from .signals import _PHASES as _SIGNAL_PHASES
+from .signals import _PRIORITIES
 from .tracing import current_trace_id
 
 __all__ = [
@@ -629,8 +634,175 @@ class PrometheusMetrics:
             "Cold-tier journal rows appended to the disk spill log",
             registry=self.registry,
         )
+        # -- control-signal bus (signals.py): the joined observation
+        # vector served at /debug/signals, mirrored as gauges.
+        self.signal_queue_wait_ms = Gauge(
+            "signal_queue_wait_ms",
+            "Control signal: EWMA of per-flush worst batcher queue "
+            "wait (ms, check path)",
+            registry=self.registry,
+        )
+        self.signal_batch_fill = Gauge(
+            "signal_batch_fill",
+            "Control signal: EWMA of check-batcher flush fill ratio",
+            registry=self.registry,
+        )
+        self.signal_breaker_state = Gauge(
+            "signal_breaker_state",
+            "Control signal: device-plane breaker state (0 closed, 1 "
+            "half-open, 2 open)",
+            registry=self.registry,
+        )
+        self.signal_shed_rate = Gauge(
+            "signal_shed_rate",
+            "Control signal: admission sheds per second between signal "
+            "snapshots, per priority class",
+            ["priority"],
+            registry=self.registry,
+        )
+        self.signal_lease_outstanding_tokens = Gauge(
+            "signal_lease_outstanding_tokens",
+            "Control signal: outstanding quota-lease tokens (the live "
+            "over-admission bound)",
+            registry=self.registry,
+        )
+        self.signal_native_p99_us = Gauge(
+            "signal_native_p99_us",
+            "Control signal: native-plane per-phase p99 (µs), per phase",
+            ["phase"],
+            registry=self.registry,
+        )
+        self.signal_slo_burn_5m = Gauge(
+            "signal_slo_burn_5m",
+            "Control signal: SLO error-budget burn rate over the 5m "
+            "window",
+            registry=self.registry,
+        )
+        self.signal_box_calibration = Gauge(
+            "signal_box_calibration",
+            "Control signal: runtime box calibration score (the bench's "
+            "fixed spin+memcpy normalizer, computed in-process)",
+            registry=self.registry,
+        )
+        self.signal_device_backed = Gauge(
+            "signal_device_backed",
+            "Control signal: device_backed as seen by the signal bus "
+            "(1 device, 0 CPU fallback, -1 unknown)",
+            registry=self.registry,
+        )
+        self.signal_device_backed.set(-1)
+        # -- process flight recorder (flight.py): exemplar rings and
+        # triggered incident bundles, fed by the recorder's render hook.
+        self.flight_taps = Gauge(
+            "flight_taps",
+            "Decisions observed by the flight recorder's hot-path tap "
+            "(all lanes, cumulative)",
+            registry=self.registry,
+        )
+        self.flight_exemplars = Counter(
+            "flight_exemplars",
+            "Sampled decision exemplars admitted into the flight "
+            "recorder ring (1-in-N head sampling)",
+            registry=self.registry,
+        )
+        self.flight_tail_retained = Counter(
+            "flight_tail_retained",
+            "Decisions retained by a per-lane worst-K tail reservoir "
+            "(kept regardless of sample rate)",
+            registry=self.registry,
+        )
+        self.flight_triggers = Counter(
+            "flight_triggers",
+            "Incident bundles fired, by trigger reason (slo_burn, "
+            "breaker_open, resize_abort, drift, device_probe, manual)",
+            ["reason"],
+            registry=self.registry,
+        )
+        self.flight_bundles = Gauge(
+            "flight_bundles",
+            "Incident bundles currently retained in the flight spool",
+            registry=self.registry,
+        )
+        self.flight_spool_bytes = Gauge(
+            "flight_spool_bytes",
+            "Total bytes of the retention-capped flight bundle spool",
+            registry=self.registry,
+        )
+        self.flight_peer_rings = Counter(
+            "flight_peer_rings",
+            "Peer ring contributions merged into incident bundles "
+            "(pod-correlated autopsies over the peer lane)",
+            registry=self.registry,
+        )
+        # -- serving-model fit (model.py): coefficients, drift and the
+        # SLO-headroom forecast, refreshed by the estimator's render hook.
+        self.model_r2 = Gauge(
+            "model_r2",
+            "Prequential (held-out) R² of the online serving-model fit "
+            "over recent launches",
+            registry=self.registry,
+        )
+        self.model_observations = Gauge(
+            "model_observations",
+            "Device-launch observations the online fit has consumed",
+            registry=self.registry,
+        )
+        self.model_drift = Gauge(
+            "model_drift",
+            "1 while the residual drift detector holds a confirmed "
+            "code/config regression (calibration flat, residuals up); "
+            "box phase changes classify as calibration shifts and stay 0",
+            registry=self.registry,
+        )
+        self.model_drift_cusum = Gauge(
+            "model_drift_cusum",
+            "One-sided CUSUM statistic over standardized prediction "
+            "residuals (trips at 8; slower-than-model only)",
+            registry=self.registry,
+        )
+        self.model_coefficient = Gauge(
+            "model_coefficient",
+            "Fitted serving-model coefficients in normalized units "
+            "(seconds × box calibration score), per target (host/"
+            "device) and term (launch/row/lease_row/pod_row/"
+            "collective_row)",
+            ["target", "term"],
+            registry=self.registry,
+        )
+        self.capacity_headroom_ratio = Gauge(
+            "capacity_headroom_ratio",
+            "Max sustainable decisions/s at the current traffic mix "
+            "(fitted model inverted against the SLO budget) divided by "
+            "the current rate — <1 means the SLO is already paying",
+            registry=self.registry,
+        )
+        self.capacity_max_decisions_per_sec = Gauge(
+            "capacity_max_decisions_per_sec",
+            "Max sustainable decisions/s under the SLO budget at the "
+            "current traffic mix, per the fitted serving model",
+            registry=self.registry,
+        )
+        self.capacity_stage_share = Gauge(
+            "capacity_stage_share",
+            "Share of predicted decision latency each serving-model "
+            "stage owns at the operating point — where the next "
+            "millisecond of p99 comes from",
+            ["stage"],
+            registry=self.registry,
+        )
         # Pre-seed the bounded label sets so the families render (and
         # dashboards see zeros) before the first sample.
+        for priority in _PRIORITIES:
+            self.signal_shed_rate.labels(priority)
+        for phase in _SIGNAL_PHASES:
+            self.signal_native_p99_us.labels(phase)
+        for reason in TRIGGER_REASONS:
+            self.flight_triggers.labels(reason)
+        for target in MODEL_TARGETS:
+            for term in MODEL_TERMS:
+                self.model_coefficient.labels(target, term)
+        for stage in ATTRIBUTION_STAGES:
+            self.capacity_stage_share.labels(stage)
         for tier in ("device", "cold"):
             self.tier_resident.labels(tier)
         for direction in ("promote", "demote"):
@@ -662,8 +834,9 @@ class PrometheusMetrics:
 
     def attach_render_hook(self, hook) -> None:
         """Attach any object exposing ``poll(metrics)``; called on every
-        render (the tenant usage observatory and the tier manager ride
-        this)."""
+        render (the tenant usage observatory, the tier manager, the
+        signal bus, the serving-model estimator and the process flight
+        recorder ride this)."""
         self._render_hooks.append(hook)
 
     def attach_library_source(self, source) -> None:

@@ -19,8 +19,9 @@ phases (wait-free log2-ns histograms and a slow-row exemplar ring,
   plane arms: a second server of the process counts from its own start,
   where the JAX plane counts from the process's), drains slow-row
   exemplars into the flight recorder under the ``native_lane``/``lease``
-  phases, and exports the watchdog as ``slo_*`` gauges and
-  ``/debug/stats`` sections.
+  phases (and into the process flight recorder's ``native_hot`` lane
+  when the recorder carries a ``flight_tap``), and exports the watchdog
+  as ``slo_*`` gauges and ``/debug/stats`` sections.
 * :class:`SloWatchdog`: multi-window (5 m / 1 h) burn-rate tracking of
   the p99 <= budget SLO over the decision latency the device-plane
   recorder has in hand per batch. Burn rate is the share of decisions
@@ -33,7 +34,6 @@ phases (wait-free log2-ns histograms and a slow-row exemplar ring,
 
 from __future__ import annotations
 
-import math
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -114,8 +114,6 @@ class SloWatchdog:
 
     SLICE_S = 10.0
     _N_BUCKETS = 40  # log2 µs
-    #: the largest batch ``observe_many`` buckets without numpy
-    SMALL_BATCH = 8
 
     def __init__(
         self,
@@ -158,33 +156,11 @@ class SloWatchdog:
         return self._cur_abs % self._n_slices
 
     def observe_many(self, seconds: List[float]) -> None:
-        """Count one batch of decision latencies into the current slice.
-        A batch of up to ``SMALL_BATCH`` (a served batch holds a request
-        or a few) is bucketed in plain Python, where numpy's fixed cost
-        per call dominates; a larger one with numpy, whose cost per value
-        is the smaller. Both bucket as the JAX watchdog does: ``log2`` of
-        the µs, truncated."""
+        """Count one batch of decision latencies into the current slice,
+        bucketed as the JAX watchdog does: ``log2`` of the µs,
+        truncated."""
         if not seconds:
             return
-        if len(seconds) <= self.SMALL_BATCH:
-            self._observe_small(seconds)
-        else:
-            self._observe_numpy(seconds)
-
-    def _observe_small(self, seconds: List[float]) -> None:
-        budget_us = self.budget_ms * 1e3
-        top = self._N_BUCKETS - 1
-        us = [max(s * 1e6, 1.0) for s in seconds]
-        over = sum(u > budget_us for u in us)
-        with self._lock:
-            row = self._sync(self._clock())
-            counts = self._counts[row]
-            for u in us:
-                counts[min(int(math.log2(u)), top)] += 1
-            self._total[row] += len(us)
-            self._over[row] += over
-
-    def _observe_numpy(self, seconds: List[float]) -> None:
         us = np.maximum(np.asarray(seconds, np.float64) * 1e6, 1.0)
         buckets = np.clip(
             np.log2(us).astype(np.int64), 0, self._N_BUCKETS - 1
@@ -399,6 +375,7 @@ class NativePlane:
             # No flight recorder to land in yet: the C ring keeps the
             # latest 64 slow rows until a consumer attaches.
             return
+        tap = rec.flight_tap
         for ex in self.drain_exemplars():
             phases_ms = {
                 "native_lane": round(
@@ -407,6 +384,16 @@ class NativePlane:
             }
             if ex["leased_rows"] > 0:
                 phases_ms["lease"] = round(ex["total_ns"] / 1e6, 4)
+            if tap is not None:
+                # The C ring is the sample: every drained slow row taps
+                # the process flight recorder's native_hot lane.
+                tap.tap(
+                    ex["total_ns"] / 1e9, "native_hot",
+                    phases_ms=phases_ms,
+                    key=format(
+                        ex["blob_digest"] & 0xFFFFFFFFFFFFFFFF, "016x"
+                    ),
+                )
             rec.flight.offer(ex["total_ns"] / 1e9, {
                 "request_id": None,
                 "namespace": None,

@@ -28,8 +28,10 @@ slot is free).
 ``poll(metrics)`` feeds the ``tenant_*`` Prometheus families at render
 time (``PrometheusMetrics.attach_render_hook``).
 
-Left out of the port for now (``ROADMAP.md``): the signal bus and the
-serving-model refit that ride the drain thread.
+The drain thread also ticks the control-signal bus (``signal_bus``: one
+snapshot a drain, so that its timeline has a steady cadence) and refits
+the serving model (``model``, assigned by the server), as the JAX
+observatory's thread does.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ class TenantUsageObservatory:
         interval_s: float = 1.0,
         near_threshold: float = 0.9,
         max_tracked: int = 1 << 16,
+        signal_bus=None,
         clock=time.monotonic,
     ):
         self.storage = storage
@@ -86,6 +89,10 @@ class TenantUsageObservatory:
         self.interval_s = float(interval_s)
         self.near_threshold = float(near_threshold)
         self.max_tracked = max(int(max_tracked), 2)
+        self.signal_bus = signal_bus
+        # serving-model estimator (observability/model.py) whose refit
+        # rides this drain thread; assigned by the server wiring
+        self.model = None
         self._clock = clock
         self._lock = threading.Lock()
         # identity -> [cumulative hits, last attributed record]
@@ -126,10 +133,18 @@ class TenantUsageObservatory:
         while not self._stop.wait(self.interval_s):
             try:
                 self.drain()
+                bus = self.signal_bus
+                if bus is not None:
+                    bus.snapshot()
+                model = self.model
+                if model is not None:
+                    model.refit()
             except Exception as exc:
                 # A drain that fails (a kernel that does not build or
                 # launch) stops the observatory and reports; it is not
-                # retried in silence.
+                # retried in silence. So does a bus tick or a refit that
+                # raises (neither does by design: each guards its
+                # sources as the JAX planes do).
                 log.exception("usage drain failed; the observatory stops")
                 self.error = exc
                 if self.on_error is not None:

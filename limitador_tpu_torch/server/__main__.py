@@ -23,7 +23,9 @@ of the slices ported so far:
          --advertise-address HOST:PORT] \\
         [--snapshot-path FILE --snapshot-period S] [--profile-dir DIR] \\
         [--native-trace-sample N] [--native-slow-row-us U] \\
-        [--slo-budget-ms MS]
+        [--slo-budget-ms MS] [--model-fit on|off] [--flight on|off] \\
+        [--flight-sample N] [--flight-spool-dir DIR] [--flight-window S] \\
+        [--flight-profile-s S]
 
 Storages: ``torch`` (default) keeps the counter table on the card
 (``--device cuda``, the default) or, for tests, on the CPU
@@ -116,11 +118,29 @@ spans) and an SLO burn-rate watchdog of ``--slo-budget-ms`` at p99
 (``slo_*``, ``device_backed``; ``/debug/stats`` ``native_telemetry``,
 ``slo``, ``device_backed``).
 
+Control planes (the JAX server's defaults): with the usage observatory
+running, a control-signal bus joins the planes' signals into one
+timestamped vector, ticked on the observatory's drain thread
+(``/debug/signals``, ``signal_*``); ``--model-fit on`` (default) fits the
+serving model from the recorder's per-batch observations, refits it on
+the drain thread and lets the tier manager price migrations with it
+(``/debug/capacity``, ``model_*``, ``capacity_*``; torch and sharded
+storage); ``--flight on`` (default) taps a process flight recorder on
+every decision lane the server runs (1 in ``--flight-sample`` decisions
+sampled, the slowest kept per lane) and runs a trigger thread that
+writes incident bundles of ``--flight-window`` seconds into
+``--flight-spool-dir`` (``limitador-flight`` under ``TMPDIR`` by
+default) on SLO burn, a drift flip, a ``device_backed`` fall or ``POST
+/debug/flight/trigger``, with a ``torch.profiler`` capture of
+``--flight-profile-s`` seconds when that is above 0 (``/debug/flight``,
+``flight_*``).
+
 Nothing falls back: a native pipeline or lease tier that cannot come up
 (the host lane does not build, the hot lane is unavailable, the storage
 is not torch, rate-limit headers are asked for), a native telemetry plane
 that cannot arm (the host lane does not build), an HTTP port that
-cannot be bound and a ``--tracing-endpoint`` that cannot start stop the
+cannot be bound, a ``--tracing-endpoint`` that cannot start and a
+``--flight-spool-dir`` that cannot be created or written stop the
 server with an error (exit 2), and a lease refresh, usage drain or tier
 migration round that fails while serving stops it too (exit 1).
 
@@ -139,12 +159,14 @@ import logging
 import os
 import signal
 import sys
+import tempfile
 import threading
 import time
 from typing import Optional
 
 from ..core.cel import CelError
 from ..core.limiter import AsyncRateLimiter, RateLimiter
+from ..observability import model as model_mod
 from ..observability import tracing
 from ..observability.device_plane import TorchProfiler, default_profile_dir
 from ..observability.metrics import PrometheusMetrics, install_metrics_layer
@@ -463,6 +485,49 @@ def build_parser() -> argparse.ArgumentParser:
         "slo section)",
     )
     p.add_argument(
+        "--model-fit", choices=["on", "off"],
+        default=_env("TPU_MODEL_FIT", "on"),
+        help="online serving-model fit from the recorder's per-batch "
+        "telemetry (model_*/capacity_* gauges, GET /debug/capacity, the "
+        "model_r2/capacity_headroom_ratio/model_drift signals, the tier "
+        "manager's pricing); 'off' detaches the ingest tap",
+    )
+    p.add_argument(
+        "--flight", choices=["on", "off"],
+        default=_env("TPU_FLIGHT", "on"),
+        help="process flight recorder: sampled decision exemplars and "
+        "worst-K tails per lane, and a trigger thread (SLO burn, drift, "
+        "device_backed falling, manual POST /debug/flight/trigger) "
+        "writing incident bundles (GET /debug/flight)",
+    )
+    p.add_argument(
+        "--flight-sample", type=int,
+        default=int(_env("TPU_FLIGHT_SAMPLE", "64")),
+        help="flight recorder exemplar sampling stride: 1 in N decisions "
+        "rings its stage breakdown (worst-K tails are kept regardless; 1 "
+        "records every decision)",
+    )
+    p.add_argument(
+        "--flight-spool-dir",
+        default=_env("TPU_FLIGHT_SPOOL",
+                     os.path.join(tempfile.gettempdir(), "limitador-flight")),
+        help="retention-capped directory incident bundles are written to "
+        "(self-contained JSON, served back at GET /debug/flight); one "
+        "that cannot be created or written exits 2",
+    )
+    p.add_argument(
+        "--flight-window", type=float,
+        default=float(_env("TPU_FLIGHT_WINDOW_S", "10.0")),
+        help="seconds of exemplar and signal history a bundle freezes",
+    )
+    p.add_argument(
+        "--flight-profile-s", type=float,
+        default=float(_env("TPU_FLIGHT_PROFILE_S", "0.0")),
+        help="bounded torch.profiler capture a bundle carries, in seconds "
+        "(0 = off for automatic fires; a manual trigger asks for one per "
+        "request and gets one only when this is above 0)",
+    )
+    p.add_argument(
         "--advertise-address", default=_env("ADVERTISE_ADDRESS"),
         help="address advertised to peers in gossip Hello/Membership "
         "packets (defaults to --listen-address; set it when binding "
@@ -764,13 +829,14 @@ class Checkpointer:
 class RunningServer:
     """A started server: its limiter, gRPC and HTTP servers, metrics and
     limits watcher, and the native pipeline, usage observatory, tier
-    manager, checkpointer, labels watcher and native telemetry plane when
-    they run."""
+    manager, checkpointer, labels watcher, native telemetry plane and
+    control planes when they run."""
 
     def __init__(self, limiter, rls_server, watcher, status,
                  native_pipeline=None, observatory=None, checkpointer=None,
                  tier_manager=None, http_runner=None, metrics=None,
-                 labels_watcher=None, native_plane=None, profiler=None):
+                 labels_watcher=None, native_plane=None, profiler=None,
+                 planes=None):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
@@ -790,6 +856,21 @@ class RunningServer:
         self.native_plane = native_plane
         #: the TorchProfiler behind /debug/profile
         self.profiler = profiler
+        #: the control planes (signal bus, serving-model estimator,
+        #: flight trigger engine) and what they are attached to
+        self.planes = planes or ControlPlanes()
+
+    @property
+    def signal_bus(self):
+        return self.planes.signal_bus
+
+    @property
+    def model_estimator(self):
+        return self.planes.estimator
+
+    @property
+    def flight_engine(self):
+        return self.planes.engine
 
     @property
     def storage(self):
@@ -805,12 +886,132 @@ class RunningServer:
             self.labels_watcher.stop()
         if self.tier_manager is not None:
             self.tier_manager.close()
+        # Off the loop: a bundle being written may wait on the loop for
+        # its profiler capture to stop.
+        await asyncio.get_running_loop().run_in_executor(
+            None, self.planes.stop)
         await self.rls_server.stop(grace=1.0)
         await self.http_runner.cleanup()
         if self.checkpointer is not None:
             await self.checkpointer.stop()
         await _close(self.limiter, self.native_pipeline, self.observatory,
                      self.native_plane)
+
+
+class ControlPlanes:
+    """The control planes a server wires: the signal bus (with the usage
+    observatory), the process serving-model estimator (``--model-fit``)
+    and the flight recorder with its trigger engine (``--flight``).
+    ``build`` makes them and hangs their taps on the recorder, the tiered
+    storage and the observatory, ``start`` starts the trigger thread, and
+    ``stop`` stops it and takes every tap off again (the estimator is
+    process-wide and outlives the server)."""
+
+    def __init__(self):
+        self.signal_bus = None
+        self.estimator = None
+        self.engine = None
+        self._context = None
+        self._recorder = None
+        self._tiers = None
+        self._observatory = None
+
+    def debug_sources(self) -> list:
+        return [x for x in (self.signal_bus, self.estimator, self.engine)
+                if x is not None]
+
+    def build(self, args, limiter, native_pipeline, observatory,
+              native_plane, metrics, profiler) -> None:
+        """Make the planes the options ask for and attach their taps.
+        Raises ValueError where ``--flight-spool-dir`` cannot be
+        created or written."""
+        from ..observability.flight import (
+            BundleSpool,
+            FlightRecorder,
+            TriggerEngine,
+        )
+        from ..observability.signals import SignalBus
+
+        counters = limiter.storage.counters
+        recorder = (getattr(limiter, "recorder", None)
+                    or getattr(counters, "recorder", None))
+        self._recorder = recorder
+        self._observatory = observatory
+        if observatory is not None:
+            bus = self.signal_bus = SignalBus()
+            bus.warm()  # the calibration probe, off the serving threads
+            if recorder is not None:
+                bus.attach_recorder(recorder)
+            if native_pipeline is not None:
+                bus.attach_pipeline(native_pipeline)
+            if native_plane is not None:
+                bus.attach_native_plane(native_plane)
+            bus.attach_observatory(observatory)
+            observatory.signal_bus = bus
+            metrics.attach_render_hook(bus)
+        if args.model_fit == "on" and recorder is not None:
+            est = self.estimator = model_mod.process_estimator()
+            est.budget_ms = args.slo_budget_ms
+            recorder.model = est
+            self._context = model_mod.pipeline_context(
+                pipeline=native_pipeline, storage=counters.inner)
+            est.attach_context(self._context)
+            if self.signal_bus is not None:
+                self.signal_bus.attach_model(est)
+            if observatory is not None:
+                observatory.model = est
+            metrics.attach_render_hook(est)
+        if args.flight == "on":
+            spool_dir = args.flight_spool_dir
+            try:
+                spool = BundleSpool(spool_dir)
+            except OSError as exc:
+                raise ValueError(
+                    f"cannot use --flight-spool-dir {spool_dir}: {exc}"
+                ) from exc
+            if not os.access(spool_dir, os.W_OK | os.X_OK):
+                raise ValueError(
+                    f"--flight-spool-dir {spool_dir} is not writable")
+            flight = FlightRecorder(sample_stride=max(args.flight_sample, 1))
+            flight.trace_provider = tracing.current_trace_id
+            if recorder is not None:
+                recorder.flight_tap = flight
+            if args.tier_mode == "on":  # a TieredStorage
+                self._tiers = counters.inner
+                self._tiers.flight_tap = flight
+            self.engine = TriggerEngine(
+                flight, spool, signals=self.signal_bus,
+                profiler=profiler if args.flight_profile_s > 0 else None,
+                window_s=args.flight_window,
+                profile_s=args.flight_profile_s,
+            )
+            metrics.attach_render_hook(flight)
+
+    def start(self) -> None:
+        if self.engine is not None:
+            self.engine.start()
+
+    def stop(self) -> None:
+        engine = self.engine
+        if engine is not None:
+            engine.stop()
+            if engine.is_alive():
+                engine.join(timeout=15.0)
+        rec = self._recorder
+        if rec is not None:
+            if engine is not None and rec.flight_tap is engine.recorder:
+                rec.flight_tap = None
+            if self.estimator is not None and rec.model is self.estimator:
+                rec.model = None
+        if self._tiers is not None:
+            self._tiers.flight_tap = None
+        obs = self._observatory
+        if obs is not None:
+            obs.signal_bus = None
+            obs.model = None
+        est = self.estimator
+        if est is not None and est._context_fn is self._context:
+            est.attach_context(None)
 
 
 async def _close(limiter, native_pipeline, observatory,
@@ -939,10 +1140,19 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     ``on_failure(exc)``."""
     tracing.configure_tracing(args.tracing_endpoint)
     tracing.set_sample_rate(args.tracing_sample_rate)
+    # Before any recorder is made: a recorder arms its serving-model tap
+    # at construction (set_metrics), so the flag wins over TPU_MODEL_FIT.
+    model_mod.set_model_fit_enabled(args.model_fit == "on")
     metrics = build_metrics(args)
     install_metrics_layer()
     limiter = build_limiter(args, clock)
     native_pipeline = observatory = native_plane = None
+    planes = ControlPlanes()
+    profiler = TorchProfiler(
+        args.profile_dir,
+        cuda=args.storage != "memory" and args.device == "cuda",
+        loop=asyncio.get_running_loop(),
+    )
     try:
         native_pipeline = build_native(args, limiter, metrics)
         if args.storage != "memory" and args.usage_topk > 0:
@@ -957,7 +1167,10 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             )
         _wire_metrics(metrics, limiter, native_pipeline, observatory)
         native_plane = _native_plane(args, limiter, metrics)
+        planes.build(args, limiter, native_pipeline, observatory,
+                     native_plane, metrics, profiler)
     except BaseException:
+        planes.stop()
         await _close(limiter, native_pipeline, observatory, native_plane)
         raise
     loop = asyncio.get_running_loop()
@@ -1006,6 +1219,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         watcher.stop()
         if labels_watcher is not None:
             labels_watcher.stop()
+        planes.stop()
         await _close(limiter, native_pipeline, observatory, native_plane)
         raise
     broker = getattr(native_pipeline, "lease_broker", None)
@@ -1014,30 +1228,30 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         from ..tier import TierManager
 
         # Wired late so that it sees the lease broker (demotions settle
-        # outstanding tokens first) and the observatory (the demotion
-        # veto of live slots).
+        # outstanding tokens first), the observatory (the demotion veto
+        # of live slots) and the serving-model estimator (the pricing).
+        # A server without a pod hands it no event log, as the JAX
+        # server does.
         tier_manager = TierManager(
             limiter.storage.counters.inner, broker=broker,
-            observatory=observatory,
+            estimator=planes.estimator, observatory=observatory,
             interval_s=args.tier_migrate_interval,
         )
         metrics.attach_render_hook(tier_manager)
-    profiler = TorchProfiler(
-        args.profile_dir,
-        cuda=args.storage != "memory" and args.device == "cuda",
-    )
     try:
         http_runner = await run_http_server(
             limiter, args.http_host, args.http_port, metrics, status,
             debug_sources=[s for s in (native_pipeline, native_plane,
-                                       observatory, tier_manager)
-                           if s is not None],
+                                       observatory)
+                           if s is not None] + planes.debug_sources()
+            + ([tier_manager] if tier_manager is not None else []),
             profiler=profiler,
         )
     except BaseException as exc:
         watcher.stop()
         if labels_watcher is not None:
             labels_watcher.stop()
+        planes.stop()
         await rls_server.stop(grace=None)
         await _close(limiter, native_pipeline, observatory, native_plane)
         if isinstance(exc, OSError):
@@ -1050,6 +1264,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         if tier is not None:
             tier.on_error = on_failure
             tier.start()
+    planes.start()
     checkpointer = None
     if args.storage != "memory" and args.snapshot_path:
         checkpointer = Checkpointer(limiter.storage.counters.inner,
@@ -1058,7 +1273,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     return RunningServer(limiter, rls_server, watcher, status,
                          native_pipeline, observatory, checkpointer,
                          tier_manager, http_runner, metrics, labels_watcher,
-                         native_plane, profiler)
+                         native_plane, profiler, planes)
 
 
 async def _amain(args) -> int:

@@ -34,20 +34,35 @@ and the debug endpoints of the planes the port has:
                             counters with namespace/limit/key attribution
                             and utilization (?k=N trims)
     GET  /debug/tiering     tiered-storage state (404 with --tier-mode off)
+    GET  /debug/signals     the control-signal bus: the current
+                            ControlSignals snapshot, its flattened
+                            observation vector and the ring timeline
+                            (404 without the usage observatory)
+    GET  /debug/capacity    the serving-model fit: coefficients, R², drift
+                            state, SLO headroom and what-if forecasts
+                            (?batch=, ?lease_share=, ?procs=; 404 with
+                            --model-fit off or on memory storage)
+    GET  /debug/flight      the flight recorder's incident bundles, newest
+                            first (?name= serves one bundle; 404 with
+                            --flight off or an unknown bundle)
+    POST /debug/flight/trigger
+                            {"note"?: str, "profile"?: bool}: a manual
+                            trigger freezes the exemplar rings and
+                            persists a bundle (404 with --flight off)
 
 POST bodies are CheckAndReportInfo: {"namespace", "values": {str: str},
 "delta", "response_headers": optional "DRAFT_VERSION_03"}
 (request_types.rs:10-16).
 
 The debug routes of planes not ported yet stay unregistered (404):
-``/debug/signals``, ``/debug/pod*``, ``/debug/events``,
-``/debug/capacity``, ``/debug/flight*`` (ROADMAP Queue A).
+``/debug/pod*`` and ``/debug/events`` (ROADMAP Queue A item 7).
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import math
 from typing import Optional
 
 from aiohttp import web
@@ -80,6 +95,9 @@ DEBUG_SOURCE_SECTIONS = (
     ("slo", "slo_status"),
     ("device_backed", "device_backed"),
     ("tenant_usage", "tenant_usage"),
+    ("signals", "signals_debug"),
+    ("capacity", "capacity_debug"),
+    ("flight", "flight_debug"),
     ("tiering", "tiering_debug"),
 )
 
@@ -94,6 +112,9 @@ DEBUG_STATS_SECTIONS = (
     "slo",
     "device_backed",
     "tenant_usage",
+    "signals",
+    "capacity",
+    "flight",
     "tiering",
 )
 
@@ -259,6 +280,75 @@ def _openapi_spec() -> dict:
                     "responses": {
                         "200": {"description": "top counters"},
                         "404": {"description": "observatory not running"},
+                    },
+                }
+            },
+            "/debug/signals": {
+                "get": {
+                    "summary": "Unified control-signal snapshot (queue "
+                               "wait, batch fill, breaker, sheds, lease "
+                               "outstanding, native p99s, SLO burn, "
+                               "calibration) + ring timeline",
+                    "responses": {
+                        "200": {"description": "control signals"},
+                        "404": {"description": "signal bus not running"},
+                    },
+                }
+            },
+            "/debug/capacity": {
+                "get": {
+                    "summary": "Online serving-model observatory: "
+                               "fitted coefficients, R², drift state, "
+                               "SLO headroom and what-if forecasts "
+                               "(?batch=, ?lease_share=, ?procs=)",
+                    "responses": {
+                        "200": {"description": "capacity forecast"},
+                        "404": {"description": "model fit not running"},
+                    },
+                }
+            },
+            "/debug/flight": {
+                "get": {
+                    "summary": "Flight-recorder incident bundles: list "
+                               "the retention-capped spool, or serve "
+                               "one self-contained bundle verbatim "
+                               "(?name=)",
+                    "responses": {
+                        "200": {"description": "bundle list or bundle"},
+                        "404": {"description": "recorder off / unknown "
+                                               "bundle"},
+                    },
+                }
+            },
+            "/debug/flight/trigger": {
+                "post": {
+                    "summary": "Fire a manual flight-recorder trigger: "
+                               "freeze the exemplar rings, collect pod "
+                               "peers' rings for the same window, "
+                               "persist an incident bundle",
+                    "requestBody": {
+                        "required": False,
+                        "content": {
+                            "application/json": {
+                                "schema": {
+                                    "type": "object",
+                                    "properties": {
+                                        "note": {
+                                            "type": "string",
+                                            "nullable": True,
+                                        },
+                                        "profile": {
+                                            "type": "boolean",
+                                            "default": False,
+                                        },
+                                    },
+                                }
+                            }
+                        },
+                    },
+                    "responses": {
+                        "200": {"description": "bundle persisted"},
+                        "404": {"description": "recorder off"},
                     },
                 }
             },
@@ -490,6 +580,115 @@ class _Api:
             )
         return web.json_response(fn())
 
+    async def get_debug_signals(self, request: web.Request) -> web.Response:
+        """Unified control-signal bus: the current ControlSignals
+        snapshot, its flattened observation vector, and the ring
+        timeline."""
+        fn = self._debug_source_fn("signals_debug")
+        if fn is None:
+            return web.json_response(
+                {"error": "signal bus not running"}, status=404
+            )
+        return web.json_response(fn())
+
+    async def get_debug_capacity(
+        self, request: web.Request
+    ) -> web.Response:
+        """The serving-model fit: coefficients, R², drift state, SLO
+        headroom and what-if forecasts. ``?batch=`` overrides the batch
+        size, ``?lease_share=`` the lease coverage, ``?procs=`` the host
+        count."""
+        fn = self._debug_source_fn("capacity_debug")
+        if fn is None:
+            return web.json_response(
+                {"error": "serving-model fit not running "
+                          "(--model-fit off or host-only storage)"},
+                status=404,
+            )
+        kwargs: dict = {}
+        try:
+            if "batch" in request.query:
+                kwargs["batch"] = int(request.query["batch"])
+                if kwargs["batch"] < 1:
+                    raise ValueError
+            if "lease_share" in request.query:
+                kwargs["lease_share"] = float(
+                    request.query["lease_share"]
+                )
+                # float() happily parses nan/inf, which would ride the
+                # clamp into the features and serialize as bare NaN —
+                # invalid JSON for any strict client
+                if not math.isfinite(kwargs["lease_share"]):
+                    raise ValueError
+            if "procs" in request.query:
+                kwargs["procs"] = int(request.query["procs"])
+                if kwargs["procs"] < 1:
+                    raise ValueError
+        except ValueError:
+            return web.json_response(
+                {"error": "batch and procs must be positive integers, "
+                          "lease_share a finite float"},
+                status=400,
+            )
+        return web.json_response(fn(**kwargs))
+
+    async def get_debug_flight(self, request: web.Request) -> web.Response:
+        """The flight-recorder bundle spool: the list of persisted
+        incident bundles (newest first), or — with ``?name=`` — one
+        self-contained bundle verbatim for offline autopsy."""
+        list_fn = self._debug_source_fn("flight_bundles")
+        if list_fn is None:
+            return web.json_response(
+                {"error": "flight recorder not running (--flight off)"},
+                status=404,
+            )
+        name = request.query.get("name")
+        if name is None:
+            return web.json_response({"bundles": list_fn()})
+        read_fn = self._debug_source_fn("flight_bundle")
+        bundle = read_fn(name) if read_fn is not None else None
+        if bundle is None:
+            return web.json_response(
+                {"error": f"unknown bundle {name!r}"}, status=404
+            )
+        return web.json_response(bundle)
+
+    async def post_debug_flight_trigger(
+        self, request: web.Request
+    ) -> web.Response:
+        """Fire a manual flight-recorder trigger (``{"note"?: str,
+        "profile"?: bool}``): freezes the exemplar rings, asks pod
+        peers for their rings over the same window (none until the pod
+        is ported), and persists a self-contained incident bundle. Runs
+        off the loop, on an executor thread, which also starts and stops
+        a requested ``torch.profiler`` capture."""
+        fn = self._debug_source_fn("flight_trigger")
+        if fn is None:
+            return web.json_response(
+                {"error": "flight recorder not running (--flight off)"},
+                status=404,
+            )
+        note, profile = None, False
+        if request.can_read_body:
+            try:
+                data = await request.json()
+                note = data.get("note")
+                profile = bool(data.get("profile", False))
+                if note is not None and not isinstance(note, str):
+                    raise ValueError("note must be a string")
+            except ValueError as exc:
+                return web.json_response(
+                    {"error": f"bad request: {exc}"}, status=400
+                )
+        loop = asyncio.get_running_loop()
+        try:
+            out = await loop.run_in_executor(
+                None, lambda: fn(note, profile)
+            )
+        except Exception as exc:  # diagnostics must never 500 opaquely
+            return web.json_response({"error": str(exc)}, status=500)
+        return web.json_response(out)
+
     async def get_limits(self, request: web.Request) -> web.Response:
         ns = request.match_info["namespace"]
         limits = self.limiter.get_limits(ns)
@@ -597,6 +796,11 @@ def make_http_app(
     app.router.add_get("/debug/stats", api.get_debug_stats)
     app.router.add_get("/debug/top", api.get_debug_top)
     app.router.add_get("/debug/tiering", api.get_debug_tiering)
+    app.router.add_get("/debug/signals", api.get_debug_signals)
+    app.router.add_get("/debug/capacity", api.get_debug_capacity)
+    app.router.add_get("/debug/flight", api.get_debug_flight)
+    app.router.add_post("/debug/flight/trigger",
+                        api.post_debug_flight_trigger)
     app.router.add_get("/debug/profile", api.get_debug_profile)
     app.router.add_post("/debug/profile", api.post_debug_profile)
     app.router.add_get("/limits/{namespace}", api.get_limits)

@@ -18,15 +18,18 @@ owns all tier movement. Each round it:
    veto is a preference, never a block: the observatory ranks by
    cumulative hits, so on a long-lived server its top-K covers every
    slot, and the watermark must still drain from the LRU front.
-3. Prices each move: a cold decide costs one host ``row`` of wall time,
-   a device-resident decide one device ``row``; promotion buys
-   ``heat x (host_row - device_row)`` seconds per interval. The port has
-   no fitted serving model yet, so the measured cold-decide p50 (or a
-   static prior) and a static device prior stand in, as in the JAX
-   package before its model fits.
+3. Prices each move against the fitted serving model
+   (``observability/model.py``, the ``estimator``): a cold decide costs
+   one host ``row`` coefficient of wall time, a device-resident decide
+   one device ``row``; promotion buys ``heat x (host_row - device_row)``
+   seconds per interval. Until the model has fitted a positive ``row``,
+   the measured cold-decide p50 (or a static prior) and a static device
+   prior stand in, as in the JAX package.
 4. Runs the two-phase moves (TieredStorage promote/demote begin/finish;
    promotions launch B4d, demotions B3a) and drains the cold write
-   journal to the append-log spill OFF the storage lock.
+   journal to the append-log spill OFF the storage lock, and emits a
+   ``tier_migration`` event onto ``events`` (an ``events.PodEventLog``)
+   when the round moved counters.
 
 Failures are not swallowed. A round that raises after phase A pushes
 both ledgers back (``migrate_abort``) and re-raises. The thread then
@@ -79,12 +82,16 @@ class TierManager:
         self,
         storage,
         broker=None,
+        estimator=None,
+        events=None,
         observatory=None,
         interval_s: float = 2.0,
         batch: int = 256,
     ):
         self.storage = storage
         self.broker = broker
+        self.estimator = estimator
+        self.events = events
         self.observatory = observatory
         self.interval_s = max(float(interval_s), 0.05)
         self.batch = max(int(batch), 1)
@@ -112,11 +119,21 @@ class TierManager:
     # -- pricing -----------------------------------------------------------
 
     def _row_costs(self) -> tuple:
-        """(host_row_s, device_row_s): the measured cold-decide p50 (or
-        its prior) and the device prior."""
-        p50_ms = self.storage.tier_stats()["cold_decide_p50_ms"]
-        host_s = (p50_ms / 1000.0) if p50_ms > 0 else _HOST_ROW_PRIOR_S
-        return host_s, _DEVICE_ROW_PRIOR_S
+        """(host_row_s, device_row_s): the fitted ``row`` coefficients
+        where the model has them positive, else the measured
+        cold-decide p50 (or its prior) and the device prior."""
+        host_s = device_s = 0.0
+        est = self.estimator
+        if est is not None:
+            coeff = est.coefficients()
+            host_s = float(coeff["host"]["row"])
+            device_s = float(coeff["device"]["row"])
+        if host_s <= 0.0:
+            p50_ms = self.storage.tier_stats()["cold_decide_p50_ms"]
+            host_s = (p50_ms / 1000.0) if p50_ms > 0 else _HOST_ROW_PRIOR_S
+        if device_s <= 0.0:
+            device_s = _DEVICE_ROW_PRIOR_S
+        return host_s, device_s
 
     # -- one migration round -----------------------------------------------
 
@@ -233,6 +250,15 @@ class TierManager:
         self.backlog = max(
             len(promo_keys) - promoted, 0
         ) + max(want_out - demoted, 0)
+        events = self.events
+        if events is not None and (promoted or demoted):
+            events.emit(
+                "tier_migration",
+                promoted=promoted,
+                demoted=demoted,
+                backlog=self.backlog,
+                benefit_s=self.last_benefit_s,
+            )
         return {"aborted": False, "promoted": promoted, "demoted": demoted}
 
     def _native_lock(self):

@@ -43,6 +43,10 @@ Snapshots carry the cold cells beside the big-limit cells
 path. The JAX package's tiered snapshot writes the device table alone,
 so a restart forgets every cold counter's spent quota (ROADMAP Queue C).
 
+Cold decides time themselves into the ``tier_cold_decide_seconds``
+samples and, with a process flight recorder attached (``flight_tap``,
+set by the server), tap its ``cold_tier`` lane.
+
 Lock order: everything here runs under the inherited storage lock; the
 cold store takes no lock of its own. Keys with live ``_big_inflight``
 reservations never migrate, so an in-flight host decision can never
@@ -92,6 +96,9 @@ class TieredStorage(TorchStorage):
         # undrained samples feeding the tier_cold_decide_seconds histogram
         self._cold_decide_s: deque = deque(maxlen=1024)
         self._decide_pending: List[float] = []
+        #: optional flight.FlightRecorder: cold-tier decisions tap its
+        #: ``cold_tier`` lane (set by the server)
+        self.flight_tap = None
 
     # -- decision routing (the big-limit host lane serves cold keys) -------
 
@@ -134,6 +141,10 @@ class TieredStorage(TorchStorage):
             self._cold_decide_s.append(dt)
             if len(self._decide_pending) < 4096:
                 self._decide_pending.append(dt)
+            tap = self.flight_tap
+            if tap is not None:
+                tap.tap(dt, "cold_tier",
+                        namespace=ordered[0].namespace if ordered else None)
         return out
 
     def _emit_big_counters(self, limits, namespaces, now, out) -> None:

@@ -22,7 +22,10 @@ the modes. The modes split the plane by piece: ``B`` all of it, ``D``
 none, ``R`` the batchers' recorder only (no native telemetry plane),
 ``P`` the native telemetry plane only (no recorder, so no SLO feed),
 ``E`` all of it with slow-row exemplars off (``--native-slow-row-us
-0``), ``S`` all of it without the recorder's SLO feed. Each run's
+0``), ``S`` all of it without the recorder's SLO feed, ``F`` all of it
+with the control planes off (``--flight off --model-fit off``: no
+flight tap, no serving-model ingest; the signal bus stays, off the
+decision path). Each run's
 output goes to ``chiprun_out/served_ab_<i>_<letter>.log``; the script
 prints every run's p50/p99 by phase, and one JSON line with all of them
 last. Whole drives of a few seconds each drift by more than the plane
@@ -30,14 +33,17 @@ costs, so ``--plane-interleave N`` runs three servers of checkout B in
 one process at once, B, D and R, and sends N rounds of one sequential
 ShouldRateLimit call to each (the order rotating by round), on phase
 4's and phase 6's pipelines: each mode's p50/p99/mean, the median of
-the per-round differences against D, and the recorder's own wall time
-a call by method, where it runs. It first times the SLO watchdog's two
-paths by batch size in the bare process.
+the per-round differences against the second mode (D), and the
+recorder's own wall time a call by method, where it runs.
+``--interleave-modes BF`` interleaves B with F instead: the control
+planes' cost (the flight tap and the serving-model ingest on the
+recorder's path) against the same tree without them.
 
     python3 served_ab.py PARENT_ROOT CHANGE_ROOT [--order ABCCBA] \
         [--phases 4,6]
     python3 served_ab.py - CHANGE_ROOT --plane-pairs 6 [--plane-modes BDRPES]
-    python3 served_ab.py - CHANGE_ROOT --plane-interleave 1000 [--repeats 2]
+    python3 served_ab.py - CHANGE_ROOT --plane-interleave 1000 [--repeats 2] \
+        [--interleave-modes BDR|BF]
 
 Each checkout builds its kernels on its first run. Needs one card.
 """
@@ -61,7 +67,17 @@ _MEAN = re.compile(r"\(mean ([\d.]+) ms\)")
 _RATE = re.compile(r"^(native drive[^:]*): .* = (\d+) decisions/s")
 
 
-PLANE_MODES = "BDRPES"
+PLANE_MODES = "BDRPESF"
+#: the control planes' switches, defaults of the server's --flight and
+#: --model-fit (mode F turns both off)
+PLANES_ENV = ("TPU_FLIGHT", "TPU_MODEL_FIT")
+
+
+def _own_spool() -> None:
+    """Every server of this process writes its flight bundles under a
+    temporary directory of its own, never into the default spool."""
+    os.environ.setdefault("TPU_FLIGHT_SPOOL",
+                          tempfile.mkdtemp(prefix="served-ab-flight-"))
 
 
 def _plane_mode(mode: str):
@@ -69,16 +85,24 @@ def _plane_mode(mode: str):
     ``PLANE_MODES``): patches the storages' ``set_metrics`` (which
     attaches the recorder) and the server's ``_native_plane`` (which arms
     the native telemetry plane and feeds its watchdog from the
-    recorder). Returns the function that puts both back."""
+    recorder), and for F sets the defaults of ``--flight`` and
+    ``--model-fit`` (read when a server's parser is built) to off.
+    Returns the function that puts all of it back."""
     from limitador_tpu_torch.device import batcher
     from limitador_tpu_torch.server import __main__ as server
 
     set_metrics = batcher.AsyncTorchStorage.set_metrics
     native_plane = server._native_plane
+    environ = {key: os.environ.get(key) for key in PLANES_ENV}
 
     def restore():
         batcher.AsyncTorchStorage.set_metrics = set_metrics
         server._native_plane = native_plane
+        for key, value in environ.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
 
     def without_recorder(self, metrics):
         set_metrics(self, metrics)
@@ -104,6 +128,8 @@ def _plane_mode(mode: str):
         server._native_plane = without_exemplars
     elif mode == "S":
         server._native_plane = without_slo_feed
+    if mode == "F":
+        os.environ.update(dict.fromkeys(PLANES_ENV, "off"))
     return restore
 
 
@@ -111,6 +137,7 @@ def _plane_pairs(root: str, pairs: int, modes: str = "BD") -> int:
     """Phases 4 and 6 of the ``chip_smoke.py`` at ``root``, ``pairs``
     rounds of every mode in ``modes``, in one process; each drive's lines
     are prefixed ``pair <i> <mode>:``."""
+    _own_spool()
     os.chdir(root)
     sys.path.insert(0, root)
     import contextlib
@@ -234,13 +261,14 @@ async def _interleaved(cs, dev, native: bool, modes: str, rounds: int,
     return {m: {"lat": lat[m], "own": own[m]} for m in modes}
 
 
-def _summarize(got: dict) -> dict:
+def _summarize(got: dict, base_mode: str = "D") -> dict:
     """Mode -> p50/p99/mean latency (ms), the recorder's time per call
-    (µs, p50, all methods and each) and, against D, the median and mean
-    of the per-round differences and the share of rounds it was slower."""
+    (µs, p50, all methods and each) and, against ``base_mode``, the
+    median and mean of the per-round differences and the share of rounds
+    it was slower."""
     import numpy as np
 
-    base = np.asarray(got["D"]["lat"]) * 1e3
+    base = np.asarray(got[base_mode]["lat"]) * 1e3
     out = {}
     for mode, v in got.items():
         ms = np.asarray(v["lat"]) * 1e3
@@ -255,44 +283,23 @@ def _summarize(got: dict) -> dict:
         for name, x in v["own"].items():
             entry[f"{name}_us_p50"] = float(
                 np.percentile(np.asarray(x) * 1e6, 50))
-        if mode != "D":
+        if mode != base_mode:
             diff = ms - base
-            entry["minus_d_median_ms"] = float(np.median(diff))
-            entry["minus_d_mean_ms"] = float(diff.mean())
+            entry[f"minus_{base_mode.lower()}_median_ms"] = float(
+                np.median(diff))
+            entry[f"minus_{base_mode.lower()}_mean_ms"] = float(diff.mean())
             entry["slower_share"] = float((diff > 0).mean())
         out[mode] = entry
     return out
 
 
-def _slo_costs(sizes=(1, 2, 4, 8, 16, 32, 64, 512, 4096)) -> dict:
-    """Host µs per ``SloWatchdog`` batch by path (plain Python and numpy)
-    and batch size, in this process with nothing else running: where
-    the watchdog's SMALL_BATCH cut should sit."""
-    from limitador_tpu_torch.observability.native_plane import SloWatchdog
-
-    out = {}
-    if not hasattr(SloWatchdog, "_observe_small"):
-        return out  # a checkout with one path
-    for path in ("_observe_small", "_observe_numpy"):
-        for n in sizes:
-            wd = SloWatchdog(clock=lambda: 5.0)
-            values = [0.0005 * (1 + i % 13) for i in range(n)]
-            observe = getattr(wd, path)
-            reps = max(20000 // n, 50)
-            for _ in range(10):
-                observe(values)
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                observe(values)
-            out[f"{path} {n}"] = (time.perf_counter() - t0) / reps * 1e6
-    return out
-
-
-def _plane_interleave(root: str, rounds: int, repeats: int) -> int:
+def _plane_interleave(root: str, rounds: int, repeats: int,
+                      modes: str = "BDR") -> int:
     """``_interleaved`` on phases 4 and 6, ``repeats`` times, in this
-    process; prints each mode's p50/mean and, against D, the median of
-    the per-round differences and the share of rounds the mode was
-    slower."""
+    process; prints each mode's p50/mean and, against the second mode of
+    ``modes``, the median of the per-round differences and the share of
+    rounds the mode was slower."""
+    _own_spool()
     os.chdir(root)
     sys.path.insert(0, root)
     import numpy as np
@@ -303,28 +310,27 @@ def _plane_interleave(root: str, rounds: int, repeats: int) -> int:
     dev = torch.device("cuda", 0)
     cs.phase_card()
     cs.phase_build()
-    costs = _slo_costs()
-    for key, us in costs.items():
-        print(f"slo cost {key}: {us:.3f} us a batch", flush=True)
     out = []
     for rep in range(repeats):
         for native in (False, True):
             label = "native (6)" if native else "standard (4)"
             with tempfile.TemporaryDirectory() as tmp:
-                got = asyncio.run(_interleaved(cs, dev, native, "BDR",
+                got = asyncio.run(_interleaved(cs, dev, native, modes,
                                                rounds, tmp))
-            row = {"repeat": rep, "phase": label, **_summarize(got)}
+            row = {"repeat": rep, "phase": label,
+                   **_summarize(got, modes[1])}
             for mode in got:
                 print(f"interleave {rep} {label} {mode}: " + ", ".join(
                     f"{k} {x:.4f}" for k, x in row[mode].items()),
                     flush=True)
             out.append(row)
-    print(json.dumps({"slo_costs": costs, "interleave": out}))
+    print(json.dumps({"modes": modes, "interleave": out}))
     return 0
 
 
 def _child(root: str, without_request_id: bool, phases, detach) -> int:
     """Run the served phases of the ``chip_smoke.py`` at ``root``."""
+    _own_spool()
     os.chdir(root)
     sys.path.insert(0, root)
     import torch
@@ -465,6 +471,10 @@ def main() -> int:
                    "to each")
     p.add_argument("--repeats", type=int, default=1,
                    help="repeats of --plane-interleave")
+    p.add_argument("--interleave-modes", default="BDR",
+                   help="letters of the modes --plane-interleave serves "
+                   "side by side; the second is the baseline (BDR: the "
+                   "device plane's cost; BF: the control planes')")
     p.add_argument("--child", help=argparse.SUPPRESS)
     p.add_argument("--without-request-id", action="store_true",
                    help=argparse.SUPPRESS)
@@ -480,8 +490,12 @@ def main() -> int:
     if args.plane_interleave:
         if not args.b:
             p.error("give the checkout (B) to interleave")
+        modes = args.interleave_modes
+        if len(modes) < 2 or set(modes) - set(PLANE_MODES):
+            p.error(f"--interleave-modes takes two or more letters of "
+                    f"{PLANE_MODES}")
         return _plane_interleave(os.path.abspath(args.b),
-                                 args.plane_interleave, args.repeats)
+                                 args.plane_interleave, args.repeats, modes)
     if args.plane_pairs:
         if not args.b:
             p.error("give the checkout (B) to pair")

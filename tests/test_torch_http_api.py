@@ -403,23 +403,40 @@ class TestHttpApi:
         "/debug/profile", "/debug/flight",
     ])
     def test_unported_debug_routes_are_not_served(self, http_server, path):
-        """The debug routes of planes not ported yet answer 404;
-        ``/debug/profile`` came with the device plane and answers the
-        idle capture status instead."""
+        """The debug routes of the pod, not ported yet, answer 404. The
+        others are served on this memory server as the JAX server serves
+        them there: ``/debug/profile`` the idle capture status,
+        ``/debug/flight`` the (empty) bundle spool (the flight recorder
+        runs on every storage), and ``/debug/signals`` and
+        ``/debug/capacity`` the JAX server's 404 bodies (the signal bus
+        runs with the usage observatory and the serving-model fit with a
+        device recorder, neither of which a memory server has)."""
         import urllib.request
 
         url = f"http://127.0.0.1:{http_server[0]}{path}"
-        if path == "/debug/profile":
+        served = {
+            "/debug/profile": {"active": False, "trace_dir": None,
+                               "started_at": None},
+            "/debug/flight": {"bundles": []},
+        }
+        if path in served:
             with urllib.request.urlopen(url) as resp:
                 assert resp.status == 200
                 assert len(resp.headers["x-request-id"]) == 32
-                assert json.loads(resp.read()) == {
-                    "active": False, "trace_dir": None, "started_at": None}
+                assert json.loads(resp.read()) == served[path]
             return
         with pytest.raises(urllib.error.HTTPError) as exc:
             urllib.request.urlopen(url)
         assert exc.value.code == 404
         assert len(exc.value.headers["x-request-id"]) == 32
+        unserved = {
+            "/debug/signals": {"error": "signal bus not running"},
+            "/debug/capacity": {
+                "error": "serving-model fit not running (--model-fit off "
+                         "or host-only storage)"},
+        }
+        if path in unserved:
+            assert json.loads(exc.value.read()) == unserved[path]
 
     def test_http_request_id_echo(self, http_server):
         import urllib.request

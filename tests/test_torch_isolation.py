@@ -201,8 +201,10 @@ def _profiler_imports(path: Path):
 
 
 def test_torch_profiler_is_imported_only_in_the_capture_start():
-    """``torch.profiler`` is imported by ``TorchProfiler.start`` and
-    nowhere else in the port (no module imports it at its top)."""
+    """``torch.profiler`` is imported by the capture's start
+    (``TorchProfiler._start``, which ``start`` runs on the server's loop
+    thread) and nowhere else in the port (no module imports it at its
+    top)."""
     found = [
         (str(path.relative_to(REPO)), scope, line)
         for path in sorted(PORT.rglob("*.py"))
@@ -210,4 +212,4 @@ def test_torch_profiler_is_imported_only_in_the_capture_start():
     ]
     assert [(p, s) for p, s, _l in found] == [
         ("limitador_tpu_torch/observability/device_plane.py",
-         "TorchProfiler.start")], found
+         "TorchProfiler._start")], found

@@ -163,15 +163,13 @@ def test_slo_p99_within_bucket_resolution_alike():
 
 
 def test_slo_small_batches_bucket_like_jax():
-    """Batches of one to 40 decisions, on both sides of SMALL_BATCH (the
-    plain Python and the numpy path), give the same buckets, over-budget
+    """Batches of one to 40 decisions give the same buckets, over-budget
     counts and statuses as the JAX package's watchdog, powers of two
     included."""
     rng = np.random.default_rng(1)
     clock = [0.0]
     port = SloWatchdog(clock=lambda: clock[0])
     jax = jnp_mod.SloWatchdog(clock=lambda: clock[0])
-    assert 1 < SloWatchdog.SMALL_BATCH < 40
     for i in range(600):
         n = int(rng.integers(1, 41))
         values = (10 ** rng.uniform(-7, 1, n)).tolist()
@@ -190,19 +188,21 @@ def test_slo_small_batches_bucket_like_jax():
 
 @pytest.mark.parametrize("n", [1, 3, 8, 9, 300])
 def test_slo_paths_bucket_alike(n):
-    """The watchdog's plain Python and numpy paths give the same cells
-    for the same latencies, below 1 µs, at powers of two and past the
-    top bucket included."""
+    """The watchdog buckets batches of every size as the JAX watchdog
+    does (one numpy path, as there), below 1 µs, at powers of two and
+    past the top bucket included."""
     rng = np.random.default_rng(n)
     values = (10 ** rng.uniform(-8, 7, n)).tolist()
     values[: n // 3] = [2 ** int(rng.integers(0, 40)) / 1e6
                         for _ in range(n // 3)]
-    pair = [SloWatchdog(clock=lambda: 5.0) for _ in range(2)]
-    pair[0]._observe_small(values)
-    pair[1]._observe_numpy(values)
+    pair = [SloWatchdog(clock=lambda: 5.0),
+            jnp_mod.SloWatchdog(clock=lambda: 5.0)]
+    for wd in pair:
+        wd.observe_many(values)
     for name in ("_counts", "_total", "_over"):
         assert (getattr(pair[0], name) == getattr(pair[1], name)).all()
     assert pair[0]._total.sum() == n
+    assert pair[0].status() == pair[1].status()
 
 def test_recorder_feeds_the_watchdog_per_batch():
     now = [50.0]

@@ -24,6 +24,7 @@ from limitador_tpu_torch.server.reflection import (
     REFLECTION_METHOD,
     ReflectionResponder,
 )
+from tests.torch_http import flight_spool  # noqa: F401 (autouse)
 
 SERVICES = (
     "envoy.service.ratelimit.v3.RateLimitService",

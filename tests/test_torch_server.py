@@ -33,6 +33,7 @@ from limitador_tpu.tpu.batcher import AsyncTpuStorage
 from limitador_tpu.tpu.storage import TpuStorage
 from limitador_tpu_torch.server import __main__ as port_main
 from limitador_tpu_torch.server.proto import rls_pb2
+from tests.torch_http import flight_spool  # noqa: F401 (autouse)
 from tests.torch_http import reload_limits_file
 
 REPO = Path(__file__).resolve().parent.parent

@@ -67,6 +67,7 @@ from limitador_tpu_torch.tier import (
 from .torch_batches import C, NEVER, SpyContext, dirty_scratch, seed_rows
 from .torch_batches import table as _table
 from .torch_native_corpus import FROZEN_NOW, NAMESPACES, corpus, limits
+from .torch_http import flight_spool  # noqa: F401 (autouse)
 from .torch_reference import jax_reference_lane  # noqa: F401 (autouse)
 
 

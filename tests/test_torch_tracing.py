@@ -35,6 +35,7 @@ from limitador_tpu_torch.observability.metrics_layer import (
     metrics_span,
 )
 from limitador_tpu_torch.observability.otlp import BatchExporter, make_provider
+from tests.torch_http import flight_spool  # noqa: F401 (autouse)
 from tests.torch_steady import otel_provider_kept
 
 REPO = Path(__file__).resolve().parent.parent

@@ -23,6 +23,7 @@ import socket
 import time
 
 import aiohttp
+import pytest
 
 LIMITS = """\
 - namespace: api
@@ -197,9 +198,22 @@ async def drive(clock, servers, reload, extra=None):
     return out
 
 
+@pytest.fixture(autouse=True)
+def flight_spool(tmp_path, monkeypatch):
+    """Imported by the test files whose servers are not started through
+    ``port_argv``: a server's default ``--flight-spool-dir`` (read when
+    the parser is built) is the test's own directory, never the default
+    spool another test's server may prune."""
+    monkeypatch.setenv("TPU_FLIGHT_SPOOL", str(tmp_path / "flight"))
+
+
 def port_argv(limits_path, storage, http_port, *extra):
-    """The port server's command line for one server of a drive."""
+    """The port server's command line for one server of a drive. Its
+    flight bundles go to ``flight/`` beside the limits file, never to the
+    default spool another test's server may prune."""
+    spool = os.path.join(os.path.dirname(str(limits_path)), "flight")
     return [str(limits_path), storage, "--device", "cpu", "--capacity",
             "4096", "--http-host", "127.0.0.1", "--http-port",
             str(http_port), "--rls-host", "127.0.0.1", "--rls-port",
-            str(free_port()), "--limits-poll-interval", "0.05", *extra]
+            str(free_port()), "--limits-poll-interval", "0.05",
+            "--flight-spool-dir", spool, *extra]

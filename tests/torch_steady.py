@@ -1,13 +1,18 @@
-"""Teardown checks for the device-plane test files.
+"""Teardown checks for the device-plane and control-plane test files.
 
 The device plane adds process-wide state: the port's native telemetry
 plane (armed in the C host lane), the one ``torch.profiler`` capture, the
-tracing pipeline, the MetricsLayer and the servers' threads. A test that
-leaves any of them behind changes what the next test in the same worker
-sees, the JAX package's tests included. ``steady()`` wraps one test:
-afterwards it restores each piece to what it was and fails the test that
-left the telemetry armed, a capture running, tracing configured, the
-environment changed or threads alive (joined within 10 s).
+tracing pipeline, the MetricsLayer and the servers' threads. The control
+planes add more: the serving model's process estimator and its
+``--model-fit`` switch, the signal module's box-calibration cache (each
+package has its own), the signal bus's calibration thread and the flight
+trigger thread. A test that leaves any of them behind changes what the
+next test in the same worker sees, the JAX package's tests included.
+``steady()`` wraps one test: afterwards it restores each piece to what it
+was and fails the test that left the telemetry armed, a capture running,
+tracing configured, the environment changed or threads alive (joined
+within 10 s); the estimators, switches and caches are put back without
+complaint (every server sets the switch and makes the estimator).
 """
 
 import contextlib
@@ -51,6 +56,18 @@ def _environ() -> dict:
             if k != "PYTEST_CURRENT_TEST"}
 
 
+def _plane_state():
+    """The control planes' process-wide state, both packages'."""
+    from limitador_tpu.observability import model as j_model
+    from limitador_tpu.observability import signals as j_signals
+    from limitador_tpu_torch.observability import model, signals
+
+    return [(mod, name, getattr(mod, name))
+            for mod in (model, j_model) for name in ("_PROCESS", "_ENABLED")
+            ] + [(mod, "_BOX_CALIBRATION", mod._BOX_CALIBRATION)
+                 for mod in (signals, j_signals)]
+
+
 @contextlib.contextmanager
 def steady():
     from limitador_tpu.observability import metrics_layer as j_layer
@@ -58,6 +75,7 @@ def steady():
     from limitador_tpu_torch.observability import device_plane, tracing
     from limitador_tpu_torch.observability import metrics_layer
 
+    planes = _plane_state()
     threads = {t.ident for t in threading.enumerate()}
     environ = _environ()
     layers = (metrics_layer.installed(), j_layer.installed())
@@ -68,7 +86,11 @@ def steady():
     problems = []
     profiler = device_plane.TorchProfiler()
     if profiler.status()["active"]:
-        profiler.stop()
+        try:
+            profiler.stop()
+        except device_plane.ProfilerStateError:
+            # started on another thread, which alone can stop it
+            device_plane._capture = None
         problems.append("a torch.profiler capture was left running")
     if native.tel_enabled():
         native.tel_config(False)
@@ -97,4 +119,7 @@ def steady():
         time.sleep(0.02)
     if alive:
         problems.append(f"threads left alive: {[t.name for t in alive]}")
+    # after the threads: the calibration thread writes its cache
+    for mod, name, value in planes:
+        setattr(mod, name, value)
     assert not problems, problems
