@@ -70,7 +70,10 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    entries, and B2's (``update_host``: a storage's list, B7c's body on
    the one-row table) at B7c's counts against B2's plain version on the
    padded columns, beside the parent's path (pad to 8, pinned uploads,
-   update_batch with its workspace). B4c's host form (``credit_host``:
+   update_batch with its workspace), and at the shared authority's
+   flushes (100 and 4,096 counters, each once: an ApplyDeltas' update
+   and its B3a read, timed from the list to the answers, the update's
+   kernel alone by the profiler). B4c's host form (``credit_host``:
    the broker's list by value, one thread an entry, staged past 2000)
    at 1, 64, 1024, 1963 (phase 7b's largest settle), 2000, 2001 and
    6000 entries with the edge rows, twice in a row on one context,
@@ -231,6 +234,50 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    p99 and the per-round difference printed as records. Every server of
    the script writes its flight bundles under the run's own temporary
    directory.
+14. The host-memory storages and the shared authority: (a) a
+   TorchStorage of 1<<20 counters on the card served by the port's
+   AuthorityServer on 127.0.0.1:0 (warmed: apply_deltas' kernels once
+   on a table of their own) and four CachedCounterStorage replicas over
+   RemoteAuthority at the reference's defaults (flush 1 s, batch 100,
+   10,000 cached, 350 ms timeout), each on its own thread and event
+   loop and offered 1,000 requests a second, deciding 80,000 one-hit
+   requests together over Zipf-0.99 users from 1<<20 keys at 100 a
+   minute each; then a fifth replica (batch 4096) flushes 2,400
+   distinct counters in one RPC: B2's host form past
+   its 2,000-entry parameter block (the staged route). After every
+   replica's final flush every counter of the table (B3a) equals an
+   InMemoryStorage fed the admitted hits; flush errors 0, no partition,
+   no check kernel; the over-admission (the topology's bound) printed
+   beside the replicas' counter_overshoot. The same on phase 10a's
+   sharded table (8 rows of 131,073 cells) with two replicas and 20,000
+   requests (B7c's host form). (b) On (a)'s table, two replicas on two
+   limits: the authority stops half way (after a grace period for an RPC
+   in flight), the replicas decide the rest and their flushes fail
+   (on_partitioned(True), no decision fails), a new AuthorityServer
+   binds the same port, the held deltas arrive (partitioned False
+   again) and the table equals the oracle; then DeleteCounters on one
+   limit (B3b's host form; its counters gone, the other's kept) and
+   Clear (empty). (c) As operators deploy it: a server process
+   `torch --authority-listen 127.0.0.1:P` on the card and two `cached
+   --authority-url 127.0.0.1:P` processes; 1,000 HTTP /check_and_report
+   calls to each over 600 Zipf-0.99 users, each admitted hit reported to
+   an in-process memory server: within 10 s of the replicas' 1 s flush
+   the authority's /counters/ns equals the memory server's (remaining
+   exact, expires_in within 2 s); each replica's /metrics shows
+   datastore_partitioned 0, counter_overshoot, evicted_pending_writes
+   and the flush aggregate in datastore_latency; the replicas' p50/p99
+   (decided on their host caches, never on the card) and the
+   authority's ms per RPC by stage (decode, intern, apply = kernels and
+   read, encode) from its /debug/stats. (d) Phase 11's sequence (1,000
+   calls, the reload half way, the 61 s step at three quarters) on one
+   frozen clock to disk and distributed servers beside a memory server,
+   and to a cached server over its default disk authority beside a
+   memory server without the token bucket (cached refuses the policy):
+   every answer equal (X-RateLimit-Reset within 1 s; an expired window's
+   reset, which the memory server reads as 0 and disk and distributed as
+   the whole window, as the JAX package does, counted apart) and
+   /counters/web equal; a second distributed node shows the first's
+   counters after gossip over real brokers.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -272,6 +319,10 @@ DRAIN_SMALL_C = 1 << 10
 # B7c's host form: Report sizes, and the parameter block's capacity
 # (2000 entries with nvcc 12.1 or later) and one past it
 UPDATE_HOST_COUNTS = (1, 2, 8, 64, 1999, 2000, 2001)
+# B2's host form with B3a's read at the shared authority's flushes
+# (phase 14): a replica's batch size (100) and a batch of 4096, past the
+# parameter block (the staged route)
+AUTHORITY_FLUSHES = (100, 4096)
 # B2's host form runs the same counts as B7c's (an update_counter is one
 # entry); B4c's: the credit rows of phase 7b's largest settle
 # (CREDIT_SETTLE_ROWS, the shape of the JSON line; the phase prints its
@@ -1485,6 +1536,47 @@ def _table_update_host_forms(dev, rng, record, base, base_np, lanes,
                     "the parent's staging (pad to 8)": pad_columns,
                     "the parent's path": parent,
                 })
+        ctx.close()
+    # the shared authority's ApplyDeltas (phase 14): each counter once,
+    # window and bucket lanes, half of them fresh; timed from the list to
+    # the answers (B2's host form, then B3a's read of the same cells, as
+    # TorchStorage.apply_deltas runs them), the update's kernel alone by
+    # the profiler
+    for count in AUTHORITY_FLUSHES:
+        slots = rng.choice(C, size=count, replace=False).astype(np.int32)
+        entries = np.zeros((count, 5), np.int32)
+        entries[:, 1] = slots
+        entries[:, 2] = rng.integers(1, 4, count)
+        entries[:, 3] = rng.choice((60_000, 1_000, 200), count)
+        entries[:, 4] = (rng.random(count) < 0.5) | (
+            rng.random(count) < 0.2).astype(np.int32) << 1
+        ctx = _bound_ctx(K.CounterTableState(*(t.clone() for t in base)))
+        want = K.CounterTableState(*(t.clone() for t in base))
+        K.update_host(ctx, entries, now_ms)
+        got = K.read_slots_host(ctx, slots, now_ms)
+        K.update_host_plain(want, entries, now_ms)
+        ref = K.read_slots_host_plain(want, slots, now_ms)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(list(zip(ctx.state, want))),
+                  *(int(np.abs(a.astype(np.int64) - b).max())
+                    for a, b in zip(got, ref)))
+        exact = exact and err == 0
+
+        def call():
+            K.update_host(ctx, entries, now_ms)
+            return K.read_slots_host(ctx, slots, now_ms)
+
+        def plain():
+            K.update_host_plain(want, entries, now_ms)
+            return K.read_slots_host_plain(want, slots, now_ms)
+
+        # the list, the cells read and written, the cells read again and
+        # the answers
+        record("update", f"host/authority-{count}", err, _median_ms(call),
+               _median_ms(plain, reps=5, warmup=1),
+               20 * count + 24 * count + 8 * count + 8 * count, None,
+               _device_ms(lambda: K.update_host(ctx, entries, now_ms), None,
+                          ("update_list_kernel", "update_staged_kernel")))
         ctx.close()
     return exact
 
@@ -5395,15 +5487,16 @@ def _counters_by_identity(body):
     }
 
 
-def _counters_differ(got, want):
+def _counters_differ(got, want, seconds=1):
     """The counters of two ``/counters`` bodies that differ: any but
-    ``expires_in_seconds`` (whole seconds, truncated) within 1 s."""
+    ``expires_in_seconds`` (whole seconds, truncated) within ``seconds``."""
     g, w = _counters_by_identity(got), _counters_by_identity(want)
     out = []
     for key in sorted(g.keys() | w.keys()):
         a, b = g.get(key), w.get(key)
         if a is None or b is None or a[0] != b[0] or (a[1] is None) != (
-                b[1] is None) or (a[1] is not None and abs(a[1] - b[1]) > 1):
+                b[1] is None) or (a[1] is not None
+                                  and abs(a[1] - b[1]) > seconds):
             out.append((key, a, b))
     return out
 
@@ -5429,6 +5522,34 @@ def _http_calls(conns, calls, lat):
                 if k.lower().startswith("x-ratelimit")), data))
         out.append(answers)
     return out
+
+
+def _http_plan(calls):
+    """Phase 11's calls: (path, JSON body) each, 60% POST
+    /check_and_report (half with draft-03 headers), 20% /check, 20%
+    /report, users Zipf-0.99 over 1<<20 ids, routes of 16; and the hits
+    each user's per-user counter takes (every call but /check)."""
+    rng = np.random.default_rng(111)
+    users = zipf_keys(1 << 20, calls, 0.99, rng).tolist()
+    routes = rng.integers(0, 16, calls).tolist()
+    kinds = rng.random(calls).tolist()
+    drafts = (rng.random(calls) < 0.5).tolist()
+    plan = []
+    tally = {}
+    for i in range(calls):
+        values = {"user": f"u{users[i]}", "route": f"r{routes[i]}"}
+        body = {"namespace": "web", "values": values, "delta": 1}
+        if kinds[i] < 0.6:
+            path = "/check_and_report"
+            if drafts[i]:
+                body["response_headers"] = "DRAFT_VERSION_03"
+        else:
+            path = "/check" if kinds[i] < 0.8 else "/report"
+        if path != "/check":
+            # one kernel hit on the per-user counter (B1 or B2's host form)
+            tally[users[i]] = tally.get(users[i], 0) + 1
+        plan.append((path, json.dumps(body)))
+    return plan, tally
 
 
 async def _http_api(tmpdir, dev, card, calls=HTTP_CALLS):
@@ -5462,26 +5583,7 @@ async def _http_api(tmpdir, dev, card, calls=HTTP_CALLS):
               "--usage-drain-interval", "3600"]
     ports = {}
     servers = {}
-    rng = np.random.default_rng(111)
-    users = zipf_keys(1 << 20, calls, 0.99, rng).tolist()
-    routes = rng.integers(0, 16, calls).tolist()
-    kinds = rng.random(calls).tolist()
-    drafts = (rng.random(calls) < 0.5).tolist()
-    plan = []
-    tally = {}
-    for i in range(calls):
-        values = {"user": f"u{users[i]}", "route": f"r{routes[i]}"}
-        body = {"namespace": "web", "values": values, "delta": 1}
-        if kinds[i] < 0.6:
-            path = "/check_and_report"
-            if drafts[i]:
-                body["response_headers"] = "DRAFT_VERSION_03"
-        else:
-            path = "/check" if kinds[i] < 0.8 else "/report"
-        if path != "/check":
-            # one kernel hit on the per-user counter (B1 or B2's host form)
-            tally[users[i]] = tally.get(users[i], 0) + 1
-        plan.append((path, json.dumps(body)))
+    plan, tally = _http_plan(calls)
     K.reset_launches()
     try:
         for name, storage, extra in (
@@ -5608,6 +5710,882 @@ async def _http_api(tmpdir, dev, card, calls=HTTP_CALLS):
     }
 
 
+# -- phase 14: the host storages and the shared authority --------------------
+
+# (a): four replicas at the reference's write-behind defaults decide this
+# many one-hit requests together over Zipf-0.99 users from 1<<20 keys,
+# under phase 5's limit at a minute (100 per user); a fifth replica then
+# flushes this many distinct counters in one RPC (batch size 4096: past
+# B2's parameter block, the staged route); the sharded authority takes
+# two replicas and this many requests
+AUTH_REQUESTS = 80_000
+AUTH_REPLICAS = 4
+AUTH_BIG_FLUSH = 2400
+AUTH_SHARDED_REQUESTS = 20_000
+# Requests a second offered to each replica. The replicas are threads of
+# this process: deciding flat out they hold the GIL, the authority's RPC
+# threads wait past the 350 ms timeout, and a replica that times out
+# never recovers (it flushes its whole backlog in one RPC, which takes
+# longer each time, and the authority applies every timed-out RPC
+# anyway; PERF.md §6, ROADMAP Queue C). Paced, the four offer
+# 4,000 requests a second, as four servers each under its own load.
+AUTH_RATE = 1000
+# (b): two replicas, half of the requests before the authority stops and
+# half while it is down
+PARTITION_REQUESTS = 6_000
+# (c): calls to each served replica; (d): calls of phase 11's sequence
+SERVED_AUTH_CALLS = 1000
+HOST_CALLS = 1000
+AUTH_LIMITS_YAML = """\
+- namespace: ns
+  max_value: 100
+  seconds: 60
+  variables: ["descriptors[0].u"]
+  name: per-user
+"""
+
+
+def _replica_thread(url, users, clock, out, *, batch_size=100,
+                    gates=None, limits=None, yield_every=64,
+                    rate=AUTH_RATE):
+    """One write-behind replica in a thread of its own with its own event
+    loop: a CachedCounterStorage over RemoteAuthority(url) at the
+    reference's defaults (flush 1 s, ``batch_size``, 10,000 cached, a
+    350 ms timeout) decides one hit for each user of ``users`` in turn
+    (``limits``: the limits it holds, phase 5's at a minute by default),
+    ``rate`` a second (None: flat out), yielding to its flush loop every
+    ``yield_every`` decisions (None: never, so that one flush carries
+    them all), then flushes until its authority has every delta.
+    ``gates``, for phase 14b: (halfway, down, partitioned, up) events:
+    set ``halfway`` after half of the decisions, wait for ``down``,
+    decide the rest, flush (which must fail), set ``partitioned``, wait
+    for ``up``. Fills ``out`` with the admitted hits by (limit name,
+    user), the partition flags, the flushes' sizes and seconds (client
+    side), decision errors, flush errors, the overshoot and the seconds
+    spent."""
+    from limitador_tpu_torch import AsyncRateLimiter, Context, Limit
+    from limitador_tpu_torch.storage.authority import RemoteAuthority
+    from limitador_tpu_torch.storage.cached import CachedCounterStorage
+
+    flags = []
+    limits = limits or [Limit("ns", 100, 60, [], ["u"], name="per-user")]
+    remote = RemoteAuthority(url, timeout=0.35)
+    rpcs = []
+    apply = remote.apply_deltas
+
+    def timed(items):
+        t0 = time.perf_counter()
+        try:
+            return apply(items)
+        finally:
+            rpcs.append((len(items), time.perf_counter() - t0))
+
+    remote.apply_deltas = timed
+
+    async def main():
+        cached = CachedCounterStorage(
+            remote, flush_period=1.0,
+            batch_size=batch_size, max_cached=10_000, clock=clock,
+            on_partitioned=flags.append)
+        limiter = AsyncRateLimiter(cached)
+        for limit in limits:
+            limiter.add_limit(limit)
+        namespaces = sorted({str(limit.namespace) for limit in limits})
+        admitted = {}
+        errors = 0
+        t0 = time.perf_counter()
+        half = len(users) // 2
+        for i, user in enumerate(users):
+            if gates is not None and i == half:
+                gates[0].set()
+                await asyncio.get_running_loop().run_in_executor(
+                    None, gates[1].wait, 60)
+            for ns in namespaces:
+                try:
+                    r = await limiter.check_rate_limited_and_update(
+                        ns, Context({"u": user}), 1, load_counters=True)
+                except Exception:
+                    errors += 1
+                    continue
+                if not r.limited:
+                    for c in r.counters:
+                        key = (c.limit.name, user)
+                        admitted[key] = admitted.get(key, 0) + 1
+            if yield_every and i % yield_every == yield_every - 1:
+                ahead = (t0 + (i + 1) / rate - time.perf_counter()
+                         if rate else 0.0)
+                await asyncio.sleep(max(ahead, 0.0))
+        decided_s = time.perf_counter() - t0
+        if gates is not None:
+            await cached.flush()
+            out["partitioned_after_down"] = cached.partitioned
+            gates[2].set()
+            await asyncio.get_running_loop().run_in_executor(
+                None, gates[3].wait, 60)
+        deadline = time.monotonic() + 20
+        await cached.flush()
+        while cached.partitioned or cached._batch:
+            if time.monotonic() > deadline:
+                break
+            await asyncio.sleep(0.1)
+            await cached.flush()
+        out.update(admitted=admitted, errors=errors, seconds=decided_s,
+                   flush_errors=cached.flush_errors,
+                   overshoot=cached.counter_overshoot,
+                   evicted=cached.evicted_pending_writes,
+                   left=len(cached._batch), partitioned=cached.partitioned)
+        await cached.close()
+
+    loop = asyncio.new_event_loop()
+    try:
+        loop.run_until_complete(main())
+    except BaseException as exc:  # reported by the caller
+        out["raised"] = repr(exc)
+    finally:
+        loop.run_until_complete(loop.shutdown_default_executor())
+        loop.close()
+        out["flags"] = flags
+        out["rpcs"] = rpcs
+
+
+@contextlib.contextmanager
+def _frozen_heap():
+    """Every object made before the block (torch's, the tables', the
+    earlier phases') moved out of the collector's reach (``gc.freeze``)
+    and the oldest generation's threshold raised while it runs: the
+    replicas and the authority share this process, and a full collection
+    stops all of them at once, for 630 ms over the whole script's heap
+    and 150 ms over a frozen one's (PERF.md §6), where a flush may
+    take 350 ms; each would be a process of its own in a deployment.
+    Yields the collections in the block by generation: (count, longest
+    ms), from gc.callbacks."""
+    import gc
+
+    pauses = {}
+    started = []
+
+    def timed(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            ms = (time.perf_counter() - started.pop()) * 1e3
+            n, longest = pauses.get(info["generation"], (0, 0.0))
+            pauses[info["generation"]] = (n + 1, max(longest, ms))
+
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.freeze()
+    gc.set_threshold(thresholds[0], thresholds[1], 1_000_000)
+    gc.callbacks.append(timed)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(timed)
+        gc.set_threshold(*thresholds)
+        gc.unfreeze()
+
+
+def _run_replicas(url, streams, clock, **kw):
+    """Replicas of ``_replica_thread``, one thread each, joined."""
+    import threading
+
+    outs = [{} for _ in streams]
+    threads = [threading.Thread(target=_replica_thread,
+                                args=(url, users, clock, out), kwargs=kw,
+                                name=f"replica-{i}")
+               for i, (users, out) in enumerate(zip(streams, outs))]
+    for th in threads:
+        th.start()
+    return threads, outs
+
+
+def _admitted_total(outs):
+    total = {}
+    for out in outs:
+        for key, n in out.get("admitted", {}).items():
+            total[key] = total.get(key, 0) + n
+    return total
+
+
+def _feed_oracle(oracle, limits, admitted):
+    """Apply the replicas' admitted hits to ``oracle`` as the deltas they
+    flushed."""
+    from limitador_tpu_torch import Counter
+
+    by_name = {limit.name: limit for limit in limits}
+    items = [(Counter(by_name[name], {"u": user}), n)
+             for (name, user), n in sorted(admitted.items())]
+    for lo in range(0, len(items), 4096):
+        oracle.apply_deltas(items[lo:lo + 4096])
+
+
+def _table_differences(table, oracle, limits):
+    """Counters of ``table`` that differ from ``oracle``'s, by (limit
+    name, user): remaining and expires_in."""
+    def rows(storage):
+        return {(c.limit.name, c.set_variables["u"]):
+                (c.remaining, c.expires_in)
+                for c in storage.get_counters(set(limits))}
+
+    got, want = rows(table), rows(oracle)
+    return [(k, got.get(k), want.get(k)) for k in sorted(got.keys()
+                                                         | want.keys())
+            if got.get(k) != want.get(k)], len(got)
+
+
+def _rpc_summary(outs):
+    """Per replica: flushes sent, the largest, the slowest (ms) and how
+    many took 350 ms or more (client side, RemoteAuthority)."""
+    return [{"rpcs": len(out.get("rpcs", ())),
+             "largest": max((n for n, _s in out.get("rpcs", ())), default=0),
+             "slowest_ms": max((s for _n, s in out.get("rpcs", ())),
+                               default=0.0) * 1e3,
+             "over_timeout": sum(s >= 0.35 for _n, s in out.get("rpcs", ())),
+             "flags": out.get("flags")} for out in outs]
+
+
+def _check_replicas(label, outs, *, partitioned_ok=False):
+    print(f"{label}: replicas' flushes: {json.dumps(_rpc_summary(outs))}")
+    for i, out in enumerate(outs):
+        if "raised" in out:
+            fail(f"{label}: replica {i} raised {out['raised']}")
+        if out["errors"]:
+            fail(f"{label}: replica {i}: {out['errors']} decisions failed")
+        if out["flush_errors"]:
+            fail(f"{label}: replica {i}: {out['flush_errors']} flush "
+                 f"errors")
+        if out["left"] or out["partitioned"]:
+            fail(f"{label}: replica {i} ended with {out['left']} pending "
+                 f"counters, partitioned {out['partitioned']}")
+        if not partitioned_ok and out["flags"]:
+            fail(f"{label}: replica {i} was partitioned: {out['flags']}")
+
+
+def _overadmission(admitted, max_value):
+    """Hits admitted past the limit by the replicas together, and the
+    users over it."""
+    over = [n - max_value for n in admitted.values() if n > max_value]
+    return sum(over), len(over)
+
+
+def _authority_drive(dev, card, label, table, streams, limits, max_value,
+                     big=None):
+    """Serve ``table`` as the shared authority on 127.0.0.1:0 (warmed),
+    run a replica for each of ``streams`` (and then, with ``big``, one
+    more with batch size 4096 over ``big`` distinct users, one flush),
+    and hold the table against an InMemoryStorage fed the admitted hits.
+    Returns (launches, record)."""
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.parallel import mesh as M
+    from limitador_tpu_torch.storage.authority import AuthorityServer
+    from limitador_tpu_torch.storage.in_memory import InMemoryStorage
+
+    clock = table._clock
+    t0 = time.perf_counter()
+    server = AuthorityServer(table, "127.0.0.1:0").start()
+    warm_s = time.perf_counter() - t0
+    url = f"127.0.0.1:{server.port}"
+    K.reset_launches()
+    update, sharded_update = K.update_host, M.sharded_update_host
+    sizes = []
+
+    def tally(fn):
+        def launch(ctx, entries, now_ms):
+            sizes.append(int(entries.shape[0]))
+            return fn(ctx, entries, now_ms)
+        return launch
+
+    K.update_host = tally(update)
+    M.sharded_update_host = tally(sharded_update)
+    try:
+        with _frozen_heap() as pauses:
+            t1 = time.perf_counter()
+            threads, outs = _run_replicas(url, streams, clock)
+            for th in threads:
+                th.join()
+            seconds = time.perf_counter() - t1
+            big_out = None
+            if big is not None:
+                threads, (big_out,) = _run_replicas(
+                    url, [big], clock, batch_size=4096, yield_every=None,
+                    rate=None)
+                threads[0].join()
+    finally:
+        K.update_host, M.sharded_update_host = update, sharded_update
+    stats = server.stats()
+    server.stop()
+    launches = dict(K.launches)
+    print(f"{label}: authority stats {json.dumps(stats)}; collections "
+          f"in the drive by generation (count, longest ms): "
+          f"{json.dumps(pauses)}")
+    _check_replicas(label, outs + ([big_out] if big_out else []))
+    admitted = _admitted_total(outs + ([big_out] if big_out else []))
+    oracle = InMemoryStorage(cache_size=1 << 22, clock=clock)
+    _feed_oracle(oracle, limits, admitted)
+    differ, n_counters = _table_differences(table, oracle, limits)
+    over, users_over = _overadmission(admitted, max_value)
+    overshoot = sum(out["overshoot"] for out in outs)
+    decisions = sum(len(s) for s in streams)
+    rpcs = max(stats["apply_deltas"], 1)
+    per_rpc = {k: v / rpcs for k, v in stats["ms"].items()}
+    staged = [n for n in sizes if n > 2000]
+    print(f"{label}: {len(streams)} replicas decided {decisions} requests "
+          f"in {seconds:.2f}s ({decisions / seconds:.0f}/s; "
+          f"{card}); the authority served {stats['apply_deltas']} "
+          f"ApplyDeltas RPCs of {stats['items']} counters (warm-up "
+          f"{warm_s * 1e3:.1f} ms before serving); per RPC, ms: "
+          f"{json.dumps({k: round(v, 4) for k, v in per_rpc.items()})}; "
+          f"B2/B7c host-form calls {len(sizes)} (largest {max(sizes or [0])}"
+          f" entries, {len(staged)} past 2,000: the staged route)")
+    print(f"{label}: {n_counters} counters; {len(differ)} differ from the "
+          f"oracle; over-admission {over} hits on {users_over} users (the "
+          f"topology's bound, recorded), replicas' counter_overshoot "
+          f"{overshoot}")
+    print(f"{label} launches: {json.dumps(launches)}")
+    if differ:
+        fail(f"{label}: {len(differ)} counters differ from the oracle: "
+             f"{differ[:3]}")
+    if stats["errors"]:
+        fail(f"{label}: {stats['errors']} authority RPCs failed")
+    return launches, {
+        "decisions": decisions, "seconds": seconds,
+        "rpcs": stats["apply_deltas"], "items": stats["items"],
+        "rpc_ms": per_rpc, "warm_ms": warm_s * 1e3, "counters": n_counters,
+        "overadmission": over, "users_over": users_over,
+        "counter_overshoot": overshoot, "update_calls": len(sizes),
+        "gc_pauses": pauses, "slowest_rpc_ms": stats["slowest_ms"],
+        "largest_update": max(sizes or [0]), "staged_calls": len(staged),
+    }
+
+
+def _zipf_users(n, seed):
+    rng = np.random.default_rng(seed)
+    return [f"u{k}" for k in zipf_keys(C, n, 0.99, rng).tolist()]
+
+
+def _partition_drive(dev, card, table):
+    """Phase 14b on the table of 14a: two replicas decide, the authority
+    stops half way and the replicas decide the other half against no
+    authority (their flushes fail: partitioned), a new AuthorityServer
+    over the same table binds the same port, the held deltas arrive and
+    the table equals the oracle (every hit of 14a and 14b). Then
+    DeleteCounters on the second limit (B3b's host form) and Clear."""
+    import threading
+
+    from limitador_tpu_torch import Limit
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.storage.authority import AuthorityServer
+
+    label = "authority partition (14b)"
+    clock = table._clock
+    limits = [Limit("ns", 100, 60, [], ["u"], name="per-user"),
+              Limit("ns2", 1000, 60, [], ["u"], name="per-user-2")]
+    server = AuthorityServer(table, "127.0.0.1:0").start()
+    port = server.port
+    url = f"127.0.0.1:{port}"
+    K.reset_launches()
+    users = _zipf_users(PARTITION_REQUESTS, 1414)
+    gates = [[threading.Event() for _ in range(4)] for _ in range(2)]
+    outs = [{}, {}]
+    threads = [threading.Thread(
+        target=_replica_thread, args=(url, users[i::2], clock, outs[i]),
+        kwargs={"gates": gates[i], "limits": limits}, name=f"partition-{i}")
+        for i in range(2)]
+    t0 = time.perf_counter()
+    frozen = _frozen_heap()
+    pauses = frozen.__enter__()
+    for th in threads:
+        th.start()
+    for g in gates:
+        if not g[0].wait(120):
+            fail(f"{label}: a replica never reached half way")
+    # a grace period lets an RPC in flight answer: cancelled after the
+    # authority applied it, its deltas would be sent again (the replica
+    # cannot tell), and counted twice
+    server.stop(grace=5.0)
+    down_at = time.perf_counter()
+    for g in gates:
+        g[1].set()
+    for g in gates:
+        if not g[2].wait(120):
+            fail(f"{label}: a replica never flushed against the stopped "
+                 f"authority")
+    down_s = time.perf_counter() - down_at
+    try:
+        server = AuthorityServer(table, url).start()
+    except Exception:
+        time.sleep(0.5)
+        server = AuthorityServer(table, url).start()
+    for g in gates:
+        g[3].set()
+    for th in threads:
+        th.join()
+    frozen.__exit__(None, None, None)
+    seconds = time.perf_counter() - t0
+    for i, out in enumerate(outs):
+        if not out.get("partitioned_after_down") or \
+                out.get("flags", [])[:1] != [True] or \
+                out["flags"][-1] is not False:
+            fail(f"{label}: replica {i}: partition flags "
+                 f"{out.get('flags')}, partitioned after the stop "
+                 f"{out.get('partitioned_after_down')}")
+    _check_replicas(label, outs, partitioned_ok=True)
+    admitted = _admitted_total(outs)
+    return server, limits, admitted, {
+        "decisions": PARTITION_REQUESTS, "seconds": seconds,
+        "down_s": down_s, "flags": [out["flags"] for out in outs],
+        "gc_pauses": pauses,
+    }, label
+
+
+def phase_authority(dev, card):
+    """Phase 14 (a) and (b): the shared authority on the card, in this
+    process. Returns (launches of 14a and 14b, results)."""
+    from limitador_tpu_torch import Counter, Limit
+    from limitador_tpu_torch.device import TorchStorage
+    from limitador_tpu_torch.device.sharded import TorchShardedStorage
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.storage.authority import RemoteAuthority
+    from limitador_tpu_torch.storage.in_memory import InMemoryStorage
+
+    limit = Limit("ns", 100, 60, [], ["u"], name="per-user")
+    clock = ManualClock()
+    table = TorchStorage(capacity=C, clock=clock, device=dev)
+    users = _zipf_users(AUTH_REQUESTS + AUTH_BIG_FLUSH * 8, 1400)
+    streams = [users[i:AUTH_REQUESTS:AUTH_REPLICAS]
+               for i in range(AUTH_REPLICAS)]
+    seen = set(users[:AUTH_REQUESTS])
+    big = []
+    for u in users[AUTH_REQUESTS:]:
+        if u not in seen and len(big) < AUTH_BIG_FLUSH:
+            seen.add(u)
+            big.append(u)
+    launches_a, torch_rec = _authority_drive(
+        dev, card, "shared authority (14a, torch)", table, streams,
+        [limit], 100, big=big)
+    if torch_rec["staged_calls"] == 0:
+        fail("shared authority (14a, torch): no B2 call past 2,000 entries")
+    _no_checks(launches_a, "shared authority (14a, torch)")
+    _storage_forms(launches_a, "shared authority (14a, torch)",
+                   ("update_host", "read_slots_host"))
+    sharded = TorchShardedStorage(n_shards=SHARDS, local_capacity=LOCAL_CAP,
+                                  global_region=GLOBAL_REGION, clock=clock,
+                                  device=dev)
+    users = _zipf_users(AUTH_SHARDED_REQUESTS, 1401)
+    launches_s, sharded_rec = _authority_drive(
+        dev, card, "shared authority (14a, sharded)", sharded,
+        [users[0::2], users[1::2]], [limit], 100)
+    sharded.close()
+    _no_checks(launches_s, "shared authority (14a, sharded)")
+    _storage_forms(launches_s, "shared authority (14a, sharded)",
+                   ("sharded_update_host", "read_slots_host"))
+    # (b): the partition, on the table of (a); the oracle starts from
+    # the table's counters after (a), which were held equal to (a)'s
+    oracle = InMemoryStorage(cache_size=1 << 22, clock=clock)
+    base = [(Counter(limit, dict(c.set_variables)),
+             c.limit.max_value - c.remaining)
+            for c in table.get_counters({limit})]
+    for lo in range(0, len(base), 4096):
+        oracle.apply_deltas(base[lo:lo + 4096])
+    server, limits, admitted_b, part_rec, label = _partition_drive(
+        dev, card, table)
+    _feed_oracle(oracle, limits, admitted_b)
+    differ, n_counters = _table_differences(table, oracle, limits)
+    remote = RemoteAuthority(f"127.0.0.1:{server.port}", timeout=30)
+    try:
+        before_clears = K.launches["clear_slots_host"]
+        remote.delete_counters({limits[1]})
+        cleared = K.launches["clear_slots_host"] - before_clears
+        left_2 = len(table.get_counters({limits[1]}))
+        kept = len(table.get_counters({limits[0]}))
+        remote.clear()
+        after_clear = len(table.get_counters(set(limits)))
+    finally:
+        remote.close()
+        server.stop()
+    launches_b = dict(K.launches)
+    table.close()
+    print(f"{label}: 2 replicas decided {PARTITION_REQUESTS} requests on "
+          f"two limits in {part_rec['seconds']:.2f}s, the authority down "
+          f"{part_rec['down_s']:.2f}s; partition flags "
+          f"{json.dumps(part_rec['flags'])}; after recovery {n_counters} "
+          f"counters, {len(differ)} differ from the oracle; DeleteCounters "
+          f"on per-user-2: {cleared} B3b host-form launches, {left_2} of "
+          f"its counters left, {kept} of per-user kept; Clear left "
+          f"{after_clear}; collections in the drive by generation (count, "
+          f"longest ms): {json.dumps(part_rec['gc_pauses'])}")
+    print(f"{label} launches: {json.dumps(launches_b)}")
+    if differ:
+        fail(f"{label}: {len(differ)} counters differ from the oracle "
+             f"after recovery: {differ[:3]}")
+    if cleared == 0 or left_2 or not kept or after_clear:
+        fail(f"{label}: DeleteCounters launched {cleared} clears and left "
+             f"{left_2}; per-user kept {kept}; Clear left {after_clear}")
+    _no_checks(launches_b, label)
+    _storage_forms(launches_b, label, ("update_host", "read_slots_host",
+                                       "clear_slots_host"))
+    part_rec.update(counters=n_counters, cleared=cleared, kept=kept)
+    launches = {k: launches_a[k] + launches_s[k] + launches_b[k]
+                for k in launches_a}
+    return launches, {"torch": torch_rec, "sharded": sharded_rec,
+                      "partition": part_rec}
+
+
+def _no_checks(launches, label):
+    checks = [k for k in ("check_and_update", "check_and_update_cluster",
+                          "replicated_check", "replicated_check_cluster",
+                          "sharded_check_and_update",
+                          "sharded_check_and_update_cluster")
+              if launches[k]]
+    if checks:
+        fail(f"{label}: the authority launched check kernels: {checks}")
+
+
+def _spawn_server(tmpdir, name, argv, http):
+    """A server process of the port (``python -m
+    limitador_tpu_torch.server``), its log in ``tmpdir``."""
+    log = open(os.path.join(tmpdir, f"{name}.log"), "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "limitador_tpu_torch.server", *argv,
+         "--rls-host", "127.0.0.1", "--rls-port", str(_free_ports(1)[0]),
+         "--http-host", "127.0.0.1", "--http-port", str(http),
+         "--flight-spool-dir", os.path.join(tmpdir, f"flight-{name}")],
+        stdout=log, stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": os.getcwd()})
+    return proc, log
+
+
+def _wait_up(proc, port, name, tmpdir, timeout=120):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            with open(os.path.join(tmpdir, f"{name}.log")) as f:
+                fail(f"served authority (14c): {name} exited "
+                     f"{proc.returncode}: {f.read()[-2000:]}")
+        try:
+            status, _body = _http_get(port, "/status")
+            if status == 200:
+                return
+        except OSError:
+            pass
+        time.sleep(0.2)
+    fail(f"served authority (14c): {name} never answered /status")
+
+
+async def _served_authority(tmpdir, dev, card, calls=SERVED_AUTH_CALLS,
+                            users=600):
+    """Phase 14c: an authority process (torch on the card,
+    --authority-listen), two cached replica processes (--authority-url,
+    the defaults), 1,000 HTTP /check_and_report calls to each over 600
+    Zipf-0.99 users (phase 13a's), each admitted hit reported to an
+    in-process memory server; the authority's /counters/ns must equal
+    the memory server's within 10 s after the replicas' 1 s flush."""
+    import http.client
+
+    from limitador_tpu_torch.server import __main__ as server
+
+    label = "served authority (14c)"
+    limits = os.path.join(tmpdir, "auth.yaml")
+    with open(limits, "w") as f:
+        f.write(AUTH_LIMITS_YAML)
+    auth_port, auth_http, *replica_http = _free_ports(4)
+    procs = []
+    try:
+        procs.append(_spawn_server(tmpdir, "authority", [
+            limits, "torch", "--device", dev.type, "--capacity", str(C),
+            "--authority-listen", f"127.0.0.1:{auth_port}"], auth_http))
+        for i, port in enumerate(replica_http):
+            procs.append(_spawn_server(tmpdir, f"replica{i}", [
+                limits, "cached", "--authority-url",
+                f"127.0.0.1:{auth_port}"], port))
+        for (proc, _log), name, port in zip(
+                procs, ["authority", "replica0", "replica1"],
+                [auth_http] + replica_http):
+            _wait_up(proc, port, name, tmpdir)
+        http_opts, mem_http = _http_options()
+        memory = await server.start(server.build_parser().parse_args(
+            [limits, "memory", "--rls-host", "127.0.0.1", "--rls-port",
+             str(_free_ports(1)[0]), *http_opts]))
+        try:
+            rng = np.random.default_rng(1313)
+            keys = zipf_keys(users, 2 * calls, 0.99, rng).tolist()
+            conns = [http.client.HTTPConnection("127.0.0.1", p, timeout=60)
+                     for p in replica_http + [mem_http]]
+            lat = [[], []]
+            statuses = {}
+
+            def drive():
+                headers = {"Content-Type": "application/json"}
+                for i, user in enumerate(keys):
+                    r = i % 2
+                    body = json.dumps({"namespace": "ns",
+                                       "values": {"u": f"u{user}"},
+                                       "delta": 1})
+                    t0 = time.perf_counter()
+                    conns[r].request("POST", "/check_and_report", body,
+                                     headers)
+                    resp = conns[r].getresponse()
+                    resp.read()
+                    lat[r].append(time.perf_counter() - t0)
+                    statuses[resp.status] = statuses.get(resp.status, 0) + 1
+                    if resp.status == 200:
+                        conns[2].request("POST", "/report", body, headers)
+                        report = conns[2].getresponse()
+                        report.read()
+                        if report.status != 200:
+                            fail(f"{label}: the memory server's /report "
+                                 f"answered {report.status}")
+
+            loop = asyncio.get_running_loop()
+            t0 = time.perf_counter()
+            await loop.run_in_executor(None, drive)
+            seconds = time.perf_counter() - t0
+            for conn in conns:
+                conn.close()
+            want = json.loads(await _served_get(mem_http, "/counters/ns"))
+            deadline = time.monotonic() + 1.0 + 10.0
+            while True:
+                got = json.loads(await _served_get(auth_http,
+                                                   "/counters/ns"))
+                # the authority opens a window at the flush that carried
+                # its first hit, up to one flush period (1 s) after the
+                # memory server's report
+                differ = _counters_differ(got, want, seconds=2)
+                if not differ or time.monotonic() > deadline:
+                    break
+                await asyncio.sleep(0.25)
+            waited = time.monotonic() - (deadline - 11.0)
+            families = [await _served_metrics(p) for p in replica_http]
+            stats = json.loads(await _served_get(auth_http, "/debug/stats"))
+        finally:
+            await memory.stop()
+    finally:
+        for proc, _log in procs:
+            proc.terminate()
+        for proc, log in procs:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            log.close()
+    auth = stats["authority"]
+    rpcs = max(auth["apply_deltas"], 1)
+    per_rpc = {k: v / rpcs for k, v in auth["ms"].items()}
+    p = [{"p50": float(np.percentile(np.asarray(v) * 1e3, 50)),
+          "p99": float(np.percentile(np.asarray(v) * 1e3, 99))}
+         for v in lat]
+    partitioned = [_metric(f, "datastore_partitioned") for f in families]
+    flush_share = [_histogram(f, "datastore_latency") for f in families]
+    print(f"{label}: {2 * calls} calls to two cached replica processes in "
+          f"{seconds:.2f}s, statuses {json.dumps(statuses)}; the "
+          f"authority process (torch on {dev.type}) equal to the memory "
+          f"server after {waited:.2f}s: {len(differ)} of {len(got)} "
+          f"counters differ")
+    for i, q in enumerate(p):
+        print(f"{label} replica {i} /check_and_report latency ({card}): "
+              f"p50 {q['p50']:.3f} ms, p99 {q['p99']:.3f} ms over {calls} "
+              f"(decided on the replica's host cache: these decisions "
+              f"never touch the card)")
+    print(f"{label}: the authority served {auth['apply_deltas']} "
+          f"ApplyDeltas RPCs of {auth['items']} counters; per RPC, ms: "
+          f"{json.dumps({k: round(v, 4) for k, v in per_rpc.items()})} "
+          f"(apply = B2's host form and B3a's read)")
+    print(f"{label}: replicas' datastore_partitioned {partitioned}; "
+          f"datastore_latency (the flush_batcher_and_update_counters "
+          f"aggregate) {json.dumps(flush_share)}")
+    if differ or not got:
+        fail(f"{label}: {len(differ)} of /counters/ns differ from the "
+             f"memory server's: {differ[:3]}")
+    if any(partitioned) or any(s["count"] == 0 for s in flush_share):
+        fail(f"{label}: replicas partitioned {partitioned} or no flush "
+             f"aggregate in datastore_latency")
+    for f in families:
+        for name in ("counter_overshoot", "evicted_pending_writes"):
+            if name not in f:
+                fail(f"{label}: a replica's /metrics lacks {name}")
+    if auth["errors"] or auth["apply_deltas"] == 0:
+        fail(f"{label}: the authority served {auth['apply_deltas']} RPCs "
+             f"with {auth['errors']} errors")
+    return {"seconds": seconds, "statuses": statuses, "latency_ms": p,
+            "rpc_ms": per_rpc, "rpcs": auth["apply_deltas"],
+            "items": auth["items"], "waited_s": waited,
+            "datastore_latency": flush_share,
+            "overshoot": [_metric(f, "counter_overshoot") for f in families]}
+
+
+def _expired_reset(got, want):
+    """Two answers that differ only where a counter's window has expired:
+    the memory server's X-RateLimit-Reset reads 0 (the dead window's
+    ttl), the disk and distributed storages' the whole window they open
+    (their JAX counterparts do the same; ROADMAP Queue C)."""
+    (gs, gh, gb), (ws, wh, wb) = got, want
+    if (gs, gb) != (ws, wb) or [k for k, _v in gh] != [k for k, _v in wh]:
+        return False
+    return all(g == w or (k.lower() == "x-ratelimit-reset" and w == "0"
+                          and int(g) > 0)
+               for (k, g), (_k, w) in zip(gh, wh))
+
+
+async def _host_storages(tmpdir, dev, card, calls=HOST_CALLS):
+    """Phase 14d: phase 11's sequence (its first ``calls`` calls, the
+    reload half way, the 61 s step at three quarters) to a disk server
+    and a distributed node beside a memory server, on one frozen clock;
+    a second distributed node (gossip over real brokers) must show the
+    first's counters; a cached server over its default disk authority
+    takes the same calls beside a second memory server with the reloaded
+    limits throughout (cached storage refuses token buckets). Every
+    answer equal to its memory server's (X-RateLimit-Reset within 1 s,
+    and ``_expired_reset`` counted apart)."""
+    import http.client
+
+    from limitador_tpu_torch.server import __main__ as server
+
+    label = "host storages (14d)"
+    limits = os.path.join(tmpdir, "host.yaml")
+    with open(limits, "w") as f:
+        f.write(HTTP_YAML)
+    plain = os.path.join(tmpdir, "plain.yaml")
+    with open(plain, "w") as f:
+        f.write(HTTP_RELOADED_YAML)
+    parse = server.build_parser().parse_args
+    clock = ManualClock()
+    failures = []
+    common = ["--rls-host", "127.0.0.1", "--limit-name-in-labels",
+              "--metric-labels", HTTP_LABELS]
+    g0, g1 = _free_ports(2)
+    specs = (
+        ("memory", limits, ["memory"]),
+        ("disk", limits, ["disk", "--disk-path",
+                          os.path.join(tmpdir, "disk.db")]),
+        ("distributed", limits, ["distributed", "--node-id", "d0",
+                                 "--listen-address", f"127.0.0.1:{g0}",
+                                 "--peer", f"127.0.0.1:{g1}"]),
+        ("distributed-peer", limits, [
+            "distributed", "--node-id", "d1", "--listen-address",
+            f"127.0.0.1:{g1}", "--peer", f"127.0.0.1:{g0}"]),
+        ("memory-plain", plain, ["memory"]),
+        ("cached", plain, ["cached", "--disk-path",
+                           os.path.join(tmpdir, "cached.db")]),
+    )
+    plan, _tally = _http_plan(calls)
+    ports, servers = {}, {}
+    try:
+        for name, path, argv in specs:
+            http_opts, ports[name] = _http_options()
+            servers[name] = await server.start(parse(
+                [path, *argv, *common, *http_opts, "--rls-port",
+                 str(_free_ports(1)[0])]), clock=clock,
+                on_failure=failures.append)
+        groups = (("memory", "disk", "distributed"),
+                  ("memory-plain", "cached"))
+        conns = {name: http.client.HTTPConnection("127.0.0.1", ports[name],
+                                                  timeout=60)
+                 for group in groups for name in group}
+        loop = asyncio.get_running_loop()
+        lat = {}
+        answers = {group: [] for group in groups}
+        t0 = time.perf_counter()
+        for lo, hi in ((0, calls // 2), (calls // 2, calls)):
+            if lo:
+                with open(limits, "w") as f:
+                    f.write(HTTP_RELOADED_YAML)
+                st = os.stat(limits)
+                os.utime(limits, ns=(st.st_atime_ns,
+                                     st.st_mtime_ns + 10**9))
+                deadline = time.monotonic() + 20
+                while any(len(servers[n].limiter.get_limits("web")) != 1
+                          for n in ("memory", "disk", "distributed",
+                                    "distributed-peer")):
+                    if time.monotonic() > deadline:
+                        fail(f"{label}: reload not applied within 20 s")
+                    await asyncio.sleep(0.05)
+            for i in range(lo, hi):
+                if i == 3 * calls // 4:
+                    # the write-behind deltas reach the authority in their
+                    # own window before the clock leaves it (one flushed
+                    # later counts in the authority's window of that
+                    # moment: the topology's contract)
+                    await servers["cached"].limiter.storage.counters.flush()
+                clock.now += 61.0 if i == 3 * calls // 4 else 0.005
+                for group in groups:
+                    answers[group] += await loop.run_in_executor(
+                        None, _http_calls, [conns[n] for n in group],
+                        plan[i:i + 1], lat)
+        seconds = time.perf_counter() - t0
+        for conn in conns.values():
+            conn.close()
+        mismatches, expired = {}, {}
+        for group in groups:
+            for j, name in enumerate(group[1:], start=1):
+                pairs = [(i, per[j], per[0])
+                         for i, per in enumerate(answers[group])
+                         if not _same_http_answer(per[j], per[0])]
+                expired[name] = sum(_expired_reset(g, w)
+                                    for _i, g, w in pairs)
+                mismatches[name] = [i for i, g, w in pairs
+                                    if not _expired_reset(g, w)]
+        counters = {name: json.loads(await _served_get(ports[name],
+                                                       "/counters/web"))
+                    for name in servers}
+        deadline = time.monotonic() + 10
+        while True:
+            peer = json.loads(await _served_get(ports["distributed-peer"],
+                                                "/counters/web"))
+            converged = not _counters_differ(peer, counters["distributed"])
+            if converged or time.monotonic() > deadline:
+                break
+            await asyncio.sleep(0.1)
+    finally:
+        for srv in servers.values():
+            await srv.stop()
+    print(f"{label}: {calls} calls of phase 11's sequence to disk, "
+          f"distributed and (without the bucket) cached servers in "
+          f"{seconds:.2f}s; answers differing from the memory server's: "
+          f"{json.dumps({k: len(v) for k, v in mismatches.items()})}, and "
+          f"only in X-RateLimit-Reset on an expired window (the memory "
+          f"server reads 0, disk and distributed the whole window, as in "
+          f"the JAX package): {json.dumps(expired)}; the distributed "
+          f"peer's /counters/web converged: {converged}")
+    if failures:
+        fail(f"{label}: a background tier failed: {failures!r}")
+    for name, bad in mismatches.items():
+        if bad:
+            group = next(g for g in groups if name in g)
+            i = bad[0]
+            fail(f"{label}: {name} call {i} {plan[i]}: "
+                 f"{answers[group][i][group.index(name)]} != "
+                 f"{answers[group][i][0]}")
+    for name, ref in (("disk", "memory"), ("distributed", "memory"),
+                      ("cached", "memory-plain")):
+        differ = _counters_differ(counters[name], counters[ref])
+        if differ or not counters[name]:
+            fail(f"{label}: {name}'s /counters/web differs from the memory "
+                 f"server's: {differ[:3]}")
+    if not converged:
+        fail(f"{label}: the distributed peer never showed the node's "
+             f"counters")
+    return {"seconds": seconds, "calls": calls, "expired_resets": expired,
+            "counters": {k: len(v) for k, v in counters.items()}}
+
+
+def phase_host_storages(dev, card):
+    """Phase 14: (a) and (b) the shared authority on the card, (c) served
+    as operators deploy it, (d) the host storages. Returns (launches of
+    14a and 14b, results)."""
+    t0 = time.perf_counter()
+    launches, authority = phase_authority(dev, card)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        served = asyncio.run(_served_authority(tmpdir, dev, card))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        host = asyncio.run(_host_storages(tmpdir, dev, card))
+    print(f"host storages and the shared authority (14): "
+          f"{time.perf_counter() - t0:.2f}s; launches "
+          f"{json.dumps(launches)}")
+    return launches, {"authority": authority, "served": served,
+                      "host": host, "card": card}
+
+
 def main() -> int:
     name, card = phase_card()
     import torch
@@ -5678,6 +6656,7 @@ def main() -> int:
         http_launches, http_api = asyncio.run(_http_api(tmpdir, dev, card))
     plane_launches, device_plane = phase_device_plane(dev, card)
     planes_launches, control_planes = phase_control_planes(dev, card)
+    host_launches, host_storages = phase_host_storages(dev, card)
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -5712,13 +6691,14 @@ def main() -> int:
         _host_forms_only(got, label, remote=False)
     _storage_forms(plane_launches, "device plane (12)", ("update_host",))
     # launches on the main paths: phases 4, 5, 6, 7, 8a, 8b, 9a, 9b, 10a,
-    # 10b, 11, 12, 13
+    # 10b, 11, 12, 13, 14 (14c's authority is another process: its RPCs
+    # are counted by its /debug/stats, not here)
     runs = (launches, drive5_launches, native_launches, drive_launches,
             repl_launches,
             served_launches, tier_launches, served_tier_launches,
             leased_tier_launches, served_default_launches, sharded_launches,
             served_sharded_launches, http_launches, plane_launches,
-            planes_launches)
+            planes_launches, host_launches)
     launches = {name: sum(run[name] for run in runs) for name in launches}
     kernels = []
     for kname, by_shape in results.items():
@@ -5773,6 +6753,8 @@ def main() -> int:
             "device_plane_launches": plane_launches,
             "control_planes": control_planes,
             "control_planes_launches": planes_launches,
+            "host_storages": host_storages,
+            "host_storages_launches": host_launches,
         }, f, indent=1)
     spool_root.cleanup()
     print(f"card: {card}")

@@ -196,6 +196,14 @@ class TorchReplicatedStorage(TorchStorage):
         K.replicated_update_host(self._ctx, self._remote_ctx, entries,
                                  now_ms)
 
+    def _warm_update(self, ctx, entries):
+        """B6b on the warm-up table, its own empty remote lanes beside."""
+        remote = K.TableContext(K.make_table(1, self._device), self._stream)
+        try:
+            K.replicated_update_host(ctx, remote, entries, 0)
+        finally:
+            remote.close()
+
     def begin_check_columnar(self, *args, **kwargs):
         raise StorageError(
             "the columnar (native pipeline) check launches the plain "

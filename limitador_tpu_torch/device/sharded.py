@@ -953,6 +953,26 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
                 out.append((value, ttl / 1000.0))
         return out
 
+    def warm_apply(self) -> None:
+        """``TorchStorage.warm_apply`` for this table: B7c's and B3a's
+        host forms once on a [1, 2] table of their own, bound to this
+        storage's stream. Nothing to do on the CPU."""
+        if not self._cuda:
+            return
+        with self._lock, self._on_device():
+            state = M.make_sharded_table(1, 1, self._device)
+            ctx = K.TableContext(state, self._stream)
+            flat = K.TableContext(
+                K.CounterTableState(*(t.view(-1) for t in state)),
+                self._stream)
+            try:
+                M.sharded_update_host(
+                    ctx, np.asarray([[0, 0, 1, 1000, 1]], np.int32), 0)
+                K.read_slots_host(flat, np.zeros(1, np.int32), 0)
+            finally:
+                flat.close()
+                ctx.close()
+
     def get_counters(self, limits: Set[Limit]) -> Set[Counter]:
         out: Set[Counter] = set()
         with self._lock:

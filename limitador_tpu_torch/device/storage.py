@@ -1352,6 +1352,29 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
                     results[i] = (value, float(ttls[k]) / 1000.0)
         return results
 
+    def warm_apply(self) -> None:
+        """Launch ``apply_deltas``' kernels once on the card, on a table of
+        one counter of their own bound to this storage's stream (the
+        served table is not touched): a shared authority calls it before
+        it serves, so that a replica's first flush to a fresh process
+        does not pay the kernels' first load inside its response timeout.
+        Nothing to do on the CPU."""
+        if not self._cuda:
+            return
+        with self._lock, self._on_device():
+            ctx = K.TableContext(K.make_table(1, self._device), self._stream)
+            try:
+                self._warm_update(ctx, np.asarray([[0, 0, 1, 1000, 1]],
+                                                  np.int32))
+                K.read_slots_host(ctx, np.zeros(1, np.int32), 0)
+            finally:
+                ctx.close()
+
+    def _warm_update(self, ctx, entries: np.ndarray) -> None:
+        """``warm_apply``'s update: ``_kernel_update``'s kernel on the
+        warm-up table's context."""
+        K.update_host(ctx, entries, 0)
+
     # -- checkpoint / resume ---------------------------------------------
 
     SNAPSHOT_FORMAT = "limitador_tpu_torch/1"

@@ -107,6 +107,8 @@ LIMIT_NAME_LABEL = "limitador_limit_name"
 #: cumulative library_stats counts fed to same-named counters as the
 #: increment since the last render
 _CUMULATIVE_KEYS = (
+    "counter_overshoot",
+    "evicted_pending_writes",
     "cel_vectorized_evals",
     "cel_fallback_evals",
     "plan_cache_hits",
@@ -211,6 +213,18 @@ class PrometheusMetrics:
             "batcher_flush_size", "Counters per batcher flush",
             registry=self.registry,
             buckets=(1, 2, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 10000),
+        )
+        # The write-behind cache's (storage/cached.py), from its
+        # library_stats.
+        self.counter_overshoot = Counter(
+            "counter_overshoot",
+            "Amount admitted beyond a limit due to write-behind staleness",
+            registry=self.registry,
+        )
+        self.evicted_pending_writes = Counter(
+            "evicted_pending_writes",
+            "Counters evicted from the cache while holding unflushed deltas",
+            registry=self.registry,
         )
         self.cel_vectorized_evals = Counter(
             "cel_vectorized_evals",

@@ -4,7 +4,8 @@ the HTTP admin and check API with Prometheus metrics.
 Counterpart of ``limitador_tpu/server/__main__.py``, cut to the options
 of the slices ported so far:
 
-    python -m limitador_tpu_torch.server LIMITS_FILE [torch|sharded|memory] \\
+    python -m limitador_tpu_torch.server LIMITS_FILE \\
+        [torch|sharded|memory|disk|cached|distributed] \\
         [--rls-port P] [--http-host H --http-port P] [--device cuda|cpu] \\
         [--capacity N] [--validate] [--limits-poll-interval S] \\
         [--log-level L] [--structured-logs] [--limit-name-in-labels] \\
@@ -25,7 +26,10 @@ of the slices ported so far:
         [--native-trace-sample N] [--native-slow-row-us U] \\
         [--slo-budget-ms MS] [--model-fit on|off] [--flight on|off] \\
         [--flight-sample N] [--flight-spool-dir DIR] [--flight-window S] \\
-        [--flight-profile-s S]
+        [--flight-profile-s S] [--disk-path FILE] \\
+        [--authority-url HOST:PORT] [--authority-listen HOST:PORT] \\
+        [--flush-period MS] [--batch-size N] [--max-cached N] \\
+        [--response-timeout MS]
 
 Storages: ``torch`` (default) keeps the counter table on the card
 (``--device cuda``, the default) or, for tests, on the CPU
@@ -37,6 +41,25 @@ routed to their owner row by key hash, and the namespaces of
 ``--global-region`` slots of every row; ``memory`` is the exact
 host-side reference. The limits file is watched and hot-reloaded through
 ``configure_with`` (counters of surviving limits are kept).
+
+Host-memory storages (``storage/``, the JAX server's defaults): ``disk``
+keeps the counters in SQLite at ``--disk-path`` (default
+``limitador_counters.db``); ``cached`` decides on a local write-behind
+cache (at most ``--max-cached`` counters) and flushes its deltas every
+``--flush-period`` ms, or at ``--batch-size`` pending counters, to an
+authority: a disk store at ``--disk-path``, or with ``--authority-url``
+another server's ``--authority-listen``, asked with a
+``--response-timeout`` of 350 ms by default (a flush that fails sets
+``datastore_partitioned`` and keeps the deltas for the next one);
+``distributed`` is the CRDT gossip storage, a node ``--node-id`` whose
+broker listens on ``--listen-address`` (default 0.0.0.0:5001) and dials
+every ``--peer``. With ``--authority-listen HOST:PORT`` the server also
+serves its storage as the shared authority of remote ``cached``
+replicas (``storage/authority.py``; on ``torch`` and ``sharded`` storage
+the table on the card, whose ``apply_deltas`` runs B2's host form, B7c's
+on the sharded table, and B3a's read); the address's port 0 binds a free
+one. The pipelines, tiers, snapshots, the usage observatory and the
+device plane run on ``torch`` and ``sharded`` storage only.
 
 Pipelines (torch and sharded storage): ``standard`` decides per request
 through the micro-batcher; ``compiled`` batch-compiles CEL
@@ -135,7 +158,11 @@ default) on SLO burn, a drift flip, a ``device_backed`` fall or ``POST
 ``--flight-profile-s`` seconds when that is above 0 (``/debug/flight``,
 ``flight_*``).
 
-Nothing falls back: a native pipeline or lease tier that cannot come up
+Nothing falls back: ``--authority-url`` on a storage other than
+``cached``, ``--authority-listen`` on a storage without ``apply_deltas``
+(``cached``, ``distributed``), a ``--disk-path`` that cannot be opened,
+an authority address that cannot be bound, and a native pipeline or
+lease tier that cannot come up
 (the host lane does not build, the hot lane is unavailable, the storage
 is not torch, rate-limit headers are asked for), a native telemetry plane
 that cannot arm (the host lane does not build), an HTTP port that
@@ -145,8 +172,7 @@ server with an error (exit 2), and a lease refresh, usage drain or tier
 migration round that fails while serving stops it too (exit 1).
 
 Not in the port yet (``ROADMAP.md``): admission, ``--serving-shards``,
-the host-memory ``distributed`` storage, the native ingress and the
-multi-process pod.
+the native ingress and the multi-process pod.
 """
 
 from __future__ import annotations
@@ -262,9 +288,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("limits_file", help="YAML limits file (hot-reloaded)")
     p.add_argument(
         "storage", nargs="?", default="torch",
-        choices=["torch", "sharded", "memory"],
+        choices=["torch", "sharded", "memory", "disk", "cached",
+                 "distributed"],
         help="counter storage: torch (device table, default), sharded "
-        "(one table row per visible card) or memory",
+        "(one table row per visible card), memory, disk (SQLite), cached "
+        "(write-behind over an authority) or distributed (CRDT gossip)",
     )
     p.add_argument("--rls-host", default="0.0.0.0")
     p.add_argument("--rls-port", type=int, default=8081)
@@ -446,13 +474,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--peer", action="append", default=None,
         help="torch: peer replication address (repeatable); enables the "
-        "replicated device-table topology",
+        "replicated device-table topology. distributed: a peer the "
+        "gossip broker dials",
     )
     p.add_argument("--node-id", default=_env("NODE_ID"))
     p.add_argument(
         "--listen-address", default=_env("LISTEN_ADDRESS"),
         help="torch: replication listen address (enables the replicated "
-        "topology; default 0.0.0.0:5001 when only --peer is given)",
+        "topology; default 0.0.0.0:5001 when only --peer is given). "
+        "distributed: the gossip broker's address (default 0.0.0.0:5001)",
     )
     p.add_argument(
         "--profile-dir",
@@ -528,6 +558,46 @@ def build_parser() -> argparse.ArgumentParser:
         "request and gets one only when this is above 0)",
     )
     p.add_argument(
+        "--authority-listen", default=_env("AUTHORITY_LISTEN"),
+        help="serve this process's counter storage as a shared authority "
+        "for remote write-behind replicas (the out-of-process Redis role), "
+        "e.g. 0.0.0.0:5101; a storage without apply_deltas (cached, "
+        "distributed) exits 2",
+    )
+    p.add_argument(
+        "--authority-url", default=_env("AUTHORITY_URL"),
+        help="cached: flush write-behind deltas to a remote authority "
+        "(host:port of another server's --authority-listen) instead of a "
+        "local disk store; any other storage exits 2",
+    )
+    p.add_argument(
+        "--batch-size", type=int,
+        default=int(_env("REDIS_LOCAL_CACHE_BATCH_SIZE", "100")),
+        help="cached: max deltas per authority flush (default 100)",
+    )
+    p.add_argument(
+        "--flush-period", type=float,
+        default=float(_env("REDIS_LOCAL_CACHE_FLUSHING_PERIOD_MS", "1000")),
+        help="cached: write-behind flush period in MILLISECONDS, the unit "
+        "of the flag's env var (default 1000)",
+    )
+    p.add_argument(
+        "--max-cached", type=int, default=int(_env("MAX_CACHED", "10000")),
+        help="cached: max locally cached counters (default 10000)",
+    )
+    p.add_argument(
+        "--response-timeout", type=float,
+        default=float(_env("RESPONSE_TIMEOUT", "350")),
+        help="cached: remote-authority response timeout in MILLISECONDS "
+        "(default 350); applies with --authority-url",
+    )
+    p.add_argument(
+        "--disk-path", default=_env("DISK_PATH"),
+        help="disk, and cached without --authority-url: the SQLite file "
+        "(default limitador_counters.db); one that cannot be opened "
+        "exits 2",
+    )
+    p.add_argument(
         "--advertise-address", default=_env("ADVERTISE_ADDRESS"),
         help="address advertised to peers in gossip Hello/Membership "
         "packets (defaults to --listen-address; set it when binding "
@@ -536,8 +606,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+#: the storages that keep their counters on the card (torch, sharded);
+#: the rest keep them in host memory
+DEVICE_STORAGES = ("torch", "sharded")
+
+#: the host storages that can serve --authority-listen (apply_deltas)
+_AUTHORITY_HOSTS = ("memory", "disk")
+
+
 def _replicated(args) -> bool:
-    return bool(args.peer or args.listen_address)
+    """A replicated device-table node: ``--peer``/``--listen-address`` on
+    torch storage (on ``distributed`` they belong to its broker)."""
+    return args.storage != "distributed" and bool(
+        args.peer or args.listen_address)
 
 
 def _preserve_rejected_snapshot(path: str) -> None:
@@ -703,22 +784,86 @@ def build_sharded_storage(args, clock=time.time):
     return storage
 
 
-def build_limiter(args, clock=time.time):
-    """The limiter the server decides with."""
+def _host_refusals(args) -> None:
+    """What the host-memory storages cannot run (exit 2): the device
+    pipelines, tiers, snapshots and a replicated node; and the
+    write-behind options on the wrong storage."""
+    if args.authority_url and args.storage != "cached":
+        raise ValueError(
+            f"--authority-url only applies to the 'cached' storage (got "
+            f"{args.storage!r}); run the replica as: ... cached "
+            "--authority-url HOST:PORT")
+    if args.authority_listen and args.storage not in (
+            DEVICE_STORAGES + _AUTHORITY_HOSTS):
+        raise ValueError(
+            f"--authority-listen: storage {args.storage!r} cannot act as "
+            "a shared authority (no apply_deltas)")
+    if args.storage in DEVICE_STORAGES:
+        return
+    if args.pipeline != "standard":
+        raise ValueError(f"--pipeline {args.pipeline} needs torch storage")
+    if _replicated(args) or args.snapshot_path:
+        raise ValueError(
+            "--peer, --listen-address and --snapshot-path need torch "
+            "storage (--peer and --listen-address also serve distributed)"
+        )
+    if args.tier_mode == "on":
+        raise ValueError("--tier-mode on needs torch storage")
+
+
+def build_host_storage(args, clock=time.time, on_partitioned=None):
+    """The host-memory counter storage the options ask for (memory,
+    disk, cached or distributed), as the JAX server builds it. A
+    ``--disk-path`` that cannot be opened raises StorageError."""
     if args.storage == "memory":
-        if args.pipeline != "standard":
-            raise ValueError(
-                f"--pipeline {args.pipeline} needs torch storage"
-            )
-        if _replicated(args) or args.snapshot_path:
-            raise ValueError(
-                "--peer, --listen-address and --snapshot-path need torch "
-                "storage"
-            )
-        if args.tier_mode == "on":
-            raise ValueError("--tier-mode on needs torch storage")
-        return RateLimiter(InMemoryStorage(
-            args.cache_size or DEFAULT_CACHE_SIZE, clock=clock))
+        return InMemoryStorage(args.cache_size or DEFAULT_CACHE_SIZE,
+                               clock=clock)
+    if args.storage == "disk":
+        from ..storage.disk import DiskStorage
+
+        return DiskStorage(args.disk_path or "limitador_counters.db",
+                           clock=clock)
+    if args.storage == "cached":
+        from ..storage.cached import CachedCounterStorage
+
+        if args.authority_url:
+            from ..storage.authority import RemoteAuthority
+
+            authority = RemoteAuthority(
+                args.authority_url, timeout=args.response_timeout / 1000.0)
+        else:
+            from ..storage.disk import DiskStorage
+
+            authority = DiskStorage(args.disk_path or "limitador_counters.db",
+                                    clock=clock)
+        return CachedCounterStorage(
+            authority,
+            flush_period=args.flush_period / 1000.0,
+            batch_size=args.batch_size,
+            max_cached=args.max_cached,
+            clock=clock,
+            on_partitioned=on_partitioned,
+        )
+    from ..storage.distributed import CrInMemoryStorage
+
+    return CrInMemoryStorage(
+        node_id=args.node_id or "node",
+        listen_address=args.listen_address or "0.0.0.0:5001",
+        advertise_address=args.advertise_address,
+        peers=args.peer or [],
+        clock=clock,
+    )
+
+
+def build_limiter(args, clock=time.time, on_partitioned=None):
+    """The limiter the server decides with. ``on_partitioned`` reaches a
+    cached storage (the ``datastore_partitioned`` gauge)."""
+    _host_refusals(args)
+    if args.storage not in DEVICE_STORAGES:
+        storage = build_host_storage(args, clock, on_partitioned)
+        if args.storage == "cached":
+            return AsyncRateLimiter(storage)
+        return RateLimiter(storage)
     from ..device import AsyncTorchStorage
 
     if args.storage == "sharded":
@@ -836,7 +981,7 @@ class RunningServer:
                  native_pipeline=None, observatory=None, checkpointer=None,
                  tier_manager=None, http_runner=None, metrics=None,
                  labels_watcher=None, native_plane=None, profiler=None,
-                 planes=None):
+                 planes=None, authority=None):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
@@ -859,6 +1004,8 @@ class RunningServer:
         #: the control planes (signal bus, serving-model estimator,
         #: flight trigger engine) and what they are attached to
         self.planes = planes or ControlPlanes()
+        #: the AuthorityServer of ``--authority-listen``, or None
+        self.authority = authority
 
     @property
     def signal_bus(self):
@@ -876,7 +1023,7 @@ class RunningServer:
     def storage(self):
         """The device counter storage (``TorchStorage``,
         ``TorchReplicatedStorage`` or ``TorchShardedStorage``), or None on
-        memory storage."""
+        a host storage."""
         counters = self.limiter.storage.counters
         return getattr(counters, "inner", None)
 
@@ -892,6 +1039,9 @@ class RunningServer:
             None, self.planes.stop)
         await self.rls_server.stop(grace=1.0)
         await self.http_runner.cleanup()
+        if self.authority is not None:
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.authority.stop)
         if self.checkpointer is not None:
             await self.checkpointer.stop()
         await _close(self.limiter, self.native_pipeline, self.observatory,
@@ -1027,6 +1177,9 @@ async def _close(limiter, native_pipeline, observatory,
         if close is not None:
             await close()
         await limiter.storage.counters.close()
+    else:
+        # a disk file, a gossip broker
+        limiter.storage.counters.close()
 
 
 def build_metrics(args) -> PrometheusMetrics:
@@ -1145,17 +1298,21 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     model_mod.set_model_fit_enabled(args.model_fit == "on")
     metrics = build_metrics(args)
     install_metrics_layer()
-    limiter = build_limiter(args, clock)
+    limiter = build_limiter(
+        args, clock,
+        on_partitioned=lambda v: metrics.datastore_partitioned.set(
+            1 if v else 0))
+    device = args.storage in DEVICE_STORAGES
     native_pipeline = observatory = native_plane = None
     planes = ControlPlanes()
     profiler = TorchProfiler(
         args.profile_dir,
-        cuda=args.storage != "memory" and args.device == "cuda",
+        cuda=device and args.device == "cuda",
         loop=asyncio.get_running_loop(),
     )
     try:
         native_pipeline = build_native(args, limiter, metrics)
-        if args.storage != "memory" and args.usage_topk > 0:
+        if device and args.usage_topk > 0:
             from ..observability.usage import TenantUsageObservatory
 
             observatory = TenantUsageObservatory(
@@ -1238,16 +1395,22 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             interval_s=args.tier_migrate_interval,
         )
         metrics.attach_render_hook(tier_manager)
+    authority = None
     try:
+        if args.authority_listen:
+            authority = _serve_authority(args, limiter)
         http_runner = await run_http_server(
             limiter, args.http_host, args.http_port, metrics, status,
             debug_sources=[s for s in (native_pipeline, native_plane,
                                        observatory)
                            if s is not None] + planes.debug_sources()
-            + ([tier_manager] if tier_manager is not None else []),
+            + ([tier_manager] if tier_manager is not None else [])
+            + ([authority] if authority is not None else []),
             profiler=profiler,
         )
     except BaseException as exc:
+        if authority is not None:
+            authority.stop()
         watcher.stop()
         if labels_watcher is not None:
             labels_watcher.stop()
@@ -1266,14 +1429,29 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             tier.start()
     planes.start()
     checkpointer = None
-    if args.storage != "memory" and args.snapshot_path:
+    if device and args.snapshot_path:
         checkpointer = Checkpointer(limiter.storage.counters.inner,
                                     args.snapshot_path, args.snapshot_period)
         checkpointer.start()
     return RunningServer(limiter, rls_server, watcher, status,
                          native_pipeline, observatory, checkpointer,
                          tier_manager, http_runner, metrics, labels_watcher,
-                         native_plane, profiler, planes)
+                         native_plane, profiler, planes, authority)
+
+
+def _serve_authority(args, limiter):
+    """Serve the limiter's counter storage (the table under the
+    batcher on torch and sharded storage) as the shared authority on
+    ``--authority-listen``. Raises StorageError where the address cannot
+    be bound."""
+    from ..storage.authority import serve_authority
+
+    storage = limiter.storage.counters
+    storage = getattr(storage, "inner", storage)
+    authority = serve_authority(storage, args.authority_listen)
+    log.info(f"shared authority on {args.authority_listen} (port "
+             f"{authority.port})")
+    return authority
 
 
 async def _amain(args) -> int:

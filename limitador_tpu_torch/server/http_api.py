@@ -99,6 +99,7 @@ DEBUG_SOURCE_SECTIONS = (
     ("capacity", "capacity_debug"),
     ("flight", "flight_debug"),
     ("tiering", "tiering_debug"),
+    ("authority", "authority_stats"),
 )
 
 #: every /debug/stats section this module adds on top of
@@ -116,6 +117,7 @@ DEBUG_STATS_SECTIONS = (
     "capacity",
     "flight",
     "tiering",
+    "authority",
 )
 
 
@@ -491,7 +493,8 @@ class _Api:
         table occupancy, flush reasons, the flight recorder, decision-plan
         cache stats, the native hot lane, leases, the native telemetry
         plane, the SLO watchdog, the usage observatory, the tiers, the
-        profiler and the build state of the kernels and the host lane."""
+        shared authority's RPCs, the profiler and the build state of the
+        kernels and the host lane."""
         stats = collect_debug_stats(*self.debug_sources)
         stats["profiler"] = self.profiler.status()
         stats["native_build"] = {

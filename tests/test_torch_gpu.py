@@ -1726,3 +1726,140 @@ def test_native_server_on_the_card_records_like_the_cpu(cuda, tmp_path):
     assert gpu_lane == cpu_lane
     assert gauge(gpu_text, "device_backed") == 1.0
     assert gauge(cpu_text, "device_backed") == 0.0
+
+
+class _Clock:
+    now = 1_700_000_000.0
+
+    def __call__(self):
+        return self.now
+
+
+def _replica_drive(table, users, clock, batch_size=4096):
+    """A port cached replica flushing to ``table`` served as the shared
+    authority on 127.0.0.1:0: every user once, then a Zipf-like wave,
+    one flush after each; the answers and the deltas the authority got."""
+    import asyncio
+
+    from limitador_tpu_torch import AsyncRateLimiter
+    from limitador_tpu_torch.storage.authority import (
+        RemoteAuthority,
+        serve_authority,
+    )
+    from limitador_tpu_torch.storage.cached import CachedCounterStorage
+
+    received = []
+    apply = table.apply_deltas
+
+    def recording(items):
+        received.append([(c.limit.name, sorted(c.set_variables.items()), d)
+                         for c, d in items])
+        return apply(items)
+
+    table.apply_deltas = recording
+    server = serve_authority(table, "127.0.0.1:0")
+
+    async def main():
+        cached = CachedCounterStorage(
+            RemoteAuthority(f"127.0.0.1:{server.port}", timeout=60),
+            flush_period=3600, batch_size=batch_size, clock=clock)
+        limiter = AsyncRateLimiter(cached)
+        limiter.add_limit(Limit("ns", 3, 60, [], ["u"], name="user"))
+        rng = np.random.default_rng(11)
+        weights = 1.0 / np.arange(1, users + 1) ** 0.99
+        out = []
+        for wave in (np.arange(users),
+                     rng.choice(users, size=users, p=weights / weights.sum())):
+            for u in wave:
+                r = await limiter.check_rate_limited_and_update(
+                    "ns", Context({"u": f"u{u}"}), 1)
+                out.append(r.limited)
+            await cached.flush()
+            clock.now += 1.0
+        await cached.close()
+        return out
+
+    loop = asyncio.new_event_loop()
+    try:
+        return loop.run_until_complete(main()), received
+    finally:
+        loop.run_until_complete(loop.shutdown_default_executor())
+        loop.close()
+        server.stop()
+        del table.apply_deltas
+
+
+@pytest.mark.parametrize("users", [100, 2500])
+@pytest.mark.parametrize("kind", ["torch", "sharded"])
+def test_a_shared_authority_on_the_card_matches_the_cpu_and_the_oracle(
+        cuda, kind, users):
+    """Replicas flush to a table on the card served as the shared
+    authority: ApplyDeltas runs B2's host form (B7c's on the sharded
+    table; past 2,000 entries the staged route) and B3a's read; the
+    answers, the deltas and the final table equal a CPU table's, and the
+    counters equal an InMemoryStorage fed the same deltas. No check
+    kernel launches."""
+    from limitador_tpu_torch.device.sharded import TorchShardedStorage
+    from limitador_tpu_torch.storage.in_memory import InMemoryStorage
+
+    update = "update_host" if kind == "torch" else "sharded_update_host"
+    out = {}
+    for dev in (cuda, "cpu"):
+        clock = _Clock()
+        if kind == "torch":
+            table = TorchStorage(capacity=1 << 14, clock=clock, device=dev)
+        else:
+            table = TorchShardedStorage(n_shards=8, local_capacity=1 << 11,
+                                        global_region=16, clock=clock,
+                                        device=dev)
+        before = dict(K.launches)
+        answers, received = _replica_drive(table, users, clock)
+        launched = {k: K.launches[k] - before[k] for k in K.launches}
+        oracle = InMemoryStorage(clock=clock)
+        limit = Limit("ns", 3, 60, [], ["u"], name="user")
+        from limitador_tpu_torch.core.counter import Counter
+
+        for batch in received:
+            oracle.apply_deltas([(Counter(limit, dict(v)), d)
+                                 for _n, v, d in batch])
+        rows = sorted((sorted(c.set_variables.items()), c.remaining)
+                      for c in table.get_counters({limit}))
+        want = sorted((sorted(c.set_variables.items()), c.remaining)
+                      for c in oracle.get_counters({limit}))
+        assert rows == want
+        out[str(dev)] = (answers, received, rows,
+                         [t.cpu() for t in table._state], launched)
+        table.close()
+    gpu, cpu = out[str(cuda)], out["cpu"]
+    assert gpu[:3] == cpu[:3]
+    _equal(gpu[3], cpu[3])
+    assert max(len(b) for b in gpu[1]) == users
+    launched = gpu[4]
+    # one warm-up launch before serving, then one a flush
+    assert launched[update] == 3 and launched["read_slots_host"] >= 3
+    assert not any(launched[k] for k in (
+        "check_and_update", "check_and_update_cluster",
+        "sharded_check_and_update", "sharded_check_and_update_cluster",
+        "update", "sharded_update", "read_slots"))
+
+
+def test_warm_apply_launches_on_a_table_of_its_own(cuda):
+    """``warm_apply`` launches B2's (B7c's) and B3a's host forms once on
+    a scratch table and leaves the served table as it was."""
+    from limitador_tpu_torch.core.counter import Counter
+    from limitador_tpu_torch.device.sharded import TorchShardedStorage
+
+    for table, update in (
+            (TorchStorage(capacity=64, device=cuda), "update_host"),
+            (TorchShardedStorage(n_shards=2, local_capacity=64,
+                                 global_region=4, device=cuda),
+             "sharded_update_host")):
+        table.apply_deltas([(Counter(Limit("ns", 9, 60, [], ["u"]),
+                                     {"u": "a"}), 2)])
+        state = [t.cpu().clone() for t in table._state]
+        before = dict(K.launches)
+        table.warm_apply()
+        assert K.launches[update] == before[update] + 1
+        assert K.launches["read_slots_host"] == before["read_slots_host"] + 1
+        _equal([t.cpu() for t in table._state], state)
+        table.close()

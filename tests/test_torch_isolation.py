@@ -2,10 +2,14 @@
 
 - A subprocess that refuses to import ``jax`` and ``limitador_tpu``
   imports every module of ``limitador_tpu_torch`` (which leaves
-  ``opentelemetry`` unimported: only span export imports it), builds a
+  ``opentelemetry`` unimported: only span export imports it, and
+  ``msgpack``: only the shared authority's path imports it), builds a
   ``TorchStorage(device="cpu")`` and decides a request, decides a
-  cold counter through ``tier.TieredStorage``, and decides a request
-  whose counters span rows of ``TorchShardedStorage(n_shards=4)``.
+  cold counter through ``tier.TieredStorage``, decides a request
+  whose counters span rows of ``TorchShardedStorage(n_shards=4)``, and
+  decides on the host storages: ``disk``, ``distributed`` and a
+  ``cached`` replica flushing to a torch table served as the shared
+  authority.
 - An AST scan of the port's sources finds no such import.
 - The port's protobuf message classes are its own even when both
   packages are loaded in one process (the JAX package registers the same
@@ -41,6 +45,8 @@ for name in names:
     importlib.import_module(name)
 # span export imports the opentelemetry API only when it is configured
 assert not any(m.split(".")[0] == "opentelemetry" for m in sys.modules)
+# the shared authority's wire imports msgpack only on its own path
+assert "msgpack" not in sys.modules
 
 from limitador_tpu_torch import Context, Limit, RateLimiter
 from limitador_tpu_torch.device import TorchStorage
@@ -89,6 +95,43 @@ assert again.limited and again.limit_name == "tight"
 loose = {c.limit.name: c.remaining for c in spanning.get_counters("sp")
          if c.set_variables == {"u": f"u{i}"}}
 assert loose["loose"] == 4, loose
+
+# the host storages, and a cached replica over a served torch table
+import asyncio, os, tempfile
+from limitador_tpu_torch import AsyncRateLimiter
+from limitador_tpu_torch.storage.authority import (
+    RemoteAuthority, serve_authority)
+from limitador_tpu_torch.storage.cached import CachedCounterStorage
+from limitador_tpu_torch.storage.disk import DiskStorage
+from limitador_tpu_torch.storage.distributed import CrInMemoryStorage
+
+with tempfile.TemporaryDirectory() as tmp:
+    disk = DiskStorage(os.path.join(tmp, "c.db"))
+    for storage in (disk, CrInMemoryStorage.standalone("n")):
+        host = RateLimiter(storage)
+        host.add_limit(Limit("ns", 1, 60, [], ["u"]))
+        assert not host.check_rate_limited_and_update(
+            "ns", Context({"u": "x"}), 1).limited
+        assert host.check_rate_limited_and_update(
+            "ns", Context({"u": "x"}), 1).limited
+        storage.close()
+table = TorchStorage(capacity=64, device="cpu")
+authority = serve_authority(table, "127.0.0.1:0")
+
+async def replica():
+    cached = CachedCounterStorage(
+        RemoteAuthority(f"127.0.0.1:{authority.port}"), flush_period=3600)
+    limiter = AsyncRateLimiter(cached)
+    limit = Limit("ns", 5, 60, [], ["u"])
+    limiter.add_limit(limit)
+    await limiter.check_rate_limited_and_update("ns", Context({"u": "y"}), 3)
+    await cached.flush()
+    await cached.close()
+    return limit
+
+limit = asyncio.run(replica())
+authority.stop()
+assert [c.remaining for c in table.get_counters({limit})] == [2]
 assert not any(m.split(".")[0] in ("jax", "limitador_tpu")
                for m in sys.modules)
 print("imported", len(names), "modules")

@@ -414,17 +414,38 @@ def test_native_pipeline_with_a_broken_host_lane_exits(tmp_path,
     ["memory", "--http-port", "BOUND"],
     ["memory", "--metric-labels", "descriptors[0].user"],
     ["memory", "--metric-labels-file", "no-such-labels.cel"],
+    # the write-behind options on the wrong storage, an authority over a
+    # storage without apply_deltas, a disk file that cannot be opened
+    ["memory", "--authority-url", "127.0.0.1:9"],
+    ["disk", "--disk-path", "MISSING", "--authority-url", "127.0.0.1:9"],
+    ["torch", "--device", "cpu", "--authority-url", "127.0.0.1:9"],
+    ["distributed", "--authority-url", "127.0.0.1:9"],
+    ["distributed", "--listen-address", "127.0.0.1:0", "--authority-listen",
+     "127.0.0.1:0"],
+    ["cached", "--disk-path", "MISSING", "--authority-listen",
+     "127.0.0.1:0"],
+    ["disk", "--disk-path", "MISSING"],
+    ["cached", "--disk-path", "MISSING"],
+    # the host storages refuse what needs a device table
+    ["disk", "--disk-path", "MISSING", "--pipeline", "compiled"],
+    ["cached", "--disk-path", "MISSING", "--tier-mode", "on"],
+    ["distributed", "--listen-address", "127.0.0.1:0", "--pipeline",
+     "native"],
+    ["disk", "--disk-path", "MISSING", "--peer", "127.0.0.1:9"],
+    ["cached", "--disk-path", "MISSING", "--snapshot-path",
+     "never-written.ckpt"],
 ])
 def test_modes_that_cannot_come_up_exit(tmp_path, monkeypatch, argv):
     limits_path = tmp_path / "limits.yaml"
     limits_path.write_text(LIMITS)
     # an import of opentelemetry raises ImportError
     monkeypatch.setitem(sys.modules, "opentelemetry", None)
+    missing = str(tmp_path / "no-such-dir" / "counters.db")
     with socket.socket() as bound:
         bound.bind(("127.0.0.1", 0))
         bound.listen()
-        argv = [str(bound.getsockname()[1]) if a == "BOUND" else a
-                for a in argv]
+        argv = [str(bound.getsockname()[1]) if a == "BOUND" else
+                missing if a == "MISSING" else a for a in argv]
         if "--http-port" not in argv:
             argv += ["--http-port", str(_free_port())]
         assert port_main.main([str(limits_path), *argv, "--rls-host",
