@@ -278,6 +278,27 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    the whole window, as the JAX package does, counted apart) and
    /counters/web equal; a second distributed node shows the first's
    counters after gossip over real brokers.
+15. The admission plane: (a) phases 4's and 6's servers with
+   --admission-mode enforce (the JAX defaults) and off in one process on
+   one clock, the phase's calls (reload and 13-day step included) and 300
+   rounds of one call to each, the order alternating: byte-equal answers
+   and counters, the breaker closed with no transition, no failover
+   decision and no shed, no controller on the off server; p50/p99 on and
+   off. (b) The failover drill on a table of 65,536 cells on the card,
+   on AsyncTorchStorage, the native pipeline and TorchShardedStorage: a
+   Python-level hang of the collect step (the context stays healthy)
+   under 64 concurrent calls trips the stall watch (200 ms), 300 calls
+   decide on the host oracle (a fresh 120 budget admits exactly 120), the
+   unhang lets the probe launch B1 (B7a) and the reconcile B2's (B7c's)
+   host form; the table equals the hits admitted by the card or the
+   oracle and admission_reconciled_deltas the journal; probe and
+   reconcile times. (c) --max-inflight 4: 64 concurrent calls, then 16
+   with 250 ms deadlines under a forced 1 s queue-wait estimate: overload and
+   deadline sheds answer UNAVAILABLE and count in admission_sheds, no
+   shed answers OK, the table equals the admitted calls. (d) A cold
+   start: a fresh process builds the kernels and the host lane into an
+   empty directory and starts an enforce server on the card: start, nvcc
+   and g++ seconds, the warm-up launch and the first calls.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -6586,6 +6607,652 @@ def phase_host_storages(dev, card):
                       "host": host, "card": card}
 
 
+# -- phase 15: the admission plane -------------------------------------------
+
+# 15b and 15c: a large per-user budget (never limited here) and a tight
+# one the failover window fills
+ADMISSION_YAML = """\
+- namespace: bulk
+  max_value: 1000000
+  seconds: 3600
+  variables: ["descriptors[0].u"]
+  name: bulk
+- namespace: tight
+  max_value: 120
+  seconds: 3600
+  variables: ["descriptors[0].u"]
+  name: tight
+"""
+FAILOVER_LOAD = 64
+FAILOVER_CALLS = 300
+SHED_CONCURRENCY = 64
+SHED_SHORT = 16
+
+
+def _hangable(base):
+    """``base`` (a device storage) whose collect step can be wedged at
+    the Python level, before its download: ``finish_check_many`` (the
+    batchers') and ``finish_check_columnar`` (the native pipeline's) wait
+    on a gate. The card itself is never touched, so later phases keep a
+    healthy context."""
+    import threading
+
+    class Hangable(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self._gate = threading.Event()
+            self._gate.set()
+
+        def hang(self):
+            self._gate.clear()
+
+        def unhang(self):
+            self._gate.set()
+
+        def finish_check_many(self, handle):
+            self._gate.wait()
+            return super().finish_check_many(handle)
+
+        def finish_check_columnar(self, *args, **kwargs):
+            self._gate.wait()
+            return super().finish_check_columnar(*args, **kwargs)
+
+    return Hangable
+
+
+async def _admission_cost(tmpdir, dev, card, native, rounds=300):
+    """Phase 15a: a phase-4 (or, with ``native``, phase-6) server with
+    ``--admission-mode enforce`` and the JAX defaults beside one with
+    ``off``, in this process on one frozen clock: the phase's calls (the
+    hot reload and the 13-day step included), then ``rounds`` rounds of
+    one call to each, the order alternating by call. Answers and final
+    counters must be byte-equal, the breaker closed with no transition,
+    no failover decision and no shed, and the ``off`` server must hold no
+    controller; p50/p99 of each side and the per-round difference are
+    records."""
+    import grpc
+
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = f"admission on/off (15a, {'native' if native else 'standard'})"
+    extra_yaml = NATIVE_NS_YAML if native else ""
+    limits = os.path.join(tmpdir, "limits.yaml")
+    with open(limits, "w") as f:
+        f.write(LIMITS_YAML + extra_yaml)
+    options = ["--rls-host", "127.0.0.1", "--rate-limit-headers",
+               "NONE" if native else "DRAFT_VERSION_03", "--device", dev.type]
+    if native:
+        options += ["--pipeline", "native", "--native-hot-lane", "on",
+                    "--lease-mode", "off"]
+    parse = server.build_parser().parse_args
+    clock = ManualClock()
+    ports = dict(zip("EO", _free_ports(2)))
+    http = {}
+    servers = {}
+    failures = []
+    try:
+        for side, mode in (("E", "enforce"), ("O", "off")):
+            http_options, http[side] = _http_options()
+            servers[side] = await server.start(parse(
+                [limits, "torch", *options, *http_options,
+                 "--rls-port", str(ports[side]),
+                 "--flight-spool-dir", os.path.join(tmpdir, f"spool{side}"),
+                 "--admission-mode", mode]),
+                clock=clock, on_failure=failures.append)
+        off_has_plane = servers["O"].admission is not None or getattr(
+            servers["O"].limiter.storage.counters, "admission") is not None
+        envoy = "/envoy.service.ratelimit.v3.RateLimitService/" \
+            "ShouldRateLimit"
+        steps = (_native_steps(rls_pb2) if native
+                 else _main_path_steps(rls_pb2))
+        lat = {side: [] for side in servers}
+        mismatches = 0
+        channels = {side: grpc.aio.insecure_channel(f"127.0.0.1:{port}")
+                    for side, port in ports.items()}
+        try:
+            for i, (rpc, blob, advance, reload) in enumerate(steps):
+                clock.now += advance
+                if reload:
+                    with open(limits, "w") as f:
+                        f.write(RELOADED_YAML + extra_yaml)
+                    st = os.stat(limits)
+                    os.utime(limits, ns=(st.st_atime_ns,
+                                         st.st_mtime_ns + 10**9))
+                    deadline = time.monotonic() + 20
+                    while any(s.status["limits_file_version"] < 2
+                              or len(s.limiter.get_limits("api")) != 2
+                              for s in servers.values()):
+                        if time.monotonic() > deadline:
+                            fail(f"{label}: hot reload not applied")
+                        await asyncio.sleep(0.05)
+                got = {}
+                for side in ("EO" if i % 2 == 0 else "OE"):
+                    got[side] = await channels[side].unary_unary(rpc)(
+                        blob, timeout=60)
+                mismatches += got["E"] != got["O"]
+            for i in range(rounds + 30):  # the first 30 rounds warm up
+                blob = _lat_blob(rls_pb2, i, native)
+                got = {}
+                for side in ("EO" if i % 2 == 0 else "OE"):
+                    t0 = time.perf_counter()
+                    got[side] = await channels[side].unary_unary(envoy)(
+                        blob, timeout=60)
+                    if i >= 30:
+                        lat[side].append(time.perf_counter() - t0)
+                mismatches += got["E"] != got["O"]
+        finally:
+            for ch in channels.values():
+                await ch.close()
+        adm = servers["E"].admission
+        debug = adm.admission_debug()
+        families = await _served_metrics(http["E"])
+        stats = json.loads(await _served_get(http["E"], "/debug/stats"))
+        off_stats = json.loads(await _served_get(http["O"], "/debug/stats"))
+        plane = {
+            "state": adm.breaker.state,
+            "transitions": _metric(families, "admission_breaker_transitions"),
+            "failover_decisions": _metric(families,
+                                          "admission_failover_decisions"),
+            "sheds": _metric(families, "admission_sheds"),
+            "debug_state": stats["admission"]["breaker"]["state"],
+            "debug_decisions": stats["admission"]["failover"]["decisions"],
+            "off_section": "admission" in off_stats,
+        }
+        final = {}
+        for side, srv in servers.items():
+            rows = {}
+            for ns in ("api", "tb", "nat"):
+                counters = srv.limiter.get_counters(ns)
+                if asyncio.iscoroutine(counters):
+                    counters = await counters
+                for c in counters:
+                    rows[(ns, c.limit.name,
+                          tuple(c.set_variables.items()))] = (
+                        c.remaining, c.expires_in)
+            final[side] = rows
+    finally:
+        for srv in servers.values():
+            await srv.stop()
+    ms = {side: np.asarray(v) * 1e3 for side, v in lat.items()}
+    diff = ms["E"] - ms["O"]
+    out = {side: {"p50_ms": float(np.percentile(v, 50)),
+                  "p99_ms": float(np.percentile(v, 99)),
+                  "mean_ms": float(v.mean())} for side, v in ms.items()}
+    out["minus_off_median_ms"] = float(np.median(diff))
+    out["minus_off_mean_ms"] = float(diff.mean())
+    out["slower_share"] = float((diff > 0).mean())
+    out["calls"] = len(steps) + rounds + 30
+    out["plane"] = plane
+    print(f"{label}: {out['calls']} calls to each, enforce p50 "
+          f"{out['E']['p50_ms']:.3f} / p99 {out['E']['p99_ms']:.3f} ms, "
+          f"off p50 {out['O']['p50_ms']:.3f} / p99 "
+          f"{out['O']['p99_ms']:.3f} ms over {rounds} rounds; on - off per "
+          f"round median {out['minus_off_median_ms']:+.4f} ms, mean "
+          f"{out['minus_off_mean_ms']:+.4f} ms, slower in "
+          f"{out['slower_share']:.1%} of rounds; plane {json.dumps(plane)} "
+          f"({card})")
+    if failures:
+        fail(f"{label}: a background tier failed: {failures[0]!r}")
+    if mismatches or final["E"] != final["O"] or not final["E"]:
+        fail(f"{label}: {mismatches} answers differ between the plane on "
+             f"and off, or the counters do ({len(final['E'])} against "
+             f"{len(final['O'])})")
+    if (plane["state"] != "closed" or plane["debug_state"] != "closed"
+            or plane["transitions"] or plane["failover_decisions"]
+            or plane["debug_decisions"] or plane["sheds"]):
+        fail(f"{label}: the plane left closed or decided on the host: "
+             f"{plane}")
+    if off_has_plane or plane["off_section"]:
+        fail(f"{label}: --admission-mode off built a controller")
+    print(f"{label}: every answer byte-equal, {len(final['E'])} counters "
+          "equal, breaker closed, 0 failover decisions")
+    return out
+
+
+async def _failover_drill(dev, card, kind):
+    """Phase 15b on ``kind``: 'torch' (AsyncTorchStorage), 'native' (the
+    native pipeline, hot lane on) or 'sharded' (TorchShardedStorage, one
+    row per card), over a ``_hangable`` table of 65,536 cells on the card.
+    The breaker (stall 200 ms, reset 200 ms, watchdog 50 ms) watches 50
+    calls, then the collect step hangs under a load of 64 concurrent
+    calls: the stall trip fails the dispatched launches over (a transient
+    error; their hits are on the table) and decides the queued requests
+    on the host oracle; 300 calls more are decided on the oracle (150 on
+    a fresh 120 budget: exactly 120 admitted). On unhang the probe
+    launches the check kernel (B1, B7a on sharded) and the reconcile the
+    update's host form (B2, B7c), the breaker closes, every counter of
+    the table equals the hits admitted (by the card or the oracle) and
+    ``admission_reconciled_deltas`` equals the journal's size."""
+    import torch
+
+    from limitador_tpu_torch import AsyncRateLimiter, Context, Limit
+    from limitador_tpu_torch.admission import (
+        AdmissionController,
+        BreakerState,
+        CircuitBreaker,
+    )
+    from limitador_tpu_torch.device.batcher import AsyncTorchStorage
+    from limitador_tpu_torch.device.storage import TorchStorage
+    from limitador_tpu_torch.observability.metrics import PrometheusMetrics
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server.proto import rls_pb2
+    from limitador_tpu_torch.storage.base import StorageError
+
+    label = f"failover drill (15b, {kind})"
+    if kind == "sharded":
+        from limitador_tpu_torch.device.sharded import TorchShardedStorage
+
+        device = _hangable(TorchShardedStorage)(
+            n_shards=torch.cuda.device_count() if dev.type == "cuda" else 1,
+            local_capacity=1 << 16,
+            global_region=64, device=dev)
+        probe_keys = ("sharded_check_and_update",
+                      "sharded_check_and_update_cluster")
+        reconcile_key = "sharded_update_host"
+    else:
+        device = _hangable(TorchStorage)(capacity=1 << 16, device=dev)
+        probe_keys = ("check_and_update", "check_and_update_cluster")
+        reconcile_key = "update_host"
+    storage = AsyncTorchStorage(device)
+    limits = [Limit("bulk", 1_000_000, 3600, [], ["descriptors[0].u"],
+                    name="bulk"),
+              Limit("tight", 120, 3600, [], ["descriptors[0].u"],
+                    name="tight")]
+    pipeline = None
+    if kind == "native":
+        from limitador_tpu_torch.device.native_pipeline import (
+            NativeRlsPipeline,
+        )
+        from limitador_tpu_torch.device.pipeline import CompiledTorchLimiter
+
+        limiter = CompiledTorchLimiter(storage)
+    else:
+        limiter = AsyncRateLimiter(storage)
+    for limit in limits:
+        limiter.add_limit(limit)
+    if kind == "native":
+        pipeline = NativeRlsPipeline(limiter, hot_lane=True)
+    codes = {rls_pb2.RateLimitResponse.OK: "ok",
+             rls_pb2.RateLimitResponse.OVER_LIMIT: "over"}
+    admitted = {}  # (namespace, user) -> hits the card or the oracle took
+
+    async def call(ns, user):
+        try:
+            if pipeline is not None:
+                blob = _rls_request(rls_pb2, ns, [{"u": user}])
+                out = codes[rls_pb2.RateLimitResponse.FromString(
+                    await pipeline.submit(blob)).overall_code]
+            else:
+                ctx = Context()
+                ctx.list_binding("descriptors", [{"u": user}])
+                r = await limiter.check_rate_limited_and_update(ns, ctx, 1)
+                out = "over" if r.limited else "ok"
+        except StorageError:
+            out = "error"  # rode a failed-over launch: its hit is counted
+        if out != "over":
+            admitted[(ns, user)] = admitted.get((ns, user), 0) + 1
+        return out
+
+    metrics = PrometheusMetrics()
+    adm = AdmissionController(
+        mode="enforce", metrics=metrics,
+        breaker=CircuitBreaker(failure_threshold=3, stall_timeout=0.2,
+                               reset_timeout=0.2),
+        watchdog_tick=0.05)
+    probes, reconciles, replayed = [], [], []
+
+    def timed(fn, sink):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                sink.append(time.perf_counter() - t0)
+        return run
+
+    def replay(fn):
+        def run(table):
+            replayed.append(adm.failover.journal_size())
+            return fn(table)
+        return run
+
+    adm._probe = timed(adm._probe, probes)
+    adm.failover.reconcile_into = replay(timed(adm.failover.reconcile_into,
+                                               reconciles))
+    out = {}
+    try:
+        for i in range(20):  # unwatched: plans, hot lane
+            await call("bulk", f"u{i % 10}")
+        storage.set_admission(adm)
+        if pipeline is not None:
+            adm.add_drainable(limiter)
+            adm.add_drainable(pipeline)
+        adm.start()
+        watched = [await call("bulk", f"u{i % 10}") for i in range(50)]
+        if watched != ["ok"] * 50:
+            fail(f"{label}: watched calls {watched}")
+        t_hang = time.perf_counter()
+        device.hang()
+
+        async def staggered(i):
+            await asyncio.sleep((0.0, 0.05, 0.1)[i % 3])
+            return await call("bulk", f"u{i % 10}")
+
+        load = await asyncio.wait_for(asyncio.gather(
+            *[staggered(i) for i in range(FAILOVER_LOAD)]), timeout=20.0)
+        out["settle_s"] = time.perf_counter() - t_hang
+        if adm.breaker.state == BreakerState.CLOSED:
+            fail(f"{label}: the stall did not trip the breaker")
+        failed_over = [await call("tight" if i % 2 else "bulk",
+                                  "t" if i % 2 else f"u{i % 10}")
+                       for i in range(FAILOVER_CALLS)]
+        tight = failed_over[1::2]
+        journal = adm.failover.journal_size()
+        decisions = adm.failover.decisions
+        before = dict(K.launches)
+        t_unhang = time.perf_counter()
+        device.unhang()
+        deadline = time.monotonic() + 20
+        while adm.breaker.state != BreakerState.CLOSED:
+            if time.monotonic() > deadline:
+                fail(f"{label}: the breaker did not close: "
+                     f"{adm.admission_debug()}")
+            await asyncio.sleep(0.01)
+        out["close_s"] = time.perf_counter() - t_unhang
+        launched = {k: K.launches[k] - before.get(k, 0) for k in K.launches
+                    if K.launches[k] != before.get(k, 0)}
+        table = {}
+        for c in device.get_counters(set(limits)):
+            key = (str(c.limit.namespace), c.set_variables["descriptors[0].u"])
+            table[key] = c.limit.max_value - c.remaining
+        reconciled = _registry_total(metrics, "admission_reconciled_deltas")
+        left = adm.failover.journal_size()
+        oracle = dict(admitted)
+        after = await call("bulk", "u0")
+    finally:
+        device.unhang()
+        await adm.close()
+        if pipeline is not None:
+            await pipeline.close()
+        if kind == "native":
+            await limiter.close()
+        await storage.close()
+    out.update({
+        "load": {k: load.count(k) for k in ("ok", "error", "over")},
+        "failed_over": {k: failed_over.count(k)
+                        for k in ("ok", "error", "over")},
+        "tight_admitted": tight.count("ok"),
+        "journal": journal, "decisions": decisions,
+        "reconciled_deltas": reconciled, "replayed": replayed,
+        "probe_ms": probes[-1] * 1e3 if probes else None,
+        "probes": len(probes),
+        "reconcile_ms": reconciles[-1] * 1e3 if reconciles else None,
+        "launched_on_recovery": launched,
+        "counters": len(table),
+    })
+    print(f"{label}: load {out['load']}, failed over "
+          f"{out['failed_over']} (tight {out['tight_admitted']} of 150), "
+          f"journal {journal}, reconciled {reconciled} ({replayed}); "
+          f"settled "
+          f"{out['settle_s']:.3f}s after the hang, closed "
+          f"{out['close_s']:.3f}s after the unhang; probe "
+          f"{out['probe_ms']:.3f} ms ({len(probes)} probes), reconcile "
+          f"{out['reconcile_ms']:.3f} ms; launched on recovery "
+          f"{json.dumps(launched)} ({card})")
+    if out["load"]["over"] or not out["load"]["error"]:
+        fail(f"{label}: the load's answers {out['load']}")
+    if out["failed_over"]["error"] or out["tight_admitted"] != 120 \
+            or tight[-1] != "over":
+        fail(f"{label}: the failover window's answers {out['failed_over']},"
+             f" tight admitted {out['tight_admitted']}")
+    if table != oracle:
+        bad = sorted(k for k in set(table) | set(oracle)
+                     if table.get(k) != oracle.get(k))[:5]
+        fail(f"{label}: the table differs from the oracle of admitted "
+             f"hits at {[(k, table.get(k), oracle.get(k)) for k in bad]}")
+    if reconciled != sum(replayed) or not journal or left \
+            or replayed[0] < journal:
+        fail(f"{label}: admission_reconciled_deltas {reconciled} against "
+             f"the journal's sizes at each reconcile {replayed} (at the "
+             f"unhang {journal}, left {left})")
+    if not sum(launched.get(k, 0) for k in probe_keys) \
+            or not launched.get(reconcile_key) or not reconciles:
+        fail(f"{label}: the recovery launched {launched}; the probe needs "
+             f"{probe_keys}, the reconcile {reconcile_key}")
+    if after != "ok":
+        fail(f"{label}: the card does not decide after the recovery")
+    print(f"{label}: the table's {len(table)} counters equal the oracle "
+          "of admitted hits")
+    return out
+
+
+async def _shed_drill(tmpdir, dev, card):
+    """Phase 15c: a torch server on the card with ``--admission-mode
+    enforce --max-inflight 4``: 64 concurrent ShouldRateLimit calls (10 s
+    deadlines), then, with the queue-wait estimate forced near 1 s, 16
+    calls with 250 ms deadlines (shed on arrival, so that the answer
+    beats the deadline) and 8 calls with 10 s ones. Overload sheds
+    and the 16 deadline sheds answer UNAVAILABLE and count in
+    ``admission_sheds`` by reason; no shed is answered OK; the table's
+    counters equal an oracle fed only the admitted calls."""
+    import grpc
+
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "shed drill (15c)"
+    limits = os.path.join(tmpdir, "limits.yaml")
+    with open(limits, "w") as f:
+        f.write(ADMISSION_YAML)
+    http_options, http_port = _http_options()
+    (port,) = _free_ports(1)
+    srv = await server.start(server.build_parser().parse_args(
+        [limits, "torch", "--device", dev.type, "--rls-host", "127.0.0.1",
+         "--rls-port", str(port), *http_options, "--admission-mode",
+         "enforce", "--max-inflight", "4",
+         "--flight-spool-dir", os.path.join(tmpdir, "spool")]))
+    envoy = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+    answers = []
+    ok_by_user = {}
+    try:
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+            stub = ch.unary_unary(envoy)
+
+            async def call(user, timeout, phase):
+                blob = _rls_request(rls_pb2, "bulk", [{"u": user}])
+                try:
+                    out = rls_pb2.RateLimitResponse.FromString(
+                        await stub(blob, timeout=timeout))
+                    answer = rls_pb2.RateLimitResponse.Code.Name(
+                        out.overall_code)
+                except grpc.aio.AioRpcError as exc:
+                    answer = exc.code().name
+                    if "admission shed" in (exc.details() or ""):
+                        answer += ":" + exc.details().split("(")[1].split(
+                            ",")[0]
+                if answer == "OK":
+                    ok_by_user[user] = ok_by_user.get(user, 0) + 1
+                answers.append((phase, user, answer))
+
+            await call("warm", 10, "warm")
+            await asyncio.gather(*[call(f"s{i}", 10, "burst")
+                                   for i in range(SHED_CONCURRENCY)])
+            for _ in range(20):  # the queue-wait estimate near 1 s
+                srv.admission.overload.observe(1.0)
+            await asyncio.gather(*[call(f"d{i}", 0.25, "short")
+                                   for i in range(SHED_SHORT)])
+            for i in range(8):
+                await call(f"l{i}", 10, "long")
+        families = await _served_metrics(http_port)
+        stats = json.loads(await _served_get(http_port, "/debug/stats"))
+        counters = await srv.limiter.get_counters("bulk")
+        table = {c.set_variables["descriptors[0].u"]:
+                 c.limit.max_value - c.remaining for c in counters}
+        breaker = (srv.admission.breaker.state,
+                   srv.admission.failover.decisions)
+    finally:
+        await srv.stop()
+    sheds = {reason: _metric(families, "admission_sheds", reason=reason)
+             for reason in ("overload", "deadline", "controller")}
+    tally = {}
+    for phase, _user, answer in answers:
+        tally.setdefault(phase, {})
+        tally[phase][answer] = tally[phase].get(answer, 0) + 1
+    out = {"answers": tally, "sheds": sheds,
+           "debug_sheds": stats["admission"]["sheds"],
+           "counters": len(table), "breaker": breaker}
+    print(f"{label}: answers {json.dumps(tally)}; admission_sheds "
+          f"{json.dumps(sheds)}; /debug/stats sheds "
+          f"{json.dumps(out['debug_sheds'])} ({card})")
+    burst = tally.get("burst", {})
+    if not burst.get("UNAVAILABLE:overload") or \
+            sheds["overload"] != burst.get("UNAVAILABLE:overload"):
+        fail(f"{label}: overload sheds {sheds} against the burst's "
+             f"answers {burst}")
+    if tally.get("short") != {"UNAVAILABLE:deadline": SHED_SHORT} or \
+            sheds["deadline"] != SHED_SHORT:
+        fail(f"{label}: deadline sheds {sheds} against the short calls' "
+             f"answers {tally.get('short')}")
+    if breaker != ("closed", 0):
+        fail(f"{label}: breaker {breaker[0]} with {breaker[1]} failover "
+             "decisions on a healthy card")
+    if tally.get("long") != {"OK": 8} or tally.get("warm") != {"OK": 1}:
+        fail(f"{label}: admitted calls answered {tally}")
+    shed_total = sum(sheds.values())
+    ok_total = sum(ok_by_user.values())
+    if shed_total + ok_total != len(answers):
+        fail(f"{label}: {shed_total} sheds + {ok_total} OK answers != "
+             f"{len(answers)} calls")
+    if table != ok_by_user:
+        fail(f"{label}: the table's counters differ from the oracle of "
+             f"admitted calls ({len(table)} against {len(ok_by_user)})")
+    print(f"{label}: no shed answered OK; the table's {len(table)} counters "
+          "equal the oracle of the admitted calls")
+    return out
+
+
+_COLD_START = r'''
+import asyncio, json, sys, time
+from pathlib import Path
+
+from limitador_tpu_torch.native import build as host_build
+from limitador_tpu_torch.ops import build
+from limitador_tpu_torch.server import __main__ as m
+
+build.BUILD_DIR = host_build.BUILD_DIR = Path(sys.argv[1])
+warm = []
+warm_device = m._warm_device
+
+
+def timed_warm(storage):
+    seconds = warm_device(storage)
+    warm.append(seconds)
+    return seconds
+
+
+m._warm_device = timed_warm
+
+
+async def main(argv):
+    import grpc
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    t0 = time.perf_counter()
+    server = await m.start(m.build_parser().parse_args(argv))
+    started = time.perf_counter() - t0
+    port = argv[argv.index("--rls-port") + 1]
+    req = rls_pb2.RateLimitRequest(domain="bulk")
+    req.descriptors.add().entries.add(key="u", value="cold")
+    calls = []
+    try:
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+            for _ in range(3):
+                t1 = time.perf_counter()
+                out = await ch.unary_unary(
+                    "/envoy.service.ratelimit.v3.RateLimitService/"
+                    "ShouldRateLimit")(req.SerializeToString(), timeout=60)
+                calls.append((time.perf_counter() - t1) * 1e3)
+        adm = server.admission
+        return {"start_s": started, "nvcc_s": build.build_info["seconds"],
+                "nvcc_built": build.build_info["built"],
+                "gxx_s": host_build.build_info.get("seconds"),
+                "warm_s": warm[0], "calls_ms": calls,
+                "code": rls_pb2.RateLimitResponse.FromString(
+                    out).overall_code,
+                "breaker": adm.breaker.state,
+                "failover": adm.failover.decisions}
+    finally:
+        await server.stop()
+
+
+print(json.dumps(asyncio.run(main(sys.argv[2:]))))
+'''
+
+
+def _cold_start(tmpdir, dev, card):
+    """Phase 15d: a fresh process builds the kernels and the host lane
+    into an empty directory and starts a torch server on the card with
+    ``--admission-mode enforce`` (the server builds and launches the
+    check kernel once before the breaker watches a batch): its start,
+    nvcc and g++ seconds, the warm-up and the first three calls."""
+    limits = os.path.join(tmpdir, "limits.yaml")
+    with open(limits, "w") as f:
+        f.write(ADMISSION_YAML)
+    http_options, _port = _http_options()
+    (port,) = _free_ports(1)
+    argv = [sys.executable, "-c", _COLD_START, os.path.join(tmpdir, "build"),
+            limits, "torch", "--device", dev.type, "--rls-host", "127.0.0.1",
+            "--rls-port", str(port), *http_options, "--admission-mode",
+            "enforce", "--flight-spool-dir", os.path.join(tmpdir, "spool")]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here}
+    proc = subprocess.run(argv, cwd=here, env=env, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cold start (15d) exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"cold start (15d): server up in {out['start_s']:.2f}s (nvcc "
+          f"{out['nvcc_s']:.2f}s, built={out['nvcc_built']}; g++ "
+          f"{out['gxx_s']}s; warm-up launch {out['warm_s'] * 1e3:.3f} ms); "
+          f"first calls {[round(c, 3) for c in out['calls_ms']]} ms, "
+          f"breaker {out['breaker']} ({card})")
+    if not out["nvcc_built"] or out["breaker"] != "closed" \
+            or out["failover"] or out["code"] != 1:
+        fail(f"cold start (15d): {out}")
+    return out
+
+
+def phase_admission(dev, card):
+    """Phase 15: (a) the plane's served cost on phases 4 and 6, (b) the
+    failover drill on torch, native and sharded, (c) the shed drill,
+    (d) a cold start. Returns (launches of 15, results)."""
+    from limitador_tpu_torch.ops import kernel as K
+
+    t0 = time.perf_counter()
+    K.reset_launches()
+    cost = {}
+    for native in (False, True):
+        with tempfile.TemporaryDirectory() as tmpdir:
+            cost["native" if native else "standard"] = asyncio.run(
+                _admission_cost(tmpdir, dev, card, native))
+    drills = {kind: asyncio.run(_failover_drill(dev, card, kind))
+              for kind in ("torch", "native", "sharded")}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        sheds = asyncio.run(_shed_drill(tmpdir, dev, card))
+    launches = dict(K.launches)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        cold = _cold_start(tmpdir, dev, card)
+    _storage_forms(launches, "admission plane (15)",
+                   ("update_host", "sharded_update_host"))
+    print(f"admission plane (15): {time.perf_counter() - t0:.2f}s; "
+          f"launches {json.dumps(launches)}")
+    return launches, {"cost": cost, "failover": drills, "sheds": sheds,
+                      "cold_start": cold, "card": card}
+
+
+
 def main() -> int:
     name, card = phase_card()
     import torch
@@ -6657,6 +7324,7 @@ def main() -> int:
     plane_launches, device_plane = phase_device_plane(dev, card)
     planes_launches, control_planes = phase_control_planes(dev, card)
     host_launches, host_storages = phase_host_storages(dev, card)
+    admission_launches, admission = phase_admission(dev, card)
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -6691,14 +7359,14 @@ def main() -> int:
         _host_forms_only(got, label, remote=False)
     _storage_forms(plane_launches, "device plane (12)", ("update_host",))
     # launches on the main paths: phases 4, 5, 6, 7, 8a, 8b, 9a, 9b, 10a,
-    # 10b, 11, 12, 13, 14 (14c's authority is another process: its RPCs
-    # are counted by its /debug/stats, not here)
+    # 10b, 11, 12, 13, 14, 15 (14c's authority and 15d's server are other
+    # processes: 14c's RPCs are counted by its /debug/stats, not here)
     runs = (launches, drive5_launches, native_launches, drive_launches,
             repl_launches,
             served_launches, tier_launches, served_tier_launches,
             leased_tier_launches, served_default_launches, sharded_launches,
             served_sharded_launches, http_launches, plane_launches,
-            planes_launches, host_launches)
+            planes_launches, host_launches, admission_launches)
     launches = {name: sum(run[name] for run in runs) for name in launches}
     kernels = []
     for kname, by_shape in results.items():
@@ -6755,6 +7423,8 @@ def main() -> int:
             "control_planes_launches": planes_launches,
             "host_storages": host_storages,
             "host_storages_launches": host_launches,
+            "admission": admission,
+            "admission_launches": admission_launches,
         }, f, indent=1)
     spool_root.cleanup()
     print(f"card: {card}")

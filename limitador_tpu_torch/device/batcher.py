@@ -45,9 +45,19 @@ phases (``dispatch``, ``host_stage``, ``device_sync``, ``unpack``) and
 the flight recorder, with a ``device_batch_span`` around each batch. A
 batcher without a recorder touches no observability object.
 
-Left out of the port for now (``ROADMAP.md``): the admission hooks
-(``chunk_queue_wait`` takes ``admission=None`` until admission is
-ported).
+Admission (``AsyncTorchStorage.set_admission``, ``admission/``): every
+batcher pair gets the controller. Each launch, every chunk of a chunked
+flush included, takes a breaker token before its begin and returns it
+when its answers are in (or with the error that failed it), so that the
+breaker's stall watch sees a wedged device sync. While the breaker is
+not closed, ``check_and_update``, ``is_within_limits`` and
+``update_counter`` decide on the controller's exact host oracle and
+never reach a batcher. At a trip, ``fail_over_queued`` decides every
+queued request on the oracle and fails every dispatched but unfinished
+launch, and every chunk still waiting for the in-flight window, with a
+transient error (their kernel may already have run, so deciding them
+again on the host would count them twice). A batcher without a
+controller takes no token.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ from ..observability.tracing import device_batch_span
 from ..storage.base import (
     AsyncCounterStorage,
     Authorization,
+    StorageError,
     require_nonnegative_delta,
 )
 from .storage import TorchStorage, _Request, _bucket
@@ -170,9 +181,11 @@ class ChunkPlanner:
 
 def chunk_queue_wait(admission, oldest_enqueue: float,
                      t_flush: float) -> float:
-    """Queue-wait signal feeding a ChunkPlanner: the admission plane's
-    estimate when one is attached, else this flush's oldest wait. The
-    port has no admission plane yet, so callers pass None."""
+    """Queue-wait signal feeding a ChunkPlanner, shared by the three
+    dispatch lanes (MicroBatcher and both compiled pipelines): the
+    admission plane's AIMD estimate when a controller is attached (the
+    signal it already keeps from the recorder's flushes), else this
+    flush's oldest wait."""
     if admission is not None:
         try:
             return admission.overload.queue_wait_estimate()
@@ -232,11 +245,49 @@ class MicroBatcher:
         self.recorder = None
         #: hits per flush, drained by ``AsyncTorchStorage.library_stats``
         self.flush_sizes: List[int] = []
+        #: AdmissionController (``AsyncTorchStorage.set_admission``);
+        #: None = no breaker token, no failover drain
+        self.admission = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        # Dispatched-but-unfinished launches (and chunks waiting for the
+        # window), so that a breaker trip can fail their futures instead
+        # of leaving them parked on a dead plane.
+        self._inflight_batches: Dict[int, list] = {}
+        self._batch_seq = 0
 
     def _ensure_started(self) -> None:
         if self._task is None or self._task.done():
             self._wakeup = asyncio.Event()
-            self._task = asyncio.get_running_loop().create_task(self._run())
+            self._loop = asyncio.get_running_loop()
+            self._task = self._loop.create_task(self._run())
+
+    def fail_over_queued(self, decider, exc) -> None:
+        """Breaker trip: every QUEUED request gets an immediate host
+        decision through ``decider(counters, delta, load) ->
+        Authorization``; dispatched-but-unfinished launches fail with
+        ``exc`` (transient: their kernel may already have run, so
+        deciding them again on the host would count them twice).
+        Thread-safe: the trip listener can fire from a collect thread."""
+        loop = self._loop
+        if loop is None or loop.is_closed():
+            return
+
+        def _drain():
+            pending, self._pending = self._pending, []
+            self._pending_hits = 0
+            for request, future, _t, _rid in pending:
+                if future.done():
+                    continue
+                try:
+                    future.set_result(
+                        decider(request.ordered, request.delta, request.load)
+                    )
+                except Exception as dexc:
+                    future.set_exception(dexc)
+            for batch in list(self._inflight_batches.values()):
+                self._fail(batch, exc)
+
+        loop.call_soon_threadsafe(_drain)
 
     async def submit(
         self, counters: List[Counter], delta: int, load: bool
@@ -276,7 +327,9 @@ class MicroBatcher:
         )
 
     async def _finish_inflight(self, batch, handle, finish, sem, loop, t0,
-                               t_flush, batch_id, phases, n_hits):
+                               t_flush, batch_id, phases, n_hits, seq,
+                               token):
+        adm = self.admission
         try:
             with device_batch_span(batch_id, len(batch)) as span_phases:
                 auths, t_fin, t_done = await loop.run_in_executor(
@@ -293,9 +346,14 @@ class MicroBatcher:
                 rec = self.recorder
                 if rec is not None:
                     self._record_batch(rec, batch, batch_id, t_flush, phases)
+            if adm is not None:
+                adm.breaker.batch_finished(token)
         except Exception as exc:
             self._fail(batch, exc)
+            if adm is not None:
+                adm.breaker.batch_finished(token, exc)
         finally:
+            self._inflight_batches.pop(seq, None)
             sem.release()
 
     async def _run(self) -> None:
@@ -317,8 +375,14 @@ class MicroBatcher:
                 # Linger briefly to let concurrent requests coalesce.
                 await asyncio.sleep(self.max_delay)
             # Take the inflight slot BEFORE the batch: under device
-            # backpressure requests keep coalescing in _pending.
+            # backpressure requests keep coalescing in _pending, where a
+            # breaker trip can still fail them over.
             await sem.acquire()
+            # A failover drain may have emptied the queue during the
+            # linger or the slot wait: nothing to flush.
+            if not self._pending:
+                sem.release()
+                continue
             # The linger may have filled the batch past the size trigger:
             # classify by what released the flush.
             reason = (
@@ -346,20 +410,30 @@ class MicroBatcher:
             # inflight window, so chunk i+1 stages and uploads while
             # chunk i runs. The first chunk uses the slot taken above;
             # each further chunk takes its own.
+            adm = self.admission
             sizes = [len(r.ordered) for r in requests]
             ranges = self.chunk_planner.split(
-                sizes, chunk_queue_wait(None, batch[0][2], t_flush)
+                sizes, chunk_queue_wait(adm, batch[0][2], t_flush)
             )
             chunk_hits = [sum(sizes[lo:hi]) for lo, hi in ranges]
             if rec is not None:
                 rec.record_chunks(chunk_hits)
+            # Every chunk registers as in flight BEFORE any await: a
+            # breaker trip must be able to fail the chunks still waiting
+            # for the window, which have left _pending.
+            seqs = []
+            for lo, hi in ranges:
+                self._batch_seq += 1
+                self._inflight_batches[self._batch_seq] = batch[lo:hi]
+                seqs.append(self._batch_seq)
             failed = None
-            for idx, (lo, hi) in enumerate(ranges):
+            for idx, ((lo, hi), seq) in enumerate(zip(ranges, seqs)):
                 sub = batch[lo:hi]
                 if failed is not None:
                     # A begin failure is plane-wide (the launch never
                     # reached the device): the rest of the flush fails as
                     # a monolithic dispatch would have.
+                    self._inflight_batches.pop(seq, None)
                     self._fail(sub, failed)
                     continue
                 if idx:
@@ -368,8 +442,11 @@ class MicroBatcher:
                     except BaseException as exc:
                         # Cancellation mid-flush must not strand the
                         # chunks still waiting on the window.
+                        for rest in seqs[idx:]:
+                            self._inflight_batches.pop(rest, None)
                         self._fail(batch[lo:], exc)
                         raise
+                token = adm.breaker.batch_started() if adm is not None else 0
                 t0 = time.perf_counter()
                 try:
                     handle, t_begin, t_launch = await loop.run_in_executor(
@@ -378,7 +455,10 @@ class MicroBatcher:
                     )
                 except Exception as exc:
                     sem.release()
+                    self._inflight_batches.pop(seq, None)
                     self._fail(sub, exc)
+                    if adm is not None:
+                        adm.breaker.batch_finished(token, exc)
                     failed = exc
                     continue
                 phases = {
@@ -387,7 +467,7 @@ class MicroBatcher:
                 }
                 t = loop.create_task(self._finish_inflight(
                     sub, handle, finish, sem, loop, t0, t_flush, batch_id,
-                    phases, chunk_hits[idx],
+                    phases, chunk_hits[idx], seq, token,
                 ))
                 self._finishers.add(t)
                 t.add_done_callback(self._finishers.discard)
@@ -450,11 +530,47 @@ class UpdateBatcher:
         self.metrics = None
         #: DeviceStatsRecorder; None = detached
         self.recorder = None
+        #: AdmissionController: feeds the breaker and lets a trip journal
+        #: queued updates on the failover store; None = detached
+        self.admission = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        # Waiters of the flush inside _apply on the executor, so that a
+        # breaker trip can settle them off a dead plane.
+        self._inflight_waiters: Dict[int, list] = {}
+        self._flush_seq = 0
 
     def _ensure_started(self) -> None:
         if self._task is None or self._task.done():
             self._wakeup = asyncio.Event()
-            self._task = asyncio.get_running_loop().create_task(self._run())
+            self._loop = asyncio.get_running_loop()
+            self._task = self._loop.create_task(self._run())
+
+    def fail_over_queued(self, apply_fn, exc=None) -> None:
+        """Breaker trip: journal every queued (counter, delta) through
+        ``apply_fn`` (the failover store) and settle the waiters; the
+        flush already inside ``_apply`` on the dead plane settles with
+        ``exc`` (its deltas may land when the card unwedges, so
+        journaling them too would count them twice). Thread-safe."""
+        loop = self._loop
+        if loop is None or loop.is_closed():
+            return
+        stuck_exc = exc or StorageError(
+            "device plane failed over", transient=True
+        )
+
+        def _drain():
+            items, waiters = self._swap()
+            try:
+                for counter, delta in items:
+                    apply_fn(counter, delta)
+            except Exception as dexc:
+                self._settle(waiters, dexc)
+            else:
+                self._settle(waiters, None)
+            for stuck in list(self._inflight_waiters.values()):
+                self._settle(stuck, stuck_exc)
+
+        loop.call_soon_threadsafe(_drain)
 
     async def submit(self, counter: Counter, delta: int) -> None:
         # Reject before coalescing: a negative delta inside the batch
@@ -511,23 +627,36 @@ class UpdateBatcher:
                         return
             if len(self._pending) < self.max_batch:
                 await asyncio.sleep(self.max_delay)
+            if not self._pending:
+                continue  # a failover drain emptied it during the linger
             reason = (
                 "size" if len(self._pending) >= self.max_batch
                 else "deadline"
             )
             items, waiters = self._swap()
             self._record_flush(reason, len(items), waiters)
+            adm = self.admission
+            token = adm.breaker.batch_started() if adm is not None else 0
+            self._flush_seq += 1
+            seq = self._flush_seq
+            self._inflight_waiters[seq] = waiters
             t0 = time.perf_counter()
             try:
                 await loop.run_in_executor(self._pool, self._apply, items)
             except Exception as exc:
+                if adm is not None:
+                    adm.breaker.batch_finished(token, exc)
                 self._settle(waiters, exc)
             else:
+                if adm is not None:
+                    adm.breaker.batch_finished(token)
                 if self.metrics is not None:
                     _observe(
                         self.metrics, len(waiters), time.perf_counter() - t0
                     )
                 self._settle(waiters, None)
+            finally:
+                self._inflight_waiters.pop(seq, None)
 
     async def close(self) -> None:
         self._closed = True
@@ -586,6 +715,8 @@ class AsyncTorchStorage(AsyncCounterStorage):
         #: the DeviceStatsRecorder every batcher pair writes into
         #: (``set_metrics``); None = detached
         self.recorder: Optional[DeviceStatsRecorder] = None
+        #: the AdmissionController (``set_admission``); None = no plane
+        self.admission = None
 
     def _batcher_pairs(self) -> list:
         """Every live (check, update) batcher pair, the default pair
@@ -628,8 +759,28 @@ class AsyncTorchStorage(AsyncCounterStorage):
                     for batcher in pair:
                         batcher.metrics = self._metrics
                         batcher.recorder = self.recorder
+                        batcher.admission = self.admission
                 self._loop_batchers[loop] = pair
             return pair
+
+    def set_admission(self, controller) -> None:
+        """Put this storage under an admission controller: the check path
+        consults its breaker (failing over to the host oracle when open),
+        and every batcher pair feeds it batch outcomes."""
+        self.admission = controller
+        for mb, ub in self._batcher_pairs():
+            mb.admission = controller
+            ub.admission = controller
+        controller.bind_storage(self)
+
+    def fail_over_queued(self, decider, exc) -> None:
+        """Breaker trip fan-out (the controller's transition listener):
+        drain every loop's batcher queues off the dead plane."""
+        adm = self.admission
+        for mb, ub in self._batcher_pairs():
+            mb.fail_over_queued(decider, exc)
+            if adm is not None:
+                ub.fail_over_queued(adm.failover_update_counter, exc)
 
     def set_metrics(self, metrics) -> None:
         """Have the batchers observe each request's device batch round
@@ -687,6 +838,14 @@ class AsyncTorchStorage(AsyncCounterStorage):
     ) -> Authorization:
         if not counters:
             return Authorization.OK
+        adm = self.admission
+        if adm is not None and adm.use_failover():
+            # Breaker open/half-open: an exact host-oracle decision, no
+            # batch slot, no device access (the delta journals for the
+            # recovery reconcile).
+            return adm.failover_check_and_update(
+                counters, delta, load_counters
+            )
         batcher, _ub = self._batchers_for_loop()
         return await batcher.submit(counters, delta, load_counters)
 
@@ -697,12 +856,20 @@ class AsyncTorchStorage(AsyncCounterStorage):
             self.inner.set_limits_provider(provider)
 
     async def is_within_limits(self, counter: Counter, delta: int) -> bool:
+        adm = self.admission
+        if adm is not None and adm.use_failover():
+            return adm.failover_is_within_limits(counter, delta)
         return self.inner.is_within_limits(counter, delta)
 
     async def add_counter(self, limit: Limit) -> None:
         self.inner.add_counter(limit)
 
     async def update_counter(self, counter: Counter, delta: int) -> None:
+        adm = self.admission
+        if adm is not None and adm.use_failover():
+            require_nonnegative_delta(delta)
+            adm.failover_update_counter(counter, delta)
+            return
         _mb, update_batcher = self._batchers_for_loop()
         await update_batcher.submit(counter, delta)
 

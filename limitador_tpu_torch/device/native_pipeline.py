@@ -56,10 +56,17 @@ namespaces (the first failing hit names the limit) and the exact path.
 The CEL label map of ``--metric-labels`` is not evaluated here (its
 labels stay empty for these rows, as in the JAX package).
 
+Admission: with a controller on the compiled limiter's storage, each
+chunk launch takes a breaker token; while the breaker is not closed every
+raw request takes the exact per-request path, whose storage call decides
+on the host failover oracle (the hot lane and the columnar begin never
+run, so nothing launches on the dead plane; leases stay as they are);
+and ``fail_over_queued`` (a trip) sends every queued request down that
+path and fails every dispatched chunk.
+
 Left out of the port for now (``ROADMAP.md``): the pod fast path
 (``attach_pod``, the foreign-row lane and the bulk forwards, with the
-``pod_*`` families), the admission breaker (``fail_over_queued``), the
-native ingress entry points.
+``pod_*`` families), the native ingress entry points.
 """
 
 from __future__ import annotations
@@ -133,7 +140,8 @@ class _SubmitShard:
     bookkeeping. The device lane behind every shard is shared and ordered
     by the storage lock."""
 
-    __slots__ = ("loop", "pending", "flush_task", "sem", "inflight")
+    __slots__ = ("loop", "pending", "flush_task", "sem", "inflight",
+                 "inflight_batches", "batch_seq")
 
     def __init__(self, loop, max_inflight: int):
         self.loop = loop
@@ -142,6 +150,10 @@ class _SubmitShard:
         self.flush_task: Optional[asyncio.Task] = None
         self.sem = asyncio.Semaphore(max_inflight)
         self.inflight: set = set()
+        # seq -> the pending tuples of a dispatched-but-uncollected
+        # chunk, so that a breaker trip can fail them off the dead plane
+        self.inflight_batches: Dict[int, list] = {}
+        self.batch_seq = 0
 
 
 class NativeRlsPipeline:
@@ -183,6 +195,8 @@ class NativeRlsPipeline:
         ).SerializeToString()
 
         self.limiter = limiter
+        #: the AsyncTorchStorage whose ``admission`` gates this pipeline
+        self._torch = limiter._torch
         self.storage: TorchStorage = limiter._torch.inner
         #: PrometheusMetrics the decided rows count into (None: no counts)
         self.metrics = metrics
@@ -483,6 +497,12 @@ class NativeRlsPipeline:
         if shard is None:
             shard = self._shard_for(loop)
         future = loop.create_future()
+        adm = self._torch.admission
+        if adm is not None and adm.use_failover():
+            # Breaker open: the exact per-request path, whose storage
+            # call decides on the host failover oracle.
+            _spawn_detached(self._decide_exact(blob, future))
+            return future
         shard.pending.append((
             blob, future, time.perf_counter(),
             current_request_id() if self.recorder is not None else None,
@@ -526,24 +546,35 @@ class NativeRlsPipeline:
         # futures) runs on collect threads, so batch N+1's host phase
         # overlaps batch N's device round trip. The flush is cut into
         # chunks riding the shard's in-flight window.
+        adm = self._torch.admission
         ranges = self.chunk_planner.split(
-            [1] * len(batch), chunk_queue_wait(None, batch[0][2], t_flush)
+            [1] * len(batch), chunk_queue_wait(adm, batch[0][2], t_flush)
         )
         if rec is not None:
             rec.record_chunks([hi - lo for lo, hi in ranges])
+        # Every chunk registers as in flight BEFORE any await, so that a
+        # breaker trip can fail the chunks still waiting for the window
+        # (they left shard.pending at the top of this flush).
+        seqs = []
+        for lo, hi in ranges:
+            shard.batch_seq += 1
+            shard.inflight_batches[shard.batch_seq] = batch[lo:hi]
+            seqs.append(shard.batch_seq)
 
         def _drop_rest(idx, exc):
-            """Fail chunk idx onward: nothing may be left stranded when
-            this coroutine unwinds."""
-            for l2, h2 in ranges[idx:]:
+            """Fail (and deregister) chunk idx onward: nothing may be
+            left stranded when this coroutine unwinds."""
+            for (l2, h2), s2 in zip(ranges[idx:], seqs[idx:]):
+                shard.inflight_batches.pop(s2, None)
                 for _blob, future, _t, _rid in batch[l2:h2]:
                     if not future.done():
                         future.set_exception(exc)
 
         failed = None
-        for ci, (lo, hi) in enumerate(ranges):
+        for ci, ((lo, hi), seq) in enumerate(zip(ranges, seqs)):
             sub = batch[lo:hi]
             if failed is not None:
+                shard.inflight_batches.pop(seq, None)
                 for _blob, future, _t, _rid in sub:
                     if not future.done():
                         future.set_exception(failed)
@@ -554,6 +585,7 @@ class NativeRlsPipeline:
                 _drop_rest(ci, exc)
                 raise
             t_submit = time.perf_counter()
+            token = adm.breaker.batch_started() if adm is not None else 0
             try:
                 ((results, slow_rows, pendings), t_begin, t_staged,
                  t_cache, t_lane) = await loop.run_in_executor(
@@ -562,9 +594,12 @@ class NativeRlsPipeline:
                 )
             except BaseException as exc:
                 shard.sem.release()
+                if adm is not None:
+                    adm.breaker.batch_finished(token, exc)
                 if not isinstance(exc, Exception):
                     _drop_rest(ci, exc)
                     raise
+                shard.inflight_batches.pop(seq, None)
                 for _blob, future, _t, _rid in sub:
                     if not future.done():
                         future.set_exception(exc)
@@ -586,10 +621,13 @@ class NativeRlsPipeline:
             )
             shard.inflight.add(task)
 
-            def _collected(t, sub=sub):
+            def _collected(t, seq=seq, token=token, sub=sub):
                 shard.inflight.discard(t)
+                shard.inflight_batches.pop(seq, None)
                 shard.sem.release()
                 exc = t.exception()
+                if adm is not None:
+                    adm.breaker.batch_finished(token, exc)
                 if exc is not None:
                     for _blob, future, _t, _rid in sub:
                         if not future.done():
@@ -753,6 +791,14 @@ class NativeRlsPipeline:
         ``use_cache=False`` (the lane-off bulk path) skips lane, lookup
         and insertion. Callers hold ``_native_lock``."""
         n = len(blobs)
+        adm = self._torch.admission
+        if adm is not None and adm.use_failover():
+            # Breaker open: every row takes the exact path (whose storage
+            # call decides on the failover oracle); the columnar path
+            # would launch kernels on the dead plane.
+            self._last_host_cache = 0.0
+            self._last_native_lane = 0.0
+            return [None] * n, list(range(n)), [], None
         self._recycle_context_if_needed()
         results: List[Optional[bytes]] = [None] * n
         pendings: list = []
@@ -1422,6 +1468,33 @@ class NativeRlsPipeline:
         except Exception as exc:
             if not future.done():
                 future.set_exception(exc)
+
+    def fail_over_queued(self, decider, exc) -> None:
+        """Breaker trip: queued raw requests re-route through the exact
+        per-request path (which decides on the host failover oracle);
+        dispatched-but-uncollected chunks fail with ``exc``. ``decider``
+        is unused: the exact path already decides through the storage's
+        failover branch. Thread-safe; fans out to every serving shard's
+        loop."""
+        for shard in list(self._shards.values()):
+            loop = shard.loop
+            if loop is None or loop.is_closed():
+                continue
+
+            def _drain(shard=shard):
+                batch, shard.pending = shard.pending, []
+                for blob, future, _t, _rid in batch:
+                    if not future.done():
+                        _spawn_detached(self._decide_exact(blob, future))
+                for stuck in list(shard.inflight_batches.values()):
+                    for _blob, future, _t, _rid in stuck:
+                        if not future.done():
+                            future.set_exception(exc)
+
+            try:
+                loop.call_soon_threadsafe(_drain)
+            except RuntimeError:
+                pass  # loop closed between the check and the call
 
     async def _close_shard(self, shard: _SubmitShard) -> None:
         await self._flush(shard, "shutdown")

@@ -35,8 +35,11 @@ waits and chunk plan, and each chunk its phases (``dispatch``,
 ``host_stage`` with the flush's columnar evaluation on the first chunk,
 ``device_sync``, ``unpack``) inside a ``device_batch_span``.
 
-Left out of the port for now (``ROADMAP.md``): the admission plane's
-breaker (``fail_over_queued``).
+Admission: with a controller on the wrapped storage, each chunk launch
+takes a breaker token; while the breaker is not closed every request
+takes the inherited exact path, whose storage call decides on the host
+failover oracle; and ``fail_over_queued`` (a trip) decides every queued
+request on the oracle and fails every dispatched chunk.
 """
 
 from __future__ import annotations
@@ -86,7 +89,8 @@ class _LoopShard:
     Each serving loop owns one; the compiler cache, limits registry and
     device lane behind them are shared."""
 
-    __slots__ = ("loop", "pending", "flush_task", "sem", "inflight")
+    __slots__ = ("loop", "pending", "flush_task", "sem", "inflight",
+                 "inflight_pendings", "batch_seq")
 
     def __init__(self, loop, max_inflight: int):
         self.loop = loop
@@ -94,6 +98,10 @@ class _LoopShard:
         self.flush_task: Optional[asyncio.Task] = None
         self.sem = asyncio.Semaphore(max_inflight)
         self.inflight: set = set()
+        # seq -> the _RawPendings of a dispatched-but-uncollected chunk,
+        # so that a breaker trip can fail them off the dead plane
+        self.inflight_pendings: Dict[int, list] = {}
+        self.batch_seq = 0
 
 
 def _values_of(
@@ -312,6 +320,20 @@ class CompiledTorchLimiter(AsyncRateLimiter):
         counters=None,
     ) -> CheckResult:
         namespace = Namespace.of(namespace)
+        adm = self._torch.admission
+        if adm is not None and adm.use_failover():
+            # Breaker open: the inherited exact path routes through the
+            # storage, whose failover branch decides on the host oracle
+            # (no batch slot, no device access). The compiled surface
+            # also takes bare descriptor maps; the exact path needs a
+            # Context.
+            if isinstance(ctx, dict):
+                values, ctx = ctx, Context()
+                ctx.list_binding("descriptors", [values])
+                counters = None  # matched against the rebuilt context
+            return await super().check_rate_limited_and_update(
+                namespace, ctx, delta, load_counters, counters=counters
+            )
         values = _values_of(ctx)
         if values is None:
             # Context shape the compiler doesn't cover: exact inherited path.
@@ -372,25 +394,38 @@ class CompiledTorchLimiter(AsyncRateLimiter):
             # strand every other submitter of this batch.
             _fail_futures(batch, exc)
             raise
+        adm = self._torch.admission
         ranges = self.chunk_planner.split(
             [len(c) for _p, c in live],
-            chunk_queue_wait(None, batch[0].t_enq, t_flush),
+            chunk_queue_wait(adm, batch[0].t_enq, t_flush),
         )
         if rec is not None:
             rec.record_chunks([
                 sum(len(c) for _p, c in live[lo:hi]) for lo, hi in ranges
             ])
+        # Every chunk registers as in flight BEFORE any await, so that a
+        # breaker trip can fail the chunks still waiting for the window
+        # (they left shard.pending at the top of this flush).
+        seqs = []
+        for lo, hi in ranges:
+            shard.batch_seq += 1
+            shard.inflight_pendings[shard.batch_seq] = [
+                p for p, _c in live[lo:hi]
+            ]
+            seqs.append(shard.batch_seq)
 
         def _drop_rest(idx, exc):
-            for l2, h2 in ranges[idx:]:
+            for (l2, h2), s2 in zip(ranges[idx:], seqs[idx:]):
+                shard.inflight_pendings.pop(s2, None)
                 _fail_futures([p for p, _c in live[l2:h2]], exc)
 
         failed = None
-        for ci, (lo, hi) in enumerate(ranges):
+        for ci, ((lo, hi), seq) in enumerate(zip(ranges, seqs)):
             sub_live = live[lo:hi]
             if failed is not None:
                 # begin failures are plane-wide: the rest of the flush
                 # fails the way a monolithic dispatch would have.
+                shard.inflight_pendings.pop(seq, None)
                 _fail_futures([p for p, _c in sub_live], failed)
                 continue
             try:
@@ -399,6 +434,7 @@ class CompiledTorchLimiter(AsyncRateLimiter):
                 _drop_rest(ci, exc)
                 raise
             t_submit = time.perf_counter()
+            token = adm.breaker.batch_started() if adm is not None else 0
             try:
                 handle, t_begin, t_launch = await loop.run_in_executor(
                     self._dispatch_pool, _timed_call,
@@ -406,9 +442,12 @@ class CompiledTorchLimiter(AsyncRateLimiter):
                 )
             except BaseException as exc:
                 shard.sem.release()
+                if adm is not None:
+                    adm.breaker.batch_finished(token, exc)
                 if not isinstance(exc, Exception):
                     _drop_rest(ci, exc)
                     raise
+                shard.inflight_pendings.pop(seq, None)
                 _fail_futures([p for p, _c in sub_live], exc)
                 failed = exc
                 continue
@@ -427,10 +466,13 @@ class CompiledTorchLimiter(AsyncRateLimiter):
             )
             shard.inflight.add(task)
 
-            def _collected(t, sub_live=sub_live):
+            def _collected(t, seq=seq, token=token, sub_live=sub_live):
                 shard.inflight.discard(t)
+                shard.inflight_pendings.pop(seq, None)
                 shard.sem.release()
                 exc = t.exception()
+                if adm is not None:
+                    adm.breaker.batch_finished(token, exc)
                 if exc is not None:
                     _fail_futures([p for p, _c in sub_live], exc)
 
@@ -534,6 +576,51 @@ class CompiledTorchLimiter(AsyncRateLimiter):
                         cache.put(key, counters, epoch)
                     requests.append((p, counters))
         return requests
+
+    def fail_over_queued(self, decider, exc) -> None:
+        """Breaker trip: decide every queued request on the host through
+        ``decider(counters, delta, load) -> Authorization`` and fail the
+        dispatched-but-uncollected chunks with ``exc`` (their kernel may
+        already have run). Thread-safe: the trip listener can fire from a
+        collect thread, so each shard's drain runs on its own serving
+        loop, where that shard's queue is safe to touch."""
+        for shard in list(self._shards.values()):
+            loop = shard.loop
+            if loop is None or loop.is_closed():
+                continue
+
+            def _drain(shard=shard):
+                batch, shard.pending = shard.pending, []
+                if batch:
+                    try:
+                        evaluated = self._evaluate_batch(batch)
+                    except Exception as eexc:
+                        _fail_futures(batch, eexc)
+                        evaluated = []
+                    for p, counters in evaluated:
+                        if p.future.done():
+                            continue
+                        try:
+                            if not counters:
+                                p.future.set_result(
+                                    CheckResult(False, [], None)
+                                )
+                            else:
+                                auth = decider(counters, p.delta, p.load)
+                                p.future.set_result(CheckResult(
+                                    auth.limited,
+                                    counters if p.load else [],
+                                    auth.limit_name,
+                                ))
+                        except Exception as dexc:
+                            p.future.set_exception(dexc)
+                for pendings in list(shard.inflight_pendings.values()):
+                    _fail_futures(pendings, exc)
+
+            try:
+                loop.call_soon_threadsafe(_drain)
+            except RuntimeError:
+                pass  # loop closed between the check and the call
 
     async def _close_shard(self, shard: _LoopShard) -> None:
         await self._flush(shard, "shutdown")

@@ -38,10 +38,10 @@ Per-batch phase names (``PHASES``):
 The recorder also feeds the control planes from numbers it already has
 in hand: the process flight recorder's ``lean`` lane (``flight_tap``,
 one tap a decision), the serving model's per-launch observations
-(``model``, one ingest a batch) and the signal bus's EWMAs of the check
-path's worst queue wait and fill ratio a flush. The admission plane's
-queue-wait feed (``on_queue_waits``) comes with that plane (ROADMAP
-Queue A item 4).
+(``model``, one ingest a batch), the signal bus's EWMAs of the check
+path's worst queue wait and fill ratio a flush, and the admission
+plane's congestion feed (``on_queue_waits``, one call a check flush
+with the flush's queue waits; the AIMD limit's estimate).
 """
 
 from __future__ import annotations
@@ -178,6 +178,9 @@ class DeviceStatsRecorder:
         # fill ratio a flush, read by signals.SignalBus.
         self.signal_queue_wait_s = 0.0
         self.signal_batch_fill = 0.0
+        # Admission-plane congestion feed: called with each check flush's
+        # queue waits (the AIMD estimate's samples). None = detached.
+        self.on_queue_waits = None
         # Serving-model estimator (model.ServingModelEstimator): one
         # ingest (a lock and a bounded append) a batch; the fit runs on
         # the usage observatory's drain thread. None = detached.
@@ -217,6 +220,11 @@ class DeviceStatsRecorder:
             self.signal_batch_fill += 0.2 * (
                 min(fill_ratio, 1.0) - self.signal_batch_fill
             )
+            if self.on_queue_waits is not None:
+                try:
+                    self.on_queue_waits(queue_waits)
+                except Exception:
+                    pass  # congestion feedback must never fail a flush
         if self.metrics is None:
             return
         self._child("batcher_flushes", batcher, reason).inc()
@@ -489,27 +497,31 @@ _QUEUE_NAMES = {
 }
 
 #: attributes worth descending into when walking a limiter for
-#: device-plane state (facade -> storage -> batchers -> device table)
+#: device-plane state (facade -> storage -> batchers -> device table;
+#: "admission" reaches the admission controller hung off the storage)
 _CHILD_ATTRS = (
     "storage", "counters", "batcher", "update_batcher", "inner", "_torch",
-    "limiter",
+    "limiter", "admission",
 )
 
 
 def collect_debug_stats(*sources) -> dict:
     """Walk limiters/storages/pipelines for device-plane state and shape
     the ``GET /debug/stats`` payload: per-queue depths, per-shard table
-    occupancy, flush-reason tallies, the slow-decision flight recorder
-    and the decision-plan caches. Everything is getattr-driven, so any
+    occupancy, flush-reason tallies, the slow-decision flight recorder,
+    the decision-plan caches and, with an admission controller, its
+    ``admission`` section. Everything is getattr-driven, so any
     storage topology reports what it has (an in-memory limiter reports
     empty sections)."""
     seen: set = set()
     queues: List[dict] = []
     shards: Dict[str, dict] = {}
     recorders: Dict[int, DeviceStatsRecorder] = {}
+    admission: Dict[int, dict] = {}
     plan_caches: Dict[int, dict] = {}
     for source in sources:
-        _walk(source, seen, queues, shards, recorders, plan_caches)
+        _walk(source, seen, queues, shards, recorders, admission,
+              plan_caches)
     flush_reasons: Dict[str, int] = {}
     flights: List[dict] = []
     for recorder in recorders.values():
@@ -523,6 +535,9 @@ def collect_debug_stats(*sources) -> dict:
         "flush_reasons": flush_reasons,
         "flight_recorder": flights,
     }
+    if admission:
+        # One controller per process in practice; surface the first.
+        out["admission"] = next(iter(admission.values()))
     if plan_caches:
         # Per-pipeline decision-plan cache state (native blob cache
         # and/or compiled counter cache), keyed by type name.
@@ -533,10 +548,14 @@ def collect_debug_stats(*sources) -> dict:
     return out
 
 
-def _walk(source, seen, queues, shards, recorders, plan_caches) -> None:
+def _walk(source, seen, queues, shards, recorders, admission,
+          plan_caches) -> None:
     if source is None or id(source) in seen:
         return
     seen.add(id(source))
+    debug = getattr(source, "admission_debug", None)
+    if callable(debug):
+        admission[id(source)] = debug()
     cache_stats = getattr(source, "plan_cache_stats", None)
     if callable(cache_stats):
         stats = cache_stats()
@@ -572,4 +591,5 @@ def _walk(source, seen, queues, shards, recorders, plan_caches) -> None:
         if child is not None and not isinstance(
             child, (int, float, str, bytes, bool, dict, list, tuple, set)
         ):
-            _walk(child, seen, queues, shards, recorders, plan_caches)
+            _walk(child, seen, queues, shards, recorders, admission,
+                  plan_caches)

@@ -30,10 +30,11 @@ tuples are kept (bounded label sets). The port taps ``lean`` (the
 recorder's batched decisions), ``native_hot`` (the host lane's slow-row
 exemplars) and ``cold_tier`` (tiered cold decides), and can fire
 ``manual``, ``slo_burn``, ``drift`` and ``device_probe``; the pod lanes
-and triggers, and the peer collection (``lane``), wait for the pod, the
-admission plane and the capacity controller (ROADMAP Queue A items 4, 7
-and 8): ``lane=None`` collects nothing, as on a JAX server without a
-pod.
+and triggers, and the peer collection (``lane``), wait for the pod and
+the capacity controller (ROADMAP Queue A items 7 and 8): ``lane=None``
+collects nothing, as on a JAX server without a pod. The admission
+breaker fires no trigger of its own: ``breaker_open`` counts the pod's
+events, in the JAX engine too.
 """
 
 from __future__ import annotations

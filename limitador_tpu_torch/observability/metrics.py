@@ -19,11 +19,12 @@ device-plane recorder (``batcher_queue_wait``,
 ``device_phase_latency``, ``dispatch_chunk_*``), the native telemetry
 plane (``native_phase_*``), the SLO watchdog (``slo_*``,
 ``device_backed``), the control-signal bus (``signal_*``), the process
-flight recorder (``flight_*``) and the serving-model fit (``model_*``,
-``capacity_*``). A family of a plane the port does not have yet (the
-pod, admission, the capacity controller, the native ingress with its
-``native_phase_h2i_respond``, the cached storage) is declared with the
-slice that brings the plane.
+flight recorder (``flight_*``), the serving-model fit (``model_*``,
+``capacity_*``) and the admission plane (``admission_*``, declared on
+every server as in the JAX package, whatever ``--admission-mode``). A
+family of a plane the port does not have yet (the pod, the capacity
+controller, the native ingress with its ``native_phase_h2i_respond``,
+the cached storage) is declared with the slice that brings the plane.
 
 ``datastore_latency`` reads the MetricsLayer's two aggregates, as the JAX
 server wires them (main.rs:908-917): ``install_metrics_layer`` installs
@@ -58,9 +59,15 @@ from .flight import TRIGGER_REASONS
 from .metrics_layer import MetricsLayer, install, installed
 from .model import ATTRIBUTION_STAGES, MODEL_TARGETS, MODEL_TERMS
 from .native_plane import NATIVE_PHASE_BUCKETS
+from .signals import _BREAKER_GAUGE, _PRIORITIES
 from .signals import _PHASES as _SIGNAL_PHASES
-from .signals import _PRIORITIES
 from .tracing import current_trace_id
+
+#: the admission plane's shed reasons, inlined (with the priority classes
+#: and breaker states of ``signals``) so that a server without the plane
+#: never imports the admission package for a schema; tests pin them to
+#: ``admission.SHED_REASONS``
+_SHED_REASONS = ("deadline", "overload", "controller")
 
 __all__ = [
     "PrometheusMetrics",
@@ -303,6 +310,58 @@ class PrometheusMetrics:
             "Chunks a flush was split into (1 = monolithic dispatch)",
             registry=self.registry,
             buckets=(1, 2, 3, 4, 6, 8, 12, 16),
+        )
+        # -- admission plane (admission/): shed, breaker and failover
+        # families, named in admission.METRIC_FAMILIES
+        self.admission_inflight = Gauge(
+            "admission_inflight",
+            "Decisions currently holding an admission-plane slot",
+            registry=self.registry,
+        )
+        self.admission_limit = Gauge(
+            "admission_limit",
+            "Current adaptive (AIMD) concurrency limit of the "
+            "admission plane",
+            registry=self.registry,
+        )
+        self.admission_sheds = Counter(
+            "admission_sheds",
+            "Requests shed before batch admission, by reason (deadline "
+            "= request cannot survive the queue-wait estimate, overload "
+            "= adaptive concurrency limit reached) and priority class",
+            ["reason", "priority"],
+            registry=self.registry,
+        )
+        self.admission_breaker_state = Gauge(
+            "admission_breaker_state",
+            "Device-plane circuit breaker state: 0 closed, 1 half-open, "
+            "2 open (failed over to the host oracle)",
+            registry=self.registry,
+        )
+        self.admission_breaker_transitions = Counter(
+            "admission_breaker_transitions",
+            "Device-plane breaker transitions, labeled by the state "
+            "entered",
+            ["state"],
+            registry=self.registry,
+        )
+        self.admission_failover_decisions = Counter(
+            "admission_failover_decisions",
+            "Check-path decisions served by the host failover oracle "
+            "while the device-plane breaker was open",
+            registry=self.registry,
+        )
+        self.admission_failover_seconds = Counter(
+            "admission_failover_seconds",
+            "Cumulative seconds the device-plane breaker has spent "
+            "away from closed (open + half-open)",
+            registry=self.registry,
+        )
+        self.admission_reconciled_deltas = Counter(
+            "admission_reconciled_deltas",
+            "Host-journaled counter deltas replayed into the device "
+            "table on breaker recovery (apply_deltas reconcile)",
+            registry=self.registry,
         )
         self.counter_slots_used = Gauge(
             "counter_slots_used",
@@ -806,6 +865,11 @@ class PrometheusMetrics:
         )
         # Pre-seed the bounded label sets so the families render (and
         # dashboards see zeros) before the first sample.
+        for reason in _SHED_REASONS:
+            for priority in _PRIORITIES:
+                self.admission_sheds.labels(reason, priority)
+        for state in _BREAKER_GAUGE:
+            self.admission_breaker_transitions.labels(state)
         for priority in _PRIORITIES:
             self.signal_shed_rate.labels(priority)
         for phase in _SIGNAL_PHASES:

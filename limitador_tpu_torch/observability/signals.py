@@ -14,11 +14,13 @@ render time.
 
 Sources attach getattr-style and every field keeps its neutral default
 while its source is absent. The port's server attaches the recorder, the
-native pipeline, the native plane, the usage observatory and the serving
-model; ``attach_admission``, ``attach_pod`` and ``attach_controller``
-have no caller until the admission plane, the pod and the capacity
-controller are ported (ROADMAP Queue A items 4, 7 and 8), so their
-fields hold the JAX defaults, as on a JAX server without those planes.
+native pipeline, the native plane, the usage observatory, the serving
+model and, with ``--admission-mode`` monitor or enforce, the admission
+controller (``breaker_state``, ``shed_rate_by_priority``);
+``attach_pod`` and ``attach_controller`` have no caller until the pod and
+the capacity controller are ported (ROADMAP Queue A items 7 and 8), so
+their fields hold the JAX defaults, as on a JAX server without those
+planes.
 """
 
 from __future__ import annotations
@@ -60,8 +62,9 @@ _PHASES = ("hot_lookup", "hot_stage", "lease_hit", "hot_finish",
            "h2i_respond")
 
 
-#: the admission breaker's gauge encoding, by state (inlined: the port
-#: has no admission plane yet; the JAX ``BreakerState.GAUGE``)
+#: the admission breaker's gauge encoding, by state (inlined so that a
+#: host-only server never imports the admission package for a schema;
+#: ``admission.BreakerState.GAUGE``, tests pin the two in sync)
 _BREAKER_GAUGE = {"closed": 0, "half_open": 1, "open": 2}
 
 

@@ -158,8 +158,28 @@ default) on SLO burn, a drift flip, a ``device_backed`` fall or ``POST
 ``--flight-profile-s`` seconds when that is above 0 (``/debug/flight``,
 ``flight_*``).
 
-Nothing falls back: ``--authority-url`` on a storage other than
-``cached``, ``--authority-listen`` on a storage without ``apply_deltas``
+Admission plane (torch and sharded storage, ``admission/``):
+``--admission-mode monitor|enforce`` (default ``off``: nothing is built
+and the admission package is not imported) puts a controller in front of
+the batched storage: ShouldRateLimit (standard and native) and ``POST
+/check_and_report`` shed before a request takes a batch slot when its
+gRPC deadline cannot survive the queue-wait estimate or the AIMD
+concurrency limit (``--max-inflight``, ``--admission-target-queue-ms``)
+is reached, lower ``--priority`` classes first; a shed answers
+UNAVAILABLE/503, or OVER_LIMIT/429 under ``--shed-response overlimit``
+(``monitor`` counts sheds and admits). A circuit breaker over the card
+(``--breaker-failures``, ``--breaker-stall-ms``, ``--breaker-reset-ms``)
+fails the check path over to an exact host oracle while the card stalls
+or fails, and on recovery a probe batch (B1, B6a or B7a) and a reconcile
+of the failover journal through ``apply_deltas`` (B2, B6b or B7c) close
+it. Every transition logs a warning; ``/metrics`` carries the
+``admission_*`` families (declared on every server) and ``/debug/stats``
+an ``admission`` section. The kernels are built and launched once
+before the breaker watches its first batch.
+
+Nothing falls back: ``--admission-mode monitor|enforce`` on a host
+storage (the JAX server warns and serves without the plane),
+``--authority-url`` on a storage other than ``cached``, ``--authority-listen`` on a storage without ``apply_deltas``
 (``cached``, ``distributed``), a ``--disk-path`` that cannot be opened,
 an authority address that cannot be bound, and a native pipeline or
 lease tier that cannot come up
@@ -171,8 +191,8 @@ cannot be bound, a ``--tracing-endpoint`` that cannot start and a
 server with an error (exit 2), and a lease refresh, usage drain or tier
 migration round that fails while serving stops it too (exit 1).
 
-Not in the port yet (``ROADMAP.md``): admission, ``--serving-shards``,
-the native ingress and the multi-process pod.
+Not in the port yet (``ROADMAP.md``): ``--serving-shards``, the native
+ingress, the multi-process pod and the capacity controller.
 """
 
 from __future__ import annotations
@@ -603,6 +623,63 @@ def build_parser() -> argparse.ArgumentParser:
         "packets (defaults to --listen-address; set it when binding "
         "0.0.0.0 so that peers learn a dialable URL)",
     )
+    # admission plane (admission/controller.py)
+    p.add_argument(
+        "--admission-mode",
+        choices=["off", "monitor", "enforce"],
+        default=_env("ADMISSION_MODE", "off"),
+        help="admission plane: off (default), monitor (breaker/failover "
+        "active, sheds counted but not enforced), enforce (deadline/"
+        "overload sheds enforced); needs torch or sharded storage (a "
+        "host storage exits 2)",
+    )
+    p.add_argument(
+        "--breaker-failures", type=int,
+        default=int(_env("BREAKER_FAILURES", "3")),
+        help="consecutive device-batch failures that open the "
+        "device-plane circuit breaker",
+    )
+    p.add_argument(
+        "--breaker-stall-ms", type=float,
+        default=float(_env("BREAKER_STALL_MS", "2000")),
+        help="an in-flight device batch older than this trips the "
+        "breaker (the hung device-sync failure mode)",
+    )
+    p.add_argument(
+        "--breaker-reset-ms", type=float,
+        default=float(_env("BREAKER_RESET_MS", "5000")),
+        help="open-state dwell before a half-open device probe",
+    )
+    p.add_argument(
+        "--max-inflight", type=int,
+        default=int(_env("ADMISSION_MAX_INFLIGHT", "4096")),
+        help="hard ceiling of the adaptive (AIMD) concurrency limit",
+    )
+    p.add_argument(
+        "--admission-target-queue-ms", type=float,
+        default=float(_env("ADMISSION_TARGET_QUEUE_MS", "20")),
+        help="queue-wait target the AIMD limit steers toward; also the "
+        "basis of deadline-aware shedding",
+    )
+    p.add_argument(
+        "--shed-response",
+        choices=["unavailable", "overlimit"],
+        default=_env("SHED_RESPONSE", "unavailable"),
+        help="RLS semantics of a shed: unavailable (gRPC UNAVAILABLE / "
+        "HTTP 503, Envoy failure-mode decides) or overlimit "
+        "(OVER_LIMIT / 429)",
+    )
+    p.add_argument(
+        "--priority-key", default=_env("PRIORITY_KEY", "priority"),
+        help="descriptor entry key carrying a request's priority class "
+        "(low|normal|high|critical)",
+    )
+    p.add_argument(
+        "--priority", action="append", default=None,
+        help="namespace priority mapping NS=CLASS (repeatable); limits-"
+        "file `priority:` annotations and the descriptor entry override "
+        "per request",
+    )
     return p
 
 
@@ -800,6 +877,11 @@ def _host_refusals(args) -> None:
             "a shared authority (no apply_deltas)")
     if args.storage in DEVICE_STORAGES:
         return
+    if args.admission_mode != "off":
+        raise ValueError(
+            f"--admission-mode {args.admission_mode} needs torch or "
+            f"sharded storage (got {args.storage!r}): a host storage has "
+            "no device plane to guard or fail over from")
     if args.pipeline != "standard":
         raise ValueError(f"--pipeline {args.pipeline} needs torch storage")
     if _replicated(args) or args.snapshot_path:
@@ -981,7 +1063,7 @@ class RunningServer:
                  native_pipeline=None, observatory=None, checkpointer=None,
                  tier_manager=None, http_runner=None, metrics=None,
                  labels_watcher=None, native_plane=None, profiler=None,
-                 planes=None, authority=None):
+                 planes=None, authority=None, admission=None):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
@@ -1006,6 +1088,9 @@ class RunningServer:
         self.planes = planes or ControlPlanes()
         #: the AuthorityServer of ``--authority-listen``, or None
         self.authority = authority
+        #: the AdmissionController (``--admission-mode`` monitor or
+        #: enforce), or None
+        self.admission = admission
 
     @property
     def signal_bus(self):
@@ -1045,7 +1130,7 @@ class RunningServer:
         if self.checkpointer is not None:
             await self.checkpointer.stop()
         await _close(self.limiter, self.native_pipeline, self.observatory,
-                     self.native_plane)
+                     self.native_plane, self.admission)
 
 
 class ControlPlanes:
@@ -1071,7 +1156,7 @@ class ControlPlanes:
                 if x is not None]
 
     def build(self, args, limiter, native_pipeline, observatory,
-              native_plane, metrics, profiler) -> None:
+              native_plane, metrics, profiler, admission=None) -> None:
         """Make the planes the options ask for and attach their taps.
         Raises ValueError where ``--flight-spool-dir`` cannot be
         created or written."""
@@ -1096,6 +1181,8 @@ class ControlPlanes:
                 bus.attach_pipeline(native_pipeline)
             if native_plane is not None:
                 bus.attach_native_plane(native_plane)
+            if admission is not None:
+                bus.attach_admission(admission)
             bus.attach_observatory(observatory)
             observatory.signal_bus = bus
             metrics.attach_render_hook(bus)
@@ -1165,11 +1252,13 @@ class ControlPlanes:
 
 
 async def _close(limiter, native_pipeline, observatory,
-                 native_plane=None) -> None:
+                 native_plane=None, admission=None) -> None:
     if native_plane is not None:
         native_plane.close()
     if observatory is not None:
         observatory.close()
+    if admission is not None:
+        await admission.close()
     if native_pipeline is not None:
         await native_pipeline.close()
     if isinstance(limiter, AsyncRateLimiter):
@@ -1283,6 +1372,71 @@ def _native_plane(args, limiter, metrics):
     return plane
 
 
+def _warm_device(storage) -> float:
+    """Build the storage's kernels and launch its check kernel once (one
+    empty batch, as the breaker's probe does), so that neither the build
+    nor the first load rides a batch the breaker watches. Returns the
+    seconds it took."""
+    from ..device.storage import _Request
+
+    t0 = time.perf_counter()
+    storage.check_many([_Request([], 0, False)])
+    return time.perf_counter() - t0
+
+
+async def build_admission(args, limiter, native_pipeline, metrics):
+    """The admission controller ``--admission-mode`` asks for, bound to
+    the batched storage with the pipelines as drainables and its watchdog
+    started on the running loop, or None with ``off`` (the admission
+    package is then not imported). The kernels are warmed first. A bad
+    ``--priority`` mapping raises ValueError."""
+    if args.admission_mode == "off":
+        return None
+    from ..admission import (
+        AdaptiveLimiter,
+        AdmissionController,
+        CircuitBreaker,
+        PriorityResolver,
+    )
+
+    priorities = PriorityResolver(
+        descriptor_key=args.priority_key,
+        namespace_map=PriorityResolver.parse_namespace_map(
+            args.priority or ()),
+    )
+    counters = limiter.storage.counters
+    loop = asyncio.get_running_loop()
+    warm_s = await loop.run_in_executor(None, _warm_device, counters.inner)
+    admission = AdmissionController(
+        mode=args.admission_mode,
+        metrics=metrics,
+        breaker=CircuitBreaker(
+            failure_threshold=args.breaker_failures,
+            stall_timeout=args.breaker_stall_ms / 1000.0,
+            reset_timeout=args.breaker_reset_ms / 1000.0,
+        ),
+        overload=AdaptiveLimiter(
+            max_inflight=args.max_inflight,
+            target_queue_wait=args.admission_target_queue_ms / 1000.0,
+        ),
+        priorities=priorities,
+        shed_response=args.shed_response,
+    )
+    counters.set_admission(admission)
+    for drainable in (limiter, native_pipeline):
+        if hasattr(drainable, "fail_over_queued"):
+            admission.add_drainable(drainable)
+    admission.start(loop)
+    log.info(
+        f"admission plane: mode={args.admission_mode}, "
+        f"max-inflight={args.max_inflight}, breaker "
+        f"stall={args.breaker_stall_ms:.0f}ms/"
+        f"reset={args.breaker_reset_ms:.0f}ms, "
+        f"shed-response={args.shed_response}; kernels warmed in "
+        f"{warm_s:.3f}s")
+    return admission
+
+
 async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     """Configure span export, build the metrics and the limiter (and the
     native pipeline, lease tier, usage observatory and tier manager the
@@ -1303,7 +1457,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         on_partitioned=lambda v: metrics.datastore_partitioned.set(
             1 if v else 0))
     device = args.storage in DEVICE_STORAGES
-    native_pipeline = observatory = native_plane = None
+    native_pipeline = observatory = native_plane = admission = None
     planes = ControlPlanes()
     profiler = TorchProfiler(
         args.profile_dir,
@@ -1324,11 +1478,14 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             )
         _wire_metrics(metrics, limiter, native_pipeline, observatory)
         native_plane = _native_plane(args, limiter, metrics)
+        admission = await build_admission(args, limiter, native_pipeline,
+                                          metrics)
         planes.build(args, limiter, native_pipeline, observatory,
-                     native_plane, metrics, profiler)
+                     native_plane, metrics, profiler, admission)
     except BaseException:
         planes.stop()
-        await _close(limiter, native_pipeline, observatory, native_plane)
+        await _close(limiter, native_pipeline, observatory, native_plane,
+                     admission)
         raise
     loop = asyncio.get_running_loop()
     status = {"limits_file_version": 0, "limits_file_errors": 0}
@@ -1339,6 +1496,9 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             await applied
         if native_pipeline is not None:
             native_pipeline.invalidate()
+        if admission is not None:
+            # namespace priorities from the limits' `priority:` entries
+            admission.priorities.refresh(limits)
 
     def on_change(limits):
         status["limits_file_version"] += 1
@@ -1370,14 +1530,15 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         rls_server = await serve_rls(
             limiter, f"{args.rls_host}:{args.rls_port}",
             args.rate_limit_headers, native_pipeline=native_pipeline,
-            metrics=metrics,
+            metrics=metrics, admission=admission,
         )
     except BaseException:
         watcher.stop()
         if labels_watcher is not None:
             labels_watcher.stop()
         planes.stop()
-        await _close(limiter, native_pipeline, observatory, native_plane)
+        await _close(limiter, native_pipeline, observatory, native_plane,
+                     admission)
         raise
     broker = getattr(native_pipeline, "lease_broker", None)
     tier_manager = None
@@ -1406,7 +1567,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
                            if s is not None] + planes.debug_sources()
             + ([tier_manager] if tier_manager is not None else [])
             + ([authority] if authority is not None else []),
-            profiler=profiler,
+            profiler=profiler, admission=admission,
         )
     except BaseException as exc:
         if authority is not None:
@@ -1416,7 +1577,8 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             labels_watcher.stop()
         planes.stop()
         await rls_server.stop(grace=None)
-        await _close(limiter, native_pipeline, observatory, native_plane)
+        await _close(limiter, native_pipeline, observatory, native_plane,
+                     admission)
         if isinstance(exc, OSError):
             raise ValueError(
                 f"cannot serve HTTP on {args.http_host}:{args.http_port}: "
@@ -1436,7 +1598,8 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     return RunningServer(limiter, rls_server, watcher, status,
                          native_pipeline, observatory, checkpointer,
                          tier_manager, http_runner, metrics, labels_watcher,
-                         native_plane, profiler, planes, authority)
+                         native_plane, profiler, planes, authority,
+                         admission)
 
 
 def _serve_authority(args, limiter):
@@ -1476,6 +1639,8 @@ async def _amain(args) -> int:
                 if server.tier_manager is not None else "")
              + (f", usage top-{args.usage_topk}"
                 if server.observatory is not None else "")
+             + (f", admission {args.admission_mode}"
+                if server.admission is not None else "")
              + ")")
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)

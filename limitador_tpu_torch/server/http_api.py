@@ -12,7 +12,10 @@ http_api/server.rs) over aiohttp:
     POST /check             200/429, read-only (server.rs:127-157)
     POST /report            200, update-only (server.rs:159-183)
     POST /check_and_report  200/429 + optional draft-03 headers
-                            (server.rs:185-260)
+                            (server.rs:185-260); with an admission
+                            controller a shed answers 503, or 429 under
+                            --shed-response overlimit, before the request
+                            takes a batch slot
 
 and the debug endpoints of the planes the port has:
 
@@ -22,8 +25,8 @@ and the debug endpoints of the planes the port has:
                             caches, the native hot lane, leases, the
                             native telemetry plane, the SLO watchdog,
                             device_backed, the usage observatory, the
-                            tiers, the profiler state and the
-                            kernel/host-lane build state
+                            tiers, the admission plane, the profiler
+                            state and the kernel/host-lane build state
     GET  /debug/profile     torch.profiler capture status
     POST /debug/profile     {"action": "start"|"stop", "trace_dir"?: str}
                             starts or stops an on-demand torch.profiler
@@ -448,10 +451,14 @@ class _Api:
         status,
         debug_sources=None,
         profiler: Optional[TorchProfiler] = None,
+        admission=None,
     ):
         self.limiter = limiter
         self.metrics = metrics
         self.status = status or {}
+        #: AdmissionController gating POST /check_and_report; None = no
+        #: admission plane
+        self.admission = admission
         # Objects walked for /debug/stats; the limiter is always included
         # (it reaches the batchers and the device tables).
         self.debug_sources = [limiter] + list(debug_sources or ())
@@ -760,6 +767,22 @@ class _Api:
         except (KeyError, ValueError, TypeError) as exc:
             return web.json_response({"error": f"bad request: {exc}"}, status=400)
         want_headers = response_headers == RATE_LIMIT_HEADERS_DRAFT03
+        ticket = None
+        if self.admission is not None:
+            from ..admission.controller import AdmissionShed
+
+            try:
+                # The HTTP surface carries no deadline; overload and
+                # priority shedding still apply (429 for the over-limit
+                # semantics, 503 for unavailable: a shed is an explicit
+                # backpressure signal, not a storage failure's 500).
+                ticket = self.admission.admit(
+                    namespace, data.get("values") or {}
+                )
+            except AdmissionShed as shed:
+                if shed.overlimit:
+                    return web.Response(status=429)
+                return web.json_response({"error": str(shed)}, status=503)
         try:
             result = await self._call(
                 lambda: self.limiter.check_rate_limited_and_update(
@@ -768,6 +791,9 @@ class _Api:
             )
         except StorageError as exc:
             return web.json_response({"error": str(exc)}, status=500)
+        finally:
+            if ticket is not None:
+                ticket.release()
         headers = result.response_header() if want_headers else {}
         metrics = self.metrics
         if metrics:
@@ -790,8 +816,9 @@ def make_http_app(
     status: Optional[dict] = None,
     debug_sources=None,
     profiler: Optional[TorchProfiler] = None,
+    admission=None,
 ) -> web.Application:
-    api = _Api(limiter, metrics, status, debug_sources, profiler)
+    api = _Api(limiter, metrics, status, debug_sources, profiler, admission)
     app = web.Application(middlewares=[http_request_id_middleware])
     app.router.add_get("/status", api.get_status)
     app.router.add_get("/api/spec", api.get_spec)
@@ -822,11 +849,13 @@ async def run_http_server(
     status: Optional[dict] = None,
     debug_sources=None,
     profiler: Optional[TorchProfiler] = None,
+    admission=None,
 ) -> web.AppRunner:
     """Start the HTTP server (returns the runner; caller owns shutdown).
     A port that cannot be bound raises OSError after the runner is
     cleaned up."""
-    app = make_http_app(limiter, metrics, status, debug_sources, profiler)
+    app = make_http_app(limiter, metrics, status, debug_sources, profiler,
+                        admission)
     runner = web.AppRunner(app)
     await runner.setup()
     site = web.TCPSite(runner, host, port)

@@ -25,8 +25,15 @@ the MetricsLayer aggregate root that ``datastore_latency`` reads; the
 ``x-request-id`` interceptor; and gRPC server reflection, served
 unconditionally like the reference's.
 
-Left out of the port for now (``ROADMAP.md``): admission control, the
-native ingress's method table and the sync serving shards.
+Admission (``admission``, an ``AdmissionController``): ShouldRateLimit,
+on the standard and the raw-bytes handler, asks the controller before the
+request takes a batch slot, with the gRPC deadline
+(``context.time_remaining()``). A shed answers UNAVAILABLE, or
+OVER_LIMIT under ``--shed-response overlimit``, and never OK; the
+Kuadrant methods are not gated, as in the JAX package.
+
+Left out of the port for now (``ROADMAP.md``): the native ingress's
+method table and the sync serving shards.
 """
 
 from __future__ import annotations
@@ -94,15 +101,25 @@ def _response(code, result: Optional[CheckResult], with_headers: bool):
     return resp
 
 
+def _deadline(context) -> Optional[float]:
+    """The call's remaining lifetime in seconds (None without one)."""
+    time_remaining = getattr(context, "time_remaining", None)
+    return time_remaining() if callable(time_remaining) else None
+
+
 class RlsService:
     """Shared implementation behind both gRPC services."""
 
     def __init__(self, limiter,
                  metrics: Optional[PrometheusMetrics] = None,
-                 rate_limit_headers: str = RATE_LIMIT_HEADERS_NONE):
+                 rate_limit_headers: str = RATE_LIMIT_HEADERS_NONE,
+                 admission=None):
         self.limiter = limiter
         self.metrics = metrics
         self.rate_limit_headers = rate_limit_headers
+        #: AdmissionController: deadline and overload shedding before a
+        #: request takes a batch slot; None = no admission plane
+        self.admission = admission
         self._is_async = isinstance(limiter, AsyncRateLimiter)
 
     async def _check_and_update(self, namespace, ctx, delta, load):
@@ -125,6 +142,31 @@ class RlsService:
         else:
             self.limiter.update_counters(namespace, ctx, delta)
 
+    async def _admit(self, request, context, namespace):
+        """The admission gate before the storage decision. Returns a
+        ticket to release when the decision resolves, or a ready
+        OVER_LIMIT response when the request was shed with over-limit
+        semantics; an UNAVAILABLE shed aborts the RPC (Envoy's
+        failure_mode_deny then decides fail-open/closed, as for a storage
+        error)."""
+        from ..admission.controller import AdmissionShed
+
+        values = None
+        if request.descriptors:
+            values = {
+                e.key: e.value for e in request.descriptors[0].entries
+            }
+        try:
+            return self.admission.admit(namespace, values, _deadline(context))
+        except AdmissionShed as shed:
+            if shed.overlimit:
+                return _PLAIN_RESPONSES[
+                    rls_pb2.RateLimitResponse.OVER_LIMIT
+                ]
+            await context.abort(
+                grpc.StatusCode.UNAVAILABLE, f"Service unavailable: {shed}"
+            )
+
     # -- Envoy ShouldRateLimit (the hot path) -----------------------------
 
     async def should_rate_limit(self, request, context):
@@ -135,22 +177,33 @@ class RlsService:
         hits_addend = _hits_addend(request)
         with_headers = self.rate_limit_headers != RATE_LIMIT_HEADERS_NONE
         bind_request_metrics(self.metrics)
-        # W3C trace context from the gRPC metadata parents the span,
-        # read only when an exporter is installed.
-        carrier = None
-        if tracing_enabled():
-            carrier = dict(context.invocation_metadata() or ())
-        with should_rate_limit_span(namespace, hits_addend, carrier) as record:
-            try:
-                result = await self._check_and_update(
-                    namespace, ctx, hits_addend, with_headers
-                )
-            except StorageError as exc:
-                await context.abort(
-                    grpc.StatusCode.UNAVAILABLE,
-                    f"Service unavailable: {exc}",
-                )
-            record(result.limited, result.limit_name)
+        ticket = None
+        if self.admission is not None:
+            ticket = await self._admit(request, context, namespace)
+            if isinstance(ticket, rls_pb2.RateLimitResponse):
+                return ticket
+        try:
+            # W3C trace context from the gRPC metadata parents the span,
+            # read only when an exporter is installed.
+            carrier = None
+            if tracing_enabled():
+                carrier = dict(context.invocation_metadata() or ())
+            with should_rate_limit_span(
+                namespace, hits_addend, carrier
+            ) as record:
+                try:
+                    result = await self._check_and_update(
+                        namespace, ctx, hits_addend, with_headers
+                    )
+                except StorageError as exc:
+                    await context.abort(
+                        grpc.StatusCode.UNAVAILABLE,
+                        f"Service unavailable: {exc}",
+                    )
+                record(result.limited, result.limit_name)
+        finally:
+            if ticket is not None:
+                ticket.release()
         metrics = self.metrics
         if metrics:
             # evaluate the custom label map once per request
@@ -251,14 +304,33 @@ def make_rls_handlers(service: RlsService):
     return [envoy, kuadrant]
 
 
-def make_native_should_rate_limit_handler(native_pipeline, metrics=None):
+def make_native_should_rate_limit_handler(native_pipeline, metrics=None,
+                                          admission=None):
     """ShouldRateLimit over RAW request bytes: identity (de)serializers keep
     Python protobuf off the hot path; the native pipeline parses the wire
     bytes in C++ and answers with prebuilt response blobs. Storage errors
-    answer UNAVAILABLE."""
+    answer UNAVAILABLE.
+
+    With an admission controller, deadline and overload shedding happen
+    before the blob enters the pipeline; the priority is the default
+    class (descriptor entries only materialize in C++ past this
+    point)."""
 
     async def handler(blob: bytes, context) -> bytes:
         bind_request_metrics(metrics)
+        ticket = None
+        if admission is not None:
+            from ..admission.controller import AdmissionShed
+
+            try:
+                ticket = admission.admit(None, None, _deadline(context))
+            except AdmissionShed as shed:
+                if shed.overlimit:
+                    return native_pipeline.OVER_BLOB
+                await context.abort(
+                    grpc.StatusCode.UNAVAILABLE,
+                    f"Service unavailable: {shed}",
+                )
         try:
             # MetricsLayer aggregate for the native path: the one storage
             # wait (parse -> device -> response blob) is the request's
@@ -270,6 +342,9 @@ def make_native_should_rate_limit_handler(native_pipeline, metrics=None):
             await context.abort(
                 grpc.StatusCode.UNAVAILABLE, f"Service unavailable: {exc}"
             )
+        finally:
+            if ticket is not None:
+                ticket.release()
 
     return grpc.method_handlers_generic_handler(
         _ENVOY_SERVICE,
@@ -289,12 +364,14 @@ async def serve_rls(
     rate_limit_headers: str = RATE_LIMIT_HEADERS_NONE,
     native_pipeline=None,
     metrics: Optional[PrometheusMetrics] = None,
+    admission=None,
 ) -> grpc.aio.Server:
     """Start the gRPC server (returns it started; caller owns shutdown).
 
     With ``native_pipeline`` set, ShouldRateLimit runs the native
     columnar path, which answers without headers; the Kuadrant service
-    keeps the standard handlers. Every RPC passes the ``x-request-id``
+    keeps the standard handlers. With ``admission``, ShouldRateLimit
+    sheds through it first. Every RPC passes the ``x-request-id``
     interceptor, and server reflection lists both services."""
     from .middleware import GrpcRequestIdInterceptor
     from .reflection import make_reflection_handler
@@ -307,11 +384,11 @@ async def serve_rls(
             "the native pipeline answers ShouldRateLimit without headers"
         )
     server = grpc.aio.server(interceptors=(GrpcRequestIdInterceptor(),))
-    service = RlsService(limiter, metrics, rate_limit_headers)
+    service = RlsService(limiter, metrics, rate_limit_headers, admission)
     envoy_handler, kuadrant_handler = make_rls_handlers(service)
     if native_pipeline is not None:
         envoy_handler = make_native_should_rate_limit_handler(
-            native_pipeline, metrics
+            native_pipeline, metrics, admission
         )
     server.add_generic_rpc_handlers((envoy_handler,))
     server.add_generic_rpc_handlers((kuadrant_handler,))

@@ -1863,3 +1863,56 @@ def test_warm_apply_launches_on_a_table_of_its_own(cuda):
         assert K.launches["read_slots_host"] == before["read_slots_host"] + 1
         _equal([t.cpu() for t in table._state], state)
         table.close()
+
+
+def _admission_table(kind, device):
+    from limitador_tpu_torch.device.sharded import TorchShardedStorage
+
+    from .torch_admission import hangable
+
+    if kind == "sharded":
+        return hangable(TorchShardedStorage)(
+            n_shards=2, local_capacity=1 << 8, global_region=8,
+            device=device)
+    return hangable(TorchStorage)(capacity=1 << 8, device=device)
+
+
+@pytest.mark.parametrize("kind", ["torch", "sharded"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_failover_and_reconcile_on_the_card_match_the_cpu(cuda, kind, seed):
+    """A forced trip, seeded checks, reports and reads on the host
+    oracle, then the reconcile (B2's, B7c's host form) into a table on
+    the card and one on the CPU: equal answers, journals and counters."""
+    from .torch_admission import failover_script, port
+
+    pkg = port()
+    got = failover_script(pkg, _admission_table(kind, cuda), seed)
+    want = failover_script(pkg, _admission_table(kind, "cpu"), seed)
+    assert got == want
+    assert got["applied"] == len(got["journal"]) > 0
+
+
+@pytest.mark.parametrize("kind", ["torch", "sharded"])
+def test_chaos_drill_on_the_card_matches_the_cpu(cuda, kind):
+    """The hang, stall trip, failover, probe (B1, B7a) and reconcile
+    (B2, B7c) drill on a table on the card ends where the CPU's does:
+    the failover window's answers and the oracle's counters."""
+    import asyncio
+
+    from .torch_admission import chaos, port
+
+    pkg = port()
+    before = dict(K.launches)
+    got = asyncio.run(chaos(pkg, _admission_table(kind, cuda)))
+    launched = {k: K.launches[k] - before[k] for k in K.launches}
+    want = asyncio.run(chaos(pkg, _admission_table(kind, "cpu")))
+    oracle = {("bulk", "bulk", (("u", "shared"),)): 140,
+              ("tight", "tight", (("u", "shared"),)): 120}
+    assert got["spent"] == want["spent"] == oracle
+    assert got["c"] == want["c"] and got["c"].count("ok") == 120
+    assert got["closed"] and got["reconciled"] == want["reconciled"] == 2
+    assert sum(got["b"].values()) == 40 and got["b"]["over"] == 0
+    prefix = "sharded_" if kind == "sharded" else ""
+    assert launched[prefix + "update_host"] >= 1
+    assert launched[prefix + "check_and_update"] \
+        + launched[prefix + "check_and_update_cluster"] >= 1

@@ -11,6 +11,8 @@
   ``cached`` replica flushing to a torch table served as the shared
   authority.
 - An AST scan of the port's sources finds no such import.
+- A server imports the admission package only when
+  ``--admission-mode`` is not ``off``.
 - The port's protobuf message classes are its own even when both
   packages are loaded in one process (the JAX package registers the same
   ``.proto`` files and puts its proto directory on ``sys.path``).
@@ -256,3 +258,39 @@ def test_torch_profiler_is_imported_only_in_the_capture_start():
     assert [(p, s) for p, s, _l in found] == [
         ("limitador_tpu_torch/observability/device_plane.py",
          "TorchProfiler._start")], found
+
+
+_IMPORTS = r'''
+import asyncio, sys
+from limitador_tpu_torch.server import __main__ as m
+
+async def main(argv):
+    server = await m.start(m.build_parser().parse_args(argv))
+    try:
+        return ("limitador_tpu_torch.admission" in sys.modules,
+                server.admission is not None)
+    finally:
+        await server.stop()
+
+print(asyncio.run(main(sys.argv[1:])))
+'''
+
+
+@pytest.mark.parametrize("mode", ["off", "enforce"])
+def test_the_admission_package_is_imported_only_when_asked_for(tmp_path,
+                                                               mode):
+    """A server started with ``--admission-mode off`` (the default)
+    never imports ``limitador_tpu_torch.admission``; with ``enforce`` it
+    builds the controller."""
+    from .torch_http import LIMITS, free_port, port_argv
+
+    limits = tmp_path / "limits.yaml"
+    limits.write_text(LIMITS)
+    argv = port_argv(limits, "torch", free_port(), "--admission-mode", mode)
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", _IMPORTS, *argv], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    on = mode != "off"
+    assert proc.stdout.strip().splitlines()[-1] == str((on, on))
