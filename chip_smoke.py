@@ -6,8 +6,9 @@ Phases, in order; any failure exits non-zero and nothing falls back:
 
 1. The card: its name, compute capability (must be 9.0) and power limit.
 2. The build: nvcc builds the counter-table kernels from
-   limitador_tpu_torch/csrc/ for sm_90a, and g++ builds the C++ host lane
-   (csrc/hostpath.cc), both started together; prints seconds and ptxas
+   limitador_tpu_torch/csrc/ for sm_90a, g++ builds the C++ host lane
+   (csrc/hostpath.cc) and g++ the native HTTP/2 ingress
+   (csrc/h2ingress.cc), all started together; prints seconds and ptxas
    lines.
 3. Each kernel against its plain PyTorch version on the card, over a
    1<<20-counter table with numpy-seeded Zipf-0.99 batches: bit-exact
@@ -299,6 +300,23 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    start: a fresh process builds the kernels and the host lane into an
    empty directory and starts an enforce server on the card: start, nvcc
    and g++ seconds, the warm-up launch and the first calls.
+16. The native HTTP/2 ingress: a torch server on the card with
+   --pipeline native --native-ingress (1<<20 cells, the control planes
+   at their defaults), phase 6's grpc.aio native server and a memory
+   server on one frozen clock. (a) 2,000 ShouldRateLimit calls over
+   Zipf-0.99 users from 1<<20 keys (every 7th unmatched, every 10th with
+   a second descriptor: the exact path), one at a time to each:
+   byte-equal answers, the ingress's p50/p99 beside grpc.aio's. (b) From
+   16 threads on one channel: 4,000 calls for one key of max 3 (exactly
+   3 OK), then 20,000 over Zipf users of max 5 (min(5, calls) OK each);
+   decisions per second, the pump's rows a batch, and the card's
+   counters equal the memory server's limiter fed the admitted hits.
+   (c) Kuadrant CheckRateLimit/Report on the ingress port and on
+   --rls-port + 1, equal at each step; a reflection stream listing both
+   services; an unknown method answering UNIMPLEMENTED. (d) /metrics:
+   ingress_requests equal to the calls sent, ingress_protocol_errors 0,
+   native_phase_h2i_respond counted; B1 on the card by route and shape,
+   B2's host form by the Reports.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -669,7 +687,8 @@ def phase_card():
 
 
 def phase_build():
-    """nvcc (the CUDA kernels) and g++ (the host lane) run together."""
+    """nvcc (the CUDA kernels), g++ (the host lane) and g++ (the native
+    ingress) run together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from limitador_tpu_torch import native
@@ -677,12 +696,14 @@ def phase_build():
     from limitador_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(build.library), pool.submit(host_build.library)]
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(build.library), pool.submit(host_build.library),
+                pool.submit(host_build.ingress_library)]
         for job in jobs:
             job.result()
     info = build.build_info
     host = host_build.build_info
+    ingress = host_build.ingress_build_info
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()
     print(f"nvcc: {nvcc[-1] if nvcc else 'unknown'}; a host list carries "
@@ -690,9 +711,12 @@ def phase_build():
           f"kernel parameter block")
     print(f"build: {time.perf_counter() - t0:.2f}s "
           f"(nvcc {info['seconds']:.2f}s, built={info['built']}; "
-          f"g++ {host['seconds']:.2f}s, built={host['built']}) "
+          f"g++ {host['seconds']:.2f}s, built={host['built']}; "
+          f"g++ ingress {ingress['seconds']:.2f}s, "
+          f"built={ingress['built']}) "
           f"-> {os.path.relpath(info['path'])}, "
-          f"{os.path.relpath(host['path'])}")
+          f"{os.path.relpath(host['path'])}, "
+          f"{os.path.relpath(ingress['path'])}")
     if not (native.lane_available() and native.lease_available()):
         fail("the host lane lacks its hot-lane or lease exports")
     for line in info["ptxas"]:
@@ -7253,6 +7277,524 @@ def phase_admission(dev, card):
 
 
 
+# -- phase 16: the native HTTP/2 ingress --------------------------------------
+
+# ing: 16a's serial calls (every 7th a POST, which no limit matches; every
+# 10th with a second descriptor, which takes the exact path); one: 16b's
+# single key; zipf: 16b's concurrent Zipf users.
+INGRESS_YAML = """\
+- namespace: ing
+  max_value: 5
+  seconds: 60
+  conditions: ["descriptors[0].method == 'GET'"]
+  variables: ["descriptors[0].user"]
+  name: ing-per-user
+- namespace: one
+  max_value: 3
+  seconds: 60
+  variables: ["descriptors[0].user"]
+  name: one-key
+- namespace: zipf
+  max_value: 5
+  seconds: 60
+  variables: ["descriptors[0].user"]
+  name: zipf-per-user
+"""
+INGRESS_SERIAL = 2000
+INGRESS_ONE_KEY = 4000
+INGRESS_ZIPF = 20000
+INGRESS_THREADS = 16
+INGRESS_KEYS = 1 << 20
+ENVOY_PATH = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+KUADRANT_PATH = "/kuadrant.service.ratelimit.v1.RateLimitService/"
+
+
+#: the spans of phase 16's split of a pump batch: ``begin`` inside
+#: ``decide``; ``launch`` (every ``begin_check_columnar``: upload, B1,
+#: the download's start) and ``miss_lane`` inside ``begin``, the miss
+#: lane's own launches in both; ``device_wait`` inside ``collect``
+#: inside ``finish``
+INGRESS_SPANS = ("decide", "begin", "launch", "miss_lane", "finish",
+                 "collect", "device_wait")
+
+
+def _ingress_split(busy, batches):
+    """ms a pump batch in each span; ``slot_wait`` is the decide's
+    time outside its begin (the wait for a finish slot, the slow rows'
+    submits), ``respond`` the finish's outside its collect."""
+    out = {name: busy[name] / max(batches, 1) * 1e3
+           for name in INGRESS_SPANS}
+    out["slot_wait"] = out["decide"] - out["begin"]
+    out["respond"] = out["finish"] - out["collect"]
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def _free_port_pair():
+    """A free local port p whose p + 1 is free too (the ingress's and the
+    gRPC server's)."""
+    for _ in range(100):
+        with socket.socket() as a:
+            a.bind(("127.0.0.1", 0))
+            port = a.getsockname()[1]
+            with socket.socket() as b:
+                try:
+                    b.bind(("127.0.0.1", port + 1))
+                except OSError:
+                    continue
+        return port
+    fail("no free pair of local ports")
+
+
+@contextlib.contextmanager
+def _b1_tally(counts):
+    """Count B1's card calls by route and shape while the block runs (the
+    storage looks the wrapper up on its module at each call)."""
+    from limitador_tpu_torch.ops import kernel as K
+
+    b1 = K.check_and_update_batch
+
+    def tally(state, slots, *args, route=None):
+        if state.values.is_cuda:
+            H = slots.shape[0]
+            key = f"B1 {route or K.check_route(H)} H={H}"
+            counts[key] = counts.get(key, 0) + 1
+        return b1(state, slots, *args, route=route)
+
+    K.check_and_update_batch = tally
+    try:
+        yield counts
+    finally:
+        K.check_and_update_batch = b1
+
+
+def _ingress_serial_blobs(rls_pb2, rng, calls):
+    users = zipf_keys(INGRESS_KEYS, calls, 0.99, rng)
+    out = []
+    for i, user in enumerate(users.tolist()):
+        descriptors = [{"method": "POST" if i % 7 == 3 else "GET",
+                        "user": f"u{user}"}]
+        if i % 10 == 9:
+            descriptors.append({"tenant": "t1"})
+        out.append(_rls_request(rls_pb2, "ing", descriptors,
+                                2 if i % 11 == 5 else 0))
+    return out
+
+
+def _unary(channel, path):
+    return channel.unary_unary(path, request_serializer=None,
+                               response_deserializer=None)
+
+
+def _ingress_serial(port, aio_port, oracle_port, blobs):
+    """16a: each call to the ingress (timed), to phase 6's grpc.aio
+    native server (timed) and to the memory server, one at a time from
+    this thread. Returns (latencies of each, mismatches)."""
+    import grpc
+
+    lat_ing, lat_aio, bad = [], [], []
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ic, \
+            grpc.insecure_channel(f"127.0.0.1:{aio_port}") as ac, \
+            grpc.insecure_channel(f"127.0.0.1:{oracle_port}") as oc:
+        ing, aio, mem = (_unary(c, ENVOY_PATH) for c in (ic, ac, oc))
+        for i, blob in enumerate(blobs):
+            t0 = time.perf_counter()
+            got = ing(blob, timeout=60)
+            t1 = time.perf_counter()
+            got_aio = aio(blob, timeout=60)
+            t2 = time.perf_counter()
+            want = mem(blob, timeout=60)
+            lat_ing.append(t1 - t0)
+            lat_aio.append(t2 - t1)
+            if got != want or got_aio != want:
+                bad.append((i, got, got_aio, want))
+    return np.asarray(lat_ing) * 1e3, np.asarray(lat_aio) * 1e3, bad
+
+
+# 16b's client: its own process, as Envoy is, so that its 16 threads do
+# not share the server's interpreter lock with the pump. argv: port,
+# threads, the blobs file (u32 length-prefixed), the answers file (one
+# byte a call: 1 the OK blob, 2 the OVER_LIMIT blob, 0 anything else).
+_INGRESS_CLIENT = r'''
+import json, resource, sys, time
+from concurrent.futures import ThreadPoolExecutor
+
+import grpc
+
+port, threads, src, dst = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+raw = open(src, "rb").read()
+blobs, off = [], 0
+while off < len(raw):
+    n = int.from_bytes(raw[off:off + 4], "little")
+    blobs.append(raw[off + 4:off + 4 + n])
+    off += 4 + n
+OK, OVER = b"\x08\x01", b"\x08\x02"
+with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+    call = channel.unary_unary(
+        "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit")
+    # the connection, before the clock (no call: each one counts)
+    grpc.channel_ready_future(channel).result(timeout=60)
+    r0 = resource.getrusage(resource.RUSAGE_SELF)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        answers = list(pool.map(lambda b: call(b, timeout=60), blobs))
+    seconds = time.perf_counter() - t0
+    r1 = resource.getrusage(resource.RUSAGE_SELF)
+open(dst, "wb").write(bytes(1 if a == OK else 2 if a == OVER else 0
+                            for a in answers))
+print(json.dumps({"seconds": seconds,
+                  "cpu_s": (r1.ru_utime - r0.ru_utime)
+                  + (r1.ru_stime - r0.ru_stime)}))
+'''
+
+
+def _ingress_concurrent(port, blobs, tmpdir, threads=INGRESS_THREADS):
+    """16b: every blob once, from ``threads`` threads on ONE channel of a
+    client process; (codes in blob order: 1 OK, 2 OVER_LIMIT, 0 other;
+    the drive's seconds; the client's CPU seconds in it)."""
+    src = os.path.join(tmpdir, "blobs.bin")
+    dst = os.path.join(tmpdir, "answers.bin")
+    with open(src, "wb") as f:
+        for b in blobs:
+            f.write(len(b).to_bytes(4, "little") + b)
+    proc = subprocess.run(
+        [sys.executable, "-c", _INGRESS_CLIENT, str(port), str(threads),
+         src, dst], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"16b's client process failed:\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(dst, "rb") as f:
+        codes = list(f.read())
+    return codes, out["seconds"], out["cpu_s"]
+
+
+def _ingress_surface(port, rls_pb2):
+    """16c: Kuadrant CheckRateLimit/Report on the ingress port and on the
+    gRPC server's (port + 1), answers equal at each step; a reflection
+    stream listing the services; an unknown method. Returns (calls sent
+    to the ingress, stream messages, problems)."""
+    import grpc
+
+    from limitador_tpu_torch.server.proto import reflection_pb2
+
+    problems = []
+    sent = 0
+    req = functools.partial(_rls_request, rls_pb2)
+    blob = req("ing", [{"method": "GET", "user": "kq"}])
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ic, \
+            grpc.insecure_channel(f"127.0.0.1:{port + 1}") as gc:
+
+        def both(name):
+            nonlocal sent
+            sent += 1
+            a = _unary(ic, KUADRANT_PATH + name)(blob, timeout=60)
+            b = _unary(gc, KUADRANT_PATH + name)(blob, timeout=60)
+            return a, b
+
+        codes = []
+        for step, (method, channel) in enumerate((
+                ("CheckRateLimit", None), ("Report", ic),
+                ("CheckRateLimit", None), ("Report", gc),
+                ("CheckRateLimit", None), ("Report", ic),
+                ("CheckRateLimit", None))):
+            if channel is None:
+                a, b = both(method)
+                if a != b:
+                    problems.append(f"step {step}: ingress {a!r} gRPC {b!r}")
+                codes.append(rls_pb2.RateLimitResponse.FromString(
+                    a).overall_code)
+            else:
+                sent += channel is ic
+                _unary(channel, KUADRANT_PATH + method)(
+                    req("ing", [{"method": "GET", "user": "kq"}], 2),
+                    timeout=60)
+        ok, over = (rls_pb2.RateLimitResponse.OK,
+                    rls_pb2.RateLimitResponse.OVER_LIMIT)
+        if codes != [ok, ok, ok, over]:
+            problems.append(f"Kuadrant check codes {codes}")
+        stream = ic.stream_stream(
+            "/grpc.reflection.v1alpha.ServerReflection/ServerReflectionInfo",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=(
+                reflection_pb2.ServerReflectionResponse.FromString))
+        answers = list(stream(iter([
+            reflection_pb2.ServerReflectionRequest(list_services="")]),
+            timeout=60))
+        names = {s.name for a in answers
+                 for s in a.list_services_response.service}
+        want = {"envoy.service.ratelimit.v3.RateLimitService",
+                "kuadrant.service.ratelimit.v1.RateLimitService",
+                "grpc.reflection.v1alpha.ServerReflection"}
+        if len(answers) != 1 or names != want:
+            problems.append(f"reflection listed {sorted(names)}")
+        sent += 1
+        try:
+            _unary(ic, "/foo.Bar/Baz")(blob, timeout=60)
+            problems.append("an unknown method answered OK")
+        except grpc.RpcError as exc:
+            if exc.code() != grpc.StatusCode.UNIMPLEMENTED:
+                problems.append(f"an unknown method answered {exc.code()}")
+    # the stream: its one message and its half-close
+    return sent, 2, problems
+
+
+async def _native_ingress(tmpdir, dev, card, serial=INGRESS_SERIAL,
+                          one_key=INGRESS_ONE_KEY, zipf=INGRESS_ZIPF):
+    """Phase 16. A torch server on the card with --pipeline native
+    --native-ingress (the table at the main path's 1<<20 cells, the
+    control planes at their defaults), phase 6's grpc.aio native server
+    and a memory server, all on one frozen clock. (a) ``serial`` calls
+    one at a time to each: byte-equal answers, the ingress's p50/p99
+    beside grpc.aio's; (b) ``one_key`` calls for one key of max 3, then
+    ``zipf`` over Zipf-0.99 users of max 5, from 16 threads on one
+    channel: exactly 3, min(5, calls) a user, and the card's counters
+    equal an oracle fed the admitted hits; (c) the Kuadrant methods,
+    reflection and an unknown method on the ingress port; (d) what
+    /metrics and the launch counts record."""
+    from limitador_tpu_torch.core.cel import Context
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "native ingress (16)"
+    limits = os.path.join(tmpdir, "limits.yaml")
+    with open(limits, "w") as f:
+        f.write(INGRESS_YAML)
+    clock = ManualClock()
+    parse = server.build_parser().parse_args
+    common = ["--rls-host", "127.0.0.1", "--rate-limit-headers", "NONE"]
+    native = ["--device", dev.type, "--pipeline", "native"]
+    port = _free_port_pair()
+    ing_http, ing_http_port = _http_options()
+    loop = asyncio.get_running_loop()
+    rng = np.random.default_rng(16)
+    serial_blobs = _ingress_serial_blobs(rls_pb2, rng, serial)
+    one_blob = _rls_request(rls_pb2, "one", [{"user": "hot"}])
+    zipf_users = zipf_keys(INGRESS_KEYS, zipf, 0.99, rng).tolist()
+    zipf_blobs = [_rls_request(rls_pb2, "zipf", [{"user": f"z{u}"}])
+                  for u in zipf_users]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    routes: dict = {}
+    failures = []
+    gpu = await server.start(parse(
+        [limits, "torch", *common, *native, "--native-ingress",
+         *ing_http, "--rls-port", str(port)]), clock=clock,
+        on_failure=failures.append)
+    aio = oracle = None
+    try:
+        aio_port, oracle_port = (_free_port_pair() for _ in range(2))
+        aio = await server.start(parse(
+            [limits, "torch", *common, *native, *_http_options()[0],
+             "--rls-port", str(aio_port)]), clock=clock,
+            on_failure=failures.append)
+        # the memory server's LRU must hold every counter of the phase
+        oracle = await server.start(parse(
+            [limits, "memory", *common, *_http_options()[0],
+             "--cache-size", str(INGRESS_KEYS), "--rls-port",
+             str(oracle_port)]), clock=clock)
+        if gpu.native_ingress is None or gpu.native_ingress.port != port:
+            fail(f"{label}: the ingress does not serve --rls-port {port}")
+        pipeline = gpu.native_pipeline
+        begins = {"calls": 0, "rows": 0}
+        coded = pipeline._begin_batch_coded_ptrs
+
+        def counted(ptrs, lens, n):
+            begins["calls"] += 1
+            begins["rows"] += n
+            return coded(ptrs, lens, n)
+
+        # where the pump's and the finish threads' time goes: the pump's
+        # batch (decide: the begin, then the wait for a finish slot; the
+        # begin: the hot lane and B1's launch, the miss lane) and a
+        # finish thread's (collect: the device wait, then the respond)
+        busy = dict.fromkeys(INGRESS_SPANS, 0.0)
+        ingress = gpu.native_ingress
+        table = pipeline.storage
+
+        def timed(name, fn):
+            def run(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    busy[name] += time.perf_counter() - t
+            return run
+
+        pipeline._begin_batch_coded_ptrs = timed("begin", counted)
+        pipeline._begin_miss_lane = timed("miss_lane",
+                                          pipeline._begin_miss_lane)
+        pipeline._finish_namespace = timed("collect",
+                                           pipeline._finish_namespace)
+        table.begin_check_columnar = timed("launch",
+                                           table.begin_check_columnar)
+        table.finish_check_columnar = timed("device_wait",
+                                            table.finish_check_columnar)
+        ingress._decide_coded = timed("decide", ingress._decide_coded)
+        ingress._finish_coded = timed("finish", ingress._finish_coded)
+        with _b1_tally(routes):
+            # (a) serial
+            lat_ing, lat_aio, bad = await loop.run_in_executor(
+                None, _ingress_serial, port, aio_port, oracle_port,
+                serial_blobs)
+            for i, got, got_aio, want in bad[:5]:
+                print(f"  call {i}: ingress {got!r} grpc.aio {got_aio!r} "
+                      f"memory {want!r}")
+            if bad:
+                fail(f"{label}: {len(bad)} of {serial} serial answers "
+                     "differ from the memory server")
+            stats = {}
+            for name, lat in (("ingress", lat_ing), ("grpc.aio", lat_aio)):
+                stats[name] = {"p50_ms": float(np.percentile(lat, 50)),
+                               "p99_ms": float(np.percentile(lat, 99)),
+                               "mean_ms": float(lat.mean())}
+            print(f"{label} (a): {serial} serial ShouldRateLimit calls "
+                  f"byte-equal with the memory server; served latency "
+                  f"({card}): ingress p50 "
+                  f"{stats['ingress']['p50_ms']:.3f} ms p99 "
+                  f"{stats['ingress']['p99_ms']:.3f} ms, phase 6's "
+                  f"grpc.aio p50 {stats['grpc.aio']['p50_ms']:.3f} ms p99 "
+                  f"{stats['grpc.aio']['p99_ms']:.3f} ms")
+            serial_begins = dict(begins)
+            split_a = _ingress_split(busy, serial_begins["calls"])
+            print(f"{label} (a): ms a pump batch (one call): "
+                  f"{json.dumps(split_a)}")
+            busy.update(dict.fromkeys(INGRESS_SPANS, 0.0))
+            # (b) concurrent, one connection, from a client process
+            cpu0 = time.process_time()
+            one, one_s, one_cpu = await loop.run_in_executor(
+                None, _ingress_concurrent, port, [one_blob] * one_key,
+                tmpdir)
+            answers, zipf_s, zipf_cpu = await loop.run_in_executor(
+                None, _ingress_concurrent, port, zipf_blobs, tmpdir)
+            cpu_s = time.process_time() - cpu0
+            busy_b = dict(busy)
+        one_ok = one.count(1)
+        if one_ok != 3 or one.count(2) != one_key - 3:
+            fail(f"{label}: {one_ok} of {one_key} concurrent calls for one "
+                 "key of max 3 answered OK")
+        calls, admitted = {}, {}
+        for user, answer in zip(zipf_users, answers):
+            calls[user] = calls.get(user, 0) + 1
+            if answer == 1:
+                admitted[user] = admitted.get(user, 0) + 1
+            elif answer != 2:
+                fail(f"{label}: a Zipf call answered neither OK nor "
+                     "OVER_LIMIT")
+        wrong = [u for u in calls if admitted.get(u, 0) != min(5, calls[u])]
+        if wrong:
+            fail(f"{label}: {len(wrong)} of {len(calls)} Zipf users admitted "
+                 f"other than min(5, calls), e.g. user {wrong[0]}: "
+                 f"{admitted.get(wrong[0], 0)} of {calls[wrong[0]]}")
+        rows = begins["rows"] - serial_begins["rows"]
+        batches = max(begins["calls"] - serial_begins["calls"], 1)
+        drive_s = one_s + zipf_s
+        rate = (one_key + zipf) / drive_s
+        mean_batch = rows / batches
+        client_cores = (one_cpu + zipf_cpu) / drive_s
+        server_cores = cpu_s / drive_s
+        # The pump's share of the drive inside a batch (the begin, and
+        # the wait for a finish slot when both are taken); the rest it
+        # waits in h2i_take for calls. Mostly waiting: the clients bound
+        # the rate, not the server.
+        pump_busy = busy_b["decide"] / drive_s
+        finish_busy = busy_b["finish"] / drive_s
+        client_bound = pump_busy < 0.5
+        split_b = _ingress_split(busy_b, batches)
+        print(f"{label} (b): exactly 3 of {one_key} calls for one key; "
+              f"{zipf} calls over {len(calls)} Zipf users admitted min(5, "
+              f"calls) each; {rate:.0f} decisions/s from "
+              f"{INGRESS_THREADS} client threads on one channel of a "
+              f"client process ({one_s:.2f} s + {zipf_s:.2f} s; client "
+              f"CPU {client_cores:.2f} cores, server process "
+              f"{server_cores:.2f}), {rows} rows in {batches} coded pump "
+              f"batches ({mean_batch:.2f} a batch); the pump busy "
+              f"{pump_busy:.2f} of the drive, the finish threads "
+              f"{finish_busy:.2f} (of 2): "
+              + ("the client threads bound it (the pump waits for calls "
+                 "most of the time)" if client_bound else
+                 "the server bounds it (the pump is busy most of the "
+                 "time)")
+              + f"; ms a pump batch: {json.dumps(split_b)}")
+        # the oracle: the memory server's limiter fed the admitted hits
+        for ns, fed in (("one", {"hot": one_ok}),
+                        ("zipf", {f"z{u}": n for u, n in admitted.items()})):
+            for user, n in fed.items():
+                ctx = Context()
+                ctx.list_binding("descriptors", [{"user": user}])
+                oracle.limiter.update_counters(ns, ctx, n)
+        # (c) the rest of the surface
+        sent_c, stream_msgs, problems = await loop.run_in_executor(
+            None, _ingress_surface, port, rls_pb2)
+        if problems:
+            fail(f"{label} (c): {problems}")
+        # ... and the oracle the three Reports of 2 hits each
+        ctx = Context()
+        ctx.list_binding("descriptors", [{"method": "GET", "user": "kq"}])
+        for _ in range(3):
+            oracle.limiter.update_counters("ing", ctx, 2)
+        print(f"{label} (c): Kuadrant CheckRateLimit/Report answers equal "
+              f"on the ingress port and on --rls-port + 1; reflection "
+              f"lists both services; an unknown method answers "
+              f"UNIMPLEMENTED")
+        final = {}
+        for name, srv in (("gpu", gpu), ("oracle", oracle)):
+            got = {}
+            for ns in ("ing", "one", "zipf"):
+                counters = srv.limiter.get_counters(ns)
+                if asyncio.iscoroutine(counters):
+                    counters = await counters
+                for c in counters:
+                    got[(ns, tuple(c.set_variables.items()))] = c.remaining
+            final[name] = got
+        if final["gpu"] != final["oracle"]:
+            diff = set(final["gpu"].items()) ^ set(final["oracle"].items())
+            fail(f"{label}: the card's counters differ from the oracle's: "
+                 f"{sorted(diff)[:5]}")
+        # (d) what it records
+        sent = serial + one_key + zipf + sent_c + stream_msgs
+        families = await _served_metrics(ing_http_port)
+        requests = _metric(families, "ingress_requests")
+        errors = _metric(families, "ingress_protocol_errors")
+        respond = _histogram(families, "native_phase_h2i_respond")
+        if requests != sent or errors != 0 or not respond["count"]:
+            fail(f"{label} (d): ingress_requests {requests} (sent {sent}), "
+                 f"ingress_protocol_errors {errors}, "
+                 f"native_phase_h2i_respond {respond}")
+        stats["ingress_stats"] = gpu.native_ingress.stats()
+        if failures:
+            fail(f"{label}: a background tier failed: {failures[0]!r}")
+    finally:
+        for srv in (gpu, aio, oracle):
+            if srv is not None:
+                await srv.stop()
+    launches = dict(K.launches)
+    if not any(key.startswith("B1 ") for key in routes):
+        fail(f"{label}: B1 did not launch on the card")
+    if launches["update_host"] == 0:
+        fail(f"{label}: the Reports did not launch B2's host form")
+    seconds = time.perf_counter() - t0
+    print(f"{label} (d): /metrics ingress_requests {int(requests)} = calls "
+          f"sent, ingress_protocol_errors 0, native_phase_h2i_respond "
+          f"{json.dumps(respond)}; B1 card calls by route and shape "
+          f"{json.dumps(dict(sorted(routes.items())))}; launches "
+          f"{json.dumps(launches)}; {seconds:.1f} s")
+    return launches, {
+        "serial": stats, "decisions_per_s": rate,
+        "one_key_s": one_s, "zipf_s": zipf_s, "zipf_users": len(calls),
+        "pump_batches": batches, "pump_rows": rows,
+        "client_cpu_cores": client_cores, "server_cpu_cores": server_cores,
+        "pump_busy": pump_busy, "finish_busy": finish_busy,
+        "split_serial_ms": split_a, "split_concurrent_ms": split_b,
+        "client_bound": client_bound,
+        "routes": routes, "h2i_respond": respond, "seconds": seconds,
+    }
+
+
+def phase_native_ingress(dev, card):
+    with tempfile.TemporaryDirectory() as tmpdir:
+        return asyncio.run(_native_ingress(tmpdir, dev, card))
+
+
 def main() -> int:
     name, card = phase_card()
     import torch
@@ -7325,6 +7867,7 @@ def main() -> int:
     planes_launches, control_planes = phase_control_planes(dev, card)
     host_launches, host_storages = phase_host_storages(dev, card)
     admission_launches, admission = phase_admission(dev, card)
+    ingress_launches, ingress = phase_native_ingress(dev, card)
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -7359,14 +7902,16 @@ def main() -> int:
         _host_forms_only(got, label, remote=False)
     _storage_forms(plane_launches, "device plane (12)", ("update_host",))
     # launches on the main paths: phases 4, 5, 6, 7, 8a, 8b, 9a, 9b, 10a,
-    # 10b, 11, 12, 13, 14, 15 (14c's authority and 15d's server are other
-    # processes: 14c's RPCs are counted by its /debug/stats, not here)
+    # 10b, 11, 12, 13, 14, 15, 16 (14c's authority and 15d's server are
+    # other processes: 14c's RPCs are counted by its /debug/stats, not
+    # here)
     runs = (launches, drive5_launches, native_launches, drive_launches,
             repl_launches,
             served_launches, tier_launches, served_tier_launches,
             leased_tier_launches, served_default_launches, sharded_launches,
             served_sharded_launches, http_launches, plane_launches,
-            planes_launches, host_launches, admission_launches)
+            planes_launches, host_launches, admission_launches,
+            ingress_launches)
     launches = {name: sum(run[name] for run in runs) for name in launches}
     kernels = []
     for kname, by_shape in results.items():
@@ -7425,6 +7970,8 @@ def main() -> int:
             "host_storages_launches": host_launches,
             "admission": admission,
             "admission_launches": admission_launches,
+            "native_ingress": ingress,
+            "native_ingress_launches": ingress_launches,
         }, f, indent=1)
     spool_root.cleanup()
     print(f"card: {card}")

@@ -64,15 +64,22 @@ run, so nothing launches on the dead plane; leases stay as they are);
 and ``fail_over_queued`` (a trip) sends every queued request down that
 path and fails every dispatched chunk.
 
+The native ingress (``native/ingress.py``) enters through
+``lane_code_templates`` (the (status, payload) answered for each hot-lane
+outcome code) and ``_begin_batch_coded_ptrs`` (the coded begin over the
+ingress's take buffers, where only miss and slow rows become Python
+bytes); its collect is ``_finish_namespace``, as the submit path's.
+
 Left out of the port for now (``ROADMAP.md``): the pod fast path
 (``attach_pod``, the foreign-row lane and the bulk forwards, with the
-``pod_*`` families), the native ingress entry points.
+``pod_*`` families).
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextvars
+import ctypes
 import logging
 import threading
 import time
@@ -432,6 +439,18 @@ class NativeRlsPipeline:
             return {}
         return broker.outstanding_by_slot()
 
+    def lane_code_templates(self) -> Optional[dict]:
+        """(grpc status, payload) per hot-lane outcome code, for the
+        native ingress's coded respond; None with the lane off (the
+        ingress then answers row by row)."""
+        if self._hot_lane is None:
+            return None
+        return {
+            native.LANE_OK: (0, self.OK_BLOB),
+            native.LANE_UNKNOWN: (0, self.UNKNOWN_BLOB),
+            native.LANE_OVER: (0, self.OVER_BLOB),
+        }
+
     def _plan_for(self, domain_token: int) -> Optional[_NsPlan]:
         plan = self._plans.get(domain_token, _MISSING_PLAN)
         if plan is not _MISSING_PLAN:
@@ -745,6 +764,22 @@ class NativeRlsPipeline:
         with self._native_lock:
             return self._begin_batch_locked(blobs)
 
+    def _begin_batch_coded_ptrs(self, ptrs, lens, n: int):
+        """The ingress pump's begin: the batch stays in the take buffers
+        (ctypes pointer and length arrays), so that a repeat descriptor
+        runs no Python per row between the pump and the launch. Returns
+        (codes, results, slow_rows, pendings); the hot lane must be on
+        (the pump asks ``lane_code_templates`` first)."""
+        if self._hot_lane is None:
+            raise RuntimeError("native hot lane is off")
+        with self._native_lock:
+            results, slow_rows, pendings, codes = (
+                self._begin_batch_coded_locked(
+                    None, True, ptrs=ptrs, lens=lens, count=n
+                )
+            )
+        return codes, results, slow_rows, pendings
+
     def _timed_begin_batch(self, blobs: List[bytes]):
         """(begin result, t_start, t_end, host_cache_s, native_lane_s):
         the dispatch thread's host phase with its plan-cache and hot-lane
@@ -776,7 +811,8 @@ class NativeRlsPipeline:
         return results, slow_rows, pendings
 
     def _begin_batch_coded_locked(
-        self, blobs: List[bytes], use_cache: bool = True,
+        self, blobs: Optional[List[bytes]], use_cache: bool = True,
+        ptrs=None, lens=None, count: Optional[int] = None,
     ):
         """Host phase: hot-lane (or plan-cache) lookup, then
         parse/group/evaluate/slots for the misses, LAUNCH kernels for
@@ -787,10 +823,13 @@ class NativeRlsPipeline:
           decided stay None in ``results``.
         - the miss lane fills ``results`` rows directly (bytes /
           STORAGE_ERROR); slow_rows lists exact-path rows (left None).
+        - ``blobs`` is None when ``ptrs``/``lens``/``count`` address the
+          batch in place (the ingress's take buffers, hot lane on): only
+          miss rows become Python bytes then.
 
         ``use_cache=False`` (the lane-off bulk path) skips lane, lookup
         and insertion. Callers hold ``_native_lock``."""
-        n = len(blobs)
+        n = count if blobs is None else len(blobs)
         adm = self._torch.admission
         if adm is not None and adm.use_failover():
             # Breaker open: every row takes the exact path (whose storage
@@ -824,7 +863,10 @@ class NativeRlsPipeline:
             # before the lock is released: the next begin reuses them.
             t_lane0 = time.perf_counter()
             with self.storage._lock:
-                staged = lane.begin(blobs, cache_epoch)
+                if blobs is not None:
+                    staged = lane.begin(blobs, cache_epoch)
+                else:
+                    staged = lane.begin_ptrs(ptrs, lens, n, cache_epoch)
                 staged.fill_results = False
                 if staged.k:
                     inflight = self.storage.begin_check_columnar(
@@ -845,6 +887,11 @@ class NativeRlsPipeline:
             if n_miss == 0:
                 return results, slow_rows, pendings, codes
             miss_idx = np.nonzero(miss_mask)[0].tolist()
+            if blobs is None:
+                # Pointer-addressed batch: only the miss rows become
+                # Python bytes (the hot rows never do).
+                blobs = {i: ctypes.string_at(ptrs[i], lens[i])
+                         for i in miss_idx}
             return self._begin_miss_lane(
                 blobs, n, miss_idx, results, slow_rows, pendings, codes,
                 cache, cache_epoch, lane,
@@ -900,8 +947,13 @@ class NativeRlsPipeline:
     ):
         """lane 2: the miss path (parse -> masks -> slots -> launch).
         ``miss_idx`` rows of the batch are parsed, derived, launched and
-        memoized (Python cache + C mirror when ``lane`` is active)."""
-        sub = blobs if len(miss_idx) == n else [blobs[i] for i in miss_idx]
+        memoized (Python cache + C mirror when ``lane`` is active).
+        ``blobs`` is the batch's list, or a dict holding the miss rows
+        alone (a pointer-addressed batch)."""
+        if isinstance(blobs, list) and len(miss_idx) == n:
+            sub = blobs
+        else:
+            sub = [blobs[i] for i in miss_idx]
         row_map = np.asarray(miss_idx, np.int32)
         domains, hits, cols, _ndesc, extra = self.hp.parse_batch(sub)
 

@@ -28,12 +28,15 @@ them before its storage lock is released.
 The begin's meta is the JAX package's 12 slots wide; slot 7 (the pod
 split's foreign rows) stays 0, as the port has no pod yet.
 
+The pointer-table begin (``hp_hot_begin``, ``NativeHotLane.begin_ptrs``)
+is the native ingress's entry: it stages a batch straight from the
+ingress's take buffers (``native/ingress.py``), with no Python bytes per
+row.
+
 Not in the port yet (``ROADMAP.md``): the JAX package's pod ownership
 mirror (``hp_pod_*``, plan stamps), plan-seed export and
 ``hp_partition_positions``; the port's copy of the source leaves them
-out. The pointer-table begin (``hp_hot_begin``, the
-native ingress's entry) is compiled, as ``hp_hot_begin_buf`` calls it,
-and not bound.
+out.
 """
 
 from __future__ import annotations
@@ -193,6 +196,15 @@ def _bind(lib) -> None:
     lib.hp_tel_drain.argtypes = [ctypes.c_void_p, ctypes.c_int64]
     lib.hp_tel_exemplars.restype = ctypes.c_int32
     lib.hp_tel_exemplars.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.hp_hot_begin.restype = ctypes.c_int32
+    lib.hp_hot_begin.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
     lib.hp_hot_begin_buf.restype = ctypes.c_int32
     lib.hp_hot_begin_buf.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int32,
@@ -667,6 +679,31 @@ class NativeHotLane:
         return out
 
     # -- begin / finish ------------------------------------------------------
+
+    def begin_ptrs(self, ptrs, lens, n: int, epoch: int) -> HotStaged:
+        """The zero-copy begin: ``ptrs``/``lens`` (ctypes arrays of
+        ``c_void_p``/``c_uint32``, or their addresses) address the blobs
+        in place, as the ingress's take buffers hold them. One GIL-free C
+        call: plan lookup, columnar staging, padding, begin-time codes
+        and the OK-metric aggregation, as ``begin``."""
+        if n > self.max_rows:
+            self._resize_rows(max(n, self.max_rows * 2))
+        k = self._lib.hp_hot_begin(
+            self._ctx,
+            ptrs if isinstance(ptrs, int) else ctypes.addressof(ptrs),
+            lens if isinstance(lens, int) else ctypes.addressof(lens),
+            n, epoch,
+            self._kind.ctypes.data, self.slots.ctypes.data,
+            self.deltas.ctypes.data, self.maxes.ctypes.data,
+            self.windows.ctypes.data, self.req.ctypes.data,
+            self.bucket.ctypes.data, self.cap, self.scratch_slot,
+            self._rows.ctypes.data, self._row_nhits.ctypes.data,
+            self._row_delta.ctypes.data, self._row_ns.ctypes.data,
+            self._hit_names.ctypes.data, self._ok_ns.ctypes.data,
+            self._ok_calls.ctypes.data, self._ok_hits.ctypes.data,
+            self._meta.ctypes.data,
+        )
+        return self._staged_from_scratch(n, k)
 
     def begin(self, blobs: Sequence[bytes], epoch: int) -> HotStaged:
         """Begin over a list of bytes objects, via one join (the

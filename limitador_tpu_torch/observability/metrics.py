@@ -23,8 +23,11 @@ flight recorder (``flight_*``), the serving-model fit (``model_*``,
 ``capacity_*``) and the admission plane (``admission_*``, declared on
 every server as in the JAX package, whatever ``--admission-mode``). A
 family of a plane the port does not have yet (the pod, the capacity
-controller, the native ingress with its ``native_phase_h2i_respond``,
-the cached storage) is declared with the slice that brings the plane.
+controller) is declared with the slice that brings the plane. The
+native ingress's families (``ingress_*``, fed by its ``library_stats``
+through ``attach_library_source``, and ``native_phase_h2i_respond``, fed
+by the native plane) are declared on every server, as in the JAX
+package.
 
 ``datastore_latency`` reads the MetricsLayer's two aggregates, as the JAX
 server wires them (main.rs:908-917): ``install_metrics_layer`` installs
@@ -135,6 +138,10 @@ _CUMULATIVE_KEYS = (
     "sharded_route_memo_hits",
     "sharded_route_memo_misses",
     "sharded_route_memo_evictions",
+    "ingress_connections",
+    "ingress_requests",
+    "ingress_responses",
+    "ingress_protocol_errors",
 )
 
 
@@ -231,6 +238,28 @@ class PrometheusMetrics:
         self.evicted_pending_writes = Counter(
             "evicted_pending_writes",
             "Counters evicted from the cache while holding unflushed deltas",
+            registry=self.registry,
+        )
+        # The native C++ HTTP/2 ingress's health (cumulative in the C++
+        # layer), from its library_stats.
+        self.ingress_connections = Counter(
+            "ingress_connections",
+            "Connections accepted by the native C++ HTTP/2 ingress",
+            registry=self.registry,
+        )
+        self.ingress_requests = Counter(
+            "ingress_requests",
+            "Requests taken off the native ingress",
+            registry=self.registry,
+        )
+        self.ingress_responses = Counter(
+            "ingress_responses",
+            "Responses written by the native ingress",
+            registry=self.registry,
+        )
+        self.ingress_protocol_errors = Counter(
+            "ingress_protocol_errors",
+            "HTTP/2 / gRPC framing errors on the native ingress",
             registry=self.registry,
         )
         self.cel_vectorized_evals = Counter(
@@ -488,6 +517,13 @@ class PrometheusMetrics:
             "Hot-finish latency: device result columns to response "
             "codes + metric aggregation (per finish call, measured "
             "natively)",
+            registry=self.registry,
+            buckets=NATIVE_PHASE_BUCKETS,
+        )
+        self.native_phase_h2i_respond = Histogram(
+            "native_phase_h2i_respond",
+            "Native ingress batch-coded respond latency "
+            "(h2i_respond_coded, per respond call, measured natively)",
             registry=self.registry,
             buckets=NATIVE_PHASE_BUCKETS,
         )

@@ -7,11 +7,13 @@ the rows that matter most. The port's C++ host lane measures its own
 phases (wait-free log2-ns histograms and a slow-row exemplar ring,
 ``hp_tel_*`` in ``csrc/hostpath.cc``); this module is the Python half:
 
-* :data:`PHASES`: the native phases, ``hot_lookup``, ``hot_stage``,
-  ``lease_hit`` and ``hot_finish``, each with a ``native_phase_<phase>``
-  histogram family in ``metrics.py``. The JAX package's fifth,
-  ``h2i_respond``, belongs to the native ingress, which the port does not
-  have yet (ROADMAP Queue C).
+* :data:`PHASES`: the native phases, the host lane's ``hot_lookup``,
+  ``hot_stage``, ``lease_hit`` and ``hot_finish`` and the native
+  ingress's ``h2i_respond`` (its coded respond, ``csrc/h2ingress.cc``),
+  each with a ``native_phase_<phase>`` histogram family in
+  ``metrics.py``. The ingress's histogram is drained only where its
+  library is already loaded (a server without ``--native-ingress``
+  never builds it); the phase then counts 0.
 * :class:`NativePlane`: drains the cumulative C histograms on every
   metrics render and adds the per-bucket increments to the
   ``native_phase_*`` families (the C plane is process-global and never
@@ -51,7 +53,8 @@ __all__ = [
 
 #: every native phase the plane measures, one ``native_phase_<entry>``
 #: histogram family each
-PHASES = ("hot_lookup", "hot_stage", "lease_hit", "hot_finish")
+PHASES = ("hot_lookup", "hot_stage", "lease_hit", "hot_finish",
+          "h2i_respond")
 
 #: Prometheus families this module feeds (declared in metrics.py)
 METRIC_FAMILIES = (
@@ -59,6 +62,7 @@ METRIC_FAMILIES = (
     "native_phase_hot_stage",
     "native_phase_lease_hit",
     "native_phase_hot_finish",
+    "native_phase_h2i_respond",
     "slo_p99_ms_5m",
     "slo_p99_ms_1h",
     "slo_burn_rate_5m",
@@ -271,14 +275,18 @@ class NativePlane:
     # -- configuration -------------------------------------------------------
 
     def configure(self) -> bool:
-        """Arm the C plane with this plane's exemplar threshold and trace
-        sampling. Raises when the host lane cannot be built."""
+        """Arm the C planes: the host lane's with this plane's exemplar
+        threshold and trace sampling, and the ingress's respond histogram
+        (taken by the ingress library when it loads, if it is not loaded
+        yet). Raises when the host lane cannot be built."""
         global _armed
         from .. import native
+        from ..native.ingress import ingress_tel_config
 
         native.tel_config(
             True, int(self.slow_row_us * 1000.0), self.trace_sample
         )
+        ingress_tel_config(True)
         with _armed_lock:
             if not self._armed:
                 self._armed = True
@@ -290,6 +298,7 @@ class NativePlane:
         still armed."""
         global _armed
         from .. import native
+        from ..native.ingress import ingress_tel_config
 
         with _armed_lock:
             if not self._armed:
@@ -298,6 +307,7 @@ class NativePlane:
             _armed -= 1
             if _armed == 0:
                 native.tel_config(False, 0, 0)
+                ingress_tel_config(False)
 
     def attach_recorder(self, recorder) -> None:
         self.recorder = recorder
@@ -307,11 +317,17 @@ class NativePlane:
     # -- drains --------------------------------------------------------------
 
     def snapshots(self) -> Dict[str, dict]:
-        """Cumulative per-phase snapshots of the C plane, every phase of
-        ``PHASES`` present."""
+        """Cumulative per-phase snapshots of both C planes, every phase
+        of ``PHASES`` present: ``h2i_respond`` counts 0 while the ingress
+        library is not loaded."""
         from .. import native
+        from ..native.ingress import ingress_tel_drain
 
-        return native.tel_drain()
+        snap = dict(native.tel_drain())
+        snap["h2i_respond"] = ingress_tel_drain() or {
+            "count": 0, "sum_ns": 0, "buckets": [0] * native.TEL_BUCKETS,
+        }
+        return snap
 
     def drain_exemplars(self) -> List[dict]:
         from .. import native

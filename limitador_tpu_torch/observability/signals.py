@@ -55,9 +55,9 @@ METRIC_FAMILIES = (
 #: tests pin the two in sync)
 _PRIORITIES = ("low", "normal", "high", "critical")
 
-#: native phases, in the JAX ``native_plane.PHASES`` order: the port's
-#: plane has no ``h2i_respond`` yet (the native ingress), so its p99
-#: holds 0.0 and the vector keeps the JAX length
+#: native phases, in the JAX ``native_plane.PHASES`` order (the native
+#: plane's ``PHASES``; ``h2i_respond`` is the native ingress's coded
+#: respond, 0.0 on a server without ``--native-ingress``)
 _PHASES = ("hot_lookup", "hot_stage", "lease_hit", "hot_finish",
            "h2i_respond")
 

@@ -71,6 +71,15 @@ the quota-lease tier, whose credits run the B4c kernel. With
 hit column through the B5 kernel (B7d on sharded storage) every
 ``--usage-drain-interval`` seconds, on every torch and sharded server, as
 the JAX server does on tpu and sharded storage.
+``--native-ingress`` (torch storage with ``--pipeline native`` and
+``--rate-limit-headers NONE``) serves ShouldRateLimit on ``--rls-port``
+through the port's C++ HTTP/2 ingress (``native/ingress.py``): one
+epoll thread owns the sockets and a pump feeds whole batches to the
+native pipeline's hot lane and B1, answering each with one native call;
+the Kuadrant ``CheckRateLimit``/``Report`` and gRPC reflection are served
+on the same port, and the Python gRPC server moves to ``--rls-port`` +
+1. ``/metrics`` then counts ``ingress_*`` and
+``native_phase_h2i_respond``.
 Replication (torch storage): ``--peer`` (repeatable) or
 ``--listen-address`` makes the node a member of the replicated topology
 (``device/replicated.py``): its own counts stay in its device table, a
@@ -186,13 +195,16 @@ lease tier that cannot come up
 (the host lane does not build, the hot lane is unavailable, the storage
 is not torch, rate-limit headers are asked for), a native telemetry plane
 that cannot arm (the host lane does not build), an HTTP port that
-cannot be bound, a ``--tracing-endpoint`` that cannot start and a
-``--flight-spool-dir`` that cannot be created or written stop the
-server with an error (exit 2), and a lease refresh, usage drain or tier
+cannot be bound, a ``--tracing-endpoint`` that cannot start, a
+``--flight-spool-dir`` that cannot be created or written, and
+``--native-ingress`` without ``--pipeline native`` on torch storage,
+with rate-limit headers, or with an ingress library that does not build
+or an address that cannot be bound (the JAX server warns and serves
+Python gRPC alone) stop the server with an error (exit 2), and a lease refresh, usage drain or tier
 migration round that fails while serving stops it too (exit 1).
 
-Not in the port yet (``ROADMAP.md``): ``--serving-shards``, the native
-ingress, the multi-process pod and the capacity controller.
+Not in the port yet (``ROADMAP.md``): ``--serving-shards``, the
+multi-process pod and the capacity controller.
 """
 
 from __future__ import annotations
@@ -432,6 +444,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="zero-Python hot lane for the native pipeline (C-side mirror "
         "of the decision-plan cache); 'off' serves the pure-Python cached "
         "lane, byte-identical decisions",
+    )
+    p.add_argument(
+        "--native-ingress",
+        action="store_true",
+        default=_env("TPU_NATIVE_INGRESS", "") == "1",
+        help="serve ShouldRateLimit through the vendored C++ HTTP/2 "
+        "ingress on --rls-port (requires torch storage, --pipeline "
+        "native, headers NONE); the Python gRPC server (Kuadrant + Envoy "
+        "with headers) moves to --rls-port + 1",
     )
     p.add_argument(
         "--lease-mode", choices=["on", "off"], default="off",
@@ -1063,7 +1084,8 @@ class RunningServer:
                  native_pipeline=None, observatory=None, checkpointer=None,
                  tier_manager=None, http_runner=None, metrics=None,
                  labels_watcher=None, native_plane=None, profiler=None,
-                 planes=None, authority=None, admission=None):
+                 planes=None, authority=None, admission=None,
+                 native_ingress=None):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
@@ -1091,6 +1113,9 @@ class RunningServer:
         #: the AdmissionController (``--admission-mode`` monitor or
         #: enforce), or None
         self.admission = admission
+        #: the NativeIngress of ``--native-ingress`` on ``--rls-port``
+        #: (the gRPC server is then on ``--rls-port`` + 1), or None
+        self.native_ingress = native_ingress
 
     @property
     def signal_bus(self):
@@ -1122,6 +1147,11 @@ class RunningServer:
         # its profiler capture to stop.
         await asyncio.get_running_loop().run_in_executor(
             None, self.planes.stop)
+        if self.native_ingress is not None:
+            # Off the loop: close joins the pump, whose slow rows and
+            # handlers may still be answering through the loop.
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.native_ingress.close)
         await self.rls_server.stop(grace=1.0)
         await self.http_runner.cleanup()
         if self.authority is not None:
@@ -1372,6 +1402,62 @@ def _native_plane(args, limiter, metrics):
     return plane
 
 
+def _ingress_refusals(args) -> None:
+    """What ``--native-ingress`` cannot run on (exit 2; the JAX server
+    warns and serves Python gRPC alone)."""
+    if not args.native_ingress:
+        return
+    if args.storage != "torch" or args.pipeline != "native":
+        raise ValueError(
+            "--native-ingress feeds the native pipeline: it needs torch "
+            "storage with --pipeline native"
+        )
+    if args.rate_limit_headers != RATE_LIMIT_HEADERS_NONE:
+        raise ValueError(
+            "--native-ingress answers ShouldRateLimit without headers: it "
+            "needs --rate-limit-headers NONE"
+        )
+
+
+async def serve_native_ingress(args, limiter, metrics, native_pipeline):
+    """The native HTTP/2 ingress on ``--rls-host:--rls-port``: Envoy's
+    ShouldRateLimit into the native pipeline, the Kuadrant methods and
+    the reflection stream through the same ``RlsService`` and responder
+    the gRPC server uses, its ``ingress_*`` counts polled by ``metrics``.
+    Raises ``BuildError`` when the library does not build and
+    ValueError when the address cannot be bound."""
+    from ..native.ingress import NativeIngress, ingress_build_error
+    from .reflection import REFLECTION_METHOD, native_reflection_handler
+    from .rls import (
+        _ENVOY_SERVICE,
+        _KUADRANT_SERVICE,
+        RlsService,
+        make_native_method_handlers,
+    )
+
+    loop = asyncio.get_running_loop()
+    error = await loop.run_in_executor(None, ingress_build_error)
+    if error is not None:
+        raise BuildError(f"--native-ingress: the ingress does not build: "
+                         f"{error}")
+    handlers = make_native_method_handlers(
+        RlsService(limiter, metrics, args.rate_limit_headers))
+    handlers[REFLECTION_METHOD] = native_reflection_handler(
+        (_ENVOY_SERVICE, _KUADRANT_SERVICE))
+    try:
+        ingress = NativeIngress(
+            native_pipeline, host=args.rls_host, port=args.rls_port,
+            loop=loop, handlers=handlers, stream_path=REFLECTION_METHOD,
+        )
+    except OSError as exc:
+        raise ValueError(
+            f"cannot serve the native ingress on "
+            f"{args.rls_host}:{args.rls_port}: {exc}"
+        ) from exc
+    metrics.attach_library_source(ingress)
+    return ingress
+
+
 def _warm_device(storage) -> float:
     """Build the storage's kernels and launch its check kernel once (one
     empty batch, as the breaker's probe does), so that neither the build
@@ -1445,6 +1531,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     ``--http-host:--http-port``. A lease refresh, usage drain or
     migration round that fails stops its thread, which then calls
     ``on_failure(exc)``."""
+    _ingress_refusals(args)
     tracing.configure_tracing(args.tracing_endpoint)
     tracing.set_sample_rate(args.tracing_sample_rate)
     # Before any recorder is made: a recorder arms its serving-model tap
@@ -1521,18 +1608,25 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     # a file replaced between load and watch still triggers a reload.
     watcher = LimitsFileWatcher(args.limits_file, on_change, on_error,
                                 poll_interval=args.limits_poll_interval)
-    labels_watcher = rls_server = None
+    labels_watcher = rls_server = native_ingress = None
+    rls_grpc_port = args.rls_port
     try:
         await apply_limits(load_limits_file(args.limits_file))
         status["limits_file_version"] = 1
         watcher.start()
         labels_watcher = _labels_watcher(args, metrics)
+        if args.native_ingress:
+            native_ingress = await serve_native_ingress(
+                args, limiter, metrics, native_pipeline)
+            rls_grpc_port = args.rls_port + 1
         rls_server = await serve_rls(
-            limiter, f"{args.rls_host}:{args.rls_port}",
+            limiter, f"{args.rls_host}:{rls_grpc_port}",
             args.rate_limit_headers, native_pipeline=native_pipeline,
             metrics=metrics, admission=admission,
         )
     except BaseException:
+        if native_ingress is not None:
+            native_ingress.close()
         watcher.stop()
         if labels_watcher is not None:
             labels_watcher.stop()
@@ -1572,6 +1666,8 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     except BaseException as exc:
         if authority is not None:
             authority.stop()
+        if native_ingress is not None:
+            native_ingress.close()
         watcher.stop()
         if labels_watcher is not None:
             labels_watcher.stop()
@@ -1599,7 +1695,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
                          native_pipeline, observatory, checkpointer,
                          tier_manager, http_runner, metrics, labels_watcher,
                          native_plane, profiler, planes, authority,
-                         admission)
+                         admission, native_ingress)
 
 
 def _serve_authority(args, limiter):
@@ -1627,8 +1723,12 @@ async def _amain(args) -> int:
         loop.call_soon_threadsafe(stop.set)
 
     server = await start(args, on_failure=on_failure)
-    log.info(f"serving RLS gRPC on {args.rls_host}:{args.rls_port} and "
-             f"HTTP on {args.http_host}:{args.http_port} "
+    ingress = server.native_ingress
+    log.info(f"serving RLS gRPC on {args.rls_host}:"
+             f"{args.rls_port + (1 if ingress is not None else 0)}"
+             + (f", native HTTP/2 ingress on {args.rls_host}:{ingress.port}"
+                if ingress is not None else "")
+             + f" and HTTP on {args.http_host}:{args.http_port} "
              f"({args.storage} storage, {args.pipeline} pipeline"
              + (f", replicated node {args.node_id or 'node'} gossiping on "
                 f"{args.listen_address or '0.0.0.0:5001'}"

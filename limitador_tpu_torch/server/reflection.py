@@ -10,14 +10,15 @@ the protocol is implemented here over the descriptor bytes the port's
  * ``ReflectionResponder``: the request -> response protocol logic
    (list_services, file_by_filename, file_containing_symbol, extension
    queries);
- * ``make_reflection_handler``: the grpc.aio stream_stream handler.
+ * ``make_reflection_handler``: the grpc.aio stream_stream handler;
+ * ``native_reflection_handler``: the native ingress's per-message
+   handler (each stream message answers with one response).
 
 ``file_*`` responses carry each file's serialized FileDescriptorProto
 plus its transitive imports (dependencies first), which lets
 grpcurl-style clients rebuild the full schema from one query.
 
-Left for later slices: the sync serving shards' handler and the native
-ingress's per-message handler.
+Left for a later slice: the sync serving shards' handler.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ __all__ = [
     "REFLECTION_METHOD",
     "ReflectionResponder",
     "make_reflection_handler",
+    "native_reflection_handler",
 ]
 
 REFLECTION_SERVICE = "grpc.reflection.v1alpha.ServerReflection"
@@ -165,3 +167,15 @@ def make_reflection_handler(service_names: Iterable[str]):
             )
         },
     )
+
+
+def native_reflection_handler(service_names: Iterable[str]):
+    """Per-message handler for the native ingress's bidi-stream surface:
+    each stream message answers with exactly one serialized response."""
+    responder = ReflectionResponder(service_names)
+
+    async def handler(blob: bytes) -> bytes:
+        request = reflection_pb2.ServerReflectionRequest.FromString(blob)
+        return responder.answer(request).SerializeToString()
+
+    return handler

@@ -32,8 +32,12 @@ request takes a batch slot, with the gRPC deadline
 OVER_LIMIT under ``--shed-response overlimit``, and never OK; the
 Kuadrant methods are not gated, as in the JAX package.
 
-Left out of the port for now (``ROADMAP.md``): the native ingress's
-method table and the sync serving shards.
+The native ingress (``native/ingress.py``) serves the Kuadrant split
+through ``make_native_method_handlers``: the same ``RlsService`` adapted
+to raw request and response bytes, whose ``context.abort`` raises the
+ingress's ``GrpcHandlerError``.
+
+Left out of the port for now (``ROADMAP.md``): the sync serving shards.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ __all__ = [
     "RlsService",
     "make_rls_handlers",
     "make_native_should_rate_limit_handler",
+    "make_native_method_handlers",
     "serve_rls",
 ]
 
@@ -356,6 +361,43 @@ def make_native_should_rate_limit_handler(native_pipeline, metrics=None,
             )
         },
     )
+
+
+def make_native_method_handlers(service: RlsService):
+    """The native ingress's table of methods other than ShouldRateLimit:
+    the Kuadrant check/report split served through ``service`` (the
+    ``RlsService`` the gRPC server uses), adapted to raw request and
+    response bytes, so that the ingress is a complete single-port
+    server. There is no ShouldRateLimit entry: the ingress routes that
+    path to the columnar engine in C++, so such an entry could never
+    fire."""
+    from ..native.ingress import GrpcHandlerError
+
+    class _ShimContext:
+        """The slice of grpc.ServicerContext the handlers use."""
+
+        @staticmethod
+        async def abort(code, details=""):
+            raise GrpcHandlerError(
+                code.value[0], str(details).encode()[:100]
+            )
+
+        @staticmethod
+        def invocation_metadata():
+            return ()
+
+    def adapt(method):
+        async def handler(blob: bytes) -> bytes:
+            request = rls_pb2.RateLimitRequest.FromString(blob)
+            response = await method(request, _ShimContext())
+            return response.SerializeToString()
+
+        return handler
+
+    return {
+        f"/{_KUADRANT_SERVICE}/CheckRateLimit": adapt(service.check_rate_limit),
+        f"/{_KUADRANT_SERVICE}/Report": adapt(service.report),
+    }
 
 
 async def serve_rls(

@@ -117,7 +117,18 @@ async def _pair(tmp_path):
                 for i in range(40):
                     answers[name].append(await chan.unary_unary(ENVOY)(
                         _request(f"g{i % 7}"), timeout=30))
-        await asyncio.sleep(0.2)  # a few drains, bus ticks and refits
+        # a few drains, bus ticks and refits: wait for what the test
+        # asserts of them (a fixed sleep could end first under load)
+        on = servers["on"]
+
+        def planes_fed():
+            taps = on.flight_engine.recorder.flight_debug()
+            return (on.model_estimator.observations > 0
+                    and on.model_estimator.updates > 0
+                    and taps["taps"] > 0
+                    and taps["tail_depth"].get("lean", 0) > 0)
+
+        await H.wait_for(planes_fed, timeout=10.0)
 
         async def reload():
             H.reload_limits_file(limits_path)

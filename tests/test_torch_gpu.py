@@ -1916,3 +1916,92 @@ def test_chaos_drill_on_the_card_matches_the_cpu(cuda, kind):
     assert launched[prefix + "update_host"] >= 1
     assert launched[prefix + "check_and_update"] \
         + launched[prefix + "check_and_update_cluster"] >= 1
+
+
+@pytest.mark.parametrize("mode", ["coded", "uncoded", "off"])
+def test_native_ingress_on_the_card_admits_exactly_the_limit(cuda, mode):
+    """The native ingress over a table on the card (the pump begins B1 on
+    its thread, two finish threads collect): 4,000 calls for one key of
+    max 3 from 16 threads on one channel admit exactly 3, 1,000 calls
+    over 50 users min(3, calls) each, and the table then equals an
+    InMemoryStorage fed the admitted hits."""
+    import asyncio
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import grpc
+
+    from limitador_tpu_torch.device import AsyncTorchStorage
+    from limitador_tpu_torch.device.native_pipeline import NativeRlsPipeline
+    from limitador_tpu_torch.device.pipeline import CompiledTorchLimiter
+    from limitador_tpu_torch.native.ingress import NativeIngress
+    from limitador_tpu_torch.server.proto import rls_pb2
+    from limitador_tpu_torch.storage.in_memory import InMemoryStorage
+
+    var = "descriptors[0].u"
+    limit = Limit("api", 3, 60, ["descriptors[0].m == 'GET'"], [var])
+    ok = rls_pb2.RateLimitResponse(
+        overall_code=rls_pb2.RateLimitResponse.OK).SerializeToString()
+
+    def blob(user):
+        req = rls_pb2.RateLimitRequest(domain="api")
+        d = req.descriptors.add()
+        d.entries.add(key="m", value="GET")
+        d.entries.add(key="u", value=user)
+        return req.SerializeToString()
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever)
+    thread.start()
+    limiter = CompiledTorchLimiter(AsyncTorchStorage(
+        TorchStorage(capacity=1 << 12, device=cuda), max_delay=0.001))
+    limiter.add_limit(limit)
+    pipeline = NativeRlsPipeline(limiter, None, max_delay=0.001,
+                                 hot_lane=mode != "off")
+    if mode == "uncoded":
+        pipeline.lane_code_templates = lambda: None
+    launches = K.launches["check_and_update"]
+    ing = NativeIngress(pipeline, host="127.0.0.1", port=0, loop=loop,
+                        poll_ms=2)
+    try:
+        assert ing._coded == (mode == "coded")
+        with grpc.insecure_channel(f"127.0.0.1:{ing.port}") as channel:
+            call = channel.unary_unary(
+                "/envoy.service.ratelimit.v3.RateLimitService/"
+                "ShouldRateLimit")
+            rng = np.random.default_rng(5)
+            users = ["dave"] * 4000 + [
+                f"u{int(rng.integers(0, 50))}" for _ in range(1000)]
+            with ThreadPoolExecutor(16) as pool:
+                answers = list(pool.map(
+                    lambda u: call(blob(u), timeout=60), users))
+        admitted, calls = {}, {}
+        for user, answer in zip(users, answers):
+            calls[user] = calls.get(user, 0) + 1
+            admitted[user] = admitted.get(user, 0) + (answer == ok)
+        assert admitted["dave"] == 3
+        for user in calls:
+            assert admitted[user] == min(3, calls[user]), user
+        oracle = RateLimiter(InMemoryStorage())
+        oracle.add_limit(limit)
+        for user, n in admitted.items():
+            ctx = Context()
+            ctx.list_binding("descriptors", [{"m": "GET", "u": user}])
+            oracle.update_counters("api", ctx, n)
+        table = asyncio.run_coroutine_threadsafe(
+            limiter.get_counters("api"), loop).result(timeout=60)
+        assert ({c.set_variables[var]: c.remaining for c in table}
+                == {c.set_variables[var]: c.remaining
+                    for c in oracle.get_counters("api")})
+        assert K.launches["check_and_update"] > launches
+    finally:
+        ing.close()
+
+        async def shutdown():
+            await pipeline.close()
+            await limiter.storage.counters.close()
+
+        asyncio.run_coroutine_threadsafe(shutdown(), loop).result(timeout=60)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=10)
+        loop.close()

@@ -11,6 +11,9 @@
   ``cached`` replica flushing to a torch table served as the shared
   authority.
 - An AST scan of the port's sources finds no such import.
+- A server with ``--native-ingress`` (``native/ingress.py`` over the
+  native pipeline, the server's ingress path) starts, answers
+  ShouldRateLimit on its port and stops in such a subprocess.
 - A server imports the admission package only when
   ``--admission-mode`` is not ``off``.
 - The port's protobuf message classes are its own even when both
@@ -148,6 +151,75 @@ def test_port_imports_and_decides_without_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
+
+
+_GUARDED_INGRESS = r'''
+import asyncio, importlib.abc, os, socket, sys, tempfile
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "limitador_tpu"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import grpc
+from limitador_tpu_torch.server import __main__ as m
+from limitador_tpu_torch.server.proto import rls_pb2
+
+def free():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+async def main(tmp):
+    limits = os.path.join(tmp, "limits.yaml")
+    with open(limits, "w") as f:
+        f.write("- namespace: ns\n  max_value: 1\n  seconds: 60\n"
+                '  variables: ["descriptors[0].u"]\n')
+    port = free()
+    server = await m.start(m.build_parser().parse_args([
+        limits, "torch", "--device", "cpu", "--capacity", "64",
+        "--pipeline", "native", "--native-ingress", "--rls-host",
+        "127.0.0.1", "--rls-port", str(port), "--http-host", "127.0.0.1",
+        "--http-port", str(free()), "--flight-spool-dir",
+        os.path.join(tmp, "flight")]))
+    req = rls_pb2.RateLimitRequest(domain="ns")
+    req.descriptors.add().entries.add(key="u", value="x")
+
+    def calls():
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            call = ch.unary_unary(
+                "/envoy.service.ratelimit.v3.RateLimitService/"
+                "ShouldRateLimit")
+            return [rls_pb2.RateLimitResponse.FromString(
+                call(req.SerializeToString(), timeout=30)).overall_code
+                for _ in range(2)]
+
+    try:
+        assert server.native_ingress.port == port
+        codes = await asyncio.get_running_loop().run_in_executor(None, calls)
+    finally:
+        await server.stop()
+    assert codes == [rls_pb2.RateLimitResponse.OK,
+                     rls_pb2.RateLimitResponse.OVER_LIMIT], codes
+
+with tempfile.TemporaryDirectory() as tmp:
+    asyncio.run(main(tmp))
+assert not any(m.split(".")[0] in ("jax", "limitador_tpu")
+               for m in sys.modules)
+print("served")
+'''
+
+
+def test_native_ingress_server_runs_without_jax_or_the_jax_package():
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _GUARDED_INGRESS], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "served" in proc.stdout
 
 
 def _imports(path: Path):

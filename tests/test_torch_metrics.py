@@ -18,8 +18,8 @@ the port's server (``torch --device cpu``), both with
 
 Also: exemplars switch to the OpenMetrics exposition; every family that
 ``examples/grafana-dashboard.json`` reads under a ported prefix is
-declared (``native_phase_h2i_respond`` excepted: it belongs to the native
-ingress, not ported yet); the device plane's families (recorder, chunked
+declared (the native ingress's ``ingress_*`` and
+``native_phase_h2i_respond`` among them); the device plane's families (recorder, chunked
 dispatch, native telemetry, SLO watchdog, ``device_backed``) are the JAX
 package's; and the native (with leases), tiered and sharded servers feed
 their families from the layers' own tallies.
@@ -285,18 +285,17 @@ def _dashboard_families():
     names = set(re.findall(
         r"(?<![A-Za-z0-9_])((?:authorized|limited|datastore|batcher|"
         r"plan_cache|native_lane|lease|tenant|tier|sharded|device_phase|"
-        r"native_phase|slo|signal|flight|model|capacity)_[a-z0-9_]+|"
+        r"native_phase|slo|signal|flight|model|capacity|ingress)"
+        r"_[a-z0-9_]+|"
         r"device_backed)",
         exprs))
     return names
 
 
-#: dashboard families of planes the port does not have yet, under the
-#: prefixes above: the native ingress's respond phase (ROADMAP Queue A
-#: item 5). The pod's and the capacity controller's families (``pod_*``,
-#: ``ctl_*``, items 7 and 8) fall outside the prefixes; the pod's
+#: The prefixes above hold no family of a plane the port does not have
+#: yet: the pod's and the capacity controller's families (``pod_*``,
+#: ``ctl_*``, ROADMAP Queue A items 7 and 8) fall outside them; the pod's
 #: ``pod_signal_*`` are not ``signal_*`` families.
-DASHBOARD_EXEMPT = ("native_phase_h2i_respond",)
 
 
 HOT_LIMIT = """\
@@ -371,9 +370,7 @@ def test_dashboard_families_are_declared(pair, layers):
             "native_phase_hot_lookup_bucket", "slo_breached_actionable",
             "native_phase_h2i_respond_bucket", "signal_queue_wait_ms",
             "flight_triggers_total", "model_coefficient",
-            "capacity_headroom_ratio"} <= wanted
-    wanted = {name for name in wanted
-              if not name.startswith(DASHBOARD_EXEMPT)}
+            "capacity_headroom_ratio", "ingress_requests_total"} <= wanted
     for families in [_families(pair["port"]["metrics"])] + [
             layer["families"] for layer in layers.values()]:
         for name in wanted:

@@ -1,8 +1,8 @@
 """The port's native telemetry plane and SLO watchdog, on the CPU.
 
 - ``NATIVE_PHASE_BUCKETS``, ``_prom_bucket_index``, ``PHASES`` and
-  ``METRIC_FAMILIES`` equal the JAX package's (less the native ingress's
-  ``h2i_respond``, which the port does not have yet).
+  ``METRIC_FAMILIES`` equal the JAX package's (the host lane's phases and
+  the native ingress's ``h2i_respond``).
 - A ``SloWatchdog`` of each package on one injected clock, fed the same
   latencies, gives equal ``status()`` through firing and recovery; the
   recorder feeds the watchdog per batch; a breach is actionable only on
@@ -115,12 +115,9 @@ def test_bucket_mapping_equals_jax():
     assert np_mod.NATIVE_PHASE_BUCKETS == jnp_mod.NATIVE_PHASE_BUCKETS
     for b in range(native.TEL_BUCKETS + 2):
         assert np_mod._prom_bucket_index(b) == jnp_mod._prom_bucket_index(b)
-    assert np_mod.PHASES == tuple(
-        p for p in jnp_mod.PHASES if p != "h2i_respond")
-    assert np_mod.METRIC_FAMILIES == tuple(
-        f for f in jnp_mod.METRIC_FAMILIES
-        if f != "native_phase_h2i_respond")
-    assert native.TEL_PHASES == np_mod.PHASES
+    assert np_mod.PHASES == jnp_mod.PHASES
+    assert np_mod.METRIC_FAMILIES == jnp_mod.METRIC_FAMILIES
+    assert native.TEL_PHASES + ("h2i_respond",) == np_mod.PHASES
 
 
 # -- the SLO watchdog ----------------------------------------------------------

@@ -13,7 +13,9 @@ every comparison test it runs later fails before it compares anything.
 port test modules that build a JAX ``NativeRlsPipeline`` import the
 autouse fixture ``jax_reference_lane``, which calls it once a module. A
 failure of any other kind raises at once, and so does a library still
-unreadable after ``timeout`` seconds.
+unreadable after ``timeout`` seconds. ``jax_ingress`` and the fixture
+``jax_reference_ingress`` do the same for the JAX package's HTTP/2
+ingress (``native/build/libh2ingress.so``).
 """
 
 import time
@@ -48,3 +50,30 @@ def jax_host_lane(timeout: float = 300.0, tick: float = 0.5):
 def jax_reference_lane():
     """``jax_host_lane`` before the first test of the importing module."""
     jax_host_lane()
+
+
+def jax_ingress(timeout: float = 300.0, tick: float = 0.5):
+    """The JAX package's ingress module with its library loaded
+    (``native/build/libh2ingress.so``), after the same wait: the JAX
+    ingress tests compile it at collection in every worker."""
+    from limitador_tpu.native import ingress
+
+    deadline = time.monotonic() + timeout
+    while not ingress.ingress_available():
+        error = ingress.ingress_build_error() or ""
+        if not any(mark in error for mark in _PARTIAL):
+            raise RuntimeError(f"the JAX ingress did not build: {error}")
+        if time.monotonic() > deadline:
+            raise RuntimeError(
+                f"the JAX ingress stayed unreadable for {timeout} s: "
+                f"{error}"
+            )
+        time.sleep(tick)
+        ingress._LIB._build_error = None
+    return ingress
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_reference_ingress():
+    """``jax_ingress`` before the first test of the importing module."""
+    jax_ingress()
