@@ -230,7 +230,7 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    (its CUDA kernel events are printed) and flight_bundles and
    flight_triggers{reason="manual"} count it; (c) phases 4's and 6's
    servers with the defaults and with --flight off --model-fit off
-   --usage-topk 0 in one process on one clock, 300 rounds of one call to
+   --usage-topk 0 in one process on one clock, 150 rounds of one call to
    each, the order alternating: byte-equal answers and counters, p50,
    p99 and the per-round difference printed as records. Every server of
    the script writes its flight bundles under the run's own temporary
@@ -241,7 +241,7 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    on a table of their own) and four CachedCounterStorage replicas over
    RemoteAuthority at the reference's defaults (flush 1 s, batch 100,
    10,000 cached, 350 ms timeout), each on its own thread and event
-   loop and offered 1,000 requests a second, deciding 80,000 one-hit
+   loop and offered 1,000 requests a second, deciding 40,000 one-hit
    requests together over Zipf-0.99 users from 1<<20 keys at 100 a
    minute each; then a fifth replica (batch 4096) flushes 2,400
    distinct counters in one RPC: B2's host form past
@@ -250,7 +250,7 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    InMemoryStorage fed the admitted hits; flush errors 0, no partition,
    no check kernel; the over-admission (the topology's bound) printed
    beside the replicas' counter_overshoot. The same on phase 10a's
-   sharded table (8 rows of 131,073 cells) with two replicas and 20,000
+   sharded table (8 rows of 131,073 cells) with two replicas and 10,000
    requests (B7c's host form). (b) On (a)'s table, two replicas on two
    limits: the authority stops half way (after a grace period for an RPC
    in flight), the replicas decide the rest and their flushes fail
@@ -281,7 +281,7 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    counters after gossip over real brokers.
 15. The admission plane: (a) phases 4's and 6's servers with
    --admission-mode enforce (the JAX defaults) and off in one process on
-   one clock, the phase's calls (reload and 13-day step included) and 300
+   one clock, the phase's calls (reload and 13-day step included) and 150
    rounds of one call to each, the order alternating: byte-equal answers
    and counters, the breaker closed with no transition, no failover
    decision and no shed, no controller on the off server; p50/p99 on and
@@ -308,7 +308,7 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    a second descriptor: the exact path), one at a time to each:
    byte-equal answers, the ingress's p50/p99 beside grpc.aio's. (b) From
    16 threads on one channel: 4,000 calls for one key of max 3 (exactly
-   3 OK), then 20,000 over Zipf users of max 5 (min(5, calls) OK each);
+   3 OK), then 10,000 over Zipf users of max 5 (min(5, calls) OK each);
    decisions per second, the pump's rows a batch, and the card's
    counters equal the memory server's limiter fed the admitted hits.
    (c) Kuadrant CheckRateLimit/Report on the ingress port and on
@@ -317,6 +317,37 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    ingress_requests equal to the calls sent, ingress_protocol_errors 0,
    native_phase_h2i_respond counted; B1 on the card by route and shape,
    B2's host form by the Reports.
+17. Serving shards and the routed pod: (a) a torch server on the card
+   with --serving-shards 4, on the standard and then the native
+   pipeline, answers 2,000 serial ShouldRateLimit calls over Zipf-0.99
+   users from 1<<20 keys on 8 channels (one connection each) as an
+   in-memory oracle on its frozen clock does, and admits exactly 3 of
+   4,000 calls for one key of 3 from 16 threads; the loops that decided
+   (the server's per-loop shards) and p50/p99 beside the same calls on a
+   --serving-shards 1 server. (b) Two server processes on the card
+   (--pod-processes 2, a TCPStore on localhost), once on sharded (a
+   global namespace pinned) and once on torch: 4,000 sequential calls
+   over Zipf users (a one-limit namespace routed by key, a two-limit one
+   pinned, the global one) alternate between the hosts' RLS ports;
+   every answer and the union of the hosts' /counters equal a
+   single-process 2-row TorchShardedStorage on the card (on torch, an
+   in-memory oracle) fed the same calls; pod_routed_local, _forwarded
+   and _pinned equal the requests' verdicts and are each above 0;
+   p50/p99 by verdict and the hop's phase split (/debug/pod). (c) On the
+   torch pod, --pod-psum-lane on: 600 calls for one tenant of a
+   fixed-window global namespace of 100, hosts alternating, exchange
+   every 100 ms: admitted at least the limit, past it at most each
+   host's admissions within two intervals, and after a final exchange
+   both hosts limit. (d) On the torch pod: host 1 is killed mid-drive;
+   host 0's calls for host 1's keys are answered (no error) by the
+   stand-in, a fresh window each, and its breaker opens; host 1
+   restarts on the same address with an empty table, the journal
+   replays through apply_deltas (B2's host form), and host 1's counters
+   for the keys born in the partition equal the oracle's (older keys
+   within one extra window); trip, restart, probe and replay times. The
+   pod's members are processes of their own, each writing its kernel
+   launch counts when it exits, and the member killed in (d) just
+   before (B1, B7a on both routes, B2's host form must launch there).
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -379,11 +410,12 @@ REMOTE_NS = (8, 1024, 8192, 12288, 65536)
 # on the standard path (NVIDIA H100 80GB HBM3, 700 W; PERF.md). Phases 5,
 # 7 and 8a were cut (from 100, 100 and 30 batches) when phase 10 came in,
 # so that the whole run stays near 260 s, well inside half its 1200 s
-# limit: 50 batches of the standard drive and of each native drive.
-DRIVE_BATCHES = 50
+# limit: 50 batches of the standard drive and of each native drive, and
+# 25 since phase 17 came in (the script aims at half its limit).
+DRIVE_BATCHES = 25
 # ...then one batch past the cluster's capacity (the one-block B1)
 DRIVE_BIG_HITS = 32768
-NATIVE_BATCHES = 50
+NATIVE_BATCHES = 25
 # Phase 12b: 8 flushes of 8192 requests (65,536 decisions) a setting,
 # after one warm-up flush each
 CHUNK_FLUSHES = 8
@@ -3881,7 +3913,7 @@ async def _flight_bundle(tmpdir, dev, card, calls=300):
                       "source_kernels": ours, **counted}
 
 
-async def _planes_cost(tmpdir, dev, card, native, rounds=300):
+async def _planes_cost(tmpdir, dev, card, native, rounds=150):
     """Phase 13c: a phase-4 (or, with ``native``, phase-6) server with
     the control planes at their defaults beside one with
     ``--flight off --model-fit off --usage-topk 0``, in this process on
@@ -5763,10 +5795,11 @@ async def _http_api(tmpdir, dev, card, calls=HTTP_CALLS):
 # flushes this many distinct counters in one RPC (batch size 4096: past
 # B2's parameter block, the staged route); the sharded authority takes
 # two replicas and this many requests
-AUTH_REQUESTS = 80_000
+# (80,000 and 20,000 until phase 17 came in)
+AUTH_REQUESTS = 40_000
 AUTH_REPLICAS = 4
 AUTH_BIG_FLUSH = 2400
-AUTH_SHARDED_REQUESTS = 20_000
+AUTH_SHARDED_REQUESTS = 10_000
 # Requests a second offered to each replica. The replicas are threads of
 # this process: deciding flat out they hold the GIL, the authority's RPC
 # threads wait past the 350 ms timeout, and a replica that times out
@@ -6684,7 +6717,7 @@ def _hangable(base):
     return Hangable
 
 
-async def _admission_cost(tmpdir, dev, card, native, rounds=300):
+async def _admission_cost(tmpdir, dev, card, native, rounds=150):
     """Phase 15a: a phase-4 (or, with ``native``, phase-6) server with
     ``--admission-mode enforce`` and the JAX defaults beside one with
     ``off``, in this process on one frozen clock: the phase's calls (the
@@ -7302,7 +7335,7 @@ INGRESS_YAML = """\
 """
 INGRESS_SERIAL = 2000
 INGRESS_ONE_KEY = 4000
-INGRESS_ZIPF = 20000
+INGRESS_ZIPF = 10000  # 20,000 until phase 17 came in
 INGRESS_THREADS = 16
 INGRESS_KEYS = 1 << 20
 ENVOY_PATH = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
@@ -7795,6 +7828,764 @@ def phase_native_ingress(dev, card):
         return asyncio.run(_native_ingress(tmpdir, dev, card))
 
 
+# -- phase 17: serving shards and the routed pod ----------------------------
+
+SHARD_LOOPS = 4
+SHARD_CALLS = 2000
+# the one-loop server's calls, for its p50/p99 beside the 4-loop one's
+SHARD_CALLS_ONE_LOOP = 1000
+SHARD_HAMMER = 4000
+SHARD_THREADS = 16
+SHARD_CHANNELS = 8
+POD_CALLS = 4000
+PSUM_CALLS = 600
+PSUM_INTERVAL_MS = 100
+PSUM_MAX = 100
+DRILL_MAX = 4
+# the kernels the pod's main paths must launch: B1 on torch, B7a on
+# sharded (its one-row lean batches take the rows kernel, the global
+# namespace's the cluster), and the journal's replay into the restarted
+# owner through B2's host form
+PHASE17A_KERNELS = ("check_and_update",)
+PHASE17B_KERNELS = {"sharded": ("sharded_check_and_update",
+                                "sharded_check_and_update_cluster"),
+                    "torch": ("check_and_update",)}
+PHASE17D_KERNELS = ("update_host",)
+
+SHARD_LIMITS = """\
+- namespace: shard
+  max_value: 5
+  seconds: 120
+  variables: ["descriptors[0].user"]
+  name: per-user
+- namespace: hot
+  max_value: 3
+  seconds: 120
+  variables: ["descriptors[0].user"]
+  name: per-user-hot
+"""
+
+POD_LIMITS = """\
+- namespace: pods
+  max_value: 5
+  seconds: 120
+  variables: ["descriptors[0].user"]
+  name: per-user
+- namespace: multi
+  max_value: 3
+  seconds: 120
+  variables: ["descriptors[0].user"]
+  name: multi-user
+- namespace: multi
+  max_value: 400
+  seconds: 120
+  name: multi-total
+- namespace: glob
+  max_value: 40
+  seconds: 120
+  variables: ["descriptors[0].tenant"]
+  name: per-tenant
+- namespace: gpsum
+  max_value: 100
+  seconds: 120
+  variables: ["descriptors[0].tenant"]
+  name: psum-tenant
+- namespace: drill
+  max_value: 4
+  seconds: 120
+  variables: ["descriptors[0].user"]
+  name: drill-user
+"""
+
+# A pod member: the port's server, its kernel launch counts written to a
+# file when it exits or gets SIGUSR1 (the kernels count in the process
+# that launches them, and a member about to be killed is asked first).
+_POD_MAIN = """
+import atexit, json, os, signal, sys
+out = sys.argv[1]
+from limitador_tpu_torch.ops import kernel as K
+def dump(*_args):
+    with open(out + ".tmp", "w") as f:
+        json.dump(dict(K.launches), f)
+    os.replace(out + ".tmp", out)
+atexit.register(dump)
+signal.signal(signal.SIGUSR1, dump)
+from limitador_tpu_torch.server.__main__ import main
+sys.exit(main(sys.argv[2:]))
+"""
+
+
+def _channels(port, n):
+    """n channels to one port, each with its own connection (channels
+    of one process to one target otherwise share one)."""
+    import grpc
+
+    return [grpc.insecure_channel(
+        f"127.0.0.1:{port}",
+        options=(("grpc.use_local_subchannel_pool", 1),)) for _ in range(n)]
+
+
+def _envoy(channel):
+    return channel.unary_unary(
+        "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit")
+
+
+def _pct(lat_ms):
+    lat = sorted(lat_ms)
+    if not lat:
+        return None, None
+    return (lat[len(lat) // 2],
+            lat[min(int(0.99 * len(lat)), len(lat) - 1)])
+
+
+def _ctx(Context, entries):
+    ctx = Context()
+    ctx.list_binding("descriptors", [entries])
+    return ctx
+
+
+def _shards_serial(port, blobs, rls_pb2):
+    channels = _channels(port, SHARD_CHANNELS)
+    calls = [_envoy(ch) for ch in channels]
+    codes, lat = [], []
+    try:
+        for i, blob in enumerate(blobs):
+            t0 = time.perf_counter()
+            raw = calls[i % SHARD_CHANNELS](blob, timeout=60)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            codes.append(rls_pb2.RateLimitResponse.FromString(
+                raw).overall_code)
+    finally:
+        for ch in channels:
+            ch.close()
+    return codes, lat
+
+
+def _shards_hammer(port, blob, rls_pb2):
+    from concurrent.futures import ThreadPoolExecutor
+
+    channels = _channels(port, SHARD_CHANNELS)
+    calls = [_envoy(ch) for ch in channels]
+    try:
+        with ThreadPoolExecutor(SHARD_THREADS) as pool:
+            codes = list(pool.map(
+                lambda i: rls_pb2.RateLimitResponse.FromString(
+                    calls[i % SHARD_CHANNELS](blob, timeout=60)
+                ).overall_code, range(SHARD_HAMMER)))
+    finally:
+        for ch in channels:
+            ch.close()
+    return codes
+
+
+def _loops_decided(srv):
+    """Serving loops that decided a batch, from the server's own
+    per-loop shards (the native pipeline's, else the batchers')."""
+    if srv.native_pipeline is not None:
+        return sum(1 for s in list(srv.native_pipeline._shards.values())
+                   if s.batch_seq > 0)
+    return sum(1 for mb, _ub in srv.limiter.storage.counters._batcher_pairs()
+               if mb._batch_seq > 0)
+
+
+async def _serving_shards(tmpdir, dev, card, native, loops):
+    """Phase 17a, one server: torch on the card with --serving-shards
+    ``loops`` (``native``: --pipeline native), SHARD_CALLS serial calls
+    over Zipf-0.99 users from 1<<20 keys on 8 channels held against an
+    in-memory oracle on the server's frozen clock, then (with more than
+    one loop) SHARD_HAMMER calls for one key of 3 from 16 threads."""
+    from limitador_tpu_torch import Context, RateLimiter
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.limits_file import load_limits_file
+    from limitador_tpu_torch.server.proto import rls_pb2
+    from limitador_tpu_torch.storage.in_memory import InMemoryStorage
+
+    label = (f"serving shards (17a, {'native' if native else 'standard'}, "
+             f"{loops} loops)")
+    path = os.path.join(tmpdir, "shard-limits.yaml")
+    with open(path, "w") as f:
+        f.write(SHARD_LIMITS)
+    clock = ManualClock()
+    oracle = RateLimiter(InMemoryStorage(1 << 20, clock=clock))
+    oracle.configure_with(load_limits_file(path))
+    http, _port = _http_options()
+    rls = _free_ports(1)[0]
+    argv = [path, "torch", "--device", "cuda", "--capacity", str(C),
+            "--rls-host", "127.0.0.1", "--rls-port", str(rls),
+            "--serving-shards", str(loops), *http]
+    if native:
+        argv += ["--pipeline", "native"]
+    srv = await server.start(server.build_parser().parse_args(argv),
+                             clock=clock)
+    loop = asyncio.get_running_loop()
+    rng = np.random.default_rng(1717 + native)
+    calls = SHARD_CALLS if loops > 1 else SHARD_CALLS_ONE_LOOP
+    users = zipf_keys(C, calls, 0.99, rng)
+    blobs = [_rls_request(rls_pb2, "shard", [{"user": f"u{u}"}])
+             for u in users]
+    try:
+        K.reset_launches()
+        codes, lat = await loop.run_in_executor(
+            None, _shards_serial, rls, blobs, rls_pb2)
+        hammered = None
+        if loops > 1:
+            hammered = await loop.run_in_executor(
+                None, _shards_hammer, rls,
+                _rls_request(rls_pb2, "hot", [{"user": "h"}]), rls_pb2)
+        launches = dict(K.launches)
+        decided = _loops_decided(srv)
+    finally:
+        await srv.stop()
+    ok, over = (rls_pb2.RateLimitResponse.OK,
+                rls_pb2.RateLimitResponse.OVER_LIMIT)
+    want = [over if oracle.check_rate_limited_and_update(
+        "shard", _ctx(Context, {"user": f"u{u}"}), 1, False).limited
+        else ok for u in users]
+    differ = sum(a != b for a, b in zip(codes, want))
+    if differ:
+        fail(f"{label}: {differ} of {calls} answers differ from the "
+             "in-memory oracle's")
+    p50, p99 = _pct(lat)
+    out = {"loops": loops, "loops_decided": decided, "p50_ms": p50,
+           "p99_ms": p99, "calls": calls}
+    if hammered is not None:
+        admitted = hammered.count(ok)
+        if admitted != 3:
+            fail(f"{label}: {admitted} of {SHARD_HAMMER} one-key calls "
+                 "admitted where the limit is 3")
+        if decided < 2:
+            fail(f"{label}: only {decided} serving loop(s) decided")
+        out["hammer_admitted"] = admitted
+    missing = [k for k in PHASE17A_KERNELS if _launched(launches, k) == 0]
+    if missing:
+        fail(f"{label}: kernels not launched: {missing}")
+    print(f"{label}: {calls} serial calls on {SHARD_CHANNELS} "
+          f"channels equal to the in-memory oracle"
+          + (f", {SHARD_HAMMER} one-key calls from {SHARD_THREADS} threads "
+             f"admitted exactly {out['hammer_admitted']}"
+             if hammered is not None else "")
+          + f"; {decided} of {loops} loops decided; p50 {p50:.3f} ms, "
+          f"p99 {p99:.3f} ms ({card})", flush=True)
+    return launches, out
+
+
+def _pod_argv(tmpdir, tag, storage, pid, coord, peers, rls, http, extra):
+    limits = os.path.join(tmpdir, "pod-limits.yaml")
+    argv = [limits, storage, "--device", "cuda", "--capacity", str(1 << 17),
+            "--rls-host", "127.0.0.1", "--rls-port", str(rls[pid]),
+            "--http-host", "127.0.0.1", "--http-port", str(http[pid]),
+            "--flight-spool-dir", os.path.join(tmpdir, f"flight-{tag}{pid}"),
+            "--pod-coordinator", coord, "--pod-processes", "2",
+            "--pod-process-id", str(pid),
+            "--pod-peer-listen", f"127.0.0.1:{peers[pid]}",
+            "--usage-topk", "0", *extra]
+    for port in peers:
+        argv += ["--pod-peer", f"127.0.0.1:{port}"]
+    return argv
+
+
+def _pod_spawn(tmpdir, name, argv):
+    log = open(os.path.join(tmpdir, f"{name}.log"), "wb")
+    out = os.path.join(tmpdir, f"{name}.launches.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _POD_MAIN, out, *argv],
+        stdout=log, stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": os.getcwd()})
+    return {"proc": proc, "log": log, "launches": out, "name": name}
+
+
+def _pod_wait(member, http_port, tmpdir, label, timeout=180):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if member["proc"].poll() is not None:
+            with open(os.path.join(tmpdir, f"{member['name']}.log")) as f:
+                fail(f"{label}: {member['name']} exited "
+                     f"{member['proc'].returncode}: {f.read()[-3000:]}")
+        try:
+            if _http_get(http_port, "/status")[0] == 200:
+                return
+        except OSError:
+            pass
+        time.sleep(0.2)
+    fail(f"{label}: {member['name']} never answered /status")
+
+
+def _pod_stop(member, label):
+    """SIGTERM, then the member's kernel launches (None once killed)."""
+    proc = member["proc"]
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"{label}: {member['name']} did not stop on SIGTERM")
+    member["log"].close()
+    try:
+        with open(member["launches"]) as f:
+            return json.load(f)
+    except OSError:
+        return None
+
+
+def _pod_launches_now(member, label, timeout=30):
+    """A running member's kernel launch counts so far (SIGUSR1)."""
+    import signal
+
+    path = member["launches"]
+    if os.path.exists(path):
+        os.remove(path)
+    member["proc"].send_signal(signal.SIGUSR1)
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            fail(f"{label}: {member['name']} wrote no launch counts")
+        time.sleep(0.05)
+    with open(path) as f:
+        return json.load(f)
+
+
+def _pod_metric(port, name):
+    from prometheus_client.parser import text_string_to_metric_families
+
+    text = _http_get(port, "/metrics")[1].decode()
+    for fam in text_string_to_metric_families(text):
+        if fam.name == name:
+            return sum(s.value for s in fam.samples
+                       if s.name in (name, name + "_total"))
+    fail(f"/metrics on port {port} has no {name}")
+
+
+def _pod_counters(port, ns):
+    status, body = _http_get(port, f"/counters/{ns}")
+    if status != 200:
+        fail(f"GET /counters/{ns} on port {port} answered {status}")
+    return {(ns, c["limit"]["name"],
+             tuple(sorted(c["set_variables"].items())), c["remaining"])
+            for c in json.loads(body)}
+
+
+def _oracle_counters(limiter, ns):
+    return {(ns, c.limit.name, tuple(sorted(c.set_variables.items())),
+             c.remaining) for c in limiter.get_counters(ns)}
+
+
+def _pod_drive(rls, calls_spec, rls_pb2):
+    """Sequential calls, each to its arrival host; (codes, ms)."""
+    import grpc
+
+    channels = [_channels(port, 1)[0] for port in rls]
+    calls = [_envoy(ch) for ch in channels]
+    codes, lat = [], []
+    try:
+        for host, blob in calls_spec:
+            t0 = time.perf_counter()
+            try:
+                raw = calls[host](blob, timeout=60)
+            except grpc.RpcError as exc:
+                codes.append(f"error:{exc.code().name}")
+                lat.append((time.perf_counter() - t0) * 1e3)
+                continue
+            lat.append((time.perf_counter() - t0) * 1e3)
+            codes.append(rls_pb2.RateLimitResponse.FromString(
+                raw).overall_code)
+    finally:
+        for ch in channels:
+            ch.close()
+    return codes, lat
+
+
+def _pod_requests(rng, n):
+    """(host, namespace, entries) of the 17b drive: 60% a single-limit
+    namespace (routed by key), 25% a two-limit one (pinned), 15% the
+    global one (pinned on sharded); users Zipf-0.99 over 1<<20, the
+    hosts alternating."""
+    users = zipf_keys(C, n, 0.99, rng)
+    kinds = rng.random(n)
+    out = []
+    for i in range(n):
+        if kinds[i] < 0.60:
+            ns, entries = "pods", {"user": f"u{users[i]}"}
+        elif kinds[i] < 0.85:
+            ns, entries = "multi", {"user": f"u{users[i]}"}
+        else:
+            ns, entries = "glob", {"tenant": f"t{users[i] % 16}"}
+        out.append((i % 2, ns, entries))
+    return out
+
+
+def _router(limits, global_ns, host):
+    from limitador_tpu_torch.routing import PodRouter, PodTopology
+
+    router = PodRouter(PodTopology(hosts=2, host_id=host, shards_per_host=1))
+    router.configure(limits, global_ns)
+    return router
+
+
+def _verdicts(requests, limits, global_ns):
+    """Each request's routing verdict, as its arrival host computes it."""
+    from limitador_tpu_torch import Context, RateLimiter
+    from limitador_tpu_torch.core.limiter import _counters_that_apply
+    from limitador_tpu_torch.core.limit import Namespace
+    from limitador_tpu_torch.routing import counter_key
+    from limitador_tpu_torch.storage.in_memory import InMemoryStorage
+
+    probe = RateLimiter(InMemoryStorage(16))
+    probe.configure_with(limits)
+    routers = [_router(limits, global_ns, h) for h in (0, 1)]
+    out = []
+    for host, ns, entries in requests:
+        counters = _counters_that_apply(
+            probe.storage, Namespace.of(ns), _ctx(Context, entries))
+        out.append(routers[host].verdict(
+            ns, [counter_key(c) for c in counters])[0])
+    return out
+
+
+def _hop_split(port):
+    status, body = _http_get(port, "/debug/pod")
+    if status != 200:
+        fail(f"GET /debug/pod on port {port} answered {status}")
+    return json.loads(body)["hops"]
+
+
+async def _routed_pod(tmpdir, dev, card, storage):
+    """Phases 17b (both storages) and, on torch, 17c and 17d: a pod of
+    two server processes on the card."""
+    from limitador_tpu_torch import Context, RateLimiter
+    from limitador_tpu_torch.device.sharded import TorchShardedStorage
+    from limitador_tpu_torch.server.limits_file import load_limits_file
+    from limitador_tpu_torch.server.proto import rls_pb2
+    from limitador_tpu_torch.storage.in_memory import InMemoryStorage
+
+    label = f"routed pod (17b, {storage})"
+    with open(os.path.join(tmpdir, "pod-limits.yaml"), "w") as f:
+        f.write(POD_LIMITS)
+    limits = load_limits_file(os.path.join(tmpdir, "pod-limits.yaml"))
+    if storage == "sharded":
+        extra, global_ns = ["--global-namespaces", "glob",
+                            "--global-region", "64"], ["glob"]
+    else:
+        extra = ["--global-namespaces", "gpsum", "--pod-psum-lane", "on",
+                 "--pod-psum-interval-ms", str(PSUM_INTERVAL_MS)]
+        global_ns = []  # the psum lane claims gpsum: nothing global pinned
+    coord = f"127.0.0.1:{_free_ports(1)[0]}"
+    peers, rls, http = _free_ports(2), _free_ports(2), _free_ports(2)
+    argvs = [_pod_argv(tmpdir, storage, storage, pid, coord, peers, rls,
+                       http, extra) for pid in (0, 1)]
+    t0 = time.perf_counter()
+    members = [_pod_spawn(tmpdir, f"pod-{storage}-{pid}", argvs[pid])
+               for pid in (0, 1)]
+    for pid in (0, 1):
+        _pod_wait(members[pid], http[pid], tmpdir, label)
+    formed_s = time.perf_counter() - t0
+    loop = asyncio.get_running_loop()
+    out = {"formed_s": formed_s}
+    launches = []
+    try:
+        rng = np.random.default_rng(1718)
+        requests = _pod_requests(rng, POD_CALLS)
+        spec = [(h, _rls_request(rls_pb2, ns, [e])) for h, ns, e in requests]
+        t0 = time.perf_counter()
+        codes, lat = await loop.run_in_executor(
+            None, _pod_drive, rls, spec, rls_pb2)
+        drive_s = time.perf_counter() - t0
+        errors = [c for c in codes if isinstance(c, str)]
+        if errors:
+            fail(f"{label}: {len(errors)} calls failed: {errors[:5]}")
+        # the oracle: one process, fed the same calls in the same order
+        if storage == "sharded":
+            oracle = RateLimiter(TorchShardedStorage(
+                n_shards=2, local_capacity=1 << 17,
+                global_namespaces=["glob"], global_region=64,
+                device=str(dev)))
+        else:
+            oracle = RateLimiter(InMemoryStorage(1 << 20))
+        oracle.configure_with(limits)
+        ok, over = (rls_pb2.RateLimitResponse.OK,
+                    rls_pb2.RateLimitResponse.OVER_LIMIT)
+        want = [over if oracle.check_rate_limited_and_update(
+            ns, _ctx(Context, e), 1, False).limited else ok
+            for _h, ns, e in requests]
+        differ = sum(a != b for a, b in zip(codes, want))
+        if differ:
+            fail(f"{label}: {differ} of {POD_CALLS} answers differ from a "
+                 "single-process table's")
+        got_counters, want_counters = set(), set()
+        for ns in ("pods", "multi", "glob"):
+            for port in http:
+                got_counters |= _pod_counters(port, ns)
+            want_counters |= _oracle_counters(oracle, ns)
+        if got_counters != want_counters:
+            fail(f"{label}: the union of the hosts' counters differs from "
+                 f"the single-process table's: "
+                 f"{len(got_counters ^ want_counters)} differences of "
+                 f"{len(want_counters)}")
+        verdicts = _verdicts(requests, limits, global_ns)
+        routed = {v: sum(_pod_metric(port, f"pod_routed_{v}")
+                         for port in http)
+                  for v in ("local", "forwarded", "pinned")}
+        tally = {"local": verdicts.count("local"),
+                 "forwarded": verdicts.count("forward"),
+                 "pinned": verdicts.count("pinned")}
+        if routed != tally or min(routed.values()) == 0:
+            fail(f"{label}: routed {routed} where the requests' verdicts "
+                 f"are {tally} (each must be above 0)")
+        by = {v: [ms for ms, vv in zip(lat, verdicts) if vv == v]
+              for v in ("local", "forward", "pinned")}
+        out.update({
+            "calls": POD_CALLS, "drive_s": drive_s, "routed": routed,
+            "counters": len(want_counters),
+            "p50_p99_ms": {v: _pct(ms) for v, ms in by.items()},
+            "hops": [_hop_split(port) for port in http],
+            "peer_errors": [_pod_metric(port, "pod_peer_errors")
+                            for port in http],
+        })
+        print(f"{label}: pod formed in {formed_s:.2f} s; {POD_CALLS} "
+              f"sequential calls alternating hosts in {drive_s:.2f} s, "
+              f"every answer and the union of both hosts' "
+              f"{len(want_counters)} counters equal to the single-process "
+              f"{'2-row TorchShardedStorage' if storage == 'sharded' else 'in-memory oracle'}; "
+              f"routed {json.dumps(routed)}; p50/p99 ms "
+              f"{json.dumps(out['p50_p99_ms'])}; hop phases (host 0) "
+              f"{json.dumps(out['hops'][0]['phases'])} ({card})", flush=True)
+        if storage == "torch":
+            out["psum"] = await loop.run_in_executor(
+                None, _psum_check, rls, http, rls_pb2, card)
+            killed, drill = await _degraded_drill(
+                tmpdir, members, argvs, rls, http, limits, rls_pb2, card)
+            out["drill"] = drill
+            launches.append(killed)  # the killed member's, before it died
+    finally:
+        for member in members:
+            launches.append(_pod_stop(member, label))
+    launches = [run for run in launches if run is not None]
+    total = {}
+    for run in launches:
+        for k, v in run.items():
+            total[k] = total.get(k, 0) + v
+    missing = [k for k in PHASE17B_KERNELS[storage]
+               if _launched(total, k) == 0]
+    if storage == "torch":
+        missing += [k for k in PHASE17D_KERNELS if total.get(k, 0) == 0]
+    if missing:
+        fail(f"{label}: kernels not launched in the pod's processes: "
+             f"{missing}")
+    out["launches"] = total
+    print(f"{label}: launches in the pod's processes "
+          f"{json.dumps({k: v for k, v in total.items() if v})}", flush=True)
+    return total, out
+
+
+def _psum_check(rls, http, rls_pb2, card):
+    """Phase 17c: PSUM_CALLS sequential calls for one tenant of a
+    fixed-window global namespace of PSUM_MAX, alternating hosts, each
+    host deciding locally against the other's partials exchanged every
+    PSUM_INTERVAL_MS. Admitted past the limit: at most what the other
+    host admitted in the blind spot, bounded here by each host's largest
+    admissions within two intervals (one interval of staleness plus the
+    exchange in flight)."""
+    label = "psum lane (17c)"
+    ok = rls_pb2.RateLimitResponse.OK
+    blob = _rls_request(rls_pb2, "gpsum", [{"tenant": "t0"}])
+    spec = [(i % 2, blob) for i in range(PSUM_CALLS)]
+    stamps = []
+    codes, lat = [], []
+    import grpc
+
+    channels = [_channels(port, 1)[0] for port in rls]
+    calls = [_envoy(ch) for ch in channels]
+    try:
+        for host, b in spec:
+            t = time.monotonic()
+            raw = calls[host](b, timeout=60)
+            code = rls_pb2.RateLimitResponse.FromString(raw).overall_code
+            codes.append(code)
+            stamps.append((t, host, code == ok))
+        time.sleep(4 * PSUM_INTERVAL_MS / 1e3)  # a final exchange
+        after = [rls_pb2.RateLimitResponse.FromString(
+            calls[h](blob, timeout=60)).overall_code for h in (0, 1)]
+    except grpc.RpcError as exc:
+        fail(f"{label}: a call failed: {exc.code().name}")
+    finally:
+        for ch in channels:
+            ch.close()
+    admitted = codes.count(ok)
+    window = 2 * PSUM_INTERVAL_MS / 1e3
+    bound = 0
+    for host in (0, 1):
+        times = [t for t, h, a in stamps if h == host and a]
+        best = j = 0
+        for i, t in enumerate(times):
+            while times[j] < t - window:
+                j += 1
+            best = max(best, i - j + 1)
+        bound += best
+    over = max(admitted - PSUM_MAX, 0)
+    exchanges = [_pod_metric(port, "pod_psum_exchanges") for port in http]
+    decisions = [_pod_metric(port, "pod_psum_decisions") for port in http]
+    if admitted < PSUM_MAX or over > bound:
+        fail(f"{label}: admitted {admitted} of limit {PSUM_MAX}: "
+             f"over-admission {over} past the bound {bound}")
+    if ok in after:
+        fail(f"{label}: a call after the final exchange was admitted")
+    if min(exchanges) == 0 or sum(decisions) < PSUM_CALLS:
+        fail(f"{label}: exchanges {exchanges}, decisions {decisions}")
+    print(f"{label}: {PSUM_CALLS} calls for one tenant of {PSUM_MAX}, "
+          f"hosts alternating, exchange every {PSUM_INTERVAL_MS} ms: "
+          f"admitted {admitted}, over-admission {over} (bound {bound}: "
+          f"each host's admissions within two intervals); after the final "
+          f"exchange both hosts limit; exchanges {exchanges} ({card})",
+          flush=True)
+    return {"admitted": admitted, "limit": PSUM_MAX, "over": over,
+            "bound": bound, "exchanges": exchanges}
+
+
+async def _degraded_drill(tmpdir, members, argvs, rls, http, limits,
+                          rls_pb2, card):
+    """Phase 17d on the torch pod: host 1 killed mid-drive, host 0's
+    calls for host 1's keys answered by the stand-in (no UNAVAILABLE),
+    host 1 restarted on the same address with an empty table, the
+    journal replayed into it through ``apply_deltas`` (B2's host form),
+    its counters for keys born in the partition equal to the oracle's."""
+    from limitador_tpu_torch import Context, RateLimiter
+    from limitador_tpu_torch.storage.in_memory import InMemoryStorage
+
+    label = "degraded drill (17d)"
+    loop = asyncio.get_running_loop()
+    ok = rls_pb2.RateLimitResponse.OK
+    verdicts = _verdicts(
+        [(0, "drill", {"user": f"d{i}"}) for i in range(400)], limits, [])
+    owned = [f"d{i}" for i, v in enumerate(verdicts) if v == "forward"][:6]
+    if len(owned) < 6:
+        fail(f"{label}: found no keys of host 1")
+    pre, fresh = owned[:2], owned[2:]
+
+    def call(user):
+        return (0, _rls_request(rls_pb2, "drill", [{"user": user}]))
+
+    codes, _lat = await loop.run_in_executor(
+        None, _pod_drive, rls, [call(u) for u in pre for _ in range(2)],
+        rls_pb2)
+    if codes != [ok] * 4:
+        fail(f"{label}: before the kill: {codes}")
+    killed = _pod_launches_now(members[1], label)
+    t_kill = time.monotonic()
+    members[1]["proc"].kill()
+    members[1]["proc"].wait()
+    members[1]["log"].close()
+    rounds = [call(u) for _ in range(DRILL_MAX + 1) for u in owned]
+    codes, lat = await loop.run_in_executor(
+        None, _pod_drive, rls, rounds, rls_pb2)
+    errors = [c for c in codes if isinstance(c, str)]
+    if errors:
+        fail(f"{label}: {len(errors)} calls for the dead owner's keys "
+             f"failed: {errors[:5]}")
+    admitted = {u: 0 for u in owned}
+    for (_h, _b), code, user in zip(rounds, codes,
+                                    [u for _ in range(DRILL_MAX + 1)
+                                     for u in owned]):
+        admitted[user] += code == ok
+    deadline = time.monotonic() + 30
+    while _pod_metric(http[0], "pod_failover_breaker_open") < 1:
+        if time.monotonic() > deadline:
+            fail(f"{label}: the breaker never opened")
+        time.sleep(0.05)
+    trip_s = time.monotonic() - t_kill
+    if any(n != DRILL_MAX for n in admitted.values()):
+        fail(f"{label}: the stand-in admitted {admitted} (a fresh window "
+             f"of {DRILL_MAX} each)")
+    journal = _pod_metric(http[0], "pod_failover_journal_depth")
+    t_restart = time.monotonic()
+    members[1] = _pod_spawn(tmpdir, "pod-torch-1b", argvs[1])
+    _pod_wait(members[1], http[1], tmpdir, label)
+    up_s = time.monotonic() - t_restart
+    deadline = time.monotonic() + 60
+    while not (_pod_metric(http[0], "pod_failover_journal_depth") == 0
+               and _pod_metric(http[0], "pod_failover_reconciles") >= 1):
+        if time.monotonic() > deadline:
+            fail(f"{label}: the journal never replayed")
+        time.sleep(0.05)
+    replay_done_s = time.monotonic() - t_restart
+    probe_s = replay_done_s - up_s
+    replayed = _pod_metric(http[0], "pod_failover_replayed_deltas")
+    reconcile_s = _pod_metric(http[0], "pod_failover_reconcile_seconds")
+    after, _ = await loop.run_in_executor(
+        None, _pod_drive, rls, [call(u) for u in owned], rls_pb2)
+    if ok in after:
+        fail(f"{label}: after the replay the owner admitted {after}")
+    oracle = RateLimiter(InMemoryStorage(4096))
+    oracle.configure_with(limits)
+    for user in owned:
+        for _ in range(admitted[user]):
+            oracle.check_rate_limited_and_update(
+                "drill", _ctx(Context, {"user": user}), 1, False)
+    got = {c[2]: c[3] for c in _pod_counters(http[1], "drill")}
+    want = {c[2]: c[3] for c in _oracle_counters(oracle, "drill")}
+    for user in fresh:
+        key = (("descriptors[0].user", user),)
+        if got.get(key) != want.get(key):
+            fail(f"{label}: host 1 holds {got.get(key)} for {user}, the "
+                 f"oracle {want.get(key)}")
+    for user in pre:  # older keys: within one extra window
+        if 2 + admitted[user] > 2 * DRILL_MAX:
+            fail(f"{label}: {user} admitted past two windows")
+    if replayed != len(owned):
+        fail(f"{label}: replayed {replayed} deltas for {len(owned)} "
+             "journaled counters")
+    out = {"trip_s": trip_s, "restart_up_s": up_s,
+           "replay_done_s": replay_done_s, "probe_s": probe_s,
+           "reconcile_s": reconcile_s, "replayed_deltas": replayed,
+           "journal": journal, "degraded_p50_p99_ms": _pct(lat)}
+    print(f"{label}: host 1 killed mid-drive, {len(rounds)} calls for its "
+          f"{len(owned)} keys answered by host 0's stand-in with no error "
+          f"(p50/p99 {out['degraded_p50_p99_ms']} ms); breaker open "
+          f"{trip_s:.3f} s after the kill; host 1 back in {up_s:.2f} s, "
+          f"journal of {journal:.0f} counters replayed ({replayed:.0f} "
+          f"deltas) {replay_done_s:.3f} s after the restart ({probe_s:.3f} "
+          f"s after it answered: the probe and the replay), reconcile "
+          f"{reconcile_s * 1e3:.1f} ms; host 1's counters for the "
+          f"partition's keys equal the oracle ({card})", flush=True)
+    return killed, out
+
+
+def phase_pod(dev, card):
+    """Phase 17: serving shards (a), the routed pod on sharded and torch
+    (b), the psum lane (c) and the degraded drill (d)."""
+    t0 = time.perf_counter()
+    runs, out = [], {"shards": []}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for native in (False, True):
+            for loops in (SHARD_LOOPS, 1):
+                run, res = asyncio.run(_serving_shards(
+                    tmpdir, dev, card, native, loops))
+                res["pipeline"] = "native" if native else "standard"
+                runs.append(run)
+                out["shards"].append(res)
+    for storage in ("sharded", "torch"):
+        with tempfile.TemporaryDirectory() as tmpdir:
+            run, res = asyncio.run(_routed_pod(tmpdir, dev, card, storage))
+        runs.append(run)
+        out[storage] = res
+    launches = {}
+    for run in runs:
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17 took {out['seconds']:.1f} s", flush=True)
+    return launches, out
+
+
+_T0 = time.perf_counter()
+
+
+def _mark(label: str) -> None:
+    """The seconds since the script started, at the end of a phase."""
+    print(f"[{time.perf_counter() - _T0:.1f} s] {label} done", flush=True)
+
+
 def main() -> int:
     name, card = phase_card()
     import torch
@@ -7805,10 +8596,14 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     phase_build()
+    _mark("phase 2")
     results = phase_kernels(dev)
+    _mark("phase 3")
     with tempfile.TemporaryDirectory() as tmpdir:
         launches = asyncio.run(_main_path(tmpdir, dev))
+    _mark("phase 4")
     rate, drive5_launches = phase_drive(dev, card, DRIVE_BATCHES)
+    _mark("phase 5")
     from limitador_tpu_torch.ops import kernel as K
 
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -7818,6 +8613,7 @@ def main() -> int:
     leased = phase_native_drive(dev, card, NATIVE_BATCHES, leases=True)
     drive_launches = dict(K.launches)
     print(f"native drive launches: {json.dumps(drive_launches)}")
+    _mark("phases 6 and 7")
     missing = [name for name in PHASE7_KERNELS
                if _launched(drive_launches, name) == 0]
     if missing:
@@ -7835,6 +8631,7 @@ def main() -> int:
         served_launches, served = asyncio.run(
             _served_replication(tmpdir, dev, card))
     served["routes"] = routes
+    _mark("phase 8")
     tier_launches, tiered = phase_tiered_drive(dev, card)
     with tempfile.TemporaryDirectory() as tmpdir:
         served_tier_launches, served_tiers = asyncio.run(
@@ -7853,6 +8650,7 @@ def main() -> int:
             _served_tiers(tmpdir, dev, card, leases=True,
                           label="served tiers (leases on, observatory on)",
                           need_reclaim=False))
+    _mark("phase 9")
     with _route_tally("sharded drive (10a)") as routes:
         sharded_launches, sharded = phase_sharded_drive(dev, card)
     sharded["routes"] = routes
@@ -7861,13 +8659,22 @@ def main() -> int:
         served_sharded_launches, served_sharded = asyncio.run(
             _served_sharded(tmpdir, dev, card))
     served_sharded["routes"] = routes
+    _mark("phase 10")
     with tempfile.TemporaryDirectory() as tmpdir:
         http_launches, http_api = asyncio.run(_http_api(tmpdir, dev, card))
+    _mark("phase 11")
     plane_launches, device_plane = phase_device_plane(dev, card)
+    _mark("phase 12")
     planes_launches, control_planes = phase_control_planes(dev, card)
+    _mark("phase 13")
     host_launches, host_storages = phase_host_storages(dev, card)
+    _mark("phase 14")
     admission_launches, admission = phase_admission(dev, card)
+    _mark("phase 15")
     ingress_launches, ingress = phase_native_ingress(dev, card)
+    _mark("phase 16")
+    pod_launches, pod = phase_pod(dev, card)
+    _mark("phase 17")
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -7902,16 +8709,17 @@ def main() -> int:
         _host_forms_only(got, label, remote=False)
     _storage_forms(plane_launches, "device plane (12)", ("update_host",))
     # launches on the main paths: phases 4, 5, 6, 7, 8a, 8b, 9a, 9b, 10a,
-    # 10b, 11, 12, 13, 14, 15, 16 (14c's authority and 15d's server are
-    # other processes: 14c's RPCs are counted by its /debug/stats, not
-    # here)
+    # 10b, 11, 12, 13, 14, 15, 16, 17 (14c's authority and 15d's server
+    # are other processes: 14c's RPCs are counted by its /debug/stats,
+    # not here; 17's pod members write their own counts as they exit,
+    # the member killed in 17d just before its kill)
     runs = (launches, drive5_launches, native_launches, drive_launches,
             repl_launches,
             served_launches, tier_launches, served_tier_launches,
             leased_tier_launches, served_default_launches, sharded_launches,
             served_sharded_launches, http_launches, plane_launches,
             planes_launches, host_launches, admission_launches,
-            ingress_launches)
+            ingress_launches, pod_launches)
     launches = {name: sum(run[name] for run in runs) for name in launches}
     kernels = []
     for kname, by_shape in results.items():
@@ -7972,6 +8780,8 @@ def main() -> int:
             "admission_launches": admission_launches,
             "native_ingress": ingress,
             "native_ingress_launches": ingress_launches,
+            "pod": pod,
+            "pod_launches": pod_launches,
         }, f, indent=1)
     spool_root.cleanup()
     print(f"card: {card}")

@@ -1037,8 +1037,10 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
 
         The columns may be views of a staging buffer their owner reuses
         at its next begin (the C hot lane's scratch): they are copied
-        into one fresh host array here, inside the lock, before anything
-        is uploaded. ``bucket`` marks GCRA hits (``windows_ms`` then
+        into fresh host arrays here, just before the lock is taken, on
+        the caller's thread and before this call returns, so the copy
+        is taken before the owner's next begin can rewrite the buffer.
+        ``bucket`` marks GCRA hits (``windows_ms`` then
         carries the emission interval); None means all fixed-window."""
         if bucket is None:
             bucket = np.zeros(slots.shape, bool)

@@ -21,9 +21,14 @@ plane (``native_phase_*``), the SLO watchdog (``slo_*``,
 ``device_backed``), the control-signal bus (``signal_*``), the process
 flight recorder (``flight_*``), the serving-model fit (``model_*``,
 ``capacity_*``) and the admission plane (``admission_*``, declared on
-every server as in the JAX package, whatever ``--admission-mode``). A
-family of a plane the port does not have yet (the pod, the capacity
-controller) is declared with the slice that brings the plane. The
+every server as in the JAX package, whatever ``--admission-mode``), and
+the pod's (``pod_routed_*``, ``pod_peer_*``, ``peer_health_*``,
+``pod_failover_*``, ``pod_hop_phase_ms``, ``pod_events``,
+``pod_signal_*``, ``pod_psum_*``, polled off the pod frontend's
+``library_stats``; declared on every server as in the JAX package). A
+family of a plane the port does not have yet (the native pod fast path,
+the elastic pod, the capacity controller) is declared with the slice
+that brings the plane. The
 native ingress's families (``ingress_*``, fed by its ``library_stats``
 through ``attach_library_source``, and ``native_phase_h2i_respond``, fed
 by the native plane) are declared on every server, as in the JAX
@@ -58,6 +63,8 @@ from prometheus_client.openmetrics.exposition import (
 )
 
 from .device_plane import BATCHERS, FLUSH_REASONS, PHASES, current_request_id
+from .events import EVENT_KINDS
+from .pod_plane import HOP_PHASES, POD_HOP_BUCKETS_MS
 from .flight import TRIGGER_REASONS
 from .metrics_layer import MetricsLayer, install, installed
 from .model import ATTRIBUTION_STAGES, MODEL_TARGETS, MODEL_TERMS
@@ -142,6 +149,40 @@ _CUMULATIVE_KEYS = (
     "ingress_requests",
     "ingress_responses",
     "ingress_protocol_errors",
+    "pod_routed_local",
+    "pod_routed_forwarded",
+    "pod_routed_pinned",
+    "pod_peer_errors",
+    "peer_health_retries",
+    "peer_health_hedges_won",
+    "peer_health_hedges_lost",
+    "peer_health_redials",
+    "peer_health_probes",
+    "pod_failover_degraded_decisions",
+    "pod_failover_reconciles",
+    "pod_failover_replayed_deltas",
+    "pod_signal_exchanges",
+    "pod_psum_decisions",
+    "pod_psum_limited",
+    "pod_psum_exchanges",
+)
+
+#: cumulative library_stats seconds fed to same-named counters as the
+#: increment since the last render (no int truncation)
+_CUMULATIVE_SECONDS = (
+    "pod_failover_reconcile_seconds",
+    "pod_failover_seconds",
+)
+
+#: pod levels a render sums over sources, and those it takes the largest
+#: of (the JAX render's aggregation)
+_POD_SUMS = (
+    "pod_failover_journal_depth", "pod_failover_breaker_open",
+    "pod_psum_cells", "pod_psum_remote_slots",
+)
+_POD_MAXES = (
+    "pod_peer_p99_ms", "pod_event_seq", "pod_signal_hosts",
+    "pod_signal_age_s", "pod_psum_namespaces",
 )
 
 
@@ -901,6 +942,216 @@ class PrometheusMetrics:
         )
         # Pre-seed the bounded label sets so the families render (and
         # dashboards see zeros) before the first sample.
+        # -- the pod (routing.py, server/peering.py, parallel/pod.py),
+        # polled off the pod frontend's library_stats: routing verdicts
+        # and the peer lane
+        self.pod_routed_local = Counter(
+            "pod_routed_local",
+            "Decisions owned by this host (the collective-free lean "
+            "path; zero cross-host traffic)",
+            registry=self.registry,
+        )
+        self.pod_routed_forwarded = Counter(
+            "pod_routed_forwarded",
+            "Decisions forwarded once over the peer lane to their "
+            "owner host",
+            registry=self.registry,
+        )
+        self.pod_routed_pinned = Counter(
+            "pod_routed_pinned",
+            "Decisions routed by namespace pin (multi-limit or global "
+            "namespaces, whole namespace owned by one host)",
+            registry=self.registry,
+        )
+        self.pod_peer_errors = Counter(
+            "pod_peer_errors",
+            "Peer-lane forward failures (dead/slow owner host; the "
+            "request fails with the shed semantics)",
+            registry=self.registry,
+        )
+        self.pod_peer_p99_ms = Gauge(
+            "pod_peer_p99_ms",
+            "p99 peer-lane forward latency (ms) over the recent "
+            "forward window — the pod's one-hop cost",
+            registry=self.registry,
+        )
+        # -- the pod's resilience plane (server/peering.py)
+        self.peer_health_state = Gauge(
+            "peer_health_state",
+            "Peer health state per pod peer: 0 up, 1 suspect "
+            "(consecutive failures/deadline misses), 2 down (probed "
+            "until it answers again)",
+            ["peer"],
+            registry=self.registry,
+        )
+        self.peer_health_retries = Counter(
+            "peer_health_retries",
+            "Jittered-backoff forward retries against suspect peers "
+            "(idempotent check kinds only, deadline-budgeted)",
+            registry=self.registry,
+        )
+        self.peer_health_hedges_won = Counter(
+            "peer_health_hedges_won",
+            "Hedged forwards where the raced second attempt answered "
+            "first (the original was stalled)",
+            registry=self.registry,
+        )
+        self.peer_health_hedges_lost = Counter(
+            "peer_health_hedges_lost",
+            "Hedged forwards where the original attempt still won "
+            "(the hedge was wasted work)",
+            registry=self.registry,
+        )
+        self.peer_health_redials = Counter(
+            "peer_health_redials",
+            "Cached peer channels dropped on a health trip so a "
+            "restarted peer gets a fresh dial instead of the stale "
+            "channel's backoff state",
+            registry=self.registry,
+        )
+        self.peer_health_probes = Counter(
+            "peer_health_probes",
+            "Background ping probes sent to non-up peers from the "
+            "lane's daemon loop (recovery detection)",
+            registry=self.registry,
+        )
+        self.pod_failover_degraded_decisions = Counter(
+            "pod_failover_degraded_decisions",
+            "Forwarded decisions served by a local per-owner stand-in "
+            "(exact oracle + delta journal) while the owner's breaker "
+            "was away from closed",
+            registry=self.registry,
+        )
+        self.pod_failover_journal_depth = Gauge(
+            "pod_failover_journal_depth",
+            "Counter deltas journaled against down owners, awaiting "
+            "replay — the live zero-lost-updates backlog",
+            registry=self.registry,
+        )
+        self.pod_failover_breaker_open = Gauge(
+            "pod_failover_breaker_open",
+            "Pod peers whose per-owner breaker is away from closed "
+            "(their forwarded traffic is failing over locally)",
+            registry=self.registry,
+        )
+        self.pod_failover_reconciles = Counter(
+            "pod_failover_reconciles",
+            "Journal replays completed into recovered owners "
+            "(apply_deltas over the peer lane)",
+            registry=self.registry,
+        )
+        self.pod_failover_replayed_deltas = Counter(
+            "pod_failover_replayed_deltas",
+            "Journaled counter deltas replayed into recovered owners",
+            registry=self.registry,
+        )
+        self.pod_failover_reconcile_seconds = Counter(
+            "pod_failover_reconcile_seconds",
+            "Cumulative seconds spent replaying failover journals to "
+            "recovered owners",
+            registry=self.registry,
+        )
+        self.pod_failover_seconds = Counter(
+            "pod_failover_seconds",
+            "Cumulative seconds pod peer breakers have spent away "
+            "from closed (the degraded-window clock)",
+            registry=self.registry,
+        )
+        # -- the pod's observability plane (observability/pod_plane.py,
+        # observability/events.py); the hop histogram is fed a bucket at
+        # a time by PodHopRecorder.poll (attach_render_hook)
+        self.pod_hop_phase_ms = Histogram(
+            "pod_hop_phase_ms",
+            "Per-hop breakdown of one forwarded pod decision (ms): "
+            "queue (serving loop -> lane loop handoff), serialize "
+            "(payload encode), wire (channel/network/retries — the "
+            "derived remainder), remote_decide (the owner's reported "
+            "decide time)",
+            ["phase"],
+            registry=self.registry,
+            buckets=POD_HOP_BUCKETS_MS,
+        )
+        self.pod_events = Counter(
+            "pod_events",
+            "Typed pod timeline events by kind: peer health "
+            "transitions, breaker transitions, degraded enter/exit, "
+            "journal replay begin/end, routing-epoch bumps, channel "
+            "re-dials, hedge outcomes (GET /debug/events serves the "
+            "ordered ring)",
+            ["kind"],
+            registry=self.registry,
+        )
+        self.pod_event_seq = Gauge(
+            "pod_event_seq",
+            "Last pod event sequence number emitted by this host "
+            "(monotonic; the pod-wide merge key is (host, seq))",
+            registry=self.registry,
+        )
+        self.pod_signal_hosts = Gauge(
+            "pod_signal_hosts",
+            "Pod hosts contributing a fresh federated signal column "
+            "(self included; a stale peer drops out after 10s)",
+            registry=self.registry,
+        )
+        self.pod_signal_exchanges = Counter(
+            "pod_signal_exchanges",
+            "Peer signal columns ingested (piggybacked on the health-"
+            "probe cadence, never the decision path)",
+            registry=self.registry,
+        )
+        self.pod_signal_age_s = Gauge(
+            "pod_signal_age_s",
+            "Age of the OLDEST peer signal column (s) — staleness of "
+            "the federated view",
+            registry=self.registry,
+        )
+        self.pod_signal_routed_share = Gauge(
+            "pod_signal_routed_share",
+            "This host's locally-owned decision share as joined into "
+            "the federated ControlSignals pod tail",
+            registry=self.registry,
+        )
+        self.pod_signal_degraded_share = Gauge(
+            "pod_signal_degraded_share",
+            "Share of this host's routed decisions served by degraded-"
+            "owner stand-ins (the federated degraded share column)",
+            registry=self.registry,
+        )
+        self.pod_psum_namespaces = Gauge(
+            "pod_psum_namespaces",
+            "Global namespaces the lockstep psum lane serves locally "
+            "on every host (fixed-window only; the rest stay pinned)",
+            registry=self.registry,
+        )
+        self.pod_psum_decisions = Counter(
+            "pod_psum_decisions",
+            "Decisions answered by the psum lane (local partial + "
+            "folded remote base; never a peer hop)",
+            registry=self.registry,
+        )
+        self.pod_psum_limited = Counter(
+            "pod_psum_limited",
+            "Psum-lane decisions answered over-limit",
+            registry=self.registry,
+        )
+        self.pod_psum_exchanges = Counter(
+            "pod_psum_exchanges",
+            "Lockstep exchange rounds completed (each folds every "
+            "other host's live partials into the remote base)",
+            registry=self.registry,
+        )
+        self.pod_psum_cells = Gauge(
+            "pod_psum_cells",
+            "Live local partial cells held by the psum lane "
+            "(LRU-bounded)",
+            registry=self.registry,
+        )
+        self.pod_psum_remote_slots = Gauge(
+            "pod_psum_remote_slots",
+            "Folded remote-base slots currently live (non-zero and "
+            "unexpired)",
+            registry=self.registry,
+        )
         for reason in _SHED_REASONS:
             for priority in _PRIORITIES:
                 self.admission_sheds.labels(reason, priority)
@@ -930,6 +1181,10 @@ class PrometheusMetrics:
             self.device_phase_latency.labels(phase)
         for variant in ("lean", "coupled", "global"):
             self.sharded_launches.labels(variant)
+        for phase in HOP_PHASES:
+            self.pod_hop_phase_ms.labels(phase)
+        for kind in EVENT_KINDS:
+            self.pod_events.labels(kind)
         self._library_sources: list = []
         self._counter_baselines: dict = {}
         self._native_planes: list = []
@@ -977,11 +1232,13 @@ class PrometheusMetrics:
             "native_lane_plans", "lease_active", "lease_outstanding_tokens",
             "sharded_route_memo_size",
         ), 0)
+        pod_levels = dict.fromkeys(_POD_SUMS + _POD_MAXES, 0)
         for i, source in enumerate(self._library_sources):
             self._poll_device_stats(i, source)
             stats = source.library_stats()
             for key in levels:
                 levels[key] += int(stats.get(key, 0))
+            self._poll_pod_stats(i, stats, pod_levels)
             for key in _CUMULATIVE_KEYS:
                 if key in stats:
                     seen = int(stats[key])
@@ -1008,6 +1265,37 @@ class PrometheusMetrics:
         self.lease_active.set(levels["lease_active"])
         self.lease_outstanding_tokens.set(levels["lease_outstanding_tokens"])
         self.sharded_route_memo_size.set(levels["sharded_route_memo_size"])
+        for key, value in pod_levels.items():
+            getattr(self, key).set(value)
+
+    def _poll_pod_stats(self, i: int, stats: dict, levels: dict) -> None:
+        """The pod frontend's families from one source's library_stats:
+        levels summed or maxed into ``levels``, the peer states and
+        routed and degraded shares set, the event kinds and the seconds
+        counted as increments."""
+        for key in _POD_SUMS:
+            levels[key] += stats.get(key, 0)
+        for key in _POD_MAXES:
+            levels[key] = max(levels[key], stats.get(key, 0))
+        for peer, state in stats.get("peer_health_state", {}).items():
+            self.peer_health_state.labels(str(peer)).set(int(state))
+        for key in ("pod_signal_routed_share", "pod_signal_degraded_share"):
+            if key in stats:
+                getattr(self, key).set(float(stats[key]))
+        for kind, seen in stats.get("pod_events", {}).items():
+            seen = int(seen)
+            baseline_key = (i, "pod_events", kind)
+            baseline = self._counter_baselines.get(baseline_key, 0)
+            if seen > baseline:
+                self.pod_events.labels(str(kind)).inc(seen - baseline)
+                self._counter_baselines[baseline_key] = seen
+        for key in _CUMULATIVE_SECONDS:
+            if key in stats:
+                seen_f = float(stats[key])
+                baseline_f = self._counter_baselines.get((i, key), 0.0)
+                if seen_f > baseline_f:
+                    getattr(self, key).inc(seen_f - baseline_f)
+                    self._counter_baselines[(i, key)] = seen_f
 
     def _poll_device_stats(self, i: int, source) -> None:
         """Per-shard device-table stats from a ``device_stats()`` source:

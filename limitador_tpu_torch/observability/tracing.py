@@ -16,8 +16,9 @@ Departures from the JAX module (ROADMAP Queue C):
 - a pipeline that cannot start raises ``TracingError`` (the server exits
   2) instead of serving on without span export.
 
-Left for later slices: the pod hop (``hop_trace_metadata``,
-``peer_decide_span``).
+The pod hop: ``hop_trace_metadata`` injects the origin's W3C trace
+context into a peer-lane forward's gRPC metadata, and the owner opens a
+``pod_peer_decide`` span linked to it (``peer_decide_span``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ __all__ = [
     "sample_rate",
     "current_trace_id",
     "adopt_traceparent",
+    "hop_trace_metadata",
+    "peer_decide_span",
 ]
 
 # The OpenTelemetry API's trace module, the installed provider and this
@@ -292,3 +295,44 @@ def _should_rate_limit_span(namespace, hits_addend, carrier):
                     span.set_attribute("ratelimit.limit_name", limit_name)
 
             yield record
+
+
+def hop_trace_metadata() -> list:
+    """W3C trace-context key/value pairs for a pod peer hop: the
+    origin's current span context, injected so that the owner host can
+    link its decide span back across the hop. Empty when no exporter is
+    configured."""
+    if not _enabled or _tracer is None:
+        return []
+    from opentelemetry.propagate import inject
+
+    carrier: dict = {}
+    inject(carrier)
+    return list(carrier.items())
+
+
+def peer_decide_span(namespace, request_id, carrier=None):
+    """Owner-side span around one forwarded decision (the remote half of
+    a pod hop). ``carrier`` is the forward's gRPC metadata: when it
+    carries a W3C trace context the span links to the origin's span (a
+    causal reference between two hosts' traces, not a parent)."""
+    if not _enabled or _tracer is None or not _head_decision():
+        return _NULLCONTEXT
+    return _peer_decide_span(namespace, request_id, carrier)
+
+
+@contextmanager
+def _peer_decide_span(namespace, request_id, carrier):
+    links = []
+    if carrier:
+        from opentelemetry.propagate import extract
+
+        # A malformed traceparent extracts to an invalid span context.
+        remote = _trace.get_current_span(extract(carrier)).get_span_context()
+        if remote.is_valid:
+            links.append(_trace.Link(remote))
+    with _tracer.start_as_current_span("pod_peer_decide", links=links) as span:
+        span.set_attribute("ratelimit.namespace", str(namespace))
+        if request_id:
+            span.set_attribute("request.id", str(request_id))
+        yield

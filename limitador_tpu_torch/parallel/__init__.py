@@ -1,6 +1,9 @@
-"""The sharded counter table of the port (one card, n rows).
+"""The sharded counter table of the port (one card, n rows), and the
+pod's formation and psum lane.
 
-Counterpart of ``limitador_tpu/parallel/``, cut to the table programs.
+Counterpart of ``limitador_tpu/parallel/``: the table programs here
+(``mesh.py``), the serving pod's formation over a TCPStore, its barrier
+and its psum lane in ``pod.py``, which only a pod member imports.
 """
 
 from .mesh import (

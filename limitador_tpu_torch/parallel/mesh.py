@@ -45,9 +45,12 @@ under its own key, its answers in the context's mapped host buffer).
 Like the rest of the port, every function updates the table in place
 and returns it.
 
-The pod plumbing of the JAX file (``PodInfo``, ``PodPsumLane``,
-``PodMembership``, the pod meshes) belongs to the multi-process pod and
-is not ported yet (ROADMAP Queue A).
+The serving pod's parts of the JAX file (``PodInfo``, ``initialize_pod``,
+``PodMembership``, ``pod_barrier``, ``PodPsumLane``) are in ``pod.py``,
+imported in pod mode only; the legacy global-mesh formation
+(``make_global_mesh``, ``host_local_to_global``, ``pod_sync``) and
+``PeerPsumTransport`` come with the elastic pod (ROADMAP Queue A item
+7c).
 """
 
 from __future__ import annotations

@@ -29,7 +29,13 @@ of the slices ported so far:
         [--flight-profile-s S] [--disk-path FILE] \\
         [--authority-url HOST:PORT] [--authority-listen HOST:PORT] \\
         [--flush-period MS] [--batch-size N] [--max-cached N] \\
-        [--response-timeout MS]
+        [--response-timeout MS] [--serving-shards N] \\
+        [--pod-coordinator HOST:PORT --pod-processes N --pod-process-id I \\
+         --pod-peer HOST:PORT ... [--pod-peer-listen HOST:PORT] \\
+         [--pod-degraded-mode on|off] [--pod-hedge-ms MS] \\
+         [--pod-peer-breaker-failures N] [--pod-peer-breaker-reset-ms MS] \\
+         [--pod-events N] [--pod-psum-lane on|off] \\
+         [--pod-psum-interval-ms MS]]
 
 Storages: ``torch`` (default) keeps the counter table on the card
 (``--device cuda``, the default) or, for tests, on the CPU
@@ -203,8 +209,45 @@ or an address that cannot be bound (the JAX server warns and serves
 Python gRPC alone) stop the server with an error (exit 2), and a lease refresh, usage drain or tier
 migration round that fails while serving stops it too (exit 1).
 
-Not in the port yet (``ROADMAP.md``): ``--serving-shards``, the
-multi-process pod and the capacity controller.
+Serving shards: ``--serving-shards N`` (default 1) adds N - 1 serving
+loops, each a thread with its own event loop and a sync gRPC server on
+the RLS address (SO_REUSEPORT; ``server/rls.py`` ``RlsServingShard``),
+all deciding through the one limiter, whose batchers and pipelines keep
+a shard a loop. A shard that cannot bind stops the server (exit 2; the
+JAX server warns and serves with fewer shards).
+
+The pod (``--pod-processes N`` > 1): N server processes, each with its
+own table, form a pod over a ``torch.distributed.TCPStore`` at
+``--pod-coordinator`` (process 0 serves it; ``parallel/pod.py``) before
+any storage is built. Each owns a contiguous block of the pod's shards
+(one a visible card) and routes each decision to the owner of its
+counters (``routing.py``): decided here, or forwarded once over the
+peer lane (``server/peering.py``, on ``--pod-peer-listen``, default
+``--rls-host``:``--rls-port`` + 2, serving once the first limits are
+loaded) to its owner among the ``--pod-peer`` addresses (one a process,
+in process-id order); a namespace with more than one limit, or a
+``--global-namespaces`` one, is pinned to one host, or, with
+``--pod-psum-lane on``, decided on every host against the others'
+partials exchanged every ``--pod-psum-interval-ms`` (fixed windows
+only). With ``--pod-degraded-mode on`` (the default) a dead owner's
+decisions fail over to an exact local stand-in behind a per-peer breaker
+(``--pod-peer-breaker-failures``, ``--pod-peer-breaker-reset-ms``), and
+its journal replays into the owner's ``apply_deltas`` when it answers
+again; ``--pod-hedge-ms`` races a second attempt at a slow forward. A
+member's ``--snapshot-path`` becomes ``PATH.shardsLO-HI`` (its shard
+range). ``/debug/pod``, ``/debug/pod/routing`` and ``/debug/events``
+(a ring of ``--pod-events``) serve the pod's view, ``/metrics`` its
+``pod_*`` and ``peer_*`` families, and the pod's event log reaches the
+serving-model fit, the tier manager and the flight trigger. A pod
+refuses (exit 2) ``--pipeline native`` and ``--native-ingress`` (the
+port's C hot lane has no pod fast path yet; the JAX server serves the
+routed compiled plane) and the ``cached`` and ``distributed`` storages
+(a member's storage must take a peer's journal replay through
+``apply_deltas``); the option checks exit 2 with the JAX server's
+messages.
+
+Not in the port yet (``ROADMAP.md``): the native pod fast path, the
+elastic pod (resize, standby, join) and the capacity controller.
 """
 
 from __future__ import annotations
@@ -701,6 +744,95 @@ def build_parser() -> argparse.ArgumentParser:
         "file `priority:` annotations and the descriptor entry override "
         "per request",
     )
+    p.add_argument(
+        "--serving-shards", type=int,
+        default=int(_env("SERVING_SHARDS", "1")),
+        help="number of RLS gRPC serving loops: each extra shard is a "
+        "thread with its own event loop and its own server on the SAME "
+        "port (SO_REUSEPORT), all feeding the shared device table "
+        "(1 = single loop; a shard that cannot bind exits 2)",
+    )
+    # the pod: TCPStore formation + shard-aware routed serving
+    p.add_argument(
+        "--pod-coordinator", default=_env("TPU_POD_COORDINATOR"),
+        help="pod: TCPStore coordinator address (host:port) served by "
+        "process 0; required when --pod-processes > 1",
+    )
+    p.add_argument(
+        "--pod-processes", type=int,
+        default=int(_env("TPU_POD_PROCESSES", "1")),
+        help="pod: total number of pod processes (hosts); 1 = no pod "
+        "(the default single-host topology)",
+    )
+    p.add_argument(
+        "--pod-process-id", type=int,
+        default=int(_env("TPU_POD_PROCESS_ID", "0")),
+        help="pod: this process's id in [0, --pod-processes)",
+    )
+    p.add_argument(
+        "--pod-peer", action="append", default=None,
+        help="pod: peer-lane address of each pod process in process-id "
+        "order, repeatable (env TPU_POD_PEERS, comma separated); a "
+        "descriptor owned by another host is forwarded once over this "
+        "lane",
+    )
+    p.add_argument(
+        "--pod-peer-listen", default=_env("TPU_POD_PEER_LISTEN"),
+        help="pod: bind address of this host's peer lane "
+        "(default --rls-host:<rls-port + 2>)",
+    )
+    p.add_argument(
+        "--pod-degraded-mode", choices=["on", "off"],
+        default=_env("TPU_POD_DEGRADED_MODE", "on"),
+        help="pod: on (default) = forward failures feed a per-peer "
+        "breaker and fail over to a local exact stand-in that journals "
+        "deltas for replay on recovery (plus one jittered retry for "
+        "suspect peers); off = a peer failure fails that request "
+        "(UNAVAILABLE/500)",
+    )
+    p.add_argument(
+        "--pod-hedge-ms", type=float,
+        default=float(_env("TPU_POD_HEDGE_MS", "0")),
+        help="pod: >0 enables hedged forwards: when an in-flight "
+        "forward outlasts max(this floor, the tracked peer p99) a "
+        "second attempt races it on a fresh channel; 0 (default) "
+        "disables hedging",
+    )
+    p.add_argument(
+        "--pod-peer-breaker-failures", type=int,
+        default=int(_env("TPU_POD_PEER_BREAKER_FAILURES", "3")),
+        help="pod: consecutive forward failures that open a peer's "
+        "failover breaker",
+    )
+    p.add_argument(
+        "--pod-peer-breaker-reset-ms", type=float,
+        default=float(_env("TPU_POD_PEER_BREAKER_RESET_MS", "2000")),
+        help="pod: ms an open peer breaker dwells before recovery "
+        "probes may close it",
+    )
+    p.add_argument(
+        "--pod-events", type=int,
+        default=int(_env("TPU_POD_EVENTS", "512")),
+        help="pod: capacity of the typed pod event ring served at "
+        "GET /debug/events (per-kind counts export as "
+        "pod_events_total regardless of ring size)",
+    )
+    p.add_argument(
+        "--pod-psum-lane", choices=["on", "off"],
+        default=_env("TPU_POD_PSUM_LANE", "off"),
+        help="pod: on = fixed-window --global-namespaces limits are "
+        "decided LOCALLY on every host against lockstep-exchanged "
+        "remote partials instead of pinning the whole namespace to one "
+        "host; over-admission is bounded by one exchange interval per "
+        "remote host. off (default) = exact namespace pinning. Every "
+        "pod host must agree on this flag (the exchange is collective)",
+    )
+    p.add_argument(
+        "--pod-psum-interval-ms", type=float,
+        default=float(_env("TPU_POD_PSUM_INTERVAL_MS", "250")),
+        help="pod: pacing of the lockstep psum exchange rounds (also "
+        "the over-admission bound's time constant)",
+    )
     return p
 
 
@@ -988,6 +1120,170 @@ def build_limiter(args, clock=time.time, on_partitioned=None):
     return AsyncRateLimiter(async_storage)
 
 
+def _pod_peers(args) -> list:
+    return args.pod_peer or [
+        u for u in (_env("TPU_POD_PEERS") or "").split(",") if u
+    ]
+
+
+def _pod_refusals(args) -> None:
+    """Check the pod options with the JAX server's messages, and refuse
+    what a pod member cannot serve; raises ValueError (exit 2) before
+    any store is formed or storage built."""
+    if args.pod_processes > 1 and not args.pod_coordinator:
+        raise ValueError(
+            "--pod-processes > 1 requires --pod-coordinator "
+            "(env TPU_POD_COORDINATOR)"
+        )
+    if not (0 <= args.pod_process_id < args.pod_processes):
+        raise ValueError(
+            f"--pod-process-id {args.pod_process_id} outside "
+            f"[0, {args.pod_processes})"
+        )
+    if args.pod_processes <= 1:
+        return
+    peers = _pod_peers(args)
+    if len(peers) != args.pod_processes:
+        raise ValueError(
+            f"pod: need one --pod-peer per process "
+            f"({args.pod_processes}), got {len(peers)}"
+        )
+    if args.pipeline == "native" or args.native_ingress:
+        raise ValueError(
+            "--pipeline native and --native-ingress cannot serve a pod "
+            "(--pod-processes > 1): the port's C hot lane has no pod "
+            "fast path yet (use --pipeline standard or compiled)"
+        )
+    if args.storage in ("cached", "distributed"):
+        raise ValueError(
+            f"storage {args.storage!r} cannot serve a pod: a member's "
+            "storage must take a peer's journal replay (apply_deltas)"
+        )
+
+
+def form_pod(args):
+    """Form the pod the options ask for over a TCPStore at
+    ``--pod-coordinator`` (``parallel/pod.py``), before any storage is
+    built, and give a member its per-shard-range snapshot path; returns
+    its ``PodInfo``, or None without pod options. Each process owns one
+    shard a visible card (one on the CPU)."""
+    if not (args.pod_processes > 1 or args.pod_coordinator):
+        return None
+    import torch
+
+    from ..parallel.pod import initialize_pod
+
+    local = (max(torch.cuda.device_count(), 1)
+             if args.device == "cuda" else 1)
+    pod = initialize_pod(
+        args.pod_coordinator, args.pod_processes, args.pod_process_id,
+        local_device_count=local,
+    )
+    log.info(
+        f"pod formed: process {pod.process_id}/{pod.num_processes}, "
+        f"{pod.local_device_count} local of {pod.global_device_count} "
+        "global shards")
+    if args.snapshot_path:
+        # A member checkpoints its own shard range and restores only it.
+        sph = max(pod.local_device_count, 1)
+        lo = pod.process_id * sph
+        args.snapshot_path = f"{args.snapshot_path}.shards{lo}-{lo + sph}"
+        log.info(f"pod: per-shard-range snapshot path {args.snapshot_path}")
+    return pod
+
+
+def build_pod_frontend(args, pod, limiter):
+    """Wrap ``limiter`` in the pod's routed frontend (and attach the
+    psum lane with ``--pod-psum-lane on``) for a pod of more than one
+    process, else None. The peer lane is started by the caller once the
+    first limits are loaded."""
+    if pod is None or pod.num_processes <= 1:
+        return None
+    from ..routing import PodRouter, PodTopology
+    from .peering import PeerLane, PodFrontend, PodResilience
+
+    peer_urls = _pod_peers(args)
+    # --pod-degraded-mode off: no retry, no breaker or failover (a peer
+    # failure fails that request); hedging stays its own option.
+    degraded = args.pod_degraded_mode == "on"
+    resilience = PodResilience(
+        degraded=degraded,
+        retry=degraded,
+        hedge_ms=max(args.pod_hedge_ms, 0.0),
+        breaker_failures=args.pod_peer_breaker_failures,
+        breaker_reset_s=args.pod_peer_breaker_reset_ms / 1e3,
+        probe_interval_s=float(_env("TPU_POD_PROBE_MS", "500")) / 1e3,
+    )
+    lane = PeerLane(
+        pod.process_id,
+        args.pod_peer_listen or f"{args.rls_host}:{args.rls_port + 2}",
+        {i: url for i, url in enumerate(peer_urls)
+         if i != pod.process_id},
+        None,
+        resilience=resilience,
+    )
+    router = PodRouter(PodTopology(
+        hosts=pod.num_processes,
+        host_id=pod.process_id,
+        shards_per_host=max(pod.local_device_count, 1),
+    ))
+    global_ns = {
+        ns for ns in (args.global_namespaces or "").split(",") if ns
+    }
+    frontend = PodFrontend(
+        limiter, router, lane, global_namespaces=global_ns,
+        resilience=resilience, events_capacity=max(args.pod_events, 1),
+    )
+    sph = router.topology.shards_per_host
+    log.info(
+        f"pod routed ingress: host {pod.process_id} owns global shards "
+        f"[{pod.process_id * sph}, {(pod.process_id + 1) * sph}); "
+        f"degraded-owner failover {'on' if degraded else 'off'}, hedge "
+        f"{resilience.hedge_ms:.0f}ms, breaker "
+        f"{resilience.breaker_failures} failures / "
+        f"{resilience.breaker_reset_s * 1e3:.0f}ms reset")
+    if args.pod_psum_lane == "on" and global_ns:
+        # Attached before the first limits load, so that configure_with
+        # claims the namespaces on the first apply.
+        from ..parallel.pod import PodPsumLane
+
+        psum_lane = PodPsumLane(pod.num_processes, pod.process_id)
+        frontend.attach_psum_lane(psum_lane)
+        interval_ms = max(args.pod_psum_interval_ms, 10.0)
+        psum_lane.start(interval_s=interval_ms / 1e3)
+        log.info(f"pod psum lane: lockstep exchange every "
+                 f"{interval_ms:.0f}ms (global namespaces: "
+                 f"{sorted(global_ns)})")
+    return frontend
+
+
+def serve_shards(args, limiter, metrics, native_pipeline, admission,
+                 port: int) -> list:
+    """The ``--serving-shards`` - 1 extra serving loops on
+    ``--rls-host:port``. Raises ValueError (after stopping the shards
+    already up) when one cannot bind."""
+    from .rls import RlsServingShard
+
+    shards = []
+    for i in range(1, args.serving_shards):
+        try:
+            shards.append(RlsServingShard(
+                i, limiter, f"{args.rls_host}:{port}", metrics,
+                args.rate_limit_headers, native_pipeline=native_pipeline,
+                admission=admission,
+            ))
+        except RuntimeError as exc:
+            for shard in shards:
+                shard.stop(0.0)
+            raise ValueError(
+                f"--serving-shards {args.serving_shards}: {exc}"
+            ) from exc
+    if shards:
+        log.info(f"serving shards: {1 + len(shards)} event loops on port "
+                 f"{port}")
+    return shards
+
+
 def build_native(args, limiter, metrics=None):
     """The native pipeline (with its lease tier) when asked for, counting
     its rows into ``metrics``, else None. Raises when what was asked for
@@ -1085,7 +1381,7 @@ class RunningServer:
                  tier_manager=None, http_runner=None, metrics=None,
                  labels_watcher=None, native_plane=None, profiler=None,
                  planes=None, authority=None, admission=None,
-                 native_ingress=None):
+                 native_ingress=None, pod=None, serving_shards=()):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
@@ -1116,6 +1412,10 @@ class RunningServer:
         #: the NativeIngress of ``--native-ingress`` on ``--rls-port``
         #: (the gRPC server is then on ``--rls-port`` + 1), or None
         self.native_ingress = native_ingress
+        #: the PodFrontend of a pod member (also ``limiter``), or None
+        self.pod = pod
+        #: the RlsServingShards of ``--serving-shards``
+        self.serving_shards = list(serving_shards)
 
     @property
     def signal_bus(self):
@@ -1152,6 +1452,11 @@ class RunningServer:
             # handlers may still be answering through the loop.
             await asyncio.get_running_loop().run_in_executor(
                 None, self.native_ingress.close)
+        for shard in self.serving_shards:
+            # Off the loop: a shard's stop waits for its sync server and
+            # joins its loop thread.
+            await asyncio.get_running_loop().run_in_executor(
+                None, shard.stop, 1.0)
         await self.rls_server.stop(grace=1.0)
         await self.http_runner.cleanup()
         if self.authority is not None:
@@ -1180,16 +1485,21 @@ class ControlPlanes:
         self._recorder = None
         self._tiers = None
         self._observatory = None
+        self._pod = None
 
     def debug_sources(self) -> list:
         return [x for x in (self.signal_bus, self.estimator, self.engine)
                 if x is not None]
 
     def build(self, args, limiter, native_pipeline, observatory,
-              native_plane, metrics, profiler, admission=None) -> None:
-        """Make the planes the options ask for and attach their taps.
-        Raises ValueError where ``--flight-spool-dir`` cannot be
-        created or written."""
+              native_plane, metrics, profiler, admission=None,
+              pod=None) -> None:
+        """Make the planes the options ask for and attach their taps;
+        on a pod member (``pod``, its PodFrontend) the pod's event log
+        reaches the estimator and the trigger engine, the flight
+        recorder taps the pod's lanes and the signal bus joins the
+        federated view. Raises ValueError where ``--flight-spool-dir``
+        cannot be created or written."""
         from ..observability.flight import (
             BundleSpool,
             FlightRecorder,
@@ -1202,6 +1512,7 @@ class ControlPlanes:
                     or getattr(counters, "recorder", None))
         self._recorder = recorder
         self._observatory = observatory
+        self._pod = pod
         if observatory is not None:
             bus = self.signal_bus = SignalBus()
             bus.warm()  # the calibration probe, off the serving threads
@@ -1216,6 +1527,8 @@ class ControlPlanes:
             bus.attach_observatory(observatory)
             observatory.signal_bus = bus
             metrics.attach_render_hook(bus)
+            if pod is not None:
+                pod.attach_signal_bus(bus)
         if args.model_fit == "on" and recorder is not None:
             est = self.estimator = model_mod.process_estimator()
             est.budget_ms = args.slo_budget_ms
@@ -1223,6 +1536,8 @@ class ControlPlanes:
             self._context = model_mod.pipeline_context(
                 pipeline=native_pipeline, storage=counters.inner)
             est.attach_context(self._context)
+            if pod is not None:
+                est.attach_event_log(pod.events)
             if self.signal_bus is not None:
                 self.signal_bus.attach_model(est)
             if observatory is not None:
@@ -1246,8 +1561,11 @@ class ControlPlanes:
             if args.tier_mode == "on":  # a TieredStorage
                 self._tiers = counters.inner
                 self._tiers.flight_tap = flight
+            if pod is not None:
+                pod.attach_flight_recorder(flight)
             self.engine = TriggerEngine(
                 flight, spool, signals=self.signal_bus,
+                events=pod.events if pod is not None else None,
                 profiler=profiler if args.flight_profile_s > 0 else None,
                 window_s=args.flight_window,
                 profile_s=args.flight_profile_s,
@@ -1279,10 +1597,18 @@ class ControlPlanes:
         est = self.estimator
         if est is not None and est._context_fn is self._context:
             est.attach_context(None)
+        if (est is not None and self._pod is not None
+                and est._event_log is self._pod.events):
+            est.attach_event_log(None)
 
 
 async def _close(limiter, native_pipeline, observatory,
                  native_plane=None, admission=None) -> None:
+    close_pod = getattr(limiter, "close_pod", None)  # a pod's frontend
+    if close_pod is not None:
+        # Off the loop: stopping the peer lane joins its thread.
+        await asyncio.get_running_loop().run_in_executor(None, close_pod)
+        limiter = limiter.wrapped
     if native_plane is not None:
         native_plane.close()
     if observatory is not None:
@@ -1361,12 +1687,15 @@ def _wire_metrics(metrics, limiter, native_pipeline, observatory) -> None:
     device round trips."""
     counters = limiter.storage.counters
     # The compiled pipeline aggregates its storage's stats and adds the
-    # compiler's; otherwise the storage itself.
-    stats_source = (
-        limiter if hasattr(limiter, "library_stats") else counters
-    )
-    if hasattr(stats_source, "library_stats"):
-        metrics.attach_library_source(stats_source)
+    # compiler's; otherwise the storage itself. A pod frontend adds the
+    # pod's families to its limiter's stats, so the storage's are
+    # attached beside it where that limiter has none.
+    inner = getattr(limiter, "wrapped", limiter)
+    if hasattr(limiter, "library_stats"):
+        metrics.attach_library_source(limiter)
+    if not hasattr(inner, "library_stats") and hasattr(
+            counters, "library_stats"):
+        metrics.attach_library_source(counters)
     for target in (limiter, counters):
         if hasattr(target, "set_metrics"):
             target.set_metrics(metrics)
@@ -1532,6 +1861,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     migration round that fails stops its thread, which then calls
     ``on_failure(exc)``."""
     _ingress_refusals(args)
+    _pod_refusals(args)
     tracing.configure_tracing(args.tracing_endpoint)
     tracing.set_sample_rate(args.tracing_sample_rate)
     # Before any recorder is made: a recorder arms its serving-model tap
@@ -1539,6 +1869,11 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     model_mod.set_model_fit_enabled(args.model_fit == "on")
     metrics = build_metrics(args)
     install_metrics_layer()
+    # The pod forms before any storage is built; its frontend wraps the
+    # limiter before any consumer takes it, so that the RLS and HTTP
+    # planes, the serving shards and the metrics see the routed surface.
+    pod = await asyncio.get_running_loop().run_in_executor(
+        None, form_pod, args)
     limiter = build_limiter(
         args, clock,
         on_partitioned=lambda v: metrics.datastore_partitioned.set(
@@ -1551,7 +1886,11 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         cuda=device and args.device == "cuda",
         loop=asyncio.get_running_loop(),
     )
+    pod_frontend = None
     try:
+        pod_frontend = build_pod_frontend(args, pod, limiter)
+        if pod_frontend is not None:
+            limiter = pod_frontend
         native_pipeline = build_native(args, limiter, metrics)
         if device and args.usage_topk > 0:
             from ..observability.usage import TenantUsageObservatory
@@ -1568,7 +1907,15 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         admission = await build_admission(args, limiter, native_pipeline,
                                           metrics)
         planes.build(args, limiter, native_pipeline, observatory,
-                     native_plane, metrics, profiler, admission)
+                     native_plane, metrics, profiler, admission,
+                     pod=pod_frontend)
+        if pod_frontend is not None:
+            counters = limiter.storage.counters
+            recorder = (getattr(limiter, "recorder", None)
+                        or getattr(counters, "recorder", None))
+            if recorder is not None:
+                pod_frontend.attach_flight(recorder)
+            metrics.attach_render_hook(pod_frontend.hops)
     except BaseException:
         planes.stop()
         await _close(limiter, native_pipeline, observatory, native_plane,
@@ -1609,11 +1956,25 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     watcher = LimitsFileWatcher(args.limits_file, on_change, on_error,
                                 poll_interval=args.limits_poll_interval)
     labels_watcher = rls_server = native_ingress = None
+    serving_shards = []
     rls_grpc_port = args.rls_port
     try:
         await apply_limits(load_limits_file(args.limits_file))
         status["limits_file_version"] = 1
         watcher.start()
+        if pod_frontend is not None:
+            # Limits are loaded and the router configured: only now may
+            # the lane answer forwarded decisions (until then a peer's
+            # forward fails fast instead of deciding on no limits).
+            lane = pod_frontend.lane
+            try:
+                await loop.run_in_executor(None, lane.start)
+            except RuntimeError as exc:
+                raise ValueError(
+                    f"cannot serve the pod peer lane on "
+                    f"{lane.listen_address}: {exc}") from exc
+            log.info(f"pod peer lane serving on {lane.listen_address} "
+                     f"(port {lane.port})")
         labels_watcher = _labels_watcher(args, metrics)
         if args.native_ingress:
             native_ingress = await serve_native_ingress(
@@ -1624,7 +1985,12 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             args.rate_limit_headers, native_pipeline=native_pipeline,
             metrics=metrics, admission=admission,
         )
+        serving_shards = await loop.run_in_executor(
+            None, serve_shards, args, limiter, metrics, native_pipeline,
+            admission, rls_grpc_port)
     except BaseException:
+        if rls_server is not None:
+            await rls_server.stop(grace=None)
         if native_ingress is not None:
             native_ingress.close()
         watcher.stop()
@@ -1642,11 +2008,12 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         # Wired late so that it sees the lease broker (demotions settle
         # outstanding tokens first), the observatory (the demotion veto
         # of live slots) and the serving-model estimator (the pricing).
-        # A server without a pod hands it no event log, as the JAX
-        # server does.
+        # A pod member hands it the pod's event log; a server without
+        # a pod hands it none, as the JAX server does.
         tier_manager = TierManager(
             limiter.storage.counters.inner, broker=broker,
             estimator=planes.estimator, observatory=observatory,
+            events=pod_frontend.events if pod_frontend else None,
             interval_s=args.tier_migrate_interval,
         )
         metrics.attach_render_hook(tier_manager)
@@ -1666,6 +2033,8 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     except BaseException as exc:
         if authority is not None:
             authority.stop()
+        for shard in serving_shards:
+            shard.stop(0.0)
         if native_ingress is not None:
             native_ingress.close()
         watcher.stop()
@@ -1695,7 +2064,8 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
                          native_pipeline, observatory, checkpointer,
                          tier_manager, http_runner, metrics, labels_watcher,
                          native_plane, profiler, planes, authority,
-                         admission, native_ingress)
+                         admission, native_ingress, pod_frontend,
+                         serving_shards)
 
 
 def _serve_authority(args, limiter):
@@ -1741,6 +2111,12 @@ async def _amain(args) -> int:
                 if server.observatory is not None else "")
              + (f", admission {args.admission_mode}"
                 if server.admission is not None else "")
+             + (f", {args.serving_shards} serving loops"
+                if server.serving_shards else "")
+             + (f", pod host {args.pod_process_id} of "
+                f"{args.pod_processes}, peer lane on port "
+                f"{server.pod.lane.port}"
+                if server.pod is not None else "")
              + ")")
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)

@@ -52,13 +52,24 @@ and the debug endpoints of the planes the port has:
                             {"note"?: str, "profile"?: bool}: a manual
                             trigger freezes the exemplar rings and
                             persists a bundle (404 with --flight off)
+    GET  /debug/pod         the federated pod view: per-host
+                            ControlSignals columns, rollups, the signal
+                            timeline and this host's per-hop forward
+                            breakdown (404 without a pod)
+    GET  /debug/pod/routing the pod's ownership map: topology, per-host
+                            shard blocks, pinned namespaces, epochs,
+                            peers (404 without a pod)
+    GET  /debug/events      the pod's typed event timeline (?n= trims to
+                            the newest N, ?kind= filters; 404 without a
+                            pod)
 
 POST bodies are CheckAndReportInfo: {"namespace", "values": {str: str},
 "delta", "response_headers": optional "DRAFT_VERSION_03"}
 (request_types.rs:10-16).
 
 The debug routes of planes not ported yet stay unregistered (404):
-``/debug/pod*`` and ``/debug/events`` (ROADMAP Queue A item 7).
+``/debug/pod/resize``, ``/debug/pod/standby`` and ``/debug/pod/join``
+(the elastic pod, ROADMAP Queue A item 7c).
 """
 
 from __future__ import annotations
@@ -99,6 +110,9 @@ DEBUG_SOURCE_SECTIONS = (
     ("device_backed", "device_backed"),
     ("tenant_usage", "tenant_usage"),
     ("signals", "signals_debug"),
+    ("pod", "pod_debug"),
+    ("pod_events", "events_debug"),
+    ("pod_routing", "routing_debug"),
     ("capacity", "capacity_debug"),
     ("flight", "flight_debug"),
     ("tiering", "tiering_debug"),
@@ -117,6 +131,9 @@ DEBUG_STATS_SECTIONS = (
     "device_backed",
     "tenant_usage",
     "signals",
+    "pod",
+    "pod_events",
+    "pod_routing",
     "capacity",
     "flight",
     "tiering",
@@ -297,6 +314,42 @@ def _openapi_spec() -> dict:
                     "responses": {
                         "200": {"description": "control signals"},
                         "404": {"description": "signal bus not running"},
+                    },
+                }
+            },
+            "/debug/pod": {
+                "get": {
+                    "summary": "Federated pod view: per-host "
+                               "ControlSignals columns, min/max/sum "
+                               "rollups, and the per-hop forward "
+                               "breakdown",
+                    "responses": {
+                        "200": {"description": "pod snapshot"},
+                        "404": {"description": "not a pod"},
+                    },
+                }
+            },
+            "/debug/pod/routing": {
+                "get": {
+                    "summary": "Pod ownership map for upstream load "
+                               "balancers: topology, per-host shard "
+                               "blocks, pinned namespaces, routing "
+                               "epoch",
+                    "responses": {
+                        "200": {"description": "ownership map"},
+                        "404": {"description": "not a pod"},
+                    },
+                }
+            },
+            "/debug/events": {
+                "get": {
+                    "summary": "Typed pod event timeline (peer health, "
+                               "breaker, degraded window, journal "
+                               "replay, routing epoch, hedges), "
+                               "sequenced per host",
+                    "responses": {
+                        "200": {"description": "pod events"},
+                        "404": {"description": "not a pod"},
                     },
                 }
             },
@@ -601,6 +654,51 @@ class _Api:
             )
         return web.json_response(fn())
 
+    async def get_debug_pod(self, request: web.Request) -> web.Response:
+        """The federated pod view: per-host ControlSignals columns with
+        rollups, column ages, the signal timeline and this host's
+        per-hop forward breakdown."""
+        fn = self._debug_source_fn("pod_debug")
+        if fn is None:
+            return web.json_response(
+                {"error": "not a pod (single-host deployment)"},
+                status=404,
+            )
+        return web.json_response(fn())
+
+    async def get_debug_pod_routing(
+        self, request: web.Request
+    ) -> web.Response:
+        """The routing truth an upstream load balancer can learn:
+        topology, per-host shard blocks, the pinned namespaces and the
+        epochs."""
+        fn = self._debug_source_fn("routing_debug")
+        if fn is None:
+            return web.json_response(
+                {"error": "not a pod (single-host deployment)"},
+                status=404,
+            )
+        return web.json_response(fn())
+
+    async def get_debug_events(self, request: web.Request) -> web.Response:
+        """The pod's typed event timeline (``?n=N`` keeps the newest N,
+        ``?kind=`` one kind); mergeable pod-wide by (host, seq)."""
+        fn = self._debug_source_fn("events_debug")
+        if fn is None:
+            return web.json_response(
+                {"error": "not a pod (single-host deployment)"},
+                status=404,
+            )
+        try:
+            n = int(request.query["n"]) if "n" in request.query else None
+        except ValueError:
+            return web.json_response(
+                {"error": "n must be an integer"}, status=400
+            )
+        return web.json_response(
+            fn(n=n, kind=request.query.get("kind"))
+        )
+
     async def get_debug_capacity(
         self, request: web.Request
     ) -> web.Response:
@@ -827,6 +925,9 @@ def make_http_app(
     app.router.add_get("/debug/top", api.get_debug_top)
     app.router.add_get("/debug/tiering", api.get_debug_tiering)
     app.router.add_get("/debug/signals", api.get_debug_signals)
+    app.router.add_get("/debug/pod", api.get_debug_pod)
+    app.router.add_get("/debug/pod/routing", api.get_debug_pod_routing)
+    app.router.add_get("/debug/events", api.get_debug_events)
     app.router.add_get("/debug/capacity", api.get_debug_capacity)
     app.router.add_get("/debug/flight", api.get_debug_flight)
     app.router.add_post("/debug/flight/trigger",

@@ -11,14 +11,14 @@ the protocol is implemented here over the descriptor bytes the port's
    (list_services, file_by_filename, file_containing_symbol, extension
    queries);
  * ``make_reflection_handler``: the grpc.aio stream_stream handler;
+ * ``make_sync_reflection_handler``: the same for the sync gRPC servers
+   of the serving shards;
  * ``native_reflection_handler``: the native ingress's per-message
    handler (each stream message answers with one response).
 
 ``file_*`` responses carry each file's serialized FileDescriptorProto
 plus its transitive imports (dependencies first), which lets
 grpcurl-style clients rebuild the full schema from one query.
-
-Left for a later slice: the sync serving shards' handler.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ __all__ = [
     "REFLECTION_METHOD",
     "ReflectionResponder",
     "make_reflection_handler",
+    "make_sync_reflection_handler",
     "native_reflection_handler",
 ]
 
@@ -150,6 +151,33 @@ def make_reflection_handler(service_names: Iterable[str]):
 
     async def server_reflection_info(request_iterator, context):
         async for request in request_iterator:
+            yield responder.answer(request)
+
+    def serialize(message) -> bytes:
+        return message.SerializeToString()
+
+    return grpc.method_handlers_generic_handler(
+        REFLECTION_SERVICE,
+        {
+            "ServerReflectionInfo": grpc.stream_stream_rpc_method_handler(
+                server_reflection_info,
+                request_deserializer=(
+                    reflection_pb2.ServerReflectionRequest.FromString
+                ),
+                response_serializer=serialize,
+            )
+        },
+    )
+
+
+def make_sync_reflection_handler(service_names: Iterable[str]):
+    """The sync-server variant (the serving shards run sync gRPC
+    servers: grpc.aio's completion-queue poller is one per process and
+    unsafe across event loops)."""
+    responder = ReflectionResponder(service_names)
+
+    def server_reflection_info(request_iterator, context):
+        for request in request_iterator:
             yield responder.answer(request)
 
     def serialize(message) -> bytes:

@@ -37,7 +37,13 @@ through ``make_native_method_handlers``: the same ``RlsService`` adapted
 to raw request and response bytes, whose ``context.abort`` raises the
 ingress's ``GrpcHandlerError``.
 
-Left out of the port for now (``ROADMAP.md``): the sync serving shards.
+Serving shards (``--serving-shards``, ``RlsServingShard``): each extra
+shard is a sync gRPC server on the same address (SO_REUSEPORT) whose
+handlers bridge onto the shard's own asyncio loop, where the limiter's
+per-loop batchers and pipeline shards feed the one device table.
+
+A limiter is awaited when it is an ``AsyncRateLimiter`` or sets
+``is_async_limiter`` (the pod frontend, ``server/peering.py``).
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ __all__ = [
     "make_native_should_rate_limit_handler",
     "make_native_method_handlers",
     "serve_rls",
+    "RlsServingShard",
 ]
 
 RATE_LIMIT_HEADERS_NONE = "NONE"
@@ -125,7 +132,9 @@ class RlsService:
         #: AdmissionController: deadline and overload shedding before a
         #: request takes a batch slot; None = no admission plane
         self.admission = admission
-        self._is_async = isinstance(limiter, AsyncRateLimiter)
+        self._is_async = isinstance(limiter, AsyncRateLimiter) or bool(
+            getattr(limiter, "is_async_limiter", False)
+        )
 
     async def _check_and_update(self, namespace, ctx, delta, load):
         if self._is_async:
@@ -309,17 +318,11 @@ def make_rls_handlers(service: RlsService):
     return [envoy, kuadrant]
 
 
-def make_native_should_rate_limit_handler(native_pipeline, metrics=None,
-                                          admission=None):
-    """ShouldRateLimit over RAW request bytes: identity (de)serializers keep
-    Python protobuf off the hot path; the native pipeline parses the wire
-    bytes in C++ and answers with prebuilt response blobs. Storage errors
-    answer UNAVAILABLE.
-
-    With an admission controller, deadline and overload shedding happen
-    before the blob enters the pipeline; the priority is the default
-    class (descriptor entries only materialize in C++ past this
-    point)."""
+def _native_should_rate_limit(native_pipeline, metrics=None,
+                              admission=None):
+    """The raw-bytes ShouldRateLimit coroutine shared by the aio server's
+    handler and the serving shards' bridge: the admission gate, then
+    ``submit`` on the calling loop's pipeline shard."""
 
     async def handler(blob: bytes, context) -> bytes:
         bind_request_metrics(metrics)
@@ -351,11 +354,26 @@ def make_native_should_rate_limit_handler(native_pipeline, metrics=None,
             if ticket is not None:
                 ticket.release()
 
+    return handler
+
+
+def make_native_should_rate_limit_handler(native_pipeline, metrics=None,
+                                          admission=None):
+    """ShouldRateLimit over RAW request bytes: identity (de)serializers keep
+    Python protobuf off the hot path; the native pipeline parses the wire
+    bytes in C++ and answers with prebuilt response blobs. Storage errors
+    answer UNAVAILABLE.
+
+    With an admission controller, deadline and overload shedding happen
+    before the blob enters the pipeline; the priority is the default
+    class (descriptor entries only materialize in C++ past this
+    point)."""
     return grpc.method_handlers_generic_handler(
         _ENVOY_SERVICE,
         {
             "ShouldRateLimit": grpc.unary_unary_rpc_method_handler(
-                handler,
+                _native_should_rate_limit(
+                    native_pipeline, metrics, admission),
                 request_deserializer=None,   # raw bytes in
                 response_serializer=None,    # raw bytes out
             )
@@ -441,3 +459,209 @@ async def serve_rls(
         raise RuntimeError(f"could not bind RLS gRPC server to {address}")
     await server.start()
     return server
+
+
+class _ShardAbort(Exception):
+    """Raised inside a bridged coroutine to carry ``context.abort`` back
+    to the sync handler thread."""
+
+    def __init__(self, code, details):
+        super().__init__(code, details)
+        self.code = code
+        self.details = details
+
+
+class _ShardContextShim:
+    """The slice of the async ServicerContext the RlsService handlers
+    use, over a sync context on another thread. ``abort`` raises (the
+    coroutine ends); the handler thread aborts the real context, which
+    is only legal there."""
+
+    __slots__ = ("_context",)
+
+    def __init__(self, context):
+        self._context = context
+
+    async def abort(self, code, details=""):
+        raise _ShardAbort(code, details)
+
+    def invocation_metadata(self):
+        return self._context.invocation_metadata()
+
+    def time_remaining(self):
+        return self._context.time_remaining()
+
+
+class RlsServingShard:
+    """One extra serving shard: a sync gRPC server (its own listener on
+    the same address; the kernel spreads accepted connections across
+    listeners by SO_REUSEPORT) whose handlers bridge onto the shard's
+    own asyncio loop, where the shared limiter's per-loop batchers and
+    pipeline shards feed the one device table.
+
+    Sync, not ``grpc.aio``: the aio completion-queue poller is one per
+    process, and a second event loop racing its wakeup socket drops
+    events now and then (stuck RPCs, ``BlockingIOError`` in
+    ``PollerCompletionQueue._handle_events``). The sync core gives each
+    shard HTTP/2 framing and protobuf handling on its own threads; only
+    the decision crosses into the shard's loop.
+
+    Construction returns once the shard listens, and raises
+    ``RuntimeError`` when the address cannot be bound."""
+
+    def __init__(
+        self,
+        index: int,
+        limiter,
+        address: str,
+        metrics: Optional[PrometheusMetrics] = None,
+        rate_limit_headers: str = RATE_LIMIT_HEADERS_NONE,
+        native_pipeline=None,
+        admission=None,
+        workers: int = 16,
+    ):
+        import asyncio
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .reflection import make_sync_reflection_handler
+
+        self.index = index
+        self.address = address
+        self._loop = asyncio.new_event_loop()
+        self._loop_thread = threading.Thread(
+            target=self._run_loop, name=f"rls-shard-loop-{index}",
+            daemon=True,
+        )
+        self._loop_thread.start()
+
+        service = RlsService(limiter, metrics, rate_limit_headers, admission)
+        self._executor = ThreadPoolExecutor(
+            workers, thread_name_prefix=f"rls-shard-{index}"
+        )
+        self._server = grpc.server(
+            self._executor, options=(("grpc.so_reuseport", 1),),
+        )
+        for handler in self._make_handlers(
+            service, metrics, native_pipeline, admission
+        ):
+            self._server.add_generic_rpc_handlers((handler,))
+        self._server.add_generic_rpc_handlers(
+            (make_sync_reflection_handler(
+                (_ENVOY_SERVICE, _KUADRANT_SERVICE)
+            ),)
+        )
+        try:
+            bound = self._server.add_insecure_port(address)
+        except RuntimeError:  # newer grpc raises where older returned 0
+            bound = 0
+        if bound == 0:
+            self.stop(grace=0.0)
+            raise RuntimeError(
+                f"serving shard {index} could not bind {address} "
+                "(SO_REUSEPORT unavailable?)"
+            )
+        self._server.start()
+
+    def _run_loop(self) -> None:
+        import asyncio
+
+        asyncio.set_event_loop(self._loop)
+        self._loop.run_forever()
+        # The batchers' and pipelines' tasks of this loop end with it.
+        pending = asyncio.all_tasks(self._loop)
+        for task in pending:
+            task.cancel()
+        self._loop.run_until_complete(
+            asyncio.gather(*pending, return_exceptions=True))
+        self._loop.close()
+
+    def _bridge(self, async_fn):
+        """A sync handler running ``async_fn(request, shim)`` on the
+        shard's loop; an abort comes back through _ShardAbort. The
+        client's ``x-request-id`` (or a fresh one) is published to the
+        device plane's contextvar inside the bridged coroutine (the
+        handler thread's context does not cross
+        ``run_coroutine_threadsafe``) and echoed, as the aio server's
+        interceptor does."""
+        import asyncio
+        import uuid
+
+        from ..observability.device_plane import set_request_id
+        from .middleware import HEADER
+
+        loop = self._loop
+
+        def handler(request, context):
+            metadata = dict(context.invocation_metadata() or ())
+            request_id = metadata.get(HEADER) or uuid.uuid4().hex
+
+            async def bridged():
+                set_request_id(request_id)
+                return await async_fn(request, _ShardContextShim(context))
+
+            future = asyncio.run_coroutine_threadsafe(bridged(), loop)
+            try:
+                response = future.result()
+            except _ShardAbort as abort:
+                context.set_trailing_metadata(((HEADER, request_id),))
+                context.abort(abort.code, abort.details)
+                return
+            context.send_initial_metadata(((HEADER, request_id),))
+            return response
+
+        return handler
+
+    def _make_handlers(self, service, metrics, native_pipeline, admission):
+        req_des = rls_pb2.RateLimitRequest.FromString
+
+        def resp_ser(message):
+            return message.SerializeToString()
+
+        if (
+            native_pipeline is not None
+            and service.rate_limit_headers == RATE_LIMIT_HEADERS_NONE
+        ):
+            # The raw-bytes path: identity (de)serializers and prebuilt
+            # response blobs, the handler the aio server mounts.
+            should = grpc.unary_unary_rpc_method_handler(
+                self._bridge(_native_should_rate_limit(
+                    native_pipeline, metrics, admission)),
+                request_deserializer=None,
+                response_serializer=None,
+            )
+        else:
+            should = grpc.unary_unary_rpc_method_handler(
+                self._bridge(service.should_rate_limit),
+                request_deserializer=req_des,
+                response_serializer=resp_ser,
+            )
+        envoy = grpc.method_handlers_generic_handler(
+            _ENVOY_SERVICE, {"ShouldRateLimit": should})
+        kuadrant = grpc.method_handlers_generic_handler(
+            _KUADRANT_SERVICE,
+            {
+                "CheckRateLimit": grpc.unary_unary_rpc_method_handler(
+                    self._bridge(service.check_rate_limit),
+                    request_deserializer=req_des,
+                    response_serializer=resp_ser,
+                ),
+                "Report": grpc.unary_unary_rpc_method_handler(
+                    self._bridge(service.report),
+                    request_deserializer=req_des,
+                    response_serializer=resp_ser,
+                ),
+            },
+        )
+        return [envoy, kuadrant]
+
+    def stop(self, grace: float = 1.0) -> None:
+        try:
+            self._server.stop(grace).wait(timeout=10)
+        except Exception:
+            pass
+        # The handler threads are the shard's own: they end with it.
+        self._executor.shutdown(wait=True)
+        if not self._loop.is_closed():
+            self._loop.call_soon_threadsafe(self._loop.stop)
+        self._loop_thread.join(timeout=10)

@@ -20,9 +20,10 @@ Across one trip boundary a window may admit up to one extra budget; it
 never under-admits, and the journal keeps the card table's totals exact
 once reconciled.
 
-The JAX store's ``reset_oracle`` and ``rejournal`` serve the pod's
-degraded-owner failover, which the port does not have; they come back
-with the pod.
+The pod's degraded-owner failover (``server/peering.py``) keeps one store
+an owner and replays its journal into the owner over the peer lane. The
+JAX store's ``reset_oracle`` and ``rejournal`` serve the elastic pod's
+resize, which comes with ROADMAP Queue A item 7c.
 """
 
 from __future__ import annotations

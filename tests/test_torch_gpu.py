@@ -2005,3 +2005,44 @@ def test_native_ingress_on_the_card_admits_exactly_the_limit(cuda, mode):
         loop.call_soon_threadsafe(loop.stop)
         thread.join(timeout=10)
         loop.close()
+
+
+@pytest.mark.parametrize("storage", ["torch", "sharded"])
+def test_a_pod_of_card_servers_matches_the_oracle(cuda, tmp_path, storage):
+    """Two port server processes on the card form a pod over a TCPStore
+    and run the routed drive (``tests/torch_pod_worker.py``): every
+    answer, local, forwarded and pinned alike, and the union of both
+    hosts' counters equal a single-process 2-row ``TorchShardedStorage``
+    on the card fed the same drive."""
+    from . import torch_pod_worker as W
+
+    results = W.spawn_pod(tmp_path, storage, device="cuda", timeout=300)
+    want, want_counters = W.drive_oracle(device="cuda")
+    merged, counters, routed = W.merge(results)
+    assert merged == want
+    assert counters == want_counters
+    assert min(routed.values()) > 0, routed
+    for result in results:
+        assert result["lane"]["pod_peer_errors"] == 0
+
+
+@pytest.mark.parametrize("pipeline", ["standard", "native"])
+def test_serving_shards_on_the_card_answer_as_a_memory_server(
+        cuda, tmp_path, pipeline):
+    """A torch server on the card with ``--serving-shards 3`` answers
+    serial calls over eight channels as a memory server does, admits
+    exactly 3 of a hammered key of 3, and more than one loop decided."""
+    from .test_torch_serving_shards import PIPELINES, _blob, _drive
+
+    users = [f"u{(i * 7) % 11}" for i in range(120)]
+    blobs = [_blob("api", u) for u in users]
+    hot = _blob("hot", "h")
+    memory = _drive(tmp_path / "memory", "memory", [], blobs, hot)
+    storage, extra = PIPELINES[pipeline]
+    serial, hammered, loops, shards, _threads, left = _drive(
+        tmp_path / "card", storage, [*extra, "--device", "cuda"], blobs, hot)
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    assert serial == memory[0]
+    assert hammered.count(rls_pb2.RateLimitResponse.OK) == 3
+    assert loops > 1 and shards == 2 and not left

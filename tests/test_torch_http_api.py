@@ -399,13 +399,13 @@ class TestHttpApi:
             assert path in spec["paths"], path
 
     @pytest.mark.parametrize("path", [
-        "/debug/signals", "/debug/pod", "/debug/events", "/debug/capacity",
-        "/debug/profile", "/debug/flight",
+        "/debug/signals", "/debug/capacity", "/debug/profile",
+        "/debug/flight",
     ])
     def test_unported_debug_routes_are_not_served(self, http_server, path):
-        """The debug routes of the pod, not ported yet, answer 404. The
-        others are served on this memory server as the JAX server serves
-        them there: ``/debug/profile`` the idle capture status,
+        """These routes are served on this memory server as the JAX
+        server serves them there: ``/debug/profile`` the idle capture
+        status,
         ``/debug/flight`` the (empty) bundle spool (the flight recorder
         runs on every storage), and ``/debug/signals`` and
         ``/debug/capacity`` the JAX server's 404 bodies (the signal bus
@@ -437,6 +437,46 @@ class TestHttpApi:
         }
         if path in unserved:
             assert json.loads(exc.value.read()) == unserved[path]
+
+    @pytest.mark.parametrize("path", [
+        "/debug/pod", "/debug/pod/routing", "/debug/events",
+        "/debug/events?n=3", "/debug/pod/resize",
+    ])
+    def test_pod_debug_routes_answer_as_the_jax_server_without_a_pod(
+            self, http_server, path):
+        """A server without a pod answers the pod's debug routes as the
+        JAX server does (``/debug/pod``, ``/debug/pod/routing`` and
+        ``/debug/events``: 404 with its body); the elastic pod's
+        ``/debug/pod/resize`` (ROADMAP Queue A item 7c) is not served
+        yet, and answers 404 as the JAX server's does without a pod."""
+        import urllib.request
+
+        async def jax_answer():
+            j_port = H.free_port()
+            runner = await j_run_http(
+                JRateLimiter(JInMemory(64)), "127.0.0.1", j_port, None, {})
+            try:
+                return await asyncio.get_running_loop().run_in_executor(
+                    None, answer, j_port)
+            finally:
+                await runner.cleanup()
+
+        def answer(port):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}{path}") as resp:
+                    return resp.status, resp.read()
+            except urllib.error.HTTPError as exc:
+                return exc.code, exc.read()
+
+        want = asyncio.run(jax_answer())
+        got = answer(http_server[0])
+        if path == "/debug/pod/resize":
+            assert want[0] == got[0] == 404
+            return
+        assert got[0] == want[0] == 404
+        assert json.loads(got[1]) == json.loads(want[1]) == {
+            "error": "not a pod (single-host deployment)"}
 
     def test_http_request_id_echo(self, http_server):
         import urllib.request

@@ -15,7 +15,15 @@
   native pipeline, the server's ingress path) starts, answers
   ShouldRateLimit on its port and stops in such a subprocess.
 - A server imports the admission package only when
-  ``--admission-mode`` is not ``off``.
+  ``--admission-mode`` is not ``off``, or when it is a pod member with
+  ``--pod-degraded-mode on`` (the default: the per-peer failover breaker
+  is the admission plane's ``CircuitBreaker``). The pod's modules
+  (``server/peering.py``, ``parallel/pod.py``, which uses
+  ``torch.distributed``'s TCPStore) are imported in pod mode only.
+  (``import torch`` loads ``torch.distributed`` itself, so the pin is on
+  the port's modules that use it.)
+- A 2-process pod of port servers forms, decides and stops with both
+  processes refusing to import ``jax`` and ``limitador_tpu``.
 - The port's protobuf message classes are its own even when both
   packages are loaded in one process (the JAX package registers the same
   ``.proto`` files and puts its proto directory on ``sys.path``).
@@ -340,7 +348,9 @@ async def main(argv):
     server = await m.start(m.build_parser().parse_args(argv))
     try:
         return ("limitador_tpu_torch.admission" in sys.modules,
-                server.admission is not None)
+                server.admission is not None,
+                "limitador_tpu_torch.server.peering" in sys.modules,
+                "limitador_tpu_torch.parallel.pod" in sys.modules)
     finally:
         await server.stop()
 
@@ -353,7 +363,7 @@ def test_the_admission_package_is_imported_only_when_asked_for(tmp_path,
                                                                mode):
     """A server started with ``--admission-mode off`` (the default)
     never imports ``limitador_tpu_torch.admission``; with ``enforce`` it
-    builds the controller."""
+    builds the controller. Neither imports the pod's modules."""
     from .torch_http import LIMITS, free_port, port_argv
 
     limits = tmp_path / "limits.yaml"
@@ -365,4 +375,39 @@ def test_the_admission_package_is_imported_only_when_asked_for(tmp_path,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     on = mode != "off"
-    assert proc.stdout.strip().splitlines()[-1] == str((on, on))
+    assert proc.stdout.strip().splitlines()[-1] == str(
+        (on, on, False, False))
+
+
+_GUARDED_POD = r'''
+import importlib.abc, runpy, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "limitador_tpu"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+'''
+
+
+def test_a_pod_member_imports_the_breaker_and_the_pod_modules(tmp_path):
+    """Two port servers form a pod over a TCPStore and run the routed
+    drive in processes that refuse ``jax`` and ``limitador_tpu``; each
+    member imported the pod's modules and, with ``--pod-degraded-mode
+    on`` (the default) and ``--admission-mode off``, the admission
+    package, for the failover breaker alone (no admission controller)."""
+    from .torch_pod_worker import spawn_pod
+
+    results = spawn_pod(tmp_path, "memory", prefix=["-c", _GUARDED_POD])
+    for result in results:
+        assert result["modules"] == [
+            "limitador_tpu_torch.admission",
+            "limitador_tpu_torch.parallel.pod",
+            "limitador_tpu_torch.server.peering",
+        ]
+        assert result["lane"]["pod_peer_errors"] == 0
+        assert "admission" not in result["http"]["/debug/stats"]["body"]

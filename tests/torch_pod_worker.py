@@ -1,0 +1,355 @@
+"""One process of the port's CPU pod harness (not a pytest module).
+
+It imports the port only (nothing of ``limitador_tpu`` and no JAX), and
+runs in one of two modes:
+
+``server``: one member of a real pod of port servers.
+
+    python tests/torch_pod_worker.py server --process-id I \\
+        --num-processes N --coordinator 127.0.0.1:PORT \\
+        --peer-ports P0,P1 --storage sharded|torch|memory \\
+        [--device cpu|cuda] --dir DIR --out OUT.json
+
+The worker starts the port's server (``server.__main__.start``) with the
+``--pod-*`` options (on ``--device cpu`` unless asked) and a fake clock, so the pod
+forms over a TCPStore, and runs the drive of ``tests/pod_worker.py``
+(the limits and requests are copied here): each step is decided by the
+host it arrives at, through the server's limiter (the pod frontend), and
+the hosts meet at a ``pod_barrier`` before and after every step. It writes its
+decisions, the counters it holds, its router, lane and pod views, the
+HTTP debug bodies, some ``/metrics`` samples and which port modules it
+imported.
+
+``owner``: the owner host of the kill-and-restart drill: a peer lane and
+a pod frontend (host 1 of 2) over an in-memory storage on ``--listen``,
+which touches ``--ready`` once serving and, when ``--stop`` appears,
+writes its counters to ``--out`` and exits.
+"""
+
+import argparse
+import asyncio
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+# The drive both the workers and the parent's oracle run: the JAX pod
+# harness's (tests/pod_worker.py), copied so that this process needs
+# nothing of the JAX package.
+DRIVE_REQUESTS = 48
+DRIVE_USERS = 7
+DRIVE_T0 = 1_700_000_000.0
+DRIVE_STEP_S = 0.05
+
+DRIVE_LIMITS_YAML = """\
+- namespace: pods
+  max_value: 3
+  seconds: 60
+  variables: ["user"]
+  name: per_user
+- namespace: multi
+  max_value: 2
+  seconds: 60
+  variables: ["user"]
+  name: multi_user
+- namespace: multi
+  max_value: 30
+  seconds: 60
+  name: multi_total
+"""
+
+NAMESPACES = ("pods", "multi")
+
+#: the drill's limit (one namespace, one limit: it routes per key)
+CHAOS_NAMESPACE = "chaos"
+CHAOS_MAX = 4
+
+
+def drive_limits():
+    from limitador_tpu_torch import Limit
+
+    return [
+        Limit("pods", 3, 60, [], ["user"], name="per_user"),
+        Limit("multi", 2, 60, [], ["user"], name="multi_user"),
+        Limit("multi", 30, 60, [], [], name="multi_total"),
+    ]
+
+
+def chaos_limits():
+    from limitador_tpu_torch import Limit
+
+    return [Limit(CHAOS_NAMESPACE, CHAOS_MAX, 120, [], ["u"], name="per_u")]
+
+
+def drive_request(i: int):
+    """(namespace, user, arrival_host) of drive step i."""
+    ns = "pods" if i % 3 else "multi"
+    return ns, f"u{i % DRIVE_USERS}", i % 2
+
+
+def step_time(i: int) -> float:
+    return DRIVE_T0 + i * DRIVE_STEP_S
+
+
+class Clock:
+    def __init__(self):
+        self.now = DRIVE_T0
+
+    def __call__(self):
+        return self.now
+
+
+def counter_rows(counters, ns):
+    return [{
+        "ns": ns,
+        "limit": c.limit.name,
+        # lists, not tuples: equal before and after the JSON round trip
+        "vars": [list(kv) for kv in sorted(c.set_variables.items())],
+        "remaining": c.remaining,
+        "expires_ms": int(round((c.expires_in or 0) * 1000)),
+    } for c in counters]
+
+
+def sort_rows(rows):
+    return sorted(rows, key=lambda r: (r["ns"], r["limit"], r["vars"]))
+
+
+async def _http_json(port, path):
+    import aiohttp
+
+    async with aiohttp.ClientSession() as session:
+        async with session.get(f"http://127.0.0.1:{port}{path}") as resp:
+            return resp.status, await resp.text()
+
+
+async def serve_and_drive(args) -> dict:
+    from limitador_tpu_torch import Context
+    from limitador_tpu_torch.observability.device_plane import set_request_id
+    from limitador_tpu_torch.parallel.pod import pod_barrier
+    from limitador_tpu_torch.server import __main__ as server_main
+
+    me = args.process_id
+    limits_path = os.path.join(args.dir, f"limits-{me}.yaml")
+    with open(limits_path, "w") as f:
+        f.write(DRIVE_LIMITS_YAML)
+    peer_ports = [int(p) for p in args.peer_ports.split(",")]
+    argv = [
+        limits_path, args.storage, "--device", args.device,
+        "--capacity", "4096",
+        "--http-host", "127.0.0.1", "--http-port", str(args.http_port),
+        "--rls-host", "127.0.0.1", "--rls-port", str(args.rls_port),
+        "--flight-spool-dir", os.path.join(args.dir, f"flight-{me}"),
+        "--pod-coordinator", args.coordinator,
+        "--pod-processes", str(args.num_processes),
+        "--pod-process-id", str(me),
+        "--pod-peer-listen", f"127.0.0.1:{peer_ports[me]}",
+    ]
+    for port in peer_ports:
+        argv += ["--pod-peer", f"127.0.0.1:{port}"]
+    clock = Clock()
+    server = await server_main.start(
+        server_main.build_parser().parse_args(argv), clock=clock)
+    loop = asyncio.get_running_loop()
+
+    async def barrier(tag):
+        await loop.run_in_executor(None, pod_barrier, tag, 60_000)
+
+    try:
+        frontend = server.limiter
+        await barrier("drive-ready")
+        decisions = {}
+        for i in range(DRIVE_REQUESTS):
+            # Every clock reads step i's time before any host decides
+            # step i, and stays there until every host has decided it:
+            # a forward is decided at the same time on its owner as on
+            # the oracle.
+            clock.now = step_time(i)
+            await barrier(f"clock-{i}")
+            ns, user, arrival = drive_request(i)
+            if arrival == me:
+                set_request_id(f"drive-{i}")
+                result = await frontend.check_rate_limited_and_update(
+                    ns, Context({"user": user}), 1, False)
+                decisions[i] = {"limited": bool(result.limited),
+                                "name": result.limit_name}
+            await barrier(f"drive-{i}")
+        counters = []
+        for ns in NAMESPACES:
+            got = frontend.get_counters(ns)
+            if asyncio.iscoroutine(got):  # an async limiter's
+                got = await got
+            counters += counter_rows(got, ns)
+        deadline = time.time() + 10
+        while (len(frontend.aggregator.peer_hosts())
+               < args.num_processes - 1 and time.time() < deadline):
+            await asyncio.sleep(0.05)
+        http = {}
+        for path in ("/debug/pod", "/debug/pod/routing",
+                     "/debug/events", "/debug/stats", "/metrics"):
+            status, text = await _http_json(args.http_port, path)
+            http[path] = {"status": status,
+                          "body": text if path == "/metrics"
+                          else json.loads(text)}
+        await barrier("drive-reported")
+        return {
+            "process_id": me,
+            "decisions": decisions,
+            "counters": sort_rows(counters),
+            "router": frontend.router.stats(),
+            "lane": frontend.lane.stats(),
+            "events": frontend.events_debug(),
+            "pod_debug": frontend.pod_debug(),
+            "http": http,
+            "modules": sorted(
+                m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "limitador_tpu")
+                or m in ("limitador_tpu_torch.admission",
+                         "limitador_tpu_torch.server.peering",
+                         "limitador_tpu_torch.parallel.pod")),
+        }
+    finally:
+        await server.stop()
+
+
+async def serve_owner(args) -> None:
+    from limitador_tpu_torch import RateLimiter
+    from limitador_tpu_torch.routing import PodRouter, PodTopology
+    from limitador_tpu_torch.server.peering import PeerLane, PodFrontend
+    from limitador_tpu_torch.storage.in_memory import InMemoryStorage
+
+    lane = PeerLane(1, args.listen, {}, None)
+    frontend = PodFrontend(
+        RateLimiter(InMemoryStorage(4096)),
+        PodRouter(PodTopology(hosts=2, host_id=1, shards_per_host=1)),
+        lane,
+    )
+    await frontend.configure_with(chaos_limits())
+    lane.start()
+    with open(args.ready, "w") as f:
+        f.write(str(lane.port))
+    while not os.path.exists(args.stop):
+        await asyncio.sleep(0.05)
+    counters = frontend.get_counters(CHAOS_NAMESPACE)
+    with open(args.out, "w") as f:
+        json.dump({"counters": [
+            {"u": c.set_variables["u"], "remaining": c.remaining}
+            for c in counters
+        ]}, f)
+    lane.stop()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_pod(tmp_path, storage, device="cpu", timeout=90, prefix=()):
+    """Run the two members of a pod (this file's ``server`` mode) and
+    return their reports; ``prefix`` goes between the interpreter and
+    this file's path."""
+    repo = Path(__file__).resolve().parent.parent
+    coordinator = f"127.0.0.1:{free_port()}"
+    peer_ports = ",".join(str(free_port()) for _ in range(2))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TPU_POD_")}
+    env["PYTHONPATH"] = str(repo)
+    procs, outs = [], []
+    for pid in range(2):
+        out = Path(tmp_path) / f"pod-{storage}-{pid}.json"
+        outs.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, *prefix, os.path.abspath(__file__), "server",
+             "--process-id", str(pid), "--num-processes", "2",
+             "--coordinator", coordinator, "--peer-ports", peer_ports,
+             "--rls-port", str(free_port()), "--http-port",
+             str(free_port()), "--storage", storage, "--device", device,
+             "--dir", str(tmp_path), "--out", str(out)],
+            cwd=repo, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    results = []
+    try:
+        for pid, proc in enumerate(procs):
+            _stdout, stderr = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"pod worker {pid} failed:\n{stderr[-4000:]}")
+            results.append(json.loads(outs[pid].read_text()))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    return results
+
+
+def drive_oracle(device="cpu"):
+    """The drive's answers and counters on a single-process 2-row
+    TorchShardedStorage."""
+    from limitador_tpu_torch import Context, RateLimiter
+    from limitador_tpu_torch.device.sharded import TorchShardedStorage
+
+    clock = Clock()
+    oracle = RateLimiter(TorchShardedStorage(
+        n_shards=2, local_capacity=4096, clock=clock, device=device))
+    oracle.configure_with(drive_limits())
+    want = {}
+    for i in range(DRIVE_REQUESTS):
+        clock.now = step_time(i)
+        ns, user, _arrival = drive_request(i)
+        r = oracle.check_rate_limited_and_update(
+            ns, Context({"user": user}), 1, False)
+        want[i] = {"limited": bool(r.limited), "name": r.limit_name}
+    rows = []
+    for ns in NAMESPACES:
+        rows += counter_rows(oracle.get_counters(ns), ns)
+    return want, sort_rows(rows)
+
+
+def merge(results):
+    """The pod's merged decisions, its sorted counter union and its
+    routing tallies."""
+    merged, counters, routed = {}, [], {}
+    for result in results:
+        for i, decision in result["decisions"].items():
+            if int(i) in merged:
+                raise AssertionError(f"drive step {i} decided twice")
+            merged[int(i)] = decision
+        counters += result["counters"]
+        for key, value in result["router"].items():
+            routed[key] = routed.get(key, 0) + value
+    return merged, sort_rows(counters), routed
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("mode", choices=["server", "owner"])
+    parser.add_argument("--process-id", type=int, default=0)
+    parser.add_argument("--num-processes", type=int, default=2)
+    parser.add_argument("--coordinator")
+    parser.add_argument("--peer-ports")
+    parser.add_argument("--rls-port", type=int)
+    parser.add_argument("--http-port", type=int)
+    parser.add_argument("--storage", default="sharded")
+    parser.add_argument("--device", default="cpu")
+    parser.add_argument("--dir")
+    parser.add_argument("--listen")
+    parser.add_argument("--ready")
+    parser.add_argument("--stop")
+    parser.add_argument("--out", required=True)
+    args = parser.parse_args()
+    if args.mode == "owner":
+        asyncio.run(serve_owner(args))
+        return 0
+    out = asyncio.run(serve_and_drive(args))
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
