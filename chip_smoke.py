@@ -319,10 +319,10 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    B2's host form by the Reports.
 17. Serving shards and the routed pod: (a) a torch server on the card
    with --serving-shards 4, on the standard and then the native
-   pipeline, answers 2,000 serial ShouldRateLimit calls over Zipf-0.99
+   pipeline, answers 1,000 serial ShouldRateLimit calls over Zipf-0.99
    users from 1<<20 keys on 8 channels (one connection each) as an
    in-memory oracle on its frozen clock does, and admits exactly 3 of
-   4,000 calls for one key of 3 from 16 threads; the loops that decided
+   2,000 calls for one key of 3 from 16 threads; the loops that decided
    (the server's per-loop shards) and p50/p99 beside the same calls on a
    --serving-shards 1 server. (b) Two server processes on the card
    (--pod-processes 2, a TCPStore on localhost), once on sharded (a
@@ -348,6 +348,39 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    pod's members are processes of their own, each writing its kernel
    launch counts when it exits, and the member killed in (d) just
    before (B1, B7a on both routes, B2's host form must launch there).
+18. The native pod fast path: 17b's harness (POD_LIMITS, the psum lane
+   on gpsum, seed 1718) with torch storage and --pipeline native
+   --native-hot-lane on --rate-limit-headers NONE, so that each member's
+   C hot lane stages its own rows for B1 on its table and sends each
+   flush's foreign rows to their owner in one bulk_decide, where the
+   owner's hot lane decides them with B1 on its table. (a) 17b's 4,000
+   sequential calls alternating hosts: every answer equal to the
+   in-memory oracle's, and the union of the hosts' spent /counters equal
+   to its counters (the unspent ones, value 0, each of a denied request:
+   the native lanes allocate a request's counters before its check); the
+   requests' verdicts, pod_hot_local_rows/_foreign_rows,
+   pod_bulk_forward_batches/_rows and rows a bulk forward; p50/p99 by
+   verdict beside 17b torch's. (c) On the same pod, half of 800 more
+   such calls alternating hosts (answers equal to the oracle), host 1
+   killed, the other half all to host 0: no call fails, host 0's own
+   keys still equal the oracle, and every call for host 1's keys is
+   decided by the frontend's degraded stand-in (its bulk hop answering
+   all-None: pod_failover_degraded_decisions counts each) as a fresh
+   in-memory oracle of those calls decides them; host 1 restarts, its
+   journal replays through B2's host form and its counters equal that
+   oracle's. (b) A second pod with --native-ingress: 1,500 calls of the
+   same population (the two-limit namespace's total of 400 never
+   reached, so that no answer depends on the order) from 16 threads of
+   a client process alternating the hosts' ingresses: each counter
+   admits min(limit, its calls), the union of the spent counters equals
+   the oracle's, rows a bulk forward, decisions/s and p50/p99. (d) A
+   third pod with --flight-sample 1 (every decision in the flight rings;
+   the other pods sample as 17b's do): 300 such serial calls (answers
+   equal to the oracle), then a trigger on host 0 (POST
+   /debug/flight/trigger): its bundle holds host 1's rings over the
+   window, one of whose pod_forward entries shares a request id with
+   host 0's. B1 must launch on both members of the first two pods, B2's
+   host form in (c)'s replay.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -7831,10 +7864,10 @@ def phase_native_ingress(dev, card):
 # -- phase 17: serving shards and the routed pod ----------------------------
 
 SHARD_LOOPS = 4
-SHARD_CALLS = 2000
+SHARD_CALLS = 1000  # 2,000 until phase 18 came in
 # the one-loop server's calls, for its p50/p99 beside the 4-loop one's
-SHARD_CALLS_ONE_LOOP = 1000
-SHARD_HAMMER = 4000
+SHARD_CALLS_ONE_LOOP = 500
+SHARD_HAMMER = 2000
 SHARD_THREADS = 16
 SHARD_CHANNELS = 8
 POD_CALLS = 4000
@@ -7851,6 +7884,13 @@ PHASE17B_KERNELS = {"sharded": ("sharded_check_and_update",
                                 "sharded_check_and_update_cluster"),
                     "torch": ("check_and_update",)}
 PHASE17D_KERNELS = ("update_host",)
+# phase 18: B1 on both members of both native pods, B2's host form in
+# 18c's replay into the restarted owner
+PHASE18_KERNELS = ("check_and_update",)
+PHASE18C_KERNELS = ("update_host",)
+POD_DEGRADED_CALLS = 800
+POD_CONCURRENT_CALLS = 1500
+POD_FLIGHT_CALLS = 300
 
 SHARD_LIMITS = """\
 - namespace: shard
@@ -8578,6 +8618,535 @@ def phase_pod(dev, card):
     return launches, out
 
 
+# 18b's client: its own process (as 16b's), 16 threads, call i to host
+# i % 2's ingress over its own channel. argv: ports (comma-separated),
+# threads, the blobs file (u32 length-prefixed), the answers file (one
+# byte a call: 1 the OK blob, 2 the OVER_LIMIT blob, 0 anything else),
+# the latencies file (float64 ms a call).
+_POD_CLIENT = r'''
+import json, sys, time
+from concurrent.futures import ThreadPoolExecutor
+
+import grpc
+import numpy as np
+
+ports = [int(p) for p in sys.argv[1].split(",")]
+threads, src, dst, lat_path = int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+raw = open(src, "rb").read()
+blobs, off = [], 0
+while off < len(raw):
+    n = int.from_bytes(raw[off:off + 4], "little")
+    blobs.append(raw[off + 4:off + 4 + n])
+    off += 4 + n
+OK, OVER = b"\x08\x01", b"\x08\x02"
+channels = [grpc.insecure_channel(f"127.0.0.1:{p}") for p in ports]
+calls = [c.unary_unary(
+    "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit")
+    for c in channels]
+for c in channels:
+    grpc.channel_ready_future(c).result(timeout=60)
+lat = np.zeros(len(blobs))
+
+def one(i):
+    t = time.perf_counter()
+    out = calls[i % len(calls)](blobs[i], timeout=60)
+    lat[i] = (time.perf_counter() - t) * 1e3
+    return out
+
+t0 = time.perf_counter()
+with ThreadPoolExecutor(threads) as pool:
+    answers = list(pool.map(one, range(len(blobs))))
+seconds = time.perf_counter() - t0
+for c in channels:
+    c.close()
+open(dst, "wb").write(bytes(1 if a == OK else 2 if a == OVER else 0
+                            for a in answers))
+np.asarray(lat, np.float64).tofile(lat_path)
+print(json.dumps({"seconds": seconds}))
+'''
+
+
+def _native_pod_argv(tmpdir, tag, pid, coord, peers, rls, http, ingress,
+                     flight_sample):
+    """17b's torch member options with the native pipeline; 18d's pod
+    records every decision into the flight rings (``flight_sample``
+    1), the others sample as a server does by default (17b's too)."""
+    extra = ["--global-namespaces", "gpsum", "--pod-psum-lane", "on",
+             "--pod-psum-interval-ms", str(PSUM_INTERVAL_MS),
+             "--pipeline", "native", "--native-hot-lane", "on",
+             "--rate-limit-headers", "NONE"]
+    if ingress:
+        extra.append("--native-ingress")
+    if flight_sample is not None:
+        extra += ["--flight-sample", str(flight_sample)]
+    return _pod_argv(tmpdir, tag, "torch", pid, coord, peers, rls, http,
+                     extra)
+
+
+def _pod_ports(ingress):
+    """(coordinator, peer, RLS, HTTP ports) of a 2-member pod, all
+    distinct; an ingress member's RLS port p has p + 1 free (its gRPC
+    server's)."""
+    taken = set()
+    rls = []
+    for _ in (0, 1):
+        port = _free_port_pair() if ingress else _free_ports(1)[0]
+        while port in taken or port + 1 in taken:
+            port = _free_port_pair() if ingress else _free_ports(1)[0]
+        rls.append(port)
+        taken |= {port, port + 1}
+    others = []
+    while len(others) < 5:
+        port = _free_ports(1)[0]
+        if port not in taken:
+            taken.add(port)
+            others.append(port)
+    return (f"127.0.0.1:{others[0]}", others[1:3], rls, others[3:5])
+
+
+def _start_native_pod(tmpdir, tag, label, ingress=False,
+                      flight_sample=None):
+    with open(os.path.join(tmpdir, "pod-limits.yaml"), "w") as f:
+        f.write(POD_LIMITS)
+    coord, peers, rls, http = _pod_ports(ingress)
+    argvs = [_native_pod_argv(tmpdir, tag, pid, coord, peers, rls, http,
+                              ingress, flight_sample) for pid in (0, 1)]
+    t0 = time.perf_counter()
+    members = [_pod_spawn(tmpdir, f"pod-{tag}-{pid}", argvs[pid])
+               for pid in (0, 1)]
+    for pid in (0, 1):
+        _pod_wait(members[pid], http[pid], tmpdir, label)
+    return members, argvs, rls, http, time.perf_counter() - t0
+
+
+def _pod_oracle(limits):
+    from limitador_tpu_torch import RateLimiter
+    from limitador_tpu_torch.storage.in_memory import InMemoryStorage
+
+    oracle = RateLimiter(InMemoryStorage(1 << 20))
+    oracle.configure_with(limits)
+    return oracle
+
+
+def _oracle_codes(oracle, requests, rls_pb2):
+    from limitador_tpu_torch import Context
+
+    ok, over = (rls_pb2.RateLimitResponse.OK,
+                rls_pb2.RateLimitResponse.OVER_LIMIT)
+    return [over if oracle.check_rate_limited_and_update(
+        ns, _ctx(Context, e), 1, False).limited else ok
+        for _h, ns, e in requests]
+
+
+def _native_counters_equal(label, got, oracle, limits, requests, codes,
+                           rls_pb2):
+    """The native path's table against the in-memory oracle: the spent
+    counters (remaining below the limit) equal the oracle's, and every
+    unspent one is a counter of a denied request, whose fresh slot the
+    miss lane allocated before the check (ROADMAP Queue C: both packages'
+    columnar lanes leave it; the oracle makes none). Returns (spent,
+    unspent) counts."""
+    maxes = {l.name: l.max_value for l in limits}
+    want = set()
+    for ns in ("pods", "multi", "glob"):
+        want |= _oracle_counters(oracle, ns)
+    spent = {c for c in got if c[3] < maxes[c[1]]}
+    if spent != want:
+        fail(f"{label}: the union of the hosts' spent counters differs from "
+             f"the oracle's: {len(spent ^ want)} differences of {len(want)}")
+    denied = set()
+    for (_h, ns, e), code in zip(requests, codes):
+        if code != rls_pb2.RateLimitResponse.OVER_LIMIT:
+            continue
+        for limit in limits:
+            if str(limit.namespace) != ns:
+                continue
+            denied.add((ns, limit.name, tuple(sorted(
+                (v.source, e[v.source.split(".")[-1]])
+                for v in limit.variables))))
+    stray = [c for c in got - spent if c[:3] not in denied]
+    if stray:
+        fail(f"{label}: {len(stray)} unspent counters of no denied request: "
+             f"{stray[:3]}")
+    return len(spent), len(got) - len(spent)
+
+
+def _pod_sums(http, names):
+    return {name: sum(_pod_metric(port, name) for port in http)
+            for name in names}
+
+
+async def _native_pod_flight(tmpdir, card):
+    """18d: a pod recording every decision in its flight rings, a short
+    serial drive (answers equal to the oracle), then ``_flight_check``."""
+    from limitador_tpu_torch.server.limits_file import load_limits_file
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "native pod flight (18d)"
+    loop = asyncio.get_running_loop()
+    members, _argvs, rls, http, _formed_s = _start_native_pod(
+        tmpdir, "flight", label, flight_sample=1)
+    limits = load_limits_file(os.path.join(tmpdir, "pod-limits.yaml"))
+    launches = []
+    try:
+        requests = _pod_requests(np.random.default_rng(1820),
+                                 POD_FLIGHT_CALLS)
+        spec = [(h, _rls_request(rls_pb2, ns, [e])) for h, ns, e in requests]
+        codes, _lat = await loop.run_in_executor(
+            None, _pod_drive, rls, spec, rls_pb2)
+        if codes != _oracle_codes(_pod_oracle(limits), requests, rls_pb2):
+            fail(f"{label}: the drive's answers differ from the oracle's")
+        out = await loop.run_in_executor(None, _flight_check, http, card)
+        out["calls"] = POD_FLIGHT_CALLS
+    finally:
+        for member in members:
+            launches.append(_pod_stop(member, label))
+    return [run for run in launches if run is not None], out
+
+
+def _flight_check(http, card):
+    """A manual trigger on host 0; its bundle must hold host 1's rings,
+    one of whose pod_forward entries shares a request id with one of
+    host 0's."""
+    label = "native pod flight (18d)"
+    status, out = _http_post(http[0], "/debug/flight/trigger",
+                             {"note": "18d"})
+    name = out.get("bundle")
+    if status != 200 or not out.get("fired") or not name:
+        fail(f"{label}: the trigger answered {status} {out}")
+    status, body = _http_get(http[0], f"/debug/flight?name={name}")
+    if status != 200:
+        fail(f"{label}: GET /debug/flight?name={name} answered {status}")
+    bundle = json.loads(body)
+    peer = bundle.get("peers", {}).get("1") or {}
+    if "error" in peer or not peer.get("exemplars"):
+        fail(f"{label}: the bundle holds no rings of host 1: {peer}")
+
+    def ids(part):
+        return {e.get("request_id") for e in part.get("exemplars", ())
+                if e.get("lane") == "pod_forward" and e.get("request_id")}
+
+    mine, theirs = ids(bundle["local"]), ids(peer)
+    shared = mine & theirs
+    if not shared:
+        fail(f"{label}: no pod_forward request id in both hosts' rings "
+             f"({len(mine)} on host 0, {len(theirs)} on host 1)")
+    out = {"bundle": name, "peer_exemplars": len(peer["exemplars"]),
+           "pod_forward_ids": [len(mine), len(theirs)],
+           "shared_ids": len(shared), "window": bundle["window"]}
+    print(f"{label}: bundle {name} holds host 1's rings "
+          f"({out['peer_exemplars']} exemplars); pod_forward request ids "
+          f"{len(mine)} on host 0, {len(theirs)} on host 1, {len(shared)} "
+          f"in both ({card})", flush=True)
+    return out
+
+
+async def _native_pod_serial(tmpdir, card, base):
+    """Phases 18a and 18c on one native pod; ``base`` is 17b torch's
+    p50/p99 by verdict."""
+    from limitador_tpu_torch.server.limits_file import load_limits_file
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "native pod (18a)"
+    loop = asyncio.get_running_loop()
+    members, argvs, rls, http, formed_s = _start_native_pod(
+        tmpdir, "native", label)
+    limits = load_limits_file(os.path.join(tmpdir, "pod-limits.yaml"))
+    out = {"formed_s": formed_s}
+    launches = []
+    try:
+        requests = _pod_requests(np.random.default_rng(1718), POD_CALLS)
+        spec = [(h, _rls_request(rls_pb2, ns, [e])) for h, ns, e in requests]
+        t0 = time.perf_counter()
+        codes, lat = await loop.run_in_executor(
+            None, _pod_drive, rls, spec, rls_pb2)
+        drive_s = time.perf_counter() - t0
+        errors = [c for c in codes if isinstance(c, str)]
+        if errors:
+            fail(f"{label}: {len(errors)} calls failed: {errors[:5]}")
+        oracle = _pod_oracle(limits)
+        want = _oracle_codes(oracle, requests, rls_pb2)
+        differ = sum(a != b for a, b in zip(codes, want))
+        if differ:
+            fail(f"{label}: {differ} of {POD_CALLS} answers differ from the "
+                 "in-memory oracle's")
+        got_counters = set()
+        for ns in ("pods", "multi", "glob"):
+            for port in http:
+                got_counters |= _pod_counters(port, ns)
+        spent, unspent = _native_counters_equal(
+            label, got_counters, oracle, limits, requests, codes, rls_pb2)
+        verdicts = _verdicts(requests, limits, [])
+        tally = {v: verdicts.count(v) for v in ("local", "forward", "pinned")}
+        sums = _pod_sums(http, (
+            "pod_hot_local_rows", "pod_hot_foreign_rows",
+            "pod_bulk_forward_batches", "pod_bulk_forward_rows",
+            "pod_bulk_served_rows", "pod_peer_errors"))
+        if not (sums["pod_hot_foreign_rows"] > 0
+                and 0 < sums["pod_bulk_forward_batches"]
+                <= sums["pod_bulk_forward_rows"]
+                == sums["pod_bulk_served_rows"]):
+            fail(f"{label}: the split or the bulk lane did not engage: "
+                 f"{sums}")
+        after = [_pod_launches_now(m, label) for m in members]
+        missing = [pid for pid, run in enumerate(after)
+                   for k in PHASE18_KERNELS if _launched(run, k) == 0]
+        if missing:
+            fail(f"{label}: B1 did not launch on members {missing}")
+        by = {v: [ms for ms, vv in zip(lat, verdicts) if vv == v]
+              for v in ("local", "forward", "pinned")}
+        out.update({
+            "calls": POD_CALLS, "drive_s": drive_s, "verdicts": tally,
+            "counters": spent, "unspent_counters": unspent, "sums": sums,
+            "rows_per_bulk": sums["pod_bulk_forward_rows"]
+            / sums["pod_bulk_forward_batches"],
+            "p50_p99_ms": {v: _pct(ms) for v, ms in by.items()},
+            "p50_p99_ms_17b_torch": base,
+            "hops": [_hop_split(port) for port in http],
+            "b1_by_member": [_launched(run, "check_and_update")
+                             for run in after],
+        })
+        print(f"{label}: pod formed in {formed_s:.2f} s; {POD_CALLS} "
+              f"sequential calls alternating hosts in {drive_s:.2f} s, "
+              f"every answer and the union of both hosts' {spent} spent "
+              f"counters equal to the in-memory oracle ({unspent} unspent, "
+              f"each of a denied request); verdicts {json.dumps(tally)}; "
+              f"{json.dumps(sums)}; rows a bulk forward "
+              f"{out['rows_per_bulk']:.3f}; p50/p99 ms "
+              f"{json.dumps(out['p50_p99_ms'])} against 17b torch's "
+              f"{json.dumps(base)}; B1 launches by member "
+              f"{out['b1_by_member']} ({card})", flush=True)
+        killed, out["degraded"] = await _native_pod_drill(
+            tmpdir, members, argvs, rls, http, limits, oracle, rls_pb2,
+            card)
+        launches.append(killed)
+    finally:
+        for member in members:
+            launches.append(_pod_stop(member, label))
+    return [run for run in launches if run is not None], out
+
+
+async def _native_pod_drill(tmpdir, members, argvs, rls, http, limits,
+                            oracle, rls_pb2, card):
+    """18c: half of POD_DEGRADED_CALLS alternating hosts, host 1 killed,
+    the other half to host 0; host 1 restarted and its journal
+    replayed. ``oracle`` holds 18a's calls."""
+    label = "native pod, dead owner (18c)"
+    loop = asyncio.get_running_loop()
+    requests = _pod_requests(np.random.default_rng(1819), POD_DEGRADED_CALLS)
+    half = POD_DEGRADED_CALLS // 2
+    first = requests[:half]
+    spec = [(h, _rls_request(rls_pb2, ns, [e])) for h, ns, e in first]
+    codes, _lat = await loop.run_in_executor(
+        None, _pod_drive, rls, spec, rls_pb2)
+    want = _oracle_codes(oracle, first, rls_pb2)
+    if codes != want:
+        fail(f"{label}: before the kill, "
+             f"{sum(a != b for a, b in zip(codes, want))} answers differ")
+    killed = _pod_launches_now(members[1], label)
+    degraded0 = _pod_metric(http[0], "pod_failover_degraded_decisions")
+    members[1]["proc"].kill()
+    members[1]["proc"].wait()
+    members[1]["log"].close()
+    second = [(0, ns, e) for _h, ns, e in requests[half:]]
+    spec = [(0, _rls_request(rls_pb2, ns, [e])) for _h, ns, e in second]
+    t0 = time.perf_counter()
+    codes, lat = await loop.run_in_executor(
+        None, _pod_drive, rls, spec, rls_pb2)
+    drive_s = time.perf_counter() - t0
+    errors = [c for c in codes if isinstance(c, str)]
+    if errors:
+        fail(f"{label}: {len(errors)} calls failed while host 1 was dead: "
+             f"{errors[:5]}")
+    verdicts = _verdicts(second, limits, [])
+    theirs = [i for i, v in enumerate(verdicts) if v != "local"]
+    ours = [i for i, v in enumerate(verdicts) if v == "local"]
+    want_ours = _oracle_codes(oracle, [second[i] for i in ours], rls_pb2)
+    if [codes[i] for i in ours] != want_ours:
+        fail(f"{label}: host 0's own keys answered apart from the oracle")
+    stand_in = _pod_oracle(limits)
+    want_theirs = _oracle_codes(stand_in, [second[i] for i in theirs],
+                                rls_pb2)
+    if [codes[i] for i in theirs] != want_theirs:
+        fail(f"{label}: host 1's keys answered apart from a fresh oracle "
+             "of the calls the stand-in decided")
+    degraded = _pod_metric(http[0], "pod_failover_degraded_decisions") - (
+        degraded0)
+    if degraded != len(theirs):
+        fail(f"{label}: {degraded} degraded decisions for {len(theirs)} "
+             "calls of host 1's keys")
+    journal = _pod_metric(http[0], "pod_failover_journal_depth")
+    t_restart = time.monotonic()
+    members[1] = _pod_spawn(tmpdir, "pod-native-1b", argvs[1])
+    _pod_wait(members[1], http[1], tmpdir, label)
+    up_s = time.monotonic() - t_restart
+    deadline = time.monotonic() + 90
+    while not (_pod_metric(http[0], "pod_failover_journal_depth") == 0
+               and _pod_metric(http[0], "pod_failover_reconciles") >= 1):
+        if time.monotonic() > deadline:
+            fail(f"{label}: the journal never replayed")
+        time.sleep(0.05)
+    replay_s = time.monotonic() - t_restart
+    got, want = set(), set()
+    for ns in ("pods", "multi", "glob"):
+        got |= _pod_counters(http[1], ns)
+        want |= _oracle_counters(stand_in, ns)
+    if got != want:
+        fail(f"{label}: host 1's counters after the replay differ from the "
+             f"oracle of the stand-in's calls: {len(got ^ want)} "
+             f"differences of {len(want)}")
+    out = {"calls": POD_DEGRADED_CALLS, "after_kill": len(second),
+           "host1_calls": len(theirs), "degraded_decisions": degraded,
+           "journal": journal, "restart_up_s": up_s, "replay_done_s": replay_s,
+           "replayed_counters": len(want), "drive_s": drive_s,
+           "p50_p99_ms": _pct(lat)}
+    print(f"{label}: {half} calls alternating hosts, host 1 killed, "
+          f"{len(second)} to host 0 with no error ({len(theirs)} for host "
+          f"1's keys, each a degraded decision, as a fresh oracle decides "
+          f"them; p50/p99 {out['p50_p99_ms']} ms); host 1 back in "
+          f"{up_s:.2f} s, its journal of {journal:.0f} counters replayed "
+          f"{replay_s:.2f} s after the restart, its {len(want)} counters "
+          f"equal the oracle's ({card})", flush=True)
+    return killed, out
+
+
+async def _native_pod_concurrent(tmpdir, card):
+    """18b: a pod with --native-ingress, POD_CONCURRENT_CALLS from 16
+    threads of a client process alternating the hosts' ingresses."""
+    from collections import Counter as Tally
+
+    from limitador_tpu_torch.server.limits_file import load_limits_file
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "native ingress pod (18b)"
+    members, _argvs, rls, http, formed_s = _start_native_pod(
+        tmpdir, "ingress", label, ingress=True)
+    limits = load_limits_file(os.path.join(tmpdir, "pod-limits.yaml"))
+    launches = []
+    try:
+        requests = _pod_requests(np.random.default_rng(1718),
+                                 POD_CONCURRENT_CALLS)
+        src = os.path.join(tmpdir, "pod-blobs.bin")
+        dst = os.path.join(tmpdir, "pod-answers.bin")
+        lat_path = os.path.join(tmpdir, "pod-lat.bin")
+        with open(src, "wb") as f:
+            for _h, ns, e in requests:
+                b = _rls_request(rls_pb2, ns, [e])
+                f.write(len(b).to_bytes(4, "little") + b)
+        proc = subprocess.run(
+            [sys.executable, "-c", _POD_CLIENT, ",".join(map(str, rls)),
+             str(INGRESS_THREADS), src, dst, lat_path],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"{label}: the client process failed:\n"
+                 f"{proc.stderr[-3000:]}")
+        seconds = json.loads(proc.stdout.strip().splitlines()[-1])["seconds"]
+        with open(dst, "rb") as f:
+            codes = list(f.read())
+        lat = np.fromfile(lat_path, np.float64)
+        if 0 in codes or len(codes) != len(requests):
+            fail(f"{label}: {codes.count(0)} calls answered neither OK nor "
+                 "OVER_LIMIT")
+        # every counter admits min(limit, its calls): with the two-limit
+        # namespace's total below its 400, no answer depends on the order
+        maxes = {l.name: l.max_value for l in limits}
+        calls, admitted = Tally(), Tally()
+        for (_h, ns, e), code in zip(requests, codes):
+            keys = [("per-user" if ns == "pods" else "multi-user"
+                     if ns == "multi" else "per-tenant",
+                     tuple(sorted(e.items())))]
+            if ns == "multi":
+                keys.append(("multi-total", ()))
+            for key in keys:
+                calls[key] += 1
+                admitted[key] += code == 1
+        total = sum(min(maxes["multi-user"], n) for (name, _k), n
+                    in calls.items() if name == "multi-user")
+        if total > maxes["multi-total"]:
+            fail(f"{label}: the drive reaches multi-total ({total})")
+        bad = [key for key, n in calls.items() if key[0] != "multi-total"
+               and admitted[key] != min(maxes[key[0]], n)]
+        if bad or admitted["multi-total", ()] != total:
+            fail(f"{label}: {len(bad)} counters admitted other than "
+                 f"min(limit, calls): {bad[:5]}")
+        oracle = _pod_oracle(limits)
+        ok, over = (rls_pb2.RateLimitResponse.OK,
+                    rls_pb2.RateLimitResponse.OVER_LIMIT)
+        _oracle_codes(oracle, requests, rls_pb2)
+        got_counters = set()
+        for ns in ("pods", "multi", "glob"):
+            for port in http:
+                got_counters |= _pod_counters(port, ns)
+        spent, unspent = _native_counters_equal(
+            label, got_counters, oracle, limits, requests,
+            [ok if c == 1 else over for c in codes], rls_pb2)
+        sums = _pod_sums(http, (
+            "pod_hot_local_rows", "pod_hot_foreign_rows",
+            "pod_bulk_forward_batches", "pod_bulk_forward_rows",
+            "pod_bulk_served_rows", "ingress_requests"))
+        if not (0 < sums["pod_bulk_forward_batches"]
+                <= sums["pod_bulk_forward_rows"]
+                == sums["pod_bulk_served_rows"]):
+            fail(f"{label}: the bulk lane did not engage: {sums}")
+        out = {"calls": len(requests), "threads": INGRESS_THREADS,
+               "formed_s": formed_s, "seconds": seconds,
+               "decisions_per_s": len(requests) / seconds,
+               "p50_p99_ms": _pct(lat.tolist()), "sums": sums,
+               "rows_per_bulk": sums["pod_bulk_forward_rows"]
+               / sums["pod_bulk_forward_batches"],
+               "counters": spent, "unspent_counters": unspent}
+    finally:
+        for member in members:
+            launches.append(_pod_stop(member, label))
+    missing = [pid for pid, run in enumerate(launches) if run is None
+               or any(_launched(run, k) == 0 for k in PHASE18_KERNELS)]
+    if missing:
+        fail(f"{label}: B1 did not launch on members {missing}")
+    out["b1_by_member"] = [_launched(run, "check_and_update")
+                           for run in launches]
+    print(f"{label}: {len(requests)} calls from {INGRESS_THREADS} threads "
+          f"of a client process alternating the hosts' ingresses in "
+          f"{seconds:.3f} s ({out['decisions_per_s']:.0f} decisions/s, "
+          f"p50/p99 {out['p50_p99_ms']} ms); each counter admitted "
+          f"min(limit, calls), the union of both hosts' {out['counters']} "
+          f"spent counters equal to the oracle's "
+          f"({out['unspent_counters']} unspent, each of a denied request); "
+          f"{json.dumps(sums)}, rows a "
+          f"bulk forward {out['rows_per_bulk']:.3f}; B1 launches by member "
+          f"{out['b1_by_member']} ({card})", flush=True)
+    return launches, out
+
+
+def phase_native_pod(dev, card, base):
+    """Phase 18: the native pod fast path on two server processes of
+    the card (a and c on one pod, b on a pod with the ingress, d on a
+    pod recording every decision); ``base`` is 17b torch's p50/p99 by
+    verdict."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        serial_runs, out = asyncio.run(
+            _native_pod_serial(tmpdir, card, base))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        concurrent_runs, out["concurrent"] = asyncio.run(
+            _native_pod_concurrent(tmpdir, card))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        flight_runs, out["flight"] = asyncio.run(
+            _native_pod_flight(tmpdir, card))
+    launches = {}
+    for run in serial_runs + concurrent_runs + flight_runs:
+        for k, v in run.items():
+            launches[k] = launches.get(k, 0) + v
+    missing = [k for k in PHASE18C_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        fail(f"native pod (18c): kernels not launched: {missing}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"native pod: launches in the pods' processes "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; phase 18 "
+          f"took {out['seconds']:.1f} s", flush=True)
+    return launches, out
+
+
 _T0 = time.perf_counter()
 
 
@@ -8675,6 +9244,9 @@ def main() -> int:
     _mark("phase 16")
     pod_launches, pod = phase_pod(dev, card)
     _mark("phase 17")
+    native_pod_launches, native_pod = phase_native_pod(
+        dev, card, pod["torch"]["p50_p99_ms"])
+    _mark("phase 18")
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -8709,17 +9281,18 @@ def main() -> int:
         _host_forms_only(got, label, remote=False)
     _storage_forms(plane_launches, "device plane (12)", ("update_host",))
     # launches on the main paths: phases 4, 5, 6, 7, 8a, 8b, 9a, 9b, 10a,
-    # 10b, 11, 12, 13, 14, 15, 16, 17 (14c's authority and 15d's server
-    # are other processes: 14c's RPCs are counted by its /debug/stats,
-    # not here; 17's pod members write their own counts as they exit,
-    # the member killed in 17d just before its kill)
+    # 10b, 11, 12, 13, 14, 15, 16, 17, 18 (14c's authority and 15d's
+    # server are other processes: 14c's RPCs are counted by its
+    # /debug/stats, not here; 17's and 18's pod members write their own
+    # counts as they exit, the members killed in 17d and 18c just before
+    # their kill)
     runs = (launches, drive5_launches, native_launches, drive_launches,
             repl_launches,
             served_launches, tier_launches, served_tier_launches,
             leased_tier_launches, served_default_launches, sharded_launches,
             served_sharded_launches, http_launches, plane_launches,
             planes_launches, host_launches, admission_launches,
-            ingress_launches, pod_launches)
+            ingress_launches, pod_launches, native_pod_launches)
     launches = {name: sum(run[name] for run in runs) for name in launches}
     kernels = []
     for kname, by_shape in results.items():
@@ -8782,6 +9355,8 @@ def main() -> int:
             "native_ingress_launches": ingress_launches,
             "pod": pod,
             "pod_launches": pod_launches,
+            "native_pod": native_pod,
+            "native_pod_launches": native_pod_launches,
         }, f, indent=1)
     spool_root.cleanup()
     print(f"card: {card}")

@@ -27,9 +27,10 @@
 // (limitador_tpu_torch/native/build.py), bound by
 // limitador_tpu_torch/native/__init__.py. This copy holds the interner,
 // parser, slot map, hot lane, lease and usage exports and the native
-// telemetry plane (hp_tel_*). The JAX package's pod ownership mirror,
-// plan-seed export and partition assist are left out until the port's
-// slices that use them.
+// telemetry plane (hp_tel_*), the pod ownership mirror and foreign-row
+// split (hp_pod_*, hp_plan_stamp_owner, hp_plan_set_owner), the plan
+// export (hp_plan_export) and the partition assist
+// (hp_partition_positions).
 
 #include <atomic>
 #include <chrono>
@@ -290,6 +291,37 @@ struct Cursor {
 };
 
 // ---------------------------------------------------------------------------
+// Pod ownership mirror: the C side of routing.py's stable_hash, a
+// zlib-identical CRC-32 (polynomial 0xEDB88320, init and xor-out
+// 0xFFFFFFFF) over the Python repr bytes of a counter key, so that the
+// hot lane classifies a repeat descriptor as locally owned or foreign
+// with no Python. The repr bytes are made once per unique blob on the
+// Python miss path; the owner verdict is stamped on the mirrored plan
+// and every later begin reads it as one int compare.
+// ---------------------------------------------------------------------------
+
+const uint32_t* crc32_table() {
+  static uint32_t table[256];
+  static std::once_flag once;
+  std::call_once(once, [] {
+    for (uint32_t i = 0; i < 256; i++) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; k++)
+        c = (c & 1u) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+      table[i] = c;
+    }
+  });
+  return table;
+}
+
+uint32_t crc32_bytes(const uint8_t* p, int64_t n) {
+  const uint32_t* t = crc32_table();
+  uint32_t c = 0xFFFFFFFFu;
+  for (int64_t i = 0; i < n; i++) c = t[(c ^ p[i]) & 0xFFu] ^ (c >> 8);
+  return c ^ 0xFFFFFFFFu;
+}
+
+// ---------------------------------------------------------------------------
 // Parallel pool: a tiny persistent worker pool for the hot lane's
 // GIL-free passes (ctypes releases the GIL around every call into this
 // library, so these threads parallelize host staging for real).
@@ -400,7 +432,15 @@ enum LaneKind {
   LANE_UNKNOWN = 3,
   LANE_OVER = 4,
   LANE_ERROR = 5,
+  // Pod: the plan's counters live on another host. The row is never
+  // staged locally; the begin answers LANE_FOREIGN_BASE + owner so that
+  // Python bulk-forwards it.
+  LANE_FOREIGN = 6,
 };
+
+// out_kind of a foreign-owned row: BASE + owner host. int8 bounds the pod
+// at BASE..127, so 120 hosts (the Python binding mirrors this).
+constexpr int32_t LANE_FOREIGN_BASE = 8;
 
 //: per staged hit: slot, max_value, window_ms, bucket flag, name token
 constexpr int REC_STRIDE = 5;
@@ -416,6 +456,9 @@ struct PlanEntry {
   int32_t delta_capped = 1;
   int32_t nhits = 0;
   uint64_t rec_off = 0;  // into recs, REC_STRIDE per hit
+  // Pod ownership: the host that must decide this blob; -1 = locally
+  // owned or not stamped (no pod).
+  int32_t owner = -1;
   // Quota lease: admissions this plan may answer locally with
   // zero device work. The broker pre-debited the device counters for
   // the whole grant, so local consumption never outruns the table; the
@@ -459,6 +502,15 @@ struct PlanMirror {
   // cumulative stats (polled into the native_lane_* metric families)
   uint64_t hits = 0, misses = 0, staged_hits = 0, insertions = 0,
            invalidations = 0, overflows = 0;
+  // ---- pod ownership ------------------------------------------
+  // hosts <= 1 disables the foreign split (a single host's lane is the
+  // lane without a pod). Set by hp_pod_config under the pipeline's
+  // native lock, like every other mirror mutation.
+  int32_t pod_hosts = 0;
+  int32_t pod_host_id = 0;
+  int32_t pod_shards_per_host = 1;
+  // rows the begin classified foreign-owned (cumulative)
+  uint64_t foreign = 0;
   // ---- quota leasing ----------------------------------------
   // Disabled by default: with lease_enabled == 0 the begin pass is
   // byte-identical to the pre-lease lane (no consume, no candidates).
@@ -584,6 +636,9 @@ struct PlanMirror {
     e.delta_capped = delta_capped;
     e.nhits = nhits;
     e.rec_off = recs.size();
+    // A new plan is unstamped: a reused tombstone must not carry the
+    // owner of the plan that held the slot before.
+    e.owner = -1;
     blob_arena.append((const char*)blob, len);
     recs.insert(recs.end(), rec, rec + (size_t)nhits * REC_STRIDE);
     live++;
@@ -624,6 +679,17 @@ int32_t pow2_bucket(int64_t n, int64_t floor_) {
   int64_t b = floor_;
   while (b < n) b <<= 1;
   return (int32_t)b;
+}
+
+// routing.PodTopology.owner_host over repr bytes: crc32 modulo the total
+// shards, integer-divided into the owner's contiguous block.
+int32_t pod_owner_of(const PlanMirror& m, const uint8_t* key_repr,
+                     int32_t len) {
+  if (m.pod_hosts <= 1) return m.pod_host_id;
+  uint64_t total =
+      (uint64_t)m.pod_hosts * (uint64_t)m.pod_shards_per_host;
+  uint64_t h = (uint64_t)crc32_bytes(key_repr, len);
+  return (int32_t)((h % total) / (uint64_t)m.pod_shards_per_host);
 }
 
 // ---------------------------------------------------------------------------
@@ -919,8 +985,54 @@ int64_t hp_plan_count(void* c) {
   return (int64_t)((Ctx*)c)->mirror.live;
 }
 
-// out[8]: hits, misses, staged_hits, insertions, invalidations,
-// overflows, live plans, epoch
+// ---- plan export ---------------------------------------------------------
+// Serialize every live mirror entry. Two calls: the first (cap 0) returns
+// the byte size the snapshot needs; the entries are written only when
+// ``cap`` covers it. Layout: i64 count, then per entry: i32 blob_len, the
+// blob bytes, i32 kind, i32 ns_token, i32 delta, i32 delta_capped,
+// i32 owner, i32 nhits, nhits * REC_STRIDE i32 records. Tokens (ns_token,
+// the records' name column) are this process's interner values: the
+// Python side maps them back to strings before anything leaves the
+// process.
+int64_t hp_plan_export(void* c, uint8_t* buf, int64_t cap) {
+  PlanMirror& m = ((Ctx*)c)->mirror;
+  int64_t need = (int64_t)sizeof(int64_t);
+  for (const PlanEntry& e : m.table) {
+    if (e.state != 1) continue;
+    need += (int64_t)(7 * sizeof(int32_t)) + (int64_t)e.blob_len +
+            (int64_t)e.nhits * REC_STRIDE * (int64_t)sizeof(int32_t);
+  }
+  if (buf == nullptr || cap < need) return need;
+  uint8_t* p = buf;
+  int64_t count = (int64_t)m.live;
+  memcpy(p, &count, sizeof(count));
+  p += sizeof(count);
+  auto put_i32 = [&p](int32_t v) {
+    memcpy(p, &v, sizeof(v));
+    p += sizeof(v);
+  };
+  for (const PlanEntry& e : m.table) {
+    if (e.state != 1) continue;
+    put_i32((int32_t)e.blob_len);
+    memcpy(p, m.blob_arena.data() + e.blob_off, e.blob_len);
+    p += e.blob_len;
+    put_i32(e.kind);
+    put_i32(e.ns_token);
+    put_i32(e.delta);
+    put_i32(e.delta_capped);
+    put_i32(e.owner);
+    put_i32(e.nhits);
+    if (e.nhits > 0) {
+      size_t n = (size_t)e.nhits * REC_STRIDE * sizeof(int32_t);
+      memcpy(p, m.recs.data() + e.rec_off, n);
+      p += n;
+    }
+  }
+  return need;
+}
+
+// out[9]: hits, misses, staged_hits, insertions, invalidations,
+// overflows, live plans, epoch, foreign rows
 void hp_lane_stats(void* c, int64_t* out) {
   PlanMirror& m = ((Ctx*)c)->mirror;
   out[0] = (int64_t)m.hits;
@@ -931,6 +1043,71 @@ void hp_lane_stats(void* c, int64_t* out) {
   out[5] = (int64_t)m.overflows;
   out[6] = (int64_t)m.live;
   out[7] = m.epoch;
+  out[8] = (int64_t)m.foreign;
+}
+
+// ---- pod ownership ----------------------------------------------------------
+// The C mirror of routing.py's crc32 ownership verdict. hp_pod_hash needs
+// no context (its parity with zlib.crc32 is tested); hp_pod_config arms
+// the foreign split on a mirror; the two stamp exports attach the deciding
+// host to a mirrored plan: one resolves the owner here from the counter
+// key's repr bytes (a single-key plan), one takes the owner the router
+// resolved (pinned namespaces, key sets that span hosts). Every
+// mirror-mutating call runs under the pipeline's native lock, like
+// plan_put.
+
+int64_t hp_pod_hash(const uint8_t* data, int32_t len) {
+  return (int64_t)crc32_bytes(data, len);
+}
+
+int32_t hp_pod_config(void* c, int32_t hosts, int32_t host_id,
+                      int32_t shards_per_host) {
+  // The foreign verdict rides an int8 lane code (LANE_FOREIGN_BASE +
+  // owner), so the largest owner it encodes is 127 - LANE_FOREIGN_BASE:
+  // a bigger pod would wrap the code negative. Refuse to arm (-1); the
+  // caller serves the routed compiled pipeline.
+  if (hosts - 1 > 127 - LANE_FOREIGN_BASE) return -1;
+  PlanMirror& m = ((Ctx*)c)->mirror;
+  m.pod_hosts = hosts;
+  m.pod_host_id = host_id;
+  m.pod_shards_per_host = shards_per_host < 1 ? 1 : shards_per_host;
+  return 0;
+}
+
+// Owner host of one counter key's repr bytes under the armed topology
+// (== routing.PodTopology.owner_host).
+int32_t hp_pod_owner(void* c, const uint8_t* key_repr, int32_t len) {
+  return pod_owner_of(((Ctx*)c)->mirror, key_repr, len);
+}
+
+// Stamp a mirrored plan with the owner of its single counter key, hashed
+// here: the C side is the authority for the per-key verdict. Returns the
+// stamped owner, or -1 when the plan is gone or the epoch moved (the
+// caller derived against dead limits; the next miss stamps again).
+int32_t hp_plan_stamp_owner(void* c, const uint8_t* blob, int32_t len,
+                            int64_t epoch, const uint8_t* key_repr,
+                            int32_t repr_len) {
+  PlanMirror& m = ((Ctx*)c)->mirror;
+  if (epoch != m.epoch) return -1;
+  uint64_t h = Interner::fnv1a((const char*)blob, len);
+  int64_t j = m.find(blob, (uint32_t)len, h);
+  if (j < 0) return -1;
+  int32_t owner = pod_owner_of(m, key_repr, repr_len);
+  m.table[j].owner = owner;
+  return owner;
+}
+
+// Stamp an owner the router resolved (a pinned namespace, a key set);
+// owner < 0 clears the stamp (locally owned). Returns 1 on success.
+int32_t hp_plan_set_owner(void* c, const uint8_t* blob, int32_t len,
+                          int64_t epoch, int32_t owner) {
+  PlanMirror& m = ((Ctx*)c)->mirror;
+  if (epoch != m.epoch) return 0;
+  uint64_t h = Interner::fnv1a((const char*)blob, len);
+  int64_t j = m.find(blob, (uint32_t)len, h);
+  if (j < 0) return 0;
+  m.table[j].owner = owner < 0 ? -1 : owner;
+  return 1;
 }
 
 // ---- quota leasing ----------------------------------------------
@@ -1189,7 +1366,8 @@ int32_t hp_tel_exemplars(int64_t* out, int32_t cap) {
 //   ptrs/lens[n]: the raw request blobs (no copy — the ingress's take
 //       buffers or a ctypes view over Python bytes objects)
 //   epoch: the caller's limits epoch (mirror clears when it moved)
-//   out_kind[n]: LANE_MISS / LANE_KERNEL / LANE_OK / LANE_UNKNOWN
+//   out_kind[n]: LANE_MISS / LANE_KERNEL / LANE_OK / LANE_UNKNOWN, or
+//       LANE_FOREIGN_BASE + owner for a foreign-owned row (pod)
 //   slots..bucket[cap]: pre-allocated kernel staging columns; staged
 //       hits land at [0, nhits) and padding up to the pow2 bucket H is
 //       filled here (scratch slot, delta 0, req H-1) so Python stages
@@ -1200,8 +1378,8 @@ int32_t hp_tel_exemplars(int64_t* out, int32_t cap) {
 //   out_ok_ns/out_ok_calls/out_ok_hits[n]: begin-time OK metric
 //       aggregation (plan-OK rows), n_ok_ns distinct namespaces
 //   out_meta[12]: k, nhits, H, hit_rows, miss_rows, overflow_rows,
-//       n_ok_ns, foreign_rows (0: the port has no pod split yet), then
-//       the telemetry tail (zeros with telemetry off): lookup_ns,
+//       n_ok_ns, foreign_rows (rows answered LANE_FOREIGN_BASE + owner
+//       for the pod's bulk-forward lane), then the telemetry tail (zeros with telemetry off): lookup_ns,
 //       stage_ns, leased_rows, trace_id (nonzero only for the 1-in-N
 //       sampled begins when hp_tel_config set trace_sample)
 // Returns k (kernel rows staged).
@@ -1257,6 +1435,8 @@ int32_t hp_hot_begin(void* c, const uint8_t* const* ptrs,
   int64_t nhits = 0;
   int64_t leased_rows = 0;
   int64_t hit_rows = 0, miss_rows = 0, overflow_rows = 0;
+  int64_t foreign_rows = 0;
+  const bool pod_split = m.pod_hosts > 1;
   int32_t n_ok_ns = 0;
   auto aggregate_ok = [&](int32_t ns_token, int32_t delta) {
     int32_t g = 0;
@@ -1281,6 +1461,25 @@ int32_t hp_hot_begin(void* c, const uint8_t* const* ptrs,
       continue;
     }
     PlanEntry& e = m.table[j];
+    // Pod split: a plan stamped with a foreign owner never stages here;
+    // the row's code carries the owner host and the Python side
+    // bulk-forwards it over the peer lane. Checked before the lease
+    // consume: a foreign plan never holds or spends a local lease.
+    if (pod_split && e.owner >= 0 && e.owner != m.pod_host_id) {
+      out_kind[r] = (int8_t)(LANE_FOREIGN_BASE + e.owner);
+      ent[r] = -1;
+      foreign_rows++;
+      continue;
+    }
+    if (e.kind == LANE_FOREIGN) {
+      // A foreign-kind plan whose owner stamp is missing or now maps to
+      // this host (a topology re-arm, a stamp that raced an epoch bump):
+      // derive it again through the miss lane rather than guess.
+      out_kind[r] = LANE_MISS;
+      ent[r] = -1;
+      miss_rows++;
+      continue;
+    }
     hit_rows++;
     if (e.kind == LANE_KERNEL) {
       if (m.lease_enabled && e.lease_tokens > 0) {
@@ -1335,6 +1534,7 @@ int32_t hp_hot_begin(void* c, const uint8_t* const* ptrs,
   m.misses += (uint64_t)miss_rows;
   m.staged_hits += (uint64_t)nhits;
   m.overflows += (uint64_t)overflow_rows;
+  m.foreign += (uint64_t)foreign_rows;
 
   // Pass 3 (parallel): scatter plan records into the staging columns.
   auto stage_range = [&](int part, int parts) {
@@ -1385,7 +1585,7 @@ int32_t hp_hot_begin(void* c, const uint8_t* const* ptrs,
   out_meta[4] = miss_rows;
   out_meta[5] = overflow_rows;
   out_meta[6] = n_ok_ns;
-  out_meta[7] = 0;
+  out_meta[7] = foreign_rows;
   out_meta[8] = 0;
   out_meta[9] = 0;
   out_meta[10] = 0;
@@ -1546,6 +1746,18 @@ void hp_hot_finish(void* c, const uint8_t* admitted, const uint8_t* hit_ok,
   out_counts[0] = n_ok;
   out_counts[1] = n_lim;
   if (tel) tel_observe(TEL_HOT_FINISH, tel_now_ns() - tel_t0);
+}
+
+// ---- per-group partition (device/storage.py staging assist) ----------------
+
+// Grouped cumcount in one O(n) pass: counts[n_groups] and pos[i] = row i's
+// index within its group, counted in input order (the host side of the
+// per-row staging partition, without numpy's argsort).
+void hp_partition_positions(const int32_t* group_ids, int64_t n,
+                            int32_t n_groups, int64_t* out_counts,
+                            int64_t* out_pos) {
+  for (int32_t g = 0; g < n_groups; g++) out_counts[g] = 0;
+  for (int64_t i = 0; i < n; i++) out_pos[i] = out_counts[group_ids[i]]++;
 }
 
 }  // extern "C"

@@ -70,9 +70,24 @@ outcome code) and ``_begin_batch_coded_ptrs`` (the coded begin over the
 ingress's take buffers, where only miss and slow rows become Python
 bytes); its collect is ``_finish_namespace``, as the submit path's.
 
-Left out of the port for now (``ROADMAP.md``): the pod fast path
-(``attach_pod``, the foreign-row lane and the bulk forwards, with the
-``pod_*`` families).
+The pod fast path: in a pod member, ``attach_pod`` (called by
+``PodFrontend.attach_pipeline``) arms the C mirror's foreign split with
+the pod topology. The miss path asks the router for each new blob's
+owner, memoizes a foreign blob as a ``PLAN_FOREIGN`` plan and stamps
+every mirrored plan with its owner (the C crc32 for a single-key plan,
+the router's verdict for a pinned or multi-key one), so that a repeat
+descriptor's ownership verdict runs in C. A begin answers a foreign row
+``LANE_FOREIGN_BASE + owner`` and stages nothing for it; the flush sends
+each owner's foreign rows in ONE peer-lane ``bulk_decide``
+(``_forward_bulk``), and the owner decides them through
+``decide_blobs_for_peer`` (``decide_many(forward=False)``, its own hot
+lane and B1 on its own table). A row the owner cannot decide, or every
+row of a hop to a dead or refusing owner, takes the exact per-request
+path, whose limiter is the pod frontend (degraded-owner failover
+included), so no decision is lost. Namespaces the pod's psum lane
+serves take the exact path too. ``pod_stats`` gives the C lane's
+local/foreign split (the ``pod_hot_*`` families, reported through the
+frontend's ``library_stats``).
 """
 
 from __future__ import annotations
@@ -91,7 +106,10 @@ import numpy as np
 
 from ..core.counter import Counter
 from ..core.limit import Namespace
-from ..observability.device_plane import current_request_id
+from ..observability.device_plane import (
+    current_request_id,
+    set_request_id,
+)
 from ..observability.tracing import device_batch_span, tracing_enabled
 from ..ops import kernel as K
 from ..storage.base import StorageError
@@ -101,6 +119,7 @@ from .batcher import ChunkPlanner, chunk_queue_wait
 from .compiler import NamespaceCompiler
 from .pipeline import CompiledTorchLimiter
 from .plan_cache import (
+    PLAN_FOREIGN,
     PLAN_KERNEL,
     PLAN_OK,
     PLAN_UNKNOWN,
@@ -112,6 +131,10 @@ from .storage import TorchStorage
 log = logging.getLogger("limitador_tpu_torch")
 
 __all__ = ["NativeRlsPipeline"]
+
+#: the hot lane's cumulative counts, carried across context swaps
+_LANE_COUNTS = ("hits", "misses", "staged_hits", "insertions",
+                "invalidations", "overflows", "foreign")
 
 
 class _NsPlan:
@@ -247,6 +270,11 @@ class NativeRlsPipeline:
         self._collect_pool = ThreadPoolExecutor(
             max(max_inflight, 2), thread_name_prefix="native-collect"
         )
+        # A pod owner's side of peers' bulk forwards (no thread starts
+        # until the first one arrives).
+        self._peer_pool = ThreadPoolExecutor(
+            1, thread_name_prefix="native-peer"
+        )
         # The C++ context is single-threaded by design; overlapping
         # begins serialize here.
         self._native_lock = threading.Lock()
@@ -268,6 +296,11 @@ class NativeRlsPipeline:
         #: quota-lease broker, attached by ``attach_lease``; None = the
         #: lease tier is off.
         self.lease_broker = None
+        #: the pod frontend (server/peering.py PodFrontend), attached by
+        #: ``attach_pod`` in a pod member: the hot lane then splits
+        #: batches into locally owned rows (staged as ever) and foreign
+        #: rows bulk-forwarded to their owner. None = no pod.
+        self._pod = None
         #: cumulative lane stats carried across interner-recycle context
         #: swaps (the mirror dies with its context).
         self._lane_stats_base: Dict[str, int] = {}
@@ -334,8 +367,7 @@ class NativeRlsPipeline:
             base = self._lane_stats_base
             return {
                 key: stats[key] + base.get(key, 0)
-                for key in ("hits", "misses", "staged_hits", "insertions",
-                            "invalidations", "overflows")
+                for key in _LANE_COUNTS
             } | {"plans": stats["plans"], "epoch": stats["epoch"]}
 
     def plan_cache_stats(self) -> dict:
@@ -372,6 +404,43 @@ class NativeRlsPipeline:
     @property
     def hot_lane_active(self) -> bool:
         return self._hot_lane is not None
+
+    # -- the pod fast path ----------------------------------------------------
+
+    def attach_pod(self, frontend) -> None:
+        """Make the hot lane shard-aware: the C mirror learns the pod
+        topology (``hp_pod_config``), every derived plan is stamped with
+        its owner host, and begins answer foreign rows as
+        ``LANE_FOREIGN_BASE + owner``, so that a flush bulk-forwards
+        them over the frontend's peer lane (one RPC per owner a flush).
+        Raises RuntimeError without the hot lane, or when the pod is past
+        the int8 owner encoding."""
+        if self._hot_lane is None:
+            raise RuntimeError(
+                "pod mode requires the native hot lane (plan mirror)"
+            )
+        if not native.pod_available():
+            raise RuntimeError(
+                "the native host lane library lacks the pod ownership "
+                "exports"
+            )
+        topo = frontend.router.topology
+        with self._native_lock:
+            self.hp.pod_config(
+                topo.hosts, topo.host_id, topo.shards_per_host
+            )
+            self._pod = frontend
+
+    def pod_stats(self) -> dict:
+        """The C lane's local/foreign row split (the ``pod_hot_*``
+        families); empty outside a pod."""
+        if self._pod is None:
+            return {}
+        stats = self.lane_stats()
+        return {
+            "pod_hot_local_rows": stats.get("hits", 0),
+            "pod_hot_foreign_rows": stats.get("foreign", 0),
+        }
 
     # -- quota leasing (lease/broker.py) -------------------------------------
 
@@ -442,7 +511,9 @@ class NativeRlsPipeline:
     def lane_code_templates(self) -> Optional[dict]:
         """(grpc status, payload) per hot-lane outcome code, for the
         native ingress's coded respond; None with the lane off (the
-        ingress then answers row by row)."""
+        ingress then answers row by row). A pod's foreign codes
+        (``LANE_FOREIGN_BASE + owner``) have no template: the coded
+        respond skips them and the ingress forwards those rows."""
         if self._hot_lane is None:
             return None
         return {
@@ -456,6 +527,13 @@ class NativeRlsPipeline:
         if plan is not _MISSING_PLAN:
             return plan
         namespace = Namespace.of(self.hp.string(domain_token))
+        pod = self._pod
+        if pod is not None and pod._psum_serves(namespace):
+            # A namespace the pod's psum lane serves is decided through
+            # the exact path on every host: the columnar lane must not
+            # count it a second time on one host's table.
+            self._plans[domain_token] = None
+            return None
         limits = self.limiter.get_limits(namespace)
         compiler = NamespaceCompiler(limits, interner=self._interner)
         native_ok = compiler.fully_vectorized and all(
@@ -606,7 +684,7 @@ class NativeRlsPipeline:
             t_submit = time.perf_counter()
             token = adm.breaker.batch_started() if adm is not None else 0
             try:
-                ((results, slow_rows, pendings), t_begin, t_staged,
+                ((results, slow_rows, pendings, foreign), t_begin, t_staged,
                  t_cache, t_lane) = await loop.run_in_executor(
                     self._dispatch_pool, self._timed_begin_batch,
                     [b for b, _f, _t, _rid in sub],
@@ -628,6 +706,14 @@ class NativeRlsPipeline:
             for r in slow_rows:
                 blob, future, _t, _rid = sub[r]
                 _spawn_detached(self._decide_exact(blob, future))
+            # Pod split: each owner's foreign rows leave in ONE bulk
+            # forward a flush; the owner decides them on its own lane and
+            # the payloads resolve the futures.
+            for owner, rows in foreign.items():
+                _spawn_detached(self._forward_bulk(
+                    owner, [(sub[r][0], sub[r][1]) for r in rows],
+                    sub[rows[0]][3],
+                ))
             phases = {
                 "dispatch": t_begin - t_submit,
                 "host_cache": t_cache,
@@ -669,6 +755,14 @@ class NativeRlsPipeline:
         self._interner = self.hp.as_interner()
         self._tracked = {}
         self._plans = {}
+        if self._pod is not None:
+            # The fresh context classifies foreign rows from its first
+            # begin: an unarmed mirror would stage (and decide here) keys
+            # other hosts own.
+            topo = self._pod.router.topology
+            self.hp.pod_config(
+                topo.hosts, topo.host_id, topo.shards_per_host
+            )
         # The storage lock spans the swap AND the free: slot-release
         # hooks fan out to the mirror list under this same lock, so no
         # release can reach the old lane's context after hp_free.
@@ -680,8 +774,7 @@ class NativeRlsPipeline:
                 # stats into the carried base and stand up a fresh lane.
                 stats = old_lane.stats()
                 base = self._lane_stats_base
-                for key in ("hits", "misses", "staged_hits", "insertions",
-                            "invalidations", "overflows"):
+                for key in _LANE_COUNTS:
                     base[key] = base.get(key, 0) + stats[key]
                 self.plan_cache.remove_mirror(old_lane)
                 self._hot_lane = self.hp.hot_lane(
@@ -701,6 +794,7 @@ class NativeRlsPipeline:
 
     def decide_many(
         self, blobs: List[bytes], chunk: int = 8192, inflight: int = 8,
+        forward: bool = True,
     ) -> List[Optional[bytes]]:
         """Synchronous bulk engine path: raw request blobs in, response
         blobs out, zero per-request asyncio. ``None`` marks rows the
@@ -709,9 +803,15 @@ class NativeRlsPipeline:
         whose counter allocation failed come back as the
         ``STORAGE_ERROR`` sentinel. Up to ``inflight`` chunks are
         launched before the oldest is collected; admission stays exact
-        because launches are ordered on the storage stream."""
+        because launches are ordered on the storage stream.
+
+        In a pod, foreign rows bulk-forward to their owner (one blocking
+        lane RPC an owner a chunk, every owner's hop submitted before any
+        is collected); ``forward=False``, the owner's side of a bulk hop,
+        answers them None instead, so that an ownership skew never sends
+        a row back and forth between hosts."""
         out: List[Optional[bytes]] = []
-        window: deque = deque()  # (results, pendings, codes)
+        window: deque = deque()  # (results, pendings, codes, part)
         lane = self._hot_lane
         # codes -> response template; LANE_MISS/LANE_KERNEL resolve via
         # ``results`` (bytes, STORAGE_ERROR, or None = slow).
@@ -720,14 +820,38 @@ class NativeRlsPipeline:
              _STORAGE_ERROR],
             object,
         )
+        base = native.LANE_FOREIGN_BASE
 
         def collect_oldest():
-            results, pendings, codes = window.popleft()
+            results, pendings, codes, part = window.popleft()
             for p in pendings:
                 self._finish_namespace(p, results)
             if codes is None:
                 out.extend(results)
                 return
+            if self._pod is not None:
+                groups = foreign_groups(codes)
+                if groups:
+                    if forward:
+                        # every owner's hop goes out before any is
+                        # collected: the chunk pays the slowest hop, not
+                        # their sum
+                        hops = [
+                            (rows, self._pod.forward_bulk_submit(
+                                owner, [part[i] for i in rows]))
+                            for owner, rows in groups.items()
+                        ]
+                        for rows, fut in hops:
+                            payloads = self._pod.forward_bulk_collect(
+                                fut, len(rows)
+                            )
+                            for i, payload in zip(rows, payloads):
+                                results[i] = payload  # None = slow row
+                    # forward=False leaves them None: the origin owns the
+                    # fallback. Either way the codes index the lut.
+                    codes = np.where(
+                        codes >= base, np.int8(native.LANE_MISS), codes
+                    )
             vals = lut[codes]
             low = np.nonzero(codes < native.LANE_OK)[0]
             if low.size:  # miss-lane rows answer from results
@@ -749,11 +873,11 @@ class NativeRlsPipeline:
                     # Lane off: skip the plan cache; its per-row Python
                     # lookups lose to the vectorized parse lane at these
                     # chunk sizes.
-                    results, _slow, pendings = self._begin_batch_locked(
-                        part, use_cache=False
+                    results, _slow, pendings, _foreign = (
+                        self._begin_batch_locked(part, use_cache=False)
                     )
                     codes = None
-            window.append((results, pendings, codes))
+            window.append((results, pendings, codes, part))
             if len(window) > max(inflight, 1):
                 collect_oldest()
         while window:
@@ -795,10 +919,14 @@ class NativeRlsPipeline:
         """Host phase, bytes-resolving form: the coded begin below plus
         response bytes for the rows the hot lane decided at begin time
         (the future-resolving submit path wants ``results`` rows, not
-        codes). Hot kernel rows fill at finish (``fill_results``)."""
+        codes). Hot kernel rows fill at finish (``fill_results``).
+        ``foreign`` maps an owner host to the batch rows the pod split
+        found foreign (empty outside a pod): the caller forwards each
+        group in ONE peer-lane RPC."""
         results, slow_rows, pendings, codes = self._begin_batch_coded_locked(
             blobs, use_cache
         )
+        foreign: Dict[int, List[int]] = {}
         if codes is not None:
             ok_blob, unknown_blob = self.OK_BLOB, self.UNKNOWN_BLOB
             for r in np.nonzero(codes == native.LANE_OK)[0].tolist():
@@ -808,7 +936,9 @@ class NativeRlsPipeline:
             for pending in pendings:
                 if type(pending) is _HotPending:
                     pending.staged.fill_results = True
-        return results, slow_rows, pendings
+            if self._pod is not None:
+                foreign = foreign_groups(codes)
+        return results, slow_rows, pendings, foreign
 
     def _begin_batch_coded_locked(
         self, blobs: Optional[List[bytes]], use_cache: bool = True,
@@ -1010,7 +1140,7 @@ class NativeRlsPipeline:
                 continue
             pending = self._begin_namespace(
                 plan, token, rows, hits, cols, results, sub, row_map,
-                cache, cache_epoch, lane,
+                cache, cache_epoch, lane, codes,
             )
             if pending is not None:
                 pendings.append(pending)
@@ -1156,14 +1286,18 @@ class NativeRlsPipeline:
 
     def _begin_namespace(
         self, plan, token, rows, hits, cols, results, blobs, row_map,
-        cache=None, cache_epoch=0, lane=None,
+        cache=None, cache_epoch=0, lane=None, codes=None,
     ) -> Optional["_NsPending"]:
         """rows index into the parse arrays (the miss subset); row_map
         maps them to positions in the submitted batch, which is what
         ``results`` rows and pendings speak. ``cache`` is the decision-
         plan cache to memoize this group's rows into (None on the lane-off
         bulk path); ``lane`` additionally mirrors the plans into the C
-        hot lane."""
+        hot lane. In a pod (``attach_pod``) rows whose counters another
+        host owns are not staged here: their code in ``codes`` becomes
+        ``LANE_FOREIGN_BASE + owner`` (the caller forwards them) and
+        their plan is memoized foreign, so that every repeat is
+        classified by the C lane."""
         rows_arr = np.asarray(rows, np.int32)
         m = rows_arr.shape[0]
         grows = row_map[rows_arr]  # global (batch) row per group row
@@ -1183,6 +1317,22 @@ class NativeRlsPipeline:
         else:
             group_cols = {k: cols[k][rows_arr] for k in needed}
             deltas_req = hits[rows_arr]
+
+        # Pod routing at derivation time: one pass over the applies-masks
+        # resolves each row's counter keys and the router's verdict (once
+        # a unique blob; every repeat rides the C owner stamp).
+        evaluated = None
+        foreign_owner: Dict[int, int] = {}   # group-local row -> owner
+        row_key_repr: Dict[int, bytes] = {}  # single-key rows: repr bytes
+        if self._pod is not None:
+            evaluated = list(plan.compiler.evaluate_columns(group_cols, m))
+            foreign_owner, row_key_repr = self._pod_verdicts(
+                plan, evaluated, m
+            )
+            if codes is not None:
+                base = native.LANE_FOREIGN_BASE
+                for local, owner in foreign_owner.items():
+                    codes[grows[local]] = base + owner
 
         hit_slots: List[np.ndarray] = []
         hit_deltas: List[np.ndarray] = []
@@ -1209,10 +1359,16 @@ class NativeRlsPipeline:
             # failed request's deltas on earlier limits too.
             staged = []
             for (cl, applies, var_cols), meta in zip(
-                plan.compiler.evaluate_columns(group_cols, m),
+                evaluated if evaluated is not None
+                else plan.compiler.evaluate_columns(group_cols, m),
                 plan.limits_meta,
             ):
                 limit_token, max_value, window_s, name, limit, ntok = meta
+                if foreign_owner:
+                    # foreign rows stage nothing here: their owner decides
+                    # them on its own table
+                    applies = applies.copy()
+                    applies[list(foreign_owner)] = False
                 idx = np.nonzero(applies)[0].astype(np.int32)
                 if idx.size == 0:
                     continue
@@ -1276,15 +1432,19 @@ class NativeRlsPipeline:
                 self._insert_plans(
                     cache, cache_epoch, blobs, rows_arr, deltas_req,
                     failed_reqs, row_recs, row_names, namespace, m,
-                    lane, token, row_ntoks,
+                    lane, token, row_ntoks, foreign_owner, row_key_repr,
                 )
             if not hit_slots:
-                for local in range(m):
+                # Foreign rows answer on their owner: neither the OK
+                # template nor the metrics are this host's to give.
+                ok_locals = [l for l in range(m) if l not in foreign_owner]
+                for local in ok_locals:
                     results[grows[local]] = self.OK_BLOB
-                if self.metrics and m:
-                    self.metrics.incr_authorized_calls(namespace, n=m)
+                if self.metrics and ok_locals:
+                    self.metrics.incr_authorized_calls(
+                        namespace, n=len(ok_locals))
                     self.metrics.incr_authorized_hits(
-                        namespace, int(deltas_req.sum()))
+                        namespace, int(deltas_req[ok_locals].sum()))
                 return None
 
             slots = np.concatenate(hit_slots)
@@ -1310,28 +1470,97 @@ class NativeRlsPipeline:
             inflight = self.storage.begin_check_columnar(*arrays)
         return _NsPending(namespace, grows, deltas_req, failed_reqs,
                           participating, order, req[order], hit_limits,
-                          limit_ends, inflight)
+                          limit_ends, inflight, frozenset(foreign_owner))
+
+    def _pod_verdicts(self, plan, evaluated, m):
+        """(foreign_owner, row_key_repr) of a miss group in a pod: the
+        group-local rows whose counters another host owns, with their
+        owner, and the repr bytes of each row with a single counter key
+        under an unpinned namespace (the C crc32 stamps those plans).
+        Each row's keys are the tuples ``routing.counter_key`` gives."""
+        row_keys: Dict[int, list] = {}
+        for (_cl, applies, var_cols), meta in zip(
+            evaluated, plan.limits_meta
+        ):
+            limit = meta[4]
+            locals_ = np.nonzero(applies)[0].tolist()
+            if not locals_:
+                continue
+            ident = limit._identity
+            var_sources = [v.source for v in limit.variables]
+            for local in locals_:
+                # Counter sorts its set variables: the key's items come
+                # in source order
+                set_vars = sorted(
+                    (src, self.hp.string(int(var_cols[j][local])))
+                    for j, src in enumerate(var_sources)
+                )
+                row_keys.setdefault(local, []).append(
+                    (ident, tuple(set_vars))
+                )
+        router = self._pod.router
+        me = router.topology.host_id
+        ns = str(plan.namespace)
+        # A pinned namespace's owner is the router's pin, which a key's
+        # hash would contradict: only unpinned single-key plans stamp
+        # through the C crc32; the rest stamp the router's verdict.
+        ns_pinned = router.pinned_host(ns) is not None
+        foreign_owner: Dict[int, int] = {}
+        row_key_repr: Dict[int, bytes] = {}
+        for local, keys in row_keys.items():
+            _verdict, owner = router.verdict(ns, keys)
+            if len(keys) == 1 and not ns_pinned:
+                row_key_repr[local] = repr(keys[0]).encode()
+            if owner != me:
+                foreign_owner[local] = owner
+        return foreign_owner, row_key_repr
 
     def _insert_plans(
         self, cache, cache_epoch, blobs, rows_arr, deltas_req,
         failed_reqs, row_recs, row_names, namespace, m,
-        lane=None, ns_token=-1, row_ntoks=None,
+        lane=None, ns_token=-1, row_ntoks=None, foreign_owner=None,
+        row_key_repr=None,
     ) -> None:
         """Memoize this group's miss rows: kernel plans for rows with
         resolved hits, OK plans for rows no limit applied to, into the
         Python cache and, when ``lane`` is active, the C plan mirror
         (stride-5 records: the stride-4 python record plus the limit-name
         token the hot finish aggregates limited calls by). Caller holds
-        the storage lock (slot liveness)."""
+        the storage lock (slot liveness).
+
+        In a pod, ``foreign_owner`` rows memoize as FOREIGN plans (no
+        local slots) and every mirrored plan is stamped with its owner: a
+        single-key plan through ``plan_stamp_owner`` (the C crc32 is the
+        authority), a foreign pinned or multi-key plan through
+        ``plan_set_owner`` with the router's verdict."""
         rows_l = rows_arr.tolist()
         deltas_l = deltas_req.tolist() if hasattr(
             deltas_req, "tolist") else list(deltas_req)
+        foreign_owner = foreign_owner or {}
+        row_key_repr = row_key_repr or {}
         for local in range(m):
             if local in failed_reqs:
                 continue
             delta = int(deltas_l[local])
             recs = row_recs.get(local)
             blob = blobs[rows_l[local]]
+            owner = foreign_owner.get(local)
+            if owner is not None:
+                cache.put(blob, DecisionPlan(
+                    PLAN_FOREIGN, namespace=namespace, delta=delta,
+                    owner=owner,
+                ), cache_epoch)
+                if lane is not None:
+                    lane.plan_put(
+                        blob, cache_epoch, native.LANE_FOREIGN, ns_token,
+                        delta, min(delta, K.MAX_DELTA_CAP), ns=namespace,
+                    )
+                    key_repr = row_key_repr.get(local)
+                    if key_repr is not None:
+                        lane.plan_stamp_owner(blob, cache_epoch, key_repr)
+                    else:
+                        lane.plan_set_owner(blob, cache_epoch, owner)
+                continue
             if recs is None:
                 cache.put(blob, DecisionPlan(
                     PLAN_OK, namespace=namespace, delta=delta,
@@ -1364,6 +1593,12 @@ class NativeRlsPipeline:
                         ns=namespace,
                         names=zip(ntoks, row_names[local]),
                     )
+                    key_repr = row_key_repr.get(local)
+                    if key_repr is not None:
+                        # local single-key plans are stamped too: the C
+                        # crc32 is the ownership authority end to end
+                        # (a stamp of this host splits nothing)
+                        lane.plan_stamp_owner(blob, cache_epoch, key_repr)
 
     def _finish_hot(self, pending: "_HotPending", results) -> None:
         """Collect the zero-Python hot lane: ONE C call turns the device
@@ -1404,12 +1639,17 @@ class NativeRlsPipeline:
         # Requests without hits default to admitted (no counter applied).
         rows_list = pending.rows.tolist()
         failed_reqs = pending.failed_reqs
+        foreign_locals = pending.foreign_locals
         admitted_full = np.ones(len(rows_list), bool)
         admitted_full[pending.participating] = admitted[
             : pending.participating.size
         ]
         ok_blob, over_blob = self.OK_BLOB, self.OVER_BLOB
-        for r, a in zip(rows_list, admitted_full.tolist()):
+        for local, (r, a) in enumerate(
+            zip(rows_list, admitted_full.tolist())
+        ):
+            if local in foreign_locals:
+                continue  # pod: the owner host answers this row
             results[r] = ok_blob if a else over_blob
         for local in failed_reqs:
             results[rows_list[local]] = _STORAGE_ERROR
@@ -1417,18 +1657,20 @@ class NativeRlsPipeline:
         if not metrics:
             return
         namespace = pending.namespace
+        # rows this host does not answer count no metrics here
+        excluded = sorted(failed_reqs | foreign_locals)
         ok_mask = admitted_full
-        if failed_reqs:
+        if excluded:
             ok_mask = admitted_full.copy()
-            ok_mask[sorted(failed_reqs)] = False
+            ok_mask[excluded] = False
         n_ok = int(ok_mask.sum())
         if n_ok:
             metrics.incr_authorized_calls(namespace, n=n_ok)
             metrics.incr_authorized_hits(
                 namespace, int(pending.deltas_req[ok_mask].sum()))
         limited = ~admitted_full
-        if failed_reqs:
-            limited[sorted(failed_reqs)] = False
+        if excluded:
+            limited[excluded] = False
         if not limited.any():
             return
         # The first failing hit in request order names the limit. Hits
@@ -1521,6 +1763,56 @@ class NativeRlsPipeline:
             if not future.done():
                 future.set_exception(exc)
 
+    async def _forward_bulk(
+        self, owner: int, pairs, request_id: Optional[str] = None
+    ) -> None:
+        """Resolve a flush's foreign rows for one owner through ONE
+        peer-lane bulk forward; ``pairs`` is [(blob, future)]. The hop
+        carries ``request_id`` (the group's first row's), so that both
+        hosts' flight entries of the hop correlate. A dead or refusing
+        owner never fails the rows: each takes the exact per-request
+        path, whose limiter is the pod frontend (its breaker and
+        degraded-owner stand-in own that failure)."""
+        if request_id is not None:
+            set_request_id(request_id)  # this task's own context
+        try:
+            payloads = await self._pod.forward_bulk(
+                owner, [blob for blob, _f in pairs]
+            )
+        except Exception:
+            payloads = None
+        if payloads is None or len(payloads) != len(pairs):
+            for blob, future in pairs:
+                if not future.done():
+                    _spawn_detached(self._decide_exact(blob, future))
+            return
+        for (blob, future), payload in zip(pairs, payloads):
+            if future.done():
+                continue
+            if payload is None:
+                # the owner could not decide this row (its own verdict
+                # disagreed mid-reload, or the row needs the exact path)
+                _spawn_detached(self._decide_exact(blob, future))
+            else:
+                future.set_result(payload)
+
+    async def decide_blobs_for_peer(self, blobs: List[bytes]):
+        """The owner's side of a bulk forward: decide raw blobs on this
+        host's table in one ``decide_many`` pass, with ``forward=False``
+        so that a row this host also thinks foreign (an ownership skew
+        during a reload) comes back None instead of going back. Rows the
+        columnar path cannot take, and rows whose allocation failed,
+        answer None too: the origin's exact path gives them their full
+        semantics."""
+        loop = asyncio.get_running_loop()
+        results = await loop.run_in_executor(
+            self._peer_pool, lambda: self.decide_many(blobs, forward=False)
+        )
+        return [
+            None if out is None or out is _STORAGE_ERROR else out
+            for out in results
+        ]
+
     def fail_over_queued(self, decider, exc) -> None:
         """Breaker trip: queued raw requests re-route through the exact
         per-request path (which decides on the host failover oracle);
@@ -1569,6 +1861,17 @@ class NativeRlsPipeline:
                     pass  # shard loop died mid-shutdown: futures are gone
         self._dispatch_pool.shutdown(wait=False)
         self._collect_pool.shutdown(wait=False)
+        self._peer_pool.shutdown(wait=False)
+
+
+def foreign_groups(codes) -> Dict[int, List[int]]:
+    """Owner host -> the batch rows a pod member's begin answered
+    ``LANE_FOREIGN_BASE + owner`` (empty without foreign rows)."""
+    base = native.LANE_FOREIGN_BASE
+    groups: Dict[int, List[int]] = {}
+    for r in np.nonzero(codes >= base)[0].tolist():
+        groups.setdefault(int(codes[r]) - base, []).append(r)
+    return groups
 
 
 def _native_trace_attrs(pendings) -> Optional[dict]:
@@ -1611,11 +1914,12 @@ class _NsPending:
     __slots__ = (
         "namespace", "rows", "deltas_req", "failed_reqs", "participating",
         "order", "req_sorted", "hit_limits", "limit_ends", "inflight",
+        "foreign_locals",
     )
 
     def __init__(self, namespace, rows, deltas_req, failed_reqs,
                  participating, order, req_sorted, hit_limits, limit_ends,
-                 inflight):
+                 inflight, foreign_locals=frozenset()):
         self.namespace = namespace
         self.rows = rows
         self.deltas_req = deltas_req
@@ -1628,6 +1932,8 @@ class _NsPending:
         self.hit_limits = hit_limits
         self.limit_ends = limit_ends
         self.inflight = inflight
+        #: pod: group-local rows their owner host decides (not staged)
+        self.foreign_locals = foreign_locals
 
 
 class _CachedPending:

@@ -35,10 +35,11 @@ deliberately not re-ranked; the O(1) read beats exact LRU on the hot
 loop, and the cap is a memory bound, not a working-set model). Stats
 are cumulative counts (``stats()``).
 
-Port counterpart of ``limitador_tpu/tpu/plan_cache.py``. The plan-seed
-wire form (``plan_to_wire``/``plan_from_wire``, ``export_seed``/
-``import_seed``) that ships plans to a joining pod host waits for the
-pod slice.
+Port counterpart of ``limitador_tpu/tpu/plan_cache.py``. A pod member's
+native pipeline memoizes a blob whose counters another host owns as a
+``PLAN_FOREIGN`` plan with its ``owner``. The plan-seed wire form
+(``plan_to_wire``/``plan_from_wire``, ``export_seed``/``import_seed``)
+that ships plans to a joining pod host comes with the elastic pod.
 """
 
 from __future__ import annotations
@@ -54,11 +55,13 @@ __all__ = [
     "PLAN_KERNEL",
     "PLAN_OK",
     "PLAN_UNKNOWN",
+    "PLAN_FOREIGN",
 ]
 
 PLAN_KERNEL = 0   # resolved device hits; decision comes from the kernel
 PLAN_OK = 1       # no limit applies: answer the OK template directly
 PLAN_UNKNOWN = 2  # empty/absent domain: answer the UNKNOWN template
+PLAN_FOREIGN = 3  # pod: another host owns the counters; bulk-forward
 
 
 class DecisionPlan:
@@ -76,11 +79,11 @@ class DecisionPlan:
 
     __slots__ = (
         "kind", "namespace", "delta", "delta_capped", "nhits", "record",
-        "limit_names", "slots",
+        "limit_names", "slots", "owner",
     )
 
     def __init__(self, kind, namespace=None, delta=1, delta_capped=1,
-                 record=(), limit_names=(), slots=()):
+                 record=(), limit_names=(), slots=(), owner=-1):
         self.kind = kind
         self.namespace = namespace
         self.delta = delta
@@ -89,6 +92,10 @@ class DecisionPlan:
         self.nhits = len(record) // 4
         self.limit_names = limit_names
         self.slots = slots  # tuple of ints, for the reverse index
+        #: pod ownership: the host that must decide this blob; -1 =
+        #: locally owned (always -1 outside a pod). A PLAN_FOREIGN plan
+        #: pins no slots: its counters live on the owner.
+        self.owner = owner
 
 
 class _BaseCache:

@@ -130,19 +130,26 @@ def _staged(values, H: int, fill, dtype) -> np.ndarray:
     return arr
 
 
+#: staged rows from which ``_partition_positions`` takes the C pass
+PARTITION_C_ROWS = 2048
+
+
 def _partition_positions(
     group_ids: np.ndarray, n_groups: int
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Vectorized grouped cumcount: for flat staged rows labeled with a
     group (a shard, a request's home shard), ``(counts[n_groups], pos)``
     where ``pos[i]`` is row i's index within its group, counted in input
-    order. The JAX package's ``_partition_positions``
-    (``limitador_tpu/tpu/storage.py:99``) hands batches of 2048 rows and
-    more to a C pass of its host library (``hp_partition_positions``),
-    which the port's ``csrc/hostpath.cc`` leaves out; this is the numpy
-    route of that function for every size, one argsort and two cumsums,
-    and its outputs are identical to the C pass's."""
+    order. Two routes with identical outputs, split where the JAX
+    package's ``_partition_positions`` splits them
+    (``PARTITION_C_ROWS``): from 2048 rows one O(n) C pass of the host
+    lane (``hp_partition_positions``, built at first use; a build that
+    fails raises ``BuildError``), below it one argsort and two cumsums."""
     m = group_ids.shape[0]
+    if m >= PARTITION_C_ROWS:
+        from .. import native
+
+        return native.partition_positions(group_ids, n_groups)
     counts = np.bincount(group_ids, minlength=n_groups)
     order = np.argsort(group_ids, kind="stable")
     starts = np.concatenate(([0], np.cumsum(counts)[:-1]))

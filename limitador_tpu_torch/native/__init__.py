@@ -25,18 +25,22 @@ Every pointer handed to the library is a host buffer (numpy arrays and
 which the next begin reuses; ``TorchStorage.begin_check_columnar`` copies
 them before its storage lock is released.
 
-The begin's meta is the JAX package's 12 slots wide; slot 7 (the pod
-split's foreign rows) stays 0, as the port has no pod yet.
+The begin's meta is the JAX package's 12 slots wide; slot 7 counts the
+pod split's foreign rows.
+
+The pod ownership mirror: ``pod_hash`` is the C crc32 (zlib's), and
+``HostPath.pod_config`` arms a mirror's foreign split, so that a begin
+answers a plan stamped with another host (``NativeHotLane.
+plan_stamp_owner``, ``plan_set_owner``) as ``LANE_FOREIGN_BASE + owner``
+and never stages it; ``HotStaged.foreign_rows`` counts those rows.
+``HostPath.plan_export_bytes`` snapshots the live mirror, and
+``partition_positions`` is the grouped cumcount of the sharded staging
+pass (``device/storage.py``).
 
 The pointer-table begin (``hp_hot_begin``, ``NativeHotLane.begin_ptrs``)
 is the native ingress's entry: it stages a batch straight from the
 ingress's take buffers (``native/ingress.py``), with no Python bytes per
 row.
-
-Not in the port yet (``ROADMAP.md``): the JAX package's pod ownership
-mirror (``hp_pod_*``, plan stamps), plan-seed export and
-``hp_partition_positions``; the port's copy of the source leaves them
-out.
 """
 
 from __future__ import annotations
@@ -72,6 +76,11 @@ __all__ = [
     "LANE_UNKNOWN",
     "LANE_OVER",
     "LANE_ERROR",
+    "LANE_FOREIGN",
+    "LANE_FOREIGN_BASE",
+    "pod_available",
+    "pod_hash",
+    "partition_positions",
 ]
 
 #: hot-lane outcome codes (mirror csrc/hostpath.cc LaneKind)
@@ -81,6 +90,11 @@ LANE_OK = 2
 LANE_UNKNOWN = 3
 LANE_OVER = 4
 LANE_ERROR = 5
+#: plan kind of a foreign-owned blob in the C mirror (never a row code)
+LANE_FOREIGN = 6
+#: a begin answers a foreign-owned row as LANE_FOREIGN_BASE + owner:
+#: codes from here on are bulk-forward verdicts, not local outcomes
+LANE_FOREIGN_BASE = 8
 
 _INT32_MAX = (1 << 31) - 1
 
@@ -151,6 +165,35 @@ def _bind(lib) -> None:
     lib.hp_plan_count.restype = ctypes.c_int64
     lib.hp_plan_count.argtypes = [ctypes.c_void_p]
     lib.hp_lane_stats.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.hp_plan_export.restype = ctypes.c_int64
+    lib.hp_plan_export.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+    ]
+    # -- pod ownership mirror: the crc32 verdict and the plan stamps -----
+    lib.hp_pod_hash.restype = ctypes.c_int64
+    lib.hp_pod_hash.argtypes = [ctypes.c_char_p, ctypes.c_int32]
+    lib.hp_pod_config.restype = ctypes.c_int32
+    lib.hp_pod_config.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+    ]
+    lib.hp_pod_owner.restype = ctypes.c_int32
+    lib.hp_pod_owner.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32,
+    ]
+    lib.hp_plan_stamp_owner.restype = ctypes.c_int32
+    lib.hp_plan_stamp_owner.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int32,
+    ]
+    lib.hp_plan_set_owner.restype = ctypes.c_int32
+    lib.hp_plan_set_owner.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32, ctypes.c_int64,
+        ctypes.c_int32,
+    ]
+    lib.hp_partition_positions.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
     # -- quota leasing (lease/broker.py drives these under the native
     # lock; consume itself rides hp_hot_begin) -------------------------
     lib.hp_lease_config.argtypes = [
@@ -261,6 +304,36 @@ def lane_available() -> bool:
 def lease_available() -> bool:
     """True when the loaded library exports the quota-lease symbols."""
     return hasattr(_load(), "hp_lease_grant")
+
+
+def pod_available() -> bool:
+    """True when the loaded library exports the pod ownership mirror
+    (builds the library at first use; raises ``BuildError`` when it
+    cannot)."""
+    return hasattr(_load(), "hp_pod_config")
+
+
+def pod_hash(data: bytes) -> int:
+    """The C crc32 over raw bytes (== ``zlib.crc32``; the anchor of
+    ``routing.stable_hash``'s mirror)."""
+    return _load().hp_pod_hash(data, len(data))
+
+
+def partition_positions(group_ids: np.ndarray, n_groups: int):
+    """Grouped cumcount in one O(n) C pass: ``(counts[n_groups], pos)``
+    where ``pos[i]`` is row i's index within its group, in input order.
+    Builds the library at first use; raises ``BuildError`` when it
+    cannot."""
+    lib = _load()
+    group_ids = np.ascontiguousarray(group_ids, np.int32)
+    n = group_ids.shape[0]
+    counts = np.empty(n_groups, np.int64)
+    pos = np.empty(n, np.int64)
+    lib.hp_partition_positions(
+        group_ids.ctypes.data, n, n_groups, counts.ctypes.data,
+        pos.ctypes.data,
+    )
+    return counts, pos
 
 
 def tel_available() -> bool:
@@ -415,12 +488,53 @@ class HostPath:
         return self._lib.hp_plan_count(self._ctx)
 
     def lane_stats(self) -> dict:
-        out = np.zeros(8, np.int64)
+        out = np.zeros(9, np.int64)
         if self._ctx:  # zeros after close (interner recycle)
             self._lib.hp_lane_stats(self._ctx, out.ctypes.data)
         keys = ("hits", "misses", "staged_hits", "insertions",
-                "invalidations", "overflows", "plans", "epoch")
+                "invalidations", "overflows", "plans", "epoch", "foreign")
         return dict(zip(keys, out.tolist()))
+
+    def plan_export_bytes(self) -> bytes:
+        """A snapshot of every live mirror entry in ``hp_plan_export``'s
+        layout (this process's interner tokens: the plan-seed wire of the
+        elastic pod resolves them to strings); empty with the context
+        closed or when the mirror grew between the size probe and the
+        copy."""
+        if not self._ctx:
+            return b""
+        need = self._lib.hp_plan_export(self._ctx, None, 0)
+        if need <= 0:
+            return b""
+        buf = (ctypes.c_uint8 * need)()
+        got = self._lib.hp_plan_export(self._ctx, buf, need)
+        if got <= 0 or got > need:
+            return b""
+        return bytes(buf[:got])
+
+    # -- pod ownership mirror ------------------------------------------------
+
+    def pod_config(self, hosts: int, host_id: int,
+                   shards_per_host: int) -> None:
+        """Arm the foreign split: begins answer plans stamped with
+        another owner as ``LANE_FOREIGN_BASE + owner`` instead of staging
+        them; ``hosts <= 1`` keeps the lane of a single host. Raises
+        RuntimeError when the topology is past the int8 lane code's
+        owners (more than ``128 - LANE_FOREIGN_BASE`` hosts)."""
+        rc = self._lib.hp_pod_config(
+            self._ctx, int(hosts), int(host_id), int(shards_per_host)
+        )
+        if rc != 0:
+            raise RuntimeError(
+                f"pod topology of {hosts} hosts exceeds the native "
+                "lane's int8 owner encoding (max "
+                f"{128 - LANE_FOREIGN_BASE} hosts)"
+            )
+
+    def pod_owner(self, key_repr: bytes) -> int:
+        """Owner host of one counter key's repr bytes under the armed
+        topology (== ``routing.PodTopology.owner_host``)."""
+        return self._lib.hp_pod_owner(self._ctx, key_repr, len(key_repr))
 
     # -- slot map -----------------------------------------------------------
 
@@ -454,12 +568,12 @@ class HotStaged:
     __slots__ = (
         "codes", "k", "nhits", "H", "rows", "row_nhits", "row_delta",
         "row_ns", "hit_names", "ok_aggr", "fill_results", "leased_rows",
-        "lookup_ns", "stage_ns", "trace_id",
+        "lookup_ns", "stage_ns", "trace_id", "foreign_rows",
     )
 
     def __init__(self, codes, k, nhits, H, rows, row_nhits, row_delta,
                  row_ns, hit_names, ok_aggr, leased_rows=0, lookup_ns=0,
-                 stage_ns=0, trace_id=0):
+                 stage_ns=0, trace_id=0, foreign_rows=0):
         self.codes = codes
         self.k = k
         self.nhits = nhits
@@ -478,6 +592,9 @@ class HotStaged:
         self.lookup_ns = lookup_ns
         self.stage_ns = stage_ns
         self.trace_id = trace_id
+        #: rows classified foreign-owned (codes >= LANE_FOREIGN_BASE);
+        #: zero lets the caller skip the bulk-forward scan
+        self.foreign_rows = foreign_rows
 
 
 def staged_trace_attrs(staged: HotStaged) -> dict:
@@ -524,7 +641,7 @@ class NativeHotLane:
         self._resize_rows(max_rows)
         # the begin's meta: 7 geometry slots (k, nhits, H, hit/miss/
         # overflow rows, namespaces aggregated), the pod's foreign rows
-        # (0 here) and the telemetry tail (lookup_ns, stage_ns,
+        # and the telemetry tail (lookup_ns, stage_ns,
         # leased_rows, trace_id)
         self._meta = np.zeros(META_WIDTH, np.int64)
         # token -> namespace / limit-name string memos (metrics apply)
@@ -577,6 +694,26 @@ class NativeHotLane:
             self._ctx, blob, len(blob), epoch, kind, ns_token,
             min(int(delta), _INT32_MAX), int(delta_capped), ptr, nhits,
         )
+
+    # -- pod ownership stamps -------------------------------------------------
+    # Called right after plan_put on the miss path, under the same native
+    # and storage locks as the begins that read the stamp.
+
+    def plan_stamp_owner(self, blob: bytes, epoch: int,
+                         key_repr: bytes) -> int:
+        """Stamp the plan with the owner of its single counter key, the
+        crc32 verdict computed in C from the key's repr bytes. Returns
+        the owner, or -1 when the plan is gone or the epoch moved."""
+        return self._lib.hp_plan_stamp_owner(
+            self._ctx, blob, len(blob), epoch, key_repr, len(key_repr)
+        )
+
+    def plan_set_owner(self, blob: bytes, epoch: int, owner: int) -> bool:
+        """Stamp an owner the router resolved (a pinned namespace, a key
+        set); ``owner < 0`` clears the stamp (locally owned)."""
+        return bool(self._lib.hp_plan_set_owner(
+            self._ctx, blob, len(blob), epoch, int(owner)
+        ))
 
     # -- quota leasing (lease/broker.py) -------------------------------------
     # All lease calls run under the pipeline's native lock, the same lock
@@ -745,6 +882,7 @@ class NativeHotLane:
             self._hit_names[:nhits].copy(), ok_aggr,
             leased_rows=int(meta[10]), lookup_ns=int(meta[8]),
             stage_ns=int(meta[9]), trace_id=int(meta[11]),
+            foreign_rows=int(meta[7]),
         )
 
     def kernel_columns(self, H: int):

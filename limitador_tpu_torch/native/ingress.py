@@ -36,10 +36,14 @@ stream. ``close()`` joins the pump and serialises every ``h2i_*`` call
 under ``_ctx_lock``, so a slow-path answer that resolves after close
 never reaches a freed context.
 
-Not in the port yet (ROADMAP Queue A item 7): the multi-process pod's
-branch of the pump, the JAX ``_foreign_done`` and the foreign rows'
-``forward_bulk_submit``; the port's pipeline has no pod split, so no
-batch carries foreign rows.
+In a pod member the begin also answers foreign rows (codes from
+``LANE_FOREIGN_BASE``, which have no coded template). The pump submits
+each owner's foreign rows as ONE bulk hop (``PodFrontend.
+forward_bulk_submit``) without waiting for it, and ``_foreign_done``
+answers them from the hop's done-callback on the lane's loop, so that a
+slow peer never holds the pump or the finish pool; a row the hop could
+not decide (or every row of a failed hop) takes the asyncio exact path,
+routed by the pod frontend.
 """
 
 from __future__ import annotations
@@ -510,10 +514,14 @@ class NativeIngress:
         submitted = False
         slow: set = set()
         try:
-            results, slow_rows, pendings = self.pipeline._begin_batch(blobs)
+            results, slow_rows, pendings, foreign = (
+                self.pipeline._begin_batch(blobs)
+            )
             slow = set(slow_rows)
             for r in slow_rows:
                 self._submit_slow(rids[r], blobs[r])
+            # foreign rows stay None in results: the finish skips them
+            self._forward_foreign(foreign, rids, blobs)
             finish_pool.submit(
                 self._finish_decided, rids, slow, results, pendings, sem
             )
@@ -548,6 +556,20 @@ class NativeIngress:
                 self._submit_slow(
                     int(ids_arr[r]), ctypes.string_at(ptrs[r], lens[r])
                 )
+            if self.pipeline._pod is not None:
+                from ..device.native_pipeline import foreign_groups
+
+                foreign = foreign_groups(codes)
+                if foreign:
+                    # the coded respond skips these codes (no template);
+                    # their bytes leave the take buffers before the next
+                    # take reuses them
+                    rows = [r for group in foreign.values() for r in group]
+                    self._forward_foreign(
+                        foreign, {r: int(ids_arr[r]) for r in rows},
+                        {r: ctypes.string_at(ptrs[r], lens[r])
+                         for r in rows},
+                    )
             finish_pool.submit(
                 self._finish_coded, ids_arr, codes, results, slow,
                 pendings, sem,
@@ -619,6 +641,56 @@ class NativeIngress:
             )
         finally:
             sem.release()
+
+    def _forward_foreign(self, foreign, rids, blobs) -> None:
+        """Submit each owner's foreign rows (``foreign``: owner -> batch
+        rows) as ONE bulk hop from the pump thread, without waiting:
+        ``_foreign_done`` answers them from the hop's done-callback, never
+        from the finish pool, whose two threads gate the semaphore the
+        pump blocks on. ``rids``/``blobs`` index by batch row."""
+        if not foreign:
+            return
+        pod = self.pipeline._pod
+        for owner, rows in foreign.items():
+            fut = pod.forward_bulk_submit(owner, [blobs[r] for r in rows])
+            if fut is None:  # the lane's loop is down: the exact path
+                for r in rows:
+                    self._submit_slow(rids[r], blobs[r])
+                continue
+            fut.add_done_callback(
+                lambda f, rows=rows: self._foreign_done(f, rows, rids, blobs)
+            )
+
+    def _foreign_done(self, fut, rows, rids, blobs) -> None:
+        """Answer one owner's bulk hop from its done-callback (on the
+        lane's loop, the moment the RPC resolves; the lane's deadline,
+        retry and hedge budget bound that). The payload rows answer in
+        one respond; a failed hop, a payload column of the wrong length
+        or a row the owner could not decide takes the exact per-request
+        path, routed by the pod frontend (so its degraded-owner failover
+        owns that failure). Every row is answered once from here."""
+        try:
+            payloads = fut.result()  # done: never blocks
+        except Exception:
+            payloads = None
+        if payloads is None or len(payloads) != len(rows):
+            payloads = [None] * len(rows)
+        out = []
+        for r, payload in zip(rows, payloads):
+            if payload is None:
+                try:
+                    self._submit_slow(rids[r], blobs[r])
+                except Exception:
+                    out.append(
+                        (rids[r], GRPC_INTERNAL, b"foreign hop failed")
+                    )
+            else:
+                out.append((rids[r], 0, payload))
+        if out:
+            try:
+                self._respond(out)
+            except Exception:
+                pass  # the ingress closed mid-answer: the streams are gone
 
     def _answer_from_loop(self, rid: int, coro, ok_status: int = 0) -> None:
         """Run a coroutine on the server loop and answer ``rid`` with its

@@ -24,11 +24,12 @@ flight recorder (``flight_*``), the serving-model fit (``model_*``,
 every server as in the JAX package, whatever ``--admission-mode``), and
 the pod's (``pod_routed_*``, ``pod_peer_*``, ``peer_health_*``,
 ``pod_failover_*``, ``pod_hop_phase_ms``, ``pod_events``,
-``pod_signal_*``, ``pod_psum_*``, polled off the pod frontend's
+``pod_signal_*``, ``pod_psum_*``, and the native pod fast path's
+``pod_hot_*`` and ``pod_bulk_*``, polled off the pod frontend's
 ``library_stats``; declared on every server as in the JAX package). A
-family of a plane the port does not have yet (the native pod fast path,
-the elastic pod, the capacity controller) is declared with the slice
-that brings the plane. The
+family of a plane the port does not have yet (the elastic pod, the
+capacity controller) is declared with the slice that brings the
+plane. The
 native ingress's families (``ingress_*``, fed by its ``library_stats``
 through ``attach_library_source``, and ``native_phase_h2i_respond``, fed
 by the native plane) are declared on every server, as in the JAX
@@ -165,6 +166,11 @@ _CUMULATIVE_KEYS = (
     "pod_psum_decisions",
     "pod_psum_limited",
     "pod_psum_exchanges",
+    "pod_hot_local_rows",
+    "pod_hot_foreign_rows",
+    "pod_bulk_forward_batches",
+    "pod_bulk_forward_rows",
+    "pod_bulk_served_rows",
 )
 
 #: cumulative library_stats seconds fed to same-named counters as the
@@ -1115,6 +1121,42 @@ class PrometheusMetrics:
             "pod_signal_degraded_share",
             "Share of this host's routed decisions served by degraded-"
             "owner stand-ins (the federated degraded share column)",
+            registry=self.registry,
+        )
+        # -- the native pod fast path: the C lane's local/foreign split
+        # (device/native_pipeline.py pod_stats) and the bulk-forward lane
+        # (server/peering.py), polled off the pod frontend's
+        # library_stats
+        self.pod_hot_local_rows = Counter(
+            "pod_hot_local_rows",
+            "Hot-lane rows the C ownership pass classified locally "
+            "owned (staged zero-Python; pod_hot_local_share = "
+            "local / (local + foreign))",
+            registry=self.registry,
+        )
+        self.pod_hot_foreign_rows = Counter(
+            "pod_hot_foreign_rows",
+            "Hot-lane rows the C ownership pass classified foreign-"
+            "owned (bulk-forwarded to their owner, one RPC per owner "
+            "per flush)",
+            registry=self.registry,
+        )
+        self.pod_bulk_forward_batches = Counter(
+            "pod_bulk_forward_batches",
+            "Bulk forwards sent: one peer-lane RPC carrying a whole "
+            "flush's foreign-owned rows for one owner host",
+            registry=self.registry,
+        )
+        self.pod_bulk_forward_rows = Counter(
+            "pod_bulk_forward_rows",
+            "Rows carried by outgoing bulk forwards (rows / batches = "
+            "the mean bulk batch size)",
+            registry=self.registry,
+        )
+        self.pod_bulk_served_rows = Counter(
+            "pod_bulk_served_rows",
+            "Rows this host decided for peers' bulk forwards (the "
+            "owner side, one local decide_many pass per batch)",
             registry=self.registry,
         )
         self.pod_psum_namespaces = Gauge(

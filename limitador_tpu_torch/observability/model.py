@@ -742,7 +742,10 @@ def pipeline_context(
     The port's names: ``pipeline`` is a ``NativeRlsPipeline``, whose
     ``library_stats`` carries ``native_lane_rows``,
     ``native_lane_misses`` and, with leases, the broker's
-    ``lease_admissions``; ``storage`` is the device storage itself, whose
+    ``lease_admissions``; ``pod`` is a pod member's ``PodFrontend``, whose
+    ``library_stats`` carries the native pod fast path's
+    ``pod_hot_local_rows`` and ``pod_hot_foreign_rows``; ``storage`` is
+    the device storage itself, whose
     ``launch_stats()["sharded_launches"]`` counts the sharded variants
     (``TorchShardedStorage``; a storage without ``launch_stats`` has no
     collective launches). The JAX context reads ``sharded_launches`` off

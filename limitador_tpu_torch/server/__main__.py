@@ -238,16 +238,23 @@ member's ``--snapshot-path`` becomes ``PATH.shardsLO-HI`` (its shard
 range). ``/debug/pod``, ``/debug/pod/routing`` and ``/debug/events``
 (a ring of ``--pod-events``) serve the pod's view, ``/metrics`` its
 ``pod_*`` and ``peer_*`` families, and the pod's event log reaches the
-serving-model fit, the tier manager and the flight trigger. A pod
-refuses (exit 2) ``--pipeline native`` and ``--native-ingress`` (the
-port's C hot lane has no pod fast path yet; the JAX server serves the
-routed compiled plane) and the ``cached`` and ``distributed`` storages
-(a member's storage must take a peer's journal replay through
-``apply_deltas``); the option checks exit 2 with the JAX server's
-messages.
+serving-model fit, the tier manager and the flight trigger, whose
+incident bundles hold the peers' rings (the lane's ``flight`` kind). A
+pod member serves ``--pipeline native`` (and ``--native-ingress``) on
+torch storage through the native pod fast path: its C hot lane stamps
+each plan with its owner host, stages the local rows for B1 on its own
+table, and sends each flush's foreign rows to their owner in one
+``bulk_decide`` a peer (``pod_hot_*``, ``pod_bulk_*``); the owner
+decides them on its own hot lane and table. ``--native-hot-lane off``,
+``--plan-cache-size 0`` or a pod past the hot lane's int8 owner code
+warn and serve through the routed compiled pipeline (and
+``--native-ingress`` then exits 2). A pod refuses (exit 2) the
+``cached`` and ``distributed`` storages (a member's storage must take a
+peer's journal replay through ``apply_deltas``); the option checks exit
+2 with the JAX server's messages.
 
-Not in the port yet (``ROADMAP.md``): the native pod fast path, the
-elastic pod (resize, standby, join) and the capacity controller.
+Not in the port yet (``ROADMAP.md``): the elastic pod (resize, standby,
+join) and the capacity controller.
 """
 
 from __future__ import annotations
@@ -1148,12 +1155,6 @@ def _pod_refusals(args) -> None:
             f"pod: need one --pod-peer per process "
             f"({args.pod_processes}), got {len(peers)}"
         )
-    if args.pipeline == "native" or args.native_ingress:
-        raise ValueError(
-            "--pipeline native and --native-ingress cannot serve a pod "
-            "(--pod-processes > 1): the port's C hot lane has no pod "
-            "fast path yet (use --pipeline standard or compiled)"
-        )
     if args.storage in ("cached", "distributed"):
         raise ValueError(
             f"storage {args.storage!r} cannot serve a pod: a member's "
@@ -1284,10 +1285,72 @@ def serve_shards(args, limiter, metrics, native_pipeline, admission,
     return shards
 
 
-def build_native(args, limiter, metrics=None):
+def _pod_native_capable(args) -> bool:
+    """Whether a pod member can serve ``--pipeline native``: the
+    shard-aware hot lane is the only native plane that classifies
+    foreign-owned keys, so it needs ``--native-hot-lane on``, the plan
+    cache the lane mirrors, and a pod the int8 owner encoding holds.
+    Anything less warns and serves through the routed compiled
+    pipeline, with the JAX server's messages. (A host lane that does not
+    build raises where the pipeline is built: no hidden CPU path.)"""
+    from .. import native as native_mod
+
+    if args.native_hot_lane != "on":
+        log.warning(
+            "pod mode: --native-hot-lane off leaves the native pipeline "
+            "without the shard-aware lane; serving through the routed "
+            "compiled pipeline")
+        return False
+    if args.plan_cache_size <= 0:
+        log.warning(
+            "pod mode: --plan-cache-size 0 disables the plan mirror "
+            "the shard-aware lane rides; serving through the routed "
+            "compiled pipeline")
+        return False
+    if args.pod_processes - 1 > 127 - native_mod.LANE_FOREIGN_BASE:
+        log.warning(
+            f"pod mode: {args.pod_processes} hosts exceed the native "
+            "lane's int8 owner encoding (max "
+            f"{128 - native_mod.LANE_FOREIGN_BASE}); serving through "
+            "the routed compiled pipeline")
+        return False
+    return True
+
+
+async def _discard_pipeline(pipeline):
+    """Dispose of a built native pipeline a pod member will not serve:
+    its constructor wired eviction hooks on the live table (left
+    attached they would call an abandoned native context on every slot
+    release) and started its thread pools. Returns None."""
+    table = pipeline.storage._table
+    table.on_native_release = None
+    table.on_slot_release = None
+    table.on_clear = None
+    await pipeline.close()
+    return None
+
+
+async def attach_pod_pipeline(frontend, pipeline):
+    """Arm the native pod fast path (``PodFrontend.attach_pipeline``):
+    the pipeline, or None where it cannot split (the JAX server's warning;
+    the member serves through the routed compiled pipeline, which still
+    decides on the card)."""
+    try:
+        frontend.attach_pipeline(pipeline)
+    except RuntimeError as exc:
+        log.warning(f"pod mode: cannot arm the hot lane ({exc}); serving "
+                    "through the routed compiled pipeline")
+        return await _discard_pipeline(pipeline)
+    log.info("pod fast path: shard-aware native hot lane on "
+             "(foreign-owned rows bulk-forward per flush)")
+    return pipeline
+
+
+def build_native(args, limiter, metrics=None, pod=None):
     """The native pipeline (with its lease tier) when asked for, counting
-    its rows into ``metrics``, else None. Raises when what was asked for
-    cannot come up."""
+    its rows into ``metrics``, else None; a pod member (``pod``, its
+    frontend) that cannot serve it gets None (``_pod_native_capable``).
+    Raises when what was asked for cannot come up."""
     if args.lease_mode == "on" and (
         args.pipeline != "native" or args.native_hot_lane != "on"
     ):
@@ -1295,6 +1358,8 @@ def build_native(args, limiter, metrics=None):
             "--lease-mode on needs --pipeline native --native-hot-lane on"
         )
     if args.pipeline != "native":
+        return None
+    if pod is not None and not _pod_native_capable(args):
         return None
     if args.rate_limit_headers != RATE_LIMIT_HEADERS_NONE:
         raise ValueError(
@@ -1534,7 +1599,7 @@ class ControlPlanes:
             est.budget_ms = args.slo_budget_ms
             recorder.model = est
             self._context = model_mod.pipeline_context(
-                pipeline=native_pipeline, storage=counters.inner)
+                pipeline=native_pipeline, pod=pod, storage=counters.inner)
             est.attach_context(self._context)
             if pod is not None:
                 est.attach_event_log(pod.events)
@@ -1566,6 +1631,7 @@ class ControlPlanes:
             self.engine = TriggerEngine(
                 flight, spool, signals=self.signal_bus,
                 events=pod.events if pod is not None else None,
+                lane=pod.lane if pod is not None else None,
                 profiler=profiler if args.flight_profile_s > 0 else None,
                 window_s=args.flight_window,
                 profile_s=args.flight_profile_s,
@@ -1891,7 +1957,11 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         pod_frontend = build_pod_frontend(args, pod, limiter)
         if pod_frontend is not None:
             limiter = pod_frontend
-        native_pipeline = build_native(args, limiter, metrics)
+        native_pipeline = build_native(args, limiter, metrics,
+                                       pod=pod_frontend)
+        if pod_frontend is not None and native_pipeline is not None:
+            native_pipeline = await attach_pod_pipeline(
+                pod_frontend, native_pipeline)
         if device and args.usage_topk > 0:
             from ..observability.usage import TenantUsageObservatory
 
@@ -1977,6 +2047,11 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
                      f"(port {lane.port})")
         labels_watcher = _labels_watcher(args, metrics)
         if args.native_ingress:
+            if native_pipeline is None:
+                raise ValueError(
+                    "--native-ingress feeds the native pipeline, which "
+                    "this pod member does not serve (see the warning "
+                    "above)")
             native_ingress = await serve_native_ingress(
                 args, limiter, metrics, native_pipeline)
             rls_grpc_port = args.rls_port + 1

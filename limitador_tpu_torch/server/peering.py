@@ -52,14 +52,26 @@ ControlSignals column is exchanged on the probe cadence (``kind:
 degraded, replay and routing-epoch transition lands in the
 ``PodEventLog`` (``GET /debug/events``).
 
-The request kinds of later layers (``resize_admin``, ``join_admin``,
-``plan_seed``, ``psum_share``, ``migrate``, ``flight``, ``bulk_decide``)
-answer as the JAX lane answers a kind with no handler attached.
+The native pod fast path: ``PodFrontend.attach_pipeline`` arms the
+native pipeline's foreign split (``attach_pod``) and serves the lane's
+``bulk_decide`` kind with the pipeline's ``decide_blobs_for_peer``. A
+flush sends each owner's foreign rows in one ``forward_bulk`` (an open
+breaker refuses it before it is sent; a failed hop answers every row
+None, and the pipeline decides each through the frontend's exact path),
+counted in ``pod_bulk_forward_batches``/``pod_bulk_forward_rows`` and,
+on the owner, ``pod_bulk_served_rows``. The ``flight`` kind answers a
+triggered peer's flight engine with this host's rings over its incident
+window (``admin_call`` is the engine's blocking client).
+
+The request kinds of the elastic pod (``resize_admin``, ``join_admin``,
+``plan_seed``, ``psum_share``, ``migrate``) answer as the JAX lane
+answers a kind with no handler attached.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
 import collections
 import inspect
 import json
@@ -139,18 +151,22 @@ METRIC_FAMILIES = (
     "pod_failover_replayed_deltas",
     "pod_failover_reconcile_seconds",
     "pod_failover_seconds",
+    # the bulk-forward lane of the native pod fast path: a flush's
+    # foreign rows ride ONE RPC an owner; rows / batches = the mean
+    # bulk batch
+    "pod_bulk_forward_batches",
+    "pod_bulk_forward_rows",
+    "pod_bulk_served_rows",
 )
 
-#: what the lane answers for the request kinds of later layers, as the
-#: JAX lane answers them with no handler attached (``bulk_decide``
-#: raises, which fails the call)
+#: what the lane answers for the request kinds of the elastic pod, as
+#: the JAX lane answers them with no handler attached
 _UNARMED = {
     "resize_admin": {"ok": False, "error": "pod resize not armed"},
     "migrate": {"ok": False, "error": "pod resize not armed"},
     "join_admin": {"ok": False, "error": "fast join not armed"},
     "plan_seed": {"ok": False, "error": "fast join not armed"},
     "psum_share": {"ok": True},
-    "flight": {"ok": False, "error": "no flight recorder attached"},
 }
 
 
@@ -453,6 +469,10 @@ class PeerLane:
         self.peers = dict(peers)
         self.decide_cb = decide_cb
         self.apply_cb: Optional[Callable[[list], int]] = None
+        #: async callable (blobs) -> [payload or None]: the owner's side
+        #: of a bulk forward (the native pipeline's
+        #: ``decide_blobs_for_peer``, set by ``attach_pipeline``)
+        self.bulk_cb = None
         #: sync callable (host) -> bool run on a recovery thread when a
         #: probe finds a non-up peer answering again; True marks the
         #: peer up (the frontend replays its journal first)
@@ -489,6 +509,9 @@ class PeerLane:
         self.hedges_lost = 0
         self.redials = 0
         self.probes = 0
+        self.bulk_forwards = 0
+        self.bulk_forward_rows = 0
+        self.bulk_served_rows = 0
         # Observability attach points (None = no cost), wired by the
         # frontend.
         #: PodEventLog: typed lane events (health trips, redials, hedges)
@@ -607,11 +630,23 @@ class PeerLane:
             return json.dumps({"ok": True, "pong": True}).encode()
         if kind in _UNARMED:
             return json.dumps(_UNARMED[kind]).encode()
+        if kind == "flight":
+            # A triggered peer asks for this host's rings over its
+            # incident window; contribute() is one lock and list copies,
+            # fine inline on the lane loop.
+            flight = self.flight
+            if flight is None:
+                return json.dumps({
+                    "ok": False, "error": "no flight recorder attached",
+                }).encode()
+            return json.dumps({
+                "ok": True,
+                "flight": flight.contribute(
+                    payload.get("t0"), payload.get("t1")
+                ),
+            }).encode()
         if kind == "bulk_decide":
-            raise RuntimeError(
-                "pod peer lane has no bulk_decide handler (native "
-                "pipeline not attached)"
-            )
+            return await self._serve_bulk(payload, context)
         if kind == "signals":
             # Ingest the caller's column, answer with ours: one RPC a
             # pair a cadence, never on the decision path.
@@ -715,6 +750,52 @@ class PeerLane:
         return json.dumps(out).encode()
 
     # -- client side ---------------------------------------------------------
+
+    async def _serve_bulk(self, payload: dict, context) -> bytes:
+        """A peer's flush of foreign raw request blobs, decided here in
+        one local bulk pass. The hop's metadata rides as a single
+        forward's does: the origin's request id is adopted, so that this
+        host's flight entries and spans correlate with the origin's."""
+        handler = self.bulk_cb
+        if handler is None:
+            raise RuntimeError(
+                "pod peer lane has no bulk_decide handler (native "
+                "pipeline not attached)"
+            )
+        meta: dict = {}
+        try:
+            meta = dict(context.invocation_metadata() or ())
+        except Exception:
+            meta = {}
+        rid = meta.get("x-request-id")
+        if rid is not None:
+            set_request_id(str(rid))
+        blobs = [base64.b64decode(b) for b in payload.get("blobs", ())]
+        self.bulk_served_rows += len(blobs)
+        self.served += 1
+        t_decide = time.perf_counter()
+        with peer_decide_span("_bulk", rid, meta):
+            payloads = await handler(blobs)
+        decide_s = time.perf_counter() - t_decide
+        tap = self.flight
+        if tap is not None:
+            # the owner's exemplar of a bulk hop, under the origin's id
+            tap.tap(
+                decide_s, "pod_forward",
+                request_id=str(rid) if rid is not None else None,
+                namespace="_bulk",
+                phases_ms={
+                    "pod_remote_decide": round(decide_s * 1e3, 4),
+                },
+            )
+        return json.dumps({
+            "ok": True,
+            "decide_ns": int(decide_s * 1e9),
+            "payloads": [
+                None if p is None else base64.b64encode(p).decode()
+                for p in payloads
+            ],
+        }).encode()
 
     def _emit(self, kind: str, **detail) -> None:
         """A typed pod event, when a log is attached; called with no
@@ -988,6 +1069,18 @@ class PeerLane:
         raw = fut.result(timeout + 1.0)
         return int(json.loads(raw.decode()).get("applied", 0))
 
+    def admin_call(
+        self, host: int, payload: dict, timeout: float = 5.0
+    ) -> dict:
+        """One blocking control-plane RPC to a peer (the flight engine's
+        peer collection; a trigger or recovery thread, never a serving
+        loop). Raises on peer failure; the caller owns the retries."""
+        blob = json.dumps(payload).encode()
+        fut = asyncio.run_coroutine_threadsafe(
+            self._attempt(host, blob, timeout), self._loop
+        )
+        return json.loads(fut.result(timeout + 1.0).decode())
+
     async def forward(
         self,
         host: int,
@@ -1000,21 +1093,56 @@ class PeerLane:
         """Forward one decision to its owner host (from any serving
         loop; the channel work runs on the lane loop). Raises on peer
         failure after counting it."""
-        if host not in self.peers:
-            self.errors += 1
-            raise RuntimeError(f"no peer lane for pod host {host}")
-        # The origin's request id and (with an exporter) its W3C trace
-        # context ride the hop as gRPC metadata.
-        request_id = _wire_request_id(current_request_id())
-        t0 = time.perf_counter()
-        blob = json.dumps({
+        resp = await self._hop(host, kind, namespace, lambda: {
             "ns": str(namespace),
             "ctx": _encode_context(ctx),
             "delta": int(delta),
             "load": bool(load),
             "kind": kind,
             "from": self.host_id,
-        }).encode()
+        })
+        self.forwards += 1
+        return resp
+
+    async def forward_bulk(
+        self, host: int, blobs: List[bytes]
+    ) -> List[Optional[bytes]]:
+        """One bulk forward of foreign raw request blobs to their owner
+        host: the whole flush group rides ONE lane RPC with the lane's
+        resilience (retry while suspect, hedging, health accounting).
+        Returns one response payload a blob; a None row is one the owner
+        could not decide, and the caller decides it through its exact
+        path. Raises on peer failure after counting it. The hop's
+        breakdown is recorded as a single forward's, under the ``_bulk``
+        namespace."""
+        resp = await self._hop(host, "bulk_decide", "_bulk", lambda: {
+            "kind": "bulk_decide",
+            "from": self.host_id,
+            "blobs": [base64.b64encode(b).decode() for b in blobs],
+        })
+        self.bulk_forwards += 1
+        self.bulk_forward_rows += len(blobs)
+        return [
+            None if p is None else base64.b64decode(p)
+            for p in resp.get("payloads", ())
+        ]
+
+    async def _hop(self, host: int, kind: str, namespace, build) -> dict:
+        """One hop to ``host`` of the request ``build()`` makes, with the
+        origin's request id and (with an exporter) its W3C trace context
+        as gRPC metadata and the lane's resilience; records the latency
+        and the hop's breakdown (``on_hop``) and returns the owner's
+        answer. Raises on peer failure, or with the lane's loop not
+        running, after counting it."""
+        loop = self._loop
+        if host not in self.peers or loop is None or not loop.is_running():
+            self.errors += 1
+            if host not in self.peers:
+                raise RuntimeError(f"no peer lane for pod host {host}")
+            raise RuntimeError("pod peer lane is not running")
+        request_id = _wire_request_id(current_request_id())
+        t0 = time.perf_counter()
+        blob = json.dumps(build()).encode()
         serialize_s = time.perf_counter() - t0
         metadata = None
         pairs = hop_trace_metadata()
@@ -1027,14 +1155,13 @@ class PeerLane:
                 host, blob, kind, metadata=metadata,
                 t_submit=time.perf_counter(),
             ),
-            self._loop,
+            loop,
         )
         try:
             raw, queue_s = await asyncio.wrap_future(fut)
         except Exception:
             self.errors += 1
             raise
-        self.forwards += 1
         total_s = time.perf_counter() - t0
         with self._latency_lock:
             self._latencies_ms.append(total_s * 1e3)
@@ -1068,6 +1195,9 @@ class PeerLane:
             "pod_peer_forwards": self.forwards,
             "pod_peer_served": self.served,
             "pod_peer_errors": self.errors,
+            "pod_bulk_forward_batches": self.bulk_forwards,
+            "pod_bulk_forward_rows": self.bulk_forward_rows,
+            "pod_bulk_served_rows": self.bulk_served_rows,
             "pod_peer_p99_ms": round(self.peer_p99_ms(), 3),
             "peer_health_state": self.health.states(),
             "peer_health_retries": self.retries,
@@ -1173,6 +1303,8 @@ class PodFrontend:
         #: namespaces it serves decide locally through it instead of on
         #: their pin host
         self.psum_lane = None
+        #: the native pipeline of the pod fast path (``attach_pipeline``)
+        self.pipeline = None
         # The pod's typed event timeline, the per-hop recorder and the
         # federated signal aggregator: always on (bounded rings, off the
         # decision path); the lane emits through the hooks below.
@@ -1238,15 +1370,76 @@ class PodFrontend:
         locally against the pod-wide sum."""
         self.psum_lane = lane
 
+    # -- the native pod fast path --------------------------------------------
+
+    def attach_pipeline(self, pipeline) -> None:
+        """Wire the native pipeline into the pod: its C hot lane learns
+        the topology and stamps each plan's owner (``attach_pod``), and
+        this lane's ``bulk_decide`` decides peers' forwarded blob batches
+        on the local table. Raises RuntimeError where the pipeline cannot
+        split (no hot lane, a pod past the int8 owner encoding)."""
+        pipeline.attach_pod(self)
+        self.pipeline = pipeline
+        self.lane.bulk_cb = pipeline.decide_blobs_for_peer
+
+    async def forward_bulk(
+        self, owner: int, blobs: List[bytes]
+    ) -> List[Optional[bytes]]:
+        """One bulk forward with the degraded-owner machinery applied to
+        the whole batch: an open breaker refuses the hop before it is
+        sent (the pipeline then decides each row through this frontend's
+        exact path, the stand-in included), and a failed hop feeds the
+        same breaker single forwards feed."""
+        guard = self._guards.get(owner)
+        if guard is not None and guard.breaker.is_open():
+            raise StorageError(
+                f"pod peer host {owner} degraded (breaker open)"
+            )
+        try:
+            payloads = await self.lane.forward_bulk(owner, blobs)
+        except Exception as exc:
+            if guard is not None:
+                guard.breaker.record_failure(exc)
+            raise
+        if guard is not None:
+            guard.breaker.record_success()
+        return payloads
+
+    def forward_bulk_submit(self, owner: int, blobs: List[bytes]):
+        """Submit a bulk hop without blocking: the concurrent future of
+        ``forward_bulk`` on the lane's loop, or None when that loop is
+        down. A caller with several owners submits every hop before it
+        collects any, so that it waits for the slowest, not their sum."""
+        loop = self.lane._loop
+        if loop is None or not loop.is_running():
+            return None
+        return asyncio.run_coroutine_threadsafe(
+            self.forward_bulk(owner, blobs), loop
+        )
+
+    def forward_bulk_collect(self, fut, n: int) -> List[Optional[bytes]]:
+        """Resolve a ``forward_bulk_submit`` handle; a failure answers
+        all-None, so that every row takes its per-request path instead
+        of failing the chunk."""
+        if fut is None:
+            return [None] * n
+        try:
+            payloads = fut.result(self.lane.cfg.deadline_s + 1.0)
+        except Exception:
+            return [None] * n
+        if len(payloads) != n:
+            return [None] * n
+        return payloads
+
     def routing_debug(self) -> dict:
         """``GET /debug/pod/routing``: the ownership map an upstream
         load balancer can learn, the peers, and what the pod serves
-        with (the port has no native pod fast path yet)."""
+        with (``native_hot_lane``: the native pod fast path is on)."""
         out = self.router.ownership_map()
         out["peers"] = {
             str(h): addr for h, addr in self.lane.peers.items()
         }
-        out["native_hot_lane"] = False
+        out["native_hot_lane"] = self.pipeline is not None
         out["psum_lane_namespaces"] = (
             sorted(self.psum_lane.namespaces)
             if self.psum_lane is not None else []
@@ -1703,6 +1896,11 @@ class PodFrontend:
         stats.update(self.aggregator.stats())
         if self.psum_lane is not None:
             stats.update(self.psum_lane.stats())
+        if self.pipeline is not None:
+            # the C lane's local/foreign split (pod_hot_*): reported
+            # here, beside the pod's other families, and not by the
+            # pipeline's own source, so that a render counts it once
+            stats.update(self.pipeline.pod_stats())
         return stats
 
     def close_pod(self) -> None:

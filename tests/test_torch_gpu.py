@@ -2046,3 +2046,64 @@ def test_serving_shards_on_the_card_answer_as_a_memory_server(
     assert serial == memory[0]
     assert hammered.count(rls_pb2.RateLimitResponse.OK) == 3
     assert loops > 1 and shards == 2 and not left
+
+
+def test_the_pod_split_stages_only_local_rows_on_the_card(cuda):
+    """Two in-process hosts of the native pod fast path
+    (``tests/torch_pod_pair.py``), their tables on the card, take the
+    fuzz corpus round robin: every answer, each host's counters and hot
+    lane counts equal the same pod's with its tables on the CPU (the
+    plain versions), the foreign rows reached their owner by bulk
+    forwards, and B1 ran on the card."""
+    from .torch_pod_pair import close_pair, pod_pair, port_state
+
+    blobs = corpus(21, n=260)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        K.reset_launches()
+        pipelines, _frontends, lanes, limiters = pod_pair(device=device)
+        try:
+            answers = []
+            for _pass in range(2):
+                for step, ofs in enumerate(range(0, len(blobs), 48)):
+                    answers += pipelines[step % 2].decide_many(
+                        blobs[ofs:ofs + 48], chunk=16)
+            runs[device] = {
+                "answers": answers,
+                "states": [port_state(limiter) for limiter in limiters],
+                "lanes": [p.lane_stats() for p in pipelines],
+                "bulk": [(lane.bulk_forwards, lane.bulk_forward_rows)
+                         for lane in lanes],
+                "b1": K.launches["check_and_update"],
+            }
+        finally:
+            close_pair(pipelines, lanes, limiters)
+    cpu, card = runs["cpu"], runs["cuda"]
+    for key in ("answers", "states", "lanes", "bulk"):
+        assert card[key] == cpu[key], key
+    assert not card["states"][0] & card["states"][1]
+    assert all(stats["foreign"] > 0 for stats in card["lanes"])
+    assert card["b1"] > 0
+
+
+@pytest.mark.parametrize("mode", ["native", "ingress"])
+def test_a_native_pod_of_card_servers_matches_the_oracle(cuda, tmp_path,
+                                                         mode):
+    """Two port server processes on the card serve ``--pipeline native``
+    (with ``--native-ingress`` in one case) as a pod: the drive of
+    ``tests/torch_pod_worker.py`` as ShouldRateLimit calls, every answer
+    and the union of both hosts' counters equal a single-process 2-row
+    ``TorchShardedStorage`` on the card, and foreign rows rode bulk
+    forwards."""
+    from . import torch_pod_worker as W
+
+    results = W.spawn_pod(tmp_path, "torch", device="cuda", timeout=300,
+                          mode=mode)
+    want, want_counters = W.drive_oracle(device="cuda", native=True)
+    merged, counters, _routed = W.merge(results)
+    assert merged == want
+    assert counters == want_counters
+    assert sum(r["lane"]["pod_bulk_forward_rows"] for r in results) > 0
+    for result in results:
+        assert result["lane"]["pod_peer_errors"] == 0
+        assert result["native_pipeline"]

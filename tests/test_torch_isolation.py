@@ -23,7 +23,9 @@
   (``import torch`` loads ``torch.distributed`` itself, so the pin is on
   the port's modules that use it.)
 - A 2-process pod of port servers forms, decides and stops with both
-  processes refusing to import ``jax`` and ``limitador_tpu``.
+  processes refusing to import ``jax`` and ``limitador_tpu``, routed and
+  with ``--pipeline native --native-ingress`` (the native pod fast
+  path).
 - The port's protobuf message classes are its own even when both
   packages are loaded in one process (the JAX package registers the same
   ``.proto`` files and puts its proto directory on ``sys.path``).
@@ -411,3 +413,27 @@ def test_a_pod_member_imports_the_breaker_and_the_pod_modules(tmp_path):
         ]
         assert result["lane"]["pod_peer_errors"] == 0
         assert "admission" not in result["http"]["/debug/stats"]["body"]
+
+
+def test_a_native_ingress_pod_runs_without_jax_or_the_jax_package(
+        tmp_path):
+    """A 2-process pod serving ``--pipeline native --native-ingress``
+    (the C hot lane's split by owner and the bulk forwards between the
+    members) forms, answers the drive as the single-process table does
+    and stops, in processes that refuse ``jax`` and ``limitador_tpu``."""
+    from .torch_pod_worker import drive_oracle, merge, spawn_pod
+
+    results = spawn_pod(tmp_path, "torch", prefix=["-c", _GUARDED_POD],
+                        mode="ingress", timeout=180)
+    merged, counters, _routed = merge(results)
+    want, want_counters = drive_oracle(native=True)
+    assert merged == want
+    assert counters == want_counters
+    for result in results:
+        assert result["native_ingress"] and result["native_pipeline"]
+        assert result["lane"]["pod_peer_errors"] == 0
+        assert "limitador_tpu_torch.server.peering" in result["modules"]
+        assert not [m for m in result["modules"]
+                    if m.split(".")[0] in ("jax", "jaxlib",
+                                           "limitador_tpu")]
+    assert sum(r["lane"]["pod_bulk_forward_rows"] for r in results) > 0

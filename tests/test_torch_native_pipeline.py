@@ -107,10 +107,10 @@ def drive_both(jp, tp, blobs, passes=2, batch=64):
 
 
 def assert_same_lane_stats(tp, jp):
-    """The port's hot-lane counters equal the JAX lane's. The JAX lane
-    also counts pod-foreign rows, which a single process never has."""
+    """The port's hot-lane counters equal the JAX lane's, the pod's
+    foreign rows included (a single process never has one)."""
     theirs = jp.lane_stats()
-    assert theirs.pop("foreign") == 0
+    assert theirs["foreign"] == 0
     assert tp.lane_stats() == theirs
 
 

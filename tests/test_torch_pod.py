@@ -276,11 +276,9 @@ def test_pod_option_checks_stop_with_the_jax_messages(argv, tmp_path,
 
 
 @pytest.mark.parametrize("extra", [
-    ["torch", "--pipeline", "native"],
-    ["torch", "--pipeline", "native", "--native-ingress"],
     ["cached"],
     ["distributed"],
-], ids=["native", "ingress", "cached", "distributed"])
+], ids=["cached", "distributed"])
 def test_a_pod_refuses_what_it_cannot_serve(extra, tmp_path):
     from limitador_tpu_torch.server.__main__ import main
 

@@ -196,8 +196,7 @@ def test_resilience_families_render_from_library_stats():
     metrics = PrometheusMetrics()
     metrics.attach_library_source(Source())
     text = metrics.render().decode()
-    assert ppeering.METRIC_FAMILIES == tuple(
-        f for f in jpeering.METRIC_FAMILIES if not f.startswith("pod_bulk"))
+    assert ppeering.METRIC_FAMILIES == jpeering.METRIC_FAMILIES
     for family in ppeering.METRIC_FAMILIES:
         assert family in text, family
     assert 'peer_health_state{peer="1"} 2.0' in text

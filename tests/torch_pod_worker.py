@@ -8,17 +8,24 @@ runs in one of two modes:
     python tests/torch_pod_worker.py server --process-id I \\
         --num-processes N --coordinator 127.0.0.1:PORT \\
         --peer-ports P0,P1 --storage sharded|torch|memory \\
-        [--device cpu|cuda] --dir DIR --out OUT.json
+        [--device cpu|cuda] [--mode routed|native|ingress|lane-off] \\
+        --dir DIR --out OUT.json
 
 The worker starts the port's server (``server.__main__.start``) with the
 ``--pod-*`` options (on ``--device cpu`` unless asked) and a fake clock, so the pod
 forms over a TCPStore, and runs the drive of ``tests/pod_worker.py``
 (the limits and requests are copied here): each step is decided by the
-host it arrives at, through the server's limiter (the pod frontend), and
-the hosts meet at a ``pod_barrier`` before and after every step. It writes its
-decisions, the counters it holds, its router, lane and pod views, the
-HTTP debug bodies, some ``/metrics`` samples and which port modules it
-imported.
+host it arrives at, and the hosts meet at a ``pod_barrier`` before and
+after every step. ``--mode routed`` (the default) decides each step
+through the server's limiter (the pod frontend); the other modes serve
+``--pipeline native`` with the descriptor-keyed limits and send each step
+as a ShouldRateLimit call to the member's own RLS port: ``native``
+(grpc.aio into the native pipeline and its pod fast path), ``ingress``
+(``--native-ingress``) and ``lane-off`` (``--native-hot-lane off``: the
+member warns and serves through the routed compiled pipeline). It writes
+its decisions, the counters it holds, its router, lane and pod views,
+the pipeline's pod split, the warnings it logged, the HTTP debug bodies,
+some ``/metrics`` samples and which port modules it imported.
 
 ``owner``: the owner host of the kill-and-restart drill: a peer lane and
 a pod frontend (host 1 of 2) over an in-memory storage on ``--listen``,
@@ -63,21 +70,48 @@ DRIVE_LIMITS_YAML = """\
   name: multi_total
 """
 
+#: the same namespaces and limits keyed on the RLS descriptor, for the
+#: modes that send ShouldRateLimit calls
+NATIVE_LIMITS_YAML = DRIVE_LIMITS_YAML.replace(
+    '["user"]', '["descriptors[0].user"]')
+
 NAMESPACES = ("pods", "multi")
+
+#: the modes that serve --pipeline native, and their extra options
+NATIVE_MODES = {
+    "native": [],
+    "ingress": ["--native-ingress"],
+    "lane-off": ["--native-hot-lane", "off"],
+}
+
+RLS_METHOD = "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
 
 #: the drill's limit (one namespace, one limit: it routes per key)
 CHAOS_NAMESPACE = "chaos"
 CHAOS_MAX = 4
 
 
-def drive_limits():
+def drive_limits(native=False):
     from limitador_tpu_torch import Limit
 
+    user = "descriptors[0].user" if native else "user"
     return [
-        Limit("pods", 3, 60, [], ["user"], name="per_user"),
-        Limit("multi", 2, 60, [], ["user"], name="multi_user"),
+        Limit("pods", 3, 60, [], [user], name="per_user"),
+        Limit("multi", 2, 60, [], [user], name="multi_user"),
         Limit("multi", 30, 60, [], [], name="multi_total"),
     ]
+
+
+def drive_context(user, native=False):
+    """The context a drive step's request decides under: the user as a
+    variable, or (the native modes) as the entry of one RLS descriptor."""
+    from limitador_tpu_torch import Context
+
+    if not native:
+        return Context({"user": user})
+    ctx = Context()
+    ctx.list_binding("descriptors", [{"user": user}])
+    return ctx
 
 
 def chaos_limits():
@@ -127,16 +161,51 @@ async def _http_json(port, path):
             return resp.status, await resp.text()
 
 
+class _Warnings:
+    """The warnings the port's logger emits while the worker runs."""
+
+    def __init__(self):
+        import logging
+
+        self.messages = []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda record: self.messages.append(
+            record.getMessage())
+        logging.getLogger("limitador_tpu_torch").addHandler(self.handler)
+
+
+async def _rls_calls(port):
+    """An async ShouldRateLimit caller on the member's own RLS port, and
+    its channel."""
+    import grpc
+
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    channel = grpc.aio.insecure_channel(f"127.0.0.1:{port}")
+    call = channel.unary_unary(RLS_METHOD)
+
+    async def decide(i, ns, user):
+        req = rls_pb2.RateLimitRequest(domain=ns)
+        req.descriptors.add().entries.add(key="user", value=user)
+        raw = await call(req.SerializeToString(), timeout=30,
+                         metadata=(("x-request-id", f"drive-{i}"),))
+        code = rls_pb2.RateLimitResponse.FromString(raw).overall_code
+        return {"limited": code == rls_pb2.RateLimitResponse.OVER_LIMIT}
+
+    return decide, channel
+
+
 async def serve_and_drive(args) -> dict:
-    from limitador_tpu_torch import Context
     from limitador_tpu_torch.observability.device_plane import set_request_id
     from limitador_tpu_torch.parallel.pod import pod_barrier
     from limitador_tpu_torch.server import __main__ as server_main
 
     me = args.process_id
+    native = args.mode in NATIVE_MODES
+    warnings = _Warnings()
     limits_path = os.path.join(args.dir, f"limits-{me}.yaml")
     with open(limits_path, "w") as f:
-        f.write(DRIVE_LIMITS_YAML)
+        f.write(NATIVE_LIMITS_YAML if native else DRIVE_LIMITS_YAML)
     peer_ports = [int(p) for p in args.peer_ports.split(",")]
     argv = [
         limits_path, args.storage, "--device", args.device,
@@ -151,10 +220,16 @@ async def serve_and_drive(args) -> dict:
     ]
     for port in peer_ports:
         argv += ["--pod-peer", f"127.0.0.1:{port}"]
+    if native:
+        argv += ["--pipeline", "native", "--rate-limit-headers", "NONE",
+                 *NATIVE_MODES[args.mode]]
     clock = Clock()
     server = await server_main.start(
         server_main.build_parser().parse_args(argv), clock=clock)
     loop = asyncio.get_running_loop()
+    channel = None
+    if native:
+        rls_decide, channel = await _rls_calls(args.rls_port)
 
     async def barrier(tag):
         await loop.run_in_executor(None, pod_barrier, tag, 60_000)
@@ -171,10 +246,12 @@ async def serve_and_drive(args) -> dict:
             clock.now = step_time(i)
             await barrier(f"clock-{i}")
             ns, user, arrival = drive_request(i)
-            if arrival == me:
+            if arrival == me and native:
+                decisions[i] = await rls_decide(i, ns, user)
+            elif arrival == me:
                 set_request_id(f"drive-{i}")
                 result = await frontend.check_rate_limited_and_update(
-                    ns, Context({"user": user}), 1, False)
+                    ns, drive_context(user), 1, False)
                 decisions[i] = {"limited": bool(result.limited),
                                 "name": result.limit_name}
             await barrier(f"drive-{i}")
@@ -196,8 +273,13 @@ async def serve_and_drive(args) -> dict:
                           "body": text if path == "/metrics"
                           else json.loads(text)}
         await barrier("drive-reported")
+        pipeline = server.native_pipeline
         return {
             "process_id": me,
+            "native_pipeline": pipeline is not None,
+            "native_ingress": server.native_ingress is not None,
+            "pod_stats": pipeline.pod_stats() if pipeline else {},
+            "warnings": warnings.messages,
             "decisions": decisions,
             "counters": sort_rows(counters),
             "router": frontend.router.stats(),
@@ -213,6 +295,8 @@ async def serve_and_drive(args) -> dict:
                          "limitador_tpu_torch.parallel.pod")),
         }
     finally:
+        if channel is not None:
+            await channel.close()
         await server.stop()
 
 
@@ -249,10 +333,25 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_pod(tmp_path, storage, device="cpu", timeout=90, prefix=()):
+def free_port_pair() -> int:
+    """A port p with p + 1 free too (the native ingress's pair)."""
+    for _ in range(100):
+        port = free_port()
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port + 1))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free port pair")
+
+
+def spawn_pod(tmp_path, storage, device="cpu", timeout=90, prefix=(),
+              mode="routed"):
     """Run the two members of a pod (this file's ``server`` mode) and
     return their reports; ``prefix`` goes between the interpreter and
-    this file's path."""
+    this file's path. Every wait has a deadline (``timeout`` seconds a
+    member), and a member still running at the end is killed."""
     repo = Path(__file__).resolve().parent.parent
     coordinator = f"127.0.0.1:{free_port()}"
     peer_ports = ",".join(str(free_port()) for _ in range(2))
@@ -267,9 +366,9 @@ def spawn_pod(tmp_path, storage, device="cpu", timeout=90, prefix=()):
             [sys.executable, *prefix, os.path.abspath(__file__), "server",
              "--process-id", str(pid), "--num-processes", "2",
              "--coordinator", coordinator, "--peer-ports", peer_ports,
-             "--rls-port", str(free_port()), "--http-port",
+             "--rls-port", str(free_port_pair()), "--http-port",
              str(free_port()), "--storage", storage, "--device", device,
-             "--dir", str(tmp_path), "--out", str(out)],
+             "--mode", mode, "--dir", str(tmp_path), "--out", str(out)],
             cwd=repo, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     results = []
@@ -284,26 +383,31 @@ def spawn_pod(tmp_path, storage, device="cpu", timeout=90, prefix=()):
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
+                proc.wait(timeout=30)
     return results
 
 
-def drive_oracle(device="cpu"):
+def drive_oracle(device="cpu", native=False):
     """The drive's answers and counters on a single-process 2-row
-    TorchShardedStorage."""
-    from limitador_tpu_torch import Context, RateLimiter
+    TorchShardedStorage; ``native``: with the descriptor-keyed limits,
+    the answers without a limit name (a ShouldRateLimit answer without
+    headers carries none)."""
+    from limitador_tpu_torch import RateLimiter
     from limitador_tpu_torch.device.sharded import TorchShardedStorage
 
     clock = Clock()
     oracle = RateLimiter(TorchShardedStorage(
         n_shards=2, local_capacity=4096, clock=clock, device=device))
-    oracle.configure_with(drive_limits())
+    oracle.configure_with(drive_limits(native))
     want = {}
     for i in range(DRIVE_REQUESTS):
         clock.now = step_time(i)
         ns, user, _arrival = drive_request(i)
         r = oracle.check_rate_limited_and_update(
-            ns, Context({"user": user}), 1, False)
-        want[i] = {"limited": bool(r.limited), "name": r.limit_name}
+            ns, drive_context(user, native), 1, False)
+        want[i] = {"limited": bool(r.limited)}
+        if not native:
+            want[i]["name"] = r.limit_name
     rows = []
     for ns in NAMESPACES:
         rows += counter_rows(oracle.get_counters(ns), ns)
@@ -336,6 +440,8 @@ def main() -> int:
     parser.add_argument("--http-port", type=int)
     parser.add_argument("--storage", default="sharded")
     parser.add_argument("--device", default="cpu")
+    parser.add_argument("--mode", default="routed",
+                        choices=["routed", *NATIVE_MODES])
     parser.add_argument("--dir")
     parser.add_argument("--listen")
     parser.add_argument("--ready")
