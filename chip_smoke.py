@@ -398,6 +398,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -456,7 +457,8 @@ CHUNK_FLUSHES = 8
 # Python gossip merges between batches: 16 batches (131,072 decisions).
 REPLICATION_BATCHES = 16
 # Phase 9a: 40 batches of 8192 hits (327,680 decisions) reach about 124k
-# distinct users over 1<<22, about twice the 1<<16 hot set.
+# distinct users over 1<<22, about twice the 1<<16 hot set (30 batches
+# promoted nothing: its gate needs B4d's launches).
 TIER_BATCHES = 40
 # Phase 10a: 8 batches of 8192 requests of each of the four kinds (262,144
 # decisions), run on the card and replayed on the CPU.
@@ -4052,7 +4054,7 @@ def phase_control_planes(dev, card):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmpdir:
         launches_a, served = asyncio.run(
-            _served_planes(tmpdir, dev, card))
+            _served_planes(tmpdir, dev, card, calls=1400))
     with tempfile.TemporaryDirectory() as tmpdir:
         launches_b, bundle = asyncio.run(_flight_bundle(tmpdir, dev, card))
     K.reset_launches()
@@ -4871,6 +4873,50 @@ TIERED_YAML = """\
 """
 
 
+LEASE_PROBE_CALLS = 10  # half the limit of 20: the probe keeps budget
+
+
+async def _lease_probe(channel, envoy, rls_pb2, server, broker, label):
+    """Phase 9b's reclaim, made deterministic: one user made hot
+    (LEASE_PROBE_CALLS calls), a grant through the broker's refresh, then
+    one manager round whose only demotion candidate is that user's
+    counter, so that a demotion meets a slot whose lease is live (a
+    grant lives 0.25 s; the round follows the refresh at once)."""
+    blob = _rls_request(rls_pb2, "tier", [{"user": "lease-probe"}])
+    for _ in range(LEASE_PROBE_CALLS):
+        await channel.unary_unary(envoy)(blob, timeout=60)
+    manager = server.tier_manager
+    storage = manager.storage
+
+    def force():
+        broker.refresh()
+        live = broker.outstanding_by_slot()
+        with storage._lock:
+            probe = [
+                (slot, key) for slot, (key, counter)
+                in storage._table.info.items()
+                if counter.set_variables.get("descriptors[0].user")
+                == "lease-probe"]
+        if not probe or probe[0][0] not in live:
+            fail(f"{label}: the probe's slot {probe} holds no live lease "
+                 f"after a refresh ({len(live)} live)")
+        slot, key = probe[0]
+        real = manager._candidates
+        manager._candidates = lambda *_args: ([], 0.0, [key], 1)
+        try:
+            done = manager.run_once()
+        finally:
+            manager._candidates = real
+        if done.get("demoted") != 1:
+            fail(f"{label}: the probe's demotion round did {done}")
+        return slot, live[slot]
+
+    slot, debit = await asyncio.get_running_loop().run_in_executor(
+        None, force)
+    print(f"{label}: the lease probe's slot {slot} (outstanding debit "
+          f"{debit}) demoted by one manager round", flush=True)
+
+
 async def _served_tiers(tmpdir, dev, card, leases, calls=2000, users=600,
                         max_value=20, extra=(), label=None,
                         need_reclaim=True):
@@ -4882,8 +4928,9 @@ async def _served_tiers(tmpdir, dev, card, leases, calls=2000, users=600,
     memory-storage server's on the same clock. Leases on: no user is
     admitted more than 20 times, granted = admissions + returned +
     outstanding at the end, and (with ``need_reclaim``) ``reclaim_slots``
-    settled tokens. Either way the manager ran rounds, demoted and
-    promoted, and recorded no failure."""
+    settled tokens: after the drive, a hot user's granted slot is demoted
+    by one forced manager round (``_lease_probe``). Either way the manager
+    ran rounds, demoted and promoted, and recorded no failure."""
     import grpc
 
     from limitador_tpu_torch.ops import kernel as K
@@ -4958,6 +5005,9 @@ async def _served_tiers(tmpdir, dev, card, leases, calls=2000, users=600,
             seconds = time.perf_counter() - t0
             if oc is not None:
                 await oc.close()
+            if broker is not None and need_reclaim:
+                await _lease_probe(tc, envoy, rls_pb2, tiered, broker,
+                                   label)
         # let a last round run after the drive
         await asyncio.sleep(0.5)
         manager = tiered.tier_manager
@@ -5544,7 +5594,7 @@ async def _served_sharded(tmpdir, dev, card, calls=2000, users=300):
 
 # -- phase 11 ---------------------------------------------------------------
 
-HTTP_CALLS = 2000
+HTTP_CALLS = 1000  # 2,000 until phase 19 came in
 HTTP_YAML = """\
 - namespace: web
   max_value: 5
@@ -7864,13 +7914,13 @@ def phase_native_ingress(dev, card):
 # -- phase 17: serving shards and the routed pod ----------------------------
 
 SHARD_LOOPS = 4
-SHARD_CALLS = 1000  # 2,000 until phase 18 came in
+SHARD_CALLS = 500  # 2,000 until phase 18, 1,000 until phase 19
 # the one-loop server's calls, for its p50/p99 beside the 4-loop one's
-SHARD_CALLS_ONE_LOOP = 500
+SHARD_CALLS_ONE_LOOP = 300  # 500 until phase 19
 SHARD_HAMMER = 2000
 SHARD_THREADS = 16
 SHARD_CHANNELS = 8
-POD_CALLS = 4000
+POD_CALLS = 1200  # 4,000 until phase 19 came in
 PSUM_CALLS = 600
 PSUM_INTERVAL_MS = 100
 PSUM_MAX = 100
@@ -8125,13 +8175,13 @@ def _pod_argv(tmpdir, tag, storage, pid, coord, peers, rls, http, extra):
     return argv
 
 
-def _pod_spawn(tmpdir, name, argv):
+def _pod_spawn(tmpdir, name, argv, env=None):
     log = open(os.path.join(tmpdir, f"{name}.log"), "wb")
     out = os.path.join(tmpdir, f"{name}.launches.json")
     proc = subprocess.Popen(
         [sys.executable, "-c", _POD_MAIN, out, *argv],
         stdout=log, stderr=subprocess.STDOUT,
-        env={**os.environ, "PYTHONPATH": os.getcwd()})
+        env={**os.environ, "PYTHONPATH": os.getcwd(), **(env or {})})
     return {"proc": proc, "log": log, "launches": out, "name": name}
 
 
@@ -9147,6 +9197,533 @@ def phase_native_pod(dev, card, base):
     return launches, out
 
 
+# -- phase 19: the elastic pod ---------------------------------------------
+
+#: (a) the calls before and after the join, each; (b) the calls after the
+#: drain; (a) at most this many calls while the join runs; (d) the calls
+#: before and after its join, each
+ELASTIC_CALLS = 1500
+ELASTIC_DRAIN_CALLS = 1000
+ELASTIC_DURING_MAX = 400
+ELASTIC_SHARDED_CALLS = 300
+#: (c): the pause before each slice's copy (the kill lands in it), the
+#: transition's bound, and the users of the drill's namespace (limit
+#: DRILL_MAX) before the resize and born in its window
+ELASTIC_SLICE_PAUSE_MS = 1500
+ELASTIC_TIMEOUT_S = 20
+ELASTIC_PRE_USERS = 12
+ELASTIC_BORN_USERS = 16
+#: the members' launches phase 19 gates on: B1 on every member and on the
+#: standby; in (a) and (b) B3a's host form (the source's reads), B2's (the
+#: receiver's apply) and B3b's (the source's release) on every member
+PHASE19_TORCH_KERNELS = ("read_slots_host", "update_host",
+                         "clear_slots_host")
+#: (d): B7c's host form on the receivers, B7b's on the sources
+PHASE19_SHARDED_KERNELS = ("sharded_update_host", "sharded_clear_cells")
+#: POD_LIMITS without the psum namespace, on hour-long windows, so that no
+#: window rolls within the phase
+ELASTIC_LIMITS = POD_LIMITS.split("- namespace: gpsum")[0] + \
+    "- namespace: drill" + POD_LIMITS.split("- namespace: drill")[1]
+ELASTIC_LIMITS = ELASTIC_LIMITS.replace("seconds: 120", "seconds: 3600")
+
+
+def _b1(run):
+    return (run.get("check_and_update", 0)
+            + run.get("check_and_update_cluster", 0))
+
+
+def _elastic_ports(n):
+    """n distinct free local ports."""
+    out = []
+    while len(out) < n:
+        port = _free_ports(1)[0]
+        if port not in out:
+            out.append(port)
+    return out
+
+
+def _elastic_spawn(tmpdir, tag, storage, extra, env=None, ports=None):
+    """Two resize-armed members of ``storage`` on the card (capacity
+    1<<20 each) and one warm standby, on ``ports`` (10 distinct free
+    ones; pods started together share one allocation); returns (members,
+    peer ports, RLS ports, HTTP ports), host 2 the standby."""
+    with open(os.path.join(tmpdir, "pod-limits.yaml"), "w") as f:
+        f.write(ELASTIC_LIMITS)
+    ports = ports or _elastic_ports(10)
+    coord = f"127.0.0.1:{ports[0]}"
+    peers, rls, http = ports[1:4], ports[4:7], ports[7:10]
+    argvs = [_pod_argv(tmpdir, tag, storage, pid, coord, peers[:2], rls,
+                       http, ["--capacity", str(C), "--pod-resize", "on",
+                              *extra]) for pid in (0, 1)]
+    argvs.append([
+        os.path.join(tmpdir, "pod-limits.yaml"), storage, "--device", "cuda",
+        "--capacity", str(C), "--rls-host", "127.0.0.1",
+        "--rls-port", str(rls[2]), "--http-host", "127.0.0.1",
+        "--http-port", str(http[2]),
+        "--flight-spool-dir", os.path.join(tmpdir, f"flight-{tag}2"),
+        "--pod-peer-listen", f"127.0.0.1:{peers[2]}", "--usage-topk", "0",
+        "--standby", "on", *extra])
+    members = [_pod_spawn(tmpdir, f"elastic-{tag}-{h}", argv, env)
+               for h, argv in enumerate(argvs)]
+    return members, peers, rls, http
+
+
+def _elastic_wait(members, http, tmpdir, label):
+    for h, member in enumerate(members):
+        _pod_wait(member, http[h], tmpdir, label)
+
+
+def _elastic_calls(rng, n, hosts):
+    """17b's requests (pods by user, multi pinned, glob by tenant),
+    arriving at hosts ``0 .. hosts - 1`` in turn."""
+    return [(i % hosts, ns, e)
+            for i, (_h, ns, e) in enumerate(_pod_requests(rng, n))]
+
+
+def _elastic_drive(rls, requests, oracle, rls_pb2, label):
+    """Drive ``requests`` sequentially, each to its arrival host; fail on
+    an error or an answer that differs from ``oracle``'s (fed the same
+    calls in the same order). Returns the latencies (ms)."""
+    from limitador_tpu_torch import Context
+
+    spec = [(h, _rls_request(rls_pb2, ns, [e])) for h, ns, e in requests]
+    codes, lat = _pod_drive(rls, spec, rls_pb2)
+    errors = [c for c in codes if isinstance(c, str)]
+    if errors:
+        fail(f"{label}: {len(errors)} calls failed: {errors[:5]}")
+    ok, over = (rls_pb2.RateLimitResponse.OK,
+                rls_pb2.RateLimitResponse.OVER_LIMIT)
+    want = [over if oracle.check_rate_limited_and_update(
+        ns, _ctx(Context, e), 1, False).limited else ok
+        for _h, ns, e in requests]
+    differ = sum(a != b for a, b in zip(codes, want))
+    if differ:
+        fail(f"{label}: {differ} of {len(requests)} answers differ from the "
+             "in-memory oracle's")
+    return lat
+
+
+def _elastic_counters(http, hosts, limits, label):
+    """The union of the hosts' spent counters (remaining below the limit),
+    each checked to live on exactly its owner under a ``hosts``-host
+    topology (a pinned namespace's on its pin host)."""
+    from limitador_tpu_torch.routing import PodRouter, PodTopology
+
+    router = PodRouter(PodTopology(hosts=hosts, host_id=0,
+                                   shards_per_host=1))
+    router.configure(limits, [])
+    pinned = router.pinned_map()
+    by_name = {lim.name: lim for lim in limits}
+    union = set()
+    for host, port in enumerate(http):
+        for ns in ("pods", "multi", "glob", "drill"):
+            status, body = _http_get(port, f"/counters/{ns}")
+            if status != 200:
+                fail(f"{label}: GET /counters/{ns} on host {host} "
+                     f"answered {status}")
+            for c in json.loads(body):
+                limit = by_name[c["limit"]["name"]]
+                if c["remaining"] >= limit.max_value:
+                    continue  # unspent: a denied request's other limit
+                vars_ = tuple(sorted(c["set_variables"].items()))
+                owner = pinned.get(ns)
+                if owner is None:
+                    owner = router.topology.owner_host(
+                        (limit._identity, vars_))
+                if owner != host:
+                    fail(f"{label}: host {host} holds {ns}/{limit.name} "
+                         f"{vars_}, which host {owner} owns under "
+                         f"{hosts} hosts")
+                entry = (ns, limit.name, vars_, c["remaining"])
+                if entry in union:
+                    fail(f"{label}: {entry} lives on two hosts")
+                union.add(entry)
+    return union
+
+
+def _oracle_spent(oracle, namespaces=("pods", "multi", "glob", "drill")):
+    return {(ns, c.limit.name, tuple(sorted(c.set_variables.items())),
+             c.remaining)
+            for ns in namespaces for c in oracle.get_counters(ns)
+            if c.remaining < c.max_value}
+
+
+def _elastic_stats(http, names):
+    return {name: sum(_pod_metric(port, name) for port in http)
+            for name in names}
+
+
+def _stable_users(limits, n, rng):
+    """Zipf-0.99 users of the ``pods`` namespace whose counter has the same
+    owner under 2 and under 3 hosts (no slice of theirs moves)."""
+    from limitador_tpu_torch.routing import PodTopology
+
+    limit = next(lim for lim in limits if lim.namespace == "pods")
+    two, three = PodTopology(2, 0, 1), PodTopology(3, 0, 1)
+    out = []
+    for u in zipf_keys(C, 8 * n, 0.99, rng).tolist():
+        key = (limit._identity, (("descriptors[0].user", f"u{u}"),))
+        if two.owner_host(key) == three.owner_host(key):
+            out.append(u)
+        if len(out) == n:
+            break
+    return out
+
+
+def _events_order(port, kinds):
+    status, body = _http_get(port, "/debug/events")
+    if status != 200:
+        return None
+    seq = {}
+    for event in json.loads(body)["events"]:
+        seq.setdefault(event["kind"], event["seq"])
+    return [seq.get(k) for k in kinds]
+
+
+def _elastic_grow_drain(tmpdir, card):
+    """Phases 19a and 19b: two native members and a native warm standby
+    on torch; 1,500 calls, the join (with calls for users whose slices
+    do not move while it runs), 1,500 calls over the three hosts, then a
+    drain back to two and 1,000 calls."""
+    from limitador_tpu_torch.server.limits_file import load_limits_file
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "elastic pod (19a, torch native)"
+    native = ["--pipeline", "native", "--native-hot-lane", "on",
+              "--rate-limit-headers", "NONE"]
+    t0 = time.perf_counter()
+    members, peers, rls, http = _elastic_spawn(tmpdir, "grow", "torch",
+                                               native)
+    out = {}
+    runs = [None, None, None]
+    try:
+        _elastic_wait(members, http, tmpdir, label)
+        out["formed_s"] = time.perf_counter() - t0
+        limits = load_limits_file(os.path.join(tmpdir, "pod-limits.yaml"))
+        oracle = _pod_oracle(limits)
+        # the standby's warm-up: its B1 and B2 launches so far, all of it
+        warm_run = _pod_launches_now(members[2], label)
+        status, body = _http_get(http[2], "/debug/pod/standby")
+        standby = json.loads(body) if status == 200 else {}
+        warmed = _b1(warm_run) + warm_run.get("update_host", 0)
+        if status != 200 or standby.get("standby_warm_kernels") != warmed \
+                or warmed == 0:
+            fail(f"{label}: standby_warm_kernels "
+                 f"{standby.get('standby_warm_kernels')} where the standby "
+                 f"launched B1 and B2 {warmed} times ({status})")
+        rng = np.random.default_rng(1919)
+        lat_before = _elastic_drive(
+            rls, _elastic_calls(rng, ELASTIC_CALLS, 2), oracle, rls_pb2,
+            label + " before the join")
+        joined = {}
+
+        def join():
+            t = time.perf_counter()
+            joined["resp"] = _http_post(
+                http[0], "/debug/pod/join",
+                {"address": f"127.0.0.1:{peers[2]}"})
+            joined["seconds"] = time.perf_counter() - t
+
+        thread = threading.Thread(target=join, daemon=True)
+        thread.start()
+        stable = _stable_users(limits, ELASTIC_DURING_MAX, rng)
+        during, lat_during = 0, []
+        while thread.is_alive() and during < len(stable):
+            lat_during += _elastic_drive(
+                rls, [(during % 2, "pods",
+                       {"user": f"u{stable[during]}"})], oracle, rls_pb2,
+                label + " during the join")
+            during += 1
+        thread.join(timeout=180)
+        status, resp = joined.get("resp", (None, {}))
+        if status != 200 or not resp.get("ok"):
+            fail(f"{label}: POST /debug/pod/join answered {status}: "
+                 f"{json.dumps(resp)[:800]}")
+        lat_after = _elastic_drive(
+            rls, _elastic_calls(rng, ELASTIC_CALLS, 3), oracle, rls_pb2,
+            label + " after the join")
+        union = _elastic_counters(http, 3, limits, label)
+        if union != _oracle_spent(oracle):
+            fail(f"{label}: the hosts' spent counters differ from the "
+                 f"oracle's: {len(union ^ _oracle_spent(oracle))} "
+                 "differences")
+        epochs = {json.loads(_http_get(port, "/debug/pod/resize")[1])[
+            "topology_epoch"] for port in http}
+        if len(epochs) != 1:
+            fail(f"{label}: the hosts' topology epochs differ: {epochs}")
+        order = _events_order(http[0], ("join_begin", "epoch_bump",
+                                        "join_end"))
+        if None in order or not order[0] < order[1] < order[2]:
+            fail(f"{label}: host 0's events join_begin, epoch_bump, "
+                 f"join_end at {order}")
+        completed = _pod_metric(http[0], "join_completed")
+        ttfd = _pod_metric(http[2], "join_ttfd_seconds")
+        if completed != 1 or ttfd <= 0:
+            fail(f"{label}: join_completed {completed}, joiner's "
+                 f"join_ttfd_seconds {ttfd}")
+        moved = _elastic_stats(http, ("pod_resize_slices_moved",
+                                      "pod_resize_moved_deltas",
+                                      "pod_resize_released_counters"))
+        out.update({
+            "join_s": joined["seconds"], "join": resp,
+            "ttfd_s": ttfd, "moved": moved, "epoch": epochs.pop(),
+            "during_calls": during, "counters": len(union),
+            "p50_p99_ms": {"before": _pct(lat_before),
+                           "during": _pct(lat_during),
+                           "after": _pct(lat_after)},
+            "warm_kernels": warmed,
+        })
+        print(f"{label}: pod formed in {out['formed_s']:.2f} s; "
+              f"{ELASTIC_CALLS} calls on two hosts, the join of the "
+              f"standby as host 2 in {joined['seconds']:.3f} s "
+              f"(join_seconds {resp.get('join_seconds')}, ttfd "
+              f"{ttfd:.6f} s, {resp.get('seeded')} plans seeded) with "
+              f"{during} calls during it, {ELASTIC_CALLS} calls on three "
+              f"hosts: every answer and the hosts' {len(union)} spent "
+              f"counters, each on its owner, equal to the in-memory "
+              f"oracle; moved {json.dumps(moved)}; standby warm-up "
+              f"{warmed} kernel launches; p50/p99 ms "
+              f"{json.dumps(out['p50_p99_ms'])} ({card})", flush=True)
+        # (b) the drain back to two hosts, within the windows
+        label_b = "elastic pod (19b, drain)"
+        t = time.perf_counter()
+        status, resp = _http_post(http[0], "/debug/pod/resize", {"hosts": 2})
+        drain_s = time.perf_counter() - t
+        if status != 200 or not resp.get("ok"):
+            fail(f"{label_b}: POST /debug/pod/resize answered {status}: "
+                 f"{json.dumps(resp)[:800]}")
+        lat_drain = _elastic_drive(
+            rls[:2], _elastic_calls(rng, ELASTIC_DRAIN_CALLS, 2), oracle,
+            rls_pb2, label_b)
+        union = _elastic_counters(http, 2, limits, label_b)
+        if union != _oracle_spent(oracle):
+            fail(f"{label_b}: the hosts' spent counters differ from the "
+                 f"oracle's: {len(union ^ _oracle_spent(oracle))} "
+                 "differences")
+        moved_b = _elastic_stats(http, ("pod_resize_slices_moved",
+                                        "pod_resize_released_counters"))
+        out["drain"] = {"seconds": drain_s, "p50_p99_ms": _pct(lat_drain),
+                        "counters": len(union), "moved": moved_b}
+        print(f"{label_b}: drained to 2 hosts in {drain_s:.3f} s; "
+              f"{ELASTIC_DRAIN_CALLS} calls: every answer and the hosts' "
+              f"{len(union)} spent counters (those that moved out in 19a "
+              f"and back now among them) equal to the oracle; p50/p99 ms "
+              f"{json.dumps(_pct(lat_drain))} ({card})", flush=True)
+    finally:
+        for h, member in enumerate(members):
+            runs[h] = _pod_stop(member, label)
+    for h, run in enumerate(runs):
+        missing = [k for k in PHASE19_TORCH_KERNELS
+                   if not run or run.get(k, 0) == 0]
+        if not run or _b1(run) == 0:
+            missing.append("check_and_update")
+        if missing:
+            fail(f"{label}: host {h} launched none of {missing}")
+    out["launches"] = runs
+    return runs, out
+
+
+def _elastic_abort(tmpdir, card, pod):
+    """Phase 19c on a pod spawned by ``_elastic_spawn`` (torch, the
+    standard pipeline, the slice pause on): the standby's join starts a
+    2 -> 3 resize, the new host is killed in the pause before the first
+    slice's copy, and the pod reverts to 2 hosts with no call failed and
+    nothing admitted lost."""
+    from limitador_tpu_torch.server.limits_file import load_limits_file
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "elastic pod (19c, abort)"
+    members, peers, rls, http = pod
+    limits = load_limits_file(os.path.join(tmpdir, "pod-limits.yaml"))
+    oracle = _pod_oracle(limits)
+    pre = [{"user": f"pre-{i}"} for i in range(ELASTIC_PRE_USERS)]
+    born = [{"user": f"born-{i}"} for i in range(ELASTIC_BORN_USERS)]
+    _elastic_drive(rls[:2], [(i % 2, "drill", e)
+                             for _ in range(3) for i, e in enumerate(pre)],
+                   oracle, rls_pb2, label + " before the resize")
+    joined = {}
+
+    def join():
+        joined["resp"] = _http_post(
+            http[0], "/debug/pod/join", {"address": f"127.0.0.1:{peers[2]}"})
+
+    thread = threading.Thread(target=join, daemon=True)
+    thread.start()
+    def committed(port):
+        status, body = _http_get(port, "/debug/pod/resize")
+        transition = json.loads(body).get("transition") \
+            if status == 200 else None
+        return bool(transition) and transition["state"] in ("migrating",
+                                                            "done")
+
+    # mid-migration: the new host has committed, and a source's first
+    # slice has begun (its copy waits out the slice pause)
+    deadline = time.monotonic() + 60
+    while True:
+        if committed(http[2]) and any(
+                _events_order(port, ("migrate_begin",)) not in (None, [None])
+                for port in http[:2]):
+            break
+        if time.monotonic() > deadline or not thread.is_alive():
+            fail(f"{label}: no migration began ({joined})")
+        time.sleep(0.02)
+    t_kill = time.monotonic()
+    members[2]["proc"].kill()
+    members[2]["proc"].wait()
+    # the window: calls for users born in it, none of which may fail
+    admitted = {e["user"]: 0 for e in born}
+    rounds = 0
+    spec = [(i % 2, _rls_request(rls_pb2, "drill", [e]))
+            for i, e in enumerate(born)]
+    ok = rls_pb2.RateLimitResponse.OK
+    from limitador_tpu_torch import Context
+
+    def one_round():
+        codes, _lat = _pod_drive(rls[:2], spec, rls_pb2)
+        errors = [c for c in codes if isinstance(c, str)]
+        if errors:
+            fail(f"{label}: {len(errors)} calls failed in the window: "
+                 f"{errors[:5]}")
+        for e, code in zip(born, codes):
+            admitted[e["user"]] += code == ok
+            oracle.check_rate_limited_and_update(
+                "drill", _ctx(Context, e), 1, False)
+
+    while thread.is_alive() and rounds < DRILL_MAX - 2:
+        one_round()
+        rounds += 1
+    thread.join(timeout=120)
+    abort_s = time.monotonic() - t_kill
+    status, resp = joined.get("resp", (None, {}))
+    if resp.get("ok") or not resp.get("aborted"):
+        fail(f"{label}: the join did not abort ({status}: "
+             f"{json.dumps(resp)[:600]})")
+    for h in (0, 1):
+        state = json.loads(_http_get(http[h], "/debug/pod/resize")[1])
+        if state["hosts"] != 2 or state["topology_epoch"] < 2:
+            fail(f"{label}: host {h} on {state['hosts']} hosts at epoch "
+                 f"{state['topology_epoch']} after the abort")
+    if _pod_metric(http[0], "pod_resize_aborted") != 1:
+        fail(f"{label}: pod_resize_aborted is not 1 on host 0")
+    deadline = time.monotonic() + 30
+    while sum(_pod_metric(port, "pod_failover_journal_depth")
+              for port in http[:2]) > 0:
+        if time.monotonic() > deadline:
+            fail(f"{label}: the stand-ins' journals never drained")
+        time.sleep(0.1)
+    for _ in range(2):
+        one_round()
+    got = {}
+    for h in (0, 1):
+        for c in json.loads(_http_get(http[h], "/counters/drill")[1]):
+            user = c["set_variables"]["descriptors[0].user"]
+            got[user] = got.get(user, 0) + DRILL_MAX - c["remaining"]
+    want = {c.set_variables["descriptors[0].user"]: DRILL_MAX - c.remaining
+            for c in oracle.get_counters("drill")}
+    for e in born:
+        u = e["user"]
+        if got.get(u, 0) != want.get(u, 0) or admitted[u] != rounds + 2:
+            fail(f"{label}: window-born {u} spent {got.get(u, 0)} of "
+                 f"{want.get(u, 0)}, admitted {admitted[u]} of {rounds + 2}")
+    for e in pre:
+        u = e["user"]
+        if not want.get(u, 0) <= got.get(u, 0) <= want.get(u, 0) + DRILL_MAX:
+            fail(f"{label}: pre-resize {u} spent {got.get(u, 0)} where the "
+                 f"oracle spent {want.get(u, 0)} (bound +{DRILL_MAX})")
+    out = {"abort_s": abort_s, "window_rounds": rounds,
+           "join": resp, "born": len(born), "pre": len(pre)}
+    print(f"{label}: the new host killed in the slice pause; the pod "
+          f"reverted to 2 hosts {abort_s:.3f} s after the kill with "
+          f"pod_resize_aborted 1; {rounds + 2} rounds of "
+          f"{len(born)} window-born users with no call failed, each "
+          f"counter equal to the oracle's; {len(pre)} earlier users within "
+          f"the degraded-window bound ({card})", flush=True)
+    return out
+
+
+def _elastic_sharded(tmpdir, card, pod):
+    """Phase 19d on a pod spawned by ``_elastic_spawn`` (sharded, the
+    compiled pipeline): calls, the standby's join, calls over the three
+    hosts, every answer and spent counter equal to the oracle."""
+    from limitador_tpu_torch.server.limits_file import load_limits_file
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "elastic pod (19d, sharded compiled)"
+    members, peers, rls, http = pod
+    limits = load_limits_file(os.path.join(tmpdir, "pod-limits.yaml"))
+    oracle = _pod_oracle(limits)
+    rng = np.random.default_rng(1920)
+    _elastic_drive(rls, _elastic_calls(rng, ELASTIC_SHARDED_CALLS, 2),
+                   oracle, rls_pb2, label + " before the join")
+    t = time.perf_counter()
+    status, resp = _http_post(http[0], "/debug/pod/join",
+                              {"address": f"127.0.0.1:{peers[2]}"})
+    join_s = time.perf_counter() - t
+    if status != 200 or not resp.get("ok"):
+        fail(f"{label}: POST /debug/pod/join answered {status}: "
+             f"{json.dumps(resp)[:800]}")
+    _elastic_drive(rls, _elastic_calls(rng, ELASTIC_SHARDED_CALLS, 3),
+                   oracle, rls_pb2, label + " after the join")
+    union = _elastic_counters(http, 3, limits, label)
+    if union != _oracle_spent(oracle):
+        fail(f"{label}: the hosts' spent counters differ from the oracle's")
+    print(f"{label}: joined in {join_s:.3f} s; {2 * ELASTIC_SHARDED_CALLS} "
+          f"calls: every answer and the hosts' {len(union)} spent counters "
+          f"equal to the oracle ({card})", flush=True)
+    return {"join_s": join_s, "counters": len(union)}
+
+
+def phase_elastic(card):
+    """Phase 19: the elastic pod on the card: a grow by join and a drain
+    on native torch members (a, b), an abort with nothing lost (c) and a
+    grow on the sharded table (d). The pods of c and d start together."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        grow_runs, out = _elastic_grow_drain(tmpdir, card)
+    env = {"TPU_POD_RESIZE_SLICE_PAUSE_MS": str(ELASTIC_SLICE_PAUSE_MS),
+           "TPU_POD_RESIZE_TIMEOUT_S": str(ELASTIC_TIMEOUT_S)}
+    with tempfile.TemporaryDirectory() as abort_dir, \
+            tempfile.TemporaryDirectory() as sharded_dir:
+        ports = _elastic_ports(20)
+        abort_pod = _elastic_spawn(abort_dir, "abort", "torch", [], env,
+                                   ports[:10])
+        sharded_pod = _elastic_spawn(sharded_dir, "sharded", "sharded",
+                                     ["--pipeline", "compiled"], None,
+                                     ports[10:])
+        abort_runs, sharded_runs = [], []
+        try:
+            _elastic_wait(abort_pod[0], abort_pod[3], abort_dir,
+                          "elastic pod (19c)")
+            _elastic_wait(sharded_pod[0], sharded_pod[3], sharded_dir,
+                          "elastic pod (19d)")
+            out["abort"] = _elastic_abort(abort_dir, card, abort_pod)
+            out["sharded"] = _elastic_sharded(sharded_dir, card, sharded_pod)
+        finally:
+            for member in abort_pod[0]:
+                abort_runs.append(_pod_stop(member, "elastic pod (19c)"))
+            for member in sharded_pod[0]:
+                sharded_runs.append(_pod_stop(member, "elastic pod (19d)"))
+    total = {}
+    for run in grow_runs + abort_runs + sharded_runs:
+        for k, v in (run or {}).items():
+            total[k] = total.get(k, 0) + v
+    missing = [k for k in PHASE19_SHARDED_KERNELS if total.get(k, 0) == 0]
+    for h, run in enumerate(sharded_runs[:2]):
+        if not run or run.get("sharded_check_and_update", 0) + run.get(
+                "sharded_check_and_update_cluster", 0) == 0:
+            missing.append(f"B7a on host {h}")
+    if not sharded_runs[2] or _b1(sharded_runs[2]) == 0:
+        missing.append("B1 on the sharded standby")
+    if missing:
+        fail(f"elastic pod (19d): kernels not launched: {missing}")
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t0
+    print(f"elastic pod: launches in the pods' processes "
+          f"{json.dumps({k: v for k, v in total.items() if v})}; phase 19 "
+          f"took {out['seconds']:.1f} s", flush=True)
+    return total, out
+
+
 _T0 = time.perf_counter()
 
 
@@ -9204,19 +9781,19 @@ def main() -> int:
     tier_launches, tiered = phase_tiered_drive(dev, card)
     with tempfile.TemporaryDirectory() as tmpdir:
         served_tier_launches, served_tiers = asyncio.run(
-            _served_tiers(tmpdir, dev, card, leases=False))
+            _served_tiers(tmpdir, dev, card, leases=False, calls=1400))
     # Leases on, the observatory off: its veto keeps the hottest counters
     # resident, and those are the ones that hold leases, so with it on a
     # demotion meets a live lease only when the veto falls short.
     with tempfile.TemporaryDirectory() as tmpdir:
         leased_tier_launches, leased_tiers = asyncio.run(
-            _served_tiers(tmpdir, dev, card, leases=True,
+            _served_tiers(tmpdir, dev, card, leases=True, calls=1400,
                           extra=("--usage-topk", "0")))
     # Leases on and the default observatory, as a server runs by default:
     # the same checks but reclaim, which the veto may leave idle.
     with tempfile.TemporaryDirectory() as tmpdir:
         served_default_launches, served_default = asyncio.run(
-            _served_tiers(tmpdir, dev, card, leases=True,
+            _served_tiers(tmpdir, dev, card, leases=True, calls=1400,
                           label="served tiers (leases on, observatory on)",
                           need_reclaim=False))
     _mark("phase 9")
@@ -9226,7 +9803,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmpdir, \
             _route_tally("served sharded (10b)") as routes:
         served_sharded_launches, served_sharded = asyncio.run(
-            _served_sharded(tmpdir, dev, card))
+            _served_sharded(tmpdir, dev, card, calls=1000))
     served_sharded["routes"] = routes
     _mark("phase 10")
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -9247,6 +9824,8 @@ def main() -> int:
     native_pod_launches, native_pod = phase_native_pod(
         dev, card, pod["torch"]["p50_p99_ms"])
     _mark("phase 18")
+    elastic_launches, elastic = phase_elastic(card)
+    _mark("phase 19")
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -9281,19 +9860,21 @@ def main() -> int:
         _host_forms_only(got, label, remote=False)
     _storage_forms(plane_launches, "device plane (12)", ("update_host",))
     # launches on the main paths: phases 4, 5, 6, 7, 8a, 8b, 9a, 9b, 10a,
-    # 10b, 11, 12, 13, 14, 15, 16, 17, 18 (14c's authority and 15d's
+    # 10b, 11, 12, 13, 14, 15, 16, 17, 18, 19 (14c's authority and 15d's
     # server are other processes: 14c's RPCs are counted by its
-    # /debug/stats, not here; 17's and 18's pod members write their own
-    # counts as they exit, the members killed in 17d and 18c just before
-    # their kill)
+    # /debug/stats, not here; 17's, 18's and 19's pod members write their
+    # own counts as they exit, the members killed in 17d and 18c just
+    # before their kill; 19c's killed standby's are lost with it)
     runs = (launches, drive5_launches, native_launches, drive_launches,
             repl_launches,
             served_launches, tier_launches, served_tier_launches,
             leased_tier_launches, served_default_launches, sharded_launches,
             served_sharded_launches, http_launches, plane_launches,
             planes_launches, host_launches, admission_launches,
-            ingress_launches, pod_launches, native_pod_launches)
-    launches = {name: sum(run[name] for run in runs) for name in launches}
+            ingress_launches, pod_launches, native_pod_launches,
+            elastic_launches)
+    launches = {name: sum(run.get(name, 0) for run in runs)
+                for name in launches}
     kernels = []
     for kname, by_shape in results.items():
         rec = by_shape[MAIN_SHAPE[kname]]
@@ -9357,6 +9938,8 @@ def main() -> int:
             "pod_launches": pod_launches,
             "native_pod": native_pod,
             "native_pod_launches": native_pod_launches,
+            "elastic_pod": elastic,
+            "elastic_pod_launches": elastic_launches,
         }, f, indent=1)
     spool_root.cleanup()
     print(f"card: {card}")

@@ -39,14 +39,16 @@ Port counterpart of ``limitador_tpu/tpu/plan_cache.py``. A pod member's
 native pipeline memoizes a blob whose counters another host owns as a
 ``PLAN_FOREIGN`` plan with its ``owner``. The plan-seed wire form
 (``plan_to_wire``/``plan_from_wire``, ``export_seed``/``import_seed``)
-that ships plans to a joining pod host comes with the elastic pod.
+ships a donor's plans to a joining pod host (``server/resize.py``); its
+bytes equal the JAX package's for the same plan.
 """
 
 from __future__ import annotations
 
+import base64
 import threading
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 __all__ = [
     "DecisionPlan",
@@ -56,6 +58,8 @@ __all__ = [
     "PLAN_OK",
     "PLAN_UNKNOWN",
     "PLAN_FOREIGN",
+    "plan_to_wire",
+    "plan_from_wire",
 ]
 
 PLAN_KERNEL = 0   # resolved device hits; decision comes from the kernel
@@ -275,6 +279,161 @@ class DecisionPlanCache(_BaseCache):
     def _clear_locked(self) -> None:
         super()._clear_locked()
         self._by_slot.clear()
+
+
+    # -- plan seed (a joining pod host's warm start) --------------------------
+
+    def export_seed(self, counter_of_slot=None,
+                    max_entries: int = 4096) -> List[dict]:
+        """The portable seed of this cache: newest entries first, bounded
+        so that one seed RPC stays within the lane's receive cap. Kernel
+        plans whose hits cannot be attributed to live counters are
+        skipped (``plan_to_wire``)."""
+        with self._lock:
+            items = list(self._entries.items())[-int(max_entries):]
+        out = []
+        for blob, plan in reversed(items):
+            wire = plan_to_wire(blob, plan, counter_of_slot)
+            if wire is not None:
+                out.append(wire)
+        return out
+
+    def import_seed(self, entries, slot_of_counter=None,
+                    epoch: Optional[int] = None) -> int:
+        """Replay a shipped seed through :meth:`put` under ``epoch`` (the
+        limits epoch taken when the ship started): a limits reload racing
+        the ship bumps the epoch and every row is discarded. Returns the
+        number of rows seeded."""
+        if epoch is None:
+            epoch = self.epoch
+        seeded = 0
+        for entry in entries:
+            try:
+                rebuilt = plan_from_wire(entry, slot_of_counter)
+            except (KeyError, ValueError, TypeError):
+                continue  # one malformed row must not fail the seed
+            if rebuilt is None:
+                continue
+            blob, plan = rebuilt
+            before = len(self._entries)
+            self.put(blob, plan, epoch)
+            if len(self._entries) > before:
+                seeded += 1
+        return seeded
+
+
+# -- the plan-seed wire form -------------------------------------------------
+# A joining host starts with an empty plan cache. The seed ships the
+# donor's blob -> plan entries over the ``plan_seed`` lane kind
+# (server/peering.py) in a portable form: slot indices are host-local, so
+# a kernel hit travels as the identity of the counter that resolved it and
+# the portable ints of its record; the importer resolves slots against
+# its own table. Import rides ``DecisionPlanCache.put``, so that a limits
+# reload racing the ship discards the seed through the stale-epoch rule.
+
+
+def _limit_identity_to_wire(limit) -> dict:
+    """JSON-safe identity of a Limit (the fields the migrate lane's
+    ``_counter_to_wire`` carries; ``policy`` is part of the identity)."""
+    return {
+        "ns": str(limit.namespace),
+        "max": limit.max_value,
+        "seconds": limit.seconds,
+        "conditions": sorted(c.source for c in limit.conditions),
+        "variables": sorted(v.source for v in limit.variables),
+        "name": limit.name,
+        "id": limit.id,
+        "policy": limit.policy,
+    }
+
+
+def _counter_identity_from_wire(blob: dict):
+    from ..core.counter import Counter
+    from ..core.limit import Limit
+
+    limit = Limit(
+        blob["ns"], blob["max"], blob["seconds"],
+        blob.get("conditions", ()), blob.get("variables", ()),
+        name=blob.get("name"), id=blob.get("id"),
+        policy=blob.get("policy", "fixed_window"),
+    )
+    return Counter(limit, dict(blob.get("vars", ())))
+
+
+def plan_to_wire(blob: bytes, plan: DecisionPlan,
+                 counter_of_slot=None) -> Optional[dict]:
+    """One cache entry as a JSON-safe seed row, or None when it cannot
+    travel (a kernel hit whose slot no longer names a counter).
+    ``counter_of_slot(slot) -> Counter or None`` attributes kernel hits;
+    without it kernel plans are skipped."""
+    out = {
+        "blob": base64.b64encode(blob).decode(),
+        "kind": int(plan.kind),
+        "ns": plan.namespace,
+        "delta": int(plan.delta),
+        "delta_capped": int(plan.delta_capped),
+        "owner": int(plan.owner),
+        "names": list(plan.limit_names),
+    }
+    if plan.kind != PLAN_KERNEL:
+        return out
+    if counter_of_slot is None:
+        return None
+    hits = []
+    record = plan.record
+    for i in range(plan.nhits):
+        slot = record[4 * i]
+        counter = counter_of_slot(slot)
+        if counter is None:
+            return None
+        wire = _limit_identity_to_wire(counter.limit)
+        wire["vars"] = sorted(counter.set_variables.items())
+        hits.append({
+            "c": wire,
+            # (max, window_ms, bucket flag) ship as they are; only the
+            # slot column is host-local
+            "rec": [int(record[4 * i + 1]), int(record[4 * i + 2]),
+                    int(record[4 * i + 3])],
+        })
+    out["hits"] = hits
+    return out
+
+
+def plan_from_wire(entry: dict, slot_of_counter=None
+                   ) -> Optional[Tuple[bytes, DecisionPlan]]:
+    """Rebuild (blob, plan) from one seed row under this host's table.
+    ``slot_of_counter(counter) -> slot or None`` resolves (allocating)
+    the importer's slot of each kernel hit; a row that cannot resolve
+    (a full table) is skipped, never seeded wrong."""
+    blob = base64.b64decode(entry["blob"])
+    kind = int(entry["kind"])
+    if kind != PLAN_KERNEL:
+        return blob, DecisionPlan(
+            kind, namespace=entry.get("ns"), delta=int(entry["delta"]),
+            delta_capped=int(entry.get("delta_capped", 1)),
+            owner=int(entry.get("owner", -1)),
+        )
+    if slot_of_counter is None:
+        return None
+    record: List[int] = []
+    for hit in entry.get("hits", ()):
+        counter = _counter_identity_from_wire(hit["c"])
+        slot = slot_of_counter(counter)
+        if slot is None:
+            return None
+        rec = hit["rec"]
+        record.extend((int(slot), int(rec[0]), int(rec[1]), int(rec[2])))
+    record_t = tuple(record)
+    return blob, DecisionPlan(
+        PLAN_KERNEL,
+        namespace=entry.get("ns"),
+        delta=int(entry["delta"]),
+        delta_capped=int(entry.get("delta_capped", 1)),
+        record=record_t,
+        limit_names=tuple(entry.get("names", ())),
+        slots=record_t[0::4],
+        owner=int(entry.get("owner", -1)),
+    )
 
 
 class CounterPlanCache(_BaseCache):

@@ -1035,6 +1035,30 @@ class TorchShardedStorage(_BigLimitMixin, CounterStorage):
             self._zero_global_slots(doomed_global)
             self._delete_big(limits)
 
+    def drop_counters(self, counters) -> int:
+        """Release the cells of ``counters`` (the elastic pod's source,
+        once the new owner acknowledged a moved slice): slots freed, cells
+        zeroed by one B7b host-form launch ((row, slot) pairs, or every
+        row of a global slot); a beyond-cap counter's host cell dropped.
+        Returns the number of cells that existed."""
+        released = 0
+        with self._lock:
+            for counter in counters:
+                if self._is_big(counter):
+                    if self._big.pop(self._key_of(counter), None) is not None:
+                        released += 1
+                    continue
+                shard, slot, _fresh, is_g = self._slot_for(
+                    counter, create=False)
+                if slot is None:
+                    continue
+                self._release(counter, shard, slot, is_g)
+                if not is_g:
+                    self._clear_pairs[(shard, slot)] = None
+                released += 1
+            self._flush_clears()
+        return released
+
     def clear(self) -> None:
         with self._lock:
             self._reset_tables()

@@ -1298,6 +1298,31 @@ class TorchStorage(_BigLimitMixin, CounterStorage):
                 self._clear(doomed)
             self._delete_big(limits)
 
+    def drop_counters(self, counters) -> int:
+        """Release the cells of ``counters`` (the elastic pod's source,
+        once the new owner acknowledged a moved slice): their slots return
+        to the free list and their cells are zeroed by one B3b host-form
+        launch; a beyond-cap counter's host cell is dropped. Returns the
+        number of cells that existed."""
+        released = 0
+        with self._lock:
+            doomed: List[int] = []
+            for counter in counters:
+                key = self._key_of(counter)
+                if self._is_big(counter):
+                    if self._big.pop(key, None) is not None:
+                        released += 1
+                    continue
+                qualified = counter.is_qualified()
+                slot = self._table.lookup(key, qualified)
+                if slot is None:
+                    continue
+                self._table.release(slot, key, qualified)
+                doomed.append(slot)
+            if doomed:
+                self._clear(doomed)
+        return released + len(doomed)
+
     def _replace_table(self) -> _SlotTable:
         """Swap in a fresh slot table, carrying the coherence hooks over
         and firing the wholesale invalidation (every slot index issued

@@ -36,7 +36,7 @@ from ..ops.build import BuildError
 __all__ = [
     "BuildError", "library", "loaded", "build", "build_info", "build_status",
     "SOURCE", "INGRESS_SOURCES", "ingress_library", "ingress_loaded",
-    "ingress_build_info",
+    "ingress_build_info", "set_build_dir",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -76,6 +76,13 @@ def source_key(*sources: Path) -> str:
         digest.update(Path(source).read_bytes())
     digest.update(" ".join(FLAGS).encode())
     return digest.hexdigest()[:16]
+
+
+def set_build_dir(path) -> None:
+    """Build into, and load from, ``path`` from now on (the server's
+    ``--kernel-cache-dir``, set before any build)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def _build(name: str, sources: Sequence[Path], info: dict) -> Path:

@@ -171,6 +171,16 @@ _CUMULATIVE_KEYS = (
     "pod_bulk_forward_batches",
     "pod_bulk_forward_rows",
     "pod_bulk_served_rows",
+    "pod_resize_completed",
+    "pod_resize_aborted",
+    "pod_resize_slices_moved",
+    "pod_resize_moved_deltas",
+    "pod_resize_released_counters",
+    "pod_resize_stale_rejects",
+    "pod_resize_replans",
+    "join_completed",
+    "join_aborted",
+    "join_seed_entries",
 )
 
 #: cumulative library_stats seconds fed to same-named counters as the
@@ -178,6 +188,14 @@ _CUMULATIVE_KEYS = (
 _CUMULATIVE_SECONDS = (
     "pod_failover_reconcile_seconds",
     "pod_failover_seconds",
+    "pod_resize_seconds",
+    "join_seconds",
+)
+
+#: the elastic pod's and the warm standby's levels, set as they are
+_POD_GAUGES = (
+    "pod_resize_epoch", "pod_resize_active", "join_ttfd_seconds",
+    "standby_ready", "standby_warm_kernels", "standby_warm_seconds",
 )
 
 #: pod levels a render sums over sources, and those it takes the largest
@@ -1188,6 +1206,123 @@ class PrometheusMetrics:
             "(LRU-bounded)",
             registry=self.registry,
         )
+        # -- the elastic pod (server/resize.py): the membership
+        # transitions, polled off the pod frontend's library_stats
+        self.pod_resize_epoch = Gauge(
+            "pod_resize_epoch",
+            "Current pod topology epoch (bumped by every membership "
+            "transition commit/revert; forwards are stamped with it "
+            "and wrong-epoch forwards rejected rerouteable)",
+            registry=self.registry,
+        )
+        self.pod_resize_active = Gauge(
+            "pod_resize_active",
+            "1 while a membership transition is in flight on this "
+            "host (armed or migrating)",
+            registry=self.registry,
+        )
+        self.pod_resize_completed = Counter(
+            "pod_resize_completed",
+            "Membership transitions completed on this host",
+            registry=self.registry,
+        )
+        self.pod_resize_aborted = Counter(
+            "pod_resize_aborted",
+            "Membership transitions aborted (reverted to the old "
+            "topology with received slices pushed back)",
+            registry=self.registry,
+        )
+        self.pod_resize_slices_moved = Counter(
+            "pod_resize_slices_moved",
+            "Table slices this host migrated out (snapshot + "
+            "convergence sweeps + release)",
+            registry=self.registry,
+        )
+        self.pod_resize_moved_deltas = Counter(
+            "pod_resize_moved_deltas",
+            "Counter rows shipped over the migrate lane (outbound "
+            "sweeps plus inbound ledger applies)",
+            registry=self.registry,
+        )
+        self.pod_resize_released_counters = Counter(
+            "pod_resize_released_counters",
+            "Old-owner counter cells released after their slice's "
+            "final marker was acknowledged by the new owner",
+            registry=self.registry,
+        )
+        self.pod_resize_seconds = Counter(
+            "pod_resize_seconds",
+            "Cumulative seconds spent inside membership transitions "
+            "(resize_begin to resize_end/resize_abort)",
+            registry=self.registry,
+        )
+        self.pod_resize_stale_rejects = Counter(
+            "pod_resize_stale_rejects",
+            "Forwards rejected by the owner-side topology-epoch gate "
+            "(stamped with an epoch this host is not on; the origin "
+            "re-plans)",
+            registry=self.registry,
+        )
+        self.pod_resize_replans = Counter(
+            "pod_resize_replans",
+            "Forwards that came back stale_epoch and were re-planned "
+            "in-band under the adopted topology",
+            registry=self.registry,
+        )
+        # -- the fast join (server/resize.py): warm-standby promotions
+        self.join_completed = Counter(
+            "join_completed",
+            "Warm-standby joins this host initiated that completed "
+            "(grow or replace mode)",
+            registry=self.registry,
+        )
+        self.join_aborted = Counter(
+            "join_aborted",
+            "Warm-standby joins that failed at the state ship or "
+            "whose membership transition aborted",
+            registry=self.registry,
+        )
+        self.join_seconds = Counter(
+            "join_seconds",
+            "Cumulative seconds spent driving warm-standby joins "
+            "(join_begin to join_end, state ship included)",
+            registry=self.registry,
+        )
+        self.join_seed_entries = Counter(
+            "join_seed_entries",
+            "Plan-cache seed entries joiners applied from this "
+            "host's shipped decision-plan exports",
+            registry=self.registry,
+        )
+        self.join_ttfd_seconds = Gauge(
+            "join_ttfd_seconds",
+            "Time from this host's join adopt to its first answered "
+            "decision (the joiner-side time-to-first-decision; 0 = "
+            "never joined)",
+            registry=self.registry,
+        )
+        # -- the warm standby (server/standby.py): its warm-up, with
+        # the JAX package's help text (the metrics parity holds it)
+        self.standby_ready = Gauge(
+            "standby_ready",
+            "1 once this standby's warm-up finished (host mesh "
+            "formed, pow2 hit-bucket kernels compiled) and the join "
+            "callbacks are armed",
+            registry=self.registry,
+        )
+        self.standby_warm_kernels = Gauge(
+            "standby_warm_kernels",
+            "Decision kernels pre-compiled during standby warm-up "
+            "(check+update per pow2 hit bucket)",
+            registry=self.registry,
+        )
+        self.standby_warm_seconds = Gauge(
+            "standby_warm_seconds",
+            "Seconds the standby's kernel warm-up took (served from "
+            "the persistent XLA cache on a re-boot when "
+            "--xla-cache-dir is set)",
+            registry=self.registry,
+        )
         self.pod_psum_remote_slots = Gauge(
             "pod_psum_remote_slots",
             "Folded remote-base slots currently live (non-zero and "
@@ -1322,6 +1457,9 @@ class PrometheusMetrics:
         for peer, state in stats.get("peer_health_state", {}).items():
             self.peer_health_state.labels(str(peer)).set(int(state))
         for key in ("pod_signal_routed_share", "pod_signal_degraded_share"):
+            if key in stats:
+                getattr(self, key).set(float(stats[key]))
+        for key in _POD_GAUGES:
             if key in stats:
                 getattr(self, key).set(float(stats[key]))
         for kind, seen in stats.get("pod_events", {}).items():

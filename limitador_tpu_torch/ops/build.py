@@ -27,6 +27,7 @@ from pathlib import Path
 
 __all__ = [
     "BuildError", "library", "build", "check", "build_info", "build_status",
+    "set_build_dir",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -131,6 +132,15 @@ def source_key() -> str:
         digest.update(src.read_bytes())
     digest.update(" ".join(FLAGS).encode())
     return digest.hexdigest()[:16]
+
+
+def set_build_dir(path) -> None:
+    """Build into, and load from, ``path`` from now on: the server's
+    ``--kernel-cache-dir``, set before any build, so that a restarted
+    process (a warm standby's among them) loads the library an earlier
+    one built there instead of running ``nvcc`` again."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def build() -> Path:

@@ -19,6 +19,13 @@ NCCL group.
 counter, and a remote base folded in by a lockstep exchange whose
 default transport is the store's ``set``/``get`` under the JAX round keys
 and barrier. The transport stays a parameter, so tests inject one.
+
+``PeerPsumTransport`` (JAX ``parallel/mesh.py:1009-1096``) is the paced
+transport over the pod's peer lane: each host pushes its newest partials
+every round through the lane's ``psum_share`` kind and folds the newest
+payload received from each peer, aging a silent peer out after
+``stale_after_s`` and unclaiming after ``dead_after_rounds`` rounds in
+which every peer was silent.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ __all__ = [
     "PodMembership",
     "pod_barrier",
     "PodPsumLane",
+    "PeerPsumTransport",
 ]
 
 log = logging.getLogger("limitador_tpu_torch")
@@ -510,3 +518,86 @@ class PodPsumLane:
                 "pod_psum_cells": len(self._cells),
                 "pod_psum_remote_slots": live_remote,
             }
+
+
+class PeerPsumTransport:
+    """Peer-lane exchange for :class:`PodPsumLane`, paced instead of
+    lockstep: each round publishes this host's newest partials to every
+    peer (``send(host, payload)``, the lane's ``psum_share`` kind through
+    ``server.peering.psum_share_sender``) and folds the newest payload
+    received from each peer (``receive``, the lane handler's delivery).
+    A missing peer contributes None (the fold skips it), so a dead host
+    costs staleness bounded by the pacing, never a stalled barrier.
+
+    A peer whose payloads stop arriving ages out after ``stale_after_s``
+    (its partials fold as zero: bounded over-admission), and when every
+    peer has been silent for ``dead_after_rounds`` rounds in a row the
+    transport raises, which routes the lane through its unclaim path: N
+    hosts must not each admit the full limit against a base that stays
+    zero."""
+
+    def __init__(self, host_id: int, send, hosts: int = 1,
+                 stale_after_s: float = 2.0,
+                 dead_after_rounds: int = 8, clock=time.time):
+        self.host_id = int(host_id)
+        self.hosts = int(hosts)
+        self._send = send
+        self._stale_after_s = float(stale_after_s)
+        self._dead_after_rounds = int(dead_after_rounds)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._rx: dict = {}  # host -> (received at, payload)
+        self._silent_rounds = 0
+        self.published = 0
+        self.send_errors = 0
+
+    def attach(self, hosts: int, host_id: Optional[int] = None) -> None:
+        """A membership change (a resize's or a join's commit): widen or
+        narrow the fold, keeping the payloads already received."""
+        with self._lock:
+            self.hosts = int(hosts)
+            if host_id is not None:
+                self.host_id = int(host_id)
+            self._silent_rounds = 0
+
+    def receive(self, host: int, payload: bytes) -> None:
+        """The lane's delivery of a peer's published partials."""
+        with self._lock:
+            self._rx[int(host)] = (self._clock(), payload)
+
+    def __call__(self, round_idx: int, payload: bytes):
+        with self._lock:
+            hosts, host_id = self.hosts, self.host_id
+        for h in range(hosts):
+            if h == host_id:
+                continue
+            try:
+                self._send(h, payload)
+            except Exception:
+                self.send_errors += 1
+        self.published += 1
+        now = self._clock()
+        out = []
+        fresh_peers = 0
+        with self._lock:
+            for h in range(hosts):
+                if h == host_id:
+                    out.append(payload)
+                    continue
+                got = self._rx.get(h)
+                if got is None or now - got[0] > self._stale_after_s:
+                    out.append(None)
+                else:
+                    out.append(got[1])
+                    fresh_peers += 1
+            if hosts > 1 and fresh_peers == 0:
+                self._silent_rounds += 1
+            else:
+                self._silent_rounds = 0
+            if (hosts > 1
+                    and self._silent_rounds >= self._dead_after_rounds):
+                raise RuntimeError(
+                    "peer psum transport: every peer silent for "
+                    f"{self._silent_rounds} rounds; unclaiming"
+                )
+        return out

@@ -7,7 +7,8 @@ of the slices ported so far:
     python -m limitador_tpu_torch.server LIMITS_FILE \\
         [torch|sharded|memory|disk|cached|distributed] \\
         [--rls-port P] [--http-host H --http-port P] [--device cuda|cpu] \\
-        [--capacity N] [--validate] [--limits-poll-interval S] \\
+        [--capacity N] [--kernel-cache-dir DIR] [--validate] \\
+        [--limits-poll-interval S] \\
         [--log-level L] [--structured-logs] [--limit-name-in-labels] \\
         [--metric-labels CEL_MAP | --metric-labels-file FILE] \\
         [--metrics-exemplars on|off] [--tracing-endpoint URL] \\
@@ -35,7 +36,8 @@ of the slices ported so far:
          [--pod-degraded-mode on|off] [--pod-hedge-ms MS] \\
          [--pod-peer-breaker-failures N] [--pod-peer-breaker-reset-ms MS] \\
          [--pod-events N] [--pod-psum-lane on|off] \\
-         [--pod-psum-interval-ms MS]]
+         [--pod-psum-interval-ms MS] [--pod-resize on|off]] \\
+        [--standby on|off]
 
 Storages: ``torch`` (default) keeps the counter table on the card
 (``--device cuda``, the default) or, for tests, on the CPU
@@ -253,8 +255,27 @@ warn and serve through the routed compiled pipeline (and
 peer's journal replay through ``apply_deltas``); the option checks exit
 2 with the JAX server's messages.
 
-Not in the port yet (``ROADMAP.md``): the elastic pod (resize, standby,
-join) and the capacity controller.
+The elastic pod (``server/resize.py``): with ``--pod-resize on`` a pod
+member arms the topology-epoch gate (forwards carry the topology epoch,
+and a wrong-epoch forward is rejected rerouteable and re-planned) and
+``POST /debug/pod/resize`` ``{"hosts": N, "peers": {...}}`` resizes or
+drains the running pod, migrating each moved slice into its new owner's
+table (idempotent against a per-transition ledger) and releasing it on
+the old owner; an abort reverts to the old topology with nothing lost.
+``--standby on`` boots a memberless warm standby (``server/standby.py``):
+it serves its peer lane as host 0 of 1, runs the decision kernels once at
+each hit bucket on a scratch table of ``--capacity`` and waits for
+``POST /debug/pod/join`` ``{"address": ...}`` on a member (grow; with
+``"replace": ID`` it takes a dead member's id). The environment's
+``TPU_POD_RESIZE_SLICE_PAUSE_MS`` pauses each slice (for drills) and
+``TPU_POD_RESIZE_TIMEOUT_S`` bounds a transition. ``GET
+/debug/pod/resize`` and ``/debug/pod/standby`` serve their state.
+``--kernel-cache-dir`` (the port's stand-in for the JAX server's
+``--xla-cache-dir``) builds the CUDA kernels and the C++ host libraries
+into a directory that outlives the process, set before any build, so
+that a restarted host or a standby loads them instead of compiling.
+
+Not in the port yet (``ROADMAP.md``): the capacity controller.
 """
 
 from __future__ import annotations
@@ -448,6 +469,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--capacity", type=int, default=1 << 20,
         help="device counter-table capacity (torch; sharded: per shard)",
+    )
+    p.add_argument(
+        "--kernel-cache-dir", default=_env("TPU_KERNEL_CACHE_DIR", ""),
+        help="directory the CUDA kernels and the C++ host libraries are "
+        "built into and loaded from (the port's stand-in for "
+        "--xla-cache-dir): builds outlive the process, so that a warm "
+        "standby or any restarted host loads what an earlier process "
+        "built; empty (default) = the package's own _build directory",
     )
     p.add_argument(
         "--global-namespaces", default=_env("GLOBAL_NAMESPACES"),
@@ -840,6 +869,24 @@ def build_parser() -> argparse.ArgumentParser:
         help="pod: pacing of the lockstep psum exchange rounds (also "
         "the over-admission bound's time constant)",
     )
+    p.add_argument(
+        "--pod-resize", choices=["on", "off"],
+        default=_env("TPU_POD_RESIZE", "off"),
+        help="pod: on = arm the elastic-membership plane: forwards carry "
+        "the topology epoch (wrong-epoch forwards are rejected "
+        "rerouteable), the migrate and resize lane kinds serve, and "
+        "POST /debug/pod/resize drives a live resize or drain with "
+        "slice-by-slice migration and no lost update (an abort reverts "
+        "to the old topology). off (default) = no epoch on the wire",
+    )
+    p.add_argument(
+        "--standby", choices=["on", "off"],
+        default=_env("TPU_POD_STANDBY", "off"),
+        help="pod: on = boot as a warm standby: serve the peer lane "
+        "memberless, run the decision kernels once at each hit bucket, "
+        "and wait for a coordinator's join (POST /debug/pod/join on any "
+        "member promotes this host). off (default) = no join kinds armed",
+    )
     return p
 
 
@@ -1000,25 +1047,86 @@ def build_sharded_storage(args, clock=time.time):
     if path and os.path.exists(path):
         data = _read_checkpoint(TorchShardedStorage, path, tiers=False)
     if data is None:
-        return TorchShardedStorage(
+        storage = TorchShardedStorage(
             n_shards=n_shards, local_capacity=args.capacity,
             cache_size=args.cache_size, global_namespaces=sorted(cli_ns),
             global_region=args.global_region, clock=clock,
             device=args.device,
         )
-    storage = TorchShardedStorage.from_snapshot(
-        data, n_shards=n_shards, cache_size=args.cache_size, clock=clock,
-        device=args.device)
-    log.info(f"restored sharded counter table from {path}")
-    for name, cli, snap in (
-            ("--capacity", args.capacity, storage._local_capacity),
-            ("--global-region", args.global_region, storage._global_region),
-            ("--global-namespaces", cli_ns, storage._global_ns)):
-        if cli != snap:
-            log.warning(f"warning: snapshot {name}={snap!r} overrides the "
-                        f"command line's {cli!r} (key routing must match "
-                        "the checkpoint)")
+        if getattr(args, "_pod_snapshot_base", None):
+            # no checkpoint of this member's current shard range (a first
+            # start, or the membership changed since): seed what it owns
+            # now from its siblings' checkpoints
+            _seed_from_sibling_snapshots(
+                storage, args._pod_snapshot_base, args._pod_owned_shards,
+                args._pod_total_shards, clock)
+    else:
+        storage = TorchShardedStorage.from_snapshot(
+            data, n_shards=n_shards, cache_size=args.cache_size,
+            clock=clock, device=args.device)
+        log.info(f"restored sharded counter table from {path}")
+        for name, cli, snap in (
+                ("--capacity", args.capacity, storage._local_capacity),
+                ("--global-region", args.global_region,
+                 storage._global_region),
+                ("--global-namespaces", cli_ns, storage._global_ns)):
+            if cli != snap:
+                log.warning(f"warning: snapshot {name}={snap!r} overrides "
+                            f"the command line's {cli!r} (key routing "
+                            "must match the checkpoint)")
+    if getattr(args, "_pod_snapshot_meta", None):
+        storage.snapshot_meta = args._pod_snapshot_meta
     return storage
+
+
+def _seed_from_sibling_snapshots(storage, base, owned, total_shards,
+                                 clock=time.time) -> int:
+    """The slice-mapped restore after a membership change: decode every
+    sibling checkpoint (``BASE.shards<lo>-<hi>`` and the legacy
+    ``BASE.host<id>``) and seed only the counters this host owns under
+    the current topology through ``apply_deltas`` (B7c's host form):
+    fresh windows, exact spends. Each counter seeds from one file, the
+    newest that holds it. Returns the number of counters seeded."""
+    import glob
+
+    from ..device.sharded import snapshot_items
+    from ..routing import counter_key, stable_hash
+
+    lo, hi = owned
+    files = sorted(
+        set(glob.glob(base + ".shards*") + glob.glob(base + ".host*"))
+    )
+    files = [f for f in files
+             if not (f.endswith(".rejected") or f.endswith(".tmp"))]
+    files.sort(key=lambda f: os.path.getmtime(f), reverse=True)
+    seeded = 0
+    seen = set()
+    for path in files:
+        try:
+            items = snapshot_items(path, clock=clock)
+        except Exception as exc:
+            log.warning(f"pod: sibling snapshot {path} undecodable "
+                        f"({exc}); skipped")
+            continue
+        mine = []
+        for counter, value in items:
+            key = counter_key(counter)
+            if key in seen:
+                continue
+            if lo <= stable_hash(key) % total_shards < hi:
+                seen.add(key)
+                mine.append((counter, value))
+        if not mine:
+            continue
+        try:
+            storage.apply_deltas(mine)
+            seeded += len(mine)
+        except Exception as exc:
+            log.warning(f"pod: seeding from {path} failed: {exc}")
+    if seeded:
+        log.info(f"pod: slice-mapped restore seeded {seeded} owned "
+                 f"counters from {len(files)} sibling checkpoint(s)")
+    return seeded
 
 
 def _host_refusals(args) -> None:
@@ -1147,6 +1255,22 @@ def _pod_refusals(args) -> None:
             f"--pod-process-id {args.pod_process_id} outside "
             f"[0, {args.pod_processes})"
         )
+    if args.standby == "on":
+        if args.pod_processes > 1:
+            raise ValueError(
+                "--standby on: this process already formed a pod (a "
+                "member is not a standby)"
+            )
+        if args.storage in ("cached", "distributed"):
+            raise ValueError(
+                f"storage {args.storage!r} cannot serve a pod: a member's "
+                "storage must take a peer's journal replay (apply_deltas)"
+            )
+    elif args.pod_resize == "on" and args.pod_processes <= 1:
+        raise ValueError(
+            "--pod-resize on needs a pod (--pod-processes > 1) or "
+            "--standby on"
+        )
     if args.pod_processes <= 1:
         return
     peers = _pod_peers(args)
@@ -1185,9 +1309,24 @@ def form_pod(args):
         f"{pod.local_device_count} local of {pod.global_device_count} "
         "global shards")
     if args.snapshot_path:
-        # A member checkpoints its own shard range and restores only it.
+        # A member checkpoints its own shard range and restores only it;
+        # after a membership change that file is missing, and a sharded
+        # member seeds what it owns now from its siblings' checkpoints
+        # (``_seed_from_sibling_snapshots``).
         sph = max(pod.local_device_count, 1)
         lo = pod.process_id * sph
+        args._pod_snapshot_base = args.snapshot_path
+        args._pod_owned_shards = (lo, lo + sph)
+        args._pod_total_shards = pod.num_processes * sph
+        args._pod_snapshot_meta = {
+            "owned_shards": [lo, lo + sph],
+            "topology": {
+                "hosts": pod.num_processes,
+                "host_id": pod.process_id,
+                "shards_per_host": sph,
+                "total_shards": pod.num_processes * sph,
+            },
+        }
         args.snapshot_path = f"{args.snapshot_path}.shards{lo}-{lo + sph}"
         log.info(f"pod: per-shard-range snapshot path {args.snapshot_path}")
     return pod
@@ -1255,7 +1394,92 @@ def build_pod_frontend(args, pod, limiter):
         log.info(f"pod psum lane: lockstep exchange every "
                  f"{interval_ms:.0f}ms (global namespaces: "
                  f"{sorted(global_ns)})")
+    if args.pod_resize == "on":
+        # Inert until POST /debug/pod/resize (or a peer's proposal)
+        # drives a transition, but forwards carry the topology epoch and
+        # the wrong-owner gate serves from now on.
+        from .resize import PodResizeCoordinator
+
+        coordinator = PodResizeCoordinator(
+            frontend,
+            peers={i: url for i, url in enumerate(peer_urls)},
+            listen_address=peer_urls[pod.process_id],
+            slice_pause_s=float(
+                _env("TPU_POD_RESIZE_SLICE_PAUSE_MS", "0") or 0) / 1e3,
+            transition_timeout_s=float(
+                _env("TPU_POD_RESIZE_TIMEOUT_S", "60") or 60),
+        )
+        frontend.attach_resize(coordinator)
+        log.info("elastic pod armed: POST /debug/pod/resize drives a live "
+                 "resize or drain (topology epoch "
+                 f"{frontend.router.topology_epoch})")
     return frontend
+
+
+def build_standby_frontend(args, limiter):
+    """With ``--standby on``: wrap ``limiter`` in a memberless pod
+    frontend (host 0 of a provisional pod of one, its peer lane on
+    ``--pod-peer-listen``, default ``--rls-host``:``--rls-port`` + 2) with
+    a resize coordinator and the WarmStandby that arms the join kinds;
+    the caller warms it. Else None."""
+    if args.standby != "on":
+        return None
+    from ..routing import PodRouter, PodTopology
+    from .peering import PeerLane, PodFrontend, PodResilience
+    from .resize import PodResizeCoordinator
+    from .standby import WarmStandby
+
+    degraded = args.pod_degraded_mode == "on"
+    resilience = PodResilience(
+        degraded=degraded,
+        retry=degraded,
+        hedge_ms=max(args.pod_hedge_ms, 0.0),
+        breaker_failures=args.pod_peer_breaker_failures,
+        breaker_reset_s=args.pod_peer_breaker_reset_ms / 1e3,
+        probe_interval_s=float(_env("TPU_POD_PROBE_MS", "500")) / 1e3,
+    )
+    listen = args.pod_peer_listen or f"{args.rls_host}:{args.rls_port + 2}"
+    lane = PeerLane(0, listen, {}, None, resilience=resilience)
+    frontend = PodFrontend(
+        limiter, PodRouter(PodTopology(hosts=1, host_id=0,
+                                       shards_per_host=1)),
+        lane,
+        global_namespaces={
+            ns for ns in (args.global_namespaces or "").split(",") if ns},
+        resilience=resilience, events_capacity=max(args.pod_events, 1),
+    )
+    coordinator = PodResizeCoordinator(
+        frontend, peers={}, listen_address=listen,
+        transition_timeout_s=float(
+            _env("TPU_POD_RESIZE_TIMEOUT_S", "60") or 60),
+    )
+    frontend.attach_resize(coordinator)
+    WarmStandby(
+        frontend, coordinator,
+        table_capacity=(args.capacity if args.storage in DEVICE_STORAGES
+                        else None),
+        device=args.device if args.storage in DEVICE_STORAGES else "cpu",
+    )
+    return frontend
+
+
+def arm_kernel_cache(args) -> None:
+    """``--kernel-cache-dir``: build the CUDA kernels and the C++ host
+    libraries into (and load them from) the directory, before any build.
+    Raises ValueError where it cannot be created."""
+    if not args.kernel_cache_dir:
+        return
+    from ..native import build as native_build
+    from ..ops import build as kernel_build
+
+    try:
+        os.makedirs(args.kernel_cache_dir, exist_ok=True)
+    except OSError as exc:
+        raise ValueError(
+            f"--kernel-cache-dir {args.kernel_cache_dir}: {exc}") from exc
+    kernel_build.set_build_dir(args.kernel_cache_dir)
+    native_build.set_build_dir(args.kernel_cache_dir)
+    log.info(f"kernel build cache: {args.kernel_cache_dir}")
 
 
 def serve_shards(args, limiter, metrics, native_pipeline, admission,
@@ -1928,6 +2152,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     ``on_failure(exc)``."""
     _ingress_refusals(args)
     _pod_refusals(args)
+    arm_kernel_cache(args)
     tracing.configure_tracing(args.tracing_endpoint)
     tracing.set_sample_rate(args.tracing_sample_rate)
     # Before any recorder is made: a recorder arms its serving-model tap
@@ -1954,7 +2179,8 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     )
     pod_frontend = None
     try:
-        pod_frontend = build_pod_frontend(args, pod, limiter)
+        pod_frontend = (build_pod_frontend(args, pod, limiter)
+                        or build_standby_frontend(args, limiter))
         if pod_frontend is not None:
             limiter = pod_frontend
         native_pipeline = build_native(args, limiter, metrics,
@@ -1962,6 +2188,11 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
         if pod_frontend is not None and native_pipeline is not None:
             native_pipeline = await attach_pod_pipeline(
                 pod_frontend, native_pipeline)
+        if pod_frontend is not None and pod_frontend.standby is not None:
+            # the kernels' build and first launches, before the lane
+            # serves: raises where a kernel cannot build or launch
+            await asyncio.get_running_loop().run_in_executor(
+                None, pod_frontend.standby.warm)
         if device and args.usage_topk > 0:
             from ..observability.usage import TenantUsageObservatory
 
@@ -2188,7 +2419,10 @@ async def _amain(args) -> int:
                 if server.admission is not None else "")
              + (f", {args.serving_shards} serving loops"
                 if server.serving_shards else "")
-             + (f", pod host {args.pod_process_id} of "
+             + (f", warm standby, peer lane on port "
+                f"{server.pod.lane.port}"
+                if server.pod is not None and args.standby == "on"
+                else f", pod host {args.pod_process_id} of "
                 f"{args.pod_processes}, peer lane on port "
                 f"{server.pod.lane.port}"
                 if server.pod is not None else "")

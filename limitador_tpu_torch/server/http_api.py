@@ -62,14 +62,19 @@ and the debug endpoints of the planes the port has:
     GET  /debug/events      the pod's typed event timeline (?n= trims to
                             the newest N, ?kind= filters; 404 without a
                             pod)
+    GET  /debug/pod/resize  the elastic pod's transition state machine
+                            (404 without a pod or with --pod-resize off)
+    POST /debug/pod/resize  {"hosts": N, "peers"?: {id: addr}}: a live
+                            resize or drain (400 malformed, 409 refused
+                            or aborted)
+    GET  /debug/pod/standby the warm standby's warm-up and join state
+                            (404 unless --standby on)
+    POST /debug/pod/join    {"address", "replace"?: id}: promote a warm
+                            standby into the pod
 
 POST bodies are CheckAndReportInfo: {"namespace", "values": {str: str},
 "delta", "response_headers": optional "DRAFT_VERSION_03"}
 (request_types.rs:10-16).
-
-The debug routes of planes not ported yet stay unregistered (404):
-``/debug/pod/resize``, ``/debug/pod/standby`` and ``/debug/pod/join``
-(the elastic pod, ROADMAP Queue A item 7c).
 """
 
 from __future__ import annotations
@@ -114,6 +119,8 @@ DEBUG_SOURCE_SECTIONS = (
     ("pod_events", "events_debug"),
     ("pod_routing", "routing_debug"),
     ("capacity", "capacity_debug"),
+    ("pod_resize", "resize_debug"),
+    ("standby", "standby_debug"),
     ("flight", "flight_debug"),
     ("tiering", "tiering_debug"),
     ("authority", "authority_stats"),
@@ -135,6 +142,8 @@ DEBUG_STATS_SECTIONS = (
     "pod_events",
     "pod_routing",
     "capacity",
+    "pod_resize",
+    "standby",
     "flight",
     "tiering",
     "authority",
@@ -338,6 +347,58 @@ def _openapi_spec() -> dict:
                     "responses": {
                         "200": {"description": "ownership map"},
                         "404": {"description": "not a pod"},
+                    },
+                }
+            },
+            "/debug/pod/resize": {
+                "get": {
+                    "summary": "Elastic pod: the live membership-"
+                               "transition state machine (epochs, "
+                               "moved slices, received ledger)",
+                    "responses": {
+                        "200": {"description": "resize status"},
+                        "404": {"description": "not a pod or "
+                                               "--pod-resize off"},
+                    },
+                },
+                "post": {
+                    "summary": "Drive a live pod resize: {hosts: N, "
+                               "peers: {id: addr}} migrates owned "
+                               "slices epoch-gated with zero lost "
+                               "updates; aborts revert to the old "
+                               "topology",
+                    "responses": {
+                        "200": {"description": "transition complete"},
+                        "400": {"description": "malformed proposal"},
+                        "404": {"description": "not a pod or "
+                                               "--pod-resize off"},
+                        "409": {"description": "refused or aborted"},
+                    },
+                },
+            },
+            "/debug/pod/standby": {
+                "get": {
+                    "summary": "Warm standby: warm-up state (compiled "
+                               "kernel buckets, seconds), join "
+                               "readiness and time-to-first-decision",
+                    "responses": {
+                        "200": {"description": "standby status"},
+                        "404": {"description": "not a warm standby"},
+                    },
+                }
+            },
+            "/debug/pod/join": {
+                "post": {
+                    "summary": "Promote a warm standby into the pod: "
+                               "{address} grows by one host; {address, "
+                               "replace: id} re-points a dead member "
+                               "with zero slice movement",
+                    "responses": {
+                        "200": {"description": "join complete"},
+                        "400": {"description": "malformed request"},
+                        "404": {"description": "not a pod or "
+                                               "--pod-resize off"},
+                        "409": {"description": "refused or aborted"},
                     },
                 }
             },
@@ -680,6 +741,119 @@ class _Api:
             )
         return web.json_response(fn())
 
+    def _resize_coordinator(self):
+        fn = self._debug_source_fn("resize_debug")
+        if fn is None:
+            return None, web.json_response(
+                {"error": "not a pod (single-host deployment)"},
+                status=404,
+            )
+        out = fn()
+        if not out.get("armed"):
+            return None, web.json_response(
+                {"error": "pod resize not armed (--pod-resize off)"},
+                status=404,
+            )
+        return out, None
+
+    async def get_debug_pod_resize(
+        self, request: web.Request
+    ) -> web.Response:
+        """The elastic-membership state machine: the live
+        transition (state, epochs, moved slices), the received-slice
+        ledger and cumulative resize counters."""
+        out, err = self._resize_coordinator()
+        if err is not None:
+            return err
+        return web.json_response(out)
+
+    async def post_debug_pod_resize(
+        self, request: web.Request
+    ) -> web.Response:
+        """Drive a LIVE membership transition: ``{"hosts": N,
+        "peers": {"2": "host:port", ...}}`` resizes the running pod to
+        N hosts (peers must name every member the coordinator does not
+        already know). Blocks until the transition completes or aborts;
+        an abort reverts to the old topology with nothing lost."""
+        _out, err = self._resize_coordinator()
+        if err is not None:
+            return err
+        try:
+            data = await request.json()
+            hosts = int(data["hosts"])
+            peers = {
+                int(h): str(a)
+                for h, a in (data.get("peers") or {}).items()
+            }
+        except (KeyError, ValueError, TypeError) as exc:
+            return web.json_response(
+                {"error": f"bad request: {exc}"}, status=400
+            )
+        resize_fn = self._debug_source_fn("pod_resize_admin")
+        loop = asyncio.get_running_loop()
+        try:
+            out = await loop.run_in_executor(
+                None, lambda: resize_fn(hosts, peers)
+            )
+        except ValueError as exc:
+            return web.json_response({"error": str(exc)}, status=409)
+        except StorageError as exc:
+            return web.json_response({"error": str(exc)}, status=500)
+        return web.json_response(out, status=200 if out.get("ok") else 409)
+
+    async def get_debug_pod_standby(
+        self, request: web.Request
+    ) -> web.Response:
+        """Warm-standby state: warm-up progress (compiled
+        kernel buckets, seconds), join readiness and — after a
+        promotion — the joiner's time-to-first-decision."""
+        fn = self._debug_source_fn("standby_debug")
+        out = fn() if fn is not None else None
+        if out is None or not out.get("armed"):
+            return web.json_response(
+                {"error": "not a warm standby (--standby off)"},
+                status=404,
+            )
+        return web.json_response(out)
+
+    async def post_debug_pod_join(
+        self, request: web.Request
+    ) -> web.Response:
+        """Promote a warm standby into the running pod:
+        ``{"address": "host:port"}`` grows the pod by one host (the
+        standby becomes the next host id); ``{"address": ...,
+        "replace": <dead id>}`` re-points a dead member's host id at
+        the standby with zero slice movement. Blocks until the join
+        completes or aborts."""
+        _out, err = self._resize_coordinator()
+        if err is not None:
+            return err
+        try:
+            data = await request.json()
+            address = str(data["address"])
+            replace = data.get("replace")
+            if replace is not None:
+                replace = int(replace)
+            seed_plans = bool(data.get("seed_plans", True))
+        except (KeyError, ValueError, TypeError) as exc:
+            return web.json_response(
+                {"error": f"bad request: {exc}"}, status=400
+            )
+        join_fn = self._debug_source_fn("pod_join_admin")
+        loop = asyncio.get_running_loop()
+        try:
+            out = await loop.run_in_executor(
+                None,
+                lambda: join_fn(
+                    address, replace=replace, seed_plans=seed_plans
+                ),
+            )
+        except ValueError as exc:
+            return web.json_response({"error": str(exc)}, status=409)
+        except StorageError as exc:
+            return web.json_response({"error": str(exc)}, status=500)
+        return web.json_response(out, status=200 if out.get("ok") else 409)
+
     async def get_debug_events(self, request: web.Request) -> web.Response:
         """The pod's typed event timeline (``?n=N`` keeps the newest N,
         ``?kind=`` one kind); mergeable pod-wide by (host, seq)."""
@@ -928,6 +1102,10 @@ def make_http_app(
     app.router.add_get("/debug/pod", api.get_debug_pod)
     app.router.add_get("/debug/pod/routing", api.get_debug_pod_routing)
     app.router.add_get("/debug/events", api.get_debug_events)
+    app.router.add_get("/debug/pod/resize", api.get_debug_pod_resize)
+    app.router.add_post("/debug/pod/resize", api.post_debug_pod_resize)
+    app.router.add_get("/debug/pod/standby", api.get_debug_pod_standby)
+    app.router.add_post("/debug/pod/join", api.post_debug_pod_join)
     app.router.add_get("/debug/capacity", api.get_debug_capacity)
     app.router.add_get("/debug/flight", api.get_debug_flight)
     app.router.add_post("/debug/flight/trigger",

@@ -63,9 +63,18 @@ on the owner, ``pod_bulk_served_rows``. The ``flight`` kind answers a
 triggered peer's flight engine with this host's rings over its incident
 window (``admin_call`` is the engine's blocking client).
 
-The request kinds of the elastic pod (``resize_admin``, ``join_admin``,
-``plan_seed``, ``psum_share``, ``migrate``) answer as the JAX lane
-answers a kind with no handler attached.
+The elastic pod (``server/resize.py``): ``PodFrontend.attach_resize``
+arms the topology-epoch gate. Forwards, bulk hops and their flight
+entries then carry the topology epoch (``tepoch``), and an owner on
+another epoch answers the typed rerouteable ``stale_epoch`` instead of
+deciding a key it does not own; the origin adopts the newer topology the
+rejection carries and re-plans in band (a bulk hop answers all-None, so
+that each row takes its per-request path). The lane kinds
+``resize_admin``, ``migrate``, ``join_admin``, ``plan_seed`` and
+``psum_share`` go to the coordinator, the frontend's plan seed and the
+psum transport once each is attached; unattached, they answer as the JAX
+lane answers them. Without a coordinator the wire carries no ``tepoch``
+and every forward serves.
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ from __future__ import annotations
 import asyncio
 import base64
 import collections
+import hashlib
 import inspect
 import json
 import logging
@@ -112,6 +122,8 @@ __all__ = [
     "PEER_SERVICE",
     "PEER_METHOD",
     "METRIC_FAMILIES",
+    "STALE_EPOCH",
+    "psum_share_sender",
 ]
 
 log = logging.getLogger("limitador_tpu_torch.pod")
@@ -159,8 +171,13 @@ METRIC_FAMILIES = (
     "pod_bulk_served_rows",
 )
 
-#: what the lane answers for the request kinds of the elastic pod, as
-#: the JAX lane answers them with no handler attached
+#: the typed rerouteable status of a wrong-epoch forward: the owner's
+#: gate answers it instead of deciding a key it does not (or does not
+#: yet) own; the origin adopts the newer topology and re-plans
+STALE_EPOCH = "stale_epoch"
+
+#: what the lane answers for the request kinds of the elastic pod with
+#: no handler attached, as the JAX lane answers them
 _UNARMED = {
     "resize_admin": {"ok": False, "error": "pod resize not armed"},
     "migrate": {"ok": False, "error": "pod resize not armed"},
@@ -336,6 +353,18 @@ class PeerHealth:
             self.transitions += 1
             return new
 
+    def set_peers(self, peers) -> None:
+        """Adopt a new peer set (a membership change): new peers start up
+        with a clean failure count, departed peers drop out."""
+        with self._health_lock:
+            peers = set(peers)
+            for peer in peers - set(self._state):
+                self._state[peer] = PeerState.UP
+                self._failures[peer] = 0
+            for peer in set(self._state) - peers:
+                self._state.pop(peer, None)
+                self._failures.pop(peer, None)
+
     def record_success(self, peer: int) -> Optional[str]:
         with self._health_lock:
             if peer not in self._state:
@@ -473,6 +502,30 @@ class PeerLane:
         #: of a bulk forward (the native pipeline's
         #: ``decide_blobs_for_peer``, set by ``attach_pipeline``)
         self.bulk_cb = None
+        #: elastic pod attach points, wired by ``attach_resize`` (None:
+        #: no epoch on the wire, every forward serves).
+        #: ``epoch_provider`` -> the topology epoch (stamped on
+        #: forwards, gated on serves); ``stale_info_provider`` -> the
+        #: topology and peers a stale rejection carries;
+        #: ``migrate_cb(payload) -> dict`` applies one migrated slice
+        #: batch (blocking, run off the loop); ``resize_cb(payload) ->
+        #: dict`` answers the resize control ops (fast, on the loop)
+        self.epoch_provider: Optional[Callable[[], int]] = None
+        self.stale_info_provider: Optional[Callable[[], dict]] = None
+        self.migrate_cb = None
+        self.resize_cb = None
+        #: the fast join's attach points: ``plan_seed_cb(payload) ->
+        #: dict`` imports a shipped plan seed (off the loop);
+        #: ``join_cb(payload)`` answers the join ops (a dict, or a
+        #: coroutine the loop awaits); ``psum_share_cb(host, raw)``
+        #: delivers a peer's psum partials to the PeerPsumTransport
+        self.plan_seed_cb = None
+        self.join_cb = None
+        self.psum_share_cb = None
+        #: callable(resp dict): a forward came back stale_epoch (the
+        #: origin's adoption, ``PodResizeCoordinator.adopt_remote``)
+        self.on_stale = None
+        self.stale_rejects = 0
         #: sync callable (host) -> bool run on a recovery thread when a
         #: probe finds a non-up peer answering again; True marks the
         #: peer up (the frontend replays its journal first)
@@ -615,13 +668,113 @@ class PeerLane:
         for channel, _call in self._channels.values():
             await channel.close()
         await self._server.stop(grace=0.5)
+        # the threads that ran blocking handlers (a replay, a migrate, a
+        # plan seed) end with the lane
+        await self._loop.shutdown_default_executor()
 
     def stop(self) -> None:
         self._stopping.set()
         if self._thread is not None:
             self._thread.join(timeout=5)
 
+    def set_peers(self, peers: Dict[int, str]) -> None:
+        """Adopt a new peer map on a running lane (a membership change),
+        from any thread: the dict swap is atomic, health adds and removes
+        under its own lock, and the cached channels of departed peers (or
+        of a host id whose address moved, a standby taking a dead
+        member's id) are closed on the lane loop."""
+        peers = {int(h): str(addr) for h, addr in peers.items()}
+        peers.pop(self.host_id, None)
+        old = self.peers
+        self.peers = peers
+        self.health.set_peers(peers)
+        stale = [h for h in old if h not in peers] + [
+            h for h, addr in peers.items()
+            if h in old and old[h] != addr
+        ]
+        loop = self._loop
+        if stale and loop is not None and loop.is_running():
+            def _close_stale():
+                for host in stale:
+                    entry = self._channels.pop(host, None)
+                    if entry is not None:
+                        asyncio.ensure_future(entry[0].close())
+            loop.call_soon_threadsafe(_close_stale)
+
     # -- server side ---------------------------------------------------------
+
+    def _stale_response(self) -> bytes:
+        """The typed rerouteable rejection of a wrong-epoch forward: this
+        host's topology epoch and, with the resize plane armed, its
+        topology and peers, so that a behind origin adopts and re-plans."""
+        self.stale_rejects += 1
+        provider = self.epoch_provider
+        out = {
+            "ok": False,
+            STALE_EPOCH: True,
+            "tepoch": int(provider()) if provider is not None else 0,
+        }
+        info_provider = self.stale_info_provider
+        if info_provider is not None:
+            try:
+                out.update(info_provider() or {})
+            except Exception:
+                pass
+        return json.dumps(out).encode()
+
+    def _epoch_mismatch(self, payload: dict) -> bool:
+        """The owner's epoch gate: one int compare a payload (a batch on
+        the bulk path, never a row), and only with the resize plane
+        armed here; an unstamped payload serves."""
+        provider = self.epoch_provider
+        if provider is None or "tepoch" not in payload:
+            return False
+        return int(payload["tepoch"]) != int(provider())
+
+    async def _serve_elastic(self, kind: str, payload: dict) -> bytes:
+        """The elastic pod's kinds: the resize and join control ops on
+        the loop (a lock and a state flip), a migrate batch and a plan
+        seed off it (blocking table work), a psum share inline."""
+        if kind == "resize_admin" or kind == "join_admin":
+            handler = self.resize_cb if kind == "resize_admin" \
+                else self.join_cb
+            if handler is None:
+                return json.dumps(_UNARMED[kind]).encode()
+            try:
+                out = handler(payload)
+                if inspect.isawaitable(out):
+                    # the joiner's "limits" op runs configure_with, a
+                    # coroutine on this loop
+                    out = await out
+                out = out or {}
+            except Exception as exc:
+                out = {"ok": False, "error": f"{exc}"[:200]}
+            return json.dumps(out).encode()
+        if kind == "psum_share":
+            hook = self.psum_share_cb
+            if hook is not None:
+                try:
+                    hook(
+                        int(payload.get("from", -1)),
+                        base64.b64decode(payload.get("payload") or b""),
+                    )
+                except Exception:
+                    pass
+            return json.dumps({"ok": True}).encode()
+        # plan_seed is not epoch-gated: it lands on a joiner mid-adoption,
+        # and the cache's put() discards rows whose limits epoch moved.
+        # A migrate stamped for a transition this host has left must not
+        # seed counters it does not own.
+        handler = self.migrate_cb if kind == "migrate" \
+            else self.plan_seed_cb
+        if handler is None:
+            return json.dumps(_UNARMED[kind]).encode()
+        if kind == "migrate" and self._epoch_mismatch(payload):
+            return self._stale_response()
+        out = await asyncio.get_running_loop().run_in_executor(
+            None, handler, payload
+        )
+        return json.dumps(out or {"ok": True}).encode()
 
     async def _serve_decide(self, blob: bytes, context) -> bytes:
         payload = json.loads(blob.decode())
@@ -629,7 +782,7 @@ class PeerLane:
         if kind == "ping":
             return json.dumps({"ok": True, "pong": True}).encode()
         if kind in _UNARMED:
-            return json.dumps(_UNARMED[kind]).encode()
+            return await self._serve_elastic(kind, payload)
         if kind == "flight":
             # A triggered peer asks for this host's rings over its
             # incident window; contribute() is one lock and list copies,
@@ -646,6 +799,10 @@ class PeerLane:
                 ),
             }).encode()
         if kind == "bulk_decide":
+            if self._epoch_mismatch(payload):
+                # a whole batch routed by a dead topology: one rejection
+                # (one compare a batch); the origin re-plans every row
+                return self._stale_response()
             return await self._serve_bulk(payload, context)
         if kind == "signals":
             # Ingest the caller's column, answer with ours: one RPC a
@@ -679,6 +836,10 @@ class PeerLane:
                 None, self.apply_cb, payload.get("deltas", [])
             )
             return json.dumps({"ok": True, "applied": int(applied)}).encode()
+        if self._epoch_mismatch(payload):
+            # a unary forward (FORWARD and PINNED alike) stamped with an
+            # epoch this host is not on would be decided by a wrong owner
+            return self._stale_response()
         self.served += 1
         # Adopt the origin's request id for this task's context, so that
         # this host's flight entries and spans correlate with the hop's
@@ -1122,6 +1283,10 @@ class PeerLane:
         })
         self.bulk_forwards += 1
         self.bulk_forward_rows += len(blobs)
+        if resp.get(STALE_EPOCH):
+            # the batch was routed by a dead topology: every row takes
+            # its per-request path, which re-plans under the adopted one
+            return [None] * len(blobs)
         return [
             None if p is None else base64.b64decode(p)
             for p in resp.get("payloads", ())
@@ -1142,7 +1307,13 @@ class PeerLane:
             raise RuntimeError("pod peer lane is not running")
         request_id = _wire_request_id(current_request_id())
         t0 = time.perf_counter()
-        blob = json.dumps(build()).encode()
+        wire = build()
+        provider = self.epoch_provider
+        if provider is not None:
+            # resize armed: the topology epoch the routing verdict was
+            # computed under (one int a payload)
+            wire["tepoch"] = int(provider())
+        blob = json.dumps(wire).encode()
         serialize_s = time.perf_counter() - t0
         metadata = None
         pairs = hop_trace_metadata()
@@ -1166,6 +1337,16 @@ class PeerLane:
         with self._latency_lock:
             self._latencies_ms.append(total_s * 1e3)
         resp = json.loads(raw.decode())
+        if resp.get(STALE_EPOCH):
+            # adopt the rejection's (possibly newer) topology before the
+            # caller re-plans, so that the re-plan routes by it
+            hook = self.on_stale
+            if hook is not None:
+                try:
+                    hook(resp)
+                except Exception:
+                    pass
+            return resp
         hook = self.on_hop
         if hook is not None:
             # The owner reports its decide time; wire is the remainder
@@ -1199,6 +1380,9 @@ class PeerLane:
             "pod_bulk_forward_rows": self.bulk_forward_rows,
             "pod_bulk_served_rows": self.bulk_served_rows,
             "pod_peer_p99_ms": round(self.peer_p99_ms(), 3),
+            # the owner's wrong-epoch rejections (a pod_resize_* family,
+            # counted at the lane's gate)
+            "pod_resize_stale_rejects": self.stale_rejects,
             "peer_health_state": self.health.states(),
             "peer_health_retries": self.retries,
             "peer_health_hedges_won": self.hedges_won,
@@ -1305,6 +1489,17 @@ class PodFrontend:
         self.psum_lane = None
         #: the native pipeline of the pod fast path (``attach_pipeline``)
         self.pipeline = None
+        #: PodResizeCoordinator (``server/resize.py``); None: no epoch on
+        #: the wire, no gate
+        self.resize = None
+        #: WarmStandby (``server/standby.py``); None: not a standby, the
+        #: join kinds unarmed
+        self.standby = None
+        #: forwards answered stale_epoch and re-planned in band
+        self.stale_replans = 0
+        #: the last applied limits generation: the resize coordinator
+        #: finds the counters to migrate from it
+        self._last_limits: List = []
         # The pod's typed event timeline, the per-hop recorder and the
         # federated signal aggregator: always on (bounded rings, off the
         # decision path); the lane emits through the hooks below.
@@ -1356,6 +1551,7 @@ class PodFrontend:
         if self.psum_lane is not None:
             served = self.psum_lane.configure(limits, self._global_ns)
             pinned_global = self._global_ns - served
+        self._last_limits = limits
         self.router.configure(limits, pinned_global)
         self.events.emit(
             "routing_epoch", epoch=self.router.epoch, limits=len(limits)
@@ -1380,7 +1576,225 @@ class PodFrontend:
         split (no hot lane, a pod past the int8 owner encoding)."""
         pipeline.attach_pod(self)
         self.pipeline = pipeline
-        self.lane.bulk_cb = pipeline.decide_blobs_for_peer
+        self.lane.bulk_cb = self._decide_blobs_for_peer
+
+    async def _decide_blobs_for_peer(self, blobs):
+        """The owner's side of a bulk hop: the pipeline's bulk pass, with
+        a just-promoted joiner's first answer stamped as for a unary
+        forward (``_joined``)."""
+        rz = self.resize
+        if rz is not None and rz._join_adopted_at is not None:
+            return await self._joined(
+                "_bulk", self.pipeline.decide_blobs_for_peer(blobs))
+        return await self.pipeline.decide_blobs_for_peer(blobs)
+
+    def attach_psum_transport(self, transport) -> None:
+        """Wire a ``parallel.pod.PeerPsumTransport`` into this lane: the
+        peers' published partials arrive through the ``psum_share`` kind,
+        and this host's ride ``psum_share_sender`` from the psum pacer."""
+        self.lane.psum_share_cb = transport.receive
+
+    # -- the fast join: shipped plan caches ----------------------------------
+
+    def _limits_fingerprint(self) -> str:
+        """A digest of the applied limits generation: a plan seed carries
+        it, so that a seed derived under one limits file never lands on a
+        joiner that applied another."""
+        from ..device.plan_cache import _limit_identity_to_wire
+
+        idents = sorted(
+            json.dumps(_limit_identity_to_wire(lim), sort_keys=True)
+            for lim in self._last_limits
+        )
+        return hashlib.sha256(
+            "\n".join(idents).encode()
+        ).hexdigest()[:16]
+
+    def plan_seed_export(self, max_entries: int = 4096) -> dict:
+        """This host's decision-plan cache as one seed payload (sent to a
+        joiner over the ``plan_seed`` kind). Kernel plans carry counter
+        identities, not slots: the importer resolves its own."""
+        cache = (
+            getattr(self.pipeline, "plan_cache", None)
+            if self.pipeline is not None else None
+        )
+        if cache is None:
+            return {"entries": [], "limits_fp": self._limits_fingerprint()}
+        table = self.pipeline.storage._table
+
+        def counter_of_slot(slot):
+            entry = table.info.get(slot)
+            return entry[1] if entry is not None else None
+
+        return {
+            "entries": cache.export_seed(
+                counter_of_slot, max_entries=max_entries
+            ),
+            "limits_fp": self._limits_fingerprint(),
+        }
+
+    def plan_seed_import(self, payload: dict) -> dict:
+        """The joiner's side of a shipped seed: each entry rebuilt
+        against this host's slot table through the cache's put(), so that
+        a limits reload racing the ship discards it. A seed of another
+        limits generation (fingerprint) is discarded whole. A slot the
+        import allocates has its cell cleared before the table's next
+        access (B3b's host form), as any fresh slot."""
+        cache = (
+            getattr(self.pipeline, "plan_cache", None)
+            if self.pipeline is not None else None
+        )
+        if cache is None:
+            return {"ok": False, "error": "no plan cache attached"}
+        fp = payload.get("limits_fp")
+        if fp is not None and fp != self._limits_fingerprint():
+            self.events.emit("plan_seeded", seeded=0, stale=True)
+            return {"ok": True, "seeded": 0, "stale_limits": True}
+        storage = self.pipeline.storage
+
+        def slot_of_counter(counter):
+            with storage._lock:
+                slot, fresh = storage._slot_for(counter, create=True)
+                if fresh and slot is not None:
+                    storage._stage_clear(slot)
+            return slot
+
+        entries = payload.get("entries") or ()
+        seeded = cache.import_seed(
+            entries, slot_of_counter, epoch=cache.epoch
+        )
+        self.events.emit(
+            "plan_seeded", entries=len(entries), seeded=seeded
+        )
+        return {"ok": True, "seeded": seeded}
+
+    # -- the elastic pod -----------------------------------------------------
+
+    def attach_resize(self, coordinator) -> None:
+        """Arm the elastic-membership plane: forwards carry the topology
+        epoch, the owner's gate rejects a wrong-epoch forward
+        rerouteable, and the lane's ``migrate``/``resize_admin`` kinds go
+        to the coordinator. Without this call nothing of the wire
+        changes."""
+        self.resize = coordinator
+        self.lane.epoch_provider = (
+            lambda: self.router.topology_epoch
+        )
+        self.lane.stale_info_provider = coordinator.stale_info
+        self.lane.migrate_cb = coordinator.handle_migrate
+        self.lane.resize_cb = coordinator.handle_admin
+        self.lane.on_stale = coordinator.adopt_remote
+
+    def ensure_guards(self) -> None:
+        """Degraded-owner guards for peers that joined after construction
+        (a membership change): every owner keeps the failover net."""
+        if not self._resilience.degraded:
+            return
+        for owner in self.lane.peers:
+            if owner not in self._guards:
+                guard = _OwnerGuard(owner, self._resilience)
+                guard.breaker.listeners.append(
+                    self._breaker_listener(owner)
+                )
+                self._guards[owner] = guard
+
+    async def _stale_replan(self, namespace, ctx, delta, load, kind):
+        """A forward was rejected stale_epoch: the topology moved under
+        the request. Re-plan under the current (maybe just adopted)
+        topology, at most three times with short waits (the commit
+        broadcast lands within milliseconds); the degraded stand-in is the
+        last resort, so that a membership change never fails a request
+        the failover can answer."""
+        self.stale_replans += 1
+        owner = None
+        counters: List[Counter] = []
+        for attempt in range(3):
+            verdict, owner, counters = self._route(namespace, ctx)
+            if verdict == LOCAL:
+                if kind == "is_rate_limited":
+                    return await self._local_is_limited(
+                        namespace, ctx, delta, counters
+                    )
+                if kind == "update_counters":
+                    await self._local_update(
+                        namespace, ctx, delta, counters
+                    )
+                    return None
+                return await self._local_check(
+                    namespace, ctx, delta, load, counters
+                )
+            guard = self._guards.get(owner)
+            if guard is not None and guard.breaker.is_open():
+                return self._degraded_decide(
+                    guard, counters, delta, load, kind
+                )
+            try:
+                resp = await self.lane.forward(
+                    owner, namespace, ctx, delta, load, kind=kind
+                )
+            except Exception as exc:
+                err = StorageError(
+                    f"pod peer host {owner} unavailable: {exc}"
+                )
+                if guard is not None:
+                    guard.breaker.record_failure(err)
+                    return self._degraded_decide(
+                        guard, counters, delta, load, kind
+                    )
+                raise err from exc
+            if isinstance(resp, dict) and resp.get(STALE_EPOCH):
+                # either side may still be mid-commit
+                await asyncio.sleep(0.02 * (attempt + 1))
+                continue
+            if guard is not None:
+                guard.breaker.record_success()
+            if kind == "update_counters":
+                return None
+            return self._adopt(resp)
+        guard = self._guards.get(owner)
+        if guard is not None:
+            return self._degraded_decide(guard, counters, delta, load, kind)
+        raise StorageError(
+            f"pod topology epoch disagreement with host {owner} "
+            "(resize in flight, no degraded fallback)"
+        )
+
+    def resize_debug(self) -> dict:
+        """``GET /debug/pod/resize`` and the ``pod_resize`` section of
+        ``/debug/stats``: the transition state machine."""
+        if self.resize is None:
+            return {"armed": False}
+        out = self.resize.status()
+        out["armed"] = True
+        return out
+
+    def pod_resize_admin(self, hosts: int, peers=None) -> dict:
+        """The admin surface behind ``POST /debug/pod/resize`` (blocking;
+        the HTTP handler runs it in an executor)."""
+        if self.resize is None:
+            raise StorageError("pod resize not armed (--pod-resize off)")
+        return self.resize.resize(int(hosts), peers=peers)
+
+    def standby_debug(self) -> dict:
+        """``GET /debug/pod/standby`` and the ``standby`` section of
+        ``/debug/stats``: the warm-up and join readiness."""
+        if self.standby is None:
+            return {"armed": False}
+        out = self.standby.status()
+        out["armed"] = True
+        return out
+
+    def pod_join_admin(
+        self, address: str, replace=None, seed_plans: bool = True
+    ) -> dict:
+        """The admin surface behind ``POST /debug/pod/join``: promote the
+        warm standby at ``address`` into the pod (blocking; the HTTP
+        handler runs it in an executor)."""
+        if self.resize is None:
+            raise StorageError("pod resize not armed (--pod-resize off)")
+        return self.resize.join_host(
+            address, replace=replace, seed_plans=seed_plans
+        )
 
     async def forward_bulk(
         self, owner: int, blobs: List[bytes]
@@ -1521,8 +1935,11 @@ class PodFrontend:
             "pod_degraded_share": round(
                 degraded / total, 6
             ) if total else 0.0,
-            # no membership transition runs in this pod
-            "pod_resize_active": 0,
+            # the federated view: a stuck resize shows pod-wide
+            "pod_resize_active": (
+                1 if self.resize is not None and self.resize.active
+                else 0
+            ),
             "tepoch": self.router.topology_epoch,
         }
 
@@ -1594,6 +2011,33 @@ class PodFrontend:
         """Owner-side handler of a forwarded decision: this host owns
         it, so it runs the local path directly (a forward is always
         terminal, one hop by construction)."""
+        rz = self.resize
+        if rz is not None and rz._join_adopted_at is not None:
+            return await self._joined(namespace, self._decide_for_peer_inner(
+                namespace, ctx, delta, load, kind))
+        return await self._decide_for_peer_inner(
+            namespace, ctx, delta, load, kind)
+
+    async def _joined(self, namespace, decision):
+        """Await a just-promoted joiner's first answered decision: stamp
+        its time to first decision (``join_ttfd_seconds``) and leave an
+        exemplar in the flight recorder's ``join`` lane. One attribute
+        read a forward once stamped."""
+        t0 = time.perf_counter()
+        try:
+            return await decision
+        finally:
+            self.resize.note_first_decision()
+            if self.flight is not None:
+                self.flight.tap(
+                    time.perf_counter() - t0, "join",
+                    request_id=current_request_id(),
+                    namespace=namespace,
+                )
+
+    async def _decide_for_peer_inner(
+        self, namespace, ctx, delta, load, kind
+    ) -> Optional[CheckResult]:
         counters = _counters_that_apply(
             self._limiter.storage, Namespace.of(namespace), ctx
         )
@@ -1794,6 +2238,12 @@ class PodFrontend:
                     guard, counters, delta, load, kind
                 )
             raise err from exc
+        if isinstance(resp, dict) and resp.get(STALE_EPOCH):
+            # rejected by an owner on another epoch: the lane ran the
+            # adoption hook; re-plan under the current topology
+            return await self._stale_replan(
+                namespace, ctx, delta, load, kind
+            )
         if guard is not None:
             # A successful forward resets the consecutive-failure count,
             # so that transient failures hours apart never add up to a
@@ -1896,6 +2346,11 @@ class PodFrontend:
         stats.update(self.aggregator.stats())
         if self.psum_lane is not None:
             stats.update(self.psum_lane.stats())
+        if self.resize is not None:
+            stats.update(self.resize.stats())
+            stats["pod_resize_replans"] = self.stale_replans
+        if self.standby is not None:
+            stats.update(self.standby.stats())
         if self.pipeline is not None:
             # the C lane's local/foreign split (pod_hot_*): reported
             # here, beside the pod's other families, and not by the
@@ -1930,3 +2385,19 @@ class _ForwardedCounter:
         self.expires_in = expires_in
         self.window_seconds = window
         self.limit = _ForwardedLimit(name)
+
+
+def psum_share_sender(lane: PeerLane, timeout: float = 2.0):
+    """The publish half of ``parallel.pod.PeerPsumTransport`` over this
+    lane: a ``send(host, payload)`` for the transport's constructor. It
+    runs on the psum pacer's thread, where ``admin_call``'s blocking RPC
+    never touches a serving loop."""
+
+    def send(host: int, payload: bytes) -> None:
+        lane.admin_call(host, {
+            "kind": "psum_share",
+            "from": lane.host_id,
+            "payload": base64.b64encode(payload).decode(),
+        }, timeout=timeout)
+
+    return send

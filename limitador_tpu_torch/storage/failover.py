@@ -22,8 +22,10 @@ once reconciled.
 
 The pod's degraded-owner failover (``server/peering.py``) keeps one store
 an owner and replays its journal into the owner over the peer lane. The
-JAX store's ``reset_oracle`` and ``rejournal`` serve the elastic pod's
-resize, which comes with ROADMAP Queue A item 7c.
+elastic pod's abort (``server/resize.py``) redistributes the journals of
+members a revert removed, out of band: ``reset_oracle`` forgets the window
+state after a redistribution landed, and ``rejournal`` puts back what did
+not land.
 """
 
 from __future__ import annotations
@@ -92,6 +94,24 @@ class FailoverStore:
             items = list(self._journal.items())
             self._journal.clear()
         return items
+
+    def reset_oracle(self) -> None:
+        """Forget the stand-in's window state without a reconcile: the
+        journal was redistributed out of band (the elastic pod's abort),
+        and keeping the oracle would count twice in the next degraded
+        window of the same keys."""
+        self._oracle.clear()
+
+    def rejournal(self, items: List[Tuple[Counter, int]]) -> None:
+        """Put drained deltas that did not land back (merged with what
+        was journaled since): a delta is only gone once some owner
+        acknowledged it, as ``reconcile_into`` restores its
+        unacknowledged tail."""
+        with self._lock:
+            for counter, delta in items:
+                self._journal[counter] = (
+                    self._journal.get(counter, 0) + int(delta)
+                )
 
     def reconcile_into(self, storage) -> int:
         """Replay the journal into ``storage`` (the card's table) through

@@ -445,10 +445,8 @@ class TestHttpApi:
     def test_pod_debug_routes_answer_as_the_jax_server_without_a_pod(
             self, http_server, path):
         """A server without a pod answers the pod's debug routes as the
-        JAX server does (``/debug/pod``, ``/debug/pod/routing`` and
-        ``/debug/events``: 404 with its body); the elastic pod's
-        ``/debug/pod/resize`` (ROADMAP Queue A item 7c) is not served
-        yet, and answers 404 as the JAX server's does without a pod."""
+        JAX server does: 404 with its body (``/debug/pod/resize`` as
+        well, the elastic pod's state machine)."""
         import urllib.request
 
         async def jax_answer():
@@ -471,9 +469,6 @@ class TestHttpApi:
 
         want = asyncio.run(jax_answer())
         got = answer(http_server[0])
-        if path == "/debug/pod/resize":
-            assert want[0] == got[0] == 404
-            return
         assert got[0] == want[0] == 404
         assert json.loads(got[1]) == json.loads(want[1]) == {
             "error": "not a pod (single-host deployment)"}

@@ -21,7 +21,10 @@
   (``server/peering.py``, ``parallel/pod.py``, which uses
   ``torch.distributed``'s TCPStore) are imported in pod mode only.
   (``import torch`` loads ``torch.distributed`` itself, so the pin is on
-  the port's modules that use it.)
+  the port's modules that use it.) The elastic pod's coordinator
+  (``server/resize.py``) is imported only with ``--pod-resize on`` or
+  ``--standby on``, and the warm standby (``server/standby.py``) only
+  with ``--standby on``.
 - A 2-process pod of port servers forms, decides and stops with both
   processes refusing to import ``jax`` and ``limitador_tpu``, routed and
   with ``--pipeline native --native-ingress`` (the native pod fast
@@ -413,6 +416,80 @@ def test_a_pod_member_imports_the_breaker_and_the_pod_modules(tmp_path):
         ]
         assert result["lane"]["pod_peer_errors"] == 0
         assert "admission" not in result["http"]["/debug/stats"]["body"]
+
+
+def test_a_resize_armed_pod_member_imports_the_coordinator_alone(
+        tmp_path):
+    """With ``--pod-resize on`` a member imports ``server/resize.py``
+    and not ``server/standby.py``, decides the routed drive as without
+    it, and neither member imports ``jax`` or ``limitador_tpu``."""
+    from .torch_pod_worker import drive_oracle, merge, spawn_pod
+
+    results = spawn_pod(tmp_path, "memory", prefix=["-c", _GUARDED_POD],
+                        pod_resize="on")
+    merged, _counters, _routed = merge(results)
+    want, _want_counters = drive_oracle()
+    assert merged == want
+    for result in results:
+        assert result["modules"] == [
+            "limitador_tpu_torch.admission",
+            "limitador_tpu_torch.parallel.pod",
+            "limitador_tpu_torch.server.peering",
+            "limitador_tpu_torch.server.resize",
+        ]
+        assert result["lane"]["pod_peer_errors"] == 0
+        assert result["lane"]["pod_resize_stale_rejects"] == 0
+
+
+_STANDBY = r'''
+import asyncio, importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "limitador_tpu"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+from limitador_tpu_torch.server import __main__ as m
+
+async def main(argv):
+    server = await m.start(m.build_parser().parse_args(argv))
+    try:
+        standby = server.pod.standby
+        return (sorted(k for k in sys.modules
+                       if k.startswith("limitador_tpu_torch.server.")
+                       and k.rsplit(".", 1)[1] in ("peering", "resize",
+                                                   "standby")),
+                standby.ready, server.pod.lane.port > 0,
+                server.pod.router.topology.hosts)
+    finally:
+        await server.stop()
+
+print(asyncio.run(main(sys.argv[1:])))
+'''
+
+
+def test_a_standby_imports_the_coordinator_and_the_standby(tmp_path):
+    """``--standby on`` boots a memberless warm standby (host 0 of 1,
+    its peer lane serving) that imports ``server/resize.py`` and
+    ``server/standby.py``, in a process that refuses ``jax`` and
+    ``limitador_tpu``."""
+    from .torch_http import LIMITS, free_port, port_argv
+
+    limits = tmp_path / "limits.yaml"
+    limits.write_text(LIMITS)
+    argv = port_argv(limits, "memory", free_port(), "--standby", "on",
+                     "--pod-peer-listen", "127.0.0.1:0")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", _STANDBY, *argv], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == str((
+        ["limitador_tpu_torch.server.peering",
+         "limitador_tpu_torch.server.resize",
+         "limitador_tpu_torch.server.standby"], True, True, 1))
 
 
 def test_a_native_ingress_pod_runs_without_jax_or_the_jax_package(

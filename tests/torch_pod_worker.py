@@ -223,6 +223,8 @@ async def serve_and_drive(args) -> dict:
     if native:
         argv += ["--pipeline", "native", "--rate-limit-headers", "NONE",
                  *NATIVE_MODES[args.mode]]
+    if args.pod_resize == "on":
+        argv += ["--pod-resize", "on"]
     clock = Clock()
     server = await server_main.start(
         server_main.build_parser().parse_args(argv), clock=clock)
@@ -292,6 +294,8 @@ async def serve_and_drive(args) -> dict:
                 if m.split(".")[0] in ("jax", "jaxlib", "limitador_tpu")
                 or m in ("limitador_tpu_torch.admission",
                          "limitador_tpu_torch.server.peering",
+                         "limitador_tpu_torch.server.resize",
+                         "limitador_tpu_torch.server.standby",
                          "limitador_tpu_torch.parallel.pod")),
         }
     finally:
@@ -347,7 +351,7 @@ def free_port_pair() -> int:
 
 
 def spawn_pod(tmp_path, storage, device="cpu", timeout=90, prefix=(),
-              mode="routed"):
+              mode="routed", pod_resize="off"):
     """Run the two members of a pod (this file's ``server`` mode) and
     return their reports; ``prefix`` goes between the interpreter and
     this file's path. Every wait has a deadline (``timeout`` seconds a
@@ -368,7 +372,8 @@ def spawn_pod(tmp_path, storage, device="cpu", timeout=90, prefix=(),
              "--coordinator", coordinator, "--peer-ports", peer_ports,
              "--rls-port", str(free_port_pair()), "--http-port",
              str(free_port()), "--storage", storage, "--device", device,
-             "--mode", mode, "--dir", str(tmp_path), "--out", str(out)],
+             "--mode", mode, "--pod-resize", pod_resize,
+             "--dir", str(tmp_path), "--out", str(out)],
             cwd=repo, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     results = []
@@ -442,6 +447,8 @@ def main() -> int:
     parser.add_argument("--device", default="cpu")
     parser.add_argument("--mode", default="routed",
                         choices=["routed", *NATIVE_MODES])
+    parser.add_argument("--pod-resize", default="off",
+                        choices=["on", "off"])
     parser.add_argument("--dir")
     parser.add_argument("--listen")
     parser.add_argument("--ready")
