@@ -326,7 +326,7 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    (the server's per-loop shards) and p50/p99 beside the same calls on a
    --serving-shards 1 server. (b) Two server processes on the card
    (--pod-processes 2, a TCPStore on localhost), once on sharded (a
-   global namespace pinned) and once on torch: 4,000 sequential calls
+   global namespace pinned) and once on torch: POD_CALLS sequential calls
    over Zipf users (a one-limit namespace routed by key, a two-limit one
    pinned, the global one) alternate between the hosts' RLS ports;
    every answer and the union of the hosts' /counters equal a
@@ -334,7 +334,7 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    in-memory oracle) fed the same calls; pod_routed_local, _forwarded
    and _pinned equal the requests' verdicts and are each above 0;
    p50/p99 by verdict and the hop's phase split (/debug/pod). (c) On the
-   torch pod, --pod-psum-lane on: 600 calls for one tenant of a
+   torch pod, --pod-psum-lane on: 400 calls for one tenant of a
    fixed-window global namespace of 100, hosts alternating, exchange
    every 100 ms: admitted at least the limit, past it at most each
    host's admissions within two intervals, and after a final exchange
@@ -360,7 +360,7 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    the native lanes allocate a request's counters before its check); the
    requests' verdicts, pod_hot_local_rows/_foreign_rows,
    pod_bulk_forward_batches/_rows and rows a bulk forward; p50/p99 by
-   verdict beside 17b torch's. (c) On the same pod, half of 800 more
+   verdict beside 17b torch's. (c) On the same pod, half of 400 more
    such calls alternating hosts (answers equal to the oracle), host 1
    killed, the other half all to host 0: no call fails, host 0's own
    keys still equal the oracle, and every call for host 1's keys is
@@ -381,6 +381,36 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    window, one of whose pod_forward entries shares a request id with
    host 0's. B1 must launch on both members of the first two pods, B2's
    host form in (c)'s replay.
+19. The elastic pod: (a) two native torch members with --pod-resize on
+   and a --standby on process: calls, the standby's join (calls during
+   it for users whose slices do not move), calls over three hosts, every
+   answer and spent counter the oracle's, each on its owner; (b) the
+   drain back to two; (c) a join whose new host is killed mid-migration
+   reverts with nothing lost; (d) a grow on the sharded table.
+20. The capacity controller and redis_import: (a) three native torch
+   servers with leases, the usage observatory and --admission-mode
+   enforce, --capacity-controller off, observe and on (ticking every
+   0.2 s against a 0.01 ms SLO budget the card misses), under one load
+   of Zipf-user bursts: observe's answers and settled counters
+   byte-equal with off's; on's applied knobs inside their KnobSpec
+   envelopes, read back by the subsystems as its /debug/stats controller
+   section says; on's counters equal an oracle of the hits it admitted,
+   every other call an OVER_LIMIT or an admission shed counted in
+   admission_sheds; the ctl_* families on all three; each knob's path
+   over the ticks; B1, B4c's and B5's host forms launched. (b) Phase
+   19's pod with member 0 in this process, where a controller runs on
+   over its coordinator (the standby's address its pool, 2 to 3 hosts),
+   ticked with injected calm, burn, ramp and idle snapshots, calls
+   throughout: one grow by join and one drain, no flap, no failed call,
+   every answer and spent counter the oracle's, each on its owner,
+   controller_actuation < join_begin < epoch_bump < join_end, the
+   standby's address back in the pool; B1 and B2's, B3a's and B3b's host
+   forms on every member. (c) tools/redis_import.py replays a dump of
+   1,000 counters (and 100 of limits whose conditions read fields that
+   are not their counter's variables, the kubernetes configmap's shape
+   among them, with expired and nil lines) into a torch server on the
+   card: /counters equals the replayable entries, the others counted and
+   not sent; B2's host form launched.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -391,6 +421,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import functools
+import io
 import itertools
 import json
 import os
@@ -7920,8 +7951,8 @@ SHARD_CALLS_ONE_LOOP = 300  # 500 until phase 19
 SHARD_HAMMER = 2000
 SHARD_THREADS = 16
 SHARD_CHANNELS = 8
-POD_CALLS = 1200  # 4,000 until phase 19 came in
-PSUM_CALLS = 600
+POD_CALLS = 600  # 4,000 until phase 19 came in, 1,200 until phase 20
+PSUM_CALLS = 400  # 600 until phase 20 came in
 PSUM_INTERVAL_MS = 100
 PSUM_MAX = 100
 DRILL_MAX = 4
@@ -7938,7 +7969,7 @@ PHASE17D_KERNELS = ("update_host",)
 # 18c's replay into the restarted owner
 PHASE18_KERNELS = ("check_and_update",)
 PHASE18C_KERNELS = ("update_host",)
-POD_DEGRADED_CALLS = 800
+POD_DEGRADED_CALLS = 400  # 800 until phase 20 came in
 POD_CONCURRENT_CALLS = 1500
 POD_FLIGHT_CALLS = 300
 
@@ -9202,8 +9233,8 @@ def phase_native_pod(dev, card, base):
 #: (a) the calls before and after the join, each; (b) the calls after the
 #: drain; (a) at most this many calls while the join runs; (d) the calls
 #: before and after its join, each
-ELASTIC_CALLS = 1500
-ELASTIC_DRAIN_CALLS = 1000
+ELASTIC_CALLS = 750  # 1,500 until phase 20 came in
+ELASTIC_DRAIN_CALLS = 500  # 1,000 until phase 20 came in
 ELASTIC_DURING_MAX = 400
 ELASTIC_SHARDED_CALLS = 300
 #: (c): the pause before each slice's copy (the kill lands in it), the
@@ -9382,9 +9413,9 @@ def _events_order(port, kinds):
 
 def _elastic_grow_drain(tmpdir, card):
     """Phases 19a and 19b: two native members and a native warm standby
-    on torch; 1,500 calls, the join (with calls for users whose slices
-    do not move while it runs), 1,500 calls over the three hosts, then a
-    drain back to two and 1,000 calls."""
+    on torch; ELASTIC_CALLS calls, the join (with calls for users whose
+    slices do not move while it runs), ELASTIC_CALLS calls over the three
+    hosts, then a drain back to two and ELASTIC_DRAIN_CALLS calls."""
     from limitador_tpu_torch.server.limits_file import load_limits_file
     from limitador_tpu_torch.server.proto import rls_pb2
 
@@ -9724,6 +9755,663 @@ def phase_elastic(card):
     return total, out
 
 
+# -- phase 20: the capacity controller and redis_import ------------------------
+
+CTL_YAML = """\
+- namespace: ctl
+  max_value: 40
+  seconds: 3600
+  variables: ["descriptors[0].user"]
+  name: ctl-per-user
+"""
+#: 20a: bursts of distinct Zipf users, sent to each server in turn
+CTL_ROUNDS = 40
+CTL_BURST = 32
+CTL_USERS = 400
+#: 20a: a p99 budget the card's served p99 does not meet, so that the SLO
+#: burns and the controller's pressure is real; and its tick
+CTL_BUDGET_MS = 0.01
+CTL_INTERVAL_S = 0.2
+#: 20b: the injected-snapshot drill's clocks (s of its own clock, which
+#: each step advances by 0.1) and the calls between two ticks
+CTL_SUSTAIN_S = 0.4
+CTL_DWELL_S = 1.0
+CTL_ROUND = 24
+#: 20c: the dump's replayable counters, unreplayable ones (conditions on
+#: fields that are not the counter's variables), expired and nil lines
+IMPORT_COUNTERS = 1000
+IMPORT_UNREPLAYABLE = 100
+IMPORT_EXPIRED = 50
+IMPORT_NIL = 10
+IMPORT_YAML = """\
+- namespace: mig
+  max_value: 1000
+  seconds: 3600
+  variables: ["descriptors[0].u"]
+  name: per-u
+- namespace: mig
+  max_value: 500
+  seconds: 3600
+  conditions: ["descriptors[0].plan == 'gold'"]
+  variables: ["descriptors[0].u"]
+  name: gold
+- namespace: api
+  max_value: 100
+  seconds: 60
+  conditions: ["descriptors[0].method == 'GET'"]
+  variables: ["descriptors[0].user"]
+  name: configmap
+"""
+
+
+def _ctl_planners(srv):
+    """Every ChunkPlanner a served build decides through: each batcher
+    pair's, the compiled limiter's and the native pipeline's."""
+    counters = srv.limiter.storage.counters
+    out = [mb.chunk_planner for mb, _ub in counters._batcher_pairs()]
+    for owner in (getattr(srv.limiter, "wrapped", srv.limiter),
+                  srv.native_pipeline):
+        planner = getattr(owner, "chunk_planner", None)
+        if planner is not None:
+            out.append(planner)
+    return out
+
+
+def _ctl_knobs_hold(srv, section, label):
+    """The subsystems a stopped controller moved read what its
+    ``/debug/stats`` section says."""
+    knobs = section["knobs"]
+    admission = srv.admission
+    live = {
+        "admission_ceiling": float(admission.overload.max_inflight),
+        "shed_floor": float(admission.shed_floor),
+        "lease_scale": float(srv.native_pipeline.lease_broker.grant_scale),
+    }
+    targets = {round(p.target_s * 1e3, 4) for p in _ctl_planners(srv)}
+    if len(targets) != 1:
+        fail(f"{label}: the planners' targets differ: {sorted(targets)} ms")
+    live["chunk_target_ms"] = targets.pop()
+    live = {k: round(v, 4) for k, v in live.items()}
+    if live != knobs:
+        fail(f"{label}: the subsystems read {live} where /debug/stats "
+             f"controller says {knobs}")
+    return live
+
+
+def _ctl_envelopes(decisions, specs, label):
+    """Every applied knob inside its KnobSpec bounds and one tick's slew
+    of the value it moved from; returns each knob's path over the
+    ticks."""
+    from limitador_tpu_torch.control import KnobSpec
+
+    by_name = {s["name"]: KnobSpec(**s) for s in specs}
+    path = {name: [] for name in by_name}
+    for d in decisions:
+        for name, value in d["current"].items():
+            path[name].append(value)
+        for name, value in d["applied"].items():
+            spec = by_name[name]
+            cur = d["current"][name]
+            step = spec.max_step(cur)
+            # the envelope's ends, rounded as an integer knob rounds
+            low, high = spec.clamp(cur - step), spec.clamp(cur + step)
+            if not (spec.lo <= value <= spec.hi
+                    and low - 1e-3 <= value <= high + 1e-3):
+                fail(f"{label}: {name} moved {cur} -> {value}, outside "
+                     f"[{low}, {high}] of {spec.to_dict()}")
+    return path
+
+
+async def _ctl_served(tmpdir, dev, card):
+    """Phase 20a: three native servers on the card with leases, the usage
+    observatory and ``--admission-mode enforce`` under one served load
+    (bursts of distinct Zipf users, each server in turn): the capacity
+    controller ``off``, ``observe`` and ``on``, ticking every
+    ``CTL_INTERVAL_S`` against an SLO budget the card misses. observe
+    answers byte-equal with off, and so are its settled counters; on
+    applies knobs inside their envelopes that the subsystems then read,
+    and its counters equal an oracle fed the hits it admitted, every
+    other answer an OVER_LIMIT or an admission shed counted in
+    ``admission_sheds``."""
+    import grpc
+
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "capacity controller (20a, served knobs)"
+    limits = os.path.join(tmpdir, "limits.yaml")
+    with open(limits, "w") as f:
+        f.write(CTL_YAML)
+    parse = server.build_parser().parse_args
+    clock = ManualClock()
+    common = ["--device", dev.type, "--rls-host", "127.0.0.1",
+              "--pipeline", "native", "--native-hot-lane", "on",
+              "--rate-limit-headers", "NONE", "--lease-mode", "on",
+              "--admission-mode", "enforce", "--usage-drain-interval",
+              "0.2", "--slo-budget-ms", str(CTL_BUDGET_MS),
+              "--ctl-interval", str(CTL_INTERVAL_S)]
+    modes = ("off", "observe", "on")
+    ports = dict(zip(modes, _free_ports(3)))
+    http, servers, failures = {}, {}, []
+    loop = asyncio.get_running_loop()
+    try:
+        for mode in modes:
+            http_options, http[mode] = _http_options()
+            servers[mode] = await server.start(parse(
+                [limits, "torch", *common, *http_options,
+                 "--rls-port", str(ports[mode]),
+                 "--flight-spool-dir", os.path.join(tmpdir, f"spool-{mode}"),
+                 "--capacity-controller", mode]),
+                clock=clock, on_failure=failures.append)
+        rng = np.random.default_rng(2020)
+        bursts = []
+        for _ in range(CTL_ROUNDS):
+            drawn = zipf_keys(CTL_USERS, 4 * CTL_BURST, 0.99, rng).tolist()
+            bursts.append(list(dict.fromkeys(drawn))[:CTL_BURST])
+        blobs = {u: _rls_request(rls_pb2, "ctl", [{"user": f"c{u}"}])
+                 for burst in bursts for u in burst}
+        channels = {m: grpc.aio.insecure_channel(f"127.0.0.1:{p}")
+                    for m, p in ports.items()}
+        answers = {m: [] for m in modes}
+
+        async def call(mode, user):
+            try:
+                return ("raw", await channels[mode].unary_unary(ENVOY_PATH)(
+                    blobs[user], timeout=60))
+            except grpc.aio.AioRpcError as exc:
+                return ("error", exc.code().name, exc.details() or "")
+
+        t0 = time.perf_counter()
+        try:
+            for i, burst in enumerate(bursts):
+                for mode in modes[i % 3:] + modes[:i % 3]:
+                    got = await asyncio.gather(*[call(mode, u)
+                                                 for u in burst])
+                    answers[mode].extend(zip(burst, got))
+        finally:
+            for ch in channels.values():
+                await ch.close()
+        drive_s = time.perf_counter() - t0
+        on = servers["on"]
+        deadline = time.monotonic() + 20
+        while on.controller.stats()["ctl_ticks"] < 8:
+            if time.monotonic() > deadline:
+                fail(f"{label}: the controller ticked "
+                     f"{on.controller.stats()['ctl_ticks']} times")
+            await asyncio.sleep(0.05)
+        # freeze the knobs, then let every lease expire and settle
+        for mode in ("observe", "on"):
+            await loop.run_in_executor(None, servers[mode].controller.close)
+        deadline = time.monotonic() + 20
+        while any(s.native_pipeline.lease_broker.stats()[
+                "lease_outstanding_tokens"] for s in servers.values()):
+            if time.monotonic() > deadline:
+                fail(f"{label}: leases still outstanding after 20 s")
+            await asyncio.sleep(0.05)
+        stats, families, spent = {}, {}, {}
+        for mode, srv in servers.items():
+            stats[mode] = json.loads(await _served_get(http[mode],
+                                                       "/debug/stats"))
+            families[mode] = await _served_metrics(http[mode])
+            spent[mode] = {
+                c.set_variables["descriptors[0].user"]:
+                c.limit.max_value - c.remaining
+                for c in await srv.limiter.get_counters("ctl")
+                if c.remaining < c.limit.max_value}
+        section = stats["on"]["controller"]
+        live = _ctl_knobs_hold(on, section, label)
+        observe_section = stats["observe"]["controller"]
+        ring = list(on.controller._ring)
+        observe_ring = list(servers["observe"].controller._ring)
+        snapshot = on.signal_bus.snapshot().to_dict()
+        if failures:
+            fail(f"{label}: a background tier failed: {failures[0]!r}")
+    finally:
+        for srv in servers.values():
+            await srv.stop()
+    # observe against off: every answer and every settled counter
+    differ = sum(a != b for a, b in zip(answers["observe"], answers["off"]))
+    if differ or len(answers["observe"]) != len(answers["off"]):
+        fail(f"{label}: {differ} of {len(answers['off'])} observe answers "
+             "differ from the off server's")
+    if spent["observe"] != spent["off"]:
+        fail(f"{label}: the observe server's counters differ from the off "
+             "server's")
+    if observe_section["actuations"] or observe_section["knobs"] != {
+            "admission_ceiling": 4096.0, "shed_floor": 0.0,
+            "chunk_target_ms": 2.0, "lease_scale": 1.0}:
+        fail(f"{label}: the observe controller moved a knob: "
+             f"{observe_section['actuations']} {observe_section['knobs']}")
+    # on: envelopes, the oracle of what it admitted, the sheds
+    paths = _ctl_envelopes(ring, section["specs"], label)
+    if not section["actuations"]:
+        fail(f"{label}: the on controller moved no knob under a budget of "
+             f"{CTL_BUDGET_MS} ms (pressure {ring[-1]['proposal']})")
+    ok_code = rls_pb2.RateLimitResponse.OK
+    over_code = rls_pb2.RateLimitResponse.OVER_LIMIT
+    admitted, tally, shed_reasons = {}, {}, {}
+    for user, got in answers["on"]:
+        if got[0] == "raw":
+            code = rls_pb2.RateLimitResponse.FromString(got[1]).overall_code
+            kind = {ok_code: "OK", over_code: "OVER_LIMIT"}.get(code, code)
+            if code == ok_code:
+                admitted[f"c{user}"] = admitted.get(f"c{user}", 0) + 1
+        elif got[1] == "UNAVAILABLE" and "admission shed (" in got[2]:
+            reason = got[2].split("admission shed (")[1].split(",")[0]
+            shed_reasons[reason] = shed_reasons.get(reason, 0) + 1
+            kind = "shed:" + reason
+        else:
+            fail(f"{label}: a call failed: {got}")
+        tally[kind] = tally.get(kind, 0) + 1
+    if spent["on"] != admitted:
+        bad = sorted(set(spent["on"].items()) ^ set(admitted.items()))
+        fail(f"{label}: the on server's counters differ from the oracle of "
+             f"its admitted hits: {bad[:6]}")
+    for reason in ("deadline", "overload", "controller"):
+        family = _metric(families["on"], "admission_sheds", reason=reason)
+        if family != shed_reasons.get(reason, 0):
+            fail(f"{label}: admission_sheds{{reason={reason}}} {family} for "
+                 f"{shed_reasons.get(reason, 0)} shed answers")
+    for mode, want in zip(modes, (0.0, 1.0, 2.0)):
+        fams = families[mode]
+        missing = [f for f in ("ctl_mode", "ctl_knob", "ctl_actuations",
+                               "ctl_membership_actions",
+                               "ctl_interlock_holds", "ctl_objective",
+                               "ctl_pressure") if f not in fams]
+        if missing or _metric(fams, "ctl_mode") != want:
+            fail(f"{label}: the {mode} server's ctl_* families: missing "
+                 f"{missing}, ctl_mode {_metric(fams, 'ctl_mode')}")
+    live_bus = {k: snapshot[k] for k in (
+        "queue_wait_ms", "slo_burn_5m", "slo_breached",
+        "capacity_headroom_ratio", "model_r2", "model_drift",
+        "near_exhaustion")}
+    proposals = [d["proposal"] for d in observe_ring]
+    out = {
+        "drive_s": drive_s, "calls": len(answers["on"]),
+        "ticks": section["ticks"], "actuations": section["actuations"],
+        "knobs": live, "paths": paths, "answers_on": tally,
+        "sheds": shed_reasons, "admitted": sum(admitted.values()),
+        "live_bus": live_bus,
+        "observe_pressure": [p["pressure"] for p in proposals],
+        "observe_reasons": sorted({p["reason"] for p in proposals}),
+        "observe_terms": proposals[-1]["terms"] if proposals else None,
+        "observe_targets": proposals[-1]["targets"] if proposals else None,
+    }
+    for name, values in paths.items():
+        print(f"{label}: {name} over the on server's {len(values)} ticks: "
+              f"{values}", flush=True)
+    print(f"{label}: {len(answers['off'])} calls a server in {drive_s:.2f} s "
+          f"(3 servers); observe answers and counters byte-equal with off; "
+          f"on: {json.dumps(tally)}, counters equal the oracle of its "
+          f"{out['admitted']} admitted hits, sheds {json.dumps(shed_reasons)} "
+          f"as counted; knobs {json.dumps(live)} as the subsystems read "
+          f"them; the live bus {json.dumps(live_bus)}, the observe "
+          f"policy's reasons {out['observe_reasons']} ({card})", flush=True)
+    return out
+
+
+class _LoopThread:
+    """An event loop on a thread of its own: an in-process server serves
+    on it while the calling thread drives calls and controller ticks."""
+
+    def __init__(self):
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout=300):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def close(self):
+        self.run(self.loop.shutdown_default_executor())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=10)
+        self.loop.close()
+
+
+def _ctl_membership(tmpdir, card):
+    """Phase 20b: phase 19's pod (two native torch members with
+    ``--pod-resize on`` and a ``--standby on`` process, all on the card)
+    with member 0 in this process, where a capacity controller runs
+    ``on`` over its coordinator (``standby_addresses=[standby]``,
+    ``min_hosts=2, max_hosts=3``), ticked with injected snapshots (calm,
+    burn, ramp noise, idle) on a clock of its own. Calls run throughout:
+    while a tick runs, calls of users whose slices do not move; after
+    each tick, a round over the current hosts. One grow and one drain,
+    no call failed, every answer and every spent counter (each on its
+    owner) the oracle's, the causal chain, the standby's address back in
+    the pool."""
+    from limitador_tpu_torch.control import CapacityController, ServerActuator
+    from limitador_tpu_torch.observability.signals import ControlSignals
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.limits_file import load_limits_file
+    from limitador_tpu_torch.server.proto import rls_pb2
+
+    label = "capacity controller (20b, membership)"
+    native = ["--pipeline", "native", "--native-hot-lane", "on",
+              "--rate-limit-headers", "NONE"]
+    with open(os.path.join(tmpdir, "pod-limits.yaml"), "w") as f:
+        f.write(ELASTIC_LIMITS)
+    ports = _elastic_ports(10)
+    coord = f"127.0.0.1:{ports[0]}"
+    peers, rls, http = ports[1:4], ports[4:7], ports[7:10]
+    argvs = [_pod_argv(tmpdir, "ctl", "torch", pid, coord, peers[:2], rls,
+                       http, ["--capacity", str(C), "--pod-resize", "on",
+                              *native]) for pid in (0, 1)]
+    standby_argv = [
+        os.path.join(tmpdir, "pod-limits.yaml"), "torch", "--device", "cuda",
+        "--capacity", str(C), "--rls-host", "127.0.0.1",
+        "--rls-port", str(rls[2]), "--http-host", "127.0.0.1",
+        "--http-port", str(http[2]),
+        "--flight-spool-dir", os.path.join(tmpdir, "flight-ctl2"),
+        "--pod-peer-listen", f"127.0.0.1:{peers[2]}", "--usage-topk", "0",
+        "--standby", "on", *native]
+    t0 = time.perf_counter()
+    members = [_pod_spawn(tmpdir, "ctl-1", argvs[1]),
+               _pod_spawn(tmpdir, "ctl-2", standby_argv)]
+    runs = [None, None, None]
+    loop = _LoopThread()
+    srv = None
+    before = dict(K.launches)
+    out = {}
+    try:
+        srv = loop.run(server.start(server.build_parser().parse_args(
+            argvs[0])), timeout=300)
+        for h, member in ((1, members[0]), (2, members[1])):
+            _pod_wait(member, http[h], tmpdir, label)
+        out["formed_s"] = time.perf_counter() - t0
+        limits = load_limits_file(os.path.join(tmpdir, "pod-limits.yaml"))
+        oracle = _pod_oracle(limits)
+        standby = f"127.0.0.1:{peers[2]}"
+        actuator = ServerActuator(coordinator=srv.pod.resize,
+                                  standby_addresses=[standby],
+                                  min_hosts=2, max_hosts=3)
+        clock = ManualClock()
+        controller = CapacityController(
+            actuator, events=srv.pod.events, mode="on", interval_s=0.1,
+            sustain_s=CTL_SUSTAIN_S, dwell_s=CTL_DWELL_S, clock=clock)
+        burn = ControlSignals(capacity_headroom_ratio=1.0)
+        hold = ControlSignals(capacity_headroom_ratio=2.0)
+        idle = ControlSignals(capacity_headroom_ratio=4.0)
+        rng = np.random.default_rng(2021)
+        stable = _stable_users(limits, 400, rng)
+        log, hosts_seen, actions = [], [], []
+
+        def drive(requests, tag):
+            spec = [(h, _rls_request(rls_pb2, ns, [e]))
+                    for h, ns, e in requests]
+            codes, _lat = _pod_drive(rls, spec, rls_pb2)
+            log.extend((tag, h, ns, e, code)
+                       for (h, ns, e), code in zip(requests, codes))
+
+        def step(snapshot, tag):
+            clock.now += 0.1
+            hosts = actuator.hosts()
+            done = {}
+            tick = threading.Thread(
+                target=lambda: done.update(d=controller.tick(snapshot)))
+            t = time.perf_counter()
+            tick.start()
+            i = 0
+            while tick.is_alive():
+                u = stable[i % len(stable)]
+                drive([(i % 2, "pods", {"user": f"u{u}"})], tag + " tick")
+                i += 1
+            tick.join()
+            seconds = time.perf_counter() - t
+            member = done["d"]["membership"] or {}
+            if "action" in member:
+                actions.append((member["action"], member["ok"], seconds,
+                                i))
+            hosts_seen.append(actuator.hosts())
+            drive(_elastic_calls(rng, CTL_ROUND, actuator.hosts()), tag)
+
+        def until(snapshot, tag, done, limit=60):
+            for _ in range(limit):
+                if done():
+                    return
+                step(snapshot, tag)
+            fail(f"{label}: {tag} never converged "
+                 f"({json.dumps(controller.controller_debug())[:1500]})")
+
+        for _ in range(6):
+            step(hold, "calm")
+        if actuator.hosts() != 2 or actions:
+            fail(f"{label}: the calm ticks moved membership: {actions}")
+        until(burn, "grow", lambda: actuator.hosts() == 3)
+        pool_grown = actuator.standby_pool()
+        for _ in range(2):
+            for snapshot in (burn, burn, hold, hold):
+                step(snapshot, "ramp")
+        if actuator.hosts() != 3:
+            fail(f"{label}: the ramp noise moved membership: {actions}")
+        until(idle, "shrink", lambda: actuator.hosts() == 2)
+        for _ in range(3):
+            step(idle, "after")
+        pool = actuator.standby_pool()
+        stats = controller.stats()
+        failed = [entry for entry in log if isinstance(entry[4], str)]
+        ok_code, over_code = (rls_pb2.RateLimitResponse.OK,
+                              rls_pb2.RateLimitResponse.OVER_LIMIT)
+        from limitador_tpu_torch import Context
+
+        want = [over_code if oracle.check_rate_limited_and_update(
+            ns, _ctx(Context, e), 1, False).limited else ok_code
+            for _t, _h, ns, e, _c in log]
+        differ = sum(w != entry[4] for w, entry in zip(want, log))
+        union = _elastic_counters(http[:2], 2, limits, label)
+        oracle_spent = _oracle_spent(oracle)
+        order = _events_order(http[0], ("controller_actuation", "join_begin",
+                                        "epoch_bump", "join_end"))
+        kinds = [e["detail"]["action"] for e in srv.pod.events.snapshot(
+            kind="controller_actuation")]
+        completed = _pod_metric(http[0], "join_completed")
+    finally:
+        if srv is not None:
+            loop.run(srv.stop(), timeout=120)
+        loop.close()
+        runs[0] = {k: v - before.get(k, 0) for k, v in K.launches.items()}
+        for h, member in ((1, members[0]), (2, members[1])):
+            runs[h] = _pod_stop(member, label)
+    if failed:
+        fail(f"{label}: {len(failed)} calls failed: {failed[:5]}")
+    if differ:
+        fail(f"{label}: {differ} of {len(log)} answers differ from the "
+             "in-memory oracle's")
+    if union != oracle_spent:
+        fail(f"{label}: the members' spent counters differ from the "
+             f"oracle's: {len(union ^ oracle_spent)} differences")
+    if (stats["ctl_hosts_added"], stats["ctl_hosts_drained"]) != (1, 1) or \
+            kinds != ["add_host", "drain_host"] or \
+            [a[:2] for a in actions] != [("add_host", True),
+                                         ("drain_host", True)]:
+        fail(f"{label}: membership actions {actions}, events {kinds}, "
+             f"stats {stats}")
+    if None in order or order != sorted(order) or len(set(order)) != 4:
+        fail(f"{label}: host 0's controller_actuation, join_begin, "
+             f"epoch_bump, join_end at {order}")
+    if pool_grown != [] or pool != [standby] or completed != 1:
+        fail(f"{label}: the standby pool {pool_grown} after the grow, "
+             f"{pool} after the drain; join_completed {completed}")
+    for h, run in enumerate(runs):
+        missing = [k for k in PHASE19_TORCH_KERNELS
+                   if not run or run.get(k, 0) == 0]
+        if not run or _b1(run) == 0:
+            missing.append("check_and_update")
+        if missing:
+            fail(f"{label}: host {h} launched none of {missing}")
+    out.update({
+        "calls": len(log), "counters": len(union), "hosts": hosts_seen,
+        "join_s": actions[0][2], "drain_s": actions[1][2],
+        "calls_during": [actions[0][3], actions[1][3]],
+        "ticks": stats["ctl_ticks"], "chain": order,
+        "launches": runs,
+    })
+    print(f"{label}: pod formed in {out['formed_s']:.2f} s; "
+          f"{stats['ctl_ticks']} ticks, one grow 2 -> 3 by join in "
+          f"{actions[0][2]:.3f} s ({actions[0][3]} calls during it) and "
+          f"one drain 3 -> 2 in {actions[1][2]:.3f} s ({actions[1][3]} "
+          f"calls during it), no flap under the ramp noise; {len(log)} "
+          f"calls, none failed, every answer and the {len(union)} spent "
+          f"counters (each on its owner) equal to the oracle; events "
+          f"{order}; the standby back in the pool ({card})", flush=True)
+    return runs, out
+
+
+async def _ctl_import(tmpdir, dev, card):
+    """Phase 20c: ``redis_import`` replays a dump of the port's
+    ``key_for_counter`` keys into a torch server on the card through
+    ``POST /report``: ``/counters`` equals the dump for every replayable
+    entry; the entries of limits with conditions on fields that are not
+    their counter's variables (the ``kubernetes/`` configmap's shape
+    among them) are counted and not sent; expired and nil lines are
+    skipped."""
+    import base64
+
+    from limitador_tpu_torch.core.counter import Counter
+    from limitador_tpu_torch.ops import kernel as K
+    from limitador_tpu_torch.server import __main__ as server
+    from limitador_tpu_torch.server.limits_file import load_limits_file
+    from limitador_tpu_torch.storage.keys import key_for_counter
+    from limitador_tpu_torch.tools import redis_import as R
+
+    label = "redis_import (20c)"
+    limits_path = os.path.join(tmpdir, "import-limits.yaml")
+    with open(limits_path, "w") as f:
+        f.write(IMPORT_YAML)
+    limits = load_limits_file(limits_path)
+    by_name = {lim.name: lim for lim in limits}
+    rng = np.random.default_rng(2022)
+
+    def line(counter, value, pttl):
+        return (base64.b64encode(key_for_counter(counter)).decode()
+                + f" {value} {pttl}")
+
+    lines, want = [], {}
+    for i in range(IMPORT_COUNTERS):
+        value = int(rng.integers(1, 1000))
+        want[f"m{i}"] = value
+        lines.append(line(Counter(by_name["per-u"],
+                                  {"descriptors[0].u": f"m{i}"}), value,
+                          int(rng.integers(1000, 3_600_000))))
+    for i in range(IMPORT_UNREPLAYABLE):
+        name, var = (("configmap", "descriptors[0].user") if i % 2
+                     else ("gold", "descriptors[0].u"))
+        lines.append(line(Counter(by_name[name], {var: f"x{i}"}),
+                          int(rng.integers(1, 100)), 30_000))
+    for i in range(IMPORT_EXPIRED):
+        lines.append(line(Counter(by_name["per-u"],
+                                  {"descriptors[0].u": f"old{i}"}), 5, 0))
+    for i in range(IMPORT_NIL):
+        key = key_for_counter(Counter(by_name["per-u"],
+                                      {"descriptors[0].u": f"nil{i}"}))
+        lines.append(base64.b64encode(key).decode() + " nil 1000")
+    order = rng.permutation(len(lines))
+    dump = os.path.join(tmpdir, "counters.dump")
+    with open(dump, "w") as f:
+        f.write("\n".join(lines[i] for i in order) + "\n")
+    entries, nil = R.parse_dump(lines)
+    pairs, expired, unknown = R.decode_entries(entries, limits)
+    by_ns = {}
+    for lim in limits:
+        by_ns.setdefault(str(lim.namespace), []).append(lim)
+    reasons = [R.unreplayable_reason(c, by_ns[str(c.namespace)])[0]
+               for c, _v in pairs]
+    if (nil, expired, unknown) != (IMPORT_NIL, IMPORT_EXPIRED, 0) or \
+            reasons.count("conditions") != IMPORT_UNREPLAYABLE or \
+            reasons.count(None) != IMPORT_COUNTERS:
+        fail(f"{label}: the dump decodes to nil {nil}, expired {expired}, "
+             f"unknown {unknown}, reasons {set(reasons)}")
+    http_options, http_port = _http_options()
+    (port,) = _free_ports(1)
+    srv = await server.start(server.build_parser().parse_args(
+        [limits_path, "torch", "--device", dev.type, "--capacity", str(C),
+         "--rls-host", "127.0.0.1", "--rls-port", str(port), *http_options,
+         "--flight-spool-dir", os.path.join(tmpdir, "spool-import")]))
+    before = dict(K.launches)
+    try:
+        err = io.StringIO()
+
+        def run_tool():
+            # one warning line a refused entry: kept for the count
+            with contextlib.redirect_stderr(err):
+                return R.main([limits_path, dump, "--target",
+                               f"http://127.0.0.1:{http_port}"])
+
+        t = time.perf_counter()
+        rc = await asyncio.get_running_loop().run_in_executor(None, run_tool)
+        seconds = time.perf_counter() - t
+        mig = json.loads(await _served_get(http_port, "/counters/mig"))
+        api = json.loads(await _served_get(http_port, "/counters/api"))
+    finally:
+        await srv.stop()
+    launches = {k: v - before.get(k, 0) for k, v in K.launches.items()}
+    got = {}
+    for c in mig:
+        if c["limit"]["name"] != "per-u":
+            fail(f"{label}: /counters/mig holds {c}")
+        got[c["set_variables"]["descriptors[0].u"]] = 1000 - c["remaining"]
+    refused = err.getvalue().count("unreplayable (conditions)")
+    summary = [ln for ln in err.getvalue().splitlines()
+               if ln.startswith(("decoded ", "replayed "))]
+    if rc != 2 or got != want or api or refused != IMPORT_UNREPLAYABLE:
+        bad = sorted(set(got.items()) ^ set(want.items()))[:5]
+        fail(f"{label}: exit {rc}; /counters/mig differs from the dump's "
+             f"replayable entries at {bad}; /counters/api {api[:3]}; "
+             f"{refused} entries refused; {summary}")
+    _storage_forms(launches, label, ("update_host",))
+    out = {"seconds": seconds, "replayed": len(got), "tool": summary,
+           "unreplayable": refused, "expired": expired,
+           "nil": nil, "update_host": launches.get("update_host", 0)}
+    print(f"{label}: {len(got)} counters replayed through /report in "
+          f"{seconds:.2f} s, /counters equal to the dump; "
+          f"{IMPORT_UNREPLAYABLE} unreplayable entries (conditions) counted "
+          f"and not sent, {expired} expired and {nil} nil skipped; B2's "
+          f"host form launched {out['update_host']} times ({card})",
+          flush=True)
+    return launches, out
+
+
+def phase_controller(dev, card):
+    """Phase 20: the capacity controller's served knobs (a), its
+    membership over an elastic pod (b) and the ``redis_import`` tool
+    (c). Returns (launches of 20, results)."""
+    from limitador_tpu_torch.ops import kernel as K
+
+    t0 = time.perf_counter()
+    K.reset_launches()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        served = asyncio.run(_ctl_served(tmpdir, dev, card))
+    served_launches = dict(K.launches)
+    missing = [k for k in ("credit_host", "drain_top_hits_host")
+               if served_launches.get(k, 0) == 0]
+    if _b1(served_launches) == 0:
+        missing.append("check_and_update")
+    if missing:
+        fail(f"capacity controller (20a): kernels not launched: {missing}")
+    _storage_forms(served_launches, "capacity controller (20a)",
+                   ("credit_host", "drain_top_hits_host"))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        member_runs, membership = _ctl_membership(tmpdir, card)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        _import_launches, imported = asyncio.run(_ctl_import(tmpdir, dev,
+                                                             card))
+    launches = dict(K.launches)
+    total = dict(launches)
+    for run in member_runs[1:]:
+        for k, v in (run or {}).items():
+            total[k] = total.get(k, 0) + v
+    seconds = time.perf_counter() - t0
+    print(f"capacity controller (20): {seconds:.1f} s; launches in this "
+          f"process {json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    return total, {"served": served, "membership": membership,
+                   "import": imported, "seconds": seconds}
+
+
 _T0 = time.perf_counter()
 
 
@@ -9826,6 +10514,8 @@ def main() -> int:
     _mark("phase 18")
     elastic_launches, elastic = phase_elastic(card)
     _mark("phase 19")
+    controller_launches, controller = phase_controller(dev, card)
+    _mark("phase 20")
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -9872,7 +10562,7 @@ def main() -> int:
             served_sharded_launches, http_launches, plane_launches,
             planes_launches, host_launches, admission_launches,
             ingress_launches, pod_launches, native_pod_launches,
-            elastic_launches)
+            elastic_launches, controller_launches)
     launches = {name: sum(run.get(name, 0) for run in runs)
                 for name in launches}
     kernels = []
@@ -9940,6 +10630,8 @@ def main() -> int:
             "native_pod_launches": native_pod_launches,
             "elastic_pod": elastic,
             "elastic_pod_launches": elastic_launches,
+            "controller": controller,
+            "controller_launches": controller_launches,
         }, f, indent=1)
     spool_root.cleanup()
     print(f"card: {card}")

@@ -760,6 +760,10 @@ class AsyncTorchStorage(AsyncCounterStorage):
                         batcher.metrics = self._metrics
                         batcher.recorder = self.recorder
                         batcher.admission = self.admission
+                    # a capacity controller's retarget of the pairs so
+                    # far holds for this one too
+                    pair[0].chunk_planner.target_s = (
+                        self.batcher.chunk_planner.target_s)
                 self._loop_batchers[loop] = pair
             return pair
 

@@ -40,8 +40,9 @@ A refresh pass that credited or granted anything records its duration
 as the device-plane recorder's ``lease`` phase (and offers it to the
 flight recorder as a ``lease-refresh`` entry).
 
-Left out of the port for now (``ROADMAP.md``): the capacity controller's
-``grant_scale`` knob.
+The capacity controller's ``lease_scale`` knob is ``grant_scale``: it
+multiplies the demand-derived grant size before the hard caps; at 1.0
+(the default) the sizing is unchanged.
 """
 
 from __future__ import annotations
@@ -110,6 +111,11 @@ class LeaseBroker:
         self.storage = pipeline.storage
         self.config = config or LeaseConfig()
         self._clock = clock
+        #: the capacity controller's knob: multiplies the demand-derived
+        #: grant size BEFORE the hard caps (max_tokens, the delta cap,
+        #: the half-tightest-max exactness bound: those always win).
+        #: 1.0 = sizing unchanged, the default.
+        self.grant_scale = 1.0
         self._leases: Dict[int, _Lease] = {}
         self._ids = itertools.count(1)
         # adaptive per-blob grant sizing + denial backoff
@@ -303,6 +309,9 @@ class LeaseBroker:
         target = self._sizes.get(blob)
         if target is None:
             target = max(int(count), 1)
+        scale = self.grant_scale
+        if scale != 1.0:
+            target = max(int(target * scale), 1)
         target = min(target, cfg.max_tokens, K.MAX_DELTA_CAP // d)
         # Tiny limits: leasing more than half the tightest max_value
         # trades too much exactness for too little speed; a zero here

@@ -508,6 +508,7 @@ class TriggerEngine(threading.Thread):
         self._halt = threading.Event()
         self._fire_lock = threading.Lock()
         self._last_fire: Dict[str, float] = {}
+        self._last_stamp = 0  # the last bundle name's millisecond
         self._last_counts: Dict[str, int] = {}
         self._last_burn = 0.0
         self._last_drift = 0.0
@@ -622,10 +623,16 @@ class TriggerEngine(threading.Thread):
                 self.suppressed += 1
                 return None
             self._last_fire[reason] = now
+            # One file a bundle: the name's millisecond moves past the
+            # last one taken, so two fires within one millisecond (two
+            # manual triggers in a row) keep both bundles; the JAX
+            # engine names both alike and its spool keeps the second.
+            stamp = max(int(now * 1000), self._last_stamp + 1)
+            self._last_stamp = stamp
         t0, t1 = now - self.window_s, now
         bundle = self._build_bundle(reason, note, t0, t1, profile)
         name = "flight-{}-{}-h{}.json".format(
-            int(now * 1000), reason, self.recorder.host_id
+            stamp, reason, self.recorder.host_id
         )
         self.spool.write(name, bundle)
         self.trigger_counts[reason] = (

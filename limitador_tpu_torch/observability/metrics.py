@@ -26,11 +26,11 @@ the pod's (``pod_routed_*``, ``pod_peer_*``, ``peer_health_*``,
 ``pod_failover_*``, ``pod_hop_phase_ms``, ``pod_events``,
 ``pod_signal_*``, ``pod_psum_*``, and the native pod fast path's
 ``pod_hot_*`` and ``pod_bulk_*``, polled off the pod frontend's
-``library_stats``; declared on every server as in the JAX package). A
-family of a plane the port does not have yet (the elastic pod, the
-capacity controller) is declared with the slice that brings the
-plane. The
-native ingress's families (``ingress_*``, fed by its ``library_stats``
+``library_stats``; declared on every server as in the JAX package), the
+elastic pod's (``pod_resize_*``, ``join_*``, ``standby_*``) and the
+capacity controller's (``ctl_*``, fed by its render hook; declared on
+every server as in the JAX package, whatever ``--capacity-controller``).
+The native ingress's families (``ingress_*``, fed by its ``library_stats``
 through ``attach_library_source``, and ``native_phase_h2i_respond``, fed
 by the native plane) are declared on every server, as in the JAX
 package.
@@ -1329,6 +1329,64 @@ class PrometheusMetrics:
             "unexpired)",
             registry=self.registry,
         )
+        # -- the capacity controller (control/): fed by its render hook
+        # (CapacityController.poll)
+        self.ctl_mode = Gauge(
+            "ctl_mode",
+            "Capacity controller mode (0=off, 1=observe, 2=on)",
+            registry=self.registry,
+        )
+        self.ctl_knob = Gauge(
+            "ctl_knob",
+            "Live value of each capacity-controller knob "
+            "(admission_ceiling, shed_floor, chunk_target_ms, "
+            "lease_scale)",
+            ["knob"],
+            registry=self.registry,
+        )
+        self.ctl_actuations = Counter(
+            "ctl_actuations",
+            "Slew-limited knob writes applied by the capacity "
+            "controller, by knob",
+            ["knob"],
+            registry=self.registry,
+        )
+        self.ctl_membership_actions = Counter(
+            "ctl_membership_actions",
+            "Pod membership actuations driven by the capacity "
+            "controller (add_host = warm-standby join, drain_host = "
+            "tail-host drain)",
+            ["action"],
+            registry=self.registry,
+        )
+        self.ctl_interlock_holds = Counter(
+            "ctl_interlock_holds",
+            "Controller ticks skipped whole because a resize/join "
+            "transition was active (the global actuation interlock)",
+            registry=self.registry,
+        )
+        self.ctl_objective = Gauge(
+            "ctl_objective",
+            "Last proposal's objective J = predicted throughput x "
+            "p99-compliance x fairness (0 while the model is in "
+            "warmup)",
+            registry=self.registry,
+        )
+        self.ctl_pressure = Gauge(
+            "ctl_pressure",
+            "Last proposal's scalar overload signal (max of SLO burn, "
+            "queue-wait/budget, inverse model headroom; 1.0 = at "
+            "capacity)",
+            registry=self.registry,
+        )
+        for knob in (
+            "admission_ceiling", "shed_floor", "chunk_target_ms",
+            "lease_scale",
+        ):
+            self.ctl_knob.labels(knob)
+            self.ctl_actuations.labels(knob)
+        for action in ("add_host", "drain_host"):
+            self.ctl_membership_actions.labels(action)
         for reason in _SHED_REASONS:
             for priority in _PRIORITIES:
                 self.admission_sheds.labels(reason, priority)

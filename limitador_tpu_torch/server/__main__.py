@@ -37,7 +37,11 @@ of the slices ported so far:
          [--pod-peer-breaker-failures N] [--pod-peer-breaker-reset-ms MS] \\
          [--pod-events N] [--pod-psum-lane on|off] \\
          [--pod-psum-interval-ms MS] [--pod-resize on|off]] \\
-        [--standby on|off]
+        [--standby on|off] \\
+        [--capacity-controller off|observe|on [--ctl-interval S] \\
+         [--ctl-sustain S] [--ctl-dwell S] [--ctl-standby HOST:PORT,...] \\
+         [--ctl-min-hosts N] [--ctl-max-hosts N] [--ctl-grow-headroom F] \\
+         [--ctl-shrink-headroom F]]
 
 Storages: ``torch`` (default) keeps the counter table on the card
 (``--device cuda``, the default) or, for tests, on the CPU
@@ -275,7 +279,18 @@ each hit bucket on a scratch table of ``--capacity`` and waits for
 into a directory that outlives the process, set before any build, so
 that a restarted host or a standby loads them instead of compiling.
 
-Not in the port yet (``ROADMAP.md``): the capacity controller.
+The capacity controller (``control/``): ``--capacity-controller
+observe|on`` (default ``off``: nothing is built and the package is not
+imported) ticks every ``--ctl-interval`` s over the signal bus and the
+serving model, and (``on``) moves the admission ceiling and shed floor
+(with ``--admission-mode``), every serving lane's chunk target, the
+lease grant scale (with ``--lease-mode on``) and, on a resize-armed pod
+member, the membership: a ``--ctl-standby`` warm standby joins on
+sustained burn and the tail host drains on sustained idle, between
+``--ctl-min-hosts`` and ``--ctl-max-hosts``. ``/debug/stats`` serves a
+``controller`` section and ``/metrics`` the ``ctl_*`` families (on every
+server). A non-positive interval, a minimum above the maximum and a
+standby list on a server that is no resize-armed pod member exit 2.
 """
 
 from __future__ import annotations
@@ -779,6 +794,69 @@ def build_parser() -> argparse.ArgumentParser:
         help="namespace priority mapping NS=CLASS (repeatable); limits-"
         "file `priority:` annotations and the descriptor entry override "
         "per request",
+    )
+    # the capacity controller (control/): one model-based loop over
+    # admission, shedding, chunking, lease sizing and pod membership
+    p.add_argument(
+        "--capacity-controller", choices=["on", "off", "observe"],
+        default=_env("TPU_CTL_MODE", "off"),
+        help="self-driving capacity: one model-based controller jointly "
+        "actuates the admission AIMD ceiling, the shed priority floor, "
+        "the ChunkPlanner target, the lease grant scale and pod "
+        "membership (warm-standby join on sustained burn, tail-host "
+        "drain on sustained idle). observe = compute and log every "
+        "decision without actuating; off (default) = controller not "
+        "constructed",
+    )
+    p.add_argument(
+        "--ctl-interval", type=float,
+        default=float(_env("TPU_CTL_INTERVAL_S", "1.0")),
+        help="controller: seconds between control ticks",
+    )
+    p.add_argument(
+        "--ctl-sustain", type=float,
+        default=float(_env("TPU_CTL_SUSTAIN_S", "5.0")),
+        help="controller: a membership proposal must hold its "
+        "hysteresis band this long before actuating (leaving the "
+        "band resets the clock)",
+    )
+    p.add_argument(
+        "--ctl-dwell", type=float,
+        default=float(_env("TPU_CTL_DWELL_S", "30.0")),
+        help="controller: minimum seconds between membership "
+        "actuations (with --ctl-sustain, what keeps diurnal ramps "
+        "from flapping topology)",
+    )
+    p.add_argument(
+        "--ctl-standby", default=_env("TPU_CTL_STANDBY", ""),
+        help="controller: comma-separated peer-lane addresses of warm "
+        "standbys (--standby on processes) the controller may promote "
+        "on sustained burn; empty = membership grows unavailable; needs "
+        "a resize-armed pod member (exits 2 otherwise)",
+    )
+    p.add_argument(
+        "--ctl-min-hosts", type=int,
+        default=int(_env("TPU_CTL_MIN_HOSTS", "1")),
+        help="controller: never drain the pod below this many hosts",
+    )
+    p.add_argument(
+        "--ctl-max-hosts", type=int,
+        default=int(_env("TPU_CTL_MAX_HOSTS", "8")),
+        help="controller: never grow the pod above this many hosts "
+        "(below --ctl-min-hosts exits 2)",
+    )
+    p.add_argument(
+        "--ctl-grow-headroom", type=float,
+        default=float(_env("TPU_CTL_GROW_HEADROOM", "1.2")),
+        help="controller: propose add_host while the model's capacity "
+        "headroom ratio stays below this band",
+    )
+    p.add_argument(
+        "--ctl-shrink-headroom", type=float,
+        default=float(_env("TPU_CTL_SHRINK_HEADROOM", "3.0")),
+        help="controller: propose drain_host while the headroom ratio "
+        "stays above this band (the dead band between the two absorbs "
+        "ramps)",
     )
     p.add_argument(
         "--serving-shards", type=int,
@@ -1670,7 +1748,8 @@ class RunningServer:
                  tier_manager=None, http_runner=None, metrics=None,
                  labels_watcher=None, native_plane=None, profiler=None,
                  planes=None, authority=None, admission=None,
-                 native_ingress=None, pod=None, serving_shards=()):
+                 native_ingress=None, pod=None, serving_shards=(),
+                 controller=None):
         self.limiter = limiter
         self.rls_server = rls_server
         self.watcher = watcher
@@ -1705,6 +1784,9 @@ class RunningServer:
         self.pod = pod
         #: the RlsServingShards of ``--serving-shards``
         self.serving_shards = list(serving_shards)
+        #: the CapacityController of ``--capacity-controller`` observe or
+        #: on, or None
+        self.controller = controller
 
     @property
     def signal_bus(self):
@@ -1727,6 +1809,12 @@ class RunningServer:
         return getattr(counters, "inner", None)
 
     async def stop(self) -> None:
+        if self.controller is not None:
+            # First: nothing may actuate (or propose a resize) into the
+            # subsystems that stop behind it. Off the loop: the close
+            # joins the cadence thread.
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.controller.close)
         self.watcher.stop()
         if self.labels_watcher is not None:
             self.labels_watcher.stop()
@@ -2089,6 +2177,94 @@ def _warm_device(storage) -> float:
     return time.perf_counter() - t0
 
 
+def _controller_refusals(args) -> None:
+    """Refuse a ``--capacity-controller`` that cannot come up as asked
+    (ValueError, exit 2), before anything is built. The JAX server
+    starts these and lets them do nothing (the host bounds widen to the
+    minimum, a standby list without a resize coordinator is never
+    read)."""
+    if args.capacity_controller == "off":
+        return
+    if args.ctl_interval <= 0:
+        raise ValueError(
+            f"--ctl-interval {args.ctl_interval:g}: must be > 0")
+    if args.ctl_min_hosts > args.ctl_max_hosts:
+        raise ValueError(
+            f"--ctl-min-hosts {args.ctl_min_hosts} above --ctl-max-hosts "
+            f"{args.ctl_max_hosts}")
+    if args.ctl_standby.strip() and not (
+            args.pod_processes > 1 and args.pod_resize == "on"):
+        raise ValueError(
+            "--ctl-standby: only a resize-armed pod member "
+            "(--pod-processes > 1 --pod-resize on) can promote a warm "
+            "standby")
+
+
+def build_controller(args, limiter, native_pipeline, admission, planes,
+                     pod, metrics):
+    """The capacity controller ``--capacity-controller`` asks for (not
+    started), bound to every planner of the serving lanes (each batcher
+    pair's, the compiled and the native pipeline's), the lease broker,
+    the admission plane and a resize-armed pod's coordinator; None with
+    ``off``, which imports nothing of ``control/``."""
+    if args.capacity_controller == "off":
+        return None
+    from ..control import CapacityController, ModelPolicy, ServerActuator
+
+    counters = limiter.storage.counters
+    served = getattr(limiter, "wrapped", limiter)  # under a pod frontend
+
+    def planners():
+        out = []
+        pairs = getattr(counters, "_batcher_pairs", None)
+        if pairs is not None:
+            out.extend(mb.chunk_planner for mb, _ub in pairs())
+        for owner in (served, native_pipeline):
+            planner = getattr(owner, "chunk_planner", None)
+            if planner is not None:
+                out.append(planner)
+        return out
+
+    coordinator = getattr(pod, "resize", None) if pod is not None else None
+    actuator = ServerActuator(
+        overload=admission.overload if admission is not None else None,
+        admission=admission,
+        planners=planners,
+        broker=getattr(native_pipeline, "lease_broker", None),
+        coordinator=coordinator,
+        standby_addresses=[a.strip() for a in args.ctl_standby.split(",")
+                           if a.strip()],
+        min_hosts=args.ctl_min_hosts,
+        max_hosts=args.ctl_max_hosts,
+    )
+    controller = CapacityController(
+        actuator,
+        policy=ModelPolicy(
+            budget_ms=args.slo_budget_ms,
+            grow_headroom=args.ctl_grow_headroom,
+            shrink_headroom=args.ctl_shrink_headroom,
+        ),
+        signals=planes.signal_bus,
+        estimator=planes.estimator,
+        events=pod.events if pod is not None else None,
+        mode=args.capacity_controller,
+        interval_s=args.ctl_interval,
+        sustain_s=args.ctl_sustain,
+        dwell_s=args.ctl_dwell,
+    )
+    if planes.signal_bus is not None:
+        planes.signal_bus.attach_controller(controller)
+    metrics.attach_render_hook(controller)
+    log.info(
+        f"capacity controller "
+        f"{'ON' if args.capacity_controller == 'on' else 'observing'}: "
+        f"{len(actuator.specs())} knobs, membership "
+        f"{'armed' if coordinator is not None else 'unavailable'}, "
+        f"tick {args.ctl_interval:.1f}s, sustain {args.ctl_sustain:.0f}s, "
+        f"dwell {args.ctl_dwell:.0f}s")
+    return controller
+
+
 async def build_admission(args, limiter, native_pipeline, metrics):
     """The admission controller ``--admission-mode`` asks for, bound to
     the batched storage with the pipelines as drainables and its watchdog
@@ -2152,6 +2328,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
     ``on_failure(exc)``."""
     _ingress_refusals(args)
     _pod_refusals(args)
+    _controller_refusals(args)
     arm_kernel_cache(args)
     tracing.configure_tracing(args.tracing_endpoint)
     tracing.set_sample_rate(args.tracing_sample_rate)
@@ -2323,6 +2500,10 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             interval_s=args.tier_migrate_interval,
         )
         metrics.attach_render_hook(tier_manager)
+    # Wired last so that its actuator binds every live subsystem; started
+    # once the HTTP API serves.
+    controller = build_controller(args, limiter, native_pipeline, admission,
+                                  planes, pod_frontend, metrics)
     authority = None
     try:
         if args.authority_listen:
@@ -2333,6 +2514,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
                                        observatory)
                            if s is not None] + planes.debug_sources()
             + ([tier_manager] if tier_manager is not None else [])
+            + ([controller] if controller is not None else [])
             + ([authority] if authority is not None else []),
             profiler=profiler, admission=admission,
         )
@@ -2361,6 +2543,8 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
             tier.on_error = on_failure
             tier.start()
     planes.start()
+    if controller is not None:
+        controller.start()
     checkpointer = None
     if device and args.snapshot_path:
         checkpointer = Checkpointer(limiter.storage.counters.inner,
@@ -2371,7 +2555,7 @@ async def start(args, clock=time.time, on_failure=None) -> RunningServer:
                          tier_manager, http_runner, metrics, labels_watcher,
                          native_plane, profiler, planes, authority,
                          admission, native_ingress, pod_frontend,
-                         serving_shards)
+                         serving_shards, controller)
 
 
 def _serve_authority(args, limiter):
@@ -2417,6 +2601,8 @@ async def _amain(args) -> int:
                 if server.observatory is not None else "")
              + (f", admission {args.admission_mode}"
                 if server.admission is not None else "")
+             + (f", capacity controller {args.capacity_controller}"
+                if server.controller is not None else "")
              + (f", {args.serving_shards} serving loops"
                 if server.serving_shards else "")
              + (f", warm standby, peer lane on port "

@@ -123,6 +123,9 @@ DEBUG_SOURCE_SECTIONS = (
     ("standby", "standby_debug"),
     ("flight", "flight_debug"),
     ("tiering", "tiering_debug"),
+    # the capacity controller: mode, knob values and specs, the
+    # decision ring, membership clocks and interlock tallies
+    ("controller", "controller_debug"),
     ("authority", "authority_stats"),
 )
 
@@ -146,6 +149,7 @@ DEBUG_STATS_SECTIONS = (
     "standby",
     "flight",
     "tiering",
+    "controller",
     "authority",
 )
 

@@ -233,6 +233,12 @@ class PodResizeCoordinator:
         # set at join_admin "adopt" on the joiner; the first decision
         # after it resolves the ttfd gauge (frontend calls note_first_decision)
         self._join_adopted_at: Optional[float] = None
+        # the transition this member prepared and has not committed, and
+        # the newest TO epoch committed here (by the commit RPC or by an
+        # in-band adoption of the prepared epoch): one commit a
+        # transition, whichever arrives first
+        self._prepared: Optional[_Transition] = None
+        self._committed_epoch = -1
 
     # -- small accessors -------------------------------------------------------
 
@@ -729,6 +735,7 @@ class PodResizeCoordinator:
                 }
             transition = self._plan_transition(payload)
             self._peers = transition.peers
+            self._prepared = transition
         self.lane.set_peers({
             h: a for h, a in transition.peers.items()
             if h != self.host_id
@@ -738,6 +745,10 @@ class PodResizeCoordinator:
 
     def _handle_commit(self, payload: dict) -> dict:
         with self._lock:
+            if int(payload["tepoch_to"]) == self._committed_epoch:
+                # committed already: the prepared epoch reached this
+                # member in band first (adopt_remote)
+                return {"ok": True, "already": True}
             if self.active:
                 t = self._transition
                 if t is not None and t.tepoch_to == int(payload["tepoch_to"]):
@@ -753,6 +764,8 @@ class PodResizeCoordinator:
                              "commit",
                 }
             transition = self._plan_transition(payload)
+            self._committed_epoch = transition.tepoch_to
+            self._prepared = None
         self._commit(transition)
         return {"ok": True, "tepoch": self.router.topology_epoch}
 
@@ -1450,7 +1463,15 @@ class PodResizeCoordinator:
         adopt it (geometry + peers) so the re-plan routes correctly. A
         host that missed the commit broadcast catches up here; its own
         outbound migration is re-driven by the initiator's poll. Older
-        or equal epochs are ignored — epochs only move forward."""
+        or equal epochs are ignored — epochs only move forward.
+
+        The epoch of a transition this member prepared commits it, as
+        the commit RPC would (which then answers "already"): the
+        initiator commits first, so a member's forward can meet the new
+        epoch before the member's own commit arrives. The JAX
+        coordinator adopts the geometry bare, refuses the commit that
+        follows ("topology epoch moved") and the transition aborts with
+        this member left on the aborted epoch, routing to the joiner."""
         tepoch = int(resp.get("tepoch", -1))
         topo = resp.get("topology") or {}
         if not topo:
@@ -1464,18 +1485,34 @@ class PodResizeCoordinator:
                 return
             if self.active:
                 return  # mid-transition: the protocol owns the epoch
+            prepared = self._prepared
+            if (prepared is not None
+                    and tepoch == prepared.tepoch_to
+                    and self.router.topology_epoch == prepared.tepoch_from
+                    and int(topo["hosts"]) == prepared.to_topology.hosts
+                    and int(topo["shards_per_host"])
+                    == prepared.to_topology.shards_per_host
+                    and self._committed_epoch != tepoch):
+                self._committed_epoch = tepoch
+                self._prepared = None
+                commit = prepared
+            else:
+                commit = None
             peers = {
                 int(h): str(a)
                 for h, a in (resp.get("peers") or {}).items()
             }
-            if peers:
-                self._peers = peers
-            new_topo = PodTopology(
-                hosts=int(topo["hosts"]),
-                host_id=self.host_id,
-                shards_per_host=int(topo["shards_per_host"]),
-            )
-            self.router.retarget(new_topo, epoch=tepoch)
+            if commit is None:
+                if peers:
+                    self._peers = peers
+                self.router.retarget(PodTopology(
+                    hosts=int(topo["hosts"]),
+                    host_id=self.host_id,
+                    shards_per_host=int(topo["shards_per_host"]),
+                ), epoch=tepoch)
+        if commit is not None:
+            self._commit(commit)
+            return
         if peers:
             self.lane.set_peers({
                 h: a for h, a in peers.items() if h != self.host_id

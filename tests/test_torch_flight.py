@@ -408,3 +408,28 @@ def test_event_logs_equal_jax():
         assert keys == sorted(keys)
         logs[0][0].clear()
         assert logs[0][0].snapshot() == []
+
+
+def test_two_fires_within_a_millisecond_keep_two_bundles(tmp_path):
+    """Two manual triggers at one clock reading (the control planes'
+    served test sends two in a row, often 1-2 ms apart): the port's
+    engine names the second past the first's millisecond and its spool
+    keeps both; the JAX engine gives both one name, and its spool keeps
+    the second alone."""
+    with steady():
+        clock = Clock(7000.0)
+        engines = _engines(tmp_path, clock)
+        for engine, _bus, _rec in engines:
+            engine.tick()
+        names = [[engine.flight_trigger(note=n)["bundle"]
+                  for n in ("one", "two")] for engine, _bus, _rec in engines]
+        (port, _, _), (jax, _, _) = engines
+        assert names[0] == ["flight-7000000-manual-h0.json",
+                            "flight-7000001-manual-h0.json"]
+        assert names[1] == ["flight-7000000-manual-h0.json"] * 2
+        assert port.trigger_counts["manual"] == jax.trigger_counts[
+            "manual"] == 2
+        assert [port.flight_bundle(n)["note"] for n in names[0]] == [
+            "one", "two"]
+        assert port.flight_debug()["bundles"] == 2
+        assert jax.flight_debug()["bundles"] == 1

@@ -2107,3 +2107,144 @@ def test_a_native_pod_of_card_servers_matches_the_oracle(cuda, tmp_path,
     for result in results:
         assert result["lane"]["pod_peer_errors"] == 0
         assert result["native_pipeline"]
+
+
+# -- the capacity controller's knobs on the card --------------------------------
+
+
+def _retargeted_drive(dev, target_s, users, limits_):
+    """``users``' calls in one flush through a batcher on ``dev`` whose
+    planner saw 512 hits take 0.5 ms and was retargeted to ``target_s``
+    (None: ``--dispatch-chunk off``). Returns the answers, the counters,
+    the final table, the chunk plans and the B1 launches."""
+    import asyncio
+
+    from limitador_tpu_torch import AsyncRateLimiter
+    from limitador_tpu_torch.device import AsyncTorchStorage
+
+    async def drive():
+        storage = AsyncTorchStorage(
+            TorchStorage(capacity=1 << 13, device=dev, clock=lambda: 1e9),
+            max_delay=0.2, max_batch_hits=1 << 14,
+            dispatch_chunk=None if target_s else 0)
+        planner = storage.batcher.chunk_planner
+        planner.observe(0.0005, 512)
+        if target_s:
+            planner.retarget(target_s)
+        plans = []
+        split = planner.split
+
+        def spy(sizes, queue_wait_s=0.0):
+            out = split(sizes, queue_wait_s)
+            plans.append(len(out))
+            return out
+
+        planner.split = spy
+        limiter = AsyncRateLimiter(storage)
+        for limit in limits_:
+            limiter.add_limit(limit)
+        routes = ("check_and_update", "check_and_update_cluster")
+        before = sum(K.launches[key] for key in routes)
+        answers = await asyncio.gather(*(
+            limiter.check_rate_limited_and_update(
+                "rt", Context({"u": u}), 1, load_counters=True)
+            for u in users))
+        launched = sum(K.launches[key] for key in routes) - before
+        counters = sorted(
+            (c.limit.name, tuple(sorted(c.set_variables.items())),
+             c.remaining) for c in await limiter.get_counters("rt"))
+        state = [a.cpu().clone() for a in storage.inner._state]
+        await storage.close()
+        return ([(a.limited, a.limit_name) for a in answers], counters,
+                state, plans, launched)
+
+    return asyncio.run(drive())
+
+
+@pytest.mark.parametrize("target_ms", [1.0, 2.0])
+def test_retargeted_planners_split_b1_like_one_launch(cuda, target_ms):
+    """A planner the capacity controller retargeted splits one flush of
+    6,000 hits on the card's table into several B1 launches, each
+    check-all-then-update-all in turn: the answers, the counters and the
+    final table equal one launch's (``--dispatch-chunk off``) on the same
+    requests."""
+    limits_ = [Limit("rt", 3, 60, [], ["u"], name="per_u"),
+               Limit("rt", 2000, 60, [], [], name="all")]
+    users = [f"u{i % 997}" for i in range(3000)]
+    split = _retargeted_drive(cuda, target_ms / 1e3, users, limits_)
+    whole = _retargeted_drive(cuda, None, users, limits_)
+    # the flush waited past the target, which the planner then halves:
+    # 512-hit chunks at 1 ms, 1,024-hit ones (the tail folded) at 2 ms
+    assert split[3] == [{1.0: 11, 2.0: 6}[target_ms]], split[3]
+    assert whole[3] == [1] and whole[4] == 1
+    assert split[4] == split[3][0]
+    assert split[0] == whole[0] and split[1] == whole[1]
+    _equal(split[2], whole[2])
+    assert sum(not limited for limited, _n in split[0]) == 2000
+
+
+def _leased_on(dev, clock, **config):
+    from limitador_tpu_torch.device import AsyncTorchStorage
+    from limitador_tpu_torch.device.native_pipeline import NativeRlsPipeline
+    from limitador_tpu_torch.device.pipeline import CompiledTorchLimiter
+    from limitador_tpu_torch.lease import LeaseConfig
+
+    limiter = CompiledTorchLimiter(AsyncTorchStorage(
+        TorchStorage(capacity=1 << 12, clock=clock, device=dev),
+        max_delay=0.001))
+    for limit in limits(Limit):
+        limiter.add_limit(limit)
+    pipeline = NativeRlsPipeline(limiter, max_delay=0.001, hot_lane=True)
+    broker = pipeline.attach_lease(LeaseConfig(**config), autostart=False)
+    broker._clock = clock
+    return pipeline, broker
+
+
+@pytest.mark.parametrize("scale", [0.5, 2.0])
+def test_grant_scale_settles_through_the_credit_host_form(cuda, scale):
+    """A lease broker on the card's table with the capacity controller's
+    ``grant_scale`` moved grants, serves and settles the lease corpus as
+    the same broker over the CPU's table does (B4c's host form on the
+    card, its plain version there): every row, the tallies after every
+    refresh, the tokens conserved, and the final tables after a forced
+    settle."""
+    from .torch_native_corpus import decide_cached
+
+    class Clock:
+        now = FROZEN_NOW
+
+        def __call__(self):
+            return self.now
+
+    config = dict(max_tokens=64, hot_threshold=2, ttl_s=30.0)
+    gclock, cclock = Clock(), Clock()
+    (gpu, gb), (cpu, cb) = (_leased_on(cuda, gclock, **config),
+                            _leased_on("cpu", cclock, **config))
+    gb.grant_scale = cb.grant_scale = scale
+    credits = K.launches["credit_host"]
+    blobs = corpus(6)
+    for _pass in range(3):
+        for ofs in range(0, len(blobs), 64):
+            part = blobs[ofs:ofs + 64]
+            assert decide_cached(gpu, part) == decide_cached(cpu, part), ofs
+            assert gb.refresh()["grants"] == cb.refresh()["grants"], ofs
+            stats = gb.stats()
+            assert stats == cb.stats(), ofs
+            assert stats["lease_granted_tokens"] == (
+                stats["lease_admissions"] + stats["lease_returned_tokens"]
+                + stats["lease_outstanding_tokens"]), stats
+        gclock.now += 121.0
+        cclock.now += 121.0
+    for pipeline, clock, broker in ((gpu, gclock, gb), (cpu, cclock, cb)):
+        pipeline.invalidate()
+        decide_cached(pipeline, blobs[:8])
+        clock.now += 10_000.0
+        broker.refresh()
+    stats = gb.stats()
+    assert stats == cb.stats()
+    assert stats["lease_admissions"] > 0 and stats["lease_returned_tokens"] > 0
+    assert stats["lease_outstanding_tokens"] == 0
+    assert stats["lease_granted_tokens"] == (
+        stats["lease_admissions"] + stats["lease_returned_tokens"])
+    assert K.launches["credit_host"] > credits
+    _equal(gpu.storage._state, cpu.storage._state)

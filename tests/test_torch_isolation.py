@@ -25,6 +25,13 @@
   (``server/resize.py``) is imported only with ``--pod-resize on`` or
   ``--standby on``, and the warm standby (``server/standby.py``) only
   with ``--standby on``.
+- A server imports the capacity controller's package
+  (``limitador_tpu_torch.control``) only when ``--capacity-controller``
+  is not ``off``, in a process that refuses ``jax`` and
+  ``limitador_tpu``; the tools (``limitador_tpu_torch.tools``) are
+  never imported by a server. The server's argparse destinations are
+  the JAX server's but ``tpu_capacity`` and ``xla_cache_dir``, plus
+  ``capacity``, ``device`` and ``kernel_cache_dir``.
 - A 2-process pod of port servers forms, decides and stops with both
   processes refusing to import ``jax`` and ``limitador_tpu``, routed and
   with ``--pipeline native --native-ingress`` (the native pod fast
@@ -382,6 +389,75 @@ def test_the_admission_package_is_imported_only_when_asked_for(tmp_path,
     on = mode != "off"
     assert proc.stdout.strip().splitlines()[-1] == str(
         (on, on, False, False))
+
+
+_CONTROL = r'''
+import asyncio, importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "limitador_tpu"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+from limitador_tpu_torch.server import __main__ as m
+
+async def main(argv):
+    server = await m.start(m.build_parser().parse_args(argv))
+    try:
+        await asyncio.sleep(0.3)
+        controller = server.controller
+        return ("limitador_tpu_torch.control" in sys.modules,
+                controller is not None,
+                controller.stats()["ctl_ticks"] > 0
+                if controller is not None else None,
+                any(k.startswith("limitador_tpu_torch.tools")
+                    for k in sys.modules))
+    finally:
+        await server.stop()
+
+print(asyncio.run(main(sys.argv[1:])))
+'''
+
+
+@pytest.mark.parametrize("mode", ["off", "observe", "on"])
+def test_the_control_package_is_imported_only_when_asked_for(tmp_path,
+                                                             mode):
+    """``--capacity-controller off`` (the default) builds nothing and
+    never imports ``limitador_tpu_torch.control``; ``observe`` and
+    ``on`` build the controller, which ticks. No server imports the
+    tools, and none imports ``jax`` or ``limitador_tpu``."""
+    from .torch_http import LIMITS, free_port, port_argv
+
+    limits = tmp_path / "limits.yaml"
+    limits.write_text(LIMITS)
+    argv = port_argv(limits, "torch", free_port(), "--pipeline", "native",
+                     "--capacity-controller", mode, "--ctl-interval", "0.05")
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", _CONTROL, *argv], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    on = mode != "off"
+    assert proc.stdout.strip().splitlines()[-1] == str(
+        (on, on, True if on else None, False))
+
+
+def test_the_server_options_are_the_jax_ones():
+    """The port's server takes the JAX server's options (the capacity
+    controller's nine among them) but the two of the XLA runtime, and
+    adds its own three."""
+    from limitador_tpu.server.__main__ import build_parser as j_parser
+    from limitador_tpu_torch.server.__main__ import build_parser
+
+    port = set(vars(build_parser().parse_args(["x.yaml", "torch"])))
+    jax = set(vars(j_parser().parse_args(["x.yaml", "tpu"])))
+    assert port == (jax - {"tpu_capacity", "xla_cache_dir"}) | {
+        "capacity", "device", "kernel_cache_dir"}
+    assert {"capacity_controller", "ctl_interval", "ctl_sustain",
+            "ctl_dwell", "ctl_standby", "ctl_min_hosts", "ctl_max_hosts",
+            "ctl_grow_headroom", "ctl_shrink_headroom"} <= port
 
 
 _GUARDED_POD = r'''

@@ -285,17 +285,19 @@ def _dashboard_families():
     names = set(re.findall(
         r"(?<![A-Za-z0-9_])((?:authorized|limited|datastore|batcher|"
         r"plan_cache|native_lane|lease|tenant|tier|sharded|device_phase|"
-        r"native_phase|slo|signal|flight|model|capacity|ingress)"
+        r"native_phase|slo|signal|flight|model|capacity|ingress|pod|"
+        r"peer_health|join|standby|ctl)"
         r"_[a-z0-9_]+|"
         r"device_backed)",
         exprs))
     return names
 
 
-#: The prefixes above hold no family of a plane the port does not have
-#: yet: the pod's and the capacity controller's families (``pod_*``,
-#: ``ctl_*``, ROADMAP Queue A items 7 and 8) fall outside them; the pod's
-#: ``pod_signal_*`` are not ``signal_*`` families.
+#: The prefixes above cover every plane the dashboard reads, the pod's
+#: and the capacity controller's (``pod_*``, ``peer_health_*``,
+#: ``join_*``, ``standby_*``, ``ctl_*``) among them, all declared on
+#: every server; the pod's ``pod_signal_*`` are ``pod_*`` families, not
+#: ``signal_*`` ones.
 
 
 HOT_LIMIT = """\

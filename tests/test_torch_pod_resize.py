@@ -190,6 +190,62 @@ def _drain(pkg):
         E.stop(lanes)
 
 
+def _epoch_in_band_first(pkg):
+    """A grow 2 -> 3 where host 1 meets the initiator's new epoch in band
+    (a stale_epoch reply carrying host 0's committed topology) just
+    before host 1's commit RPC arrives, as a forward racing the commit
+    broadcast does; then every user on every host against the oracle."""
+    lanes, fronts, coords, addrs, limits = E.elastic_pod(pkg, 2, n_total=3)
+    try:
+        oracle = _oracle(pkg, limits)
+        oracle.configure_with(limits)
+        users = [f"user-{i}" for i in range(40)]
+        _drive(pkg, fronts, users, 2, 2, oracle)
+        real = coords[1]._handle_commit
+
+        def commit_after_the_stale_reply(payload):
+            coords[1].adopt_remote({
+                "tepoch": fronts[0].router.topology_epoch,
+                **coords[0].stale_info(),
+            })
+            return real(payload)
+
+        coords[1]._handle_commit = commit_after_the_stale_reply
+        out = coords[0].resize(3, peers={2: addrs[2]})
+        assert E.wait_for(lambda: not any(c.active for c in coords), 10.0)
+        views = [(f.router.topology.hosts, f.router.topology_epoch)
+                 for f in fronts[:2]]
+        hosts = fronts[0].router.topology.hosts
+        exact = True
+        for i, u in enumerate(users):
+            got = bool(E.check(pkg, fronts[i % hosts], u).limited)
+            exact &= got == bool(E.check(pkg, oracle, u).limited)
+        spent = {}
+        for front in fronts:
+            for key, value in E.counters_of(front, "elastic").items():
+                spent[key] = spent.get(key, 0) + value
+        return {"ok": bool(out["ok"]), "views": views, "exact": exact,
+                "spent": spent == E.counters_of(oracle, "elastic")}
+    finally:
+        E.cancel_watchdogs(coords)
+        E.stop(lanes)
+
+
+def test_a_member_meeting_the_new_epoch_in_band_commits_it():
+    """The initiator commits first, so a member's forward can meet the
+    new epoch before the member's commit RPC: the port's member commits
+    the transition it prepared and the grow completes, exact. The JAX
+    member adopts the geometry bare and refuses the commit ("topology
+    epoch moved between prepare and commit"): the grow aborts, host 0
+    reverts to 2 hosts at epoch 2 and host 1 stays on the aborted 3-host
+    epoch 1 (ROADMAP Queue C)."""
+    port = _epoch_in_band_first("port")
+    assert port == {"ok": True, "views": [(3, 1), (3, 1)], "exact": True,
+                    "spent": True}
+    jax = _epoch_in_band_first("jax")
+    assert not jax["ok"] and jax["views"] == [(2, 2), (3, 1)]
+
+
 def test_drain_host_migrates_slices_to_survivors():
     got = _both(_drain)
     assert got["stats"][2]["pod_resize_released_counters"] > 0

@@ -251,14 +251,19 @@ def wait_for(predicate, timeout=10.0, interval=0.02):
 
 def capturing(captured, host=1):
     """A ``prepare`` for ``bound_lanes``: host ``host``'s lane records
-    every payload it serves (as JSON) in ``captured``."""
+    every payload it serves (as JSON) in ``captured``, but the peers'
+    federated-signal exchanges (``kind: "signals"``): a lane sends those
+    on its own probe cadence once a peer has answered, not for the
+    scenario, so a slow scenario would find one among its payloads."""
     def prepare(lane):
         if lane.host_id != host:
             return
         real = lane._serve_decide
 
         async def serve(blob, context):
-            captured.append(json.loads(blob.decode()))
+            payload = json.loads(blob.decode())
+            if payload.get("kind") != "signals":
+                captured.append(payload)
             return await real(blob, context)
 
         lane._serve_decide = serve
