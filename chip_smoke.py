@@ -411,6 +411,19 @@ Phases, in order; any failure exits non-zero and nothing falls back:
    among them, with expired and nil lines) into a torch server on the
    card: /counters equals the replayable entries, the others counted and
    not sent; B2's host form launched.
+21. The port's correctness tooling on this box, which has no JAX (so
+   the run also proves the tooling imports none): ``python -m
+   limitador_tpu_torch.tools.analysis --all`` must exit 0 (style, the
+   registries, the ctypes ABI of the hp_/h2i_/ct_ exports, buffer
+   safety, lock order, host syncs), while g++ builds the race-hunt
+   drivers (csrc/race_hunt_hostpath.cc under tsan, asan and ubsan,
+   csrc/race_hunt_h2i.cc under tsan) together; each runs for
+   HUNT_MS and fails the phase on a sanitizer report, on a missing
+   RACE_HUNT_OK line, or (the host lane) on an export of
+   tools/race_hunt.HOSTPATH_EXPORTS called zero times or no foreign row
+   split. A variant whose runtime the box's g++ lacks (a two-line
+   probe) is left out with the reason printed. One line a variant:
+   seconds to build, seconds to run, operations.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or limitador_tpu.
@@ -10412,6 +10425,80 @@ def phase_controller(dev, card):
                    "import": imported, "seconds": seconds}
 
 
+# -- phase 21: the port's correctness tooling -----------------------------
+
+#: milliseconds each race-hunt driver runs
+HUNT_MS = 2000
+
+
+def phase_tooling(card: str) -> dict:
+    """Phase 21: the port's analysis gate and its sanitizer race hunts on
+    this box. The analysis runs in a process of its own beside the
+    drivers' builds; the drivers run one after another. Returns what the
+    phase measured."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from limitador_tpu_torch.native import build as host_build
+    from limitador_tpu_torch.tools import race_hunt as RH
+
+    t0 = time.perf_counter()
+    analysis = subprocess.Popen(
+        [sys.executable, "-m", "limitador_tpu_torch.tools.analysis",
+         "--all", "--json"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    variants = sorted({variant for _driver, variant in RH.HUNTS})
+    with ThreadPoolExecutor(len(variants)) as pool:
+        probes = dict(zip(variants, pool.map(host_build.sanitizer_probe,
+                                             variants)))
+    missing = {v: why for v, why in probes.items() if why is not None}
+    for variant, why in missing.items():
+        print(f"tooling (21): the box's g++ lacks the {variant} runtime; "
+              f"its hunts are left out: {why}", flush=True)
+    hunts = [(d, v) for d, v in RH.HUNTS if v not in missing]
+    infos = {key: {} for key in hunts}
+    with ThreadPoolExecutor(max(len(hunts), 1)) as pool:
+        jobs = [pool.submit(host_build.build_tool, f"race_hunt_{d}",
+                            host_build.RACE_HUNT_SOURCES[d], variant=v,
+                            info=infos[(d, v)])
+                for d, v in hunts]
+        for job in jobs:
+            job.result()
+    build_s = time.perf_counter() - t0
+    rows = []
+    for driver, variant in hunts:
+        result = RH.hunt(driver, variant, HUNT_MS)
+        row = result.summary()
+        row["build_s"] = round(infos[(driver, variant)]["seconds"], 3)
+        rows.append(row)
+        called = sum(1 for name in RH.HOSTPATH_EXPORTS
+                     if result.calls.get(name, 0) > 0)
+        print(f"tooling (21): race hunt {driver}/{variant}: build "
+              f"{row['build_s']:.2f} s, run {result.run_s:.2f} s, "
+              f"{result.operations} operations"
+              + (f", {result.foreign_rows} foreign rows, "
+                 f"{called} of {len(RH.HOSTPATH_EXPORTS)} counted exports "
+                 "called" if driver == "hostpath" else ""), flush=True)
+        failures = result.failures()
+        if failures:
+            print(result.output[-4000:], flush=True)
+            fail(f"race hunt {driver}/{variant}: {failures}")
+    out, err = analysis.communicate(timeout=600)
+    if analysis.returncode != 0:
+        print(out[-4000:], err[-4000:], flush=True)
+        fail(f"analysis gate exited {analysis.returncode}")
+    report = json.loads(out)
+    seconds = time.perf_counter() - t0
+    print(f"tooling (21): analysis --all clean over "
+          f"{len(report['passes'])} passes ({len(report['suppressed'])} "
+          f"allowlisted); {seconds:.1f} s, the hunts' builds "
+          f"{build_s:.1f} s together; card {card}", flush=True)
+    return {"seconds": seconds, "build_s": build_s,
+            "analysis": {"passes": report["passes"],
+                         "active": len(report["active"]),
+                         "suppressed": len(report["suppressed"])},
+            "missing_runtimes": missing, "hunts": rows}
+
+
 _T0 = time.perf_counter()
 
 
@@ -10516,6 +10603,8 @@ def main() -> int:
     _mark("phase 19")
     controller_launches, controller = phase_controller(dev, card)
     _mark("phase 20")
+    tooling = phase_tooling(card)
+    _mark("phase 21")
     missing = [k for k in SHARDED_KERNELS
                if _launched(sharded_launches, k)
                + _launched(served_sharded_launches, k) == 0]
@@ -10632,6 +10721,7 @@ def main() -> int:
             "elastic_pod_launches": elastic_launches,
             "controller": controller,
             "controller_launches": controller_launches,
+            "tooling": tooling,
         }, f, indent=1)
     spool_root.cleanup()
     print(f"card: {card}")

@@ -445,6 +445,11 @@ constexpr int32_t LANE_FOREIGN_BASE = 8;
 //: per staged hit: slot, max_value, window_ms, bucket flag, name token
 constexpr int REC_STRIDE = 5;
 
+// Entries hp_lane_stats writes (out[0 .. HP_LANE_STATS)): the one length
+// of every lane-stats buffer, the binding's LANE_STATS and the race-hunt
+// driver's alike (tests/test_torch_race_hunt.py holds all three to it).
+constexpr int HP_LANE_STATS = 9;
+
 struct PlanEntry {
   uint64_t hash = 0;
   uint64_t blob_off = 0;
@@ -1031,8 +1036,8 @@ int64_t hp_plan_export(void* c, uint8_t* buf, int64_t cap) {
   return need;
 }
 
-// out[9]: hits, misses, staged_hits, insertions, invalidations,
-// overflows, live plans, epoch, foreign rows
+// out[HP_LANE_STATS]: hits, misses, staged_hits, insertions,
+// invalidations, overflows, live plans, epoch, foreign rows
 void hp_lane_stats(void* c, int64_t* out) {
   PlanMirror& m = ((Ctx*)c)->mirror;
   out[0] = (int64_t)m.hits;

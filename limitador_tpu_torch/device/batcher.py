@@ -89,7 +89,16 @@ __all__ = [
     "MicroBatcher",
     "UpdateBatcher",
     "AsyncTorchStorage",
+    "METRIC_FAMILIES",
 ]
+
+#: the chunk planner's families, as the JAX package
+#: registers them (the analysis gate holds them to
+#: observability/metrics.py)
+METRIC_FAMILIES = (
+    "dispatch_chunk_hits",
+    "dispatch_chunk_splits",
+)
 
 
 class ChunkPlanner:

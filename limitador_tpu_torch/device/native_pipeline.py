@@ -130,7 +130,21 @@ from .storage import TorchStorage
 
 log = logging.getLogger("limitador_tpu_torch")
 
-__all__ = ["NativeRlsPipeline"]
+__all__ = ["NativeRlsPipeline", "METRIC_FAMILIES"]
+
+#: the native hot lane's families and the native pod's row split, as
+#: the JAX package registers them (the analysis gate holds them to
+#: observability/metrics.py)
+METRIC_FAMILIES = (
+    "native_lane_rows",
+    "native_lane_misses",
+    "native_lane_staged_hits",
+    "native_lane_invalidations",
+    "native_lane_overflows",
+    "native_lane_plans",
+    "pod_hot_local_rows",
+    "pod_hot_foreign_rows",
+)
 
 #: the hot lane's cumulative counts, carried across context swaps
 _LANE_COUNTS = ("hits", "misses", "staged_hits", "insertions",

@@ -60,7 +60,19 @@ __all__ = [
     "PLAN_FOREIGN",
     "plan_to_wire",
     "plan_from_wire",
+    "METRIC_FAMILIES",
 ]
+
+#: the plan caches' families, as the JAX package
+#: registers them (the analysis gate holds them to
+#: observability/metrics.py)
+METRIC_FAMILIES = (
+    "plan_cache_hits",
+    "plan_cache_misses",
+    "plan_cache_evictions",
+    "plan_cache_invalidations",
+    "plan_cache_size",
+)
 
 PLAN_KERNEL = 0   # resolved device hits; decision comes from the kernel
 PLAN_OK = 1       # no limit applies: answer the OK template directly

@@ -90,7 +90,19 @@ __all__ = [
     "LAUNCH_VARIANTS",
     "snapshot_manifest",
     "snapshot_items",
+    "METRIC_FAMILIES",
 ]
+
+#: the sharded table's families, as the JAX package
+#: registers them (the analysis gate holds them to
+#: observability/metrics.py)
+METRIC_FAMILIES = (
+    "sharded_launches",
+    "sharded_route_memo_hits",
+    "sharded_route_memo_misses",
+    "sharded_route_memo_evictions",
+    "sharded_route_memo_size",
+)
 
 #: ``launch_stats()["sharded_launches"]`` keys: lean = no coupling and no
 #: global region, coupled = rows coupled by the vote AND, global = the

@@ -30,4 +30,17 @@ The contract:
 
 from .broker import LeaseBroker, LeaseConfig
 
-__all__ = ["LeaseBroker", "LeaseConfig"]
+__all__ = ["LeaseBroker", "LeaseConfig", "METRIC_FAMILIES"]
+
+#: the lease tier's families (fed by the broker's stats), as the JAX package
+#: registers them (the analysis gate holds them to
+#: observability/metrics.py)
+METRIC_FAMILIES = (
+    "lease_admissions",
+    "lease_grants",
+    "lease_grant_denials",
+    "lease_granted_tokens",
+    "lease_returned_tokens",
+    "lease_active",
+    "lease_outstanding_tokens",
+)

@@ -78,6 +78,7 @@ __all__ = [
     "LANE_ERROR",
     "LANE_FOREIGN",
     "LANE_FOREIGN_BASE",
+    "LANE_STATS",
     "pod_available",
     "pod_hash",
     "partition_positions",
@@ -106,6 +107,8 @@ TEL_BUCKETS = 40
 TEL_EX_STRIDE = 12
 #: int64 slots of the hot begin's meta (hp_hot_begin out_meta)
 META_WIDTH = 12
+#: int64 entries hp_lane_stats writes (HP_LANE_STATS in csrc/hostpath.cc)
+LANE_STATS = 9
 
 _bind_lock = threading.Lock()
 _bound = None
@@ -488,7 +491,7 @@ class HostPath:
         return self._lib.hp_plan_count(self._ctx)
 
     def lane_stats(self) -> dict:
-        out = np.zeros(9, np.int64)
+        out = np.zeros(LANE_STATS, np.int64)
         if self._ctx:  # zeros after close (interner recycle)
             self._lib.hp_lane_stats(self._ctx, out.ctypes.data)
         keys = ("hits", "misses", "staged_hits", "insertions",

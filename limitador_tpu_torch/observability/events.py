@@ -29,7 +29,16 @@ __all__ = [
     "EVENT_KINDS",
     "PodEventLog",
     "merge_events",
+    "METRIC_FAMILIES",
 ]
+
+#: the event timeline's families, as the JAX package
+#: registers them (the analysis gate holds them to
+#: observability/metrics.py)
+METRIC_FAMILIES = (
+    "pod_events",
+    "pod_event_seq",
+)
 
 #: the closed set of typed pod events: peer health
 #: transitions, per-owner breaker transitions, degraded-window

@@ -41,7 +41,19 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["TenantUsageObservatory"]
+__all__ = ["TenantUsageObservatory", "METRIC_FAMILIES"]
+
+#: the usage observatory's families, as the JAX package
+#: registers them (the analysis gate holds them to
+#: observability/metrics.py)
+METRIC_FAMILIES = (
+    "tenant_hits",
+    "tenant_utilization",
+    "tenant_max_utilization",
+    "tenant_near_exhaustion",
+    "tenant_top_hit_count",
+    "tenant_tracked_counters",
+)
 
 log = logging.getLogger(__name__)
 

@@ -46,11 +46,12 @@ Like the rest of the port, every function updates the table in place
 and returns it.
 
 The serving pod's parts of the JAX file (``PodInfo``, ``initialize_pod``,
-``PodMembership``, ``pod_barrier``, ``PodPsumLane``) are in ``pod.py``,
-imported in pod mode only; the legacy global-mesh formation
-(``make_global_mesh``, ``host_local_to_global``, ``pod_sync``) and
-``PeerPsumTransport`` come with the elastic pod (ROADMAP Queue A item
-7c).
+``PodMembership``, ``pod_barrier``, ``PodPsumLane``,
+``PeerPsumTransport``) are in ``pod.py``, imported in pod mode only. The
+legacy global-mesh formation (``make_global_mesh``,
+``host_local_to_global``, ``pod_sync``) is not ported: it needs a device
+collective across processes, which no NCCL group gives two processes on
+one card, and only the JAX package's bench and parity harnesses use it.
 """
 
 from __future__ import annotations

@@ -52,7 +52,20 @@ __all__ = [
     "pod_barrier",
     "PodPsumLane",
     "PeerPsumTransport",
+    "METRIC_FAMILIES",
 ]
+
+#: the psum lane's families, as the JAX package
+#: registers them (the analysis gate holds them to
+#: observability/metrics.py)
+METRIC_FAMILIES = (
+    "pod_psum_namespaces",
+    "pod_psum_decisions",
+    "pod_psum_limited",
+    "pod_psum_exchanges",
+    "pod_psum_cells",
+    "pod_psum_remote_slots",
+)
 
 log = logging.getLogger("limitador_tpu_torch")
 

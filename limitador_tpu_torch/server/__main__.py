@@ -1246,9 +1246,9 @@ def build_host_storage(args, clock=time.time, on_partitioned=None):
     if args.storage == "memory":
         return InMemoryStorage(args.cache_size or DEFAULT_CACHE_SIZE,
                                clock=clock)
-    if args.storage == "disk":
+    if args.storage in ("disk", "cached"):
         from ..storage.disk import DiskStorage
-
+    if args.storage == "disk":
         return DiskStorage(args.disk_path or "limitador_counters.db",
                            clock=clock)
     if args.storage == "cached":
@@ -1260,8 +1260,6 @@ def build_host_storage(args, clock=time.time, on_partitioned=None):
             authority = RemoteAuthority(
                 args.authority_url, timeout=args.response_timeout / 1000.0)
         else:
-            from ..storage.disk import DiskStorage
-
             authority = DiskStorage(args.disk_path or "limitador_counters.db",
                                     clock=clock)
         return CachedCounterStorage(

@@ -105,6 +105,7 @@ __all__ = [
     "run_http_server",
     "DEBUG_STATS_SECTIONS",
     "DEBUG_SOURCE_SECTIONS",
+    "DEBUG_NONEMPTY_SECTIONS",
 ]
 
 #: /debug/stats sections sourced from debug_sources by named callable:
@@ -127,6 +128,13 @@ DEBUG_SOURCE_SECTIONS = (
     # decision ring, membership clocks and interlock tallies
     ("controller", "controller_debug"),
     ("authority", "authority_stats"),
+)
+
+#: /debug/stats sections served only when their source returns a
+#: non-empty section: (section key, source attribute)
+DEBUG_NONEMPTY_SECTIONS = (
+    ("native_hot_lane", "lane_stats"),
+    ("lease", "lease_stats"),
 )
 
 #: every /debug/stats section this module adds on top of
@@ -625,8 +633,7 @@ class _Api:
         stats["native_build"] = {
             **host_lane_build_status(), **kernel_build_status(),
         }
-        for key, attr in (("native_hot_lane", "lane_stats"),
-                          ("lease", "lease_stats")):
+        for key, attr in DEBUG_NONEMPTY_SECTIONS:
             fn = self._debug_source_fn(attr)
             section = fn() if fn is not None else None
             if section:

@@ -762,6 +762,11 @@ def test_datastore_partitioned_follows_the_replica(tmp_path):
     assert run(main()) == (1.0, 0.0, [96])
 
 
+#: a server's log when a port picked free was taken before it bound it
+BIND_FAILURES = ("ddress already in use", "could not bind",
+                 "Failed to bind", "cannot bind")
+
+
 def test_three_server_processes_share_one_torch_authority(tmp_path):
     """An authority process (torch storage on the CPU, --authority-listen
     on port 0, read back from /debug/stats) and two cached replica
@@ -772,37 +777,52 @@ def test_three_server_processes_share_one_torch_authority(tmp_path):
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     procs = []
 
-    def spawn(storage, *extra):
-        http = free_port()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "limitador_tpu_torch.server",
-             str(limits), storage, "--rls-host", "127.0.0.1",
-             "--rls-port", str(free_port()), "--http-host", "127.0.0.1",
-             "--http-port", str(http), "--flight-spool-dir",
-             str(tmp_path / f"flight{len(procs)}"), *extra],
-            cwd=REPO, env=env, stdout=subprocess.DEVNULL,
-            stderr=subprocess.DEVNULL)
-        procs.append(proc)
-        return http
-
-    def wait_http(http):
-        deadline = time.monotonic() + 120
-        while time.monotonic() < deadline:
-            try:
-                return json.loads(_http_get(http, "/debug/stats"))
-            except Exception:
+    def start(storage, *extra):
+        """Spawn a server and wait until it serves; returns its HTTP port
+        and first /debug/stats. Its ports are picked free before it binds
+        them, so another process can take one in between: a server that
+        exits on a bind failure starts again on fresh ports, and one that
+        exits for another reason fails at once with its log."""
+        for attempt in range(3):
+            http = free_port()
+            err = tmp_path / f"server{len(procs)}.err"
+            with open(err, "w") as log:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "limitador_tpu_torch.server",
+                     str(limits), storage, "--rls-host", "127.0.0.1",
+                     "--rls-port", str(free_port()), "--http-host",
+                     "127.0.0.1", "--http-port", str(http),
+                     "--flight-spool-dir",
+                     str(tmp_path / f"flight{len(procs)}"), *extra],
+                    cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                    stderr=log)
+            procs.append(proc)
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                try:
+                    stats = json.loads(_http_get(http, "/debug/stats"))
+                except Exception:
+                    stats = None
+                if proc.poll() is not None:
+                    break
+                if stats is not None:
+                    return http, stats
                 time.sleep(0.2)
-        raise AssertionError("server never came up")
+            else:
+                raise AssertionError("server never came up")
+            text = err.read_text()
+            if attempt == 2 or not any(m in text for m in BIND_FAILURES):
+                raise AssertionError(
+                    f"server exited {proc.returncode}:\n{text[-3000:]}")
+        raise AssertionError("unreachable")
 
     try:
-        auth_http = spawn("torch", "--device", "cpu", "--capacity", "1024",
-                          "--usage-topk", "0", "--authority-listen",
-                          "127.0.0.1:0")
-        port = wait_http(auth_http)["authority"]["port"]
-        replicas = [spawn("cached", "--authority-url", f"127.0.0.1:{port}")
-                    for _ in range(2)]
-        for http in replicas:
-            wait_http(http)
+        auth_http, stats = start("torch", "--device", "cpu", "--capacity",
+                                 "1024", "--usage-topk", "0",
+                                 "--authority-listen", "127.0.0.1:0")
+        port = stats["authority"]["port"]
+        replicas = [start("cached", "--authority-url",
+                          f"127.0.0.1:{port}")[0] for _ in range(2)]
         for i, http in enumerate(replicas):
             assert _http_post(http, "/check_and_report", {
                 "namespace": "ns", "values": {"u": "shared"},

@@ -36,6 +36,9 @@
   processes refusing to import ``jax`` and ``limitador_tpu``, routed and
   with ``--pipeline native --native-ingress`` (the native pod fast
   path).
+- The port's analysis tooling (``limitador_tpu_torch.tools.analysis``,
+  ``tools/lint.py``, ``tools/race_hunt.py``) imports and runs its passes
+  in a process that refuses ``jax`` and ``limitador_tpu``.
 - The port's protobuf message classes are its own even when both
   packages are loaded in one process (the JAX package registers the same
   ``.proto`` files and puts its proto directory on ``sys.path``).
@@ -192,18 +195,47 @@ def free():
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
+def free_pair():
+    """A free port whose next port is free too: --native-ingress serves
+    the ingress on --rls-port and grpc.aio on --rls-port + 1."""
+    for _ in range(100):
+        port = free()
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port + 1))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free pair of local ports")
+
+def bind_failure(exc):
+    text = str(exc).lower()
+    return (isinstance(exc, OSError) or "bind" in text
+            or "address already in use" in text)
+
+async def start(limits, tmp):
+    """Start the server; a pair picked free can still be taken before
+    the server binds it, so a bind failure starts it again on a fresh
+    pair (start() stops what it brought up before it raises)."""
+    for attempt in range(5):
+        port = free_pair()
+        try:
+            return port, await m.start(m.build_parser().parse_args([
+                limits, "torch", "--device", "cpu", "--capacity", "64",
+                "--pipeline", "native", "--native-ingress", "--rls-host",
+                "127.0.0.1", "--rls-port", str(port), "--http-host",
+                "127.0.0.1", "--http-port", str(free()),
+                "--flight-spool-dir", os.path.join(tmp, "flight")]))
+        except (OSError, RuntimeError, ValueError) as exc:
+            if attempt == 4 or not bind_failure(exc):
+                raise
+
 async def main(tmp):
     limits = os.path.join(tmp, "limits.yaml")
     with open(limits, "w") as f:
         f.write("- namespace: ns\n  max_value: 1\n  seconds: 60\n"
                 '  variables: ["descriptors[0].u"]\n')
-    port = free()
-    server = await m.start(m.build_parser().parse_args([
-        limits, "torch", "--device", "cpu", "--capacity", "64",
-        "--pipeline", "native", "--native-ingress", "--rls-host",
-        "127.0.0.1", "--rls-port", str(port), "--http-host", "127.0.0.1",
-        "--http-port", str(free()), "--flight-spool-dir",
-        os.path.join(tmp, "flight")]))
+    port, server = await start(limits, tmp)
     req = rls_pb2.RateLimitRequest(domain="ns")
     req.descriptors.add().entries.add(key="u", value="x")
 
@@ -240,6 +272,41 @@ def test_native_ingress_server_runs_without_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "served" in proc.stdout
+
+
+_GUARDED_TOOLS = r'''
+import importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "limitador_tpu"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+from limitador_tpu_torch.tools import analysis, lint, race_hunt
+from limitador_tpu_torch.tools.analysis import __main__ as cli
+
+active, suppressed = analysis.run_passes()
+assert active == [], [f.render() for f in active]
+assert cli.main(["--list"]) == 0
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "limitador_tpu")
+               for m in sys.modules)
+print("analysed", len(analysis.PASSES), "passes")
+'''
+
+
+def test_the_analysis_tooling_runs_without_jax_or_the_jax_package():
+    """The port's analysis registry, its lint shim and the race-hunt
+    harness import neither JAX nor ``limitador_tpu`` (chip_smoke.py runs
+    the registry on the card's machine, which has no JAX)."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run(
+        [sys.executable, "-c", _GUARDED_TOOLS], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "analysed 9 passes" in proc.stdout
 
 
 def _imports(path: Path):

@@ -853,10 +853,16 @@ def test_peer_delta_sink_acks_per_chunk():
 
 def _abort(pkg, spool):
     flight = E.mod(pkg, "observability.flight")
+    # slice_pause_s (the chaos hook of TPU_POD_RESIZE_SLICE_PAUSE_MS)
+    # holds each member's first copy to host 2 for a second after
+    # migrate_begin: the stop below lands inside that window however
+    # loaded the machine, where without it a fast migration could
+    # complete the resize before the stop
     lanes, fronts, coords, addrs, limits = E.elastic_pod(
         pkg, 2, n_total=3,
         resize_kwargs={"migrate_timeout_s": 0.5,
-                       "transition_timeout_s": 6.0})
+                       "transition_timeout_s": 6.0,
+                       "slice_pause_s": 1.0})
     # host 0's flight trigger plane over its pod event log
     engine = flight.TriggerEngine(
         flight.FlightRecorder(sample_stride=1),

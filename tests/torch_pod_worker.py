@@ -263,7 +263,9 @@ async def serve_and_drive(args) -> dict:
             if asyncio.iscoroutine(got):  # an async limiter's
                 got = await got
             counters += counter_rows(got, ns)
-        deadline = time.time() + 10
+        # the peers' signals ride the lane's probes: wait for them as
+        # long as for a barrier (a loaded machine delays the probes)
+        deadline = time.time() + 60
         while (len(frontend.aggregator.peer_hosts())
                < args.num_processes - 1 and time.time() < deadline):
             await asyncio.sleep(0.05)
@@ -350,46 +352,91 @@ def free_port_pair() -> int:
     raise RuntimeError("no free port pair")
 
 
-def spawn_pod(tmp_path, storage, device="cpu", timeout=90, prefix=(),
-              mode="routed", pod_resize="off"):
-    """Run the two members of a pod (this file's ``server`` mode) and
-    return their reports; ``prefix`` goes between the interpreter and
-    this file's path. Every wait has a deadline (``timeout`` seconds a
-    member), and a member still running at the end is killed."""
-    repo = Path(__file__).resolve().parent.parent
-    coordinator = f"127.0.0.1:{free_port()}"
-    peer_ports = ",".join(str(free_port()) for _ in range(2))
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith("TPU_POD_")}
-    env["PYTHONPATH"] = str(repo)
-    procs, outs = [], []
-    for pid in range(2):
-        out = Path(tmp_path) / f"pod-{storage}-{pid}.json"
-        outs.append(out)
-        procs.append(subprocess.Popen(
-            [sys.executable, *prefix, os.path.abspath(__file__), "server",
-             "--process-id", str(pid), "--num-processes", "2",
-             "--coordinator", coordinator, "--peer-ports", peer_ports,
-             "--rls-port", str(free_port_pair()), "--http-port",
-             str(free_port()), "--storage", storage, "--device", device,
-             "--mode", mode, "--pod-resize", pod_resize,
-             "--dir", str(tmp_path), "--out", str(out)],
-            cwd=repo, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-    results = []
+#: stderr text of a member that could not bind a port picked free (another
+#: process took it between the pick and the bind)
+_BIND_FAILURES = ("Address already in use", "Failed to bind",
+                  "could not bind", "cannot bind", "EADDRINUSE")
+
+#: fresh ports a spawn may take after a bind failure
+SPAWN_ATTEMPTS = 3
+
+
+def _run_members(cmds, logs, timeout):
+    """Run the members together until every one has exited: None when
+    all exited 0, else the first failure's report. A member that fails
+    stops the others at once (they would wait out their barriers for a
+    peer that is gone). Every member gets ``timeout`` seconds of its own
+    after the one before it, as one ``communicate`` each would."""
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as err:
+            procs.append(subprocess.Popen(
+                cmd["argv"], cwd=cmd["cwd"], env=cmd["env"],
+                stdout=subprocess.DEVNULL, stderr=err, text=True))
+    t0 = time.monotonic()
+    deadline = t0 + timeout * len(procs)
     try:
-        for pid, proc in enumerate(procs):
-            _stdout, stderr = proc.communicate(timeout=timeout)
-            if proc.returncode != 0:
-                raise AssertionError(
-                    f"pod worker {pid} failed:\n{stderr[-4000:]}")
-            results.append(json.loads(outs[pid].read_text()))
+        while True:
+            codes = [proc.poll() for proc in procs]
+            for pid, code in enumerate(codes):
+                if code not in (None, 0):
+                    return (f"pod worker {pid} failed (exit {code}, after "
+                            f"{time.monotonic() - t0:.1f} s):\n"
+                            f"{Path(logs[pid]).read_text()[-4000:]}")
+            if all(code == 0 for code in codes):
+                return None
+            if time.monotonic() > deadline:
+                waiting = [pid for pid, code in enumerate(codes)
+                           if code is None]
+                return (f"pod workers {waiting} still running after "
+                        f"{time.monotonic() - t0:.1f} s:\n" + "\n".join(
+                            Path(logs[pid]).read_text()[-2000:]
+                            for pid in waiting))
+            time.sleep(0.05)
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=30)
-    return results
+
+
+def spawn_pod(tmp_path, storage, device="cpu", timeout=90, prefix=(),
+              mode="routed", pod_resize="off"):
+    """Run the two members of a pod (this file's ``server`` mode) and
+    return their reports; ``prefix`` goes between the interpreter and
+    this file's path. Every wait has a deadline (``timeout`` seconds a
+    member), and a member still running at the end is killed. The ports
+    are picked free just before the members bind them, so another
+    process may take one in between: a member that fails to bind starts
+    the pod again on fresh ports (``SPAWN_ATTEMPTS`` in all)."""
+    repo = Path(__file__).resolve().parent.parent
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TPU_POD_")}
+    env["PYTHONPATH"] = str(repo)
+    for attempt in range(SPAWN_ATTEMPTS):
+        coordinator = f"127.0.0.1:{free_port()}"
+        peer_ports = ",".join(str(free_port()) for _ in range(2))
+        cmds, logs, outs = [], [], []
+        for pid in range(2):
+            out = Path(tmp_path) / f"pod-{storage}-{pid}.json"
+            outs.append(out)
+            logs.append(Path(tmp_path) / f"pod-{storage}-{pid}-{attempt}.err")
+            cmds.append({"cwd": repo, "env": env, "argv": [
+                sys.executable, *prefix, os.path.abspath(__file__),
+                "server", "--process-id", str(pid), "--num-processes", "2",
+                "--coordinator", coordinator, "--peer-ports", peer_ports,
+                "--rls-port", str(free_port_pair()), "--http-port",
+                str(free_port()), "--storage", storage, "--device", device,
+                "--mode", mode, "--pod-resize", pod_resize,
+                "--dir", str(tmp_path), "--out", str(out)]})
+        failure = _run_members(cmds, logs, timeout)
+        if failure is None:
+            return [json.loads(out.read_text()) for out in outs]
+        bind = any(marker in Path(log).read_text()
+                   for log in logs for marker in _BIND_FAILURES)
+        if not bind or attempt == SPAWN_ATTEMPTS - 1:
+            raise AssertionError(failure)
+    raise AssertionError("unreachable")
 
 
 def drive_oracle(device="cpu", native=False):
